@@ -23,7 +23,26 @@ non-zero and never prints the final line):
    ragged requests in two configs that together run prefill, latent growth,
    prefix growth and the sliding window; served tokens must equal
    per-request ``generate()``;
-6. the ``{"kernels": [...]}`` summary line, the card's ``nvidia-smi`` line,
+6. k4: the ragged paged-attention kernel (K4) against its plain PyTorch
+   version at clm-base's shapes (8 heads, head dim 112, block size 16), a
+   decode case (8 rows, q_len 1, lengths 0..1023, tail pages unmapped, trash
+   in the null block) and a window case (8 rows, q_len 512, lengths
+   520..1024), each in fp32, bf16 and int8 with scales; idle rows must be
+   exactly 0. With its time, the plain version's, the gather reference plus
+   ``scaled_dot_product_attention`` (``gather_sdpa_ms``, a yardstick the port
+   never calls) and the card's bound. No single PyTorch call reads a block
+   table, so ``library_ms`` is null;
+7. slot serve: ``SlotServingEngine`` over the full-width model (fp32), 4
+   slots, 12 requests with 496 latents, prompts of 500..960 tokens and
+   ``max_new_tokens`` cycling 16/32/48, once per KV layout (dense, paged,
+   paged_int8): rows admit into recycled slots mid-flight and cross into the
+   boundary phase at different steps. Dense and paged tokens must equal
+   per-request ``generate()`` (a divergence is excused only at a near-tie:
+   the reference's top-2 logit gap at the first divergent token < 1e-4); K4
+   must run under the paged layouts and not under dense; the pool must end
+   empty and leak-free. The int8 run's agreement with the paged run is
+   printed, not gated;
+8. the ``{"kernels": [...]}`` summary line, the card's ``nvidia-smi`` line,
    and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -33,6 +52,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -41,7 +61,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor bf16; fp32 outside the tensor cores
-KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
+# the slot-serve phase's prompt buckets: (512, 768, 1024) would make prompts
+# past 768 infeasible with 496 latents (a 1024 bucket leaves 528 prefix slots
+# > max_prefix_len 512), so the top bucket is 1008 = 512 + 496
+SLOT_BUCKETS = (512, 768, 1008)
+NEAR_TIE = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -253,6 +278,181 @@ def serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets):
     return launches
 
 
+def k4_cases(torch, ragged, paged):
+    """K4 against its plain version at clm-base's shapes (module docstring)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h, d, bs, pages = 8, 112, 16, 64
+    cases = []
+    for name, q_len, lengths in (
+        ("decode", 1, [1023, 700, 300, 40, 1, 0, 512, 17]),
+        ("window", 512, [520, 600, 680, 760, 840, 920, 1000, 1024]),
+    ):
+        b = len(lengths)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        used = [-(-length // bs) for length in lengths]
+        blocks = (torch.randperm(sum(used), generator=gen, device="cuda") + 1).int()
+        table = torch.zeros(b, pages, dtype=torch.int32, device="cuda")  # tail pages: null block
+        start = 0
+        for r, u in enumerate(used):
+            table[r, :u] = blocks[start:start + u]
+            start += u
+        tokens = (sum(used) + 1) * bs
+        pk = torch.randn(tokens, h, d, generator=gen, device="cuda")
+        pv = torch.randn(tokens, h, d, generator=gen, device="cuda")
+        pk[:bs], pv[:bs] = 1e3, -1e3  # trash in the null block
+        pos = torch.arange(pages * bs, device="cuda")
+        qi = torch.arange(q_len, device="cuda")[:, None]
+        visible = (pos[None, :] + (q_len - 1) - qi)[None] < lens.long()[:, None, None]  # (b, q, n)
+        pairs = int(visible.sum().item()) * h
+        live = sum(min(max(length, 0), pages * bs) for length in lengths)  # keys K4 must read
+        flat = paged.flat_position_indices(table, bs, pages * bs)
+        for layout in ("float32", "bfloat16", "int8"):
+            dtype = torch.bfloat16 if layout == "bfloat16" else torch.float32
+            q = (torch.randn(b, h, q_len, d, generator=gen, device="cuda") * d**-0.5).to(dtype)
+            if layout == "int8":
+                pool_k, sk = paged.quantize_kv(pk)
+                pool_v, sv = paged.quantize_kv(pv)
+                pool_k[:bs], pool_v[:bs] = 119, -77  # garbage bytes under zero scales
+                sk[:bs], sv[:bs] = 0.0, 0.0
+                scales = {"scale_k": sk, "scale_v": sv}
+            else:
+                pool_k, pool_v = pk.to(dtype), pv.to(dtype)
+                scales = {}
+
+            def kernel():
+                return ragged.ragged_paged_attention(q, pool_k, pool_v, table, lens,
+                                                     block_size=bs, **scales)
+
+            def plain():
+                return ragged.ragged_paged_attention_reference(q, pool_k, pool_v, table, lens,
+                                                               block_size=bs, **scales)
+
+            def gather_sdpa():
+                k = paged.gather_kv(pool_k, flat, scales.get("scale_k"), dtype)
+                v = paged.gather_kv(pool_v, flat, scales.get("scale_v"), dtype)
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=visible[:, None], scale=1.0)
+
+            o, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (o.float() - ref.float()).abs().max().item()
+            idle_zero = bool((o[lens <= 0] == 0).all().item())
+            tol = KERNEL_TOL[layout]
+            if not (err <= tol and idle_zero and bool(torch.isfinite(o).all().item())):
+                raise AssertionError(f"K4 {name} {layout}: max|d| {err} (tol {tol}), idle rows zero {idle_zero}")
+            iters = 200 if q_len == 1 else 50
+            ms = cuda_ms(kernel, iters)
+            plain_ms = cuda_ms(plain, 10)
+            gather_sdpa_ms = cuda_ms(gather_sdpa, iters)
+            pool_esize = pool_k.element_size()
+            nbytes = (2 * q.numel() * q.element_size() + 2 * live * h * d * pool_esize
+                      + (2 * live * h * 4 if scales else 0) + table.numel() * 4 + lens.numel() * 4)
+            flops = 4 * d * pairs  # q.k and p.v over the (query, key) pairs this data makes visible
+            tname = str(dtype).split(".")[-1]  # the products run in q's type
+            bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
+            case = dict(
+                case=name, layout=layout, b=b, h=h, q_len=q_len, d=d, block_size=bs,
+                lengths=lengths, max_abs_err=err, tol=tol, idle_rows_zero=idle_zero,
+                ms=ms, plain_ms=plain_ms, gather_sdpa_ms=gather_sdpa_ms, library_ms=None,
+                library_note="no single PyTorch call reads a block table",
+                bound_ms=max(bytes_s, ops_s) * 1e3,
+                bound_by="bytes" if bytes_s >= ops_s else "operations",
+                bytes=nbytes, flops=flops,
+            )
+            emit("k4", **case)
+            cases.append(case)
+    return cases
+
+
+def slot_serve_workload(torch, gen_mod, vocab_size: int):
+    """The slot-serve phase's 12 requests: ``(config, prompts, max_new)``."""
+    rng = torch.Generator().manual_seed(11)
+    lens = [500, 530, 600, 640, 700, 720, 780, 800, 850, 880, 900, 960]
+    news = [(16, 32, 48)[i % 3] for i in range(len(lens))]
+    prompts = [torch.randint(1, vocab_size, (n,), generator=rng).numpy() for n in lens]
+    return gen_mod.GenerationConfig(num_latents=496), prompts, news
+
+
+def _top2_gap(torch, gen_mod, model, cfg, prompt, tokens, t: int) -> float:
+    """The reference's top-2 logit gap before token ``t`` (full recompute)."""
+    n, max_latents = model.max_seq_len, model.max_latents
+    ctx = list(prompt) + list(tokens[:t])
+    window = torch.zeros((1, n), dtype=torch.long, device="cuda")
+    window[0, n - len(ctx):] = torch.tensor(ctx, device="cuda")
+    pad = torch.tensor([n - len(ctx)], device="cuda")
+    with torch.no_grad():
+        logits = gen_mod._decode_forward(model, window, pad, min(cfg.num_latents + t, max_latents))
+    top = logits[0].float().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
+    import dataclasses
+
+    cfg = clm_base_config(clm.CausalLanguageModelConfig)
+    model = clm.CausalLanguageModel(cfg, dtype=torch.float32, seed=0).eval()
+    gcfg, prompts, news = slot_serve_workload(torch, gen_mod, cfg.vocab_size)
+    configs = [dataclasses.replace(gcfg, max_new_tokens=k) for k in news]
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+    refs = [gen_mod.generate(model, p[None], c)[0].cpu().numpy() for p, c in zip(prompts, configs)]
+    tokens = sum(news)
+    launches, served = {}, {}
+    for layout in ("dense", "paged", "paged_int8"):
+        engine = slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout=layout)
+        flash.flash_attention.launches = 0  # count this path's launches only
+        ragged.ragged_paged_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, c) for p, c in zip(prompts, configs)]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k1, k4 = flash.flash_attention.launches, ragged.ragged_paged_attention.launches
+        launches[layout] = {"k1": k1, "k4": k4}
+        stats = engine.stats()
+        rows = [r.result for r in reqs]
+        served[layout] = rows
+        pool = stats.get("kv_pool", {})
+        line = dict(
+            layout=layout, requests=stats["completed"], tokens=tokens, wall_s=wall_s,
+            tokens_per_s=tokens / wall_s, ttft_ms_p50=stats["ttft_ms"]["p50"],
+            decode_step_ms_p50=stats["decode_step_ms"]["p50"], decode_steps=stats["decode_steps"],
+            boundary_steps=stats["boundary_steps"], prefills=stats["prefills"],
+            k1_launches=k1, k4_launches=k4, k1_launches_per_token=k1 / tokens,
+            k4_launches_per_token=k4 / tokens, pool_in_use=pool.get("in_use"),
+            pool_leaked=pool.get("leaked"), pool_high_water=pool.get("high_water"),
+            compute_dtype="float32",
+        )
+        failures = []
+        if stats["completed"] != len(prompts):
+            failures.append(f"completed {stats['completed']} of {len(prompts)}")
+        if (k4 > 0) != (layout != "dense"):
+            failures.append(f"K4 launches {k4} under {layout}")
+        if layout != "dense" and (pool["in_use"] != 0 or pool["leaked"] != 0):
+            failures.append(f"pool in_use {pool['in_use']}, leaked {pool['leaked']}")
+        if layout == "paged_int8":
+            same = sum(int((a == b).sum()) for a, b in zip(rows, served["paged"]))
+            line["token_agreement_with_paged"] = same / tokens
+        else:
+            divergences = []
+            for i, (row, ref) in enumerate(zip(rows, refs)):
+                diff = [t for t in range(len(ref)) if row[t] != ref[t]]
+                if diff:
+                    t = diff[0]
+                    gap = _top2_gap(torch, gen_mod, model, configs[i], prompts[i], ref, t)
+                    divergences.append({"request": i, "token": t, "top2_gap": gap})
+                    if gap >= NEAR_TIE:
+                        failures.append(f"request {i} diverges at token {t}, top-2 gap {gap}")
+            line["divergences_vs_generate"] = divergences
+        emit("slot_serve", **line)
+        if failures:
+            raise AssertionError(f"slot serve {layout}: " + "; ".join(failures))
+        del engine
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -264,8 +464,11 @@ def main() -> int:
     from perceiver_io_tpu_torch.inference import generate as gen_mod
     from perceiver_io_tpu_torch.models.text import clm
     from perceiver_io_tpu_torch.ops import flash_attention as flash
+    from perceiver_io_tpu_torch.ops import paged_attention as paged
+    from perceiver_io_tpu_torch.ops import ragged_attention as ragged
     from perceiver_io_tpu_torch.serving import buckets
     from perceiver_io_tpu_torch.serving import engine as engine_mod
+    from perceiver_io_tpu_torch.serving import slots as slots_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -279,14 +482,21 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    ptxas = [line.strip() for log in _build.BUILD_LOG.values() for line in log.splitlines()
-             if "registers" in line or "spill" in line]
-    emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(), ptxas=ptxas[:24])
+    ptxas = {}
+    for name, log in _build.BUILD_LOG.items():
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
+        ptxas[name] = {"kernels": len(regs), "registers": [min(regs, default=0), max(regs, default=0)],
+                       "max_spill_store_bytes": max(spills, default=0)}
+    emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(), ptxas=ptxas)
     cases = kernel_cases(torch, flash)
     model_phase(torch, clm, flash, gen_mod)
     launches = serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets)
+    k4 = k4_cases(torch, ragged, paged)
+    slot_launches = slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
 
     main_case = next(c for c in cases if c["case"] == "cross" and c["dtype"] == "float32")
+    k4_case = next(c for c in k4 if c["case"] == "decode" and c["layout"] == "float32")
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -300,6 +510,21 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": "cross-attention b=4 h=8 i=512 j=1024 d=112 fp32, causal, left pads",
+    }, {
+        "name": "ragged_paged_attention",
+        "route": "cuda",
+        "source": "perceiver_io_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "perceiver_io_tpu/ops/ragged_attention.py:156",
+        "launches": slot_launches["paged"]["k4"],
+        "max_abs_err": max(c["max_abs_err"] for c in k4 if c["layout"] != "bfloat16"),
+        "ms": k4_case["ms"],
+        "plain_ms": k4_case["plain_ms"],
+        "bound_ms": k4_case["bound_ms"],
+        "bound_by": k4_case["bound_by"],
+        "library_ms": None,
+        "gather_sdpa_ms": k4_case["gather_sdpa_ms"],
+        "shape": "decode b=8 h=8 q_len=1 d=112 fp32, block 16, lengths 0..1023; "
+                 "launches: the paged slot-serve run",
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

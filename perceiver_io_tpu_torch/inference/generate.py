@@ -22,6 +22,14 @@ writes into the cache tensors (``index_put_`` through indexing assignment);
 each is marked "in place" below. The only host read is of the prompt pad
 counts, before the loop.
 
+The slot engine (:mod:`perceiver_io_tpu_torch.serving.slots`) advances rows
+that sit at different steps: :func:`_slot_decode_step` takes per-row
+``length``/``m`` vectors, and :func:`_slot_decode_step_paged` /
+:func:`_decode_step_boundary_paged` run the two cached steps over the
+block-paged KV pool. Where JAX computes two steps on every row and selects
+per row, the port's in-place steps take ``write_ok`` and write only the rows
+each step owns.
+
 Beam search, sampling and the executor cache are not ported yet.
 """
 from __future__ import annotations
@@ -39,6 +47,7 @@ from perceiver_io_tpu_torch.inference.samplers import (
     sample_logits,
 )
 from perceiver_io_tpu_torch.models.core.modules import layer_norm
+from perceiver_io_tpu_torch.ops import paged_attention as paged
 from perceiver_io_tpu_torch.ops.position import RotaryEmbedding, positions
 
 DECODE_STRATEGIES = ("auto", "cached", "recompute")
@@ -164,78 +173,38 @@ def _decode_prefill(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: int):
     return mdl.head(x[:, -1]), cache, length, m
 
 
-def _decode_step(mdl, token: torch.Tensor, cache: dict, length: torch.Tensor, m: int):
-    """One cached latent-growth step: only the new token runs through the
-    model, attending over the caches, which it updates **in place**.
-
-    :param token: ``(b,)`` the token just appended.
-    :return: ``(logits, cache, length + 1, m + 1)``.
-    """
-    ar = mdl.perceiver_ar
-    b = token.shape[0]
-    n = cache["cross_k"].shape[2]
-    num_latents = mdl.max_latents
-    dev = token.device
-
-    emb, frq = ar.input_adapter(token[:, None], abs_pos=length[:, None])
-    rot = RotaryEmbedding(frq)
-    layer = ar.cross_attention
-    ca = layer.cross_attn
-    mha = ca.attention
-    x_q = layer_norm(ca.q_norm, emb, ca.dtype)  # a fresh latent: q_norm on both sides
-    q = mha.project_q(x_q, rot)
-    k_new, v_new = mha.project_kv(x_q, rot)
-    rows = torch.arange(b, device=dev)
-    cross_k, cross_v = cache["cross_k"], cache["cross_v"]
-    cross_k[rows, :, length] = k_new[:, :, 0]  # in place
-    cross_v[rows, :, length] = v_new[:, :, 0]  # in place
-    future = torch.arange(n, device=dev)[None, :] > length[:, None]  # not yet written
-    x = mha.attend(q, cross_k, cross_v, pad_mask=future) + emb
-    x = layer.mlp(x) + x
-
-    stack_future = (torch.arange(num_latents, device=dev) > m)[None].expand(b, num_latents)
-    for i, sa_layer in enumerate(ar.self_attention.layers):
-        sa = sa_layer.self_attn
-        r = rot if i == 0 else None
-        normed = layer_norm(sa.norm, x, sa.dtype)
-        q_s = sa.attention.project_q(normed, r)
-        k_s, v_s = sa.attention.project_kv(normed, r)
-        cache["stack_k"][i][:, :, m:m + 1] = k_s  # in place
-        cache["stack_v"][i][:, :, m:m + 1] = v_s  # in place
-        x = sa.attention.attend(
-            q_s, cache["stack_k"][i], cache["stack_v"][i], pad_mask=stack_future
-        ) + x
-        x = sa_layer.mlp(x) + x
-    return mdl.head(x[:, 0]), cache, length + 1, m + 1
+def _put_rows(cache: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor,
+              values: torch.Tensor, write_ok: Optional[torch.Tensor]) -> None:
+    """``cache[rows, :, idx] = values`` **in place**; rows whose ``write_ok``
+    is False keep their old entries (None: every row writes). The in-place
+    form of JAX's per-row ``where`` select between two steps' caches."""
+    values = values.to(cache.dtype)
+    if write_ok is not None:
+        keep = write_ok.reshape(write_ok.shape + (1,) * (values.dim() - 1))
+        values = torch.where(keep, values, cache[rows, :, idx])
+    cache[rows, :, idx] = values
 
 
-def _decode_step_boundary(mdl, window: torch.Tensor, pad_count: torch.Tensor,
-                          cross_k: torch.Tensor, cross_v: torch.Tensor, length: torch.Tensor):
-    """One cached prefix-growth step (latent count pinned at ``max_latents``).
+def _boundary_update(mdl, window: torch.Tensor, pad_count: torch.Tensor, length: torch.Tensor):
+    """The cache writes and latent queries of a prefix-growth step.
 
     The new token enters as the freshest latent (``q_norm``-side k/v at index
-    ``length``) and the oldest latent (index ``n - max_latents - 1 -
-    pad_count``) becomes prefix (``kv_norm``-side k/v). Both land in one
-    scatter per cache array, **in place**. The attend runs over the cache
-    gathered back into window-slot order, so masks match
-    :func:`_decode_forward`.
+    ``length``, clamped to ``N - 1`` for idle slots whose counter saturated)
+    and the oldest latent (index ``N - max_latents - 1 - pad_count``) becomes
+    prefix (``kv_norm``-side k/v).
 
-    :param window: ``(b, N)`` tokens, new token last.
-    :param pad_count: ``(b,)`` left-pad counts after the append.
-    :param length: ``(b,)`` real-token count before the append.
-    :return: ``(logits, cross_k, cross_v, length + 1)``.
+    :return: ``(write_idx (b, 2), k_upd, v_upd (b, 2, h, d), q, emb_lat,
+        frq_lat)``.
     """
     ar = mdl.perceiver_ar
-    b, n = window.shape
+    n = window.shape[1]
     num_latents = mdl.max_latents
     dev = window.device
-    layer = ar.cross_attention
-    ca = layer.cross_attn
+    ca = ar.cross_attention.cross_attn
     mha = ca.attention
-    rows = torch.arange(b, device=dev)
 
     mig_abs = ((n - num_latents - 1) - pad_count[:, None]).clamp(min=0)
-    write_idx = torch.cat([mig_abs, length[:, None]], dim=1)  # (b, 2), always distinct
+    write_idx = torch.cat([mig_abs, length.clamp(max=n - 1)[:, None]], dim=1)  # always distinct
 
     lat_abs = (torch.arange(n - num_latents, n, device=dev)[None, :] - pad_count[:, None]).clamp(min=0)
     emb_lat, frq_lat = ar.input_adapter(window[:, n - num_latents:], abs_pos=lat_abs)
@@ -244,21 +213,195 @@ def _decode_step_boundary(mdl, window: torch.Tensor, pad_count: torch.Tensor,
     emb_mig, frq_mig = ar.input_adapter(window[:, n - num_latents - 1:n - num_latents], abs_pos=mig_abs)
     k_mig, v_mig = mha.project_kv(layer_norm(ca.kv_norm, emb_mig, ca.dtype), RotaryEmbedding(frq_mig))
     k_new, v_new = mha.project_kv(x_q_lat[:, -1:], RotaryEmbedding(frq_lat[:, -1:]))
-    cross_k[rows[:, None], :, write_idx] = torch.cat([k_mig, k_new], dim=2).transpose(1, 2)  # in place
-    cross_v[rows[:, None], :, write_idx] = torch.cat([v_mig, v_new], dim=2).transpose(1, 2)  # in place
+    k_upd = torch.cat([k_mig, k_new], dim=2).transpose(1, 2)
+    v_upd = torch.cat([v_mig, v_new], dim=2).transpose(1, 2)
+    q = mha.project_q(x_q_lat, RotaryEmbedding(frq_lat, right_align=True))
+    return write_idx, k_upd, v_upd, q, emb_lat, frq_lat
+
+
+def _boundary_finish(mdl, attn: torch.Tensor, emb_lat: torch.Tensor, frq_lat: torch.Tensor):
+    """Cross-layer residual and MLP, then the whole self-attention stack over
+    the ``max_latents`` latents (all real); next-token logits ``(b, vocab)``."""
+    ar = mdl.perceiver_ar
+    x = attn + emb_lat
+    x = ar.cross_attention.mlp(x) + x
+    stack_pad = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+    x = ar.self_attention(x, stack_pad, RotaryEmbedding(frq_lat, right_align=True))
+    return mdl.head(x[:, -1])
+
+
+def _decode_step_boundary(mdl, window: torch.Tensor, pad_count: torch.Tensor,
+                          cross_k: torch.Tensor, cross_v: torch.Tensor, length: torch.Tensor,
+                          write_ok: Optional[torch.Tensor] = None):
+    """One cached prefix-growth step (latent count pinned at ``max_latents``).
+
+    The migration and append writes (:func:`_boundary_update`) land in one
+    scatter per cache array, **in place**; ``write_ok`` (per-row bool) keeps
+    the old entries of rows this step does not own. The attend runs over the
+    cache gathered back into window-slot order, so masks match
+    :func:`_decode_forward`.
+
+    :param window: ``(b, N)`` tokens, new token last.
+    :param pad_count: ``(b,)`` left-pad counts after the append.
+    :param length: ``(b,)`` real-token count before the append.
+    :return: ``(logits, cross_k, cross_v, length + 1)``.
+    """
+    b, n = window.shape
+    dev = window.device
+    rows = torch.arange(b, device=dev)
+    write_idx, k_upd, v_upd, q, emb_lat, frq_lat = _boundary_update(mdl, window, pad_count, length)
+    _put_rows(cross_k, rows[:, None], write_idx, k_upd, write_ok)
+    _put_rows(cross_v, rows[:, None], write_idx, v_upd, write_ok)
 
     slot_abs = (torch.arange(n, device=dev)[None, :] - pad_count[:, None]).clamp(min=0)
     idx = slot_abs[:, None, :, None]
     k_slots = torch.gather(cross_k, 2, idx.expand(b, cross_k.shape[1], n, cross_k.shape[3]))
     v_slots = torch.gather(cross_v, 2, idx.expand(b, cross_v.shape[1], n, cross_v.shape[3]))
     pad_mask = torch.arange(n, device=dev)[None, :] < pad_count[:, None]
-    q = mha.project_q(x_q_lat, RotaryEmbedding(frq_lat, right_align=True))
-    x = mha.attend(q, k_slots, v_slots, pad_mask=pad_mask) + emb_lat
-    x = layer.mlp(x) + x
+    mha = mdl.perceiver_ar.cross_attention.cross_attn.attention
+    attn = mha.attend(q, k_slots, v_slots, pad_mask=pad_mask)
+    return _boundary_finish(mdl, attn, emb_lat, frq_lat), cross_k, cross_v, length + 1
 
-    stack_pad = torch.zeros((b, num_latents), dtype=torch.bool, device=dev)
-    x = ar.self_attention(x, stack_pad, RotaryEmbedding(frq_lat, right_align=True))
-    return mdl.head(x[:, -1]), cross_k, cross_v, length + 1
+
+def _decode_step_boundary_paged(mdl, window: torch.Tensor, pad_count: torch.Tensor,
+                                pool_k: torch.Tensor, pool_v: torch.Tensor,
+                                block_table: torch.Tensor, length: torch.Tensor, block_size: int,
+                                write_ok: Optional[torch.Tensor] = None,
+                                scale_k: Optional[torch.Tensor] = None,
+                                scale_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`_decode_step_boundary` over the block-paged pool: the two
+    writes become table-translated pool scatters (**in place**, quantizing
+    when ``scale_k``/``scale_v`` are given), and the window attend goes
+    through :func:`~perceiver_io_tpu_torch.ops.paged_attention.paged_window_attention`
+    (K4 on the card, the gather reference on the CPU). ``write_ok`` routes
+    the writes of rows this step does not own to the null block.
+
+    :return: next-token logits ``(b, vocab)``.
+    """
+    n = window.shape[1]
+    write_idx, k_upd, v_upd, q, emb_lat, frq_lat = _boundary_update(mdl, window, pad_count, length)
+    flat = paged.flat_write_indices(block_table, write_idx, block_size)
+    if write_ok is not None:
+        flat = torch.where(write_ok[:, None], flat, flat % block_size)  # null block
+    paged.scatter_kv(pool_k, scale_k, flat, k_upd)
+    paged.scatter_kv(pool_v, scale_v, flat, v_upd)
+    mha = mdl.perceiver_ar.cross_attention.cross_attn.attention
+    attn = paged.paged_window_attention(
+        mha.attend, q, pool_k, pool_v, block_table, block_size=block_size, n=n,
+        pad_count=pad_count, scale_k=scale_k, scale_v=scale_v, project_out=mha.project_out,
+    )
+    return _boundary_finish(mdl, attn, emb_lat, frq_lat)
+
+
+def _slot_stack_step(mdl, x: torch.Tensor, rot: RotaryEmbedding, stack: dict, m: torch.Tensor,
+                     write_ok: Optional[torch.Tensor]) -> torch.Tensor:
+    """The latent stack of a per-row decode step: each row appends its new
+    latent's k/v at its own index ``min(m, I - 1)`` (**in place**; rows
+    without ``write_ok`` keep their entries) and attends over its first
+    ``m + 1`` entries. :return: next-token logits."""
+    b = x.shape[0]
+    num_latents = mdl.max_latents
+    dev = x.device
+    rows = torch.arange(b, device=dev)
+    wm = m.clamp(max=num_latents - 1)
+    stack_future = torch.arange(num_latents, device=dev)[None, :] > m[:, None]
+    for i, sa_layer in enumerate(mdl.perceiver_ar.self_attention.layers):
+        sa = sa_layer.self_attn
+        normed = layer_norm(sa.norm, x, sa.dtype)
+        q_s = sa.attention.project_q(normed, rot if i == 0 else None)
+        k_s, v_s = sa.attention.project_kv(normed, rot if i == 0 else None)
+        _put_rows(stack["stack_k"][i], rows, wm, k_s[:, :, 0], write_ok)
+        _put_rows(stack["stack_v"][i], rows, wm, v_s[:, :, 0], write_ok)
+        x = sa.attention.attend(q_s, stack["stack_k"][i], stack["stack_v"][i],
+                                pad_mask=stack_future) + x
+        x = sa_layer.mlp(x) + x
+    return mdl.head(x[:, 0])
+
+
+def _slot_token(mdl, token: torch.Tensor, length: torch.Tensor):
+    """Embedding and cross projections of each row's new token at its write
+    index ``min(length, N - 1)`` (no-op clamp for active rows; idle slots'
+    counters saturate)."""
+    ca = mdl.perceiver_ar.cross_attention.cross_attn
+    wl = length.clamp(max=mdl.max_seq_len - 1)
+    emb, frq = mdl.perceiver_ar.input_adapter(token[:, None], abs_pos=wl[:, None])
+    rot = RotaryEmbedding(frq)
+    x_q = layer_norm(ca.q_norm, emb, ca.dtype)  # a fresh latent: q_norm on both sides
+    q = ca.attention.project_q(x_q, rot)
+    k_new, v_new = ca.attention.project_kv(x_q, rot)
+    return wl, emb, rot, q, k_new, v_new
+
+
+def _slot_decode_step(mdl, token: torch.Tensor, cache: dict, length: torch.Tensor,
+                      m: torch.Tensor, write_ok: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One cached latent-growth step: only the new token runs through the
+    model, attending over the caches. ``length`` and ``m`` are per-row
+    ``(b,)`` vectors (the slot engine's rows are admitted at different times;
+    ``generate()`` passes one ``m`` for every row), write indices are clamped
+    (``min(length, N-1)``, ``min(m, I-1)``) and the stack append is a per-row
+    scatter. Cache writes are **in place**; ``write_ok`` keeps the entries of
+    rows this step does not own.
+
+    :param cache: ``cross_k/v`` ``(b, h, N, d)`` and ``stack_k/v`` lists.
+    :return: next-token logits ``(b, vocab)``.
+    """
+    n = cache["cross_k"].shape[2]
+    layer = mdl.perceiver_ar.cross_attention
+    mha = layer.cross_attn.attention
+    wl, emb, rot, q, k_new, v_new = _slot_token(mdl, token, length)
+    rows = torch.arange(token.shape[0], device=token.device)
+    _put_rows(cache["cross_k"], rows, wl, k_new[:, :, 0], write_ok)
+    _put_rows(cache["cross_v"], rows, wl, v_new[:, :, 0], write_ok)
+    future = torch.arange(n, device=token.device)[None, :] > length[:, None]  # not yet written
+    x = mha.attend(q, cache["cross_k"], cache["cross_v"], pad_mask=future) + emb
+    x = layer.mlp(x) + x
+    return _slot_stack_step(mdl, x, rot, cache, m, write_ok)
+
+
+def _decode_step(mdl, token: torch.Tensor, cache: dict, length: torch.Tensor, m: int):
+    """:func:`_slot_decode_step` with every row at latent count ``m``, the
+    step of :func:`generate`'s latent-growth phase.
+
+    :return: ``(logits, cache, length + 1, m + 1)``.
+    """
+    logits = _slot_decode_step(mdl, token, cache, length, torch.full_like(length, m))
+    return logits, cache, length + 1, m + 1
+
+
+def _slot_decode_step_paged(mdl, token: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                            block_table: torch.Tensor, stack_cache: dict, length: torch.Tensor,
+                            m: torch.Tensor, block_size: int,
+                            write_ok: Optional[torch.Tensor] = None,
+                            scale_k: Optional[torch.Tensor] = None,
+                            scale_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`_slot_decode_step` over the block-paged pool: the append is a
+    table-translated pool scatter (**in place**, quantized under int8
+    scales; ``write_ok`` routes the other rows' appends to the null block)
+    and the cross attend goes through
+    :func:`~perceiver_io_tpu_torch.ops.paged_attention.paged_decode_attention`
+    (K4 on the card, the gather reference on the CPU). The latent stack
+    stays dense.
+
+    :return: next-token logits ``(b, vocab)``.
+    """
+    n = mdl.max_seq_len
+    layer = mdl.perceiver_ar.cross_attention
+    mha = layer.cross_attn.attention
+    wl, emb, rot, q, k_new, v_new = _slot_token(mdl, token, length)
+    flat = paged.flat_write_indices(block_table, wl, block_size)
+    if write_ok is not None:
+        flat = torch.where(write_ok, flat, flat % block_size)  # null block
+    paged.scatter_kv(pool_k, scale_k, flat, k_new[:, :, 0])
+    paged.scatter_kv(pool_v, scale_v, flat, v_new[:, :, 0])
+    future = torch.arange(n, device=token.device)[None, :] > length[:, None]
+    attn = paged.paged_decode_attention(
+        mha.attend, q, pool_k, pool_v, block_table, block_size=block_size, n=n,
+        pad_mask=future, lengths=(length + 1).clamp(max=n), scale_k=scale_k, scale_v=scale_v,
+        project_out=mha.project_out,
+    )
+    x = attn + emb
+    x = layer.mlp(x) + x
+    return _slot_stack_step(mdl, x, rot, stack_cache, m, write_ok)
 
 
 def _boundary_cached(mode: Optional[str]) -> bool:

@@ -4,7 +4,7 @@ is not ported yet and raises."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -18,16 +18,22 @@ class SamplingConfig:
     repetition_penalty: float = 1.0
 
 
-def apply_min_new_tokens(logits: torch.Tensor, t: int, min_new: int,
+def apply_min_new_tokens(logits: torch.Tensor, t: Union[int, torch.Tensor], min_new: int,
                          eos_token_id: int) -> torch.Tensor:
     """EOS is unreachable until ``min_new`` tokens exist (HF
     ``MinNewTokensLengthLogitsProcessor``). ``t`` is the 0-based generation
-    step, a host integer here."""
-    if min_new <= 0 or t >= min_new:
+    step: a host integer, or a ``(b, 1)`` tensor of per-row steps (the slot
+    engine's rows sit at different steps)."""
+    if min_new <= 0:
         return logits
-    logits = logits.clone()
-    logits[:, eos_token_id] = float("-inf")
-    return logits
+    if not isinstance(t, torch.Tensor):
+        if t >= min_new:
+            return logits
+        logits = logits.clone()
+        logits[:, eos_token_id] = float("-inf")
+        return logits
+    is_eos = torch.arange(logits.shape[-1], device=logits.device)[None, :] == eos_token_id
+    return logits.masked_fill((t < min_new) & is_eos, float("-inf"))
 
 
 def apply_repetition_penalty(logits: torch.Tensor, context_ids: torch.Tensor, penalty: float,

@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """Where the serve time goes on the card.
 
-    python3 profile_serve.py
+    python3 profile_serve.py                                   # bucket engine
+    python3 profile_serve.py --engine slots --kv-layout paged  # slot engine
 
-Serves the 8-request workload of ``chip_smoke.py`` over the full-width CLM
-(random weights from a seed) on one GPU, in fp32 and in bf16 compute. For
-each: one warm-up pass, one timed pass (host clock around work that ends in
-a synchronise), and one pass under ``torch.profiler``. Prints one JSON line
-per compute type: tokens/s, the device's busy share (kernel device time of
-the profiled pass over the timed pass's wall time, one stream), the flash
-attention kernel's share and launches, and the top kernels by device time.
-The full profiler tables go to ``chiprun_out/profile_serve_<dtype>.txt``.
+``--engine bucket`` (default) serves the 8-request workload of
+``chip_smoke.py``'s serve phase through ``ServingEngine``; ``--engine
+slots`` serves the 12-request workload of its slot-serve phase through
+``SlotServingEngine`` (4 slots) in the ``--kv-layout`` given (dense or
+paged). Both over the full-width CLM (random weights from a seed) on one
+GPU, in fp32 and in bf16 compute. For each: one warm-up pass, one timed pass
+(host clock around work that ends in a synchronise), and one pass under
+``torch.profiler``. Prints one JSON line per compute type: tokens/s, the
+device's busy share (kernel device time of the profiled pass over the timed
+pass's wall time, one stream), the shares and launches of the flash
+attention kernel (K1) and the ragged paged-attention kernel (K4), and the
+top kernels by device time. The full profiler tables go to
+``chiprun_out/profile_serve_<engine>[_<layout>]_<dtype>.txt``.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -29,7 +38,41 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod, engine_mod, vocab_size):
+    """``(make_engine, run, tokens)`` for the chosen engine."""
+    if args.engine == "bucket":
+        table, work = chip_smoke.serve_workload(torch, gen_mod, buckets, vocab_size)
+
+        def make(model):
+            return engine_mod.ServingEngine(model, table=table)
+
+        def run(engine):
+            for c, prompts in work:
+                engine.serve(prompts, c)
+
+        return make, run, sum(c.max_new_tokens * len(p) for c, p in work)
+
+    gcfg, prompts, news = chip_smoke.slot_serve_workload(torch, gen_mod, vocab_size)
+    table = buckets.BucketTable(prompt_lens=chip_smoke.SLOT_BUCKETS, batch_sizes=(1,))
+
+    def make(model):
+        return slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout=args.kv_layout)
+
+    def run(engine):
+        for p, k in zip(prompts, news):
+            engine.submit(p, dataclasses.replace(gcfg, max_new_tokens=k))
+        engine.run_until_idle()
+
+    return make, run, sum(news)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--engine", choices=("bucket", "slots"), default="bucket")
+    parser.add_argument("--kv-layout", choices=("dense", "paged"), default="dense",
+                        help="the slot engine's KV layout")
+    args = parser.parse_args()
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -41,34 +84,43 @@ def main() -> int:
     from perceiver_io_tpu_torch.inference import generate as gen_mod
     from perceiver_io_tpu_torch.models.text import clm
     from perceiver_io_tpu_torch.ops import flash_attention as flash
+    from perceiver_io_tpu_torch.ops import ragged_attention as ragged
     from perceiver_io_tpu_torch.serving import buckets
     from perceiver_io_tpu_torch.serving import engine as engine_mod
+    from perceiver_io_tpu_torch.serving import slots as slots_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     cfg = chip_smoke.clm_base_config(clm.CausalLanguageModelConfig)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    tag = args.engine + (f"_{args.kv_layout}" if args.engine == "slots" else "")
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         model = clm.CausalLanguageModel(cfg, dtype=dtype, seed=0).eval()
-        table, work = chip_smoke.serve_workload(torch, gen_mod, buckets, cfg.vocab_size)
-        tokens = sum(c.max_new_tokens * len(p) for c, p in work)
+        make, run, tokens = _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod,
+                                      engine_mod, cfg.vocab_size)
 
         def serve_all():
-            engine = engine_mod.ServingEngine(model, table=table)
-            for c, prompts in work:
-                engine.serve(prompts, c)
+            engine = make(model)
+            run(engine)
             torch.cuda.synchronize()
             return engine
 
         serve_all()  # warm-up
         flash.flash_attention.launches = 0
+        ragged.ragged_paged_attention.launches = 0
         t0 = time.perf_counter()
         engine = serve_all()
         wall_s = time.perf_counter() - t0
-        launches = flash.flash_attention.launches
+        k1_launches = flash.flash_attention.launches
+        k4_launches = ragged.ragged_paged_attention.launches
+        stats = engine.stats()
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
             t1 = time.perf_counter()
@@ -81,31 +133,44 @@ def main() -> int:
         kernels.sort(key=_device_us, reverse=True)
         device_ms = sum(_device_us(e) for e in kernels) / 1e3
         k1_ms = sum(_device_us(e) for e in kernels if "flash_fwd_kernel" in e.key) / 1e3
-        (out_dir / f"profile_serve_{name}.txt").write_text(
+        k4_ms = sum(_device_us(e) for e in kernels if "ragged_" in e.key and "_kernel" in e.key) / 1e3
+        (out_dir / f"profile_serve_{tag}_{name}.txt").write_text(
             events.table(sort_by="self_cuda_time_total", row_limit=60)
         )
-        print(json.dumps({
+        measured = bool(kernels)
+        record = {
+            "engine": args.engine,
             "compute_dtype": name,
-            "device": torch.cuda.get_device_name(0),
+            "device": smi,
             "tokens": tokens,
             "wall_s": wall_s,
             "tokens_per_s": tokens / wall_s,
-            "batch_execute_ms": engine.samples["device_execute_ms"],
-            "k1_launches": launches,
+            "ttft_ms_p50": stats["ttft_ms"]["p50"],
+            "k1_launches": k1_launches,
+            "k4_launches": k4_launches,
             "profiled_wall_ms": prof_wall_s * 1e3,
-            "device_kernel_ms": device_ms if kernels else "not measured",
+            "device_kernel_ms": device_ms if measured else "not measured",
             # the profiled pass does the timed pass's work; the profiler slows
             # the host, so the share against the timed pass is the one to read
-            "device_busy_share": device_ms / (wall_s * 1e3) if kernels else "not measured",
-            "device_busy_share_profiled": device_ms / (prof_wall_s * 1e3) if kernels else "not measured",
-            "k1_device_ms": k1_ms if kernels else "not measured",
+            "device_busy_share": device_ms / (wall_s * 1e3) if measured else "not measured",
+            "device_busy_share_profiled": device_ms / (prof_wall_s * 1e3) if measured else "not measured",
+            "k1_device_ms": k1_ms if measured else "not measured",
             "k1_share_of_device": k1_ms / device_ms if device_ms else "not measured",
+            "k4_device_ms": k4_ms if measured else "not measured",
+            "k4_share_of_device": k4_ms / device_ms if device_ms else "not measured",
             "top_kernels": [
                 {"name": e.key[:90], "ms": _device_us(e) / 1e3, "calls": e.count}
                 for e in kernels[:8]
             ],
-        }), flush=True)
-        del model
+        }
+        if args.engine == "bucket":
+            record["batch_execute_ms"] = engine.samples["device_execute_ms"]
+        else:
+            record.update(kv_layout=args.kv_layout, decode_steps=stats["decode_steps"],
+                          boundary_steps=stats["boundary_steps"],
+                          decode_step_ms_p50=stats["decode_step_ms"]["p50"])
+        print(json.dumps(record), flush=True)
+        del model, engine
         torch.cuda.empty_cache()
     return 0
 

@@ -37,8 +37,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
     # full module names: perceiver_io_tpu_torch must not pass for the JAX package
-    assert "perceiver_io_tpu_torch.serving.engine" in report["imported"]
-    assert "perceiver_io_tpu_torch.ops.flash_attention" in report["imported"]
+    for name in ("serving.engine", "serving.slots", "serving.kv_pool", "ops.flash_attention",
+                 "ops.paged_attention", "ops.ragged_attention"):
+        assert f"perceiver_io_tpu_torch.{name}" in report["imported"]
     assert report["bad"] == []
 
 
