@@ -13,7 +13,9 @@ non-zero and never prints the final line):
    112: cross-attention over j = 1024 with left-pad dead rows, the latent
    stack at j = 512, the q_len = 1 decode attend), fp32 and bf16, with its
    time, the plain version's, ``scaled_dot_product_attention``'s (a
-   yardstick the port never calls) and the card's bound;
+   yardstick the port never calls) and the card's bound. Every timed loop
+   here and in phase 6 reads the next of enough input copies to fill the L2
+   twice, so its times are HBM times, as the bound is;
 4. model: the full-width C4 CLM ("clm-base": vocab 32000, 1024 context, 512
    latents, 896 channels, 8 heads, 16 layers; random weights from a seed),
    one forward with the kernel against ``attention_impl="xla"``, fp32 and
@@ -27,8 +29,9 @@ non-zero and never prints the final line):
    version at clm-base's shapes (8 heads, head dim 112, block size 16), a
    decode case (8 rows, q_len 1, lengths 0..1023, tail pages unmapped, trash
    in the null block) and a window case (8 rows, q_len 512, lengths
-   520..1024), each in fp32, bf16 and int8 with scales; idle rows must be
-   exactly 0. With its time, the plain version's, the gather reference plus
+   520..1024), each in fp32, bf16 and int8 with scales (bf16 held at 4e-3,
+   the others at 1e-4); idle rows must be exactly 0. With its time, the
+   plain version's, the gather reference plus
    ``scaled_dot_product_attention`` (``gather_sdpa_ms``, a yardstick the port
    never calls) and the card's bound. No single PyTorch call reads a block
    table, so ``library_ms`` is null;
@@ -50,6 +53,7 @@ and ``torch.backends.cudnn.allow_tf32`` set False).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import re
@@ -62,6 +66,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor bf16; fp32 outside the tensor cores
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
+# K4's outputs are ~0.04..0.3 (q.k of unit scale over 300..1023 keys): its
+# bf16 limit is 4x the largest error the H100 run gave (9.77e-4), not K1's
+K4_TOL = {**KERNEL_TOL, "bfloat16": 4e-3}
+L2_BYTES = 50 * 2**20  # H100 SXM
 # the slot-serve phase's prompt buckets: (512, 768, 1024) would make prompts
 # past 768 infeasible with 496 latents (a 1024 bucket leaves 528 prefix slots
 # > max_prefix_len 512), so the top bucket is 1008 = 512 + 496
@@ -85,6 +93,18 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def l2_cold(fn, *tensors):
+    """``(call, copies)``: ``call()`` runs ``fn`` on the next of enough
+    copies of ``tensors`` to fill the L2 twice, so a timed loop of it reads
+    its inputs from HBM, as the bound counts them."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = [tensors] + [
+        tuple(t.clone() for t in tensors) for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)) - 1)
+    ]
+    turn = itertools.cycle(copies)
+    return (lambda: fn(*next(turn))), len(copies)
 
 
 def kernel_cases(torch, flash):
@@ -126,14 +146,19 @@ def kernel_cases(torch, flash):
                     f"K1 {name} {tname}: max|d| {err} (tol {tol}), lse {lse_err}, dead rows zero {dead_zero}"
                 )
             iters = 50 if i > 1 else 200
-            ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True), iters)
-            plain_ms = cuda_ms(
-                lambda: flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=True), 10
-            )
             attn_mask = allowed[:, None]
-            library_ms = cuda_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=1.0), iters
-            )
+            kernel, copies = l2_cold(
+                lambda q, k, v: flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True), q, k, v)
+            plain, _ = l2_cold(
+                lambda q, k, v: flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=True),
+                q, k, v)
+            library, _ = l2_cold(
+                lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=1.0),
+                q, k, v)
+            ms = cuda_ms(kernel, iters)
+            plain_ms = cuda_ms(plain, 10)
+            library_ms = cuda_ms(library, iters)
+            del kernel, plain, library
             esize = q.element_size()
             nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * esize + lse.numel() * 4 + pad.numel()
             flops = 4 * d * pairs  # q.k and p.v over the keys this data lets each row see
@@ -142,6 +167,7 @@ def kernel_cases(torch, flash):
                 case=name, dtype=tname, b=b, h=h, i=i, j=j, d=d, max_abs_err=err,
                 tol=tol, lse_max_abs_err=lse_err, dead_rows=int((~live).sum().item()),
                 dead_rows_zero=dead_zero, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                input_copies=copies,
                 bound_ms=bound_s * 1e3,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[tname] else "operations",
                 bytes=nbytes, flops=flops,
@@ -316,38 +342,39 @@ def k4_cases(torch, ragged, paged):
                 pool_v, sv = paged.quantize_kv(pv)
                 pool_k[:bs], pool_v[:bs] = 119, -77  # garbage bytes under zero scales
                 sk[:bs], sv[:bs] = 0.0, 0.0
-                scales = {"scale_k": sk, "scale_v": sv}
+                pool = (pool_k, pool_v, sk, sv)
             else:
-                pool_k, pool_v = pk.to(dtype), pv.to(dtype)
-                scales = {}
+                pool = (pk.to(dtype), pv.to(dtype))
 
-            def kernel():
-                return ragged.ragged_paged_attention(q, pool_k, pool_v, table, lens,
-                                                     block_size=bs, **scales)
+            def kernel(pool_k, pool_v, scale_k=None, scale_v=None):
+                return ragged.ragged_paged_attention(q, pool_k, pool_v, table, lens, block_size=bs,
+                                                     scale_k=scale_k, scale_v=scale_v)
 
-            def plain():
-                return ragged.ragged_paged_attention_reference(q, pool_k, pool_v, table, lens,
-                                                               block_size=bs, **scales)
+            def plain(pool_k, pool_v, scale_k=None, scale_v=None):
+                return ragged.ragged_paged_attention_reference(
+                    q, pool_k, pool_v, table, lens, block_size=bs, scale_k=scale_k, scale_v=scale_v)
 
-            def gather_sdpa():
-                k = paged.gather_kv(pool_k, flat, scales.get("scale_k"), dtype)
-                v = paged.gather_kv(pool_v, flat, scales.get("scale_v"), dtype)
+            def gather_sdpa(pool_k, pool_v, scale_k=None, scale_v=None):
+                k = paged.gather_kv(pool_k, flat, scale_k, dtype)
+                v = paged.gather_kv(pool_v, flat, scale_v, dtype)
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=visible[:, None], scale=1.0)
 
-            o, ref = kernel(), plain()
+            o, ref = kernel(*pool), plain(*pool)
             torch.cuda.synchronize()
             err = (o.float() - ref.float()).abs().max().item()
             idle_zero = bool((o[lens <= 0] == 0).all().item())
-            tol = KERNEL_TOL[layout]
+            tol = K4_TOL[layout]
             if not (err <= tol and idle_zero and bool(torch.isfinite(o).all().item())):
                 raise AssertionError(f"K4 {name} {layout}: max|d| {err} (tol {tol}), idle rows zero {idle_zero}")
             iters = 200 if q_len == 1 else 50
-            ms = cuda_ms(kernel, iters)
-            plain_ms = cuda_ms(plain, 10)
-            gather_sdpa_ms = cuda_ms(gather_sdpa, iters)
-            pool_esize = pool_k.element_size()
-            nbytes = (2 * q.numel() * q.element_size() + 2 * live * h * d * pool_esize
-                      + (2 * live * h * 4 if scales else 0) + table.numel() * 4 + lens.numel() * 4)
+            cold_kernel, copies = l2_cold(kernel, *pool)
+            ms = cuda_ms(cold_kernel, iters)
+            plain_ms = cuda_ms(l2_cold(plain, *pool)[0], 10)
+            gather_sdpa_ms = cuda_ms(l2_cold(gather_sdpa, *pool)[0], iters)
+            del cold_kernel
+            int8 = len(pool) == 4
+            nbytes = (2 * q.numel() * q.element_size() + 2 * live * h * d * pool[0].element_size()
+                      + (2 * live * h * 4 if int8 else 0) + table.numel() * 4 + lens.numel() * 4)
             flops = 4 * d * pairs  # q.k and p.v over the (query, key) pairs this data makes visible
             tname = str(dtype).split(".")[-1]  # the products run in q's type
             bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
@@ -355,6 +382,7 @@ def k4_cases(torch, ragged, paged):
                 case=name, layout=layout, b=b, h=h, q_len=q_len, d=d, block_size=bs,
                 lengths=lengths, max_abs_err=err, tol=tol, idle_rows_zero=idle_zero,
                 ms=ms, plain_ms=plain_ms, gather_sdpa_ms=gather_sdpa_ms, library_ms=None,
+                input_copies=copies,
                 library_note="no single PyTorch call reads a block table",
                 bound_ms=max(bytes_s, ops_s) * 1e3,
                 bound_by="bytes" if bytes_s >= ops_s else "operations",
@@ -422,6 +450,7 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             k1_launches=k1, k4_launches=k4, k1_launches_per_token=k1 / tokens,
             k4_launches_per_token=k4 / tokens, pool_in_use=pool.get("in_use"),
             pool_leaked=pool.get("leaked"), pool_high_water=pool.get("high_water"),
+            k4_steps=pool.get("ragged_kernel_steps"),
             compute_dtype="float32",
         )
         failures = []
@@ -431,6 +460,8 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             failures.append(f"K4 launches {k4} under {layout}")
         if layout != "dense" and (pool["in_use"] != 0 or pool["leaked"] != 0):
             failures.append(f"pool in_use {pool['in_use']}, leaked {pool['leaked']}")
+        if layout != "dense" and pool["ragged_kernel_steps"] != stats["decode_steps"]:
+            failures.append(f"{pool['ragged_kernel_steps']} K4 steps of {stats['decode_steps']}")
         if layout == "paged_int8":
             same = sum(int((a == b).sum()) for a, b in zip(rows, served["paged"]))
             line["token_agreement_with_paged"] = same / tokens

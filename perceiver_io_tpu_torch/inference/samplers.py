@@ -26,12 +26,6 @@ def apply_min_new_tokens(logits: torch.Tensor, t: Union[int, torch.Tensor], min_
     engine's rows sit at different steps)."""
     if min_new <= 0:
         return logits
-    if not isinstance(t, torch.Tensor):
-        if t >= min_new:
-            return logits
-        logits = logits.clone()
-        logits[:, eos_token_id] = float("-inf")
-        return logits
     is_eos = torch.arange(logits.shape[-1], device=logits.device)[None, :] == eos_token_id
     return logits.masked_fill((t < min_new) & is_eos, float("-inf"))
 

@@ -65,7 +65,6 @@ from perceiver_io_tpu_torch.inference.generate import (
 )
 from perceiver_io_tpu_torch.inference.samplers import apply_min_new_tokens, sample_logits
 from perceiver_io_tpu_torch.ops import paged_attention as paged_ops
-from perceiver_io_tpu_torch.ops.ragged_attention import ragged_paged_attention
 from perceiver_io_tpu_torch.serving.engine import ServeRequest, ServingEngine
 from perceiver_io_tpu_torch.serving.kv_pool import KVPagePool
 
@@ -476,7 +475,6 @@ class SlotServingEngine(ServingEngine):
 
         num_latents = self.model.max_latents
         boundary = any(s.m >= num_latents for s in active)
-        k4_before = ragged_paged_attention.launches
         t0 = self._clock()
         try:
             if self._pool is not None:
@@ -496,7 +494,9 @@ class SlotServingEngine(ServingEngine):
         self.samples["decode_step_ms"].append((token_at - t0) * 1e3)
         self._inc("serving_decode_steps_total")
         self._inc("serving_decode_boundary_steps_total", int(boundary))
-        self._inc("kv_ragged_kernel_steps_total", int(ragged_paged_attention.launches > k4_before))
+        # a paged step on the card attends through K4; on the CPU through the gather
+        self._inc("kv_ragged_kernel_steps_total",
+                  int(self._pool is not None and self.device.type == "cuda"))
         self._inc("serving_decode_rows_total", self.slots)
         self._inc("serving_decode_rows_padded_total", self.slots - len(active))
         eos = self.config.eos_token_id
