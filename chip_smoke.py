@@ -45,8 +45,36 @@ non-zero and never prints the final line):
    must run under the paged layouts and not under dense; the pool must end
    empty and leak-free. The int8 run's agreement with the paged run is
    printed, not gated;
-8. the ``{"kernels": [...]}`` summary line, the card's ``nvidia-smi`` line,
-   and the final ``{"ok": true, ...}`` line.
+8. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
+   against their plain versions at the training path's shapes (b = 4, 8
+   heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
+   512 latents, and j = 1024, with left pads that leave dead rows; the
+   latent stack at j = 512 with no pad mask), fp32 and bf16, held at
+   ``max|d| <= 1e-4 * max|plain|`` per output; dead rows' dq and unseen
+   keys' dk/dv must be exactly 0. With each kernel's time, the plain
+   version's, the backward alone of ``scaled_dot_product_attention`` (a
+   yardstick the port never calls) and the card's bound;
+9. train, over the full-width CLM:
+   (a) one loss + backward with the kernels against ``attention_impl="xla"``
+       (fp32, batch 4 x 1024, left pads inside the prefix, one prefix-dropout
+       seed): loss within 1e-5 relative, every parameter's gradient present,
+       finite and within ``1e-3 * max|g_ref|``;
+   (b) ``Trainer.fit``, fp32: 8 steps of 8 rows in 2 microbatches, AdamW
+       at 1e-4 with ``cosine_with_warmup`` (2 warmup steps), clipping at
+       1.0, prefix dropout 0.5, two seeded batches cycled, one validation
+       pass: finite losses, the last below the first; 34 launches of each of
+       K1, K2 and K3 per optimizer step (17 attends x 2 microbatches;
+       validation's launches counted apart, none of K2/K3 there); the best
+       checkpoint reloads into an equal model. Prints step ms p50 (three
+       more synchronised steps), loss tokens/s and peak memory;
+   (c) the same fit in bf16 compute: finite, falling losses;
+   (d) a small model whose pads reach into the latent window, one SGD step
+       on the card against the same weights on the CPU with
+       ``attention_impl="flash"`` (the plain forward and backward, same
+       dead-row semantics): gradients and updated params within 1e-4;
+   (e) a gradient request to K4 raises;
+10. the ``{"kernels": [...]}`` summary line (K1, K4, K2, K3), the card's
+   ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` set False).
@@ -57,6 +85,7 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -69,12 +98,20 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
 # K4's outputs are ~0.04..0.3 (q.k of unit scale over 300..1023 keys): its
 # bf16 limit is 4x the largest error the H100 run gave (9.77e-4), not K1's
 K4_TOL = {**KERNEL_TOL, "bfloat16": 4e-3}
+# K2/K3: max|kernel - plain| over max|plain|, per output. The first H100
+# readings were exactly 0 in every case and type (both sum each product in
+# the same sequential order and round p and ds at the same places), so 4x
+# the largest reading would be an exact-equality gate that a change of
+# cuBLAS algorithm for the plain einsums could break: bf16 is held to the
+# fp32 limit instead
+K23_REL_TOL = 1e-4
 L2_BYTES = 50 * 2**20  # H100 SXM
 # the slot-serve phase's prompt buckets: (512, 768, 1024) would make prompts
 # past 768 infeasible with 496 latents (a 1024 bucket leaves 528 prefix slots
 # > max_prefix_len 512), so the top bucket is 1008 = 512 + 496
 SLOT_BUCKETS = (512, 768, 1008)
 NEAR_TIE = 1e-4
+TRAIN_STEPS = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -173,6 +210,105 @@ def kernel_cases(torch, flash):
                 bytes=nbytes, flops=flops,
             )
             emit("kernel", **case)
+            cases.append(case)
+    return cases
+
+
+def _grad_rotation(torch, F, q, k, v, do, attn_mask):
+    """``(call, copies)``: ``call()`` runs the backward alone of
+    ``scaled_dot_product_attention`` on the next of enough kept graphs (input
+    copies) to fill the L2 twice: the library yardstick of K2 and K3."""
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
+    graphs = []
+    for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes))):
+        qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask, scale=1.0)
+        graphs.append((out, (qq, kk, vv), do.clone()))
+    turn = itertools.cycle(graphs)
+
+    def call():
+        out, inputs, cot = next(turn)
+        return torch.autograd.grad(out, inputs, cot, retain_graph=True)
+
+    return call, len(graphs)
+
+
+def k23_cases(torch, flash):
+    """K2 and K3 against their plain versions at the training path's shapes
+    (module docstring): dead rows' dq and padded keys' dk/dv exactly 0."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h, d = 4, 8, 112
+    cases = []
+    for name, i, j, pads in (
+        ("cross", 512, 768, [0, 100, 300, 600]),   # 256 kept prefix + 512 latents; row 3's rows 0..343 dead
+        ("cross", 512, 1024, [0, 100, 600, 900]),  # the whole prefix; row 3's rows 0..387 dead
+        ("stack", 512, 512, None),                 # the latent stack: no pad mask, as on the main path
+    ):
+        cols = torch.arange(j, device="cuda")[None, :]
+        pad = None if pads is None else cols < torch.tensor(pads, device="cuda")[:, None]
+        allowed = (cols <= torch.arange(i, device="cuda")[:, None] + (j - i))[None].expand(b, i, j)
+        if pad is not None:
+            allowed = allowed & ~pad[:, None, :]
+        live = allowed.any(-1)  # (b, i) rows that see a key
+        seen = allowed.any(1)   # (b, j) keys that some row sees
+        pairs = int(allowed.sum().item()) * h
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).split(".")[-1]
+            q = (torch.randn(b, h, i, d, generator=gen, device="cuda") * d**-0.5).to(dtype)
+            k = torch.randn(b, h, j, d, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(b, h, j, d, generator=gen, device="cuda").to(dtype)
+            do = torch.randn(b, h, i, d, generator=gen, device="cuda").to(dtype)
+            o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True)
+            delta = flash.attention_delta(o, do)
+            kw = dict(pad_mask=pad, causal=True)
+            dq = flash.flash_attention_bwd_dq(q, k, v, lse, delta, do, **kw)
+            dk, dv = flash.flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
+            ref = flash.flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            errs, rel = {}, {}
+            for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                errs[gname] = (got.float() - want.float()).abs().max().item()
+                rel[gname] = errs[gname] / want.float().abs().max().item()
+            dead_zero = bool((dq[~live[:, None, :, None].expand_as(dq)] == 0).all().item())
+            unseen = ~seen[:, None, :, None].expand_as(dk)
+            unseen_zero = bool((dk[unseen] == 0).all().item() and (dv[unseen] == 0).all().item())
+            finite = all(bool(torch.isfinite(t).all().item()) for t in (dq, dk, dv))
+            tol = K23_REL_TOL
+            case = dict(case=name, dtype=tname, b=b, h=h, i=i, j=j, d=d, max_abs_err=errs,
+                        rel_err=rel, rel_tol=tol, dead_rows=int((~live).sum().item()),
+                        dead_rows_dq_zero=dead_zero, unseen_keys=int((~seen).sum().item()),
+                        unseen_keys_dkdv_zero=unseen_zero)
+            if not (max(rel.values()) <= tol and dead_zero and unseen_zero and finite):
+                emit("k23", **case)
+                raise AssertionError(f"K2/K3 {name} j={j} {tname}: rel err {rel} (tol {tol}), "
+                                     f"dead dq zero {dead_zero}, unseen dk/dv zero {unseen_zero}")
+            esize = q.element_size()
+            pad_bytes = 0 if pad is None else pad.numel()
+            times = {}
+            for kname, kernel, plain, nbytes, flops in (
+                ("dq", flash.flash_attention_bwd_dq, flash.flash_attention_bwd_dq_reference,
+                 b * h * ((3 * i + 2 * j) * d * esize + 8 * i) + pad_bytes, 6 * d * pairs),
+                ("dkv", flash.flash_attention_bwd_dkv, flash.flash_attention_bwd_dkv_reference,
+                 b * h * ((2 * i + 4 * j) * d * esize + 8 * i) + pad_bytes, 8 * d * pairs),
+            ):
+                timed, copies = l2_cold(lambda *t, f=kernel: f(*t, **kw), q, k, v, lse, delta, do)
+                ms = cuda_ms(timed, 30)
+                plain_ms = cuda_ms(l2_cold(lambda *t, f=plain: f(*t, **kw), q, k, v, lse, delta, do)[0], 5)
+                bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
+                times[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+                                    bound_by="bytes" if bytes_s >= ops_s else "operations",
+                                    bytes=nbytes, flops=flops, input_copies=copies)
+                del timed
+            attn_mask = allowed[:, None]
+            library, graphs = _grad_rotation(torch, F, q, k, v, do, attn_mask)
+            library_ms = cuda_ms(library, 20)
+            del library
+            torch.cuda.empty_cache()
+            case.update(kernels=times, library_ms=library_ms, library_graphs=graphs,
+                        library_note="backward of scaled_dot_product_attention (dq, dk, dv together)")
+            emit("k23", **case)
             cases.append(case)
     return cases
 
@@ -484,6 +620,240 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
     return launches
 
 
+def token_batches(vocab_size: int, seq_len: int, rows: int, n: int, seed: int, pads=None,
+                  distinct: int = 1024):
+    """``n`` batches of ``rows`` token rows (``seq_len`` inputs and their
+    next-token labels), each token drawn uniformly from one fixed random set
+    of ``distinct`` ids of the vocabulary; ``pads`` left-pads row ``r`` by
+    ``pads[r]`` positions. With a small set the loss has room to fall within
+    a few steps at a small learning rate (a Zipf law over the whole
+    vocabulary made the first Adam steps overshoot; ``PERF.md``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(vocab_size)[:distinct]
+    out = []
+    for _ in range(n):
+        tokens = ids[rng.integers(0, distinct, size=(rows, seq_len + 1))]
+        batch = {"input_ids": tokens[:, :-1], "labels": tokens[:, 1:]}
+        if pads is not None:
+            batch["pad_mask"] = np.arange(seq_len)[None, :] < np.asarray(pads)[:, None]
+        out.append(batch)
+    return out
+
+
+def reset_counts(flash) -> None:
+    flash.flash_attention.launches = 0
+    flash.flash_attention_bwd_dq.launches = 0
+    flash.flash_attention_bwd_dkv.launches = 0
+
+
+def read_counts(flash) -> dict:
+    return {"k1": flash.flash_attention.launches, "k2": flash.flash_attention_bwd_dq.launches,
+            "k3": flash.flash_attention_bwd_dkv.launches}
+
+
+def train_grad_gate(torch, clm, flash, training, parallel):
+    """(a) one loss + backward of the full-width CLM with the kernels against
+    ``attention_impl="xla"``, fp32, same batch and prefix-dropout seed. Left
+    pads stay inside the prefix: with pads reaching the latents the two
+    differ on live rows by design (module docstring of ``models/core``)."""
+    cfg = clm_base_config(clm.CausalLanguageModelConfig)
+    model = clm.CausalLanguageModel(cfg, seed=0)
+    loss_fn = training.clm_loss_fn(model, cfg.max_latents)
+    batch = parallel.train_step.to_device(
+        token_batches(cfg.vocab_size, cfg.max_seq_len, 4, 1, seed=21, pads=[0, 37, 200, 512])[0],
+        torch.device("cuda"))
+
+    def loss_and_grads(impl):
+        set_attention_impl(model, impl)
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, batch, torch.Generator(device="cuda").manual_seed(7))
+        loss.backward()
+        return loss.item(), {n: None if p.grad is None else p.grad.detach().clone()
+                             for n, p in model.named_parameters()}
+
+    reset_counts(flash)
+    loss, grads = loss_and_grads("auto")
+    torch.cuda.synchronize()
+    launches = read_counts(flash)
+    ref_loss, ref = loss_and_grads("xla")
+    set_attention_impl(model, "auto")
+    missing = [n for n in grads if grads[n] is None or ref[n] is None]
+    nonfinite = [n for n, g in grads.items() if g is not None and not bool(torch.isfinite(g).all())]
+    rel = {}
+    for n, g in grads.items():
+        if g is None or ref[n] is None:
+            continue
+        scale = ref[n].abs().max().item()
+        diff = (g - ref[n]).abs().max().item()
+        rel[n] = diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
+    qkv = {n: r for n, r in rel.items() if any(f".{w}_proj." in n for w in "qkv")}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    emit("train_grad", params=len(grads), loss=loss, xla_loss=ref_loss, loss_rel_err=loss_rel,
+         max_rel_grad_err=max(rel.values()), worst=worst, qkv_proj_params=len(qkv),
+         qkv_max_rel_grad_err=max(qkv.values()), none_grads=missing, nonfinite_grads=nonfinite,
+         launches=launches, tol=1e-3, loss_tol=1e-5, compute_dtype="float32")
+    expected = {"k1": 17, "k2": 17, "k3": 17}  # 1 cross + 16 stack attends
+    if (missing or nonfinite or loss_rel > 1e-5 or max(rel.values()) > 1e-3 or not qkv
+            or launches != expected):
+        raise AssertionError(f"train grad gate: loss rel {loss_rel}, worst {worst}, None {missing}, "
+                             f"non-finite {nonfinite}, launches {launches}")
+    del model, grads, ref
+    torch.cuda.empty_cache()
+
+
+def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
+    """(b)/(c) ``Trainer.fit`` at full width: 8 optimizer steps of 8 rows with
+    2 microbatches, AdamW, cosine warmup, clipping, prefix dropout 0.5, two
+    batches cycled, one validation pass at the end."""
+    import numpy as np
+
+    cfg = clm_base_config(clm.CausalLanguageModelConfig)
+    tname = str(dtype).split(".")[-1]
+    model = clm.CausalLanguageModel(cfg, dtype=dtype, seed=0)
+    schedule = training.cosine_with_warmup(1e-4, warmup_steps=2, training_steps=TRAIN_STEPS)
+    tcfg = training.TrainerConfig(
+        max_steps=TRAIN_STEPS, val_check_interval=TRAIN_STEPS, log_every_n_steps=1,
+        grad_clip_norm=1.0, grad_accum_steps=2, limit_val_batches=1, enable_tensorboard=False,
+        default_root_dir=str(root),
+    )
+    trainer = training.Trainer(tcfg, training.clm_loss_fn(model, cfg.max_latents),
+                               training.make_optimizer(schedule, optimizer="adamw"),
+                               model_config=cfg, lr_schedule=schedule)
+    *train, held_out = token_batches(cfg.vocab_size, cfg.max_seq_len, 8, 3, seed=31)
+    val = [{k: v[:4] for k, v in held_out.items()}]
+    validate, val_counts = trainer.validate, {"k1": 0, "k2": 0, "k3": 0}
+
+    def counted_validate(data):  # validation's launches, counted apart
+        before = read_counts(flash)
+        out = validate(data)
+        for key, n in read_counts(flash).items():
+            val_counts[key] += n - before[key]
+        return out
+
+    trainer.validate = counted_validate
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(flash)  # the main path's launches: this fit only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.fit(model, train, val_data=lambda: iter(val))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts(flash)
+    train_counts = {k: counts[k] - val_counts[k] for k in counts}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    rows = [json.loads(line) for line in open(root / "metrics.jsonl")]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    val_loss = [r["val/loss"] for r in rows if "val/loss" in r]
+
+    ckpt_equal = None
+    if dtype == torch.float32:
+        manager = training.BestCheckpointManager(str(root / "checkpoints"))
+        state_dict, config = manager.restore_best()
+        again = clm.CausalLanguageModel(cfg, seed=1)
+        again.load_state_dict(state_dict, strict=True)
+        ckpt_equal = manager.best_step == TRAIN_STEPS and config["vocab_size"] == cfg.vocab_size and all(
+            torch.equal(a, b) for a, b in zip(again.state_dict().values(), model.state_dict().values()))
+        del again, state_dict
+
+    # step time: a few more steps of the same train step, each synchronised
+    step = parallel.make_train_step(trainer.loss_fn, grad_clip_norm=1.0, grad_accum_steps=2)
+    step_ms = []
+    for i in range(3):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        t1 = time.perf_counter()
+        state, metrics = step(state, train[i % 2], gen)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    p50 = float(np.median(step_ms))
+    tokens = 8 * cfg.max_latents  # loss tokens per optimizer step
+    per_step = {k: v / TRAIN_STEPS for k, v in train_counts.items()}
+    line = dict(compute_dtype=tname, steps=TRAIN_STEPS, rows=8, grad_accum_steps=2, losses=losses,
+                val_loss=val_loss, launches=train_counts, launches_per_step=per_step,
+                validation_launches=val_counts, fit_s=fit_s, step_ms=step_ms, step_ms_p50=p50,
+                loss_tokens_per_s=tokens / (p50 / 1e3), max_memory_allocated=peak_bytes,
+                checkpoint_reloads_equal=ckpt_equal)
+    emit("train_fit", **line)
+    failures = []
+    if not (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        failures.append(f"losses {losses}")
+    if per_step != {"k1": 34, "k2": 34, "k3": 34} or val_counts["k2"] or val_counts["k3"]:
+        failures.append(f"launches per step {per_step}, validation {val_counts}")
+    if dtype == torch.float32 and not ckpt_equal:
+        failures.append("the best checkpoint does not reload into an equal model")
+    if failures:
+        raise AssertionError(f"train fit {tname}: " + "; ".join(failures))
+    del trainer, state, model
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_small_vs_cpu(torch, clm, flash, training, parallel):
+    """(d) a small model whose pads reach into the latent window, one train
+    step on the card (the kernels) against the same weights on the CPU with
+    ``attention_impl="flash"`` (the plain forward and backward, with the same
+    dead-row semantics)."""
+    small = clm.CausalLanguageModelConfig(
+        vocab_size=256, max_seq_len=64, max_latents=32, num_channels=128, num_heads=2,
+        num_self_attention_layers=2, init_scale=0.1,
+    )
+    cpu = clm.CausalLanguageModel(small, device="cpu", seed=3, attention_impl="flash")
+    card = clm.CausalLanguageModel(small, seed=0)
+    card.load_state_dict(cpu.state_dict())
+    batch = token_batches(256, 64, 3, 1, seed=41, pads=[0, 40, 50], distinct=256)[0]  # prefix 32: latents 0..17 dead
+    out = {}
+    reset_counts(flash)
+    for name, model, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        state = parallel.TrainState.create(model, training.make_optimizer(0.1, optimizer="sgd"))
+        step = parallel.make_train_step(training.clm_loss_fn(model, 32), device=dev)
+        state, metrics = step(state, batch, None)
+        out[name] = (metrics["loss"].item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     {n: p.detach().cpu() for n, p in model.named_parameters()})
+    counts = read_counts(flash)
+    grad_err = max((out["card"][1][n] - g).abs().max().item() for n, g in out["cpu"][1].items())
+    param_err = max((out["card"][2][n] - p).abs().max().item() for n, p in out["cpu"][2].items())
+    emit("train_small_vs_cpu", loss_card=out["card"][0], loss_cpu=out["cpu"][0],
+         grads_max_abs_err=grad_err, params_max_abs_err_after_sgd_step=param_err, tol=1e-4,
+         card_launches=counts, dead_cross_rows=8 + 18)
+    if not (grad_err <= 1e-4 and param_err <= 1e-4 and counts == {"k1": 3, "k2": 3, "k3": 3}):
+        raise AssertionError(f"small model train step: grads {grad_err}, params {param_err}, launches {counts}")
+
+
+def k4_refuses_grad(torch, ragged) -> None:
+    """(e) K4 has no backward pass: a gradient request raises."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn(1, 8, 1, 112, generator=g, device="cuda").requires_grad_()
+    pool_k, pool_v = (torch.randn(32, 8, 112, generator=g, device="cuda") for _ in range(2))
+    table = torch.tensor([[1, 0]], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([5], dtype=torch.int32, device="cuda")
+    message = None
+    try:
+        ragged.ragged_paged_attention(q, pool_k, pool_v, table, lengths, block_size=16)
+    except RuntimeError as e:
+        message = str(e)
+    with torch.no_grad():
+        o = ragged.ragged_paged_attention(q, pool_k, pool_v, table, lengths, block_size=16)
+    torch.cuda.synchronize()
+    emit("k4_grad_request", raised=message is not None, message=message,
+         no_grad_finite=bool(torch.isfinite(o).all().item()))
+    if message is None or "backward" not in message:
+        raise AssertionError("K4 did not refuse a gradient request")
+
+
+def train_phase(torch, clm, flash, ragged, training, parallel, root: Path):
+    train_grad_gate(torch, clm, flash, training, parallel)
+    fits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fits[str(dtype).split(".")[-1]] = train_fit(
+            torch, clm, flash, training, parallel, dtype, root / str(dtype).split(".")[-1])
+    train_small_vs_cpu(torch, clm, flash, training, parallel)
+    k4_refuses_grad(torch, ragged)
+    return fits
+
+
 def main() -> int:
     import torch
 
@@ -500,6 +870,7 @@ def main() -> int:
     from perceiver_io_tpu_torch.serving import buckets
     from perceiver_io_tpu_torch.serving import engine as engine_mod
     from perceiver_io_tpu_torch.serving import slots as slots_mod
+    from perceiver_io_tpu_torch import parallel, training
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -525,9 +896,14 @@ def main() -> int:
     launches = serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets)
     k4 = k4_cases(torch, ragged, paged)
     slot_launches = slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
+    k23 = k23_cases(torch, flash)
+    train_root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(train_root, ignore_errors=True)
+    fits = train_phase(torch, clm, flash, ragged, training, parallel, train_root)
 
     main_case = next(c for c in cases if c["case"] == "cross" and c["dtype"] == "float32")
     k4_case = next(c for c in k4 if c["case"] == "decode" and c["layout"] == "float32")
+    k23_main = next(c for c in k23 if c["j"] == 768 and c["dtype"] == "float32")
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -556,7 +932,25 @@ def main() -> int:
         "gather_sdpa_ms": k4_case["gather_sdpa_ms"],
         "shape": "decode b=8 h=8 q_len=1 d=112 fp32, block 16, lengths 0..1023; "
                  "launches: the paged slot-serve run",
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "perceiver_io_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": replaces,
+        "launches": fits["float32"]["launches"][count],
+        "max_abs_err": max(c["max_abs_err"][g] for c in k23 if c["dtype"] == "float32" for g in grads),
+        "ms": k23_main["kernels"][kname]["ms"],
+        "plain_ms": k23_main["kernels"][kname]["plain_ms"],
+        "bound_ms": k23_main["kernels"][kname]["bound_ms"],
+        "bound_by": k23_main["kernels"][kname]["bound_by"],
+        "library_ms": k23_main["library_ms"],
+        "library_note": "backward of scaled_dot_product_attention, dq, dk and dv together",
+        "shape": "cross-attention b=4 h=8 i=512 j=768 d=112 fp32, causal, left pads; "
+                 "launches: the fp32 Trainer.fit run (8 steps)",
+    } for name, replaces, count, kname, grads in (
+        ("flash_attention_bwd_dq", "perceiver_io_tpu/ops/flash_attention.py:290", "k2", "dq", ("dq",)),
+        ("flash_attention_bwd_dkv", "perceiver_io_tpu/ops/flash_attention.py:367", "k3", "dkv", ("dk", "dv")),
+    )]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -44,22 +44,31 @@ def _module_path(parts) -> str:
     return ".".join(names)
 
 
+def torch_name(flax_path: str) -> str:
+    """The ``state_dict`` name of a flax parameter path, or the module prefix
+    of a path that ends at a module (``"perceiver_ar/self_attention/layers_0"``
+    -> ``"perceiver_ar.self_attention.layers.0"``)."""
+    *mod, last = flax_path.strip("/").split("/")
+    if last == "kernel":
+        return ".".join(filter(None, (_module_path(mod), "weight")))
+    if last in _LEAF:
+        return ".".join(filter(None, (_module_path(mod), _LEAF[last])))
+    return _module_path([*mod, last])
+
+
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``state_dict`` of the port's model from a JAX param tree (the
-    ``params`` collection, with or without its ``{"params": ...}`` wrapper)."""
+    ``params`` collection, with or without its ``{"params": ...}`` wrapper).
+    A tree of the params' shape, JAX gradients or Adam moments, maps the same
+    way."""
     if set(params) == {"params"}:
         params = params["params"]
     out = {}
     for path, arr in _flatten(params).items():
-        *mod, leaf = path
-        if leaf == "kernel":
-            name, arr = "weight", arr.T
-        elif leaf in _LEAF:
-            name = _LEAF[leaf]
-        else:
+        if path[-1] != "kernel" and path[-1] not in _LEAF:
             raise KeyError(f"unknown flax parameter {'/'.join(path)}")
-        key = ".".join(filter(None, (_module_path(mod), name)))
-        out[key] = torch.tensor(arr, dtype=torch.float32)
+        arr = arr.T if path[-1] == "kernel" else arr
+        out[torch_name("/".join(path))] = torch.tensor(arr, dtype=torch.float32)
     return out
 
 

@@ -1,6 +1,8 @@
 """Perceiver AR hyperparameters, with the JAX package's field names
 (``perceiver_io_tpu/models/core/config.py``), so a config dict round-trips
-between the two packages."""
+between the two packages. The dropout rates reach the model: prefix dropout
+acts in train mode, attention and residual dropout raise there, and
+activation checkpointing and offloading raise when set (not ported yet)."""
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, fields
@@ -20,6 +22,6 @@ class PerceiverARConfig:
     activation_checkpointing: bool = False
     activation_offloading: bool = False
 
-    def base_kwargs(self, exclude=()) -> Dict[str, Any]:
-        names = [f.name for f in fields(PerceiverARConfig) if f.name not in exclude]
+    def base_kwargs(self) -> Dict[str, Any]:
+        names = [f.name for f in fields(PerceiverARConfig)]
         return {k: v for k, v in asdict(self).items() if k in names}

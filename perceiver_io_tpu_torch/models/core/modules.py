@@ -9,9 +9,10 @@ Dtype policy as in the JAX package: parameters are fp32 and ``dtype`` is the
 computation type: linear layers cast input and weight to it, layer norms
 take their statistics in fp32 and return ``dtype``.
 
-Only the deterministic (inference) path is ported: attention and residual
-dropout, prefix dropout, remat and the fused-QKV switch wait for the
-training slice. The Perceiver IO encoder/decoder come with their families.
+Train mode (``deterministic=False``) is ported for Perceiver AR with its
+prefix (cross-attention) dropout; attention and residual dropout, remat,
+offloading and the fused-QKV switch are not (they raise). The Perceiver IO
+encoder/decoder come with their families.
 """
 from __future__ import annotations
 
@@ -228,23 +229,55 @@ class SelfAttentionBlock(nn.Module):
         return x
 
 
+def prefix_noise(b: int, prefix_len: int, generator: Optional[torch.Generator],
+                 device: torch.device) -> torch.Tensor:
+    """Uniform ``(b, prefix_len)`` scores of prefix dropout (JAX
+    ``jax.random.uniform(make_rng("prefix"), (b, prefix_len))``). The one
+    seam of the draw: a test replaces it to feed both packages the same
+    noise."""
+    return torch.rand(b, prefix_len, generator=generator, device=device)
+
+
+def prefix_keep_indices(scores: torch.Tensor, keep: int) -> torch.Tensor:
+    """``(b, keep)`` prefix positions kept by prefix dropout: the ``keep``
+    highest scores of each row (JAX ``lax.top_k``), in sequence order."""
+    return torch.sort(torch.topk(scores, keep, dim=1).indices, dim=1).values
+
+
 class PerceiverAR(nn.Module):
     """Perceiver AR: causal cross-attention of the latents (the sequence
     tail) over ``[prefix || latents]``, then a causal self-attention stack
     over the latents, with rotary position embeddings.
 
     ``input_adapter`` maps ``(token_ids, abs_pos)`` to
-    ``(x_embedded, frq_pos_enc)``. Prefix dropout is a training feature and
-    is not ported yet.
+    ``(x_embedded, frq_pos_enc)``. In train mode (``deterministic=False``)
+    prefix dropout keeps a static ``keep = prefix_len - int(prefix_len *
+    cross_attention_dropout)`` prefix positions per row, chosen by ``topk``
+    over uniform scores (:func:`prefix_noise`) with the indices sorted to
+    keep sequence order, as the JAX package does.
+
+    Not ported: attention dropout (``post_attention_dropout``) and residual
+    dropout in train mode, activation checkpointing and offloading; they
+    raise ``NotImplementedError``.
     """
 
     def __init__(self, input_adapter: nn.Module, num_heads: int = 8,
                  max_heads_parallel: Optional[int] = None, num_self_attention_layers: int = 6,
                  self_attention_widening_factor: int = 4,
                  cross_attention_widening_factor: int = 4,
+                 cross_attention_dropout: float = 0.5, post_attention_dropout: float = 0.0,
+                 residual_dropout: float = 0.0, activation_checkpointing: bool = False,
+                 activation_offloading: bool = False,
                  dtype: torch.dtype = torch.float32, attention_impl: str = "auto"):
         super().__init__()
+        if activation_checkpointing or activation_offloading:
+            raise NotImplementedError(
+                "activation checkpointing and offloading are not ported yet (ROADMAP.md A)"
+            )
         num_channels = input_adapter.num_input_channels
+        self.cross_attention_dropout = cross_attention_dropout
+        self.post_attention_dropout = post_attention_dropout
+        self.residual_dropout = residual_dropout
         self.input_adapter = input_adapter
         attn = dict(max_heads_parallel=max_heads_parallel, causal_attention=True,
                     qkv_bias=False, attention_impl=attention_impl)
@@ -260,21 +293,43 @@ class PerceiverAR(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, prefix_len: int,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n = x.shape
         if not 0 <= prefix_len < n:
             raise ValueError(f"prefix_len ({prefix_len}) out of valid range [0..{n})")
+        if not deterministic and (self.post_attention_dropout > 0.0 or self.residual_dropout > 0.0):
+            raise NotImplementedError(
+                "attention and residual dropout are not ported yet (ROADMAP.md A); "
+                "set post_attention_dropout and residual_dropout to 0"
+            )
         # the caller left-pads x
         shift = None if pad_mask is None else pad_mask.sum(dim=1, keepdim=True)
         x, frq = self.input_adapter(x, abs_pos=positions(b, n, shift=shift, device=x.device))
 
         x_latent, x_prefix = x[:, prefix_len:], x[:, :prefix_len]
-        frq_latent = frq[:, prefix_len:]
+        frq_latent, frq_prefix = frq[:, prefix_len:], frq[:, :prefix_len]
+        pad_latent = None if pad_mask is None else pad_mask[:, prefix_len:]
+        pad_prefix = None if pad_mask is None else pad_mask[:, :prefix_len]
+        if not deterministic and prefix_len > 0 and self.cross_attention_dropout > 0.0:
+            keep = prefix_len - int(prefix_len * self.cross_attention_dropout)
+            idx = prefix_keep_indices(prefix_noise(b, prefix_len, generator, x.device), keep)
+            x_prefix = torch.gather(x_prefix, 1, idx[..., None].expand(-1, -1, x_prefix.shape[-1]))
+            frq_prefix = torch.gather(frq_prefix, 1, idx[..., None].expand(-1, -1, frq_prefix.shape[-1]))
+            if pad_prefix is not None:
+                pad_prefix = torch.gather(pad_prefix, 1, idx)
+        if pad_mask is not None:
+            pad_mask = torch.cat([pad_prefix, pad_latent], dim=1)
+
         x_latent = self.cross_attention(
             x_latent, None, x_prefix, pad_mask,
             RotaryEmbedding(frq_latent, right_align=True),
-            RotaryEmbedding(frq, right_align=True),
+            RotaryEmbedding(torch.cat([frq_prefix, frq_latent], dim=1), right_align=True),
         )
+        # Neither package masks the stack (JAX modules.py:1000-1005): a
+        # latent whose cross-attention row saw no key is a key here. The
+        # flash kernel gives that row 0, the einsum path a uniform average,
+        # so with pads reaching into the latents the two differ on live rows.
         return self.self_attention(x_latent, None, RotaryEmbedding(frq_latent, right_align=True))
 
 

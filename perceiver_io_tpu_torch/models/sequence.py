@@ -102,6 +102,7 @@ class AutoregressiveSequenceModel(nn.Module):
 
     :param dtype: computation type; parameters stay fp32.
     :param device: ``"cuda"`` by default; the CPU only when asked for.
+    :raises NotImplementedError: for activation checkpointing or offloading.
     """
 
     def __init__(self, config: SequenceModelConfig, *, dtype: torch.dtype = torch.float32,
@@ -115,10 +116,7 @@ class AutoregressiveSequenceModel(nn.Module):
                 config.vocab_size, config.max_seq_len, config.num_channels,
                 config.rotated_channels_per_head, config.abs_pos_emb, dtype=dtype,
             )
-            kwargs = config.base_kwargs(exclude=(
-                "cross_attention_dropout", "post_attention_dropout", "residual_dropout",
-                "activation_checkpointing", "activation_offloading",
-            ))
+            kwargs = config.base_kwargs()
             self.perceiver_ar = PerceiverAR(adapter, dtype=dtype, attention_impl=attention_impl,
                                             **kwargs)
             if config.output_norm:
@@ -152,9 +150,13 @@ class AutoregressiveSequenceModel(nn.Module):
         return self.output_adapter(x_last[:, None], self.perceiver_ar.input_adapter.embeddings)[:, 0]
 
     def forward(self, x: torch.Tensor, prefix_len: int,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """:return: ``(b, n - prefix_len, vocab_size)`` logits of the latent
-        positions (next-token predictions)."""
+        positions (next-token predictions).
+
+        :param deterministic: False is train mode (prefix dropout drawn from
+            ``generator``, a ``torch.Generator`` on the model's device)."""
         if x.shape[1] > self.max_seq_len:
             raise ValueError(
                 f"sequence length ({x.shape[1]}) exceeds max_seq_len ({self.max_seq_len})"
@@ -163,7 +165,7 @@ class AutoregressiveSequenceModel(nn.Module):
             raise ValueError(
                 f"prefix_len ({prefix_len}) exceeds max_prefix_len ({self.max_prefix_len})"
             )
-        x_latent = self.perceiver_ar(x, prefix_len, pad_mask)
+        x_latent = self.perceiver_ar(x, prefix_len, pad_mask, deterministic, generator)
         if self.config.output_norm:
             x_latent = layer_norm(self.out_norm, x_latent, self.dtype)
         return self.output_adapter(x_latent, self.perceiver_ar.input_adapter.embeddings)

@@ -9,6 +9,10 @@ Counterpart of ``perceiver_io_tpu/ops/attention.py``. Dispatch:
   path, as the JAX package runs its einsum path off the TPU.
 - ``impl="flash"`` always goes through the kernel's wrapper (on the CPU that
   is the kernel's plain version).
+
+The flash branch is differentiable (``FlashAttentionFunction``: the
+backward kernels K2/K3 on the card, their plain version on the CPU); the
+plain path is differentiated by autograd through the einsum.
 - ``impl="xla"`` is the explicit plain path, named after the JAX einsum path
   it mirrors: fp32 logits, ``finfo(float32).min`` where-masking, the
   right-aligned causal mask ``j <= i + (j_len - i_len)``, fp32 softmax cast to
@@ -18,7 +22,8 @@ A query row that sees no key differs between the two: the kernel returns
 zeros, the plain path a uniform average over the masked keys. Such rows are
 padding in every Perceiver model and are discarded.
 
-Ring attention and attention dropout are not ported yet and raise.
+Ring attention and attention dropout are not ported yet and raise (the
+JAX flash path never takes dropout either).
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
-"""Flash attention forward with Perceiver masking: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Flash attention with Perceiver masking, forward and backward: the CUDA
+kernels' wrappers, their plain PyTorch versions and the autograd Function
+that joins them.
 
-Counterpart of the Pallas TPU kernel ``_forward`` in
-``perceiver_io_tpu/ops/flash_attention.py``. The kernel
+Counterpart of the Pallas TPU kernels ``_forward`` (K1), ``_backward_dq``
+(K2) and ``_backward_dkv`` (K3) and of the ``custom_vjp`` around them in
+``perceiver_io_tpu/ops/flash_attention.py``. The forward kernel
 (``csrc/flash_attention_fwd.cu``, Hopper ``sm_90a``) computes blockwise
 online-softmax attention over pre-scaled queries with
 
@@ -15,10 +17,22 @@ online-softmax attention over pre-scaled queries with
 - **zero output for a query row that sees no key** (the TPU kernel's dead-row
   semantics; the einsum path instead softmaxes such a row uniformly).
 
-:func:`flash_attention_fwd` launches the kernel for CUDA tensors and raises
-on what the kernel does not take; for CPU tensors it runs
-:func:`flash_attention_reference`, which repeats the kernel's arithmetic.
-There is no fallback from a CUDA tensor to the plain version.
+The backward kernels (``csrc/flash_attention_bwd.cu``) recompute
+``p = exp(s - lse)`` under the same masks (by select), take
+``ds = p * (do . v^T - delta)`` with ``delta = rowsum(o * do)`` in fp32, and
+give ``dq = ds . k`` (K2), ``dv = p^T . do`` and ``dk = ds^T . q`` (K3), with
+``p`` and ``ds`` cast to the input type before each product as on the TPU.
+A dead row gets ``dq = 0`` and a key that no row sees ``dk = dv = 0``.
+
+:func:`flash_attention` goes through :class:`FlashAttentionFunction`, so it
+is differentiable. Every wrapper launches its kernel for CUDA tensors and
+raises on what the kernel does not take; for CPU tensors it runs the plain
+version (:func:`flash_attention_reference`,
+:func:`flash_attention_backward_reference`), which repeats the kernel's
+arithmetic. There is no fallback from a CUDA tensor to a plain version.
+Launches are counted on ``flash_attention.launches`` (K1),
+``flash_attention_bwd_dq.launches`` (K2) and
+``flash_attention_bwd_dkv.launches`` (K3).
 """
 from __future__ import annotations
 
@@ -32,21 +46,12 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
+_BWD = None
 
 
-def flash_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: same masks, same mask constant,
-    same dead-row zeros, ``p`` cast to ``v``'s type before the ``p @ v``
-    product.
-
-    :return: ``(o, lse)`` — ``o`` ``(b, h, i, dv)`` in ``q``'s type, ``lse``
-        ``(b, h, i)`` fp32.
-    """
-    i, j = q.shape[2], k.shape[2]
-    s = torch.einsum("bhic,bhjc->bhij", q.float(), k.float())
+def _allowed(q: torch.Tensor, j: int, pad_mask: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+    """The kernels' mask: ``(b or 1, 1, i, j)`` bool, True = the query sees the key."""
+    i = q.shape[2]
     allowed = torch.ones(i, j, dtype=torch.bool, device=q.device)[None, None]
     if pad_mask is not None:
         allowed = allowed & ~pad_mask.bool()[:, None, None, :]
@@ -54,6 +59,22 @@ def flash_attention_reference(
         cols = torch.arange(j, device=q.device)[None, :]
         rows = torch.arange(i, device=q.device)[:, None]
         allowed = allowed & (cols <= rows + (j - i))[None, None]
+    return allowed
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel: same masks, same mask
+    constant, same dead-row zeros, ``p`` cast to ``v``'s type before the
+    ``p @ v`` product.
+
+    :return: ``(o, lse)`` — ``o`` ``(b, h, i, dv)`` in ``q``'s type, ``lse``
+        ``(b, h, i)`` fp32.
+    """
+    s = torch.einsum("bhic,bhjc->bhij", q.float(), k.float())
+    allowed = _allowed(q, k.shape[2], pad_mask, causal)
     s = torch.where(allowed, s, torch.full_like(s, MASK_VALUE))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(allowed, torch.exp(s - m), torch.zeros_like(s))
@@ -65,7 +86,66 @@ def flash_attention_reference(
     return o.to(q.dtype), lse
 
 
-def _kernel():
+def _probabilities(q, k, v, lse, delta, do, pad_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels' ``p`` and ``ds``, fp32 ``(b, h, i, j)``. The
+    mask is a select: ``exp(s - lse)`` overflows on a dead row, whose lse is
+    the mask value, and the select keeps it out."""
+    s = torch.einsum("bhic,bhjc->bhij", q.float(), k.float())
+    allowed = _allowed(q, k.shape[2], pad_mask, causal)
+    p = torch.where(allowed, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("bhic,bhjc->bhij", do.float(), v.float())
+    ds = torch.where(allowed, p * (dp - delta[..., None]), torch.zeros_like(s))
+    return p, ds
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(o * do)`` in fp32, ``(b, h, i)``: the backward's row
+    term, computed outside the kernels as the JAX package does."""
+    return (o.float() * do.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_dq_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    do: torch.Tensor, *, pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
+) -> torch.Tensor:
+    """Plain version of K2: ``dq = ds . k`` with ``ds`` cast to ``k``'s type
+    and an fp32 sum; ``dq`` in ``q``'s type."""
+    _, ds = _probabilities(q, k, v, lse, delta, do, pad_mask, causal)
+    dq = torch.einsum("bhij,bhjc->bhic", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    do: torch.Tensor, *, pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: ``dk = ds^T . q`` and ``dv = p^T . do`` with ``p``
+    and ``ds`` cast to ``q``'s type and fp32 sums; in ``k``'s and ``v``'s types."""
+    p, ds = _probabilities(q, k, v, lse, delta, do, pad_mask, causal)
+    dk = torch.einsum("bhij,bhic->bhjc", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhij,bhic->bhjc", p.to(q.dtype).float(), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, *, pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels (not autograd): the same
+    arithmetic written out, with the same casts and selects.
+
+    :param o: the forward's output; ``lse`` its fp32 ``(b, h, i)`` logsumexp.
+    :param do: the output's cotangent ``(b, h, i, d)``.
+    :return: ``(dq, dk, dv)`` in ``q``'s, ``k``'s and ``v``'s types.
+    """
+    delta = attention_delta(o, do)
+    kw = dict(pad_mask=pad_mask, causal=causal)
+    dq = flash_attention_bwd_dq_reference(q, k, v, lse, delta, do, **kw)
+    return (dq, *flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do, **kw))
+
+
+def _fwd_kernel():
+    """K1's C entry and head-dim query, loaded (and built) on first use."""
     global _FN
     if _FN is None:
         from perceiver_io_tpu_torch import _build
@@ -78,6 +158,23 @@ def _kernel():
         lib.flash_attention_fwd_supports_head_dim.restype = ctypes.c_int
         _FN = (fn, lib.flash_attention_fwd_supports_head_dim)
     return _FN
+
+
+def _bwd_kernels():
+    """K2's and K3's C entries and head-dim query, loaded on first use."""
+    global _BWD
+    if _BWD is None:
+        from perceiver_io_tpu_torch import _build
+
+        lib = _build.load("flash_attention_bwd")
+        dq, dkv = lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv
+        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        dq.restype = dkv.restype = ctypes.c_int
+        lib.flash_attention_bwd_supports_head_dim.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_supports_head_dim.restype = ctypes.c_int
+        _BWD = (dq, dkv, lib.flash_attention_bwd_supports_head_dim)
+    return _BWD
 
 
 def _check(q, k, v, pad_mask, causal) -> None:
@@ -100,12 +197,35 @@ def _check(q, k, v, pad_mask, causal) -> None:
         raise ValueError(f"pad_mask must be {(b, j)}, got {tuple(pad_mask.shape)}")
 
 
+def _on_cpu(tensors, pad_mask) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs).
+    Otherwise they must all lie on one CUDA device, and all but the pad mask
+    be contiguous, or this raises."""
+    every = list(tensors) + ([] if pad_mask is None else [pad_mask])
+    if all(t.device.type == "cpu" for t in every):
+        return True
+    if not all(t.is_cuda and t.device == every[0].device for t in every):
+        raise ValueError("the attention tensors and pad_mask must lie on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the attention tensors must be contiguous")
+    return False
+
+
+def _pad_bytes(pad_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if pad_mask is None else pad_mask.to(torch.uint8).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)`` of flash attention: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.
+    """``(o, lse)`` of flash attention: the forward kernel (K1) for CUDA
+    tensors, the plain version for CPU tensors. Not differentiable: see
+    :func:`flash_attention`.
 
     :param q: ``(b, h, i, d)`` pre-scaled, pre-rotated queries.
     :param k: ``(b, h, j, d)`` keys.
@@ -114,28 +234,20 @@ def flash_attention_fwd(
     :param causal: right-aligned causal masking (offset ``j - i``).
     """
     _check(q, k, v, pad_mask, causal)
-    tensors = [q, k, v] + ([] if pad_mask is None else [pad_mask])
-    if all(t.device.type == "cpu" for t in tensors):
+    if _on_cpu((q, k, v), pad_mask):
         return flash_attention_reference(q, k, v, pad_mask=pad_mask, causal=causal)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("q, k, v and pad_mask must lie on one CUDA device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k, v must be contiguous")
-    fn, supports = _kernel()
+    fn, supports = _fwd_kernel()
     b, h, i, d = q.shape
     j = k.shape[2]
     if not supports(d):
         raise ValueError(f"head dim {d} is not instantiated by the kernel (64, 112, 128)")
-    pad = None
-    if pad_mask is not None:
-        pad = pad_mask.to(torch.uint8).contiguous()
+    pad = _pad_bytes(pad_mask)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, i), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if pad is None else pad.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), o.data_ptr(), lse.data_ptr(),
             b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream,
         )
     if err != 0:
@@ -144,13 +256,103 @@ def flash_attention_fwd(
     return o, lse
 
 
+def _check_bwd(q, k, v, lse, delta, do, pad_mask, causal) -> None:
+    _check(q, k, v, pad_mask, causal)
+    b, h, i, _ = q.shape
+    if tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype:
+        raise ValueError(f"do must be {tuple(q.shape)} {q.dtype}, got {tuple(do.shape)} {do.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, i) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {(b, h, i)}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _bwd_launch(q, k, v, lse, delta, do, pad_mask, causal, which: int, outputs) -> None:
+    dq_fn, dkv_fn, supports = _bwd_kernels()
+    b, h, i, d = q.shape
+    j = k.shape[2]
+    if not supports(d):
+        raise ValueError(f"head dim {d} is not instantiated by the kernel (64, 112, 128)")
+    pad = _pad_bytes(pad_mask)
+    fn, name = (dq_fn, "flash_attention_bwd_dq") if which == 0 else (dkv_fn, "flash_attention_bwd_dkv")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), lse.data_ptr(), delta.data_ptr(),
+            do.data_ptr(), *(o.data_ptr() for o in outputs),
+            b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def flash_attention_bwd_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    do: torch.Tensor, *, pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
+) -> torch.Tensor:
+    """``dq`` of flash attention: K2 for CUDA tensors, the plain version for
+    CPU tensors. ``lse`` is the forward's, ``delta`` :func:`attention_delta`'s,
+    both fp32 ``(b, h, i)``; ``do`` ``(b, h, i, d)`` in q's type."""
+    _check_bwd(q, k, v, lse, delta, do, pad_mask, causal)
+    if _on_cpu((q, k, v, lse, delta, do), pad_mask):
+        return flash_attention_bwd_dq_reference(
+            q, k, v, lse, delta, do, pad_mask=pad_mask, causal=causal)
+    dq = torch.empty_like(q)
+    _bwd_launch(q, k, v, lse, delta, do, pad_mask, causal, 0, (dq,))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    do: torch.Tensor, *, pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` of flash attention: K3 for CUDA tensors, the plain version
+    for CPU tensors (arguments as :func:`flash_attention_bwd_dq`)."""
+    _check_bwd(q, k, v, lse, delta, do, pad_mask, causal)
+    if _on_cpu((q, k, v, lse, delta, do), pad_mask):
+        return flash_attention_bwd_dkv_reference(
+            q, k, v, lse, delta, do, pad_mask=pad_mask, causal=causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch(q, k, v, lse, delta, do, pad_mask, causal, 1, (dk, dv))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention (JAX ``_flash`` with ``_flash_fwd`` and
+    ``_flash_bwd``): the forward kernel saves ``q, k, v, o, lse`` and the pad
+    mask; the backward takes ``delta = rowsum(o * do)`` in fp32 and launches
+    K2 for ``dq`` and K3 for ``dk, dv``. CPU tensors run the plain versions.
+    The pad mask and ``causal`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_mask, causal):
+        o, lse = flash_attention_fwd(q, k, v, pad_mask=pad_mask, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse, pad_mask)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, pad_mask = ctx.saved_tensors
+        do = do.contiguous()  # the heads' merge hands it over transposed
+        delta = attention_delta(o, do)
+        kw = dict(pad_mask=pad_mask, causal=ctx.causal)
+        dq = flash_attention_bwd_dq(q, k, v, lse, delta, do, **kw)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
 ) -> torch.Tensor:
-    """Flash attention output ``(b, h, i, d)`` (see :func:`flash_attention_fwd`).
-    ``flash_attention.launches`` counts the CUDA kernel's launches."""
-    return flash_attention_fwd(q, k, v, pad_mask=pad_mask, causal=causal)[0]
+    """Differentiable flash attention output ``(b, h, i, d)`` through
+    :class:`FlashAttentionFunction` (arguments as :func:`flash_attention_fwd`).
+    ``flash_attention.launches`` counts the forward kernel's launches."""
+    return FlashAttentionFunction.apply(q, k, v, pad_mask, causal)
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -135,6 +135,10 @@ def ragged_paged_attention(
     :param block_size: token positions per block; divides ``pool_tokens``.
     :param scale_k: optional fp32 ``(pool_tokens, h, 1)`` dequant scales.
     :return: ``(b, h, q_len, d)`` raw attention in q's type.
+
+    K4 has no backward pass (nor has the TPU kernel): on CUDA tensors a
+    gradient request (grad mode on and ``q`` or a pool requiring grad)
+    raises instead of returning an output detached from autograd.
     """
     _check(q, pool_k, pool_v, table, lengths, block_size, scale_k, scale_v)
     tensors = [q, pool_k, pool_v, table, lengths] + ([] if scale_k is None else [scale_k, scale_v])
@@ -145,6 +149,11 @@ def ragged_paged_attention(
         )
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("all inputs must lie on one CUDA device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, pool_k, pool_v)):
+        raise RuntimeError(
+            "ragged_paged_attention (K4) has no backward pass, as the TPU kernel has none: "
+            "call it under torch.no_grad() or with tensors that do not require grad"
+        )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, the pools, the scales, table and lengths must be contiguous")
     fn, supports = _kernel()

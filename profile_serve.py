@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the serve time goes on the card.
+"""Where the serve (or train) time goes on the card.
 
     python3 profile_serve.py                                   # bucket engine
     python3 profile_serve.py --engine slots --kv-layout paged  # slot engine
+    python3 profile_serve.py --engine train                    # one train step
 
 ``--engine bucket`` (default) serves the 8-request workload of
 ``chip_smoke.py``'s serve phase through ``ServingEngine``; ``--engine
@@ -11,11 +12,17 @@ slots`` serves the 12-request workload of its slot-serve phase through
 paged). Both over the full-width CLM (random weights from a seed) on one
 GPU, in fp32 and in bf16 compute. For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
-``torch.profiler``. Prints one JSON line per compute type: tokens/s, the
-device's busy share (kernel device time of the profiled pass over the timed
-pass's wall time, one stream), the shares and launches of the flash
-attention kernel (K1) and the ragged paged-attention kernel (K4), and the
-top kernels by device time. The full profiler tables go to
+``torch.profiler``. ``--engine train`` instead runs optimizer steps of
+``chip_smoke.py``'s ``Trainer.fit`` run (8 rows x 1024 tokens, 2
+microbatches, AdamW, clipping, prefix dropout 0.5): two warm-up steps, three
+timed steps (each ending in a synchronise), one profiled step; its line
+also gives the shares of the backward kernels (K2, K3), and its tokens are
+the loss tokens (rows x 512 latents per step). Prints one JSON line per
+compute type: tokens/s, the device's busy share (kernel device time of the
+profiled pass over the timed pass's wall time, one stream), the shares and
+launches of the flash attention kernels (K1; K2 and K3 when training) and
+the ragged paged-attention kernel (K4), and the top kernels by device time.
+The full profiler tables go to
 ``chiprun_out/profile_serve_<engine>[_<layout>]_<dtype>.txt``.
 """
 from __future__ import annotations
@@ -66,9 +73,93 @@ def _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod, engine_mod, 
     return make, run, sum(news)
 
 
+def _breakdown(torch, prof, table_path: Path):
+    """``(kernels, device_ms, ms_of)`` of a profiled pass: its device
+    kernels by device time, their sum, and the device ms of the kernels whose
+    name holds a pattern. Writes the profiler table to ``table_path``."""
+    events = prof.key_averages()
+    # a user annotation on the device timeline (the optimizer's step) spans
+    # kernels that are listed on their own: counting it would count them twice
+    kernels = [e for e in events
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and _device_us(e) > 0]
+    kernels.sort(key=_device_us, reverse=True)
+    table_path.write_text(events.table(sort_by="self_cuda_time_total", row_limit=60))
+
+    def ms_of(pattern: str) -> float:
+        return sum(_device_us(e) for e in kernels if pattern in e.key) / 1e3
+
+    return kernels, sum(_device_us(e) for e in kernels) / 1e3, ms_of
+
+
+def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi, out_dir):
+    from perceiver_io_tpu_torch import parallel, training
+
+    name = str(dtype).split(".")[-1]
+    run, tokens = _train_workload(torch, chip_smoke, clm, training, parallel, dtype)
+    run()
+    run()  # warm-up
+    chip_smoke.reset_counts(flash)
+    step_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v / 3 for k, v in chip_smoke.read_counts(flash).items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t1 = time.perf_counter()
+        run()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / f"profile_serve_train_{name}.txt")
+    measured = bool(kernels)
+    p50 = sorted(step_ms)[1]
+    shares = {}
+    for key, pattern in (("k1", "flash_fwd_kernel"), ("k2", "flash_bwd_dq_kernel"),
+                         ("k3", "flash_bwd_dkv_kernel")):
+        shares[f"{key}_device_ms"] = ms_of(pattern) if measured else "not measured"
+        shares[f"{key}_share_of_device"] = ms_of(pattern) / device_ms if measured else "not measured"
+    return {
+        "engine": "train", "compute_dtype": name, "device": smi, "step_ms": step_ms,
+        "step_ms_p50": p50, "loss_tokens_per_step": tokens, "loss_tokens_per_s": tokens / (p50 / 1e3),
+        "launches_per_step": counts, "profiled_wall_ms": prof_wall_ms,
+        "device_kernel_ms": device_ms if measured else "not measured",
+        # the profiled step does a timed step's work; the profiler slows the
+        # host, so the share against the timed step is the one to read
+        "device_busy_share": device_ms / p50 if measured else "not measured",
+        "device_busy_share_profiled": device_ms / prof_wall_ms if measured else "not measured",
+        **shares,
+        "k123_share_of_device": (sum(ms_of(p) for p in ("flash_fwd_kernel", "flash_bwd_"))
+                                 / device_ms) if measured else "not measured",
+        "top_kernels": [{"name": e.key[:90], "ms": _device_us(e) / 1e3, "calls": e.count}
+                        for e in kernels[:10]],
+    }
+
+
+def _train_workload(torch, chip_smoke, clm, training, parallel, dtype):
+    """``(run, tokens)``: ``run()`` takes one optimizer step of the fit run's
+    configuration on a fresh full-width model."""
+    cfg = chip_smoke.clm_base_config(clm.CausalLanguageModelConfig)
+    model = clm.CausalLanguageModel(cfg, dtype=dtype, seed=0)
+    schedule = training.cosine_with_warmup(1e-4, warmup_steps=2, training_steps=chip_smoke.TRAIN_STEPS)
+    state = parallel.TrainState.create(model, training.make_optimizer(schedule, optimizer="adamw"))
+    step = parallel.make_train_step(training.clm_loss_fn(model, cfg.max_latents), grad_clip_norm=1.0,
+                                    grad_accum_steps=2)
+    batches = chip_smoke.token_batches(cfg.vocab_size, cfg.max_seq_len, 8, 2, seed=31)
+    turn = [0]
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(turn[0])
+        _, metrics = step(state, batches[turn[0] % 2], gen)
+        turn[0] += 1
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+
+    return run, 8 * cfg.max_latents
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--engine", choices=("bucket", "slots"), default="bucket")
+    parser.add_argument("--engine", choices=("bucket", "slots", "train"), default="bucket")
     parser.add_argument("--kv-layout", choices=("dense", "paged"), default="dense",
                         help="the slot engine's KV layout")
     args = parser.parse_args()
@@ -102,6 +193,11 @@ def main() -> int:
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
+        if args.engine == "train":
+            print(json.dumps(_profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash,
+                                            dtype, smi, out_dir)), flush=True)
+            torch.cuda.empty_cache()
+            continue
         model = clm.CausalLanguageModel(cfg, dtype=dtype, seed=0).eval()
         make, run, tokens = _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod,
                                       engine_mod, cfg.vocab_size)
@@ -126,17 +222,9 @@ def main() -> int:
             t1 = time.perf_counter()
             serve_all()
             prof_wall_s = time.perf_counter() - t1
-        events = prof.key_averages()
-        kernels = [e for e in events
-                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                   and _device_us(e) > 0]
-        kernels.sort(key=_device_us, reverse=True)
-        device_ms = sum(_device_us(e) for e in kernels) / 1e3
-        k1_ms = sum(_device_us(e) for e in kernels if "flash_fwd_kernel" in e.key) / 1e3
-        k4_ms = sum(_device_us(e) for e in kernels if "ragged_" in e.key and "_kernel" in e.key) / 1e3
-        (out_dir / f"profile_serve_{tag}_{name}.txt").write_text(
-            events.table(sort_by="self_cuda_time_total", row_limit=60)
-        )
+        kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / f"profile_serve_{tag}_{name}.txt")
+        k1_ms = ms_of("flash_fwd_kernel")
+        k4_ms = ms_of("ragged_")
         measured = bool(kernels)
         record = {
             "engine": args.engine,

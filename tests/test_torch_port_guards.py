@@ -38,7 +38,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     # full module names: perceiver_io_tpu_torch must not pass for the JAX package
     for name in ("serving.engine", "serving.slots", "serving.kv_pool", "ops.flash_attention",
-                 "ops.paged_attention", "ops.ragged_attention"):
+                 "ops.paged_attention", "ops.ragged_attention", "training.trainer",
+                 "training.tasks", "training.optim", "training.lrs", "training.checkpoint",
+                 "parallel.train_step"):
         assert f"perceiver_io_tpu_torch.{name}" in report["imported"]
     assert report["bad"] == []
 
@@ -52,19 +54,28 @@ def test_port_sources_name_no_jax_module():
                 assert mod.split(".")[0] not in ("jax", "flax", "perceiver_io_tpu"), (path, line)
 
 
-@pytest.mark.parametrize("entry", ["model", "generate", "engine"])
-def test_default_device_entry_points_refuse_the_cpu(entry):
+@pytest.mark.parametrize("entry", ["model", "generate", "engine", "trainer", "train_step"])
+def test_default_device_entry_points_refuse_the_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     from perceiver_io_tpu_torch.inference.generate import GenerationConfig, generate
     from perceiver_io_tpu_torch.models.text.clm import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.parallel import make_train_step
     from perceiver_io_tpu_torch.serving.engine import ServingEngine
+    from perceiver_io_tpu_torch.training import Trainer, TrainerConfig, clm_loss_fn, make_optimizer
 
     cfg = CausalLanguageModelConfig(vocab_size=16, max_seq_len=8, max_latents=4, num_channels=8,
                                     num_heads=2, num_self_attention_layers=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "model":
             CausalLanguageModel(cfg)
+        elif entry in ("trainer", "train_step"):
+            loss_fn = clm_loss_fn(CausalLanguageModel(cfg, device="cpu"), 4)
+            if entry == "trainer":
+                Trainer(TrainerConfig(max_steps=1, default_root_dir=str(tmp_path)), loss_fn,
+                        make_optimizer(1e-3))
+            else:
+                make_train_step(loss_fn)
         else:
             cpu_model = CausalLanguageModel(cfg, device="cpu")
             if entry == "generate":
