@@ -7,15 +7,24 @@ Phases, each printing JSON lines (any failure raises, so the script exits
 non-zero and never prints the final line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` builds every kernel under ``perceiver_io_tpu_torch/csrc``;
-3. kernel: the flash attention kernel (K1) against its plain PyTorch
-   version at the serving path's shapes (i = 512 latents, 8 heads, head dim
-   112: cross-attention over j = 1024 with left-pad dead rows, the latent
-   stack at j = 512, the q_len = 1 decode attend), fp32 and bf16, with its
-   time, the plain version's, ``scaled_dot_product_attention``'s (a
-   yardstick the port never calls) and the card's bound. Every timed loop
-   here and in phase 6 reads the next of enough input copies to fill the L2
-   twice, so its times are HBM times, as the bound is;
+2. build: ``nvcc`` builds every kernel under ``perceiver_io_tpu_torch/csrc``
+   and the phase prints ``ptxas``' registers and spills per kernel;
+3. kernel: the flash attention forward (K1) against its plain PyTorch
+   version at the serving path's shapes (b = 4, 8 heads, head dim 112:
+   cross-attention i = 512 over j = 1024 with left-pad dead rows, the latent
+   stack at j = 512, the q_len = 1 decode attend, ragged tiles i = 100 over
+   j = 612, and a decode attend whose lengths leave whole key splits masked
+   and one row dead), fp32 and bf16, through the route the wrapper picks
+   (``split`` for decode, ``wgmma`` for bf16 tiles, ``simt`` for fp32
+   tiles; a wrong route fails), held at fp32 1e-4, bf16 2e-2 and lse 1e-3
+   on live rows, dead rows exactly 0 with ``lse`` the mask value. With its
+   time, PR 1's simt kernel's on the same inputs (``prev_ms``), the plain
+   version's, ``scaled_dot_product_attention``'s with its backend pinned to
+   memory-efficient attention (a yardstick the port never calls) and the
+   card's bound. Every timed loop here and in phases 6 and 8 reads the next
+   of enough input copies to fill the L2 twice, so its times are HBM times,
+   as the bound is, and queues behind a sleep kernel, so they are the card's
+   times without the host's dispatch (``device_ms``);
 4. model: the full-width C4 CLM ("clm-base": vocab 32000, 1024 context, 512
    latents, 896 channels, 8 heads, 16 layers; random weights from a seed),
    one forward with the kernel against ``attention_impl="xla"``, fp32 and
@@ -52,8 +61,9 @@ non-zero and never prints the final line):
    latent stack at j = 512 with no pad mask), fp32 and bf16, held at
    ``max|d| <= 1e-4 * max|plain|`` per output; dead rows' dq and unseen
    keys' dk/dv must be exactly 0. With each kernel's time, the plain
-   version's, the backward alone of ``scaled_dot_product_attention`` (a
-   yardstick the port never calls) and the card's bound;
+   version's, the backward alone of ``scaled_dot_product_attention`` (its
+   memory-efficient backend pinned; a yardstick the port never calls) and
+   the card's bound;
 9. train, over the full-width CLM:
    (a) one loss + backward with the kernels against ``attention_impl="xla"``
        (fp32, batch 4 x 1024, left pads inside the prefix, one prefix-dropout
@@ -73,7 +83,8 @@ non-zero and never prints the final line):
        ``attention_impl="flash"`` (the plain forward and backward, same
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
-10. the ``{"kernels": [...]}`` summary line (K1, K4, K2, K3), the card's
+10. the ``{"kernels": [...]}`` summary line (K1 with an entry per route,
+   K4, K2, K3), the card's
    ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -132,6 +143,30 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn``: the timed launches queue behind a sleep
+    kernel that outlasts the host's time to enqueue them, so the events read
+    the card's time alone and not the wrapper's Python overhead (a call of
+    a short kernel costs the host more than the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_s = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * iters * host_s + 2e-3) * 2e9))  # cycles, at most ~2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def l2_cold(fn, *tensors):
     """``(call, copies)``: ``call()`` runs ``fn`` on the next of enough
     copies of ``tensors`` to fill the L2 twice, so a timed loop of it reads
@@ -144,66 +179,101 @@ def l2_cold(fn, *tensors):
     return (lambda: fn(*next(turn))), len(copies)
 
 
+# K1's cases: (name, i, j, left pads, visible keys) per batch row, b = 4;
+# ``visible`` masks the keys at and past each row's count
+K1_CASES = (
+    ("cross", 512, 1024, [0, 100, 600, 900], None),        # rows 0..387 of row 3 dead
+    ("stack", 512, 512, [0, 10, 200, 400], None),          # not-yet-latent slots masked
+    ("decode", 1, 1024, None, [1024, 701, 301, 41]),       # keys past the cache length masked
+    ("ragged", 100, 612, [0, 30, 300, 560], None),         # ragged q and kv tiles; rows 0..47 of row 3 dead
+    ("decode_empty", 1, 1024, None, [0, 64, 200, 700]),    # whole splits masked; row 0 dead
+)
+
+
+def k1_expected_route(name: str, tname: str) -> str:
+    return "split" if name.startswith("decode") else ("wgmma" if tname == "bfloat16" else "simt")
+
+
+SDPA_BACKEND = "EFFICIENT_ATTENTION"
+
+
+def sdpa_backend():
+    """A context that pins the library yardstick's backend: memory-efficient
+    attention, which takes a boolean mask in fp32 and bf16 (a call it
+    refuses raises instead of moving to another backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    return sdpa_kernel(getattr(SDPBackend, SDPA_BACKEND))
+
+
 def kernel_cases(torch, flash):
-    """K1 against its plain version at the serving path's shapes."""
+    """K1 against its plain version at the serving path's shapes, through
+    the route the wrapper picks, beside PR 1's simt kernel on the same
+    inputs (``prev_ms``)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, h, d = 4, 8, 112
     cases = []
-    for name, i, j, pads, lengths in (
-        ("cross", 512, 1024, [0, 100, 600, 900], None),   # left pads; rows 0..387 of row 3 dead
-        ("stack", 512, 512, [0, 10, 200, 400], None),     # not-yet-latent slots masked
-        ("decode", 1, 1024, None, [1023, 700, 300, 40]),  # keys past the cache length masked
-    ):
+    for name, i, j, pads, visible in K1_CASES:
         cols = torch.arange(j, device="cuda")[None, :]
         if pads is not None:
             pad = cols < torch.tensor(pads, device="cuda")[:, None]
         else:
-            pad = cols > torch.tensor(lengths, device="cuda")[:, None]
+            pad = cols >= torch.tensor(visible, device="cuda")[:, None]
         causal_ok = cols <= torch.arange(i, device="cuda")[:, None] + (j - i)
         allowed = causal_ok[None] & ~pad[:, None, :]  # (b, i, j)
         live = allowed.any(-1)  # (b, i)
         pairs = int(allowed.sum().item()) * h
         for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).split(".")[-1]
             q = (torch.randn(b, h, i, d, generator=gen, device="cuda") * d**-0.5).to(dtype)
             k = torch.randn(b, h, j, d, generator=gen, device="cuda").to(dtype)
             v = torch.randn(b, h, j, d, generator=gen, device="cuda").to(dtype)
+            before = dict(flash.flash_attention.route_launches)
             o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True)
+            route = next(r for r, n in flash.flash_attention.route_launches.items() if n != before[r])
             o_ref, lse_ref = flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=True)
             torch.cuda.synchronize()
             live4 = live[:, None, :, None].expand_as(o)
+            live3 = live[:, None, :].expand_as(lse)
             err = (o.float() - o_ref.float()).abs()[live4].max().item()
-            lse_err = (lse - lse_ref).abs()[live[:, None, :].expand_as(lse)].max().item()
-            dead_zero = bool((o[~live4] == 0).all().item())
-            tname = str(dtype).split(".")[-1]
+            lse_err = (lse - lse_ref).abs()[live3].max().item()
+            dead_zero = (bool((o[~live4] == 0).all().item())
+                         and bool((lse[~live3] == flash.MASK_VALUE).all().item()))
             tol = KERNEL_TOL[tname]
-            if not (err <= tol and lse_err <= 1e-3 and dead_zero):
+            expected = k1_expected_route(name, tname)
+            if not (err <= tol and lse_err <= 1e-3 and dead_zero and route == expected):
                 raise AssertionError(
-                    f"K1 {name} {tname}: max|d| {err} (tol {tol}), lse {lse_err}, dead rows zero {dead_zero}"
+                    f"K1 {name} {tname} ({route}, expected {expected}): max|d| {err} (tol {tol}), "
+                    f"lse {lse_err}, dead rows 0 with lse MASK {dead_zero}"
                 )
-            iters = 50 if i > 1 else 200
+            iters = 100 if i > 1 else 200
             attn_mask = allowed[:, None]
             kernel, copies = l2_cold(
                 lambda q, k, v: flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True), q, k, v)
+            prev, _ = l2_cold(lambda q, k, v: flash._fwd_launch("simt", q, k, v, pad, True), q, k, v)
             plain, _ = l2_cold(
                 lambda q, k, v: flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=True),
                 q, k, v)
             library, _ = l2_cold(
                 lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=1.0),
                 q, k, v)
-            ms = cuda_ms(kernel, iters)
-            plain_ms = cuda_ms(plain, 10)
-            library_ms = cuda_ms(library, iters)
-            del kernel, plain, library
+            ms = device_ms(kernel, iters)
+            prev_ms = device_ms(prev, iters)
+            plain_ms = device_ms(plain, 10)
+            with sdpa_backend():
+                library_ms = device_ms(library, iters)
+            del kernel, prev, plain, library
             esize = q.element_size()
             nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * esize + lse.numel() * 4 + pad.numel()
             flops = 4 * d * pairs  # q.k and p.v over the keys this data lets each row see
             bound_s = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname])
             case = dict(
-                case=name, dtype=tname, b=b, h=h, i=i, j=j, d=d, max_abs_err=err,
+                case=name, dtype=tname, route=route, b=b, h=h, i=i, j=j, d=d, max_abs_err=err,
                 tol=tol, lse_max_abs_err=lse_err, dead_rows=int((~live).sum().item()),
-                dead_rows_zero=dead_zero, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                dead_rows_zero_lse_mask=dead_zero, ms=ms, prev_ms=prev_ms, prev_route="simt",
+                plain_ms=plain_ms, library_ms=library_ms, library_backend=SDPA_BACKEND,
                 input_copies=copies,
                 bound_ms=bound_s * 1e3,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[tname] else "operations",
@@ -216,13 +286,15 @@ def kernel_cases(torch, flash):
 
 def _grad_rotation(torch, F, q, k, v, do, attn_mask):
     """``(call, copies)``: ``call()`` runs the backward alone of
-    ``scaled_dot_product_attention`` on the next of enough kept graphs (input
-    copies) to fill the L2 twice: the library yardstick of K2 and K3."""
+    ``scaled_dot_product_attention`` (its memory-efficient backend, pinned)
+    on the next of enough kept graphs (input copies) to fill the L2 twice:
+    the library yardstick of K2 and K3."""
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
     graphs = []
     for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes))):
         qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask, scale=1.0)
+        with sdpa_backend():
+            out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask, scale=1.0)
         graphs.append((out, (qq, kk, vv), do.clone()))
     turn = itertools.cycle(graphs)
 
@@ -294,8 +366,8 @@ def k23_cases(torch, flash):
                  b * h * ((2 * i + 4 * j) * d * esize + 8 * i) + pad_bytes, 8 * d * pairs),
             ):
                 timed, copies = l2_cold(lambda *t, f=kernel: f(*t, **kw), q, k, v, lse, delta, do)
-                ms = cuda_ms(timed, 30)
-                plain_ms = cuda_ms(l2_cold(lambda *t, f=plain: f(*t, **kw), q, k, v, lse, delta, do)[0], 5)
+                ms = device_ms(timed, 30)
+                plain_ms = device_ms(l2_cold(lambda *t, f=plain: f(*t, **kw), q, k, v, lse, delta, do)[0], 5)
                 bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
                 times[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
                                     bound_by="bytes" if bytes_s >= ops_s else "operations",
@@ -303,10 +375,11 @@ def k23_cases(torch, flash):
                 del timed
             attn_mask = allowed[:, None]
             library, graphs = _grad_rotation(torch, F, q, k, v, do, attn_mask)
-            library_ms = cuda_ms(library, 20)
+            library_ms = device_ms(library, 20)
             del library
             torch.cuda.empty_cache()
             case.update(kernels=times, library_ms=library_ms, library_graphs=graphs,
+                        library_backend=SDPA_BACKEND,
                         library_note="backward of scaled_dot_product_attention (dq, dk, dv together)")
             emit("k23", **case)
             cases.append(case)
@@ -414,13 +487,14 @@ def serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets):
     table, work = serve_workload(torch, gen_mod, buckets, cfg.vocab_size)
     engine = engine_mod.ServingEngine(model, table=table)
 
-    flash.flash_attention.launches = 0  # count the main path's launches only
+    reset_counts(flash)  # count the main path's launches only
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     served = [engine.serve(prompts, c) for c, prompts in work]
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = flash.flash_attention.launches
+    routes = dict(flash.flash_attention.route_launches)
 
     tokens = sum(c.max_new_tokens * len(prompts) for c, prompts in work)
     stats = engine.stats()
@@ -432,12 +506,13 @@ def serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets):
     emit("serve", requests=stats["completed"], tokens=tokens, wall_s=wall_s,
          tokens_per_s=tokens / wall_s, ttft_ms_p50=stats["ttft_ms"]["p50"],
          device_execute_ms=engine.samples["device_execute_ms"], batches=stats["batches"],
-         k1_launches=launches, k1_launches_per_token=launches / tokens,
+         k1_launches=launches, k1_launches_per_token=launches / tokens, k1_route_launches=routes,
          per_request_generate_mismatches=mismatches, compute_dtype="float32")
-    if stats["completed"] != 8 or launches <= 0 or mismatches:
-        raise AssertionError(f"serve: completed {stats['completed']}, launches {launches}, "
+    # fp32 serving runs K1's split route (decode attends) and simt route (prefill)
+    if stats["completed"] != 8 or not (routes["split"] > 0 and routes["simt"] > 0) or mismatches:
+        raise AssertionError(f"serve: completed {stats['completed']}, K1 launches {routes}, "
                              f"mismatching requests {mismatches}")
-    return launches
+    return launches, routes
 
 
 def k4_cases(torch, ragged, paged):
@@ -504,9 +579,9 @@ def k4_cases(torch, ragged, paged):
                 raise AssertionError(f"K4 {name} {layout}: max|d| {err} (tol {tol}), idle rows zero {idle_zero}")
             iters = 200 if q_len == 1 else 50
             cold_kernel, copies = l2_cold(kernel, *pool)
-            ms = cuda_ms(cold_kernel, iters)
-            plain_ms = cuda_ms(l2_cold(plain, *pool)[0], 10)
-            gather_sdpa_ms = cuda_ms(l2_cold(gather_sdpa, *pool)[0], iters)
+            ms = device_ms(cold_kernel, iters)
+            plain_ms = device_ms(l2_cold(plain, *pool)[0], 10)
+            gather_sdpa_ms = device_ms(l2_cold(gather_sdpa, *pool)[0], iters)
             del cold_kernel
             int8 = len(pool) == 4
             nbytes = (2 * q.numel() * q.element_size() + 2 * live * h * d * pool[0].element_size()
@@ -564,7 +639,7 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
     launches, served = {}, {}
     for layout in ("dense", "paged", "paged_int8"):
         engine = slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout=layout)
-        flash.flash_attention.launches = 0  # count this path's launches only
+        reset_counts(flash)  # count this path's launches only
         ragged.ragged_paged_attention.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -573,7 +648,7 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         k1, k4 = flash.flash_attention.launches, ragged.ragged_paged_attention.launches
-        launches[layout] = {"k1": k1, "k4": k4}
+        launches[layout] = {"k1": k1, "k4": k4, "k1_routes": dict(flash.flash_attention.route_launches)}
         stats = engine.stats()
         rows = [r.result for r in reqs]
         served[layout] = rows
@@ -584,6 +659,7 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             decode_step_ms_p50=stats["decode_step_ms"]["p50"], decode_steps=stats["decode_steps"],
             boundary_steps=stats["boundary_steps"], prefills=stats["prefills"],
             k1_launches=k1, k4_launches=k4, k1_launches_per_token=k1 / tokens,
+            k1_route_launches=launches[layout]["k1_routes"],
             k4_launches_per_token=k4 / tokens, pool_in_use=pool.get("in_use"),
             pool_leaked=pool.get("leaked"), pool_high_water=pool.get("high_water"),
             k4_steps=pool.get("ragged_kernel_steps"),
@@ -644,6 +720,7 @@ def token_batches(vocab_size: int, seq_len: int, rows: int, n: int, seed: int, p
 
 def reset_counts(flash) -> None:
     flash.flash_attention.launches = 0
+    flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
     flash.flash_attention_bwd_dq.launches = 0
     flash.flash_attention_bwd_dkv.launches = 0
 
@@ -742,6 +819,7 @@ def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = read_counts(flash)
+    routes = dict(flash.flash_attention.route_launches)  # validation's included
     train_counts = {k: counts[k] - val_counts[k] for k in counts}
     peak_bytes = torch.cuda.max_memory_allocated()
     rows = [json.loads(line) for line in open(root / "metrics.jsonl")]
@@ -773,7 +851,8 @@ def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
     per_step = {k: v / TRAIN_STEPS for k, v in train_counts.items()}
     line = dict(compute_dtype=tname, steps=TRAIN_STEPS, rows=8, grad_accum_steps=2, losses=losses,
                 val_loss=val_loss, launches=train_counts, launches_per_step=per_step,
-                validation_launches=val_counts, fit_s=fit_s, step_ms=step_ms, step_ms_p50=p50,
+                validation_launches=val_counts, k1_route_launches=routes, fit_s=fit_s,
+                step_ms=step_ms, step_ms_p50=p50,
                 loss_tokens_per_s=tokens / (p50 / 1e3), max_memory_allocated=peak_bytes,
                 checkpoint_reloads_equal=ckpt_equal)
     emit("train_fit", **line)
@@ -782,6 +861,9 @@ def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
         failures.append(f"losses {losses}")
     if per_step != {"k1": 34, "k2": 34, "k3": 34} or val_counts["k2"] or val_counts["k3"]:
         failures.append(f"launches per step {per_step}, validation {val_counts}")
+    expected_route = "wgmma" if dtype == torch.bfloat16 else "simt"  # i = 512 latents
+    if routes[expected_route] != counts["k1"]:
+        failures.append(f"K1 routes {routes}: every launch should take {expected_route}")
     if dtype == torch.float32 and not ckpt_equal:
         failures.append("the best checkpoint does not reload into an equal model")
     if failures:
@@ -854,6 +936,54 @@ def train_phase(torch, clm, flash, ragged, training, parallel, root: Path):
     return fits
 
 
+K1_SOURCES = {
+    "split": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_split.cu",
+    "wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wgmma.cu",
+    "simt": "perceiver_io_tpu_torch/csrc/flash_attention_fwd.cu",
+}
+K1_LAUNCHES_FROM = {"split": "the bucket serve run (fp32 decode attends)",
+                    "simt": "the bucket serve run (fp32 prefill)",
+                    "wgmma": "the bf16 Trainer.fit run (8 steps and its validation pass)"}
+
+
+def k1_route_entry(design: str, main: tuple, cases: list, launches: int) -> dict:
+    """The summary line's entry for one of K1's routes: its main case's
+    numbers and every case that took it."""
+    mine = [c for c in cases if c["route"] == design]
+    head = next(c for c in mine if (c["case"], c["dtype"]) == main)
+    keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend")
+    return {
+        "name": f"flash_attention_fwd[{design}]", "route": "cuda", "design": design,
+        "source": K1_SOURCES[design], "replaces": "perceiver_io_tpu/ops/flash_attention.py:198",
+        "launches": launches, "launches_from": K1_LAUNCHES_FROM[design],
+        "max_abs_err": max(c["max_abs_err"] for c in mine), "case": f"{main[0]} {main[1]}",
+        **{k: head[k] for k in keys},
+        "cases": [{"case": c["case"], "dtype": c["dtype"], **{k: c[k] for k in keys if k != "bound_by"}}
+                  for c in mine],
+    }
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output as {kernel: {instances, registers [min,
+    max], max spill store bytes}}, kernels named by their function name."""
+    out = {}
+    name = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '.*?\d+((?:flash|ragged)_\w*?kernel)", line)
+        if entry:
+            name = entry.group(1)
+            out.setdefault(name, {"instances": 0, "registers": [], "max_spill_store_bytes": 0})
+            out[name]["instances"] += 1
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"].append(int(re.search(r"Used (\d+) registers", line).group(1)))
+        elif name and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            out[name]["max_spill_store_bytes"] = max(out[name]["max_spill_store_bytes"], spill)
+    for rec in out.values():
+        rec["registers"] = [min(rec["registers"], default=0), max(rec["registers"], default=0)]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -884,16 +1014,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    ptxas = {}
-    for name, log in _build.BUILD_LOG.items():
-        regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
-        ptxas[name] = {"kernels": len(regs), "registers": [min(regs, default=0), max(regs, default=0)],
-                       "max_spill_store_bytes": max(spills, default=0)}
-    emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(), ptxas=ptxas)
+    emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(),
+         ptxas={name: ptxas_by_kernel(log) for name, log in _build.BUILD_LOG.items()})
     cases = kernel_cases(torch, flash)
     model_phase(torch, clm, flash, gen_mod)
-    launches = serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets)
+    launches, serve_routes = serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets)
     k4 = k4_cases(torch, ragged, paged)
     slot_launches = slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
     k23 = k23_cases(torch, flash)
@@ -902,6 +1027,8 @@ def main() -> int:
     fits = train_phase(torch, clm, flash, ragged, training, parallel, train_root)
 
     main_case = next(c for c in cases if c["case"] == "cross" and c["dtype"] == "float32")
+    route_launches = {"split": serve_routes["split"], "simt": serve_routes["simt"],
+                      "wgmma": fits["bfloat16"]["k1_route_launches"]["wgmma"]}
     k4_case = next(c for c in k4 if c["case"] == "decode" and c["layout"] == "float32")
     k23_main = next(c for c in k23 if c["j"] == 768 and c["dtype"] == "float32")
     print(json.dumps({"kernels": [{
@@ -916,7 +1043,12 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-        "shape": "cross-attention b=4 h=8 i=512 j=1024 d=112 fp32, causal, left pads",
+        "library_backend": main_case["library_backend"],
+        "shape": "cross-attention b=4 h=8 i=512 j=1024 d=112 fp32, causal, left pads; "
+                 "launches: the bucket serve run",
+        "routes": [k1_route_entry(design, main, cases, route_launches[design])
+                   for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
+                                        ("simt", ("cross", "float32")))],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own into
 a shared library under ``build/kernels/`` at the repository root (git
-ignores ``build/``). A library is named after a hash of its source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+ignores ``build/``). A library is named after a hash of its source, every
+shared header (``csrc/*.cuh``) and the compile and link flags, so an edited
+source or header rebuilds and an unchanged one loads at once.
 :func:`build_all` starts one ``nvcc`` per source, all together.
 
 Nothing here runs at import time: the first call of a kernel's wrapper
@@ -22,10 +23,8 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-Xptxas", "-v"]
+LINK_FLAGS = ["-shared", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -44,9 +43,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> Optional[subprocess.Popen]:
@@ -56,7 +57,7 @@ def _start(name: str) -> Optional[subprocess.Popen]:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *LINK_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

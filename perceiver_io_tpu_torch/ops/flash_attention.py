@@ -4,9 +4,21 @@ that joins them.
 
 Counterpart of the Pallas TPU kernels ``_forward`` (K1), ``_backward_dq``
 (K2) and ``_backward_dkv`` (K3) and of the ``custom_vjp`` around them in
-``perceiver_io_tpu/ops/flash_attention.py``. The forward kernel
-(``csrc/flash_attention_fwd.cu``, Hopper ``sm_90a``) computes blockwise
-online-softmax attention over pre-scaled queries with
+``perceiver_io_tpu/ops/flash_attention.py``. The forward (K1) has three
+Hopper ``sm_90a`` designs behind one wrapper, picked by :func:`_fwd_route`
+from the query length and type alone:
+
+- ``split`` (``csrc/flash_attention_fwd_split.cu``), at most 16 query rows
+  (decode attends), fp32 or bf16: the keys cut into 64-key splits, one block
+  per (split, head, batch) writing fp32 partials, and a merge launch;
+- ``wgmma`` (``csrc/flash_attention_fwd_wgmma.cu``), bf16 with more rows:
+  tensor-core tiles fed by TMA, a 64-row consumer warpgroup and a producer
+  warp per block;
+- ``simt`` (``csrc/flash_attention_fwd.cu``), fp32 with more rows: 64 x 64
+  tiles on the CUDA cores (fp32 has no tensor-core path without TF32, which
+  stays off).
+
+Every route computes attention over pre-scaled queries with
 
 - the right-aligned causal mask ``col <= row + (j - i)`` (Perceiver AR
   latents attend over ``[prefix || latents]``), skipping kv tiles wholly
@@ -30,7 +42,11 @@ raises on what the kernel does not take; for CPU tensors it runs the plain
 version (:func:`flash_attention_reference`,
 :func:`flash_attention_backward_reference`), which repeats the kernel's
 arithmetic. There is no fallback from a CUDA tensor to a plain version.
-Launches are counted on ``flash_attention.launches`` (K1),
+A route whose kernel refuses an input (a head dim it does not instantiate,
+a base not 16-byte aligned for the split and wgmma routes, a failed launch)
+raises; a CUDA tensor never drops to another route.
+Launches are counted on ``flash_attention.launches`` (K1, with
+``flash_attention.route_launches`` per route),
 ``flash_attention_bwd_dq.launches`` (K2) and
 ``flash_attention_bwd_dkv.launches`` (K3).
 """
@@ -45,7 +61,11 @@ import torch
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_FN = None
+#: K1's designs, by :func:`_fwd_route`
+ROUTES = ("split", "wgmma", "simt")
+#: the most query rows the split route takes
+SPLIT_MAX_ROWS = 16
+_FWD = {}
 _BWD = None
 
 
@@ -83,6 +103,43 @@ def flash_attention_reference(
     safe_l = torch.where(l > 0, l, torch.ones_like(l))
     o = torch.where(l > 0, acc / safe_l, torch.zeros_like(acc))
     lse = (m + torch.log(safe_l))[..., 0]
+    return o.to(q.dtype), lse
+
+
+def flash_attention_split_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    pad_mask: Optional[torch.Tensor] = None, causal: bool = False, split: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split route's arithmetic written out in PyTorch (for the tests):
+    per split of ``split`` keys the partials ``m_s`` (``MASK_VALUE`` where the
+    row sees none of its keys), ``l_s = sum p`` and ``acc_s = p . v`` with
+    ``p = exp(s - m_s)`` cast to ``v``'s type for the product, then the
+    merge ``m = max m_s``, ``l = sum l_s e^(m_s - m)``,
+    ``o = sum acc_s e^(m_s - m) / l`` over the splits with ``l_s > 0``. A row
+    that sees no key gets ``o = 0`` and ``lse = MASK_VALUE``.
+
+    :return: ``(o, lse)`` as :func:`flash_attention_reference`.
+    """
+    s = torch.einsum("bhic,bhjc->bhij", q.float(), k.float())
+    allowed = _allowed(q, k.shape[2], pad_mask, causal).expand_as(s)
+    ms, ls, accs = [], [], []
+    for c0 in range(0, k.shape[2], split):
+        s_c = torch.where(allowed[..., c0:c0 + split], s[..., c0:c0 + split], float("-inf"))
+        m_c = s_c.amax(dim=-1, keepdim=True)
+        seen = m_c > float("-inf")
+        p = torch.exp(s_c - torch.where(seen, m_c, 0.0))  # masked keys: exp(-inf) = 0
+        ms.append(torch.where(seen, m_c, MASK_VALUE))
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bhij,bhjc->bhic", p.to(v.dtype).float(), v[:, :, c0:c0 + split].float()))
+    m_s, l_s, acc_s = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    live = l_s > 0
+    m = torch.where(live, m_s, float("-inf")).amax(dim=0)
+    w = torch.where(live, torch.exp(m_s - m), 0.0)
+    l, acc = (l_s * w).sum(dim=0), (acc_s * w).sum(dim=0)
+    seen = l > 0
+    safe_l = torch.where(seen, l, 1.0)
+    o = torch.where(seen, acc / safe_l, 0.0)
+    lse = torch.where(seen, m + torch.log(safe_l), MASK_VALUE)[..., 0]
     return o.to(q.dtype), lse
 
 
@@ -144,20 +201,41 @@ def flash_attention_backward_reference(
     return (dq, *flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do, **kw))
 
 
-def _fwd_kernel():
-    """K1's C entry and head-dim query, loaded (and built) on first use."""
-    global _FN
-    if _FN is None:
+def _fwd_route(i: int, dtype: torch.dtype) -> str:
+    """K1's design for a query of ``i`` rows in ``dtype``: ``split`` for
+    decode attends (``i <= 16``), else ``wgmma`` for bf16 and ``simt`` for
+    fp32. The choice depends on nothing else (not the batch), so a row's
+    result does not either."""
+    if i <= SPLIT_MAX_ROWS:
+        return "split"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+#: per route: (library source, C entry, pointer args, int args)
+_FWD_ENTRIES = {
+    "simt": ("flash_attention_fwd", "flash_attention_fwd", 6, 7),
+    "wgmma": ("flash_attention_fwd_wgmma", "flash_attention_fwd_wgmma", 6, 6),
+    "split": ("flash_attention_fwd_split", "flash_attention_fwd_split", 8, 8),
+}
+
+
+def _fwd_kernel(route: str):
+    """A route's C entry and head-dim query (and, for ``split``, its split
+    size), loaded (and built) on first use."""
+    if route not in _FWD:
         from perceiver_io_tpu_torch import _build
 
-        lib = _build.load("flash_attention_fwd")
-        fn = lib.flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        source, entry, n_ptr, n_int = _FWD_ENTRIES[route]
+        lib = _build.load(source)
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.flash_attention_fwd_supports_head_dim.argtypes = [ctypes.c_int]
-        lib.flash_attention_fwd_supports_head_dim.restype = ctypes.c_int
-        _FN = (fn, lib.flash_attention_fwd_supports_head_dim)
-    return _FN
+        supports = getattr(lib, f"{entry}_supports_head_dim")
+        supports.argtypes = [ctypes.c_int]
+        supports.restype = ctypes.c_int
+        split = lib.flash_attention_fwd_split_size() if route == "split" else None
+        _FWD[route] = (fn, supports, split)
+    return _FWD[route]
 
 
 def _bwd_kernels():
@@ -232,27 +310,53 @@ def flash_attention_fwd(
     :param v: ``(b, h, j, d)`` values.
     :param pad_mask: optional bool ``(b, j)``, True marks padding.
     :param causal: right-aligned causal masking (offset ``j - i``).
+
+    ``flash_attention.launches`` counts the calls that launch K1 and
+    ``flash_attention.route_launches`` splits them by route.
     """
     _check(q, k, v, pad_mask, causal)
     if _on_cpu((q, k, v), pad_mask):
         return flash_attention_reference(q, k, v, pad_mask=pad_mask, causal=causal)
-    fn, supports = _fwd_kernel()
+    route = _fwd_route(q.shape[2], q.dtype)
+    out = _fwd_launch(route, q, k, v, pad_mask, causal)
+    flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
+    return out
+
+
+def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``route``'s K1 kernel on checked CUDA tensors (uncounted): the
+    wrapper's launcher, also used to time one route against another on the
+    same inputs. Raises on what the route's kernel does not take."""
+    fn, supports, split = _fwd_kernel(route)
     b, h, i, d = q.shape
     j = k.shape[2]
     if not supports(d):
-        raise ValueError(f"head dim {d} is not instantiated by the kernel (64, 112, 128)")
+        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel (64, 112, 128)")
+    if route == "wgmma" and q.dtype != torch.bfloat16:
+        raise TypeError(f"the wgmma route takes bfloat16, got {q.dtype}")
+    if route == "split" and i > SPLIT_MAX_ROWS:
+        raise ValueError(f"the split route takes at most {SPLIT_MAX_ROWS} query rows, got {i}")
+    if route != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"the {route} route needs q, k and v on 16-byte aligned bases")
     pad = _pad_bytes(pad_mask)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, i), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), o.data_ptr(), lse.data_ptr(),
-            b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream,
-        )
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), o.data_ptr(), lse.data_ptr())
+        if route == "simt":
+            err = fn(*ptrs, b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream)
+        elif route == "wgmma":
+            err = fn(*ptrs, b, h, i, j, d, int(causal), stream)
+        else:
+            n_splits = -(-j // split)
+            part_ml = torch.empty((b, h, n_splits, i, 2), dtype=torch.float32, device=q.device)
+            part_acc = torch.empty((b, h, n_splits, i, d), dtype=torch.float32, device=q.device)
+            err = fn(*ptrs, part_ml.data_ptr(), part_acc.data_ptr(), b, h, i, j, d, n_splits,
+                     int(causal), _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: cudaError_t {err}")
-    flash_attention.launches += 1
+        raise RuntimeError(f"flash_attention_fwd ({route}) kernel launch failed: cudaError_t {err}")
     return o, lse
 
 
@@ -354,5 +458,6 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0

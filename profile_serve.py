@@ -21,7 +21,8 @@ the loss tokens (rows x 512 latents per step). Prints one JSON line per
 compute type: tokens/s, the device's busy share (kernel device time of the
 profiled pass over the timed pass's wall time, one stream), the shares and
 launches of the flash attention kernels (K1; K2 and K3 when training) and
-the ragged paged-attention kernel (K4), and the top kernels by device time.
+the ragged paged-attention kernel (K4), K1's device time and launches by
+route (split, wgmma, simt), and the top kernels by device time.
 The full profiler tables go to
 ``chiprun_out/profile_serve_<engine>[_<layout>]_<dtype>.txt``.
 """
@@ -92,6 +93,13 @@ def _breakdown(torch, prof, table_path: Path):
     return kernels, sum(_device_us(e) for e in kernels) / 1e3, ms_of
 
 
+def _k1_routes(ms_of) -> dict:
+    """K1's device ms by route (kernel names: ``flash_fwd_kernel`` simt,
+    ``flash_fwd_wgmma_kernel``, ``flash_fwd_split_kernel`` and its merge)."""
+    return {"simt": ms_of("flash_fwd_kernel"), "wgmma": ms_of("flash_fwd_wgmma_"),
+            "split": ms_of("flash_fwd_split_")}
+
+
 def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi, out_dir):
     from perceiver_io_tpu_torch import parallel, training
 
@@ -106,6 +114,7 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         run()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = {k: v / 3 for k, v in chip_smoke.read_counts(flash).items()}
+    k1_routes = {k: v / 3 for k, v in flash.flash_attention.route_launches.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         t1 = time.perf_counter()
         run()
@@ -114,21 +123,23 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
     measured = bool(kernels)
     p50 = sorted(step_ms)[1]
     shares = {}
-    for key, pattern in (("k1", "flash_fwd_kernel"), ("k2", "flash_bwd_dq_kernel"),
+    for key, pattern in (("k1", "flash_fwd_"), ("k2", "flash_bwd_dq_kernel"),
                          ("k3", "flash_bwd_dkv_kernel")):
         shares[f"{key}_device_ms"] = ms_of(pattern) if measured else "not measured"
         shares[f"{key}_share_of_device"] = ms_of(pattern) / device_ms if measured else "not measured"
     return {
         "engine": "train", "compute_dtype": name, "device": smi, "step_ms": step_ms,
         "step_ms_p50": p50, "loss_tokens_per_step": tokens, "loss_tokens_per_s": tokens / (p50 / 1e3),
-        "launches_per_step": counts, "profiled_wall_ms": prof_wall_ms,
+        "launches_per_step": counts, "k1_route_launches_per_step": k1_routes,
+        "profiled_wall_ms": prof_wall_ms,
         "device_kernel_ms": device_ms if measured else "not measured",
         # the profiled step does a timed step's work; the profiler slows the
         # host, so the share against the timed step is the one to read
         "device_busy_share": device_ms / p50 if measured else "not measured",
         "device_busy_share_profiled": device_ms / prof_wall_ms if measured else "not measured",
         **shares,
-        "k123_share_of_device": (sum(ms_of(p) for p in ("flash_fwd_kernel", "flash_bwd_"))
+        "k1_route_device_ms": _k1_routes(ms_of) if measured else "not measured",
+        "k123_share_of_device": (sum(ms_of(p) for p in ("flash_fwd_", "flash_bwd_"))
                                  / device_ms) if measured else "not measured",
         "top_kernels": [{"name": e.key[:90], "ms": _device_us(e) / 1e3, "calls": e.count}
                         for e in kernels[:10]],
@@ -209,12 +220,13 @@ def main() -> int:
             return engine
 
         serve_all()  # warm-up
-        flash.flash_attention.launches = 0
+        chip_smoke.reset_counts(flash)
         ragged.ragged_paged_attention.launches = 0
         t0 = time.perf_counter()
         engine = serve_all()
         wall_s = time.perf_counter() - t0
         k1_launches = flash.flash_attention.launches
+        k1_routes = dict(flash.flash_attention.route_launches)
         k4_launches = ragged.ragged_paged_attention.launches
         stats = engine.stats()
 
@@ -223,7 +235,7 @@ def main() -> int:
             serve_all()
             prof_wall_s = time.perf_counter() - t1
         kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / f"profile_serve_{tag}_{name}.txt")
-        k1_ms = ms_of("flash_fwd_kernel")
+        k1_ms = ms_of("flash_fwd_")
         k4_ms = ms_of("ragged_")
         measured = bool(kernels)
         record = {
@@ -244,6 +256,8 @@ def main() -> int:
             "device_busy_share_profiled": device_ms / (prof_wall_s * 1e3) if measured else "not measured",
             "k1_device_ms": k1_ms if measured else "not measured",
             "k1_share_of_device": k1_ms / device_ms if device_ms else "not measured",
+            "k1_route_device_ms": _k1_routes(ms_of) if measured else "not measured",
+            "k1_route_launches": k1_routes,
             "k4_device_ms": k4_ms if measured else "not measured",
             "k4_share_of_device": k4_ms / device_ms if device_ms else "not measured",
             "top_kernels": [

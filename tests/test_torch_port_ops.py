@@ -174,7 +174,9 @@ def test_dispatch_rejects_unported_modes(rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("i,j,causal,with_pad", [(512, 1024, True, True), (1, 1024, True, True),
-                                                 (100, 300, False, True), (64, 64, True, False)])
+                                                 (100, 300, False, True), (64, 64, True, False),
+                                                 (16, 1024, True, True), (17, 300, True, True),
+                                                 (100, 612, True, True), (8, 77, False, True)])
 def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, i, j, causal, with_pad):
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda_device).manual_seed(0)
