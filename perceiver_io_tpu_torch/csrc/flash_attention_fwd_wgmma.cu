@@ -25,20 +25,21 @@
 // consumer warpgroup and one producer warp (160 threads). Two blocks fit on
 // an SM (81 KB of shared memory each at d = 112), so one block's softmax
 // overlaps the other's products; at i = 512, b*h*8 = 256 blocks fill the 264
-// slots of 132 SMs in one wave. (Two warpgroups per block, 128 rows, measured
-// the same at i = 512 and 1.3x slower at i = 100, where half of the block
-// idles; a third stage of the k/v ring measured slower: 113 KB a block leaves
-// room for one block per SM.) Blocks run from the last query tile to the
-// first, so the tiles that see the most keys start first. The producer loads
-// the block's q tile once and keeps a ring of STAGES k/v tiles of 64 keys in
-// flight (full / empty mbarriers), and writes each tile's 64-bit key mask (in
-// range and not padded) beside it. The consumer warpgroup computes S = Q.K^T
-// with wgmma m64n64k16 (both operands K-major from shared memory, d/16
-// k-steps), masks by select only on tiles that straddle its shifted diagonal
-// or hold a masked key, runs the online softmax in the accumulator layout,
-// packs p to bf16 in registers and feeds it as the A operand of O += P.V
-// (m64n128k16 for d = 112 and 128, m64n64k16 for d = 64), with V MN-major
-// from shared memory.
+// slots of 132 SMs in one wave. (With two warpgroups per block, 128 rows,
+// half of a block idles when i is not a multiple of 128: chip_smoke.py's
+// ragged case, i = 100, took 0.0236 ms that way and 0.0178 ms this way on an
+// NVIDIA H100 80GB HBM3 at 700 W, its i = 512 cases within 3 %. A third stage
+// of the k/v ring would take 113 KB a block, room for one block per SM.)
+// Blocks run from the last query tile to the first, so the tiles that see the
+// most keys start first. The producer loads the block's q tile once and keeps
+// a ring of STAGES k/v tiles of 64 keys in flight (full / empty mbarriers),
+// and writes each tile's 64-bit key mask (in range and not padded) beside it.
+// The consumer warpgroup computes S = Q.K^T with wgmma m64n64k16 (both
+// operands K-major from shared memory, d/16 k-steps), masks by select only on
+// tiles that straddle its shifted diagonal or hold a masked key, runs the
+// online softmax in the accumulator layout, packs p to bf16 in registers and
+// feeds it as the A operand of O += P.V (m64n128k16 for d = 112 and 128,
+// m64n64k16 for d = 64), with V MN-major from shared memory.
 //
 // d = 112 is 224 bytes a row: a 128-byte swizzled box holds 64 bf16
 // columns, so each tile is two boxes (columns 0-63 and 64-127) over a map
