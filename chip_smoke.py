@@ -21,7 +21,8 @@ non-zero and never prints the final line):
    time, PR 1's simt kernel's on the same inputs (``prev_ms``), the plain
    version's, ``scaled_dot_product_attention``'s with its backend pinned to
    memory-efficient attention (a yardstick the port never calls) and the
-   card's bound. Every timed loop here and in phases 6 and 8 reads the next
+   card's bound (here and in phase 8 its bytes count k and v only for the
+   keys some query row sees, as K4's count only live keys). Every timed loop here and in phases 6 and 8 reads the next
    of enough input copies to fill the L2 twice, so its times are HBM times,
    as the bound is, and queues behind a sleep kernel, so they are the card's
    times without the host's dispatch (``device_ms``);
@@ -84,7 +85,8 @@ non-zero and never prints the final line):
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
 10. the ``{"kernels": [...]}`` summary line (K1 with an entry per route,
-   K4, K2, K3), the card's
+   K4, K2, K3; K1's ``launches`` count its wrapper's calls and its
+   ``kernel_launches`` the device kernels, two per split-route call), the card's
    ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -224,6 +226,7 @@ def kernel_cases(torch, flash):
         causal_ok = cols <= torch.arange(i, device="cuda")[:, None] + (j - i)
         allowed = causal_ok[None] & ~pad[:, None, :]  # (b, i, j)
         live = allowed.any(-1)  # (b, i)
+        seen = int(allowed.any(1).sum().item())  # keys some row sees: the only k/v rows read
         pairs = int(allowed.sum().item()) * h
         for dtype in (torch.float32, torch.bfloat16):
             tname = str(dtype).split(".")[-1]
@@ -266,7 +269,8 @@ def kernel_cases(torch, flash):
                 library_ms = device_ms(library, iters)
             del kernel, prev, plain, library
             esize = q.element_size()
-            nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * esize + lse.numel() * 4 + pad.numel()
+            nbytes = ((q.numel() + o.numel() + 2 * seen * h * d) * esize + lse.numel() * 4
+                      + pad.numel())
             flops = 4 * d * pairs  # q.k and p.v over the keys this data lets each row see
             bound_s = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname])
             case = dict(
@@ -277,7 +281,7 @@ def kernel_cases(torch, flash):
                 input_copies=copies,
                 bound_ms=bound_s * 1e3,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[tname] else "operations",
-                bytes=nbytes, flops=flops,
+                bytes=nbytes, flops=flops, seen_keys=seen,
             )
             emit("kernel", **case)
             cases.append(case)
@@ -358,12 +362,13 @@ def k23_cases(torch, flash):
                                      f"dead dq zero {dead_zero}, unseen dk/dv zero {unseen_zero}")
             esize = q.element_size()
             pad_bytes = 0 if pad is None else pad.numel()
+            kv_read = 2 * int(seen.sum().item()) * h * d * esize  # k and v of the keys some row sees
             times = {}
             for kname, kernel, plain, nbytes, flops in (
                 ("dq", flash.flash_attention_bwd_dq, flash.flash_attention_bwd_dq_reference,
-                 b * h * ((3 * i + 2 * j) * d * esize + 8 * i) + pad_bytes, 6 * d * pairs),
+                 b * h * (3 * i * d * esize + 8 * i) + kv_read + pad_bytes, 6 * d * pairs),
                 ("dkv", flash.flash_attention_bwd_dkv, flash.flash_attention_bwd_dkv_reference,
-                 b * h * ((2 * i + 4 * j) * d * esize + 8 * i) + pad_bytes, 8 * d * pairs),
+                 b * h * ((2 * i + 2 * j) * d * esize + 8 * i) + kv_read + pad_bytes, 8 * d * pairs),
             ):
                 timed, copies = l2_cold(lambda *t, f=kernel: f(*t, **kw), q, k, v, lse, delta, do)
                 ms = device_ms(timed, 30)
@@ -495,6 +500,7 @@ def serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets):
     wall_s = time.perf_counter() - t0
     launches = flash.flash_attention.launches
     routes = dict(flash.flash_attention.route_launches)
+    kernel_launches = flash.flash_attention.kernel_launches
 
     tokens = sum(c.max_new_tokens * len(prompts) for c, prompts in work)
     stats = engine.stats()
@@ -507,12 +513,12 @@ def serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets):
          tokens_per_s=tokens / wall_s, ttft_ms_p50=stats["ttft_ms"]["p50"],
          device_execute_ms=engine.samples["device_execute_ms"], batches=stats["batches"],
          k1_launches=launches, k1_launches_per_token=launches / tokens, k1_route_launches=routes,
-         per_request_generate_mismatches=mismatches, compute_dtype="float32")
+         k1_kernel_launches=kernel_launches, per_request_generate_mismatches=mismatches, compute_dtype="float32")
     # fp32 serving runs K1's split route (decode attends) and simt route (prefill)
     if stats["completed"] != 8 or not (routes["split"] > 0 and routes["simt"] > 0) or mismatches:
         raise AssertionError(f"serve: completed {stats['completed']}, K1 launches {routes}, "
                              f"mismatching requests {mismatches}")
-    return launches, routes
+    return launches, routes, kernel_launches
 
 
 def k4_cases(torch, ragged, paged):
@@ -648,7 +654,8 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         k1, k4 = flash.flash_attention.launches, ragged.ragged_paged_attention.launches
-        launches[layout] = {"k1": k1, "k4": k4, "k1_routes": dict(flash.flash_attention.route_launches)}
+        launches[layout] = {"k1": k1, "k4": k4, "k1_routes": dict(flash.flash_attention.route_launches),
+                            "k1_kernels": flash.flash_attention.kernel_launches}
         stats = engine.stats()
         rows = [r.result for r in reqs]
         served[layout] = rows
@@ -660,6 +667,7 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             boundary_steps=stats["boundary_steps"], prefills=stats["prefills"],
             k1_launches=k1, k4_launches=k4, k1_launches_per_token=k1 / tokens,
             k1_route_launches=launches[layout]["k1_routes"],
+            k1_kernel_launches=launches[layout]["k1_kernels"],
             k4_launches_per_token=k4 / tokens, pool_in_use=pool.get("in_use"),
             pool_leaked=pool.get("leaked"), pool_high_water=pool.get("high_water"),
             k4_steps=pool.get("ragged_kernel_steps"),
@@ -721,6 +729,7 @@ def token_batches(vocab_size: int, seq_len: int, rows: int, n: int, seed: int, p
 def reset_counts(flash) -> None:
     flash.flash_attention.launches = 0
     flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
+    flash.flash_attention.kernel_launches = 0
     flash.flash_attention_bwd_dq.launches = 0
     flash.flash_attention_bwd_dkv.launches = 0
 
@@ -820,6 +829,7 @@ def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
     fit_s = time.perf_counter() - t0
     counts = read_counts(flash)
     routes = dict(flash.flash_attention.route_launches)  # validation's included
+    k1_kernels = flash.flash_attention.kernel_launches
     train_counts = {k: counts[k] - val_counts[k] for k in counts}
     peak_bytes = torch.cuda.max_memory_allocated()
     rows = [json.loads(line) for line in open(root / "metrics.jsonl")]
@@ -851,7 +861,8 @@ def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
     per_step = {k: v / TRAIN_STEPS for k, v in train_counts.items()}
     line = dict(compute_dtype=tname, steps=TRAIN_STEPS, rows=8, grad_accum_steps=2, losses=losses,
                 val_loss=val_loss, launches=train_counts, launches_per_step=per_step,
-                validation_launches=val_counts, k1_route_launches=routes, fit_s=fit_s,
+                validation_launches=val_counts, k1_route_launches=routes,
+                k1_kernel_launches=k1_kernels, fit_s=fit_s,
                 step_ms=step_ms, step_ms_p50=p50,
                 loss_tokens_per_s=tokens / (p50 / 1e3), max_memory_allocated=peak_bytes,
                 checkpoint_reloads_equal=ckpt_equal)
@@ -946,16 +957,18 @@ K1_LAUNCHES_FROM = {"split": "the bucket serve run (fp32 decode attends)",
                     "wgmma": "the bf16 Trainer.fit run (8 steps and its validation pass)"}
 
 
-def k1_route_entry(design: str, main: tuple, cases: list, launches: int) -> dict:
+def k1_route_entry(flash, design: str, main: tuple, cases: list, launches: int) -> dict:
     """The summary line's entry for one of K1's routes: its main case's
-    numbers and every case that took it."""
+    numbers and every case that took it. ``launches`` counts the route's
+    calls; ``kernel_launches`` the device kernels they launched."""
     mine = [c for c in cases if c["route"] == design]
     head = next(c for c in mine if (c["case"], c["dtype"]) == main)
     keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend")
     return {
         "name": f"flash_attention_fwd[{design}]", "route": "cuda", "design": design,
         "source": K1_SOURCES[design], "replaces": "perceiver_io_tpu/ops/flash_attention.py:198",
-        "launches": launches, "launches_from": K1_LAUNCHES_FROM[design],
+        "launches": launches, "kernel_launches": launches * flash.ROUTE_KERNELS[design],
+        "launches_from": K1_LAUNCHES_FROM[design],
         "max_abs_err": max(c["max_abs_err"] for c in mine), "case": f"{main[0]} {main[1]}",
         **{k: head[k] for k in keys},
         "cases": [{"case": c["case"], "dtype": c["dtype"], **{k: c[k] for k in keys if k != "bound_by"}}
@@ -1018,7 +1031,7 @@ def main() -> int:
          ptxas={name: ptxas_by_kernel(log) for name, log in _build.BUILD_LOG.items()})
     cases = kernel_cases(torch, flash)
     model_phase(torch, clm, flash, gen_mod)
-    launches, serve_routes = serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets)
+    launches, serve_routes, serve_kernels = serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets)
     k4 = k4_cases(torch, ragged, paged)
     slot_launches = slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
     k23 = k23_cases(torch, flash)
@@ -1037,6 +1050,7 @@ def main() -> int:
         "source": "perceiver_io_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "perceiver_io_tpu/ops/flash_attention.py:198",
         "launches": launches,
+        "kernel_launches": serve_kernels,
         "max_abs_err": max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1046,7 +1060,7 @@ def main() -> int:
         "library_backend": main_case["library_backend"],
         "shape": "cross-attention b=4 h=8 i=512 j=1024 d=112 fp32, causal, left pads; "
                  "launches: the bucket serve run",
-        "routes": [k1_route_entry(design, main, cases, route_launches[design])
+        "routes": [k1_route_entry(flash, design, main, cases, route_launches[design])
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
                                         ("simt", ("cross", "float32")))],
     }, {

@@ -21,8 +21,8 @@
 // (i, j) scores to device memory, reads each k/v tile once per 64 query
 // rows, and overlaps the TMA loads of the next tiles with the products.
 //
-// Schedule: one block per (64-row query tile, head, batch): WARPGROUPS = 1
-// consumer warpgroup and one producer warp (160 threads). Two blocks fit on
+// Schedule: one block per (64-row query tile, head, batch): one consumer
+// warpgroup and one producer warp (160 threads). Two blocks fit on
 // an SM (81 KB of shared memory each at d = 112), so one block's softmax
 // overlaps the other's products; at i = 512, b*h*8 = 256 blocks fill the 264
 // slots of 132 SMs in one wave. (With two warpgroups per block, 128 rows,
@@ -53,11 +53,10 @@
 
 namespace {
 
-constexpr int WARPGROUPS = 1;            // consumer warpgroups, 64 query rows each
-constexpr int BM = 64 * WARPGROUPS;      // query rows per block
+constexpr int BM = 64;                   // query rows per block: one consumer warpgroup
 constexpr int BN = 64;                   // keys per kv tile
 constexpr int STAGES = 2;                // k/v tiles in flight
-constexpr int CONSUMERS = 128 * WARPGROUPS;
+constexpr int CONSUMERS = 128;
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int BOX_BYTES = 64 * 64 * 2;   // one 64 x 64 bf16 box
 // Large-but-finite mask value, as the TPU kernel's: the lse of a dead row.
@@ -69,7 +68,7 @@ struct Tile {
   static constexpr int DP = 64 * HALVES;         // O's accumulator width
   static constexpr int KSTEPS = D / 16;          // k-steps of S = Q.K^T
   static constexpr int BYTES = HALVES * BOX_BYTES;  // 64 rows of q, k or v
-  static constexpr int SMEM = 1024 + (WARPGROUPS + 2 * STAGES) * BYTES + (3 * STAGES + 1) * 8;
+  static constexpr int SMEM = 1024 + (1 + 2 * STAGES) * BYTES + (3 * STAGES + 1) * 8;
 };
 
 template <int D, bool CAUSAL, bool HAS_PAD>
@@ -84,9 +83,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
   uint8_t* base = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* q_s = base;                          // [warpgroup][half] boxes
-  uint8_t* k_s = q_s + WARPGROUPS * T::BYTES;   // [stage][half]
-  uint8_t* v_s = k_s + STAGES * T::BYTES;       // [stage][half]
+  uint8_t* q_s = base;                      // [half] boxes
+  uint8_t* k_s = q_s + T::BYTES;            // [stage][half]
+  uint8_t* v_s = k_s + STAGES * T::BYTES;   // [stage][half]
   uint64_t* full = reinterpret_cast<uint64_t*>(v_s + STAGES * T::BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* q_full = empty + STAGES;
@@ -97,7 +96,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int bb = blockIdx.z;
   const int bh = bb * H + blockIdx.y;
   const int offset = J - I;
-  int n_tiles = (J + BN - 1) / BN;
+  int n_tiles = (J + BN - 1) / BN;  // every tile's key is within some row's causal reach
   if (CAUSAL) n_tiles = min(n_tiles, (min(row0 + BM, I) - 1 + offset) / BN + 1);
 
   if (tid == 0) {
@@ -115,11 +114,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) {
       sm90::tma_prefetch_map(&kmap);
       sm90::tma_prefetch_map(&vmap);
-      sm90::mbar_arrive_expect_tx(q_full, WARPGROUPS * T::BYTES);
-      for (int wg = 0; wg < WARPGROUPS; ++wg)
-        for (int h = 0; h < T::HALVES; ++h)
-          sm90::tma_load_3d(q_s + (wg * T::HALVES + h) * BOX_BYTES, &qmap, q_full, h * 64,
-                            row0 + wg * 64, bh);
+      sm90::mbar_arrive_expect_tx(q_full, T::BYTES);
+      for (int h = 0; h < T::HALVES; ++h)
+        sm90::tma_load_3d(q_s + h * BOX_BYTES, &qmap, q_full, h * 64, row0, bh);
     }
     for (int t = 0; t < n_tiles; ++t) {
       const int stage = t % STAGES;
@@ -143,15 +140,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // consumer warpgroups: wg owns query rows wg_row0 .. wg_row0 + 63
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
+  // the consumer warpgroup: query rows row0 .. row0 + 63
+  const int warp = tid / 32;
   const int lane = tid % 32;
-  const int wg_row0 = row0 + wg * 64;
-  const int wg_last = min(wg_row0 + 63, I - 1);
-  const bool wg_live = wg_row0 < I;
-  const int r_lo = wg_row0 + warp * 16 + lane / 4;  // rows r_lo and r_lo + 8
-  const uint8_t* qa = q_s + wg * T::HALVES * BOX_BYTES;
+  const int r_lo = row0 + warp * 16 + lane / 4;  // rows r_lo and r_lo + 8
 
   float acc[T::DP / 2];
 #pragma unroll
@@ -164,90 +156,87 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int stage = t % STAGES;
     const int col0 = t * BN;
     sm90::mbar_wait(&full[stage], (t / STAGES) & 1);
-    if (wg_live && (!CAUSAL || col0 <= wg_last + offset)) {
-      const uint8_t* kt = k_s + stage * T::BYTES;
-      const uint8_t* vt = v_s + stage * T::BYTES;
-      float s[32];
+    const uint8_t* kt = k_s + stage * T::BYTES;
+    const uint8_t* vt = v_s + stage * T::BYTES;
+    float s[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
-      sm90::wgmma_fence();
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < T::KSTEPS; ++kk) {
-        const int at = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-        sm90::wgmma_m64n64k16_ss(s, sm90::desc_sw128(qa + at, 16, 1024),
-                                 sm90::desc_sw128(kt + at, 16, 1024), kk > 0);
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(s);
+    for (int kk = 0; kk < T::KSTEPS; ++kk) {
+      const int at = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      sm90::wgmma_m64n64k16_ss(s, sm90::desc_sw128(q_s + at, 16, 1024),
+                               sm90::desc_sw128(kt + at, 16, 1024), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
 
-      // mask by select, only where the tile straddles the diagonal or a masked key
-      const uint64_t km = keymask[stage];
-      if (km != ~0ull || (CAUSAL && col0 + BN - 1 > wg_row0 + offset)) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-          const int row = r_lo + 8 * ((i / 2) % 2);
-          const bool ok = ((km >> col) & 1) && (!CAUSAL || col0 + col <= row + offset);
-          if (!ok) s[i] = -INFINITY;
-        }
-      }
-
-      // online softmax, rows r_lo (rr = 0) and r_lo + 8 (rr = 1); a row's 64
-      // columns lie in the 4 lanes of one quad
-      float alpha[2], m_use[2];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * rr], s[4 * c + 2 * rr + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[rr], mx);
-        m_use[rr] = m_new == -INFINITY ? 0.f : m_new;  // no key seen yet: exp(-inf) = 0
-        alpha[rr] = __expf(m[rr] - m_use[rr]);
-        m[rr] = m_new;
-      }
-      float rowsum[2] = {0.f, 0.f};
+    // mask by select, only where the tile straddles the diagonal or a masked key
+    const uint64_t km = keymask[stage];
+    if (km != ~0ull || (CAUSAL && col0 + BN - 1 > row0 + offset)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        s[i] = __expf(s[i] - m_use[(i / 2) % 2]);
-        rowsum[(i / 2) % 2] += s[i];
+        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+        const int row = r_lo + 8 * ((i / 2) % 2);
+        const bool ok = ((km >> col) & 1) && (!CAUSAL || col0 + col <= row + offset);
+        if (!ok) s[i] = -INFINITY;
       }
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        rowsum[rr] += __shfl_xor_sync(0xffffffffu, rowsum[rr], 1);
-        rowsum[rr] += __shfl_xor_sync(0xffffffffu, rowsum[rr], 2);
-        l[rr] = alpha[rr] * l[rr] + rowsum[rr];
-      }
-#pragma unroll
-      for (int i = 0; i < T::DP / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
-
-      // p in bf16, straight from the accumulator layout into A fragments
-      uint32_t pa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) pa[kk][r] = sm90::pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t dv = sm90::desc_sw128(vt + kk * 2048, BOX_BYTES, 1024);
-        if constexpr (T::DP == 128) {
-          sm90::wgmma_m64n128k16_rs_mn(acc, pa[kk], dv, 1);
-        } else {
-          sm90::wgmma_m64n64k16_rs_mn(acc, pa[kk], dv, 1);
-        }
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(acc);
     }
+
+    // online softmax, rows r_lo (rr = 0) and r_lo + 8 (rr = 1); a row's 64
+    // columns lie in the 4 lanes of one quad
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * rr], s[4 * c + 2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[rr], mx);
+      m_use[rr] = m_new == -INFINITY ? 0.f : m_new;  // no key seen yet: exp(-inf) = 0
+      alpha[rr] = __expf(m[rr] - m_use[rr]);
+      m[rr] = m_new;
+    }
+    float rowsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = __expf(s[i] - m_use[(i / 2) % 2]);
+      rowsum[(i / 2) % 2] += s[i];
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      rowsum[rr] += __shfl_xor_sync(0xffffffffu, rowsum[rr], 1);
+      rowsum[rr] += __shfl_xor_sync(0xffffffffu, rowsum[rr], 2);
+      l[rr] = alpha[rr] * l[rr] + rowsum[rr];
+    }
+#pragma unroll
+    for (int i = 0; i < T::DP / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+    // p in bf16, straight from the accumulator layout into A fragments
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[kk][r] = sm90::pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = sm90::desc_sw128(vt + kk * 2048, BOX_BYTES, 1024);
+      if constexpr (T::DP == 128) {
+        sm90::wgmma_m64n128k16_rs_mn(acc, pa[kk], dv, 1);
+      } else {
+        sm90::wgmma_m64n64k16_rs_mn(acc, pa[kk], dv, 1);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
     sm90::mbar_arrive(&empty[stage]);
   }
 
-  if (!wg_live) return;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = r_lo + 8 * rr;

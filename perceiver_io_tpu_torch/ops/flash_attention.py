@@ -45,8 +45,10 @@ arithmetic. There is no fallback from a CUDA tensor to a plain version.
 A route whose kernel refuses an input (a head dim it does not instantiate,
 a base not 16-byte aligned for the split and wgmma routes, a failed launch)
 raises; a CUDA tensor never drops to another route.
-Launches are counted on ``flash_attention.launches`` (K1, with
-``flash_attention.route_launches`` per route),
+Launches are counted on ``flash_attention.launches`` (K1's calls, with
+``flash_attention.route_launches`` per route, and
+``flash_attention.kernel_launches`` the device kernels they launch: two per
+split-route call, partials and merge, one per other call),
 ``flash_attention_bwd_dq.launches`` (K2) and
 ``flash_attention_bwd_dkv.launches`` (K3).
 """
@@ -65,6 +67,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("split", "wgmma", "simt")
 #: the most query rows the split route takes
 SPLIT_MAX_ROWS = 16
+#: device kernels one call of each route launches
+ROUTE_KERNELS = {"split": 2, "wgmma": 1, "simt": 1}
 _FWD = {}
 _BWD = None
 
@@ -311,8 +315,10 @@ def flash_attention_fwd(
     :param pad_mask: optional bool ``(b, j)``, True marks padding.
     :param causal: right-aligned causal masking (offset ``j - i``).
 
-    ``flash_attention.launches`` counts the calls that launch K1 and
-    ``flash_attention.route_launches`` splits them by route.
+    ``flash_attention.launches`` counts the calls that launch K1,
+    ``flash_attention.route_launches`` splits them by route and
+    ``flash_attention.kernel_launches`` counts the device kernels launched
+    (two per split-route call).
     """
     _check(q, k, v, pad_mask, causal)
     if _on_cpu((q, k, v), pad_mask):
@@ -321,6 +327,7 @@ def flash_attention_fwd(
     out = _fwd_launch(route, q, k, v, pad_mask, causal)
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
+    flash_attention.kernel_launches += ROUTE_KERNELS[route]
     return out
 
 
@@ -459,5 +466,6 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+flash_attention.kernel_launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0

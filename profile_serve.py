@@ -22,7 +22,8 @@ compute type: tokens/s, the device's busy share (kernel device time of the
 profiled pass over the timed pass's wall time, one stream), the shares and
 launches of the flash attention kernels (K1; K2 and K3 when training) and
 the ragged paged-attention kernel (K4), K1's device time and launches by
-route (split, wgmma, simt), and the top kernels by device time.
+route (split, wgmma, simt) and its device kernel launches (a split-route
+call launches two: partials and merge), and the top kernels by device time.
 The full profiler tables go to
 ``chiprun_out/profile_serve_<engine>[_<layout>]_<dtype>.txt``.
 """
@@ -115,6 +116,7 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = {k: v / 3 for k, v in chip_smoke.read_counts(flash).items()}
     k1_routes = {k: v / 3 for k, v in flash.flash_attention.route_launches.items()}
+    k1_kernels = flash.flash_attention.kernel_launches / 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         t1 = time.perf_counter()
         run()
@@ -131,6 +133,7 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         "engine": "train", "compute_dtype": name, "device": smi, "step_ms": step_ms,
         "step_ms_p50": p50, "loss_tokens_per_step": tokens, "loss_tokens_per_s": tokens / (p50 / 1e3),
         "launches_per_step": counts, "k1_route_launches_per_step": k1_routes,
+        "k1_kernel_launches_per_step": k1_kernels,
         "profiled_wall_ms": prof_wall_ms,
         "device_kernel_ms": device_ms if measured else "not measured",
         # the profiled step does a timed step's work; the profiler slows the
@@ -227,6 +230,7 @@ def main() -> int:
         wall_s = time.perf_counter() - t0
         k1_launches = flash.flash_attention.launches
         k1_routes = dict(flash.flash_attention.route_launches)
+        k1_kernels = flash.flash_attention.kernel_launches
         k4_launches = ragged.ragged_paged_attention.launches
         stats = engine.stats()
 
@@ -247,6 +251,7 @@ def main() -> int:
             "tokens_per_s": tokens / wall_s,
             "ttft_ms_p50": stats["ttft_ms"]["p50"],
             "k1_launches": k1_launches,
+            "k1_kernel_launches": k1_kernels,
             "k4_launches": k4_launches,
             "profiled_wall_ms": prof_wall_s * 1e3,
             "device_kernel_ms": device_ms if measured else "not measured",

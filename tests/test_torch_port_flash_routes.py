@@ -14,8 +14,9 @@ gate admits the shape, and the einsum path ``_attention_xla`` at
 to each split's maximum instead of the row's). Rows that see no key are
 exactly 0 with ``lse`` the mask value in both versions.
 
-The kernels run only on the card: ``test_routes_match_plain_on_card`` and
-``test_misaligned_input_is_refused_on_card`` are marked ``cuda`` and skip
+The kernels run only on the card: ``test_misaligned_input_is_refused_on_card``
+here and ``test_kernel_matches_plain_on_card`` in ``test_torch_port_ops.py``
+(every route against the plain version) are marked ``cuda`` and skip
 without one; ``python3 chip_smoke.py`` holds every route at the serving and
 training shapes.
 """
@@ -61,9 +62,11 @@ def test_fwd_route_table(i, dtype, route):
 
 def test_cpu_tensors_launch_no_route(rng):
     _, _, _, (q, k, v) = _inputs(rng, 1, 2, 1, 40, 16)
-    before = (flash.flash_attention.launches, dict(flash.flash_attention.route_launches))
+    before = (flash.flash_attention.launches, dict(flash.flash_attention.route_launches),
+              flash.flash_attention.kernel_launches)
     flash.flash_attention_fwd(q, k, v, causal=True)
-    assert (flash.flash_attention.launches, flash.flash_attention.route_launches) == before
+    assert (flash.flash_attention.launches, flash.flash_attention.route_launches,
+            flash.flash_attention.kernel_launches) == before
     assert set(flash.flash_attention.route_launches) == set(flash.ROUTES)
 
 
@@ -132,32 +135,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("i,j,d,lengths", [
-    (1, 1024, 112, [1023, 700, 300, 40]),   # decode: split
-    (1, 1024, 112, [0, 64, 200, 1024]),     # a dead row and empty splits: split
-    (16, 700, 64, [700, 600, 20, 0]),       # the split route's largest query
-    (100, 612, 112, [612, 580, 300, 101]),  # ragged tiles: wgmma in bf16, simt in fp32
-    (512, 1024, 128, [1024, 924, 424, 124]),
-])
-def test_routes_match_plain_on_card(cuda_device, dtype, tol, i, j, d, lengths):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn(4, 8, n, d, generator=g, device=cuda_device).to(dtype) for n in (i, j, j))
-    q = q * d**-0.5
-    pad = torch.arange(j, device=cuda_device)[None, :] >= torch.tensor(lengths, device=cuda_device)[:, None]
-    before = dict(flash.flash_attention.route_launches)
-    o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True)
-    o_ref, lse_ref = flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=True)
-    torch.cuda.synchronize()
-    route = flash._fwd_route(i, dtype)
-    assert flash.flash_attention.route_launches[route] == before[route] + 1
-    live = flash._allowed(q, j, pad, True).any(-1).expand(4, 8, i)
-    assert (o.float() - o_ref.float()).abs()[live].max().item() <= tol
-    assert (lse - lse_ref).abs()[live].max().item() <= 1e-3
-    assert (o[~live] == 0).all() and (lse[~live] == flash.MASK_VALUE).all()
 
 
 @pytest.mark.cuda

@@ -173,22 +173,44 @@ def test_dispatch_rejects_unported_modes(rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("i,j,causal,with_pad", [(512, 1024, True, True), (1, 1024, True, True),
-                                                 (100, 300, False, True), (64, 64, True, False),
-                                                 (16, 1024, True, True), (17, 300, True, True),
-                                                 (100, 612, True, True), (8, 77, False, True)])
-def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, i, j, causal, with_pad):
+@pytest.mark.parametrize("i,j,d,causal,pads", [
+    (512, 1024, 112, True, "random"), (1, 1024, 112, True, "random"),
+    (100, 300, 112, False, "random"), (64, 64, 112, True, None),
+    (16, 1024, 112, True, "random"), (17, 300, 112, True, "random"),
+    (100, 612, 112, True, "random"), (8, 77, 112, False, "random"),
+    # keys at and past each batch row's length padded
+    (1, 1024, 112, True, [1023, 700, 300, 40]),   # decode: split
+    (1, 1024, 112, True, [0, 64, 200, 1024]),     # a dead row and empty splits: split
+    (16, 700, 64, True, [700, 600, 20, 0]),       # the split route's largest query
+    (100, 612, 112, True, [612, 580, 300, 101]),  # ragged tiles: wgmma in bf16, simt in fp32
+    (512, 1024, 128, True, [1024, 924, 424, 124]),
+])
+def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, i, j, d, causal, pads):
+    # through the route the wrapper picks; rows that see no key exactly 0
+    # with lse the mask value
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn(2, 8, n, 112, generator=g, device=cuda_device).to(dtype)
+    b = 2 if pads in (None, "random") else len(pads)
+    q, k, v = (torch.randn(b, 8, n, d, generator=g, device=cuda_device).to(dtype)
                for n in (i, j, j))
-    q = q * 112**-0.5
-    pad = torch.rand(2, j, generator=g, device=cuda_device) < 0.2 if with_pad else None
+    q = q * d**-0.5
+    if pads == "random":
+        pad = torch.rand(b, j, generator=g, device=cuda_device) < 0.2
+    elif pads is not None:
+        pad = torch.arange(j, device=cuda_device)[None, :] >= torch.tensor(pads, device=cuda_device)[:, None]
+    else:
+        pad = None
+    route = flash._fwd_route(i, dtype)
+    before = dict(flash.flash_attention.route_launches), flash.flash_attention.kernel_launches
     o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal)
     o_ref, lse_ref = flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=causal)
     torch.cuda.synchronize()
+    assert flash.flash_attention.route_launches[route] == before[0][route] + 1
+    assert flash.flash_attention.kernel_launches == before[1] + flash.ROUTE_KERNELS[route]
     assert (o.float() - o_ref.float()).abs().max().item() <= tol
     assert (lse - lse_ref).abs().max().item() <= 1e-3
+    live = flash._allowed(q, j, pad, causal).any(-1).expand(b, 8, i)
+    assert (o[~live] == 0).all() and (lse[~live] == flash.MASK_VALUE).all()
 
 
 @pytest.fixture
