@@ -59,33 +59,45 @@ non-zero and never prints the final line):
    against their plain versions at the training path's shapes (b = 4, 8
    heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
    512 latents, and j = 1024, with left pads that leave dead rows; the
-   latent stack at j = 512 with no pad mask), fp32 and bf16, held at
-   ``max|d| <= 1e-4 * max|plain|`` per output; dead rows' dq and unseen
-   keys' dk/dv must be exactly 0. With each kernel's time, the plain
-   version's, the backward alone of ``scaled_dot_product_attention`` (its
-   memory-efficient backend pinned; a yardstick the port never calls) and
-   the card's bound;
+   latent stack at j = 512 with no pad mask; ragged tiles i = 100 over
+   j = 300 with pads), fp32 and bf16, through the route the wrappers pick
+   (``wgmma`` for bf16, ``simt`` for fp32; a wrong route fails), held at
+   ``max|d| <= tol * max|plain|`` per output, tol 1e-4 in fp32 and 2^-7
+   (two bf16 ulps) in bf16, where each bf16 output's error against the
+   fp32 plain backward of the same inputs must also stay within 1.5x the
+   plain bf16 version's; dead rows' dq and unseen keys' dk/dv must be
+   exactly 0. With each kernel's time, the ``simt`` kernel's on the same
+   inputs (``prev_ms``: the CUDA-core design bf16 took before ``wgmma``), the
+   plain version's, the backward alone of
+   ``scaled_dot_product_attention`` (its memory-efficient backend pinned; a
+   yardstick the port never calls) and the card's bound;
 9. train, over the full-width CLM:
    (a) one loss + backward with the kernels against ``attention_impl="xla"``
-       (fp32, batch 4 x 1024, left pads inside the prefix, one prefix-dropout
-       seed): loss within 1e-5 relative, every parameter's gradient present,
-       finite and within ``1e-3 * max|g_ref|``;
+       (batch 4 x 1024, left pads inside the prefix, one prefix-dropout
+       seed). fp32: loss within 1e-5 relative, every parameter's gradient
+       present, finite and within ``1e-3 * max|g_ref|``. bf16 compute over
+       the same parameters: each gradient, against the fp32 ``xla`` one,
+       within 1.5x the bf16 ``xla`` path's own error plus one bf16 ulp of
+       its largest entry; 17 launches each of K1, K2 and K3, every K2/K3
+       launch on ``wgmma``;
    (b) ``Trainer.fit``, fp32: 8 steps of 8 rows in 2 microbatches, AdamW
        at 1e-4 with ``cosine_with_warmup`` (2 warmup steps), clipping at
        1.0, prefix dropout 0.5, two seeded batches cycled, one validation
        pass: finite losses, the last below the first; 34 launches of each of
        K1, K2 and K3 per optimizer step (17 attends x 2 microbatches;
-       validation's launches counted apart, none of K2/K3 there); the best
-       checkpoint reloads into an equal model. Prints step ms p50 (three
-       more synchronised steps), loss tokens/s and peak memory;
-   (c) the same fit in bf16 compute: finite, falling losses;
+       validation's launches counted apart, none of K2/K3 there), every
+       K2/K3 launch on ``simt``; the best checkpoint reloads into an equal
+       model. Prints step ms p50 (three more synchronised steps), loss
+       tokens/s and peak memory;
+   (c) the same fit in bf16 compute: finite, falling losses, every K2/K3
+       launch on ``wgmma``;
    (d) a small model whose pads reach into the latent window, one SGD step
        on the card against the same weights on the CPU with
        ``attention_impl="flash"`` (the plain forward and backward, same
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
-10. the ``{"kernels": [...]}`` summary line (K1 with an entry per route,
-   K4, K2, K3; K1's ``launches`` count its wrapper's calls and its
+10. the ``{"kernels": [...]}`` summary line (K1, K2 and K3 with an entry
+   per route, K4; K1's ``launches`` count its wrapper's calls and its
    ``kernel_launches`` the device kernels, two per split-route call), the card's
    ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
@@ -111,13 +123,27 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
 # K4's outputs are ~0.04..0.3 (q.k of unit scale over 300..1023 keys): its
 # bf16 limit is 4x the largest error the H100 run gave (9.77e-4), not K1's
 K4_TOL = {**KERNEL_TOL, "bfloat16": 4e-3}
-# K2/K3: max|kernel - plain| over max|plain|, per output. The first H100
-# readings were exactly 0 in every case and type (both sum each product in
-# the same sequential order and round p and ds at the same places), so 4x
-# the largest reading would be an exact-equality gate that a change of
-# cuBLAS algorithm for the plain einsums could break: bf16 is held to the
-# fp32 limit instead
-K23_REL_TOL = 1e-4
+# K2/K3: max|kernel - plain| over max|plain|, per output. fp32 takes the
+# simt route, which sums each product in the plain version's sequential
+# order (its H100 readings were exactly 0), held at 1e-4. bf16 takes the
+# wgmma route: the tensor cores sum in another order, so a p or ds entry
+# rounded to bf16 before its product, or an output, can land on the
+# neighbouring bf16 value; it is held to two bf16 ulps (2^-7) of each
+# output's largest plain entry
+K23_REL_TOL = {"float32": 1e-4, "bfloat16": 2.0**-7}
+# and, so that the looser bf16 gate cannot hide a defect, each bf16 output's
+# max abs error against the fp32 plain backward of the same bf16-valued
+# inputs (the oracle) may be at most this factor times the plain bf16
+# version's own error against it
+K23_ORACLE_RATIO = 1.5
+K23_ROUTE = {"float32": "simt", "bfloat16": "wgmma"}
+# K2/K3's cases: (name, i, j, left pads per batch row or None), b = 4
+K23_CASES = (
+    ("cross", 512, 768, [0, 100, 300, 600]),   # 256 kept prefix + 512 latents; row 3's rows 0..343 dead
+    ("cross", 512, 1024, [0, 100, 600, 900]),  # the whole prefix; row 3's rows 0..387 dead
+    ("stack", 512, 512, None),                 # the latent stack: no pad mask, as on the main path
+    ("ragged", 100, 300, [0, 30, 150, 260]),   # ragged q and kv tiles; row 3's rows 0..59 dead
+)
 L2_BYTES = 50 * 2**20  # H100 SXM
 # the slot-serve phase's prompt buckets: (512, 768, 1024) would make prompts
 # past 768 infeasible with 496 latents (a 1024 bucket leaves 528 prefix slots
@@ -311,17 +337,16 @@ def _grad_rotation(torch, F, q, k, v, do, attn_mask):
 
 def k23_cases(torch, flash):
     """K2 and K3 against their plain versions at the training path's shapes
-    (module docstring): dead rows' dq and padded keys' dk/dv exactly 0."""
+    (module docstring), through the route the wrappers pick, beside the
+    ``simt`` kernels on the same inputs (``prev_ms``): dead rows' dq and padded
+    keys' dk/dv exactly 0; bf16 also against the fp32 oracle."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, h, d = 4, 8, 112
+    wrappers = {"dq": flash.flash_attention_bwd_dq, "dkv": flash.flash_attention_bwd_dkv}
     cases = []
-    for name, i, j, pads in (
-        ("cross", 512, 768, [0, 100, 300, 600]),   # 256 kept prefix + 512 latents; row 3's rows 0..343 dead
-        ("cross", 512, 1024, [0, 100, 600, 900]),  # the whole prefix; row 3's rows 0..387 dead
-        ("stack", 512, 512, None),                 # the latent stack: no pad mask, as on the main path
-    ):
+    for name, i, j, pads in K23_CASES:
         cols = torch.arange(j, device="cuda")[None, :]
         pad = None if pads is None else cols < torch.tensor(pads, device="cuda")[:, None]
         allowed = (cols <= torch.arange(i, device="cuda")[:, None] + (j - i))[None].expand(b, i, j)
@@ -339,45 +364,72 @@ def k23_cases(torch, flash):
             o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True)
             delta = flash.attention_delta(o, do)
             kw = dict(pad_mask=pad, causal=True)
+            before = {n: dict(f.route_launches) for n, f in wrappers.items()}
             dq = flash.flash_attention_bwd_dq(q, k, v, lse, delta, do, **kw)
             dk, dv = flash.flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
+            routes = {n: [r for r, c in f.route_launches.items() if c != before[n][r]]
+                      for n, f in wrappers.items()}
             ref = flash.flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
             errs, rel = {}, {}
             for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
                 errs[gname] = (got.float() - want.float()).abs().max().item()
                 rel[gname] = errs[gname] / want.float().abs().max().item()
+            oracle = {}
+            if dtype == torch.bfloat16:
+                q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+                o32, lse32 = flash.flash_attention_reference(q32, k32, v32, **kw)
+                exact = flash.flash_attention_backward_reference(q32, k32, v32, o32, lse32, do32, **kw)
+                for gname, got, plain, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, exact):
+                    kernel_err = (got.float() - want).abs().max().item()
+                    plain_err = (plain.float() - want).abs().max().item()
+                    oracle[gname] = dict(kernel=kernel_err, plain=plain_err,
+                                         ratio=kernel_err / plain_err if plain_err > 0 else math.inf)
+                del q32, k32, v32, do32, o32, lse32, exact
             dead_zero = bool((dq[~live[:, None, :, None].expand_as(dq)] == 0).all().item())
             unseen = ~seen[:, None, :, None].expand_as(dk)
             unseen_zero = bool((dk[unseen] == 0).all().item() and (dv[unseen] == 0).all().item())
             finite = all(bool(torch.isfinite(t).all().item()) for t in (dq, dk, dv))
-            tol = K23_REL_TOL
-            case = dict(case=name, dtype=tname, b=b, h=h, i=i, j=j, d=d, max_abs_err=errs,
-                        rel_err=rel, rel_tol=tol, dead_rows=int((~live).sum().item()),
-                        dead_rows_dq_zero=dead_zero, unseen_keys=int((~seen).sum().item()),
-                        unseen_keys_dkdv_zero=unseen_zero)
-            if not (max(rel.values()) <= tol and dead_zero and unseen_zero and finite):
+            tol, expected = K23_REL_TOL[tname], K23_ROUTE[tname]
+            case = dict(case=name, dtype=tname, route=routes, expected_route=expected, b=b, h=h, i=i,
+                        j=j, d=d, max_abs_err=errs, rel_err=rel, rel_tol=tol, oracle_err=oracle,
+                        oracle_ratio_tol=K23_ORACLE_RATIO if oracle else None,
+                        dead_rows=int((~live).sum().item()), dead_rows_dq_zero=dead_zero,
+                        unseen_keys=int((~seen).sum().item()), unseen_keys_dkdv_zero=unseen_zero,
+                        finite=finite)
+            if not (max(rel.values()) <= tol and dead_zero and unseen_zero and finite
+                    and all(r == [expected] for r in routes.values())
+                    and all(e["ratio"] <= K23_ORACLE_RATIO for e in oracle.values())):
                 emit("k23", **case)
-                raise AssertionError(f"K2/K3 {name} j={j} {tname}: rel err {rel} (tol {tol}), "
-                                     f"dead dq zero {dead_zero}, unseen dk/dv zero {unseen_zero}")
+                raise AssertionError(f"K2/K3 {name} i={i} j={j} {tname}: routes {routes} (expected "
+                                     f"{expected}), rel err {rel} (tol {tol}), oracle {oracle}, "
+                                     f"dead dq zero {dead_zero}, unseen dk/dv zero {unseen_zero}, "
+                                     f"finite {finite}")
             esize = q.element_size()
             pad_bytes = 0 if pad is None else pad.numel()
             kv_read = 2 * int(seen.sum().item()) * h * d * esize  # k and v of the keys some row sees
             times = {}
-            for kname, kernel, plain, nbytes, flops in (
-                ("dq", flash.flash_attention_bwd_dq, flash.flash_attention_bwd_dq_reference,
+            for kname, which, kernel, plain, nbytes, flops in (
+                ("dq", 0, flash.flash_attention_bwd_dq, flash.flash_attention_bwd_dq_reference,
                  b * h * (3 * i * d * esize + 8 * i) + kv_read + pad_bytes, 6 * d * pairs),
-                ("dkv", flash.flash_attention_bwd_dkv, flash.flash_attention_bwd_dkv_reference,
+                ("dkv", 1, flash.flash_attention_bwd_dkv, flash.flash_attention_bwd_dkv_reference,
                  b * h * ((2 * i + 2 * j) * d * esize + 8 * i) + kv_read + pad_bytes, 8 * d * pairs),
             ):
                 timed, copies = l2_cold(lambda *t, f=kernel: f(*t, **kw), q, k, v, lse, delta, do)
                 ms = device_ms(timed, 30)
+                outs = (lambda t: (torch.empty_like(t[0]),)) if which == 0 else (
+                    lambda t: (torch.empty_like(t[1]), torch.empty_like(t[2])))
+                prev, _ = l2_cold(
+                    lambda *t, w=which, outs=outs: flash._bwd_launch("simt", *t, pad, True, w, outs(t)),
+                    q, k, v, lse, delta, do)
+                prev_ms = device_ms(prev, 30)
                 plain_ms = device_ms(l2_cold(lambda *t, f=plain: f(*t, **kw), q, k, v, lse, delta, do)[0], 5)
                 bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
-                times[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+                times[kname] = dict(route=expected, ms=ms, prev_ms=prev_ms, prev_route="simt",
+                                    plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
                                     bound_by="bytes" if bytes_s >= ops_s else "operations",
                                     bytes=nbytes, flops=flops, input_copies=copies)
-                del timed
+                del timed, prev
             attn_mask = allowed[:, None]
             library, graphs = _grad_rotation(torch, F, q, k, v, do, attn_mask)
             library_ms = device_ms(library, 20)
@@ -730,8 +782,9 @@ def reset_counts(flash) -> None:
     flash.flash_attention.launches = 0
     flash.flash_attention.route_launches = dict.fromkeys(flash.ROUTES, 0)
     flash.flash_attention.kernel_launches = 0
-    flash.flash_attention_bwd_dq.launches = 0
-    flash.flash_attention_bwd_dkv.launches = 0
+    for wrapper in (flash.flash_attention_bwd_dq, flash.flash_attention_bwd_dkv):
+        wrapper.launches = 0
+        wrapper.route_launches = dict.fromkeys(flash.BWD_ROUTES, 0)
 
 
 def read_counts(flash) -> dict:
@@ -739,11 +792,34 @@ def read_counts(flash) -> dict:
             "k3": flash.flash_attention_bwd_dkv.launches}
 
 
+def read_bwd_routes(flash) -> dict:
+    """K2's and K3's launches per route."""
+    return {"k2": dict(flash.flash_attention_bwd_dq.route_launches),
+            "k3": dict(flash.flash_attention_bwd_dkv.route_launches)}
+
+
+def _grad_errors(grads, ref) -> dict:
+    """Per parameter: ``max|g - ref|`` and ``max|ref|``."""
+    return {n: ((g - ref[n]).abs().max().item(), ref[n].abs().max().item())
+            for n, g in grads.items() if g is not None and ref[n] is not None}
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 unit in the last place at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
 def train_grad_gate(torch, clm, flash, training, parallel):
     """(a) one loss + backward of the full-width CLM with the kernels against
-    ``attention_impl="xla"``, fp32, same batch and prefix-dropout seed. Left
-    pads stay inside the prefix: with pads reaching the latents the two
-    differ on live rows by design (module docstring of ``models/core``)."""
+    ``attention_impl="xla"``, same batch and prefix-dropout seed. Left pads
+    stay inside the prefix: with pads reaching the latents the two differ on
+    live rows by design (module docstring of ``models/core``).
+
+    fp32: every gradient within ``1e-3 * max|g_xla|``, the loss within 1e-5.
+    bf16 compute (the same fp32 parameters): each parameter's kernel-path
+    gradient, against the fp32 ``xla`` gradient, within 1.5x the bf16
+    ``xla`` path's own error plus one bf16 ulp of the largest entry; every
+    K2/K3 launch on the ``wgmma`` route."""
     cfg = clm_base_config(clm.CausalLanguageModelConfig)
     model = clm.CausalLanguageModel(cfg, seed=0)
     loss_fn = training.clm_loss_fn(model, cfg.max_latents)
@@ -751,42 +827,72 @@ def train_grad_gate(torch, clm, flash, training, parallel):
         token_batches(cfg.vocab_size, cfg.max_seq_len, 4, 1, seed=21, pads=[0, 37, 200, 512])[0],
         torch.device("cuda"))
 
-    def loss_and_grads(impl):
-        set_attention_impl(model, impl)
-        model.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(model, batch, torch.Generator(device="cuda").manual_seed(7))
+    def loss_and_grads(m, impl):
+        set_attention_impl(m, impl)
+        m.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(m, batch, torch.Generator(device="cuda").manual_seed(7))
         loss.backward()
         return loss.item(), {n: None if p.grad is None else p.grad.detach().clone()
-                             for n, p in model.named_parameters()}
+                             for n, p in m.named_parameters()}
 
     reset_counts(flash)
-    loss, grads = loss_and_grads("auto")
+    loss, grads = loss_and_grads(model, "auto")
     torch.cuda.synchronize()
     launches = read_counts(flash)
-    ref_loss, ref = loss_and_grads("xla")
+    ref_loss, ref = loss_and_grads(model, "xla")
     set_attention_impl(model, "auto")
     missing = [n for n in grads if grads[n] is None or ref[n] is None]
     nonfinite = [n for n, g in grads.items() if g is not None and not bool(torch.isfinite(g).all())]
-    rel = {}
-    for n, g in grads.items():
-        if g is None or ref[n] is None:
-            continue
-        scale = ref[n].abs().max().item()
-        diff = (g - ref[n]).abs().max().item()
-        rel[n] = diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
+    rel = {n: (diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf))
+           for n, (diff, scale) in _grad_errors(grads, ref).items()}
     qkv = {n: r for n, r in rel.items() if any(f".{w}_proj." in n for w in "qkv")}
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
     loss_rel = abs(loss - ref_loss) / abs(ref_loss)
     emit("train_grad", params=len(grads), loss=loss, xla_loss=ref_loss, loss_rel_err=loss_rel,
          max_rel_grad_err=max(rel.values()), worst=worst, qkv_proj_params=len(qkv),
          qkv_max_rel_grad_err=max(qkv.values()), none_grads=missing, nonfinite_grads=nonfinite,
-         launches=launches, tol=1e-3, loss_tol=1e-5, compute_dtype="float32")
+         launches=launches, bwd_route_launches=read_bwd_routes(flash), tol=1e-3, loss_tol=1e-5,
+         compute_dtype="float32")
     expected = {"k1": 17, "k2": 17, "k3": 17}  # 1 cross + 16 stack attends
     if (missing or nonfinite or loss_rel > 1e-5 or max(rel.values()) > 1e-3 or not qkv
             or launches != expected):
         raise AssertionError(f"train grad gate: loss rel {loss_rel}, worst {worst}, None {missing}, "
                              f"non-finite {nonfinite}, launches {launches}")
-    del model, grads, ref
+    del grads
+
+    # bf16 compute over the same parameters, batch and seed
+    half = clm.CausalLanguageModel(cfg, dtype=torch.bfloat16, seed=0)
+    half.load_state_dict(model.state_dict())
+    del model
+    reset_counts(flash)
+    loss16, grads16 = loss_and_grads(half, "auto")
+    torch.cuda.synchronize()
+    launches16, routes16 = read_counts(flash), read_bwd_routes(flash)
+    xla_loss16, xla16 = loss_and_grads(half, "xla")
+    kernel_err, xla_err = _grad_errors(grads16, ref), _grad_errors(xla16, ref)
+    missing16 = [n for n in grads16 if grads16[n] is None or xla16[n] is None]
+    nonfinite16 = [n for n, g in grads16.items() if g is not None and not bool(torch.isfinite(g).all())]
+    over = {}
+    ratios = {}
+    for n, (diff, scale) in kernel_err.items():
+        limit = 1.5 * xla_err[n][0] + bf16_ulp(scale)
+        ratios[n] = diff / limit if limit > 0 else (0.0 if diff == 0 else math.inf)
+        if diff > limit:
+            over[n] = (diff, xla_err[n][0], scale)
+    worst16 = sorted(ratios.items(), key=lambda kv: -kv[1])[:3]
+    emit("train_grad", params=len(grads16), loss=loss16, xla_loss=xla_loss16, fp32_xla_loss=ref_loss,
+         max_rel_grad_err_vs_fp32_xla=max(d / s for d, s in kernel_err.values() if s > 0),
+         xla_max_rel_grad_err_vs_fp32_xla=max(d / s for d, s in xla_err.values() if s > 0),
+         worst_err_over_limit=worst16, params_over_limit=over, none_grads=missing16,
+         nonfinite_grads=nonfinite16, launches=launches16, bwd_route_launches=routes16,
+         limit="1.5 x the bf16 xla path's max abs error against the fp32 xla gradient "
+               "+ 1 bf16 ulp of its largest entry, per parameter", compute_dtype="bfloat16")
+    expected_routes = {"k2": {"wgmma": 17, "simt": 0}, "k3": {"wgmma": 17, "simt": 0}}
+    if (over or missing16 or nonfinite16 or not math.isfinite(loss16) or launches16 != expected
+            or routes16 != expected_routes):
+        raise AssertionError(f"bf16 train grad gate: over the limit {over}, None {missing16}, "
+                             f"non-finite {nonfinite16}, launches {launches16}, routes {routes16}")
+    del half, grads16, xla16, ref
     torch.cuda.empty_cache()
 
 
@@ -829,6 +935,7 @@ def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
     fit_s = time.perf_counter() - t0
     counts = read_counts(flash)
     routes = dict(flash.flash_attention.route_launches)  # validation's included
+    bwd_routes = read_bwd_routes(flash)  # validation launches no K2/K3 (gated below)
     k1_kernels = flash.flash_attention.kernel_launches
     train_counts = {k: counts[k] - val_counts[k] for k in counts}
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -861,7 +968,7 @@ def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
     per_step = {k: v / TRAIN_STEPS for k, v in train_counts.items()}
     line = dict(compute_dtype=tname, steps=TRAIN_STEPS, rows=8, grad_accum_steps=2, losses=losses,
                 val_loss=val_loss, launches=train_counts, launches_per_step=per_step,
-                validation_launches=val_counts, k1_route_launches=routes,
+                validation_launches=val_counts, k1_route_launches=routes, bwd_route_launches=bwd_routes,
                 k1_kernel_launches=k1_kernels, fit_s=fit_s,
                 step_ms=step_ms, step_ms_p50=p50,
                 loss_tokens_per_s=tokens / (p50 / 1e3), max_memory_allocated=peak_bytes,
@@ -875,6 +982,10 @@ def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
     expected_route = "wgmma" if dtype == torch.bfloat16 else "simt"  # i = 512 latents
     if routes[expected_route] != counts["k1"]:
         failures.append(f"K1 routes {routes}: every launch should take {expected_route}")
+    expected_bwd = K23_ROUTE[tname]
+    for key, by_route in bwd_routes.items():
+        if by_route[expected_bwd] != counts[key] or sum(by_route.values()) != counts[key]:
+            failures.append(f"{key.upper()} routes {by_route}: every launch should take {expected_bwd}")
     if dtype == torch.float32 and not ckpt_equal:
         failures.append("the best checkpoint does not reload into an equal model")
     if failures:
@@ -976,6 +1087,52 @@ def k1_route_entry(flash, design: str, main: tuple, cases: list, launches: int) 
     }
 
 
+K23_SOURCES = {"wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_wgmma.cu",
+               "simt": "perceiver_io_tpu_torch/csrc/flash_attention_bwd.cu"}
+#: per K23 kernel: (wrapper name, TPU function, counter key, gradients)
+K23_KERNELS = {
+    "dq": ("flash_attention_bwd_dq", "perceiver_io_tpu/ops/flash_attention.py:290", "k2", ("dq",)),
+    "dkv": ("flash_attention_bwd_dkv", "perceiver_io_tpu/ops/flash_attention.py:367", "k3", ("dk", "dv")),
+}
+
+
+def k23_entry(kname: str, fits: dict, cases: list) -> dict:
+    """The summary line's entry for K2 (``dq``) or K3 (``dkv``): the bf16
+    cross case (i = 512, j = 768) on its ``wgmma`` route at the top, and one
+    entry per route with its main case (bf16 / fp32 cross), launches (the
+    Trainer.fit run of its type) and every case that took it."""
+    name, replaces, count, grads = K23_KERNELS[kname]
+    keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by")
+
+    def route_entry(design: str, tname: str) -> dict:
+        mine = [c for c in cases if c["dtype"] == tname]
+        head = next(c for c in mine if c["case"] == "cross" and c["j"] == 768)
+        return {
+            "name": f"{name}[{design}]", "route": "cuda", "design": design, "source": K23_SOURCES[design],
+            "replaces": replaces, "launches": fits[tname]["bwd_route_launches"][count][design],
+            "launches_from": f"the {tname} Trainer.fit run (8 steps)",
+            "max_abs_err": max(c["max_abs_err"][g] for c in mine for g in grads),
+            "case": f"cross i=512 j=768 {tname}", **{k: head["kernels"][kname][k] for k in keys},
+            "library_ms": head["library_ms"], "library_backend": head["library_backend"],
+            "cases": [{"case": c["case"], "i": c["i"], "j": c["j"],
+                       **{k: c["kernels"][kname][k] for k in keys if k != "bound_by"},
+                       "library_ms": c["library_ms"]} for c in mine],
+        }
+
+    routes = [route_entry("wgmma", "bfloat16"), route_entry("simt", "float32")]
+    top = routes[0]
+    return {
+        "name": name, "route": "cuda", "source": top["source"], "replaces": replaces,
+        "launches": top["launches"], "max_abs_err": top["max_abs_err"],
+        **{k: top[k] for k in ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library_note": "backward of scaled_dot_product_attention (memory-efficient backend), "
+                        "dq, dk and dv together",
+        "shape": "cross-attention b=4 h=8 i=512 j=768 d=112 bf16, causal, left pads; "
+                 "launches: the bf16 Trainer.fit run (8 steps)",
+        "routes": routes,
+    }
+
+
 def ptxas_by_kernel(log: str) -> dict:
     """``nvcc -Xptxas -v`` output as {kernel: {instances, registers [min,
     max], max spill store bytes}}, kernels named by their function name."""
@@ -1043,7 +1200,6 @@ def main() -> int:
     route_launches = {"split": serve_routes["split"], "simt": serve_routes["simt"],
                       "wgmma": fits["bfloat16"]["k1_route_launches"]["wgmma"]}
     k4_case = next(c for c in k4 if c["case"] == "decode" and c["layout"] == "float32")
-    k23_main = next(c for c in k23 if c["j"] == 768 and c["dtype"] == "float32")
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1078,25 +1234,7 @@ def main() -> int:
         "gather_sdpa_ms": k4_case["gather_sdpa_ms"],
         "shape": "decode b=8 h=8 q_len=1 d=112 fp32, block 16, lengths 0..1023; "
                  "launches: the paged slot-serve run",
-    }] + [{
-        "name": name,
-        "route": "cuda",
-        "source": "perceiver_io_tpu_torch/csrc/flash_attention_bwd.cu",
-        "replaces": replaces,
-        "launches": fits["float32"]["launches"][count],
-        "max_abs_err": max(c["max_abs_err"][g] for c in k23 if c["dtype"] == "float32" for g in grads),
-        "ms": k23_main["kernels"][kname]["ms"],
-        "plain_ms": k23_main["kernels"][kname]["plain_ms"],
-        "bound_ms": k23_main["kernels"][kname]["bound_ms"],
-        "bound_by": k23_main["kernels"][kname]["bound_by"],
-        "library_ms": k23_main["library_ms"],
-        "library_note": "backward of scaled_dot_product_attention, dq, dk and dv together",
-        "shape": "cross-attention b=4 h=8 i=512 j=768 d=112 fp32, causal, left pads; "
-                 "launches: the fp32 Trainer.fit run (8 steps)",
-    } for name, replaces, count, kname, grads in (
-        ("flash_attention_bwd_dq", "perceiver_io_tpu/ops/flash_attention.py:290", "k2", "dq", ("dq",)),
-        ("flash_attention_bwd_dkv", "perceiver_io_tpu/ops/flash_attention.py:367", "k3", "dkv", ("dk", "dv")),
-    )]}), flush=True)
+    }] + [k23_entry(kname, fits, k23) for kname in ("dq", "dkv")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

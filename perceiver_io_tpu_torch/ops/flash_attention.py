@@ -29,12 +29,21 @@ Every route computes attention over pre-scaled queries with
 - **zero output for a query row that sees no key** (the TPU kernel's dead-row
   semantics; the einsum path instead softmaxes such a row uniformly).
 
-The backward kernels (``csrc/flash_attention_bwd.cu``) recompute
-``p = exp(s - lse)`` under the same masks (by select), take
-``ds = p * (do . v^T - delta)`` with ``delta = rowsum(o * do)`` in fp32, and
-give ``dq = ds . k`` (K2), ``dv = p^T . do`` and ``dk = ds^T . q`` (K3), with
-``p`` and ``ds`` cast to the input type before each product as on the TPU.
-A dead row gets ``dq = 0`` and a key that no row sees ``dk = dv = 0``.
+The backward kernels recompute ``p = exp(s - lse)`` under the same masks
+(by select), take ``ds = p * (do . v^T - delta)`` with
+``delta = rowsum(o * do)`` in fp32, and give ``dq = ds . k`` (K2),
+``dv = p^T . do`` and ``dk = ds^T . q`` (K3), with ``p`` and ``ds`` cast to
+the input type before each product as on the TPU. A dead row gets
+``dq = 0`` and a key that no row sees ``dk = dv = 0``. K2 and K3 each have
+two Hopper ``sm_90a`` designs, picked by :func:`_bwd_route` from the type
+alone:
+
+- ``wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``), bf16: the five
+  products on the tensor cores over TMA-fed tiles, ``p`` and ``ds`` packed
+  to bf16 in registers as the A operand of the second products, a 64-row
+  consumer warpgroup and a producer warp per block;
+- ``simt`` (``csrc/flash_attention_bwd.cu``), fp32: 64 x 64 tiles on the
+  CUDA cores (TF32 stays off).
 
 :func:`flash_attention` goes through :class:`FlashAttentionFunction`, so it
 is differentiable. Every wrapper launches its kernel for CUDA tensors and
@@ -50,7 +59,8 @@ Launches are counted on ``flash_attention.launches`` (K1's calls, with
 ``flash_attention.kernel_launches`` the device kernels they launch: two per
 split-route call, partials and merge, one per other call),
 ``flash_attention_bwd_dq.launches`` (K2) and
-``flash_attention_bwd_dkv.launches`` (K3).
+``flash_attention_bwd_dkv.launches`` (K3), each with ``route_launches`` per
+backward route.
 """
 from __future__ import annotations
 
@@ -69,8 +79,10 @@ ROUTES = ("split", "wgmma", "simt")
 SPLIT_MAX_ROWS = 16
 #: device kernels one call of each route launches
 ROUTE_KERNELS = {"split": 2, "wgmma": 1, "simt": 1}
+#: K2's and K3's designs, by :func:`_bwd_route`
+BWD_ROUTES = ("wgmma", "simt")
 _FWD = {}
-_BWD = None
+_BWD = {}
 
 
 def _allowed(q: torch.Tensor, j: int, pad_mask: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
@@ -242,21 +254,33 @@ def _fwd_kernel(route: str):
     return _FWD[route]
 
 
-def _bwd_kernels():
-    """K2's and K3's C entries and head-dim query, loaded on first use."""
-    global _BWD
-    if _BWD is None:
+def _bwd_route(dtype: torch.dtype) -> str:
+    """K2's and K3's design for inputs of ``dtype``: ``wgmma`` for bf16,
+    ``simt`` for fp32. The choice depends on nothing else."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+#: per backward route: (library source, suffix of its C entries)
+_BWD_ENTRIES = {"simt": ("flash_attention_bwd", ""), "wgmma": ("flash_attention_bwd_wgmma", "_wgmma")}
+
+
+def _bwd_kernels(route: str):
+    """A backward route's K2 and K3 C entries and head-dim query, loaded (and
+    built) on first use. Both routes take the same arguments."""
+    if route not in _BWD:
         from perceiver_io_tpu_torch import _build
 
-        lib = _build.load("flash_attention_bwd")
-        dq, dkv = lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv
+        source, suffix = _BWD_ENTRIES[route]
+        lib = _build.load(source)
+        dq, dkv = getattr(lib, f"flash_attention_bwd_dq{suffix}"), getattr(lib, f"flash_attention_bwd_dkv{suffix}")
         dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         dq.restype = dkv.restype = ctypes.c_int
-        lib.flash_attention_bwd_supports_head_dim.argtypes = [ctypes.c_int]
-        lib.flash_attention_bwd_supports_head_dim.restype = ctypes.c_int
-        _BWD = (dq, dkv, lib.flash_attention_bwd_supports_head_dim)
-    return _BWD
+        supports = getattr(lib, f"{source}_supports_head_dim")
+        supports.argtypes = [ctypes.c_int]
+        supports.restype = ctypes.c_int
+        _BWD[route] = (dq, dkv, supports)
+    return _BWD[route]
 
 
 def _check(q, k, v, pad_mask, causal) -> None:
@@ -377,12 +401,21 @@ def _check_bwd(q, k, v, lse, delta, do, pad_mask, causal) -> None:
             raise ValueError(f"{name} must be float32 {(b, h, i)}, got {t.dtype} {tuple(t.shape)}")
 
 
-def _bwd_launch(q, k, v, lse, delta, do, pad_mask, causal, which: int, outputs) -> None:
-    dq_fn, dkv_fn, supports = _bwd_kernels()
+def _bwd_launch(route: str, q, k, v, lse, delta, do, pad_mask, causal, which: int, outputs) -> None:
+    """Launch ``route``'s K2 (``which`` 0, ``outputs`` ``(dq,)``) or K3
+    (``which`` 1, ``(dk, dv)``) on checked CUDA tensors (uncounted): the
+    wrappers' launcher, also used to time one route against another on the
+    same inputs. Raises on what the route's kernel does not take."""
+    if route == "wgmma":
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"the wgmma route takes bfloat16, got {q.dtype}")
+        if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+            raise ValueError("the wgmma route needs q, k, v and do on 16-byte aligned bases")
+    dq_fn, dkv_fn, supports = _bwd_kernels(route)
     b, h, i, d = q.shape
     j = k.shape[2]
     if not supports(d):
-        raise ValueError(f"head dim {d} is not instantiated by the kernel (64, 112, 128)")
+        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel (64, 112, 128)")
     pad = _pad_bytes(pad_mask)
     fn, name = (dq_fn, "flash_attention_bwd_dq") if which == 0 else (dkv_fn, "flash_attention_bwd_dkv")
     with torch.cuda.device(q.device):
@@ -393,23 +426,29 @@ def _bwd_launch(q, k, v, lse, delta, do, pad_mask, causal, which: int, outputs) 
             b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream,
         )
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{name} ({route}) kernel launch failed: cudaError_t {err}")
 
 
 def flash_attention_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
     do: torch.Tensor, *, pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
 ) -> torch.Tensor:
-    """``dq`` of flash attention: K2 for CUDA tensors, the plain version for
-    CPU tensors. ``lse`` is the forward's, ``delta`` :func:`attention_delta`'s,
-    both fp32 ``(b, h, i)``; ``do`` ``(b, h, i, d)`` in q's type."""
+    """``dq`` of flash attention: K2 for CUDA tensors (through
+    :func:`_bwd_route`'s design), the plain version for CPU tensors. ``lse`` is
+    the forward's, ``delta`` :func:`attention_delta`'s, both fp32
+    ``(b, h, i)``; ``do`` ``(b, h, i, d)`` in q's type.
+
+    ``flash_attention_bwd_dq.launches`` counts the launches,
+    ``flash_attention_bwd_dq.route_launches`` splits them by route."""
     _check_bwd(q, k, v, lse, delta, do, pad_mask, causal)
     if _on_cpu((q, k, v, lse, delta, do), pad_mask):
         return flash_attention_bwd_dq_reference(
             q, k, v, lse, delta, do, pad_mask=pad_mask, causal=causal)
+    route = _bwd_route(q.dtype)
     dq = torch.empty_like(q)
-    _bwd_launch(q, k, v, lse, delta, do, pad_mask, causal, 0, (dq,))
+    _bwd_launch(route, q, k, v, lse, delta, do, pad_mask, causal, 0, (dq,))
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.route_launches[route] += 1
     return dq
 
 
@@ -418,14 +457,16 @@ def flash_attention_bwd_dkv(
     do: torch.Tensor, *, pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` of flash attention: K3 for CUDA tensors, the plain version
-    for CPU tensors (arguments as :func:`flash_attention_bwd_dq`)."""
+    for CPU tensors (arguments and counters as :func:`flash_attention_bwd_dq`)."""
     _check_bwd(q, k, v, lse, delta, do, pad_mask, causal)
     if _on_cpu((q, k, v, lse, delta, do), pad_mask):
         return flash_attention_bwd_dkv_reference(
             q, k, v, lse, delta, do, pad_mask=pad_mask, causal=causal)
+    route = _bwd_route(q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch(q, k, v, lse, delta, do, pad_mask, causal, 1, (dk, dv))
+    _bwd_launch(route, q, k, v, lse, delta, do, pad_mask, causal, 1, (dk, dv))
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.route_launches[route] += 1
     return dk, dv
 
 
@@ -468,4 +509,6 @@ flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention.kernel_launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.route_launches = dict.fromkeys(BWD_ROUTES, 0)
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.route_launches = dict.fromkeys(BWD_ROUTES, 0)

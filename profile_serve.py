@@ -23,7 +23,9 @@ profiled pass over the timed pass's wall time, one stream), the shares and
 launches of the flash attention kernels (K1; K2 and K3 when training) and
 the ragged paged-attention kernel (K4), K1's device time and launches by
 route (split, wgmma, simt) and its device kernel launches (a split-route
-call launches two: partials and merge), and the top kernels by device time.
+call launches two: partials and merge), K2's and K3's device time and
+launches by route (wgmma, simt) when training, and the top kernels by
+device time.
 The full profiler tables go to
 ``chiprun_out/profile_serve_<engine>[_<layout>]_<dtype>.txt``.
 """
@@ -101,6 +103,12 @@ def _k1_routes(ms_of) -> dict:
             "split": ms_of("flash_fwd_split_")}
 
 
+def _bwd_routes(ms_of, kernel: str) -> dict:
+    """K2's (``kernel`` "dq") or K3's ("dkv") device ms by route (kernel
+    names: ``flash_bwd_<kernel>_kernel`` simt, ``flash_bwd_<kernel>_wgmma_kernel``)."""
+    return {"simt": ms_of(f"flash_bwd_{kernel}_kernel"), "wgmma": ms_of(f"flash_bwd_{kernel}_wgmma_kernel")}
+
+
 def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi, out_dir):
     from perceiver_io_tpu_torch import parallel, training
 
@@ -115,6 +123,7 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         run()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = {k: v / 3 for k, v in chip_smoke.read_counts(flash).items()}
+    bwd_routes = {k: {r: n / 3 for r, n in v.items()} for k, v in chip_smoke.read_bwd_routes(flash).items()}
     k1_routes = {k: v / 3 for k, v in flash.flash_attention.route_launches.items()}
     k1_kernels = flash.flash_attention.kernel_launches / 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
@@ -124,11 +133,12 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
     kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / f"profile_serve_train_{name}.txt")
     measured = bool(kernels)
     p50 = sorted(step_ms)[1]
+    by_kernel = {"k1": ms_of("flash_fwd_"), "k2": sum(_bwd_routes(ms_of, "dq").values()),
+                 "k3": sum(_bwd_routes(ms_of, "dkv").values())}
     shares = {}
-    for key, pattern in (("k1", "flash_fwd_"), ("k2", "flash_bwd_dq_kernel"),
-                         ("k3", "flash_bwd_dkv_kernel")):
-        shares[f"{key}_device_ms"] = ms_of(pattern) if measured else "not measured"
-        shares[f"{key}_share_of_device"] = ms_of(pattern) / device_ms if measured else "not measured"
+    for key, ms in by_kernel.items():
+        shares[f"{key}_device_ms"] = ms if measured else "not measured"
+        shares[f"{key}_share_of_device"] = ms / device_ms if measured else "not measured"
     return {
         "engine": "train", "compute_dtype": name, "device": smi, "step_ms": step_ms,
         "step_ms_p50": p50, "loss_tokens_per_step": tokens, "loss_tokens_per_s": tokens / (p50 / 1e3),
@@ -142,6 +152,9 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         "device_busy_share_profiled": device_ms / prof_wall_ms if measured else "not measured",
         **shares,
         "k1_route_device_ms": _k1_routes(ms_of) if measured else "not measured",
+        "k2_route_device_ms": _bwd_routes(ms_of, "dq") if measured else "not measured",
+        "k3_route_device_ms": _bwd_routes(ms_of, "dkv") if measured else "not measured",
+        "bwd_route_launches_per_step": bwd_routes,
         "k123_share_of_device": (sum(ms_of(p) for p in ("flash_fwd_", "flash_bwd_"))
                                  / device_ms) if measured else "not measured",
         "top_kernels": [{"name": e.key[:90], "ms": _device_us(e) / 1e3, "calls": e.count}
