@@ -59,18 +59,21 @@ non-zero and never prints the final line):
    against their plain versions at the training path's shapes (b = 4, 8
    heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
    512 latents, and j = 1024, with left pads that leave dead rows; the
-   latent stack at j = 512 with no pad mask; ragged tiles i = 100 over
-   j = 300 with pads), fp32 and bf16, through the route the wrappers pick
-   (``wgmma`` for bf16, ``simt`` for fp32; a wrong route fails), held at
-   ``max|d| <= tol * max|plain|`` per output, tol 1e-4 in fp32 and 2^-7
-   (two bf16 ulps) in bf16, where each bf16 output's error against the
-   fp32 plain backward of the same inputs must also stay within 1.5x the
-   plain bf16 version's; dead rows' dq and unseen keys' dk/dv must be
-   exactly 0. With each kernel's time, the ``simt`` kernel's on the same
-   inputs (``prev_ms``: the CUDA-core design bf16 took before ``wgmma``), the
-   plain version's, the backward alone of
-   ``scaled_dot_product_attention`` (its memory-efficient backend pinned; a
-   yardstick the port never calls) and the card's bound;
+   latent stack at j = 512 with no pad mask, also at head dims 64 and 128;
+   ragged tiles i = 100 over j = 300 with pads), fp32 and bf16, through the
+   route the wrappers pick (``wgmma`` for bf16, ``tf32x3`` for fp32; a
+   wrong route fails), held at ``max|d| <= tol * max|plain|`` per output,
+   tol 1e-4 in fp32 and 2^-7 (two bf16 ulps) in bf16, where each bf16
+   output's error against the fp32 plain backward of the same inputs must
+   also stay within 1.5x the plain bf16 version's; dead rows' dq and unseen
+   keys' dk/dv must be exactly 0 and every output finite. With each
+   kernel's time, the ``simt`` kernel's on the same inputs (``prev_ms``: the
+   CUDA-core design both types took first), the plain version's, the
+   backward alone of ``scaled_dot_product_attention`` (its memory-efficient
+   backend pinned; a yardstick the port never calls) and the card's bound
+   (in fp32 ``bound_ms`` at the CUDA cores' rate, as earlier rows, and
+   ``bound_tc_ms`` at a third of the TF32 tensor-core rate, the most the
+   ``tf32x3`` route's three products per fp32 product can reach);
 9. train, over the full-width CLM:
    (a) one loss + backward with the kernels against ``attention_impl="xla"``
        (batch 4 x 1024, left pads inside the prefix, one prefix-dropout
@@ -79,14 +82,14 @@ non-zero and never prints the final line):
        the same parameters: each gradient, against the fp32 ``xla`` one,
        within 1.5x the bf16 ``xla`` path's own error plus one bf16 ulp of
        its largest entry; 17 launches each of K1, K2 and K3, every K2/K3
-       launch on ``wgmma``;
+       launch on ``tf32x3`` in fp32 and on ``wgmma`` in bf16;
    (b) ``Trainer.fit``, fp32: 8 steps of 8 rows in 2 microbatches, AdamW
        at 1e-4 with ``cosine_with_warmup`` (2 warmup steps), clipping at
        1.0, prefix dropout 0.5, two seeded batches cycled, one validation
        pass: finite losses, the last below the first; 34 launches of each of
        K1, K2 and K3 per optimizer step (17 attends x 2 microbatches;
        validation's launches counted apart, none of K2/K3 there), every
-       K2/K3 launch on ``simt``; the best checkpoint reloads into an equal
+       K2/K3 launch on ``tf32x3``; the best checkpoint reloads into an equal
        model. Prints step ms p50 (three more synchronised steps), loss
        tokens/s and peak memory;
    (c) the same fit in bf16 compute: finite, falling losses, every K2/K3
@@ -96,9 +99,10 @@ non-zero and never prints the final line):
        ``attention_impl="flash"`` (the plain forward and backward, same
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
-10. the ``{"kernels": [...]}`` summary line (K1, K2 and K3 with an entry
-   per route, K4; K1's ``launches`` count its wrapper's calls and its
-   ``kernel_launches`` the device kernels, two per split-route call), the card's
+10. the ``{"kernels": [...]}`` summary line (K1 with its routes nested, an
+   entry for each of K2's and K3's routes that the main path runs, K4;
+   K1's ``launches`` count its wrapper's calls and its ``kernel_launches``
+   the device kernels, two per split-route call), the card's
    ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -119,13 +123,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor bf16; fp32 outside the tensor cores
+TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores: 3xTF32 spends three of these per fp32 flop
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
 # K4's outputs are ~0.04..0.3 (q.k of unit scale over 300..1023 keys): its
 # bf16 limit is 4x the largest error the H100 run gave (9.77e-4), not K1's
 K4_TOL = {**KERNEL_TOL, "bfloat16": 4e-3}
 # K2/K3: max|kernel - plain| over max|plain|, per output. fp32 takes the
-# simt route, which sums each product in the plain version's sequential
-# order (its H100 readings were exactly 0), held at 1e-4. bf16 takes the
+# tf32x3 route: three TF32 products per fp32 product, ~2^-21 relative each
+# (a CPU emulation of its arithmetic lands within 1.1e-6 of the Pallas
+# kernels, tests/test_torch_port_bwd_routes.py), held at 1e-4. bf16 takes the
 # wgmma route: the tensor cores sum in another order, so a p or ds entry
 # rounded to bf16 before its product, or an output, can land on the
 # neighbouring bf16 value; it is held to two bf16 ulps (2^-7) of each
@@ -136,13 +142,15 @@ K23_REL_TOL = {"float32": 1e-4, "bfloat16": 2.0**-7}
 # inputs (the oracle) may be at most this factor times the plain bf16
 # version's own error against it
 K23_ORACLE_RATIO = 1.5
-K23_ROUTE = {"float32": "simt", "bfloat16": "wgmma"}
-# K2/K3's cases: (name, i, j, left pads per batch row or None), b = 4
+K23_ROUTE = {"float32": "tf32x3", "bfloat16": "wgmma"}
+# K2/K3's cases: (name, i, j, left pads per batch row or None, head dim), b = 4
 K23_CASES = (
-    ("cross", 512, 768, [0, 100, 300, 600]),   # 256 kept prefix + 512 latents; row 3's rows 0..343 dead
-    ("cross", 512, 1024, [0, 100, 600, 900]),  # the whole prefix; row 3's rows 0..387 dead
-    ("stack", 512, 512, None),                 # the latent stack: no pad mask, as on the main path
-    ("ragged", 100, 300, [0, 30, 150, 260]),   # ragged q and kv tiles; row 3's rows 0..59 dead
+    ("cross", 512, 768, [0, 100, 300, 600], 112),   # 256 kept prefix + 512 latents; row 3's rows 0..343 dead
+    ("cross", 512, 1024, [0, 100, 600, 900], 112),  # the whole prefix; row 3's rows 0..387 dead
+    ("stack", 512, 512, None, 112),                 # the latent stack: no pad mask, as on the main path
+    ("ragged", 100, 300, [0, 30, 150, 260], 112),   # ragged q and kv tiles; row 3's rows 0..59 dead
+    ("stack", 512, 512, None, 64),                  # the kernels' other two head dims
+    ("stack", 512, 512, None, 128),
 )
 L2_BYTES = 50 * 2**20  # H100 SXM
 # the slot-serve phase's prompt buckets: (512, 768, 1024) would make prompts
@@ -343,10 +351,10 @@ def k23_cases(torch, flash):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    b, h, d = 4, 8, 112
+    b, h = 4, 8
     wrappers = {"dq": flash.flash_attention_bwd_dq, "dkv": flash.flash_attention_bwd_dkv}
     cases = []
-    for name, i, j, pads in K23_CASES:
+    for name, i, j, pads, d in K23_CASES:
         cols = torch.arange(j, device="cuda")[None, :]
         pad = None if pads is None else cols < torch.tensor(pads, device="cuda")[:, None]
         allowed = (cols <= torch.arange(i, device="cuda")[:, None] + (j - i))[None].expand(b, i, j)
@@ -429,6 +437,10 @@ def k23_cases(torch, flash):
                                     plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
                                     bound_by="bytes" if bytes_s >= ops_s else "operations",
                                     bytes=nbytes, flops=flops, input_copies=copies)
+                if expected == "tf32x3":
+                    tc_s = 3 * flops / TF32_FLOPS
+                    times[kname].update(bound_tc_ms=max(bytes_s, tc_s) * 1e3,
+                                        bound_tc_by="bytes" if bytes_s >= tc_s else "operations")
                 del timed, prev
             attn_mask = allowed[:, None]
             library, graphs = _grad_rotation(torch, F, q, k, v, do, attn_mask)
@@ -815,11 +827,12 @@ def train_grad_gate(torch, clm, flash, training, parallel):
     stay inside the prefix: with pads reaching the latents the two differ on
     live rows by design (module docstring of ``models/core``).
 
-    fp32: every gradient within ``1e-3 * max|g_xla|``, the loss within 1e-5.
-    bf16 compute (the same fp32 parameters): each parameter's kernel-path
-    gradient, against the fp32 ``xla`` gradient, within 1.5x the bf16
-    ``xla`` path's own error plus one bf16 ulp of the largest entry; every
-    K2/K3 launch on the ``wgmma`` route."""
+    fp32: every gradient within ``1e-3 * max|g_xla|``, the loss within 1e-5,
+    every K2/K3 launch on the ``tf32x3`` route. bf16 compute (the same fp32
+    parameters): each parameter's kernel-path gradient, against the fp32
+    ``xla`` gradient, within 1.5x the bf16 ``xla`` path's own error plus one
+    bf16 ulp of the largest entry; every K2/K3 launch on the ``wgmma``
+    route."""
     cfg = clm_base_config(clm.CausalLanguageModelConfig)
     model = clm.CausalLanguageModel(cfg, seed=0)
     loss_fn = training.clm_loss_fn(model, cfg.max_latents)
@@ -838,7 +851,7 @@ def train_grad_gate(torch, clm, flash, training, parallel):
     reset_counts(flash)
     loss, grads = loss_and_grads(model, "auto")
     torch.cuda.synchronize()
-    launches = read_counts(flash)
+    launches, routes = read_counts(flash), read_bwd_routes(flash)
     ref_loss, ref = loss_and_grads(model, "xla")
     set_attention_impl(model, "auto")
     missing = [n for n in grads if grads[n] is None or ref[n] is None]
@@ -851,13 +864,17 @@ def train_grad_gate(torch, clm, flash, training, parallel):
     emit("train_grad", params=len(grads), loss=loss, xla_loss=ref_loss, loss_rel_err=loss_rel,
          max_rel_grad_err=max(rel.values()), worst=worst, qkv_proj_params=len(qkv),
          qkv_max_rel_grad_err=max(qkv.values()), none_grads=missing, nonfinite_grads=nonfinite,
-         launches=launches, bwd_route_launches=read_bwd_routes(flash), tol=1e-3, loss_tol=1e-5,
+         launches=launches, bwd_route_launches=routes, tol=1e-3, loss_tol=1e-5,
          compute_dtype="float32")
     expected = {"k1": 17, "k2": 17, "k3": 17}  # 1 cross + 16 stack attends
+
+    def on_route(route):
+        return {key: {r: (17 if r == route else 0) for r in flash.BWD_ROUTES} for key in ("k2", "k3")}
+
     if (missing or nonfinite or loss_rel > 1e-5 or max(rel.values()) > 1e-3 or not qkv
-            or launches != expected):
+            or launches != expected or routes != on_route(K23_ROUTE["float32"])):
         raise AssertionError(f"train grad gate: loss rel {loss_rel}, worst {worst}, None {missing}, "
-                             f"non-finite {nonfinite}, launches {launches}")
+                             f"non-finite {nonfinite}, launches {launches}, routes {routes}")
     del grads
 
     # bf16 compute over the same parameters, batch and seed
@@ -887,9 +904,8 @@ def train_grad_gate(torch, clm, flash, training, parallel):
          nonfinite_grads=nonfinite16, launches=launches16, bwd_route_launches=routes16,
          limit="1.5 x the bf16 xla path's max abs error against the fp32 xla gradient "
                "+ 1 bf16 ulp of its largest entry, per parameter", compute_dtype="bfloat16")
-    expected_routes = {"k2": {"wgmma": 17, "simt": 0}, "k3": {"wgmma": 17, "simt": 0}}
     if (over or missing16 or nonfinite16 or not math.isfinite(loss16) or launches16 != expected
-            or routes16 != expected_routes):
+            or routes16 != on_route(K23_ROUTE["bfloat16"])):
         raise AssertionError(f"bf16 train grad gate: over the limit {over}, None {missing16}, "
                              f"non-finite {nonfinite16}, launches {launches16}, routes {routes16}")
     del half, grads16, xla16, ref
@@ -1088,7 +1104,7 @@ def k1_route_entry(flash, design: str, main: tuple, cases: list, launches: int) 
 
 
 K23_SOURCES = {"wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_wgmma.cu",
-               "simt": "perceiver_io_tpu_torch/csrc/flash_attention_bwd.cu"}
+               "tf32x3": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_tf32.cu"}
 #: per K23 kernel: (wrapper name, TPU function, counter key, gradients)
 K23_KERNELS = {
     "dq": ("flash_attention_bwd_dq", "perceiver_io_tpu/ops/flash_attention.py:290", "k2", ("dq",)),
@@ -1096,41 +1112,36 @@ K23_KERNELS = {
 }
 
 
-def k23_entry(kname: str, fits: dict, cases: list) -> dict:
-    """The summary line's entry for K2 (``dq``) or K3 (``dkv``): the bf16
-    cross case (i = 512, j = 768) on its ``wgmma`` route at the top, and one
-    entry per route with its main case (bf16 / fp32 cross), launches (the
-    Trainer.fit run of its type) and every case that took it."""
+def k23_entries(kname: str, fits: dict, cases: list) -> list:
+    """The summary line's entries for K2 (``dq``) or K3 (``dkv``), one per
+    route the main path runs (``wgmma`` in bf16, ``tf32x3`` in fp32): the
+    cross case (i = 512, j = 768, d = 112) of its type at the top, launches
+    from the Trainer.fit run of its type, and every case that took it."""
     name, replaces, count, grads = K23_KERNELS[kname]
-    keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by")
-
-    def route_entry(design: str, tname: str) -> dict:
+    entries = []
+    for tname, design in (("bfloat16", K23_ROUTE["bfloat16"]), ("float32", K23_ROUTE["float32"])):
+        keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by")
+        if design == "tf32x3":
+            keys += ("bound_tc_ms", "bound_tc_by")
         mine = [c for c in cases if c["dtype"] == tname]
         head = next(c for c in mine if c["case"] == "cross" and c["j"] == 768)
-        return {
+        entries.append({
             "name": f"{name}[{design}]", "route": "cuda", "design": design, "source": K23_SOURCES[design],
             "replaces": replaces, "launches": fits[tname]["bwd_route_launches"][count][design],
             "launches_from": f"the {tname} Trainer.fit run (8 steps)",
             "max_abs_err": max(c["max_abs_err"][g] for c in mine for g in grads),
-            "case": f"cross i=512 j=768 {tname}", **{k: head["kernels"][kname][k] for k in keys},
+            **{k: head["kernels"][kname][k] for k in keys},
             "library_ms": head["library_ms"], "library_backend": head["library_backend"],
-            "cases": [{"case": c["case"], "i": c["i"], "j": c["j"],
-                       **{k: c["kernels"][kname][k] for k in keys if k != "bound_by"},
-                       "library_ms": c["library_ms"]} for c in mine],
-        }
-
-    routes = [route_entry("wgmma", "bfloat16"), route_entry("simt", "float32")]
-    top = routes[0]
-    return {
-        "name": name, "route": "cuda", "source": top["source"], "replaces": replaces,
-        "launches": top["launches"], "max_abs_err": top["max_abs_err"],
-        **{k: top[k] for k in ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "library_note": "backward of scaled_dot_product_attention (memory-efficient backend), "
-                        "dq, dk and dv together",
-        "shape": "cross-attention b=4 h=8 i=512 j=768 d=112 bf16, causal, left pads; "
-                 "launches: the bf16 Trainer.fit run (8 steps)",
-        "routes": routes,
-    }
+            "library_note": "backward of scaled_dot_product_attention (memory-efficient backend), "
+                            "dq, dk and dv together",
+            "shape": f"cross-attention b=4 h=8 i=512 j=768 d=112 {tname}, causal, left pads",
+            "prev_route": "simt",
+            "cases": [{"case": c["case"], "i": c["i"], "j": c["j"], "d": c["d"],
+                       **{k: c["kernels"][kname][k] for k in keys if not k.endswith("_by")},
+                       "library_ms": c["library_ms"], "rel_err": {g: c["rel_err"][g] for g in grads}}
+                      for c in mine],
+        })
+    return entries
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -1234,7 +1245,7 @@ def main() -> int:
         "gather_sdpa_ms": k4_case["gather_sdpa_ms"],
         "shape": "decode b=8 h=8 q_len=1 d=112 fp32, block 16, lengths 0..1023; "
                  "launches: the paged slot-serve run",
-    }] + [k23_entry(kname, fits, k23) for kname in ("dq", "dkv")]}), flush=True)
+    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

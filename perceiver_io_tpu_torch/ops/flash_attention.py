@@ -35,15 +35,21 @@ The backward kernels recompute ``p = exp(s - lse)`` under the same masks
 ``dv = p^T . do`` and ``dk = ds^T . q`` (K3), with ``p`` and ``ds`` cast to
 the input type before each product as on the TPU. A dead row gets
 ``dq = 0`` and a key that no row sees ``dk = dv = 0``. K2 and K3 each have
-two Hopper ``sm_90a`` designs, picked by :func:`_bwd_route` from the type
-alone:
+three Hopper ``sm_90a`` designs; :func:`_bwd_route` picks one of the first
+two from the type alone:
 
 - ``wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``), bf16: the five
   products on the tensor cores over TMA-fed tiles, ``p`` and ``ds`` packed
   to bf16 in registers as the A operand of the second products, a 64-row
   consumer warpgroup and a producer warp per block;
-- ``simt`` (``csrc/flash_attention_bwd.cu``), fp32: 64 x 64 tiles on the
-  CUDA cores (TF32 stays off).
+- ``tf32x3`` (``csrc/flash_attention_bwd_tf32.cu``), fp32: each fp32
+  product as three TF32 products on ``mma.sync`` (operands split into
+  TF32 hi and lo parts in registers, fp32-accurate; TF32 arithmetic itself
+  stays off), eight warps per 64-row tile, tiles staged with ``cp.async``,
+  ``p`` and ``ds`` kept in registers;
+- ``simt`` (``csrc/flash_attention_bwd.cu``), fp32 or bf16: 64 x 64 tiles
+  on the CUDA cores, the first design, reached only by name through
+  :func:`_bwd_launch` (to time it against the others).
 
 :func:`flash_attention` goes through :class:`FlashAttentionFunction`, so it
 is differentiable. Every wrapper launches its kernel for CUDA tensors and
@@ -52,8 +58,8 @@ version (:func:`flash_attention_reference`,
 :func:`flash_attention_backward_reference`), which repeats the kernel's
 arithmetic. There is no fallback from a CUDA tensor to a plain version.
 A route whose kernel refuses an input (a head dim it does not instantiate,
-a base not 16-byte aligned for the split and wgmma routes, a failed launch)
-raises; a CUDA tensor never drops to another route.
+a base not 16-byte aligned for the split, wgmma and tf32x3 routes, a failed
+launch) raises; a CUDA tensor never drops to another route.
 Launches are counted on ``flash_attention.launches`` (K1's calls, with
 ``flash_attention.route_launches`` per route, and
 ``flash_attention.kernel_launches`` the device kernels they launch: two per
@@ -79,8 +85,8 @@ ROUTES = ("split", "wgmma", "simt")
 SPLIT_MAX_ROWS = 16
 #: device kernels one call of each route launches
 ROUTE_KERNELS = {"split": 2, "wgmma": 1, "simt": 1}
-#: K2's and K3's designs, by :func:`_bwd_route`
-BWD_ROUTES = ("wgmma", "simt")
+#: K2's and K3's designs (:func:`_bwd_route` picks ``wgmma`` or ``tf32x3``)
+BWD_ROUTES = ("wgmma", "tf32x3", "simt")
 _FWD = {}
 _BWD = {}
 
@@ -256,12 +262,18 @@ def _fwd_kernel(route: str):
 
 def _bwd_route(dtype: torch.dtype) -> str:
     """K2's and K3's design for inputs of ``dtype``: ``wgmma`` for bf16,
-    ``simt`` for fp32. The choice depends on nothing else."""
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    ``tf32x3`` for fp32. The choice depends on nothing else."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 #: per backward route: (library source, suffix of its C entries)
-_BWD_ENTRIES = {"simt": ("flash_attention_bwd", ""), "wgmma": ("flash_attention_bwd_wgmma", "_wgmma")}
+_BWD_ENTRIES = {
+    "simt": ("flash_attention_bwd", ""),
+    "wgmma": ("flash_attention_bwd_wgmma", "_wgmma"),
+    "tf32x3": ("flash_attention_bwd_tf32", "_tf32x3"),
+}
+#: the type each tensor-core route takes
+_BWD_DTYPE = {"wgmma": torch.bfloat16, "tf32x3": torch.float32}
 
 
 def _bwd_kernels(route: str):
@@ -406,11 +418,11 @@ def _bwd_launch(route: str, q, k, v, lse, delta, do, pad_mask, causal, which: in
     (``which`` 1, ``(dk, dv)``) on checked CUDA tensors (uncounted): the
     wrappers' launcher, also used to time one route against another on the
     same inputs. Raises on what the route's kernel does not take."""
-    if route == "wgmma":
-        if q.dtype != torch.bfloat16:
-            raise TypeError(f"the wgmma route takes bfloat16, got {q.dtype}")
-        if any(t.data_ptr() % 16 for t in (q, k, v, do)):
-            raise ValueError("the wgmma route needs q, k, v and do on 16-byte aligned bases")
+    if route in _BWD_DTYPE:
+        if q.dtype != _BWD_DTYPE[route]:
+            raise TypeError(f"the {route} route takes {_BWD_DTYPE[route]}, got {q.dtype}")
+        if any(t.data_ptr() % 16 for t in (q, k, v, do, *outputs)):
+            raise ValueError(f"the {route} route needs q, k, v, do and the outputs on 16-byte aligned bases")
     dq_fn, dkv_fn, supports = _bwd_kernels(route)
     b, h, i, d = q.shape
     j = k.shape[2]

@@ -24,7 +24,7 @@ launches of the flash attention kernels (K1; K2 and K3 when training) and
 the ragged paged-attention kernel (K4), K1's device time and launches by
 route (split, wgmma, simt) and its device kernel launches (a split-route
 call launches two: partials and merge), K2's and K3's device time and
-launches by route (wgmma, simt) when training, and the top kernels by
+launches by route (wgmma, tf32x3, simt) when training, and the top kernels by
 device time.
 The full profiler tables go to
 ``chiprun_out/profile_serve_<engine>[_<layout>]_<dtype>.txt``.
@@ -105,8 +105,10 @@ def _k1_routes(ms_of) -> dict:
 
 def _bwd_routes(ms_of, kernel: str) -> dict:
     """K2's (``kernel`` "dq") or K3's ("dkv") device ms by route (kernel
-    names: ``flash_bwd_<kernel>_kernel`` simt, ``flash_bwd_<kernel>_wgmma_kernel``)."""
-    return {"simt": ms_of(f"flash_bwd_{kernel}_kernel"), "wgmma": ms_of(f"flash_bwd_{kernel}_wgmma_kernel")}
+    names: ``flash_bwd_<kernel>_kernel`` simt, ``flash_bwd_<kernel>_wgmma_kernel``,
+    ``flash_bwd_<kernel>_tf32x3_kernel``)."""
+    return {"simt": ms_of(f"flash_bwd_{kernel}_kernel"), "wgmma": ms_of(f"flash_bwd_{kernel}_wgmma_kernel"),
+            "tf32x3": ms_of(f"flash_bwd_{kernel}_tf32x3_kernel")}
 
 
 def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi, out_dir):

@@ -67,7 +67,8 @@ def test_build_command_compiles_and_links(csrc, monkeypatch):
 def test_package_sources_and_headers():
     sources = _build.sources()
     for name in ("flash_attention_fwd", "flash_attention_fwd_wgmma", "flash_attention_fwd_split",
-                 "flash_attention_bwd", "flash_attention_bwd_wgmma", "ragged_paged_attention"):
+                 "flash_attention_bwd", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32",
+                 "ragged_paged_attention"):
         assert name in sources
     assert (_build.CSRC / "sm90.cuh").exists()
     for name in ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma"):

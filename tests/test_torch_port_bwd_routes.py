@@ -1,9 +1,23 @@
-"""K2's and K3's two routes behind their wrappers, on the CPU.
+"""K2's and K3's routes behind their wrappers, on the CPU.
 
 ``flash_attention_bwd_dq`` (K2) and ``flash_attention_bwd_dkv`` (K3) pick the
 backward kernel's design by the input type alone (``_bwd_route``): ``wgmma``
-(tensor-core tiles fed by TMA) for bf16, ``simt`` (the CUDA-core kernel) for
-fp32. CPU tensors take the plain version and launch no route.
+(bf16 tensor-core tiles fed by TMA) for bf16, ``tf32x3`` (each fp32 product
+as three TF32 products on ``mma.sync``) for fp32; ``simt`` (the CUDA-core
+kernels) is reached only by name. CPU tensors take the plain version and
+launch no route.
+
+The ``tf32x3`` route's arithmetic is emulated here in plain torch: every
+operand of the five products split into ``hi``, ``x`` rounded to TF32's 10
+mantissa bits to nearest with ties away from zero (``cvt.rna.tf32.f32``'s
+rounding, which the kernels compute with two integer operations), and
+``lo = x - hi``, which the tensor cores read truncated to TF32; each
+product taken as ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi``. That emulation is
+held against ``jax.grad`` of the JAX ``flash_attention`` in fp32 (the
+Pallas kernels in interpret mode) on two cases with pads, at 1e-4 of each
+gradient's largest entry, the card's fp32 gate. Measured on the CPU, the largest difference is
+1.1e-6 of a gradient's largest entry (dk, the second case): 90x inside the
+gate, where one TF32 product per fp32 product lands at up to 1.3e-3, over it.
 
 The ``wgmma`` route reproduces the plain bf16 backward: ``p`` and ``ds``
 rounded to bf16 before their products, fp32 sums, bf16 outputs. That plain
@@ -47,7 +61,7 @@ def _counts():
             for name, w in (("dq", flash.flash_attention_bwd_dq), ("dkv", flash.flash_attention_bwd_dkv))}
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"), (torch.bfloat16, "wgmma")])
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "tf32x3"), (torch.bfloat16, "wgmma")])
 def test_bwd_route_table(dtype, route):
     assert flash._bwd_route(dtype) == route
     assert route in flash.BWD_ROUTES
@@ -80,6 +94,19 @@ def test_wgmma_route_refuses_fp32_and_misaligned_bases(rng):
                           (torch.empty_like(k), torch.empty_like(v)))
 
 
+def test_tf32x3_route_refuses_bf16_and_misaligned_bases(rng):
+    q, k, v, do = _inputs(rng, 1, 1, 8, 8, 64, torch.bfloat16)
+    stats = torch.zeros(1, 1, 8)
+    with pytest.raises(TypeError, match="float32"):
+        flash._bwd_launch("tf32x3", q, k, v, stats, stats, do, None, True, 0, (torch.empty_like(q),))
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    shifted = torch.empty(do.numel() + 1)[1:].view_as(do)  # a 4-byte offset base
+    shifted.copy_(do)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash._bwd_launch("tf32x3", q, k, v, stats, stats, shifted, None, True, 1,
+                          (torch.empty_like(k), torch.empty_like(v)))
+
+
 def _jax_grads(q, k, v, do, pad, causal):
     def loss(q, k, v):
         o = jax_flash.flash_attention(q, k, v, pad_mask=jnp.asarray(pad), causal=causal)
@@ -103,3 +130,58 @@ def test_plain_bf16_backward_matches_pallas(rng, i, j, causal):
         assert got.dtype == torch.bfloat16, name
         err = np.abs(got.float().numpy() - want).max()
         assert err <= BF16_REL_TOL * np.abs(want).max(), f"{name}: {err} of {np.abs(want).max()}"
+
+
+def _tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+    """fp32 cut to TF32's 10 mantissa bits: rounded to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``: add half of the 13 dropped bits to
+    the magnitude, then clear them), or truncated (as the tensor cores read
+    an fp32 operand)."""
+    bits = x.contiguous().view(torch.int32)
+    return (((bits + 0x1000) if rounded else bits) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the ``tf32x3`` kernels take it: both operands split into
+    TF32 ``hi`` and ``lo`` parts, the two small cross products and the big
+    one summed (each exact in float64 here), ``lo . lo`` dropped."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi, rounded=False), _tf32(b - b_hi, rounded=False)
+    terms = (a_lo.double() @ b_hi.double(), a_hi.double() @ b_lo.double(), a_hi.double() @ b_hi.double())
+    return sum(terms).float()
+
+
+def _tf32x3_backward(q, k, v, o, lse, do, pad, causal):
+    """K2 and K3 with every product in 3xTF32 (the ``tf32x3`` kernels'
+    arithmetic; masks by select, fp32 elsewhere)."""
+    allowed = flash._allowed(q, k.shape[2], pad, causal)
+    s = _mm3(q, k.transpose(-1, -2))
+    p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
+    dp = _mm3(do, v.transpose(-1, -2))
+    ds = torch.where(allowed, p * (dp - flash.attention_delta(o, do)[..., None]), 0.0)
+    return _mm3(ds, k), _mm3(ds.transpose(-1, -2), q), _mm3(p.transpose(-1, -2), do)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    ulp = 2.0**-10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2**-23, 1 + 3 * ulp / 2, 3.0])
+    assert _tf32(x).tolist() == [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0]
+    assert _tf32(x, rounded=False).tolist() == [1.0, -1.0, 1.0, 1 + ulp, 3.0]
+
+
+@pytest.mark.parametrize("i,j,causal", [(256, 640, True), (128, 384, True)])
+def test_tf32x3_backward_matches_pallas(rng, i, j, causal):
+    q, k, v, do = _inputs(rng, 1, 2, i, j, 64, torch.float32)
+    pad = torch.from_numpy(rng.random((1, j)) < 0.2)
+    o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal)
+    got = _tf32x3_backward(q, k, v, o, lse, do, pad, causal)
+
+    def loss(q, k, v):
+        out = jax_flash.flash_attention(q, k, v, pad_mask=jnp.asarray(pad.numpy()), causal=causal)
+        return jnp.sum(out * jnp.asarray(do.numpy()))
+
+    expected = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    for mine, want, name in zip(got, expected, ("dq", "dk", "dv")):
+        want = np.asarray(want)
+        err = np.abs(mine.numpy() - want).max()
+        assert err <= 1e-4 * np.abs(want).max(), f"{name}: {err} of {np.abs(want).max()}"

@@ -13,7 +13,7 @@ since autograd rounds the cotangent of ``p``'s bf16 cast where the kernels
 round ``p`` and ``ds`` themselves).
 
 The CUDA kernels run only on the card: ``test_backward_kernels_match_plain_on_card``
-is marked ``cuda`` and skips without one (fp32 through the ``simt`` route at
+is marked ``cuda`` and skips without one (fp32 through the ``tf32x3`` route at
 1e-4; bf16 through ``wgmma`` at two bf16 ulps of the largest entry and no
 further from the fp32 backward than 1.5x the plain bf16 version);
 ``python3 chip_smoke.py`` (phases ``k23`` and ``train``) holds them at the
@@ -139,7 +139,7 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, i, j, with_pad
         if with_pad else None
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
     o = flash.flash_attention(qq, kk, vv, pad_mask=pad, causal=True)
-    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     before = (flash.flash_attention_bwd_dq.route_launches[route],
               flash.flash_attention_bwd_dkv.route_launches[route])
     grads = torch.autograd.grad(o, (qq, kk, vv), do)
@@ -148,8 +148,9 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, i, j, with_pad
     _, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True)
     ref = flash.flash_attention_backward_reference(q, k, v, o.detach(), lse, do, pad_mask=pad, causal=True)
     torch.cuda.synchronize()
-    # fp32 (simt) sums in the plain version's order; bf16 (wgmma) in another,
-    # so a rounded entry may land on the neighbouring bf16 value: two bf16 ulps
+    # fp32 (tf32x3) is fp32-accurate (three TF32 products per product); bf16
+    # (wgmma) sums in another order than the plain version, so a rounded
+    # entry may land on the neighbouring bf16 value: two bf16 ulps
     tol = 1e-4 if dtype == torch.float32 else 2.0**-7
     for got, want in zip(grads, ref):
         assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
