@@ -71,9 +71,12 @@ non-zero and never prints the final line):
    CUDA-core design both types took first), the plain version's, the
    backward alone of ``scaled_dot_product_attention`` (its memory-efficient
    backend pinned; a yardstick the port never calls) and the card's bound
-   (in fp32 ``bound_ms`` at the CUDA cores' rate, as earlier rows, and
-   ``bound_tc_ms`` at a third of the TF32 tensor-core rate, the most the
-   ``tf32x3`` route's three products per fp32 product can reach);
+   (in fp32 ``bound_ms`` at a third of the TF32 tensor-core rate, the most
+   the ``tf32x3`` route's three products per fp32 product can reach, and
+   ``bound_simt_ms`` at the CUDA cores' rate, as the simt route's rows). The
+   ``simt`` kernels' outputs are held to 1e-4 of each output's largest plain
+   entry in both types (``prev_rel_err``), with the same zeros and finite
+   values, before they are timed;
 9. train, over the full-width CLM:
    (a) one loss + backward with the kernels against ``attention_impl="xla"``
        (batch 4 x 1024, left pads inside the prefix, one prefix-dropout
@@ -143,6 +146,9 @@ K23_REL_TOL = {"float32": 1e-4, "bfloat16": 2.0**-7}
 # version's own error against it
 K23_ORACLE_RATIO = 1.5
 K23_ROUTE = {"float32": "tf32x3", "bfloat16": "wgmma"}
+# the simt K2/K3 kernels, timed beside each route as prev_ms, are held to
+# 1e-4 in both types, the bar they had when they were the routes
+SIMT_REL_TOL = 1e-4
 # K2/K3's cases: (name, i, j, left pads per batch row or None, head dim), b = 4
 K23_CASES = (
     ("cross", 512, 768, [0, 100, 300, 600], 112),   # 256 kept prefix + 512 latents; row 3's rows 0..343 dead
@@ -413,6 +419,27 @@ def k23_cases(torch, flash):
                                      f"{expected}), rel err {rel} (tol {tol}), oracle {oracle}, "
                                      f"dead dq zero {dead_zero}, unseen dk/dv zero {unseen_zero}, "
                                      f"finite {finite}")
+            # the simt kernels time prev_ms below: they are held first to the
+            # bar they had as the fp32 route (and as the bf16 one before the
+            # wgmma route), 1e-4 of each output's largest plain entry
+            t6 = (q, k, v, lse, delta, do)
+            pdq, pdk, pdv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            flash._bwd_launch("simt", *t6, pad, True, 0, (pdq,))
+            flash._bwd_launch("simt", *t6, pad, True, 1, (pdk, pdv))
+            torch.cuda.synchronize()
+            prev_rel = {gname: (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+                        for gname, got, want in zip(("dq", "dk", "dv"), (pdq, pdk, pdv), ref)}
+            prev_ok = (max(prev_rel.values()) <= SIMT_REL_TOL
+                       and all(bool(torch.isfinite(t).all().item()) for t in (pdq, pdk, pdv))
+                       and bool((pdq[~live[:, None, :, None].expand_as(pdq)] == 0).all().item())
+                       and bool((pdk[unseen] == 0).all().item() and (pdv[unseen] == 0).all().item()))
+            case.update(prev_route="simt", prev_rel_err=prev_rel, prev_rel_tol=SIMT_REL_TOL)
+            del pdq, pdk, pdv
+            if not prev_ok:
+                emit("k23", **case)
+                raise AssertionError(f"K2/K3 simt {name} i={i} j={j} {tname}: rel err {prev_rel} "
+                                     f"(tol {SIMT_REL_TOL}), or an output not finite, or a dead "
+                                     f"row's dq or an unseen key's dk/dv not 0")
             esize = q.element_size()
             pad_bytes = 0 if pad is None else pad.numel()
             kv_read = 2 * int(seen.sum().item()) * h * d * esize  # k and v of the keys some row sees
@@ -434,13 +461,16 @@ def k23_cases(torch, flash):
                 plain_ms = device_ms(l2_cold(lambda *t, f=plain: f(*t, **kw), q, k, v, lse, delta, do)[0], 5)
                 bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
                 times[kname] = dict(route=expected, ms=ms, prev_ms=prev_ms, prev_route="simt",
-                                    plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
-                                    bound_by="bytes" if bytes_s >= ops_s else "operations",
-                                    bytes=nbytes, flops=flops, input_copies=copies)
+                                    plain_ms=plain_ms, bytes=nbytes, flops=flops, input_copies=copies)
                 if expected == "tf32x3":
-                    tc_s = 3 * flops / TF32_FLOPS
-                    times[kname].update(bound_tc_ms=max(bytes_s, tc_s) * 1e3,
-                                        bound_tc_by="bytes" if bytes_s >= tc_s else "operations")
+                    # the card's fp32-accurate rate is the tensor cores' TF32
+                    # rate over three; the CUDA cores' bound stays beside it
+                    # so rows compare with those of the simt route
+                    times[kname].update(bound_simt_ms=max(bytes_s, ops_s) * 1e3,
+                                        bound_simt_by="bytes" if bytes_s >= ops_s else "operations")
+                    ops_s = 3 * flops / TF32_FLOPS
+                times[kname].update(bound_ms=max(bytes_s, ops_s) * 1e3,
+                                    bound_by="bytes" if bytes_s >= ops_s else "operations")
                 del timed, prev
             attn_mask = allowed[:, None]
             library, graphs = _grad_rotation(torch, F, q, k, v, do, attn_mask)
@@ -1122,7 +1152,7 @@ def k23_entries(kname: str, fits: dict, cases: list) -> list:
     for tname, design in (("bfloat16", K23_ROUTE["bfloat16"]), ("float32", K23_ROUTE["float32"])):
         keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by")
         if design == "tf32x3":
-            keys += ("bound_tc_ms", "bound_tc_by")
+            keys += ("bound_simt_ms", "bound_simt_by")
         mine = [c for c in cases if c["dtype"] == tname]
         head = next(c for c in mine if c["case"] == "cross" and c["j"] == 768)
         entries.append({
@@ -1138,7 +1168,8 @@ def k23_entries(kname: str, fits: dict, cases: list) -> list:
             "prev_route": "simt",
             "cases": [{"case": c["case"], "i": c["i"], "j": c["j"], "d": c["d"],
                        **{k: c["kernels"][kname][k] for k in keys if not k.endswith("_by")},
-                       "library_ms": c["library_ms"], "rel_err": {g: c["rel_err"][g] for g in grads}}
+                       "library_ms": c["library_ms"], "rel_err": {g: c["rel_err"][g] for g in grads},
+                       "prev_rel_err": {g: c["prev_rel_err"][g] for g in grads}}
                       for c in mine],
         })
     return entries

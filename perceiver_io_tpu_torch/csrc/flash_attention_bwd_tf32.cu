@@ -23,8 +23,9 @@
 // 3xTF32. A TF32 operand keeps 10 of fp32's 23 mantissa bits, so one TF32
 // product per fp32 product errs by ~2^-11 relative. Each operand value x is
 // split at load time into hi, x rounded to TF32 to nearest with ties away
-// from zero (cvt.rna.tf32.f32's rounding, computed with two integer
-// operations, which issue faster than cvt), and lo = x - hi (exact in fp32;
+// from zero (cvt.rna.tf32.f32's rounding for finite |x| below the rounding
+// overflow, computed with two integer operations, which issue faster than
+// cvt; see split()), and lo = x - hi (exact in fp32;
 // the tensor core reads it truncated to TF32, as CUTLASS's 3xTF32 does), and
 // each product a.b runs as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (the two small
 // terms first) into the fp32 accumulator: what is dropped (a_lo.b_lo and
@@ -164,9 +165,14 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
 }
 
 // x = hi + lo: hi is x rounded to TF32 to nearest with ties away from zero
-// (cvt.rna.tf32.f32's result, with two integer operations: cvt runs slower),
-// lo = x - hi exactly in fp32, which the tensor core reads truncated to TF32
-// (it ignores an operand's low 13 bits, as CUTLASS's 3xTF32 relies on)
+// (cvt.rna.tf32.f32's result for finite |x| below 2^128 (1 - 2^-12), with
+// two integer operations: cvt runs slower), lo = x - hi exactly in fp32,
+// which the tensor core reads truncated to TF32 (it ignores an operand's low
+// 13 bits, as CUTLASS's 3xTF32 relies on). Past those values the integer
+// rounding differs from cvt: a finite |x| that rounds up past the largest
+// float gives hi = inf and lo = -inf, and a NaN whose payload lies in the
+// low 13 bits gives hi = inf; lo is then -inf or NaN, so the product's sum
+// is inf or NaN as it would be in fp32, never a finite wrong value
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   lo = __float_as_uint(x - __uint_as_float(hi));

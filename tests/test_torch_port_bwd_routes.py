@@ -10,7 +10,8 @@ launch no route.
 The ``tf32x3`` route's arithmetic is emulated here in plain torch: every
 operand of the five products split into ``hi``, ``x`` rounded to TF32's 10
 mantissa bits to nearest with ties away from zero (``cvt.rna.tf32.f32``'s
-rounding, which the kernels compute with two integer operations), and
+rounding for finite values below the rounding overflow, which the kernels
+compute with two integer operations), and
 ``lo = x - hi``, which the tensor cores read truncated to TF32; each
 product taken as ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi``. That emulation is
 held against ``jax.grad`` of the JAX ``flash_attention`` in fp32 (the
@@ -134,9 +135,9 @@ def test_plain_bf16_backward_matches_pallas(rng, i, j, causal):
 
 def _tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
     """fp32 cut to TF32's 10 mantissa bits: rounded to nearest with ties
-    away from zero (``cvt.rna.tf32.f32``: add half of the 13 dropped bits to
-    the magnitude, then clear them), or truncated (as the tensor cores read
-    an fp32 operand)."""
+    away from zero (``cvt.rna.tf32.f32`` for finite values below the rounding
+    overflow: add half of the 13 dropped bits to the magnitude, then clear
+    them), or truncated (as the tensor cores read an fp32 operand)."""
     bits = x.contiguous().view(torch.int32)
     return (((bits + 0x1000) if rounded else bits) & ~0x1FFF).view(torch.float32)
 
