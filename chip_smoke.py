@@ -14,18 +14,25 @@ non-zero and never prints the final line):
    cross-attention i = 512 over j = 1024 with left-pad dead rows, the latent
    stack at j = 512, the q_len = 1 decode attend, ragged tiles i = 100 over
    j = 612, and a decode attend whose lengths leave whole key splits masked
-   and one row dead), fp32 and bf16, through the route the wrapper picks
-   (``split`` for decode, ``wgmma`` for bf16 tiles, ``simt`` for fp32
-   tiles; a wrong route fails), held at fp32 1e-4, bf16 2e-2 and lse 1e-3
-   on live rows, dead rows exactly 0 with ``lse`` the mask value. With its
-   time, PR 1's simt kernel's on the same inputs (``prev_ms``), the plain
-   version's, ``scaled_dot_product_attention``'s with its backend pinned to
-   memory-efficient attention (a yardstick the port never calls) and the
-   card's bound (here and in phase 8 its bytes count k and v only for the
-   keys some query row sees, as K4's count only live keys). Every timed loop here and in phases 6 and 8 reads the next
-   of enough input copies to fill the L2 twice, so its times are HBM times,
-   as the bound is, and queues behind a sleep kernel, so they are the card's
-   times without the host's dispatch (``device_ms``);
+   and one row dead; every case but the ragged one again at head dims 64
+   and 128, timed over fewer iterations), fp32 and bf16, through the route
+   the wrapper picks (``split`` for decode, ``wgmma`` for bf16 tiles,
+   ``tf32x3`` for fp32 tiles; a wrong route fails), held at fp32 1e-4, bf16
+   2e-2 and lse 1e-3 on live rows, dead rows exactly 0 with ``lse`` the
+   mask value. The first CUDA-core kernel (simt) runs on the same inputs,
+   is held to the same gates and is timed beside it (``prev_ms``), with the plain
+   version's time, ``scaled_dot_product_attention``'s with its backend
+   pinned to memory-efficient attention (a yardstick the port never calls)
+   and the card's bound (here and in phase 8 its bytes count k and v only
+   for the keys some query row sees, as K4's count only live keys; for
+   ``tf32x3`` cases ``bound_ms`` at a third of the TF32 tensor-core rate and
+   ``bound_simt_ms`` at the CUDA cores' rate, as in phase 8). Then each of
+   the split, wgmma and tf32x3 routes must refuse a query on a base off a
+   16-byte boundary (``ValueError``, no launch counted). Every timed loop
+   here and in phases 6 and 8 reads the next of enough input copies to fill
+   the L2 twice, so its times are HBM times, as the bound is, and queues
+   behind a sleep kernel, so they are the card's times without the host's
+   dispatch (``device_ms``);
 4. model: the full-width C4 CLM ("clm-base": vocab 32000, 1024 context, 512
    latents, 896 channels, 8 heads, 16 layers; random weights from a seed),
    one forward with the kernel against ``attention_impl="xla"``, fp32 and
@@ -34,11 +41,13 @@ non-zero and never prints the final line):
 5. serve: ``ServingEngine.serve()`` over the full-width model (fp32): 8
    ragged requests in two configs that together run prefill, latent growth,
    prefix growth and the sliding window; served tokens must equal
-   per-request ``generate()``;
+   per-request ``generate()``; K1 must run its split and tf32x3 routes and
+   never simt;
 6. k4: the ragged paged-attention kernel (K4) against its plain PyTorch
-   version at clm-base's shapes (8 heads, head dim 112, block size 16), a
-   decode case (8 rows, q_len 1, lengths 0..1023, tail pages unmapped, trash
-   in the null block) and a window case (8 rows, q_len 512, lengths
+   version at clm-base's shapes (8 heads, head dim 112, block size 16; and
+   at head dims 64 and 128, timed over fewer iterations), a decode case (8
+   rows, q_len 1, lengths 0..1023, tail pages unmapped, trash in the null
+   block) and a window case (8 rows, q_len 512, lengths
    520..1024), each in fp32, bf16 and int8 with scales (bf16 held at 4e-3,
    the others at 1e-4); idle rows must be exactly 0. With its time, the
    plain version's, the gather reference plus
@@ -52,8 +61,8 @@ non-zero and never prints the final line):
    boundary phase at different steps. Dense and paged tokens must equal
    per-request ``generate()`` (a divergence is excused only at a near-tie:
    the reference's top-2 logit gap at the first divergent token < 1e-4); K4
-   must run under the paged layouts and not under dense; the pool must end
-   empty and leak-free. The int8 run's agreement with the paged run is
+   must run under the paged layouts and not under dense, K1's fp32 tiles on
+   ``tf32x3`` and never on ``simt``; the pool must end empty and leak-free. The int8 run's agreement with the paged run is
    printed, not gated;
 8. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
    against their plain versions at the training path's shapes (b = 4, 8
@@ -84,25 +93,26 @@ non-zero and never prints the final line):
        present, finite and within ``1e-3 * max|g_ref|``. bf16 compute over
        the same parameters: each gradient, against the fp32 ``xla`` one,
        within 1.5x the bf16 ``xla`` path's own error plus one bf16 ulp of
-       its largest entry; 17 launches each of K1, K2 and K3, every K2/K3
-       launch on ``tf32x3`` in fp32 and on ``wgmma`` in bf16;
+       its largest entry; 17 launches each of K1, K2 and K3, every
+       K1/K2/K3 launch on ``tf32x3`` in fp32 and on ``wgmma`` in bf16;
    (b) ``Trainer.fit``, fp32: 8 steps of 8 rows in 2 microbatches, AdamW
        at 1e-4 with ``cosine_with_warmup`` (2 warmup steps), clipping at
        1.0, prefix dropout 0.5, two seeded batches cycled, one validation
        pass: finite losses, the last below the first; 34 launches of each of
        K1, K2 and K3 per optimizer step (17 attends x 2 microbatches;
        validation's launches counted apart, none of K2/K3 there), every
-       K2/K3 launch on ``tf32x3``; the best checkpoint reloads into an equal
+       K1/K2/K3 launch on ``tf32x3``; the best checkpoint reloads into an equal
        model. Prints step ms p50 (three more synchronised steps), loss
        tokens/s and peak memory;
-   (c) the same fit in bf16 compute: finite, falling losses, every K2/K3
-       launch on ``wgmma``;
+   (c) the same fit in bf16 compute: finite, falling losses, every
+       K1/K2/K3 launch on ``wgmma``;
    (d) a small model whose pads reach into the latent window, one SGD step
        on the card against the same weights on the CPU with
        ``attention_impl="flash"`` (the plain forward and backward, same
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
-10. the ``{"kernels": [...]}`` summary line (K1 with its routes nested, an
+10. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
+   main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4;
    K1's ``launches`` count its wrapper's calls and its ``kernel_launches``
    the device kernels, two per split-route call), the card's
@@ -230,10 +240,15 @@ K1_CASES = (
     ("ragged", 100, 612, [0, 30, 300, 560], None),         # ragged q and kv tiles; rows 0..47 of row 3 dead
     ("decode_empty", 1, 1024, None, [0, 64, 200, 700]),    # whole splits masked; row 0 dead
 )
+K1_HEAD_DIM = 112  # clm-base: 896 channels over 8 heads
+# the kernels' other head dims, each case but the ragged one, timed over
+# fewer iterations
+K1_OTHER_HEAD_DIMS = (64, 128)
+K1_OTHER_CASES = ("cross", "stack", "decode", "decode_empty")
 
 
 def k1_expected_route(name: str, tname: str) -> str:
-    return "split" if name.startswith("decode") else ("wgmma" if tname == "bfloat16" else "simt")
+    return "split" if name.startswith("decode") else ("wgmma" if tname == "bfloat16" else "tf32x3")
 
 
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
@@ -248,16 +263,31 @@ def sdpa_backend():
     return sdpa_kernel(getattr(SDPBackend, SDPA_BACKEND))
 
 
+def _k1_errors(flash, o, lse, o_ref, lse_ref, live) -> tuple:
+    """``(max|o - o_ref|, max|lse - lse_ref|)`` on live rows, and whether
+    every dead row has ``o`` exactly 0 and ``lse`` the mask value."""
+    live4 = live[:, None, :, None].expand_as(o)
+    live3 = live[:, None, :].expand_as(lse)
+    err = (o.float() - o_ref.float()).abs()[live4].max().item()
+    lse_err = (lse - lse_ref).abs()[live3].max().item()
+    dead_zero = (bool((o[~live4] == 0).all().item())
+                 and bool((lse[~live3] == flash.MASK_VALUE).all().item()))
+    return err, lse_err, dead_zero
+
+
 def kernel_cases(torch, flash):
     """K1 against its plain version at the serving path's shapes, through
     the route the wrapper picks, beside PR 1's simt kernel on the same
-    inputs (``prev_ms``)."""
+    inputs (``prev_ms``), itself held to the same gates; at head dim 112 and
+    at the kernels' other head dims."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, h, d = 4, 8, 112
+    b, h = 4, 8
+    shapes = [(*c, K1_HEAD_DIM) for c in K1_CASES] + [
+        (*c, d) for d in K1_OTHER_HEAD_DIMS for c in K1_CASES if c[0] in K1_OTHER_CASES]
     cases = []
-    for name, i, j, pads, visible in K1_CASES:
+    for name, i, j, pads, visible, d in shapes:
         cols = torch.arange(j, device="cuda")[None, :]
         if pads is not None:
             pad = cols < torch.tensor(pads, device="cuda")[:, None]
@@ -268,6 +298,7 @@ def kernel_cases(torch, flash):
         live = allowed.any(-1)  # (b, i)
         seen = int(allowed.any(1).sum().item())  # keys some row sees: the only k/v rows read
         pairs = int(allowed.sum().item()) * h
+        main_dim = d == K1_HEAD_DIM
         for dtype in (torch.float32, torch.bfloat16):
             tname = str(dtype).split(".")[-1]
             q = (torch.randn(b, h, i, d, generator=gen, device="cuda") * d**-0.5).to(dtype)
@@ -276,22 +307,25 @@ def kernel_cases(torch, flash):
             before = dict(flash.flash_attention.route_launches)
             o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True)
             route = next(r for r, n in flash.flash_attention.route_launches.items() if n != before[r])
+            o_prev, lse_prev = flash._fwd_launch("simt", q, k, v, pad, True)
             o_ref, lse_ref = flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=True)
             torch.cuda.synchronize()
-            live4 = live[:, None, :, None].expand_as(o)
-            live3 = live[:, None, :].expand_as(lse)
-            err = (o.float() - o_ref.float()).abs()[live4].max().item()
-            lse_err = (lse - lse_ref).abs()[live3].max().item()
-            dead_zero = (bool((o[~live4] == 0).all().item())
-                         and bool((lse[~live3] == flash.MASK_VALUE).all().item()))
+            err, lse_err, dead_zero = _k1_errors(flash, o, lse, o_ref, lse_ref, live)
+            prev_err, prev_lse_err, prev_dead_zero = _k1_errors(flash, o_prev, lse_prev, o_ref, lse_ref, live)
+            del o_prev, lse_prev
             tol = KERNEL_TOL[tname]
             expected = k1_expected_route(name, tname)
             if not (err <= tol and lse_err <= 1e-3 and dead_zero and route == expected):
                 raise AssertionError(
-                    f"K1 {name} {tname} ({route}, expected {expected}): max|d| {err} (tol {tol}), "
+                    f"K1 {name} d={d} {tname} ({route}, expected {expected}): max|d| {err} (tol {tol}), "
                     f"lse {lse_err}, dead rows 0 with lse MASK {dead_zero}"
                 )
-            iters = 100 if i > 1 else 200
+            if not (prev_err <= tol and prev_lse_err <= 1e-3 and prev_dead_zero):
+                raise AssertionError(
+                    f"K1 simt (prev_ms) {name} d={d} {tname}: max|d| {prev_err} (tol {tol}), "
+                    f"lse {prev_lse_err}, dead rows 0 with lse MASK {prev_dead_zero}"
+                )
+            iters = (100 if i > 1 else 200) if main_dim else (30 if i > 1 else 50)
             attn_mask = allowed[:, None]
             kernel, copies = l2_cold(
                 lambda q, k, v: flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True), q, k, v)
@@ -304,7 +338,7 @@ def kernel_cases(torch, flash):
                 q, k, v)
             ms = device_ms(kernel, iters)
             prev_ms = device_ms(prev, iters)
-            plain_ms = device_ms(plain, 10)
+            plain_ms = device_ms(plain, 10 if main_dim else 3)
             with sdpa_backend():
                 library_ms = device_ms(library, iters)
             del kernel, prev, plain, library
@@ -312,20 +346,53 @@ def kernel_cases(torch, flash):
             nbytes = ((q.numel() + o.numel() + 2 * seen * h * d) * esize + lse.numel() * 4
                       + pad.numel())
             flops = 4 * d * pairs  # q.k and p.v over the keys this data lets each row see
-            bound_s = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname])
+            bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
             case = dict(
                 case=name, dtype=tname, route=route, b=b, h=h, i=i, j=j, d=d, max_abs_err=err,
                 tol=tol, lse_max_abs_err=lse_err, dead_rows=int((~live).sum().item()),
                 dead_rows_zero_lse_mask=dead_zero, ms=ms, prev_ms=prev_ms, prev_route="simt",
+                prev_max_abs_err=prev_err, prev_lse_max_abs_err=prev_lse_err,
                 plain_ms=plain_ms, library_ms=library_ms, library_backend=SDPA_BACKEND,
-                input_copies=copies,
-                bound_ms=bound_s * 1e3,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[tname] else "operations",
-                bytes=nbytes, flops=flops, seen_keys=seen,
+                input_copies=copies, iters=iters,
             )
+            if route == "tf32x3":
+                # the card's fp32-accurate rate is the tensor cores' TF32 rate
+                # over three; the CUDA cores' bound stays beside it so rows
+                # compare with those of the simt route
+                case.update(bound_simt_ms=max(bytes_s, ops_s) * 1e3,
+                            bound_simt_by="bytes" if bytes_s >= ops_s else "operations")
+                ops_s = 3 * flops / TF32_FLOPS
+            case.update(bound_ms=max(bytes_s, ops_s) * 1e3,
+                        bound_by="bytes" if bytes_s >= ops_s else "operations",
+                        bytes=nbytes, flops=flops, seen_keys=seen)
             emit("kernel", **case)
             cases.append(case)
     return cases
+
+
+def k1_refusals(torch, flash) -> None:
+    """K1's split, wgmma and tf32x3 routes refuse a query on a base off a
+    16-byte boundary: the wrapper raises ``ValueError`` and counts no
+    launch."""
+    d = K1_HEAD_DIM
+    seen = {}
+    for route, i, dtype in (("split", 1, torch.bfloat16), ("wgmma", 64, torch.bfloat16),
+                            ("tf32x3", 64, torch.float32)):
+        # contiguous, one element (2 or 4 bytes) off the allocation's base
+        q = torch.randn(2 * 8 * i * d + 1, device="cuda").to(dtype)[1:].view(2, 8, i, d)
+        k = torch.randn(2, 8, 128, d, device="cuda").to(dtype)
+        before = (flash.flash_attention.launches, dict(flash.flash_attention.route_launches))
+        message = None
+        try:
+            flash.flash_attention_fwd(q, k, k, causal=True)
+        except ValueError as e:
+            message = str(e)
+        counted = (flash.flash_attention.launches, dict(flash.flash_attention.route_launches)) != before
+        seen[route] = dict(picked=flash._fwd_route(i, dtype), message=message, counted=counted)
+    emit("k1_refusal", routes=seen)
+    for route, r in seen.items():
+        if r["picked"] != route or r["message"] is None or "16-byte" not in r["message"] or r["counted"]:
+            raise AssertionError(f"K1 {route} did not refuse a misaligned query: {r}")
 
 
 def _grad_rotation(torch, F, q, k, v, do, attn_mask):
@@ -608,8 +675,10 @@ def serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets):
          device_execute_ms=engine.samples["device_execute_ms"], batches=stats["batches"],
          k1_launches=launches, k1_launches_per_token=launches / tokens, k1_route_launches=routes,
          k1_kernel_launches=kernel_launches, per_request_generate_mismatches=mismatches, compute_dtype="float32")
-    # fp32 serving runs K1's split route (decode attends) and simt route (prefill)
-    if stats["completed"] != 8 or not (routes["split"] > 0 and routes["simt"] > 0) or mismatches:
+    # fp32 serving runs K1's split route (decode attends) and tf32x3 route
+    # (prefill), never simt
+    if (stats["completed"] != 8 or not (routes["split"] > 0 and routes["tf32x3"] > 0)
+            or routes["simt"] or mismatches):
         raise AssertionError(f"serve: completed {stats['completed']}, K1 launches {routes}, "
                              f"mismatching requests {mismatches}")
     return launches, routes, kernel_launches
@@ -620,12 +689,13 @@ def k4_cases(torch, ragged, paged):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    h, d, bs, pages = 8, 112, 16, 64
+    h, bs, pages = 8, 16, 64
     cases = []
-    for name, q_len, lengths in (
+    for (name, q_len, lengths), d in itertools.product((
         ("decode", 1, [1023, 700, 300, 40, 1, 0, 512, 17]),
         ("window", 512, [520, 600, 680, 760, 840, 920, 1000, 1024]),
-    ):
+    ), (K1_HEAD_DIM, *K1_OTHER_HEAD_DIMS)):
+        main_dim = d == K1_HEAD_DIM
         b = len(lengths)
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         used = [-(-length // bs) for length in lengths]
@@ -676,11 +746,12 @@ def k4_cases(torch, ragged, paged):
             idle_zero = bool((o[lens <= 0] == 0).all().item())
             tol = K4_TOL[layout]
             if not (err <= tol and idle_zero and bool(torch.isfinite(o).all().item())):
-                raise AssertionError(f"K4 {name} {layout}: max|d| {err} (tol {tol}), idle rows zero {idle_zero}")
-            iters = 200 if q_len == 1 else 50
+                raise AssertionError(f"K4 {name} d={d} {layout}: max|d| {err} (tol {tol}), "
+                                     f"idle rows zero {idle_zero}")
+            iters = (200 if q_len == 1 else 50) if main_dim else (50 if q_len == 1 else 15)
             cold_kernel, copies = l2_cold(kernel, *pool)
             ms = device_ms(cold_kernel, iters)
-            plain_ms = device_ms(l2_cold(plain, *pool)[0], 10)
+            plain_ms = device_ms(l2_cold(plain, *pool)[0], 10 if main_dim else 3)
             gather_sdpa_ms = device_ms(l2_cold(gather_sdpa, *pool)[0], iters)
             del cold_kernel
             int8 = len(pool) == 4
@@ -693,7 +764,7 @@ def k4_cases(torch, ragged, paged):
                 case=name, layout=layout, b=b, h=h, q_len=q_len, d=d, block_size=bs,
                 lengths=lengths, max_abs_err=err, tol=tol, idle_rows_zero=idle_zero,
                 ms=ms, plain_ms=plain_ms, gather_sdpa_ms=gather_sdpa_ms, library_ms=None,
-                input_copies=copies,
+                input_copies=copies, iters=iters,
                 library_note="no single PyTorch call reads a block table",
                 bound_ms=max(bytes_s, ops_s) * 1e3,
                 bound_by="bytes" if bytes_s >= ops_s else "operations",
@@ -772,6 +843,9 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             failures.append(f"completed {stats['completed']} of {len(prompts)}")
         if (k4 > 0) != (layout != "dense"):
             failures.append(f"K4 launches {k4} under {layout}")
+        k1_routes = launches[layout]["k1_routes"]
+        if k1_routes["tf32x3"] == 0 or k1_routes["simt"] != 0:
+            failures.append(f"K1 routes {k1_routes}: fp32 tiles should take tf32x3, never simt")
         if layout != "dense" and (pool["in_use"] != 0 or pool["leaked"] != 0):
             failures.append(f"pool in_use {pool['in_use']}, leaked {pool['leaked']}")
         if layout != "dense" and pool["ragged_kernel_steps"] != stats["decode_steps"]:
@@ -882,6 +956,7 @@ def train_grad_gate(torch, clm, flash, training, parallel):
     loss, grads = loss_and_grads(model, "auto")
     torch.cuda.synchronize()
     launches, routes = read_counts(flash), read_bwd_routes(flash)
+    k1_routes = dict(flash.flash_attention.route_launches)
     ref_loss, ref = loss_and_grads(model, "xla")
     set_attention_impl(model, "auto")
     missing = [n for n in grads if grads[n] is None or ref[n] is None]
@@ -894,17 +969,22 @@ def train_grad_gate(torch, clm, flash, training, parallel):
     emit("train_grad", params=len(grads), loss=loss, xla_loss=ref_loss, loss_rel_err=loss_rel,
          max_rel_grad_err=max(rel.values()), worst=worst, qkv_proj_params=len(qkv),
          qkv_max_rel_grad_err=max(qkv.values()), none_grads=missing, nonfinite_grads=nonfinite,
-         launches=launches, bwd_route_launches=routes, tol=1e-3, loss_tol=1e-5,
-         compute_dtype="float32")
+         launches=launches, k1_route_launches=k1_routes, bwd_route_launches=routes, tol=1e-3,
+         loss_tol=1e-5, compute_dtype="float32")
     expected = {"k1": 17, "k2": 17, "k3": 17}  # 1 cross + 16 stack attends
 
     def on_route(route):
         return {key: {r: (17 if r == route else 0) for r in flash.BWD_ROUTES} for key in ("k2", "k3")}
 
+    def k1_on(route):
+        return {r: (17 if r == route else 0) for r in flash.ROUTES}
+
     if (missing or nonfinite or loss_rel > 1e-5 or max(rel.values()) > 1e-3 or not qkv
-            or launches != expected or routes != on_route(K23_ROUTE["float32"])):
+            or launches != expected or routes != on_route(K23_ROUTE["float32"])
+            or k1_routes != k1_on("tf32x3")):
         raise AssertionError(f"train grad gate: loss rel {loss_rel}, worst {worst}, None {missing}, "
-                             f"non-finite {nonfinite}, launches {launches}, routes {routes}")
+                             f"non-finite {nonfinite}, launches {launches}, routes {routes}, "
+                             f"K1 routes {k1_routes}")
     del grads
 
     # bf16 compute over the same parameters, batch and seed
@@ -915,6 +995,7 @@ def train_grad_gate(torch, clm, flash, training, parallel):
     loss16, grads16 = loss_and_grads(half, "auto")
     torch.cuda.synchronize()
     launches16, routes16 = read_counts(flash), read_bwd_routes(flash)
+    k1_routes16 = dict(flash.flash_attention.route_launches)
     xla_loss16, xla16 = loss_and_grads(half, "xla")
     kernel_err, xla_err = _grad_errors(grads16, ref), _grad_errors(xla16, ref)
     missing16 = [n for n in grads16 if grads16[n] is None or xla16[n] is None]
@@ -931,13 +1012,15 @@ def train_grad_gate(torch, clm, flash, training, parallel):
          max_rel_grad_err_vs_fp32_xla=max(d / s for d, s in kernel_err.values() if s > 0),
          xla_max_rel_grad_err_vs_fp32_xla=max(d / s for d, s in xla_err.values() if s > 0),
          worst_err_over_limit=worst16, params_over_limit=over, none_grads=missing16,
-         nonfinite_grads=nonfinite16, launches=launches16, bwd_route_launches=routes16,
+         nonfinite_grads=nonfinite16, launches=launches16, k1_route_launches=k1_routes16,
+         bwd_route_launches=routes16,
          limit="1.5 x the bf16 xla path's max abs error against the fp32 xla gradient "
                "+ 1 bf16 ulp of its largest entry, per parameter", compute_dtype="bfloat16")
     if (over or missing16 or nonfinite16 or not math.isfinite(loss16) or launches16 != expected
-            or routes16 != on_route(K23_ROUTE["bfloat16"])):
+            or routes16 != on_route(K23_ROUTE["bfloat16"]) or k1_routes16 != k1_on("wgmma")):
         raise AssertionError(f"bf16 train grad gate: over the limit {over}, None {missing16}, "
-                             f"non-finite {nonfinite16}, launches {launches16}, routes {routes16}")
+                             f"non-finite {nonfinite16}, launches {launches16}, routes {routes16}, "
+                             f"K1 routes {k1_routes16}")
     del half, grads16, xla16, ref
     torch.cuda.empty_cache()
 
@@ -1025,7 +1108,7 @@ def train_fit(torch, clm, flash, training, parallel, dtype, root: Path):
         failures.append(f"losses {losses}")
     if per_step != {"k1": 34, "k2": 34, "k3": 34} or val_counts["k2"] or val_counts["k3"]:
         failures.append(f"launches per step {per_step}, validation {val_counts}")
-    expected_route = "wgmma" if dtype == torch.bfloat16 else "simt"  # i = 512 latents
+    expected_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"  # i = 512 latents
     if routes[expected_route] != counts["k1"]:
         failures.append(f"K1 routes {routes}: every launch should take {expected_route}")
     expected_bwd = K23_ROUTE[tname]
@@ -1107,10 +1190,10 @@ def train_phase(torch, clm, flash, ragged, training, parallel, root: Path):
 K1_SOURCES = {
     "split": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_split.cu",
     "wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wgmma.cu",
-    "simt": "perceiver_io_tpu_torch/csrc/flash_attention_fwd.cu",
+    "tf32x3": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_tf32.cu",
 }
 K1_LAUNCHES_FROM = {"split": "the bucket serve run (fp32 decode attends)",
-                    "simt": "the bucket serve run (fp32 prefill)",
+                    "tf32x3": "the bucket serve run (fp32 prefill)",
                     "wgmma": "the bf16 Trainer.fit run (8 steps and its validation pass)"}
 
 
@@ -1119,17 +1202,19 @@ def k1_route_entry(flash, design: str, main: tuple, cases: list, launches: int) 
     numbers and every case that took it. ``launches`` counts the route's
     calls; ``kernel_launches`` the device kernels they launched."""
     mine = [c for c in cases if c["route"] == design]
-    head = next(c for c in mine if (c["case"], c["dtype"]) == main)
+    head = next(c for c in mine if (c["case"], c["dtype"], c["d"]) == (*main, K1_HEAD_DIM))
     keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend")
+    if design == "tf32x3":
+        keys += ("bound_simt_ms", "bound_simt_by")
     return {
         "name": f"flash_attention_fwd[{design}]", "route": "cuda", "design": design,
         "source": K1_SOURCES[design], "replaces": "perceiver_io_tpu/ops/flash_attention.py:198",
         "launches": launches, "kernel_launches": launches * flash.ROUTE_KERNELS[design],
         "launches_from": K1_LAUNCHES_FROM[design],
-        "max_abs_err": max(c["max_abs_err"] for c in mine), "case": f"{main[0]} {main[1]}",
-        **{k: head[k] for k in keys},
-        "cases": [{"case": c["case"], "dtype": c["dtype"], **{k: c[k] for k in keys if k != "bound_by"}}
-                  for c in mine],
+        "max_abs_err": max(c["max_abs_err"] for c in mine), "case": f"{main[0]} {main[1]} d={K1_HEAD_DIM}",
+        **{k: head[k] for k in keys}, "prev_route": "simt",
+        "cases": [{"case": c["case"], "dtype": c["dtype"], "d": c["d"],
+                   **{k: c[k] for k in keys if not k.endswith("_by")}} for c in mine],
     }
 
 
@@ -1229,6 +1314,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(),
          ptxas={name: ptxas_by_kernel(log) for name, log in _build.BUILD_LOG.items()})
     cases = kernel_cases(torch, flash)
+    k1_refusals(torch, flash)
     model_phase(torch, clm, flash, gen_mod)
     launches, serve_routes, serve_kernels = serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets)
     k4 = k4_cases(torch, ragged, paged)
@@ -1238,29 +1324,33 @@ def main() -> int:
     shutil.rmtree(train_root, ignore_errors=True)
     fits = train_phase(torch, clm, flash, ragged, training, parallel, train_root)
 
-    main_case = next(c for c in cases if c["case"] == "cross" and c["dtype"] == "float32")
-    route_launches = {"split": serve_routes["split"], "simt": serve_routes["simt"],
+    main_case = next(c for c in cases
+                     if (c["case"], c["dtype"], c["d"]) == ("cross", "float32", K1_HEAD_DIM))
+    route_launches = {"split": serve_routes["split"], "tf32x3": serve_routes["tf32x3"],
                       "wgmma": fits["bfloat16"]["k1_route_launches"]["wgmma"]}
-    k4_case = next(c for c in k4 if c["case"] == "decode" and c["layout"] == "float32")
+    k4_case = next(c for c in k4 if (c["case"], c["layout"], c["d"]) == ("decode", "float32", K1_HEAD_DIM))
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "perceiver_io_tpu_torch/csrc/flash_attention_fwd.cu",
+        "source": K1_SOURCES["tf32x3"],
         "replaces": "perceiver_io_tpu/ops/flash_attention.py:198",
         "launches": launches,
         "kernel_launches": serve_kernels,
         "max_abs_err": max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
         "ms": main_case["ms"],
+        "prev_ms": main_case["prev_ms"],
+        "prev_route": "simt",
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
+        "bound_simt_ms": main_case["bound_simt_ms"],
         "library_ms": main_case["library_ms"],
         "library_backend": main_case["library_backend"],
-        "shape": "cross-attention b=4 h=8 i=512 j=1024 d=112 fp32, causal, left pads; "
+        "shape": "cross-attention b=4 h=8 i=512 j=1024 d=112 fp32 (route tf32x3), causal, left pads; "
                  "launches: the bucket serve run",
         "routes": [k1_route_entry(flash, design, main, cases, route_launches[design])
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
-                                        ("simt", ("cross", "float32")))],
+                                        ("tf32x3", ("cross", "float32")))],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",

@@ -6,7 +6,7 @@ Counterpart of the Pallas TPU kernels ``_forward`` (K1), ``_backward_dq``
 (K2) and ``_backward_dkv`` (K3) and of the ``custom_vjp`` around them in
 ``perceiver_io_tpu/ops/flash_attention.py``. The forward (K1) has three
 Hopper ``sm_90a`` designs behind one wrapper, picked by :func:`_fwd_route`
-from the query length and type alone:
+from the query length and type alone, and a fourth reached only by name:
 
 - ``split`` (``csrc/flash_attention_fwd_split.cu``), at most 16 query rows
   (decode attends), fp32 or bf16: the keys cut into 64-key splits, one block
@@ -14,9 +14,15 @@ from the query length and type alone:
 - ``wgmma`` (``csrc/flash_attention_fwd_wgmma.cu``), bf16 with more rows:
   tensor-core tiles fed by TMA, a 64-row consumer warpgroup and a producer
   warp per block;
-- ``simt`` (``csrc/flash_attention_fwd.cu``), fp32 with more rows: 64 x 64
-  tiles on the CUDA cores (fp32 has no tensor-core path without TF32, which
-  stays off).
+- ``tf32x3`` (``csrc/flash_attention_fwd_tf32.cu``), fp32 with more rows:
+  both products as three TF32 products each on ``mma.sync`` (operands split
+  into TF32 hi and lo parts, fp32-accurate; TF32 arithmetic itself stays
+  off), eight warps per 64-row tile, two online-softmax states per row
+  merged at the end, tiles staged with ``cp.async``, ``p`` kept in
+  registers;
+- ``simt`` (``csrc/flash_attention_fwd.cu``), fp32 or bf16: 64 x 64 tiles
+  on the CUDA cores, the first design, reached only by name through
+  :func:`_fwd_launch` (to time it against the others).
 
 Every route computes attention over pre-scaled queries with
 
@@ -57,9 +63,10 @@ raises on what the kernel does not take; for CPU tensors it runs the plain
 version (:func:`flash_attention_reference`,
 :func:`flash_attention_backward_reference`), which repeats the kernel's
 arithmetic. There is no fallback from a CUDA tensor to a plain version.
-A route whose kernel refuses an input (a head dim it does not instantiate,
-a base not 16-byte aligned for the split, wgmma and tf32x3 routes, a failed
-launch) raises; a CUDA tensor never drops to another route.
+A route whose kernel refuses an input (a type or row count it does not
+take, a head dim it does not instantiate, a base not 16-byte aligned for the
+split, wgmma and tf32x3 routes, a failed launch) raises; a CUDA tensor never
+drops to another route.
 Launches are counted on ``flash_attention.launches`` (K1's calls, with
 ``flash_attention.route_launches`` per route, and
 ``flash_attention.kernel_launches`` the device kernels they launch: two per
@@ -79,12 +86,12 @@ import torch
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: K1's designs, by :func:`_fwd_route`
-ROUTES = ("split", "wgmma", "simt")
+#: K1's designs (:func:`_fwd_route` picks one of the first three)
+ROUTES = ("split", "wgmma", "tf32x3", "simt")
 #: the most query rows the split route takes
 SPLIT_MAX_ROWS = 16
 #: device kernels one call of each route launches
-ROUTE_KERNELS = {"split": 2, "wgmma": 1, "simt": 1}
+ROUTE_KERNELS = {"split": 2, "wgmma": 1, "tf32x3": 1, "simt": 1}
 #: K2's and K3's designs (:func:`_bwd_route` picks ``wgmma`` or ``tf32x3``)
 BWD_ROUTES = ("wgmma", "tf32x3", "simt")
 _FWD = {}
@@ -225,18 +232,19 @@ def flash_attention_backward_reference(
 
 def _fwd_route(i: int, dtype: torch.dtype) -> str:
     """K1's design for a query of ``i`` rows in ``dtype``: ``split`` for
-    decode attends (``i <= 16``), else ``wgmma`` for bf16 and ``simt`` for
+    decode attends (``i <= 16``), else ``wgmma`` for bf16 and ``tf32x3`` for
     fp32. The choice depends on nothing else (not the batch), so a row's
     result does not either."""
     if i <= SPLIT_MAX_ROWS:
         return "split"
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 #: per route: (library source, C entry, pointer args, int args)
 _FWD_ENTRIES = {
     "simt": ("flash_attention_fwd", "flash_attention_fwd", 6, 7),
     "wgmma": ("flash_attention_fwd_wgmma", "flash_attention_fwd_wgmma", 6, 6),
+    "tf32x3": ("flash_attention_fwd_tf32", "flash_attention_fwd_tf32x3", 6, 6),
     "split": ("flash_attention_fwd_split", "flash_attention_fwd_split", 8, 8),
 }
 
@@ -272,8 +280,8 @@ _BWD_ENTRIES = {
     "wgmma": ("flash_attention_bwd_wgmma", "_wgmma"),
     "tf32x3": ("flash_attention_bwd_tf32", "_tf32x3"),
 }
-#: the type each tensor-core route takes
-_BWD_DTYPE = {"wgmma": torch.bfloat16, "tf32x3": torch.float32}
+#: the type each tensor-core route takes (K1's and K2/K3's alike)
+_ROUTE_DTYPE = {"wgmma": torch.bfloat16, "tf32x3": torch.float32}
 
 
 def _bwd_kernels(route: str):
@@ -370,18 +378,19 @@ def flash_attention_fwd(
 def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``route``'s K1 kernel on checked CUDA tensors (uncounted): the
     wrapper's launcher, also used to time one route against another on the
-    same inputs. Raises on what the route's kernel does not take."""
-    fn, supports, split = _fwd_kernel(route)
+    same inputs. Raises on what the route's kernel does not take, before its
+    library loads where the check needs no kernel."""
     b, h, i, d = q.shape
     j = k.shape[2]
-    if not supports(d):
-        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel (64, 112, 128)")
-    if route == "wgmma" and q.dtype != torch.bfloat16:
-        raise TypeError(f"the wgmma route takes bfloat16, got {q.dtype}")
+    if route in _ROUTE_DTYPE and q.dtype != _ROUTE_DTYPE[route]:
+        raise TypeError(f"the {route} route takes {_ROUTE_DTYPE[route]}, got {q.dtype}")
     if route == "split" and i > SPLIT_MAX_ROWS:
         raise ValueError(f"the split route takes at most {SPLIT_MAX_ROWS} query rows, got {i}")
     if route != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"the {route} route needs q, k and v on 16-byte aligned bases")
+    fn, supports, split = _fwd_kernel(route)
+    if not supports(d):
+        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel (64, 112, 128)")
     pad = _pad_bytes(pad_mask)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, i), dtype=torch.float32, device=q.device)
@@ -390,7 +399,7 @@ def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, to
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), o.data_ptr(), lse.data_ptr())
         if route == "simt":
             err = fn(*ptrs, b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream)
-        elif route == "wgmma":
+        elif route in _ROUTE_DTYPE:
             err = fn(*ptrs, b, h, i, j, d, int(causal), stream)
         else:
             n_splits = -(-j // split)
@@ -418,9 +427,9 @@ def _bwd_launch(route: str, q, k, v, lse, delta, do, pad_mask, causal, which: in
     (``which`` 1, ``(dk, dv)``) on checked CUDA tensors (uncounted): the
     wrappers' launcher, also used to time one route against another on the
     same inputs. Raises on what the route's kernel does not take."""
-    if route in _BWD_DTYPE:
-        if q.dtype != _BWD_DTYPE[route]:
-            raise TypeError(f"the {route} route takes {_BWD_DTYPE[route]}, got {q.dtype}")
+    if route in _ROUTE_DTYPE:
+        if q.dtype != _ROUTE_DTYPE[route]:
+            raise TypeError(f"the {route} route takes {_ROUTE_DTYPE[route]}, got {q.dtype}")
         if any(t.data_ptr() % 16 for t in (q, k, v, do, *outputs)):
             raise ValueError(f"the {route} route needs q, k, v, do and the outputs on 16-byte aligned bases")
     dq_fn, dkv_fn, supports = _bwd_kernels(route)

@@ -22,8 +22,9 @@ compute type: tokens/s, the device's busy share (kernel device time of the
 profiled pass over the timed pass's wall time, one stream), the shares and
 launches of the flash attention kernels (K1; K2 and K3 when training) and
 the ragged paged-attention kernel (K4), K1's device time and launches by
-route (split, wgmma, simt) and its device kernel launches (a split-route
-call launches two: partials and merge), K2's and K3's device time and
+route (split, wgmma, tf32x3, and simt, which no traffic takes) and its
+device kernel launches (a split-route call launches two: partials and
+merge), K2's and K3's device time and
 launches by route (wgmma, tf32x3, simt) when training, and the top kernels by
 device time.
 The full profiler tables go to
@@ -98,9 +99,11 @@ def _breakdown(torch, prof, table_path: Path):
 
 def _k1_routes(ms_of) -> dict:
     """K1's device ms by route (kernel names: ``flash_fwd_kernel`` simt,
-    ``flash_fwd_wgmma_kernel``, ``flash_fwd_split_kernel`` and its merge)."""
+    ``flash_fwd_wgmma_kernel``, ``flash_fwd_tf32x3_kernel``,
+    ``flash_fwd_split_kernel`` and its merge; no pattern is part of another
+    route's name)."""
     return {"simt": ms_of("flash_fwd_kernel"), "wgmma": ms_of("flash_fwd_wgmma_"),
-            "split": ms_of("flash_fwd_split_")}
+            "tf32x3": ms_of("flash_fwd_tf32x3_"), "split": ms_of("flash_fwd_split_")}
 
 
 def _bwd_routes(ms_of, kernel: str) -> dict:

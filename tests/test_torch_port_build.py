@@ -67,9 +67,11 @@ def test_build_command_compiles_and_links(csrc, monkeypatch):
 def test_package_sources_and_headers():
     sources = _build.sources()
     for name in ("flash_attention_fwd", "flash_attention_fwd_wgmma", "flash_attention_fwd_split",
-                 "flash_attention_bwd", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32",
-                 "ragged_paged_attention"):
+                 "flash_attention_fwd_tf32", "flash_attention_bwd", "flash_attention_bwd_wgmma",
+                 "flash_attention_bwd_tf32", "ragged_paged_attention"):
         assert name in sources
-    assert (_build.CSRC / "sm90.cuh").exists()
-    for name in ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma"):
-        assert '#include "sm90.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+    for header, users in (("sm90.cuh", ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")),
+                          ("tf32x3.cuh", ("flash_attention_fwd_tf32", "flash_attention_bwd_tf32"))):
+        assert (_build.CSRC / header).exists()
+        for name in users:
+            assert f'#include "{header}"' in (_build.CSRC / f"{name}.cu").read_text()

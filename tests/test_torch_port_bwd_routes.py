@@ -7,13 +7,10 @@ as three TF32 products on ``mma.sync``) for fp32; ``simt`` (the CUDA-core
 kernels) is reached only by name. CPU tensors take the plain version and
 launch no route.
 
-The ``tf32x3`` route's arithmetic is emulated here in plain torch: every
-operand of the five products split into ``hi``, ``x`` rounded to TF32's 10
-mantissa bits to nearest with ties away from zero (``cvt.rna.tf32.f32``'s
-rounding for finite values below the rounding overflow, which the kernels
-compute with two integer operations), and
-``lo = x - hi``, which the tensor cores read truncated to TF32; each
-product taken as ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi``. That emulation is
+The ``tf32x3`` route's arithmetic is emulated here in plain torch
+(``tests/_torch_port_tf32.py``): every operand of the five products split
+into TF32 ``hi`` and ``lo`` parts, each product taken as
+``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi``. That emulation is
 held against ``jax.grad`` of the JAX ``flash_attention`` in fp32 (the
 Pallas kernels in interpret mode) on two cases with pads, at 1e-4 of each
 gradient's largest entry, the card's fp32 gate. Measured on the CPU, the largest difference is
@@ -45,6 +42,7 @@ import torch
 
 from perceiver_io_tpu.ops import flash_attention as jax_flash
 from perceiver_io_tpu_torch.ops import flash_attention as flash
+from tests._torch_port_tf32 import mm3, tf32
 
 BF16_REL_TOL = 2.0**-6
 
@@ -133,41 +131,22 @@ def test_plain_bf16_backward_matches_pallas(rng, i, j, causal):
         assert err <= BF16_REL_TOL * np.abs(want).max(), f"{name}: {err} of {np.abs(want).max()}"
 
 
-def _tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
-    """fp32 cut to TF32's 10 mantissa bits: rounded to nearest with ties
-    away from zero (``cvt.rna.tf32.f32`` for finite values below the rounding
-    overflow: add half of the 13 dropped bits to the magnitude, then clear
-    them), or truncated (as the tensor cores read an fp32 operand)."""
-    bits = x.contiguous().view(torch.int32)
-    return (((bits + 0x1000) if rounded else bits) & ~0x1FFF).view(torch.float32)
-
-
-def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` as the ``tf32x3`` kernels take it: both operands split into
-    TF32 ``hi`` and ``lo`` parts, the two small cross products and the big
-    one summed (each exact in float64 here), ``lo . lo`` dropped."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32(a - a_hi, rounded=False), _tf32(b - b_hi, rounded=False)
-    terms = (a_lo.double() @ b_hi.double(), a_hi.double() @ b_lo.double(), a_hi.double() @ b_hi.double())
-    return sum(terms).float()
-
-
 def _tf32x3_backward(q, k, v, o, lse, do, pad, causal):
     """K2 and K3 with every product in 3xTF32 (the ``tf32x3`` kernels'
     arithmetic; masks by select, fp32 elsewhere)."""
     allowed = flash._allowed(q, k.shape[2], pad, causal)
-    s = _mm3(q, k.transpose(-1, -2))
+    s = mm3(q, k.transpose(-1, -2))
     p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
-    dp = _mm3(do, v.transpose(-1, -2))
+    dp = mm3(do, v.transpose(-1, -2))
     ds = torch.where(allowed, p * (dp - flash.attention_delta(o, do)[..., None]), 0.0)
-    return _mm3(ds, k), _mm3(ds.transpose(-1, -2), q), _mm3(p.transpose(-1, -2), do)
+    return mm3(ds, k), mm3(ds.transpose(-1, -2), q), mm3(p.transpose(-1, -2), do)
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():
     ulp = 2.0**-10
     x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2**-23, 1 + 3 * ulp / 2, 3.0])
-    assert _tf32(x).tolist() == [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0]
-    assert _tf32(x, rounded=False).tolist() == [1.0, -1.0, 1.0, 1 + ulp, 3.0]
+    assert tf32(x).tolist() == [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0]
+    assert tf32(x, rounded=False).tolist() == [1.0, -1.0, 1.0, 1 + ulp, 3.0]
 
 
 @pytest.mark.parametrize("i,j,causal", [(256, 640, True), (128, 384, True)])

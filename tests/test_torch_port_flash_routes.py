@@ -1,9 +1,11 @@
-"""K1's three routes behind one wrapper, on the CPU.
+"""K1's routes behind one wrapper, on the CPU.
 
 ``flash_attention_fwd`` picks the forward kernel's design by the query
 length and type alone (``_fwd_route``): ``split`` for decode attends (at
-most 16 query rows), ``wgmma`` for bf16 tiles, ``simt`` (the 64 x 64 CUDA-core
-kernel) for fp32 tiles. Every route computes the function of
+most 16 query rows), ``wgmma`` for bf16 tiles, ``tf32x3`` (3xTF32 on
+``mma.sync``; its arithmetic is emulated in ``test_torch_port_fwd_tf32.py``)
+for fp32 tiles; ``simt`` (the 64 x 64 CUDA-core kernel) is reached only by
+name. Every route computes the function of
 ``flash_attention_reference``. The split route's arithmetic, partials per
 split of keys and a merge, is written out in ``flash_attention_split_reference``
 and held here against ``flash_attention_reference`` and the JAX package on
@@ -52,8 +54,8 @@ def _live(i, j, pad, causal):
 @pytest.mark.parametrize("i,dtype,route", [
     (1, torch.float32, "split"), (1, torch.bfloat16, "split"),
     (16, torch.float32, "split"), (16, torch.bfloat16, "split"),
-    (17, torch.float32, "simt"), (17, torch.bfloat16, "wgmma"),
-    (512, torch.float32, "simt"), (512, torch.bfloat16, "wgmma"),
+    (17, torch.float32, "tf32x3"), (17, torch.bfloat16, "wgmma"),
+    (512, torch.float32, "tf32x3"), (512, torch.bfloat16, "wgmma"),
 ])
 def test_fwd_route_table(i, dtype, route):
     assert flash._fwd_route(i, dtype) == route

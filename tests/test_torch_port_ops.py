@@ -182,7 +182,7 @@ def test_dispatch_rejects_unported_modes(rng):
     (1, 1024, 112, True, [1023, 700, 300, 40]),   # decode: split
     (1, 1024, 112, True, [0, 64, 200, 1024]),     # a dead row and empty splits: split
     (16, 700, 64, True, [700, 600, 20, 0]),       # the split route's largest query
-    (100, 612, 112, True, [612, 580, 300, 101]),  # ragged tiles: wgmma in bf16, simt in fp32
+    (100, 612, 112, True, [612, 580, 300, 101]),  # ragged tiles: wgmma in bf16, tf32x3 in fp32
     (512, 1024, 128, True, [1024, 924, 424, 124]),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, i, j, d, causal, pads):
