@@ -44,16 +44,28 @@ non-zero and never prints the final line):
    per-request ``generate()``; K1 must run its split and tf32x3 routes and
    never simt;
 6. k4: the ragged paged-attention kernel (K4) against its plain PyTorch
-   version at clm-base's shapes (8 heads, head dim 112, block size 16; and
-   at head dims 64 and 128, timed over fewer iterations), a decode case (8
-   rows, q_len 1, lengths 0..1023, tail pages unmapped, trash in the null
-   block) and a window case (8 rows, q_len 512, lengths
-   520..1024), each in fp32, bf16 and int8 with scales (bf16 held at 4e-3,
-   the others at 1e-4); idle rows must be exactly 0. With its time, the
-   plain version's, the gather reference plus
-   ``scaled_dot_product_attention`` (``gather_sdpa_ms``, a yardstick the port
-   never calls) and the card's bound. No single PyTorch call reads a block
-   table, so ``library_ms`` is null;
+   version at clm-base's shapes (8 heads, head dim 112, block size 16, 64
+   pages a row): a decode case (8 rows, q_len 1, lengths 0..1023, tail
+   pages unmapped, trash in the null block), the same rows at q_len 7 (two
+   shorter than 7, their first queries dead), a window case (8 rows, q_len
+   512, lengths 520..1024), ragged query tiles (8 rows, q_len 100, one row
+   idle and one of 40 keys, whose first 60 queries see nothing) and the
+   slot engine's window step (4 rows, q_len 512, lengths 520..1024, one
+   idle); the decode and window cases again at head dims 64 and 128, timed
+   over fewer iterations. Each in fp32, bf16 and int8 with scales, through
+   the route the wrapper picks (``split`` for decode rows, ``tc`` for
+   window rows; a wrong route fails), held at 4e-3 in bf16 and 1e-4
+   otherwise, idle rows and dead queries exactly 0, every output finite.
+   The first CUDA-core kernel (simt) runs on the same inputs, is held to
+   the same gates and is timed beside it (``prev_ms``). With the plain
+   version's time, the gather reference plus
+   ``scaled_dot_product_attention`` (``gather_sdpa_ms``, a yardstick the
+   port never calls) and the card's bound (window cases: fp32 and int8 at a
+   third of the TF32 tensor-core rate, bf16 at the bf16 rate, and
+   ``bound_simt_ms`` at the CUDA cores' rate). No single PyTorch call reads
+   a block table, so ``library_ms`` is null. Then the split and tc routes
+   must each refuse a query and a pool on a base off a 16-byte boundary
+   (``ValueError``, no launch counted);
 7. slot serve: ``SlotServingEngine`` over the full-width model (fp32), 4
    slots, 12 requests with 496 latents, prompts of 500..960 tokens and
    ``max_new_tokens`` cycling 16/32/48, once per KV layout (dense, paged,
@@ -61,7 +73,8 @@ non-zero and never prints the final line):
    boundary phase at different steps. Dense and paged tokens must equal
    per-request ``generate()`` (a divergence is excused only at a near-tie:
    the reference's top-2 logit gap at the first divergent token < 1e-4); K4
-   must run under the paged layouts and not under dense, K1's fp32 tiles on
+   must run under the paged layouts, its decode rows on ``split`` and its
+   window rows on ``tc``, never on simt, and not under dense, K1's fp32 tiles on
    ``tf32x3`` and never on ``simt``; the pool must end empty and leak-free. The int8 run's agreement with the paged run is
    printed, not gated;
 8. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
@@ -113,9 +126,11 @@ non-zero and never prints the final line):
    (e) a gradient request to K4 raises;
 10. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
-   entry for each of K2's and K3's routes that the main path runs, K4;
-   K1's ``launches`` count its wrapper's calls and its ``kernel_launches``
-   the device kernels, two per split-route call), the card's
+   entry for each of K2's and K3's routes that the main path runs, K4 with
+   its split and tc routes nested and the simt kernel's times as their
+   ``prev_ms``; K1's and K4's ``launches`` count their wrappers' calls and
+   their ``kernel_launches`` the device kernels, two per split-route
+   call), the card's
    ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -684,17 +699,36 @@ def serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets):
     return launches, routes, kernel_launches
 
 
+# K4's cases: (name, q_len, lengths), block size 16, 64 pages a row
+K4_CASES = (
+    ("decode", 1, [1023, 700, 300, 40, 1, 0, 512, 17]),          # tail pages unmapped; row 5 idle
+    ("decode7", 7, [1023, 700, 300, 5, 1, 0, 512, 17]),          # 7 queries a row (split takes <= 16):
+                                                                  # rows 3 and 4 shorter (8 dead queries)
+    ("window", 512, [520, 600, 680, 760, 840, 920, 1000, 1024]),
+    ("ragged", 100, [100, 250, 612, 40, 0, 333, 1000, 164]),      # ragged query tiles; row 3 shorter
+                                                                  # than q_len (queries 0..59 dead), row 4 idle
+    ("slot", 512, [1024, 777, 520, 0]),                           # the slot engine's window step: 4 slots
+)
+# the kernels' other head dims: the decode and window cases
+K4_OTHER_CASES = ("decode", "window")
+
+
+def k4_expected_route(q_len: int) -> str:
+    return "split" if q_len <= 16 else "tc"
+
+
 def k4_cases(torch, ragged, paged):
-    """K4 against its plain version at clm-base's shapes (module docstring)."""
+    """K4 against its plain version at clm-base's shapes (module docstring),
+    through the route the wrapper picks, beside the first (simt) kernel on
+    the same inputs (``prev_ms``), itself held to the same gates."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     h, bs, pages = 8, 16, 64
+    shapes = [(*c, K1_HEAD_DIM) for c in K4_CASES] + [
+        (*c, d) for d in K1_OTHER_HEAD_DIMS for c in K4_CASES if c[0] in K4_OTHER_CASES]
     cases = []
-    for (name, q_len, lengths), d in itertools.product((
-        ("decode", 1, [1023, 700, 300, 40, 1, 0, 512, 17]),
-        ("window", 512, [520, 600, 680, 760, 840, 920, 1000, 1024]),
-    ), (K1_HEAD_DIM, *K1_OTHER_HEAD_DIMS)):
+    for name, q_len, lengths, d in shapes:
         main_dim = d == K1_HEAD_DIM
         b = len(lengths)
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
@@ -712,9 +746,11 @@ def k4_cases(torch, ragged, paged):
         pos = torch.arange(pages * bs, device="cuda")
         qi = torch.arange(q_len, device="cuda")[:, None]
         visible = (pos[None, :] + (q_len - 1) - qi)[None] < lens.long()[:, None, None]  # (b, q, n)
+        live = visible.any(-1)[:, None, :, None]  # (b, 1, q, 1): queries that see a key
         pairs = int(visible.sum().item()) * h
-        live = sum(min(max(length, 0), pages * bs) for length in lengths)  # keys K4 must read
+        n_live = sum(min(max(length, 0), pages * bs) for length in lengths)  # keys K4 must read
         flat = paged.flat_position_indices(table, bs, pages * bs)
+        expected = k4_expected_route(q_len)
         for layout in ("float32", "bfloat16", "int8"):
             dtype = torch.bfloat16 if layout == "bfloat16" else torch.float32
             q = (torch.randn(b, h, q_len, d, generator=gen, device="cuda") * d**-0.5).to(dtype)
@@ -731,6 +767,9 @@ def k4_cases(torch, ragged, paged):
                 return ragged.ragged_paged_attention(q, pool_k, pool_v, table, lens, block_size=bs,
                                                      scale_k=scale_k, scale_v=scale_v)
 
+            def prev(pool_k, pool_v, scale_k=None, scale_v=None):
+                return ragged._k4_launch("simt", q, pool_k, pool_v, table, lens, bs, scale_k, scale_v)
+
             def plain(pool_k, pool_v, scale_k=None, scale_v=None):
                 return ragged.ragged_paged_attention_reference(
                     q, pool_k, pool_v, table, lens, block_size=bs, scale_k=scale_k, scale_v=scale_v)
@@ -740,39 +779,96 @@ def k4_cases(torch, ragged, paged):
                 v = paged.gather_kv(pool_v, flat, scale_v, dtype)
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=visible[:, None], scale=1.0)
 
-            o, ref = kernel(*pool), plain(*pool)
+            before = dict(ragged.ragged_paged_attention.route_launches)
+            o = kernel(*pool)
+            route = next(r for r, n in ragged.ragged_paged_attention.route_launches.items() if n != before[r])
+            o_prev, ref = prev(*pool), plain(*pool)
             torch.cuda.synchronize()
-            err = (o.float() - ref.float()).abs().max().item()
-            idle_zero = bool((o[lens <= 0] == 0).all().item())
             tol = K4_TOL[layout]
-            if not (err <= tol and idle_zero and bool(torch.isfinite(o).all().item())):
-                raise AssertionError(f"K4 {name} d={d} {layout}: max|d| {err} (tol {tol}), "
-                                     f"idle rows zero {idle_zero}")
+            checks = {}
+            for who, out in (("kernel", o), ("prev", o_prev)):
+                checks[who] = dict(
+                    err=(out.float() - ref.float()).abs().max().item(),
+                    dead_zero=bool((out[~live.expand_as(out)] == 0).all().item()),
+                    finite=bool(torch.isfinite(out).all().item()))
+            del o_prev
+            for who, c in checks.items():
+                if not (c["err"] <= tol and c["dead_zero"] and c["finite"]):
+                    raise AssertionError(f"K4 {who} {name} d={d} {layout} ({route}): max|d| {c['err']} "
+                                         f"(tol {tol}), idle rows and dead queries zero {c['dead_zero']}, "
+                                         f"finite {c['finite']}")
+            if route != expected:
+                raise AssertionError(f"K4 {name} d={d} {layout}: route {route}, expected {expected}")
             iters = (200 if q_len == 1 else 50) if main_dim else (50 if q_len == 1 else 15)
             cold_kernel, copies = l2_cold(kernel, *pool)
             ms = device_ms(cold_kernel, iters)
+            prev_ms = device_ms(l2_cold(prev, *pool)[0], iters)
             plain_ms = device_ms(l2_cold(plain, *pool)[0], 10 if main_dim else 3)
             gather_sdpa_ms = device_ms(l2_cold(gather_sdpa, *pool)[0], iters)
             del cold_kernel
             int8 = len(pool) == 4
-            nbytes = (2 * q.numel() * q.element_size() + 2 * live * h * d * pool[0].element_size()
-                      + (2 * live * h * 4 if int8 else 0) + table.numel() * 4 + lens.numel() * 4)
+            nbytes = (2 * q.numel() * q.element_size() + 2 * n_live * h * d * pool[0].element_size()
+                      + (2 * n_live * h * 4 if int8 else 0) + table.numel() * 4 + lens.numel() * 4)
             flops = 4 * d * pairs  # q.k and p.v over the (query, key) pairs this data makes visible
             tname = str(dtype).split(".")[-1]  # the products run in q's type
             bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
             case = dict(
-                case=name, layout=layout, b=b, h=h, q_len=q_len, d=d, block_size=bs,
-                lengths=lengths, max_abs_err=err, tol=tol, idle_rows_zero=idle_zero,
-                ms=ms, plain_ms=plain_ms, gather_sdpa_ms=gather_sdpa_ms, library_ms=None,
+                case=name, layout=layout, route=route, b=b, h=h, q_len=q_len, d=d, block_size=bs,
+                lengths=lengths, max_abs_err=checks["kernel"]["err"], tol=tol,
+                idle_rows_dead_queries_zero=checks["kernel"]["dead_zero"],
+                dead_queries=int((~live).sum().item()),
+                ms=ms, prev_ms=prev_ms, prev_route="simt", prev_max_abs_err=checks["prev"]["err"],
+                plain_ms=plain_ms, gather_sdpa_ms=gather_sdpa_ms, library_ms=None,
                 input_copies=copies, iters=iters,
                 library_note="no single PyTorch call reads a block table",
-                bound_ms=max(bytes_s, ops_s) * 1e3,
-                bound_by="bytes" if bytes_s >= ops_s else "operations",
-                bytes=nbytes, flops=flops,
             )
+            if route == "tc":
+                # the tensor cores' fp32-accurate rate: a third of TF32's for
+                # fp32 and int8 pools, bf16's for bf16; the CUDA cores' bound
+                # stays beside it so rows compare with the simt kernel's
+                case.update(bound_simt_ms=max(bytes_s, ops_s) * 1e3,
+                            bound_simt_by="bytes" if bytes_s >= ops_s else "operations")
+                ops_s = flops / PEAK_FLOPS["bfloat16"] if layout == "bfloat16" else 3 * flops / TF32_FLOPS
+            case.update(bound_ms=max(bytes_s, ops_s) * 1e3,
+                        bound_by="bytes" if bytes_s >= ops_s else "operations",
+                        bytes=nbytes, flops=flops)
             emit("k4", **case)
             cases.append(case)
     return cases
+
+
+def k4_refusals(torch, ragged) -> None:
+    """K4's split and tc routes refuse a query, and a pool, on a base off a
+    16-byte boundary: the wrapper raises ``ValueError`` and counts no
+    launch."""
+    d, bs = K1_HEAD_DIM, 16
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([20], dtype=torch.int32, device="cuda")
+    seen = {}
+
+    def counts():
+        return ragged.ragged_paged_attention.launches, dict(ragged.ragged_paged_attention.route_launches)
+
+    for route, q_len, dtype in (("split", 1, torch.float32), ("tc", 64, torch.bfloat16)):
+        q = torch.randn(1, 8, q_len, d, device="cuda").to(dtype)
+        pool = torch.randn(3 * bs, 8, d, device="cuda").to(dtype)
+        # contiguous, one element (2 or 4 bytes) off the allocation's base
+        off_q = torch.randn(q.numel() + 1, device="cuda").to(dtype)[1:].view_as(q)
+        off_pool = torch.randn(pool.numel() + 1, device="cuda").to(dtype)[1:].view_as(pool)
+        for what, args in (("q", (off_q, pool, pool)), ("pool", (q, off_pool, off_pool))):
+            before = counts()
+            message = None
+            try:
+                ragged.ragged_paged_attention(*args, table, lengths, block_size=bs)
+            except ValueError as e:
+                message = str(e)
+            seen[f"{route} {what}"] = dict(picked=ragged._k4_route(q_len, dtype), message=message,
+                                           counted=counts() != before)
+    emit("k4_refusal", routes=seen)
+    for key, r in seen.items():
+        if (r["picked"] != key.split()[0] or r["message"] is None or "16-byte" not in r["message"]
+                or r["counted"]):
+            raise AssertionError(f"K4 {key} did not refuse a misaligned base: {r}")
 
 
 def slot_serve_workload(torch, gen_mod, vocab_size: int):
@@ -811,7 +907,7 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
     for layout in ("dense", "paged", "paged_int8"):
         engine = slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout=layout)
         reset_counts(flash)  # count this path's launches only
-        ragged.ragged_paged_attention.launches = 0
+        reset_k4_counts(ragged)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reqs = [engine.submit(p, c) for p, c in zip(prompts, configs)]
@@ -819,8 +915,10 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         k1, k4 = flash.flash_attention.launches, ragged.ragged_paged_attention.launches
+        k4_routes = dict(ragged.ragged_paged_attention.route_launches)
         launches[layout] = {"k1": k1, "k4": k4, "k1_routes": dict(flash.flash_attention.route_launches),
-                            "k1_kernels": flash.flash_attention.kernel_launches}
+                            "k1_kernels": flash.flash_attention.kernel_launches, "k4_routes": k4_routes,
+                            "k4_kernels": ragged.ragged_paged_attention.kernel_launches}
         stats = engine.stats()
         rows = [r.result for r in reqs]
         served[layout] = rows
@@ -833,7 +931,8 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             k1_launches=k1, k4_launches=k4, k1_launches_per_token=k1 / tokens,
             k1_route_launches=launches[layout]["k1_routes"],
             k1_kernel_launches=launches[layout]["k1_kernels"],
-            k4_launches_per_token=k4 / tokens, pool_in_use=pool.get("in_use"),
+            k4_launches_per_token=k4 / tokens, k4_route_launches=k4_routes,
+            k4_kernel_launches=launches[layout]["k4_kernels"], pool_in_use=pool.get("in_use"),
             pool_leaked=pool.get("leaked"), pool_high_water=pool.get("high_water"),
             k4_steps=pool.get("ragged_kernel_steps"),
             compute_dtype="float32",
@@ -843,6 +942,9 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             failures.append(f"completed {stats['completed']} of {len(prompts)}")
         if (k4 > 0) != (layout != "dense"):
             failures.append(f"K4 launches {k4} under {layout}")
+        if layout != "dense" and (k4_routes["simt"] or not k4_routes["split"] or not k4_routes["tc"]):
+            failures.append(f"K4 routes {k4_routes}: decode rows should take split, window rows tc, "
+                            "never simt")
         k1_routes = launches[layout]["k1_routes"]
         if k1_routes["tf32x3"] == 0 or k1_routes["simt"] != 0:
             failures.append(f"K1 routes {k1_routes}: fp32 tiles should take tf32x3, never simt")
@@ -901,6 +1003,12 @@ def reset_counts(flash) -> None:
     for wrapper in (flash.flash_attention_bwd_dq, flash.flash_attention_bwd_dkv):
         wrapper.launches = 0
         wrapper.route_launches = dict.fromkeys(flash.BWD_ROUTES, 0)
+
+
+def reset_k4_counts(ragged) -> None:
+    ragged.ragged_paged_attention.launches = 0
+    ragged.ragged_paged_attention.route_launches = dict.fromkeys(ragged.ROUTES, 0)
+    ragged.ragged_paged_attention.kernel_launches = 0
 
 
 def read_counts(flash) -> dict:
@@ -1218,6 +1326,36 @@ def k1_route_entry(flash, design: str, main: tuple, cases: list, launches: int) 
     }
 
 
+K4_SOURCES = {"split": "perceiver_io_tpu_torch/csrc/ragged_paged_attention_split.cu",
+              "tc": "perceiver_io_tpu_torch/csrc/ragged_paged_attention_tc.cu"}
+K4_REPLACES = "perceiver_io_tpu/ops/ragged_attention.py:156"
+
+
+def k4_route_entry(ragged, design: str, main: tuple, cases: list, launches: int) -> dict:
+    """The summary line's entry for one of K4's routes: its main case's
+    numbers (fp32, d = 112) and every case that took it. ``launches``
+    counts the route's calls in the paged slot-serve run;
+    ``kernel_launches`` the device kernels they launched."""
+    mine = [c for c in cases if c["route"] == design]
+    head = next(c for c in mine if (c["case"], c["layout"], c["d"]) == (*main, K1_HEAD_DIM))
+    keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by", "gather_sdpa_ms")
+    if design == "tc":
+        keys += ("bound_simt_ms", "bound_simt_by")
+    return {
+        "name": f"ragged_paged_attention[{design}]", "route": "cuda", "design": design,
+        "source": K4_SOURCES[design], "replaces": K4_REPLACES, "launches": launches,
+        "kernel_launches": launches * ragged.ROUTE_KERNELS[design],
+        "launches_from": "the paged slot-serve run (fp32)",
+        "max_abs_err": max(c["max_abs_err"] for c in mine if c["layout"] != "bfloat16"),
+        "max_abs_err_bf16": max(c["max_abs_err"] for c in mine if c["layout"] == "bfloat16"),
+        "case": f"{main[0]} {main[1]} d={K1_HEAD_DIM}", **{k: head[k] for k in keys},
+        "library_ms": None, "prev_route": "simt",
+        "cases": [{"case": c["case"], "layout": c["layout"], "d": c["d"],
+                   **{k: c[k] for k in keys if not k.endswith("_by")}, "max_abs_err": c["max_abs_err"]}
+                  for c in mine],
+    }
+
+
 K23_SOURCES = {"wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_wgmma.cu",
                "tf32x3": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_tf32.cu"}
 #: per K23 kernel: (wrapper name, TPU function, counter key, gradients)
@@ -1318,6 +1456,7 @@ def main() -> int:
     model_phase(torch, clm, flash, gen_mod)
     launches, serve_routes, serve_kernels = serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets)
     k4 = k4_cases(torch, ragged, paged)
+    k4_refusals(torch, ragged)
     slot_launches = slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
     k23 = k23_cases(torch, flash)
     train_root = ROOT / "build" / "chip_smoke_train"
@@ -1329,6 +1468,7 @@ def main() -> int:
     route_launches = {"split": serve_routes["split"], "tf32x3": serve_routes["tf32x3"],
                       "wgmma": fits["bfloat16"]["k1_route_launches"]["wgmma"]}
     k4_case = next(c for c in k4 if (c["case"], c["layout"], c["d"]) == ("decode", "float32", K1_HEAD_DIM))
+    k4_paged = slot_launches["paged"]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1354,18 +1494,23 @@ def main() -> int:
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
-        "source": "perceiver_io_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "perceiver_io_tpu/ops/ragged_attention.py:156",
-        "launches": slot_launches["paged"]["k4"],
+        "source": K4_SOURCES["split"],
+        "replaces": K4_REPLACES,
+        "launches": k4_paged["k4"],
+        "kernel_launches": k4_paged["k4_kernels"],
         "max_abs_err": max(c["max_abs_err"] for c in k4 if c["layout"] != "bfloat16"),
         "ms": k4_case["ms"],
+        "prev_ms": k4_case["prev_ms"],
+        "prev_route": "simt",
         "plain_ms": k4_case["plain_ms"],
         "bound_ms": k4_case["bound_ms"],
         "bound_by": k4_case["bound_by"],
         "library_ms": None,
         "gather_sdpa_ms": k4_case["gather_sdpa_ms"],
-        "shape": "decode b=8 h=8 q_len=1 d=112 fp32, block 16, lengths 0..1023; "
+        "shape": "decode b=8 h=8 q_len=1 d=112 fp32 (route split), block 16, lengths 0..1023; "
                  "launches: the paged slot-serve run",
+        "routes": [k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design])
+                   for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
     }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec16.cuh"  // unpack, store
+
 namespace {
 
 constexpr int SPLIT = 64;    // keys per split
@@ -37,24 +39,6 @@ constexpr int MAX_ROWS = 16;  // query rows this route takes
 constexpr int THREADS = 128;
 constexpr float MASK = -0.7f * 3.4028234663852886e38f;
 
-// The 4 fp32 or 8 bf16 values of a 16-byte load, as fp32 (a bf16 is the
-// high half of the fp32 with the same value).
-__device__ __forceinline__ void unpack(const uint4& raw, float (&out)[4]) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void unpack(const uint4& raw, float (&out)[8]) {
-  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(words[i] << 16);
-    out[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ float round_like(float x, float) { return x; }
 __device__ __forceinline__ float round_like(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(x));

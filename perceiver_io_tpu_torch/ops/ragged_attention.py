@@ -1,10 +1,10 @@
-"""Ragged paged attention (K4): the CUDA kernel's wrapper and its plain
+"""Ragged paged attention (K4): the CUDA kernels' wrapper and its plain
 PyTorch version.
 
 Counterpart of the Pallas TPU kernel in
 ``perceiver_io_tpu/ops/ragged_attention.py`` (``_make_kernel`` + ``_launch``,
-public ``ragged_paged_attention``). One kernel serves both row shapes of the
-paged slot engine: decode rows (``q_len = 1``) and boundary/window rows
+public ``ragged_paged_attention``). It serves both row shapes of the paged
+slot engine: decode rows (``q_len = 1``) and boundary/window rows
 (``q_len = max_latents``). It reads the flat token-major pool through a
 block table and per-row lengths, and computes an online softmax over each
 row's live span ``[0, lengths[r])`` under the Perceiver AR right-aligned
@@ -18,12 +18,31 @@ causal bound: query ``qi`` of a ``q_len``-query row sits at position
   dequantized on the page (``int8 * scale`` in fp32); a zero scale reads 0;
 - no scale on q (it arrives pre-scaled) and no output projection.
 
-:func:`ragged_paged_attention` launches the kernel
-(``csrc/ragged_paged_attention.cu``) for CUDA tensors and raises on what the
-kernel does not take; for CPU tensors it runs
+K4 has two Hopper ``sm_90a`` designs behind one wrapper, picked by
+:func:`_k4_route` from the query length alone, and a third reached only by
+name:
+
+- ``split`` (``csrc/ragged_paged_attention_split.cu``), at most 16 queries a
+  row (decode rows): each row's keys cut into 64-key splits (four 16-token
+  pages), one block per (split, head, row) reading its pages with 16-byte
+  loads and writing fp32 partials, and a merge launch;
+- ``tc`` (``csrc/ragged_paged_attention_tc.cu``), more queries (window
+  rows): both products on the tensor cores as TF32 ``mma.sync`` products,
+  fp32-accurate (3xTF32 for fp32 pools; bf16 and int8 values are exact in
+  TF32, so they need fewer), one block of 8 warps per 64-query tile, the
+  pages gathered with ``cp.async`` two tiles deep;
+- ``simt`` (``csrc/ragged_paged_attention.cu``), the first design on the
+  CUDA cores, reached only by name through :func:`_k4_launch` (to time it
+  against the others).
+
+:func:`ragged_paged_attention` launches a route for CUDA tensors and raises
+on what the route does not take; for CPU tensors it runs
 :func:`ragged_paged_attention_reference`. There is no fallback from a CUDA
-tensor to the plain version. ``ragged_paged_attention.launches`` counts the
-kernel's launches.
+tensor to the plain version or to another route.
+``ragged_paged_attention.launches`` counts the calls that launch K4,
+``ragged_paged_attention.route_launches`` splits them by route and
+``ragged_paged_attention.kernel_launches`` counts the device kernels (two per
+split-route call: partials and merge).
 """
 from __future__ import annotations
 
@@ -36,7 +55,19 @@ import torch
 NEG = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_FN = None
+#: K4's designs (:func:`_k4_route` picks one of the first two)
+ROUTES = ("split", "tc", "simt")
+#: the most queries a row the split route takes
+SPLIT_MAX_ROWS = 16
+#: device kernels one call of each route launches
+ROUTE_KERNELS = {"split": 2, "tc": 1, "simt": 1}
+#: per route: (library source, C entry, pointer args, int args)
+_ENTRIES = {
+    "simt": ("ragged_paged_attention", "ragged_paged_attention", 8, 8),
+    "split": ("ragged_paged_attention_split", "ragged_paged_attention_split", 10, 9),
+    "tc": ("ragged_paged_attention_tc", "ragged_paged_attention_tc", 8, 8),
+}
+_LIBS = {}
 
 
 def ragged_paged_attention_reference(
@@ -72,19 +103,33 @@ def ragged_paged_attention_reference(
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
+def _kernel(route: str):
+    """A route's C entry and head-dim query (and, for ``split``, its split
+    size), loaded (and built) on first use."""
+    if route not in _LIBS:
         from perceiver_io_tpu_torch import _build
 
-        lib = _build.load("ragged_paged_attention")
-        fn = lib.ragged_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        source, entry, n_ptr, n_int = _ENTRIES[route]
+        lib = _build.load(source)
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.ragged_paged_attention_supports_head_dim.argtypes = [ctypes.c_int]
-        lib.ragged_paged_attention_supports_head_dim.restype = ctypes.c_int
-        _FN = (fn, lib.ragged_paged_attention_supports_head_dim)
-    return _FN
+        supports = getattr(lib, f"{entry}_supports_head_dim")
+        supports.argtypes = [ctypes.c_int]
+        supports.restype = ctypes.c_int
+        split = lib.ragged_paged_attention_split_size() if route == "split" else None
+        _LIBS[route] = (fn, supports, split)
+    return _LIBS[route]
+
+
+def _k4_route(q_len: int, dtype: torch.dtype) -> str:
+    """K4's design for rows of ``q_len`` queries of ``dtype``: ``split`` for
+    decode rows (``q_len <= 16``), else ``tc``; both take fp32 and bf16. The
+    choice depends on nothing else (not the batch, not the lengths), so a
+    row's result does not either."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"K4 takes float32 or bfloat16 queries, got {dtype}")
+    return "split" if q_len <= SPLIT_MAX_ROWS else "tc"
 
 
 def _check(q, pool_k, pool_v, table, lengths, block_size, scale_k, scale_v) -> None:
@@ -105,19 +150,23 @@ def _check(q, pool_k, pool_v, table, lengths, block_size, scale_k, scale_v) -> N
         raise TypeError("table and lengths must be integer tensors")
     if q_len < 1:
         raise ValueError("empty query")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if (scale_k is None) != (scale_v is None):
         raise ValueError("scale_k and scale_v come together")
-    if scale_k is None:
-        if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
-            raise TypeError(f"exact pools must have q's type {q.dtype}, got {pool_k.dtype}/{pool_v.dtype}")
-    else:
-        if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8:
-            raise TypeError(f"scaled pools must be int8, got {pool_k.dtype}/{pool_v.dtype}")
+    _check_types(q, pool_k, pool_v, scale_k)
+    if scale_k is not None:
         for s in (scale_k, scale_v):
             if tuple(s.shape) != (tokens, h, 1) or s.dtype != torch.float32:
                 raise ValueError(f"scales must be float32 ({tokens}, {h}, 1), got {s.dtype} {tuple(s.shape)}")
+
+
+def _check_types(q, pool_k, pool_v, scale_k) -> None:
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if scale_k is None:
+        if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+            raise TypeError(f"exact pools must have q's type {q.dtype}, got {pool_k.dtype}/{pool_v.dtype}")
+    elif pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8:
+        raise TypeError(f"scaled pools must be int8, got {pool_k.dtype}/{pool_v.dtype}")
 
 
 def ragged_paged_attention(
@@ -125,8 +174,9 @@ def ragged_paged_attention(
     lengths: torch.Tensor, *, block_size: int, scale_k: Optional[torch.Tensor] = None,
     scale_v: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Ragged paged attention over the flat pool: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.
+    """Ragged paged attention over the flat pool: the kernel of the route
+    :func:`_k4_route` picks for CUDA tensors, the plain version for CPU
+    tensors.
 
     :param q: ``(b, h, q_len, d)`` pre-scaled, pre-rotated queries, fp32 or bf16.
     :param pool_k: ``(pool_tokens, h, d)`` pool of q's type, or int8 with scales.
@@ -156,26 +206,53 @@ def ragged_paged_attention(
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, the pools, the scales, table and lengths must be contiguous")
-    fn, supports = _kernel()
+    route = _k4_route(q.shape[2], q.dtype)
+    o = _k4_launch(route, q, pool_k, pool_v, table, lengths, block_size, scale_k, scale_v)
+    ragged_paged_attention.launches += 1
+    ragged_paged_attention.route_launches[route] += 1
+    ragged_paged_attention.kernel_launches += ROUTE_KERNELS[route]
+    return o
+
+
+def _k4_launch(route: str, q, pool_k, pool_v, table, lengths, block_size: int, scale_k=None,
+               scale_v=None) -> torch.Tensor:
+    """Launch ``route``'s K4 kernel on checked, contiguous CUDA tensors
+    (uncounted): the wrapper's launcher, also used to time one route against
+    another on the same inputs. Raises on what the route's kernel does not
+    take (a type, a row length, a base off a 16-byte boundary) before its
+    library loads, and on a head dim it does not instantiate."""
     b, h, q_len, d = q.shape
+    _check_types(q, pool_k, pool_v, scale_k)
+    if route == "split" and q_len > SPLIT_MAX_ROWS:
+        raise ValueError(f"the split route takes at most {SPLIT_MAX_ROWS} queries a row, got {q_len}")
+    if route != "simt" and any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
+        raise ValueError(f"the {route} route needs q and the pools on 16-byte aligned bases")
+    fn, supports, split = _kernel(route)
     if not supports(d):
-        raise ValueError(f"head dim {d} is not instantiated by the kernel (64, 112, 128)")
+        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel (64, 112, 128)")
     table32 = table.to(torch.int32)
     lengths32 = lengths.to(torch.int32)
+    pages = table.shape[1]
     o = torch.empty_like(q)
     quantized = scale_k is not None
+    scales = (scale_k.data_ptr(), scale_v.data_ptr()) if quantized else (None, None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            scale_k.data_ptr() if quantized else None, scale_v.data_ptr() if quantized else None,
-            table32.data_ptr(), lengths32.data_ptr(), o.data_ptr(),
-            b, h, q_len, d, table.shape[1], block_size, _DTYPES[q.dtype], int(quantized), stream,
-        )
+        ptrs = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
+                table32.data_ptr(), lengths32.data_ptr(), o.data_ptr())
+        if route == "split":
+            n_splits = -(-pages * block_size // split)
+            part_ml = torch.empty((b, h, n_splits, q_len, 2), dtype=torch.float32, device=q.device)
+            part_acc = torch.empty((b, h, n_splits, q_len, d), dtype=torch.float32, device=q.device)
+            err = fn(*ptrs, part_ml.data_ptr(), part_acc.data_ptr(), b, h, q_len, d, pages, block_size,
+                     n_splits, _DTYPES[q.dtype], int(quantized), stream)
+        else:
+            err = fn(*ptrs, b, h, q_len, d, pages, block_size, _DTYPES[q.dtype], int(quantized), stream)
     if err != 0:
-        raise RuntimeError(f"ragged_paged_attention kernel launch failed: cudaError_t {err}")
-    ragged_paged_attention.launches += 1
+        raise RuntimeError(f"ragged_paged_attention ({route}) kernel launch failed: cudaError_t {err}")
     return o
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.route_launches = dict.fromkeys(ROUTES, 0)
+ragged_paged_attention.kernel_launches = 0

@@ -24,9 +24,10 @@ launches of the flash attention kernels (K1; K2 and K3 when training) and
 the ragged paged-attention kernel (K4), K1's device time and launches by
 route (split, wgmma, tf32x3, and simt, which no traffic takes) and its
 device kernel launches (a split-route call launches two: partials and
-merge), K2's and K3's device time and
-launches by route (wgmma, tf32x3, simt) when training, and the top kernels by
-device time.
+merge), K4's device time, launches and device kernel launches by route
+(split, tc, and simt, which no traffic takes; a split-route call launches
+two), K2's and K3's device time and launches by route (wgmma, tf32x3,
+simt) when training, and the top kernels by device time.
 The full profiler tables go to
 ``chiprun_out/profile_serve_<engine>[_<layout>]_<dtype>.txt``.
 """
@@ -104,6 +105,14 @@ def _k1_routes(ms_of) -> dict:
     route's name)."""
     return {"simt": ms_of("flash_fwd_kernel"), "wgmma": ms_of("flash_fwd_wgmma_"),
             "tf32x3": ms_of("flash_fwd_tf32x3_"), "split": ms_of("flash_fwd_split_")}
+
+
+def _k4_routes(ms_of) -> dict:
+    """K4's device ms by route (kernel names: ``ragged_decode_kernel`` and
+    ``ragged_window_kernel`` simt, ``ragged_split_kernel`` and its merge,
+    ``ragged_tc_kernel``)."""
+    return {"simt": ms_of("ragged_decode_kernel") + ms_of("ragged_window_kernel"),
+            "split": ms_of("ragged_split_"), "tc": ms_of("ragged_tc_")}
 
 
 def _bwd_routes(ms_of, kernel: str) -> dict:
@@ -242,7 +251,7 @@ def main() -> int:
 
         serve_all()  # warm-up
         chip_smoke.reset_counts(flash)
-        ragged.ragged_paged_attention.launches = 0
+        chip_smoke.reset_k4_counts(ragged)
         t0 = time.perf_counter()
         engine = serve_all()
         wall_s = time.perf_counter() - t0
@@ -250,6 +259,8 @@ def main() -> int:
         k1_routes = dict(flash.flash_attention.route_launches)
         k1_kernels = flash.flash_attention.kernel_launches
         k4_launches = ragged.ragged_paged_attention.launches
+        k4_routes = dict(ragged.ragged_paged_attention.route_launches)
+        k4_kernels = ragged.ragged_paged_attention.kernel_launches
         stats = engine.stats()
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
@@ -271,6 +282,7 @@ def main() -> int:
             "k1_launches": k1_launches,
             "k1_kernel_launches": k1_kernels,
             "k4_launches": k4_launches,
+            "k4_kernel_launches": k4_kernels,
             "profiled_wall_ms": prof_wall_s * 1e3,
             "device_kernel_ms": device_ms if measured else "not measured",
             # the profiled pass does the timed pass's work; the profiler slows
@@ -283,6 +295,8 @@ def main() -> int:
             "k1_route_launches": k1_routes,
             "k4_device_ms": k4_ms if measured else "not measured",
             "k4_share_of_device": k4_ms / device_ms if device_ms else "not measured",
+            "k4_route_device_ms": _k4_routes(ms_of) if measured else "not measured",
+            "k4_route_launches": k4_routes,
             "top_kernels": [
                 {"name": e.key[:90], "ms": _device_us(e) / 1e3, "calls": e.count}
                 for e in kernels[:8]

@@ -1,11 +1,13 @@
 """3xTF32 arithmetic in plain torch, for the tests of the port's ``tf32x3``
 kernels (K1 in ``csrc/flash_attention_fwd_tf32.cu``, K2/K3 in
-``csrc/flash_attention_bwd_tf32.cu``): every operand of a product split into
+``csrc/flash_attention_bwd_tf32.cu``, K4's ``tc`` route in
+``csrc/ragged_paged_attention_tc.cu``): every operand of a product split into
 ``hi``, ``x`` rounded to TF32's 10 mantissa bits to nearest with ties away
 from zero (``cvt.rna.tf32.f32``'s rounding for finite values below the
 rounding overflow, which the kernels compute with two integer operations),
 and ``lo = x - hi``, which the tensor cores read truncated to TF32; each
-product taken as ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi``."""
+product taken as ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi`` (``mm3``), or, where
+``b``'s values are exact in TF32, as ``a_lo.b + a_hi.b`` (``mm2``)."""
 import torch
 
 
@@ -26,3 +28,12 @@ def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_lo, b_lo = tf32(a - a_hi, rounded=False), tf32(b - b_hi, rounded=False)
     terms = (a_lo.double() @ b_hi.double(), a_hi.double() @ b_lo.double(), a_hi.double() @ b_hi.double())
     return sum(terms).float()
+
+
+def mm2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with ``b``'s values exact in TF32 (bf16 or int8 values), as
+    K4's ``tc`` route takes it for those pools: only ``a`` is split,
+    ``a_lo.b + a_hi.b`` (each exact in float64 here)."""
+    a_hi = tf32(a)
+    a_lo = tf32(a - a_hi, rounded=False)
+    return (a_lo.double() @ b.double() + a_hi.double() @ b.double()).float()

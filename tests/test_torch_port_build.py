@@ -68,10 +68,14 @@ def test_package_sources_and_headers():
     sources = _build.sources()
     for name in ("flash_attention_fwd", "flash_attention_fwd_wgmma", "flash_attention_fwd_split",
                  "flash_attention_fwd_tf32", "flash_attention_bwd", "flash_attention_bwd_wgmma",
-                 "flash_attention_bwd_tf32", "ragged_paged_attention"):
+                 "flash_attention_bwd_tf32", "ragged_paged_attention", "ragged_paged_attention_split",
+                 "ragged_paged_attention_tc"):
         assert name in sources
     for header, users in (("sm90.cuh", ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")),
-                          ("tf32x3.cuh", ("flash_attention_fwd_tf32", "flash_attention_bwd_tf32"))):
+                          ("tf32x3.cuh", ("flash_attention_fwd_tf32", "flash_attention_bwd_tf32",
+                                          "ragged_paged_attention_tc")),
+                          ("vec16.cuh", ("flash_attention_fwd_split", "ragged_paged_attention_split",
+                                         "ragged_paged_attention_tc"))):
         assert (_build.CSRC / header).exists()
         for name in users:
             assert f'#include "{header}"' in (_build.CSRC / f"{name}.cu").read_text()
