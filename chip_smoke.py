@@ -49,9 +49,12 @@ non-zero and never prints the final line):
    pages unmapped, trash in the null block), the same rows at q_len 7 (two
    shorter than 7, their first queries dead), a window case (8 rows, q_len
    512, lengths 520..1024), ragged query tiles (8 rows, q_len 100, one row
-   idle and one of 40 keys, whose first 60 queries see nothing) and the
+   idle and one of 40 keys, whose first 60 queries see nothing), the
    slot engine's window step (4 rows, q_len 512, lengths 520..1024, one
-   idle); the decode and window cases again at head dims 64 and 128, timed
+   idle), a shared finalize's attend (4 rows, q_len 512, lengths
+   520..1000, tables aliasing the same 24 leading pages; the bound counts
+   those pages once) and one finalize as the slot engine calls it (1 row,
+   q_len 512, length 1000); the decode and window cases again at head dims 64 and 128, timed
    over fewer iterations. Each in fp32, bf16 and int8 with scales, through
    the route the wrapper picks (``split`` for decode rows, ``tc`` for
    window rows; a wrong route fails), held at 4e-3 in bf16 and 1e-4
@@ -77,7 +80,28 @@ non-zero and never prints the final line):
    window rows on ``tc``, never on simt, and not under dense, K1's fp32 tiles on
    ``tf32x3`` and never on ``simt``; the pool must end empty and leak-free. The int8 run's agreement with the paged run is
    printed, not gated;
-8. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
+8. slot prefix: ``SlotServingEngine`` over the same model with chunked
+   prefill (``prefill_chunk=128``), 4 slots, 12 requests with 496 latents:
+   one shared 384-token system prompt (24 pages of 16) then each request's
+   own suffix, to the slot-serve phase's prompt lengths (longest first,
+   ``max_new_tokens`` cycling 16/32/48), once per KV layout: dense
+   (chunking only), paged and paged_int8 (with ``prefix_cache="on"``). The
+   first admission misses and is chunked through the staging caches (K1
+   finalize); the later ones hit (full 24-page hits, and partial-block
+   copy-on-write hits where a request's own prefix region ends inside the
+   system prompt) and finalize through K4 ``tc`` over the pool. Gates: every
+   request completes, chunks ran, dense and paged tokens equal per-request
+   ``generate()`` (the near-tie excuse as in phase 7), under the paged
+   layouts prefix hits >= 1 and hits + misses = 12, K4's ``tc`` launches
+   exceed the boundary steps by at least the hits, K1 and K4 never on simt,
+   and the pool leak-free with ``in_use`` equal to the prefix index's cached
+   blocks, 0 after its flush. Printed: TTFT and admission-to-first-token p50
+   of hits and of misses, hit ratio, shared tokens, COW copies, ``tc``
+   launches per shared finalize, the int8 run's agreement with the paged
+   run and with an int8 run without sharing, and, from a second run of each
+   layout without ``prefill_chunk``, the residents' largest inter-token ms
+   during the 960-token admission with and without chunking;
+9. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
    against their plain versions at the training path's shapes (b = 4, 8
    heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
    512 latents, and j = 1024, with left pads that leave dead rows; the
@@ -99,7 +123,7 @@ non-zero and never prints the final line):
    ``simt`` kernels' outputs are held to 1e-4 of each output's largest plain
    entry in both types (``prev_rel_err``), with the same zeros and finite
    values, before they are timed;
-9. train, over the full-width CLM:
+10. train, over the full-width CLM:
    (a) one loss + backward with the kernels against ``attention_impl="xla"``
        (batch 4 x 1024, left pads inside the prefix, one prefix-dropout
        seed). fp32: loss within 1e-5 relative, every parameter's gradient
@@ -124,14 +148,14 @@ non-zero and never prints the final line):
        ``attention_impl="flash"`` (the plain forward and backward, same
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
-10. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
+11. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4 with
    its split and tc routes nested and the simt kernel's times as their
    ``prev_ms``; K1's and K4's ``launches`` count their wrappers' calls and
-   their ``kernel_launches`` the device kernels, two per split-route
-   call), the card's
-   ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
+   their ``kernel_launches`` the device kernels, two per split-route call;
+   K4's ``slot_prefix_launches`` the paged slot-prefix run's calls), the
+   card's ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` set False).
@@ -708,7 +732,14 @@ K4_CASES = (
     ("ragged", 100, [100, 250, 612, 40, 0, 333, 1000, 164]),      # ragged query tiles; row 3 shorter
                                                                   # than q_len (queries 0..59 dead), row 4 idle
     ("slot", 512, [1024, 777, 520, 0]),                           # the slot engine's window step: 4 slots
+    ("shared", 512, [520, 680, 840, 1000]),                       # a shared finalize's query rows (the
+                                                                  # 512-slot latent segment), tables
+                                                                  # aliasing 24 leading pages
+    ("finalize", 512, [1000]),                                    # one shared finalize as the engine
+                                                                  # calls it: b = 1, 64 blocks
 )
+# cases whose rows all map the same leading pages (a shared prompt prefix)
+K4_SHARED_PAGES = {"shared": 24}
 # the kernels' other head dims: the decode and window cases
 K4_OTHER_CASES = ("decode", "window")
 
@@ -732,14 +763,16 @@ def k4_cases(torch, ragged, paged):
         main_dim = d == K1_HEAD_DIM
         b = len(lengths)
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        used = [-(-length // bs) for length in lengths]
-        blocks = (torch.randperm(sum(used), generator=gen, device="cuda") + 1).int()
+        shared = K4_SHARED_PAGES.get(name, 0)
+        used = [-(-length // bs) - shared for length in lengths]  # each row's own pages
+        blocks = (torch.randperm(shared + sum(used), generator=gen, device="cuda") + 1).int()
         table = torch.zeros(b, pages, dtype=torch.int32, device="cuda")  # tail pages: null block
-        start = 0
+        table[:, :shared] = blocks[:shared]
+        start = shared
         for r, u in enumerate(used):
-            table[r, :u] = blocks[start:start + u]
+            table[r, shared:shared + u] = blocks[start:start + u]
             start += u
-        tokens = (sum(used) + 1) * bs
+        tokens = (shared + sum(used) + 1) * bs
         pk = torch.randn(tokens, h, d, generator=gen, device="cuda")
         pv = torch.randn(tokens, h, d, generator=gen, device="cuda")
         pk[:bs], pv[:bs] = 1e3, -1e3  # trash in the null block
@@ -748,7 +781,8 @@ def k4_cases(torch, ragged, paged):
         visible = (pos[None, :] + (q_len - 1) - qi)[None] < lens.long()[:, None, None]  # (b, q, n)
         live = visible.any(-1)[:, None, :, None]  # (b, 1, q, 1): queries that see a key
         pairs = int(visible.sum().item()) * h
-        n_live = sum(min(max(length, 0), pages * bs) for length in lengths)  # keys K4 must read
+        # keys K4 must read, each live pool row once (shared pages count once)
+        n_live = sum(min(max(length, 0), pages * bs) for length in lengths) - (b - 1) * shared * bs
         flat = paged.flat_position_indices(table, bs, pages * bs)
         expected = k4_expected_route(q_len)
         for layout in ("float32", "bfloat16", "int8"):
@@ -814,7 +848,7 @@ def k4_cases(torch, ragged, paged):
             bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
             case = dict(
                 case=name, layout=layout, route=route, b=b, h=h, q_len=q_len, d=d, block_size=bs,
-                lengths=lengths, max_abs_err=checks["kernel"]["err"], tol=tol,
+                lengths=lengths, shared_pages=shared, max_abs_err=checks["kernel"]["err"], tol=tol,
                 idle_rows_dead_queries_zero=checks["kernel"]["dead_zero"],
                 dead_queries=int((~live).sum().item()),
                 ms=ms, prev_ms=prev_ms, prev_route="simt", prev_max_abs_err=checks["prev"]["err"],
@@ -972,6 +1006,183 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
         del engine
         torch.cuda.empty_cache()
     return launches
+
+
+# the slot-prefix phase: one shared system prompt of 24 pages of 16 tokens,
+# then each request's own suffix, to the slot-serve phase's prompt lengths;
+# long prompts first, so the first (900) misses and is chunked and the ones
+# queued behind the chunk lane hit once it publishes, and 960 is admitted
+# while three residents decode
+SLOT_PREFIX_SYSTEM = 384
+SLOT_PREFIX_LENS = (900, 880, 850, 800, 960, 780, 720, 700, 640, 600, 530, 500)
+SLOT_PREFIX_CHUNK = 128
+SLOT_PREFIX_WATCH = 960
+
+
+def slot_prefix_workload(torch, gen_mod, vocab_size: int):
+    """The slot-prefix phase's 12 requests: ``(config, prompts, max_new)``."""
+    import numpy as np
+
+    rng = torch.Generator().manual_seed(12)
+    system = torch.randint(1, vocab_size, (SLOT_PREFIX_SYSTEM,), generator=rng).numpy()
+    prompts = [np.concatenate([system, torch.randint(1, vocab_size, (n - SLOT_PREFIX_SYSTEM,),
+                                                     generator=rng).numpy()])
+               for n in SLOT_PREFIX_LENS]
+    news = [(16, 32, 48)[i % 3] for i in range(len(prompts))]
+    return gen_mod.GenerationConfig(num_latents=496), prompts, news
+
+
+def drive_slots(engine, watch):
+    """Step ``engine`` until idle. Returns ``(ttft_ms, admit_ms, gaps_ms)``:
+    each request's time to first token and from its admission's start to
+    its first token, by request id, and the residents' inter-token times in
+    the steps that ran ``watch``'s admission."""
+    ttft, admit, gaps = {}, {}, []
+    itl = engine.samples["inter_token_ms"]
+    while engine.pending():
+        admitting = engine._admitting is not None and engine._admitting.req is watch
+        queued = watch.started_at is None
+        seen = len(itl)
+        engine.step()
+        if admitting or (queued and watch.started_at is not None):
+            gaps.extend(itl[seen:])
+        for entry in engine._slots:  # max_new >= 16: no request retires at its first token
+            if entry is not None and entry.emitted and entry.req.request_id not in ttft:
+                ttft[entry.req.request_id] = (entry.last_token_at - entry.req.submitted_at) * 1e3
+                admit[entry.req.request_id] = (entry.last_token_at - entry.req.started_at) * 1e3
+    return ttft, admit, gaps
+
+
+def _p50(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else None
+
+
+def slot_prefix_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
+    """Chunked prefill and prefix sharing in the slot engine (module
+    docstring, phase 8). Returns the paged run's K4 launches."""
+    import dataclasses
+
+    cfg = clm_base_config(clm.CausalLanguageModelConfig)
+    model = clm.CausalLanguageModel(cfg, dtype=torch.float32, seed=0).eval()
+    gcfg, prompts, news = slot_prefix_workload(torch, gen_mod, cfg.vocab_size)
+    configs = [dataclasses.replace(gcfg, max_new_tokens=k) for k in news]
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+    refs = [gen_mod.generate(model, p[None], c)[0].cpu().numpy() for p, c in zip(prompts, configs)]
+    watch = SLOT_PREFIX_LENS.index(SLOT_PREFIX_WATCH)
+    tokens = sum(news)
+    served, out = {}, {}
+    for layout in ("dense", "paged", "paged_int8"):
+        prefix_cache = None if layout == "dense" else "on"
+        line, failures = {"layout": layout, "prefix_cache": prefix_cache or "off"}, []
+        runs = [("chunked", SLOT_PREFIX_CHUNK, prefix_cache), ("unchunked", None, prefix_cache)]
+        if layout == "paged_int8":  # int8's own rounding, apart from sharing's: the requests unshared
+            runs.append(("unshared", SLOT_PREFIX_CHUNK, None))
+        for key, chunk, cache in runs:
+            engine = slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout=layout,
+                                                 prefill_chunk=chunk, prefix_cache=cache)
+            hits, map_shared = set(), engine._map_shared_prefix
+
+            def note_hit(req, slot, plan, hits=hits, map_shared=map_shared):
+                hits.add(req.request_id)
+                return map_shared(req, slot, plan)
+
+            engine._map_shared_prefix = note_hit
+            reset_counts(flash)
+            reset_k4_counts(ragged)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reqs = [engine.submit(p, c) for p, c in zip(prompts, configs)]
+            ttft, admit, gaps = drive_slots(engine, reqs[watch])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            stats = engine.stats()
+            if stats["completed"] != len(prompts):
+                failures.append(f"{key}: completed {stats['completed']} of {len(prompts)}")
+            if key == "unshared":
+                same = sum(int((r.result == b).sum()) for r, b in zip(reqs, served[layout]))
+                line["token_agreement_shared_vs_unshared"] = same / tokens
+                del engine
+                continue
+            line[f"{key}_resident_itl_ms_max_during_{SLOT_PREFIX_WATCH}_admission"] = max(gaps, default=None)
+            line[f"{key}_residents_during_{SLOT_PREFIX_WATCH}_admission"] = bool(gaps)
+            if key == "unchunked":
+                line["unchunked_tokens_per_s"] = tokens / wall_s
+                del engine
+                continue
+            k1, k4 = flash.flash_attention.launches, ragged.ragged_paged_attention.launches
+            k1_routes = dict(flash.flash_attention.route_launches)
+            k4_routes = dict(ragged.ragged_paged_attention.route_launches)
+            rows = [r.result for r in reqs]
+            served[layout] = rows
+            pool, prefix = stats.get("kv_pool", {}), stats.get("prefix_cache", {})
+            line.update(
+                requests=stats["completed"], tokens=tokens, wall_s=wall_s, tokens_per_s=tokens / wall_s,
+                ttft_ms_p50=stats["ttft_ms"]["p50"],
+                ttft_ms_p50_hits=_p50([ms for i, ms in ttft.items() if i in hits]),
+                ttft_ms_p50_misses=_p50([ms for i, ms in ttft.items() if i not in hits]),
+                admit_to_first_token_ms_p50_hits=_p50([ms for i, ms in admit.items() if i in hits]),
+                admit_to_first_token_ms_p50_misses=_p50([ms for i, ms in admit.items() if i not in hits]),
+                decode_steps=stats["decode_steps"], boundary_steps=stats["boundary_steps"],
+                prefills=stats["prefills"], prefill_chunks=stats["prefill_chunks"],
+                prefill_chunk_ms_p50=stats["prefill_chunk_ms"]["p50"],
+                k1_launches=k1, k1_route_launches=k1_routes, k4_launches=k4, k4_route_launches=k4_routes,
+                k4_kernel_launches=ragged.ragged_paged_attention.kernel_launches,
+                compute_dtype="float32",
+            )
+            if stats["prefill_chunks"] <= 0:
+                failures.append("no prefill chunk ran")
+            if (k4 > 0) != (layout != "dense"):
+                failures.append(f"K4 launches {k4} under {layout}")
+            if k1_routes["simt"] or k4_routes["simt"] or not k1_routes["tf32x3"]:
+                failures.append(f"K1 routes {k1_routes}, K4 routes {k4_routes}: fp32 tiles should take "
+                                "tf32x3, never simt")
+            if layout != "dense":
+                n_hits, misses = prefix["hits"], prefix["misses"]
+                tc_shared = k4_routes["tc"] - stats["boundary_steps"]
+                line.update(
+                    hits=n_hits, misses=misses, hit_ratio=prefix["hit_ratio"],
+                    shared_tokens=prefix["shared_tokens"], shared_blocks=prefix["shared_blocks"],
+                    cow_copies=prefix["cow_copies"], published=prefix["published"],
+                    evicted=prefix["evicted"], cached_blocks=prefix["cached_blocks"],
+                    k4_tc_per_shared_finalize=tc_shared / max(1, n_hits),
+                    pool_in_use=pool["in_use"], pool_leaked=pool["leaked"],
+                    pool_high_water=pool["high_water"],
+                )
+                if n_hits < 1 or n_hits + misses != len(prompts) or len(hits) != n_hits:
+                    failures.append(f"prefix hits {n_hits} ({len(hits)} seen), misses {misses}")
+                if tc_shared < n_hits:
+                    failures.append(f"K4 tc launches {k4_routes['tc']} less boundary steps "
+                                    f"{stats['boundary_steps']} < hits {n_hits}")
+                if pool["leaked"] or pool["in_use"] != prefix["cached_blocks"]:
+                    failures.append(f"pool in_use {pool['in_use']}, leaked {pool['leaked']}, cached "
+                                    f"{prefix['cached_blocks']}")
+                engine._prefix_index.flush(engine._pool)
+                line["pool_in_use_after_flush"] = engine._pool.in_use
+                if engine._pool.in_use or engine._pool.leaked():
+                    failures.append(f"pool in_use {engine._pool.in_use} after the index's flush")
+            if layout == "paged_int8":
+                same = sum(int((a == b).sum()) for a, b in zip(rows, served["paged"]))
+                line["token_agreement_with_paged"] = same / tokens
+            else:
+                divergences = []
+                for i, (row, ref) in enumerate(zip(rows, refs)):
+                    diff = [t for t in range(len(ref)) if row[t] != ref[t]]
+                    if diff:
+                        t = diff[0]
+                        gap = _top2_gap(torch, gen_mod, model, configs[i], prompts[i], ref, t)
+                        divergences.append({"request": i, "token": t, "top2_gap": gap})
+                        if gap >= NEAR_TIE:
+                            failures.append(f"request {i} diverges at token {t}, top-2 gap {gap}")
+                line["divergences_vs_generate"] = divergences
+            out[layout] = {"k4": k4, "k4_routes": k4_routes,
+                           "k4_kernels": ragged.ragged_paged_attention.kernel_launches}
+            del engine
+        emit("slot_prefix", **line)
+        if failures:
+            raise AssertionError(f"slot prefix {layout}: " + "; ".join(failures))
+        torch.cuda.empty_cache()
+    return out
 
 
 def token_batches(vocab_size: int, seq_len: int, rows: int, n: int, seed: int, pads=None,
@@ -1331,11 +1542,13 @@ K4_SOURCES = {"split": "perceiver_io_tpu_torch/csrc/ragged_paged_attention_split
 K4_REPLACES = "perceiver_io_tpu/ops/ragged_attention.py:156"
 
 
-def k4_route_entry(ragged, design: str, main: tuple, cases: list, launches: int) -> dict:
+def k4_route_entry(ragged, design: str, main: tuple, cases: list, launches: int,
+                   prefix_launches: int) -> dict:
     """The summary line's entry for one of K4's routes: its main case's
     numbers (fp32, d = 112) and every case that took it. ``launches``
-    counts the route's calls in the paged slot-serve run;
-    ``kernel_launches`` the device kernels they launched."""
+    counts the route's calls in the paged slot-serve run and
+    ``slot_prefix_launches`` in the paged slot-prefix run (chunked, prefix
+    sharing on); ``kernel_launches`` the device kernels of the first."""
     mine = [c for c in cases if c["route"] == design]
     head = next(c for c in mine if (c["case"], c["layout"], c["d"]) == (*main, K1_HEAD_DIM))
     keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by", "gather_sdpa_ms")
@@ -1345,6 +1558,7 @@ def k4_route_entry(ragged, design: str, main: tuple, cases: list, launches: int)
         "name": f"ragged_paged_attention[{design}]", "route": "cuda", "design": design,
         "source": K4_SOURCES[design], "replaces": K4_REPLACES, "launches": launches,
         "kernel_launches": launches * ragged.ROUTE_KERNELS[design],
+        "slot_prefix_launches": prefix_launches,
         "launches_from": "the paged slot-serve run (fp32)",
         "max_abs_err": max(c["max_abs_err"] for c in mine if c["layout"] != "bfloat16"),
         "max_abs_err_bf16": max(c["max_abs_err"] for c in mine if c["layout"] == "bfloat16"),
@@ -1458,6 +1672,7 @@ def main() -> int:
     k4 = k4_cases(torch, ragged, paged)
     k4_refusals(torch, ragged)
     slot_launches = slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
+    prefix_launches = slot_prefix_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
     k23 = k23_cases(torch, flash)
     train_root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_root, ignore_errors=True)
@@ -1509,7 +1724,10 @@ def main() -> int:
         "gather_sdpa_ms": k4_case["gather_sdpa_ms"],
         "shape": "decode b=8 h=8 q_len=1 d=112 fp32 (route split), block 16, lengths 0..1023; "
                  "launches: the paged slot-serve run",
-        "routes": [k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design])
+        "slot_prefix_launches": prefix_launches["paged"]["k4"],
+        "slot_prefix_kernel_launches": prefix_launches["paged"]["k4_kernels"],
+        "routes": [k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design],
+                                  prefix_launches["paged"]["k4_routes"][design])
                    for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
     }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23)]}), flush=True)
     print(smi, flush=True)

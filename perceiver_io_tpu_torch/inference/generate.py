@@ -28,7 +28,10 @@ that sit at different steps: :func:`_slot_decode_step` takes per-row
 :func:`_decode_step_boundary_paged` run the two cached steps over the
 block-paged KV pool. Where JAX computes two steps on every row and selects
 per row, the port's in-place steps take ``write_ok`` and write only the rows
-each step owns.
+each step owns. It admits long prompts in pieces: :func:`_prefill_chunk_kv`
+projects a chunk of prefix positions, and :func:`_prefill_finalize` (staged
+dense caches) or :func:`_prefill_finalize_paged` (the pool, where shared
+prefix pages already sit) completes the row.
 
 Beam search, sampling and the executor cache are not ported yet.
 """
@@ -151,9 +154,7 @@ def _decode_prefill(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: int):
 
     :return: ``(logits, cache, length (b,), m)``.
     """
-    ar = mdl.perceiver_ar
     b, n = window.shape
-    num_latents = mdl.max_latents
     dev = window.device
     x, k, v, frq = _window_cross(mdl, window, pad_count, m)
 
@@ -164,13 +165,136 @@ def _decode_prefill(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: int):
     cross_v = torch.gather(v, 2, idx.expand(b, v.shape[1], n, v.shape[3]))
     length = n - pad_count
 
+    logits, stack_k, stack_v = _capture_stack(mdl, x, frq[:, -mdl.max_latents:], m)
+    cache = {"cross_k": cross_k, "cross_v": cross_v, "stack_k": stack_k, "stack_v": stack_v}
+    return logits, cache, length, m
+
+
+def _capture_stack(mdl, x: torch.Tensor, frq_lat: torch.Tensor, m: int):
+    """The self-attention stack over the latent segment ``x`` (after the
+    cross layer), capturing per-layer caches over the ``m`` real latents,
+    left-aligned by latent age; then the head.
+
+    :return: ``(logits, stack_k, stack_v)``.
+    """
+    b, num_latents = x.shape[:2]
+    dev = x.device
     seg_idx = (num_latents - m + torch.arange(num_latents, device=dev)).clamp(0, num_latents - 1)
     x, stack_k, stack_v = _latent_stack_capture(
-        ar, x, _stack_pad(b, num_latents, m, dev),
-        RotaryEmbedding(frq[:, -num_latents:], right_align=True), seg_idx,
+        mdl.perceiver_ar, x, _stack_pad(b, num_latents, m, dev),
+        RotaryEmbedding(frq_lat, right_align=True), seg_idx,
     )
+    return mdl.head(x[:, -1]), stack_k, stack_v
+
+
+def _prefill_chunk_kv(mdl, tokens: torch.Tensor, offset: int):
+    """Cross k/v (``kv_norm``-side) of ``C`` consecutive **prefix** token
+    positions ``offset .. offset + C - 1``: the unit of chunked prefill.
+
+    The prefill's cross cache is per-position math (embedding at the token's
+    absolute index, ``kv_norm``, projection with rotary at angle ``p``), so a
+    chunk computes the values the one-shot :func:`_decode_prefill` leaves at
+    those positions, and the slot engine can split a long admission into
+    pieces interleaved with the residents' decode steps.
+
+    :param tokens: ``(b, C)`` token ids.
+    :return: ``(k, v)``, each ``(b, h, C, d)``.
+    """
+    ar = mdl.perceiver_ar
+    b, c = tokens.shape
+    pos = (offset + torch.arange(c, device=tokens.device))[None, :].expand(b, c)
+    emb, frq = ar.input_adapter(tokens, abs_pos=pos)
+    ca = ar.cross_attention.cross_attn
+    return ca.attention.project_kv(layer_norm(ca.kv_norm, emb, ca.dtype), RotaryEmbedding(frq))
+
+
+def _finalize_latents(mdl, window: torch.Tensor, pad_count: torch.Tensor):
+    """The latent segment of a chunked prefill's finalize: its slots' true
+    token indices, ``q_norm``-side k/v and queries.
+
+    :return: ``(idx (b, I), k_lat, v_lat (b, h, I, d), q, emb_lat, frq_lat)``;
+        ``idx`` clamps pad slots (prompt shorter than the segment) to 0.
+    """
+    ar = mdl.perceiver_ar
+    n = window.shape[1]
+    num_latents = mdl.max_latents
+    ca = ar.cross_attention.cross_attn
+    mha = ca.attention
+    p_seg = torch.arange(n - num_latents, n, device=window.device)[None, :] - pad_count[:, None]
+    emb_lat, frq_lat = ar.input_adapter(window[:, n - num_latents:], abs_pos=p_seg.clamp(min=0))
+    x_q_lat = layer_norm(ca.q_norm, emb_lat, ca.dtype)
+    k_lat, v_lat = mha.project_kv(x_q_lat, RotaryEmbedding(frq_lat))
+    q = mha.project_q(x_q_lat, RotaryEmbedding(frq_lat, right_align=True))
+    return p_seg.clamp(0, n - 1), k_lat, v_lat, q, emb_lat, frq_lat
+
+
+def _finalize_stack(mdl, attn: torch.Tensor, emb_lat: torch.Tensor, frq_lat: torch.Tensor, m: int):
+    """Cross-layer residual and MLP, then :func:`_capture_stack`."""
+    x = attn + emb_lat
+    x = mdl.perceiver_ar.cross_attention.mlp(x) + x
+    return _capture_stack(mdl, x, frq_lat, m)
+
+
+def _prefill_finalize(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: int,
+                      cross_k: torch.Tensor, cross_v: torch.Tensor):
+    """Complete a chunked prefill whose prefix cross k/v were staged by
+    :func:`_prefill_chunk_kv` calls into ``cross_k/v`` ``(b, h, N, d)``
+    (left-aligned by token index): write the ``m`` real latents'
+    ``q_norm``-side k/v there **in place** (the other segment slots keep
+    their staged entries, as JAX's ``mode="drop"`` scatter does), attend the
+    latent segment over the cache gathered back into window-slot order, and
+    run the stack capturing its caches.
+
+    :param m: the true latent count (a host int).
+    :return: ``(logits, cache, length, m)``, :func:`_decode_prefill`'s contract.
+    """
+    b, n = window.shape
+    num_latents = mdl.max_latents
+    idx, k_lat, v_lat, q, emb_lat, frq_lat = _finalize_latents(mdl, window, pad_count)
+    real = slice(num_latents - m, num_latents)
+    rows = torch.arange(b, device=window.device)[:, None]
+    _put_rows(cross_k, rows, idx[:, real], k_lat[:, :, real].transpose(1, 2), None)
+    _put_rows(cross_v, rows, idx[:, real], v_lat[:, :, real].transpose(1, 2), None)
+    mha = mdl.perceiver_ar.cross_attention.cross_attn.attention
+    attn = _window_attend(mha, q, cross_k, cross_v, pad_count)
+    logits, stack_k, stack_v = _finalize_stack(mdl, attn, emb_lat, frq_lat, m)
     cache = {"cross_k": cross_k, "cross_v": cross_v, "stack_k": stack_k, "stack_v": stack_v}
-    return mdl.head(x[:, -1]), cache, length, m
+    return logits, cache, n - pad_count, m
+
+
+def _prefill_finalize_paged(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: int,
+                            pool_k: torch.Tensor, pool_v: torch.Tensor, table_row: torch.Tensor,
+                            block_size: int, scale_k: Optional[torch.Tensor] = None,
+                            scale_v: Optional[torch.Tensor] = None):
+    """:func:`_prefill_finalize` over the block-paged pool, whose prefix
+    cross k/v are **already resident**: shared blocks another request
+    published and this admission's own staged chunks. The ``m`` real
+    latents' k/v scatter **in place** through the slot's block table
+    (quantized under int8 scales); the other segment slots route to the null
+    block, so staged and shared prefix values survive. The window attend
+    goes through
+    :func:`~perceiver_io_tpu_torch.ops.paged_attention.paged_window_attention`
+    (K4 on the card, the gather reference on the CPU).
+
+    :param table_row: ``(pages,)`` or ``(b, pages)`` block table.
+    :return: ``(logits, cache, length, m)``; ``cache`` holds the stack only.
+    """
+    n = window.shape[1]
+    num_latents = mdl.max_latents
+    table = table_row[None] if table_row.dim() == 1 else table_row
+    idx, k_lat, v_lat, q, emb_lat, frq_lat = _finalize_latents(mdl, window, pad_count)
+    is_real = torch.arange(num_latents, device=window.device)[None, :] >= num_latents - m
+    flat = paged.flat_write_indices(table, idx, block_size)
+    flat = torch.where(is_real, flat, (idx % block_size).to(flat.dtype))  # null block
+    paged.scatter_kv(pool_k, scale_k, flat, k_lat.transpose(1, 2))
+    paged.scatter_kv(pool_v, scale_v, flat, v_lat.transpose(1, 2))
+    mha = mdl.perceiver_ar.cross_attention.cross_attn.attention
+    attn = paged.paged_window_attention(
+        mha.attend, q, pool_k, pool_v, table, block_size=block_size, n=n, pad_count=pad_count,
+        scale_k=scale_k, scale_v=scale_v, project_out=mha.project_out,
+    )
+    logits, stack_k, stack_v = _finalize_stack(mdl, attn, emb_lat, frq_lat, m)
+    return logits, {"stack_k": stack_k, "stack_v": stack_v}, n - pad_count, m
 
 
 def _put_rows(cache: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor,
@@ -246,21 +370,27 @@ def _decode_step_boundary(mdl, window: torch.Tensor, pad_count: torch.Tensor,
     :param length: ``(b,)`` real-token count before the append.
     :return: ``(logits, cross_k, cross_v, length + 1)``.
     """
-    b, n = window.shape
-    dev = window.device
-    rows = torch.arange(b, device=dev)
+    rows = torch.arange(window.shape[0], device=window.device)
     write_idx, k_upd, v_upd, q, emb_lat, frq_lat = _boundary_update(mdl, window, pad_count, length)
     _put_rows(cross_k, rows[:, None], write_idx, k_upd, write_ok)
     _put_rows(cross_v, rows[:, None], write_idx, v_upd, write_ok)
-
-    slot_abs = (torch.arange(n, device=dev)[None, :] - pad_count[:, None]).clamp(min=0)
-    idx = slot_abs[:, None, :, None]
-    k_slots = torch.gather(cross_k, 2, idx.expand(b, cross_k.shape[1], n, cross_k.shape[3]))
-    v_slots = torch.gather(cross_v, 2, idx.expand(b, cross_v.shape[1], n, cross_v.shape[3]))
-    pad_mask = torch.arange(n, device=dev)[None, :] < pad_count[:, None]
     mha = mdl.perceiver_ar.cross_attention.cross_attn.attention
-    attn = mha.attend(q, k_slots, v_slots, pad_mask=pad_mask)
+    attn = _window_attend(mha, q, cross_k, cross_v, pad_count)
     return _boundary_finish(mdl, attn, emb_lat, frq_lat), cross_k, cross_v, length + 1
+
+
+def _window_attend(mha, q: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor,
+                   pad_count: torch.Tensor) -> torch.Tensor:
+    """Attend the latent queries over a token-indexed cross cache gathered
+    back into window-slot order (slot ``i`` reads token ``max(i - pad, 0)``;
+    the pad mask drops the pad slots), so masks match :func:`_decode_forward`."""
+    b, h, n, d = cross_k.shape
+    slot_abs = (torch.arange(n, device=q.device)[None, :] - pad_count[:, None]).clamp(min=0)
+    idx = slot_abs[:, None, :, None]
+    k_slots = torch.gather(cross_k, 2, idx.expand(b, h, n, d))
+    v_slots = torch.gather(cross_v, 2, idx.expand(b, cross_v.shape[1], n, cross_v.shape[3]))
+    pad_mask = torch.arange(n, device=q.device)[None, :] < pad_count[:, None]
+    return mha.attend(q, k_slots, v_slots, pad_mask=pad_mask)
 
 
 def _decode_step_boundary_paged(mdl, window: torch.Tensor, pad_count: torch.Tensor,

@@ -2,9 +2,9 @@
 paged KV layouts (``kv_layout="paged"`` and ``"paged_int8"``).
 
 A copy of ``perceiver_io_tpu/serving/kv_pool.py`` (``SwapBundle``,
-``PoolExhausted``, ``KVPagePool``), which is pure host code; the port keeps
-its own copy so that it imports nothing of the JAX package. The prefix
-index (``PrefixBlockIndex``) comes with the prefix-sharing slice.
+``PoolExhausted``, ``KVPagePool``, ``PrefixBlockIndex``), which is pure host
+code; the port keeps its own copy so that it imports nothing of the JAX
+package.
 
 ONE fixed device pool of KV blocks (``block_size`` token positions each) is
 shared by every slot, with a per-slot **block table** mapping token-index
@@ -25,10 +25,15 @@ the context's.
   block tables.
 - **Zero-leak accounting.** ``release`` frees the mapped blocks and the
   unconsumed reservation; at idle ``in_use`` is 0 and :meth:`leaked` is 0.
-- **Refcounts, copy-on-write, host swap** (``retain``/``deref``,
-  ``map_shared``/``cow``, ``reserve_lazy``, ``extract``/``restore``) are
-  copied whole for the later sub-slices (prefix sharing, preemption and
-  swap); the slot engine of this slice does not call them.
+- **Refcounts and copy-on-write** (``retain``/``deref``,
+  ``map_shared``/``page_shared``/``cow``) back prefix sharing: the slot
+  engine maps published prefix blocks by reference and copies a shared
+  page before any write could land on it. **Host swap and lazy
+  reservation** (``reserve_lazy``, ``extract``/``restore``) are copied whole
+  for the preemption slice; the slot engine does not call them yet.
+- **The prefix index** (:class:`PrefixBlockIndex`) is a radix trie over
+  published full prompt-prefix blocks, holding one pool reference per
+  block, LRU-evicted leaf first.
 """
 from __future__ import annotations
 
@@ -607,4 +612,183 @@ class KVPagePool:
             # "Scheduler timeline & post-mortems"): mapped blocks summed
             # per owner label the engine tagged at admission
             "in_use_by_owner": self.in_use_by_owner(),
+        }
+
+
+class _PrefixNode:
+    """One full prompt-prefix block in the radix index: the token ids it
+    covers (its edge label from ``parent``), the physical pool block
+    holding those positions' cross k/v, and the LRU stamp."""
+
+    __slots__ = ("tokens", "block", "parent", "children", "last_used")
+
+    def __init__(self, tokens: Tuple[int, ...], block: int,
+                 parent: Optional["_PrefixNode"]):
+        self.tokens = tokens
+        self.block = block
+        self.parent = parent
+        self.children: Dict[Tuple[int, ...], "_PrefixNode"] = {}
+        self.last_used = 0
+
+
+class PrefixBlockIndex:
+    """Radix/trie index over published full prompt-prefix blocks
+    (docs/serving.md "Prefix sharing").
+
+    Each node is ONE full block of ``block_size`` token ids, chained from
+    the prompt start — node depth ``i`` covers absolute positions
+    ``[i*block_size, (i+1)*block_size)``, whose cross k/v are per-position
+    functions of (token id, absolute position) in the ``kv_norm``-side
+    prefix region, so a published block's device content is bit-valid for
+    ANY later prompt sharing that token prefix. Only blocks fully inside
+    their donor's prefix region are ever published (latent-region values
+    are boundary-dependent and get rewritten by migration), which is what
+    makes shared pages immutable for their whole residency.
+
+    The index holds one pool reference per published block
+    (:meth:`KVPagePool.retain`), so cached prefixes survive their donor's
+    retirement and are dropped — LRU leaves first, ``cause="shared"`` —
+    only by :meth:`evict_one` under pool pressure or :meth:`flush` on an
+    engine state rebuild. All ordering is driven by a monotonic use
+    counter, never wall time, so FakeClock drills replay bit-identically.
+    """
+
+    def __init__(self, block_size: int):
+        self.block_size = int(block_size)
+        self._root: Dict[Tuple[int, ...], _PrefixNode] = {}
+        self._tick = 0
+        self.cached_blocks = 0
+        self.published_total = 0
+        self.evicted_total = 0
+
+    # -- lookup --------------------------------------------------------------
+    def _touch(self, node: _PrefixNode) -> None:
+        self._tick += 1
+        node.last_used = self._tick
+
+    def match(self, tokens) -> List[_PrefixNode]:
+        """Longest chain of cached FULL blocks matching the prompt's
+        leading token ids (LRU-touched). The caller clamps the usable
+        span to its own prefix region."""
+        bs = self.block_size
+        out: List[_PrefixNode] = []
+        children = self._root
+        for i in range(len(tokens) // bs):
+            key = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+            node = children.get(key)
+            if node is None:
+                break
+            self._touch(node)
+            out.append(node)
+            children = node.children
+        return out
+
+    def best_partial(self, matched: List[_PrefixNode], tokens) -> Tuple[Optional[_PrefixNode], int]:
+        """The cached block extending ``matched`` whose token ids share
+        the longest leading run with the prompt's next block — the
+        divergent-mid-block COW donor. Returns ``(node, lcp_tokens)``;
+        ``(None, 0)`` when nothing extends the chain. Ties break toward
+        the most recently used node, then insertion order, so the choice
+        is deterministic."""
+        bs = self.block_size
+        depth = len(matched)
+        rest = tuple(int(t) for t in tokens[depth * bs:(depth + 1) * bs])
+        if not rest:
+            return None, 0
+        children = matched[-1].children if matched else self._root
+        best, best_lcp = None, 0
+        for key, node in children.items():
+            lcp = 0
+            for a, b in zip(rest, key):
+                if a != b:
+                    break
+                lcp += 1
+            if lcp > best_lcp or (
+                lcp == best_lcp and lcp > 0 and best is not None
+                and node.last_used > best.last_used
+            ):
+                best, best_lcp = node, lcp
+        if best is not None:
+            self._touch(best)
+        return best, best_lcp
+
+    # -- publish -------------------------------------------------------------
+    def insert(self, tokens, blocks: Sequence[int], pool: KVPagePool) -> int:
+        """Publish ``blocks`` as the full prefix blocks covering
+        ``tokens``' leading ids (block ``i`` holds positions
+        ``[i*bs, (i+1)*bs)``); retains each NEWLY published block on the
+        pool. Blocks whose token path is already cached are skipped — the
+        first donor wins and later identical prefixes keep their private
+        copies (no dedupe-in-place; docs/serving.md). Returns the number
+        of blocks newly published."""
+        bs = self.block_size
+        children = self._root
+        parent: Optional[_PrefixNode] = None
+        published = 0
+        for i, block in enumerate(blocks):
+            key = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+            if len(key) < bs:
+                break
+            node = children.get(key)
+            if node is None:
+                pool.retain(block)
+                node = _PrefixNode(key, int(block), parent)
+                children[key] = node
+                self.cached_blocks += 1
+                self.published_total += 1
+                published += 1
+            self._touch(node)
+            parent = node
+            children = node.children
+        return published
+
+    # -- eviction ------------------------------------------------------------
+    def _leaves(self) -> List[_PrefixNode]:
+        out = []
+        stack = list(self._root.values())
+        while stack:
+            node = stack.pop()
+            if node.children:
+                stack.extend(node.children.values())
+            else:
+                out.append(node)
+        return out
+
+    def _drop(self, node: _PrefixNode, pool: KVPagePool, cause: str) -> int:
+        siblings = node.parent.children if node.parent is not None else self._root
+        del siblings[node.tokens]
+        self.cached_blocks -= 1
+        self.evicted_total += 1
+        return pool.deref(node.block, cause=cause)
+
+    def evict_one(self, pool: KVPagePool, cause: str = "shared") -> Optional[int]:
+        """Drop the least-recently-used LEAF (trie integrity: a parent is
+        only evictable once childless). Returns the number of pool blocks
+        physically freed (0 when the block is still mapped by a resident
+        — it frees later on that resident's release), or None when the
+        index is empty."""
+        leaves = self._leaves()
+        if not leaves:
+            return None
+        victim = min(leaves, key=lambda n: n.last_used)
+        return self._drop(victim, pool, cause)
+
+    def flush(self, pool: KVPagePool, cause: str = "shared") -> int:
+        """Drop every cached block (deepest first). Mandatory whenever the
+        device pool's CONTENT is rebuilt (the slot engine's fault recovery),
+        because the index's blocks would otherwise describe zeroed pages.
+        Returns the number of pool blocks physically freed."""
+        freed = 0
+        while True:
+            leaves = self._leaves()
+            if not leaves:
+                return freed
+            for node in leaves:
+                freed += self._drop(node, pool, cause)
+
+    def stats(self) -> dict:
+        return {
+            "cached_blocks": self.cached_blocks,
+            "published_total": self.published_total,
+            "evicted_total": self.evicted_total,
         }

@@ -19,10 +19,35 @@ resident decode state of ``S`` slots and schedules **per token**:
   their caches in place and take ``write_ok``, so each row's writes come
   from the step that owns it (dense: masked scatters; paged: the other
   step's writes go to the null block);
-- :meth:`SlotServingEngine.step`: expire deadlines, refill free slots FIFO
-  from the queue (under the paged layouts behind the pool gate, reserving
-  each request's worst case), one decode step, then retire rows on EOS,
-  ``max_new_tokens`` or deadline, releasing their pages.
+- :meth:`SlotServingEngine.step`: expire deadlines, advance an in-flight
+  chunked admission by one call, refill free slots FIFO from the queue
+  (under the paged layouts behind the pool gate, reserving each request's
+  worst case), one decode step, then retire rows on EOS,
+  ``max_new_tokens`` or deadline, releasing their pages. The slot an
+  admission is filling takes part in the decode step with its last
+  occupant's counters; under the paged layouts the step's block table maps
+  nothing for it, so its writes land in the null block, never in the new
+  request's staged or shared pages (dense rows write their own cache row,
+  which the finalize overwrites).
+
+**Chunked prefill** (``prefill_chunk=C``): a prompt whose prefix spans more
+than ``C`` positions is admitted one call per ``step()``, between the
+residents' decode steps: each call projects ``C`` prefix positions
+(:func:`~..inference.generate._prefill_chunk_kv`) into batch-1 staging
+caches, and a last call runs the finalize (latent k/v, the attend, the
+stack; :func:`~..inference.generate._prefill_finalize`) and inserts the
+row. The persistent state never holds a half-built row.
+
+**Prefix sharing** (``prefix_cache="on"``, paged layouts only): a radix
+index (:class:`~.kv_pool.PrefixBlockIndex`) over published full prompt-prefix
+blocks lets an admission whose leading token ids match map those pool
+blocks by reference, copy-on-write the first partially usable block, and
+project only the unshared suffix, straight into its private pages; a fully
+hot prefix admits with the finalize alone
+(:func:`~..inference.generate._prefill_finalize_paged`, K4 on the card). A
+shared page is never written through (write routing and the COW guard),
+blocks free on their last reference, and unreferenced cached prefixes drop
+LRU-first before an admission is made to wait.
 
 KV layouts (``kv_layout``): ``"dense"`` keeps per-slot ``(h, N, d)`` cross
 caches; ``"paged"`` and ``"paged_int8"`` keep one flat pool addressed
@@ -39,9 +64,10 @@ scope restrictions, enforced at ``submit``:
   occupy latent slots (the boundary cache's precondition).
 
 Not ported yet (they raise ``NotImplementedError``, see ``ROADMAP.md`` A):
-chunked prefill, prefix sharing, preemption and swap, speculation, the
-serving mesh, the ``kv_layout="auto"`` autotuner, and sampling. There is no
-tracer, chaos registry or timeline.
+preemption and swap, speculation, the serving mesh, the ``kv_layout="auto"``
+autotuner with ``prefix_cache="auto"``, and sampling. There is no tracer,
+chaos registry or timeline, and no trace-env fingerprint guards the prefix
+index (the port has no trace-env flags).
 """
 from __future__ import annotations
 
@@ -60,24 +86,36 @@ from perceiver_io_tpu_torch.inference.generate import (
     _decode_step_boundary,
     _decode_step_boundary_paged,
     _on_device,
+    _prefill_chunk_kv,
+    _prefill_finalize,
+    _prefill_finalize_paged,
     _slot_decode_step,
     _slot_decode_step_paged,
 )
 from perceiver_io_tpu_torch.inference.samplers import apply_min_new_tokens, sample_logits
 from perceiver_io_tpu_torch.ops import paged_attention as paged_ops
 from perceiver_io_tpu_torch.serving.engine import ServeRequest, ServingEngine
-from perceiver_io_tpu_torch.serving.kv_pool import KVPagePool
+from perceiver_io_tpu_torch.serving.kv_pool import KVPagePool, PrefixBlockIndex
 
 KV_LAYOUTS = ("dense", "paged", "paged_int8")
 PAGED_KV_LAYOUTS = ("paged", "paged_int8")
+PREFIX_CACHE_MODES = ("auto", "on", "off")
 
 _SLOT_COUNTERS = (
     "serving_decode_steps_total",
     "serving_decode_boundary_steps_total",
     "serving_prefills_total",
+    "serving_prefill_chunks_total",
     "kv_pool_block_allocs_total",
     "kv_pool_block_frees_total",
     "kv_pool_admit_waits_total",
+    "kv_prefix_hits_total",
+    "kv_prefix_misses_total",
+    "kv_prefix_shared_blocks_total",
+    "kv_prefix_shared_tokens_total",
+    "kv_prefix_cow_copies_total",
+    "kv_prefix_evicted_blocks_total",
+    "kv_prefix_published_blocks_total",
     "kv_ragged_kernel_steps_total",
 )
 
@@ -99,6 +137,42 @@ class _Slot:
     m: int
     emitted: List[int] = dataclasses.field(default_factory=list)
     last_token_at: float = 0.0
+
+
+@dataclasses.dataclass
+class _PrefixPlan:
+    """One admission's prefix-cache match: the cached full blocks it maps by
+    reference, the optional partially usable block it copies on write, and
+    the shared span ``shared_tokens``, where its prefill starts."""
+
+    nodes: list  # fully shared _PrefixNode chain
+    partial: Optional[object]  # COW donor node (divergent or straddling block)
+    shared_tokens: int  # the prefill projects only [shared_tokens, prefix_len)
+
+
+@dataclasses.dataclass
+class _ChunkedAdmit:
+    """One in-flight chunked admission: its reserved slot, the row's window
+    and pad (on the device), the chunk schedule, and the batch-1 staging
+    caches the chunk calls fill (None for a shared admission, which stages
+    straight into its private pool pages within ``[lo, hi)``)."""
+
+    req: ServeRequest
+    slot: int
+    bucket_len: int
+    m0: int
+    window: torch.Tensor  # (1, n) right-aligned ids
+    pad: torch.Tensor  # (1,) left-pad count
+    by_index: np.ndarray  # (n,) ids by token index (prompt, then pad ids)
+    offsets: List[int]  # chunk starts; one finalize call follows the last
+    chunk: int
+    next_chunk: int = 0
+    stage_k: Optional[torch.Tensor] = None
+    stage_v: Optional[torch.Tensor] = None
+    prefill_ms: float = 0.0  # summed over the admission's calls
+    plan: Optional[_PrefixPlan] = None
+    lo: int = 0
+    hi: int = 0
 
 
 def _blank_state(model, slots: int, pad_token_id: int, device: torch.device,
@@ -147,8 +221,11 @@ def _insert_row(state: dict, slot: int, *, window, pad, logits, cache, length, m
     """Write one prefilled row (batch-1 caches and row state) into slot
     ``slot`` of the state, **in place**. Under the paged layouts the row's
     dense cross k/v scatter into the pool through the slot's block table:
-    mapped positions land on its blocks, the rest on the null block."""
-    if table_row is None:
+    mapped positions land on its blocks, the rest on the null block. A cache
+    without cross k/v (a shared admission's) leaves the pool alone."""
+    if "cross_k" not in cache:
+        pass  # the row's cross k/v already sit in its pool pages
+    elif table_row is None:
         state["cross_k"][slot] = cache["cross_k"][0]
         state["cross_v"][slot] = cache["cross_v"][0]
     else:
@@ -166,6 +243,44 @@ def _insert_row(state: dict, slot: int, *, window, pad, logits, cache, length, m
     state["m"][slot] = m
     state["steps"][slot] = 0
     state["logits"][slot] = logits[0]
+
+
+def _stage_chunk(model, admit: _ChunkedAdmit, tokens: torch.Tensor, offset: int) -> None:
+    """An unshared chunk call: project ``C`` prefix positions into the
+    admission's batch-1 staging caches, **in place**."""
+    k, v = _prefill_chunk_kv(model, tokens, offset)
+    c = tokens.shape[1]
+    admit.stage_k[:, :, offset:offset + c] = k.to(admit.stage_k.dtype)
+    admit.stage_v[:, :, offset:offset + c] = v.to(admit.stage_v.dtype)
+
+
+def _stage_shared_chunk(model, state: dict, table_row: torch.Tensor, tokens: torch.Tensor,
+                        offset: int, lo: int, hi: int, block_size: int) -> None:
+    """A shared admission's chunk call: project ``C`` prefix positions and
+    scatter those inside ``[lo, hi)`` (the unshared span) straight into the
+    slot's private pool pages through its table, **in place** (quantizing
+    under int8 scales). Positions outside it are dropped: a shared page is
+    never written through, and a clamped chunk's overrun re-covers
+    positions already staged."""
+    k, v = _prefill_chunk_kv(model, tokens, offset)
+    a, b = max(lo - offset, 0), min(hi - offset, tokens.shape[1])
+    if a >= b:
+        return
+    pos = torch.arange(offset + a, offset + b, device=tokens.device)
+    flat = paged_ops.flat_write_indices(table_row[None], pos[None], block_size)[0]
+    paged_ops.scatter_kv(state["pool_k"], state.get("scale_k"), flat, k[0, :, a:b].transpose(0, 1))
+    paged_ops.scatter_kv(state["pool_v"], state.get("scale_v"), flat, v[0, :, a:b].transpose(0, 1))
+
+
+def _copy_page(state: dict, src: int, dst: int, block_size: int) -> None:
+    """The device half of copy-on-write: pool block ``dst`` takes block
+    ``src``'s k/v, **in place**, and under int8 its scales too (bit-exact,
+    no requantization)."""
+    s = slice(src * block_size, (src + 1) * block_size)
+    d = slice(dst * block_size, (dst + 1) * block_size)
+    for key in ("pool_k", "pool_v", "scale_k", "scale_v"):
+        if key in state:
+            state[key][d] = state[key][s]
 
 
 class SlotServingEngine(ServingEngine):
@@ -188,6 +303,11 @@ class SlotServingEngine(ServingEngine):
         requests that can never fit are rejected at submit.
     :param decode_strategy: the boundary phase's step: ``"cached"`` (also
         ``"auto"`` and None) or ``"recompute"``.
+    :param prefill_chunk: admit prompts whose prefix spans more than this
+        many positions one chunk per ``step()`` (module docstring); None
+        admits every prompt in one call.
+    :param prefix_cache: ``"on"`` shares published prompt-prefix blocks
+        between requests (paged layouts only); ``"off"`` or None does not.
     """
 
     def __init__(self, model, config: Optional[GenerationConfig] = None, table=None, *,
@@ -196,10 +316,8 @@ class SlotServingEngine(ServingEngine):
                  prefill_chunk: Optional[int] = None, prefix_cache: Optional[str] = None,
                  preemption: Optional[str] = None, speculation: Optional[str] = None,
                  mesh=None, device: DeviceLike = "cuda", **kwargs):
-        if prefill_chunk is not None:
-            raise _deferred("prefill_chunk (chunked prefill)")
-        if prefix_cache not in (None, "off"):
-            raise _deferred(f"prefix_cache={prefix_cache!r} (prefix sharing)")
+        if prefix_cache == "auto":
+            raise _deferred("prefix_cache='auto' (the prefix-cache autotuner)")
         if preemption not in (None, "off"):
             raise _deferred(f"preemption={preemption!r} (preemption and swap)")
         if speculation not in (None, "off"):
@@ -210,6 +328,16 @@ class SlotServingEngine(ServingEngine):
             raise _deferred("kv_layout='auto' (the KV-layout autotuner)")
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout!r}")
+        if prefix_cache not in (None,) + PREFIX_CACHE_MODES:
+            raise ValueError(f"prefix_cache must be one of {PREFIX_CACHE_MODES}, got {prefix_cache!r}")
+        if prefix_cache == "on" and kv_layout not in PAGED_KV_LAYOUTS:
+            raise ValueError(
+                "prefix_cache='on' shares pool blocks between requests but the KV layout is "
+                f"{kv_layout!r}: prefix sharing requires kv_layout='paged' (or 'paged_int8'; "
+                "dense slots have no block tables to share)"
+            )
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         super().__init__(model, config, table, decode_strategy=decode_strategy, device=device,
                          **kwargs)
         if self.config.sampling.do_sample:
@@ -233,9 +361,12 @@ class SlotServingEngine(ServingEngine):
         self.kv_block_size = int(min(kv_block_size or min(16, n), n))
         self.kv_blocks = int(kv_blocks or self.slots * -(-n // self.kv_block_size))
         self.boundary_mode = "cached" if _boundary_cached(decode_strategy) else "recompute"
+        self.prefill_chunk = None if prefill_chunk is None else int(min(prefill_chunk, n))
+        self.prefix_cache = "on" if prefix_cache == "on" else "off"
         self.counters.update(dict.fromkeys(_SLOT_COUNTERS, 0))
-        self.samples.update(decode_step_ms=[], prefill_ms=[])
+        self.samples.update(decode_step_ms=[], prefill_ms=[], prefill_chunk_ms=[])
         self._slots: List[Optional[_Slot]] = [None] * self.slots
+        self._admitting: Optional[_ChunkedAdmit] = None
         self._kv_waiting_id: Optional[int] = None
         if kv_layout in PAGED_KV_LAYOUTS:
             self._pool: Optional[KVPagePool] = KVPagePool(self.kv_blocks, self.kv_block_size,
@@ -244,6 +375,8 @@ class SlotServingEngine(ServingEngine):
         else:
             self._pool = None
             self._table_dev = None
+        self._prefix_index: Optional[PrefixBlockIndex] = (
+            PrefixBlockIndex(self.kv_block_size) if self.prefix_cache == "on" else None)
         self._state = self._new_state()
 
     # -- state and pool -----------------------------------------------------
@@ -262,6 +395,10 @@ class SlotServingEngine(ServingEngine):
             self._pool.release(slot, cause=cause)
             if had_pages:
                 self._push_table()
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        _copy_page(self._state, src, dst, self.kv_block_size)
+        self._inc("kv_prefix_cow_copies_total")
 
     # -- feasibility --------------------------------------------------------
     def _pick_prompt_bucket(self, length: int, cfg: GenerationConfig) -> int:
@@ -292,7 +429,10 @@ class SlotServingEngine(ServingEngine):
     def check_feasible(self, prompt, config: Optional[GenerationConfig] = None) -> GenerationConfig:
         """Base feasibility plus pool capacity: a request whose worst case
         ``prompt + max_new_tokens`` can never fit the pool is rejected here;
-        one that fits the pool but not its free space now waits in the queue."""
+        one that fits the pool but not its free space now waits in the queue.
+        The bound is blind to the prefix cache: a request's pages are all
+        distinct resident blocks at once, shared or not; sharing relaxes
+        only the admission gate's concurrent accounting."""
         cfg = super().check_feasible(prompt, config)
         if self._pool is not None:
             tokens = int(np.asarray(prompt).size) + cfg.max_new_tokens
@@ -305,32 +445,206 @@ class SlotServingEngine(ServingEngine):
                 )
         return cfg
 
+    def _geometry(self, req: ServeRequest) -> tuple:
+        """``(bucket_len, m0, prefix_len)`` of a request."""
+        length = int(req.prompt.size)
+        bucket_len = self._pick_prompt_bucket(length, req.config)
+        m0 = min(bucket_len, req.config.num_latents)
+        return bucket_len, m0, length - m0
+
+    # -- prefix sharing -----------------------------------------------------
+    def _shared_chunk_size(self) -> int:
+        """Chunk size of shared admissions: ``prefill_chunk`` when set, else
+        a block-scaled default (the suffix past a hot prefix is short)."""
+        n = self.model.max_seq_len
+        return int(self.prefill_chunk or min(n, max(self.kv_block_size, 16)))
+
+    def _prefix_plan(self, req: ServeRequest) -> Optional[_PrefixPlan]:
+        """Match the prompt's leading ids against the prefix index and clamp
+        the usable span to the request's own prefix region ``[0, L - m0)``
+        (latent positions are boundary-normalised per request, and migration
+        rewrites from ``L - m0`` on). None on a miss or with the cache off."""
+        index = self._prefix_index
+        if index is None:
+            return None
+        prompt = req.prompt
+        prefix_len = self._geometry(req)[2]
+        bs = self.kv_block_size
+        if prefix_len < 1 or not index.cached_blocks:
+            return None
+        nodes = index.match(prompt)
+        full = nodes[:prefix_len // bs]
+        shared = len(full) * bs
+        partial = None
+        room = prefix_len - shared
+        if room > 0:
+            if len(nodes) > len(full):
+                # the next cached block matches but straddles this request's
+                # latent boundary: copy it, use its first ``room`` positions
+                partial, extra = nodes[len(full)], room
+            else:
+                partial, extra = index.best_partial(full, prompt[:prefix_len])
+                if extra < 1:
+                    partial = None
+            if partial is not None:
+                shared += extra
+        if shared < 1:
+            return None
+        if self.prefill_chunk is None and prefix_len - shared > 4 * self._shared_chunk_size():
+            # a small hit before a long unshared suffix, with no chunk
+            # discipline: draining the suffix inline as many chunk calls in
+            # one step is slower than one bucket prefill; treat it as a miss
+            return None
+        return _PrefixPlan(nodes=full, partial=partial, shared_tokens=shared)
+
+    def _map_shared_prefix(self, req: ServeRequest, slot: int, plan: _PrefixPlan) -> None:
+        """Reserve and map a hit's pages: the matched blocks by reference
+        (left out of the reservation), the partial block shared and then
+        copied on write (the page copy runs before any write lands), and the
+        rest of the worst case reserved privately."""
+        pool = self._pool
+        pool.reserve(slot, int(req.prompt.size) + req.config.max_new_tokens,
+                     shared_blocks=len(plan.nodes))
+        blocks = [node.block for node in plan.nodes]
+        if plan.partial is not None:
+            blocks.append(plan.partial.block)
+        pool.map_shared(slot, blocks)
+        if plan.partial is not None:
+            old, new = pool.cow(slot, len(plan.nodes), use_reservation=True)
+            self._copy_page(old, new)
+        # the shared and copied pages may cover every page the request will
+        # touch, so no later ensure() would push the table
+        self._push_table()
+        self._inc("kv_prefix_hits_total")
+        self._inc("kv_prefix_shared_blocks_total", len(blocks))
+        self._inc("kv_prefix_shared_tokens_total", plan.shared_tokens)
+
+    def _publish_prefix(self, req: ServeRequest, slot: int) -> None:
+        """Publish the admitted row's full prefix blocks (first donor wins).
+        Runs after the finalize, so every published page holds final
+        ``kv_norm``-side values the donor's decode never rewrites."""
+        if self._prefix_index is None:
+            return
+        count = self._geometry(req)[2] // self.kv_block_size
+        if count < 1:
+            return
+        published = self._prefix_index.insert(req.prompt, self._pool.slot_blocks(slot)[:count],
+                                              self._pool)
+        self._inc("kv_prefix_published_blocks_total", published)
+
+    def _evict_for(self, need: int) -> bool:
+        """LRU-drop unreferenced cached prefixes until ``need`` blocks are
+        reservable: cached prefixes must never starve admissions. Returns
+        True when the need is now reservable."""
+        while not self._pool.can_reserve(need):
+            if self._prefix_index is None or self._prefix_index.evict_one(self._pool) is None:
+                return False
+            self._inc("kv_prefix_evicted_blocks_total")
+        return True
+
+    def _cow_guard(self, entry: _Slot, next_len: int) -> bool:
+        """A shared page is never written through: before a decode step,
+        copy on write any still-shared page the step's append (or, in the
+        boundary phase, migration) would land on. Unreachable under the
+        publish policy (shared spans end before ``prefix_len``, writes start
+        there); kept as the enforced invariant."""
+        if self._prefix_index is None:
+            return False
+        bs = self.kv_block_size
+        pages = {(next_len - 1) // bs}
+        if entry.m >= self.model.max_latents:
+            mig = next_len - 1 - self.model.max_latents
+            if mig >= 0:
+                pages.add(mig // bs)
+        changed = False
+        for page in sorted(pages):
+            if self._pool.page_shared(entry.slot, page):
+                self._copy_page(*self._pool.cow(entry.slot, page))
+                changed = True
+        return changed
+
+    def _admit_need(self, req: ServeRequest, plan: Optional[_PrefixPlan]) -> int:
+        """Blocks the gate must see reservable before ``req`` admits: its
+        worst case, less the blocks it maps by reference."""
+        tokens = int(req.prompt.size) + req.config.max_new_tokens
+        return self._pool.blocks_needed(tokens) - (len(plan.nodes) if plan is not None else 0)
+
     # -- slot lifecycle -----------------------------------------------------
     def _active(self) -> List[_Slot]:
         return [s for s in self._slots if s is not None]
 
     def pending(self) -> bool:
-        return bool(self._queue) or any(s is not None for s in self._slots)
+        return (bool(self._queue) or self._admitting is not None
+                or any(s is not None for s in self._slots))
 
     def _free_slot(self) -> Optional[int]:
+        """Lowest free slot, other than the one an admission is filling."""
+        reserved = self._admitting.slot if self._admitting is not None else -1
         for i, s in enumerate(self._slots):
-            if s is None:
+            if s is None and i != reserved:
                 return i
         return None
 
-    def _admit(self, req: ServeRequest, slot: int) -> None:
-        cfg = req.config
-        prompt_len = int(req.prompt.size)
-        bucket_len = self._pick_prompt_bucket(prompt_len, cfg)
-        m0 = min(bucket_len, cfg.num_latents)
+    def _chunk_eligible(self, req: ServeRequest, plan: Optional[_PrefixPlan] = None) -> bool:
+        """True when ``req`` should be admitted chunk by chunk: chunking is
+        on and its (unshared) prefix spans more than one chunk."""
+        if self.prefill_chunk is None:
+            return False
+        prefix_len = self._geometry(req)[2]
+        if plan is not None:
+            prefix_len -= plan.shared_tokens
+        return prefix_len > self.prefill_chunk
+
+    def _row_window(self, req: ServeRequest):
+        """The request's right-aligned ``(1, n)`` window and ``(1,)`` pad
+        count, on the device."""
         n = self.model.max_seq_len
-        window = torch.full((1, n), cfg.pad_token_id, dtype=torch.long)
+        prompt_len = int(req.prompt.size)
+        window = torch.full((1, n), req.config.pad_token_id, dtype=torch.long)
         window[0, n - prompt_len:] = torch.from_numpy(req.prompt.astype(np.int64))
-        window = window.to(self.device)
-        pad = torch.full((1,), n - prompt_len, dtype=torch.long, device=self.device)
+        pad = torch.full((1,), n - prompt_len, dtype=torch.long)
+        return window.to(self.device), pad.to(self.device)
+
+    def _start_admit(self, req: ServeRequest) -> float:
+        """Queue wait ends when the prefill starts; returns that instant."""
         t0 = self._clock()
         req.started_at = t0
         self.samples["queue_wait_ms"].append((t0 - req.submitted_at) * 1e3)
+        return t0
+
+    def _finish_admit(self, req: ServeRequest, slot: int, bucket_len: int, m0: int,
+                      prefill_ms: float, hit: bool) -> None:
+        """The row is in the state: count the prefill, make the slot
+        resident, and publish its prefix (a hit publishes its extension)."""
+        self.samples["prefill_ms"].append(prefill_ms)
+        self._inc("serving_prefills_total")
+        self._inc("serving_prompt_tokens_real_total", int(req.prompt.size))
+        self._inc("serving_prompt_tokens_padded_total", bucket_len)
+        self._slots[slot] = _Slot(req=req, slot=slot, max_new=req.config.max_new_tokens, m=m0)
+        if self._prefix_index is not None:
+            if not hit:
+                self._inc("kv_prefix_misses_total")
+            self._publish_prefix(req, slot)
+
+    def _admit(self, req: ServeRequest, slot: int, plan: Optional[_PrefixPlan] = None) -> None:
+        if plan is not None:
+            # a hit whose suffix fits one step: the whole shared admission
+            # (mapping, staged suffix chunks, finalize) runs inline through
+            # the chunked machinery; a fault clears the record before the
+            # caller's handler rebuilds the state
+            try:
+                self._start_chunked_admit(req, slot, plan)
+                while self._admitting is not None:
+                    self._advance_chunked_admit()
+            except Exception:
+                self._admitting = None
+                raise
+            return
+        cfg = req.config
+        prompt_len = int(req.prompt.size)
+        bucket_len, m0, _ = self._geometry(req)
+        window, pad = self._row_window(req)
+        t0 = self._start_admit(req)
         table_row = None
         if self._pool is not None:
             # the gate checked capacity: reserve the worst case and map the
@@ -344,11 +658,100 @@ class SlotServingEngine(ServingEngine):
             _insert_row(self._state, slot, window=window, pad=pad, logits=logits, cache=cache,
                         length=length, m=m0, table_row=table_row, block_size=self.kv_block_size)
         self._state["length"][slot].item()  # host sync: the prefill's time ends here
-        self.samples["prefill_ms"].append((self._clock() - t0) * 1e3)
-        self._inc("serving_prefills_total")
-        self._inc("serving_prompt_tokens_real_total", prompt_len)
-        self._inc("serving_prompt_tokens_padded_total", bucket_len)
-        self._slots[slot] = _Slot(req=req, slot=slot, max_new=cfg.max_new_tokens, m=m0)
+        self._finish_admit(req, slot, bucket_len, m0, (self._clock() - t0) * 1e3, hit=False)
+
+    def _start_chunked_admit(self, req: ServeRequest, slot: int,
+                             plan: Optional[_PrefixPlan] = None) -> None:
+        """Begin a chunked admission into ``slot``: the row's window and
+        chunk schedule, the pool reservation, fresh batch-1 staging caches
+        (unshared) or the hit's mapped pages (shared), then the first call.
+        Later calls advance one per ``step()``; a shared admission's chunks
+        cover only the unshared suffix ``[shared_tokens, prefix_len)``, and a
+        fully hot prefix schedules none, only the finalize."""
+        n = self.model.max_seq_len
+        prompt_len = int(req.prompt.size)
+        bucket_len, m0, prefix_len = self._geometry(req)
+        by_index = np.full((n,), req.config.pad_token_id, np.int64)
+        by_index[:prompt_len] = req.prompt
+        chunk = self._shared_chunk_size() if plan is not None else self.prefill_chunk
+        # starts are clamped so a fixed-size chunk never runs past the
+        # context: an overrunning chunk re-covers staged positions with the
+        # same values (dropped on the shared path), and latent or future
+        # positions it grazes are rewritten by the finalize or masked
+        start = plan.shared_tokens if plan is not None else 0
+        offsets = [min(o, n - chunk) for o in range(start, max(prefix_len, 1), chunk)]
+        window, pad = self._row_window(req)
+        self._start_admit(req)
+        stage_k = stage_v = None
+        if plan is not None:
+            self._map_shared_prefix(req, slot, plan)
+        else:
+            if self._pool is not None:
+                # worst case reserved now; pages map chunk by chunk
+                self._pool.reserve(slot, prompt_len + req.config.max_new_tokens)
+            ref = self._state["stack_k"][0]
+            h, d = ref.shape[1], ref.shape[3]
+            stage_k = torch.zeros((1, h, n, d), dtype=ref.dtype, device=self.device)
+            stage_v = torch.zeros_like(stage_k)
+        self._admitting = _ChunkedAdmit(
+            req=req, slot=slot, bucket_len=bucket_len, m0=m0, window=window, pad=pad,
+            by_index=by_index, offsets=offsets, chunk=chunk, stage_k=stage_k, stage_v=stage_v,
+            plan=plan, lo=start, hi=prefix_len if plan is not None else 0,
+        )
+        self._advance_chunked_admit()
+
+    def _advance_chunked_admit(self) -> None:
+        """Run the in-flight admission's next call: one staging chunk, or,
+        after the last, the finalize, which inserts the row. The finalize is
+        a call of its own, so the admission's worst stall between two decode
+        steps is max(one chunk, one finalize)."""
+        admit = self._admitting
+        req, slot = admit.req, admit.slot
+        i = admit.next_chunk
+        final = i == len(admit.offsets)
+        prompt_len = int(req.prompt.size)
+        off = 0 if final else admit.offsets[i]
+        if self._pool is not None:
+            # map the pages this call's positions cover; the finalize needs
+            # the whole prompt mapped (shared pages are mapped already)
+            if self._pool.ensure(slot, prompt_len if final else min(off + admit.chunk, prompt_len)):
+                self._push_table()
+        t0 = self._clock()
+        with torch.no_grad():
+            if not final:
+                tokens = torch.from_numpy(admit.by_index[off:off + admit.chunk][None]).to(self.device)
+                if admit.plan is not None:
+                    _stage_shared_chunk(self.model, self._state, self._table_dev[slot], tokens, off,
+                                        admit.lo, admit.hi, self.kv_block_size)
+                else:
+                    _stage_chunk(self.model, admit, tokens, off)
+            elif admit.plan is not None:
+                st = self._state
+                logits, cache, length, _ = _prefill_finalize_paged(
+                    self.model, admit.window, admit.pad, admit.m0, st["pool_k"], st["pool_v"],
+                    self._table_dev[slot], self.kv_block_size, scale_k=st.get("scale_k"),
+                    scale_v=st.get("scale_v"))
+                _insert_row(st, slot, window=admit.window, pad=admit.pad, logits=logits,
+                            cache=cache, length=length, m=admit.m0)
+            else:
+                logits, cache, length, _ = _prefill_finalize(
+                    self.model, admit.window, admit.pad, admit.m0, admit.stage_k, admit.stage_v)
+                _insert_row(self._state, slot, window=admit.window, pad=admit.pad, logits=logits,
+                            cache=cache, length=length, m=admit.m0,
+                            table_row=None if self._pool is None else self._table_dev[slot],
+                            block_size=self.kv_block_size)
+        self._state["length"][0].item()  # host sync: this call's time ends here
+        call_ms = (self._clock() - t0) * 1e3
+        admit.prefill_ms += call_ms
+        admit.next_chunk += 1
+        self.samples["prefill_chunk_ms"].append(call_ms)
+        if not final:
+            self._inc("serving_prefill_chunks_total")
+            return
+        self._admitting = None
+        admit.stage_k = admit.stage_v = None
+        self._finish_admit(req, slot, admit.bucket_len, admit.m0, admit.prefill_ms,
+                           hit=admit.plan is not None)
 
     def _retire(self, entry: _Slot, status: str, *, error: Optional[str] = None) -> None:
         if status == "ok":
@@ -360,23 +763,45 @@ class SlotServingEngine(ServingEngine):
         cause = {"cancelled": "cancelled", "failed": "failover"}.get(status, "retire")
         self._kv_release(entry.slot, cause=cause)
 
+    def _fail_admitting(self, error: str) -> None:
+        """The in-flight admission fails: its slot's pages return."""
+        admit, self._admitting = self._admitting, None
+        self._kv_release(admit.slot)
+        self._finish(admit.req, "failed", error=error)
+
     def _fail_resident(self, error: str) -> int:
-        """A step failed: every resident request fails, the queue survives,
-        and the device state is rebuilt blank."""
+        """A step failed: every resident request (and an admission in flight)
+        fails, the queue survives, the prefix index is flushed and the
+        device state is rebuilt blank."""
         failed = 0
+        if self._admitting is not None:
+            self._fail_admitting(error)
+            failed += 1
         for entry in self._active():
             self._retire(entry, "failed", error=error)
             failed += 1
         if self._pool is not None:
-            self._pool.release_all()  # a half-done admission's pages too
+            self._pool.release_all()
+            if self._prefix_index is not None:
+                # the pool is about to be blanked: cached blocks would
+                # describe zeroed pages
+                self._prefix_index.flush(self._pool)
             self._push_table()
         self._state = self._new_state()
         return failed
 
     def cancel(self, request_id: int) -> bool:
         """Withdraw a request: a resident one retires ``cancelled`` at once
-        (its slot and pool pages are free before the next ``step()``), a
-        queued one leaves the queue. Returns True when found."""
+        and an admission in flight is dropped before its row enters the
+        state (its slot and pool pages are free before the next ``step()``;
+        shared pages keep their other references), a queued one leaves the
+        queue. Returns True when found."""
+        admit = self._admitting
+        if admit is not None and admit.req.request_id == request_id:
+            self._admitting = None
+            self._kv_release(admit.slot, cause="cancelled")
+            self._finish(admit.req, "cancelled")
+            return True
         for entry in self._active():
             if entry.req.request_id == request_id:
                 self._retire(entry, "cancelled")
@@ -411,14 +836,22 @@ class SlotServingEngine(ServingEngine):
                 logits_b = _decode_step_boundary(model, window, pad, st["cross_k"], st["cross_v"],
                                                  length, write_ok=is_b)[0]
         else:
+            table = self._table_dev
+            if self._admitting is not None:
+                # the slot an admission fills already maps the new request's
+                # staged and shared pages, but its row still holds its last
+                # occupant's counters: the step sees it map nothing, so that
+                # row's appends and migrations land in the null block
+                table = table.clone()
+                table[self._admitting.slot] = 0
             scales = {"scale_k": st.get("scale_k"), "scale_v": st.get("scale_v")}
             logits_a = _slot_decode_step_paged(
-                model, token, st["pool_k"], st["pool_v"], self._table_dev, st, length, m,
+                model, token, st["pool_k"], st["pool_v"], table, st, length, m,
                 self.kv_block_size, write_ok, **scales,
             )
             if cached_b:
                 logits_b = _decode_step_boundary_paged(
-                    model, window, pad, st["pool_k"], st["pool_v"], self._table_dev, length,
+                    model, window, pad, st["pool_k"], st["pool_v"], table, length,
                     self.kv_block_size, is_b, **scales,
                 )
         if boundary and not cached_b:
@@ -433,12 +866,84 @@ class SlotServingEngine(ServingEngine):
         )
         return token
 
+    def _lane_blocked(self, head: ServeRequest, plan: Optional[_PrefixPlan],
+                      ran_chunk_call: bool) -> tuple:
+        """``(blocked, chunked)`` for the queue head: chunked and shared
+        admissions share one lane that runs at most one call per step, so
+        no step stalls the residents past max(one chunk, one finalize)."""
+        try:
+            chunked = self._chunk_eligible(head, plan)
+        except ValueError:
+            chunked = False
+        lane = chunked or plan is not None
+        return lane and (self._admitting is not None or ran_chunk_call), chunked
+
+    def _admit_from_queue(self, ran_chunk_call: bool) -> int:
+        """Refill free slots from the queue head (FIFO). Under the paged
+        layouts the head waits at the pool gate until its worst case (less
+        the blocks it maps by reference) is reservable, after unreferenced
+        cached prefixes have dropped LRU-first (each eviction can shrink the
+        match, so the plan is derived again). Returns the requests disposed
+        of; a prefill fault fails the residents too."""
+        disposed = 0
+        while self._queue:
+            slot = self._free_slot()
+            if slot is None:
+                break
+            head = self._queue[0]
+            try:
+                plan = self._prefix_plan(head)
+            except ValueError:
+                plan = None  # an infeasible head fails in _admit
+            # the lane check comes before the gate: a head that cannot admit
+            # this step must not evict cached prefixes for room it cannot use
+            blocked, chunked = self._lane_blocked(head, plan, ran_chunk_call)
+            if blocked:
+                break
+            if self._pool is not None:
+                while True:
+                    need = self._admit_need(head, plan)
+                    if self._pool.can_reserve(need) or not self._evict_for(need):
+                        break
+                    try:
+                        plan = self._prefix_plan(head)
+                    except ValueError:
+                        plan = None
+                if not self._pool.can_reserve(need):
+                    # one wait counted per waiting request, not per poll
+                    if self._kv_waiting_id != head.request_id:
+                        self._kv_waiting_id = head.request_id
+                        self._inc("kv_pool_admit_waits_total")
+                    break
+                blocked, chunked = self._lane_blocked(head, plan, ran_chunk_call)
+                if blocked:
+                    break
+            req = self._queue.pop(0)
+            try:
+                if chunked:
+                    self._start_chunked_admit(req, slot, plan)
+                else:
+                    self._admit(req, slot, plan)
+            except Exception as e:  # a prefill fault fails this request ...
+                error = f"{type(e).__name__}: {e}"
+                self._admitting = None
+                self._finish(req, "failed", error=error)
+                if chunked:
+                    self._kv_release(slot)
+                if chunked and plan is None:
+                    disposed += 1  # ... an unshared first chunk wrote only its staging caches
+                    continue
+                return disposed + 1 + self._fail_resident(  # ... and the residents
+                    f"prefill fault poisoned the slot state: {error}")
+        return disposed
+
     def step(self) -> int:
-        """Advance serving by ONE TOKEN: expire deadlines (queued and
-        resident), refill free slots FIFO from the queue, run one decode step
-        over all slots, retire rows that finished (EOS / ``max_new_tokens``).
-        Returns the number of requests disposed of; ``pending()`` says
-        whether work remains (a mid-generation step disposes of 0)."""
+        """Advance serving by ONE TOKEN: expire deadlines (queued, resident
+        and mid-admission), advance an in-flight chunked admission by one
+        call, refill free slots from the queue, run one decode step over all
+        slots, retire rows that finished (EOS / ``max_new_tokens``). Returns
+        the number of requests disposed of; ``pending()`` says whether work
+        remains (a mid-generation step disposes of 0)."""
         disposed = self._expire_overdue()
         now = self._clock()
         for entry in self._active():
@@ -447,28 +952,32 @@ class SlotServingEngine(ServingEngine):
                 self._retire(entry, "timed_out", error=(
                     f"deadline exceeded after {len(entry.emitted)} of {entry.max_new} tokens"))
                 disposed += 1
-        while self._queue:
-            slot = self._free_slot()
-            if slot is None:
-                break
-            head = self._queue[0]
-            if self._pool is not None:
-                # FIFO pool gate: the head waits until retirements free its
-                # worst case (check_feasible rejected what can never fit);
-                # one wait counted per waiting request, not per poll
-                need = self._pool.blocks_needed(int(head.prompt.size) + head.config.max_new_tokens)
-                if not self._pool.can_reserve(need):
-                    if self._kv_waiting_id != head.request_id:
-                        self._kv_waiting_id = head.request_id
-                        self._inc("kv_pool_admit_waits_total")
-                    break
-            req = self._queue.pop(0)
-            try:
-                self._admit(req, slot)
-            except Exception as e:  # a prefill fault fails this request and the residents
-                self._finish(req, "failed", error=f"{type(e).__name__}: {e}")
-                return disposed + 1 + self._fail_resident(
-                    f"prefill fault poisoned the slot state: {type(e).__name__}: {e}")
+        ran_chunk_call = False
+        admit = self._admitting
+        if admit is not None:
+            if admit.req.deadline_at is not None and now >= admit.req.deadline_at:
+                self._admitting = None
+                self._kv_release(admit.slot)
+                self._finish(admit.req, "timed_out", error=(
+                    f"deadline exceeded after {admit.next_chunk} of {len(admit.offsets)} "
+                    "prefill chunks"))
+                disposed += 1
+            else:
+                final = admit.next_chunk == len(admit.offsets)
+                ran_chunk_call = True
+                try:
+                    self._advance_chunked_admit()
+                except Exception as e:
+                    # an unshared chunk wrote only its staging caches; a
+                    # shared chunk writes pool pages and a finalize the
+                    # state, so those fail the residents too
+                    error = f"{type(e).__name__}: {e}"
+                    self._fail_admitting(error)
+                    disposed += 1
+                    if final or admit.plan is not None:
+                        return disposed + self._fail_resident(
+                            f"chunked-prefill fault poisoned the slot state: {error}")
+        disposed += self._admit_from_queue(ran_chunk_call)
         active = self._active()
         if not active:
             return disposed
@@ -479,11 +988,13 @@ class SlotServingEngine(ServingEngine):
         try:
             if self._pool is not None:
                 # map the page each row's next write lands on (infallible:
-                # admission reserved the worst case)
+                # admission reserved the worst case), and copy on write any
+                # still-shared page it would write through
                 changed = False
                 for entry in active:
                     next_len = int(entry.req.prompt.size) + len(entry.emitted) + 1
                     changed |= self._pool.ensure(entry.slot, next_len)
+                    changed |= self._cow_guard(entry, next_len)
                 if changed:
                     self._push_table()
             with torch.no_grad():
@@ -516,8 +1027,8 @@ class SlotServingEngine(ServingEngine):
         return disposed
 
     def run_until_idle(self) -> int:
-        """Step until no request is queued or resident; returns the number of
-        requests disposed of."""
+        """Step until no request is queued, admitting or resident; returns
+        the number of requests disposed of."""
         served = 0
         while self.pending():
             served += self.step()
@@ -541,6 +1052,8 @@ class SlotServingEngine(ServingEngine):
             "prefills": c["serving_prefills_total"],
             "slot_occupancy": round((rows - padded) / max(1, rows), 4),
             "decode_rows_padding_waste": round(padded / max(1, rows), 4),
+            "prefill_chunk": self.prefill_chunk,
+            "prefill_chunks": c["serving_prefill_chunks_total"],
             "decode_strategy_boundary": self.boundary_mode,
             "kv_layout": self.kv_layout,
         })
@@ -552,13 +1065,29 @@ class SlotServingEngine(ServingEngine):
                 "admit_waits": c["kv_pool_admit_waits_total"],
                 "ragged_kernel_steps": c["kv_ragged_kernel_steps_total"],
             }
+            out["prefix_cache"] = {"enabled": self._prefix_index is not None}
+            if self._prefix_index is not None:
+                hits, misses = c["kv_prefix_hits_total"], c["kv_prefix_misses_total"]
+                out["prefix_cache"].update({
+                    "hits": hits,
+                    "misses": misses,
+                    "hit_ratio": round(hits / max(1, hits + misses), 4),
+                    "shared_blocks": c["kv_prefix_shared_blocks_total"],
+                    "shared_tokens": c["kv_prefix_shared_tokens_total"],
+                    "cow_copies": c["kv_prefix_cow_copies_total"],
+                    "evicted": c["kv_prefix_evicted_blocks_total"],
+                    "published": c["kv_prefix_published_blocks_total"],
+                    **self._prefix_index.stats(),
+                })
         return out
 
     def health(self) -> dict:
         out = super().health()
         out["slots"] = self.slots
         out["slots_active"] = len(self._active())
+        out["admitting"] = self._admitting is not None
         out["kv_layout"] = self.kv_layout
+        out["prefix_cache"] = self.prefix_cache
         if self._pool is not None:
             out["kv_pool_in_use"] = self._pool.in_use
             out["kv_pool_leaked"] = self._pool.leaked()

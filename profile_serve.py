@@ -3,13 +3,18 @@
 
     python3 profile_serve.py                                   # bucket engine
     python3 profile_serve.py --engine slots --kv-layout paged  # slot engine
+    python3 profile_serve.py --engine slots --kv-layout paged \
+        --prefill-chunk 128 --prefix-cache on                  # chunking, prefix sharing
     python3 profile_serve.py --engine train                    # one train step
 
 ``--engine bucket`` (default) serves the 8-request workload of
 ``chip_smoke.py``'s serve phase through ``ServingEngine``; ``--engine
 slots`` serves the 12-request workload of its slot-serve phase through
 ``SlotServingEngine`` (4 slots) in the ``--kv-layout`` given (dense or
-paged). Both over the full-width CLM (random weights from a seed) on one
+paged), or, with ``--prefill-chunk`` or ``--prefix-cache on``, the
+12-request workload of its slot-prefix phase (one shared 384-token system
+prompt) with those settings; each pass starts a fresh engine, so its prefix
+index starts empty. Both over the full-width CLM (random weights from a seed) on one
 GPU, in fp32 and in bf16 compute. For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
 ``torch.profiler``. ``--engine train`` instead runs optimizer steps of
@@ -65,11 +70,15 @@ def _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod, engine_mod, 
 
         return make, run, sum(c.max_new_tokens * len(p) for c, p in work)
 
-    gcfg, prompts, news = chip_smoke.slot_serve_workload(torch, gen_mod, vocab_size)
+    prefix_workload = args.prefill_chunk is not None or args.prefix_cache == "on"
+    workload = chip_smoke.slot_prefix_workload if prefix_workload else chip_smoke.slot_serve_workload
+    gcfg, prompts, news = workload(torch, gen_mod, vocab_size)
     table = buckets.BucketTable(prompt_lens=chip_smoke.SLOT_BUCKETS, batch_sizes=(1,))
 
     def make(model):
-        return slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout=args.kv_layout)
+        return slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout=args.kv_layout,
+                                           prefill_chunk=args.prefill_chunk,
+                                           prefix_cache=args.prefix_cache)
 
     def run(engine):
         for p, k in zip(prompts, news):
@@ -203,7 +212,14 @@ def main() -> int:
     parser.add_argument("--engine", choices=("bucket", "slots", "train"), default="bucket")
     parser.add_argument("--kv-layout", choices=("dense", "paged"), default="dense",
                         help="the slot engine's KV layout")
+    parser.add_argument("--prefill-chunk", type=int, default=None,
+                        help="the slot engine's prefill chunk (runs the slot-prefix workload)")
+    parser.add_argument("--prefix-cache", choices=("off", "on"), default="off",
+                        help="the slot engine's prefix sharing (runs the slot-prefix workload; "
+                             "needs --kv-layout paged)")
     args = parser.parse_args()
+    if args.engine != "slots" and (args.prefill_chunk is not None or args.prefix_cache == "on"):
+        parser.error("--prefill-chunk and --prefix-cache apply to --engine slots")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -230,7 +246,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    tag = args.engine + (f"_{args.kv_layout}" if args.engine == "slots" else "")
+    tag = args.engine
+    if args.engine == "slots":
+        tag += f"_{args.kv_layout}"
+        if args.prefill_chunk is not None:
+            tag += f"_chunk{args.prefill_chunk}"
+        if args.prefix_cache == "on":
+            tag += "_prefix"
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -307,7 +329,9 @@ def main() -> int:
         else:
             record.update(kv_layout=args.kv_layout, decode_steps=stats["decode_steps"],
                           boundary_steps=stats["boundary_steps"],
-                          decode_step_ms_p50=stats["decode_step_ms"]["p50"])
+                          decode_step_ms_p50=stats["decode_step_ms"]["p50"],
+                          prefill_chunk=args.prefill_chunk, prefill_chunks=stats["prefill_chunks"],
+                          prefix_cache=stats.get("prefix_cache"))
         print(json.dumps(record), flush=True)
         del model, engine
         torch.cuda.empty_cache()
