@@ -23,13 +23,13 @@ non-zero and never prints the final line):
    is held to the same gates and is timed beside it (``prev_ms``), with the plain
    version's time, ``scaled_dot_product_attention``'s with its backend
    pinned to memory-efficient attention (a yardstick the port never calls)
-   and the card's bound (here and in phase 8 its bytes count k and v only
+   and the card's bound (here and in phase 10 its bytes count k and v only
    for the keys some query row sees, as K4's count only live keys; for
    ``tf32x3`` cases ``bound_ms`` at a third of the TF32 tensor-core rate and
-   ``bound_simt_ms`` at the CUDA cores' rate, as in phase 8). Then each of
+   ``bound_simt_ms`` at the CUDA cores' rate, as in phase 10). Then each of
    the split, wgmma and tf32x3 routes must refuse a query on a base off a
    16-byte boundary (``ValueError``, no launch counted). Every timed loop
-   here and in phases 6 and 8 reads the next of enough input copies to fill
+   here and in phases 6 and 10 reads the next of enough input copies to fill
    the L2 twice, so its times are HBM times, as the bound is, and queues
    behind a sleep kernel, so they are the card's times without the host's
    dispatch (``device_ms``);
@@ -101,7 +101,31 @@ non-zero and never prints the final line):
    run and with an int8 run without sharing, and, from a second run of each
    layout without ``prefill_chunk``, the residents' largest inter-token ms
    during the 960-token admission with and without chunking;
-9. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
+9. slot preempt: ``SlotServingEngine`` over the same model (fp32) with a
+   pool of 160 blocks, five eighths of the dense 4 x 64, lazy admission on
+   prompt pages alone (``admit_headroom_blocks=0``), and phase 7's 12
+   requests: every third interactive (``priority=1``), the rest batch (0),
+   tenants alternating ``a`` and ``b``; the batch requests arrive first and
+   the interactive ones 8 decode steps later, while batch residents hold the
+   pool, so a higher tier's head preempts at admission and residents
+   crossing a block boundary preempt at decode. Runs: ``paged`` under
+   ``recompute``, ``swap`` and ``auto``, ``paged_int8`` under ``swap``, and
+   ``paged`` under ``swap`` over phase 8's shared-system-prompt requests with
+   ``prefill_chunk=128`` and ``prefix_cache="on"``. Gates, each run: every
+   request completes; paged tokens equal phases 7's and 8's ``generate()``
+   references (the near-tie excuse as in phase 7); at least one preemption
+   and one readmission; under ``swap`` at least one swap, every swap
+   restored and none left waiting; the pool leak-free with ``in_use`` 0 (in
+   the shared run equal to the prefix index's cached blocks, 0 after its
+   flush); K4 on ``split`` and ``tc`` only, K1 never on ``simt``. Printed:
+   preemptions at admission and at decode, readmissions, victims by tier and
+   tenant, swaps and swap bytes, each direction's ms p50 and measured GB/s,
+   the post-mortem totals (``recompute_est_ms``, ``swap_est_ms``,
+   ``swap_measured_ms``) and the victims ``auto`` swapped, each swapped
+   victim's payload bytes against the pool bytes the cost model prices,
+   TTFT p50 per tier, tokens/s and the peak residents against phase 7's
+   paged run, and the int8 run's agreement with phase 7's int8 run;
+10. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
    against their plain versions at the training path's shapes (b = 4, 8
    heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
    512 latents, and j = 1024, with left pads that leave dead rows; the
@@ -123,7 +147,7 @@ non-zero and never prints the final line):
    ``simt`` kernels' outputs are held to 1e-4 of each output's largest plain
    entry in both types (``prev_rel_err``), with the same zeros and finite
    values, before they are timed;
-10. train, over the full-width CLM:
+11. train, over the full-width CLM:
    (a) one loss + backward with the kernels against ``attention_impl="xla"``
        (batch 4 x 1024, left pads inside the prefix, one prefix-dropout
        seed). fp32: loss within 1e-5 relative, every parameter's gradient
@@ -148,13 +172,14 @@ non-zero and never prints the final line):
        ``attention_impl="flash"`` (the plain forward and backward, same
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
-11. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
+12. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4 with
    its split and tc routes nested and the simt kernel's times as their
    ``prev_ms``; K1's and K4's ``launches`` count their wrappers' calls and
    their ``kernel_launches`` the device kernels, two per split-route call;
-   K4's ``slot_prefix_launches`` the paged slot-prefix run's calls), the
+   K4's ``slot_prefix_launches`` the paged slot-prefix run's calls and
+   ``slot_preempt_launches`` each slot-preempt run's), the
    card's ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -927,7 +952,19 @@ def _top2_gap(torch, gen_mod, model, cfg, prompt, tokens, t: int) -> float:
     return (top[0] - top[1]).item()
 
 
+def run_tracking_residents(engine) -> int:
+    """Step ``engine`` until idle; returns the most residents one step held."""
+    peak = 0
+    while engine.pending():
+        engine.step()
+        peak = max(peak, len(engine._active()))
+    return peak
+
+
 def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
+    """Phase 7. Returns ``(launches, reuse)``: each layout's launches, and
+    what the later slot phases reuse (the model, the workload, its
+    ``generate()`` references, the served rows and the paged run's pace)."""
     import dataclasses
 
     cfg = clm_base_config(clm.CausalLanguageModelConfig)
@@ -945,12 +982,13 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reqs = [engine.submit(p, c) for p, c in zip(prompts, configs)]
-        engine.run_until_idle()
+        peak = run_tracking_residents(engine)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         k1, k4 = flash.flash_attention.launches, ragged.ragged_paged_attention.launches
         k4_routes = dict(ragged.ragged_paged_attention.route_launches)
-        launches[layout] = {"k1": k1, "k4": k4, "k1_routes": dict(flash.flash_attention.route_launches),
+        launches[layout] = {"tokens_per_s": tokens / wall_s, "peak_residents": peak,
+                            "k1": k1, "k4": k4, "k1_routes": dict(flash.flash_attention.route_launches),
                             "k1_kernels": flash.flash_attention.kernel_launches, "k4_routes": k4_routes,
                             "k4_kernels": ragged.ragged_paged_attention.kernel_launches}
         stats = engine.stats()
@@ -968,7 +1006,7 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             k4_launches_per_token=k4 / tokens, k4_route_launches=k4_routes,
             k4_kernel_launches=launches[layout]["k4_kernels"], pool_in_use=pool.get("in_use"),
             pool_leaked=pool.get("leaked"), pool_high_water=pool.get("high_water"),
-            k4_steps=pool.get("ragged_kernel_steps"),
+            k4_steps=pool.get("ragged_kernel_steps"), peak_residents=peak,
             compute_dtype="float32",
         )
         failures = []
@@ -1005,7 +1043,8 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             raise AssertionError(f"slot serve {layout}: " + "; ".join(failures))
         del engine
         torch.cuda.empty_cache()
-    return launches
+    reuse = dict(model=model, gcfg=gcfg, prompts=prompts, configs=configs, refs=refs, rows=served)
+    return launches, reuse
 
 
 # the slot-prefix phase: one shared system prompt of 24 pages of 16 tokens,
@@ -1058,14 +1097,14 @@ def _p50(values):
     return values[len(values) // 2] if values else None
 
 
-def slot_prefix_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
+def slot_prefix_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, model):
     """Chunked prefill and prefix sharing in the slot engine (module
-    docstring, phase 8). Returns the paged run's K4 launches."""
+    docstring, phase 8), over phase 7's model. Returns ``(launches,
+    reuse)``: each layout's launches, and the workload with its
+    ``generate()`` references for the slot-preempt phase."""
     import dataclasses
 
-    cfg = clm_base_config(clm.CausalLanguageModelConfig)
-    model = clm.CausalLanguageModel(cfg, dtype=torch.float32, seed=0).eval()
-    gcfg, prompts, news = slot_prefix_workload(torch, gen_mod, cfg.vocab_size)
+    gcfg, prompts, news = slot_prefix_workload(torch, gen_mod, model.config.vocab_size)
     configs = [dataclasses.replace(gcfg, max_new_tokens=k) for k in news]
     table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
     refs = [gen_mod.generate(model, p[None], c)[0].cpu().numpy() for p, c in zip(prompts, configs)]
@@ -1182,7 +1221,190 @@ def slot_prefix_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
         if failures:
             raise AssertionError(f"slot prefix {layout}: " + "; ".join(failures))
         torch.cuda.empty_cache()
+    return out, dict(gcfg=gcfg, prompts=prompts, configs=configs, refs=refs)
+
+
+# the slot-preempt phase: a pool of five eighths of the dense 4 x 64 pages,
+# lazy admission on prompt pages alone; every third request interactive
+SLOT_PREEMPT_BLOCKS = 160
+#: decode steps after the batch tier's submission at which the interactive
+#: requests arrive (while batch residents hold the pool)
+SLOT_PREEMPT_LATE_STEPS = 8
+#: (run, kv layout, preemption, workload): phase 7's prompts, or phase 8's
+#: shared-system-prompt ones with chunked prefill and prefix sharing
+SLOT_PREEMPT_RUNS = (
+    ("paged_recompute", "paged", "recompute", "serve"),
+    ("paged_swap", "paged", "swap", "serve"),
+    ("paged_auto", "paged", "auto", "serve"),
+    ("paged_int8_swap", "paged_int8", "swap", "serve"),
+    ("paged_swap_shared", "paged", "swap", "shared"),
+)
+
+
+def preempt_tags(n: int) -> list:
+    """Every third request interactive (priority 1), the rest batch (0);
+    tenants alternate ``a`` and ``b``."""
+    return [dict(priority=int(i % 3 == 0), tenant="ab"[i % 2]) for i in range(n)]
+
+
+def drive_preempt(engine, prompts, configs, tags, late_steps: int = SLOT_PREEMPT_LATE_STEPS):
+    """Submit the batch-tier requests, step ``late_steps`` times, submit the
+    interactive ones, and step until idle. Returns ``(reqs, first_token_at,
+    peak, admission_preemptions)``: the requests in workload order, the first
+    instant each had a token (a replay's later first token does not count: a
+    stream has it already), the most residents one step held, and the
+    preemptions the admission gate made (an interactive head evicting a batch
+    resident)."""
+    admission = [0]
+    lower = engine._preempt_lower_tier
+
+    def counted(head):
+        hit = lower(head)
+        admission[0] += int(hit)
+        return hit
+
+    engine._preempt_lower_tier = counted
+    reqs = [None] * len(prompts)
+
+    def submit(tier):
+        for i, (p, c, t) in enumerate(zip(prompts, configs, tags)):
+            if t["priority"] == tier:
+                reqs[i] = engine.submit(p, c, **t)
+
+    submit(0)
+    first, peak, steps = {}, 0, 0
+    while engine.pending() or steps <= late_steps:
+        if steps == late_steps:
+            submit(1)
+        steps += 1
+        engine.step()
+        active = engine._active()
+        peak = max(peak, len(active))
+        for entry in active:
+            if entry.emitted and entry.req.request_id not in first:
+                first[entry.req.request_id] = entry.last_token_at
+    return reqs, first, peak, admission[0]
+
+
+def slot_preempt_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve, shared, unpressured,
+                       device: str = "cuda", kv_blocks: int = SLOT_PREEMPT_BLOCKS):
+    """Preemption in the slot engine (module docstring, phase 9), over phase
+    7's model and references (``serve``, and ``shared`` from phase 8);
+    ``unpressured`` is phase 7's paged run. Returns each run's K4 launches."""
+    model = serve["model"]
+    on_card = device == "cuda"
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+    out = {}
+    for name, layout, mode, workload in SLOT_PREEMPT_RUNS:
+        load = serve if workload == "serve" else shared
+        prompts, configs, refs = load["prompts"], load["configs"], load["refs"]
+        tags = preempt_tags(len(prompts))
+        chunk, cache = (SLOT_PREFIX_CHUNK, "on") if workload == "shared" else (None, None)
+        engine = slots_mod.SlotServingEngine(
+            model, load["gcfg"], table, slots=4, kv_layout=layout, kv_blocks=kv_blocks,
+            preemption=mode, admit_headroom_blocks=0, prefill_chunk=chunk, prefix_cache=cache,
+            device=device)
+        reset_counts(flash)  # count this run's launches only
+        reset_k4_counts(ragged)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs, first, peak, admission = drive_preempt(engine, prompts, configs, tags)
+        if on_card:
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        tokens = sum(c.max_new_tokens for c in configs)
+        k1_routes = dict(flash.flash_attention.route_launches)
+        k4_routes = dict(ragged.ragged_paged_attention.route_launches)
+        stats = engine.stats()
+        pre, pool = stats["preemption"], stats["kv_pool"]
+        pm = engine.postmortems()
+        swapped = [r for r in engine._postmortems if r["mode"] == "swap"]
+        out_ms, in_ms = engine.samples["swap_out_ms"], engine.samples["swap_in_ms"]
+        moved = sum(r["payload_bytes"] for r in swapped)
+        ttft = {tier: _p50([(first[r.request_id] - r.submitted_at) * 1e3 for r, t in zip(reqs, tags)
+                            if t["priority"] == tier and r.request_id in first]) for tier in (1, 0)}
+        line = dict(
+            run=name, layout=layout, preemption=mode, workload=workload, kv_blocks=kv_blocks,
+            prefill_chunk=chunk, prefix_cache=cache or "off", requests=stats["completed"],
+            tokens=tokens, wall_s=wall_s, tokens_per_s=tokens / wall_s, peak_residents=peak,
+            unpressured_tokens_per_s=unpressured["tokens_per_s"],
+            unpressured_peak_residents=unpressured["peak_residents"],
+            preemptions=pre["preemptions"], readmissions=pre["readmissions"],
+            admission_preemptions=admission, decode_preemptions=pre["preemptions"] - admission,
+            by_tier=pre["by_tier"], by_tenant=pre["by_tenant"], swaps=pre["swaps"],
+            swap_restores=pre["swap_restores"], swap_bytes=pre["swap_bytes"],
+            swapped_waiting=pre["swapped_waiting"], swap_out_ms_p50=_p50(out_ms),
+            swap_in_ms_p50=_p50(in_ms), swap_out_ms=out_ms, swap_in_ms=in_ms,
+            swap_out_gbps=moved / sum(out_ms) / 1e6 if out_ms else None,
+            swap_in_gbps=moved / sum(in_ms) / 1e6 if in_ms and len(in_ms) == len(out_ms) else None,
+            swap_link_gbps_model=pre["swap_link_gbps"],
+            postmortems={k: pm[k] for k in ("count", "swapped", "tokens_discarded", "pages_released",
+                                             "victim_bytes", "recompute_est_ms", "swap_est_ms",
+                                             "swap_measured_ms", "swap_advantage_ms")},
+            victims_swapped=len(swapped),
+            victim_bytes_priced_mean=_mean([r["victim_bytes"] for r in swapped]),
+            payload_bytes_mean=_mean([r["payload_bytes"] for r in swapped]),
+            decode_step_ms_p50=stats["decode_step_ms"]["p50"], decode_steps=stats["decode_steps"],
+            boundary_steps=stats["boundary_steps"], prefills=stats["prefills"],
+            prefill_chunks=stats["prefill_chunks"], ttft_ms_p50_tier_1=ttft[1], ttft_ms_p50_tier_0=ttft[0],
+            k1_route_launches=k1_routes, k4_launches=ragged.ragged_paged_attention.launches,
+            k4_route_launches=k4_routes, pool_in_use=pool["in_use"], pool_leaked=pool["leaked"],
+            pool_high_water=pool["high_water"], frees_by_cause=pool["frees_by_cause"],
+        )
+        if swapped:
+            line["payload_over_priced"] = line["payload_bytes_mean"] / line["victim_bytes_priced_mean"]
+        failures = []
+        if stats["completed"] != len(prompts):
+            failures.append(f"completed {stats['completed']} of {len(prompts)}")
+        if pre["preemptions"] < 1 or pre["readmissions"] < 1:
+            failures.append(f"preemptions {pre['preemptions']}, readmissions {pre['readmissions']}")
+        if mode == "swap" and (pre["swaps"] < 1 or pre["swap_restores"] != pre["swaps"]
+                               or pre["swapped_waiting"]):
+            failures.append(f"swaps {pre['swaps']}, restores {pre['swap_restores']}, waiting "
+                            f"{pre['swapped_waiting']}")
+        if on_card and (k4_routes["simt"] or not k4_routes["split"] or not k4_routes["tc"]
+                        or k1_routes["simt"]):
+            failures.append(f"K4 routes {k4_routes}, K1 routes {k1_routes}: K4 on split and tc only, "
+                            "K1 never on simt")
+        if workload == "shared":
+            line.update(hits=stats["prefix_cache"]["hits"],
+                        cached_blocks=stats["prefix_cache"]["cached_blocks"])
+            if pool["leaked"] or pool["in_use"] != stats["prefix_cache"]["cached_blocks"]:
+                failures.append(f"pool in_use {pool['in_use']}, leaked {pool['leaked']}, cached "
+                                f"{stats['prefix_cache']['cached_blocks']}")
+            engine._prefix_index.flush(engine._pool)
+            line["pool_in_use_after_flush"] = engine._pool.in_use
+        if engine._pool.in_use or engine._pool.leaked():
+            failures.append(f"pool in_use {engine._pool.in_use}, leaked {engine._pool.leaked()}")
+        rows = [r.result for r in reqs]
+        if layout == "paged_int8":
+            same = sum(int((a == b).sum()) for a, b in zip(rows, serve["rows"]["paged_int8"]))
+            line["token_agreement_with_phase7_int8"] = same / tokens
+        else:
+            divergences = []
+            for i, (row, ref) in enumerate(zip(rows, refs)):
+                diff = [t for t in range(len(ref)) if row[t] != ref[t]]
+                if diff:
+                    t = diff[0]
+                    gap = _top2_gap(torch, gen_mod, model, configs[i], prompts[i], ref, t)
+                    divergences.append({"request": i, "token": t, "top2_gap": gap})
+                    if gap >= NEAR_TIE:
+                        failures.append(f"request {i} diverges at token {t}, top-2 gap {gap}")
+            line["divergences_vs_generate"] = divergences
+        emit("slot_preempt", **line)
+        if failures:
+            raise AssertionError(f"slot preempt {name}: " + "; ".join(failures))
+        out[name] = {"k4": ragged.ragged_paged_attention.launches, "k4_routes": k4_routes,
+                     "k4_kernels": ragged.ragged_paged_attention.kernel_launches}
+        del engine
+        if on_card:
+            torch.cuda.empty_cache()
     return out
+
+
+def _mean(values):
+    return sum(values) / len(values) if values else None
 
 
 def token_batches(vocab_size: int, seq_len: int, rows: int, n: int, seed: int, pads=None,
@@ -1543,12 +1765,13 @@ K4_REPLACES = "perceiver_io_tpu/ops/ragged_attention.py:156"
 
 
 def k4_route_entry(ragged, design: str, main: tuple, cases: list, launches: int,
-                   prefix_launches: int) -> dict:
+                   prefix_launches: int, preempt_launches: dict) -> dict:
     """The summary line's entry for one of K4's routes: its main case's
     numbers (fp32, d = 112) and every case that took it. ``launches``
-    counts the route's calls in the paged slot-serve run and
+    counts the route's calls in the paged slot-serve run,
     ``slot_prefix_launches`` in the paged slot-prefix run (chunked, prefix
-    sharing on); ``kernel_launches`` the device kernels of the first."""
+    sharing on) and ``slot_preempt_launches`` in each slot-preempt run;
+    ``kernel_launches`` the device kernels of the first."""
     mine = [c for c in cases if c["route"] == design]
     head = next(c for c in mine if (c["case"], c["layout"], c["d"]) == (*main, K1_HEAD_DIM))
     keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by", "gather_sdpa_ms")
@@ -1558,7 +1781,7 @@ def k4_route_entry(ragged, design: str, main: tuple, cases: list, launches: int,
         "name": f"ragged_paged_attention[{design}]", "route": "cuda", "design": design,
         "source": K4_SOURCES[design], "replaces": K4_REPLACES, "launches": launches,
         "kernel_launches": launches * ragged.ROUTE_KERNELS[design],
-        "slot_prefix_launches": prefix_launches,
+        "slot_prefix_launches": prefix_launches, "slot_preempt_launches": preempt_launches,
         "launches_from": "the paged slot-serve run (fp32)",
         "max_abs_err": max(c["max_abs_err"] for c in mine if c["layout"] != "bfloat16"),
         "max_abs_err_bf16": max(c["max_abs_err"] for c in mine if c["layout"] == "bfloat16"),
@@ -1671,8 +1894,13 @@ def main() -> int:
     launches, serve_routes, serve_kernels = serve_phase(torch, clm, flash, gen_mod, engine_mod, buckets)
     k4 = k4_cases(torch, ragged, paged)
     k4_refusals(torch, ragged)
-    slot_launches = slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
-    prefix_launches = slot_prefix_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
+    slot_launches, serve = slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets)
+    prefix_launches, shared = slot_prefix_phase(torch, flash, ragged, gen_mod, slots_mod, buckets,
+                                                serve["model"])
+    preempt_launches = slot_preempt_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
+                                          shared, slot_launches["paged"])
+    del serve, shared
+    torch.cuda.empty_cache()
     k23 = k23_cases(torch, flash)
     train_root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_root, ignore_errors=True)
@@ -1726,8 +1954,13 @@ def main() -> int:
                  "launches: the paged slot-serve run",
         "slot_prefix_launches": prefix_launches["paged"]["k4"],
         "slot_prefix_kernel_launches": prefix_launches["paged"]["k4_kernels"],
+        "slot_preempt_launches": {run: launches["k4"] for run, launches in preempt_launches.items()},
+        "slot_preempt_kernel_launches": {run: launches["k4_kernels"]
+                                         for run, launches in preempt_launches.items()},
         "routes": [k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design],
-                                  prefix_launches["paged"]["k4_routes"][design])
+                                  prefix_launches["paged"]["k4_routes"][design],
+                                  {run: launches["k4_routes"][design]
+                                   for run, launches in preempt_launches.items()})
                    for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
     }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23)]}), flush=True)
     print(smi, flush=True)

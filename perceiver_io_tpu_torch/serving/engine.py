@@ -82,6 +82,15 @@ class ServeRequest:
     result: Optional[np.ndarray] = None  # (max_new_tokens,) ids, pad after EOS
     status: str = "queued"
     error: Optional[str] = None
+    #: scheduling tier, higher is more important: the slot engine admits
+    #: higher tiers first and, under preemption, preempts only lower tiers
+    #: to admit one; the bucket engine stores it and ignores it
+    priority: int = 0
+    #: tenant label for the slot engine's fairness among equal tiers (the
+    #: tenant holding the most pool pages yields first); None is untagged
+    tenant: Optional[str] = None
+    #: times the slot engine preempted this request and requeued it
+    preemptions: int = 0
 
     @property
     def done(self) -> bool:
@@ -144,10 +153,13 @@ class ServingEngine:
 
     # -- queue front --------------------------------------------------------
     def submit(self, prompt, config: Optional[GenerationConfig] = None, *,
-               deadline_s: Optional[float] = None) -> ServeRequest:
+               deadline_s: Optional[float] = None, priority: int = 0,
+               tenant: Optional[str] = None) -> ServeRequest:
         """Enqueue one prompt (1-D token ids); returns its request handle.
         Raises ``ValueError`` for an infeasible prompt and :class:`QueueFull`
-        when the queue is at ``max_queue``."""
+        when the queue is at ``max_queue``. ``priority`` (higher is more
+        important) and ``tenant`` tag the request for the slot engine's
+        admission order and victim policy; this engine stores them."""
         if not self._accepting:
             raise RuntimeError("engine is draining; new submissions rejected")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -169,6 +181,7 @@ class ServingEngine:
         req = ServeRequest(
             self._next_id, prompt, cfg, now,
             deadline_at=None if deadline_s is None else now + deadline_s,
+            priority=int(priority), tenant=tenant,
         )
         self._next_id += 1
         self._queue.append(req)

@@ -19,7 +19,9 @@ the context's.
 - **Reserve at admit, map lazily.** Admission reserves the request's whole
   worst-case block count (``reserve``), so a resident never hits pool
   exhaustion mid-decode; blocks are mapped page by page as positions fill
-  (``ensure``).
+  (``ensure``). Under the slot engine's preemption a request reserves only
+  its prompt pages (``reserve_lazy``) and a decode page past them may find
+  the pool dry (:class:`PoolExhausted`, the engine's cue to preempt).
 - **Deterministic allocation order.** The free list is a min-heap: the
   lowest free block id goes first, so identical schedules produce identical
   block tables.
@@ -28,9 +30,10 @@ the context's.
 - **Refcounts and copy-on-write** (``retain``/``deref``,
   ``map_shared``/``page_shared``/``cow``) back prefix sharing: the slot
   engine maps published prefix blocks by reference and copies a shared
-  page before any write could land on it. **Host swap and lazy
-  reservation** (``reserve_lazy``, ``extract``/``restore``) are copied whole
-  for the preemption slice; the slot engine does not call them yet.
+  page before any write could land on it. **Host swap**
+  (``extract``/``restore``): a swapped victim's private blocks free
+  (``frees_by_cause["swapped"]``) and its leading shared blocks keep one
+  bundle reference each, until its restore maps fresh blocks.
 - **The prefix index** (:class:`PrefixBlockIndex`) is a radix trie over
   published full prompt-prefix blocks, holding one pool reference per
   block, LRU-evicted leaf first.

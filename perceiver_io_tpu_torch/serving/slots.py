@@ -1,9 +1,9 @@
 """Token-granular continuous batching: the persistent-slot decode engine.
 
-Counterpart of ``perceiver_io_tpu/serving/slots.py``'s ``SlotServingEngine``,
-for its first sub-slice. The bucket engine (:mod:`.engine`) runs whole
-``generate()`` calls per micro-batch; this engine keeps a fixed-shape
-resident decode state of ``S`` slots and schedules **per token**:
+Counterpart of ``perceiver_io_tpu/serving/slots.py``'s ``SlotServingEngine``.
+The bucket engine (:mod:`.engine`) runs whole ``generate()`` calls per
+micro-batch; this engine keeps a fixed-shape resident decode state of ``S``
+slots and schedules **per token**:
 
 - **prefill**, one request at a time: the prompt is right-aligned into the
   full window, :func:`~..inference.generate._decode_prefill` runs at batch 1,
@@ -20,11 +20,10 @@ resident decode state of ``S`` slots and schedules **per token**:
   from the step that owns it (dense: masked scatters; paged: the other
   step's writes go to the null block);
 - :meth:`SlotServingEngine.step`: expire deadlines, advance an in-flight
-  chunked admission by one call, refill free slots FIFO from the queue
-  (under the paged layouts behind the pool gate, reserving each request's
-  worst case), one decode step, then retire rows on EOS,
-  ``max_new_tokens`` or deadline, releasing their pages. The slot an
-  admission is filling takes part in the decode step with its last
+  chunked admission by one call, refill free slots from the queue (under
+  the paged layouts behind the pool gate), one decode step, then retire
+  rows on EOS, ``max_new_tokens`` or deadline, releasing their pages. The
+  slot an admission is filling takes part in the decode step with its last
   occupant's counters; under the paged layouts the step's block table maps
   nothing for it, so its writes land in the null block, never in the new
   request's staged or shared pages (dense rows write their own cache row,
@@ -49,6 +48,27 @@ shared page is never written through (write routing and the COW guard),
 blocks free on their last reference, and unreferenced cached prefixes drop
 LRU-first before an admission is made to wait.
 
+**Preemption** (``preemption="recompute" | "swap" | "auto"``, paged layouts
+only): with it off, admission reserves each request's worst case
+``prompt + max_new_tokens``. With it on, a request admits when its prompt
+pages fit (plus ``admit_headroom_blocks``), decode pages map lazily at each
+block crossing, and a crossing that finds the pool dry first drops a cached
+prefix, then preempts a victim: never a higher tier than the resident that
+needs the page, then the tenant holding the most pages, the most pages held,
+the fewest tokens generated, the newest request; if every other request
+outranks it, the resident yields itself; the last one never does. A head of
+a strictly higher tier preempts lower tiers to admit. The queue is sorted by
+tier (FIFO within one) when preemption is on or a request has a priority.
+A victim is requeued: ``recompute`` frees its pages and replays it from its
+prompt, greedy token-identical; ``swap`` first copies its pages and row
+state to host tensors (:class:`~.kv_pool.SwapBundle`) and resumes it where
+it stopped once its worst case fits again (a readmitted victim always
+reserves its worst case, so preemptions end); ``auto`` prices both per
+victim (the decode step's p50 times the tokens a replay would redo, against
+the pool bytes over ``swap_link_gbps``) and takes the cheaper. A victim
+taken mid-admission always recomputes. ``postmortems()`` keeps each
+victim's record.
+
 KV layouts (``kv_layout``): ``"dense"`` keeps per-slot ``(h, N, d)`` cross
 caches; ``"paged"`` and ``"paged_int8"`` keep one flat pool addressed
 through per-slot block tables (:mod:`.kv_pool`); on the card the paged
@@ -64,15 +84,18 @@ scope restrictions, enforced at ``submit``:
   occupy latent slots (the boundary cache's precondition).
 
 Not ported yet (they raise ``NotImplementedError``, see ``ROADMAP.md`` A):
-preemption and swap, speculation, the serving mesh, the ``kv_layout="auto"``
-autotuner with ``prefix_cache="auto"``, and sampling. There is no tracer,
-chaos registry or timeline, and no trace-env fingerprint guards the prefix
-index (the port has no trace-env flags).
+speculation, the serving mesh, the ``kv_layout="auto"`` autotuner with
+``prefix_cache="auto"``, and sampling; nor ``evacuate`` and
+``resize_slots``. There is no tracer, chaos registry, flight recorder or
+timeline, no swap-rate registry (``swap_link_gbps`` defaults to a 16 GB/s
+prior, refined in memory by every measured transfer), and no trace-env
+fingerprint guards the prefix index (the port has no trace-env flags).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from collections import deque
+from typing import Deque, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -93,13 +116,25 @@ from perceiver_io_tpu_torch.inference.generate import (
     _slot_decode_step_paged,
 )
 from perceiver_io_tpu_torch.inference.samplers import apply_min_new_tokens, sample_logits
+from perceiver_io_tpu_torch.observability.timeline import tenant_label, tier_label
 from perceiver_io_tpu_torch.ops import paged_attention as paged_ops
 from perceiver_io_tpu_torch.serving.engine import ServeRequest, ServingEngine
-from perceiver_io_tpu_torch.serving.kv_pool import KVPagePool, PrefixBlockIndex
+from perceiver_io_tpu_torch.serving.kv_pool import (
+    KVPagePool,
+    PoolExhausted,
+    PrefixBlockIndex,
+    SwapBundle,
+)
 
 KV_LAYOUTS = ("dense", "paged", "paged_int8")
 PAGED_KV_LAYOUTS = ("paged", "paged_int8")
 PREFIX_CACHE_MODES = ("auto", "on", "off")
+PREEMPTION_MODES = ("off", "recompute", "swap", "auto")
+#: the host link's rate (decimal GB/s) the swap cost model assumes until a
+#: measured transfer refines it
+SWAP_LINK_GBPS_PRIOR = 16.0
+#: decode-step samples the cost model's p50 reads (the newest ones)
+STEP_MS_WINDOW = 2048
 
 _SLOT_COUNTERS = (
     "serving_decode_steps_total",
@@ -117,7 +152,18 @@ _SLOT_COUNTERS = (
     "kv_prefix_evicted_blocks_total",
     "kv_prefix_published_blocks_total",
     "kv_ragged_kernel_steps_total",
+    "kv_preemptions_total",
+    "kv_readmissions_total",
+    "kv_swaps_total",
+    "kv_swap_restores_total",
+    "kv_swap_bytes_total",
 )
+#: the per-slot row state a swapped victim carries (besides its pages and
+#: stack caches); the counters travel as int32, as the reference's state
+#: holds them, and come back as the port's int64
+_ROW_KEYS = ("window", "pad", "length", "m", "steps", "logits")
+_ROW_HOST_DTYPES = {"window": torch.int32, "pad": torch.int32, "length": torch.int32,
+                    "m": torch.int32, "steps": torch.int32}
 
 
 def _deferred(what: str) -> NotImplementedError:
@@ -283,6 +329,72 @@ def _copy_page(state: dict, src: int, dst: int, block_size: int) -> None:
             state[key][d] = state[key][s]
 
 
+def _page_positions(table_row: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Flat pool indices of every position of every page of a padded block
+    table row, page order (unmapped pages address the null block)."""
+    return paged_ops.flat_position_indices(table_row, block_size,
+                                           table_row.shape[-1] * block_size).long()
+
+
+def _swap_extract(state: dict, table_row: torch.Tensor, slot: int, block_size: int) -> dict:
+    """The device half of swap-out: copy one slot's pool pages, through its
+    **full padded** table row (int8 pages with their scales), and its row
+    state and stack caches into host tensors. The copies are synchronous,
+    so the gather has finished when this returns: the caller may release
+    the pages, and the next admission may overwrite them."""
+    flat = _page_positions(table_row, block_size)
+
+    def host(x, dtype=None):
+        return x.to(device="cpu", dtype=dtype, copy=True)
+
+    out = {key: host(state[key][flat]) for key in ("pool_k", "pool_v", "scale_k", "scale_v")
+           if key in state}
+    row = {key: host(state[key][slot], _ROW_HOST_DTYPES.get(key)) for key in _ROW_KEYS}
+    row["stack_k"] = [host(layer[slot]) for layer in state["stack_k"]]
+    row["stack_v"] = [host(layer[slot]) for layer in state["stack_v"]]
+    out["row"] = row
+    return out
+
+
+def _payload_bytes(payload: dict) -> int:
+    """Bytes of a swap payload's host tensors (the transfer one way)."""
+    leaves = [v for k, v in payload.items() if k != "row"]
+    for key, value in payload["row"].items():
+        leaves.extend(value if isinstance(value, list) else [value])
+    return int(sum(t.numel() * t.element_size() for t in leaves))
+
+
+def _swap_restore(state: dict, payload: dict, table_row: torch.Tensor, slot: int,
+                  lo_blocks: int, block_size: int) -> None:
+    """The device half of swap-in, **in place**: scatter the payload's pages
+    through the slot's new table row and write its row state back. Pages
+    below ``lo_blocks`` (the shared prefix run, whose content never left
+    the pool) and the unmapped tail go to the null block, so a shared page
+    is never written through; int8 pages and scales come back bit-exact."""
+    flat = _page_positions(table_row, block_size)
+    pos = torch.arange(flat.numel(), device=flat.device)
+    idx = torch.where(pos >= lo_blocks * block_size, flat, pos % block_size)
+    for key in ("pool_k", "pool_v", "scale_k", "scale_v"):
+        if key in state:
+            state[key][idx] = payload[key].to(device=state[key].device, dtype=state[key].dtype)
+    row = payload["row"]
+    for key in _ROW_KEYS:
+        state[key][slot] = row[key].to(device=state[key].device, dtype=state[key].dtype)
+    for name in ("stack_k", "stack_v"):
+        for dst, src in zip(state[name], row[name]):
+            dst[slot] = src.to(device=dst.device, dtype=dst.dtype)
+
+
+def _nearest_rank(samples: List[float], p: float) -> Optional[float]:
+    """Nearest-rank percentile over the newest :data:`STEP_MS_WINDOW`
+    samples (None if empty): the cost model reads the decode step's p50 as
+    the reference's metrics registry computes it."""
+    if not samples:
+        return None
+    ordered = sorted(samples[-STEP_MS_WINDOW:])
+    return ordered[min(len(ordered) - 1, int(round(p / 100.0 * (len(ordered) - 1))))]
+
+
 class SlotServingEngine(ServingEngine):
     """Token-granular scheduler over the persistent-slot decode state. Shares
     the bucket engine's request surface (``submit`` / ``serve`` / ``step`` /
@@ -308,18 +420,24 @@ class SlotServingEngine(ServingEngine):
         admits every prompt in one call.
     :param prefix_cache: ``"on"`` shares published prompt-prefix blocks
         between requests (paged layouts only); ``"off"`` or None does not.
+    :param preemption: ``"off"`` (default, also None), ``"recompute"``,
+        ``"swap"`` or ``"auto"`` (paged layouts only; module docstring).
+    :param admit_headroom_blocks: decode blocks a lazy admission reserves
+        beyond its prompt pages (0 admits on prompt pages alone).
+    :param swap_link_gbps: the host link's rate (decimal GB/s) for the
+        swap cost model; default :data:`SWAP_LINK_GBPS_PRIOR`. Every
+        measured transfer moves it halfway to the measured rate.
     """
 
     def __init__(self, model, config: Optional[GenerationConfig] = None, table=None, *,
                  slots: int = 8, kv_layout: str = "dense", kv_block_size: Optional[int] = None,
                  kv_blocks: Optional[int] = None, decode_strategy: Optional[str] = None,
                  prefill_chunk: Optional[int] = None, prefix_cache: Optional[str] = None,
-                 preemption: Optional[str] = None, speculation: Optional[str] = None,
+                 preemption: Optional[str] = None, admit_headroom_blocks: int = 0,
+                 swap_link_gbps: Optional[float] = None, speculation: Optional[str] = None,
                  mesh=None, device: DeviceLike = "cuda", **kwargs):
         if prefix_cache == "auto":
             raise _deferred("prefix_cache='auto' (the prefix-cache autotuner)")
-        if preemption not in (None, "off"):
-            raise _deferred(f"preemption={preemption!r} (preemption and swap)")
         if speculation not in (None, "off"):
             raise _deferred(f"speculation={speculation!r} (speculative decoding)")
         if mesh is not None:
@@ -338,6 +456,18 @@ class SlotServingEngine(ServingEngine):
             )
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if preemption is not None and preemption not in PREEMPTION_MODES:
+            raise ValueError(f"preemption must be one of {PREEMPTION_MODES}, got {preemption!r}")
+        if admit_headroom_blocks < 0:
+            raise ValueError(f"admit_headroom_blocks must be >= 0, got {admit_headroom_blocks}")
+        if preemption not in (None, "off") and kv_layout not in PAGED_KV_LAYOUTS:
+            raise ValueError(
+                f"preemption={preemption!r} admits against the block pool but the KV layout "
+                f"resolved to {kv_layout!r} — lazy pages need kv_layout='paged' (or 'paged_int8'; "
+                "dense slots reserve their worst case by construction)"
+            )
+        if swap_link_gbps is not None and swap_link_gbps <= 0:
+            raise ValueError(f"swap_link_gbps must be > 0, got {swap_link_gbps}")
         super().__init__(model, config, table, decode_strategy=decode_strategy, device=device,
                          **kwargs)
         if self.config.sampling.do_sample:
@@ -363,8 +493,27 @@ class SlotServingEngine(ServingEngine):
         self.boundary_mode = "cached" if _boundary_cached(decode_strategy) else "recompute"
         self.prefill_chunk = None if prefill_chunk is None else int(min(prefill_chunk, n))
         self.prefix_cache = "on" if prefix_cache == "on" else "off"
+        self.preemption = preemption or "off"
+        self.admit_headroom_blocks = int(admit_headroom_blocks)
+        self.swap_link_gbps = float(swap_link_gbps if swap_link_gbps is not None
+                                    else SWAP_LINK_GBPS_PRIOR)
         self.counters.update(dict.fromkeys(_SLOT_COUNTERS, 0))
-        self.samples.update(decode_step_ms=[], prefill_ms=[], prefill_chunk_ms=[])
+        self.samples.update(decode_step_ms=[], prefill_ms=[], prefill_chunk_ms=[],
+                            swap_out_ms=[], swap_in_ms=[])
+        #: preemption accounting: victims per tier and per tenant label, the
+        #: tokens each tenant label generated, and the per-victim post-mortem
+        #: records (a bounded ring; the totals survive it)
+        self._preempted_by_tier: Dict[int, int] = {}
+        self._preempted_by_tenant: Dict[str, int] = {}
+        self._tokens_by_tenant: Dict[str, int] = {}
+        self._postmortems: Deque[dict] = deque(maxlen=256)
+        self._postmortem_totals = {
+            "count": 0, "swapped": 0, "tokens_discarded": 0, "pages_released": 0,
+            "victim_bytes": 0, "recompute_est_ms": 0.0, "swap_est_ms": 0.0,
+            "swap_measured_ms": 0.0,
+        }
+        #: request id -> the host image of a swapped-out victim awaiting readmission
+        self._swap_bundles: Dict[int, SwapBundle] = {}
         self._slots: List[Optional[_Slot]] = [None] * self.slots
         self._admitting: Optional[_ChunkedAdmit] = None
         self._kv_waiting_id: Optional[int] = None
@@ -378,6 +527,14 @@ class SlotServingEngine(ServingEngine):
         self._prefix_index: Optional[PrefixBlockIndex] = (
             PrefixBlockIndex(self.kv_block_size) if self.prefix_cache == "on" else None)
         self._state = self._new_state()
+        if self._pool is not None:
+            # the cost model's bytes per pooled position (k and v), and the
+            # int8 layout's fp32 scales; the stack caches are not counted,
+            # as the reference does not count them
+            pool_k = self._state["pool_k"]
+            h, d = pool_k.shape[1], pool_k.shape[2]
+            self._kv_token_bytes = 2 * h * d * pool_k.element_size()
+            self._kv_scale_token_bytes = 2 * h * 4 if "scale_k" in self._state else 0
 
     # -- state and pool -----------------------------------------------------
     def _new_state(self) -> dict:
@@ -503,8 +660,8 @@ class SlotServingEngine(ServingEngine):
         copied on write (the page copy runs before any write lands), and the
         rest of the worst case reserved privately."""
         pool = self._pool
-        pool.reserve(slot, int(req.prompt.size) + req.config.max_new_tokens,
-                     shared_blocks=len(plan.nodes))
+        self._reserve_admit(slot, int(req.prompt.size), req.config.max_new_tokens,
+                            shared_blocks=len(plan.nodes), pessimistic=bool(req.preemptions))
         blocks = [node.block for node in plan.nodes]
         if plan.partial is not None:
             blocks.append(plan.partial.block)
@@ -563,11 +720,281 @@ class SlotServingEngine(ServingEngine):
                 changed = True
         return changed
 
-    def _admit_need(self, req: ServeRequest, plan: Optional[_PrefixPlan]) -> int:
+    # -- preemption -----------------------------------------------------------
+    def _reserve_admit(self, slot: int, prompt_tokens: int, max_new: int, *,
+                       shared_blocks: int = 0, pessimistic: bool = False) -> None:
+        """One admission's pool reservation: the worst case up front (with
+        preemption off, or ``pessimistic`` for a readmitted victim) or lazily,
+        the prompt pages plus ``admit_headroom_blocks`` with the worst case
+        as a soft watermark (:meth:`KVPagePool.reserve_lazy`)."""
+        total = prompt_tokens + max_new
+        if self.preemption == "off" or pessimistic:
+            self._pool.reserve(slot, total, shared_blocks=shared_blocks)
+        else:
+            self._pool.reserve_lazy(slot, prompt_tokens, total, headroom=self.admit_headroom_blocks,
+                                    shared_blocks=shared_blocks)
+
+    def _admit_need(self, req: ServeRequest, plan: Optional[_PrefixPlan],
+                    bundle: Optional[SwapBundle] = None) -> int:
         """Blocks the gate must see reservable before ``req`` admits: its
-        worst case, less the blocks it maps by reference."""
+        worst case less the blocks it maps by reference, or, under lazy
+        admission, its private prompt pages plus the headroom. A request
+        preempted before readmits under its worst case: lazy readmission
+        could let long tails evict each other forever, while each preemption
+        that moves a request to the guaranteed class bounds them by the
+        request count. A swapped victim (``bundle``) maps its bundle's
+        shared prefix blocks by reference."""
+        if bundle is not None:
+            shared = len(bundle.shared)
+        else:
+            shared = len(plan.nodes) if plan is not None else 0
         tokens = int(req.prompt.size) + req.config.max_new_tokens
-        return self._pool.blocks_needed(tokens) - (len(plan.nodes) if plan is not None else 0)
+        total = self._pool.blocks_needed(tokens) - shared
+        if self.preemption == "off" or req.preemptions:
+            return total
+        prompt = self._pool.blocks_needed(int(req.prompt.size)) - shared
+        return min(prompt + self.admit_headroom_blocks, total)
+
+    def _tenant_pages(self) -> Dict[Optional[str], int]:
+        """Pool pages held per tenant by the residents and the admission in
+        flight: at equal priority the tenant holding the most yields first."""
+        pages: Dict[Optional[str], int] = {}
+        holders = self._active() + ([self._admitting] if self._admitting is not None else [])
+        for entry in holders:
+            t = entry.req.tenant
+            pages[t] = pages.get(t, 0) + self._pool.mapped_blocks(entry.slot)
+        return pages
+
+    def _pick_victim(self, priority_cap: int, *, strict: bool,
+                     exclude_slot: int = -1) -> Optional[Union[_Slot, _ChunkedAdmit]]:
+        """The victim among the residents and the admission in flight: never
+        a tier above ``priority_cap`` (nor at it when ``strict``), then the
+        lowest tier, the most pages held by its tenant, the most pages held,
+        the fewest tokens generated, the newest request."""
+        tenant_pages = self._tenant_pages()
+
+        def key(req: ServeRequest, slot: int, generated: int):
+            return (req.priority, -tenant_pages.get(req.tenant, 0),
+                    -self._pool.mapped_blocks(slot), generated, -req.request_id)
+
+        def eligible(req: ServeRequest) -> bool:
+            return req.priority < priority_cap or (not strict and req.priority == priority_cap)
+
+        best, best_key = None, None
+        for entry in self._active():
+            if entry.slot == exclude_slot or not eligible(entry.req):
+                continue
+            k = key(entry.req, entry.slot, len(entry.emitted))
+            if best_key is None or k < best_key:
+                best, best_key = entry, k
+        admit = self._admitting
+        if admit is not None and admit.slot != exclude_slot and eligible(admit.req):
+            k = key(admit.req, admit.slot, 0)
+            if best_key is None or k < best_key:
+                best = admit
+        return best
+
+    def _preempt_victim(self, victim: Union[_Slot, _ChunkedAdmit]) -> None:
+        """Preempt one victim and requeue its request (still ``queued``):
+        every page it maps returns (shared ones are dereferenced, never
+        freed under their other holders). The disposition is priced first,
+        so ``auto`` and the post-mortem read the same numbers: ``recompute``
+        frees the pages and discards the tokens, ``swap`` copies them to the
+        host first (:meth:`_swap_out`). A victim taken mid-admission has no
+        row to save: its staging caches drop and it recomputes."""
+        req = victim.req
+        if isinstance(victim, _ChunkedAdmit):
+            generated = 0
+            self._admitting = None
+            victim.stage_k = victim.stage_v = None
+        else:
+            generated = len(victim.emitted)
+            self._slots[victim.slot] = None
+        pages = self._pool.mapped_blocks(victim.slot)
+        step_ms = _nearest_rank(self.samples["decode_step_ms"], 50.0) or 0.0
+        victim_bytes = pages * self.kv_block_size * (self._kv_token_bytes
+                                                     + self._kv_scale_token_bytes)
+        recompute_ms = generated * step_ms
+        swap_ms = victim_bytes / (self.swap_link_gbps * 1e9) * 1e3
+        mode = "recompute"
+        if not isinstance(victim, _ChunkedAdmit) and (
+                self.preemption == "swap" or (self.preemption == "auto" and swap_ms < recompute_ms)):
+            mode = "swap"
+        swap_out = self._swap_out(victim) if mode == "swap" else None
+        if swap_out is None:
+            self._kv_release(victim.slot, cause="preempted")
+        req.preemptions += 1
+        req.started_at = None
+        self._queue.append(req)  # the next admission pass sorts the queue
+        self._inc("kv_preemptions_total")
+        tier = int(req.priority)
+        name = f"kv_preemptions_tier_{tier_label(tier)}_total"
+        self.counters[name] = self.counters.get(name, 0) + 1
+        self._preempted_by_tier[tier] = self._preempted_by_tier.get(tier, 0) + 1
+        tkey = tenant_label(req.tenant)
+        self._preempted_by_tenant[tkey] = self._preempted_by_tenant.get(tkey, 0) + 1
+        pm = {
+            "request_id": req.request_id, "tenant": req.tenant, "priority": tier,
+            "slot": victim.slot, "mode": mode,
+            # under swap nothing is discarded: the cost model's input
+            "tokens_discarded": generated, "pages_released": pages,
+            "victim_bytes": int(victim_bytes), "decode_step_ms": round(step_ms, 3),
+            "recompute_est_ms": round(recompute_ms, 3), "swap_est_ms": round(swap_ms, 3),
+            "swap_advantage_ms": round(recompute_ms - swap_ms, 3),
+        }
+        if swap_out is not None:
+            pm["swap_measured_ms"] = round(swap_out["ms"], 3)
+            pm["payload_bytes"] = swap_out["bytes"]
+        self._postmortems.append(pm)
+        totals = self._postmortem_totals
+        totals["count"] += 1
+        totals["swapped"] += int(mode == "swap")
+        totals["tokens_discarded"] += generated
+        totals["pages_released"] += pages
+        totals["victim_bytes"] += int(victim_bytes)
+        totals["recompute_est_ms"] += recompute_ms
+        totals["swap_est_ms"] += swap_ms
+        if swap_out is not None:
+            totals["swap_measured_ms"] += swap_out["ms"]
+
+    def _swap_out(self, victim: _Slot) -> dict:
+        """Copy the victim's pages and row state to the host, then release
+        its blocks (``frees_by_cause["swapped"]``; its leading shared blocks
+        keep one bundle reference each, so their content stays in the pool)
+        and park the :class:`SwapBundle` under its request id. The copy runs
+        before the release: once freed, the pages may be reused by the next
+        admission. Returns ``{"bytes", "ms"}`` of the measured transfer."""
+        req, slot, pool = victim.req, victim.slot, self._pool
+        # the host table: this step's ensure loop may not have pushed it yet
+        row = torch.from_numpy(np.array(pool.table_row(slot))).to(self.device)
+        t0 = self._clock()
+        payload = _swap_extract(self._state, row, slot, self.kv_block_size)
+        wall = self._clock() - t0
+        shared, private = pool.extract(slot, cause="swapped")
+        self._push_table()
+        bytes_moved = _payload_bytes(payload)
+        self._swap_bundles[req.request_id] = SwapBundle(
+            request_id=req.request_id, payload=payload, shared=shared, n_private=len(private),
+            tokens=int(req.prompt.size) + len(victim.emitted), emitted=list(victim.emitted),
+            m=int(victim.m), last_token_at=victim.last_token_at, bytes_moved=bytes_moved,
+        )
+        ms = wall * 1e3
+        self._inc("kv_swaps_total")
+        self._inc("kv_swap_bytes_total", bytes_moved)
+        self.samples["swap_out_ms"].append(ms)
+        self._calibrate_swap(bytes_moved, wall)
+        return {"bytes": bytes_moved, "ms": ms}
+
+    def _restore_admit(self, req: ServeRequest, slot: int, bundle: SwapBundle) -> None:
+        """Readmit a swapped victim without replay: reserve its worst case,
+        map its shared run by reference and fresh private pages for its
+        resident positions, scatter the payload through the new table row and
+        resume it where it stopped (its tokens, latent count and last token
+        time come back, so its next step samples the logits it was preempted
+        with)."""
+        pool = self._pool
+        self._start_admit(req)
+        try:
+            pool.restore(slot, bundle.shared, int(req.prompt.size) + req.config.max_new_tokens,
+                         bundle.tokens)
+        except BaseException:
+            # the pool is untouched; the caller fails the request, so the
+            # bundle's references must drop here
+            self._release_bundle(bundle, cause="failover")
+            raise
+        pool.set_owner(slot, tenant_label(req.tenant))
+        for block in bundle.shared:  # the slot holds its own references now
+            pool.deref(block, cause="swapped")
+        self._push_table()
+        t1 = self._clock()
+        with torch.no_grad():
+            _swap_restore(self._state, bundle.payload, self._table_dev[slot], slot,
+                          len(bundle.shared), self.kv_block_size)
+        self._state["length"][slot].item()  # host sync: the host-to-device leg ends here
+        wall = self._clock() - t1
+        ms = wall * 1e3
+        self._inc("kv_swap_restores_total")
+        self._inc("kv_swap_bytes_total", bundle.bytes_moved)
+        self.samples["swap_in_ms"].append(ms)
+        self._calibrate_swap(bundle.bytes_moved, wall)
+        self._slots[slot] = _Slot(req=req, slot=slot, max_new=req.config.max_new_tokens,
+                                  m=int(bundle.m), emitted=list(bundle.emitted),
+                                  last_token_at=bundle.last_token_at)
+
+    def _calibrate_swap(self, bytes_moved: int, seconds: float) -> None:
+        """Move the link-rate model halfway to one measured transfer's rate
+        (in memory only). Zero-length measurements (a frozen test clock) are
+        skipped."""
+        if seconds <= 0 or bytes_moved <= 0:
+            return
+        measured = bytes_moved / (seconds * 1e9)
+        self.swap_link_gbps = round(0.5 * self.swap_link_gbps + 0.5 * measured, 6)
+
+    def _release_bundle(self, bundle: SwapBundle, cause: str) -> None:
+        """Drop a parked bundle's references on its shared blocks (it may
+        hold the last one of a block the prefix index evicted meanwhile)."""
+        for block in bundle.shared:
+            self._pool.deref(block, cause=cause)
+
+    def _drop_bundle(self, request_id: int, cause: str) -> None:
+        """Drop the parked bundle of a request that left the queue other
+        than by its restore."""
+        bundle = self._swap_bundles.pop(request_id, None)
+        if bundle is not None:
+            self._release_bundle(bundle, cause=cause)
+
+    def postmortems(self) -> dict:
+        """The preemption post-mortems: lifetime recompute-against-swap
+        totals and the last few per-victim records."""
+        totals = self._postmortem_totals
+        return {
+            "count": totals["count"],
+            "swapped": totals["swapped"],
+            "tokens_discarded": totals["tokens_discarded"],
+            "pages_released": totals["pages_released"],
+            "victim_bytes": totals["victim_bytes"],
+            "recompute_est_ms": round(totals["recompute_est_ms"], 3),
+            "swap_est_ms": round(totals["swap_est_ms"], 3),
+            "swap_measured_ms": round(totals["swap_measured_ms"], 3),
+            "swap_advantage_ms": round(totals["recompute_est_ms"] - totals["swap_est_ms"], 3),
+            "swap_link_gbps": self.swap_link_gbps,
+            "swapped_waiting": len(self._swap_bundles),
+            "recent": list(self._postmortems)[-8:],
+        }
+
+    def _preempt_lower_tier(self, head: ServeRequest) -> bool:
+        """Admission-time preemption: a head of a strictly higher tier may
+        preempt a lower one; equal tiers wait FIFO."""
+        victim = self._pick_victim(head.priority, strict=True)
+        if victim is None:
+            return False
+        self._preempt_victim(victim)
+        return True
+
+    def _reclaim_decode_page(self, entry: _Slot) -> str:
+        """A resident crossing a block boundary found the pool dry: drop an
+        unreferenced cached prefix block, else preempt a victim at or below
+        its tier, else (every other live request outranks it) it yields.
+        Returns ``"reclaimed"`` (retry the mapping), ``"yielded"`` (the
+        entry is gone) or ``"stuck"`` (it is the last live request, which is
+        never preempted; unreachable while submit bounds one request's
+        need)."""
+        index = self._prefix_index
+        while index is not None:
+            freed = index.evict_one(self._pool)
+            if freed is None:
+                break
+            self._inc("kv_prefix_evicted_blocks_total")
+            if freed:
+                return "reclaimed"
+        victim = self._pick_victim(entry.req.priority, strict=False, exclude_slot=entry.slot)
+        if victim is not None:
+            self._preempt_victim(victim)
+            return "reclaimed"
+        if self._admitting is not None or len(self._active()) > 1:
+            self._preempt_victim(entry)
+            return "yielded"
+        return "stuck"
 
     # -- slot lifecycle -----------------------------------------------------
     def _active(self) -> List[_Slot]:
@@ -606,10 +1033,14 @@ class SlotServingEngine(ServingEngine):
         return window.to(self.device), pad.to(self.device)
 
     def _start_admit(self, req: ServeRequest) -> float:
-        """Queue wait ends when the prefill starts; returns that instant."""
+        """Queue wait ends when the prefill (or a swapped victim's restore)
+        starts; returns that instant. A preempted request counts a
+        readmission."""
         t0 = self._clock()
         req.started_at = t0
         self.samples["queue_wait_ms"].append((t0 - req.submitted_at) * 1e3)
+        if req.preemptions:
+            self._inc("kv_readmissions_total")
         return t0
 
     def _finish_admit(self, req: ServeRequest, slot: int, bucket_len: int, m0: int,
@@ -647,9 +1078,12 @@ class SlotServingEngine(ServingEngine):
         t0 = self._start_admit(req)
         table_row = None
         if self._pool is not None:
-            # the gate checked capacity: reserve the worst case and map the
-            # prompt's pages; decode steps map the rest as positions fill
-            self._pool.reserve(slot, prompt_len + cfg.max_new_tokens)
+            # the gate checked capacity: reserve (the worst case, or lazily
+            # the prompt's pages) and map the prompt's pages; decode steps
+            # map the rest as positions fill
+            self._reserve_admit(slot, prompt_len, cfg.max_new_tokens,
+                                pessimistic=bool(req.preemptions))
+            self._pool.set_owner(slot, tenant_label(req.tenant))
             self._pool.ensure(slot, prompt_len)
             self._push_table()
             table_row = self._table_dev[slot]
@@ -683,12 +1117,16 @@ class SlotServingEngine(ServingEngine):
         window, pad = self._row_window(req)
         self._start_admit(req)
         stage_k = stage_v = None
+        if self._pool is not None:
+            self._pool.set_owner(slot, tenant_label(req.tenant))
         if plan is not None:
             self._map_shared_prefix(req, slot, plan)
         else:
             if self._pool is not None:
-                # worst case reserved now; pages map chunk by chunk
-                self._pool.reserve(slot, prompt_len + req.config.max_new_tokens)
+                # reserved now (the worst case, or lazily the prompt's
+                # pages); pages map chunk by chunk
+                self._reserve_admit(slot, prompt_len, req.config.max_new_tokens,
+                                    pessimistic=bool(req.preemptions))
             ref = self._state["stack_k"][0]
             h, d = ref.shape[1], ref.shape[3]
             stage_k = torch.zeros((1, h, n, d), dtype=ref.dtype, device=self.device)
@@ -781,6 +1219,10 @@ class SlotServingEngine(ServingEngine):
             self._retire(entry, "failed", error=error)
             failed += 1
         if self._pool is not None:
+            # parked bundles' shared blocks are about to be blanked: their
+            # queued requests replay from their prompts instead
+            for rid in list(self._swap_bundles):
+                self._drop_bundle(rid, cause="failover")
             self._pool.release_all()
             if self._prefix_index is not None:
                 # the pool is about to be blanked: cached blocks would
@@ -806,7 +1248,10 @@ class SlotServingEngine(ServingEngine):
             if entry.req.request_id == request_id:
                 self._retire(entry, "cancelled")
                 return True
-        return super().cancel(request_id)
+        if super().cancel(request_id):
+            self._drop_bundle(request_id, cause="cancelled")  # a queued swapped victim
+            return True
+        return False
 
     # -- the token-level scheduler ------------------------------------------
     def _decode(self, boundary: bool) -> torch.Tensor:
@@ -879,32 +1324,49 @@ class SlotServingEngine(ServingEngine):
         return lane and (self._admitting is not None or ran_chunk_call), chunked
 
     def _admit_from_queue(self, ran_chunk_call: bool) -> int:
-        """Refill free slots from the queue head (FIFO). Under the paged
-        layouts the head waits at the pool gate until its worst case (less
-        the blocks it maps by reference) is reservable, after unreferenced
-        cached prefixes have dropped LRU-first (each eviction can shrink the
-        match, so the plan is derived again). Returns the requests disposed
-        of; a prefill fault fails the residents too."""
+        """Refill free slots from the queue head: FIFO, sorted by tier first
+        when preemption is on or a request has a priority. Under the paged
+        layouts the head waits at the pool gate until its need
+        (:meth:`_admit_need`) is reservable, after unreferenced cached
+        prefixes have dropped LRU-first (each eviction can shrink the match,
+        so the plan is derived again) and, under preemption, a head of a
+        higher tier has preempted lower tiers. A swapped victim at the head
+        is restored. Returns the requests disposed of; a prefill or restore
+        fault fails the residents too."""
         disposed = 0
+        if self._queue and (self.preemption != "off" or any(r.priority for r in self._queue)):
+            # stable: FIFO within a tier, and a replay returns to its place
+            self._queue.sort(key=lambda r: (-r.priority, r.request_id))
         while self._queue:
             slot = self._free_slot()
             if slot is None:
                 break
             head = self._queue[0]
-            try:
-                plan = self._prefix_plan(head)
-            except ValueError:
-                plan = None  # an infeasible head fails in _admit
+            # a swapped victim restores from its bundle: no prefix plan (its
+            # pages hold its prefix) and no chunk lane (one scatter)
+            bundle = self._swap_bundles.get(head.request_id)
+            plan = None
+            if bundle is None:
+                try:
+                    plan = self._prefix_plan(head)
+                except ValueError:
+                    plan = None  # an infeasible head fails in _admit
             # the lane check comes before the gate: a head that cannot admit
             # this step must not evict cached prefixes for room it cannot use
-            blocked, chunked = self._lane_blocked(head, plan, ran_chunk_call)
+            blocked, chunked = (False, False) if bundle is not None else \
+                self._lane_blocked(head, plan, ran_chunk_call)
             if blocked:
                 break
             if self._pool is not None:
                 while True:
-                    need = self._admit_need(head, plan)
-                    if self._pool.can_reserve(need) or not self._evict_for(need):
+                    need = self._admit_need(head, plan, bundle)
+                    if self._pool.can_reserve(need):
                         break
+                    if not self._evict_for(need) and not (
+                            self.preemption != "off" and self._preempt_lower_tier(head)):
+                        break
+                    if bundle is not None:
+                        continue
                     try:
                         plan = self._prefix_plan(head)
                     except ValueError:
@@ -915,10 +1377,21 @@ class SlotServingEngine(ServingEngine):
                         self._kv_waiting_id = head.request_id
                         self._inc("kv_pool_admit_waits_total")
                     break
-                blocked, chunked = self._lane_blocked(head, plan, ran_chunk_call)
+                blocked, chunked = (False, False) if bundle is not None else \
+                    self._lane_blocked(head, plan, ran_chunk_call)
                 if blocked:
                     break
             req = self._queue.pop(0)
+            if bundle is not None:
+                del self._swap_bundles[req.request_id]
+                try:
+                    self._restore_admit(req, slot, bundle)
+                except Exception as e:  # the scatter may have half-written the state
+                    error = f"{type(e).__name__}: {e}"
+                    self._finish(req, "failed", error=error)
+                    return disposed + 1 + self._fail_resident(
+                        f"swap-restore fault poisoned the slot state: {error}")
+                continue
             try:
                 if chunked:
                     self._start_chunked_admit(req, slot, plan)
@@ -937,6 +1410,36 @@ class SlotServingEngine(ServingEngine):
                     f"prefill fault poisoned the slot state: {error}")
         return disposed
 
+    def _map_decode_pages(self, active: List[_Slot]) -> bool:
+        """Map the page each resident's next write lands on, and copy on
+        write any still-shared page it would write through. With preemption
+        off admission reserved the worst case, so this cannot run dry; under
+        lazy admission a dry pool raises :class:`PoolExhausted`, and the
+        resident reclaims a page (:meth:`_reclaim_decode_page`), preempting a
+        victim or yielding. Returns True when the table changed."""
+        changed = False
+        for entry in active:
+            if self._slots[entry.slot] is not entry:
+                continue  # preempted as an earlier row's victim
+            next_len = int(entry.req.prompt.size) + len(entry.emitted) + 1
+            while True:
+                try:
+                    changed |= self._pool.ensure(entry.slot, next_len)
+                    changed |= self._cow_guard(entry, next_len)
+                    break
+                except PoolExhausted as e:
+                    if self.preemption == "off":
+                        raise
+                    outcome = self._reclaim_decode_page(entry)
+                    if outcome == "yielded":
+                        break
+                    if outcome == "stuck":
+                        raise RuntimeError(
+                            "preemption found no victim and no evictable prefix for the sole "
+                            f"resident — single-request feasibility was checked at submit: {e}"
+                        ) from e
+        return changed
+
     def step(self) -> int:
         """Advance serving by ONE TOKEN: expire deadlines (queued, resident
         and mid-admission), advance an in-flight chunked admission by one
@@ -945,6 +1448,9 @@ class SlotServingEngine(ServingEngine):
         the number of requests disposed of; ``pending()`` says whether work
         remains (a mid-generation step disposes of 0)."""
         disposed = self._expire_overdue()
+        # a swapped victim whose request left the queue by its deadline
+        for rid in [r for r in self._swap_bundles if r not in {q.request_id for q in self._queue}]:
+            self._drop_bundle(rid, cause="retire")
         now = self._clock()
         for entry in self._active():
             req = entry.req
@@ -983,20 +1489,15 @@ class SlotServingEngine(ServingEngine):
             return disposed
 
         num_latents = self.model.max_latents
-        boundary = any(s.m >= num_latents for s in active)
         t0 = self._clock()
         try:
             if self._pool is not None:
-                # map the page each row's next write lands on (infallible:
-                # admission reserved the worst case), and copy on write any
-                # still-shared page it would write through
-                changed = False
-                for entry in active:
-                    next_len = int(entry.req.prompt.size) + len(entry.emitted) + 1
-                    changed |= self._pool.ensure(entry.slot, next_len)
-                    changed |= self._cow_guard(entry, next_len)
-                if changed:
+                if self._map_decode_pages(active):
                     self._push_table()
+                active = self._active()
+                if not active:
+                    return disposed  # every resident yielded: the replays admit next step
+            boundary = any(s.m >= num_latents for s in active)
             with torch.no_grad():
                 tokens = self._decode(boundary).cpu().numpy()  # host sync: the scheduling point
         except Exception as e:
@@ -1013,6 +1514,8 @@ class SlotServingEngine(ServingEngine):
         eos = self.config.eos_token_id
         for entry in active:
             token = int(tokens[entry.slot])
+            nkey = tenant_label(entry.req.tenant)
+            self._tokens_by_tenant[nkey] = self._tokens_by_tenant.get(nkey, 0) + 1
             if entry.emitted:
                 self.samples["inter_token_ms"].append((token_at - entry.last_token_at) * 1e3)
             else:
@@ -1079,6 +1582,33 @@ class SlotServingEngine(ServingEngine):
                     "published": c["kv_prefix_published_blocks_total"],
                     **self._prefix_index.stats(),
                 })
+            out["preemption"] = {
+                "mode": self.preemption,
+                "admit_headroom_blocks": self.admit_headroom_blocks,
+                "preemptions": c["kv_preemptions_total"],
+                "readmissions": c["kv_readmissions_total"],
+                "swaps": c["kv_swaps_total"],
+                "swap_restores": c["kv_swap_restores_total"],
+                "swap_bytes": c["kv_swap_bytes_total"],
+                "swapped_waiting": len(self._swap_bundles),
+                "swap_link_gbps": self.swap_link_gbps,
+                "by_tier": dict(sorted(self._preempted_by_tier.items())),
+                "by_tenant": dict(sorted(self._preempted_by_tenant.items())),
+                "headroom_blocks": self._pool.headroom_blocks,
+                "postmortems": self.postmortems(),
+            }
+        # per-tenant rollup: resident pool pages, generated tokens, victims
+        pages_by_tenant: Dict[str, int] = {}
+        if self._pool is not None:
+            for tenant, held in self._tenant_pages().items():
+                key = tenant_label(tenant)
+                pages_by_tenant[key] = pages_by_tenant.get(key, 0) + held
+        keys = set(pages_by_tenant) | set(self._tokens_by_tenant) | set(self._preempted_by_tenant)
+        if keys:
+            out["tenants"] = {key: {"blocks_in_use": pages_by_tenant.get(key, 0),
+                                    "tokens": self._tokens_by_tenant.get(key, 0),
+                                    "preemptions": self._preempted_by_tenant.get(key, 0)}
+                              for key in sorted(keys)}
         return out
 
     def health(self) -> dict:
@@ -1088,6 +1618,7 @@ class SlotServingEngine(ServingEngine):
         out["admitting"] = self._admitting is not None
         out["kv_layout"] = self.kv_layout
         out["prefix_cache"] = self.prefix_cache
+        out["preemption"] = self.preemption
         if self._pool is not None:
             out["kv_pool_in_use"] = self._pool.in_use
             out["kv_pool_leaked"] = self._pool.leaked()

@@ -5,6 +5,8 @@
     python3 profile_serve.py --engine slots --kv-layout paged  # slot engine
     python3 profile_serve.py --engine slots --kv-layout paged \
         --prefill-chunk 128 --prefix-cache on                  # chunking, prefix sharing
+    python3 profile_serve.py --engine slots --kv-layout paged \
+        --preemption swap --kv-blocks 160                      # a pressured pool
     python3 profile_serve.py --engine train                    # one train step
 
 ``--engine bucket`` (default) serves the 8-request workload of
@@ -14,8 +16,14 @@ slots`` serves the 12-request workload of its slot-serve phase through
 paged), or, with ``--prefill-chunk`` or ``--prefix-cache on``, the
 12-request workload of its slot-prefix phase (one shared 384-token system
 prompt) with those settings; each pass starts a fresh engine, so its prefix
-index starts empty. Both over the full-width CLM (random weights from a seed) on one
-GPU, in fp32 and in bf16 compute. For each: one warm-up pass, one timed pass
+index starts empty. ``--preemption`` (recompute, swap or auto) with
+``--kv-blocks`` and ``--admit-headroom-blocks`` serves the slot-preempt
+phase's traffic instead: the same requests, every third interactive and
+arriving 8 decode steps after the rest, so the pool's pressure preempts at
+admission and at decode (the swap copies and the replayed prefills show in
+the breakdown, and the line gives the preemption counts). Both over the
+full-width CLM (random weights from a seed) on one GPU, in fp32 and in bf16
+compute. For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
 ``torch.profiler``. ``--engine train`` instead runs optimizer steps of
 ``chip_smoke.py``'s ``Trainer.fit`` run (8 rows x 1024 tokens, 2
@@ -75,14 +83,21 @@ def _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod, engine_mod, 
     gcfg, prompts, news = workload(torch, gen_mod, vocab_size)
     table = buckets.BucketTable(prompt_lens=chip_smoke.SLOT_BUCKETS, batch_sizes=(1,))
 
+    configs = [dataclasses.replace(gcfg, max_new_tokens=k) for k in news]
+
     def make(model):
         return slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout=args.kv_layout,
                                            prefill_chunk=args.prefill_chunk,
-                                           prefix_cache=args.prefix_cache)
+                                           prefix_cache=args.prefix_cache, kv_blocks=args.kv_blocks,
+                                           preemption=args.preemption,
+                                           admit_headroom_blocks=args.admit_headroom_blocks)
 
     def run(engine):
-        for p, k in zip(prompts, news):
-            engine.submit(p, dataclasses.replace(gcfg, max_new_tokens=k))
+        if args.preemption != "off":
+            chip_smoke.drive_preempt(engine, prompts, configs, chip_smoke.preempt_tags(len(prompts)))
+            return
+        for p, c in zip(prompts, configs):
+            engine.submit(p, c)
         engine.run_until_idle()
 
     return make, run, sum(news)
@@ -217,9 +232,19 @@ def main() -> int:
     parser.add_argument("--prefix-cache", choices=("off", "on"), default="off",
                         help="the slot engine's prefix sharing (runs the slot-prefix workload; "
                              "needs --kv-layout paged)")
+    parser.add_argument("--preemption", choices=("off", "recompute", "swap", "auto"), default="off",
+                        help="the slot engine's preemption (runs the slot-preempt traffic; needs a "
+                             "paged --kv-layout)")
+    parser.add_argument("--kv-blocks", type=int, default=None,
+                        help="the slot engine's pool size in blocks (default: dense capacity)")
+    parser.add_argument("--admit-headroom-blocks", type=int, default=0,
+                        help="decode blocks a lazy admission reserves beyond its prompt pages")
     args = parser.parse_args()
-    if args.engine != "slots" and (args.prefill_chunk is not None or args.prefix_cache == "on"):
-        parser.error("--prefill-chunk and --prefix-cache apply to --engine slots")
+    slot_only = (args.prefill_chunk is not None or args.prefix_cache == "on"
+                 or args.preemption != "off" or args.kv_blocks is not None)
+    if args.engine != "slots" and slot_only:
+        parser.error("--prefill-chunk, --prefix-cache, --preemption and --kv-blocks apply to "
+                     "--engine slots")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -253,6 +278,8 @@ def main() -> int:
             tag += f"_chunk{args.prefill_chunk}"
         if args.prefix_cache == "on":
             tag += "_prefix"
+        if args.preemption != "off":
+            tag += f"_{args.preemption}{args.kv_blocks or ''}"
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -332,6 +359,16 @@ def main() -> int:
                           decode_step_ms_p50=stats["decode_step_ms"]["p50"],
                           prefill_chunk=args.prefill_chunk, prefill_chunks=stats["prefill_chunks"],
                           prefix_cache=stats.get("prefix_cache"))
+            if args.preemption != "off":
+                pre = stats["preemption"]
+                record.update(kv_blocks=args.kv_blocks, preemption={
+                    k: pre[k] for k in ("mode", "preemptions", "readmissions", "swaps",
+                                        "swap_restores", "swap_bytes", "by_tier")},
+                    swap_out_ms=engine.samples["swap_out_ms"],
+                    swap_in_ms=engine.samples["swap_in_ms"],
+                    prefills=stats["prefills"],
+                    memcpy_device_ms={"dtoh": ms_of("Memcpy DtoH"), "htod": ms_of("Memcpy HtoD")}
+                    if measured else "not measured")
         print(json.dumps(record), flush=True)
         del model, engine
         torch.cuda.empty_cache()

@@ -255,6 +255,11 @@ def test_deferred_arguments_raise(pair, kwargs):
         with pytest.raises(ValueError, match="requires kv_layout='paged'"):
             SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
         return
+    if "preemption" in kwargs:
+        # ported, but lazy pages need a block pool: the dense layout refuses it, as in JAX
+        with pytest.raises(ValueError, match="lazy pages need kv_layout='paged'"):
+            SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
 
