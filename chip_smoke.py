@@ -13,8 +13,11 @@ non-zero and never prints the final line):
    version at the serving path's shapes (b = 4, 8 heads, head dim 112:
    cross-attention i = 512 over j = 1024 with left-pad dead rows, the latent
    stack at j = 512, the q_len = 1 decode attend, ragged tiles i = 100 over
-   j = 612, and a decode attend whose lengths leave whole key splits masked
-   and one row dead; every case but the ragged one again at head dims 64
+   j = 612, a decode attend whose lengths leave whole key splits masked
+   and one row dead, and a speculative verify's cross and stack attends at
+   b = 20 (4 slots x 5 lanes, each lane its own pad: per-row stack pads of
+   up to 508 latent slots, whose rows below the first live latent are
+   dead); every case but the ragged and verify ones again at head dims 64
    and 128, timed over fewer iterations), fp32 and bf16, through the route
    the wrapper picks (``split`` for decode, ``wgmma`` for bf16 tiles,
    ``tf32x3`` for fp32 tiles; a wrong route fails), held at fp32 1e-4, bf16
@@ -23,13 +26,13 @@ non-zero and never prints the final line):
    is held to the same gates and is timed beside it (``prev_ms``), with the plain
    version's time, ``scaled_dot_product_attention``'s with its backend
    pinned to memory-efficient attention (a yardstick the port never calls)
-   and the card's bound (here and in phase 10 its bytes count k and v only
+   and the card's bound (here and in phase 11 its bytes count k and v only
    for the keys some query row sees, as K4's count only live keys; for
    ``tf32x3`` cases ``bound_ms`` at a third of the TF32 tensor-core rate and
-   ``bound_simt_ms`` at the CUDA cores' rate, as in phase 10). Then each of
+   ``bound_simt_ms`` at the CUDA cores' rate, as in phase 11). Then each of
    the split, wgmma and tf32x3 routes must refuse a query on a base off a
    16-byte boundary (``ValueError``, no launch counted). Every timed loop
-   here and in phases 6 and 10 reads the next of enough input copies to fill
+   here and in phases 6 and 11 reads the next of enough input copies to fill
    the L2 twice, so its times are HBM times, as the bound is, and queues
    behind a sleep kernel, so they are the card's times without the host's
    dispatch (``device_ms``);
@@ -125,7 +128,33 @@ non-zero and never prints the final line):
    victim's payload bytes against the pool bytes the cost model prices,
    TTFT p50 per tier, tokens/s and the peak residents against phase 7's
    paged run, and the int8 run's agreement with phase 7's int8 run;
-10. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
+10. slot spec: speculative decoding and the measured ``auto`` axes over
+   phase 7's model (fp32), requests and references. (a)
+   ``speculative_generate`` on phase 7's first 4 requests with a
+   full-depth draft, ``SpecConfig(4, 16)``: tokens equal ``generate()``
+   (the near-tie excuse as in phase 7) and every drafted token accepted
+   but at a near-tie (the verify lane's top logit less the draft's <
+   1e-4; the draft runs at b rows and the verify at b·(k+1)), counted;
+   then ``SpecConfig(4, 2)``: tokens equal, acceptance printed. (b)
+   ``SlotServingEngine`` with 4 slots over the 12 requests:
+   ``speculation="k4d2"`` dense and paged, ``"k2d1"`` paged with
+   ``preemption="swap"`` over phase 9's 160-block pool and traffic, and
+   one bf16 ``k4d2`` dense run. Gates (fp32 runs): tokens equal phase 7's
+   references (near-tie excuse), emitted = served tokens, accepted <=
+   proposed, every verify call at 4·(k+1) rows and one a round, K1 at
+   k·(1+d) + 17 launches a round, every K1 tile on ``tf32x3`` (bf16:
+   ``wgmma``) and none on simt, K4 on split/tc only and never inside a
+   round, every swap restored, the pool leak-free. Printed: tokens/s
+   beside phase 7's, rounds, acceptance, K1 launches and device ms a round
+   (CUDA events around each round), preemptions and swaps, and the bf16
+   run's agreement with its fp32 twin (not gated). (c) A fresh registry
+   file, an engine with ``decode_strategy``, ``kv_layout``,
+   ``prefix_cache`` and ``speculation`` all ``"auto"`` and its
+   ``warmup()``: each verdict with its timings; each probe's fence held
+   (one of its arms timed again between synchronisations, the probe's
+   figure within 2x of it); a second engine over the file measures
+   nothing (no probe engine built, no ``generate`` call);
+11. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
    against their plain versions at the training path's shapes (b = 4, 8
    heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
    512 latents, and j = 1024, with left pads that leave dead rows; the
@@ -147,7 +176,7 @@ non-zero and never prints the final line):
    ``simt`` kernels' outputs are held to 1e-4 of each output's largest plain
    entry in both types (``prev_rel_err``), with the same zeros and finite
    values, before they are timed;
-11. train, over the full-width CLM:
+12. train, over the full-width CLM:
    (a) one loss + backward with the kernels against ``attention_impl="xla"``
        (batch 4 x 1024, left pads inside the prefix, one prefix-dropout
        seed). fp32: loss within 1e-5 relative, every parameter's gradient
@@ -172,14 +201,15 @@ non-zero and never prints the final line):
        ``attention_impl="flash"`` (the plain forward and backward, same
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
-12. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
+13. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4 with
    its split and tc routes nested and the simt kernel's times as their
    ``prev_ms``; K1's and K4's ``launches`` count their wrappers' calls and
    their ``kernel_launches`` the device kernels, two per split-route call;
    K4's ``slot_prefix_launches`` the paged slot-prefix run's calls and
-   ``slot_preempt_launches`` each slot-preempt run's), the
+   ``slot_preempt_launches`` each slot-preempt run's; K1's and K4's
+   ``slot_spec_launches`` each slot-spec engine run's), the
    card's ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -303,6 +333,14 @@ K1_CASES = (
     ("decode", 1, 1024, None, [1024, 701, 301, 41]),       # keys past the cache length masked
     ("ragged", 100, 612, [0, 30, 300, 560], None),         # ragged q and kv tiles; rows 0..47 of row 3 dead
     ("decode_empty", 1, 1024, None, [0, 64, 200, 700]),    # whole splits masked; row 0 dead
+    # a k4 verify's 4 slots x 5 lanes (b = 20, row i*5 + j is slot i's lane j),
+    # each lane its own pad: window pads 524/400/100/0 less j+1, and stack
+    # pads 512 - min(m + j + 1, 512) for latent counts 3, 200, 508 and 512
+    # (rows below a lane's first live latent are dead)
+    ("verify_cross", 512, 1024, [max(p - j - 1, 0) for p in (524, 400, 100, 0) for j in range(5)],
+     None),
+    ("verify_stack", 512, 512, [512 - min(m + j + 1, 512) for m in (3, 200, 508, 512)
+                                for j in range(5)], None),
 )
 K1_HEAD_DIM = 112  # clm-base: 896 channels over 8 heads
 # the kernels' other head dims, each case but the ragged one, timed over
@@ -347,11 +385,12 @@ def kernel_cases(torch, flash):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, h = 4, 8
+    h = 8
     shapes = [(*c, K1_HEAD_DIM) for c in K1_CASES] + [
         (*c, d) for d in K1_OTHER_HEAD_DIMS for c in K1_CASES if c[0] in K1_OTHER_CASES]
     cases = []
     for name, i, j, pads, visible, d in shapes:
+        b = len(pads if pads is not None else visible)  # 4, or a verify's 20 lanes
         cols = torch.arange(j, device="cuda")[None, :]
         if pads is not None:
             pad = cols < torch.tensor(pads, device="cuda")[:, None]
@@ -943,13 +982,29 @@ def _top2_gap(torch, gen_mod, model, cfg, prompt, tokens, t: int) -> float:
     """The reference's top-2 logit gap before token ``t`` (full recompute)."""
     n, max_latents = model.max_seq_len, model.max_latents
     ctx = list(prompt) + list(tokens[:t])
-    window = torch.zeros((1, n), dtype=torch.long, device="cuda")
-    window[0, n - len(ctx):] = torch.tensor(ctx, device="cuda")
-    pad = torch.tensor([n - len(ctx)], device="cuda")
+    window = torch.zeros((1, n), dtype=torch.long, device=model.device)
+    window[0, n - len(ctx):] = torch.tensor(ctx, device=model.device)
+    pad = torch.tensor([n - len(ctx)], device=model.device)
     with torch.no_grad():
         logits = gen_mod._decode_forward(model, window, pad, min(cfg.num_latents + t, max_latents))
     top = logits[0].float().topk(2).values
     return (top[0] - top[1]).item()
+
+
+def _divergences(torch, gen_mod, model, rows, refs, prompts, configs, failures) -> list:
+    """Each row's first token that differs from its ``generate()`` reference,
+    with the reference's top-2 gap there; a gap of ``NEAR_TIE`` or more is a
+    failure."""
+    out = []
+    for i, (row, ref) in enumerate(zip(rows, refs)):
+        diff = [t for t in range(len(ref)) if row[t] != ref[t]]
+        if diff:
+            t = diff[0]
+            gap = _top2_gap(torch, gen_mod, model, configs[i], prompts[i], ref, t)
+            out.append({"request": i, "token": t, "top2_gap": gap})
+            if gap >= NEAR_TIE:
+                failures.append(f"request {i} diverges at token {t}, top-2 gap {gap}")
+    return out
 
 
 def run_tracking_residents(engine) -> int:
@@ -1028,16 +1083,8 @@ def slot_serve_phase(torch, clm, flash, ragged, gen_mod, slots_mod, buckets):
             same = sum(int((a == b).sum()) for a, b in zip(rows, served["paged"]))
             line["token_agreement_with_paged"] = same / tokens
         else:
-            divergences = []
-            for i, (row, ref) in enumerate(zip(rows, refs)):
-                diff = [t for t in range(len(ref)) if row[t] != ref[t]]
-                if diff:
-                    t = diff[0]
-                    gap = _top2_gap(torch, gen_mod, model, configs[i], prompts[i], ref, t)
-                    divergences.append({"request": i, "token": t, "top2_gap": gap})
-                    if gap >= NEAR_TIE:
-                        failures.append(f"request {i} diverges at token {t}, top-2 gap {gap}")
-            line["divergences_vs_generate"] = divergences
+            line["divergences_vs_generate"] = _divergences(torch, gen_mod, model, rows, refs,
+                                                               prompts, configs, failures)
         emit("slot_serve", **line)
         if failures:
             raise AssertionError(f"slot serve {layout}: " + "; ".join(failures))
@@ -1204,16 +1251,8 @@ def slot_prefix_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, model):
                 same = sum(int((a == b).sum()) for a, b in zip(rows, served["paged"]))
                 line["token_agreement_with_paged"] = same / tokens
             else:
-                divergences = []
-                for i, (row, ref) in enumerate(zip(rows, refs)):
-                    diff = [t for t in range(len(ref)) if row[t] != ref[t]]
-                    if diff:
-                        t = diff[0]
-                        gap = _top2_gap(torch, gen_mod, model, configs[i], prompts[i], ref, t)
-                        divergences.append({"request": i, "token": t, "top2_gap": gap})
-                        if gap >= NEAR_TIE:
-                            failures.append(f"request {i} diverges at token {t}, top-2 gap {gap}")
-                line["divergences_vs_generate"] = divergences
+                line["divergences_vs_generate"] = _divergences(torch, gen_mod, model, rows, refs,
+                                                                   prompts, configs, failures)
             out[layout] = {"k4": k4, "k4_routes": k4_routes,
                            "k4_kernels": ragged.ragged_paged_attention.kernel_launches}
             del engine
@@ -1382,16 +1421,8 @@ def slot_preempt_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
             same = sum(int((a == b).sum()) for a, b in zip(rows, serve["rows"]["paged_int8"]))
             line["token_agreement_with_phase7_int8"] = same / tokens
         else:
-            divergences = []
-            for i, (row, ref) in enumerate(zip(rows, refs)):
-                diff = [t for t in range(len(ref)) if row[t] != ref[t]]
-                if diff:
-                    t = diff[0]
-                    gap = _top2_gap(torch, gen_mod, model, configs[i], prompts[i], ref, t)
-                    divergences.append({"request": i, "token": t, "top2_gap": gap})
-                    if gap >= NEAR_TIE:
-                        failures.append(f"request {i} diverges at token {t}, top-2 gap {gap}")
-            line["divergences_vs_generate"] = divergences
+            line["divergences_vs_generate"] = _divergences(torch, gen_mod, model, rows, refs,
+                                                               prompts, configs, failures)
         emit("slot_preempt", **line)
         if failures:
             raise AssertionError(f"slot preempt {name}: " + "; ".join(failures))
@@ -1401,6 +1432,335 @@ def slot_preempt_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
         if on_card:
             torch.cuda.empty_cache()
     return out
+
+
+#: (run, kv layout, speculation, preemption): phase 7's traffic; the swap
+#: run over phase 9's pool with its tiers and late arrivals
+SLOT_SPEC_RUNS = (
+    ("k4d2_dense", "dense", "k4d2", None),
+    ("k4d2_paged", "paged", "k4d2", None),
+    ("k2d1_paged_swap", "paged", "k2d1", "swap"),
+)
+#: phase 7's requests that the standalone speculative_generate runs
+SLOT_SPEC_STANDALONE = 4
+
+
+def spec_standalone(torch, gen_mod, spec_mod, serve) -> list:
+    """(a) ``speculative_generate`` over phase 7's first requests: with a
+    full-depth draft (the model itself), every drafted token must be
+    accepted but at a near-tie (the verify lane's top logit less the
+    draft's < ``NEAR_TIE``: the draft runs at b rows, the verify at
+    b·(k+1)); then with a 2-layer draft. Tokens equal ``generate()``."""
+    model = serve["model"]
+    depth = model.config.num_self_attention_layers
+    rounds = []
+    accept = spec_mod.accept_prefix
+
+    def recording(lane_logits, cand, steps, min_new, eos):
+        n_e, nxt = accept(lane_logits, cand, steps, min_new, eos)
+        rounds.append((lane_logits.float(), cand, n_e))
+        return n_e, nxt
+
+    lines = []
+    spec_mod.accept_prefix = recording
+    try:
+        for k, d in ((4, depth), (4, 2)):
+            failures, near_ties, proposed, accepted = [], [], 0, 0
+            rows, t0 = [], time.perf_counter()
+            for i in range(SLOT_SPEC_STANDALONE):
+                rounds.clear()
+                prompt, cfg = serve["prompts"][i], serve["configs"][i]
+                rows.append(spec_mod.speculative_generate(
+                    model, prompt[None], cfg, spec_mod.SpecConfig(k, d),
+                    device=model.device)[0].cpu().numpy())
+                for lane_logits, cand, n_e in rounds:
+                    n = int(n_e[0])
+                    proposed, accepted = proposed + k, accepted + n - 1
+                    if d == depth and n < k + 1:
+                        lane, draft = lane_logits[0, n - 1], int(cand[0, n])
+                        gap = (lane.max() - lane[draft]).item()
+                        near_ties.append({"request": i, "lane": n - 1, "gap": gap})
+                        if gap >= NEAR_TIE:
+                            failures.append(f"request {i}: full-depth draft rejected at lane {n - 1}, "
+                                            f"gap {gap}")
+            if model.device.type == "cuda":
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            divergences = _divergences(torch, gen_mod, model, rows, serve["refs"], serve["prompts"],
+                                       serve["configs"], failures)
+            tokens = sum(c.max_new_tokens for c in serve["configs"][:SLOT_SPEC_STANDALONE])
+            line = dict(part="standalone", spec=f"k{k}d{d}", requests=SLOT_SPEC_STANDALONE,
+                        tokens=tokens, wall_s=wall_s, tokens_per_s=tokens / wall_s,
+                        proposed=proposed, accepted=accepted,
+                        acceptance_rate=accepted / max(1, proposed), near_tie_rejections=near_ties,
+                        divergences_vs_generate=divergences)
+            emit("slot_spec", **line)
+            lines.append(line)
+            if failures:
+                raise AssertionError(f"slot spec standalone k{k}d{d}: " + "; ".join(failures))
+    finally:
+        spec_mod.accept_prefix = accept
+    return lines
+
+
+def spec_engine_runs(torch, flash, ragged, gen_mod, spec_mod, slots_mod, buckets, clm, serve,
+                     unpressured, kv_blocks: int = SLOT_PREEMPT_BLOCKS) -> dict:
+    """(b) ``SlotServingEngine`` with speculation over phase 7's requests
+    (``SLOT_SPEC_RUNS``), then one bf16 run beside its fp32 twin. Returns
+    each run's launches."""
+    model = serve["model"]
+    on_card = model.device.type == "cuda"
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+    prompts, configs, refs = serve["prompts"], serve["configs"], serve["refs"]
+    tokens = sum(c.max_new_tokens for c in configs)
+    verify_rows, forward = [], spec_mod._decode_forward
+
+    def counting_forward(mdl, window, pad, m):
+        verify_rows.append(int(window.shape[0]))
+        return forward(mdl, window, pad, m)
+
+    out, rows_by_run = {}, {}
+    runs = [(name, layout, mode, pre, model) for name, layout, mode, pre in SLOT_SPEC_RUNS]
+    bf16 = clm.CausalLanguageModel(model.config, dtype=torch.bfloat16, seed=0,
+                                   device=model.device).eval()
+    runs.append(("k4d2_dense_bf16", "dense", "k4d2", None, bf16))
+    spec_mod._decode_forward = counting_forward  # only verify_lanes calls it here
+    try:
+        for name, layout, mode, pre, mdl in runs:
+            kw = dict(kv_blocks=kv_blocks, preemption=pre, admit_headroom_blocks=0) if pre else {}
+            engine = slots_mod.SlotServingEngine(mdl, serve["gcfg"], table, slots=4,
+                                                 kv_layout=layout, speculation=mode,
+                                                 device=mdl.device, **kw)
+            k, d = engine._spec.k, engine._spec.draft_layers
+            # k drafts of the cross layer and d stack layers, one verify of all
+            round_k1 = k * (1 + d) + 1 + mdl.config.num_self_attention_layers
+            per_round = {"k1": [], "k4": [], "ms": []}
+            spec_round = engine._spec_round
+
+            def timed_round(spec_round=spec_round, per_round=per_round):
+                k1, k4 = flash.flash_attention.launches, ragged.ragged_paged_attention.launches
+                if on_card:
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                result = spec_round()  # ends in a host read
+                if on_card:
+                    end.record()
+                    end.synchronize()
+                    per_round["ms"].append(start.elapsed_time(end))
+                per_round["k1"].append(flash.flash_attention.launches - k1)
+                per_round["k4"].append(ragged.ragged_paged_attention.launches - k4)
+                return result
+
+            engine._spec_round = timed_round
+            verify_rows.clear()
+            reset_counts(flash)
+            reset_k4_counts(ragged)
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if pre:
+                reqs, _, peak, admission = drive_preempt(engine, prompts, configs,
+                                                         preempt_tags(len(prompts)))
+            else:
+                reqs = [engine.submit(p, c) for p, c in zip(prompts, configs)]
+                peak, admission = run_tracking_residents(engine), 0
+            if on_card:
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            stats = engine.stats()
+            sp = stats["speculation"]
+            k1_routes = dict(flash.flash_attention.route_launches)
+            k4_routes = dict(ragged.ragged_paged_attention.route_launches)
+            rows = [r.result for r in reqs]
+            rows_by_run[name] = rows
+            line = dict(
+                part="engine", run=name, layout=layout, speculation=mode, preemption=pre or "off",
+                compute_dtype=str(mdl.dtype).split(".")[-1], requests=stats["completed"],
+                tokens=tokens, wall_s=wall_s, tokens_per_s=tokens / wall_s,
+                phase7_tokens_per_s=unpressured[layout]["tokens_per_s"],
+                rounds=sp["rounds"], proposed=sp["proposed"], accepted=sp["accepted"],
+                emitted=sp["emitted"], acceptance_rate=sp["acceptance_rate"],
+                tokens_per_round=sp["tokens_per_round"], peak_residents=peak,
+                decode_step_ms_p50=stats["decode_step_ms"]["p50"], prefills=stats["prefills"],
+                k1_launches=flash.flash_attention.launches, k1_route_launches=k1_routes,
+                k1_launches_per_round=_mean(per_round["k1"]), k1_launches_per_round_expected=round_k1,
+                round_ms_mean=_mean(per_round["ms"]),
+                round_ms_p50=_p50(per_round["ms"]), verify_rows=sorted(set(verify_rows)),
+                k4_launches=ragged.ragged_paged_attention.launches, k4_route_launches=k4_routes,
+                k4_launches_in_rounds=sum(per_round["k4"]),
+            )
+            failures = []
+            if stats["completed"] != len(prompts):
+                failures.append(f"completed {stats['completed']} of {len(prompts)}")
+            if sp["emitted"] != tokens or sp["accepted"] > sp["proposed"]:
+                failures.append(f"emitted {sp['emitted']} of {tokens} served, accepted "
+                                f"{sp['accepted']} of {sp['proposed']} proposed")
+            if on_card and set(per_round["k1"]) != {round_k1}:
+                failures.append(f"K1 launches per round {sorted(set(per_round['k1']))}, "
+                                f"not {round_k1}")
+            if set(verify_rows) != {4 * (k + 1)} or len(verify_rows) != sp["rounds"]:
+                failures.append(f"verify calls at rows {sorted(set(verify_rows))} "
+                                f"({len(verify_rows)} calls, {sp['rounds']} rounds), not {4 * (k + 1)}")
+            if on_card:
+                tile = "tf32x3" if mdl.dtype == torch.float32 else "wgmma"
+                if k1_routes["simt"] or not k1_routes[tile] or any(
+                        k1_routes[r] for r in ("tf32x3", "wgmma") if r != tile):
+                    failures.append(f"K1 routes {k1_routes}: {tile} tiles only, never simt")
+                if k4_routes["simt"] or line["k4_launches_in_rounds"]:
+                    failures.append(f"K4 routes {k4_routes}, {line['k4_launches_in_rounds']} K4 "
+                                    "launches inside spec rounds: split/tc only, none in a round")
+            if pre:
+                pre_stats = stats["preemption"]
+                line.update(preemptions=pre_stats["preemptions"], admission_preemptions=admission,
+                            readmissions=pre_stats["readmissions"], swaps=pre_stats["swaps"],
+                            swap_restores=pre_stats["swap_restores"],
+                            swapped_waiting=pre_stats["swapped_waiting"],
+                            swap_link_gbps_model=pre_stats["swap_link_gbps"])
+                if pre_stats["swap_restores"] != pre_stats["swaps"] or pre_stats["swapped_waiting"]:
+                    failures.append(f"swaps {pre_stats['swaps']}, restores "
+                                    f"{pre_stats['swap_restores']}, waiting "
+                                    f"{pre_stats['swapped_waiting']}")
+            if engine._pool is not None:
+                line.update(pool_in_use=engine._pool.in_use, pool_leaked=engine._pool.leaked(),
+                            pool_high_water=stats["kv_pool"]["high_water"])
+                if engine._pool.in_use or engine._pool.leaked():
+                    failures.append(f"pool in_use {engine._pool.in_use}, leaked {engine._pool.leaked()}")
+            if mdl is bf16:
+                twin = rows_by_run["k4d2_dense"]
+                line["token_agreement_with_fp32_twin"] = \
+                    sum(int((a == b).sum()) for a, b in zip(rows, twin)) / tokens
+            else:
+                line["divergences_vs_generate"] = _divergences(torch, gen_mod, model, rows, refs,
+                                                               prompts, configs, failures)
+            emit("slot_spec", **line)
+            if failures:
+                raise AssertionError(f"slot spec {name}: " + "; ".join(failures))
+            out[name] = {"k1": line["k1_launches"], "k1_routes": k1_routes,
+                         "k4": line["k4_launches"], "rounds": sp["rounds"]}
+            del engine
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        spec_mod._decode_forward = forward
+    del bf16
+    return out
+
+
+def spec_autotune(torch, gen_mod, strategy_mod, slots_mod, buckets, serve, root: Path) -> dict:
+    """(c) A fresh registry file, an engine with every measured axis
+    ``"auto"`` and its ``warmup()``: each verdict with its timings. Each
+    probe's fence is checked: one of its arms timed again between
+    synchronisations must lie within 2x of the probe's figure. A second
+    engine over the file's verdicts must measure nothing."""
+    import numpy as np
+
+    model = serve["model"]
+    on_card = model.device.type == "cuda"
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+    path = root / "decode_strategy.json"
+    path.unlink(missing_ok=True)
+    strategy_mod.reset_registry()
+    axes = dict(decode_strategy="auto", kv_layout="auto", prefix_cache="auto", speculation="auto")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    engine = slots_mod.SlotServingEngine(model, serve["gcfg"], table, slots=4, device=model.device,
+                                         **axes)
+    t0 = time.perf_counter()
+    steps = engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    strategy_mod.save_registry(str(path))
+    boundary = dict(strategy_mod._REGISTRY[strategy_mod.registry_key(model)])
+    kv, spec = strategy_mod.kv_entry(model), strategy_mod.spec_entry(model)
+    verdicts = {"boundary": engine.boundary_mode, "kv_layout": engine.kv_layout,
+                "prefix_cache": engine.prefix_cache, "speculation": engine.speculation}
+
+    # the fences: one arm of each probe again, between synchronisations
+    n = model.max_seq_len
+    new = boundary["new_tokens"]
+    prompt = np.random.default_rng(0).integers(1, model.config.vocab_size, size=(1, n - new),
+                                               dtype=np.int32)
+    gcfg = gen_mod.GenerationConfig(max_new_tokens=new, num_latents=model.max_latents)
+    sync()
+    t0 = time.perf_counter()
+    gen_mod.generate(model, prompt, gcfg, decode_strategy="cached", device=model.device)
+    sync()
+    fences = {"boundary cached": ((time.perf_counter() - t0) / new * 1e3,
+                                  boundary["cached_ms_per_token"])}
+    probe_table, probe_cfg, probe_prompts, probe_new = strategy_mod._kv_probe_workload(model, 2, 8)
+    for key, kw, probed in (("kv_layout dense", dict(kv_layout="dense"), kv["dense_ms_per_token"]),
+                            ("speculation off", dict(speculation="off"),
+                             spec["timings_ms_per_token"]["off"])):
+        arm = slots_mod.SlotServingEngine(model, probe_cfg, probe_table, slots=2,
+                                          device=model.device, **kw)
+        for p in probe_prompts:
+            arm.submit(p)
+        sync()
+        t0 = time.perf_counter()
+        arm.run_until_idle()
+        sync()
+        fences[key] = ((time.perf_counter() - t0) / (2 * probe_new) * 1e3, probed)
+    failures = [f"{key}: probe {probed} ms a token against {again} timed again"
+                for key, (again, probed) in fences.items()
+                if not 0.5 <= probed / max(again, 1e-9) <= 2.0]
+
+    # a second engine over the file measures nothing
+    strategy_mod.reset_registry()
+    loaded = strategy_mod.load_registry(str(path))
+    second = slots_mod.SlotServingEngine(model, serve["gcfg"], table, slots=4, device=model.device,
+                                         **axes)
+    probes = {"engines": 0, "generate": 0}
+    engine_cls, generate = slots_mod.SlotServingEngine, gen_mod.generate
+
+    def counting_engine(*args, **kwargs):
+        probes["engines"] += 1
+        return engine_cls(*args, **kwargs)
+
+    def counting_generate(*args, **kwargs):
+        probes["generate"] += 1
+        return generate(*args, **kwargs)
+
+    slots_mod.SlotServingEngine, gen_mod.generate = counting_engine, counting_generate
+    try:
+        t0 = time.perf_counter()
+        second.warmup()
+        second_s = time.perf_counter() - t0
+    finally:
+        slots_mod.SlotServingEngine, gen_mod.generate = engine_cls, generate
+    second_verdicts = {"boundary": second.boundary_mode, "kv_layout": second.kv_layout,
+                       "prefix_cache": second.prefix_cache, "speculation": second.speculation}
+    if probes != {"engines": 0, "generate": 0} or second_verdicts != verdicts:
+        failures.append(f"the second engine measured {probes}, verdicts {second_verdicts} "
+                        f"against {verdicts}")
+    line = dict(part="autotune", verdicts=verdicts, warmup_s=warmup_s, warmup_steps=steps,
+                boundary_entry=boundary, kv_entry=kv, spec_entry=spec,
+                kv_quant_fallback=engine.counters["kv_quant_fallback_total"],
+                fences={k: {"timed_again_ms_per_token": a, "probe_ms_per_token": p}
+                        for k, (a, p) in fences.items()},
+                entries_loaded=loaded, second_warmup_s=second_s, second_probes=probes)
+    emit("slot_spec", **line)
+    strategy_mod.reset_registry()
+    del engine, second
+    if on_card:
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("slot spec autotune: " + "; ".join(failures))
+    return line
+
+
+def slot_spec_phase(torch, flash, ragged, gen_mod, spec_mod, strategy_mod, slots_mod, buckets, clm,
+                    serve, unpressured, root: Path, kv_blocks: int = SLOT_PREEMPT_BLOCKS) -> dict:
+    """Speculative decoding and the measured ``auto`` axes (module
+    docstring, phase 10), over phase 7's model, requests and references;
+    ``unpressured`` is phase 7's launches (and pace) per layout. Returns
+    each engine run's launches."""
+    spec_standalone(torch, gen_mod, spec_mod, serve)
+    runs = spec_engine_runs(torch, flash, ragged, gen_mod, spec_mod, slots_mod, buckets, clm, serve,
+                            unpressured, kv_blocks)
+    spec_autotune(torch, gen_mod, strategy_mod, slots_mod, buckets, serve, root)
+    return runs
 
 
 def _mean(values):
@@ -1864,7 +2224,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from perceiver_io_tpu_torch import _build
+    from perceiver_io_tpu_torch.inference import decode_strategy as strategy_mod
     from perceiver_io_tpu_torch.inference import generate as gen_mod
+    from perceiver_io_tpu_torch.inference import speculative as spec_mod
     from perceiver_io_tpu_torch.models.text import clm
     from perceiver_io_tpu_torch.ops import flash_attention as flash
     from perceiver_io_tpu_torch.ops import paged_attention as paged
@@ -1899,6 +2261,10 @@ def main() -> int:
                                                 serve["model"])
     preempt_launches = slot_preempt_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
                                           shared, slot_launches["paged"])
+    spec_root = ROOT / "build" / "chip_smoke_spec"
+    spec_root.mkdir(parents=True, exist_ok=True)
+    spec_launches = slot_spec_phase(torch, flash, ragged, gen_mod, spec_mod, strategy_mod, slots_mod,
+                                    buckets, clm, serve, slot_launches, spec_root)
     del serve, shared
     torch.cuda.empty_cache()
     k23 = k23_cases(torch, flash)
@@ -1931,6 +2297,9 @@ def main() -> int:
         "library_backend": main_case["library_backend"],
         "shape": "cross-attention b=4 h=8 i=512 j=1024 d=112 fp32 (route tf32x3), causal, left pads; "
                  "launches: the bucket serve run",
+        "slot_spec_launches": {run: v["k1"] for run, v in spec_launches.items()},
+        "slot_spec_route_launches": {run: v["k1_routes"] for run, v in spec_launches.items()},
+        "slot_spec_rounds": {run: v["rounds"] for run, v in spec_launches.items()},
         "routes": [k1_route_entry(flash, design, main, cases, route_launches[design])
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
                                         ("tf32x3", ("cross", "float32")))],
@@ -1957,6 +2326,7 @@ def main() -> int:
         "slot_preempt_launches": {run: launches["k4"] for run, launches in preempt_launches.items()},
         "slot_preempt_kernel_launches": {run: launches["k4_kernels"]
                                          for run, launches in preempt_launches.items()},
+        "slot_spec_launches": {run: v["k4"] for run, v in spec_launches.items()},
         "routes": [k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design],
                                   prefix_launches["paged"]["k4_routes"][design],
                                   {run: launches["k4_routes"][design]

@@ -33,17 +33,22 @@ projects a chunk of prefix positions, and :func:`_prefill_finalize` (staged
 dense caches) or :func:`_prefill_finalize_paged` (the pool, where shared
 prefix pages already sit) completes the row.
 
+The boundary phase's step is a measured choice
+(:mod:`~perceiver_io_tpu_torch.inference.decode_strategy`): ``"auto"`` reads
+the registry verdict and falls back to the cached step.
+
 Beam search, sampling and the executor cache are not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
+from perceiver_io_tpu_torch.inference import decode_strategy as decode_strategy_mod
 from perceiver_io_tpu_torch.inference.samplers import (
     SamplingConfig,
     apply_min_new_tokens,
@@ -53,7 +58,8 @@ from perceiver_io_tpu_torch.models.core.modules import layer_norm
 from perceiver_io_tpu_torch.ops import paged_attention as paged
 from perceiver_io_tpu_torch.ops.position import RotaryEmbedding, positions
 
-DECODE_STRATEGIES = ("auto", "cached", "recompute")
+#: a latent count: one host int for every row, or a per-row ``(b,)`` tensor
+LatentCount = Union[int, torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -69,9 +75,14 @@ class GenerationConfig:
     min_new_tokens: int = 0
 
 
-def _window_cross(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: int):
+def _per_row(m: LatentCount) -> bool:
+    return isinstance(m, torch.Tensor) and m.dim() > 0
+
+
+def _window_cross(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: LatentCount):
     """Embedding and cross-attention layer over the right-aligned window.
 
+    :param m: the true latent count, a host int or per-row ``(b,)``.
     :return: ``(x, k, v, frq)``: the latent segment after the cross layer,
         the window-slot keys/values, and the rotary angles.
     """
@@ -86,9 +97,12 @@ def _window_cross(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: int):
     # boundary is dynamic, so select by mask
     ca = layer.cross_attn
     slots = torch.arange(n, device=window.device)
-    is_latent = (slots >= n - num_latents) & (slots >= n - m)
+    if _per_row(m):
+        is_latent = (slots >= n - num_latents)[None, :] & (slots[None, :] >= n - m[:, None])
+    else:
+        is_latent = ((slots >= n - num_latents) & (slots >= n - m))[None, :]
     x_q_all = layer_norm(ca.q_norm, emb, ca.dtype)
-    x_kv = torch.where(is_latent[None, :, None], x_q_all, layer_norm(ca.kv_norm, emb, ca.dtype))
+    x_kv = torch.where(is_latent[..., None], x_q_all, layer_norm(ca.kv_norm, emb, ca.dtype))
     rot = RotaryEmbedding(frq, right_align=True)
     q = mha.project_q(x_q_all[:, -num_latents:], rot)
     k, v = mha.project_kv(x_kv, rot)
@@ -97,19 +111,25 @@ def _window_cross(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: int):
     return x, k, v, frq
 
 
-def _stack_pad(b: int, num_latents: int, m: int, device) -> torch.Tensor:
+def _stack_pad(b: int, num_latents: int, m: LatentCount, device) -> torch.Tensor:
     """``(b, num_latents)`` True at latent-segment slots that are not yet
-    real latents."""
-    return (torch.arange(num_latents, device=device) < num_latents - m)[None].expand(b, num_latents)
+    real latents (``m`` a host int or per-row ``(b,)``)."""
+    seg = torch.arange(num_latents, device=device)
+    if _per_row(m):
+        return seg[None, :] < (num_latents - m)[:, None]
+    return (seg < num_latents - m)[None].expand(b, num_latents)
 
 
-def _decode_forward(mdl, window: torch.Tensor, pad_count: torch.Tensor, m: int) -> torch.Tensor:
+def _decode_forward(mdl, window: torch.Tensor, pad_count: torch.Tensor,
+                    m: LatentCount) -> torch.Tensor:
     """Static-shape forward over the right-aligned window; next-token logits
     ``(b, vocab)`` for the last position.
 
     :param window: ``(b, N)`` tokens, right-aligned, left pads arbitrary ids.
     :param pad_count: ``(b,)`` left-pad slots per row.
-    :param m: true latent count (the last ``m`` window positions).
+    :param m: true latent count (the last ``m`` window positions): a host
+        int, or per-row ``(b,)`` (the speculative verify lanes give each row
+        its own count; the int path is unchanged).
     """
     ar = mdl.perceiver_ar
     b = window.shape[0]
@@ -534,17 +554,6 @@ def _slot_decode_step_paged(mdl, token: torch.Tensor, pool_k: torch.Tensor, pool
     return _slot_stack_step(mdl, x, rot, stack_cache, m, write_ok)
 
 
-def _boundary_cached(mode: Optional[str]) -> bool:
-    """Whether a decode strategy caches the boundary phase. ``"auto"`` (and
-    None) resolve to the cached default, as JAX's untuned ``"auto"`` does;
-    ``"recompute"`` recomputes the boundary phase only (latent growth stays
-    cached)."""
-    mode = mode or "auto"
-    if mode not in DECODE_STRATEGIES:
-        raise ValueError(f"decode strategy must be one of {DECODE_STRATEGIES}, got {mode!r}")
-    return mode != "recompute"
-
-
 def _on_device(model, dev: torch.device) -> bool:
     have = model.device
     return have.type == dev.type and (dev.index is None or have.index == dev.index)
@@ -552,13 +561,15 @@ def _on_device(model, dev: torch.device) -> bool:
 
 def generate(model, input_ids, config: GenerationConfig, *,
              prompt_pad_count=None, use_cache: bool = True,
-             decode_strategy: Optional[str] = None, device: DeviceLike = "cuda") -> torch.Tensor:
+             decode_strategy=None, device: DeviceLike = "cuda") -> torch.Tensor:
     """Generate ``config.max_new_tokens`` tokens after ``input_ids`` (greedy).
 
     :param model: an ``AutoregressiveSequenceModel`` on ``device``.
     :param input_ids: ``(b, prompt_len)`` prompt, left-padded if ragged.
     :param prompt_pad_count: ``(b,)`` left-pad counts for ragged prompts.
-    :param decode_strategy: ``"auto" | "cached" | "recompute"`` (None = auto).
+    :param decode_strategy: ``"auto" | "cached" | "recompute"``, a
+        :class:`~.decode_strategy.DecodeStrategy`, or None (the
+        ``PERCEIVER_DECODE_STRATEGY`` env var, else ``"auto"``).
     :return: ``(b, max_new_tokens)`` ids on ``device`` (pad after EOS).
     """
     dev = resolve_device(device)
@@ -589,9 +600,10 @@ def generate(model, input_ids, config: GenerationConfig, *,
         pad_host = np.asarray(torch.as_tensor(prompt_pad_count).cpu(), np.int64)
 
     # Phase plan (module docstring), fixed on the host before the loop.
-    boundary_cached = _boundary_cached(decode_strategy)
-    s1 = min(config.max_new_tokens, max_latents - num_latents, n - prompt_len) if use_cache else 0
-    phase2_ok = use_cache and boundary_cached and bool((pad_host <= prefix_len).all())
+    strat = decode_strategy_mod.resolve(decode_strategy, model)
+    latent_cached = use_cache and strat.latent == "cached"
+    s1 = min(config.max_new_tokens, max_latents - num_latents, n - prompt_len) if latent_cached else 0
+    phase2_ok = use_cache and strat.boundary_cached and bool((pad_host <= prefix_len).all())
     s2 = min(config.max_new_tokens, n - prompt_len) if phase2_ok else s1
     s2 = max(s1, s2)
 

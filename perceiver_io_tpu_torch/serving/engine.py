@@ -29,11 +29,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
-from perceiver_io_tpu_torch.inference.generate import (
-    DECODE_STRATEGIES,
-    GenerationConfig,
-    generate,
-)
+from perceiver_io_tpu_torch.inference import decode_strategy as decode_strategy_mod
+from perceiver_io_tpu_torch.inference.generate import GenerationConfig, generate
 from perceiver_io_tpu_torch.reliability import QueueFull
 from perceiver_io_tpu_torch.serving.buckets import BucketTable
 
@@ -60,6 +57,7 @@ _EXTRA_COUNTERS = (
     "serving_prompt_tokens_padded_total",
     "serving_decode_rows_total",
     "serving_decode_rows_padded_total",
+    "serving_token_sink_errors_total",
 )
 
 
@@ -91,6 +89,12 @@ class ServeRequest:
     tenant: Optional[str] = None
     #: times the slot engine preempted this request and requeued it
     preemptions: int = 0
+    #: incremental token sink, called ``on_token(index, token_id)`` as each
+    #: token materialises: per token on the slot engine (a speculative
+    #: burst calls it once per token, in order; a recomputed victim's replay
+    #: restarts at 0), once per token at batch completion on the bucket
+    #: engine. A raising sink is counted, never fails the request.
+    on_token: Optional[Callable[[int, int], None]] = None
 
     @property
     def done(self) -> bool:
@@ -108,7 +112,9 @@ class ServingEngine:
         :class:`QueueFull`. None = unbounded.
     :param default_deadline_s: deadline for requests submitted without one.
     :param clock: monotonic time source (tests inject a fake one).
-    :param decode_strategy: forwarded to every ``generate`` call.
+    :param decode_strategy: forwarded to every ``generate`` call: ``"auto"``,
+        ``"cached"``, ``"recompute"`` or None (the env var, else ``"auto"``;
+        :mod:`~perceiver_io_tpu_torch.inference.decode_strategy`).
     :param device: ``"cuda"`` by default; the CPU only when asked for.
     """
 
@@ -117,9 +123,9 @@ class ServingEngine:
                  default_deadline_s: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic,
                  decode_strategy: Optional[str] = None, device: DeviceLike = "cuda"):
-        if decode_strategy is not None and decode_strategy not in DECODE_STRATEGIES:
+        if decode_strategy is not None and decode_strategy not in decode_strategy_mod.MODES:
             raise ValueError(
-                f"decode_strategy must be one of {DECODE_STRATEGIES}, got {decode_strategy!r}"
+                f"decode_strategy must be one of {decode_strategy_mod.MODES}, got {decode_strategy!r}"
             )
         self.device = resolve_device(device)
         self.decode_strategy = decode_strategy
@@ -154,12 +160,14 @@ class ServingEngine:
     # -- queue front --------------------------------------------------------
     def submit(self, prompt, config: Optional[GenerationConfig] = None, *,
                deadline_s: Optional[float] = None, priority: int = 0,
-               tenant: Optional[str] = None) -> ServeRequest:
+               tenant: Optional[str] = None,
+               on_token: Optional[Callable[[int, int], None]] = None) -> ServeRequest:
         """Enqueue one prompt (1-D token ids); returns its request handle.
         Raises ``ValueError`` for an infeasible prompt and :class:`QueueFull`
         when the queue is at ``max_queue``. ``priority`` (higher is more
         important) and ``tenant`` tag the request for the slot engine's
-        admission order and victim policy; this engine stores them."""
+        admission order and victim policy; this engine stores them.
+        ``on_token`` is the request's token sink (:attr:`ServeRequest.on_token`)."""
         if not self._accepting:
             raise RuntimeError("engine is draining; new submissions rejected")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -181,7 +189,7 @@ class ServingEngine:
         req = ServeRequest(
             self._next_id, prompt, cfg, now,
             deadline_at=None if deadline_s is None else now + deadline_s,
-            priority=int(priority), tenant=tenant,
+            priority=int(priority), tenant=tenant, on_token=on_token,
         )
         self._next_id += 1
         self._queue.append(req)
@@ -243,6 +251,14 @@ class ServingEngine:
         return False
 
     # -- scheduler ----------------------------------------------------------
+    def _emit_token(self, req: ServeRequest, index: int, token: int) -> None:
+        """Deliver one token to the request's sink; a raising sink is
+        isolated and counted."""
+        try:
+            req.on_token(index, token)
+        except Exception:
+            self._inc("serving_token_sink_errors_total")
+
     def _finish(self, req: ServeRequest, status: str, *, error: Optional[str] = None) -> None:
         req.status = status
         req.error = error
@@ -329,6 +345,14 @@ class ServingEngine:
         itl_ms = execute_ms / max(1, cfg.max_new_tokens)
         for i, req in enumerate(picked):
             req.result = out[i]
+            if req.on_token is not None:
+                # the row up to and including its first EOS (pads after it
+                # are filler, not generated tokens)
+                toks = out[i].tolist()
+                if cfg.eos_token_id is not None and cfg.eos_token_id in toks:
+                    toks = toks[:toks.index(cfg.eos_token_id) + 1]
+                for idx, t in enumerate(toks):
+                    self._emit_token(req, idx, int(t))
             self.samples["ttft_ms"].append((done_at - req.submitted_at) * 1e3)
             self.samples["inter_token_ms"].append(itl_ms)
             self._finish(req, "ok")
@@ -344,8 +368,12 @@ class ServingEngine:
         left pads and with maximal left pads (the two phase plans a cell can
         map to); returns the number of ``generate`` calls. In PyTorch nothing
         is compiled per shape, so this builds the kernels and warms the
-        allocator and the matmul libraries."""
+        allocator and the matmul libraries. With ``decode_strategy="auto"``
+        the boundary autotuner measures first (once per shape and platform),
+        so every call runs the plan traffic will use."""
         cfg = config or self.config
+        if self.decode_strategy == "auto":
+            decode_strategy_mod.autotune_boundary(self.model)
         calls = 0
         for b, length in self.table.grid():
             nominal_prefix = length - min(length, cfg.num_latents)

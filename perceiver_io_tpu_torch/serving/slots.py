@@ -69,6 +69,26 @@ the pool bytes over ``swap_link_gbps``) and takes the cheaper. A victim
 taken mid-admission always recomputes. ``postmortems()`` keeps each
 victim's record.
 
+**Speculative decoding** (``speculation="k<K>d<D>"``): in place of the
+decode step, a round drafts ``K`` tokens per slot from the model's first
+``D`` self-attention layers and ONE lane-batched verify forward scores all
+``K + 1`` positions (:mod:`~..inference.speculative`); each row advances by
+its accepted burst, ``n_e`` in ``[1, K + 1]`` tokens, truncated on the host
+at EOS and ``max_new_tokens``. The round decodes by windowed recompute and
+leaves every KV cache as it is, so it composes with each layout, chunking,
+sharing and preemption; under the paged layouts each row maps its
+worst-case burst at once (``ensure_many``). Each token gets its own
+``on_token`` call and ITL sample (the burst's first carries the round's
+latency, the rest 0 ms). Greedy only.
+
+**Measured axes** (:mod:`~..inference.decode_strategy`): ``decode_strategy``,
+``kv_layout``, ``prefix_cache`` and ``speculation`` each resolve explicit
+argument > env var > registry verdict > default at construction;
+:meth:`SlotServingEngine.warmup` runs the autotuners of the axes asked for
+as ``"auto"`` and rebuilds onto the KV-layout verdict. ``swap_link_gbps``
+starts from the platform's measured rate in the registry, and every swap
+transfer records one there.
+
 KV layouts (``kv_layout``): ``"dense"`` keeps per-slot ``(h, N, d)`` cross
 caches; ``"paged"`` and ``"paged_int8"`` keep one flat pool addressed
 through per-slot block tables (:mod:`.kv_pool`); on the card the paged
@@ -84,12 +104,10 @@ scope restrictions, enforced at ``submit``:
   occupy latent slots (the boundary cache's precondition).
 
 Not ported yet (they raise ``NotImplementedError``, see ``ROADMAP.md`` A):
-speculation, the serving mesh, the ``kv_layout="auto"`` autotuner with
-``prefix_cache="auto"``, and sampling; nor ``evacuate`` and
-``resize_slots``. There is no tracer, chaos registry, flight recorder or
-timeline, no swap-rate registry (``swap_link_gbps`` defaults to a 16 GB/s
-prior, refined in memory by every measured transfer), and no trace-env
-fingerprint guards the prefix index (the port has no trace-env flags).
+the serving mesh and sampling; nor ``evacuate`` and ``resize_slots``. There
+is no tracer, chaos registry, flight recorder or timeline, and no trace-env
+fingerprint guards the prefix index or keys the registry (the port has no
+trace-env flags).
 """
 from __future__ import annotations
 
@@ -101,9 +119,10 @@ import numpy as np
 import torch
 
 from perceiver_io_tpu_torch._device import DeviceLike
+from perceiver_io_tpu_torch.inference import decode_strategy as decode_strategy_mod
+from perceiver_io_tpu_torch.inference import speculative as spec_mod
 from perceiver_io_tpu_torch.inference.generate import (
     GenerationConfig,
-    _boundary_cached,
     _decode_forward,
     _decode_prefill,
     _decode_step_boundary,
@@ -126,9 +145,7 @@ from perceiver_io_tpu_torch.serving.kv_pool import (
     SwapBundle,
 )
 
-KV_LAYOUTS = ("dense", "paged", "paged_int8")
-PAGED_KV_LAYOUTS = ("paged", "paged_int8")
-PREFIX_CACHE_MODES = ("auto", "on", "off")
+PAGED_KV_LAYOUTS = decode_strategy_mod.PAGED_KV_LAYOUTS
 PREEMPTION_MODES = ("off", "recompute", "swap", "auto")
 #: the host link's rate (decimal GB/s) the swap cost model assumes until a
 #: measured transfer refines it
@@ -157,6 +174,11 @@ _SLOT_COUNTERS = (
     "kv_swaps_total",
     "kv_swap_restores_total",
     "kv_swap_bytes_total",
+    "kv_quant_fallback_total",
+    "spec_rounds_total",
+    "spec_tokens_proposed_total",
+    "spec_tokens_accepted_total",
+    "spec_tokens_emitted_total",
 )
 #: the per-slot row state a swapped victim carries (besides its pages and
 #: stack caches); the counters travel as int32, as the reference's state
@@ -405,7 +427,9 @@ class SlotServingEngine(ServingEngine):
     :param slots: number of persistent decode slots ``S``. The bucket
         table's ``batch_sizes`` are ignored; ``prompt_lens`` are the prefill
         buckets.
-    :param kv_layout: ``"dense"`` (default), ``"paged"`` or ``"paged_int8"``.
+    :param kv_layout: ``"dense"``, ``"paged"``, ``"paged_int8"`` or ``"auto"``
+        (the registry verdict, measured again by :meth:`warmup`); None reads
+        ``PERCEIVER_KV_LAYOUT``, else ``"auto"``, whose untuned default is dense.
     :param kv_block_size: token positions per pool block (paged layouts;
         default ``min(16, max_seq_len)``).
     :param kv_blocks: usable pool capacity in blocks (the null block is
@@ -413,90 +437,114 @@ class SlotServingEngine(ServingEngine):
         kv_block_size)``. Below that, requests whose worst case does not fit
         now wait at the queue head (``kv_pool_admit_waits_total``) and
         requests that can never fit are rejected at submit.
-    :param decode_strategy: the boundary phase's step: ``"cached"`` (also
-        ``"auto"`` and None) or ``"recompute"``.
+    :param decode_strategy: the boundary phase's step: ``"cached"``,
+        ``"recompute"`` or ``"auto"`` (the registry verdict, else cached);
+        None reads ``PERCEIVER_DECODE_STRATEGY``, else ``"auto"``.
     :param prefill_chunk: admit prompts whose prefix spans more than this
         many positions one chunk per ``step()`` (module docstring); None
         admits every prompt in one call.
     :param prefix_cache: ``"on"`` shares published prompt-prefix blocks
-        between requests (paged layouts only); ``"off"`` or None does not.
+        between requests (paged layouts only); ``"off"`` does not; ``"auto"``
+        reads the registry (else off); None reads ``PERCEIVER_PREFIX_CACHE``.
     :param preemption: ``"off"`` (default, also None), ``"recompute"``,
         ``"swap"`` or ``"auto"`` (paged layouts only; module docstring).
     :param admit_headroom_blocks: decode blocks a lazy admission reserves
         beyond its prompt pages (0 admits on prompt pages alone).
     :param swap_link_gbps: the host link's rate (decimal GB/s) for the
-        swap cost model; default :data:`SWAP_LINK_GBPS_PRIOR`. Every
-        measured transfer moves it halfway to the measured rate.
+        swap cost model; default the platform's rate in the registry, else
+        :data:`SWAP_LINK_GBPS_PRIOR`. Every measured transfer moves it
+        halfway to the measured rate and records it in the registry.
+    :param speculation: ``"off"``, ``"k<K>d<D>"`` (K in {2, 4, 8}, D in
+        {1, 2}) or ``"auto"`` (the registry verdict, else off; measured by
+        :meth:`warmup`); None reads ``PERCEIVER_SPECULATION``. Greedy only.
     """
 
     def __init__(self, model, config: Optional[GenerationConfig] = None, table=None, *,
-                 slots: int = 8, kv_layout: str = "dense", kv_block_size: Optional[int] = None,
-                 kv_blocks: Optional[int] = None, decode_strategy: Optional[str] = None,
-                 prefill_chunk: Optional[int] = None, prefix_cache: Optional[str] = None,
-                 preemption: Optional[str] = None, admit_headroom_blocks: int = 0,
-                 swap_link_gbps: Optional[float] = None, speculation: Optional[str] = None,
-                 mesh=None, device: DeviceLike = "cuda", **kwargs):
-        if prefix_cache == "auto":
-            raise _deferred("prefix_cache='auto' (the prefix-cache autotuner)")
-        if speculation not in (None, "off"):
-            raise _deferred(f"speculation={speculation!r} (speculative decoding)")
+                 slots: int = 8, kv_layout: Optional[str] = None,
+                 kv_block_size: Optional[int] = None, kv_blocks: Optional[int] = None,
+                 decode_strategy: Optional[str] = None, prefill_chunk: Optional[int] = None,
+                 prefix_cache: Optional[str] = None, preemption: Optional[str] = None,
+                 admit_headroom_blocks: int = 0, swap_link_gbps: Optional[float] = None,
+                 speculation: Optional[str] = None, mesh=None, device: DeviceLike = "cuda",
+                 **kwargs):
         if mesh is not None:
             raise _deferred("mesh (sharded serving)")
-        if kv_layout == "auto":
-            raise _deferred("kv_layout='auto' (the KV-layout autotuner)")
-        if kv_layout not in KV_LAYOUTS:
-            raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout!r}")
-        if prefix_cache not in (None,) + PREFIX_CACHE_MODES:
-            raise ValueError(f"prefix_cache must be one of {PREFIX_CACHE_MODES}, got {prefix_cache!r}")
-        if prefix_cache == "on" and kv_layout not in PAGED_KV_LAYOUTS:
+        if kv_layout is not None and kv_layout not in decode_strategy_mod.KV_LAYOUTS:
             raise ValueError(
-                "prefix_cache='on' shares pool blocks between requests but the KV layout is "
-                f"{kv_layout!r}: prefix sharing requires kv_layout='paged' (or 'paged_int8'; "
-                "dense slots have no block tables to share)"
-            )
+                f"kv_layout must be one of {decode_strategy_mod.KV_LAYOUTS}, got {kv_layout!r}")
+        if prefix_cache is not None and prefix_cache not in decode_strategy_mod.PREFIX_CACHE_MODES:
+            raise ValueError(f"prefix_cache must be one of {decode_strategy_mod.PREFIX_CACHE_MODES}, "
+                             f"got {prefix_cache!r}")
+        if speculation is not None and speculation not in decode_strategy_mod.SPECULATION_MODES:
+            raise ValueError(f"speculation must be one of {decode_strategy_mod.SPECULATION_MODES}, "
+                             f"got {speculation!r}")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if preemption is not None and preemption not in PREEMPTION_MODES:
             raise ValueError(f"preemption must be one of {PREEMPTION_MODES}, got {preemption!r}")
         if admit_headroom_blocks < 0:
             raise ValueError(f"admit_headroom_blocks must be >= 0, got {admit_headroom_blocks}")
-        if preemption not in (None, "off") and kv_layout not in PAGED_KV_LAYOUTS:
-            raise ValueError(
-                f"preemption={preemption!r} admits against the block pool but the KV layout "
-                f"resolved to {kv_layout!r} — lazy pages need kv_layout='paged' (or 'paged_int8'; "
-                "dense slots reserve their worst case by construction)"
-            )
         if swap_link_gbps is not None and swap_link_gbps <= 0:
             raise ValueError(f"swap_link_gbps must be > 0, got {swap_link_gbps}")
-        super().__init__(model, config, table, decode_strategy=decode_strategy, device=device,
-                         **kwargs)
-        if self.config.sampling.do_sample:
-            raise _deferred("sampling (do_sample=True)")
-        if not _on_device(model, self.device):
-            raise ValueError(f"model lies on {model.device}, the engine was asked for {self.device}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if kv_block_size is not None and kv_block_size < 1:
             raise ValueError(f"kv_block_size must be >= 1, got {kv_block_size}")
         if kv_blocks is not None and kv_blocks < 1:
             raise ValueError(f"kv_blocks must be >= 1, got {kv_blocks}")
-        if kv_layout == "dense" and (kv_block_size is not None or kv_blocks is not None):
-            raise ValueError(
-                "kv_block_size/kv_blocks size the paged pool, but kv_layout is 'dense': pass "
-                "kv_layout='paged' or 'paged_int8' (sizing the pool is choosing the paged layout)"
-            )
+        super().__init__(model, config, table, decode_strategy=decode_strategy, device=device,
+                         **kwargs)
+        if not _on_device(model, self.device):
+            raise ValueError(f"model lies on {model.device}, the engine was asked for {self.device}")
         n = model.max_seq_len
         self.slots = int(slots)
-        self.kv_layout = kv_layout
+        self.prefill_chunk = None if prefill_chunk is None else int(min(prefill_chunk, n))
+        # each measured axis resolves explicit > env var > registry > default;
+        # an explicit "auto" layout is measured again by warmup()
+        self.kv_layout_requested = kv_layout
+        #: sizing the pool is choosing a paged layout: a dense resolution
+        #: would drop the budget, so it is refused, and warmup keeps the layout
+        self._kv_sized = kv_block_size is not None or kv_blocks is not None
         self.kv_block_size = int(min(kv_block_size or min(16, n), n))
         self.kv_blocks = int(kv_blocks or self.slots * -(-n // self.kv_block_size))
-        self.boundary_mode = "cached" if _boundary_cached(decode_strategy) else "recompute"
-        self.prefill_chunk = None if prefill_chunk is None else int(min(prefill_chunk, n))
-        self.prefix_cache = "on" if prefix_cache == "on" else "off"
+        resolved = decode_strategy_mod.resolve_kv_layout(kv_layout, model)
+        if self._kv_sized and resolved not in PAGED_KV_LAYOUTS:
+            raise ValueError(
+                "kv_block_size/kv_blocks size the paged pool, but the KV layout resolved to "
+                f"{resolved!r}: the budget would be ignored; pass kv_layout='paged' or "
+                "'paged_int8' (sizing the pool is choosing the paged layout)"
+            )
+        self.prefix_cache_requested = prefix_cache
+        #: the resolved preference; the active ``prefix_cache`` follows the
+        #: layout (only a paged pool shares), re-derived at every rebuild
+        self._prefix_pref = decode_strategy_mod.resolve_prefix_cache(prefix_cache, model)
+        if prefix_cache == "on" and kv_layout != "auto" and resolved not in PAGED_KV_LAYOUTS:
+            raise ValueError(
+                "prefix_cache='on' shares pool blocks between requests but the KV layout is "
+                f"{resolved!r}: prefix sharing requires kv_layout='paged' (or 'paged_int8'; "
+                "dense slots have no block tables to share)"
+            )
         self.preemption = preemption or "off"
         self.admit_headroom_blocks = int(admit_headroom_blocks)
-        self.swap_link_gbps = float(swap_link_gbps if swap_link_gbps is not None
-                                    else SWAP_LINK_GBPS_PRIOR)
+        if self.preemption != "off" and kv_layout != "auto" and resolved not in PAGED_KV_LAYOUTS:
+            raise ValueError(
+                f"preemption={preemption!r} admits against the block pool but the KV layout "
+                f"resolved to {resolved!r} — lazy pages need kv_layout='paged' (or 'paged_int8'; "
+                "dense slots reserve their worst case by construction)"
+            )
+        self.speculation_requested = speculation
+        self.speculation = decode_strategy_mod.resolve_speculation(speculation, model)
+        self._spec = spec_mod.parse_speculation(self.speculation)
+        if self._spec is not None:
+            spec_mod.validate_spec(self._spec, model, self.config)
+        if self.config.sampling.do_sample:
+            raise _deferred("sampling (do_sample=True)")
+        #: the swap cost model's host-link rate: explicit, else the rate
+        #: measured on this platform (the registry), else the prior
+        self.swap_link_gbps = float(
+            swap_link_gbps if swap_link_gbps is not None
+            else decode_strategy_mod.lookup_swap_gbps(self.device.type) or SWAP_LINK_GBPS_PRIOR)
+        self._pinned_boundary_mode: Optional[str] = None
         self.counters.update(dict.fromkeys(_SLOT_COUNTERS, 0))
         self.samples.update(decode_step_ms=[], prefill_ms=[], prefill_chunk_ms=[],
                             swap_out_ms=[], swap_in_ms=[])
@@ -517,13 +565,43 @@ class SlotServingEngine(ServingEngine):
         self._slots: List[Optional[_Slot]] = [None] * self.slots
         self._admitting: Optional[_ChunkedAdmit] = None
         self._kv_waiting_id: Optional[int] = None
-        if kv_layout in PAGED_KV_LAYOUTS:
-            self._pool: Optional[KVPagePool] = KVPagePool(self.kv_blocks, self.kv_block_size,
-                                                          self.slots, n)
+        self._pool: Optional[KVPagePool] = None
+        self._state: Optional[dict] = None
+        self._init_kv_state(resolved)
+
+    @property
+    def boundary_mode(self) -> str:
+        """The boundary phase's step, ``"cached"`` or ``"recompute"``
+        (``decode_strategy`` > env var > registry > cached), pinned at first
+        use: under recompute the boundary rows' cross caches go stale, so a
+        later verdict must not swap the step under residents. ``warmup()``
+        (no residents) resolves it again."""
+        if self._pinned_boundary_mode is None:
+            self._pinned_boundary_mode = decode_strategy_mod.resolve(
+                self.decode_strategy, self.model).boundary
+        return self._pinned_boundary_mode
+
+    # -- state and pool -----------------------------------------------------
+    def _init_kv_state(self, layout: str) -> None:
+        """(Re)build the device state, the pool and the prefix index for
+        ``layout``; the caller guarantees no residents. The old state and
+        pool are dropped (and the card's cache emptied) before the new ones
+        are allocated, so the card never holds two pools. Parked swap
+        bundles describe the old pool and drop: their requests replay."""
+        if self._pool is not None:
+            for rid in list(self._swap_bundles):
+                self._drop_bundle(rid, cause="swapped")
+        self._state = self._pool = self._table_dev = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.kv_layout = layout
+        if layout in PAGED_KV_LAYOUTS:
+            self._pool = KVPagePool(self.kv_blocks, self.kv_block_size, self.slots,
+                                    self.model.max_seq_len)
             self._push_table()
+            self.prefix_cache = "on" if self._prefix_pref == "on" else "off"
         else:
-            self._pool = None
-            self._table_dev = None
+            self.prefix_cache = "off"
         self._prefix_index: Optional[PrefixBlockIndex] = (
             PrefixBlockIndex(self.kv_block_size) if self.prefix_cache == "on" else None)
         self._state = self._new_state()
@@ -536,7 +614,6 @@ class SlotServingEngine(ServingEngine):
             self._kv_token_bytes = 2 * h * d * pool_k.element_size()
             self._kv_scale_token_bytes = 2 * h * 4 if "scale_k" in self._state else 0
 
-    # -- state and pool -----------------------------------------------------
     def _new_state(self) -> dict:
         pool_tokens = None if self._pool is None else (self.kv_blocks + 1) * self.kv_block_size
         return _blank_state(self.model, self.slots, self.config.pad_token_id, self.device,
@@ -923,12 +1000,16 @@ class SlotServingEngine(ServingEngine):
 
     def _calibrate_swap(self, bytes_moved: int, seconds: float) -> None:
         """Move the link-rate model halfway to one measured transfer's rate
-        (in memory only). Zero-length measurements (a frozen test clock) are
-        skipped."""
+        and record it in the platform's swap-rate registry, so a later
+        engine (or process, through the registry file) starts from it.
+        Zero-length measurements (a frozen test clock) are skipped."""
         if seconds <= 0 or bytes_moved <= 0:
             return
         measured = bytes_moved / (seconds * 1e9)
         self.swap_link_gbps = round(0.5 * self.swap_link_gbps + 0.5 * measured, 6)
+        decode_strategy_mod.record_swap_gbps(
+            self.swap_link_gbps, platform=self.device.type, bytes_moved=int(bytes_moved),
+            last_transfer_ms=round(seconds * 1e3, 3))
 
     def _release_bundle(self, bundle: SwapBundle, cause: str) -> None:
         """Drop a parked bundle's references on its shared blocks (it may
@@ -1412,8 +1493,11 @@ class SlotServingEngine(ServingEngine):
 
     def _map_decode_pages(self, active: List[_Slot]) -> bool:
         """Map the page each resident's next write lands on, and copy on
-        write any still-shared page it would write through. With preemption
-        off admission reserved the worst case, so this cannot run dry; under
+        write any still-shared page it would write through. A speculative
+        round maps its worst-case burst, ``min(k+1, max_new - emitted)``
+        tokens, at once (``ensure_many``: all of it or, on exhaustion,
+        nothing), as that many plain steps would. With preemption off
+        admission reserved the worst case, so this cannot run dry; under
         lazy admission a dry pool raises :class:`PoolExhausted`, and the
         resident reclaims a page (:meth:`_reclaim_decode_page`), preempting a
         victim or yielding. Returns True when the table changed."""
@@ -1421,10 +1505,15 @@ class SlotServingEngine(ServingEngine):
         for entry in active:
             if self._slots[entry.slot] is not entry:
                 continue  # preempted as an earlier row's victim
-            next_len = int(entry.req.prompt.size) + len(entry.emitted) + 1
+            burst = 1 if self._spec is None else max(
+                1, min(self._spec.k + 1, entry.max_new - len(entry.emitted)))
+            next_len = int(entry.req.prompt.size) + len(entry.emitted) + burst
             while True:
                 try:
-                    changed |= self._pool.ensure(entry.slot, next_len)
+                    if burst > 1:
+                        changed |= self._pool.ensure_many(entry.slot, next_len)
+                    else:
+                        changed |= self._pool.ensure(entry.slot, next_len)
                     changed |= self._cow_guard(entry, next_len)
                     break
                 except PoolExhausted as e:
@@ -1497,37 +1586,83 @@ class SlotServingEngine(ServingEngine):
                 active = self._active()
                 if not active:
                     return disposed  # every resident yielded: the replays admit next step
-            boundary = any(s.m >= num_latents for s in active)
+            # a speculative round's lanes cover latent growth and the boundary
+            # per row, so it has no boundary variant
+            boundary = self._spec is None and any(s.m >= num_latents for s in active)
             with torch.no_grad():
-                tokens = self._decode(boundary).cpu().numpy()  # host sync: the scheduling point
+                if self._spec is None:
+                    tokens = self._decode(boundary).cpu().numpy()  # host sync: the scheduling point
+                    bursts = {e.slot: [int(tokens[e.slot])] for e in active}
+                else:
+                    cand, n_e = self._spec_round()
+                    bursts = {e.slot: [int(t) for t in cand[e.slot, :int(n_e[e.slot])]]
+                              for e in active}
         except Exception as e:
             return disposed + self._fail_resident(f"{type(e).__name__}: {e}")
         token_at = self._clock()
         self.samples["decode_step_ms"].append((token_at - t0) * 1e3)
         self._inc("serving_decode_steps_total")
         self._inc("serving_decode_boundary_steps_total", int(boundary))
-        # a paged step on the card attends through K4; on the CPU through the gather
-        self._inc("kv_ragged_kernel_steps_total",
-                  int(self._pool is not None and self.device.type == "cuda"))
+        # a plain paged step on the card attends through K4 (on the CPU
+        # through the gather); a speculative round reads no cache
+        self._inc("kv_ragged_kernel_steps_total", int(
+            self._pool is not None and self.device.type == "cuda" and self._spec is None))
         self._inc("serving_decode_rows_total", self.slots)
         self._inc("serving_decode_rows_padded_total", self.slots - len(active))
         eos = self.config.eos_token_id
+        emitted = 0
         for entry in active:
-            token = int(tokens[entry.slot])
-            nkey = tenant_label(entry.req.tenant)
-            self._tokens_by_tenant[nkey] = self._tokens_by_tenant.get(nkey, 0) + 1
-            if entry.emitted:
-                self.samples["inter_token_ms"].append((token_at - entry.last_token_at) * 1e3)
-            else:
-                self.samples["ttft_ms"].append((token_at - entry.req.submitted_at) * 1e3)
-            entry.emitted.append(token)
-            entry.last_token_at = token_at
-            entry.m = min(entry.m + 1, num_latents)
-            if (eos is not None and token == eos) or len(entry.emitted) >= entry.max_new:
-                self._retire(entry, "ok")
-                disposed += 1
-        self._inc("serving_tokens_generated_total", len(active))
+            # a burst is truncated here at EOS and max_new_tokens, where
+            # that many plain steps would have stopped; its first token
+            # carries the round's latency, the rest 0 ms of ITL
+            for token in bursts[entry.slot]:
+                if entry.emitted:
+                    self.samples["inter_token_ms"].append((token_at - entry.last_token_at) * 1e3)
+                else:
+                    self.samples["ttft_ms"].append((token_at - entry.req.submitted_at) * 1e3)
+                entry.emitted.append(token)
+                emitted += 1
+                if entry.req.on_token is not None:
+                    self._emit_token(entry.req, len(entry.emitted) - 1, token)
+                entry.last_token_at = token_at
+                entry.m = min(entry.m + 1, num_latents)
+                nkey = tenant_label(entry.req.tenant)
+                self._tokens_by_tenant[nkey] = self._tokens_by_tenant.get(nkey, 0) + 1
+                if (eos is not None and token == eos) or len(entry.emitted) >= entry.max_new:
+                    self._retire(entry, "ok")
+                    disposed += 1
+                    break
+        self._inc("serving_tokens_generated_total", emitted)
+        if self._spec is not None:
+            self._inc("spec_rounds_total")
+            self._inc("spec_tokens_proposed_total", self._spec.k * len(active))
+            self._inc("spec_tokens_accepted_total", int(sum(int(n_e[e.slot]) - 1 for e in active)))
+            self._inc("spec_tokens_emitted_total", emitted)
         return disposed
+
+    def _spec_round(self) -> tuple:
+        """One speculative round over all slots, in place of :meth:`_decode`:
+        the draft proposes ``(S, k+1)`` candidates, ONE lane-batched verify
+        forward scores them, and the row state advances past each row's
+        ``n_e`` accepted tokens. The KV caches (dense cross or pool, and the
+        latent stack) are left as they are: the lanes recompute the window,
+        so what the caches hold past the prefill is never read again (the
+        recompute boundary step's contract). So an idle or admitting slot's
+        round writes only row state, which the admission's insert
+        overwrites. :return: ``(cand (S, k+1), n_e (S,))`` on the host."""
+        st, spec, cfg = self._state, self._spec, self.config
+        min_new = cfg.min_new_tokens if cfg.eos_token_id is not None else 0
+        eos = cfg.eos_token_id or 0
+        cand = spec_mod.propose_tokens(self.model, st["window"], st["pad"], st["m"], st["steps"],
+                                       st["logits"], spec.k, spec.draft_layers, min_new, eos)
+        lane_logits = spec_mod.verify_lanes(self.model, st["window"], st["pad"], st["m"], cand)
+        n_e, next_logits = spec_mod.accept_prefix(lane_logits, cand, st["steps"], min_new, eos)
+        window, pad, m = spec_mod.advance_window(st["window"], st["pad"], st["m"], cand, n_e,
+                                                 self.model.max_latents)
+        st.update(window=window, pad=pad, m=m,
+                  length=(st["length"] + n_e).clamp(max=self.model.max_seq_len),  # idle slots saturate
+                  steps=st["steps"] + n_e, logits=next_logits.to(st["logits"].dtype))
+        return cand.cpu().numpy(), n_e.cpu().numpy()  # host sync: the scheduling point
 
     def run_until_idle(self) -> int:
         """Step until no request is queued, admitting or resident; returns
@@ -1536,6 +1671,128 @@ class SlotServingEngine(ServingEngine):
         while self.pending():
             served += self.step()
         return served
+
+    # -- warmup -------------------------------------------------------------
+    def warmup(self, config: Optional[GenerationConfig] = None) -> int:
+        """Before traffic: run the autotuners of the axes asked for as
+        ``"auto"``, rebuild onto the KV-layout verdict, drive every step the
+        engine can take once, then blank the slot state. Returns the number
+        of steps driven (in PyTorch nothing compiles per shape: this builds
+        the kernels and warms the allocator and the matmul libraries).
+
+        - ``decode_strategy="auto"``: :func:`~..inference.decode_strategy.autotune_boundary`;
+        - ``kv_layout="auto"`` (unless the pool was sized): ``autotune_kv_layout``,
+          then a rebuild onto its verdict (the old pool freed first);
+          ``kv_quant_fallback_total`` counts a quality gate that vetoed
+          int8, and ``prefix_cache="on"`` over a dense verdict raises;
+        - ``speculation="auto"``: ``autotune_speculation``, then the verdict
+          is taken (JAX's serve CLI runs this probe; the port has no CLI).
+
+        The steps driven: each feasible prompt bucket's prefill, the decode
+        step and its boundary variant, the chunked prefill's chunk and
+        finalize when ``prefill_chunk`` is set, the shared finalize and page
+        copy with prefix sharing on, the draft/verify round with speculation
+        on, and a swap round trip under ``swap``/``auto`` preemption.
+
+        :raises RuntimeError: with residents or an admission in flight (the
+            blank at the end would decode them from zeroed caches).
+        :raises ValueError: for a config that differs from the engine's in
+            more than ``max_new_tokens``.
+        """
+        if config is not None and dataclasses.replace(
+                config, max_new_tokens=self.config.max_new_tokens) != self.config:
+            raise ValueError(
+                "slot engine warmup config must match the engine config (only max_new_tokens "
+                "may differ)")
+        if any(s is not None for s in self._slots) or self._admitting is not None:
+            raise RuntimeError(
+                "warmup() with requests resident in slots would corrupt their decode state; "
+                "warm up before traffic or after drain()")
+        model = self.model
+        if self.decode_strategy == "auto":
+            decode_strategy_mod.autotune_boundary(model)
+        if self.kv_layout_requested == "auto" and not self._kv_sized:
+            verdict = decode_strategy_mod.autotune_kv_layout(model, block_size=self.kv_block_size)
+            if verdict != self.kv_layout:
+                self._init_kv_state(verdict)
+            gate = (decode_strategy_mod.kv_entry(model) or {}).get("quant_gate")
+            if gate is not None and not gate.get("passed", False):
+                self._inc("kv_quant_fallback_total")
+            if self.prefix_cache_requested == "on" and self.kv_layout not in PAGED_KV_LAYOUTS:
+                raise ValueError(
+                    "prefix_cache='on' requires a paged kv_layout but the kv-layout autotuner "
+                    "resolved dense at this shape — pass kv_layout='paged' explicitly to share "
+                    "prefixes")
+        if self.speculation_requested == "auto":
+            self.speculation = decode_strategy_mod.autotune_speculation(model)
+            self._spec = spec_mod.parse_speculation(self.speculation)
+            if self._spec is not None:
+                spec_mod.validate_spec(self._spec, model, self.config)
+        self._pinned_boundary_mode = None  # no residents: take the freshest verdict
+        with torch.no_grad():
+            steps = self._drive_warmup_steps()
+        if self._prefix_index is not None:
+            self._prefix_index.flush(self._pool)  # the blank below zeroes its pages
+        for rid in list(self._swap_bundles):  # parked bundles describe pages about to be zeroed
+            self._drop_bundle(rid, cause="retire")
+        self._state = None
+        self._state = self._new_state()
+        return steps
+
+    def _drive_warmup_steps(self) -> int:
+        """Each step :meth:`warmup` drives, once, over the live state with an
+        all-zero block table (every pool write lands in the null block);
+        returns the count."""
+        model, cfg, st = self.model, self.config, self._state
+        n, bs = model.max_seq_len, self.kv_block_size
+        row0 = None if self._pool is None else torch.zeros_like(self._table_dev[0])
+        pad_id = cfg.pad_token_id
+        m0 = min(cfg.num_latents, model.max_latents)
+
+        def window_of(length: int):
+            window = torch.full((1, n), pad_id, dtype=torch.long, device=self.device)
+            return window, torch.full((1,), n - length, dtype=torch.long, device=self.device)
+
+        steps = 0
+        for bucket_len in self.table.prompt_lens:
+            if bucket_len - min(bucket_len, cfg.num_latents) > model.max_prefix_len:
+                continue
+            window, pad = window_of(bucket_len)
+            m = min(bucket_len, cfg.num_latents)
+            logits, cache, length, _ = _decode_prefill(model, window, pad, m)
+            _insert_row(st, 0, window=window, pad=pad, logits=logits, cache=cache, length=length,
+                        m=m, table_row=row0, block_size=bs)
+            steps += 1
+        window, pad = window_of(n)
+        if self.prefill_chunk is not None:
+            ref = st["stack_k"][0]
+            stage_k = torch.zeros((1, ref.shape[1], n, ref.shape[3]), dtype=ref.dtype,
+                                  device=self.device)
+            stage_v = torch.zeros_like(stage_k)
+            tokens = torch.full((1, self.prefill_chunk), pad_id, dtype=torch.long,
+                                device=self.device)
+            k, v = _prefill_chunk_kv(model, tokens, 0)
+            stage_k[:, :, :self.prefill_chunk] = k.to(stage_k.dtype)
+            stage_v[:, :, :self.prefill_chunk] = v.to(stage_v.dtype)
+            _prefill_finalize(model, window, pad, m0, stage_k, stage_v)
+            steps += 2
+        if self._prefix_index is not None:
+            _prefill_finalize_paged(model, window, pad, m0, st["pool_k"], st["pool_v"], row0, bs,
+                                    scale_k=st.get("scale_k"), scale_v=st.get("scale_v"))
+            _copy_page(st, 0, 0, bs)
+            steps += 2
+        for boundary in (False, True):
+            self._decode(boundary)
+            steps += 1
+        if self._spec is not None:
+            self._spec_round()
+            steps += 1
+        if self._pool is not None and self.preemption in ("swap", "auto"):
+            payload = _swap_extract(st, row0, 0, bs)
+            _swap_restore(st, payload, row0, 0, 0, bs)
+            steps += 2
+        self._state["length"][0].item()  # host sync: the steps have run
+        return steps
 
     # -- observability ------------------------------------------------------
     def stats(self) -> dict:
@@ -1559,7 +1816,18 @@ class SlotServingEngine(ServingEngine):
             "prefill_chunks": c["serving_prefill_chunks_total"],
             "decode_strategy_boundary": self.boundary_mode,
             "kv_layout": self.kv_layout,
+            "speculation": {"mode": self.speculation},
         })
+        if self._spec is not None:
+            rounds, proposed = c["spec_rounds_total"], c["spec_tokens_proposed_total"]
+            accepted, emitted = c["spec_tokens_accepted_total"], c["spec_tokens_emitted_total"]
+            out["speculation"].update({
+                "k": self._spec.k, "draft_layers": self._spec.draft_layers, "rounds": rounds,
+                "proposed": proposed, "accepted": accepted, "emitted": emitted,
+                # drafted tokens the verify kept, over drafted tokens proposed
+                "acceptance_rate": round(accepted / max(1, proposed), 4),
+                "tokens_per_round": round(emitted / max(1, rounds), 4),
+            })
         if self._pool is not None:
             out["kv_pool"] = {
                 **self._pool.stats(),
@@ -1619,6 +1887,7 @@ class SlotServingEngine(ServingEngine):
         out["kv_layout"] = self.kv_layout
         out["prefix_cache"] = self.prefix_cache
         out["preemption"] = self.preemption
+        out["speculation"] = self.speculation
         if self._pool is not None:
             out["kv_pool_in_use"] = self._pool.in_use
             out["kv_pool_leaked"] = self._pool.leaked()

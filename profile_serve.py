@@ -7,6 +7,8 @@
         --prefill-chunk 128 --prefix-cache on                  # chunking, prefix sharing
     python3 profile_serve.py --engine slots --kv-layout paged \
         --preemption swap --kv-blocks 160                      # a pressured pool
+    python3 profile_serve.py --engine slots --speculation k4d2 # speculative rounds
+    python3 profile_serve.py --engine slots --kv-layout auto   # the autotuned layout
     python3 profile_serve.py --engine train                    # one train step
 
 ``--engine bucket`` (default) serves the 8-request workload of
@@ -21,7 +23,13 @@ index starts empty. ``--preemption`` (recompute, swap or auto) with
 phase's traffic instead: the same requests, every third interactive and
 arriving 8 decode steps after the rest, so the pool's pressure preempts at
 admission and at decode (the swap copies and the replayed prefills show in
-the breakdown, and the line gives the preemption counts). Both over the
+the breakdown, and the line gives the preemption counts). ``--speculation``
+(a mode of ``decode_strategy.SPECULATION_CHOICES``) decodes by draft/verify
+rounds: the line adds the rounds, the acceptance, K1's device ms and
+launches over the rounds (the prefills' included) and the GEMMs' share of
+device time. ``--kv-layout
+auto`` runs the KV-layout autotuner once (its verdict and timings are in
+the line) and serves in the layout it picked. Both over the
 full-width CLM (random weights from a seed) on one GPU, in fp32 and in bf16
 compute. For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
@@ -64,6 +72,10 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+#: kernel-name patterns of the dense products (cuBLAS's and CUTLASS's GEMMs and GEMVs)
+GEMM_PATTERNS = ("gemm", "gemv", "nvjet")
+
+
 def _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod, engine_mod, vocab_size):
     """``(make_engine, run, tokens)`` for the chosen engine."""
     if args.engine == "bucket":
@@ -90,7 +102,8 @@ def _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod, engine_mod, 
                                            prefill_chunk=args.prefill_chunk,
                                            prefix_cache=args.prefix_cache, kv_blocks=args.kv_blocks,
                                            preemption=args.preemption,
-                                           admit_headroom_blocks=args.admit_headroom_blocks)
+                                           admit_headroom_blocks=args.admit_headroom_blocks,
+                                           speculation=args.speculation)
 
     def run(engine):
         if args.preemption != "off":
@@ -223,10 +236,15 @@ def _train_workload(torch, chip_smoke, clm, training, parallel, dtype):
 
 
 def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    from perceiver_io_tpu_torch.inference import decode_strategy as strategy_mod
+
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--engine", choices=("bucket", "slots", "train"), default="bucket")
-    parser.add_argument("--kv-layout", choices=("dense", "paged"), default="dense",
-                        help="the slot engine's KV layout")
+    parser.add_argument("--kv-layout", choices=("dense", "paged", "auto"), default="dense",
+                        help="the slot engine's KV layout ('auto': the autotuner's verdict)")
+    parser.add_argument("--speculation", choices=strategy_mod.SPECULATION_CHOICES, default="off",
+                        help="the slot engine's speculative decoding mode")
     parser.add_argument("--prefill-chunk", type=int, default=None,
                         help="the slot engine's prefill chunk (runs the slot-prefix workload)")
     parser.add_argument("--prefix-cache", choices=("off", "on"), default="off",
@@ -241,10 +259,11 @@ def main() -> int:
                         help="decode blocks a lazy admission reserves beyond its prompt pages")
     args = parser.parse_args()
     slot_only = (args.prefill_chunk is not None or args.prefix_cache == "on"
-                 or args.preemption != "off" or args.kv_blocks is not None)
+                 or args.preemption != "off" or args.kv_blocks is not None
+                 or args.speculation != "off" or args.kv_layout == "auto")
     if args.engine != "slots" and slot_only:
-        parser.error("--prefill-chunk, --prefix-cache, --preemption and --kv-blocks apply to "
-                     "--engine slots")
+        parser.error("--prefill-chunk, --prefix-cache, --preemption, --kv-blocks, --speculation "
+                     "and --kv-layout auto apply to --engine slots")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -252,7 +271,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
     import chip_smoke
     from perceiver_io_tpu_torch.inference import generate as gen_mod
     from perceiver_io_tpu_torch.models.text import clm
@@ -280,6 +298,8 @@ def main() -> int:
             tag += "_prefix"
         if args.preemption != "off":
             tag += f"_{args.preemption}{args.kv_blocks or ''}"
+        if args.speculation != "off":
+            tag += f"_{args.speculation}"
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -289,6 +309,12 @@ def main() -> int:
             torch.cuda.empty_cache()
             continue
         model = clm.CausalLanguageModel(cfg, dtype=dtype, seed=0).eval()
+        kv_verdict = None
+        if args.kv_layout == "auto":
+            # measured once (the registry keys shape and platform, not the
+            # compute type); every engine below resolves "auto" to it
+            strategy_mod.autotune_kv_layout(model)
+            kv_verdict = strategy_mod.kv_entry(model)
         make, run, tokens = _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod,
                                       engine_mod, cfg.vocab_size)
 
@@ -354,7 +380,8 @@ def main() -> int:
         if args.engine == "bucket":
             record["batch_execute_ms"] = engine.samples["device_execute_ms"]
         else:
-            record.update(kv_layout=args.kv_layout, decode_steps=stats["decode_steps"],
+            record.update(kv_layout=engine.kv_layout, kv_layout_requested=args.kv_layout,
+                          kv_autotune=kv_verdict, decode_steps=stats["decode_steps"],
                           boundary_steps=stats["boundary_steps"],
                           decode_step_ms_p50=stats["decode_step_ms"]["p50"],
                           prefill_chunk=args.prefill_chunk, prefill_chunks=stats["prefill_chunks"],
@@ -369,6 +396,18 @@ def main() -> int:
                     prefills=stats["prefills"],
                     memcpy_device_ms={"dtoh": ms_of("Memcpy DtoH"), "htod": ms_of("Memcpy HtoD")}
                     if measured else "not measured")
+            if args.speculation != "off":
+                sp = stats["speculation"]
+                gemm_ms = sum(_device_us(e) for e in kernels
+                              if any(p in e.key.lower() for p in GEMM_PATTERNS)) / 1e3
+                record.update(speculation={k: sp[k] for k in (
+                    "mode", "k", "draft_layers", "rounds", "proposed", "accepted", "emitted",
+                    "acceptance_rate", "tokens_per_round")},
+                    k1_launches_per_round=k1_launches / max(1, sp["rounds"]),
+                    k1_device_ms_per_round=k1_ms / max(1, sp["rounds"]) if measured
+                    else "not measured",
+                    gemm_device_ms=gemm_ms if measured else "not measured",
+                    gemm_share_of_device=gemm_ms / device_ms if device_ms else "not measured")
         print(json.dumps(record), flush=True)
         del model, engine
         torch.cuda.empty_cache()

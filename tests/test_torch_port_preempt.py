@@ -35,6 +35,7 @@ from perceiver_io_tpu.serving import SlotServingEngine as JaxSlotServingEngine
 from perceiver_io_tpu.serving.kv_pool import KVPagePool as JaxKVPagePool
 from perceiver_io_tpu.serving.kv_pool import PoolExhausted as JaxPoolExhausted
 from perceiver_io_tpu_torch.convert.from_jax import load_jax_params
+from perceiver_io_tpu_torch.inference import decode_strategy as port_strategy
 from perceiver_io_tpu_torch.inference.generate import GenerationConfig, generate
 from perceiver_io_tpu_torch.models.text.clm import CausalLanguageModel, CausalLanguageModelConfig
 from perceiver_io_tpu_torch.observability import tenant_label, tier_label
@@ -81,12 +82,16 @@ def pair():
     params = init(jax.random.PRNGKey(0), jnp.zeros((1, N), jnp.int32), 8)["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
     t_model = CausalLanguageModel(CausalLanguageModelConfig(**TINY), device="cpu")
-    # the JAX engine's swaps record measured link rates in JAX's in-memory
-    # registry: put back what was there before this module
-    saved = dict(jax_strategy._SWAP_REGISTRY)
+    # both engines' swaps record measured link rates in their package's
+    # in-memory registry, which the next engine starts from: both start
+    # empty here, and what was there before this module is put back
+    saved = [(reg, dict(reg)) for reg in (jax_strategy._SWAP_REGISTRY, port_strategy._SWAP_REGISTRY)]
+    for reg, _ in saved:
+        reg.clear()
     yield j_model, params, load_jax_params(t_model, params).eval()
-    jax_strategy._SWAP_REGISTRY.clear()
-    jax_strategy._SWAP_REGISTRY.update(saved)
+    for reg, before in saved:
+        reg.clear()
+        reg.update(before)
 
 
 def _ref(t_model, prompt, max_new):
@@ -538,9 +543,16 @@ def test_preemption_ported_and_the_rest_still_deferred(pair):
         eng = SlotServingEngine(t_model, BASE, slots=2, kv_layout="paged_int8", preemption=mode,
                                 device="cpu")
         assert eng.health()["preemption"] == mode and eng.stats()["preemption"]["mode"] == mode
-    for kwargs in (dict(speculation="k2d1"), dict(kv_layout="auto"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SlotServingEngine(t_model, BASE, slots=2, preemption="swap", device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SlotServingEngine(t_model, BASE, slots=2, preemption="swap", device="cpu", mesh=object())
+    # speculation and kv_layout="auto" are ported: preemption composes with
+    # speculation over a paged pool, and an "auto" layout defers the pool check
+    eng = SlotServingEngine(t_model, BASE, slots=2, kv_layout="paged", preemption="swap",
+                            speculation="k2d1", device="cpu")
+    assert eng.stats()["speculation"]["k"] == 2 and eng.health()["preemption"] == "swap"
+    eng = SlotServingEngine(t_model, BASE, slots=2, kv_layout="auto", preemption="swap",
+                            device="cpu")
+    assert eng.kv_layout == "dense"
 
 
 def test_cpu_preemption_runs_no_kernel(pair):

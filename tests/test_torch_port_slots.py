@@ -260,8 +260,15 @@ def test_deferred_arguments_raise(pair, kwargs):
         with pytest.raises(ValueError, match="lazy pages need kv_layout='paged'"):
             SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
+    if "mesh" in kwargs or config.sampling.do_sample:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
+        return
+    # ported: the "auto" axes resolve through the (empty) registry to their
+    # defaults, and speculation takes its mode
+    eng = SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
+    assert (eng.kv_layout, eng.prefix_cache) == ("dense", "off")
+    assert eng.speculation == kwargs.get("speculation", "off")
 
 
 def test_paged_cpu_path_runs_no_kernel(pair, prompts):
