@@ -26,13 +26,13 @@ non-zero and never prints the final line):
    is held to the same gates and is timed beside it (``prev_ms``), with the plain
    version's time, ``scaled_dot_product_attention``'s with its backend
    pinned to memory-efficient attention (a yardstick the port never calls)
-   and the card's bound (here and in phase 11 its bytes count k and v only
+   and the card's bound (here and in phase 12 its bytes count k and v only
    for the keys some query row sees, as K4's count only live keys; for
    ``tf32x3`` cases ``bound_ms`` at a third of the TF32 tensor-core rate and
-   ``bound_simt_ms`` at the CUDA cores' rate, as in phase 11). Then each of
+   ``bound_simt_ms`` at the CUDA cores' rate, as in phase 12). Then each of
    the split, wgmma and tf32x3 routes must refuse a query on a base off a
    16-byte boundary (``ValueError``, no launch counted). Every timed loop
-   here and in phases 6 and 11 reads the next of enough input copies to fill
+   here and in phases 6 and 12 reads the next of enough input copies to fill
    the L2 twice, so its times are HBM times, as the bound is, and queues
    behind a sleep kernel, so they are the card's times without the host's
    dispatch (``device_ms``);
@@ -154,7 +154,35 @@ non-zero and never prints the final line):
    (one of its arms timed again between synchronisations, the probe's
    figure within 2x of it); a second engine over the file measures
    nothing (no probe engine built, no ``generate`` call);
-11. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
+11. sample: sampled decoding and beam search over phase 7's model (fp32),
+   requests and references and phase 5's workload. (a) The sampler on the
+   card against its plain CPU path: ``(4, 32000)`` logits of 4 of phase 7's
+   prompts and a seeded numpy Gumbel table fed through
+   ``samplers.gumbel_noise``; temperature 0.7, top-k 50, top-p 0.9,
+   repetition penalty 1.2 and their combination: filtered logits equal (a
+   top-p keep-set difference excused within 1e-6 of p) and tokens
+   identical; the sampler's device ms a step. (b) ``do_sample=True,
+   top_k=1`` equals greedy: the bucket engine over phase 5's workload
+   against a greedy run of it, the slot engine dense and paged against
+   phase 7's references (the near-tie excuse of phase 7). (c) Temperature
+   0.8, top-k 50, top-p 0.95 through the bucket engine, then the slot
+   engine dense, paged and paged_int8, each run with seed A, seed A again
+   and seed B: every request completes, seed A twice identical, A and B
+   differ, 4 requests' tokens inside their step's top-k ∩ nucleus of a
+   teacher-forced ``_decode_forward`` (slack 1e-4 on the logit; the int8
+   run printed, not gated: its pool's logits are lossy), K1's fp32 tiles on
+   ``tf32x3`` and K4 on ``split``/``tc``, never simt, the pool leak-free;
+   printed beside the greedy tokens/s (phase 7's, or this phase's greedy
+   bucket run). (d) Beam search: ``beam_search(num_beams=1)`` over 2 of
+   phase 5's prompts equals ``generate()`` (near-tie excuse); ``generate(
+   num_beams=4, max_new_tokens=16, min_new_tokens=16)`` on 2 prompts runs
+   exactly 17 K1 calls a step (1 cross + 16 stack attends), all
+   ``tf32x3``, with its ms a step and a bf16 twin's agreement (printed);
+   a small model's beam tokens on the card equal the same weights' on the
+   CPU. (e) ``TextGenerationPipeline`` over clm-base's widths with the
+   byte tokenizer's 262-token vocabulary: ``bucketing=True`` gives the
+   text ``bucketing=False`` gives, and a beam call returns text;
+12. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
    against their plain versions at the training path's shapes (b = 4, 8
    heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
    512 latents, and j = 1024, with left pads that leave dead rows; the
@@ -176,7 +204,7 @@ non-zero and never prints the final line):
    ``simt`` kernels' outputs are held to 1e-4 of each output's largest plain
    entry in both types (``prev_rel_err``), with the same zeros and finite
    values, before they are timed;
-12. train, over the full-width CLM:
+13. train, over the full-width CLM:
    (a) one loss + backward with the kernels against ``attention_impl="xla"``
        (batch 4 x 1024, left pads inside the prefix, one prefix-dropout
        seed). fp32: loss within 1e-5 relative, every parameter's gradient
@@ -201,7 +229,7 @@ non-zero and never prints the final line):
        ``attention_impl="flash"`` (the plain forward and backward, same
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
-13. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
+14. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4 with
    its split and tc routes nested and the simt kernel's times as their
@@ -209,7 +237,9 @@ non-zero and never prints the final line):
    their ``kernel_launches`` the device kernels, two per split-route call;
    K4's ``slot_prefix_launches`` the paged slot-prefix run's calls and
    ``slot_preempt_launches`` each slot-preempt run's; K1's and K4's
-   ``slot_spec_launches`` each slot-spec engine run's), the
+   ``slot_spec_launches`` each slot-spec engine run's and
+   ``sample_launches`` each sampled run's; K1's ``beam_launches`` the
+   counted beam run's), the
    card's ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -1763,6 +1793,443 @@ def slot_spec_phase(torch, flash, ragged, gen_mod, spec_mod, strategy_mod, slots
     return runs
 
 
+# the sample phase: the real sampled config, its two seeds, how many
+# requests a run holds against a teacher-forced top-k ∩ nucleus, and the
+# beam plan whose K1 launches are counted
+SAMPLE_TOP = dict(temperature=0.8, top_k=50, top_p=0.95)
+SAMPLE_SEEDS = (1234, 4321)
+SAMPLE_CHECKED = 4
+SAMPLE_SLACK = 1e-4  # on the logit, teacher-forced against the served step
+TOP_P_EDGE = 1e-6    # a top-p keep-set difference is excused this close to p
+SAMPLE_FILTERS = {
+    "temperature": dict(do_sample=True, temperature=0.7),
+    "top_k": dict(do_sample=True, top_k=50),
+    "top_p": dict(do_sample=True, top_p=0.9),
+    "repetition_penalty": dict(do_sample=True, repetition_penalty=1.2),
+    "combined": dict(do_sample=True, temperature=0.7, top_k=50, top_p=0.9, repetition_penalty=1.2),
+}
+BEAM_WIDTH, BEAM_STEPS = 4, 16
+PIPE_PROMPTS = ("The Perceiver AR model reads a long context through a few latents",
+                "Sampling draws each token from the filtered distribution",
+                "Beam search keeps the best hypotheses at every step of the way")
+
+
+def _windows(torch, model, contexts):
+    """Right-aligned windows and pads for token contexts (each cut to its
+    last ``max_seq_len`` tokens)."""
+    n = model.max_seq_len
+    window = torch.zeros((len(contexts), n), dtype=torch.long, device=model.device)
+    pad = torch.zeros((len(contexts),), dtype=torch.long, device=model.device)
+    for r, ctx in enumerate(contexts):
+        ctx = list(ctx)[-n:]
+        window[r, n - len(ctx):] = torch.tensor(ctx, device=model.device)
+        pad[r] = n - len(ctx)
+    return window, pad
+
+
+def _teacher_logits(torch, gen_mod, model, prompt, tokens, num_latents: int):
+    """``(T, V)`` next-token logits before each of ``tokens``: one
+    full-recompute forward of the request's own prefix per step, at the
+    step's latent count, batched over the steps."""
+    contexts = [list(prompt) + list(tokens[:t]) for t in range(len(tokens))]
+    window, pad = _windows(torch, model, contexts)
+    m = torch.tensor([min(num_latents + t, model.max_latents) for t in range(len(tokens))],
+                     device=model.device)
+    with torch.no_grad():
+        return gen_mod._decode_forward(model, window, pad, m).float()
+
+
+def _nucleus_shortfall(torch, gen_mod, samplers, model, cfg, prompt, row) -> tuple:
+    """Per token of a sampled request: how far its logit lies below the
+    smallest logit ``cfg`` keeps at that step (top-k ∩ nucleus of the
+    teacher-forced logits; <= 0 inside), and how many tokens that keeps."""
+    tokens = [int(t) for t in row]
+    logits = _teacher_logits(torch, gen_mod, model, prompt, tokens, cfg.num_latents)
+    kept = samplers.filter_logits(logits, cfg.sampling) > samplers.NEG_INF
+    threshold = torch.where(kept, logits, torch.full_like(logits, float("inf"))).min(-1).values
+    chosen = logits[torch.arange(len(tokens), device=logits.device),
+                    torch.tensor(tokens, device=logits.device)]
+    return (threshold - chosen).cpu().tolist(), kept.sum(-1).cpu().tolist()
+
+
+def _top_p_edge_rows(torch, logits, p: float):
+    """Per row: the logit values whose top-p keep decision sits within
+    ``TOP_P_EDGE`` of ``p`` (``|cum - probs - p|``, in float64)."""
+    s = torch.sort(logits.double(), dim=-1, descending=True).values
+    probs = torch.softmax(s, dim=-1)
+    near = (torch.cumsum(probs, -1) - probs - p).abs() < TOP_P_EDGE
+    return [set(s[r][near[r]].tolist()) for r in range(len(s))]
+
+
+def sample_filters(torch, gen_mod, samplers, serve) -> dict:
+    """(a) The sampler on the card against its plain CPU path: ``(4, V)``
+    logits of phase 7's model over its first 4 prompts, a seeded numpy
+    Gumbel table fed through ``samplers.gumbel_noise``; per filter config the
+    filtered logits equal (a top-p keep-set difference excused within
+    ``TOP_P_EDGE`` of the boundary) and the tokens identical. Then the
+    sampler's device ms a step (the combined config, its own draw)."""
+    import dataclasses
+
+    import numpy as np
+
+    model = serve["model"]
+    gcfg = serve["gcfg"]
+    window, pad = _windows(torch, model, serve["prompts"][:4])
+    with torch.no_grad():
+        logits = gen_mod._decode_forward(model, window, pad, gcfg.num_latents).float()
+    mask = torch.arange(model.max_seq_len, device=model.device)[None, :] < pad[:, None]
+    table = torch.from_numpy(np.random.default_rng(5).gumbel(size=tuple(logits.shape)).astype(np.float32))
+    draw = samplers.gumbel_noise
+    samplers.gumbel_noise = lambda shape, generator, device: table.to(device)
+    lines, failures = {}, []
+    try:
+        for name, kw in SAMPLE_FILTERS.items():
+            cfg = samplers.SamplingConfig(**kw)
+            out = {}
+            for dev in ("card", "cpu"):
+                x, ctx, msk = (t if dev == "card" else t.cpu() for t in (logits, window, mask))
+                gen = torch.Generator(device=x.device).manual_seed(0)  # the table stands in for it
+                out[dev] = (samplers.filter_logits(x, cfg, ctx, msk).cpu(),
+                            samplers.sample_logits(x, cfg, ctx, msk, generator=gen).cpu())
+            (f_card, tok_card), (f_cpu, tok_cpu) = out["card"], out["cpu"]
+            differ = f_card != f_cpu
+            excused = 0
+            if cfg.top_p is not None and differ.any():
+                # the values top-p sees: every filter before it, on the CPU
+                seen = samplers.filter_logits(logits.cpu(), dataclasses.replace(cfg, top_p=None),
+                                              window.cpu(), mask.cpu())
+                edge = _top_p_edge_rows(torch, seen, cfg.top_p)
+                for r, v in differ.nonzero().tolist():
+                    if float(seen[r, v]) in edge[r]:
+                        differ[r, v] = False
+                        excused += 1
+            kept = (f_cpu > samplers.NEG_INF).sum(-1).tolist()
+            lines[name] = dict(kept_per_row=kept, values_differing=int(differ.sum()),
+                               top_p_edge_excused=excused,
+                               tokens_card=tok_card.tolist(), tokens_cpu=tok_cpu.tolist())
+            if differ.any() or not torch.equal(tok_card, tok_cpu):
+                failures.append(f"{name}: {int(differ.sum())} filtered values differ, tokens "
+                                f"{tok_card.tolist()} on the card against {tok_cpu.tolist()}")
+    finally:
+        samplers.gumbel_noise = draw
+    combined = samplers.SamplingConfig(**SAMPLE_FILTERS["combined"])
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    step_ms = None
+    if model.device.type == "cuda":
+        step_ms = device_ms(lambda: samplers.sample_logits(logits, combined, window, mask,
+                                                           generator=gen), 50)
+    emit("sample", part="filters", shape=list(logits.shape), configs=lines,
+         sampler_device_ms_per_step=step_ms)
+    if failures:
+        raise AssertionError("sample filters: " + "; ".join(failures))
+    return {"sampler_device_ms_per_step": step_ms}
+
+
+def _with_sampling(samplers, cfg, **kw):
+    import dataclasses
+
+    return dataclasses.replace(cfg, sampling=samplers.SamplingConfig(**kw))
+
+
+def _bucket_run(torch, engine_mod, model, table, work, generator=None):
+    """Serve phase 5's workload groups through a fresh bucket engine;
+    ``(rows per group, wall_s, stats)``."""
+    engine = engine_mod.ServingEngine(model, table=table, device=model.device, generator=generator)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = [engine.serve(prompts, c) for c, prompts in work]
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0, engine.stats()
+
+
+def _slot_run(torch, slots_mod, buckets, model, gcfg, configs, prompts, layout, generator=None):
+    """Phase 7's requests through a fresh slot engine: ``(rows, wall_s,
+    stats, engine)``."""
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+    engine = slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout=layout,
+                                         device=model.device, generator=generator)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, c) for p, c in zip(prompts, configs)]
+    engine.run_until_idle()
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if any(r.status != "ok" for r in reqs):
+        raise AssertionError(f"slot run {layout}: statuses {[r.status for r in reqs]}")
+    return [r.result for r in reqs], wall_s, engine.stats(), engine
+
+
+def sample_top1(torch, gen_mod, samplers, engine_mod, slots_mod, buckets, serve, bucket_work) -> dict:
+    """(b) ``do_sample=True, top_k=1`` equals greedy: the bucket engine over
+    phase 5's workload against a greedy run of the same engine, the slot
+    engine dense and paged over phase 7's against its ``generate()``
+    references (the near-tie excuse of phase 7 in both)."""
+    model = serve["model"]
+    table, work = bucket_work
+    greedy, greedy_s, _ = _bucket_run(torch, engine_mod, model, table, work)
+    top1_work = [(_with_sampling(samplers, c, do_sample=True, top_k=1), p) for c, p in work]
+    top1, top1_s, stats = _bucket_run(torch, engine_mod, model, table, top1_work)
+    failures = []
+    prompts = [p for _, ps in work for p in ps]
+    configs = [c for c, ps in work for _ in ps]
+    tokens = sum(c.max_new_tokens for c in configs)
+    div = _divergences(torch, gen_mod, model, [r for g in top1 for r in g],
+                       [r for g in greedy for r in g], prompts, configs, failures)
+    emit("sample", part="top1", engine="bucket", requests=stats["completed"], tokens=tokens,
+         tokens_per_s=tokens / top1_s, greedy_tokens_per_s=tokens / greedy_s,
+         divergences_vs_greedy=div)
+    out = {"bucket_greedy": {"rows": greedy, "tokens_per_s": tokens / greedy_s}}
+    gcfg1 = _with_sampling(samplers, serve["gcfg"], do_sample=True, top_k=1)
+    configs1 = [_with_sampling(samplers, c, do_sample=True, top_k=1) for c in serve["configs"]]
+    for layout in ("dense", "paged"):
+        rows, wall_s, stats, _ = _slot_run(torch, slots_mod, buckets, model, gcfg1, configs1,
+                                           serve["prompts"], layout)
+        tokens = sum(c.max_new_tokens for c in configs1)
+        div = _divergences(torch, gen_mod, model, rows, serve["refs"], serve["prompts"],
+                           serve["configs"], failures)
+        emit("sample", part="top1", engine="slots", layout=layout, requests=stats["completed"],
+             tokens=tokens, tokens_per_s=tokens / wall_s, divergences_vs_generate=div)
+    if failures:
+        raise AssertionError("sample top_k=1: " + "; ".join(failures))
+    return out
+
+
+def sample_runs(torch, flash, ragged, gen_mod, samplers, engine_mod, slots_mod, buckets, serve,
+                unpressured, bucket_work, bucket_greedy) -> dict:
+    """(c) The real sampled config (``SAMPLE_TOP``) through the bucket engine
+    over phase 5's workload, then the slot engine over phase 7's under
+    dense, paged and paged_int8: each run three times (seed A, seed A again,
+    seed B). Gates: every request completes; seed A twice gives identical
+    tokens and seeds A and B differ in at least one; the first
+    ``SAMPLE_CHECKED`` requests' tokens lie in their step's top-k ∩ nucleus
+    of a teacher-forced forward (slack ``SAMPLE_SLACK``; the int8 pool's
+    lossy logits are printed, not gated); K1's fp32 tiles on ``tf32x3``, K4
+    on ``split``/``tc``, never ``simt``; the pool leak-free. Returns each
+    run's launches (the first seed's run)."""
+    model = serve["model"]
+    on_card = model.device.type == "cuda"
+    table, work = bucket_work
+    runs = [("bucket", None)] + [(f"slots_{layout}", layout) for layout in
+                                 ("dense", "paged", "paged_int8")]
+    out = {}
+    swork = [(_with_sampling(samplers, c, do_sample=True, **SAMPLE_TOP), p) for c, p in work]
+    gcfg = _with_sampling(samplers, serve["gcfg"], do_sample=True, **SAMPLE_TOP)
+    for name, layout in runs:
+        if layout is None:
+            prompts = [p for _, ps in swork for p in ps]
+            configs = [c for c, ps in swork for _ in ps]
+        else:
+            prompts = serve["prompts"]
+            configs = [_with_sampling(samplers, c, do_sample=True, **SAMPLE_TOP)
+                       for c in serve["configs"]]
+        results = []
+        for seed in (SAMPLE_SEEDS[0], SAMPLE_SEEDS[0], SAMPLE_SEEDS[1]):
+            gen = torch.Generator(device=model.device).manual_seed(seed)
+            reset_counts(flash)  # count this run's launches only
+            reset_k4_counts(ragged)
+            if layout is None:
+                groups, wall_s, stats = _bucket_run(torch, engine_mod, model, table, swork, gen)
+                rows, pool = [r for g in groups for r in g], None
+            else:
+                rows, wall_s, stats, engine = _slot_run(torch, slots_mod, buckets, model, gcfg,
+                                                        configs, prompts, layout, gen)
+                pool = engine._pool
+                del engine
+            results.append(dict(rows=rows, wall_s=wall_s, stats=stats,
+                                k1=flash.flash_attention.launches,
+                                k1_routes=dict(flash.flash_attention.route_launches),
+                                k4=ragged.ragged_paged_attention.launches,
+                                k4_routes=dict(ragged.ragged_paged_attention.route_launches),
+                                pool=None if pool is None else (pool.in_use, pool.leaked())))
+        first, again, other = results
+        tokens = sum(c.max_new_tokens for c in configs)
+        same = all((a == b).all() for a, b in zip(first["rows"], again["rows"]))
+        differing = sum(int((a != b).sum()) for a, b in zip(first["rows"], other["rows"]))
+        # two requests of each bucket group, or phase 7's first four
+        picks = [0, 1, 4, 5] if layout is None else list(range(SAMPLE_CHECKED))
+        outside, worst, kept = [], float("-inf"), []
+        for i in picks:
+            short, counts = _nucleus_shortfall(torch, gen_mod, samplers, model, configs[i],
+                                               prompts[i], first["rows"][i])
+            worst, kept = max(worst, max(short)), kept + counts
+            outside += [{"request": i, "token": t, "short": s}
+                        for t, s in enumerate(short) if s > SAMPLE_SLACK]
+        phase7 = unpressured[layout]["tokens_per_s"] if layout else bucket_greedy["tokens_per_s"]
+        line = dict(part="sampled", run=name, layout=layout, seeds=list(SAMPLE_SEEDS),
+                    config=SAMPLE_TOP, requests=first["stats"]["completed"], tokens=tokens,
+                    tokens_per_s=[tokens / r["wall_s"] for r in results],
+                    greedy_tokens_per_s=phase7,
+                    greedy_from="phase 7" if layout else "this phase's greedy bucket run",
+                    same_seed_identical=same, other_seed_tokens_differing=differing,
+                    nucleus_checked_requests=picks, nucleus_outside=outside,
+                    nucleus_largest_shortfall=worst, nucleus_kept_mean=_mean(kept),
+                    nucleus_kept_range=[min(kept), max(kept)],
+                    k1_launches=first["k1"], k1_route_launches=first["k1_routes"],
+                    k4_launches=first["k4"], k4_route_launches=first["k4_routes"])
+        if layout is not None:
+            st = first["stats"]
+            line.update(decode_steps=st["decode_steps"], boundary_steps=st["boundary_steps"],
+                        decode_step_ms_p50=st["decode_step_ms"]["p50"],
+                        ttft_ms_p50=st["ttft_ms"]["p50"])
+        failures = []
+        if any(r["stats"]["completed"] != len(prompts) for r in results):
+            failures.append(f"completed {[r['stats']['completed'] for r in results]} of {len(prompts)}")
+        if not same or differing == 0:
+            failures.append(f"seed A twice identical: {same}; seeds A and B differ in {differing} tokens")
+        if outside and layout != "paged_int8":
+            failures.append(f"{len(outside)} tokens outside top-k ∩ nucleus: {outside[:4]}")
+        for r in results:
+            if r["pool"] is not None and r["pool"] != (0, 0):
+                failures.append(f"pool in_use/leaked {r['pool']}")
+        if on_card:
+            k1r, k4r = first["k1_routes"], first["k4_routes"]
+            if k1r["simt"] or not k1r["tf32x3"] or k1r["wgmma"]:
+                failures.append(f"K1 routes {k1r}: fp32 tiles on tf32x3, never simt")
+            paged = layout in ("paged", "paged_int8")
+            if k4r["simt"] or (paged and not (k4r["split"] and k4r["tc"])) or (not paged and first["k4"]):
+                failures.append(f"K4 routes {k4r} under {layout}: split/tc only, none unpaged")
+        emit("sample", **line)
+        if failures:
+            raise AssertionError(f"sample {name}: " + "; ".join(failures))
+        out[name] = {"k1": first["k1"], "k1_routes": first["k1_routes"], "k4": first["k4"],
+                     "k4_routes": first["k4_routes"]}
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def sample_beam(torch, clm, flash, gen_mod, beam_mod, serve, bucket_work) -> dict:
+    """(d) Beam search. ``beam_search(num_beams=1)`` over 2 of phase 5's
+    prompts equals per-request greedy ``generate()`` (near-tie excuse);
+    ``generate(num_beams=BEAM_WIDTH, max_new_tokens=BEAM_STEPS,
+    min_new_tokens=BEAM_STEPS)`` on 2 prompts runs exactly 17 K1 calls a
+    step (1 cross + 16 stack attends), all ``tf32x3`` on the card, timed a
+    step; a bf16 twin's agreement is printed; a small model's beam tokens on
+    the card equal the same weights' on the CPU. Returns K1's launches."""
+    import dataclasses
+
+    import numpy as np
+
+    model = serve["model"]
+    on_card = model.device.type == "cuda"
+    _, work = bucket_work
+    cfg, prompts = work[0][0], list(work[0][1][:2])
+    width = max(p.size for p in prompts)
+    ids = np.stack([np.pad(p, (width - p.size, 0)) for p in prompts]).astype(np.int64)
+    pads = np.array([width - p.size for p in prompts])
+    failures = []
+    one = beam_mod.beam_search(model, ids, cfg, num_beams=1, prompt_pad_count=pads,
+                               device=model.device).cpu().numpy()
+    refs = [gen_mod.generate(model, p[None], cfg, device=model.device)[0].cpu().numpy()
+            for p in prompts]
+    one_div = _divergences(torch, gen_mod, model, list(one), refs, prompts, [cfg, cfg], failures)
+
+    bcfg = dataclasses.replace(cfg, max_new_tokens=BEAM_STEPS, min_new_tokens=BEAM_STEPS,
+                               eos_token_id=2, num_beams=BEAM_WIDTH)
+    layers = model.config.num_self_attention_layers
+    reset_counts(flash)  # count the beam run's launches only
+    if on_card:
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    rows = gen_mod.generate(model, ids, bcfg, prompt_pad_count=pads, device=model.device).cpu().numpy()
+    wall_s = time.perf_counter() - t0
+    step_ms = None
+    if on_card:
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / BEAM_STEPS
+    launches, routes = flash.flash_attention.launches, dict(flash.flash_attention.route_launches)
+    if on_card and (launches != BEAM_STEPS * (1 + layers) or routes["tf32x3"] != launches):
+        failures.append(f"K1 {launches} launches {routes} over {BEAM_STEPS} beam steps, not "
+                        f"{BEAM_STEPS * (1 + layers)} all on tf32x3")
+    if rows.shape != (2, BEAM_STEPS) or (rows == 2).any():
+        failures.append(f"beam rows {rows.shape}, EOS inside min_new_tokens: {(rows == 2).any()}")
+
+    bf16 = clm.CausalLanguageModel(model.config, dtype=torch.bfloat16, seed=0,
+                                   device=model.device).eval()
+    twin = gen_mod.generate(bf16, ids, bcfg, prompt_pad_count=pads, device=model.device).cpu().numpy()
+    del bf16
+
+    small = clm.CausalLanguageModelConfig(
+        vocab_size=256, max_seq_len=64, max_latents=32, num_channels=128, num_heads=2,
+        num_self_attention_layers=2, init_scale=0.1,
+    )
+    cpu = clm.CausalLanguageModel(small, device="cpu", seed=3).eval()
+    card = clm.CausalLanguageModel(small, seed=0, device=model.device).eval()
+    card.load_state_dict(cpu.state_dict())
+    sids = torch.randint(1, 256, (3, 20), generator=torch.Generator().manual_seed(4))
+    spads = torch.tensor([0, 5, 2])
+    scfg = gen_mod.GenerationConfig(max_new_tokens=24, num_latents=8, num_beams=3,
+                                    eos_token_id=7, length_penalty=0.9)
+    small_cpu = gen_mod.generate(cpu, sids, scfg, prompt_pad_count=spads, device="cpu").numpy()
+    small_card = gen_mod.generate(card, sids, scfg, prompt_pad_count=spads,
+                                  device=model.device).cpu().numpy()
+    if not (small_cpu == small_card).all():
+        failures.append(f"small model beam on the card {small_card.tolist()} against the CPU "
+                        f"{small_cpu.tolist()}")
+    emit("sample", part="beam", num_beams_1_divergences_vs_generate=one_div,
+         num_beams=BEAM_WIDTH, steps=BEAM_STEPS, lanes=2 * BEAM_WIDTH, wall_s=wall_s,
+         step_ms=step_ms, k1_launches=launches, k1_route_launches=routes,
+         k1_launches_per_step=launches / BEAM_STEPS, k1_launches_per_step_expected=1 + layers,
+         tokens=rows.tolist(), bf16_token_agreement=float((twin == rows).mean()),
+         small_model_tokens_equal=bool((small_cpu == small_card).all()))
+    if failures:
+        raise AssertionError("sample beam: " + "; ".join(failures))
+    return {"k1": launches, "k1_routes": routes}
+
+
+def sample_pipeline(torch, clm, pipelines_mod, tokenizers_mod, serve) -> None:
+    """(e) ``TextGenerationPipeline`` over clm-base's widths with the byte
+    tokenizer's 262-token vocabulary (random weights from a seed):
+    ``bucketing=True`` gives the text ``bucketing=False`` gives, and a beam
+    call returns text."""
+    import dataclasses
+
+    base = serve["model"]
+    model = clm.CausalLanguageModel(dataclasses.replace(base.config, vocab_size=262), seed=5,
+                                    device=base.device).eval()
+    tok = tokenizers_mod.ByteTokenizer()
+    kw = dict(max_new_tokens=24, num_latents=32)
+    direct = pipelines_mod.pipeline("text-generation", model, tok, device=base.device)
+    bucketed = pipelines_mod.pipeline("text-generation", model, tok, bucketing=True, device=base.device)
+    t0 = time.perf_counter()
+    want = direct(list(PIPE_PROMPTS), **kw)
+    direct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = bucketed(list(PIPE_PROMPTS), **kw)
+    bucketed_s = time.perf_counter() - t0
+    beam = direct(list(PIPE_PROMPTS[:2]), num_beams=3, max_new_tokens=8, num_latents=32,
+                  return_full_text=False)
+    emit("sample", part="pipeline", vocab=262, prompts=len(PIPE_PROMPTS), direct_s=direct_s,
+         bucketed_s=bucketed_s, bucketed_equal=got == want,
+         continuations=[repr(t[len(p):]) for t, p in zip(want, PIPE_PROMPTS)],
+         beam_texts=[repr(t) for t in beam], serving_stats_batches=bucketed.serving_stats()["batches"])
+    if got != want or not all(isinstance(t, str) for t in beam) or len(beam) != 2:
+        raise AssertionError(f"sample pipeline: bucketed {got!r} against direct {want!r}; beam {beam!r}")
+    del model
+
+
+def sample_phase(torch, clm, flash, ragged, gen_mod, samplers, beam_mod, pipelines_mod,
+                 tokenizers_mod, engine_mod, slots_mod, buckets, serve, unpressured) -> dict:
+    """Sampled decoding and beam search (module docstring, phase 11), over
+    phase 7's model, requests and references and phase 5's workload.
+    Returns the launches of the sampled runs and of the beam run."""
+    bucket_work = serve_workload(torch, gen_mod, buckets, serve["model"].config.vocab_size)
+    filters = sample_filters(torch, gen_mod, samplers, serve)
+    top1 = sample_top1(torch, gen_mod, samplers, engine_mod, slots_mod, buckets, serve, bucket_work)
+    runs = sample_runs(torch, flash, ragged, gen_mod, samplers, engine_mod, slots_mod, buckets,
+                       serve, unpressured, bucket_work, top1["bucket_greedy"])
+    beam = sample_beam(torch, clm, flash, gen_mod, beam_mod, serve, bucket_work)
+    sample_pipeline(torch, clm, pipelines_mod, tokenizers_mod, serve)
+    return {"runs": runs, "beam": beam, **filters}
+
+
 def _mean(values):
     return sum(values) / len(values) if values else None
 
@@ -2224,8 +2691,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from perceiver_io_tpu_torch import _build
+    from perceiver_io_tpu_torch.data.text import tokenizers as tokenizers_mod
+    from perceiver_io_tpu_torch.inference import beam as beam_mod
     from perceiver_io_tpu_torch.inference import decode_strategy as strategy_mod
     from perceiver_io_tpu_torch.inference import generate as gen_mod
+    from perceiver_io_tpu_torch.inference import pipelines as pipelines_mod
+    from perceiver_io_tpu_torch.inference import samplers
     from perceiver_io_tpu_torch.inference import speculative as spec_mod
     from perceiver_io_tpu_torch.models.text import clm
     from perceiver_io_tpu_torch.ops import flash_attention as flash
@@ -2265,6 +2736,8 @@ def main() -> int:
     spec_root.mkdir(parents=True, exist_ok=True)
     spec_launches = slot_spec_phase(torch, flash, ragged, gen_mod, spec_mod, strategy_mod, slots_mod,
                                     buckets, clm, serve, slot_launches, spec_root)
+    sample = sample_phase(torch, clm, flash, ragged, gen_mod, samplers, beam_mod, pipelines_mod,
+                          tokenizers_mod, engine_mod, slots_mod, buckets, serve, slot_launches)
     del serve, shared
     torch.cuda.empty_cache()
     k23 = k23_cases(torch, flash)
@@ -2300,6 +2773,10 @@ def main() -> int:
         "slot_spec_launches": {run: v["k1"] for run, v in spec_launches.items()},
         "slot_spec_route_launches": {run: v["k1_routes"] for run, v in spec_launches.items()},
         "slot_spec_rounds": {run: v["rounds"] for run, v in spec_launches.items()},
+        "sample_launches": {run: v["k1"] for run, v in sample["runs"].items()},
+        "sample_route_launches": {run: v["k1_routes"] for run, v in sample["runs"].items()},
+        "beam_launches": sample["beam"]["k1"],
+        "beam_route_launches": sample["beam"]["k1_routes"],
         "routes": [k1_route_entry(flash, design, main, cases, route_launches[design])
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
                                         ("tf32x3", ("cross", "float32")))],
@@ -2327,6 +2804,8 @@ def main() -> int:
         "slot_preempt_kernel_launches": {run: launches["k4_kernels"]
                                          for run, launches in preempt_launches.items()},
         "slot_spec_launches": {run: v["k4"] for run, v in spec_launches.items()},
+        "sample_launches": {run: v["k4"] for run, v in sample["runs"].items()},
+        "sample_route_launches": {run: v["k4_routes"] for run, v in sample["runs"].items()},
         "routes": [k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design],
                                   prefix_launches["paged"]["k4_routes"][design],
                                   {run: launches["k4_routes"][design]

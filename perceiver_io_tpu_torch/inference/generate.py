@@ -1,4 +1,5 @@
-"""Greedy autoregressive generation for Perceiver AR sequence models.
+"""Autoregressive generation for Perceiver AR sequence models: greedy and
+sampled decoding (``num_beams > 1`` dispatches to :mod:`.beam`).
 
 Counterpart of ``perceiver_io_tpu/inference/generate.py``, with the same
 right-aligned static window and the same phase plan:
@@ -37,7 +38,10 @@ The boundary phase's step is a measured choice
 (:mod:`~perceiver_io_tpu_torch.inference.decode_strategy`): ``"auto"`` reads
 the registry verdict and falls back to the cached step.
 
-Beam search, sampling and the executor cache are not ported yet.
+A sampled step draws one ``(b, V)`` Gumbel tensor from the caller's
+``torch.Generator`` (:func:`~.samplers.gumbel_noise`), where JAX draws from
+``jax.random.split(rng, max_new_tokens)[t]``. The executor cache is not
+ported (nothing compiles per shape in PyTorch).
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from perceiver_io_tpu_torch.inference import decode_strategy as decode_strategy_
 from perceiver_io_tpu_torch.inference.samplers import (
     SamplingConfig,
     apply_min_new_tokens,
+    default_generator,
     sample_logits,
 )
 from perceiver_io_tpu_torch.models.core.modules import layer_norm
@@ -69,8 +74,10 @@ class GenerationConfig:
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
     sampling: SamplingConfig = SamplingConfig()
-    #: beam width; beam search is not ported yet, so only 1 is accepted
+    #: beam width; > 1 dispatches :func:`generate` to beam search
     num_beams: int = 1
+    #: HF exponent on generated length when beam search ranks hypotheses
+    length_penalty: float = 1.0
     #: EOS is masked to -inf until this many new tokens exist
     min_new_tokens: int = 0
 
@@ -560,25 +567,34 @@ def _on_device(model, dev: torch.device) -> bool:
 
 
 def generate(model, input_ids, config: GenerationConfig, *,
+             generator: Optional[torch.Generator] = None,
              prompt_pad_count=None, use_cache: bool = True,
              decode_strategy=None, device: DeviceLike = "cuda") -> torch.Tensor:
-    """Generate ``config.max_new_tokens`` tokens after ``input_ids`` (greedy).
+    """Generate ``config.max_new_tokens`` tokens after ``input_ids``.
 
     :param model: an ``AutoregressiveSequenceModel`` on ``device``.
     :param input_ids: ``(b, prompt_len)`` prompt, left-padded if ragged.
+    :param generator: the sampled steps' draws (``do_sample=True``); None
+        is a generator on ``device`` seeded 0, as JAX defaults to
+        ``PRNGKey(0)``. Each step draws one ``(b, V)`` noise tensor.
     :param prompt_pad_count: ``(b,)`` left-pad counts for ragged prompts.
     :param decode_strategy: ``"auto" | "cached" | "recompute"``, a
         :class:`~.decode_strategy.DecodeStrategy`, or None (the
-        ``PERCEIVER_DECODE_STRATEGY`` env var, else ``"auto"``).
+        ``PERCEIVER_DECODE_STRATEGY`` env var, else ``"auto"``). Beam search
+        ignores it (it recomputes the window every step, as in JAX).
     :return: ``(b, max_new_tokens)`` ids on ``device`` (pad after EOS).
     """
     dev = resolve_device(device)
     if not _on_device(model, dev):
         raise ValueError(f"model lies on {model.device}, generate was asked for {dev}")
     if config.num_beams > 1:
-        raise NotImplementedError("beam search is not ported yet")
-    if config.sampling.do_sample:
-        raise NotImplementedError("sampling (do_sample=True) is not ported yet; use greedy")
+        from perceiver_io_tpu_torch.inference.beam import beam_search
+
+        return beam_search(model, input_ids, config, num_beams=config.num_beams,
+                           length_penalty=config.length_penalty,
+                           prompt_pad_count=prompt_pad_count, device=dev)
+    if config.sampling.do_sample and generator is None:
+        generator = default_generator(dev)
     input_ids = torch.as_tensor(input_ids, device=dev)
     b, prompt_len = input_ids.shape
     n = model.max_seq_len
@@ -609,10 +625,11 @@ def generate(model, input_ids, config: GenerationConfig, *,
 
     with torch.no_grad():
         return _run(model, config, input_ids, torch.as_tensor(pad_host, device=dev),
-                    num_latents, s1, s2)
+                    num_latents, s1, s2, generator)
 
 
-def _run(model, config: GenerationConfig, input_ids, prompt_pad_count, num_latents, s1, s2):
+def _run(model, config: GenerationConfig, input_ids, prompt_pad_count, num_latents, s1, s2,
+         generator: Optional[torch.Generator]):
     b, prompt_len = input_ids.shape
     n = model.max_seq_len
     max_latents = model.max_latents
@@ -621,11 +638,12 @@ def _run(model, config: GenerationConfig, input_ids, prompt_pad_count, num_laten
     min_new = min(config.min_new_tokens, config.max_new_tokens) if eos is not None else 0
 
     def choose(logits, t, window, pad_count):
+        # one sample_logits call a step: a sampled step draws one (b, V) noise
         logits = apply_min_new_tokens(logits, t, min_new, eos or 0)
         if config.sampling.repetition_penalty == 1.0:
-            return sample_logits(logits, config.sampling)
+            return sample_logits(logits, config.sampling, generator=generator)
         pads = torch.arange(n, device=dev)[None, :] < pad_count[:, None]
-        return sample_logits(logits, config.sampling, window, pads)
+        return sample_logits(logits, config.sampling, window, pads, generator=generator)
 
     def advance(window, pad_count, finished, token):
         if eos is not None:

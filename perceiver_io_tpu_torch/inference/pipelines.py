@@ -1,0 +1,172 @@
+"""Task pipelines. Counterpart of ``perceiver_io_tpu/inference/pipelines.py``,
+of which only ``text-generation`` is ported: :class:`TextGenerationPipeline`
+and the :func:`pipeline` dispatch by task name. The other tasks come with
+their model families (``ROADMAP.md`` A.3); ``pipeline_from_pretrained``
+comes with the checkpoint items of ``ROADMAP.md`` A.2.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
+from perceiver_io_tpu_torch.inference.generate import GenerationConfig, generate
+from perceiver_io_tpu_torch.inference.samplers import SamplingConfig
+
+
+def _warn_sampling_ignored_under_beam(num_beams, temperature, top_k, top_p):
+    """Beam dispatch is deterministic; sampling knobs would be silently
+    dropped (HF warns the same way for ``temperature`` + ``do_sample=False``)."""
+    if num_beams > 1 and (temperature != 1.0 or top_k is not None or top_p is not None):
+        warnings.warn(
+            "temperature/top_k/top_p are ignored when num_beams > 1 — beam "
+            "search decodes deterministically",
+            UserWarning,
+            stacklevel=3,
+        )
+
+
+def _pad_batch(rows: List[np.ndarray], pad_id: int, side: str) -> Tuple[np.ndarray, np.ndarray]:
+    width = max(len(r) for r in rows)
+    out = np.full((len(rows), width), pad_id, np.int32)
+    for i, row in enumerate(rows):
+        if side == "left":
+            out[i, width - len(row):] = row
+        else:
+            out[i, : len(row)] = row
+    return out, out == pad_id
+
+
+class TextGenerationPipeline:
+    """``pipeline("text-generation")``: prompts -> continuation text through
+    :func:`~.generate.generate`.
+
+    With ``bucketing=True`` calls of one beam go through the bucket engine
+    (:class:`~perceiver_io_tpu_torch.serving.engine.ServingEngine`): prompts
+    are padded to a static bucket grid and micro-batched. Greedy output is
+    token-identical either way (generation is left-pad invariant);
+    ``serving_stats()`` exposes the engine counters.
+
+    As in the reference, ``temperature``/``top_k``/``top_p`` never turn
+    sampling on (``do_sample`` stays False), so they leave decoding greedy,
+    as HF does without ``do_sample``.
+    """
+
+    def __init__(self, model, tokenizer, *, bucketing: bool = False, bucket_table=None,
+                 decode_strategy: Optional[str] = None, device: DeviceLike = "cuda"):
+        self.model = model
+        self.tokenizer = tokenizer
+        self.bucketing = bucketing
+        self._bucket_table = bucket_table
+        #: the decode strategy of every generate call and of the engine;
+        #: None defers to PERCEIVER_DECODE_STRATEGY / the measured registry
+        self.decode_strategy = decode_strategy
+        self.device = resolve_device(device)
+        self._engine = None
+
+    def _make_config(
+        self, *, max_new_tokens: int = 64, min_new_tokens: int = 0,
+        num_latents: int = 1, temperature: float = 1.0,
+        top_k: Optional[int] = None, top_p: Optional[float] = None,
+        repetition_penalty: float = 1.0, num_beams: int = 1,
+        length_penalty: float = 1.0,
+    ) -> GenerationConfig:
+        return GenerationConfig(
+            max_new_tokens=max_new_tokens,
+            min_new_tokens=min_new_tokens,
+            num_latents=num_latents,
+            pad_token_id=self.tokenizer.pad_token_id or 0,
+            eos_token_id=self.tokenizer.eos_token_id,
+            num_beams=num_beams,
+            length_penalty=length_penalty,
+            sampling=SamplingConfig(temperature=temperature, top_k=top_k, top_p=top_p,
+                                    repetition_penalty=repetition_penalty),
+        )
+
+    def _ensure_engine(self, config: GenerationConfig):
+        if self._engine is None:
+            from perceiver_io_tpu_torch.serving.engine import ServingEngine
+
+            self._engine = ServingEngine(
+                self.model, config, table=self._bucket_table,
+                decode_strategy=self.decode_strategy, device=self.device,
+            )
+        return self._engine
+
+    def warmup(self, **gen_kwargs) -> int:
+        """Drive every serving bucket once (``bucketing=True`` only); returns
+        the number of ``generate`` calls."""
+        if not self.bucketing:
+            raise ValueError("warmup() requires bucketing=True")
+        config = self._make_config(**gen_kwargs)
+        return self._ensure_engine(config).warmup(config)
+
+    def serving_stats(self) -> Optional[dict]:
+        """Engine counters, or None when bucketing is off or nothing was
+        served yet."""
+        return self._engine.stats() if self._engine is not None else None
+
+    def __call__(
+        self,
+        prompts: Union[str, Sequence[str]],
+        *,
+        max_new_tokens: int = 64,
+        min_new_tokens: int = 0,
+        num_latents: int = 1,
+        temperature: float = 1.0,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        repetition_penalty: float = 1.0,
+        num_beams: int = 1,
+        length_penalty: float = 1.0,
+        seed: int = 0,
+        return_full_text: bool = True,
+    ) -> List[str]:
+        _warn_sampling_ignored_under_beam(num_beams, temperature, top_k, top_p)
+        single = isinstance(prompts, str)
+        batch = [prompts] if single else list(prompts)
+        encoded = [np.asarray(self.tokenizer.encode(p), np.int32) for p in batch]
+        pad_id = self.tokenizer.pad_token_id or 0
+
+        config = self._make_config(
+            max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
+            num_latents=num_latents, temperature=temperature, top_k=top_k,
+            top_p=top_p, repetition_penalty=repetition_penalty,
+            num_beams=num_beams, length_penalty=length_penalty,
+        )
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        if self.bucketing and num_beams == 1:
+            rows = self._ensure_engine(config).serve(encoded, config, generator=generator)
+        else:
+            ids, pad = _pad_batch(encoded, pad_id, "left")
+            pad_count = pad.sum(axis=1).astype(np.int32)
+            rows = generate(
+                self.model, ids, config, generator=generator, prompt_pad_count=pad_count,
+                decode_strategy=self.decode_strategy, device=self.device,
+            ).cpu().numpy()
+        texts = []
+        for prompt, row in zip(batch, rows):
+            new = self.tokenizer.decode([t for t in row.tolist() if t != pad_id])
+            texts.append(prompt + new if return_full_text else new)
+        return texts[0:1] if single else texts
+
+
+_TASKS = {"text-generation": TextGenerationPipeline}
+#: the reference's other tasks, each waiting for its model family
+_UNPORTED_TASKS = ("fill-mask", "sentiment-analysis", "text-classification",
+                   "image-classification", "optical-flow", "symbolic-audio-generation")
+
+
+def pipeline(task: str, model, *args, **kwargs):
+    """``transformers.pipeline``-shaped dispatch by task name."""
+    if task in _UNPORTED_TASKS:
+        raise NotImplementedError(
+            f"the {task!r} pipeline is not ported yet: it comes with its model family "
+            "(ROADMAP.md A.3)"
+        )
+    if task not in _TASKS:
+        raise ValueError(f"unknown task {task!r}; available: {sorted(_TASKS)}")
+    return _TASKS[task](model, *args, **kwargs)

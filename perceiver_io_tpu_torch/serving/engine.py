@@ -14,7 +14,10 @@ Counterpart of ``perceiver_io_tpu/serving/engine.py``'s ``ServingEngine``:
 
 Greedy generation is left-pad invariant, so the bucketed output is
 token-identical to per-request calls as long as ``config.num_latents`` is at
-most the shortest served prompt.
+most the shortest served prompt. Sampled configs draw from the engine's
+``torch.Generator``: each micro-batch's ``generate`` call draws its steps'
+noise at the bucket's padded batch shape, in turn (JAX splits one key per
+micro-batch).
 
 Chaos hooks, span tracing, the metrics registry export and the profiler
 trigger belong to the telemetry layer and are not ported yet; counters and
@@ -27,10 +30,12 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
 from perceiver_io_tpu_torch.inference import decode_strategy as decode_strategy_mod
 from perceiver_io_tpu_torch.inference.generate import GenerationConfig, generate
+from perceiver_io_tpu_torch.inference.samplers import default_generator
 from perceiver_io_tpu_torch.reliability import QueueFull
 from perceiver_io_tpu_torch.serving.buckets import BucketTable
 
@@ -115,6 +120,8 @@ class ServingEngine:
     :param decode_strategy: forwarded to every ``generate`` call: ``"auto"``,
         ``"cached"``, ``"recompute"`` or None (the env var, else ``"auto"``;
         :mod:`~perceiver_io_tpu_torch.inference.decode_strategy`).
+    :param generator: the sampled configs' draws, a ``torch.Generator`` on
+        ``device``; None is one seeded 0 (JAX's ``rng=None`` is ``PRNGKey(0)``).
     :param device: ``"cuda"`` by default; the CPU only when asked for.
     """
 
@@ -122,13 +129,15 @@ class ServingEngine:
                  table: Optional[BucketTable] = None, *, max_queue: Optional[int] = None,
                  default_deadline_s: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 decode_strategy: Optional[str] = None, device: DeviceLike = "cuda"):
+                 decode_strategy: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None, device: DeviceLike = "cuda"):
         if decode_strategy is not None and decode_strategy not in decode_strategy_mod.MODES:
             raise ValueError(
                 f"decode_strategy must be one of {decode_strategy_mod.MODES}, got {decode_strategy!r}"
             )
         self.device = resolve_device(device)
         self.decode_strategy = decode_strategy
+        self.generator = generator if generator is not None else default_generator(self.device)
         self.model = model
         self.config = config or GenerationConfig()
         self.table = table or BucketTable.for_model(model)
@@ -212,10 +221,13 @@ class ServingEngine:
         self._pick_prompt_bucket(int(prompt.size), cfg)
         return cfg
 
-    def serve(self, prompts: Sequence, config: Optional[GenerationConfig] = None
-              ) -> List[Optional[np.ndarray]]:
+    def serve(self, prompts: Sequence, config: Optional[GenerationConfig] = None, *,
+              generator: Optional[torch.Generator] = None) -> List[Optional[np.ndarray]]:
         """Submit every prompt, drain the queue, return results in order. A
-        ``failed`` request re-raises here; a ``timed_out`` one gives None."""
+        ``failed`` request re-raises here; a ``timed_out`` one gives None.
+        ``generator``, when given, replaces the engine's (JAX's ``rng=``)."""
+        if generator is not None:
+            self.generator = generator
         reqs = [self.submit(p, config) for p in prompts]
         self.run_until_idle()
         failed = [r for r in reqs if r.status == "failed"]
@@ -331,7 +343,7 @@ class ServingEngine:
         t0 = self._clock()
         try:
             out = generate(
-                self.model, ids, cfg, prompt_pad_count=pad_count,
+                self.model, ids, cfg, generator=self.generator, prompt_pad_count=pad_count,
                 decode_strategy=self.decode_strategy, device=self.device,
             ).cpu().numpy()
         except Exception as e:  # the micro-batch fails, the queue survives

@@ -60,7 +60,7 @@ outranks it, the resident yields itself; the last one never does. A head of
 a strictly higher tier preempts lower tiers to admit. The queue is sorted by
 tier (FIFO within one) when preemption is on or a request has a priority.
 A victim is requeued: ``recompute`` frees its pages and replays it from its
-prompt, greedy token-identical; ``swap`` first copies its pages and row
+prompt (greedy token-identical); ``swap`` first copies its pages and row
 state to host tensors (:class:`~.kv_pool.SwapBundle`) and resumes it where
 it stopped once its worst case fits again (a readmitted victim always
 reserves its worst case, so preemptions end); ``auto`` prices both per
@@ -79,7 +79,14 @@ leaves every KV cache as it is, so it composes with each layout, chunking,
 sharing and preemption; under the paged layouts each row maps its
 worst-case burst at once (``ensure_many``). Each token gets its own
 ``on_token`` call and ITL sample (the burst's first carries the round's
-latency, the rest 0 ms). Greedy only.
+latency, the rest 0 ms). Greedy only, as in JAX (``validate_spec``).
+
+**Sampling** (``do_sample=True``): every decode step draws one ``(S, V)``
+Gumbel tensor over all slots, idle ones included, from the engine's
+``torch.Generator`` (JAX splits one key per decode step and samples every
+slot from it); :meth:`warmup` draws on its two warm decode steps, as JAX
+splits there. Chunking, prefix sharing and preemption run unchanged; a
+recomputed victim replays with fresh draws.
 
 **Measured axes** (:mod:`~..inference.decode_strategy`): ``decode_strategy``,
 ``kv_layout``, ``prefix_cache`` and ``speculation`` each resolve explicit
@@ -104,7 +111,7 @@ scope restrictions, enforced at ``submit``:
   occupy latent slots (the boundary cache's precondition).
 
 Not ported yet (they raise ``NotImplementedError``, see ``ROADMAP.md`` A):
-the serving mesh and sampling; nor ``evacuate`` and ``resize_slots``. There
+the serving mesh; nor ``evacuate`` and ``resize_slots``. There
 is no tracer, chaos registry, flight recorder or timeline, and no trace-env
 fingerprint guards the prefix index or keys the registry (the port has no
 trace-env flags).
@@ -537,8 +544,6 @@ class SlotServingEngine(ServingEngine):
         self._spec = spec_mod.parse_speculation(self.speculation)
         if self._spec is not None:
             spec_mod.validate_spec(self._spec, model, self.config)
-        if self.config.sampling.do_sample:
-            raise _deferred("sampling (do_sample=True)")
         #: the swap cost model's host-link rate: explicit, else the rate
         #: measured on this platform (the registry), else the prior
         self.swap_link_gbps = float(
@@ -1337,9 +1342,10 @@ class SlotServingEngine(ServingEngine):
     # -- the token-level scheduler ------------------------------------------
     def _decode(self, boundary: bool) -> torch.Tensor:
         """One fixed-shape token step over all slots: choose each row's token
-        from the resident logits, append it, advance every cache by one
-        token. ``boundary`` adds the prefix-growth step for rows with
-        ``m == max_latents``. :return: ``(S,)`` chosen tokens."""
+        from the resident logits (sampled: one ``(S, V)`` draw over all
+        slots), append it, advance every cache by one token. ``boundary``
+        adds the prefix-growth step for rows with ``m == max_latents``.
+        :return: ``(S,)`` chosen tokens."""
         st = self._state
         model = self.model
         n, num_latents = model.max_seq_len, model.max_latents
@@ -1348,7 +1354,8 @@ class SlotServingEngine(ServingEngine):
         logits = apply_min_new_tokens(st["logits"].float(), st["steps"][:, None], min_new,
                                       cfg.eos_token_id or 0)
         pad_positions = torch.arange(n, device=self.device)[None, :] < st["pad"][:, None]
-        token = sample_logits(logits, cfg.sampling, st["window"], pad_positions)
+        token = sample_logits(logits, cfg.sampling, st["window"], pad_positions,
+                              generator=self.generator)
         window = torch.cat([st["window"][:, 1:], token[:, None]], dim=1)
         pad = (st["pad"] - 1).clamp(min=0)
         length, m = st["length"], st["m"]

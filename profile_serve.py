@@ -9,6 +9,8 @@
         --preemption swap --kv-blocks 160                      # a pressured pool
     python3 profile_serve.py --engine slots --speculation k4d2 # speculative rounds
     python3 profile_serve.py --engine slots --kv-layout auto   # the autotuned layout
+    python3 profile_serve.py --engine slots --do-sample        # sampled decoding
+    python3 profile_serve.py --num-beams 4                     # beam search, bucket engine
     python3 profile_serve.py --engine train                    # one train step
 
 ``--engine bucket`` (default) serves the 8-request workload of
@@ -29,7 +31,13 @@ rounds: the line adds the rounds, the acceptance, K1's device ms and
 launches over the rounds (the prefills' included) and the GEMMs' share of
 device time. ``--kv-layout
 auto`` runs the KV-layout autotuner once (its verdict and timings are in
-the line) and serves in the layout it picked. Both over the
+the line) and serves in the layout it picked. ``--do-sample`` samples every
+request with ``chip_smoke.SAMPLE_TOP`` (temperature 0.8, top-k 50, top-p
+0.95) from a seeded generator, either engine; the line adds the sampler's
+device ms (its sorts, scans, top-k and random draws, by kernel name) a
+decode step. ``--num-beams K`` (bucket engine) beam-searches every request
+with K beams: each step a full-window forward over ``b·K`` lanes; the line
+adds the beam steps and the device ms a step. Both over the
 full-width CLM (random weights from a seed) on one GPU, in fp32 and in bf16
 compute. For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
@@ -74,25 +82,46 @@ def _device_us(evt) -> float:
 
 #: kernel-name patterns of the dense products (cuBLAS's and CUTLASS's GEMMs and GEMVs)
 GEMM_PATTERNS = ("gemm", "gemv", "nvjet")
+#: kernel-name patterns of the sampler's own work: the sorts and scans of
+#: top-p, top-k's selection and the uniform draw
+SAMPLER_PATTERNS = ("sort", "scan", "topk", "distribution", "uniform")
 
 
-def _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod, engine_mod, vocab_size):
-    """``(make_engine, run, tokens)`` for the chosen engine."""
+def _decoding(args, chip_smoke, samplers, cfg):
+    """``cfg`` with the flags' decoding: sampled, beams, or greedy."""
+    if args.do_sample:
+        cfg = dataclasses.replace(cfg, sampling=samplers.SamplingConfig(
+            do_sample=True, **chip_smoke.SAMPLE_TOP))
+    return dataclasses.replace(cfg, num_beams=args.num_beams)
+
+
+def _workload(args, torch, chip_smoke, gen_mod, samplers, buckets, slots_mod, engine_mod,
+              vocab_size):
+    """``(make_engine, run, tokens, steps)`` for the chosen engine; ``steps``
+    are the bucket engine's decode steps (each group is one micro-batch),
+    None for the slot engine, which counts its own. Each engine samples
+    from a generator seeded alike, so every pass draws the same."""
+    def generator():
+        return torch.Generator(device="cuda").manual_seed(chip_smoke.SAMPLE_SEEDS[0])
+
     if args.engine == "bucket":
         table, work = chip_smoke.serve_workload(torch, gen_mod, buckets, vocab_size)
+        work = [(_decoding(args, chip_smoke, samplers, c), p) for c, p in work]
 
         def make(model):
-            return engine_mod.ServingEngine(model, table=table)
+            return engine_mod.ServingEngine(model, table=table, generator=generator())
 
         def run(engine):
             for c, prompts in work:
                 engine.serve(prompts, c)
 
-        return make, run, sum(c.max_new_tokens * len(p) for c, p in work)
+        return (make, run, sum(c.max_new_tokens * len(p) for c, p in work),
+                sum(c.max_new_tokens for c, _ in work))
 
     prefix_workload = args.prefill_chunk is not None or args.prefix_cache == "on"
     workload = chip_smoke.slot_prefix_workload if prefix_workload else chip_smoke.slot_serve_workload
     gcfg, prompts, news = workload(torch, gen_mod, vocab_size)
+    gcfg = _decoding(args, chip_smoke, samplers, gcfg)
     table = buckets.BucketTable(prompt_lens=chip_smoke.SLOT_BUCKETS, batch_sizes=(1,))
 
     configs = [dataclasses.replace(gcfg, max_new_tokens=k) for k in news]
@@ -103,7 +132,7 @@ def _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod, engine_mod, 
                                            prefix_cache=args.prefix_cache, kv_blocks=args.kv_blocks,
                                            preemption=args.preemption,
                                            admit_headroom_blocks=args.admit_headroom_blocks,
-                                           speculation=args.speculation)
+                                           speculation=args.speculation, generator=generator())
 
     def run(engine):
         if args.preemption != "off":
@@ -113,7 +142,7 @@ def _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod, engine_mod, 
             engine.submit(p, c)
         engine.run_until_idle()
 
-    return make, run, sum(news)
+    return make, run, sum(news), None
 
 
 def _breakdown(torch, prof, table_path: Path):
@@ -257,6 +286,10 @@ def main() -> int:
                         help="the slot engine's pool size in blocks (default: dense capacity)")
     parser.add_argument("--admit-headroom-blocks", type=int, default=0,
                         help="decode blocks a lazy admission reserves beyond its prompt pages")
+    parser.add_argument("--do-sample", action="store_true",
+                        help="sample every request (temperature 0.8, top-k 50, top-p 0.95)")
+    parser.add_argument("--num-beams", type=int, default=1,
+                        help="beam-search every request with this many beams (bucket engine)")
     args = parser.parse_args()
     slot_only = (args.prefill_chunk is not None or args.prefix_cache == "on"
                  or args.preemption != "off" or args.kv_blocks is not None
@@ -264,6 +297,11 @@ def main() -> int:
     if args.engine != "slots" and slot_only:
         parser.error("--prefill-chunk, --prefix-cache, --preemption, --kv-blocks, --speculation "
                      "and --kv-layout auto apply to --engine slots")
+    if args.num_beams < 1 or (args.num_beams > 1 and (args.engine != "bucket" or args.do_sample)):
+        parser.error("--num-beams K > 1 applies to --engine bucket, without --do-sample "
+                     "(beam search decodes deterministically)")
+    if args.do_sample and args.engine == "train":
+        parser.error("--do-sample applies to the serving engines")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -273,6 +311,7 @@ def main() -> int:
         return 1
     import chip_smoke
     from perceiver_io_tpu_torch.inference import generate as gen_mod
+    from perceiver_io_tpu_torch.inference import samplers
     from perceiver_io_tpu_torch.models.text import clm
     from perceiver_io_tpu_torch.ops import flash_attention as flash
     from perceiver_io_tpu_torch.ops import ragged_attention as ragged
@@ -300,6 +339,10 @@ def main() -> int:
             tag += f"_{args.preemption}{args.kv_blocks or ''}"
         if args.speculation != "off":
             tag += f"_{args.speculation}"
+    if args.do_sample:
+        tag += "_sampled"
+    if args.num_beams > 1:
+        tag += f"_beams{args.num_beams}"
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -315,8 +358,8 @@ def main() -> int:
             # compute type); every engine below resolves "auto" to it
             strategy_mod.autotune_kv_layout(model)
             kv_verdict = strategy_mod.kv_entry(model)
-        make, run, tokens = _workload(args, torch, chip_smoke, gen_mod, buckets, slots_mod,
-                                      engine_mod, cfg.vocab_size)
+        make, run, tokens, steps = _workload(args, torch, chip_smoke, gen_mod, samplers, buckets,
+                                      slots_mod, engine_mod, cfg.vocab_size)
 
         def serve_all():
             engine = make(model)
@@ -377,6 +420,17 @@ def main() -> int:
                 for e in kernels[:8]
             ],
         }
+        record.update(do_sample=args.do_sample, num_beams=args.num_beams)
+        if args.do_sample:
+            sampler_ms = sum(_device_us(e) for e in kernels
+                             if any(p in e.key.lower() for p in SAMPLER_PATTERNS)) / 1e3
+            steps = steps or stats["decode_steps"]
+            record.update(sampler_device_ms=sampler_ms if measured else "not measured",
+                          sampler_device_ms_per_step=sampler_ms / steps if measured
+                          else "not measured", sampled_steps=steps)
+        if args.num_beams > 1:
+            record.update(beam_steps=steps, device_ms_per_beam_step=device_ms / steps
+                          if measured else "not measured")
         if args.engine == "bucket":
             record["batch_execute_ms"] = engine.samples["device_execute_ms"]
         else:

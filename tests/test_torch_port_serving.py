@@ -162,13 +162,16 @@ def test_engine_queue_deadline_cancel_drain(pair):
 
 
 def test_unported_generation_modes_raise(pair):
+    # beam search and sampling are ported (tests/test_torch_port_beam.py,
+    # tests/test_torch_port_sample.py): both run; bad arguments still raise
     _, _, t_model = pair
     ids = np.ones((1, 4), np.int32)
-    with pytest.raises(NotImplementedError):
-        generate(t_model, ids, GenerationConfig(num_beams=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        generate(t_model, ids, GenerationConfig(sampling=SamplingConfig(do_sample=True)),
-                 device="cpu")
+    out = generate(t_model, ids, GenerationConfig(max_new_tokens=3, num_beams=2), device="cpu")
+    assert tuple(out.shape) == (1, 3)
+    out = generate(t_model, ids, GenerationConfig(max_new_tokens=3,
+                                                  sampling=SamplingConfig(do_sample=True)),
+                   device="cpu")
+    assert tuple(out.shape) == (1, 3)
     with pytest.raises(ValueError):
         generate(t_model, ids, GenerationConfig(), decode_strategy="fastest", device="cpu")
     with pytest.raises(ValueError):

@@ -260,9 +260,14 @@ def test_deferred_arguments_raise(pair, kwargs):
         with pytest.raises(ValueError, match="lazy pages need kv_layout='paged'"):
             SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
         return
-    if "mesh" in kwargs or config.sampling.do_sample:
+    if "mesh" in kwargs:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
+        return
+    if config.sampling.do_sample:
+        # ported (tests/test_torch_port_sample.py): the engine builds and samples
+        eng = SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
+        assert eng.config.sampling.do_sample and eng.serve([np.ones(4, np.int32)])[0].size == 10
         return
     # ported: the "auto" axes resolve through the (empty) registry to their
     # defaults, and speculation takes its mode
