@@ -229,7 +229,53 @@ non-zero and never prints the final line):
        ``attention_impl="flash"`` (the plain forward and backward, same
        dead-row semantics): gradients and updated params within 1e-4;
    (e) a gradient request to K4 raises;
-14. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
+14. train_resilience, over the full-width CLM from the same seeded weights
+   and batches (fp32 unless named; every sub-run prints ``step_ms``,
+   ``max_memory_allocated`` where it gates memory, and launches by route).
+   Before phase 13 and before this phase a garbage collection frees what
+   earlier phases left in reference cycles, and ``memory_before_training``
+   / ``memory_before_train_resilience`` print the bytes still allocated
+   and the largest live CUDA tensors:
+   (a) one optimizer step's gradients (8 rows, 2 microbatches) in fp32 and
+       bf16, each in three modes over one model, batch and generator:
+       plain, ``activation_checkpointing`` and checkpointing with
+       ``activation_offloading``. Loss and gradients equal across the modes
+       (fp32 within 1e-3 of each parameter's largest entry and the loss
+       within 1e-5; bf16 within 2 bf16 ulps of the largest entry); each
+       mode timed over three steps after a warm one (p50); K1
+       34 / 68 / 68 per step (the recompute runs every attend's forward
+       again), K2 and K3 34, all on ``tf32x3`` in fp32 and ``wgmma`` in
+       bf16; peak memory above the sub-run's start (``peak_above_start``,
+       printed beside the absolute peak) plain > checkpointing >=
+       offloading; the bytes the
+       offload hook moved to pinned host memory equal the layer inputs'
+       (17 of 4 x 512 x 896 and the kept prefix, per microbatch);
+   (b) ``Trainer.fit`` with attention and residual dropout 0.1: the loss
+       falls; no K1/K2/K3 launch in the training steps (a train-mode attend
+       with dropout takes the plain path, JAX's dispatch), 17 K1 launches in
+       the validation pass; one step's gradients with and without
+       checkpointing under one generator within the fp32 gate;
+   (c) resume: an uninterrupted 8-step fit with snapshots every 2 steps; a
+       fit into a fresh root whose loss function raises SIGTERM at the
+       process during step 5 (it finishes the step, snapshots, returns); a
+       third trainer with ``resume=`` finishes. The stitched losses equal
+       the uninterrupted run's bit for bit;
+   (d) recovery under a ``ChaosRegistry`` over 6 steps: ``skip`` with one
+       NaN loss at step 3 skips 1 step and ends finite at step 5;
+       ``rollback`` with three NaNs in a row from step 3 (snapshots every 2)
+       rolls back once, to step 2, and replays to step 6;
+   (e) ``steps_per_execution=4``: each block's logged loss equals the mean
+       of the same four single steps' losses and the parameters end equal;
+       ms per step of both;
+   (f) LAMB at 5e-3 (cosine, 2 warmup steps), 8 steps: the loss falls; one
+       more update on the card equals the same update on CPU copies of the
+       parameters, gradients and moments within 1e-5 of each tensor's
+       largest entry;
+   (g) ``save_pretrained`` of (f)'s model and ``pipeline_from_pretrained``
+       on the card over a token-id tokenizer: the text equals the direct
+       pipeline's; with bf16 compute and ``params_dtype=torch.bfloat16`` it
+       equals a direct bf16 model's, and K1 takes ``wgmma`` (no ``tf32x3``);
+15. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4 with
    its split and tc routes nested and the simt kernel's times as their
@@ -239,7 +285,8 @@ non-zero and never prints the final line):
    ``slot_preempt_launches`` each slot-preempt run's; K1's and K4's
    ``slot_spec_launches`` each slot-spec engine run's and
    ``sample_launches`` each sampled run's; K1's ``beam_launches`` the
-   counted beam run's), the
+   counted beam run's; K1's, K2's and K3's ``train_resilience_launches``
+   each phase-14 sub-run's, over its three timed steps in (a)), the
    card's ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -2555,6 +2602,485 @@ def train_phase(torch, clm, flash, ragged, training, parallel, root: Path):
     return fits
 
 
+RESILIENCE_STEPS = 8
+#: LAMB's peak rate in phase 14 (f); 1e-2 overshot (loss 11.14 -> 13.21 at step 6)
+LAMB_LR = 5e-3
+#: the gradient gates of phase 13 (a): fp32 within 1e-3 of each parameter's
+#: largest entry, bf16 within 2 bf16 ulps (2^-7) of it, as K2/K3's gate
+RESILIENCE_GRAD_TOL = {"float32": 1e-3, "bfloat16": 2.0 ** -7}
+
+
+def set_checkpointing(model, checkpointing: bool, offloading: bool) -> None:
+    """Turn activation checkpointing (and offloading) on or off in place."""
+    model.perceiver_ar.activation_checkpointing = checkpointing
+    model.perceiver_ar.activation_offloading = offloading
+
+
+class IdTokenizer:
+    """Text of space-separated token ids: lets the text-generation pipeline
+    drive a model of any vocabulary (clm-base's 32000)."""
+
+    pad_token_id = 0
+    eos_token_id = None
+
+    def encode(self, text: str) -> list:
+        return [int(w) for w in text.split()]
+
+    def decode(self, ids) -> str:
+        return "".join(f" {int(i)}" for i in ids)
+
+
+def _dev_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(torch, dev):
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def _allocated(torch, dev):
+    """Bytes allocated now: a peak's baseline (the sub-run's own peak is the
+    peak above this)."""
+    return torch.cuda.memory_allocated() if dev.type == "cuda" else None
+
+
+def held_memory(torch) -> dict:
+    """After a garbage collection: the bytes still allocated on the card and
+    the largest live CUDA tensors by shape and type, to show what an earlier
+    phase keeps."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen, by_kind = set(), {}
+    for obj in gc.get_objects():
+        if torch.is_tensor(obj) and obj.is_cuda and id(obj) not in seen:
+            seen.add(id(obj))
+            key = f"{tuple(obj.shape)} {str(obj.dtype).split('.')[-1]}"
+            by_kind[key] = by_kind.get(key, 0) + obj.numel() * obj.element_size()
+    largest = sorted(by_kind.items(), key=lambda kv: -kv[1])[:8]
+    return dict(memory_allocated=torch.cuda.memory_allocated(), live_tensor_bytes=sum(by_kind.values()),
+                largest=[{"tensor": k, "bytes": v} for k, v in largest])
+
+
+def _route_counts(flash) -> dict:
+    return {"k1": dict(flash.flash_attention.route_launches), **read_bwd_routes(flash)}
+
+
+def _max_rel(grads, ref) -> dict:
+    """Per parameter: ``max|g - ref| / max|ref|`` (0 where both are 0)."""
+    out = {}
+    for n, g in grads.items():
+        diff, scale = (g - ref[n]).abs().max().item(), ref[n].abs().max().item()
+        out[n] = diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
+    return out
+
+
+def _fit_losses(root: Path) -> list:
+    return [(r["step"], r["train/loss"]) for r in (json.loads(line) for line in open(root / "metrics.jsonl"))
+            if "train/loss" in r]
+
+
+def _trainer(training, model, cfg, root: Path, dev, *, optimizer="adamw", lr=1e-4, chaos=None,
+             loss_fn=None, **overrides):
+    """Phase 13's fit set-up: 8 steps, 2 microbatches, clipping 1.0,
+    ``cosine_with_warmup`` (2 warmup steps), no validation unless asked."""
+    schedule = training.cosine_with_warmup(lr, warmup_steps=2, training_steps=RESILIENCE_STEPS)
+    kw = dict(max_steps=RESILIENCE_STEPS, val_check_interval=10_000, log_every_n_steps=1,
+              grad_clip_norm=1.0, grad_accum_steps=2, enable_checkpointing=False,
+              enable_tensorboard=False, default_root_dir=str(root))
+    kw.update(overrides)
+    return training.Trainer(training.TrainerConfig(**kw),
+                            loss_fn or training.clm_loss_fn(model, cfg.max_latents),
+                            training.make_optimizer(schedule, optimizer=optimizer), model_config=cfg,
+                            lr_schedule=schedule, device=dev, chaos=chaos)
+
+
+def resilience_checkpointing(torch, clm, flash, parallel, training, modules, dtype, cfg, dev) -> dict:
+    """(a) One optimizer step's gradients (8 rows, 2 microbatches) in three
+    modes over one model, batch and generator: plain, activation
+    checkpointing, and checkpointing with offloading. Each mode runs once to
+    warm, then three times timed (each ending in a synchronise; the p50 is
+    ``step_ms``); launches are per step, the peak over the three."""
+    tname = str(dtype).split(".")[-1]
+    model = clm.CausalLanguageModel(cfg, dtype=dtype, seed=0, device=dev)
+    state = parallel.TrainState.create(model, training.make_optimizer(1e-4))
+    grads_step = parallel.make_gradient_step(training.clm_loss_fn(model, cfg.max_latents), grad_clip_norm=1.0,
+                                             grad_accum_steps=2, device=dev)
+    batch = token_batches(cfg.vocab_size, cfg.max_seq_len, 8, 1, seed=51)[0]
+    elt = torch.finfo(dtype).bits // 8
+    keep = (cfg.max_seq_len - cfg.max_latents) - int((cfg.max_seq_len - cfg.max_latents)
+                                                      * cfg.cross_attention_dropout)
+    # per microbatch of 4 rows: 17 layer inputs of (4, 512, 896), plus the kept prefix
+    predicted = 2 * 4 * cfg.num_channels * elt * ((1 + cfg.num_self_attention_layers) * cfg.max_latents + keep)
+    runs, ref, ref_loss = {}, None, None
+    for mode, flags in (("plain", (False, False)), ("checkpointing", (True, False)),
+                        ("offloading", (True, True))):
+        set_checkpointing(model, *flags)
+        grads_step(state, batch, torch.Generator(device=dev).manual_seed(7))
+        model.zero_grad(set_to_none=True)
+        reset_counts(flash)
+        modules.reset_offload_counts()
+        _reset_peak(torch, dev)
+        start = _allocated(torch, dev)
+        times = []
+        for _ in range(3):
+            _dev_sync(torch, dev)
+            t0 = time.perf_counter()
+            metrics = grads_step(state, batch, torch.Generator(device=dev).manual_seed(7))
+            loss = metrics["loss"].item()
+            _dev_sync(torch, dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms = sorted(times)[1]
+        # per step: a count that is not a multiple of 3 shows as a fraction and fails
+        totals = read_counts(flash)
+        counts = {k: v / 3 for k, v in totals.items()}
+        routes = {k: {r: n / 3 for r, n in v.items()} for k, v in _route_counts(flash).items()}
+        peak = _peak(torch, dev)
+        above = None if peak is None else peak - start
+        offloaded = {k: v / 3 for k, v in modules.offload_counts.items()}
+        grads = {n: p.grad.detach().to("cpu") for n, p in model.named_parameters()}
+        if ref is None:
+            ref, ref_loss = grads, loss
+        rel = _max_rel(grads, ref)
+        runs[mode] = dict(loss=loss, step_ms=step_ms, step_ms_runs=times, max_memory_allocated=peak,
+                          memory_allocated_at_start=start, peak_above_start=above,
+                          launches_3_steps=totals, launches=counts,
+                          route_launches=routes, offloaded=offloaded, max_rel_grad_err=max(rel.values()),
+                          loss_rel_err=abs(loss - ref_loss) / abs(ref_loss))
+        emit("train_resilience", part="checkpointing", compute_dtype=tname, mode=mode, rows=8,
+             grad_accum_steps=2, **runs[mode], offload_predicted_bytes=predicted if flags[1] else 0)
+    set_checkpointing(model, False, False)
+    failures = []
+    for mode, run in runs.items():
+        if run["max_rel_grad_err"] > RESILIENCE_GRAD_TOL[tname] or run["loss_rel_err"] > 1e-5:
+            failures.append(f"{mode}: grads {run['max_rel_grad_err']}, loss {run['loss_rel_err']}")
+        if dev.type == "cuda":
+            k1 = 34 if mode == "plain" else 68
+            if run["launches"] != {"k1": k1, "k2": 34, "k3": 34}:
+                failures.append(f"{mode}: launches {run['launches']}")
+            design = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+            for key, by_route in run["route_launches"].items():
+                if by_route[design] != run["launches"][key]:
+                    failures.append(f"{mode}: {key} routes {by_route}, all should take {design}")
+    # per microbatch: the cross layer's latents and kept prefix, each stack layer's input
+    layer_inputs = 2 * (2 + cfg.num_self_attention_layers)
+    if (runs["offloading"]["offloaded"] != {"tensors": layer_inputs, "bytes": predicted}
+            or runs["checkpointing"]["offloaded"]["tensors"]):
+        failures.append(f"offloaded {runs['offloading']['offloaded']} against {layer_inputs} tensors, "
+                        f"{predicted} bytes predicted")
+    if dev.type == "cuda":
+        peaks = [runs[m]["peak_above_start"] for m in ("plain", "checkpointing", "offloading")]
+        if not peaks[0] > peaks[1] >= peaks[2]:
+            failures.append(f"peak memory above the start, plain/checkpointing/offloading {peaks}")
+    if failures:
+        raise AssertionError(f"train_resilience checkpointing {tname}: " + "; ".join(failures))
+    del model, state, ref, grads
+    return {mode: run["launches_3_steps"] for mode, run in runs.items()}
+
+
+def resilience_dropout(torch, clm, flash, parallel, training, cfg, root: Path, dev) -> dict:
+    """(b) ``Trainer.fit`` with attention and residual dropout 0.1 (fp32):
+    the loss falls, no K1/K2/K3 in the training steps (every train-mode
+    attend takes the plain path, as JAX's dispatch does), K1 in the
+    deterministic validation pass; then one step's gradients with and
+    without checkpointing under one generator."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, post_attention_dropout=0.1, residual_dropout=0.1)
+    model = clm.CausalLanguageModel(cfg, seed=0, device=dev)
+    trainer = _trainer(training, model, cfg, root, dev, val_check_interval=RESILIENCE_STEPS,
+                       limit_val_batches=1)
+    *train, held_out = token_batches(cfg.vocab_size, cfg.max_seq_len, 8, 3, seed=31)
+    val = [{k: v[:4] for k, v in held_out.items()}]
+    validate, val_counts = trainer.validate, {"k1": 0, "k2": 0, "k3": 0}
+
+    def counted_validate(data):
+        before = read_counts(flash)
+        out = validate(data)
+        for key, n in read_counts(flash).items():
+            val_counts[key] += n - before[key]
+        return out
+
+    trainer.validate = counted_validate
+    _reset_peak(torch, dev)
+    start = _allocated(torch, dev)
+    reset_counts(flash)
+    _dev_sync(torch, dev)
+    t0 = time.perf_counter()
+    trainer.fit(model, train, val_data=lambda: iter(val))
+    _dev_sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    counts = read_counts(flash)
+    train_counts = {k: counts[k] - val_counts[k] for k in counts}
+    losses = [loss for _, loss in _fit_losses(root)]
+    peak = _peak(torch, dev)
+
+    grads_step = parallel.make_gradient_step(trainer.loss_fn, grad_clip_norm=1.0, grad_accum_steps=2, device=dev)
+    grads = {}
+    for mode, flag in (("plain", False), ("checkpointing", True)):
+        set_checkpointing(model, flag, False)
+        grads_step(trainer.state, train[0], torch.Generator(device=dev).manual_seed(13))
+        grads[mode] = {n: p.grad.detach().to("cpu") for n, p in model.named_parameters()}
+    set_checkpointing(model, False, False)
+    rel = max(_max_rel(grads["checkpointing"], grads["plain"]).values())
+    line = dict(compute_dtype="float32", post_attention_dropout=0.1, residual_dropout=0.1, steps=RESILIENCE_STEPS,
+                losses=losses, fit_s=fit_s, step_ms=fit_s * 1e3 / RESILIENCE_STEPS, max_memory_allocated=peak,
+                memory_allocated_at_start=start, peak_above_start=None if peak is None else peak - start,
+                launches=train_counts, validation_launches=val_counts, route_launches=_route_counts(flash),
+                checkpointing_max_rel_grad_err=rel)
+    emit("train_resilience", part="dropout", **line)
+    failures = []
+    if not (len(losses) == RESILIENCE_STEPS and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        failures.append(f"losses {losses}")
+    if dev.type == "cuda" and (train_counts != {"k1": 0, "k2": 0, "k3": 0}
+                        or val_counts != {"k1": 1 + cfg.num_self_attention_layers, "k2": 0, "k3": 0}):
+        failures.append(f"training launches {train_counts}, validation {val_counts}")
+    if rel > RESILIENCE_GRAD_TOL["float32"]:
+        failures.append(f"checkpointed gradients off by {rel}")
+    if failures:
+        raise AssertionError("train_resilience dropout: " + "; ".join(failures))
+    del trainer, model, grads
+    return {"launches": train_counts, "validation_launches": val_counts}
+
+
+def resilience_resume(torch, clm, flash, training, cfg, root: Path, dev) -> dict:
+    """(c) An uninterrupted 8-step fit with a snapshot every 2 steps; a
+    second fit into a fresh root whose loss function raises SIGTERM at the
+    process during step 5 (in the main thread), so the trainer finishes
+    that step, snapshots and returns; a third trainer resumes it to step 8.
+    The stitched losses equal the uninterrupted run's bit for bit."""
+    import signal
+
+    train = token_batches(cfg.vocab_size, cfg.max_seq_len, 8, 2, seed=31)
+    out = {}
+    reset_counts(flash)
+
+    def fit(name, sub: Path, **kw):
+        model = clm.CausalLanguageModel(cfg, seed=0, device=dev)
+        loss_fn = kw.pop("wrap", lambda f: f)(training.clm_loss_fn(model, cfg.max_latents))
+        trainer = _trainer(training, model, cfg, sub, dev, save_state_every_n_steps=2, loss_fn=loss_fn, **kw)
+        _dev_sync(torch, dev)
+        t0 = time.perf_counter()
+        state = trainer.fit(model, train)
+        _dev_sync(torch, dev)
+        out[name] = dict(fit_s=time.perf_counter() - t0, step=state.step,
+                         snapshots=training.ResumeCheckpointManager(str(sub / "resume")).steps())
+        del trainer, state, model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    fit("uninterrupted", root / "a")
+    calls = [0]
+
+    def preempt_at_step_5(loss_fn):
+        def wrapped(model, batch, generator):
+            calls[0] += 1
+            if calls[0] == 2 * 4 + 1:  # the first microbatch of step 5
+                signal.raise_signal(signal.SIGTERM)
+            return loss_fn(model, batch, generator)
+        return wrapped
+
+    previous = signal.getsignal(signal.SIGTERM)
+    fit("preempted", root / "b", wrap=preempt_at_step_5)
+    handler_restored = signal.getsignal(signal.SIGTERM) == previous
+    fit("resumed", root / "b", resume=str(root / "b"))
+    straight, stitched = _fit_losses(root / "a"), _fit_losses(root / "b")
+    snapshot = root / "a" / "resume" / str(out["uninterrupted"]["snapshots"][-1]) / "state.pt"
+    line = dict(runs=out, uninterrupted_losses=[x for _, x in straight], stitched_losses=[x for _, x in stitched],
+                equal=stitched == straight, max_abs_diff=max(abs(a[1] - b[1]) for a, b in zip(straight, stitched))
+                if len(straight) == len(stitched) else None, snapshot_bytes=snapshot.stat().st_size,
+                handler_restored=handler_restored, launches=read_counts(flash))
+    emit("train_resilience", part="resume", **line)
+    if (stitched != straight or out["preempted"]["step"] != 5 or 5 not in out["preempted"]["snapshots"]
+            or out["resumed"]["step"] != RESILIENCE_STEPS or not handler_restored):
+        raise AssertionError(f"train_resilience resume: stitched {stitched} against {straight}; runs {out}")
+    shutil.rmtree(root / "a", ignore_errors=True)
+    shutil.rmtree(root / "b", ignore_errors=True)
+    return {"launches": line["launches"]}
+
+
+def resilience_recovery(torch, clm, flash, training, reliability, cfg, root: Path, dev) -> dict:
+    """(d) Under a ``ChaosRegistry``: ``skip`` with one NaN loss at step 3,
+    and ``rollback`` with three in a row from step 3 (snapshots every 2
+    steps), over 6 steps each."""
+    train = token_batches(cfg.vocab_size, cfg.max_seq_len, 8, 2, seed=31)
+    runs = {}
+    reset_counts(flash)
+    for policy, count in (("skip", 1), ("rollback", 3)):
+        chaos = reliability.ChaosRegistry()
+        chaos.nan_loss_at_step(3, count=count)
+        model = clm.CausalLanguageModel(cfg, seed=0, device=dev)
+        extra = {"save_state_every_n_steps": 2} if policy == "rollback" else {}
+        trainer = _trainer(training, model, cfg, root / policy, dev, chaos=chaos, max_steps=6,
+                           non_finite_policy=policy, **extra)
+        t0 = time.perf_counter()
+        state = trainer.fit(model, train)
+        _dev_sync(torch, dev)
+        rows = [json.loads(line) for line in open(root / policy / "metrics.jsonl")]
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        runs[policy] = dict(fault_stats=dict(trainer.fault_stats), step=state.step, losses=losses,
+                            rollback_to=[r["rollback_to_step"] for r in rows if "rollback_to_step" in r],
+                            fired=chaos.fired_count("trainer.step"), fit_s=time.perf_counter() - t0)
+        del trainer, state, model
+        shutil.rmtree(root / policy, ignore_errors=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    emit("train_resilience", part="recovery", **runs, launches=read_counts(flash))
+    skip, rollback = runs["skip"], runs["rollback"]
+    if not (skip["fault_stats"]["skipped_steps"] == 1 and skip["step"] == 5 and math.isfinite(skip["losses"][-1])
+            and rollback["fault_stats"]["rollbacks"] == 1 and rollback["rollback_to"] == [2]
+            and rollback["step"] == 6 and math.isfinite(rollback["losses"][-1])):
+        raise AssertionError(f"train_resilience recovery: {runs}")
+    return {"launches": read_counts(flash)}
+
+
+def resilience_steps_per_execution(torch, clm, flash, training, cfg, root: Path, dev) -> dict:
+    """(e) The same 8 steps with ``steps_per_execution`` 1 and 4: each block's
+    logged loss is the mean of the single steps' four, and the parameters
+    end equal."""
+    import numpy as np
+
+    train = token_batches(cfg.vocab_size, cfg.max_seq_len, 8, 2, seed=31)
+    runs, models = {}, {}
+    for spe in (1, 4):
+        model = clm.CausalLanguageModel(cfg, seed=0, device=dev)
+        trainer = _trainer(training, model, cfg, root / f"spe{spe}", dev, steps_per_execution=spe,
+                           log_every_n_steps=spe)
+        reset_counts(flash)
+        _dev_sync(torch, dev)
+        t0 = time.perf_counter()
+        trainer.fit(model, train)
+        _dev_sync(torch, dev)
+        fit_s = time.perf_counter() - t0
+        runs[spe] = dict(fit_s=fit_s, ms_per_step=fit_s * 1e3 / RESILIENCE_STEPS,
+                         losses=_fit_losses(root / f"spe{spe}"), launches=read_counts(flash))
+        models[spe] = model
+        del trainer
+    singles = [x for _, x in runs[1]["losses"]]
+    means = [(4 * (i + 1), float(np.mean(singles[4 * i:4 * i + 4]))) for i in range(2)]
+    params_equal = all(torch.equal(a, b) for a, b in zip(models[1].parameters(), models[4].parameters()))
+    emit("train_resilience", part="steps_per_execution", ms_per_step={s: r["ms_per_step"] for s, r in runs.items()},
+         single_losses=singles, block_losses=runs[4]["losses"], single_block_means=means,
+         params_equal=params_equal, launches={s: r["launches"] for s, r in runs.items()})
+    if runs[4]["losses"] != means or not params_equal or runs[1]["launches"] != runs[4]["launches"]:
+        raise AssertionError(f"train_resilience steps_per_execution: {runs}, means {means}, params {params_equal}")
+    del models
+    return {"launches": runs[4]["launches"]}
+
+
+def resilience_lamb(torch, clm, flash, training, cfg, root: Path, dev):
+    """(f) An 8-step LAMB fit (fp32, 5e-3 with warmup; a weight of the 0.02
+    init scale then moves ~1e-4 a step, as under phase 13's AdamW at 1e-4):
+    the loss falls. Then
+    one LAMB update of the fitted parameters with their last gradients and
+    moments on the card, against the same update on CPU copies."""
+    model = clm.CausalLanguageModel(cfg, seed=0, device=dev)
+    trainer = _trainer(training, model, cfg, root / "lamb", dev, optimizer="lamb", lr=LAMB_LR)
+    train = token_batches(cfg.vocab_size, cfg.max_seq_len, 8, 2, seed=31)
+    reset_counts(flash)
+    _dev_sync(torch, dev)
+    t0 = time.perf_counter()
+    state = trainer.fit(model, train)
+    _dev_sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    launches = read_counts(flash)
+    losses = [x for _, x in _fit_losses(root / "lamb")]
+    opt = state.optimizer
+    cpu_params = [p.detach().cpu().requires_grad_() for p in model.parameters()]
+    for c, p in zip(cpu_params, model.parameters()):
+        c.grad = p.grad.detach().cpu()
+    cpu_opt = training.Lamb(cpu_params, lr=opt.param_groups[0]["lr"], eps=1e-6)
+    cpu_opt.load_state_dict(opt.state_dict())
+    opt.step()
+    cpu_opt.step()
+    rel = max((p.detach().cpu() - c.detach()).abs().max().item() / max(c.detach().abs().max().item(), 1e-30)
+              for p, c in zip(model.parameters(), cpu_params))
+    emit("train_resilience", part="lamb", compute_dtype="float32", lr=LAMB_LR, losses=losses, fit_s=fit_s,
+         step_ms=fit_s * 1e3 / RESILIENCE_STEPS, card_vs_cpu_update_max_rel_err=rel, tol=1e-5, launches=launches)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]) or rel > 1e-5:
+        raise AssertionError(f"train_resilience lamb: losses {losses}, card vs CPU update {rel}")
+    del trainer, state, opt, cpu_opt, cpu_params
+    return model, launches
+
+
+def resilience_pretrained(torch, clm, flash, training, pipelines_mod, model, cfg, root: Path, dev):
+    """(g) ``save_pretrained`` of the LAMB fit's model, then
+    ``pipeline_from_pretrained`` on the card over a token-id tokenizer: its
+    text equals the direct pipeline's over the live model (fp32); with bf16
+    compute and weights the text equals a direct bf16 model's and K1 takes
+    ``wgmma``."""
+    path = root / "pretrained"
+    training.save_pretrained(str(path), model, cfg)
+    tok = IdTokenizer()
+    batch = token_batches(cfg.vocab_size, min(600, cfg.max_seq_len // 2), 2, 1, seed=61)[0]["input_ids"]
+    prompts = [" ".join(str(int(t)) for t in row) for row in batch]
+    kw = dict(max_new_tokens=8, num_latents=min(64, cfg.max_latents))
+    direct = pipelines_mod.pipeline("text-generation", model, tok, device=dev)(prompts, **kw)
+    reset_counts(flash)
+    loaded = pipelines_mod.pipeline_from_pretrained("text-generation", str(path), tok, device=dev)(prompts, **kw)
+    fp32_routes = dict(flash.flash_attention.route_launches)
+    half = clm.CausalLanguageModel(cfg, dtype=torch.bfloat16, seed=1, device=dev)
+    half.load_state_dict(model.state_dict())
+    pipelines_mod.cast_float_params(half, torch.bfloat16)
+    direct16 = pipelines_mod.pipeline("text-generation", half, tok, device=dev)(prompts, **kw)
+    reset_counts(flash)
+    loaded16 = pipelines_mod.pipeline_from_pretrained("text-generation", str(path), tok, dtype=torch.bfloat16,
+                                                      params_dtype=torch.bfloat16, device=dev)(prompts, **kw)
+    bf16_routes = dict(flash.flash_attention.route_launches)
+    agree = [sum(a == b for a, b in zip(x[len(p):].split(), y[len(p):].split()))
+             for x, y, p in zip(loaded, loaded16, prompts)]
+    emit("train_resilience", part="pretrained", bytes=(path / "model.pt").stat().st_size, prompts=len(prompts),
+         fp32_equal=loaded == direct, bf16_equal=loaded16 == direct16, k1_routes_fp32=fp32_routes,
+         k1_routes_bf16=bf16_routes, bf16_tokens_agreeing_with_fp32=agree,
+         continuations=[t[len(p):] for t, p in zip(loaded, prompts)])
+    wrong_routes = dev.type == "cuda" and (bf16_routes["wgmma"] == 0 or bf16_routes["tf32x3"]
+                                           or fp32_routes["tf32x3"] == 0)
+    if loaded != direct or loaded16 != direct16 or wrong_routes:
+        raise AssertionError(f"train_resilience pretrained: fp32 {loaded!r} against {direct!r}, bf16 "
+                             f"{loaded16!r} against {direct16!r}, K1 routes {fp32_routes} / {bf16_routes}")
+    shutil.rmtree(path, ignore_errors=True)
+    del half
+    return {"fp32": fp32_routes, "bf16": bf16_routes}
+
+
+def train_resilience_phase(torch, clm, flash, parallel, training, modules, reliability, pipelines_mod,
+                           root: Path, cfg=None, dev=None) -> dict:
+    """Phase 14 (module docstring). Returns each sub-run's launches."""
+    cfg = cfg or clm_base_config(clm.CausalLanguageModelConfig)
+    dev = dev or torch.device("cuda")
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = resilience_checkpointing(torch, clm, flash, parallel, training, modules, dtype, cfg, dev)
+        for mode, counts in runs.items():
+            launches[f"checkpointing_{str(dtype).split('.')[-1]}_{mode}"] = counts
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    launches["dropout"] = resilience_dropout(torch, clm, flash, parallel, training, cfg, root / "dropout",
+                                             dev)["launches"]
+    launches["resume"] = resilience_resume(torch, clm, flash, training, cfg, root / "resume", dev)["launches"]
+    launches["recovery"] = resilience_recovery(torch, clm, flash, training, reliability, cfg, root / "recovery",
+                                               dev)["launches"]
+    launches["steps_per_execution_4"] = resilience_steps_per_execution(
+        torch, clm, flash, training, cfg, root / "spe", dev)["launches"]
+    model, launches["lamb"] = resilience_lamb(torch, clm, flash, training, cfg, root, dev)
+    resilience_pretrained(torch, clm, flash, training, pipelines_mod, model, cfg, root, dev)
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 K1_SOURCES = {
     "split": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_split.cu",
     "wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wgmma.cu",
@@ -2629,11 +3155,12 @@ K23_KERNELS = {
 }
 
 
-def k23_entries(kname: str, fits: dict, cases: list) -> list:
+def k23_entries(kname: str, fits: dict, cases: list, resilience: dict) -> list:
     """The summary line's entries for K2 (``dq``) or K3 (``dkv``), one per
     route the main path runs (``wgmma`` in bf16, ``tf32x3`` in fp32): the
     cross case (i = 512, j = 768, d = 112) of its type at the top, launches
-    from the Trainer.fit run of its type, and every case that took it."""
+    from the Trainer.fit run of its type, the train_resilience runs' of that
+    type, and every case that took it."""
     name, replaces, count, grads = K23_KERNELS[kname]
     entries = []
     for tname, design in (("bfloat16", K23_ROUTE["bfloat16"]), ("float32", K23_ROUTE["float32"])):
@@ -2646,6 +3173,8 @@ def k23_entries(kname: str, fits: dict, cases: list) -> list:
             "name": f"{name}[{design}]", "route": "cuda", "design": design, "source": K23_SOURCES[design],
             "replaces": replaces, "launches": fits[tname]["bwd_route_launches"][count][design],
             "launches_from": f"the {tname} Trainer.fit run (8 steps)",
+            "train_resilience_launches": {run: v[count] for run, v in resilience.items()
+                                          if ("bfloat16" in run) == (tname == "bfloat16")},
             "max_abs_err": max(c["max_abs_err"][g] for c in mine for g in grads),
             **{k: head["kernels"][kname][k] for k in keys},
             "library_ms": head["library_ms"], "library_backend": head["library_backend"],
@@ -2698,6 +3227,7 @@ def main() -> int:
     from perceiver_io_tpu_torch.inference import pipelines as pipelines_mod
     from perceiver_io_tpu_torch.inference import samplers
     from perceiver_io_tpu_torch.inference import speculative as spec_mod
+    from perceiver_io_tpu_torch.models.core import modules
     from perceiver_io_tpu_torch.models.text import clm
     from perceiver_io_tpu_torch.ops import flash_attention as flash
     from perceiver_io_tpu_torch.ops import paged_attention as paged
@@ -2705,7 +3235,7 @@ def main() -> int:
     from perceiver_io_tpu_torch.serving import buckets
     from perceiver_io_tpu_torch.serving import engine as engine_mod
     from perceiver_io_tpu_torch.serving import slots as slots_mod
-    from perceiver_io_tpu_torch import parallel, training
+    from perceiver_io_tpu_torch import parallel, reliability, training
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2739,11 +3269,14 @@ def main() -> int:
     sample = sample_phase(torch, clm, flash, ragged, gen_mod, samplers, beam_mod, pipelines_mod,
                           tokenizers_mod, engine_mod, slots_mod, buckets, serve, slot_launches)
     del serve, shared
-    torch.cuda.empty_cache()
+    emit("memory_before_training", **held_memory(torch))
     k23 = k23_cases(torch, flash)
     train_root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_root, ignore_errors=True)
     fits = train_phase(torch, clm, flash, ragged, training, parallel, train_root)
+    emit("memory_before_train_resilience", **held_memory(torch))
+    resilience = train_resilience_phase(torch, clm, flash, parallel, training, modules, reliability,
+                                        pipelines_mod, ROOT / "build" / "chip_smoke_resilience")
 
     main_case = next(c for c in cases
                      if (c["case"], c["dtype"], c["d"]) == ("cross", "float32", K1_HEAD_DIM))
@@ -2777,6 +3310,7 @@ def main() -> int:
         "sample_route_launches": {run: v["k1_routes"] for run, v in sample["runs"].items()},
         "beam_launches": sample["beam"]["k1"],
         "beam_route_launches": sample["beam"]["k1_routes"],
+        "train_resilience_launches": {run: v["k1"] for run, v in resilience.items()},
         "routes": [k1_route_entry(flash, design, main, cases, route_launches[design])
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
                                         ("tf32x3", ("cross", "float32")))],
@@ -2811,7 +3345,7 @@ def main() -> int:
                                   {run: launches["k4_routes"][design]
                                    for run, launches in preempt_launches.items()})
                    for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
-    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23)]}), flush=True)
+    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,2 +1,5 @@
-"""Data of the port. Only the offline byte tokenizer is ported so far
-(:mod:`.text.tokenizers`)."""
+"""Data of the port: the map-style batch loader (:mod:`.loader`) and the
+offline byte tokenizer (:mod:`.text.tokenizers`)."""
+from perceiver_io_tpu_torch.data.loader import DataLoader, default_collate
+
+__all__ = ["DataLoader", "default_collate"]

@@ -1,8 +1,9 @@
 """Task pipelines. Counterpart of ``perceiver_io_tpu/inference/pipelines.py``,
-of which only ``text-generation`` is ported: :class:`TextGenerationPipeline`
-and the :func:`pipeline` dispatch by task name. The other tasks come with
-their model families (``ROADMAP.md`` A.3); ``pipeline_from_pretrained``
-comes with the checkpoint items of ``ROADMAP.md`` A.2.
+of which only ``text-generation`` is ported: :class:`TextGenerationPipeline`,
+the :func:`pipeline` dispatch by task name, and :func:`pipeline_from_pretrained`
+over a ``save_pretrained`` dir (with :func:`cast_float_params` for bf16
+weight storage). The other tasks come with their model families
+(``ROADMAP.md`` A.3) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
 from perceiver_io_tpu_torch.inference.generate import GenerationConfig, generate
 from perceiver_io_tpu_torch.inference.samplers import SamplingConfig
+from perceiver_io_tpu_torch.models import model_for_config
 
 
 def _warn_sampling_ignored_under_beam(num_beams, temperature, top_k, top_p):
@@ -170,3 +172,36 @@ def pipeline(task: str, model, *args, **kwargs):
     if task not in _TASKS:
         raise ValueError(f"unknown task {task!r}; available: {sorted(_TASKS)}")
     return _TASKS[task](model, *args, **kwargs)
+
+
+def cast_float_params(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """Store ``model``'s floating parameters in ``dtype`` (integer and bool
+    tensors untouched); returns the model. For inference: bf16 storage
+    halves the weight traffic of every matmul in the decode loop. Training
+    keeps fp32 parameters."""
+    return model.to(dtype=dtype)
+
+
+def pipeline_from_pretrained(task: str, path: str, *args, dtype: Optional[torch.dtype] = None,
+                             params_dtype: Optional[torch.dtype] = None,
+                             attention_impl: str = "auto", device: DeviceLike = "cuda", **kwargs):
+    """A pipeline straight from a ``save_pretrained`` dir (or a trainer
+    checkpoint dir): its embedded config picks the model class.
+
+    :param dtype: computation type (None: fp32).
+    :param params_dtype: storage type of the loaded weights
+        (:func:`cast_float_params`); None keeps the checkpoint's.
+    :param device: where the model and the pipeline run; ``"cuda"`` by
+        default, the CPU only when asked for.
+    """
+    from perceiver_io_tpu_torch.training.checkpoint import load_pretrained
+
+    dev = resolve_device(device)
+    state, config = load_pretrained(path)
+    if config is None:
+        raise ValueError(f"{path} has no embedded model config")
+    model = model_for_config(config, dtype=dtype, attention_impl=attention_impl, device=dev)
+    model.load_state_dict(state, strict=True)
+    if params_dtype is not None:
+        cast_float_params(model, params_dtype)
+    return pipeline(task, model, *args, device=dev, **kwargs)

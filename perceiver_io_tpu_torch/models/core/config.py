@@ -1,8 +1,9 @@
 """Perceiver AR hyperparameters, with the JAX package's field names
 (``perceiver_io_tpu/models/core/config.py``), so a config dict round-trips
-between the two packages. The dropout rates reach the model: prefix dropout
-acts in train mode, attention and residual dropout raise there, and
-activation checkpointing and offloading raise when set (not ported yet)."""
+between the two packages. The dropout rates (prefix, attention and
+residual) act in train mode; ``activation_checkpointing`` recomputes every
+layer in the backward and ``activation_offloading`` moves the layers' saved
+inputs to pinned host memory (``models/core/modules.remat``)."""
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, fields

@@ -9,20 +9,27 @@ Dtype policy as in the JAX package: parameters are fp32 and ``dtype`` is the
 computation type: linear layers cast input and weight to it, layer norms
 take their statistics in fp32 and return ``dtype``.
 
-Train mode (``deterministic=False``) is ported for Perceiver AR with its
-prefix (cross-attention) dropout; attention and residual dropout, remat,
-offloading and the fused-QKV switch are not (they raise). The Perceiver IO
-encoder/decoder come with their families.
+Train mode (``deterministic=False``) is ported for Perceiver AR: prefix
+(cross-attention) dropout, attention dropout (``post_attention_dropout``)
+and residual dropout, each drawn from the step's ``torch.Generator`` in
+forward order: the prefix scores first, then per layer the attention
+keep-masks, the attention branch's and the MLP branch's. Activation
+checkpointing recomputes each layer in the backward
+(``torch.utils.checkpoint``) and, with offloading, keeps only the layers'
+inputs, in pinned host memory. The fused-QKV switch is not ported. The
+Perceiver IO encoder/decoder come with their families.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from perceiver_io_tpu_torch.ops.attention import dot_product_attention
+from perceiver_io_tpu_torch.ops.attention import dot_product_attention, dropout
 from perceiver_io_tpu_torch.ops.position import RotaryEmbedding, positions
 
 # torch defaults, required for numerical parity with the reference.
@@ -36,13 +43,83 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``norm(x)`` with fp32 statistics, returned in ``dtype``."""
-    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
+    """``norm(x)`` with fp32 statistics and fp32 scale and bias (weights
+    stored in bf16 are widened, as flax promotes them), returned in
+    ``dtype``."""
+    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(), norm.bias.float(),
+                     norm.eps)
     return y.to(dtype)
 
 
 def _layer_norm(num_channels: int) -> nn.LayerNorm:
     return nn.LayerNorm(num_channels, eps=LAYER_NORM_EPS)
+
+
+#: what the offloading pack hook handed to the host since the last reset:
+#: saved layer inputs and their bytes (CPU tensors stay where they are)
+offload_counts = {"tensors": 0, "bytes": 0}
+
+
+def reset_offload_counts() -> None:
+    offload_counts.update(tensors=0, bytes=0)
+
+
+def _offload_pack(t: torch.Tensor):
+    if t.numel() == 0:  # the empty placeholder some torch versions' checkpoint saves
+        return None, t
+    offload_counts["tensors"] += 1
+    offload_counts["bytes"] += t.numel() * t.element_size()
+    if t.device.type == "cpu":
+        return None, t
+    host = torch.empty(t.size(), dtype=t.dtype, layout=t.layout, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return t.device, host
+
+
+def _offload_unpack(packed) -> torch.Tensor:
+    device, t = packed
+    return t if device is None else t.to(device, non_blocking=True)
+
+
+def remat(layer: nn.Module, args: tuple, *, deterministic: bool,
+          generator: Optional[torch.Generator], enabled: bool = True,
+          offload: bool = False) -> torch.Tensor:
+    """``layer(*args, deterministic=..., generator=...)`` under activation
+    checkpointing (JAX ``nn.remat`` of the layer): nothing inside the layer
+    is saved for the backward, which runs its forward again. Without
+    ``enabled``, or while gradients are off, it is the plain call.
+
+    ``torch.utils.checkpoint`` replays only the global RNGs, so the layer's
+    dropout masks would differ in the recompute. Here the generator's state
+    is taken before the layer (a host-side copy, no device sync) and set
+    again for the recompute, then put back, so the recompute draws the same
+    masks and leaves the generator where the backward found it.
+
+    With ``offload`` the checkpoint's saved inputs (the layer inputs, JAX's
+    ``remat_layer_input``) go to pinned host memory through a saved-tensor
+    hook (:data:`offload_counts` counts them) and come back in the backward.
+    """
+    if not (enabled and torch.is_grad_enabled()):
+        return layer(*args, deterministic=deterministic, generator=generator)
+    start = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1 or start is None:
+            return layer(*a, deterministic=deterministic, generator=generator)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(*a, deterministic=deterministic, generator=generator)
+        finally:
+            generator.set_state(resume)
+
+    hooks = (torch.autograd.graph.saved_tensors_hooks(_offload_pack, _offload_unpack)
+             if offload else contextlib.nullcontext())
+    with hooks:
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=generator is None and not deterministic)
 
 
 class MultiHeadAttention(nn.Module):
@@ -52,7 +129,7 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
                  max_heads_parallel: Optional[int] = None, causal_attention: bool = False,
-                 qkv_bias: bool = True, out_bias: bool = True,
+                 qkv_bias: bool = True, out_bias: bool = True, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, attention_impl: str = "auto"):
         super().__init__()
         # q/k/v widths are the query width, as in every Perceiver AR layer
@@ -63,6 +140,7 @@ class MultiHeadAttention(nn.Module):
         self.num_qk_channels = qk
         self.max_heads_parallel = max_heads_parallel
         self.causal_attention = causal_attention
+        self.dropout = dropout
         self.dtype = dtype
         self.attention_impl = attention_impl
         self.q_proj = nn.Linear(num_q_input_channels, qk, bias=qkv_bias)
@@ -100,18 +178,23 @@ class MultiHeadAttention(nn.Module):
         return dense(self.o_proj, self._merge_heads(o), self.dtype)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Attention and output projection over projected heads."""
+               pad_mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Attention and output projection over projected heads; in train
+        mode with ``dropout > 0`` the plain path with attention dropout."""
         o = dot_product_attention(
             q, k, v, pad_mask=pad_mask, causal=self.causal_attention,
+            dropout_rate=0.0 if deterministic else self.dropout, generator=generator,
             max_heads_parallel=self.max_heads_parallel, impl=self.attention_impl,
         )
         return self.project_out(o)
 
-    def forward(self, x_q, x_kv, pad_mask=None, rot_pos_emb_q=None, rot_pos_emb_k=None):
+    def forward(self, x_q, x_kv, pad_mask=None, rot_pos_emb_q=None, rot_pos_emb_k=None,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
         q = self.project_q(x_q, rot_pos_emb_q)
         k, v = self.project_kv(x_kv, rot_pos_emb_k)
-        return self.attend(q, k, v, pad_mask=pad_mask)
+        return self.attend(q, k, v, pad_mask=pad_mask, deterministic=deterministic,
+                           generator=generator)
 
 
 class CrossAttention(nn.Module):
@@ -130,14 +213,16 @@ class CrossAttention(nn.Module):
         )
 
     def forward(self, x_q, x_kv=None, x_kv_prefix=None, pad_mask=None,
-                rot_pos_emb_q=None, rot_pos_emb_k=None):
+                rot_pos_emb_q=None, rot_pos_emb_k=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         x_q = layer_norm(self.q_norm, x_q, self.dtype)
         if x_kv is None:
             x_kv_prefix = layer_norm(self.kv_norm, x_kv_prefix, self.dtype)
             x_kv = torch.cat([x_kv_prefix, x_q], dim=1)
         else:
             x_kv = layer_norm(self.kv_norm, x_kv, self.dtype)
-        return self.attention(x_q, x_kv, pad_mask, rot_pos_emb_q, rot_pos_emb_k)
+        return self.attention(x_q, x_kv, pad_mask, rot_pos_emb_q, rot_pos_emb_k,
+                              deterministic, generator)
 
 
 class SelfAttention(nn.Module):
@@ -152,9 +237,10 @@ class SelfAttention(nn.Module):
             num_heads, num_channels, num_channels, dtype=dtype, **attention_kwargs
         )
 
-    def forward(self, x, pad_mask=None, rot_pos_emb=None):
+    def forward(self, x, pad_mask=None, rot_pos_emb=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         x = layer_norm(self.norm, x, self.dtype)
-        return self.attention(x, x, pad_mask, rot_pos_emb, rot_pos_emb)
+        return self.attention(x, x, pad_mask, rot_pos_emb, rot_pos_emb, deterministic, generator)
 
 
 class MLP(nn.Module):
@@ -174,11 +260,25 @@ class MLP(nn.Module):
         return dense(self.out, x, self.dtype)
 
 
+class _ResidualDropout(nn.Module):
+    """Dropout on the residual branch before the add (JAX
+    ``_ResidualDropout``); no parameters."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, branch: torch.Tensor, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return (branch if deterministic else dropout(branch, self.rate, generator)) + x
+
+
 class CrossAttentionLayer(nn.Module):
-    """Residual cross-attention, then residual MLP."""
+    """Residual cross-attention, then residual MLP, each branch through
+    residual dropout."""
 
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
-                 widening_factor: int = 1, mlp_bias: bool = True,
+                 widening_factor: int = 1, mlp_bias: bool = True, residual_dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, **attention_kwargs):
         super().__init__()
         self.cross_attn = CrossAttention(
@@ -186,46 +286,60 @@ class CrossAttentionLayer(nn.Module):
             **attention_kwargs,
         )
         self.mlp = MLP(num_q_input_channels, widening_factor, bias=mlp_bias, dtype=dtype)
+        self.attn_residual = _ResidualDropout(residual_dropout)
+        self.mlp_residual = _ResidualDropout(residual_dropout)
 
     def forward(self, x_q, x_kv=None, x_kv_prefix=None, pad_mask=None,
-                rot_pos_emb_q=None, rot_pos_emb_k=None):
-        x = self.cross_attn(x_q, x_kv, x_kv_prefix, pad_mask, rot_pos_emb_q, rot_pos_emb_k) + x_q
-        return self.mlp(x) + x
+                rot_pos_emb_q=None, rot_pos_emb_k=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        attn = self.cross_attn(x_q, x_kv, x_kv_prefix, pad_mask, rot_pos_emb_q, rot_pos_emb_k,
+                               deterministic, generator)
+        x = self.attn_residual(attn, x_q, deterministic, generator)
+        return self.mlp_residual(self.mlp(x), x, deterministic, generator)
 
 
 class SelfAttentionLayer(nn.Module):
-    """Residual self-attention, then residual MLP."""
+    """Residual self-attention, then residual MLP, each branch through
+    residual dropout."""
 
     def __init__(self, num_heads: int, num_channels: int, widening_factor: int = 1,
-                 mlp_bias: bool = True, dtype: torch.dtype = torch.float32,
-                 **attention_kwargs):
+                 mlp_bias: bool = True, residual_dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32, **attention_kwargs):
         super().__init__()
         self.self_attn = SelfAttention(num_heads, num_channels, dtype=dtype, **attention_kwargs)
         self.mlp = MLP(num_channels, widening_factor, bias=mlp_bias, dtype=dtype)
+        self.attn_residual = _ResidualDropout(residual_dropout)
+        self.mlp_residual = _ResidualDropout(residual_dropout)
 
-    def forward(self, x, pad_mask=None, rot_pos_emb=None):
-        x = self.self_attn(x, pad_mask, rot_pos_emb) + x
-        return self.mlp(x) + x
+    def forward(self, x, pad_mask=None, rot_pos_emb=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        attn = self.self_attn(x, pad_mask, rot_pos_emb, deterministic, generator)
+        x = self.attn_residual(attn, x, deterministic, generator)
+        return self.mlp_residual(self.mlp(x), x, deterministic, generator)
 
 
 class SelfAttentionBlock(nn.Module):
     """Stack of self-attention layers. Rotary embeddings reach only the first
     layer, the reference behaviour Perceiver AR checkpoints are trained with
-    (the JAX ``rotary_all_layers=False``); ``pad_mask`` reaches every layer."""
+    (the JAX ``rotary_all_layers=False``); ``pad_mask`` reaches every layer.
+    ``checkpointing`` and ``offload`` go to :func:`remat` for each layer."""
 
     def __init__(self, num_layers: int, num_heads: int, num_channels: int,
-                 widening_factor: int = 1, mlp_bias: bool = True,
+                 widening_factor: int = 1, mlp_bias: bool = True, residual_dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, **attention_kwargs):
         super().__init__()
         self.layers = nn.ModuleList(
             SelfAttentionLayer(num_heads, num_channels, widening_factor, mlp_bias=mlp_bias,
-                               dtype=dtype, **attention_kwargs)
+                               residual_dropout=residual_dropout, dtype=dtype, **attention_kwargs)
             for _ in range(num_layers)
         )
 
-    def forward(self, x, pad_mask=None, rot_pos_emb=None):
+    def forward(self, x, pad_mask=None, rot_pos_emb=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None, checkpointing: bool = False,
+                offload: bool = False):
         for i, layer in enumerate(self.layers):
-            x = layer(x, pad_mask, rot_pos_emb if i == 0 else None)
+            x = remat(layer, (x, pad_mask, rot_pos_emb if i == 0 else None), deterministic=deterministic,
+                      generator=generator, enabled=checkpointing, offload=offload)
         return x
 
 
@@ -256,9 +370,12 @@ class PerceiverAR(nn.Module):
     over uniform scores (:func:`prefix_noise`) with the indices sorted to
     keep sequence order, as the JAX package does.
 
-    Not ported: attention dropout (``post_attention_dropout``) and residual
-    dropout in train mode, activation checkpointing and offloading; they
-    raise ``NotImplementedError``.
+    ``post_attention_dropout`` and ``residual_dropout`` act in train mode
+    on every layer (an attend with dropout takes the plain path, as in JAX).
+    ``activation_checkpointing`` recomputes the cross-attention layer and
+    every self-attention layer in the backward (:func:`remat`);
+    ``activation_offloading`` adds the move of their inputs to pinned host
+    memory, and does nothing without checkpointing, as in JAX.
     """
 
     def __init__(self, input_adapter: nn.Module, num_heads: int = 8,
@@ -270,21 +387,20 @@ class PerceiverAR(nn.Module):
                  activation_offloading: bool = False,
                  dtype: torch.dtype = torch.float32, attention_impl: str = "auto"):
         super().__init__()
-        if activation_checkpointing or activation_offloading:
-            raise NotImplementedError(
-                "activation checkpointing and offloading are not ported yet (ROADMAP.md A)"
-            )
         num_channels = input_adapter.num_input_channels
         self.cross_attention_dropout = cross_attention_dropout
         self.post_attention_dropout = post_attention_dropout
         self.residual_dropout = residual_dropout
+        self.activation_checkpointing = activation_checkpointing
+        self.activation_offloading = activation_offloading
         self.input_adapter = input_adapter
-        attn = dict(max_heads_parallel=max_heads_parallel, causal_attention=True,
-                    qkv_bias=False, attention_impl=attention_impl)
+        attn = dict(causal_attention=True, qkv_bias=False, dropout=post_attention_dropout,
+                    residual_dropout=residual_dropout, attention_impl=attention_impl)
+        # as in JAX, only the cross-attention serialises its head groups
         self.cross_attention = CrossAttentionLayer(
             num_heads, num_channels, num_channels,
             widening_factor=cross_attention_widening_factor, mlp_bias=False, dtype=dtype,
-            out_bias=True, **attn,
+            out_bias=True, max_heads_parallel=max_heads_parallel, **attn,
         )
         self.self_attention = SelfAttentionBlock(
             num_self_attention_layers, num_heads, num_channels,
@@ -298,11 +414,6 @@ class PerceiverAR(nn.Module):
         b, n = x.shape
         if not 0 <= prefix_len < n:
             raise ValueError(f"prefix_len ({prefix_len}) out of valid range [0..{n})")
-        if not deterministic and (self.post_attention_dropout > 0.0 or self.residual_dropout > 0.0):
-            raise NotImplementedError(
-                "attention and residual dropout are not ported yet (ROADMAP.md A); "
-                "set post_attention_dropout and residual_dropout to 0"
-            )
         # the caller left-pads x
         shift = None if pad_mask is None else pad_mask.sum(dim=1, keepdim=True)
         x, frq = self.input_adapter(x, abs_pos=positions(b, n, shift=shift, device=x.device))
@@ -321,16 +432,18 @@ class PerceiverAR(nn.Module):
         if pad_mask is not None:
             pad_mask = torch.cat([pad_prefix, pad_latent], dim=1)
 
-        x_latent = self.cross_attention(
-            x_latent, None, x_prefix, pad_mask,
-            RotaryEmbedding(frq_latent, right_align=True),
-            RotaryEmbedding(torch.cat([frq_prefix, frq_latent], dim=1), right_align=True),
-        )
+        args = (x_latent, None, x_prefix, pad_mask,
+                RotaryEmbedding(frq_latent, right_align=True),
+                RotaryEmbedding(torch.cat([frq_prefix, frq_latent], dim=1), right_align=True))
+        ckpt, offload = self.activation_checkpointing, self.activation_offloading
+        x_latent = remat(self.cross_attention, args, deterministic=deterministic, generator=generator,
+                         enabled=ckpt, offload=offload)
         # Neither package masks the stack (JAX modules.py:1000-1005): a
         # latent whose cross-attention row saw no key is a key here. The
         # flash kernel gives that row 0, the einsum path a uniform average,
         # so with pads reaching into the latents the two differ on live rows.
-        return self.self_attention(x_latent, None, RotaryEmbedding(frq_latent, right_align=True))
+        return self.self_attention(x_latent, None, RotaryEmbedding(frq_latent, right_align=True),
+                                   deterministic, generator, checkpointing=ckpt, offload=offload)
 
 
 def init_weights(module: nn.Module, init_scale: float, generator: torch.Generator) -> None:

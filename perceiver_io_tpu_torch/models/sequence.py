@@ -100,9 +100,9 @@ class AutoregressiveSequenceModel(nn.Module):
     (the JAX package's initialisers); load trained or JAX weights with
     ``load_state_dict`` (see :mod:`perceiver_io_tpu_torch.convert.from_jax`).
 
-    :param dtype: computation type; parameters stay fp32.
+    :param dtype: computation type; parameters stay fp32 (an inference
+        pipeline may store them in bf16: ``pipelines.cast_float_params``).
     :param device: ``"cuda"`` by default; the CPU only when asked for.
-    :raises NotImplementedError: for activation checkpointing or offloading.
     """
 
     def __init__(self, config: SequenceModelConfig, *, dtype: torch.dtype = torch.float32,

@@ -22,8 +22,14 @@ A query row that sees no key differs between the two: the kernel returns
 zeros, the plain path a uniform average over the masked keys. Such rows are
 padding in every Perceiver model and are discarded.
 
-Ring attention and attention dropout are not ported yet and raise (the
-JAX flash path never takes dropout either).
+Attention dropout (train mode, ``dropout_rate > 0``) follows the JAX
+package's dispatch (``_flash_eligible``): ``auto`` then takes the plain
+path on the card too, since the flash kernel has no dropout, and
+``impl="flash"`` with dropout raises ``ValueError``. The plain path drops
+entries of the fp32 softmax, each kept with probability ``1 - p`` and scaled
+by ``1 / (1 - p)``, before the cast to ``v``'s type; every keep-mask comes
+from :func:`dropout_keep`, one draw per head group under
+``max_heads_parallel``. Ring attention is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -40,6 +46,27 @@ def _mask_value() -> float:
     return float(torch.finfo(torch.float32).min)
 
 
+def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],
+                 device: torch.device) -> torch.Tensor:
+    """Bool keep-mask of dropout at ``rate``: each entry True with
+    probability ``1 - rate`` (JAX ``jax.random.bernoulli(key, 1 - rate,
+    shape)``, a uniform draw below ``1 - rate``). The one seam of every
+    dropout draw in the port: a test replaces it to feed both packages the
+    same masks."""
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``x`` with entries dropped at ``rate`` and the rest scaled by
+    ``1 / (1 - rate)`` (flax ``nn.Dropout``); ``rate`` 0 returns ``x``."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = dropout_keep(x.shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -48,6 +75,7 @@ def dot_product_attention(
     pad_mask: Optional[torch.Tensor] = None,
     causal: bool = False,
     dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
     max_heads_parallel: Optional[int] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
@@ -58,6 +86,8 @@ def dot_product_attention(
     :param v: ``(b, h, j, cv)`` values.
     :param pad_mask: optional bool ``(b, j)``; True marks padding.
     :param causal: right-aligned causal masking.
+    :param dropout_rate: attention dropout (train mode); above 0 the plain
+        path runs, drawing its masks from ``generator``.
     :param max_heads_parallel: plain path only: at most this many heads at once.
     :param impl: ``"auto" | "xla" | "flash"``.
     :return: ``(b, h, i, cv)``.
@@ -66,27 +96,30 @@ def dot_product_attention(
         raise NotImplementedError("ring attention is not ported yet")
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
-    if dropout_rate > 0.0:
-        raise NotImplementedError("attention dropout is not ported yet")
-    if impl == "flash" or (impl == "auto" and q.is_cuda):
+    if impl == "flash" and dropout_rate > 0.0:
+        raise ValueError("flash attention does not support attention dropout")
+    if impl == "flash" or (impl == "auto" and q.is_cuda and dropout_rate == 0.0):
         return _flash.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), pad_mask=pad_mask, causal=causal
         )
     num_heads = q.shape[1]
     if max_heads_parallel is None or max_heads_parallel >= num_heads:
-        return attention_plain(q, k, v, pad_mask, causal)
+        return attention_plain(q, k, v, pad_mask, causal, dropout_rate, generator)
     chunks = []
     for h0 in range(0, num_heads, max_heads_parallel):
         h1 = min(h0 + max_heads_parallel, num_heads)
-        chunks.append(attention_plain(q[:, h0:h1], k[:, h0:h1], v[:, h0:h1], pad_mask, causal))
+        chunks.append(attention_plain(q[:, h0:h1], k[:, h0:h1], v[:, h0:h1], pad_mask, causal,
+                                      dropout_rate, generator))
     return torch.cat(chunks, dim=1)
 
 
 def attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pad_mask: Optional[torch.Tensor], causal: bool,
+    dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """The einsum path (JAX ``_attention_xla``) without dropout."""
+    """The einsum path (JAX ``_attention_xla``): dropout acts on the fp32
+    softmax, before its cast to ``v``'s type."""
     i, j = q.shape[-2], k.shape[-2]
     logits = torch.einsum("bhic,bhjc->bhij", q.float(), k.float())
     if pad_mask is not None:
@@ -96,5 +129,5 @@ def attention_plain(
             torch.arange(i, device=q.device)[:, None] + (j - i)
         )
         logits = logits.masked_fill(~allowed[None, None], _mask_value())
-    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    attn = dropout(torch.softmax(logits, dim=-1), dropout_rate, generator).to(v.dtype)
     return torch.einsum("bhij,bhjc->bhic", attn, v)

@@ -1,5 +1,8 @@
-"""Fault-tolerance signals shared by the serving engines. Only the queue's
-backpressure signal is ported so far."""
+"""Fault-tolerance layer of the port: the serving queue's backpressure
+signal (:class:`QueueFull`), the deterministic chaos registry
+(:mod:`.chaos`, consulted by the trainer at ``trainer.step``) and
+exponential-backoff retry (:mod:`.retry`, used by ``data.loader``).
+Counterpart of ``perceiver_io_tpu/reliability``."""
 from __future__ import annotations
 
 
@@ -8,4 +11,20 @@ class QueueFull(RuntimeError):
     shed, not enqueued."""
 
 
-__all__ = ["QueueFull"]
+from perceiver_io_tpu_torch.reliability.chaos import (  # noqa: E402
+    ChaosRegistry,
+    FakeClock,
+    Fault,
+    InjectedFault,
+)
+from perceiver_io_tpu_torch.reliability.retry import RetryPolicy, call_with_retry  # noqa: E402
+
+__all__ = [
+    "QueueFull",
+    "ChaosRegistry",
+    "FakeClock",
+    "Fault",
+    "InjectedFault",
+    "RetryPolicy",
+    "call_with_retry",
+]

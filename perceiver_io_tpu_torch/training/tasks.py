@@ -4,7 +4,11 @@ functions for :func:`perceiver_io_tpu_torch.parallel.make_train_step`.
 
 Counterpart of ``perceiver_io_tpu/training/tasks.py``; the model takes the
 place of JAX's params and a ``torch.Generator`` that of the rng key (``None``
-means deterministic). Batches are dicts of tensors with the reference's
+means deterministic). JAX splits its key into ``dropout`` and ``prefix``
+streams; the port draws every kind of noise from the one generator in
+forward order: the prefix-dropout scores first, then, layer by layer, the
+attention keep-masks (one per head group), the attention branch's and the
+MLP branch's residual masks. Batches are dicts of tensors with the reference's
 collator fields (``input_ids``, ``labels``, optional ``pad_mask``). The MLM,
 classifier and image loss functions are not ported yet.
 """

@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("serving.engine", "serving.slots", "serving.kv_pool", "ops.flash_attention",
                  "ops.paged_attention", "ops.ragged_attention", "training.trainer",
                  "training.tasks", "training.optim", "training.lrs", "training.checkpoint",
-                 "parallel.train_step", "inference.speculative", "inference.decode_strategy"):
+                 "parallel.train_step", "inference.speculative", "inference.decode_strategy",
+                 "training.callbacks", "reliability.chaos", "reliability.retry", "data.loader"):
         assert f"perceiver_io_tpu_torch.{name}" in report["imported"]
     assert report["bad"] == []
 

@@ -163,8 +163,8 @@ def test_dispatch_rejects_unported_modes(rng):
     q, k, v = _t(*_qkv(rng, 1, 1, 2, 2, 8))
     with pytest.raises(NotImplementedError):
         dot_product_attention(q, k, v, impl="ring")
-    with pytest.raises(NotImplementedError):
-        dot_product_attention(q, k, v, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout"):  # JAX's refusal: the kernel has no dropout
+        dot_product_attention(q, k, v, dropout_rate=0.1, impl="flash")
     with pytest.raises(ValueError):
         dot_product_attention(q, k, v, impl="einsum")
     with pytest.raises(ValueError):

@@ -278,13 +278,7 @@ def test_best_checkpoints_keep_the_lowest(tmp_path):
 
 def _unported_cases():
     return [
-        ("resume", lambda: TrainerConfig(max_steps=1, resume="x")),
-        ("save_state_every_n_steps", lambda: TrainerConfig(max_steps=1, save_state_every_n_steps=2)),
-        ("steps_per_execution", lambda: TrainerConfig(max_steps=1, steps_per_execution=2)),
-        ("skip", lambda: TrainerConfig(max_steps=1, non_finite_policy="skip")),
-        ("rollback", lambda: TrainerConfig(max_steps=1, non_finite_policy="rollback")),
         ("shard_seq", lambda: TrainerConfig(max_steps=1, shard_seq=True)),
-        ("profile_start", lambda: TrainerConfig(max_steps=1, profile_start=1)),
     ]
 
 
@@ -296,27 +290,14 @@ def test_unported_trainer_options_raise(tmp_path, name, make_cfg):
         Trainer(cfg, lambda *a: None, make_optimizer(1e-3), device="cpu")
 
 
-@pytest.mark.parametrize("hook", ["chaos", "tracer", "snapshot_writer"])
+@pytest.mark.parametrize("hook", ["tracer", "snapshot_writer"])
 def test_unported_trainer_hooks_raise(tmp_path, hook):
     cfg = TrainerConfig(max_steps=1, default_root_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, lambda *a: None, make_optimizer(1e-3), device="cpu", **{hook: object()})
 
 
-@pytest.mark.parametrize("case", ["multi_steps", "mesh", "lamb", "remat", "offload",
-                                  "attention_dropout", "residual_dropout"])
+@pytest.mark.parametrize("case", ["mesh"])
 def test_unported_training_features_raise(case):
     with pytest.raises(NotImplementedError):
-        if case == "multi_steps":
-            make_train_step(lambda *a: None, multi_steps=2, device="cpu")
-        elif case == "mesh":
-            make_train_step(lambda *a: None, mesh=object(), device="cpu")
-        elif case == "lamb":
-            make_optimizer(1e-3, optimizer="lamb")
-        elif case in ("remat", "offload"):
-            flag = "activation_checkpointing" if case == "remat" else "activation_offloading"
-            CausalLanguageModel(CausalLanguageModelConfig(**_kw(), **{flag: True}), device="cpu")
-        else:
-            rate = "post_attention_dropout" if case == "attention_dropout" else "residual_dropout"
-            model = CausalLanguageModel(CausalLanguageModelConfig(**_kw(), **{rate: 0.1}), device="cpu")
-            model(torch.zeros(1, SEQ, dtype=torch.long), PREFIX, deterministic=False)
+        make_train_step(lambda *a: None, mesh=object(), device="cpu")
