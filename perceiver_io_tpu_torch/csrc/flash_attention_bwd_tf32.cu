@@ -425,6 +425,7 @@ int dispatch(const Args& a, int D, int causal, int dtype) {
   if (dtype != 0) return cudaErrorInvalidValue;  // fp32 only
   switch (D) {
     case 64: return dispatch_mask<DKV, 64>(a, causal);
+    case 96: return dispatch_mask<DKV, 96>(a, causal);
     case 112: return dispatch_mask<DKV, 112>(a, causal);
     case 128: return dispatch_mask<DKV, 128>(a, causal);
     default: return cudaErrorInvalidValue;
@@ -466,5 +467,5 @@ extern "C" int flash_attention_bwd_dkv_tf32x3(const void* q, const void* k, cons
 
 // Head dims this library instantiates, for the wrapper's checks.
 extern "C" int flash_attention_bwd_tf32_supports_head_dim(int d) {
-  return d == 64 || d == 112 || d == 128;
+  return d == 64 || d == 96 || d == 112 || d == 128;
 }

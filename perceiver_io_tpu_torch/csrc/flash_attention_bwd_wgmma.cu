@@ -66,8 +66,9 @@
 // a map whose inner extent is d, TMA zero-fills columns 112-127, the SS
 // products run 7 k-steps over the real columns, the RS products are
 // m64n128k16 (m64n64k16 at d = 64) whose columns 112-127 stay 0 and are not
-// stored. Ragged edges (i, j not multiples of 64) are TMA zero-fill plus the
-// select and a store guard.
+// stored. d = 96 is the same with columns 96-127 zero and 6 k-steps.
+// Ragged edges (i, j not multiples of 64) are TMA zero-fill plus the select
+// and a store guard.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -510,6 +511,7 @@ int dispatch(const Args& a, int D, int causal, int dtype) {
   if (dtype != 1) return cudaErrorInvalidValue;  // bf16 only
   switch (D) {
     case 64: return dispatch_mask<DKV, 64>(a, causal);
+    case 96: return dispatch_mask<DKV, 96>(a, causal);
     case 112: return dispatch_mask<DKV, 112>(a, causal);
     case 128: return dispatch_mask<DKV, 128>(a, causal);
     default: return cudaErrorInvalidValue;
@@ -548,5 +550,5 @@ extern "C" int flash_attention_bwd_dkv_wgmma(const void* q, const void* k, const
 
 // Head dims this library instantiates, for the wrapper's checks.
 extern "C" int flash_attention_bwd_wgmma_supports_head_dim(int d) {
-  return d == 64 || d == 112 || d == 128;
+  return d == 64 || d == 96 || d == 112 || d == 128;
 }

@@ -240,6 +240,7 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v, const uint
                          int D, int n, int causal, cudaStream_t s) {
   switch (D) {
     case 64: return dispatch_mask<T, 64>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, causal, s);
+    case 96: return dispatch_mask<T, 96>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, causal, s);
     case 112: return dispatch_mask<T, 112>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, causal, s);
     case 128: return dispatch_mask<T, 128>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, causal, s);
     default: return cudaErrorInvalidValue;
@@ -275,5 +276,5 @@ extern "C" int flash_attention_fwd_split(const void* q, const void* k, const voi
 extern "C" int flash_attention_fwd_split_size() { return SPLIT; }
 
 extern "C" int flash_attention_fwd_split_supports_head_dim(int d) {
-  return d == 64 || d == 112 || d == 128;
+  return d == 64 || d == 96 || d == 112 || d == 128;
 }

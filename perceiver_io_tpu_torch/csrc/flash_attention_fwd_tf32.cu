@@ -369,6 +369,7 @@ extern "C" int flash_attention_fwd_tf32x3(const void* q, const void* k, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return dispatch_mask<64>(qf, kf, vf, p, of, l, B, H, I, J, causal, s);
+    case 96: return dispatch_mask<96>(qf, kf, vf, p, of, l, B, H, I, J, causal, s);
     case 112: return dispatch_mask<112>(qf, kf, vf, p, of, l, B, H, I, J, causal, s);
     case 128: return dispatch_mask<128>(qf, kf, vf, p, of, l, B, H, I, J, causal, s);
     default: return cudaErrorInvalidValue;
@@ -377,5 +378,5 @@ extern "C" int flash_attention_fwd_tf32x3(const void* q, const void* k, const vo
 
 // Head dims this library instantiates, for the wrapper's checks.
 extern "C" int flash_attention_fwd_tf32x3_supports_head_dim(int d) {
-  return d == 64 || d == 112 || d == 128;
+  return d == 64 || d == 96 || d == 112 || d == 128;
 }

@@ -38,14 +38,15 @@
 // operands K-major from shared memory, d/16 k-steps), masks by select only on
 // tiles that straddle its shifted diagonal or hold a masked key, runs the
 // online softmax in the accumulator layout, packs p to bf16 in registers and
-// feeds it as the A operand of O += P.V (m64n128k16 for d = 112 and 128,
-// m64n64k16 for d = 64), with V MN-major from shared memory.
+// feeds it as the A operand of O += P.V (m64n128k16 for d = 96, 112 and
+// 128, m64n64k16 for d = 64), with V MN-major from shared memory.
 //
 // d = 112 is 224 bytes a row: a 128-byte swizzled box holds 64 bf16
 // columns, so each tile is two boxes (columns 0-63 and 64-127) over a map
 // whose inner extent is d. TMA zero-fills columns 112-127; S runs its
 // k-steps over the 112 real columns; O's columns 112-127 stay 0 and are not
-// stored.
+// stored. d = 96 is the same with columns 96-127 zero: S's six k-steps
+// cross into the second box after four.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -302,6 +303,7 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return dispatch_mask<64>(q, k, v, p, o, l, B, H, I, J, causal, s);
+    case 96: return dispatch_mask<96>(q, k, v, p, o, l, B, H, I, J, causal, s);
     case 112: return dispatch_mask<112>(q, k, v, p, o, l, B, H, I, J, causal, s);
     case 128: return dispatch_mask<128>(q, k, v, p, o, l, B, H, I, J, causal, s);
     default: return cudaErrorInvalidValue;
@@ -309,5 +311,5 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
 }
 
 extern "C" int flash_attention_fwd_wgmma_supports_head_dim(int d) {
-  return d == 64 || d == 112 || d == 128;
+  return d == 64 || d == 96 || d == 112 || d == 128;
 }

@@ -271,6 +271,9 @@ cudaError_t dispatch_dim(const void* q, const void* pk, const void* pv, const fl
     case 64:
       return dispatch_pool<T, 64>(q, pk, pv, sk, sv, table, lengths, o, ml, acc, B, H, Q, pages,
                                   bs, n, quantized, s);
+    case 96:
+      return dispatch_pool<T, 96>(q, pk, pv, sk, sv, table, lengths, o, ml, acc, B, H, Q, pages,
+                                  bs, n, quantized, s);
     case 112:
       return dispatch_pool<T, 112>(q, pk, pv, sk, sv, table, lengths, o, ml, acc, B, H, Q, pages,
                                    bs, n, quantized, s);
@@ -322,5 +325,5 @@ extern "C" int ragged_paged_attention_split_size() { return SPLIT; }
 
 // Head dims this library instantiates, for the wrapper's checks.
 extern "C" int ragged_paged_attention_split_supports_head_dim(int d) {
-  return d == 64 || d == 112 || d == 128;
+  return d == 64 || d == 96 || d == 112 || d == 128;
 }

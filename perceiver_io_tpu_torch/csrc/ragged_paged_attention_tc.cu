@@ -443,6 +443,8 @@ cudaError_t dispatch_dim(const void* q, const void* pk, const void* pv, const fl
   switch (D) {
     case 64:
       return dispatch_pool<QT, 64>(q, pk, pv, sk, sv, table, lengths, o, B, H, Q, pages, bs, quantized, s);
+    case 96:
+      return dispatch_pool<QT, 96>(q, pk, pv, sk, sv, table, lengths, o, B, H, Q, pages, bs, quantized, s);
     case 112:
       return dispatch_pool<QT, 112>(q, pk, pv, sk, sv, table, lengths, o, B, H, Q, pages, bs, quantized, s);
     case 128:
@@ -482,4 +484,6 @@ extern "C" int ragged_paged_attention_tc(const void* q, const void* pool_k, cons
 }
 
 // Head dims this library instantiates, for the wrapper's checks.
-extern "C" int ragged_paged_attention_tc_supports_head_dim(int d) { return d == 64 || d == 112 || d == 128; }
+extern "C" int ragged_paged_attention_tc_supports_head_dim(int d) {
+  return d == 64 || d == 96 || d == 112 || d == 128;
+}

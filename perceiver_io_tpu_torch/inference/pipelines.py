@@ -1,6 +1,7 @@
 """Task pipelines. Counterpart of ``perceiver_io_tpu/inference/pipelines.py``,
-of which only ``text-generation`` is ported: :class:`TextGenerationPipeline`,
-the :func:`pipeline` dispatch by task name, and :func:`pipeline_from_pretrained`
+of which ``text-generation`` and ``symbolic-audio-generation`` are ported:
+:class:`TextGenerationPipeline`, :class:`SymbolicAudioPipeline`, the
+:func:`pipeline` dispatch by task name, and :func:`pipeline_from_pretrained`
 over a ``save_pretrained`` dir (with :func:`cast_float_params` for bf16
 weight storage). The other tasks come with their model families
 (``ROADMAP.md`` A.3) and raise ``NotImplementedError``.
@@ -156,10 +157,93 @@ class TextGenerationPipeline:
         return texts[0:1] if single else texts
 
 
-_TASKS = {"text-generation": TextGenerationPipeline}
+class SymbolicAudioPipeline:
+    """``pipeline("symbolic-audio-generation")``: event-id prompts (MIDI
+    events, :mod:`perceiver_io_tpu_torch.data.audio.midi`) -> prompt plus
+    generated events through :func:`~.generate.generate`; MIDI out with
+    ``pretty_midi`` (:meth:`generate_midi`), and WAV rendering through the
+    ``fluidsynth`` CLI (:meth:`render_wav`).
+
+    Prompts are left-padded with ``PAD_TOKEN`` (388). Decoding is greedy by
+    default (the JAX package's pipeline never samples: its
+    ``temperature``/``top_k``/``top_p`` leave ``do_sample`` False);
+    ``do_sample=True`` samples from ``seed``'s ``torch.Generator`` on the
+    pipeline's device, and ``num_beams > 1`` runs beam search.
+    """
+
+    def __init__(self, model, *, decode_strategy: Optional[str] = None, device: DeviceLike = "cuda"):
+        self.model = model
+        #: the decode strategy of every generate call; None defers to
+        #: PERCEIVER_DECODE_STRATEGY / the measured registry
+        self.decode_strategy = decode_strategy
+        self.device = resolve_device(device)
+
+    def __call__(
+        self,
+        prompts: Union[Sequence[int], Sequence[Sequence[int]], np.ndarray],
+        *,
+        max_new_tokens: int = 256,
+        min_new_tokens: int = 0,
+        num_latents: int = 1,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        repetition_penalty: float = 1.0,
+        num_beams: int = 1,
+        length_penalty: float = 1.0,
+        seed: int = 0,
+    ) -> List[np.ndarray]:
+        """Each prompt followed by its generated event ids (int32 arrays)."""
+        from perceiver_io_tpu_torch.data.audio.midi import PAD_TOKEN
+
+        _warn_sampling_ignored_under_beam(num_beams, temperature, top_k, top_p)
+        if isinstance(prompts, np.ndarray) and prompts.ndim == 1:
+            batch = [np.asarray(prompts, np.int32)]
+        elif isinstance(prompts, (list, tuple)) and prompts and np.isscalar(prompts[0]):
+            batch = [np.asarray(prompts, np.int32)]  # one flat prompt
+        else:
+            batch = [np.asarray(r, np.int32) for r in prompts]  # a ragged batch
+        ids, pad = _pad_batch(batch, PAD_TOKEN, "left")
+        pad_count = pad.sum(axis=1).astype(np.int32)
+        config = GenerationConfig(
+            max_new_tokens=max_new_tokens,
+            min_new_tokens=min_new_tokens,
+            num_latents=num_latents,
+            pad_token_id=PAD_TOKEN,
+            num_beams=num_beams,
+            length_penalty=length_penalty,
+            sampling=SamplingConfig(do_sample=do_sample, temperature=temperature, top_k=top_k,
+                                    top_p=top_p, repetition_penalty=repetition_penalty),
+        )
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        out = generate(
+            self.model, ids, config, generator=generator, prompt_pad_count=pad_count,
+            decode_strategy=self.decode_strategy, device=self.device,
+        ).cpu().numpy().astype(np.int32)
+        return [np.concatenate([p, row]) for p, row in zip(batch, out)]
+
+    def generate_midi(self, prompt_events: Sequence[int], path=None, **kwargs):
+        """Generate and decode to a ``pretty_midi`` object, written to ``path``
+        when given (raises ``ImportError`` without ``pretty_midi``)."""
+        from perceiver_io_tpu_torch.data.audio.midi import decode_to_midi_file
+
+        events = self([np.asarray(prompt_events, np.int32)], **kwargs)[0]
+        return decode_to_midi_file(events, path)
+
+    @staticmethod
+    def render_wav(midi_path: str, wav_path: str, sound_font: str) -> None:
+        """Render a MIDI file to WAV through the ``fluidsynth`` CLI."""
+        import subprocess
+
+        subprocess.run(["fluidsynth", "-ni", sound_font, midi_path, "-F", wav_path], check=True)
+
+
+_TASKS = {"text-generation": TextGenerationPipeline,
+          "symbolic-audio-generation": SymbolicAudioPipeline}
 #: the reference's other tasks, each waiting for its model family
 _UNPORTED_TASKS = ("fill-mask", "sentiment-analysis", "text-classification",
-                   "image-classification", "optical-flow", "symbolic-audio-generation")
+                   "image-classification", "optical-flow")
 
 
 def pipeline(task: str, model, *args, **kwargs):

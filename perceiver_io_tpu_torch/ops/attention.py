@@ -1,14 +1,23 @@
 """Scaled dot-product attention: the one attention primitive of every
 Perceiver attention module.
 
-Counterpart of ``perceiver_io_tpu/ops/attention.py``. Dispatch:
+Counterpart of ``perceiver_io_tpu/ops/attention.py``. Dispatch
+(:func:`kernel_takes`, a pure function of shapes, dtypes and ``causal``):
 
 - ``impl="auto"`` on CUDA tensors launches the flash kernel
-  (:mod:`perceiver_io_tpu_torch.ops.flash_attention`) for every shape,
-  ``q_len = 1`` decode attends included; on CPU tensors it runs the plain
-  path, as the JAX package runs its einsum path off the TPU.
-- ``impl="flash"`` always goes through the kernel's wrapper (on the CPU that
-  is the kernel's plain version).
+  (:mod:`perceiver_io_tpu_torch.ops.flash_attention`) wherever the JAX
+  package's kernel test (``flash_attention.supported()``) passes but for its
+  block divisibility, so ``q_len = 1`` decode attends and ragged lengths run
+  the kernel too. Where JAX refuses for another reason (a q/k or v head dim
+  under 32, types that differ or are not fp32/bf16, causal with fewer keys
+  than queries) it takes the plain path, as JAX's ``auto`` takes its einsum
+  path. A head dim that JAX's kernel takes and no K1 route instantiates
+  (``flash_attention.HEAD_DIMS``) raises ``ValueError``. On CPU tensors
+  ``auto`` runs the plain path, as the JAX package runs its einsum path off
+  the TPU.
+- ``impl="flash"`` goes through the kernel's wrapper (on the CPU that is the
+  kernel's plain version); on a shape that JAX's kernel refuses for one of
+  the reasons above it raises ``ValueError``, as JAX's does.
 
 The flash branch is differentiable (``FlashAttentionFunction``: the
 backward kernels K2/K3 on the card, their plain version on the CPU); the
@@ -40,6 +49,38 @@ import torch
 from perceiver_io_tpu_torch.ops import flash_attention as _flash
 
 _IMPLS = ("auto", "xla", "flash")
+#: JAX's kernel takes no head dim below this (``flash_attention.supported``)
+MIN_HEAD_DIM = 32
+
+
+def kernel_refusal(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal: bool) -> Optional[str]:
+    """Why the JAX package's flash kernel refuses this attend, or None when it
+    takes it: JAX's ``flash_attention.supported()`` without its block
+    divisibility test (the port's kernels take any length)."""
+    if len(q_shape) != 4 or len(k_shape) != 4 or len(v_shape) != 4:
+        return "q, k and v must be (b, h, n, d)"
+    if q_dtype not in (torch.float32, torch.bfloat16) or k_dtype != q_dtype or v_dtype != q_dtype:
+        return f"types {q_dtype}/{k_dtype}/{v_dtype}: the kernel takes one of float32 or bfloat16"
+    if causal and k_shape[2] < q_shape[2]:
+        return f"causal attention over {k_shape[2]} keys for {q_shape[2]} queries"
+    if q_shape[3] < MIN_HEAD_DIM or v_shape[3] < MIN_HEAD_DIM:
+        return f"head dims {q_shape[3]}/{v_shape[3]} below {MIN_HEAD_DIM}"
+    return None
+
+
+def kernel_takes(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal: bool) -> bool:
+    """Whether ``impl="auto"`` sends a CUDA attend of these shapes to K1:
+    True where JAX's kernel takes it (:func:`kernel_refusal`), False where
+    JAX's ``auto`` takes its einsum path. Raises ``ValueError`` for a head
+    dim that JAX's kernel takes and no K1 route instantiates."""
+    if kernel_refusal(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal) is not None:
+        return False
+    if q_shape[3] not in _flash.HEAD_DIMS:
+        raise ValueError(
+            f"head dim {q_shape[3]} is taken by the JAX package's flash kernel, but the port's "
+            f"flash kernels instantiate only {_flash.HEAD_DIMS} (ROADMAP.md B.1)"
+        )
+    return True
 
 
 def _mask_value() -> float:
@@ -98,7 +139,14 @@ def dot_product_attention(
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
     if impl == "flash" and dropout_rate > 0.0:
         raise ValueError("flash attention does not support attention dropout")
-    if impl == "flash" or (impl == "auto" and q.is_cuda and dropout_rate == 0.0):
+    shapes = (q.shape, k.shape, v.shape, q.dtype, k.dtype, v.dtype, causal)
+    refusal = kernel_refusal(*shapes) if impl == "flash" else None
+    if refusal is not None:
+        raise ValueError(
+            f"flash attention requested but unsupported for shapes q={tuple(q.shape)} "
+            f"k={tuple(k.shape)}: {refusal}"
+        )
+    if impl == "flash" or (impl == "auto" and q.is_cuda and dropout_rate == 0.0 and kernel_takes(*shapes)):
         return _flash.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), pad_mask=pad_mask, causal=causal
         )

@@ -94,6 +94,11 @@ SPLIT_MAX_ROWS = 16
 ROUTE_KERNELS = {"split": 2, "wgmma": 1, "tf32x3": 1, "simt": 1}
 #: K2's and K3's designs (:func:`_bwd_route` picks ``wgmma`` or ``tf32x3``)
 BWD_ROUTES = ("wgmma", "tf32x3", "simt")
+#: the head dims the ``split``, ``wgmma`` and ``tf32x3`` kernels of K1-K3
+#: instantiate (their ``*_supports_head_dim``)
+HEAD_DIMS = (64, 96, 112, 128)
+#: the head dims of the ``simt`` kernels, reached by name only
+SIMT_HEAD_DIMS = (64, 112, 128)
 _FWD = {}
 _BWD = {}
 
@@ -390,7 +395,8 @@ def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, to
         raise ValueError(f"the {route} route needs q, k and v on 16-byte aligned bases")
     fn, supports, split = _fwd_kernel(route)
     if not supports(d):
-        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel (64, 112, 128)")
+        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel "
+                         f"{SIMT_HEAD_DIMS if route == 'simt' else HEAD_DIMS}")
     pad = _pad_bytes(pad_mask)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, i), dtype=torch.float32, device=q.device)
@@ -436,7 +442,8 @@ def _bwd_launch(route: str, q, k, v, lse, delta, do, pad_mask, causal, which: in
     b, h, i, d = q.shape
     j = k.shape[2]
     if not supports(d):
-        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel (64, 112, 128)")
+        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel "
+                         f"{SIMT_HEAD_DIMS if route == 'simt' else HEAD_DIMS}")
     pad = _pad_bytes(pad_mask)
     fn, name = (dq_fn, "flash_attention_bwd_dq") if which == 0 else (dkv_fn, "flash_attention_bwd_dkv")
     with torch.cuda.device(q.device):

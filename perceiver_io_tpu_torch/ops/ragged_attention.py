@@ -61,6 +61,11 @@ ROUTES = ("split", "tc", "simt")
 SPLIT_MAX_ROWS = 16
 #: device kernels one call of each route launches
 ROUTE_KERNELS = {"split": 2, "tc": 1, "simt": 1}
+#: the head dims the ``split`` and ``tc`` kernels instantiate (their
+#: ``*_supports_head_dim``)
+HEAD_DIMS = (64, 96, 112, 128)
+#: the head dims of the ``simt`` kernel, reached by name only
+SIMT_HEAD_DIMS = (64, 112, 128)
 #: per route: (library source, C entry, pointer args, int args)
 _ENTRIES = {
     "simt": ("ragged_paged_attention", "ragged_paged_attention", 8, 8),
@@ -229,7 +234,8 @@ def _k4_launch(route: str, q, pool_k, pool_v, table, lengths, block_size: int, s
         raise ValueError(f"the {route} route needs q and the pools on 16-byte aligned bases")
     fn, supports, split = _kernel(route)
     if not supports(d):
-        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel (64, 112, 128)")
+        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel "
+                         f"{SIMT_HEAD_DIMS if route == 'simt' else HEAD_DIMS}")
     table32 = table.to(torch.int32)
     lengths32 = lengths.to(torch.int32)
     pages = table.shape[1]

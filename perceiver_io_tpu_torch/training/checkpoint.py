@@ -46,10 +46,12 @@ def config_to_dict(config: Any) -> Optional[dict]:
 
 def config_from_dict(d: dict) -> Any:
     """The model config of :func:`config_to_dict`'s output."""
+    from perceiver_io_tpu_torch.models.audio.symbolic import SymbolicAudioModelConfig
     from perceiver_io_tpu_torch.models.sequence import SequenceModelConfig
     from perceiver_io_tpu_torch.models.text.clm import CausalLanguageModelConfig
 
-    classes = {c.__name__: c for c in (CausalLanguageModelConfig, SequenceModelConfig)}
+    classes = {c.__name__: c for c in (CausalLanguageModelConfig, SymbolicAudioModelConfig,
+                                       SequenceModelConfig)}
     name = d.get("class")
     if name not in classes:
         raise ValueError(f"no model config class {name!r} in the port (known: {sorted(classes)})")

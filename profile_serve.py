@@ -12,6 +12,7 @@
     python3 profile_serve.py --engine slots --do-sample        # sampled decoding
     python3 profile_serve.py --num-beams 4                     # beam search, bucket engine
     python3 profile_serve.py --engine train                    # one train step
+    python3 profile_serve.py --model sam [--engine slots --kv-layout paged | --engine train]
 
 ``--engine bucket`` (default) serves the 8-request workload of
 ``chip_smoke.py``'s serve phase through ``ServingEngine``; ``--engine
@@ -39,7 +40,13 @@ decode step. ``--num-beams K`` (bucket engine) beam-searches every request
 with K beams: each step a full-window forward over ``b·K`` lanes; the line
 adds the beam steps and the device ms a step. Both over the
 full-width CLM (random weights from a seed) on one GPU, in fp32 and in bf16
-compute. For each: one warm-up pass, one timed pass
+compute. ``--model sam`` runs the symbolic-audio model at GiantMIDI width
+instead (6144 context, 2048 latents, 768 channels, 12 layers; random
+weights from a seed) over the traffic of ``chip_smoke.py``'s symbolic
+phase: (b)'s 8 requests through the bucket engine, (c)'s 8 through the slot
+engine, or (e)'s optimizer steps (8 rows x 6144 event ids from
+``SyntheticSymbolicAudioDataModule``, 2 microbatches, AdamW to 2e-4, prefix
+dropout 0.5; loss tokens 8 x 2048 a step). For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
 ``torch.profiler``. ``--engine train`` instead runs optimizer steps of
 ``chip_smoke.py``'s ``Trainer.fit`` run (8 rows x 1024 tokens, 2
@@ -105,7 +112,13 @@ def _workload(args, torch, chip_smoke, gen_mod, samplers, buckets, slots_mod, en
         return torch.Generator(device="cuda").manual_seed(chip_smoke.SAMPLE_SEEDS[0])
 
     if args.engine == "bucket":
-        table, work = chip_smoke.serve_workload(torch, gen_mod, buckets, vocab_size)
+        if args.model == "sam":
+            from perceiver_io_tpu_torch.data.audio import midi
+
+            table = buckets.BucketTable(prompt_lens=chip_smoke.SAM_BUCKETS, batch_sizes=(4,))
+            work = chip_smoke.sam_workload(torch, gen_mod, midi)
+        else:
+            table, work = chip_smoke.serve_workload(torch, gen_mod, buckets, vocab_size)
         work = [(_decoding(args, chip_smoke, samplers, c), p) for c, p in work]
 
         def make(model):
@@ -119,10 +132,16 @@ def _workload(args, torch, chip_smoke, gen_mod, samplers, buckets, slots_mod, en
                 sum(c.max_new_tokens for c, _ in work))
 
     prefix_workload = args.prefill_chunk is not None or args.prefix_cache == "on"
-    workload = chip_smoke.slot_prefix_workload if prefix_workload else chip_smoke.slot_serve_workload
-    gcfg, prompts, news = workload(torch, gen_mod, vocab_size)
+    if args.model == "sam":
+        from perceiver_io_tpu_torch.data.audio import midi
+
+        gcfg, prompts, news = chip_smoke.sam_slot_workload(torch, gen_mod, midi)
+        table = buckets.BucketTable(prompt_lens=chip_smoke.SAM_SLOT_BUCKETS, batch_sizes=(1,))
+    else:
+        workload = chip_smoke.slot_prefix_workload if prefix_workload else chip_smoke.slot_serve_workload
+        gcfg, prompts, news = workload(torch, gen_mod, vocab_size)
+        table = buckets.BucketTable(prompt_lens=chip_smoke.SLOT_BUCKETS, batch_sizes=(1,))
     gcfg = _decoding(args, chip_smoke, samplers, gcfg)
-    table = buckets.BucketTable(prompt_lens=chip_smoke.SLOT_BUCKETS, batch_sizes=(1,))
 
     configs = [dataclasses.replace(gcfg, max_new_tokens=k) for k in news]
 
@@ -189,11 +208,14 @@ def _bwd_routes(ms_of, kernel: str) -> dict:
             "tf32x3": ms_of(f"flash_bwd_{kernel}_tf32x3_kernel")}
 
 
-def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi, out_dir):
+def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi, out_dir, model_name):
     from perceiver_io_tpu_torch import parallel, training
 
     name = str(dtype).split(".")[-1]
-    run, tokens = _train_workload(torch, chip_smoke, clm, training, parallel, dtype)
+    if model_name == "sam":
+        run, tokens = _sam_train_workload(torch, chip_smoke, training, parallel, dtype)
+    else:
+        run, tokens = _train_workload(torch, chip_smoke, clm, training, parallel, dtype)
     run()
     run()  # warm-up
     chip_smoke.reset_counts(flash)
@@ -210,7 +232,8 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         t1 = time.perf_counter()
         run()
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / f"profile_serve_train_{name}.txt")
+    kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / f"profile_serve_{model_name}_train_{name}.txt"
+                                           if model_name == "sam" else out_dir / f"profile_serve_train_{name}.txt")
     measured = bool(kernels)
     p50 = sorted(step_ms)[1]
     by_kernel = {"k1": ms_of("flash_fwd_"), "k2": sum(_bwd_routes(ms_of, "dq").values()),
@@ -220,7 +243,7 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         shares[f"{key}_device_ms"] = ms if measured else "not measured"
         shares[f"{key}_share_of_device"] = ms / device_ms if measured else "not measured"
     return {
-        "engine": "train", "compute_dtype": name, "device": smi, "step_ms": step_ms,
+        "engine": "train", "model": model_name, "compute_dtype": name, "device": smi, "step_ms": step_ms,
         "step_ms_p50": p50, "loss_tokens_per_step": tokens, "loss_tokens_per_s": tokens / (p50 / 1e3),
         "launches_per_step": counts, "k1_route_launches_per_step": k1_routes,
         "k1_kernel_launches_per_step": k1_kernels,
@@ -264,12 +287,40 @@ def _train_workload(torch, chip_smoke, clm, training, parallel, dtype):
     return run, 8 * cfg.max_latents
 
 
+def _sam_train_workload(torch, chip_smoke, training, parallel, dtype):
+    """``(run, tokens)``: ``run()`` takes one optimizer step of the symbolic
+    phase's fit on a fresh GiantMIDI-width model."""
+    from perceiver_io_tpu_torch.data import audio as data_audio
+    from perceiver_io_tpu_torch.models import audio as sam
+
+    cfg = chip_smoke.giantmidi_config(sam)
+    model = sam.SymbolicAudioModel(cfg, dtype=dtype, seed=0)
+    schedule = training.cosine_with_warmup(chip_smoke.SAM_LR, warmup_steps=chip_smoke.SAM_WARMUP,
+                                           training_steps=chip_smoke.TRAIN_STEPS)
+    state = parallel.TrainState.create(model, training.make_optimizer(schedule, optimizer="adamw"))
+    step = parallel.make_train_step(training.clm_loss_fn(model, cfg.max_latents), grad_clip_norm=1.0,
+                                    grad_accum_steps=2)
+    batches, _, _ = chip_smoke.sam_train_batches(data_audio, cfg)
+    turn = [0]
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(turn[0])
+        _, metrics = step(state, batches[turn[0] % 2], gen)
+        turn[0] += 1
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+
+    return run, 8 * cfg.max_latents
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     from perceiver_io_tpu_torch.inference import decode_strategy as strategy_mod
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--engine", choices=("bucket", "slots", "train"), default="bucket")
+    parser.add_argument("--model", choices=("clm", "sam"), default="clm",
+                        help="clm-base, or the symbolic-audio model at GiantMIDI width")
     parser.add_argument("--kv-layout", choices=("dense", "paged", "auto"), default="dense",
                         help="the slot engine's KV layout ('auto': the autotuner's verdict)")
     parser.add_argument("--speculation", choices=strategy_mod.SPECULATION_CHOICES, default="off",
@@ -302,6 +353,8 @@ def main() -> int:
                      "(beam search decodes deterministically)")
     if args.do_sample and args.engine == "train":
         parser.error("--do-sample applies to the serving engines")
+    if args.model == "sam" and (slot_only or args.do_sample or args.num_beams > 1):
+        parser.error("--model sam takes --engine and --kv-layout dense|paged only")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -324,11 +377,15 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     cfg = chip_smoke.clm_base_config(clm.CausalLanguageModelConfig)
+    if args.model == "sam":
+        from perceiver_io_tpu_torch.models import audio as sam
+
+        cfg = chip_smoke.giantmidi_config(sam)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    tag = args.engine
+    tag = args.engine if args.model == "clm" else f"sam_{args.engine}"
     if args.engine == "slots":
         tag += f"_{args.kv_layout}"
         if args.prefill_chunk is not None:
@@ -348,10 +405,13 @@ def main() -> int:
         name = str(dtype).split(".")[-1]
         if args.engine == "train":
             print(json.dumps(_profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash,
-                                            dtype, smi, out_dir)), flush=True)
+                                            dtype, smi, out_dir, args.model)), flush=True)
             torch.cuda.empty_cache()
             continue
-        model = clm.CausalLanguageModel(cfg, dtype=dtype, seed=0).eval()
+        if args.model == "sam":
+            model = sam.SymbolicAudioModel(cfg, dtype=dtype, seed=0).eval()
+        else:
+            model = clm.CausalLanguageModel(cfg, dtype=dtype, seed=0).eval()
         kv_verdict = None
         if args.kv_layout == "auto":
             # measured once (the registry keys shape and platform, not the
@@ -391,6 +451,7 @@ def main() -> int:
         measured = bool(kernels)
         record = {
             "engine": args.engine,
+            "model": args.model,
             "compute_dtype": name,
             "device": smi,
             "tokens": tokens,

@@ -151,7 +151,17 @@ def test_tf32_rounding_is_to_nearest_ties_away():
 
 @pytest.mark.parametrize("i,j,causal", [(256, 640, True), (128, 384, True)])
 def test_tf32x3_backward_matches_pallas(rng, i, j, causal):
-    q, k, v, do = _inputs(rng, 1, 2, i, j, 64, torch.float32)
+    _check_tf32x3_backward(rng, i, j, causal, 64)
+
+
+# the symbolic-audio model's head dim (768 channels over 8 heads)
+@pytest.mark.parametrize("i,j,causal", [(128, 384, True), (128, 256, False)])
+def test_tf32x3_backward_matches_pallas_at_head_dim_96(rng, i, j, causal):
+    _check_tf32x3_backward(rng, i, j, causal, 96)
+
+
+def _check_tf32x3_backward(rng, i, j, causal, d):
+    q, k, v, do = _inputs(rng, 1, 2, i, j, d, torch.float32)
     pad = torch.from_numpy(rng.random((1, j)) < 0.2)
     o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal)
     got = _tf32x3_backward(q, k, v, o, lse, do, pad, causal)

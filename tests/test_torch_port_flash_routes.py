@@ -118,7 +118,17 @@ def test_split_reference_matches_jax_at_decode(rng, lengths, split):
 @pytest.mark.parametrize("split", [16, 64])
 @pytest.mark.parametrize("i,j,causal", [(128, 384, True), (128, 256, False)])
 def test_split_reference_matches_pallas(rng, i, j, causal, split):
-    b, h, d = 2, 2, 64
+    _check_split_against_pallas(rng, i, j, causal, split, 64)
+
+
+# the symbolic-audio model's head dim (768 channels over 8 heads)
+@pytest.mark.parametrize("split", [16, 64])
+def test_split_reference_matches_pallas_at_head_dim_96(rng, split):
+    _check_split_against_pallas(rng, 128, 384, True, split, 96)
+
+
+def _check_split_against_pallas(rng, i, j, causal, split, d):
+    b, h = 2, 2
     q, k, v, tensors = _inputs(rng, b, h, i, j, d)
     pad = np.zeros((b, j), bool)
     pad[0, :300] = True  # under the causal mask rows 0..43 of batch row 0 see no key

@@ -105,6 +105,7 @@ def test_tf32x3_forward_matches_pallas(rng, i, j, pads):
 # head dims, with and without the causal mask
 @pytest.mark.parametrize("i,j,d,causal", [
     (100, 300, 112, True), (17, 20, 64, True), (70, 90, 128, False), (33, 612, 112, True),
+    (100, 300, 96, True), (70, 90, 96, False),
 ])
 def test_tf32x3_forward_matches_plain(rng, i, j, d, causal):
     b, h = 3, 2

@@ -216,7 +216,7 @@ def test_route_emulation_matches_jax(rng, route, q_len, layout):
 
 # the kernels' head dims, against the plain version, on a span of several
 # splits and tiles
-@pytest.mark.parametrize("d,q_len", [(64, 1), (112, 100), (128, 33)])
+@pytest.mark.parametrize("d,q_len", [(64, 1), (112, 100), (128, 33), (96, 1), (96, 100)])
 @pytest.mark.parametrize("layout", ["float32", "int8"])
 def test_route_emulations_match_plain(rng, d, q_len, layout):
     inputs = _inputs(rng, layout, q_len, d=d)

@@ -21,6 +21,7 @@ from perceiver_io_tpu.ops import position as jax_position
 from perceiver_io_tpu.ops.attention import _attention_xla
 from perceiver_io_tpu_torch.ops import flash_attention as flash
 from perceiver_io_tpu_torch.ops import position
+from perceiver_io_tpu_torch.ops import attention
 from perceiver_io_tpu_torch.ops.attention import dot_product_attention
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -157,6 +158,73 @@ def test_flash_plain_dead_rows_are_zero(rng):
     ref = torch.logsumexp(s.masked_fill(~allowed, float("-inf")), dim=-1)
     np.testing.assert_allclose(lse[0, :, 44:].numpy(), ref[0, :, 44:].numpy(), **FLASH_TOL)
     np.testing.assert_allclose(lse[1].numpy(), ref[1].numpy(), **FLASH_TOL)
+
+
+# JAX's auto dispatch by shape: (head dim, q/k/v types, causal, j < i)
+DISPATCH_CASES = [
+    (d, types, causal, short)
+    for d in (16, 32, 80, 96, 112)
+    for types in (("float32",) * 3, ("bfloat16",) * 3, ("float32", "bfloat16", "float32"), ("float16",) * 3)
+    for causal, short in ((True, False), (True, True), (False, True))
+]
+
+
+@pytest.mark.parametrize("d,types,causal,short", DISPATCH_CASES)
+def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
+    # lengths JAX's block picker takes (multiples of 128), so only the other
+    # reasons decide: where JAX's kernel refuses, auto takes the plain path
+    # and flash raises; where it takes the shape, auto launches K1 if a route
+    # instantiates the head dim and raises naming ROADMAP.md B.1 if none does
+    i, j = (256, 128) if short else (128, 256)
+    shapes = [(1, 2, n, d) for n in (i, j, j)]
+    jq, jk, jv = (jnp.zeros(shape, getattr(jnp, t)) for shape, t in zip(shapes, types))
+    jax_takes = jax_flash.supported(jq, jk, jv, causal=causal)
+    args = (*shapes, *(getattr(torch, t) for t in types), causal)
+    q, k, v = (torch.zeros(shape, dtype=getattr(torch, t)) for shape, t in zip(shapes, types))
+    if not jax_takes:
+        assert attention.kernel_refusal(*args) is not None
+        assert attention.kernel_takes(*args) is False
+        with pytest.raises(ValueError, match="unsupported for shapes"):
+            dot_product_attention(q, k, v, causal=causal, impl="flash")
+    elif d in flash.HEAD_DIMS:
+        assert attention.kernel_refusal(*args) is None and attention.kernel_takes(*args) is True
+    else:
+        with pytest.raises(ValueError, match=r"ROADMAP.md B.1") as e:
+            attention.kernel_takes(*args)
+        assert "(64, 96, 112, 128)" in str(e.value)
+    one_type = len(set(types)) == 1 and types[0] != "float16"
+    assert jax_takes == (d >= 32 and one_type and not (causal and short))  # the table spans JAX's reasons
+    if not jax_takes and one_type:
+        # auto on the CPU: the plain path, as JAX's einsum path
+        q, k, v = (torch.from_numpy(a).to(q.dtype) for a in _qkv(rng, 1, 2, i, j, d))
+        out = dot_product_attention(q, k, v, causal=causal)
+        want = _attention_xla(*(jnp.asarray(t.float().numpy()).astype(getattr(jnp, types[0]))
+                                for t in (q, k, v)), None, causal, 0.0, None)
+        np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
+                                   **(TOL if types[0] == "float32" else dict(atol=2e-2, rtol=2e-2)))
+
+
+def test_head_dim_tables_match_the_kernels():
+    # HEAD_DIMS and SIMT_HEAD_DIMS are what each route's *_supports_head_dim
+    # returns; K2/K3 share K1's tables
+    import re
+    from pathlib import Path
+
+    from perceiver_io_tpu_torch.ops import ragged_attention
+
+    csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
+    sources = (
+        (flash.HEAD_DIMS, ("flash_attention_fwd_split", "flash_attention_fwd_wgmma", "flash_attention_fwd_tf32",
+                           "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32")),
+        (flash.SIMT_HEAD_DIMS, ("flash_attention_fwd", "flash_attention_bwd")),
+        (ragged_attention.HEAD_DIMS, ("ragged_paged_attention_split", "ragged_paged_attention_tc")),
+        (ragged_attention.SIMT_HEAD_DIMS, ("ragged_paged_attention",)),
+    )
+    for dims, names in sources:
+        for name in names:
+            body = re.search(r"supports_head_dim\(int d\) \{\s*return ([^;]*);",
+                             (csrc / f"{name}.cu").read_text()).group(1)
+            assert tuple(int(x) for x in re.findall(r"d == (\d+)", body)) == dims, name
 
 
 def test_dispatch_rejects_unported_modes(rng):
