@@ -318,7 +318,38 @@ non-zero and never prints the final line):
    launches a step each (2 microbatches x 13 attends), all on ``wgmma`` in
    bf16 and ``tf32x3`` in fp32; step ms p50 and peak
    ``max_memory_allocated`` printed;
-16. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
+16. cli: the port's CLI through the functions ``python -m`` calls
+   (``perceiver_io_tpu_torch.scripts.text.clm.main`` and
+   ``...audio.symbolic.main``), each line with the card's ``nvidia-smi``
+   line. (a) ``fit --data=synthetic`` at clm-base width (1024 context, 512
+   latents, 896 channels, 8 heads, 16 layers; the byte tokenizer's 262-id
+   vocabulary through the family's link), the family's bf16, 8 steps of 8
+   x 1024 in 2 microbatches, AdamW to 2e-5 (cosine, 2 warmup steps; 1e-4
+   overshot on this corpus),
+   clipping at 1, one validation batch, the best checkpoint written: the
+   loss is finite and falls, K1, K2 and K3 launch 34 times a step on
+   ``wgmma`` (validation's K1 counted apart), and phase 13's ``train_fit``
+   driving ``Trainer.fit`` directly with the same arguments logs the same
+   losses within 1e-6 relative. (b) ``validate --ckpt`` and ``test --ckpt``
+   on that checkpoint: a finite loss each. (c) ``serve --ckpt`` (fp32) over
+   a prompts file of 8 ragged byte prompts of 520-960 characters and one
+   of 1010 (past the largest bucket: an error record), 496 latents, 32 new
+   tokens (latent growth, boundary and window steps): the bucket engine
+   (buckets 512/1000, batch 4), then the slot engine (4 slots, buckets
+   512/768/1008, ``kv_layout=paged``); tokens equal per-request
+   ``generate()`` on the card from the same checkpoint (the slot engine
+   under phase 7's near-tie excuse), completions equal the decoded
+   references, K1 on ``split`` and ``tf32x3`` in both runs, K4 on
+   ``split`` and ``tc`` in the slots run, ``simt`` never, and the
+   ``serve_stats`` line parses; then the bucket run once more as a real
+   ``python -m perceiver_io_tpu_torch.scripts.text.clm serve`` process,
+   whose JSON lines must equal the in-process run's. (d) The symbolic
+   family's ``fit --data=synthetic`` at GiantMIDI width (6144 context,
+   ``min_seq_len`` 4096, the family's 2048 latents and 768 channels, 8
+   heads of 96, 12 layers), bf16, 4 steps of 8 rows in 2 microbatches
+   (AdamW to phase 15's 2e-4, 4 warmup steps): a
+   finite loss, K1, K2 and K3 26 launches a step on ``wgmma``;
+17. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4 with
    its split and tc routes nested and the simt kernel's times as their
@@ -331,8 +362,10 @@ non-zero and never prints the final line):
    counted beam run's; K1's, K2's and K3's ``train_resilience_launches``
    each phase-14 sub-run's, over its three timed steps in (a); each route's
    ``d96`` figures (its GiantMIDI case at head dim 96) and
-   ``symbolic_launches`` (its calls in each run of phase 15)), the
-   card's ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
+   ``symbolic_launches`` (its calls in each run of phase 15); every
+   entry's ``cli_launches`` and ``cli_route_launches`` its calls in each
+   run of phase 16), the card's ``nvidia-smi`` line, and the final
+   ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` set False).
@@ -3399,6 +3432,329 @@ def symbolic_phase(torch, sam, flash, ragged, gen_mod, engine_mod, slots_mod, bu
     return out
 
 
+# the cli phase: the CLM family's CLI at clm-base width (fit, validate,
+# test, serve) and the symbolic family's fit at GiantMIDI width
+CLI_MODEL = ["--model.num_channels=896", "--model.max_latents=512", "--model.num_heads=8",
+             "--model.num_self_attention_layers=16"]
+# the synthetic corpus's 27 characters take 27 of the 262 byte ids: AdamW at
+# phase 13's 1e-4 overshot after its second update (6.39 -> 5.83 -> 9.34 by
+# step 6 on an NVIDIA H100), so the CLI's fit peaks at 2e-5
+CLI_LR = 2e-5
+CLI_WARMUP = 2
+CLI_TRAIN = [f"--trainer.max_steps={TRAIN_STEPS}", "--trainer.grad_accum_steps=2",
+             "--trainer.grad_clip_norm=1.0", "--trainer.log_every_n_steps=1",
+             f"--trainer.val_check_interval={TRAIN_STEPS}", "--trainer.limit_val_batches=1",
+             "--trainer.limit_test_batches=1", "--trainer.enable_tensorboard=false", f"--optimizer.lr={CLI_LR}",
+             f"--lr_scheduler.warmup_steps={CLI_WARMUP}"]
+# 8 ragged byte prompts (496 latents in a 1000 or 1008 bucket: latent
+# growth, boundary and window steps) and one past the largest bucket
+CLI_PROMPT_LENS = (520, 600, 700, 780, 850, 900, 940, 960, 1010)
+CLI_NEW_TOKENS = 32
+CLI_LATENTS = 496
+CLI_SERVE = [f"--serve.max_new_tokens={CLI_NEW_TOKENS}", f"--serve.num_latents={CLI_LATENTS}",
+             "--serve.warmup=false"]
+CLI_ENGINES = {
+    "bucket": ["--serve.engine=bucket", "--serve.prompt_buckets=512,1000", "--serve.batch_buckets=4"],
+    "slots": ["--serve.engine=slots", "--serve.prompt_buckets=" + ",".join(map(str, SLOT_BUCKETS)),
+              "--serve.slots=4", "--serve.kv_layout=paged", "--serve.speculation=off"],
+}
+CLI_SAM_STEPS = 4
+
+
+def cli_run(torch, flash, ragged, main, argv, training=None) -> tuple:
+    """One CLI call, ``main(argv)``, with every launch count set to 0 just
+    before it; with ``training``, the launches of ``Trainer.validate`` calls
+    are counted apart. Returns what the call returned and its record: wall
+    time, launches (validation's excluded), K1's, K2/K3's and K4's routes."""
+    val_counts = {"k1": 0, "k2": 0, "k3": 0}
+    validate = training.Trainer.validate if training is not None else None
+
+    def counted_validate(self, data):
+        before = read_counts(flash)
+        out = validate(self, data)
+        for key, n in read_counts(flash).items():
+            val_counts[key] += n - before[key]
+        return out
+
+    if training is not None:
+        training.Trainer.validate = counted_validate
+    reset_counts(flash)
+    reset_k4_counts(ragged)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        if training is not None:
+            training.Trainer.validate = validate
+    wall_s = time.perf_counter() - t0
+    counts = read_counts(flash)
+    return out, {
+        "wall_s": wall_s,
+        "launches": {**{k: counts[k] - val_counts[k] for k in counts},
+                     "k4": ragged.ragged_paged_attention.launches},
+        "validation_launches": val_counts,
+        "k1_routes": dict(flash.flash_attention.route_launches),
+        "bwd_routes": read_bwd_routes(flash),
+        "k4_routes": dict(ragged.ragged_paged_attention.route_launches),
+    }
+
+
+def _fit_failures(rec: dict, steps: int, attends: int) -> list:
+    """A bf16 CLI fit's launch gates: K1, K2 and K3 ``attends`` times a step
+    (validation apart), every K1 launch (validation's too) and every K2/K3
+    launch on ``wgmma``."""
+    failures = []
+    per_step = {k: rec["launches"][k] / steps for k in ("k1", "k2", "k3")}
+    if per_step != {"k1": attends, "k2": attends, "k3": attends}:
+        failures.append(f"launches per step {per_step}, want {attends}")
+    k1_all = rec["launches"]["k1"] + rec["validation_launches"]["k1"]
+    if rec["k1_routes"]["wgmma"] != k1_all or sum(rec["k1_routes"].values()) != k1_all:
+        failures.append(f"K1 routes {rec['k1_routes']}: every launch should take wgmma")
+    for key, by_route in rec["bwd_routes"].items():
+        if by_route["wgmma"] != rec["launches"][key] or sum(by_route.values()) != rec["launches"][key]:
+            failures.append(f"{key.upper()} routes {by_route}: every launch should take wgmma")
+    return failures
+
+
+def _cli_losses(root: Path) -> tuple:
+    rows = [json.loads(line) for line in open(root / "metrics.jsonl")]
+    return [r["train/loss"] for r in rows if "train/loss" in r], [r["val/loss"] for r in rows if "val/loss" in r]
+
+
+def cli_serve(torch, flash, ragged, engine_mod, clm_script, ckpt: Path, prompts_file: Path, engine: str) -> tuple:
+    """``serve --ckpt`` in process: the JSON lines it printed, the requests
+    it submitted (recorded at ``ServingEngine.submit``) and the run's record."""
+    import contextlib
+    import io
+
+    reqs = []
+    submit = engine_mod.ServingEngine.submit
+
+    def recording_submit(self, *args, **kwargs):
+        req = submit(self, *args, **kwargs)
+        reqs.append(req)
+        return req
+
+    out = io.StringIO()
+    engine_mod.ServingEngine.submit = recording_submit
+    try:
+        with contextlib.redirect_stdout(out):
+            _, rec = cli_run(torch, flash, ragged, clm_script.main,
+                             ["serve", f"--ckpt={ckpt}", f"--serve.prompts={prompts_file}", *CLI_SERVE,
+                              *CLI_ENGINES[engine]])
+    finally:
+        engine_mod.ServingEngine.submit = submit
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    return lines, reqs, rec
+
+
+def _serve_failures(lines, rows, decode, engine: str, rec: dict) -> list:
+    """The serve gates shared by the in-process runs: one line a prompt and
+    the ``serve_stats`` line last, each feasible prompt's completion the
+    decoded tokens its request got, the infeasible one an error record, K1
+    on split and tf32x3 only, K4 on split and tc under the paged slot engine."""
+    failures = []
+    results, stats = lines[:-1], lines[-1].get("serve_stats")
+    n_ok = len(CLI_PROMPT_LENS) - 1
+    if stats is None or len(results) != len(CLI_PROMPT_LENS) or len(rows) != n_ok:
+        return [f"{len(results)} result lines, {len(rows)} requests, serve_stats {stats is not None}"]
+    for i, (line, row) in enumerate(zip(results, rows)):
+        if line["status"] != "ok" or line["completion"] != decode(row):
+            failures.append(f"line {i}: {line['status']}, completion unlike the request's tokens")
+    last = results[-1]
+    if last["status"] != "rejected" or "exceeds the largest bucket" not in last.get("error", ""):
+        failures.append(f"the {CLI_PROMPT_LENS[-1]}-byte prompt gave {last}")
+    if stats["completed"] != n_ok or stats["rejected"] != 1:
+        failures.append(f"serve_stats completed {stats['completed']}, rejected {stats['rejected']}")
+    k1, k1_routes = rec["launches"]["k1"], rec["k1_routes"]
+    if not (k1_routes["split"] > 0 and k1_routes["tf32x3"] > 0 and k1_routes["split"] + k1_routes["tf32x3"] == k1):
+        failures.append(f"K1 routes {k1_routes}: fp32 serving takes split and tf32x3 only")
+    k4_routes = rec["k4_routes"]
+    if engine == "slots" and not (k4_routes["split"] > 0 and k4_routes["tc"] > 0 and k4_routes["simt"] == 0):
+        failures.append(f"K4 routes {k4_routes}: decode rows take split, window rows tc, never simt")
+    if engine == "bucket" and rec["launches"]["k4"]:
+        failures.append(f"K4 launched {rec['launches']['k4']} times in the bucket engine")
+    return failures
+
+
+def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, root: Path, smi: str) -> dict:
+    """Phase 16: the port's CLI, driven through ``main(argv)`` as ``python
+    -m`` calls it (and once as a real ``python -m`` process). Returns each
+    run's record (``fit``, ``validate``, ``test``, ``serve_bucket``,
+    ``serve_slots``, ``symbolic_fit``)."""
+    import dataclasses
+    import gc
+    import os
+
+    import numpy as np
+
+    from perceiver_io_tpu_torch.data.text.sources import SyntheticTextDataModule
+    from perceiver_io_tpu_torch.data.text.tokenizers import ByteTokenizer
+    from perceiver_io_tpu_torch.models import model_for_config
+    from perceiver_io_tpu_torch.models.text.clm import CausalLanguageModel
+    from perceiver_io_tpu_torch.scripts.audio import symbolic as sam_script
+    from perceiver_io_tpu_torch.scripts.text import clm as clm_script
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    runs = {}
+    data = ["--data=synthetic", f"--data.dataset_dir={root / 'data'}", "--data.max_seq_len=1024",
+            "--data.batch_size=8", "--data.num_train_docs=32", "--data.num_valid_docs=8"]
+    common = [*data, *CLI_MODEL, *CLI_TRAIN]
+
+    # (a) fit, then the same fit through Trainer.fit directly
+    state, runs["fit"] = cli_run(torch, flash, ragged, clm_script.main,
+                                 ["fit", *common, f"--trainer.default_root_dir={root / 'fit'}"], training)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, val_loss = _cli_losses(root / "fit")
+    ckpt = root / "fit" / "checkpoints"
+    weights, cfg = training.load_pretrained(str(ckpt))
+    attends = 2 * (1 + cfg.num_self_attention_layers)
+    failures = _fit_failures(runs["fit"], TRAIN_STEPS, attends)
+    if not (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        failures.append(f"losses {losses}")
+    if cfg.vocab_size != ByteTokenizer.vocab_size:
+        failures.append(f"vocab {cfg.vocab_size}: the link should give the byte tokenizer's 262")
+    emit("cli", part="fit", card=smi, model=dataclasses.asdict(cfg), steps=TRAIN_STEPS, losses=losses,
+         val_loss=val_loss, wall_s=runs["fit"]["wall_s"],
+         launches_per_step={k: runs["fit"]["launches"][k] / TRAIN_STEPS for k in ("k1", "k2", "k3")},
+         **{k: v for k, v in runs["fit"].items() if k != "wall_s"})
+    if failures:
+        raise AssertionError("cli fit: " + "; ".join(failures))
+    dm = SyntheticTextDataModule(dataset_dir=str(root / "data"), max_seq_len=1024, batch_size=8,
+                                 num_train_docs=32, num_valid_docs=8, task="clm", padding_side="left")
+    dm.prepare_data()
+    dm.setup()
+    direct = train_fit(torch, flash, training, parallel, CausalLanguageModel, cfg, torch.bfloat16,
+                       root / "direct", dm.train_dataloader(),
+                       list(itertools.islice(iter(dm.train_dataloader()), 2)),
+                       list(itertools.islice(iter(dm.val_dataloader()), 1)), lr=CLI_LR,
+                       warmup_steps=CLI_WARMUP, phase="cli_direct_fit")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, direct["losses"]))
+    emit("cli", part="fit_vs_trainer", card=smi, cli_losses=losses, trainer_losses=direct["losses"],
+         max_rel_diff=rel, tol=1e-6)
+    if len(direct["losses"]) != len(losses) or rel > 1e-6:
+        raise AssertionError(f"cli fit losses {losses} differ from Trainer.fit's {direct['losses']}")
+
+    # (b) validate and test on the checkpoint
+    for sub in ("validate", "test"):
+        metrics, runs[sub] = cli_run(torch, flash, ragged, clm_script.main,
+                                     [sub, *common, f"--ckpt={ckpt}",
+                                      f"--trainer.default_root_dir={root / sub}"])
+        key = "loss" if sub == "validate" else "test_loss"
+        emit("cli", part=sub, card=smi, metrics=metrics, wall_s=runs[sub]["wall_s"],
+             k1_launches=runs[sub]["launches"]["k1"], k1_routes=runs[sub]["k1_routes"])
+        if sorted(metrics) != [key] or not math.isfinite(metrics[key]) \
+                or runs[sub]["k1_routes"]["wgmma"] != runs[sub]["launches"]["k1"] or not runs[sub]["launches"]["k1"]:
+            raise AssertionError(f"cli {sub}: {metrics}, K1 routes {runs[sub]['k1_routes']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) serve on both engines against per-request generate() from the checkpoint
+    tok = ByteTokenizer(padding_side="left")
+    rng = np.random.default_rng(29)
+    texts = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz "), size=n)) for n in CLI_PROMPT_LENS]
+    prompts_file = root / "prompts.txt"
+    prompts_file.write_text("\n".join(texts) + "\n")
+    prompts = [np.asarray(tok.encode(t), np.int32) for t in texts[:-1]]
+    gcfg = gen_mod.GenerationConfig(max_new_tokens=CLI_NEW_TOKENS, num_latents=CLI_LATENTS,
+                                    pad_token_id=tok.pad_token_id, eos_token_id=tok.eos_token_id)
+    model = model_for_config(cfg)
+    model.load_state_dict(weights)
+    model.eval()
+    del weights
+    refs = [gen_mod.generate(model, p[None], gcfg)[0].cpu().numpy() for p in prompts]
+
+    def decode(row):
+        return tok.decode([t for t in np.asarray(row).tolist() if t != tok.pad_token_id])
+
+    served = {}
+    for engine in ("bucket", "slots"):
+        lines, reqs, rec = cli_serve(torch, flash, ragged, engine_mod, clm_script, ckpt, prompts_file, engine)
+        runs[f"serve_{engine}"] = rec
+        rows = [r.result for r in reqs]
+        failures = _serve_failures(lines, rows, decode, engine, rec)
+        if engine == "bucket":
+            mismatches = sum(int((row != ref).any()) for row, ref in zip(rows, refs))
+            if mismatches:
+                failures.append(f"{mismatches} requests differ from generate()")
+            divergences = None
+        else:
+            divergences = _divergences(torch, gen_mod, model, rows, refs, prompts, [gcfg] * len(prompts), failures)
+        stats = lines[-1].get("serve_stats", {})
+        served[engine] = lines
+        emit("cli", part=f"serve_{engine}", card=smi, requests=stats.get("completed"),
+             rejected=stats.get("rejected"), tokens=stats.get("tokens_generated"), wall_s=rec["wall_s"],
+             tokens_per_s=stats.get("tokens_generated", 0) / rec["wall_s"],
+             serve_stats_wall_s=stats.get("wall_s"), ttft_ms_p50=stats.get("ttft_ms", {}).get("p50"),
+             k1_launches=rec["launches"]["k1"], k1_route_launches=rec["k1_routes"],
+             k4_launches=rec["launches"]["k4"], k4_route_launches=rec["k4_routes"],
+             divergences_vs_generate=divergences,
+             completions_equal_references=sum(line.get("completion") == decode(ref)
+                                              for line, ref in zip(lines, refs)))
+        if failures:
+            raise AssertionError(f"cli serve {engine}: " + "; ".join(failures))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the bucket run once more as a real `python -m ... serve` process
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "perceiver_io_tpu_torch.scripts.text.clm", "serve",
+                           f"--ckpt={ckpt}", f"--serve.prompts={prompts_file}", *CLI_SERVE,
+                           *CLI_ENGINES["bucket"]],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    same = lines[:-1] == served["bucket"][:-1]
+    emit("cli", part="serve_subprocess", card=smi, returncode=proc.returncode, wall_s=wall_s,
+         lines=len(lines), lines_equal_in_process=same,
+         serve_stats_parses=bool(lines) and "serve_stats" in lines[-1])
+    if proc.returncode != 0 or not same or not lines or "serve_stats" not in lines[-1]:
+        raise AssertionError(f"python -m ... serve: rc {proc.returncode}, equal {same}; "
+                             f"stderr {proc.stderr[-2000:]}")
+
+    # (d) the symbolic family's fit at GiantMIDI width
+    sam_argv = ["fit", "--data=synthetic", f"--data.dataset_dir={root / 'sam_data'}", "--data.max_seq_len=6144",
+                "--data.min_seq_len=4096", "--data.batch_size=8", "--data.num_train_pieces=8",
+                "--data.num_valid_pieces=4", "--data.num_test_pieces=0", "--data.mean_piece_len=16384",
+                "--data.shard_index=0", "--data.shard_count=1", "--model.num_heads=8",
+                "--model.num_self_attention_layers=12", f"--trainer.max_steps={CLI_SAM_STEPS}",
+                "--trainer.grad_accum_steps=2", "--trainer.grad_clip_norm=1.0", "--trainer.log_every_n_steps=1",
+                f"--trainer.val_check_interval={CLI_SAM_STEPS}", "--trainer.limit_val_batches=1",
+                "--trainer.enable_checkpointing=false", "--trainer.enable_tensorboard=false",
+                f"--optimizer.lr={SAM_LR}", f"--lr_scheduler.warmup_steps={SAM_WARMUP}",
+                f"--trainer.default_root_dir={root / 'sam_fit'}"]
+    state, runs["symbolic_fit"] = cli_run(torch, flash, ragged, sam_script.main, sam_argv, training)
+    sam_cfg = state.model.config
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    sam_losses, sam_val = _cli_losses(root / "sam_fit")
+    sam_attends = 2 * (1 + sam_cfg.num_self_attention_layers)
+    failures = _fit_failures(runs["symbolic_fit"], CLI_SAM_STEPS, sam_attends)
+    head_dim = sam_cfg.num_channels // sam_cfg.num_heads
+    if (sam_cfg.max_seq_len, sam_cfg.max_latents, sam_cfg.num_channels, head_dim) != (6144, 2048, 768, 96):
+        failures.append(f"config {sam_cfg}: not GiantMIDI width")
+    if not (len(sam_losses) == CLI_SAM_STEPS and all(math.isfinite(x) for x in sam_losses + sam_val)):
+        failures.append(f"losses {sam_losses}, validation {sam_val}")
+    emit("cli", part="symbolic_fit", card=smi, model=dataclasses.asdict(sam_cfg), head_dim=head_dim,
+         steps=CLI_SAM_STEPS, losses=sam_losses, val_loss=sam_val, wall_s=runs["symbolic_fit"]["wall_s"],
+         launches_per_step={k: runs["symbolic_fit"]["launches"][k] / CLI_SAM_STEPS for k in ("k1", "k2", "k3")},
+         **{k: v for k, v in runs["symbolic_fit"].items() if k != "wall_s"})
+    if failures:
+        raise AssertionError("cli symbolic fit: " + "; ".join(failures))
+    emit("cli", part="done", card=smi, seconds=time.perf_counter() - t_phase)
+    return runs
+
+
 K1_SOURCES = {
     "split": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_split.cu",
     "wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wgmma.cu",
@@ -3485,12 +3841,13 @@ K23_KERNELS = {
 }
 
 
-def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic: dict) -> list:
+def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic: dict, cli: dict) -> list:
     """The summary line's entries for K2 (``dq``) or K3 (``dkv``), one per
     route the main path runs (``wgmma`` in bf16, ``tf32x3`` in fp32): the
     cross case (i = 512, j = 768, d = 112) of its type at the top, launches
     from the Trainer.fit run of its type, the train_resilience runs' of that
-    type, and every case that took it."""
+    type, the cli phase's fits' (bf16: their route's; fp32: none), and every
+    case that took it."""
     name, replaces, count, grads = K23_KERNELS[kname]
     entries = []
     for tname, design in (("bfloat16", K23_ROUTE["bfloat16"]), ("float32", K23_ROUTE["float32"])):
@@ -3518,6 +3875,8 @@ def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic:
                     "rel_err": {g: sam["rel_err"][g] for g in grads}},
             "symbolic_launches": {"train": symbolic["train"][tname]["launches"][count],
                                   "route": symbolic["train"][tname]["bwd_route_launches"][count][design]},
+            "cli_launches": {run: cli[run]["bwd_routes"][count][design] for run in ("fit", "symbolic_fit")},
+            "cli_route_launches": {run: cli[run]["bwd_routes"][count] for run in ("fit", "symbolic_fit")},
             "cases": [{"case": c["case"], "i": c["i"], "j": c["j"], "d": c["d"],
                        **{k: c["kernels"][kname][k] for k in keys if not k.endswith("_by")},
                        "library_ms": c["library_ms"], "rel_err": {g: c["rel_err"][g] for g in grads},
@@ -3636,6 +3995,9 @@ def main() -> int:
     emit("memory_before_symbolic", **held_memory(torch))
     symbolic = symbolic_phase(torch, sam, flash, ragged, gen_mod, engine_mod, slots_mod, buckets, pipelines_mod,
                               training, parallel, data_audio, ROOT / "build" / "chip_smoke_symbolic")
+    emit("memory_before_cli", **held_memory(torch))
+    cli = cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, ROOT / "build" / "chip_smoke_cli",
+                    smi)
 
     main_case = next(c for c in cases
                      if (c["case"], c["dtype"], c["d"]) == ("cross", "float32", K1_HEAD_DIM))
@@ -3670,14 +4032,17 @@ def main() -> int:
         "beam_launches": sample["beam"]["k1"],
         "beam_route_launches": sample["beam"]["k1_routes"],
         "train_resilience_launches": {run: v["k1"] for run, v in resilience.items()},
+        "cli_launches": {run: r["launches"]["k1"] + r["validation_launches"]["k1"] for run, r in cli.items()},
+        "cli_route_launches": {run: r["k1_routes"] for run, r in cli.items()},
         "symbolic_launches": {"bucket_serve": symbolic["bucket_serve"]["k1"],
                               **{f"slot_serve_{layout}": v["k1"] for layout, v in symbolic["slot_serve"].items()},
                               **{f"train_{t}": v["launches"]["k1"] for t, v in symbolic["train"].items()}},
-        "routes": [k1_route_entry(flash, design, main, cases, route_launches[design], {
+        "routes": [{**k1_route_entry(flash, design, main, cases, route_launches[design], {
                        "bucket_serve": symbolic["bucket_serve"]["k1_routes"][design],
                        **{f"slot_serve_{layout}": v["k1_routes"][design]
                           for layout, v in symbolic["slot_serve"].items()},
-                       **{f"train_{t}": v["k1_route_launches"][design] for t, v in symbolic["train"].items()}})
+                       **{f"train_{t}": v["k1_route_launches"][design] for t, v in symbolic["train"].items()}}),
+                    "cli_launches": {run: r["k1_routes"][design] for run, r in cli.items()}}
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
                                         ("tf32x3", ("cross", "float32")))],
     }, {
@@ -3707,14 +4072,17 @@ def main() -> int:
         "sample_launches": {run: v["k4"] for run, v in sample["runs"].items()},
         "sample_route_launches": {run: v["k4_routes"] for run, v in sample["runs"].items()},
         "symbolic_launches": {f"slot_serve_{layout}": v["k4"] for layout, v in symbolic["slot_serve"].items()},
-        "routes": [k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design],
-                                  prefix_launches["paged"]["k4_routes"][design],
-                                  {run: launches["k4_routes"][design]
-                                   for run, launches in preempt_launches.items()},
-                                  {f"slot_serve_{layout}": v["k4_routes"][design]
-                                   for layout, v in symbolic["slot_serve"].items()})
+        "cli_launches": {run: cli[run]["launches"]["k4"] for run in ("serve_bucket", "serve_slots")},
+        "cli_route_launches": {run: cli[run]["k4_routes"] for run in ("serve_bucket", "serve_slots")},
+        "routes": [{**k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design],
+                                     prefix_launches["paged"]["k4_routes"][design],
+                                     {run: launches["k4_routes"][design]
+                                      for run, launches in preempt_launches.items()},
+                                     {f"slot_serve_{layout}": v["k4_routes"][design]
+                                      for layout, v in symbolic["slot_serve"].items()}),
+                    "cli_launches": {run: cli[run]["k4_routes"][design] for run in ("serve_bucket", "serve_slots")}}
                    for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
-    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic)]}),
+    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic, cli)]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

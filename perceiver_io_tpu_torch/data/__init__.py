@@ -1,5 +1,6 @@
 """Data of the port: the map-style batch loader (:mod:`.loader`), the
-offline byte tokenizer (:mod:`.text.tokenizers`), and the MIDI event codec
+text pipelines (:mod:`.text`: tokenizers, collators, the cached and
+streaming data modules), and the MIDI event codec
 and symbolic-audio data modules (:mod:`.audio`)."""
 from perceiver_io_tpu_torch.data.loader import DataLoader, default_collate
 

@@ -1,9 +1,14 @@
-"""The offline UTF-8 byte tokenizer. A copy of ``ByteTokenizer`` from
-``perceiver_io_tpu/data/text/tokenizers.py``: the byte vocabulary of
-``deepmind/language-perceiver`` (262 = 6 specials + 256 bytes, offset 6,
-the layout of ``transformers.PerceiverTokenizer``), so byte-level models need
-no hub access. The hub adapter (``HFTokenizer``, ``load_tokenizer``) is not
-ported: no hub tokenizer is in the repo.
+"""Tokenizers behind one small protocol. A copy of
+``perceiver_io_tpu/data/text/tokenizers.py``:
+
+- :class:`ByteTokenizer` is the offline byte vocabulary of
+  ``deepmind/language-perceiver`` (262 = 6 specials + 256 bytes, offset 6,
+  the layout of ``transformers.PerceiverTokenizer``), so byte-level models
+  need no hub access;
+- :class:`HFTokenizer` adapts any Hugging Face tokenizer to the same
+  protocol (e.g. the SentencePiece tokenizer of the C4 models);
+- :func:`load_tokenizer` resolves a name to one of the two, and imports
+  ``transformers`` only for a name that is not the byte tokenizer's.
 
 The protocol its consumers rely on: ``encode``, ``decode``,
 ``encode_batch``, ``word_ids``, and the ``vocab_size`` / ``pad_token_id`` /
@@ -125,3 +130,105 @@ class ByteTokenizer:
                 in_word = True
                 out.append(curr)
         return out
+
+
+class HFTokenizer:
+    """Adapter: any Hugging Face (fast) tokenizer → the local protocol."""
+
+    def __init__(self, tokenizer, padding_side: Optional[str] = None):
+        self.hf = tokenizer
+        if padding_side is not None:
+            self.hf.padding_side = padding_side
+        self.name = getattr(tokenizer, "name_or_path", "hf")
+
+    @property
+    def padding_side(self) -> str:
+        return self.hf.padding_side
+
+    @padding_side.setter
+    def padding_side(self, side: str) -> None:
+        self.hf.padding_side = side
+
+    @property
+    def vocab_size(self) -> int:
+        return self.hf.vocab_size
+
+    @property
+    def pad_token_id(self):
+        return self.hf.pad_token_id
+
+    @property
+    def mask_token_id(self):
+        return self.hf.mask_token_id
+
+    @property
+    def mask_token(self):
+        return self.hf.mask_token
+
+    @property
+    def eos_token_id(self):
+        return self.hf.eos_token_id
+
+    def batch_decode(self, rows, skip_special_tokens: bool = True) -> List[str]:
+        return self.hf.batch_decode(
+            [[int(i) for i in r] for r in rows], skip_special_tokens=skip_special_tokens
+        )
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:
+        return self.hf(text, add_special_tokens=add_special_tokens)["input_ids"]
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self.hf.decode([int(i) for i in ids], skip_special_tokens=skip_special_tokens)
+
+    def encode_batch(
+        self,
+        texts: Sequence[str],
+        max_length: Optional[int] = None,
+        add_special_tokens: bool = False,
+        pad_to_max: bool = True,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        enc = self.hf(
+            list(texts),
+            padding="max_length" if (pad_to_max and max_length) else bool(self.hf.pad_token),
+            truncation=max_length is not None,
+            max_length=max_length,
+            add_special_tokens=add_special_tokens,
+            return_attention_mask=True,
+        )
+        ids = np.asarray(enc["input_ids"], dtype=np.int32)
+        pad_mask = ~np.asarray(enc["attention_mask"], dtype=bool)
+        return ids, pad_mask
+
+    def word_ids(self, token_ids: Sequence[int]) -> List[Optional[int]]:
+        # Fast tokenizers expose word ids only at encode time; re-derive from a
+        # round-trip is lossy, so synthesize whitespace-boundary ids from the
+        # decoded pieces (sufficient for WordMaskingCollator: distinct words
+        # get distinct ids).
+        out: List[Optional[int]] = []
+        special = set(self.hf.all_special_ids)
+        curr = 0
+        in_word = True
+        for t in token_ids:
+            t = int(t)
+            if t in special:
+                out.append(None)
+                curr += 1
+                continue
+            piece = self.hf.convert_ids_to_tokens(t)
+            starts_word = piece.startswith(("Ġ", "▁", " ")) or piece.isspace()
+            if starts_word and in_word:
+                curr += 1
+            in_word = not (starts_word and piece.isspace())
+            out.append(curr)
+        return out
+
+
+def load_tokenizer(name: str, padding_side: Optional[str] = None):
+    """Resolve a tokenizer name. ``"byte"`` / the two Perceiver byte-tokenizer
+    repo ids map to the offline :class:`ByteTokenizer`; anything else goes
+    through ``AutoTokenizer`` (reference ``common.py:116-126``)."""
+    if name in ("byte", "deepmind/language-perceiver", "krasserm/perceiver-io-mlm"):
+        return ByteTokenizer(padding_side=padding_side or "right")
+    from transformers import AutoTokenizer
+
+    return HFTokenizer(AutoTokenizer.from_pretrained(name, verbose=False), padding_side)

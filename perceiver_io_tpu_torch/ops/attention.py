@@ -72,9 +72,15 @@ def kernel_takes(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal: b
     """Whether ``impl="auto"`` sends a CUDA attend of these shapes to K1:
     True where JAX's kernel takes it (:func:`kernel_refusal`), False where
     JAX's ``auto`` takes its einsum path. Raises ``ValueError`` for a head
-    dim that JAX's kernel takes and no K1 route instantiates."""
+    dim that JAX's kernel takes and no K1 route instantiates, and for a value
+    head dim unlike q's, which JAX's kernel takes and K1-K3 do not yet."""
     if kernel_refusal(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal) is not None:
         return False
+    if v_shape[3] != q_shape[3]:
+        raise ValueError(
+            f"value head dim {v_shape[3]} unlike q's {q_shape[3]} is taken by the JAX package's "
+            "flash kernel, but the port's flash kernels take v of q's head dim only (ROADMAP.md B.2)"
+        )
     if q_shape[3] not in _flash.HEAD_DIMS:
         raise ValueError(
             f"head dim {q_shape[3]} is taken by the JAX package's flash kernel, but the port's "

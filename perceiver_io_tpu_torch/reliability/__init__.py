@@ -1,7 +1,8 @@
 """Fault-tolerance layer of the port: the serving queue's backpressure
 signal (:class:`QueueFull`), the deterministic chaos registry
 (:mod:`.chaos`, consulted by the trainer at ``trainer.step``) and
-exponential-backoff retry (:mod:`.retry`, used by ``data.loader``).
+exponential-backoff retry (:mod:`.retry`, used by ``data.loader`` and the
+streaming text pipeline).
 Counterpart of ``perceiver_io_tpu/reliability``."""
 from __future__ import annotations
 
@@ -17,7 +18,11 @@ from perceiver_io_tpu_torch.reliability.chaos import (  # noqa: E402
     Fault,
     InjectedFault,
 )
-from perceiver_io_tpu_torch.reliability.retry import RetryPolicy, call_with_retry  # noqa: E402
+from perceiver_io_tpu_torch.reliability.retry import (  # noqa: E402
+    RetryPolicy,
+    call_with_retry,
+    resilient_source,
+)
 
 __all__ = [
     "QueueFull",
@@ -27,4 +32,5 @@ __all__ = [
     "InjectedFault",
     "RetryPolicy",
     "call_with_retry",
+    "resilient_source",
 ]

@@ -1,9 +1,14 @@
 """Exponential-backoff retry for transient data faults. A copy of
 ``perceiver_io_tpu/reliability/retry.py`` (a module without JAX).
 
-:func:`call_with_retry` retries a single call (the loader's per-example
-fetch). The stream form (``resilient_source``) comes with the streaming data
-modules (``ROADMAP.md`` A.2g).
+- :func:`call_with_retry` retries a single call (the loader's per-example
+  fetch).
+- :func:`resilient_source` retries a *stream* (the streaming text
+  pipeline's source): on a mid-iteration exception it re-opens the source
+  and fast-forwards past the records already emitted, so downstream
+  consumers see one uninterrupted, duplicate-free stream. It assumes the
+  source replays deterministically; the fast-forward re-reads, so a retry
+  costs O(position).
 
 ``sleep`` is injectable everywhere, so a test asserts the backoff schedule
 without waiting for it; jitter (off by default) comes only from an injected
@@ -13,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional, Tuple, Type
+from typing import Callable, Iterable, Iterator, Optional, Tuple, Type
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +72,48 @@ def call_with_retry(
     while True:
         try:
             return fn()
+        except policy.retry_on as e:
+            if attempt >= policy.max_retries:
+                raise
+            if on_retry is not None:
+                on_retry(attempt, e)
+            sleep(policy.delay_s(attempt, rng=rng))
+            attempt += 1
+
+
+def resilient_source(
+    source_fn: Callable[[], Iterable],
+    policy: RetryPolicy,
+    *,
+    sleep: Callable[[float], None] = time.sleep,
+    on_retry: Optional[Callable[[int, BaseException], None]] = None,
+    rng=None,
+) -> Iterator:
+    """Iterate ``source_fn()``, surviving mid-stream exceptions.
+
+    On a failure, back off per ``policy``, re-invoke ``source_fn`` and skip
+    the records already emitted (deterministic replay assumed), then resume
+    yielding. The retry budget resets whenever a record is successfully
+    emitted, so ``max_retries`` bounds *consecutive* failures, not total
+    failures over an arbitrarily long stream.
+    """
+    emitted = 0
+    attempt = 0
+    while True:
+        try:
+            it = iter(source_fn())
+            skipped = 0
+            while skipped < emitted:  # fast-forward past what we already yielded
+                next(it)
+                skipped += 1
+            for item in it:
+                yield item
+                emitted += 1
+                attempt = 0
+            return
+        except StopIteration:
+            # source shrank below the fast-forward point — nothing to resume
+            return
         except policy.retry_on as e:
             if attempt >= policy.max_retries:
                 raise

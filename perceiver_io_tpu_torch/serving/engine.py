@@ -238,6 +238,12 @@ class ServingEngine:
             )
         return [r.result for r in reqs]
 
+    def pending(self) -> bool:
+        """True while a call to :meth:`step` has work to do: the queue depth
+        here; the slot engine adds its resident slots. Drive drain loops off
+        this, not off ``step()``'s return value."""
+        return bool(self._queue)
+
     def run_until_idle(self) -> int:
         """Drain the whole queue; returns the number of requests disposed of."""
         served = 0

@@ -636,10 +636,18 @@ class Trainer:
     def validate(self, val_data: Iterable) -> dict:
         """Deterministic pass over ``val_data`` (at most
         ``limit_val_batches`` batches); mean metrics."""
-        limit = self.config.limit_val_batches
+        return self._evaluate(val_data, self.config.limit_val_batches)
+
+    def test(self, test_data: Iterable) -> dict:
+        """Deterministic pass over the test split (at most
+        ``limit_test_batches`` batches); mean metrics keyed ``test_*``."""
+        metrics = self._evaluate(test_data, self.config.limit_test_batches)
+        return {f"test_{k}": v for k, v in metrics.items()}
+
+    def _evaluate(self, data: Iterable, limit: Optional[int]) -> dict:
         totals: dict = {}
         count = 0
-        for i, batch in enumerate(val_data):
+        for i, batch in enumerate(data):
             if limit is not None and i >= limit:
                 break
             for k, v in self._eval_step(self.state, batch).items():

@@ -160,12 +160,18 @@ def test_flash_plain_dead_rows_are_zero(rng):
     np.testing.assert_allclose(lse[1].numpy(), ref[1].numpy(), **FLASH_TOL)
 
 
-# JAX's auto dispatch by shape: (head dim, q/k/v types, causal, j < i)
+# JAX's auto dispatch by shape: (head dim, q/k/v types, causal, j < i); a
+# head dim given as (d, dv) sets v's apart from q's and k's
 DISPATCH_CASES = [
     (d, types, causal, short)
     for d in (16, 32, 80, 96, 112)
     for types in (("float32",) * 3, ("bfloat16",) * 3, ("float32", "bfloat16", "float32"), ("float16",) * 3)
     for causal, short in ((True, False), (True, True), (False, True))
+] + [
+    (dims, types, causal, short)
+    for dims in ((64, 96), (96, 64), (112, 128), (64, 16), (16, 64))
+    for types in (("float32",) * 3, ("bfloat16",) * 3)
+    for causal, short in ((False, False), (True, False), (True, True))
 ]
 
 
@@ -176,11 +182,23 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
     # and flash raises; where it takes the shape, auto launches K1 if a route
     # instantiates the head dim and raises naming ROADMAP.md B.1 if none does
     i, j = (256, 128) if short else (128, 256)
-    shapes = [(1, 2, n, d) for n in (i, j, j)]
+    d, dv = d if isinstance(d, tuple) else (d, d)
+    shapes = [(1, 2, i, d), (1, 2, j, d), (1, 2, j, dv)]
     jq, jk, jv = (jnp.zeros(shape, getattr(jnp, t)) for shape, t in zip(shapes, types))
     jax_takes = jax_flash.supported(jq, jk, jv, causal=causal)
     args = (*shapes, *(getattr(torch, t) for t in types), causal)
     q, k, v = (torch.zeros(shape, dtype=getattr(torch, t)) for shape, t in zip(shapes, types))
+    if dv != d:
+        # K1-K3 take v of q's head dim only: where JAX's kernel takes the
+        # attend, auto raises naming ROADMAP.md B.2 (the (64, 96) rows hold
+        # (1, 2, 128, 64) q/k against a (1, 2, 256, 96) v, which once passed)
+        assert jax_takes == (min(d, dv) >= 32 and not (causal and short))
+        if jax_takes:
+            with pytest.raises(ValueError, match=r"ROADMAP.md B.2"):
+                attention.kernel_takes(*args)
+        else:
+            assert attention.kernel_takes(*args) is False
+        return
     if not jax_takes:
         assert attention.kernel_refusal(*args) is not None
         assert attention.kernel_takes(*args) is False
