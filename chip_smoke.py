@@ -18,11 +18,17 @@ non-zero and never prints the final line):
    b = 20 (4 slots x 5 lanes, each lane its own pad: per-row stack pads of
    up to 508 latent slots, whose rows below the first live latent are
    dead); every case but the ragged and verify ones again at head dims 64,
-   96 and 128, timed over fewer iterations; and at the symbolic-audio
+   96, 128 and 32, timed over fewer iterations; and at the symbolic-audio
    model's GiantMIDI shapes at head dim 96: the cross attend of 2048 latents
    over 6144 keys (b = 2, one row's pads reaching 104 rows into the
    latents), the 2048 x 2048 latent stack and a decode attend over up to
-   6144 keys), fp32 and bf16, through the route
+   6144 keys); then non-causal: clm-base's cross attend (one batch row
+   all padded: dead rows) and stack at d = 112, and the masked LM's three
+   attends at language-perceiver width with v of its own head dim (the
+   encoder's cross attend of 256 latents over 2048 right-padded tokens at
+   (d, dv) = (32, 160), one row all pad; its 256 x 256 self-attends at (32,
+   160); the decoder's 2048 queries over 256 latents at (32, 96)) and a
+   split case at (32, 160); fp32 and bf16, through the route
    the wrapper picks (``split`` for decode, ``wgmma`` for bf16 tiles,
    ``tf32x3`` for fp32 tiles; a wrong route fails), held at fp32 1e-4, bf16
    2e-2 and lse 1e-3 on live rows, dead rows exactly 0 with ``lse`` the
@@ -196,11 +202,15 @@ non-zero and never prints the final line):
    against their plain versions at the training path's shapes (b = 4, 8
    heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
    512 latents, and j = 1024, with left pads that leave dead rows; the
-   latent stack at j = 512 with no pad mask, also at head dims 64, 96 and
-   128; ragged tiles i = 100 over j = 300 with pads; and at head dim 96 the
+   latent stack at j = 512 with no pad mask, also at head dims 64, 96, 128
+   and 32; ragged tiles i = 100 over j = 300 with pads; and at head dim 96 the
    symbolic-audio model's training cross attend, i = 2048 over j = 4096
    (2048 kept prefix under prefix dropout 0.5 and 2048 latents, left pads
-   reaching 452 rows into the latents), and its 2048 x 2048 stack), fp32
+   reaching 452 rows into the latents), and its 2048 x 2048 stack; then
+   non-causal, phase 3's clm-base cross attend over j = 768 with a batch
+   row all padded and the masked LM's three attends at (d, dv) = (32, 160)
+   and (32, 96); the bounds count 4d + 2dv flops a visible pair for K2
+   and 4d + 4dv for K3), fp32
    and bf16, through the
    route the wrappers pick (``wgmma`` for bf16, ``tf32x3`` for fp32; a
    wrong route fails), held at ``max|d| <= tol * max|plain|`` per output,
@@ -349,7 +359,25 @@ non-zero and never prints the final line):
    heads of 96, 12 layers), bf16, 4 steps of 8 rows in 2 microbatches
    (AdamW to phase 15's 2e-4, 4 warmup steps): a
    finite loss, K1, K2 and K3 26 launches a step on ``wgmma``;
-17. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
+17. mlm: the masked LM at language-perceiver width (vocab 262, 2048
+   context, d_model 768, 256 latents of 1280 channels, 26 self-attends, 8
+   heads over qk 256 with v 1280 in the encoder and 768 in the decoder,
+   tied embeddings, no decoder attention residual; random weights,
+   201,108,230 parameters). (a) One forward of 4 rows at n = 2048 and at
+   n = 1500 with right pads, fp32 and bf16, against ``attention_impl="xla"``
+   at phase 15's gates; 28 K1 launches a forward (1 cross + 26 self + 1
+   decoder), all ``tf32x3`` in fp32 and ``wgmma`` in bf16. (b)
+   ``pipeline("fill-mask")`` over 8 byte texts of 512-2048 bytes with 6
+   masked words each, top-5, fp32: the fillings equal the ``xla`` run's (a
+   difference excused only where a masked position's top-6 logits hold a
+   gap below 1e-4), texts/s and latency p50. (c) The MLM CLI's ``fit``
+   (bf16, 8 steps of 8 x 2048 in 2 microbatches over the synthetic corpus
+   with word masking, the published widths as flags, AdamW to phase 16's
+   2e-5): falling losses, K1/K2/K3 56 launches a step on ``wgmma``, and
+   phase 13's ``train_fit`` with the same arguments gives the same losses
+   bit for bit (its step ms and peak memory); then ``validate`` / ``test
+   --ckpt``, 28 K1 launches each;
+18. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4 with
    its split and tc routes nested and the simt kernel's times as their
@@ -364,7 +392,9 @@ non-zero and never prints the final line):
    ``d96`` figures (its GiantMIDI case at head dim 96) and
    ``symbolic_launches`` (its calls in each run of phase 15); every
    entry's ``cli_launches`` and ``cli_route_launches`` its calls in each
-   run of phase 16), the card's ``nvidia-smi`` line, and the final
+   run of phase 16, and ``mlm_launches`` in each run of phase 17; each
+   route's ``head_dims``, the (d, dv) pairs its cases ran), the card's
+   ``nvidia-smi`` line, and the final
    ``{"ok": true, ...}`` line.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
@@ -381,6 +411,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -415,6 +446,7 @@ K23_CASES = (
     ("stack", 512, 512, None, 112),                 # the latent stack: no pad mask, as on the main path
     ("ragged", 100, 300, [0, 30, 150, 260], 112),   # ragged q and kv tiles; row 3's rows 0..59 dead
     ("stack", 512, 512, None, 64),                  # the kernels' other head dims
+    ("stack", 512, 512, None, 32),
     ("stack", 512, 512, None, 96),
     ("stack", 512, 512, None, 128),
     # the symbolic-audio model at GiantMIDI width (6144 context, 2048 latents,
@@ -423,6 +455,15 @@ K23_CASES = (
     # 452 rows into the latents) and the latent stack
     ("cross_sam", 2048, 4096, [0, 500, 1500, 2500], 96),
     ("stack_sam", 2048, 2048, None, 96),
+)
+# K2/K3's non-causal cases: (name, i, j, left pads, visible keys, d, dv), as
+# K1_NONCAUSAL_CASES: clm-base's cross attend with row 3 all padded (dead
+# rows, and keys no row sees), then the masked LM's three attends
+K23_NONCAUSAL_CASES = (
+    ("cross_nc", 512, 768, [0, 100, 300, 768], None, 112, 112),
+    ("mlm_enc_cross", 256, 2048, None, [2048, 1500, 700, 0], 32, 160),
+    ("mlm_self", 256, 256, None, None, 32, 160),
+    ("mlm_dec_cross", 2048, 256, None, None, 32, 96),
 )
 # the head dim of the symbolic-audio (GiantMIDI) cases; the simt kernels do
 # not instantiate it, so those cases carry no prev_ms
@@ -513,6 +554,9 @@ K1_HEAD_DIM = 112  # clm-base: 896 channels over 8 heads
 # the kernels' other head dims, each case but the ragged one, timed over
 # fewer iterations
 K1_OTHER_HEAD_DIMS = (64, 96, 128)
+# head dims that K1-K3 instantiate (as d = dv) and K4 does not, held in the
+# same cases
+K13_ONLY_HEAD_DIMS = (32,)
 K1_OTHER_CASES = ("cross", "stack", "decode", "decode_empty")
 # K1 at the symbolic-audio model's GiantMIDI shapes (d = 96): the cross
 # attend of 2048 latents over 6144 keys (row 1's 4200 left pads reach 104
@@ -525,8 +569,58 @@ K1_SAM_CASES = (
 )
 
 
-def k1_expected_route(name: str, tname: str) -> str:
-    return "split" if name.startswith("decode") else ("wgmma" if tname == "bfloat16" else "tf32x3")
+# K1's non-causal cases (the Perceiver IO families' attends are all
+# non-causal): (name, i, j, left pads, visible keys, d, dv). First at
+# clm-base's shapes (d = 112), each tile route; row 3's every key padded, so
+# all its rows are dead. Then the masked LM's three attends at
+# language-perceiver width (8 heads over qk 256: d = 32; v 1280 in the
+# encoder, dv = 160, and d_model 768 in the decoder, dv = 96): the encoder's
+# cross attend of 256 latents over 2048 right-padded tokens (row 3 all pad:
+# a dead batch row), its 26 self-attends (256 x 256, no pad mask) and the
+# decoder's cross attend of 2048 output queries over the 256 latents; and a
+# split case with dv != d.
+K1_NONCAUSAL_CASES = (
+    ("cross_nc", 512, 1024, [0, 100, 600, 1024], None, 112, 112),
+    ("stack_nc", 512, 512, None, None, 112, 112),
+    ("mlm_enc_cross", 256, 2048, None, [2048, 1500, 700, 0], 32, 160),
+    ("mlm_self", 256, 256, None, None, 32, 160),
+    ("mlm_dec_cross", 2048, 256, None, None, 32, 96),
+    ("mlm_split", 1, 2048, None, [2048, 1500, 700, 0], 32, 160),
+)
+
+
+def k1_expected_route(i: int, tname: str) -> str:
+    return "split" if i <= 16 else ("wgmma" if tname == "bfloat16" else "tf32x3")
+
+
+def case_mask(torch, i: int, j: int, pads, visible, causal: bool, b: int = 4):
+    """``(pad, allowed)`` of a kernel case: the ``(b, j)`` pad mask (left
+    ``pads`` per batch row, or keys at and past ``visible``; None when both
+    are None) and the ``(b, i, j)`` mask of the pairs the kernel scores."""
+    cols = torch.arange(j, device="cuda")[None, :]
+    if pads is not None:
+        pad = cols < torch.tensor(pads, device="cuda")[:, None]
+    elif visible is not None:
+        pad = cols >= torch.tensor(visible, device="cuda")[:, None]
+    else:
+        pad = None
+    allowed = torch.ones(i, j, dtype=torch.bool, device="cuda")
+    if causal:
+        allowed = cols <= torch.arange(i, device="cuda")[:, None] + (j - i)
+    allowed = allowed[None].expand(b, i, j)
+    if pad is not None:
+        allowed = allowed & ~pad[:, None, :]
+    return pad, allowed
+
+
+def library_time(fn, iters: int):
+    """``(ms, note)`` of the library yardstick under the pinned SDPA backend,
+    or ``(None, why)`` when that backend refuses the shapes."""
+    try:
+        with sdpa_backend():
+            return device_ms(fn, iters), None
+    except RuntimeError as e:
+        return None, f"{SDPA_BACKEND} refused: {str(e).splitlines()[0][:160]}"
 
 
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
@@ -562,49 +656,45 @@ def kernel_cases(torch, flash):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     h = 8
-    shapes = [(*c, K1_HEAD_DIM) for c in K1_CASES] + [
-        (*c, d) for d in K1_OTHER_HEAD_DIMS for c in K1_CASES if c[0] in K1_OTHER_CASES] + [
-        (*c, SAM_HEAD_DIM) for c in K1_SAM_CASES]
+    shapes = [(*c, K1_HEAD_DIM, K1_HEAD_DIM, True) for c in K1_CASES] + [
+        (*c, d, d, True) for d in K1_OTHER_HEAD_DIMS + K13_ONLY_HEAD_DIMS for c in K1_CASES
+        if c[0] in K1_OTHER_CASES] + [
+        (*c, SAM_HEAD_DIM, SAM_HEAD_DIM, True) for c in K1_SAM_CASES] + [
+        (*c, False) for c in K1_NONCAUSAL_CASES]
     cases = []
-    for name, i, j, pads, visible, d in shapes:
-        b = len(pads if pads is not None else visible)  # 4, or a verify's 20 lanes
-        cols = torch.arange(j, device="cuda")[None, :]
-        if pads is not None:
-            pad = cols < torch.tensor(pads, device="cuda")[:, None]
-        else:
-            pad = cols >= torch.tensor(visible, device="cuda")[:, None]
-        causal_ok = cols <= torch.arange(i, device="cuda")[:, None] + (j - i)
-        allowed = causal_ok[None] & ~pad[:, None, :]  # (b, i, j)
+    for name, i, j, pads, visible, d, dv, causal in shapes:
+        b = len(pads) if pads is not None else len(visible) if visible is not None else 4
+        pad, allowed = case_mask(torch, i, j, pads, visible, causal, b)  # allowed: (b, i, j)
         live = allowed.any(-1)  # (b, i)
         seen = int(allowed.any(1).sum().item())  # keys some row sees: the only k/v rows read
         pairs = int(allowed.sum().item()) * h
-        main_dim = d == K1_HEAD_DIM
+        main_dim = d == K1_HEAD_DIM and causal
         sam = name.endswith("_sam")
-        with_prev = d in flash.SIMT_HEAD_DIMS  # the simt kernel keeps 64, 112 and 128
+        with_prev = (d, dv) in flash.SIMT_HEAD_DIMS  # the simt kernel keeps (64, 112, 128) x itself
         for dtype in (torch.float32, torch.bfloat16):
             tname = str(dtype).split(".")[-1]
             q = (torch.randn(b, h, i, d, generator=gen, device="cuda") * d**-0.5).to(dtype)
             k = torch.randn(b, h, j, d, generator=gen, device="cuda").to(dtype)
-            v = torch.randn(b, h, j, d, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(b, h, j, dv, generator=gen, device="cuda").to(dtype)
             before = dict(flash.flash_attention.route_launches)
-            o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True)
+            o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal)
             route = next(r for r, n in flash.flash_attention.route_launches.items() if n != before[r])
-            o_ref, lse_ref = flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=True)
+            o_ref, lse_ref = flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=causal)
             torch.cuda.synchronize()
             err, lse_err, dead_zero = _k1_errors(flash, o, lse, o_ref, lse_ref, live)
             prev_err = prev_lse_err = None
             prev_dead_zero = True
             if with_prev:
-                o_prev, lse_prev = flash._fwd_launch("simt", q, k, v, pad, True)
+                o_prev, lse_prev = flash._fwd_launch("simt", q, k, v, pad, causal)
                 prev_err, prev_lse_err, prev_dead_zero = _k1_errors(flash, o_prev, lse_prev, o_ref,
                                                                     lse_ref, live)
                 del o_prev, lse_prev
             tol = KERNEL_TOL[tname]
-            expected = k1_expected_route(name, tname)
+            expected = k1_expected_route(i, tname)
             if not (err <= tol and lse_err <= 1e-3 and dead_zero and route == expected):
                 raise AssertionError(
-                    f"K1 {name} d={d} {tname} ({route}, expected {expected}): max|d| {err} (tol {tol}), "
-                    f"lse {lse_err}, dead rows 0 with lse MASK {dead_zero}"
+                    f"K1 {name} d={d} dv={dv} {tname} ({route}, expected {expected}): max|d| {err} "
+                    f"(tol {tol}), lse {lse_err}, dead rows 0 with lse MASK {dead_zero}"
                 )
             if with_prev and not (prev_err <= tol and prev_lse_err <= 1e-3 and prev_dead_zero):
                 raise AssertionError(
@@ -618,9 +708,9 @@ def kernel_cases(torch, flash):
                 iters, plain_iters = SAM_ITERS
             attn_mask = allowed[:, None]
             kernel, copies = l2_cold(
-                lambda q, k, v: flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True), q, k, v)
+                lambda q, k, v: flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal), q, k, v)
             plain, _ = l2_cold(
-                lambda q, k, v: flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=True),
+                lambda q, k, v: flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=causal),
                 q, k, v)
             library, _ = l2_cold(
                 lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=1.0),
@@ -628,27 +718,26 @@ def kernel_cases(torch, flash):
             ms = device_ms(kernel, iters)
             prev_ms = None
             if with_prev:
-                prev, _ = l2_cold(lambda q, k, v: flash._fwd_launch("simt", q, k, v, pad, True), q, k, v)
+                prev, _ = l2_cold(lambda q, k, v: flash._fwd_launch("simt", q, k, v, pad, causal), q, k, v)
                 prev_ms = device_ms(prev, iters)
                 del prev
             plain_ms = device_ms(plain, plain_iters)
-            with sdpa_backend():
-                library_ms = device_ms(library, iters)
+            library_ms, library_note = library_time(library, iters)
             del kernel, plain, library
             torch.cuda.empty_cache()
             esize = q.element_size()
-            nbytes = ((q.numel() + o.numel() + 2 * seen * h * d) * esize + lse.numel() * 4
-                      + pad.numel())
-            flops = 4 * d * pairs  # q.k and p.v over the keys this data lets each row see
+            nbytes = ((q.numel() + o.numel() + seen * h * (d + dv)) * esize + lse.numel() * 4
+                      + (0 if pad is None else pad.numel()))
+            flops = (2 * d + 2 * dv) * pairs  # q.k and p.v over the keys this data lets each row see
             bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
             case = dict(
-                case=name, dtype=tname, route=route, b=b, h=h, i=i, j=j, d=d, max_abs_err=err,
-                tol=tol, lse_max_abs_err=lse_err, dead_rows=int((~live).sum().item()),
+                case=name, dtype=tname, route=route, b=b, h=h, i=i, j=j, d=d, dv=dv, causal=causal,
+                max_abs_err=err, tol=tol, lse_max_abs_err=lse_err, dead_rows=int((~live).sum().item()),
                 dead_rows_zero_lse_mask=dead_zero, ms=ms, prev_ms=prev_ms,
                 prev_route="simt" if with_prev else None,
                 prev_max_abs_err=prev_err, prev_lse_max_abs_err=prev_lse_err,
                 plain_ms=plain_ms, library_ms=library_ms, library_backend=SDPA_BACKEND,
-                input_copies=copies, iters=iters,
+                library_note=library_note, input_copies=copies, iters=iters,
             )
             if route == "tf32x3":
                 # the card's fp32-accurate rate is the tensor cores' TF32 rate
@@ -668,7 +757,8 @@ def kernel_cases(torch, flash):
 def k1_refusals(torch, flash) -> None:
     """K1's split, wgmma and tf32x3 routes refuse a query on a base off a
     16-byte boundary, at head dims 112 and 96: the wrapper raises
-    ``ValueError`` and counts no launch."""
+    ``ValueError`` and counts no launch. The simt kernel refuses a v of
+    another head dim than q's."""
     seen = {}
     for d in (K1_HEAD_DIM, SAM_HEAD_DIM):
         for route, i, dtype in (("split", 1, torch.bfloat16), ("wgmma", 64, torch.bfloat16),
@@ -684,11 +774,22 @@ def k1_refusals(torch, flash) -> None:
                 message = str(e)
             counted = (flash.flash_attention.launches, dict(flash.flash_attention.route_launches)) != before
             seen[f"{route} d={d}"] = dict(picked=flash._fwd_route(i, dtype), message=message, counted=counted)
-    emit("k1_refusal", routes=seen)
+    # the simt kernel takes v of q's head dim only: a v of its own width is
+    # refused before its library loads
+    q = torch.randn(2, 8, 64, K1_HEAD_DIM, device="cuda")
+    v = torch.randn(2, 8, 128, 96, device="cuda")
+    simt = None
+    try:
+        flash._fwd_launch("simt", q, torch.randn(2, 8, 128, K1_HEAD_DIM, device="cuda"), v, None, False)
+    except ValueError as e:
+        simt = str(e)
+    emit("k1_refusal", routes=seen, simt_dv=simt)
     for key, r in seen.items():
         if (r["picked"] != key.split()[0] or r["message"] is None or "16-byte" not in r["message"]
                 or r["counted"]):
             raise AssertionError(f"K1 {key} did not refuse a misaligned query: {r}")
+    if simt is None or "v of q's head dim" not in simt:
+        raise AssertionError(f"K1 simt did not refuse v of head dim 96 against q's {K1_HEAD_DIM}: {simt}")
 
 
 def _grad_rotation(torch, F, q, k, v, do, attn_mask):
@@ -723,12 +824,10 @@ def k23_cases(torch, flash):
     b, h = 4, 8
     wrappers = {"dq": flash.flash_attention_bwd_dq, "dkv": flash.flash_attention_bwd_dkv}
     cases = []
-    for name, i, j, pads, d in K23_CASES:
-        cols = torch.arange(j, device="cuda")[None, :]
-        pad = None if pads is None else cols < torch.tensor(pads, device="cuda")[:, None]
-        allowed = (cols <= torch.arange(i, device="cuda")[:, None] + (j - i))[None].expand(b, i, j)
-        if pad is not None:
-            allowed = allowed & ~pad[:, None, :]
+    shapes = [(name, i, j, pads, None, d, d, True) for name, i, j, pads, d in K23_CASES] + [
+        (*c, False) for c in K23_NONCAUSAL_CASES]
+    for name, i, j, pads, visible, d, vd, causal in shapes:
+        pad, allowed = case_mask(torch, i, j, pads, visible, causal, b)
         live = allowed.any(-1)  # (b, i) rows that see a key
         seen = allowed.any(1)   # (b, j) keys that some row sees
         pairs = int(allowed.sum().item()) * h
@@ -736,11 +835,11 @@ def k23_cases(torch, flash):
             tname = str(dtype).split(".")[-1]
             q = (torch.randn(b, h, i, d, generator=gen, device="cuda") * d**-0.5).to(dtype)
             k = torch.randn(b, h, j, d, generator=gen, device="cuda").to(dtype)
-            v = torch.randn(b, h, j, d, generator=gen, device="cuda").to(dtype)
-            do = torch.randn(b, h, i, d, generator=gen, device="cuda").to(dtype)
-            o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=True)
+            v = torch.randn(b, h, j, vd, generator=gen, device="cuda").to(dtype)
+            do = torch.randn(b, h, i, vd, generator=gen, device="cuda").to(dtype)
+            o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal)
             delta = flash.attention_delta(o, do)
-            kw = dict(pad_mask=pad, causal=True)
+            kw = dict(pad_mask=pad, causal=causal)
             before = {n: dict(f.route_launches) for n, f in wrappers.items()}
             dq = flash.flash_attention_bwd_dq(q, k, v, lse, delta, do, **kw)
             dk, dv = flash.flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
@@ -764,12 +863,14 @@ def k23_cases(torch, flash):
                                          ratio=kernel_err / plain_err if plain_err > 0 else math.inf)
                 del q32, k32, v32, do32, o32, lse32, exact
             dead_zero = bool((dq[~live[:, None, :, None].expand_as(dq)] == 0).all().item())
-            unseen = ~seen[:, None, :, None].expand_as(dk)
-            unseen_zero = bool((dk[unseen] == 0).all().item() and (dv[unseen] == 0).all().item())
+            unseen = ~seen[:, None, :, None]
+            unseen_zero = bool((dk[unseen.expand_as(dk)] == 0).all().item()
+                               and (dv[unseen.expand_as(dv)] == 0).all().item())
             finite = all(bool(torch.isfinite(t).all().item()) for t in (dq, dk, dv))
             tol, expected = K23_REL_TOL[tname], K23_ROUTE[tname]
             case = dict(case=name, dtype=tname, route=routes, expected_route=expected, b=b, h=h, i=i,
-                        j=j, d=d, max_abs_err=errs, rel_err=rel, rel_tol=tol, oracle_err=oracle,
+                        j=j, d=d, dv=vd, causal=causal, max_abs_err=errs, rel_err=rel, rel_tol=tol,
+                        oracle_err=oracle,
                         oracle_ratio_tol=K23_ORACLE_RATIO if oracle else None,
                         dead_rows=int((~live).sum().item()), dead_rows_dq_zero=dead_zero,
                         unseen_keys=int((~seen).sum().item()), unseen_keys_dkdv_zero=unseen_zero,
@@ -787,12 +888,12 @@ def k23_cases(torch, flash):
             # wgmma route), 1e-4 of each output's largest plain entry; they
             # do not instantiate d = 96
             t6 = (q, k, v, lse, delta, do)
-            with_prev = d in flash.SIMT_HEAD_DIMS
+            with_prev = (d, vd) in flash.SIMT_HEAD_DIMS
             prev_ok, prev_rel = True, None
             if with_prev:
                 pdq, pdk, pdv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-                flash._bwd_launch("simt", *t6, pad, True, 0, (pdq,))
-                flash._bwd_launch("simt", *t6, pad, True, 1, (pdk, pdv))
+                flash._bwd_launch("simt", *t6, pad, causal, 0, (pdq,))
+                flash._bwd_launch("simt", *t6, pad, causal, 1, (pdk, pdv))
                 torch.cuda.synchronize()
                 prev_rel = {gname: (got.float() - want.float()).abs().max().item()
                             / want.float().abs().max().item()
@@ -800,7 +901,8 @@ def k23_cases(torch, flash):
                 prev_ok = (max(prev_rel.values()) <= SIMT_REL_TOL
                            and all(bool(torch.isfinite(t).all().item()) for t in (pdq, pdk, pdv))
                            and bool((pdq[~live[:, None, :, None].expand_as(pdq)] == 0).all().item())
-                           and bool((pdk[unseen] == 0).all().item() and (pdv[unseen] == 0).all().item()))
+                           and bool((pdk[unseen.expand_as(pdk)] == 0).all().item()
+                                    and (pdv[unseen.expand_as(pdv)] == 0).all().item()))
                 del pdq, pdk, pdv
             case.update(prev_route="simt" if with_prev else None, prev_rel_err=prev_rel,
                         prev_rel_tol=SIMT_REL_TOL)
@@ -812,17 +914,22 @@ def k23_cases(torch, flash):
                                      f"row's dq or an unseen key's dk/dv not 0")
             esize = q.element_size()
             pad_bytes = 0 if pad is None else pad.numel()
-            kv_read = 2 * int(seen.sum().item()) * h * d * esize  # k and v of the keys some row sees
+            kv_read = int(seen.sum().item()) * h * (d + vd) * esize  # k and v of the keys some row sees
             iters, plain_iters, library_iters = (30, 5, 20)
             if name.endswith("_sam"):
                 iters, plain_iters = SAM_ITERS
                 library_iters = iters
             times = {}
+            # bytes: q and do in, dq out (K2), or q and do in, dk and dv out
+            # (K3), beside lse and delta and the k/v rows some row sees;
+            # flops per visible pair: K2 4d + 2dv (S, dP, dQ), K3 4d + 4dv
+            # (S^T, dP^T, dV, dK), with d q/k's head dim and vd v's
             for kname, which, kernel, plain, nbytes, flops in (
                 ("dq", 0, flash.flash_attention_bwd_dq, flash.flash_attention_bwd_dq_reference,
-                 b * h * (3 * i * d * esize + 8 * i) + kv_read + pad_bytes, 6 * d * pairs),
+                 b * h * ((2 * d + vd) * i * esize + 8 * i) + kv_read + pad_bytes, (4 * d + 2 * vd) * pairs),
                 ("dkv", 1, flash.flash_attention_bwd_dkv, flash.flash_attention_bwd_dkv_reference,
-                 b * h * ((2 * i + 2 * j) * d * esize + 8 * i) + kv_read + pad_bytes, 8 * d * pairs),
+                 b * h * ((i + j) * (d + vd) * esize + 8 * i) + kv_read + pad_bytes,
+                 (4 * d + 4 * vd) * pairs),
             ):
                 timed, copies = l2_cold(lambda *t, f=kernel: f(*t, **kw), q, k, v, lse, delta, do)
                 ms = device_ms(timed, iters)
@@ -831,7 +938,7 @@ def k23_cases(torch, flash):
                 prev_ms = None
                 if with_prev:
                     prev, _ = l2_cold(
-                        lambda *t, w=which, outs=outs: flash._bwd_launch("simt", *t, pad, True, w, outs(t)),
+                        lambda *t, w=which, outs=outs: flash._bwd_launch("simt", *t, pad, causal, w, outs(t)),
                         q, k, v, lse, delta, do)
                     prev_ms = device_ms(prev, iters)
                     del prev
@@ -853,12 +960,16 @@ def k23_cases(torch, flash):
                 del timed
                 torch.cuda.empty_cache()
             attn_mask = allowed[:, None]
-            library, graphs = _grad_rotation(torch, F, q, k, v, do, attn_mask)
-            library_ms = device_ms(library, library_iters)
-            del library
+            try:
+                library, graphs = _grad_rotation(torch, F, q, k, v, do, attn_mask)
+                library_ms, library_note = device_ms(library, library_iters), None
+                del library
+            except RuntimeError as e:
+                graphs, library_ms = 0, None
+                library_note = f"{SDPA_BACKEND} refused: {str(e).splitlines()[0][:160]}"
             torch.cuda.empty_cache()
             case.update(kernels=times, library_ms=library_ms, library_graphs=graphs,
-                        library_backend=SDPA_BACKEND,
+                        library_backend=SDPA_BACKEND, library_refused=library_note,
                         library_note="backward of scaled_dot_product_attention (dq, dk, dv together)")
             emit("k23", **case)
             cases.append(case)
@@ -2603,13 +2714,19 @@ def train_grad_gate(torch, clm, flash, training, parallel):
 
 
 def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Path, data, batches, val,
-              lr: float = 1e-4, warmup_steps: int = 2, phase: str = "train_fit"):
+              lr: float = 1e-4, warmup_steps: int = 2, phase: str = "train_fit", make_loss=None,
+              attends: Optional[int] = None, tokens_per_step: Optional[int] = None):
     """(b)/(c) ``Trainer.fit`` at full width: a fresh ``model_cls(cfg)``, 8
     optimizer steps over ``data`` (8 rows, 2 microbatches), AdamW to ``lr``
     under a cosine schedule with ``warmup_steps``, clipping, prefix dropout
     0.5, one validation pass over ``val`` at the end; then the step time
     over ``batches`` (two of ``data``'s). K1, K2 and K3 launch once an
-    attend: 2 microbatches x (1 + the stack's layers) a step."""
+    attend: 2 microbatches x (1 + the stack's layers) a step.
+
+    The Perceiver AR families' defaults, for another family: ``make_loss``
+    ``(model, cfg) -> loss_fn`` (default ``clm_loss_fn`` over the latents),
+    ``attends`` K1/K2/K3 launches a step and ``tokens_per_step`` loss
+    tokens a step (default 8 rows x ``max_latents``)."""
     import numpy as np
 
     tname = str(dtype).split(".")[-1]
@@ -2620,7 +2737,9 @@ def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Pat
         grad_clip_norm=1.0, grad_accum_steps=2, limit_val_batches=1, enable_tensorboard=False,
         default_root_dir=str(root),
     )
-    trainer = training.Trainer(tcfg, training.clm_loss_fn(model, cfg.max_latents),
+    if make_loss is None:
+        make_loss = lambda model, cfg: training.clm_loss_fn(model, cfg.max_latents)  # noqa: E731
+    trainer = training.Trainer(tcfg, make_loss(model, cfg),
                                training.make_optimizer(schedule, optimizer="adamw"),
                                model_config=cfg, lr_schedule=schedule)
     validate, val_counts = trainer.validate, {"k1": 0, "k2": 0, "k3": 0}
@@ -2671,7 +2790,7 @@ def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Pat
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
     p50 = float(np.median(step_ms))
-    tokens = 8 * cfg.max_latents  # loss tokens per optimizer step
+    tokens = tokens_per_step or 8 * cfg.max_latents  # loss tokens per optimizer step
     per_step = {k: v / TRAIN_STEPS for k, v in train_counts.items()}
     line = dict(compute_dtype=tname, steps=TRAIN_STEPS, rows=8, grad_accum_steps=2, losses=losses,
                 val_loss=val_loss, launches=train_counts, launches_per_step=per_step,
@@ -2684,7 +2803,7 @@ def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Pat
     failures = []
     if not (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         failures.append(f"losses {losses}")
-    attends = 2 * (1 + cfg.num_self_attention_layers)
+    attends = attends or 2 * (1 + cfg.num_self_attention_layers)
     if per_step != {"k1": attends, "k2": attends, "k3": attends} or val_counts["k2"] or val_counts["k3"]:
         failures.append(f"launches per step {per_step}, validation {val_counts}")
     expected_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"  # i = the latents
@@ -3755,6 +3874,261 @@ def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, roo
     return runs
 
 
+# The masked LM at language-perceiver width (deepmind/language-perceiver,
+# HF PerceiverForMaskedLM; perceiver_io_tpu/convert/hf_import.py
+# mlm_config_from_hf, docs/pretrained-models.md:15,24-26): the byte
+# vocabulary (262), 2048 context, d_model 768, 256 latents x 1280 channels,
+# 26 self-attends in one block, 8 heads over qk 256 (d = 32) with v 1280 in
+# the encoder (dv = 160) and d_model in the decoder (dv = 96), tied
+# embeddings, no decoder attention residual. Random weights from a seed;
+# attention dropout 0 (with dropout the attends take the plain path).
+MLM_WIDTH = {"encoder.num_input_channels": 768, "encoder.num_cross_attention_heads": 8,
+             "encoder.num_cross_attention_qk_channels": 256, "encoder.num_cross_attention_v_channels": 1280,
+             "encoder.num_self_attention_heads": 8, "encoder.num_self_attention_qk_channels": 256,
+             "encoder.num_self_attention_v_channels": 1280, "encoder.num_self_attention_layers_per_block": 26,
+             "decoder.num_cross_attention_heads": 8, "decoder.num_cross_attention_qk_channels": 256,
+             "decoder.num_cross_attention_v_channels": 768, "decoder.cross_attention_residual": False,
+             "num_latents": 256, "num_latent_channels": 1280}
+MLM_FLAGS = [f"--model.{k}={str(v).lower() if isinstance(v, bool) else v}" for k, v in MLM_WIDTH.items()]
+MLM_SEQ = 2048
+MLM_ATTENDS = 28  # a forward: the encoder's cross attend, its 26 self-attends, the decoder's cross attend
+MLM_RAGGED_N = 1500
+MLM_TEXT_LENS = (512, 700, 900, 1100, 1300, 1500, 1800, 2048)
+MLM_TOP_K = 5
+MLM_MASKS = 6  # masked words a text
+
+
+def language_perceiver_config(config_mod, common_mod, mlm_mod):
+    enc = {k.split(".", 1)[1]: v for k, v in MLM_WIDTH.items() if k.startswith("encoder.")}
+    dec = {k.split(".", 1)[1]: v for k, v in MLM_WIDTH.items() if k.startswith("decoder.")}
+    return config_mod.PerceiverIOConfig(
+        common_mod.TextEncoderConfig(vocab_size=262, max_seq_len=MLM_SEQ, **enc),
+        mlm_mod.TextDecoderConfig(vocab_size=262, max_seq_len=MLM_SEQ, **dec),
+        num_latents=MLM_WIDTH["num_latents"], num_latent_channels=MLM_WIDTH["num_latent_channels"])
+
+
+def mlm_forward(torch, flash, mlm_mod, cfg) -> dict:
+    """(a) one forward of 4 rows at n = 2048 and at a ragged n, right pads on
+    two rows, fp32 and bf16: the kernels against ``attention_impl="xla"``
+    at the symbolic phase's gates, 28 K1 launches a forward (1 cross + 26
+    self + 1 decoder), each on the route the type picks."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        model = mlm_mod.MaskedLanguageModel(cfg, dtype=dtype, seed=0).eval()
+        params = sum(p.numel() for p in model.parameters())
+        for n in (MLM_SEQ, MLM_RAGGED_N):
+            x = torch.randint(0, 256, (4, n), generator=g, device="cuda")
+            pad = torch.zeros(4, n, dtype=torch.bool, device="cuda")
+            pad[1, n - 300:] = True
+            pad[2, n // 2:] = True
+            set_attention_impl(model, "auto")
+            reset_counts(flash)
+            with torch.no_grad():
+                logits = model(x, pad_mask=pad)
+                torch.cuda.synchronize()
+                launches, routes = flash.flash_attention.launches, dict(flash.flash_attention.route_launches)
+                set_attention_impl(model, "xla")
+                plain = model(x, pad_mask=pad)
+            err = (logits.float() - plain.float()).abs().max().item()
+            tol = 1e-3 if dtype == torch.float32 else 8 * bf16_ulp(plain.float().abs().max().item())
+            finite = bool(torch.isfinite(logits).all().item())
+            expected = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+            line = dict(part="forward", dtype=tname, n=n, params=params, logits_shape=list(logits.shape),
+                        max_abs_err_vs_plain=err, tol=tol, logits_max_abs=plain.float().abs().max().item(),
+                        finite=finite, k1_launches=launches, k1_route_launches=routes)
+            emit("mlm", **line)
+            if not (err <= tol and finite and tuple(logits.shape) == (4, n, 262)) \
+                    or launches != MLM_ATTENDS or routes[expected] != launches:
+                raise AssertionError(f"mlm forward {tname} n={n}: max|d| {err} (tol {tol}), finite {finite}, "
+                                     f"shape {tuple(logits.shape)}, K1 {launches} launches {routes} "
+                                     f"(want {MLM_ATTENDS} on {expected})")
+            out[f"{tname}_{n}"] = line
+            del logits, plain
+        set_attention_impl(model, "auto")
+        if dtype == torch.float32:
+            out["model"] = model
+        else:
+            del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mlm_texts():
+    """8 masked texts of 512-2048 bytes: words over a few letters,
+    ``MLM_MASKS`` of them replaced by ``<mask>`` (one token each, so a text
+    stays within its byte count of tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    texts = []
+    for n in MLM_TEXT_LENS:
+        words = []
+        while sum(len(w) + 1 for w in words) < n:
+            words.append("".join(rng.choice(list("etaoinshrdlu"), size=int(rng.integers(2, 8)))))
+        words = " ".join(words)[:n].split(" ")
+        for i in rng.choice(np.arange(1, len(words) - 1), size=MLM_MASKS, replace=False):
+            words[i] = "<mask>"
+        texts.append(" ".join(words))
+    return texts
+
+
+def mlm_fill(torch, flash, pipelines_mod, preprocessor_cls, tokenizer_cls, model, smi: str) -> dict:
+    """(b) ``pipeline("fill-mask")`` over 8 masked texts of 512-2048 bytes,
+    top-5, on the fp32 model: the fillings equal the ``xla`` run's. A text
+    that differs must differ in the top-5 ids of a masked position, and at
+    every masked position and rank where the ``auto`` and ``xla`` forwards'
+    ids differ, the xla logits of the two ids must lie within ``NEAR_TIE``;
+    texts/s of the batch and the per-text latency p50."""
+    import numpy as np
+
+    texts = _mlm_texts()
+    prep = preprocessor_cls(tokenizer_cls(), max_seq_len=MLM_SEQ)
+    pipe = pipelines_mod.pipeline("fill-mask", model, prep)
+    pipe(texts[:1], top_k=MLM_TOP_K)  # warm-up
+    reset_counts(flash)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    filled = pipe(texts, top_k=MLM_TOP_K)
+    batch_s = time.perf_counter() - t0
+    launches, routes = flash.flash_attention.launches, dict(flash.flash_attention.route_launches)
+    latency = []
+    for text in texts:
+        t1 = time.perf_counter()
+        pipe(text, top_k=MLM_TOP_K)
+        latency.append((time.perf_counter() - t1) * 1e3)
+    ids, pad = (np.asarray(x) for x in prep.preprocess_batch(texts))
+    masked = ids == prep.tokenizer.mask_token_id
+    logits = {}
+    for impl in ("auto", "xla"):  # the filler's forward, its logits at the masked positions
+        set_attention_impl(model, impl)
+        try:
+            with torch.no_grad():
+                logits[impl] = model(torch.as_tensor(ids, device="cuda").long(),
+                                     pad_mask=torch.as_tensor(pad, device="cuda")).float().cpu().numpy()[masked]
+            if impl == "xla":
+                filled_xla = pipe(texts, top_k=MLM_TOP_K)
+        finally:
+            set_attention_impl(model, "auto")
+    top = {impl: np.argsort(-x, axis=-1)[:, :MLM_TOP_K] for impl, x in logits.items()}
+    # per masked position and rank: the xla logits' gap between the two runs' ids there
+    gap = np.abs(np.take_along_axis(logits["xla"], top["xla"], -1)
+                 - np.take_along_axis(logits["xla"], top["auto"], -1))
+    diverged = top["auto"] != top["xla"]
+    rows = np.nonzero(masked)[0]
+    differing = [i for i, (a, b) in enumerate(zip(filled, filled_xla)) if a != b]
+    unexcused = sorted({int(rows[p]) for p in np.nonzero((diverged & (gap >= NEAR_TIE)).any(-1))[0]}
+                       | {i for i in differing if not diverged[rows == i].any()})
+    mask_ok = len(filled) == len(texts) and all(len(f) == MLM_TOP_K for f in filled)
+    line = dict(part="fill_mask", card=smi, texts=len(texts), text_bytes=list(MLM_TEXT_LENS), top_k=MLM_TOP_K,
+                masked_positions=int(masked.sum()), batch_s=batch_s, texts_per_s=len(texts) / batch_s,
+                latency_ms=latency, latency_ms_p50=float(np.median(latency)), k1_launches=launches,
+                k1_route_launches=routes, differing_texts=differing,
+                diverged_positions=int(diverged.any(-1).sum()), unexcused=unexcused,
+                top_k_each=mask_ok, example=[f[:80] for f in filled[0][:2]])
+    emit("mlm", **line)
+    if unexcused or not mask_ok or launches != MLM_ATTENDS or routes["tf32x3"] != launches:
+        raise AssertionError(f"mlm fill-mask: texts {unexcused} differ from the xla run's past a near tie, "
+                             f"top-k for each {mask_ok}, K1 {launches} launches {routes}")
+    return line
+
+
+def mlm_cli(torch, flash, ragged, training, parallel, mlm_mod, mlm_script, root: Path, smi: str) -> dict:
+    """(c) the MLM CLI's ``fit`` (bf16, 8 steps of 8 x 2048 over the
+    synthetic corpus with word masking, the published widths as flags),
+    against phase 13's ``train_fit`` with the same arguments (the same
+    losses, bit for bit); then ``validate`` / ``test --ckpt``."""
+    import dataclasses
+    import gc
+
+    from perceiver_io_tpu_torch.data.text.sources import SyntheticTextDataModule
+
+    runs = {}
+    data_kw = dict(dataset_dir=str(root / "data"), max_seq_len=MLM_SEQ, batch_size=8, num_train_docs=64,
+                   num_valid_docs=8, task="mlm")
+    data = [f"--data.{k}={v}" for k, v in data_kw.items()]
+    common = ["--data=synthetic", *data, *MLM_FLAGS, *CLI_TRAIN]
+    state, runs["fit"] = cli_run(torch, flash, ragged, mlm_script.main,
+                                 ["fit", *common, f"--trainer.default_root_dir={root / 'fit'}"], training)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, val_loss = _cli_losses(root / "fit")
+    ckpt = root / "fit" / "checkpoints"
+    _, cfg = training.load_pretrained(str(ckpt))
+    attends = 2 * MLM_ATTENDS
+    failures = _fit_failures(runs["fit"], TRAIN_STEPS, attends)
+    if not (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        failures.append(f"losses {losses}")
+    emit("mlm", part="fit", card=smi, model=dataclasses.asdict(cfg), steps=TRAIN_STEPS, losses=losses,
+         val_loss=val_loss, wall_s=runs["fit"]["wall_s"],
+         launches_per_step={k: runs["fit"]["launches"][k] / TRAIN_STEPS for k in ("k1", "k2", "k3")},
+         **{k: v for k, v in runs["fit"].items() if k != "wall_s"})
+    if failures:
+        raise AssertionError("mlm cli fit: " + "; ".join(failures))
+    fit_dm, aux_dm = (SyntheticTextDataModule(**data_kw) for _ in range(2))
+    for dm in (fit_dm, aux_dm):  # the fit's masks come from its own collator, as the CLI's do
+        dm.prepare_data()
+        dm.setup()
+    direct = train_fit(torch, flash, training, parallel, mlm_mod.MaskedLanguageModel, cfg, torch.bfloat16,
+                       root / "direct", fit_dm.train_dataloader(),
+                       list(itertools.islice(iter(aux_dm.train_dataloader()), 2)),
+                       list(itertools.islice(iter(aux_dm.val_dataloader()), 1)), lr=CLI_LR,
+                       warmup_steps=CLI_WARMUP, phase="mlm_direct_fit",
+                       make_loss=lambda model, cfg: training.mlm_loss_fn(model), attends=attends,
+                       tokens_per_step=8 * MLM_SEQ)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, direct["losses"]))
+    emit("mlm", part="fit_vs_trainer", card=smi, cli_losses=losses, trainer_losses=direct["losses"],
+         max_rel_diff=rel, bit_equal=losses == direct["losses"])
+    if losses != direct["losses"]:
+        raise AssertionError(f"mlm cli fit losses {losses} differ from Trainer.fit's {direct['losses']}")
+    runs["direct"] = direct
+    for sub in ("validate", "test"):
+        metrics, runs[sub] = cli_run(torch, flash, ragged, mlm_script.main,
+                                     [sub, *common, f"--ckpt={ckpt}", f"--trainer.default_root_dir={root / sub}"])
+        key = "loss" if sub == "validate" else "test_loss"
+        emit("mlm", part=sub, card=smi, metrics=metrics, wall_s=runs[sub]["wall_s"],
+             k1_launches=runs[sub]["launches"]["k1"], k1_routes=runs[sub]["k1_routes"])
+        if sorted(metrics) != [key] or not math.isfinite(metrics[key]) \
+                or runs[sub]["k1_routes"]["wgmma"] != runs[sub]["launches"]["k1"] \
+                or runs[sub]["launches"]["k1"] != MLM_ATTENDS:
+            raise AssertionError(f"mlm cli {sub}: {metrics}, K1 {runs[sub]['launches']['k1']} launches "
+                                 f"{runs[sub]['k1_routes']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def mlm_phase(torch, flash, ragged, pipelines_mod, training, parallel, root: Path, smi: str) -> dict:
+    """Phase 17: the masked LM at language-perceiver width: (a) the forward
+    against ``xla`` with 28 K1 launches a forward, (b) ``pipeline("fill-mask")``
+    and (c) the MLM CLI's ``fit`` / ``validate`` / ``test``."""
+    import gc
+
+    from perceiver_io_tpu_torch.data import text as data_text
+    from perceiver_io_tpu_torch.data.text.tokenizers import ByteTokenizer
+    from perceiver_io_tpu_torch.models.core import config as config_mod
+    from perceiver_io_tpu_torch.models.text import common as common_mod
+    from perceiver_io_tpu_torch.models.text import mlm as mlm_mod
+    from perceiver_io_tpu_torch.scripts.text import mlm as mlm_script
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = language_perceiver_config(config_mod, common_mod, mlm_mod)
+    forward = mlm_forward(torch, flash, mlm_mod, cfg)
+    model = forward.pop("model")
+    fill = mlm_fill(torch, flash, pipelines_mod, data_text.TextPreprocessor, ByteTokenizer, model, smi)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = mlm_cli(torch, flash, ragged, training, parallel, mlm_mod, mlm_script, root, smi)
+    seconds = time.perf_counter() - t_phase
+    emit("mlm", part="done", card=smi, seconds=seconds)
+    return {"forward": forward, "fill": fill, "cli": runs, "seconds": seconds}
+
+
 K1_SOURCES = {
     "split": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_split.cu",
     "wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wgmma.cu",
@@ -3785,13 +4159,14 @@ def k1_route_entry(flash, design: str, main: tuple, cases: list, launches: int,
         keys += ("bound_simt_ms", "bound_simt_by")
     return {
         "name": f"flash_attention_fwd[{design}]", "route": "cuda", "design": design,
+        "head_dims": sorted({(c["d"], c["dv"]) for c in mine}), "instantiated_head_dims": flash.HEAD_DIMS,
         "source": K1_SOURCES[design], "replaces": "perceiver_io_tpu/ops/flash_attention.py:198",
         "launches": launches, "kernel_launches": launches * flash.ROUTE_KERNELS[design],
         "launches_from": K1_LAUNCHES_FROM[design],
         "max_abs_err": max(c["max_abs_err"] for c in mine), "case": f"{main[0]} {main[1]} d={K1_HEAD_DIM}",
         **{k: head[k] for k in keys}, "prev_route": "simt",
         "d96": sam_figures(sam, keys + ("max_abs_err",)), "symbolic_launches": symbolic_launches,
-        "cases": [{"case": c["case"], "dtype": c["dtype"], "d": c["d"],
+        "cases": [{"case": c["case"], "dtype": c["dtype"], "d": c["d"], "dv": c["dv"], "causal": c["causal"],
                    **{k: c[k] for k in keys if not k.endswith("_by")}} for c in mine],
     }
 
@@ -3841,13 +4216,17 @@ K23_KERNELS = {
 }
 
 
-def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic: dict, cli: dict) -> list:
+def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic: dict, cli: dict,
+                mlm: dict) -> list:
     """The summary line's entries for K2 (``dq``) or K3 (``dkv``), one per
     route the main path runs (``wgmma`` in bf16, ``tf32x3`` in fp32): the
     cross case (i = 512, j = 768, d = 112) of its type at the top, launches
     from the Trainer.fit run of its type, the train_resilience runs' of that
-    type, the cli phase's fits' (bf16: their route's; fp32: none), and every
-    case that took it."""
+    type, the cli phase's fits' (bf16: their route's; fp32: none), the mlm
+    phase's fits' (``mlm_launches``, bf16), the (d, dv) pairs its cases ran
+    and every case that took it."""
+    from perceiver_io_tpu_torch.ops.flash_attention import HEAD_DIMS
+
     name, replaces, count, grads = K23_KERNELS[kname]
     entries = []
     for tname, design in (("bfloat16", K23_ROUTE["bfloat16"]), ("float32", K23_ROUTE["float32"])):
@@ -3877,7 +4256,11 @@ def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic:
                                   "route": symbolic["train"][tname]["bwd_route_launches"][count][design]},
             "cli_launches": {run: cli[run]["bwd_routes"][count][design] for run in ("fit", "symbolic_fit")},
             "cli_route_launches": {run: cli[run]["bwd_routes"][count] for run in ("fit", "symbolic_fit")},
-            "cases": [{"case": c["case"], "i": c["i"], "j": c["j"], "d": c["d"],
+            "mlm_launches": {"cli_fit": mlm["cli"]["fit"]["bwd_routes"][count][design],
+                             "trainer_fit": mlm["cli"]["direct"]["bwd_route_launches"][count][design]},
+            "head_dims": sorted({(c["d"], c["dv"]) for c in mine}), "instantiated_head_dims": HEAD_DIMS,
+            "cases": [{"case": c["case"], "i": c["i"], "j": c["j"], "d": c["d"], "dv": c["dv"],
+                       "causal": c["causal"],
                        **{k: c["kernels"][kname][k] for k in keys if not k.endswith("_by")},
                        "library_ms": c["library_ms"], "rel_err": {g: c["rel_err"][g] for g in grads},
                        "prev_rel_err": None if c["prev_rel_err"] is None
@@ -3887,19 +4270,27 @@ def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic:
     return entries
 
 
+#: K1-K3 kernels templated on (D, DV): ptxas_by_kernel keys them "DxDV"
+PAIR_KERNELS = ("flash_fwd_split_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_tf32x3_kernel",
+                "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel",
+                "flash_bwd_dkv_tf32x3_kernel")
+
+
 def ptxas_by_kernel(log: str) -> dict:
     """``nvcc -Xptxas -v`` output as {kernel: {instances, registers [min,
     max], max spill store bytes, and the same per head dim}}, kernels named
-    by their function name, head dims read from the first ``int`` template
-    argument of the mangled name (every kernel's first is its head dim)."""
+    by their function name, head dims read from the ``int`` template
+    arguments of the mangled name: the first (every kernel's first is its
+    head dim), or "DxDV" from the first two for :data:`PAIR_KERNELS`."""
     out = {}
     name = dim = None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(.*?\d+((?:flash|ragged)_\w*?kernel)\w*)'", line)
         if entry:
             name = entry.group(2)
-            d = re.search(r"Li(\d+)E", entry.group(1)[entry.group(1).index(name):])
-            dim = int(d.group(1)) if d else None
+            ints = re.findall(r"Li(\d+)E", entry.group(1)[entry.group(1).index(name):])
+            dim = (f"{ints[0]}x{ints[1]}" if name in PAIR_KERNELS and len(ints) > 1
+                   else int(ints[0]) if ints else None)
             rec = out.setdefault(name, {"instances": 0, "registers": [], "max_spill_store_bytes": 0,
                                         "by_head_dim": {}})
             rec["instances"] += 1
@@ -3998,6 +4389,11 @@ def main() -> int:
     emit("memory_before_cli", **held_memory(torch))
     cli = cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, ROOT / "build" / "chip_smoke_cli",
                     smi)
+    emit("memory_before_mlm", **held_memory(torch))
+    mlm = mlm_phase(torch, flash, ragged, pipelines_mod, training, parallel, ROOT / "build" / "chip_smoke_mlm", smi)
+    mlm_k1 = {**{f"forward_{k}": v["k1_route_launches"] for k, v in mlm["forward"].items()},
+              "fill_mask": mlm["fill"]["k1_route_launches"],
+              **{run: mlm["cli"][run]["k1_routes"] for run in ("fit", "validate", "test")}}
 
     main_case = next(c for c in cases
                      if (c["case"], c["dtype"], c["d"]) == ("cross", "float32", K1_HEAD_DIM))
@@ -4037,12 +4433,15 @@ def main() -> int:
         "symbolic_launches": {"bucket_serve": symbolic["bucket_serve"]["k1"],
                               **{f"slot_serve_{layout}": v["k1"] for layout, v in symbolic["slot_serve"].items()},
                               **{f"train_{t}": v["launches"]["k1"] for t, v in symbolic["train"].items()}},
+        "mlm_launches": {run: sum(routes.values()) for run, routes in mlm_k1.items()},
+        "mlm_route_launches": mlm_k1,
         "routes": [{**k1_route_entry(flash, design, main, cases, route_launches[design], {
                        "bucket_serve": symbolic["bucket_serve"]["k1_routes"][design],
                        **{f"slot_serve_{layout}": v["k1_routes"][design]
                           for layout, v in symbolic["slot_serve"].items()},
                        **{f"train_{t}": v["k1_route_launches"][design] for t, v in symbolic["train"].items()}}),
-                    "cli_launches": {run: r["k1_routes"][design] for run, r in cli.items()}}
+                    "cli_launches": {run: r["k1_routes"][design] for run, r in cli.items()},
+                    "mlm_launches": {run: routes[design] for run, routes in mlm_k1.items()}}
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
                                         ("tf32x3", ("cross", "float32")))],
     }, {
@@ -4082,7 +4481,7 @@ def main() -> int:
                                       for layout, v in symbolic["slot_serve"].items()}),
                     "cli_launches": {run: cli[run]["k4_routes"][design] for run in ("serve_bucket", "serve_slots")}}
                    for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
-    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic, cli)]}),
+    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic, cli, mlm)]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,12 @@ flax                            torch
 ``Embed.embedding``             ``Embedding.weight``
 ``layers_<i>``                  ``layers.<i>`` (``nn.ModuleList``)
 ``output_adapter.bias``         ``output_adapter.bias``, as it is
+``*_provider.query``            ``*_provider.query``, as it is
 ==============================  =======================================
+
+A shared layer (the Perceiver IO encoder's ``cross_attn_1`` and
+``self_attn_1``, applied again at later depths) is one parameter set in
+both trees, so it maps once.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_LEAF = {"scale": "weight", "embedding": "weight", "bias": "bias"}
+_LEAF = {"scale": "weight", "embedding": "weight", "bias": "bias", "query": "query"}
 _LIST_ITEM = re.compile(r"^(\w+)_(\d+)$")
 
 

@@ -460,8 +460,3 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                static_cast<cudaStream_t>(stream)};
   return dispatch<true>(a, D, causal, dtype);
 }
-
-// Head dims this library instantiates, for the wrapper's checks.
-extern "C" int flash_attention_bwd_supports_head_dim(int d) {
-  return d == 64 || d == 112 || d == 128;
-}

@@ -67,11 +67,22 @@
 // products run 7 k-steps over the real columns, the RS products are
 // m64n128k16 (m64n64k16 at d = 64) whose columns 112-127 stay 0 and are not
 // stored. d = 96 is the same with columns 96-127 zero and 6 k-steps.
+//
+// v and do of their own width dv (the DV template argument beside D;
+// csrc/head_dims.cuh lists the pairs; the Perceiver IO masked LM has d = 32
+// with dv = 160 and 96): q and k tiles take ceil(d / 64) boxes a row, v and
+// do ceil(dv / 64). S = Q.K^T runs d / 16 k-steps, dP = dO.V^T dv / 16; dQ
+// and dK are 64 x 64 * ceil(d / 64) accumulators, dV 64 x 64 * ceil(dv / 64)
+// (at dv = 160 m64n128k16 over the first two boxes and m64n64k16 over the
+// third, 96 fp32 registers a thread; with dK's 32 and S^T, dP^T's 64 that is
+// d = 112's 192). At d = 32 the one q/k box holds 32 real columns and TMA
+// zero-fills the rest.
 // Ragged edges (i, j not multiples of 64) are TMA zero-fill plus the select
 // and a store guard.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "head_dims.cuh"  // FLASH_HEAD_DIM_PAIRS
 #include "sm90.cuh"
 
 namespace {
@@ -84,16 +95,21 @@ constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int BOX_BYTES = 64 * 64 * 2;   // one 64 x 64 bf16 box
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int D, int DV>
 struct Tile {
-  static constexpr int HALVES = D > 64 ? 2 : 1;     // 64-column boxes per row
-  static constexpr int DP = 64 * HALVES;            // dQ / dK / dV accumulator width
-  static constexpr int KSTEPS = D / 16;             // k-steps of the SS products
-  static constexpr int BYTES = HALVES * BOX_BYTES;  // 64 rows of q, k, v or do
-  // two resident tiles, a ring of STAGES tile pairs, K3's per-stage lse and
-  // delta, and the barriers with K2's per-stage key masks
-  static constexpr int SMEM =
-      1024 + (2 + 2 * STAGES) * BYTES + STAGES * 2 * BM * 4 + (3 * STAGES + 1) * 8;
+  static constexpr int QK_BOXES = (D + 63) / 64;         // 64-column boxes per q or k row
+  static constexpr int V_BOXES = (DV + 63) / 64;         // per v or do row
+  static constexpr int DP = 64 * QK_BOXES;               // dQ / dK accumulator width
+  static constexpr int DVP = 64 * V_BOXES;               // dV accumulator width
+  static constexpr int KSTEPS = D / 16;                  // k-steps of S = Q.K^T
+  static constexpr int VSTEPS = DV / 16;                 // k-steps of dP = dO.V^T
+  static constexpr int QK_BYTES = QK_BOXES * BOX_BYTES;  // 64 rows of q or k
+  static constexpr int V_BYTES = V_BOXES * BOX_BYTES;    // 64 rows of v or do
+  // two resident tiles (one q/k-wide, one v-wide), a ring of STAGES tile
+  // pairs, K3's per-stage lse and delta, and the barriers with K2's
+  // per-stage key masks
+  static constexpr int SMEM = 1024 + (1 + STAGES) * (QK_BYTES + V_BYTES) + STAGES * 2 * BM * 4 +
+                              (3 * STAGES + 1) * 8;
 };
 
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
@@ -114,30 +130,30 @@ __device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, u
   __syncthreads();
 }
 
-// TMA loads of one 64-row tile (every box of it) at row `row` of (batch, head) bh
-template <int D>
+// TMA loads of one 64-row tile (its BOXES boxes) at row `row` of (batch, head) bh
+template <int BOXES>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
                                           int row, int bh) {
-  for (int h = 0; h < Tile<D>::HALVES; ++h)
+  for (int h = 0; h < BOXES; ++h)
     sm90::tma_load_3d(dst + h * BOX_BYTES, map, bar, h * 64, row, bh);
 }
 
-// s = A0 . B0^T and dp = A1 . B1^T over the D columns: four 64-row tiles in
-// shared memory, all K-major; one wgmma group, waited on
-template <int D>
+// s = A0 . B0^T over the D columns and dp = A1 . B1^T over the DV columns:
+// four 64-row tiles in shared memory, all K-major; one wgmma group, waited on
+template <int D, int DV>
 __device__ __forceinline__ void ss_pair(float (&s)[32], float (&dp)[32], const uint8_t* a0,
                                         const uint8_t* b0, const uint8_t* a1, const uint8_t* b1) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
   sm90::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < Tile<D>::KSTEPS; ++kk) {
+  for (int kk = 0; kk < Tile<D, DV>::KSTEPS; ++kk) {
     const int at = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
     sm90::wgmma_m64n64k16_ss(s, sm90::desc_sw128(a0 + at, 16, 1024),
                              sm90::desc_sw128(b0 + at, 16, 1024), kk > 0);
   }
 #pragma unroll
-  for (int kk = 0; kk < Tile<D>::KSTEPS; ++kk) {
+  for (int kk = 0; kk < Tile<D, DV>::VSTEPS; ++kk) {
     const int at = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
     sm90::wgmma_m64n64k16_ss(dp, sm90::desc_sw128(a1 + at, 16, 1024),
                              sm90::desc_sw128(b1 + at, 16, 1024), kk > 0);
@@ -163,30 +179,24 @@ template <int DP>
 __device__ __forceinline__ void rs_product(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
                                            const uint8_t* b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t desc = sm90::desc_sw128(b + kk * 2048, BOX_BYTES, 1024);
-    if constexpr (DP == 128) {
-      sm90::wgmma_m64n128k16_rs_mn(acc, a[kk], desc, 1);
-    } else {
-      sm90::wgmma_m64n64k16_rs_mn(acc, a[kk], desc, 1);
-    }
-  }
+  for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs_mn_cols<DP>(acc, a[kk], b + kk * 2048, BOX_BYTES);
 }
 
-// rows r_lo (rr = 0) and r_lo + 8 (rr = 1) of an accumulator, columns < D, as bf16
-template <int D>
+// rows r_lo (rr = 0) and r_lo + 8 (rr = 1) of a DP-column accumulator,
+// columns < N, as bf16
+template <int N, int DP>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
-                                           const float (&acc)[Tile<D>::DP / 2], int r_lo,
-                                           int limit, int lane) {
+                                           const float (&acc)[DP / 2], int r_lo, int limit,
+                                           int lane) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = r_lo + 8 * rr;
     if (row >= limit) continue;
-    __nv_bfloat16* orow = out + (size_t)row * D;
+    __nv_bfloat16* orow = out + (size_t)row * N;
 #pragma unroll
-    for (int c = 0; c < Tile<D>::DP / 8; ++c) {
+    for (int c = 0; c < DP / 8; ++c) {
       const int col = 8 * c + 2 * (lane % 4);
-      if (col < D) {
+      if (col < N) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(acc[4 * c + 2 * rr], acc[4 * c + 2 * rr + 1]);
       }
@@ -194,7 +204,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
   }
 }
 
-template <int D, bool CAUSAL, bool HAS_PAD>
+template <int D, int DV, bool CAUSAL, bool HAS_PAD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
@@ -203,14 +213,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const uint8_t* __restrict__ pad, const float* __restrict__ lse,
                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H,
                           int I, int J) {
-  using T = Tile<D>;
-  static_assert(D % 16 == 0 && D <= 128, "head dim must be a multiple of 16, at most 128");
+  using T = Tile<D, DV>;
+  static_assert(D % 16 == 0 && D <= 128, "q/k head dim must be a multiple of 16, at most 128");
+  static_assert(DV % 16 == 0 && DV <= 192, "v head dim must be a multiple of 16, at most 192");
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* q_s = aligned_smem(smem_raw);    // [half] boxes
-  uint8_t* do_s = q_s + T::BYTES;           // [half]
-  uint8_t* k_s = do_s + T::BYTES;           // [stage][half]
-  uint8_t* v_s = k_s + STAGES * T::BYTES;   // [stage][half]
-  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + STAGES * T::BYTES);
+  uint8_t* q_s = aligned_smem(smem_raw);        // [box]
+  uint8_t* do_s = q_s + T::QK_BYTES;            // [box]
+  uint8_t* k_s = do_s + T::V_BYTES;             // [stage][box]
+  uint8_t* v_s = k_s + STAGES * T::QK_BYTES;    // [stage][box]
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + STAGES * T::V_BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* q_full = empty + STAGES;
   uint64_t* keymask = q_full + 1;  // [stage]: bit c = key c of the tile is seen
@@ -230,9 +241,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) {
       sm90::tma_prefetch_map(&kmap);
       sm90::tma_prefetch_map(&vmap);
-      sm90::mbar_arrive_expect_tx(q_full, 2 * T::BYTES);
-      load_tile<D>(q_s, &qmap, q_full, row0, bh);
-      load_tile<D>(do_s, &domap, q_full, row0, bh);
+      sm90::mbar_arrive_expect_tx(q_full, T::QK_BYTES + T::V_BYTES);
+      load_tile<T::QK_BOXES>(q_s, &qmap, q_full, row0, bh);
+      load_tile<T::V_BOXES>(do_s, &domap, q_full, row0, bh);
     }
     for (int t = 0; t < n_tiles; ++t) {
       const int stage = t % STAGES;
@@ -244,9 +255,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t hi = __ballot_sync(0xffffffffu, ok1);
       if (lane == 0) {
         keymask[stage] = (static_cast<uint64_t>(hi) << 32) | lo;
-        sm90::mbar_arrive_expect_tx(&full[stage], 2 * T::BYTES);
-        load_tile<D>(k_s + stage * T::BYTES, &kmap, &full[stage], t * BN, bh);
-        load_tile<D>(v_s + stage * T::BYTES, &vmap, &full[stage], t * BN, bh);
+        sm90::mbar_arrive_expect_tx(&full[stage], T::QK_BYTES + T::V_BYTES);
+        load_tile<T::QK_BOXES>(k_s + stage * T::QK_BYTES, &kmap, &full[stage], t * BN, bh);
+        load_tile<T::V_BOXES>(v_s + stage * T::V_BYTES, &vmap, &full[stage], t * BN, bh);
       }
       __syncwarp();
     }
@@ -274,9 +285,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int stage = t % STAGES;
     const int col0 = t * BN;
     sm90::mbar_wait(&full[stage], (t / STAGES) & 1);
-    const uint8_t* kt = k_s + stage * T::BYTES;
+    const uint8_t* kt = k_s + stage * T::QK_BYTES;
     float s[32], dp[32];
-    ss_pair<D>(s, dp, q_s, kt, do_s, v_s + stage * T::BYTES);
+    ss_pair<D, DV>(s, dp, q_s, kt, do_s, v_s + stage * T::V_BYTES);
 
     // ds = p * (dp - delta), p = exp(s - lse); a dead row's exp overflows,
     // so the select runs wherever the tile holds a masked entry: tiles that
@@ -307,10 +318,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::mbar_arrive(&empty[stage]);
   }
 
-  store_rows<D>(dq + (size_t)bh * I * D, acc, r_lo, I, lane);
+  store_rows<D, T::DP>(dq + (size_t)bh * I * D, acc, r_lo, I, lane);
 }
 
-template <int D, bool CAUSAL, bool HAS_PAD>
+template <int D, int DV, bool CAUSAL, bool HAS_PAD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -319,14 +330,15 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const uint8_t* __restrict__ pad, const float* __restrict__ lse,
                            const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int H, int I, int J) {
-  using T = Tile<D>;
-  static_assert(D % 16 == 0 && D <= 128, "head dim must be a multiple of 16, at most 128");
+  using T = Tile<D, DV>;
+  static_assert(D % 16 == 0 && D <= 128, "q/k head dim must be a multiple of 16, at most 128");
+  static_assert(DV % 16 == 0 && DV <= 192, "v head dim must be a multiple of 16, at most 192");
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* k_s = aligned_smem(smem_raw);    // [half] boxes
-  uint8_t* v_s = k_s + T::BYTES;            // [half]
-  uint8_t* q_s = v_s + T::BYTES;            // [stage][half]
-  uint8_t* do_s = q_s + STAGES * T::BYTES;  // [stage][half]
-  float* lse_s = reinterpret_cast<float*>(do_s + STAGES * T::BYTES);  // [stage][BM], log2 units
+  uint8_t* k_s = aligned_smem(smem_raw);       // [box]
+  uint8_t* v_s = k_s + T::QK_BYTES;            // [box]
+  uint8_t* q_s = v_s + T::V_BYTES;             // [stage][box]
+  uint8_t* do_s = q_s + STAGES * T::QK_BYTES;  // [stage][box]
+  float* lse_s = reinterpret_cast<float*>(do_s + STAGES * T::V_BYTES);  // [stage][BM], log2 units
   float* delta_s = lse_s + STAGES * BM;                                // [stage][BM]
   uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + STAGES * BM);
   uint64_t* empty = full + STAGES;
@@ -352,9 +364,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) {
       sm90::tma_prefetch_map(&qmap);
       sm90::tma_prefetch_map(&domap);
-      sm90::mbar_arrive_expect_tx(kv_full, 2 * T::BYTES);
-      load_tile<D>(k_s, &kmap, kv_full, col0, bh);
-      load_tile<D>(v_s, &vmap, kv_full, col0, bh);
+      sm90::mbar_arrive_expect_tx(kv_full, T::QK_BYTES + T::V_BYTES);
+      load_tile<T::QK_BOXES>(k_s, &kmap, kv_full, col0, bh);
+      load_tile<T::V_BOXES>(v_s, &vmap, kv_full, col0, bh);
     }
     for (int t = t0; t < n_tiles; ++t) {
       const int n = t - t0;
@@ -369,9 +381,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       // each lane's arrival releases its own lse / delta writes
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(&full[stage], 2 * T::BYTES);
-        load_tile<D>(q_s + stage * T::BYTES, &qmap, &full[stage], t * BM, bh);
-        load_tile<D>(do_s + stage * T::BYTES, &domap, &full[stage], t * BM, bh);
+        sm90::mbar_arrive_expect_tx(&full[stage], T::QK_BYTES + T::V_BYTES);
+        load_tile<T::QK_BOXES>(q_s + stage * T::QK_BYTES, &qmap, &full[stage], t * BM, bh);
+        load_tile<T::V_BOXES>(do_s + stage * T::V_BYTES, &domap, &full[stage], t * BM, bh);
       } else {
         sm90::mbar_arrive(&full[stage]);
       }
@@ -392,9 +404,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   const bool keys_ok = key_ok[0] && key_ok[1];
 
-  float acc_k[T::DP / 2], acc_v[T::DP / 2];
+  float acc_k[T::DP / 2], acc_v[T::DVP / 2];
 #pragma unroll
-  for (int i = 0; i < T::DP / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < T::DP / 2; ++i) acc_k[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < T::DVP / 2; ++i) acc_v[i] = 0.f;
 
   sm90::mbar_wait(kv_full, 0);
   for (int t = t0; t < n_tiles; ++t) {
@@ -402,10 +416,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int stage = n % STAGES;
     const int row0 = t * BM;
     sm90::mbar_wait(&full[stage], (n / STAGES) & 1);
-    const uint8_t* qt = q_s + stage * T::BYTES;
-    const uint8_t* dot = do_s + stage * T::BYTES;
+    const uint8_t* qt = q_s + stage * T::QK_BYTES;
+    const uint8_t* dot = do_s + stage * T::V_BYTES;
     float s[32], dp[32];  // S^T and dP^T: rows keys, columns queries
-    ss_pair<D>(s, dp, k_s, qt, v_s, dot);
+    ss_pair<D, DV>(s, dp, k_s, qt, v_s, dot);
 
     // p^T and ds^T; the select where this thread's keys are masked, the
     // tile straddles the shifted diagonal or runs past the last query
@@ -441,7 +455,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     pack_fragments(pa, s);
     pack_fragments(da, dp);
     sm90::wgmma_fence();
-    rs_product<T::DP>(acc_v, pa, dot);  // dV += P^T . dO, dO MN-major
+    rs_product<T::DVP>(acc_v, pa, dot);  // dV += P^T . dO, dO MN-major
     rs_product<T::DP>(acc_k, da, qt);   // dK += dS^T . Q, Q MN-major
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -450,8 +464,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::mbar_arrive(&empty[stage]);
   }
 
-  store_rows<D>(dk + (size_t)bh * J * D, acc_k, k_lo, J, lane);
-  store_rows<D>(dv + (size_t)bh * J * D, acc_v, k_lo, J, lane);
+  store_rows<D, T::DP>(dk + (size_t)bh * J * D, acc_k, k_lo, J, lane);
+  store_rows<DV, T::DVP>(dv + (size_t)bh * J * DV, acc_v, k_lo, J, lane);
 }
 
 struct Args {
@@ -469,18 +483,18 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <bool DKV, int D, bool CAUSAL, bool HAS_PAD>
+template <bool DKV, int D, int DV, bool CAUSAL, bool HAS_PAD>
 cudaError_t launch(const Args& a) {
   CUtensorMap qmap, kmap, vmap, domap;
   if (!sm90_host::bf16_rows_map(&qmap, a.q, D, a.I, a.B * a.H) ||
       !sm90_host::bf16_rows_map(&kmap, a.k, D, a.J, a.B * a.H) ||
-      !sm90_host::bf16_rows_map(&vmap, a.v, D, a.J, a.B * a.H) ||
-      !sm90_host::bf16_rows_map(&domap, a.dout, D, a.I, a.B * a.H)) {
+      !sm90_host::bf16_rows_map(&vmap, a.v, DV, a.J, a.B * a.H) ||
+      !sm90_host::bf16_rows_map(&domap, a.dout, DV, a.I, a.B * a.H)) {
     return cudaErrorInvalidValue;
   }
-  const int smem = Tile<D>::SMEM;
+  const int smem = Tile<D, DV>::SMEM;
   if constexpr (DKV) {
-    auto kernel = flash_bwd_dkv_wgmma_kernel<D, CAUSAL, HAS_PAD>;
+    auto kernel = flash_bwd_dkv_wgmma_kernel<D, DV, CAUSAL, HAS_PAD>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((a.J + BN - 1) / BN, a.H, a.B);
@@ -488,7 +502,7 @@ cudaError_t launch(const Args& a) {
                                               static_cast<__nv_bfloat16*>(a.dk),
                                               static_cast<__nv_bfloat16*>(a.dv), a.H, a.I, a.J);
   } else {
-    auto kernel = flash_bwd_dq_wgmma_kernel<D, CAUSAL, HAS_PAD>;
+    auto kernel = flash_bwd_dq_wgmma_kernel<D, DV, CAUSAL, HAS_PAD>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((a.I + BM - 1) / BM, a.H, a.B);
@@ -498,57 +512,51 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <bool DKV, int D>
+template <bool DKV, int D, int DV>
 cudaError_t dispatch_mask(const Args& a, int causal) {
   if (causal) {
-    return a.pad ? launch<DKV, D, true, true>(a) : launch<DKV, D, true, false>(a);
+    return a.pad ? launch<DKV, D, DV, true, true>(a) : launch<DKV, D, DV, true, false>(a);
   }
-  return a.pad ? launch<DKV, D, false, true>(a) : launch<DKV, D, false, false>(a);
+  return a.pad ? launch<DKV, D, DV, false, true>(a) : launch<DKV, D, DV, false, false>(a);
 }
 
 template <bool DKV>
-int dispatch(const Args& a, int D, int causal, int dtype) {
+int dispatch(const Args& a, int D, int DV, int causal, int dtype) {
   if (dtype != 1) return cudaErrorInvalidValue;  // bf16 only
-  switch (D) {
-    case 64: return dispatch_mask<DKV, 64>(a, causal);
-    case 96: return dispatch_mask<DKV, 96>(a, causal);
-    case 112: return dispatch_mask<DKV, 112>(a, causal);
-    case 128: return dispatch_mask<DKV, 128>(a, causal);
-    default: return cudaErrorInvalidValue;
-  }
+#define BWD_CASE(PD, PDV) \
+  if (D == PD && DV == PDV) return dispatch_mask<DKV, PD, PDV>(a, causal);
+  FLASH_HEAD_DIM_PAIRS(BWD_CASE)
+#undef BWD_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes; the argument lists of
-// flash_attention_bwd_dq / _dkv (csrc/flash_attention_bwd.cu). q and do
-// (B,H,I,D), k and v (B,H,J,D), contiguous bf16 with 16-byte aligned bases;
-// pad (B,J) uint8 or null; lse and delta (B,H,I) fp32; outputs bf16. dtype
-// must be 1 (bfloat16). Each returns the launch's cudaError_t
-// (cudaErrorInvalidValue for another dtype or head dim, or if a tensor map
-// cannot be made).
+// flash_attention_bwd_dq / _dkv (csrc/flash_attention_bwd.cu) with DV after
+// D. q (B,H,I,D), do (B,H,I,DV), k (B,H,J,D) and v (B,H,J,DV), contiguous
+// bf16 with 16-byte aligned bases; pad (B,J) uint8 or null; lse and delta
+// (B,H,I) fp32; outputs bf16 of their inputs' shapes. dtype must be 1
+// (bfloat16). Each returns the launch's cudaError_t (cudaErrorInvalidValue
+// for another dtype or (D, DV) pair, or if a tensor map cannot be made).
 extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k, const void* v,
                                             const void* pad, const void* lse, const void* delta,
                                             const void* dout, void* dq, int B, int H, int I,
-                                            int J, int D, int causal, int dtype, void* stream) {
+                                            int J, int D, int DV, int causal, int dtype,
+                                            void* stream) {
   const Args a{q, k, v, static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
                static_cast<const float*>(delta), dout, dq, nullptr, nullptr, B, H, I, J,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, D, causal, dtype);
+  return dispatch<false>(a, D, DV, causal, dtype);
 }
 
 extern "C" int flash_attention_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                                              const void* pad, const void* lse, const void* delta,
                                              const void* dout, void* dk, void* dv, int B, int H,
-                                             int I, int J, int D, int causal, int dtype,
+                                             int I, int J, int D, int DV, int causal, int dtype,
                                              void* stream) {
   const Args a{q, k, v, static_cast<const uint8_t*>(pad), static_cast<const float*>(lse),
                static_cast<const float*>(delta), dout, nullptr, dk, dv, B, H, I, J,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, D, causal, dtype);
-}
-
-// Head dims this library instantiates, for the wrapper's checks.
-extern "C" int flash_attention_bwd_wgmma_supports_head_dim(int d) {
-  return d == 64 || d == 96 || d == 112 || d == 128;
+  return dispatch<true>(a, D, DV, causal, dtype);
 }

@@ -253,8 +253,3 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1) return dispatch_dim<__nv_bfloat16>(q, k, v, p, o, l, B, H, I, J, D, causal, s);
   return cudaErrorInvalidValue;
 }
-
-// Head dims this library instantiates, for the wrapper's checks.
-extern "C" int flash_attention_fwd_supports_head_dim(int d) {
-  return d == 64 || d == 112 || d == 128;
-}

@@ -6,12 +6,13 @@
 // (csrc/flash_attention_fwd.cu, csrc/flash_attention_fwd_wgmma.cu). Same
 // function: attention over pre-scaled queries with the right-aligned causal
 // mask `col <= row + (j - i)`, an optional (b, j) key pad mask (1 = pad),
-// fp32 softmax and sums, p cast to v's type before p.v, o (b, h, i, d) in the
-// input type and lse (b, h, i) fp32; a row that sees no key gets o = 0 and
-// lse = MASK.
+// fp32 softmax and sums, p cast to v's type before p.v, o (b, h, i, dv) in
+// the input type and lse (b, h, i) fp32; a row that sees no key gets o = 0
+// and lse = MASK. v has a head dim of its own, dv (the DV template argument
+// beside D; csrc/head_dims.cuh lists the pairs).
 //
 // What bounds it on the H100: at q_len = 1 each key is read once and used
-// for 4*d flops, about 1 flop per byte, so the attend is bound by the bytes
+// for 2*d + 2*dv flops, about 1 flop per byte, so the attend is bound by the bytes
 // of k and v. One block per (query tile, head, batch), as in the tile
 // kernels, would give b*h = 32 blocks for 132 SMs and idle 63 of every 64
 // score products. Here the keys are cut into splits of SPLIT = 64 and the
@@ -30,6 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "head_dims.cuh"  // FLASH_HEAD_DIM_PAIRS
 #include "vec16.cuh"  // unpack, store
 
 namespace {
@@ -75,18 +77,18 @@ __device__ __forceinline__ void stage_rows(float* dst, int stride, const T* src,
   }
 }
 
-template <typename T, int D, bool CAUSAL, bool HAS_PAD>
+template <typename T, int D, int DV, bool CAUSAL, bool HAS_PAD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const uint8_t* __restrict__ pad, float* __restrict__ part_ml,
                        float* __restrict__ part_acc, int H, int I, int J) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
   constexpr int DP = D + 1;  // odd row stride: the per-key dot products are free of bank conflicts
   extern __shared__ float smem[];
   float* q_s = smem;                   // I x D
   float* k_s = q_s + MAX_ROWS * D;     // SPLIT x DP
-  float* v_s = k_s + SPLIT * DP;       // SPLIT x D
-  float* s_s = v_s + SPLIT * D;        // I x SPLIT: scores, then p
+  float* v_s = k_s + SPLIT * DP;       // SPLIT x DV
+  float* s_s = v_s + SPLIT * DV;       // I x SPLIT: scores, then p
   float* ok_s = s_s + MAX_ROWS * SPLIT;  // SPLIT: 1 = key in range and not padded
 
   const int tid = threadIdx.x;
@@ -97,7 +99,7 @@ flash_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   const int offset = J - I;
   // this split's partials: (m, l) per row, then acc per row
   float* ml = part_ml + ((bh * n_splits + split) * I) * 2;
-  float* acc_out = part_acc + ((bh * n_splits + split) * I) * D;
+  float* acc_out = part_acc + ((bh * n_splits + split) * I) * DV;
 
   int seen = 0;
   if (tid < SPLIT) {
@@ -116,7 +118,7 @@ flash_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 
   stage_rows<T, D, MAX_ROWS>(q_s, D, q + bh * I * D, 0, I);
   stage_rows<T, D, SPLIT>(k_s, DP, k + bh * J * D, col0, J);
-  stage_rows<T, D, SPLIT>(v_s, D, v + bh * J * D, col0, J);
+  stage_rows<T, DV, SPLIT>(v_s, DV, v + bh * J * DV, col0, J);
   __syncthreads();
 
   // scores: thread (key, row group), rows rg, rg + 2, ...
@@ -158,18 +160,18 @@ flash_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   __syncthreads();
 
   // acc = p . v: thread d takes column d of every row
-  for (int d = tid; d < D; d += THREADS) {
+  for (int d = tid; d < DV; d += THREADS) {
     for (int row = 0; row < I; ++row) {
       float a = 0.f;
 #pragma unroll 8
-      for (int key = 0; key < SPLIT; ++key) a = fmaf(s_s[row * SPLIT + key], v_s[key * D + d], a);
-      acc_out[(size_t)row * D + d] = a;
+      for (int key = 0; key < SPLIT; ++key) a = fmaf(s_s[row * SPLIT + key], v_s[key * DV + d], a);
+      acc_out[(size_t)row * DV + d] = a;
     }
   }
 }
 
 // One block per (row, head, batch): merges the row's splits.
-template <typename T, int D>
+template <typename T, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_split_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
                              T* __restrict__ o, float* __restrict__ lse, int H, int I,
@@ -177,7 +179,7 @@ flash_fwd_split_merge_kernel(const float* __restrict__ part_ml, const float* __r
   const int row = blockIdx.x;
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
   const float* ml = part_ml + bh * n_splits * I * 2;
-  const float* acc = part_acc + bh * n_splits * I * D;
+  const float* acc = part_acc + bh * n_splits * I * DV;
   float m = -INFINITY;
   for (int s = 0; s < n_splits; ++s) {
     const float* p = ml + ((size_t)s * I + row) * 2;
@@ -190,25 +192,25 @@ flash_fwd_split_merge_kernel(const float* __restrict__ part_ml, const float* __r
   }
   const bool live = l > 0.f;  // a row that sees no key: zero output and lse = MASK
   const float inv = live ? 1.f / l : 0.f;
-  T* orow = o + (bh * I + row) * D;
-  for (int d = threadIdx.x; d < D; d += THREADS) {
+  T* orow = o + (bh * I + row) * DV;
+  for (int d = threadIdx.x; d < DV; d += THREADS) {
     float a = 0.f;
     for (int s = 0; s < n_splits; ++s) {
       const float* p = ml + ((size_t)s * I + row) * 2;
-      if (p[1] > 0.f) a += acc[((size_t)s * I + row) * D + d] * __expf(p[0] - m);
+      if (p[1] > 0.f) a += acc[((size_t)s * I + row) * DV + d] * __expf(p[0] - m);
     }
     store(&orow[d], a * inv);
   }
   if (threadIdx.x == 0) lse[bh * I + row] = live ? m + logf(l) : MASK;
 }
 
-template <typename T, int D, bool CAUSAL, bool HAS_PAD>
+template <typename T, int D, int DV, bool CAUSAL, bool HAS_PAD>
 cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* pad, void* o,
                    float* lse, float* part_ml, float* part_acc, int B, int H, int I, int J,
                    int n_splits, cudaStream_t stream) {
-  auto kernel = flash_fwd_split_kernel<T, D, CAUSAL, HAS_PAD>;
+  auto kernel = flash_fwd_split_kernel<T, D, DV, CAUSAL, HAS_PAD>;
   const size_t smem =
-      sizeof(float) * (MAX_ROWS * D + SPLIT * (D + 1) + SPLIT * D + MAX_ROWS * SPLIT + SPLIT);
+      sizeof(float) * (MAX_ROWS * D + SPLIT * (D + 1) + SPLIT * DV + MAX_ROWS * SPLIT + SPLIT);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -217,48 +219,48 @@ cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* p
       part_acc, H, I, J);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_fwd_split_merge_kernel<T, D><<<dim3(I, H, B), THREADS, 0, stream>>>(
+  flash_fwd_split_merge_kernel<T, DV><<<dim3(I, H, B), THREADS, 0, stream>>>(
       part_ml, part_acc, static_cast<T*>(o), lse, H, I, n_splits);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t dispatch_mask(const void* q, const void* k, const void* v, const uint8_t* pad,
                           void* o, float* lse, float* ml, float* acc, int B, int H, int I, int J,
                           int n, int causal, cudaStream_t s) {
   if (causal) {
-    return pad ? launch<T, D, true, true>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, s)
-               : launch<T, D, true, false>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, s);
+    return pad ? launch<T, D, DV, true, true>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, s)
+               : launch<T, D, DV, true, false>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, s);
   }
-  return pad ? launch<T, D, false, true>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, s)
-             : launch<T, D, false, false>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, s);
+  return pad ? launch<T, D, DV, false, true>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, s)
+             : launch<T, D, DV, false, false>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, s);
 }
 
 template <typename T>
 cudaError_t dispatch_dim(const void* q, const void* k, const void* v, const uint8_t* pad,
                          void* o, float* lse, float* ml, float* acc, int B, int H, int I, int J,
-                         int D, int n, int causal, cudaStream_t s) {
-  switch (D) {
-    case 64: return dispatch_mask<T, 64>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, causal, s);
-    case 96: return dispatch_mask<T, 96>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, causal, s);
-    case 112: return dispatch_mask<T, 112>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, causal, s);
-    case 128: return dispatch_mask<T, 128>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, causal, s);
-    default: return cudaErrorInvalidValue;
-  }
+                         int D, int DV, int n, int causal, cudaStream_t s) {
+#define SPLIT_CASE(PD, PDV)                                                                   \
+  if (D == PD && DV == PDV)                                                                   \
+    return dispatch_mask<T, PD, PDV>(q, k, v, pad, o, lse, ml, acc, B, H, I, J, n, causal, s);
+  FLASH_HEAD_DIM_PAIRS(SPLIT_CASE)
+#undef SPLIT_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. q (B,H,I,D) with I <= 16, k and v
-// (B,H,J,D), contiguous with 16-byte aligned bases; pad (B,J) uint8 or null;
-// o (B,H,I,D) in the input type; lse (B,H,I) fp32; scratch part_ml
-// (B,H,n_splits,I,2) and part_acc (B,H,n_splits,I,D) fp32, with n_splits =
+// C interface, loaded with ctypes. q (B,H,I,D) with I <= 16, k (B,H,J,D)
+// and v (B,H,J,DV), contiguous with 16-byte aligned bases; pad (B,J) uint8
+// or null; o (B,H,I,DV) in the input type; lse (B,H,I) fp32; scratch part_ml
+// (B,H,n_splits,I,2) and part_acc (B,H,n_splits,I,DV) fp32, with n_splits =
 // ceil(J / flash_attention_fwd_split_size()). dtype: 0 = float32,
 // 1 = bfloat16. Returns the launches' cudaError_t.
 extern "C" int flash_attention_fwd_split(const void* q, const void* k, const void* v,
                                          const void* pad, void* o, void* lse, void* part_ml,
                                          void* part_acc, int B, int H, int I, int J, int D,
-                                         int n_splits, int causal, int dtype, void* stream) {
+                                         int DV, int n_splits, int causal, int dtype,
+                                         void* stream) {
   if (I < 1 || I > MAX_ROWS || n_splits != (J + SPLIT - 1) / SPLIT) return cudaErrorInvalidValue;
   const uint8_t* p = static_cast<const uint8_t*>(pad);
   float* l = static_cast<float*>(lse);
@@ -266,15 +268,11 @@ extern "C" int flash_attention_fwd_split(const void* q, const void* k, const voi
   float* acc = static_cast<float*>(part_acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_dim<float>(q, k, v, p, o, l, ml, acc, B, H, I, J, D, n_splits, causal, s);
+    return dispatch_dim<float>(q, k, v, p, o, l, ml, acc, B, H, I, J, D, DV, n_splits, causal, s);
   if (dtype == 1)
-    return dispatch_dim<__nv_bfloat16>(q, k, v, p, o, l, ml, acc, B, H, I, J, D, n_splits, causal,
-                                       s);
+    return dispatch_dim<__nv_bfloat16>(q, k, v, p, o, l, ml, acc, B, H, I, J, D, DV, n_splits,
+                                       causal, s);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_fwd_split_size() { return SPLIT; }
-
-extern "C" int flash_attention_fwd_split_supports_head_dim(int d) {
-  return d == 64 || d == 96 || d == 112 || d == 128;
-}

@@ -10,7 +10,10 @@
 // perceiver_io_tpu/ops/flash_attention.py, with the same function:
 // online-softmax attention over pre-scaled queries under the right-aligned
 // causal mask `col <= row + (j - i)` and an optional (b, j) key pad mask
-// (1 = pad); o (b, h, i, d) and lse (b, h, i), both fp32. Masking is by
+// (1 = pad); o (b, h, i, dv) and lse (b, h, i), both fp32. v has a head dim
+// of its own, dv (the DV template argument beside D; csrc/head_dims.cuh
+// lists the pairs): the k tiles and S's k-steps run over d, the v tiles and
+// the o accumulator over dv (dv / 2 fp32 a thread). Masking is by
 // select only, and a row that sees no key gets o = 0 and lse = MASK
 // exactly. kv tiles wholly above the shifted diagonal are never loaded, nor
 // are the leading and trailing tiles whose keys are all padded (the left
@@ -57,9 +60,10 @@
 // each group hands (m, l, acc) to the first through shared memory, which
 // merges the two states in a fixed order (so the result is deterministic)
 // with weights exp(m_half - m), selected to 0 for a half that saw no key, so
-// no -inf - (-inf) is ever taken. Tiles are fp32 with row stride d + 4: q hi
+// no -inf - (-inf) is ever taken; the handover goes through the v stages,
+// read no more. Tiles are fp32 with row stride d + 4 (v's dv + 4): q hi
 // and lo, and two stages each of k and v (178 KB at d = 112, 198 KB at
-// d = 128): one block per SM.
+// d = 128, 118 KB at d = 32 with dv = 160): one block per SM.
 //
 // Ragged edges (i, j not multiples of 64) are cp.async zero-fill plus the
 // select and a store guard. cp.async copies 16 bytes, so q, k and v need
@@ -67,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "head_dims.cuh"  // FLASH_HEAD_DIM_PAIRS
 #include "tf32x3.cuh"  // BM, BN, THREADS, Tile, cp.async, split, mma3 and the fragment helpers
 
 namespace {
@@ -75,8 +80,8 @@ namespace {
 constexpr float MASK = -0.7f * 3.4028234663852886e38f;
 
 // q hi and lo, two stages each of k and v, and two stages of 64 key flags
-template <int D>
-constexpr int SMEM = (6 * Tile<D>::FLOATS + 2 * 64) * sizeof(float);
+template <int D, int DV>
+constexpr int SMEM = (4 * Tile<D>::FLOATS + 2 * Tile<DV>::FLOATS + 2 * 64) * sizeof(float);
 
 // the A fragment of rows r, r + 8 and columns k0 + t, k0 + t + 4 from tiles
 // split already
@@ -98,18 +103,19 @@ __device__ __forceinline__ void load_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4
 // for a state that saw no key (selected, never exp(-inf - (-inf)))
 __device__ __forceinline__ float weight(float m, float mx) { return m == -INFINITY ? 0.f : __expf(m - mx); }
 
-template <int D, bool CAUSAL, bool HAS_PAD>
+template <int D, int DV, bool CAUSAL, bool HAS_PAD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const uint8_t* __restrict__ pad,
                         float* __restrict__ o, float* __restrict__ lse, int H, int I, int J) {
   constexpr int S = Tile<D>::S, T = Tile<D>::FLOATS, CH = D / 4;
+  constexpr int TV = Tile<DV>::FLOATS;
   extern __shared__ __align__(16) float smem[];
-  float* qh_s = smem;         // q's hi parts (bits), staged as fp32 first
-  float* ql_s = qh_s + T;     // q's lo parts (bits)
-  float* k_s = ql_s + T;      // two stages
-  float* v_s = k_s + 2 * T;   // two stages
-  float* ok_s = v_s + 2 * T;  // two stages of BN: 1 = key in range, not padded
+  float* qh_s = smem;          // q's hi parts (bits), staged as fp32 first
+  float* ql_s = qh_s + T;      // q's lo parts (bits)
+  float* k_s = ql_s + T;       // two stages
+  float* v_s = k_s + 2 * T;    // two stages of TV
+  float* ok_s = v_s + 2 * TV;  // two stages of BN: 1 = key in range, not padded
   __shared__ int range_s[2];
 
   const int tid = threadIdx.x, lane = tid & 31;
@@ -119,7 +125,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
   const int bb = blockIdx.z;
   const float* kg = k + bh * (size_t)J * D;
-  const float* vg = v + bh * (size_t)J * D;
+  const float* vg = v + bh * (size_t)J * DV;
   const int offset = J - I;
 
   stage<D>(qh_s, q + bh * (size_t)I * D, row0, I);
@@ -152,7 +158,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
   if (begin < end) {
     stage<D>(k_s, kg, begin * BN, J);
-    stage<D>(v_s, vg, begin * BN, J);
+    stage<DV>(v_s, vg, begin * BN, J);
     if (tid < BN) ok_s[tid] = key_ok<HAS_PAD>(pad, bb, J, begin * BN + tid) ? 1.f : 0.f;
   }
   cp_async_commit();
@@ -177,9 +183,9 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int lr = 16 * group + g;  // this thread's rows lr and lr + 8 of the tile
   const int gr0 = row0 + lr, gr1 = gr0 + 8;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int it = begin; it < end; ++it) {
     const int cur = (it - begin) & 1, col0 = it * BN;
@@ -187,14 +193,14 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
     float next_ok = 0.f;
     if (more) {  // the next tile into the other stage (read two barriers ago)
       stage<D>(k_s + (cur ^ 1) * T, kg, col0 + BN, J);
-      stage<D>(v_s + (cur ^ 1) * T, vg, col0 + BN, J);
+      stage<DV>(v_s + (cur ^ 1) * TV, vg, col0 + BN, J);
       if (tid < BN) next_ok = key_ok<HAS_PAD>(pad, bb, J, col0 + BN + tid) ? 1.f : 0.f;
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile's group has landed
     __syncthreads();     // (and, the first time, every thread's q split)
     const float* kt = k_s + cur * T;
-    const float* vt = v_s + cur * T;
+    const float* vt = v_s + cur * TV;
     const float* okt = ok_s + cur * BN;
 
     // S = Q.K^T: 16 rows x 32 keys a warp, 4 n-tiles; the two small terms
@@ -266,7 +272,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
     l0 = l0 * alpha0 + sum0;
     l1 = l1 * alpha1 + sum1;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       acc[n][0] *= alpha0;
       acc[n][1] *= alpha0;
       acc[n][2] *= alpha1;
@@ -278,7 +284,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t ph[4], pl[4];
       a_from_c(ph, pl, s[kk]);
-      mma3_columns<D>(acc, ph, pl, vt, c0 / 8 + kk, g, t);
+      mma3_columns<DV>(acc, ph, pl, vt, c0 / 8 + kk, g, t);
     }
 
     if (more && tid < BN) ok_s[(cur ^ 1) * BN + tid] = next_ok;
@@ -293,14 +299,14 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
     l1 += __shfl_xor_sync(0xffffffffu, l1, w);
   }
 
-  // the second half's state into the first's, through the q tiles (read no
-  // more: the barrier covers a block that ran no kv tile)
+  // the second half's state into the first's, through the v stages and the
+  // q tiles (read no more: the barrier covers a block that ran no kv tile)
   __syncthreads();
-  float* red = qh_s + group * (D / 2) * 32 + lane;     // 4 x (D / 2) x 32 floats, lane-contiguous
+  float* red = v_s + group * (DV / 2) * 32 + lane;     // 4 x (DV / 2) x 32 floats, lane-contiguous
   float* ml = ql_s + (group * 32 + lane) * 4;          // (m0, m1, l0, l1) a thread
   if (half == 1) {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) red[(4 * n + e) * 32] = acc[n][e];
     *reinterpret_cast<float4*>(ml) = make_float4(m0, m1, l0, l1);
@@ -315,24 +321,24 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   // a row that saw no key has l = 0: o = 0 and lse = MASK, as on the TPU
   const float inv0 = l_0 > 0.f ? 1.f / l_0 : 0.f, inv1 = l_1 > 0.f ? 1.f / l_1 : 0.f;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     acc[n][0] = (acc[n][0] * wa0 + red[(4 * n + 0) * 32] * wb0) * inv0;
     acc[n][1] = (acc[n][1] * wa0 + red[(4 * n + 1) * 32] * wb0) * inv0;
     acc[n][2] = (acc[n][2] * wa1 + red[(4 * n + 2) * 32] * wb1) * inv1;
     acc[n][3] = (acc[n][3] * wa1 + red[(4 * n + 3) * 32] * wb1) * inv1;
   }
-  store_rows<D>(o + bh * (size_t)I * D, acc, gr0, gr1, I, t);
+  store_rows<DV>(o + bh * (size_t)I * DV, acc, gr0, gr1, I, t);
   if (t == 0) {
     if (gr0 < I) lse[bh * I + gr0] = l_0 > 0.f ? mx0 + logf(l_0) : MASK;
     if (gr1 < I) lse[bh * I + gr1] = l_1 > 0.f ? mx1 + logf(l_1) : MASK;
   }
 }
 
-template <int D, bool CAUSAL, bool HAS_PAD>
+template <int D, int DV, bool CAUSAL, bool HAS_PAD>
 cudaError_t launch(const float* q, const float* k, const float* v, const uint8_t* pad, float* o,
                    float* lse, int B, int H, int I, int J, cudaStream_t stream) {
-  auto kernel = flash_fwd_tf32x3_kernel<D, CAUSAL, HAS_PAD>;
-  constexpr int smem = SMEM<D>;
+  auto kernel = flash_fwd_tf32x3_kernel<D, DV, CAUSAL, HAS_PAD>;
+  constexpr int smem = SMEM<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((I + BM - 1) / BM, H, B);
@@ -340,26 +346,27 @@ cudaError_t launch(const float* q, const float* k, const float* v, const uint8_t
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t dispatch_mask(const float* q, const float* k, const float* v, const uint8_t* pad, float* o,
                           float* lse, int B, int H, int I, int J, int causal, cudaStream_t s) {
   if (causal) {
-    return pad ? launch<D, true, true>(q, k, v, pad, o, lse, B, H, I, J, s)
-               : launch<D, true, false>(q, k, v, pad, o, lse, B, H, I, J, s);
+    return pad ? launch<D, DV, true, true>(q, k, v, pad, o, lse, B, H, I, J, s)
+               : launch<D, DV, true, false>(q, k, v, pad, o, lse, B, H, I, J, s);
   }
-  return pad ? launch<D, false, true>(q, k, v, pad, o, lse, B, H, I, J, s)
-             : launch<D, false, false>(q, k, v, pad, o, lse, B, H, I, J, s);
+  return pad ? launch<D, DV, false, true>(q, k, v, pad, o, lse, B, H, I, J, s)
+             : launch<D, DV, false, false>(q, k, v, pad, o, lse, B, H, I, J, s);
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. q (B,H,I,D), k and v (B,H,J,D) contiguous
-// fp32 on 16-byte aligned bases; pad (B,J) uint8 or null; o (B,H,I,D) fp32
-// on a 16-byte aligned base; lse (B,H,I) fp32. Returns the launch's
-// cudaError_t (cudaErrorInvalidValue for a head dim it does not instantiate).
+// C interface, loaded with ctypes. q (B,H,I,D), k (B,H,J,D) and v
+// (B,H,J,DV) contiguous fp32 on 16-byte aligned bases; pad (B,J) uint8 or
+// null; o (B,H,I,DV) fp32 on a 16-byte aligned base; lse (B,H,I) fp32.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a (D, DV)
+// pair it does not instantiate).
 extern "C" int flash_attention_fwd_tf32x3(const void* q, const void* k, const void* v, const void* pad,
                                           void* o, void* lse, int B, int H, int I, int J, int D,
-                                          int causal, void* stream) {
+                                          int DV, int causal, void* stream) {
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -367,16 +374,9 @@ extern "C" int flash_attention_fwd_tf32x3(const void* q, const void* k, const vo
   float* of = static_cast<float*>(o);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return dispatch_mask<64>(qf, kf, vf, p, of, l, B, H, I, J, causal, s);
-    case 96: return dispatch_mask<96>(qf, kf, vf, p, of, l, B, H, I, J, causal, s);
-    case 112: return dispatch_mask<112>(qf, kf, vf, p, of, l, B, H, I, J, causal, s);
-    case 128: return dispatch_mask<128>(qf, kf, vf, p, of, l, B, H, I, J, causal, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// Head dims this library instantiates, for the wrapper's checks.
-extern "C" int flash_attention_fwd_tf32x3_supports_head_dim(int d) {
-  return d == 64 || d == 96 || d == 112 || d == 128;
+#define TF32_CASE(PD, PDV) \
+  if (D == PD && DV == PDV) return dispatch_mask<PD, PDV>(qf, kf, vf, p, of, l, B, H, I, J, causal, s);
+  FLASH_HEAD_DIM_PAIRS(TF32_CASE)
+#undef TF32_CASE
+  return cudaErrorInvalidValue;
 }

@@ -9,8 +9,9 @@
 // right-aligned causal mask `col <= row + (j - i)` with kv tiles wholly above
 // the shifted diagonal never loaded, an optional (b, j) key pad mask
 // (1 = pad), fp32 softmax and sums, p rounded to bf16 before p.v, o (b, h, i,
-// d) in bf16 and lse (b, h, i) in fp32; a row that sees no key gets o = 0 and
-// lse = MASK (K2/K3 select on that lse).
+// dv) in bf16 and lse (b, h, i) in fp32; a row that sees no key gets o = 0 and
+// lse = MASK (K2/K3 select on that lse). v has a head dim of its own, dv (the
+// DV template argument beside D; csrc/head_dims.cuh lists the pairs).
 //
 // What bounds it on the H100: at the serving and training shapes (i = 512
 // latents, j = 512..1024 keys, d = 112) one (batch, head) does 4*i*j*d flops
@@ -47,9 +48,18 @@
 // k-steps over the 112 real columns; O's columns 112-127 stay 0 and are not
 // stored. d = 96 is the same with columns 96-127 zero: S's six k-steps
 // cross into the second box after four.
+//
+// v of its own width (the Perceiver IO masked LM: q/k d = 32, v dv = 160 in
+// the encoder and 96 in the decoder). q and k take ceil(d / 64) boxes a row
+// and v ceil(dv / 64); at d = 32 the one q/k box holds 32 real columns and
+// TMA zero-fills the rest (S runs two k-steps). O's accumulator is 64 x
+// 64 * ceil(dv / 64): at dv = 160 three boxes, O += P.V as m64n128k16 over
+// the first two and m64n64k16 over the third (columns 160-191 stay 0 and are
+// not stored), 96 fp32 registers a thread.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "head_dims.cuh"  // FLASH_HEAD_DIM_PAIRS
 #include "sm90.cuh"
 
 namespace {
@@ -63,31 +73,35 @@ constexpr int BOX_BYTES = 64 * 64 * 2;   // one 64 x 64 bf16 box
 // Large-but-finite mask value, as the TPU kernel's: the lse of a dead row.
 constexpr float MASK = -0.7f * 3.4028234663852886e38f;
 
-template <int D>
+template <int D, int DV>
 struct Tile {
-  static constexpr int HALVES = D > 64 ? 2 : 1;  // 64-column boxes per row
-  static constexpr int DP = 64 * HALVES;         // O's accumulator width
-  static constexpr int KSTEPS = D / 16;          // k-steps of S = Q.K^T
-  static constexpr int BYTES = HALVES * BOX_BYTES;  // 64 rows of q, k or v
-  static constexpr int SMEM = 1024 + (1 + 2 * STAGES) * BYTES + (3 * STAGES + 1) * 8;
+  static constexpr int QK_BOXES = (D + 63) / 64;  // 64-column boxes per q or k row
+  static constexpr int V_BOXES = (DV + 63) / 64;  // per v row
+  static constexpr int DP = 64 * V_BOXES;         // O's accumulator width
+  static constexpr int KSTEPS = D / 16;           // k-steps of S = Q.K^T
+  static constexpr int QK_BYTES = QK_BOXES * BOX_BYTES;  // 64 rows of q or k
+  static constexpr int V_BYTES = V_BOXES * BOX_BYTES;    // 64 rows of v
+  static constexpr int SMEM =
+      1024 + (1 + STAGES) * QK_BYTES + STAGES * V_BYTES + (3 * STAGES + 1) * 8;
 };
 
-template <int D, bool CAUSAL, bool HAS_PAD>
+template <int D, int DV, bool CAUSAL, bool HAS_PAD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, const uint8_t* __restrict__ pad,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int I,
                        int J) {
-  using T = Tile<D>;
-  static_assert(D % 16 == 0 && D <= 128, "head dim must be a multiple of 16, at most 128");
+  using T = Tile<D, DV>;
+  static_assert(D % 16 == 0 && D <= 128, "q/k head dim must be a multiple of 16, at most 128");
+  static_assert(DV % 16 == 0 && DV <= 192, "v head dim must be a multiple of 16, at most 192");
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
   uint8_t* base = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* q_s = base;                      // [half] boxes
-  uint8_t* k_s = q_s + T::BYTES;            // [stage][half]
-  uint8_t* v_s = k_s + STAGES * T::BYTES;   // [stage][half]
-  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + STAGES * T::BYTES);
+  uint8_t* q_s = base;                        // [box]
+  uint8_t* k_s = q_s + T::QK_BYTES;           // [stage][box]
+  uint8_t* v_s = k_s + STAGES * T::QK_BYTES;  // [stage][box]
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + STAGES * T::V_BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* q_full = empty + STAGES;
   uint64_t* keymask = q_full + 1;  // [stage]: bit c = key c of the tile is seen
@@ -115,8 +129,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) {
       sm90::tma_prefetch_map(&kmap);
       sm90::tma_prefetch_map(&vmap);
-      sm90::mbar_arrive_expect_tx(q_full, T::BYTES);
-      for (int h = 0; h < T::HALVES; ++h)
+      sm90::mbar_arrive_expect_tx(q_full, T::QK_BYTES);
+      for (int h = 0; h < T::QK_BOXES; ++h)
         sm90::tma_load_3d(q_s + h * BOX_BYTES, &qmap, q_full, h * 64, row0, bh);
     }
     for (int t = 0; t < n_tiles; ++t) {
@@ -129,12 +143,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t hi = __ballot_sync(0xffffffffu, ok1);
       if (lane == 0) {
         keymask[stage] = (static_cast<uint64_t>(hi) << 32) | lo;
-        sm90::mbar_arrive_expect_tx(&full[stage], 2 * T::BYTES);
-        for (int h = 0; h < T::HALVES; ++h) {
-          const int box = (stage * T::HALVES + h) * BOX_BYTES;
-          sm90::tma_load_3d(k_s + box, &kmap, &full[stage], h * 64, t * BN, bh);
-          sm90::tma_load_3d(v_s + box, &vmap, &full[stage], h * 64, t * BN, bh);
-        }
+        sm90::mbar_arrive_expect_tx(&full[stage], T::QK_BYTES + T::V_BYTES);
+        for (int h = 0; h < T::QK_BOXES; ++h)
+          sm90::tma_load_3d(k_s + stage * T::QK_BYTES + h * BOX_BYTES, &kmap, &full[stage], h * 64,
+                            t * BN, bh);
+        for (int h = 0; h < T::V_BOXES; ++h)
+          sm90::tma_load_3d(v_s + stage * T::V_BYTES + h * BOX_BYTES, &vmap, &full[stage], h * 64,
+                            t * BN, bh);
       }
       __syncwarp();
     }
@@ -157,8 +172,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int stage = t % STAGES;
     const int col0 = t * BN;
     sm90::mbar_wait(&full[stage], (t / STAGES) & 1);
-    const uint8_t* kt = k_s + stage * T::BYTES;
-    const uint8_t* vt = v_s + stage * T::BYTES;
+    const uint8_t* kt = k_s + stage * T::QK_BYTES;
+    const uint8_t* vt = v_s + stage * T::V_BYTES;
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -224,14 +239,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = sm90::desc_sw128(vt + kk * 2048, BOX_BYTES, 1024);
-      if constexpr (T::DP == 128) {
-        sm90::wgmma_m64n128k16_rs_mn(acc, pa[kk], dv, 1);
-      } else {
-        sm90::wgmma_m64n64k16_rs_mn(acc, pa[kk], dv, 1);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs_mn_cols<T::DP>(acc, pa[kk], vt + kk * 2048, BOX_BYTES);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
@@ -245,11 +253,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // a row that saw no key has l == 0: zero output and lse = MASK
     const bool live = l[rr] > 0.f;
     const float inv = live ? 1.f / l[rr] : 0.f;
-    __nv_bfloat16* orow = o + ((size_t)bh * I + row) * D;
+    __nv_bfloat16* orow = o + ((size_t)bh * I + row) * DV;
 #pragma unroll
     for (int c = 0; c < T::DP / 8; ++c) {
       const int col = 8 * c + 2 * (lane % 4);
-      if (col < D) {
+      if (col < DV) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(acc[4 * c + 2 * rr] * inv, acc[4 * c + 2 * rr + 1] * inv);
       }
@@ -258,17 +266,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int D, bool CAUSAL, bool HAS_PAD>
+template <int D, int DV, bool CAUSAL, bool HAS_PAD>
 cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* pad, void* o,
                    float* lse, int B, int H, int I, int J, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   if (!sm90_host::bf16_rows_map(&qmap, q, D, I, B * H) ||
       !sm90_host::bf16_rows_map(&kmap, k, D, J, B * H) ||
-      !sm90_host::bf16_rows_map(&vmap, v, D, J, B * H)) {
+      !sm90_host::bf16_rows_map(&vmap, v, DV, J, B * H)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = flash_fwd_wgmma_kernel<D, CAUSAL, HAS_PAD>;
-  const int smem = Tile<D>::SMEM;
+  auto kernel = flash_fwd_wgmma_kernel<D, DV, CAUSAL, HAS_PAD>;
+  const int smem = Tile<D, DV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((I + BM - 1) / BM, H, B);
@@ -277,39 +285,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* p
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t dispatch_mask(const void* q, const void* k, const void* v, const uint8_t* pad,
                           void* o, float* lse, int B, int H, int I, int J, int causal,
                           cudaStream_t s) {
   if (causal) {
-    return pad ? launch<D, true, true>(q, k, v, pad, o, lse, B, H, I, J, s)
-               : launch<D, true, false>(q, k, v, pad, o, lse, B, H, I, J, s);
+    return pad ? launch<D, DV, true, true>(q, k, v, pad, o, lse, B, H, I, J, s)
+               : launch<D, DV, true, false>(q, k, v, pad, o, lse, B, H, I, J, s);
   }
-  return pad ? launch<D, false, true>(q, k, v, pad, o, lse, B, H, I, J, s)
-             : launch<D, false, false>(q, k, v, pad, o, lse, B, H, I, J, s);
+  return pad ? launch<D, DV, false, true>(q, k, v, pad, o, lse, B, H, I, J, s)
+             : launch<D, DV, false, false>(q, k, v, pad, o, lse, B, H, I, J, s);
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. q (B,H,I,D), k and v (B,H,J,D) contiguous
-// bf16 with 16-byte aligned bases; pad (B,J) uint8 or null; o (B,H,I,D)
-// bf16; lse (B,H,I) fp32. Returns the launch's cudaError_t
-// (cudaErrorInvalidValue if a tensor map cannot be made).
+// C interface, loaded with ctypes. q (B,H,I,D), k (B,H,J,D) and v
+// (B,H,J,DV) contiguous bf16 with 16-byte aligned bases; pad (B,J) uint8 or
+// null; o (B,H,I,DV) bf16; lse (B,H,I) fp32. Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for a (D, DV) pair it does not
+// instantiate, or if a tensor map cannot be made).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
                                          const void* pad, void* o, void* lse, int B, int H,
-                                         int I, int J, int D, int causal, void* stream) {
+                                         int I, int J, int D, int DV, int causal, void* stream) {
   const uint8_t* p = static_cast<const uint8_t*>(pad);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return dispatch_mask<64>(q, k, v, p, o, l, B, H, I, J, causal, s);
-    case 96: return dispatch_mask<96>(q, k, v, p, o, l, B, H, I, J, causal, s);
-    case 112: return dispatch_mask<112>(q, k, v, p, o, l, B, H, I, J, causal, s);
-    case 128: return dispatch_mask<128>(q, k, v, p, o, l, B, H, I, J, causal, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int flash_attention_fwd_wgmma_supports_head_dim(int d) {
-  return d == 64 || d == 96 || d == 112 || d == 128;
+#define WGMMA_CASE(PD, PDV) \
+  if (D == PD && DV == PDV) return dispatch_mask<PD, PDV>(q, k, v, p, o, l, B, H, I, J, causal, s);
+  FLASH_HEAD_DIM_PAIRS(WGMMA_CASE)
+#undef WGMMA_CASE
+  return cudaErrorInvalidValue;
 }

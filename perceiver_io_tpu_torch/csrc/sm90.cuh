@@ -14,6 +14,9 @@
 //   the leading byte offset is the distance between 64-column boxes (the
 //   n dimension), the stride byte offset the 1024 bytes between 8-key atoms;
 //   a 16-key k-step advances the start address by 2048 bytes.
+// - A row narrower than a box (d = 32: 64 bytes) still lands in a full
+//   64-column box: TMA zero-fills the columns past the tensor's inner extent,
+//   and the products run their k-steps over the real columns only.
 #pragma once
 
 #include <cuda.h>
@@ -175,6 +178,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_mn(float (&d)[64], const uin
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// ACC[64 x N] += A[64 x 16] . B[16 x N] for N = 64, 128 or 192 columns: A
+// from registers, B MN-major from shared memory, its 64-column boxes
+// `box_bytes` apart from `b` (one 16-key k-step). m64n128k16 takes the first
+// 128 columns and m64n64k16 the rest: registers 64..95 of a 64 x 192
+// accumulator are those of a 64 x 64 one at columns 128..191 (the layout
+// above). Issued, not waited on.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn_cols(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                 const uint8_t* b, uint32_t box_bytes) {
+  static_assert(N == 64 || N == 128 || N == 192, "64, 128 or 192 accumulator columns");
+  if constexpr (N == 64) {
+    wgmma_m64n64k16_rs_mn(d, a, desc_sw128(b, box_bytes, 1024), 1);
+  } else {
+    wgmma_m64n128k16_rs_mn(*reinterpret_cast<float(*)[64]>(&d[0]), a,
+                           desc_sw128(b, box_bytes, 1024), 1);
+    if constexpr (N == 192) {
+      wgmma_m64n64k16_rs_mn(*reinterpret_cast<float(*)[32]>(&d[64]), a,
+                            desc_sw128(b + 2 * box_bytes, box_bytes, 1024), 1);
+    }
+  }
 }
 
 // Two fp32 values as one bf16x2 register, `lo` in the low half.

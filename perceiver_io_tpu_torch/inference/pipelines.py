@@ -1,10 +1,11 @@
 """Task pipelines. Counterpart of ``perceiver_io_tpu/inference/pipelines.py``,
-of which ``text-generation`` and ``symbolic-audio-generation`` are ported:
-:class:`TextGenerationPipeline`, :class:`SymbolicAudioPipeline`, the
-:func:`pipeline` dispatch by task name, and :func:`pipeline_from_pretrained`
-over a ``save_pretrained`` dir (with :func:`cast_float_params` for bf16
-weight storage). The other tasks come with their model families
-(``ROADMAP.md`` A.3) and raise ``NotImplementedError``.
+of which ``text-generation``, ``fill-mask`` and ``symbolic-audio-generation``
+are ported: :class:`TextGenerationPipeline`, :class:`FillMaskPipeline`,
+:class:`SymbolicAudioPipeline`, the :func:`pipeline` dispatch by task name,
+and :func:`pipeline_from_pretrained` over a ``save_pretrained`` dir (with
+:func:`cast_float_params` for bf16 weight storage). The other tasks come
+with their model families (``ROADMAP.md`` A.3) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
 from perceiver_io_tpu_torch.inference.generate import GenerationConfig, generate
+from perceiver_io_tpu_torch.inference.mask_filler import MaskFiller
 from perceiver_io_tpu_torch.inference.samplers import SamplingConfig
 from perceiver_io_tpu_torch.models import model_for_config
 
@@ -157,6 +159,23 @@ class TextGenerationPipeline:
         return texts[0:1] if single else texts
 
 
+class FillMaskPipeline:
+    """``pipeline("fill-mask")``: the top-k fillings of each masked text
+    (``<mask>`` marks a masked token) through :class:`~.mask_filler.MaskFiller`
+    on the model's device. ``device`` is where the model lies (the pipeline
+    factories pass it); the model is not moved."""
+
+    def __init__(self, model, preprocessor, *, device: DeviceLike = "cuda"):
+        self.model = model
+        self.device = resolve_device(device)
+        self._filler = MaskFiller(preprocessor)
+
+    def __call__(self, texts: Union[str, Sequence[str]], *, top_k: int = 5) -> List[List[str]]:
+        batch = [texts] if isinstance(texts, str) else list(texts)
+        _, filled = self._filler.fill(self.model, batch, top_k)
+        return filled
+
+
 class SymbolicAudioPipeline:
     """``pipeline("symbolic-audio-generation")``: event-id prompts (MIDI
     events, :mod:`perceiver_io_tpu_torch.data.audio.midi`) -> prompt plus
@@ -240,9 +259,10 @@ class SymbolicAudioPipeline:
 
 
 _TASKS = {"text-generation": TextGenerationPipeline,
+          "fill-mask": FillMaskPipeline,
           "symbolic-audio-generation": SymbolicAudioPipeline}
 #: the reference's other tasks, each waiting for its model family
-_UNPORTED_TASKS = ("fill-mask", "sentiment-analysis", "text-classification",
+_UNPORTED_TASKS = ("sentiment-analysis", "text-classification",
                    "image-classification", "optical-flow")
 
 

@@ -5,9 +5,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from perceiver_io_tpu_torch.models.core.config import register_config
 from perceiver_io_tpu_torch.models.sequence import AutoregressiveSequenceModel, SequenceModelConfig
 
 
+@register_config
 @dataclass
 class SymbolicAudioModelConfig(SequenceModelConfig):
     """The reference's defaults. The GiantMIDI checkpoint's widths are

@@ -1,4 +1,5 @@
-"""Perceiver AR runtime modules for inference, as ``nn.Module``s.
+"""Perceiver runtime modules (Perceiver IO encoder/decoder, Perceiver AR),
+as ``nn.Module``s.
 
 Counterpart of ``perceiver_io_tpu/models/core/modules.py``. Submodule names
 are the flax names (``q_proj``, ``q_norm``, ``layers.0`` for ``layers_0``,
@@ -16,8 +17,16 @@ forward order: the prefix scores first, then per layer the attention
 keep-masks, the attention branch's and the MLP branch's. Activation
 checkpointing recomputes each layer in the backward
 (``torch.utils.checkpoint``) and, with offloading, keeps only the layers'
-inputs, in pinned host memory. The fused-QKV switch is not ported. The
-Perceiver IO encoder/decoder come with their families.
+inputs, in pinned host memory. The fused-QKV switch is not ported.
+
+The Perceiver IO encoder and decoder (:class:`PerceiverEncoder`,
+:class:`PerceiverDecoder`, :class:`PerceiverIO`) keep JAX's weight sharing:
+``cross_attn_1`` / ``self_attn_1`` are applied again at later depths
+unless an unshared ``cross_attn_n`` / ``self_attn_n`` is configured, so one
+parameter set appears once in the ``state_dict``. Their attention layers
+take q/k and v channels apart (``num_qk_channels``, ``num_v_channels``),
+and the decoder's cross-attention may drop its attention residual (the
+masked LM's ``cross_attention_residual=False``).
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from perceiver_io_tpu_torch.models.core.adapter import TrainableQueryProvider
 from perceiver_io_tpu_torch.ops.attention import dot_product_attention, dropout
 from perceiver_io_tpu_torch.ops.position import RotaryEmbedding, positions
 
@@ -125,17 +135,25 @@ def remat(layer: nn.Module, args: tuple, *, deterministic: bool,
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with optional rotary embeddings and right-aligned
     causal attention. ``project_q`` / ``project_kv`` / ``project_out`` /
-    ``attend`` are the seams the KV-cache decode phases call."""
+    ``attend`` are the seams the KV-cache decode phases call.
+
+    q/k channels default to the query width and v channels to the q/k ones
+    (JAX ``MultiHeadAttention._channels``); the output has the query width.
+    """
 
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
+                 num_qk_channels: Optional[int] = None, num_v_channels: Optional[int] = None,
                  max_heads_parallel: Optional[int] = None, causal_attention: bool = False,
                  qkv_bias: bool = True, out_bias: bool = True, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, attention_impl: str = "auto"):
         super().__init__()
-        # q/k/v widths are the query width, as in every Perceiver AR layer
-        qk = v = out = num_q_input_channels
+        qk = num_qk_channels or num_q_input_channels
+        v = num_v_channels or qk
+        out = num_q_input_channels
         if qk % num_heads != 0:
-            raise ValueError("num_q_input_channels must be divisible by num_heads")
+            raise ValueError("num_qk_channels must be divisible by num_heads")
+        if v % num_heads != 0:
+            raise ValueError("num_v_channels must be divisible by num_heads")
         self.num_heads = num_heads
         self.num_qk_channels = qk
         self.max_heads_parallel = max_heads_parallel
@@ -275,12 +293,15 @@ class _ResidualDropout(nn.Module):
 
 class CrossAttentionLayer(nn.Module):
     """Residual cross-attention, then residual MLP, each branch through
-    residual dropout."""
+    residual dropout. Without ``attention_residual`` (the masked LM's
+    decoder) the attention branch is not added to the queries."""
 
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
                  widening_factor: int = 1, mlp_bias: bool = True, residual_dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32, **attention_kwargs):
+                 attention_residual: bool = True, dtype: torch.dtype = torch.float32,
+                 **attention_kwargs):
         super().__init__()
+        self.attention_residual = attention_residual
         self.cross_attn = CrossAttention(
             num_heads, num_q_input_channels, num_kv_input_channels, dtype=dtype,
             **attention_kwargs,
@@ -294,7 +315,7 @@ class CrossAttentionLayer(nn.Module):
                 generator: Optional[torch.Generator] = None):
         attn = self.cross_attn(x_q, x_kv, x_kv_prefix, pad_mask, rot_pos_emb_q, rot_pos_emb_k,
                                deterministic, generator)
-        x = self.attn_residual(attn, x_q, deterministic, generator)
+        x = self.attn_residual(attn, x_q, deterministic, generator) if self.attention_residual else attn
         return self.mlp_residual(self.mlp(x), x, deterministic, generator)
 
 
@@ -446,11 +467,157 @@ class PerceiverAR(nn.Module):
                                    deterministic, generator, checkpointing=ckpt, offload=offload)
 
 
+class PerceiverEncoder(nn.Module):
+    """Perceiver IO encoder: a trainable latent array cross-attends to the
+    adapted input, then self-attention blocks run over the latents; the
+    cross-attention repeats before the first ``num_cross_attention_layers``
+    blocks. Weight sharing is module reuse: ``cross_attn_1`` / ``self_attn_1``
+    run again at later depths unless an unshared ``cross_attn_n`` /
+    ``self_attn_n`` is configured (JAX ``PerceiverEncoder``).
+    ``activation_checkpointing`` recomputes each attention layer in the
+    backward (:func:`remat`), ``activation_offloading`` moves their saved
+    inputs to pinned host memory."""
+
+    def __init__(self, input_adapter: nn.Module, num_latents: int, num_latent_channels: int,
+                 num_cross_attention_heads: int = 4, num_cross_attention_qk_channels: Optional[int] = None,
+                 num_cross_attention_v_channels: Optional[int] = None,
+                 num_cross_attention_layers: int = 1, first_cross_attention_layer_shared: bool = False,
+                 cross_attention_widening_factor: int = 1, num_self_attention_heads: int = 4,
+                 num_self_attention_qk_channels: Optional[int] = None,
+                 num_self_attention_v_channels: Optional[int] = None,
+                 num_self_attention_layers_per_block: int = 6, num_self_attention_blocks: int = 1,
+                 first_self_attention_block_shared: bool = True, self_attention_widening_factor: int = 1,
+                 dropout: float = 0.0, residual_dropout: float = 0.0, init_scale: float = 0.02,
+                 activation_checkpointing: bool = False, activation_offloading: bool = False,
+                 dtype: torch.dtype = torch.float32, attention_impl: str = "auto"):
+        super().__init__()
+        if num_cross_attention_layers <= 0:
+            raise ValueError("num_cross_attention_layers must be > 0")
+        if num_self_attention_blocks <= 0:
+            raise ValueError("num_self_attention_blocks must be > 0")
+        if num_cross_attention_layers > num_self_attention_blocks:
+            raise ValueError("num_cross_attention_layers must be <= num_self_attention_blocks")
+        self.num_latents = num_latents
+        self.num_latent_channels = num_latent_channels
+        self.num_cross_attention_layers = num_cross_attention_layers
+        self.num_self_attention_blocks = num_self_attention_blocks
+        self.activation_checkpointing = activation_checkpointing
+        self.activation_offloading = activation_offloading
+        self.input_adapter = input_adapter
+        self.latent_provider = TrainableQueryProvider(num_latents, num_latent_channels, init_scale, dtype)
+        attn = dict(dropout=dropout, residual_dropout=residual_dropout, dtype=dtype,
+                    attention_impl=attention_impl)
+
+        def cross_attn():
+            return CrossAttentionLayer(
+                num_cross_attention_heads, num_latent_channels, input_adapter.num_input_channels,
+                widening_factor=cross_attention_widening_factor,
+                num_qk_channels=num_cross_attention_qk_channels,
+                num_v_channels=num_cross_attention_v_channels, **attn)
+
+        def self_attn():
+            return SelfAttentionBlock(
+                num_self_attention_layers_per_block, num_self_attention_heads, num_latent_channels,
+                widening_factor=self_attention_widening_factor,
+                num_qk_channels=num_self_attention_qk_channels,
+                num_v_channels=num_self_attention_v_channels, **attn)
+
+        self.cross_attn_1 = cross_attn()
+        self.self_attn_1 = self_attn()
+        self.extra_cross_attention_layer = (num_cross_attention_layers > 1
+                                            and not first_cross_attention_layer_shared)
+        self.extra_self_attention_block = (num_self_attention_blocks > 1
+                                           and not first_self_attention_block_shared)
+        if self.extra_cross_attention_layer:
+            self.cross_attn_n = cross_attn()
+        if self.extra_self_attention_block:
+            self.self_attn_n = self_attn()
+
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                return_adapted_input: bool = False, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """:return: the latents ``(b, num_latents, channels)``, and the adapted
+        input with ``return_adapted_input``."""
+        x_adapted = self.input_adapter(x)
+        b = x_adapted.shape[0]
+        x_latent = self.latent_provider().expand(b, -1, -1)
+        ckpt = dict(deterministic=deterministic, generator=generator,
+                    enabled=self.activation_checkpointing, offload=self.activation_offloading)
+        blocks = dict(checkpointing=self.activation_checkpointing, offload=self.activation_offloading)
+        cross_attn_n = self.cross_attn_n if self.extra_cross_attention_layer else self.cross_attn_1
+        self_attn_n = self.self_attn_n if self.extra_self_attention_block else self.self_attn_1
+        for i in range(self.num_self_attention_blocks):
+            if i < self.num_cross_attention_layers:
+                cross = self.cross_attn_1 if i == 0 else cross_attn_n
+                x_latent = remat(cross, (x_latent, x_adapted, None, pad_mask), **ckpt)
+            block = self.self_attn_1 if i == 0 else self_attn_n
+            x_latent = block(x_latent, None, None, deterministic, generator, **blocks)
+        return (x_latent, x_adapted) if return_adapted_input else x_latent
+
+
+class PerceiverDecoder(nn.Module):
+    """Perceiver IO decoder: output queries cross-attend to the latents, and
+    ``output_adapter`` maps the result to the task's output. Without
+    ``cross_attention_residual`` the attention branch is not added to the
+    queries (the masked LM). ``output_query_provider`` may be None: the
+    queries are then the adapted encoder input passed as ``x_adapted``."""
+
+    def __init__(self, output_adapter: nn.Module, output_query_provider: Optional[nn.Module],
+                 num_latent_channels: int, num_output_query_channels: int,
+                 num_cross_attention_heads: int = 4, num_cross_attention_qk_channels: Optional[int] = None,
+                 num_cross_attention_v_channels: Optional[int] = None,
+                 cross_attention_widening_factor: int = 1, cross_attention_residual: bool = True,
+                 dropout: float = 0.0, init_scale: float = 0.02, activation_checkpointing: bool = False,
+                 activation_offloading: bool = False, dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "auto"):
+        super().__init__()
+        self.activation_checkpointing = activation_checkpointing
+        self.activation_offloading = activation_offloading
+        self.output_adapter = output_adapter
+        self.output_query_provider = output_query_provider
+        self.cross_attn = CrossAttentionLayer(
+            num_cross_attention_heads, num_output_query_channels, num_latent_channels,
+            widening_factor=cross_attention_widening_factor, attention_residual=cross_attention_residual,
+            num_qk_channels=num_cross_attention_qk_channels, num_v_channels=num_cross_attention_v_channels,
+            dropout=dropout, dtype=dtype, attention_impl=attention_impl)
+
+    def forward(self, x_latent: torch.Tensor, x_adapted: Optional[torch.Tensor] = None,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                **adapter_kwargs) -> torch.Tensor:
+        if self.output_query_provider is not None:
+            output_query = self.output_query_provider(x_adapted)
+            if output_query.shape[0] == 1 and x_latent.shape[0] > 1:
+                output_query = output_query.expand(x_latent.shape[0], -1, -1)
+        else:
+            output_query = x_adapted
+        output = remat(self.cross_attn, (output_query, x_latent), deterministic=deterministic,
+                       generator=generator, enabled=self.activation_checkpointing,
+                       offload=self.activation_offloading)
+        return self.output_adapter(output, **adapter_kwargs)
+
+
+class PerceiverIO(nn.Module):
+    """An encoder and a decoder: the decoder reads the encoder's latents."""
+
+    def __init__(self, encoder: nn.Module, decoder: nn.Module):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = decoder
+
+    def forward(self, x, pad_mask=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None, **decoder_kwargs):
+        x_latent = self.encoder(x, pad_mask=pad_mask, deterministic=deterministic, generator=generator)
+        return self.decoder(x_latent, deterministic=deterministic, generator=generator, **decoder_kwargs)
+
+
 def init_weights(module: nn.Module, init_scale: float, generator: torch.Generator) -> None:
     """The JAX package's initialisers: normal(``init_scale``) for linear and
-    embedding weights, zeros for biases, ones/zeros for layer norms."""
+    embedding weights and for query arrays (a query provider's own scale),
+    zeros for biases, ones/zeros for layer norms."""
     with torch.no_grad():
         for m in module.modules():
+            if isinstance(m, TrainableQueryProvider):
+                m.query.normal_(0.0, m.init_scale, generator=generator)
             if isinstance(m, nn.Linear):
                 m.weight.normal_(0.0, init_scale, generator=generator)
                 if m.bias is not None:

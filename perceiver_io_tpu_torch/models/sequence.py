@@ -10,7 +10,7 @@ from torch import nn
 
 from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
 from perceiver_io_tpu_torch.models.core.adapter import InputAdapter
-from perceiver_io_tpu_torch.models.core.config import PerceiverARConfig
+from perceiver_io_tpu_torch.models.core.config import PerceiverARConfig, register_config
 from perceiver_io_tpu_torch.models.core.modules import (
     LAYER_NORM_EPS,
     PerceiverAR,
@@ -20,6 +20,7 @@ from perceiver_io_tpu_torch.models.core.modules import (
 from perceiver_io_tpu_torch.ops.position import frequency_position_encoding, positions
 
 
+@register_config
 @dataclass
 class SequenceModelConfig(PerceiverARConfig):
     vocab_size: int = 262

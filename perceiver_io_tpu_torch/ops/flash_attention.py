@@ -33,7 +33,11 @@ Every route computes attention over pre-scaled queries with
 - fp32 accumulation, output in the input type, and the fp32 logsumexp
   ``(b, h, i)``;
 - **zero output for a query row that sees no key** (the TPU kernel's dead-row
-  semantics; the einsum path instead softmaxes such a row uniformly).
+  semantics; the einsum path instead softmaxes such a row uniformly);
+- ``v`` of a head dim of its own, ``dv`` (the Perceiver IO families set q/k
+  and v channels apart): the routes instantiate the ``(d, dv)`` pairs of
+  :data:`HEAD_DIMS` (``csrc/head_dims.cuh``), the ``simt`` kernels
+  :data:`SIMT_HEAD_DIMS` (``dv == d`` only).
 
 The backward kernels recompute ``p = exp(s - lse)`` under the same masks
 (by select), take ``ds = p * (do . v^T - delta)`` with
@@ -94,11 +98,13 @@ SPLIT_MAX_ROWS = 16
 ROUTE_KERNELS = {"split": 2, "wgmma": 1, "tf32x3": 1, "simt": 1}
 #: K2's and K3's designs (:func:`_bwd_route` picks ``wgmma`` or ``tf32x3``)
 BWD_ROUTES = ("wgmma", "tf32x3", "simt")
-#: the head dims the ``split``, ``wgmma`` and ``tf32x3`` kernels of K1-K3
-#: instantiate (their ``*_supports_head_dim``)
-HEAD_DIMS = (64, 96, 112, 128)
-#: the head dims of the ``simt`` kernels, reached by name only
-SIMT_HEAD_DIMS = (64, 112, 128)
+#: the (q/k head dim, v head dim) pairs the ``split``, ``wgmma`` and
+#: ``tf32x3`` kernels of K1-K3 instantiate (``csrc/head_dims.cuh``, which
+#: their dispatch expands): ``(d, d)`` for the Perceiver AR families, d = 32
+#: with v's own width for the masked LM at language-perceiver width
+HEAD_DIMS = ((32, 32), (32, 96), (32, 160), (64, 64), (96, 96), (112, 112), (128, 128))
+#: the pairs of the ``simt`` kernels, reached by name only
+SIMT_HEAD_DIMS = ((64, 64), (112, 112), (128, 128))
 _FWD = {}
 _BWD = {}
 
@@ -124,8 +130,8 @@ def flash_attention_reference(
     constant, same dead-row zeros, ``p`` cast to ``v``'s type before the
     ``p @ v`` product.
 
-    :return: ``(o, lse)`` — ``o`` ``(b, h, i, dv)`` in ``q``'s type, ``lse``
-        ``(b, h, i)`` fp32.
+    :return: ``(o, lse)`` — ``o`` ``(b, h, i, dv)`` (``v``'s head dim) in
+        ``q``'s type, ``lse`` ``(b, h, i)`` fp32.
     """
     s = torch.einsum("bhic,bhjc->bhij", q.float(), k.float())
     allowed = _allowed(q, k.shape[2], pad_mask, causal)
@@ -226,7 +232,7 @@ def flash_attention_backward_reference(
     arithmetic written out, with the same casts and selects.
 
     :param o: the forward's output; ``lse`` its fp32 ``(b, h, i)`` logsumexp.
-    :param do: the output's cotangent ``(b, h, i, d)``.
+    :param do: the output's cotangent ``(b, h, i, dv)``.
     :return: ``(dq, dk, dv)`` in ``q``'s, ``k``'s and ``v``'s types.
     """
     delta = attention_delta(o, do)
@@ -248,15 +254,28 @@ def _fwd_route(i: int, dtype: torch.dtype) -> str:
 #: per route: (library source, C entry, pointer args, int args)
 _FWD_ENTRIES = {
     "simt": ("flash_attention_fwd", "flash_attention_fwd", 6, 7),
-    "wgmma": ("flash_attention_fwd_wgmma", "flash_attention_fwd_wgmma", 6, 6),
-    "tf32x3": ("flash_attention_fwd_tf32", "flash_attention_fwd_tf32x3", 6, 6),
-    "split": ("flash_attention_fwd_split", "flash_attention_fwd_split", 8, 8),
+    "wgmma": ("flash_attention_fwd_wgmma", "flash_attention_fwd_wgmma", 6, 7),
+    "tf32x3": ("flash_attention_fwd_tf32", "flash_attention_fwd_tf32x3", 6, 7),
+    "split": ("flash_attention_fwd_split", "flash_attention_fwd_split", 8, 9),
 }
 
 
+def _head_dims_of(route: str):
+    return SIMT_HEAD_DIMS if route == "simt" else HEAD_DIMS
+
+
+def _check_head_dims(route: str, d: int, dv: int) -> None:
+    """Raise before a route's library loads when it does not instantiate
+    ``(d, dv)``: the ``simt`` kernels take v of q's head dim only."""
+    if (d, dv) not in _head_dims_of(route):
+        what = "v of q's head dim and " if route == "simt" and dv != d else ""
+        raise ValueError(f"head dims (d, dv) = {(d, dv)} are not instantiated by the {route} kernel, "
+                         f"which takes {what}the pairs {_head_dims_of(route)}")
+
+
 def _fwd_kernel(route: str):
-    """A route's C entry and head-dim query (and, for ``split``, its split
-    size), loaded (and built) on first use."""
+    """A route's C entry (and, for ``split``, its split size), loaded (and
+    built) on first use."""
     if route not in _FWD:
         from perceiver_io_tpu_torch import _build
 
@@ -265,11 +284,8 @@ def _fwd_kernel(route: str):
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        supports = getattr(lib, f"{entry}_supports_head_dim")
-        supports.argtypes = [ctypes.c_int]
-        supports.restype = ctypes.c_int
         split = lib.flash_attention_fwd_split_size() if route == "split" else None
-        _FWD[route] = (fn, supports, split)
+        _FWD[route] = (fn, split)
     return _FWD[route]
 
 
@@ -290,21 +306,20 @@ _ROUTE_DTYPE = {"wgmma": torch.bfloat16, "tf32x3": torch.float32}
 
 
 def _bwd_kernels(route: str):
-    """A backward route's K2 and K3 C entries and head-dim query, loaded (and
-    built) on first use. Both routes take the same arguments."""
+    """A backward route's K2 and K3 C entries, loaded (and built) on first
+    use. The ``wgmma`` and ``tf32x3`` entries take ``dv`` after ``d``; the
+    ``simt`` ones take ``d`` alone."""
     if route not in _BWD:
         from perceiver_io_tpu_torch import _build
 
         source, suffix = _BWD_ENTRIES[route]
         lib = _build.load(source)
         dq, dkv = getattr(lib, f"flash_attention_bwd_dq{suffix}"), getattr(lib, f"flash_attention_bwd_dkv{suffix}")
-        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        n_int = 7 if route == "simt" else 8
+        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         dq.restype = dkv.restype = ctypes.c_int
-        supports = getattr(lib, f"{source}_supports_head_dim")
-        supports.argtypes = [ctypes.c_int]
-        supports.restype = ctypes.c_int
-        _BWD[route] = (dq, dkv, supports)
+        _BWD[route] = (dq, dkv)
     return _BWD[route]
 
 
@@ -312,11 +327,11 @@ def _check(q, k, v, pad_mask, causal) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (b, h, n, d)")
     b, h, i, d = q.shape
-    j = k.shape[2]
-    if tuple(k.shape) != (b, h, j, d) or tuple(v.shape) != (b, h, j, d):
+    j, dv = k.shape[2], v.shape[3]
+    if tuple(k.shape) != (b, h, j, d) or tuple(v.shape) != (b, h, j, dv):
         raise ValueError(
             f"shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}: the "
-            "kernel takes k and v of shape (b, h, j, d) with q's head dim"
+            "kernel takes k of shape (b, h, j, d) with q's head dim and v of shape (b, h, j, dv)"
         )
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -360,7 +375,7 @@ def flash_attention_fwd(
 
     :param q: ``(b, h, i, d)`` pre-scaled, pre-rotated queries.
     :param k: ``(b, h, j, d)`` keys.
-    :param v: ``(b, h, j, d)`` values.
+    :param v: ``(b, h, j, dv)`` values, of a head dim of their own.
     :param pad_mask: optional bool ``(b, j)``, True marks padding.
     :param causal: right-aligned causal masking (offset ``j - i``).
 
@@ -386,19 +401,17 @@ def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, to
     same inputs. Raises on what the route's kernel does not take, before its
     library loads where the check needs no kernel."""
     b, h, i, d = q.shape
-    j = k.shape[2]
+    j, dv = k.shape[2], v.shape[3]
     if route in _ROUTE_DTYPE and q.dtype != _ROUTE_DTYPE[route]:
         raise TypeError(f"the {route} route takes {_ROUTE_DTYPE[route]}, got {q.dtype}")
     if route == "split" and i > SPLIT_MAX_ROWS:
         raise ValueError(f"the split route takes at most {SPLIT_MAX_ROWS} query rows, got {i}")
     if route != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"the {route} route needs q, k and v on 16-byte aligned bases")
-    fn, supports, split = _fwd_kernel(route)
-    if not supports(d):
-        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel "
-                         f"{SIMT_HEAD_DIMS if route == 'simt' else HEAD_DIMS}")
+    _check_head_dims(route, d, dv)
+    fn, split = _fwd_kernel(route)
     pad = _pad_bytes(pad_mask)
-    o = torch.empty_like(q)
+    o = torch.empty((b, h, i, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, i), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -406,12 +419,12 @@ def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, to
         if route == "simt":
             err = fn(*ptrs, b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream)
         elif route in _ROUTE_DTYPE:
-            err = fn(*ptrs, b, h, i, j, d, int(causal), stream)
+            err = fn(*ptrs, b, h, i, j, d, dv, int(causal), stream)
         else:
             n_splits = -(-j // split)
             part_ml = torch.empty((b, h, n_splits, i, 2), dtype=torch.float32, device=q.device)
-            part_acc = torch.empty((b, h, n_splits, i, d), dtype=torch.float32, device=q.device)
-            err = fn(*ptrs, part_ml.data_ptr(), part_acc.data_ptr(), b, h, i, j, d, n_splits,
+            part_acc = torch.empty((b, h, n_splits, i, dv), dtype=torch.float32, device=q.device)
+            err = fn(*ptrs, part_ml.data_ptr(), part_acc.data_ptr(), b, h, i, j, d, dv, n_splits,
                      int(causal), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd ({route}) kernel launch failed: cudaError_t {err}")
@@ -421,8 +434,9 @@ def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, to
 def _check_bwd(q, k, v, lse, delta, do, pad_mask, causal) -> None:
     _check(q, k, v, pad_mask, causal)
     b, h, i, _ = q.shape
-    if tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype:
-        raise ValueError(f"do must be {tuple(q.shape)} {q.dtype}, got {tuple(do.shape)} {do.dtype}")
+    want = (b, h, i, v.shape[3])
+    if tuple(do.shape) != want or do.dtype != q.dtype:
+        raise ValueError(f"do must be {want} {q.dtype}, got {tuple(do.shape)} {do.dtype}")
     for name, t in (("lse", lse), ("delta", delta)):
         if tuple(t.shape) != (b, h, i) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 {(b, h, i)}, got {t.dtype} {tuple(t.shape)}")
@@ -438,20 +452,19 @@ def _bwd_launch(route: str, q, k, v, lse, delta, do, pad_mask, causal, which: in
             raise TypeError(f"the {route} route takes {_ROUTE_DTYPE[route]}, got {q.dtype}")
         if any(t.data_ptr() % 16 for t in (q, k, v, do, *outputs)):
             raise ValueError(f"the {route} route needs q, k, v, do and the outputs on 16-byte aligned bases")
-    dq_fn, dkv_fn, supports = _bwd_kernels(route)
     b, h, i, d = q.shape
-    j = k.shape[2]
-    if not supports(d):
-        raise ValueError(f"head dim {d} is not instantiated by the {route} kernel "
-                         f"{SIMT_HEAD_DIMS if route == 'simt' else HEAD_DIMS}")
+    j, dv = k.shape[2], v.shape[3]
+    _check_head_dims(route, d, dv)
+    dq_fn, dkv_fn = _bwd_kernels(route)
     pad = _pad_bytes(pad_mask)
     fn, name = (dq_fn, "flash_attention_bwd_dq") if which == 0 else (dkv_fn, "flash_attention_bwd_dkv")
+    dims = (d,) if route == "simt" else (d, dv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), lse.data_ptr(), delta.data_ptr(),
             do.data_ptr(), *(o.data_ptr() for o in outputs),
-            b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream,
+            b, h, i, j, *dims, int(causal), _DTYPES[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} ({route}) kernel launch failed: cudaError_t {err}")
@@ -464,7 +477,7 @@ def flash_attention_bwd_dq(
     """``dq`` of flash attention: K2 for CUDA tensors (through
     :func:`_bwd_route`'s design), the plain version for CPU tensors. ``lse`` is
     the forward's, ``delta`` :func:`attention_delta`'s, both fp32
-    ``(b, h, i)``; ``do`` ``(b, h, i, d)`` in q's type.
+    ``(b, h, i)``; ``do`` ``(b, h, i, dv)`` in q's type.
 
     ``flash_attention_bwd_dq.launches`` counts the launches,
     ``flash_attention_bwd_dq.route_launches`` splits them by route."""
@@ -527,7 +540,7 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
 ) -> torch.Tensor:
-    """Differentiable flash attention output ``(b, h, i, d)`` through
+    """Differentiable flash attention output ``(b, h, i, dv)`` through
     :class:`FlashAttentionFunction` (arguments as :func:`flash_attention_fwd`).
     ``flash_attention.launches`` counts the forward kernel's launches."""
     return FlashAttentionFunction.apply(q, k, v, pad_mask, causal)

@@ -2,7 +2,7 @@
 factory (AdamW, Adam, SGD, LAMB), checkpoints (best ``val_loss``, resume
 snapshots, pretrained dirs), the step-based trainer and its text-sampling
 callback. Counterpart of ``perceiver_io_tpu/training``."""
-from perceiver_io_tpu_torch.training.callbacks import TextSamplingCallback
+from perceiver_io_tpu_torch.training.callbacks import MaskFillingCallback, TextSamplingCallback
 from perceiver_io_tpu_torch.training.checkpoint import (
     BestCheckpointManager,
     ResumeCheckpointManager,
@@ -13,7 +13,7 @@ from perceiver_io_tpu_torch.training.checkpoint import (
 )
 from perceiver_io_tpu_torch.training.lrs import constant_with_warmup, cosine_with_warmup
 from perceiver_io_tpu_torch.training.optim import Lamb, make_optimizer
-from perceiver_io_tpu_torch.training.tasks import IGNORE_INDEX, clm_loss_fn, masked_cross_entropy
+from perceiver_io_tpu_torch.training.tasks import IGNORE_INDEX, clm_loss_fn, masked_cross_entropy, mlm_loss_fn
 from perceiver_io_tpu_torch.training.trainer import Trainer, TrainerConfig
 
 __all__ = [
@@ -21,10 +21,12 @@ __all__ = [
     "IGNORE_INDEX",
     "Lamb",
     "ResumeCheckpointManager",
+    "MaskFillingCallback",
     "TextSamplingCallback",
     "Trainer",
     "TrainerConfig",
     "clm_loss_fn",
+    "mlm_loss_fn",
     "constant_with_warmup",
     "cosine_with_warmup",
     "load_config",

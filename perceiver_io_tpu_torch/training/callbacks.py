@@ -1,12 +1,12 @@
 """Validation-time qualitative callbacks. Counterpart of
 ``perceiver_io_tpu/training/callbacks.py``: :class:`TextSamplingCallback`
 samples a continuation from the current weights after every validation pass
-and logs it through :meth:`Trainer.log_text`. ``MaskFillingCallback`` comes
-with the MLM family (``ROADMAP.md`` A.3).
+and logs it through :meth:`Trainer.log_text`; :class:`MaskFillingCallback`
+fills masked samples (the masked-LM family).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,3 +50,21 @@ class TextSamplingCallback:
                            device=device)
         text = self.prompt + self.tokenizer.decode(out[0].cpu().tolist())
         trainer.log_text(step, "samples/generated", text)
+
+
+class MaskFillingCallback:
+    """Fill masked validation samples after every validation pass (masked-LM
+    family); logs the top-k fillings of each sample."""
+
+    def __init__(self, model, preprocessor, masked_samples: Sequence[str], *, top_k: int = 3):
+        self.model = model
+        self.preprocessor = preprocessor
+        self.masked_samples = list(masked_samples)
+        self.top_k = top_k
+
+    def __call__(self, trainer, state, step: int, val_metrics: dict) -> None:
+        from perceiver_io_tpu_torch.inference.mask_filler import MaskFiller
+
+        _, filled = MaskFiller(self.preprocessor).fill(self.model, self.masked_samples, self.top_k)
+        for sample, fillings in zip(self.masked_samples, filled):
+            trainer.log_text(step, "samples/fill_mask", f"{sample!r} -> {fillings}")

@@ -20,7 +20,6 @@ mid-write never leaves a partial latest snapshot.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
@@ -30,6 +29,7 @@ import torch
 from torch import nn
 
 from perceiver_io_tpu_torch.convert.from_jax import torch_name
+from perceiver_io_tpu_torch.models.core import config as core_config
 
 CONFIG_FILE = "config.json"
 MODEL_FILE = "model.pt"
@@ -38,25 +38,21 @@ STATE_FILE = "state.pt"
 
 
 def config_to_dict(config: Any) -> Optional[dict]:
-    """A model config (a dataclass) as JSON-ready data, with its class name."""
+    """A model config (a dataclass) as JSON-ready data, with its class name;
+    a nested config (``PerceiverIOConfig``'s encoder and decoder) carries
+    its own under ``"_type"``, as the JAX package writes it."""
     if config is None:
         return None
-    return {"class": type(config).__name__, **dataclasses.asdict(config)}
+    d = core_config.config_to_dict(config)
+    return {"class": d.pop("_type"), **d}
 
 
 def config_from_dict(d: dict) -> Any:
-    """The model config of :func:`config_to_dict`'s output."""
-    from perceiver_io_tpu_torch.models.audio.symbolic import SymbolicAudioModelConfig
-    from perceiver_io_tpu_torch.models.sequence import SequenceModelConfig
-    from perceiver_io_tpu_torch.models.text.clm import CausalLanguageModelConfig
-
-    classes = {c.__name__: c for c in (CausalLanguageModelConfig, SymbolicAudioModelConfig,
-                                       SequenceModelConfig)}
-    name = d.get("class")
-    if name not in classes:
-        raise ValueError(f"no model config class {name!r} in the port (known: {sorted(classes)})")
-    cls = classes[name]
-    return cls(**{f.name: d[f.name] for f in dataclasses.fields(cls) if f.name in d})
+    """The model config of :func:`config_to_dict`'s output: ``"class"``
+    names a registered config class (``models.core.config.register_config``),
+    else ``ValueError``."""
+    body = {k: v for k, v in d.items() if k != "class"}
+    return core_config.config_from_dict(None, {**body, "_type": d.get("class")})
 
 
 def _to_cpu(obj):

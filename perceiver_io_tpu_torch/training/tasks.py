@@ -9,7 +9,7 @@ streams; the port draws every kind of noise from the one generator in
 forward order: the prefix-dropout scores first, then, layer by layer, the
 attention keep-masks (one per head group), the attention branch's and the
 MLP branch's residual masks. Batches are dicts of tensors with the reference's
-collator fields (``input_ids``, ``labels``, optional ``pad_mask``). The MLM,
+collator fields (``input_ids``, ``labels``, optional ``pad_mask``). The
 classifier and image loss functions are not ported yet.
 """
 from __future__ import annotations
@@ -55,5 +55,18 @@ def clm_loss_fn(model: nn.Module, max_latents: int) -> LossFn:
         logits = model(input_ids, prefix_len, pad_mask=pad_mask,
                        deterministic=generator is None, generator=generator)
         return masked_cross_entropy(logits, labels[:, prefix_len:]), {}
+
+    return loss_fn
+
+
+def mlm_loss_fn(model: nn.Module) -> LossFn:
+    """Masked-LM step: cross entropy over every position, the labels of
+    unmasked positions ``IGNORE_INDEX`` (the collator's)."""
+
+    def loss_fn(model: nn.Module, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator]):
+        logits = model(batch["input_ids"], pad_mask=batch.get("pad_mask"),
+                       deterministic=generator is None, generator=generator)
+        return masked_cross_entropy(logits, batch["labels"]), {}
 
     return loss_fn

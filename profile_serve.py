@@ -13,6 +13,7 @@
     python3 profile_serve.py --num-beams 4                     # beam search, bucket engine
     python3 profile_serve.py --engine train                    # one train step
     python3 profile_serve.py --model sam [--engine slots --kv-layout paged | --engine train]
+    python3 profile_serve.py --model mlm --engine train        # the masked LM's fit step
 
 ``--engine bucket`` (default) serves the 8-request workload of
 ``chip_smoke.py``'s serve phase through ``ServingEngine``; ``--engine
@@ -46,7 +47,12 @@ weights from a seed) over the traffic of ``chip_smoke.py``'s symbolic
 phase: (b)'s 8 requests through the bucket engine, (c)'s 8 through the slot
 engine, or (e)'s optimizer steps (8 rows x 6144 event ids from
 ``SyntheticSymbolicAudioDataModule``, 2 microbatches, AdamW to 2e-4, prefix
-dropout 0.5; loss tokens 8 x 2048 a step). For each: one warm-up pass, one timed pass
+dropout 0.5; loss tokens 8 x 2048 a step). ``--model mlm --engine train``
+takes the optimizer steps of the ``mlm`` phase's CLI fit: the masked LM at
+language-perceiver width (random weights from a seed), 8 rows x 2048 byte
+ids of ``SyntheticTextDataModule`` with word masking, 2 microbatches,
+AdamW to 2e-5, clipping; its tokens are the 8 x 2048 input positions a
+step. For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
 ``torch.profiler``. ``--engine train`` instead runs optimizer steps of
 ``chip_smoke.py``'s ``Trainer.fit`` run (8 rows x 1024 tokens, 2
@@ -214,6 +220,8 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
     name = str(dtype).split(".")[-1]
     if model_name == "sam":
         run, tokens = _sam_train_workload(torch, chip_smoke, training, parallel, dtype)
+    elif model_name == "mlm":
+        run, tokens = _mlm_train_workload(torch, chip_smoke, training, parallel, dtype)
     else:
         run, tokens = _train_workload(torch, chip_smoke, clm, training, parallel, dtype)
     run()
@@ -233,7 +241,7 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         run()
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
     kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / f"profile_serve_{model_name}_train_{name}.txt"
-                                           if model_name == "sam" else out_dir / f"profile_serve_train_{name}.txt")
+                                           if model_name != "clm" else out_dir / f"profile_serve_train_{name}.txt")
     measured = bool(kernels)
     p50 = sorted(step_ms)[1]
     by_kernel = {"k1": ms_of("flash_fwd_"), "k2": sum(_bwd_routes(ms_of, "dq").values()),
@@ -313,14 +321,52 @@ def _sam_train_workload(torch, chip_smoke, training, parallel, dtype):
     return run, 8 * cfg.max_latents
 
 
+def _mlm_train_workload(torch, chip_smoke, training, parallel, dtype):
+    """``(run, tokens)``: ``run()`` takes one optimizer step of the mlm
+    phase's CLI fit (the masked LM at language-perceiver width; 8 rows x
+    2048 byte ids of the synthetic corpus with word masking, 2
+    microbatches, AdamW, clipping) on a fresh model; its tokens are the
+    rows' input positions."""
+    import itertools
+
+    from perceiver_io_tpu_torch.data.text.sources import SyntheticTextDataModule
+    from perceiver_io_tpu_torch.models.core import config as config_mod
+    from perceiver_io_tpu_torch.models.text import common as common_mod
+    from perceiver_io_tpu_torch.models.text import mlm as mlm_mod
+
+    cfg = chip_smoke.language_perceiver_config(config_mod, common_mod, mlm_mod)
+    model = mlm_mod.MaskedLanguageModel(cfg, dtype=dtype, seed=0)
+    schedule = training.cosine_with_warmup(chip_smoke.CLI_LR, warmup_steps=chip_smoke.CLI_WARMUP,
+                                           training_steps=chip_smoke.TRAIN_STEPS)
+    state = parallel.TrainState.create(model, training.make_optimizer(schedule, optimizer="adamw"))
+    step = parallel.make_train_step(training.mlm_loss_fn(model), grad_clip_norm=1.0, grad_accum_steps=2)
+    dm = SyntheticTextDataModule(dataset_dir=str(ROOT / "build" / "profile_serve_mlm"),
+                                 max_seq_len=chip_smoke.MLM_SEQ, batch_size=8, num_train_docs=64,
+                                 num_valid_docs=8, task="mlm")
+    dm.prepare_data()
+    dm.setup()
+    batches = list(itertools.islice(iter(dm.train_dataloader()), 2))
+    turn = [0]
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(turn[0])
+        _, metrics = step(state, batches[turn[0] % 2], gen)
+        turn[0] += 1
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+
+    return run, 8 * chip_smoke.MLM_SEQ
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     from perceiver_io_tpu_torch.inference import decode_strategy as strategy_mod
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--engine", choices=("bucket", "slots", "train"), default="bucket")
-    parser.add_argument("--model", choices=("clm", "sam"), default="clm",
-                        help="clm-base, or the symbolic-audio model at GiantMIDI width")
+    parser.add_argument("--model", choices=("clm", "sam", "mlm"), default="clm",
+                        help="clm-base, the symbolic-audio model at GiantMIDI width, or the masked LM "
+                             "at language-perceiver width (--engine train only)")
     parser.add_argument("--kv-layout", choices=("dense", "paged", "auto"), default="dense",
                         help="the slot engine's KV layout ('auto': the autotuner's verdict)")
     parser.add_argument("--speculation", choices=strategy_mod.SPECULATION_CHOICES, default="off",
@@ -353,6 +399,8 @@ def main() -> int:
                      "(beam search decodes deterministically)")
     if args.do_sample and args.engine == "train":
         parser.error("--do-sample applies to the serving engines")
+    if args.model == "mlm" and args.engine != "train":
+        parser.error("--model mlm takes --engine train only")
     if args.model == "sam" and (slot_only or args.do_sample or args.num_beams > 1):
         parser.error("--model sam takes --engine and --kv-layout dense|paged only")
 

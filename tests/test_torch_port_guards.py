@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "training.callbacks", "reliability.chaos", "reliability.retry", "data.loader",
                  "data.text.tokenizers", "data.text.collators", "data.text.preprocessor",
                  "data.text.datamodule", "data.text.sources", "data.text.streaming", "scripts.cli",
-                 "scripts.text.clm", "scripts.audio.symbolic"):
+                 "scripts.text.clm", "scripts.audio.symbolic", "models.core.config", "models.core.adapter",
+                 "models.text.common", "models.text.mlm", "inference.mask_filler", "scripts.text.mlm"):
         assert f"perceiver_io_tpu_torch.{name}" in report["imported"]
     assert report["bad"] == []
     assert report["lazy"] == []
@@ -61,7 +62,8 @@ def test_port_sources_name_no_jax_module():
                 assert mod.split(".")[0] not in ("jax", "flax", "perceiver_io_tpu"), (path, line)
 
 
-@pytest.mark.parametrize("entry", ["model", "generate", "engine", "trainer", "train_step", "cli"])
+@pytest.mark.parametrize("entry", ["model", "generate", "engine", "trainer", "train_step", "cli", "mlm",
+                                   "fill_mask"])
 def test_default_device_entry_points_refuse_the_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -79,6 +81,21 @@ def test_default_device_entry_points_refuse_the_cpu(entry, tmp_path):
             from perceiver_io_tpu_torch.scripts.text import clm
 
             clm.main(["fit", "--data=synthetic", f"--data.dataset_dir={tmp_path}"])
+        elif entry in ("mlm", "fill_mask"):
+            from perceiver_io_tpu_torch.data.text import ByteTokenizer, TextPreprocessor
+            from perceiver_io_tpu_torch.inference.pipelines import pipeline
+            from perceiver_io_tpu_torch.models.core.config import PerceiverIOConfig
+            from perceiver_io_tpu_torch.models.text.common import TextEncoderConfig
+            from perceiver_io_tpu_torch.models.text.mlm import MaskedLanguageModel, TextDecoderConfig
+
+            mlm_cfg = PerceiverIOConfig(TextEncoderConfig(vocab_size=262, max_seq_len=8, num_input_channels=8),
+                                        TextDecoderConfig(vocab_size=262, max_seq_len=8), num_latents=2,
+                                        num_latent_channels=8)
+            if entry == "mlm":
+                MaskedLanguageModel(mlm_cfg)
+            else:
+                pipeline("fill-mask", MaskedLanguageModel(mlm_cfg, device="cpu"),
+                         TextPreprocessor(ByteTokenizer(), max_seq_len=8))
         elif entry == "model":
             CausalLanguageModel(cfg)
         elif entry in ("trainer", "train_step"):

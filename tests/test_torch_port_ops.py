@@ -169,7 +169,7 @@ DISPATCH_CASES = [
     for causal, short in ((True, False), (True, True), (False, True))
 ] + [
     (dims, types, causal, short)
-    for dims in ((64, 96), (96, 64), (112, 128), (64, 16), (16, 64))
+    for dims in ((64, 96), (96, 64), (112, 128), (64, 16), (16, 64), (32, 96), (32, 160))
     for types in (("float32",) * 3, ("bfloat16",) * 3)
     for causal, short in ((False, False), (True, False), (True, True))
 ]
@@ -180,7 +180,8 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
     # lengths JAX's block picker takes (multiples of 128), so only the other
     # reasons decide: where JAX's kernel refuses, auto takes the plain path
     # and flash raises; where it takes the shape, auto launches K1 if a route
-    # instantiates the head dim and raises naming ROADMAP.md B.1 if none does
+    # instantiates the (d, dv) pair and raises naming ROADMAP.md B.1/B.2 if
+    # none does
     i, j = (256, 128) if short else (128, 256)
     d, dv = d if isinstance(d, tuple) else (d, d)
     shapes = [(1, 2, i, d), (1, 2, j, d), (1, 2, j, dv)]
@@ -189,13 +190,17 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
     args = (*shapes, *(getattr(torch, t) for t in types), causal)
     q, k, v = (torch.zeros(shape, dtype=getattr(torch, t)) for shape, t in zip(shapes, types))
     if dv != d:
-        # K1-K3 take v of q's head dim only: where JAX's kernel takes the
-        # attend, auto raises naming ROADMAP.md B.2 (the (64, 96) rows hold
+        # v of its own head dim: K1 where a route instantiates the pair (the
+        # masked LM's (32, 96) and (32, 160)), else a raise naming ROADMAP.md
+        # B.1/B.2 where JAX's kernel takes the attend (the (64, 96) rows hold
         # (1, 2, 128, 64) q/k against a (1, 2, 256, 96) v, which once passed)
         assert jax_takes == (min(d, dv) >= 32 and not (causal and short))
-        if jax_takes:
-            with pytest.raises(ValueError, match=r"ROADMAP.md B.2"):
+        if jax_takes and (d, dv) in flash.HEAD_DIMS:
+            assert attention.kernel_takes(*args) is True
+        elif jax_takes:
+            with pytest.raises(ValueError, match=r"ROADMAP.md B.1 for q/k head dims, B.2") as e:
                 attention.kernel_takes(*args)
+            assert str(flash.HEAD_DIMS) in str(e.value)
         else:
             assert attention.kernel_takes(*args) is False
         return
@@ -204,12 +209,12 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
         assert attention.kernel_takes(*args) is False
         with pytest.raises(ValueError, match="unsupported for shapes"):
             dot_product_attention(q, k, v, causal=causal, impl="flash")
-    elif d in flash.HEAD_DIMS:
+    elif (d, d) in flash.HEAD_DIMS:
         assert attention.kernel_refusal(*args) is None and attention.kernel_takes(*args) is True
     else:
         with pytest.raises(ValueError, match=r"ROADMAP.md B.1") as e:
             attention.kernel_takes(*args)
-        assert "(64, 96, 112, 128)" in str(e.value)
+        assert str(flash.HEAD_DIMS) in str(e.value)
     one_type = len(set(types)) == 1 and types[0] != "float16"
     assert jax_takes == (d >= 32 and one_type and not (causal and short))  # the table spans JAX's reasons
     if not jax_takes and one_type:
@@ -223,22 +228,36 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
 
 
 def test_head_dim_tables_match_the_kernels():
-    # HEAD_DIMS and SIMT_HEAD_DIMS are what each route's *_supports_head_dim
-    # returns; K2/K3 share K1's tables
+    # HEAD_DIMS and SIMT_HEAD_DIMS are the (d, dv) pairs each K1-K3 route's
+    # dispatch instantiates: the non-simt routes expand the pair list of
+    # csrc/head_dims.cuh there, the simt kernels switch on d alone (v of q's
+    # head dim). K2/K3 share K1's tables. K4's routes keep one head dim
+    # (*_supports_head_dim).
     import re
     from pathlib import Path
 
     from perceiver_io_tpu_torch.ops import ragged_attention
 
     csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
-    sources = (
-        (flash.HEAD_DIMS, ("flash_attention_fwd_split", "flash_attention_fwd_wgmma", "flash_attention_fwd_tf32",
-                           "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32")),
-        (flash.SIMT_HEAD_DIMS, ("flash_attention_fwd", "flash_attention_bwd")),
+    listed = tuple((int(a), int(b)) for a, b in
+                   re.findall(r"X\((\d+), (\d+)\)", (csrc / "head_dims.cuh").read_text()))
+    assert listed == flash.HEAD_DIMS
+    for name in ("flash_attention_fwd_split", "flash_attention_fwd_wgmma", "flash_attention_fwd_tf32",
+                 "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32"):
+        text = (csrc / f"{name}.cu").read_text()
+        assert '#include "head_dims.cuh"' in text, name
+        # the dispatch expands the list once, and no other head dim
+        assert text.count("FLASH_HEAD_DIM_PAIRS(") == 1, name
+        assert not re.search(r"case \d+:", text), name
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        text = (csrc / f"{name}.cu").read_text()
+        dims = tuple(int(x) for x in re.findall(r"case (\d+): return dispatch_mask", text))
+        assert tuple((x, x) for x in dims) == flash.SIMT_HEAD_DIMS, name
+        assert "FLASH_HEAD_DIM_PAIRS" not in text, name
+    for dims, names in (
         (ragged_attention.HEAD_DIMS, ("ragged_paged_attention_split", "ragged_paged_attention_tc")),
         (ragged_attention.SIMT_HEAD_DIMS, ("ragged_paged_attention",)),
-    )
-    for dims, names in sources:
+    ):
         for name in names:
             body = re.search(r"supports_head_dim\(int d\) \{\s*return ([^;]*);",
                              (csrc / f"{name}.cu").read_text()).group(1)
