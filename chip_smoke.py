@@ -28,9 +28,19 @@ non-zero and never prints the final line):
    encoder's cross attend of 256 latents over 2048 right-padded tokens at
    (d, dv) = (32, 160), one row all pad; its 256 x 256 self-attends at (32,
    160); the decoder's 2048 queries over 256 latents at (32, 96)) and a
-   split case at (32, 160); fp32 and bf16, through the route
-   the wrapper picks (``split`` for decode, ``wgmma`` for bf16 tiles,
-   ``tf32x3`` for fp32 tiles; a wrong route fails), held at fp32 1e-4, bf16
+   split case at (32, 160); then the classifiers' attends
+   (``K1_CLASSIFIER_CASES``): the text classifier at the JAX CLI's defaults,
+   (160, 160) on the tile routes (its encoder cross attend, 256 x 2048 with
+   one row all padded, a 256 x 256 self-attend and its decoder's one query
+   over 256 latents on ``split``), and the ``wide`` route at the image
+   classifier's widths (its encoder cross attend, b = 2, one head of (261,
+   261), 512 latents over 50176 pixels; its decoder's query over 512 latents
+   at (1024, 1024); MNIST's 32 x 784 at (131, 131) with pads and a dead
+   batch row; a causal 100 x 300 at (131, 131), right-aligned, with pads,
+   dead rows and a dead batch row); fp32 and bf16, through the route
+   the wrapper picks (``wide`` for a pair outside ``HEAD_DIMS``, ``split`` for
+   decode, ``wgmma`` for bf16 tiles, ``tf32x3`` for fp32 tiles; a wrong route
+   fails), held at fp32 1e-4, bf16
    2e-2 and lse 1e-3 on live rows, dead rows exactly 0 with ``lse`` the
    mask value. The first CUDA-core kernel (simt) runs on the same inputs,
    is held to the same gates and is timed beside it (``prev_ms``; it does
@@ -209,11 +219,17 @@ non-zero and never prints the final line):
    reaching 452 rows into the latents), and its 2048 x 2048 stack; then
    non-causal, phase 3's clm-base cross attend over j = 768 with a batch
    row all padded and the masked LM's three attends at (d, dv) = (32, 160)
-   and (32, 96); the bounds count 4d + 2dv flops a visible pair for K2
-   and 4d + 4dv for K3), fp32
+   and (32, 96); then ``K23_CLASSIFIER_CASES``: the text classifier's
+   encoder cross and self-attend at (160, 160), and on ``wide`` the image
+   classifier's training attends, its encoder cross attend (b = 2, (261,
+   261), 512 x 50176), its decoder's query (b = 8, (1024, 1024), 1 x 512)
+   and MNIST's (131, 131) cross attend with a dead batch row, and a causal
+   100 x 300 case at (131, 131) with pads and dead rows; the bounds count
+   4d + 2dv flops a visible pair for K2 and 4d + 4dv for K3), fp32
    and bf16, through the
-   route the wrappers pick (``wgmma`` for bf16, ``tf32x3`` for fp32; a
-   wrong route fails), held at ``max|d| <= tol * max|plain|`` per output,
+   route the wrappers pick (``wide`` outside ``HEAD_DIMS``, else ``wgmma`` for
+   bf16, ``tf32x3`` for fp32; a wrong route fails), held at
+   ``max|d| <= tol * max|plain|`` per output,
    tol 1e-4 in fp32 and 2^-7 (two bf16 ulps) in bf16, where each bf16
    output's error against the fp32 plain backward of the same inputs must
    also stay within 1.5x the plain bf16 version's; dead rows' dq and unseen
@@ -377,7 +393,47 @@ non-zero and never prints the final line):
    phase 13's ``train_fit`` with the same arguments gives the same losses
    bit for bit (its step ms and peak memory); then ``validate`` / ``test
    --ckpt``, 28 K1 launches each;
-18. the ``{"kernels": [...]}`` summary line (K1 with the three routes the
+18. classifiers: the text classifier at language-perceiver width (the
+   ``mlm`` phase's encoder; the CLI's decoder, one query of 1280 channels
+   over 8 heads, 2 classes; 206,098,690 parameters) and the Fourier image
+   classifier at deepmind/vision-perceiver-fourier width (224 x 224 x 3, 64
+   bands, 512 x 1024 latents, one cross head, 8 blocks x 6 shared
+   self-attends of 8 heads, 1000 classes; 48,440,627 parameters, the
+   reference's), random weights from a seed; every parameter count gated
+   equal to the JAX package's. (a) One text forward of 4 rows at n = 2048
+   and 1500 with right pads, fp32 and bf16, against ``xla`` (fp32 1e-3,
+   bf16 8 ulps of the largest logit), 28 K1 launches a forward (27 on the
+   type's tile route, the decoder's query on ``split``); and one at the JAX
+   CLI's defaults, (160, 160) in every attend (10 launches). (b)
+   ``pipeline("sentiment-analysis")`` over 8 byte texts of 512-2048 bytes:
+   labels equal the ``xla`` run's but where a text's own two ``xla`` logits
+   lie within ``NEAR_TIE``; texts/s and latency p50. (c) The classifier
+   CLI's two-stage ``fit`` in bf16, 8 steps of 8 x 2048 in 2
+   microbatches over the synthetic corpus's classification task, AdamW to
+   1e-4: stage 1 warm-starts the encoder from a masked LM of the same widths
+   saved by the port (``--model.encoder.params``) and freezes it: its loss
+   falls and its encoder ends bit-identical to the loaded one; stage 2
+   starts from stage 1's checkpoint (``--params``) unfrozen and moves the
+   encoder; 56 K1/K2/K3 launches a step in each (K1 54 ``wgmma`` + 2
+   ``split``), step ms p50 (the trainer's ``steps_per_sec``), peak memory,
+   whether the frozen stage computes encoder gradients (its K2/K3 at every
+   attend); then ``validate`` / ``test --ckpt`` (loss and accuracy;
+   ``validate`` reproduces stage 2's validation loss). (d) One
+   image forward at b = 4, fp32 and bf16, against ``xla``: 50 K1 launches,
+   the encoder's cross attend and the decoder's query on ``wide``, 48 on the
+   tile route; ``pipeline("image-classification")`` top-5 over 8 seeded
+   uint8 images of 256 x 320 through ``ImageNetPreprocessor``: top-1 equals
+   ``xla``'s but at an image whose own top-2 ``xla`` logits lie within
+   ``NEAR_TIE``, images/s and latency p50; a bf16 ``Trainer.fit`` of 8 steps
+   of 8 synthetic images in 2 microbatches through phase 13's ``train_fit``:
+   the loss falls, 100 K1/K2/K3 launches a step, 4 of them on ``wide``. (e)
+   The image CLI at MNIST's shape (28 x 28 x 1, 32 x 128 latents, 32 bands,
+   JAX's MNIST test's one cross head: q/k 131 on ``wide``; the 16-wide heads
+   elsewhere take the plain path), fp32: ``fit`` over the synthetic image
+   data module, 2 K1/K2/K3 launches a step, all ``wide``, finite losses
+   (8 steps hardly move this model's); ``validate`` / ``test --ckpt``,
+   ``validate`` reproducing the fit's validation loss;
+19. the ``{"kernels": [...]}`` summary line (K1 with the four routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4 with
    its split and tc routes nested and the simt kernel's times as their
@@ -392,8 +448,10 @@ non-zero and never prints the final line):
    ``d96`` figures (its GiantMIDI case at head dim 96) and
    ``symbolic_launches`` (its calls in each run of phase 15); every
    entry's ``cli_launches`` and ``cli_route_launches`` its calls in each
-   run of phase 16, and ``mlm_launches`` in each run of phase 17; each
-   route's ``head_dims``, the (d, dv) pairs its cases ran), the card's
+   run of phase 16, ``mlm_launches`` in each run of phase 17 and
+   ``classifiers_launches`` in each run of phase 18; each route's
+   ``head_dims``, the (d, dv) pairs its cases ran; the ``wide`` entries'
+   ``launches`` from phase 18's bf16 image fit), the card's
    ``nvidia-smi`` line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -464,6 +522,21 @@ K23_NONCAUSAL_CASES = (
     ("mlm_enc_cross", 256, 2048, None, [2048, 1500, 700, 0], 32, 160),
     ("mlm_self", 256, 256, None, None, 32, 160),
     ("mlm_dec_cross", 2048, 256, None, None, 32, 96),
+)
+# K2/K3 at this slice's widths, K1_CLASSIFIER_CASES' shapes with their
+# batch: (name, i, j, left pads, visible keys, d, dv, causal, b, h). The
+# text classifier at the JAX CLI's defaults (160, 160) on the tile routes;
+# the image classifier's training attends on wide: its encoder cross attend
+# (b = 2 of the fit's 8 rows; one head of 261 over 50176 pixels), its
+# decoder's one query over 512 latents (1024) and MNIST's cross attend
+# (131); and wide's causal masking at an odd head dim
+K23_CLASSIFIER_CASES = (
+    ("clf_enc_cross", 256, 2048, None, [2048, 1500, 700, 0], 160, 160, False, 4, 8),
+    ("clf_self", 256, 256, None, None, 160, 160, False, 4, 8),
+    ("img_cross", 512, 50176, None, None, 261, 261, False, 2, 1),
+    ("img_dec_cross", 1, 512, None, None, 1024, 1024, False, 8, 1),
+    ("mnist_cross", 32, 784, None, [784, 784, 500, 0], 131, 131, False, 4, 1),
+    ("wide_causal", 100, 300, [0, 30, 260, 300], None, 131, 131, True, 4, 2),
 )
 # the head dim of the symbolic-audio (GiantMIDI) cases; the simt kernels do
 # not instantiate it, so those cases carry no prev_ms
@@ -589,7 +662,39 @@ K1_NONCAUSAL_CASES = (
 )
 
 
-def k1_expected_route(i: int, tname: str) -> str:
+# K1's cases at this slice's widths: (name, i, j, left pads, visible keys, d,
+# dv, causal, heads, batch). The text classifier at the JAX CLI's defaults (8
+# heads over 1280 latent channels: (160, 160) on the tile routes): its
+# encoder cross attend of 256 latents over 2048 tokens (row 3 all pad: dead
+# rows), a self-attend, and its decoder's one query over the 256 latents
+# (split). Then the wide route: the Fourier image classifier's encoder cross
+# attend at deepmind/vision-perceiver-fourier width (one head of 3 + 2 *
+# (2 * 64 + 1) = 261 over 224 * 224 = 50176 pixels, b = 2), its decoder's one
+# query over 512 latents (one head of 1024), and MNIST's cross attend (one
+# head of 1 + 2 * (2 * 32 + 1) = 131 over 784 pixels; pads and a dead batch
+# row, which the image path does not have, to hold the dead-row zeros).
+# Last, wide's causal masking at an odd head dim: 100 rows right-aligned over
+# 300 keys (ragged row and key tiles), row 2's pads leaving its rows 0..59
+# dead and row 3 all pad
+K1_CLASSIFIER_CASES = (
+    ("clf_enc_cross", 256, 2048, None, [2048, 1500, 700, 0], 160, 160, False, 8, 4),
+    ("clf_self", 256, 256, None, None, 160, 160, False, 8, 4),
+    ("clf_dec_cross", 1, 256, None, None, 160, 160, False, 8, 4),
+    ("img_cross", 512, 50176, None, None, 261, 261, False, 1, 2),
+    ("img_dec_cross", 1, 512, None, None, 1024, 1024, False, 1, 4),
+    ("mnist_cross", 32, 784, None, [784, 784, 500, 0], 131, 131, False, 1, 4),
+    ("wide_causal", 100, 300, [0, 30, 260, 300], None, 131, 131, True, 2, 4),
+)
+#: the wide route's timed iterations at the image encoder's 512 x 50176
+#: cross attend: (kernel, plain version)
+WIDE_ITERS = (10, 2)
+
+
+def k1_expected_route(i: int, tname: str, d: int, dv: int, head_dims) -> str:
+    """K1's route for the case: ``wide`` for a pair outside ``head_dims``
+    (the tile routes' pairs), else by the query rows and the type."""
+    if (d, dv) not in head_dims:
+        return "wide"
     return "split" if i <= 16 else ("wgmma" if tname == "bfloat16" else "tf32x3")
 
 
@@ -655,15 +760,14 @@ def kernel_cases(torch, flash):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    h = 8
-    shapes = [(*c, K1_HEAD_DIM, K1_HEAD_DIM, True) for c in K1_CASES] + [
-        (*c, d, d, True) for d in K1_OTHER_HEAD_DIMS + K13_ONLY_HEAD_DIMS for c in K1_CASES
+    shapes = [(*c, K1_HEAD_DIM, K1_HEAD_DIM, True, 8, None) for c in K1_CASES] + [
+        (*c, d, d, True, 8, None) for d in K1_OTHER_HEAD_DIMS + K13_ONLY_HEAD_DIMS for c in K1_CASES
         if c[0] in K1_OTHER_CASES] + [
-        (*c, SAM_HEAD_DIM, SAM_HEAD_DIM, True) for c in K1_SAM_CASES] + [
-        (*c, False) for c in K1_NONCAUSAL_CASES]
+        (*c, SAM_HEAD_DIM, SAM_HEAD_DIM, True, 8, None) for c in K1_SAM_CASES] + [
+        (*c, False, 8, None) for c in K1_NONCAUSAL_CASES] + list(K1_CLASSIFIER_CASES)
     cases = []
-    for name, i, j, pads, visible, d, dv, causal in shapes:
-        b = len(pads) if pads is not None else len(visible) if visible is not None else 4
+    for name, i, j, pads, visible, d, dv, causal, h, b in shapes:
+        b = len(pads) if pads is not None else len(visible) if visible is not None else b or 4
         pad, allowed = case_mask(torch, i, j, pads, visible, causal, b)  # allowed: (b, i, j)
         live = allowed.any(-1)  # (b, i)
         seen = int(allowed.any(1).sum().item())  # keys some row sees: the only k/v rows read
@@ -690,7 +794,7 @@ def kernel_cases(torch, flash):
                                                                     lse_ref, live)
                 del o_prev, lse_prev
             tol = KERNEL_TOL[tname]
-            expected = k1_expected_route(i, tname)
+            expected = k1_expected_route(i, tname, d, dv, flash.HEAD_DIMS)
             if not (err <= tol and lse_err <= 1e-3 and dead_zero and route == expected):
                 raise AssertionError(
                     f"K1 {name} d={d} dv={dv} {tname} ({route}, expected {expected}): max|d| {err} "
@@ -706,6 +810,8 @@ def kernel_cases(torch, flash):
             plain_iters = 10 if main_dim else 3
             if sam:
                 iters, plain_iters = SAM_ITERS
+            if j >= 50176:
+                iters, plain_iters = WIDE_ITERS
             attn_mask = allowed[:, None]
             kernel, copies = l2_cold(
                 lambda q, k, v: flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal), q, k, v)
@@ -739,10 +845,11 @@ def kernel_cases(torch, flash):
                 plain_ms=plain_ms, library_ms=library_ms, library_backend=SDPA_BACKEND,
                 library_note=library_note, input_copies=copies, iters=iters,
             )
-            if route == "tf32x3":
+            if tname == "float32" and route in ("tf32x3", "wide"):
                 # the card's fp32-accurate rate is the tensor cores' TF32 rate
                 # over three; the CUDA cores' bound stays beside it so rows
-                # compare with those of the simt route
+                # compare with those of the simt and wide routes (the wide
+                # route runs on the CUDA cores)
                 case.update(bound_simt_ms=max(bytes_s, ops_s) * 1e3,
                             bound_simt_by="bytes" if bytes_s >= ops_s else "operations")
                 ops_s = 3 * flops / TF32_FLOPS
@@ -773,7 +880,7 @@ def k1_refusals(torch, flash) -> None:
             except ValueError as e:
                 message = str(e)
             counted = (flash.flash_attention.launches, dict(flash.flash_attention.route_launches)) != before
-            seen[f"{route} d={d}"] = dict(picked=flash._fwd_route(i, dtype), message=message, counted=counted)
+            seen[f"{route} d={d}"] = dict(picked=flash._fwd_route(i, dtype, d, d), message=message, counted=counted)
     # the simt kernel takes v of q's head dim only: a v of its own width is
     # refused before its library loads
     q = torch.randn(2, 8, 64, K1_HEAD_DIM, device="cuda")
@@ -821,12 +928,11 @@ def k23_cases(torch, flash):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    b, h = 4, 8
     wrappers = {"dq": flash.flash_attention_bwd_dq, "dkv": flash.flash_attention_bwd_dkv}
     cases = []
-    shapes = [(name, i, j, pads, None, d, d, True) for name, i, j, pads, d in K23_CASES] + [
-        (*c, False) for c in K23_NONCAUSAL_CASES]
-    for name, i, j, pads, visible, d, vd, causal in shapes:
+    shapes = [(name, i, j, pads, None, d, d, True, 4, 8) for name, i, j, pads, d in K23_CASES] + [
+        (*c, False, 4, 8) for c in K23_NONCAUSAL_CASES] + list(K23_CLASSIFIER_CASES)
+    for name, i, j, pads, visible, d, vd, causal, b, h in shapes:
         pad, allowed = case_mask(torch, i, j, pads, visible, causal, b)
         live = allowed.any(-1)  # (b, i) rows that see a key
         seen = allowed.any(1)   # (b, j) keys that some row sees
@@ -867,7 +973,8 @@ def k23_cases(torch, flash):
             unseen_zero = bool((dk[unseen.expand_as(dk)] == 0).all().item()
                                and (dv[unseen.expand_as(dv)] == 0).all().item())
             finite = all(bool(torch.isfinite(t).all().item()) for t in (dq, dk, dv))
-            tol, expected = K23_REL_TOL[tname], K23_ROUTE[tname]
+            tol = K23_REL_TOL[tname]
+            expected = K23_ROUTE[tname] if (d, vd) in flash.HEAD_DIMS else "wide"
             case = dict(case=name, dtype=tname, route=routes, expected_route=expected, b=b, h=h, i=i,
                         j=j, d=d, dv=vd, causal=causal, max_abs_err=errs, rel_err=rel, rel_tol=tol,
                         oracle_err=oracle,
@@ -919,6 +1026,9 @@ def k23_cases(torch, flash):
             if name.endswith("_sam"):
                 iters, plain_iters = SAM_ITERS
                 library_iters = iters
+            if j >= 50176:
+                iters, plain_iters = WIDE_ITERS
+                library_iters = iters
             times = {}
             # bytes: q and do in, dq out (K2), or q and do in, dk and dv out
             # (K3), beside lse and delta and the k/v rows some row sees;
@@ -948,10 +1058,10 @@ def k23_cases(torch, flash):
                 times[kname] = dict(route=expected, ms=ms, prev_ms=prev_ms,
                                     prev_route="simt" if with_prev else None,
                                     plain_ms=plain_ms, bytes=nbytes, flops=flops, input_copies=copies)
-                if expected == "tf32x3":
+                if tname == "float32":
                     # the card's fp32-accurate rate is the tensor cores' TF32
                     # rate over three; the CUDA cores' bound stays beside it
-                    # so rows compare with those of the simt route
+                    # so rows compare with those of the simt and wide routes
                     times[kname].update(bound_simt_ms=max(bytes_s, ops_s) * 1e3,
                                         bound_simt_by="bytes" if bytes_s >= ops_s else "operations")
                     ops_s = 3 * flops / TF32_FLOPS
@@ -2715,7 +2825,7 @@ def train_grad_gate(torch, clm, flash, training, parallel):
 
 def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Path, data, batches, val,
               lr: float = 1e-4, warmup_steps: int = 2, phase: str = "train_fit", make_loss=None,
-              attends: Optional[int] = None, tokens_per_step: Optional[int] = None):
+              attends: Optional[int] = None, tokens_per_step: Optional[int] = None, wide: int = 0):
     """(b)/(c) ``Trainer.fit`` at full width: a fresh ``model_cls(cfg)``, 8
     optimizer steps over ``data`` (8 rows, 2 microbatches), AdamW to ``lr``
     under a cosine schedule with ``warmup_steps``, clipping, prefix dropout
@@ -2725,8 +2835,10 @@ def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Pat
 
     The Perceiver AR families' defaults, for another family: ``make_loss``
     ``(model, cfg) -> loss_fn`` (default ``clm_loss_fn`` over the latents),
-    ``attends`` K1/K2/K3 launches a step and ``tokens_per_step`` loss
-    tokens a step (default 8 rows x ``max_latents``)."""
+    ``attends`` K1/K2/K3 launches a step, ``wide`` of them at head dims
+    outside ``HEAD_DIMS`` (on the wide route; K1's validation forwards in the
+    same share) and ``tokens_per_step`` loss tokens a step (default 8 rows x
+    ``max_latents``)."""
     import numpy as np
 
     tname = str(dtype).split(".")[-1]
@@ -2807,12 +2919,16 @@ def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Pat
     if per_step != {"k1": attends, "k2": attends, "k3": attends} or val_counts["k2"] or val_counts["k3"]:
         failures.append(f"launches per step {per_step}, validation {val_counts}")
     expected_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"  # i = the latents
-    if routes[expected_route] != counts["k1"]:
-        failures.append(f"K1 routes {routes}: every launch should take {expected_route}")
+    if (routes[expected_route] + routes["wide"] != counts["k1"]
+            or routes["wide"] * attends != counts["k1"] * wide):
+        failures.append(f"K1 routes {routes}: every launch should take {expected_route}, "
+                        f"{wide} of {attends} wide")
     expected_bwd = K23_ROUTE[tname]
     for key, by_route in bwd_routes.items():
-        if by_route[expected_bwd] != counts[key] or sum(by_route.values()) != counts[key]:
-            failures.append(f"{key.upper()} routes {by_route}: every launch should take {expected_bwd}")
+        if (by_route[expected_bwd] != (attends - wide) * TRAIN_STEPS or by_route["wide"] != wide * TRAIN_STEPS
+                or sum(by_route.values()) != counts[key]):
+            failures.append(f"{key.upper()} routes {by_route}: every launch should take {expected_bwd}, "
+                            f"{wide} a step wide")
     if dtype == torch.float32 and not ckpt_equal:
         failures.append("the best checkpoint does not reload into an equal model")
     if failures:
@@ -3620,20 +3736,27 @@ def cli_run(torch, flash, ragged, main, argv, training=None) -> tuple:
     }
 
 
-def _fit_failures(rec: dict, steps: int, attends: int) -> list:
-    """A bf16 CLI fit's launch gates: K1, K2 and K3 ``attends`` times a step
-    (validation apart), every K1 launch (validation's too) and every K2/K3
-    launch on ``wgmma``."""
+def _fit_failures(rec: dict, steps: int, attends: int, k1_routes: Optional[dict] = None,
+                  bwd_routes: Optional[dict] = None) -> list:
+    """A CLI fit's launch gates: K1, K2 and K3 ``attends`` times a step
+    (validation apart); K1's launches by route in the shares of
+    ``k1_routes`` (launches a step by route; validation's forwards the same
+    shares) and K2/K3's as ``bwd_routes`` a step; both default to every
+    launch on ``wgmma`` (a bf16 fit)."""
     failures = []
+    k1_routes = k1_routes or {"wgmma": attends}
+    bwd_routes = bwd_routes or {"wgmma": attends}
     per_step = {k: rec["launches"][k] / steps for k in ("k1", "k2", "k3")}
     if per_step != {"k1": attends, "k2": attends, "k3": attends}:
         failures.append(f"launches per step {per_step}, want {attends}")
     k1_all = rec["launches"]["k1"] + rec["validation_launches"]["k1"]
-    if rec["k1_routes"]["wgmma"] != k1_all or sum(rec["k1_routes"].values()) != k1_all:
-        failures.append(f"K1 routes {rec['k1_routes']}: every launch should take wgmma")
+    if (any(rec["k1_routes"][r] * attends != k1_all * n for r, n in k1_routes.items())
+            or sum(rec["k1_routes"].values()) != k1_all):
+        failures.append(f"K1 routes {rec['k1_routes']}: want {k1_routes} of every {attends}")
     for key, by_route in rec["bwd_routes"].items():
-        if by_route["wgmma"] != rec["launches"][key] or sum(by_route.values()) != rec["launches"][key]:
-            failures.append(f"{key.upper()} routes {by_route}: every launch should take wgmma")
+        if (any(by_route[r] != n * steps for r, n in bwd_routes.items())
+                or sum(by_route.values()) != rec["launches"][key]):
+            failures.append(f"{key.upper()} routes {by_route}: want {bwd_routes} a step")
     return failures
 
 
@@ -4129,10 +4252,497 @@ def mlm_phase(torch, flash, ragged, pipelines_mod, training, parallel, root: Pat
     return {"forward": forward, "fill": fill, "cli": runs, "seconds": seconds}
 
 
+# the text classifier at published width: the language-perceiver encoder
+# (MLM_WIDTH's) and the CLI's decoder, one query of 1280 channels over 8
+# heads (head dims (160, 160): the split route at one query row), 2 classes
+CLF_WIDTH = {**{k: v for k, v in MLM_WIDTH.items() if not k.startswith("decoder.")},
+             "decoder.num_output_query_channels": 1280, "decoder.num_cross_attention_heads": 8}
+CLF_FLAGS = [f"--model.{k}={v}" for k, v in CLF_WIDTH.items()]
+CLF_ATTENDS = MLM_ATTENDS  # the encoder's cross attend, its 26 self-attends, the decoder's one query
+# the classifier CLI's stages: phase 16's training flags, the peak at 1e-4
+# (a decoder-only stage over a frozen random encoder moves little at 2e-5)
+CLF_LR = 1e-4
+# deepmind/vision-perceiver-fourier: 224 x 224 x 3, 64 bands, 512 x 1024
+# latents, one cross head, 8 blocks x 6 shared self-attends of 8 heads, 1000
+# classes, one decoder query of 1024 channels over one head
+IMG_ENCODER = dict(image_shape=(224, 224, 3), num_frequency_bands=64, num_cross_attention_heads=1,
+                   num_self_attention_heads=8, num_self_attention_layers_per_block=6, num_self_attention_blocks=8)
+IMG_DECODER = dict(num_classes=1000, num_output_query_channels=1024, num_cross_attention_heads=1)
+# parameters at these widths, as the JAX package counts them
+# (tests/test_torch_port_{classifier,vision}.py); the image classifier's is
+# the reference's (SURVEY.md section 4)
+CLASSIFIER_PARAMS = {"text_classifier": 206_098_690, "text_classifier_cli_defaults": 95_801_090,
+                     "image_classifier": 48_440_627}
+IMG_ATTENDS = 50  # a forward: the cross attend (wide), 48 self-attends (128, 128), the decoder's query (wide)
+IMG_WIDE = 2
+IMG_TOP_K = 5
+IMG_PIPE = 8  # uint8 images of 256 x 320 through ImageNetPreprocessor
+# the image CLI at MNIST's shape (its defaults: 32 latents of 128 channels,
+# 32 bands) with JAX's MNIST test's one cross head: q/k 131 on wide; the
+# self-attends' and the decoder's 8 heads of 16 take the plain path
+MNIST_FLAGS = ["--model.encoder.num_cross_attention_heads=1", "--data=synthetic", "--data.batch_size=16",
+               "--data.num_train=128", "--data.num_valid=32", "--data.num_test=32"]
+
+
+def text_classifier_config(config_mod, common_mod, defaults: bool = False):
+    """The text classifier at published width, or at the JAX CLI's defaults
+    (256 latents of 1280 channels, the encoder's channels unset: 8 heads of
+    160 in every attend)."""
+    decoder = config_mod.ClassificationDecoderConfig(num_classes=2, num_output_query_channels=1280)
+    if defaults:
+        return config_mod.PerceiverIOConfig(common_mod.TextEncoderConfig(vocab_size=262, max_seq_len=MLM_SEQ),
+                                            decoder, num_latents=256, num_latent_channels=1280)
+    enc = {k.split(".", 1)[1]: v for k, v in CLF_WIDTH.items() if k.startswith("encoder.")}
+    return config_mod.PerceiverIOConfig(
+        common_mod.TextEncoderConfig(vocab_size=262, max_seq_len=MLM_SEQ, **enc), decoder,
+        num_latents=CLF_WIDTH["num_latents"], num_latent_channels=CLF_WIDTH["num_latent_channels"])
+
+
+def _forward_check(torch, flash, model, args, kwargs, want_routes: dict, tol_fp32: float) -> dict:
+    """One forward of ``model`` with the kernels against ``attention_impl=
+    "xla"`` on the same inputs: the error, K1's launches by route (gated
+    equal to ``want_routes``) and finiteness."""
+    set_attention_impl(model, "auto")
+    reset_counts(flash)
+    with torch.no_grad():
+        out = model(*args, **kwargs)
+        torch.cuda.synchronize()
+        routes = {r: n for r, n in flash.flash_attention.route_launches.items() if n}
+        set_attention_impl(model, "xla")
+        plain = model(*args, **kwargs)
+    set_attention_impl(model, "auto")
+    err = (out.float() - plain.float()).abs().max().item()
+    biggest = plain.float().abs().max().item()
+    tol = tol_fp32 if model.dtype == torch.float32 else 8 * bf16_ulp(biggest)
+    finite = bool(torch.isfinite(out).all().item())
+    line = dict(dtype=str(model.dtype).split(".")[-1], out_shape=list(out.shape), max_abs_err_vs_plain=err,
+                tol=tol, out_max_abs=biggest, finite=finite, k1_launches=sum(routes.values()),
+                k1_route_launches=routes)
+    if not (err <= tol and finite) or routes != want_routes:
+        emit("classifiers", **line)
+        raise AssertionError(f"classifier forward: max|d| {err} (tol {tol}), finite {finite}, "
+                             f"K1 routes {routes} (want {want_routes})")
+    return line
+
+
+def _tile(dtype_name: str) -> str:
+    return "wgmma" if dtype_name == "bfloat16" else "tf32x3"
+
+
+def clf_forward(torch, flash, clf_mod, cfg, defaults_cfg) -> dict:
+    """(a) the text classifier at published width, one forward of 4 rows at
+    n = 2048 and at n = 1500 with right pads on two rows, fp32 and bf16,
+    against ``xla``; K1 28 launches a forward (27 on the tile route of the
+    type, the decoder's one query on split); then one forward at the JAX
+    CLI's defaults, (160, 160) in every attend."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        model = clf_mod.TextClassifier(cfg, dtype=dtype, seed=0).eval()
+        params = sum(p.numel() for p in model.parameters())
+        for n in (MLM_SEQ, MLM_RAGGED_N):
+            x = torch.randint(0, 256, (4, n), generator=g, device="cuda")
+            pad = torch.zeros(4, n, dtype=torch.bool, device="cuda")
+            pad[1, n - 300:] = True
+            pad[2, n // 2:] = True
+            line = _forward_check(torch, flash, model, (x,), {"pad_mask": pad},
+                                  {_tile(tname): CLF_ATTENDS - 1, "split": 1}, 1e-3)
+            line.update(n=n, params=params)
+            emit("classifiers", part="text_forward", **line)
+            out[f"{tname}_{n}"] = line
+        if dtype == torch.float32:
+            out["model"] = model
+        else:
+            del model
+        torch.cuda.empty_cache()
+    layers = defaults_cfg.encoder.num_self_attention_layers_per_block * defaults_cfg.encoder.num_self_attention_blocks
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        model = clf_mod.TextClassifier(defaults_cfg, dtype=dtype, seed=0).eval()
+        x = torch.randint(0, 256, (4, MLM_SEQ), generator=g, device="cuda")
+        pad = torch.zeros(4, MLM_SEQ, dtype=torch.bool, device="cuda")
+        pad[3, 1000:] = True
+        line = _forward_check(torch, flash, model, (x,), {"pad_mask": pad}, {_tile(tname): 1 + layers, "split": 1},
+                              1e-3)
+        line.update(n=MLM_SEQ, head_dims=[160, 160], params=sum(p.numel() for p in model.parameters()))
+        emit("classifiers", part="text_forward_cli_defaults", **line)
+        out[f"cli_defaults_{tname}"] = line
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _clf_texts():
+    """8 texts of 512-2048 bytes (``MLM_TEXT_LENS``): words over a few letters."""
+    import numpy as np
+
+    rng = np.random.default_rng(43)
+    texts = []
+    for n in MLM_TEXT_LENS:
+        words = []
+        while sum(len(w) + 1 for w in words) < n:
+            words.append("".join(rng.choice(list("etaoinshrdlu"), size=int(rng.integers(2, 8)))))
+        texts.append(" ".join(words)[:n])
+    return texts
+
+
+def clf_sentiment(torch, flash, pipelines_mod, preprocessor_cls, tokenizer_cls, model, smi: str) -> dict:
+    """(b) ``pipeline("sentiment-analysis")`` over 8 byte texts of
+    512-2048 bytes on the fp32 model: the labels equal the ``xla`` run's,
+    but for a text whose own two class logits under ``xla`` lie within
+    ``NEAR_TIE``; texts/s of the batch and the per-text latency p50."""
+    import numpy as np
+
+    texts = _clf_texts()
+    prep = preprocessor_cls(tokenizer_cls(), max_seq_len=MLM_SEQ)
+    pipe = pipelines_mod.pipeline("sentiment-analysis", model, prep)
+    pipe(texts[:1])  # warm-up
+    reset_counts(flash)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = pipe(texts)
+    batch_s = time.perf_counter() - t0
+    routes = {r: n for r, n in flash.flash_attention.route_launches.items() if n}
+    latency = []
+    for text in texts:
+        t1 = time.perf_counter()
+        pipe(text)
+        latency.append((time.perf_counter() - t1) * 1e3)
+    ids, pad = (torch.as_tensor(np.asarray(x), device="cuda") for x in prep.preprocess_batch(texts))
+    set_attention_impl(model, "xla")
+    try:
+        with torch.no_grad():
+            xla_logits = model(ids.long(), pad_mask=pad).float().cpu().numpy()
+        xla_labels = pipe(texts)
+    finally:
+        set_attention_impl(model, "auto")
+    gaps = np.abs(xla_logits[:, 0] - xla_logits[:, 1])
+    differing = [i for i, (a, b) in enumerate(zip(labels, xla_labels)) if a["label"] != b["label"]]
+    unexcused = [i for i in differing if gaps[i] >= NEAR_TIE]
+    line = dict(part="sentiment_analysis", card=smi, texts=len(texts), text_bytes=list(MLM_TEXT_LENS),
+                batch_s=batch_s, texts_per_s=len(texts) / batch_s, latency_ms=latency,
+                latency_ms_p50=float(np.median(latency)), k1_launches=sum(routes.values()),
+                k1_route_launches=routes, labels=[r["label"] for r in labels],
+                scores=[r["score"] for r in labels], xla_labels=[r["label"] for r in xla_labels],
+                xla_logit_gaps=gaps.tolist(), differing_texts=differing, unexcused=unexcused)
+    emit("classifiers", **line)
+    if unexcused or routes != {"tf32x3": CLF_ATTENDS - 1, "split": 1}:
+        raise AssertionError(f"sentiment-analysis: texts {unexcused} differ from the xla run's past a near tie, "
+                             f"K1 routes {routes}")
+    return line
+
+
+def _steps_ms(root: Path) -> list:
+    """The trainer's logged step times (``train/steps_per_sec``, host clock)."""
+    rows = [json.loads(line) for line in open(root / "metrics.jsonl")]
+    return [1e3 / r["train/steps_per_sec"] for r in rows if r.get("train/steps_per_sec")]
+
+
+def _cli_stage(torch, flash, ragged, training, main, argv, root: Path) -> tuple:
+    """One CLI ``fit`` through :func:`cli_run` with the peak memory and the
+    logged losses and step times beside its record."""
+    import gc
+
+    import numpy as np
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, rec = cli_run(torch, flash, ragged, main, [*argv, f"--trainer.default_root_dir={root}"], training)
+    losses, val_loss = _cli_losses(root)
+    steps_ms = _steps_ms(root)
+    rec.update(losses=losses, val_loss=val_loss, max_memory_allocated=torch.cuda.max_memory_allocated(),
+               step_ms=steps_ms, step_ms_p50=float(np.median(steps_ms[1:] or steps_ms)),
+               launches_per_step={k: rec["launches"][k] / TRAIN_STEPS for k in ("k1", "k2", "k3")})
+    return state, rec
+
+
+def clf_cli(torch, flash, ragged, training, mlm_mod, clf_script, mlm_cfg, root: Path, smi: str) -> dict:
+    """(c) the classifier CLI's two-stage ``fit`` in bf16 at published
+    width over the synthetic corpus's classification task: a masked LM of
+    the same widths saved by the port; stage 1 warm-starts the encoder from
+    it (``--model.encoder.params``) and freezes it, stage 2 starts from
+    stage 1's checkpoint unfrozen; then ``validate`` / ``test --ckpt``."""
+    import dataclasses
+    import gc
+
+    from perceiver_io_tpu_torch.scripts.cli import CLI
+
+    # the family in bf16 (its own default is JAX's fp32)
+    main = CLI(dataclasses.replace(
+        clf_script.FAMILY,
+        build_model=lambda cfg, dm, **kw: clf_script.TextClassifier(cfg, dtype=torch.bfloat16, **kw))).main
+    mlm_dir = root / "mlm"
+    mlm = mlm_mod.MaskedLanguageModel(mlm_cfg, seed=11)
+    training.save_pretrained(str(mlm_dir), mlm, mlm_cfg)
+    del mlm
+    data_kw = dict(dataset_dir=str(root / "data"), max_seq_len=MLM_SEQ, batch_size=8, num_train_docs=64,
+                   num_valid_docs=8, doc_chars=2800, task="clf")
+    common = [*[f"--data.{k}={v}" for k, v in data_kw.items()], "--data=synthetic", *CLF_FLAGS, *CLI_TRAIN,
+              f"--optimizer.lr={CLF_LR}"]
+    attends = 2 * CLF_ATTENDS
+    k1_routes, bwd_routes = {"wgmma": attends - 2, "split": 2}, {"wgmma": attends}
+    runs = {}
+    stage1 = root / "stage1"
+    state, runs["frozen"] = _cli_stage(torch, flash, ragged, training, main,
+                                       ["fit", *common, f"--model.encoder.params={mlm_dir}",
+                                        "--model.encoder.freeze=true"], stage1)
+    loaded = training.load_subtree(str(mlm_dir), "encoder")
+    encoder = {k: v.cpu() for k, v in state.model.encoder.state_dict().items()}
+    trained = {id(p) for group in state.optimizer.param_groups for p in group["params"]}
+    runs["frozen"].update(
+        encoder_bit_identical=sorted(loaded) == sorted(encoder) and all(torch.equal(loaded[k], encoder[k])
+                                                                         for k in loaded),
+        optimizer_params=sum(p.numel() for p in state.model.parameters() if id(p) in trained),
+        model_params=sum(p.numel() for p in state.model.parameters()),
+        # the encoder's backward runs (K2/K3 at every attend, the encoder's 27
+        # included), as under JAX's masked optimizer, which zeroes the
+        # updates of gradients it computed
+        encoder_gradients_computed=runs["frozen"]["launches_per_step"]["k3"] == attends)
+    del state, encoder
+    gc.collect()
+    stage2 = root / "stage2"
+    state, runs["unfrozen"] = _cli_stage(torch, flash, ragged, training, main,
+                                         ["fit", *common, f"--params={stage1 / 'checkpoints'}",
+                                          "--model.encoder.freeze=false"], stage2)
+    after = {k: v.cpu() for k, v in state.model.encoder.state_dict().items()}
+    stage1_encoder = training.load_subtree(str(stage1 / "checkpoints"), "encoder")
+    runs["unfrozen"]["encoder_trained"] = any(not torch.equal(stage1_encoder[k], after[k]) for k in after)
+    del state, after
+    failures = []
+    for stage, rec in runs.items():
+        failures += [f"{stage}: {f}" for f in _fit_failures(rec, TRAIN_STEPS, attends, k1_routes, bwd_routes)]
+        if not (len(rec["losses"]) == TRAIN_STEPS and all(math.isfinite(x) for x in rec["losses"])):
+            failures.append(f"{stage}: losses {rec['losses']}")
+        emit("classifiers", part=f"cli_fit_{stage}", card=smi, steps=TRAIN_STEPS,
+             **{k: v for k, v in rec.items() if k != "k4_routes"})
+    if not runs["frozen"]["losses"][-1] < runs["frozen"]["losses"][0]:
+        failures.append(f"frozen: the loss did not fall: {runs['frozen']['losses']}")
+    if not runs["frozen"]["encoder_bit_identical"]:
+        failures.append("frozen: the encoder moved from the loaded masked LM's")
+    if not runs["unfrozen"]["encoder_trained"]:
+        failures.append("unfrozen: the encoder did not move")
+    for sub in ("validate", "test"):
+        metrics, runs[sub] = cli_run(torch, flash, ragged, main,
+                                     [sub, *common, f"--ckpt={stage2 / 'checkpoints'}",
+                                      f"--trainer.default_root_dir={root / sub}"])
+        keys = ("loss", "accuracy") if sub == "validate" else ("test_loss", "test_accuracy")
+        emit("classifiers", part=f"cli_{sub}", card=smi, metrics=metrics, wall_s=runs[sub]["wall_s"],
+             k1_launches=runs[sub]["launches"]["k1"], k1_routes=runs[sub]["k1_routes"])
+        if sorted(metrics) != sorted(keys) or not all(math.isfinite(metrics[k]) for k in keys) \
+                or runs[sub]["k1_routes"]["wgmma"] != CLF_ATTENDS - 1 or runs[sub]["k1_routes"]["split"] != 1:
+            failures.append(f"{sub}: {metrics}, K1 routes {runs[sub]['k1_routes']}")
+        if sub == "validate" and not math.isclose(metrics["loss"], runs["unfrozen"]["val_loss"][-1], rel_tol=1e-5):
+            failures.append(f"validate's loss {metrics['loss']} is not stage 2's validation loss "
+                            f"{runs['unfrozen']['val_loss'][-1]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("classifier cli: " + "; ".join(failures))
+    runs["config"] = dataclasses.asdict(training.load_config(str(stage2 / "checkpoints")))
+    return runs
+
+
+def image_classifier_config(config_mod, vision_mod):
+    return config_mod.PerceiverIOConfig(vision_mod.ImageEncoderConfig(**IMG_ENCODER),
+                                        config_mod.ClassificationDecoderConfig(**IMG_DECODER),
+                                        num_latents=512, num_latent_channels=1024)
+
+
+def img_forward(torch, flash, vision_mod, cfg) -> dict:
+    """(d) the image classifier at 224 x 224, one forward at b = 4, fp32 and
+    bf16, against ``xla``: K1 50 launches a forward, the encoder's cross
+    attend and the decoder's query on wide, the 48 self-attends on the tile
+    route of the type."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        model = vision_mod.ImageClassifier(cfg, dtype=dtype, seed=0).eval()
+        x = torch.randn(4, *IMG_ENCODER["image_shape"], generator=g, device="cuda")
+        line = _forward_check(torch, flash, model, (x,), {},
+                              {"wide": IMG_WIDE, _tile(tname): IMG_ATTENDS - IMG_WIDE}, 1e-3)
+        line.update(b=4, params=sum(p.numel() for p in model.parameters()))
+        emit("classifiers", part="image_forward", **line)
+        out[tname] = line
+        if dtype == torch.float32:
+            out["model"] = model
+        else:
+            del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def img_pipeline(torch, flash, pipelines_mod, data_vision, model, smi: str) -> dict:
+    """(d) ``pipeline("image-classification")`` top-5 over 8 seeded uint8
+    images of 256 x 320 through ``ImageNetPreprocessor`` on the fp32 model:
+    top-1 equals the ``xla`` run's but for an image whose own top-2 ``xla``
+    logits lie within ``NEAR_TIE``; images/s and the per-image latency p50."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    images = rng.integers(0, 256, (IMG_PIPE, 256, 320, 3), dtype=np.uint8)
+    prep = data_vision.ImageNetPreprocessor(crop=IMG_ENCODER["image_shape"][0])  # 256 shorter side, 224 crop
+    pipe = pipelines_mod.pipeline("image-classification", model, prep)
+    pipe(images[:1], top_k=IMG_TOP_K)  # warm-up
+    reset_counts(flash)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top = pipe(images, top_k=IMG_TOP_K)
+    batch_s = time.perf_counter() - t0
+    routes = {r: n for r, n in flash.flash_attention.route_launches.items() if n}
+    latency = []
+    for img in images:
+        t1 = time.perf_counter()
+        pipe(img, top_k=IMG_TOP_K)
+        latency.append((time.perf_counter() - t1) * 1e3)
+    set_attention_impl(model, "xla")
+    try:
+        with torch.no_grad():
+            xla_logits = model(torch.as_tensor(prep(images), device="cuda")).float().cpu().numpy()
+    finally:
+        set_attention_impl(model, "auto")
+    order = np.argsort(-xla_logits, axis=-1)
+    gap = np.take_along_axis(xla_logits, order[:, :1], -1)[:, 0] - np.take_along_axis(xla_logits, order[:, 1:2], -1)[:, 0]
+    differing = [i for i, row in enumerate(top) if row[0]["label"] != int(order[i, 0])]
+    unexcused = [i for i in differing if gap[i] >= NEAR_TIE]
+    line = dict(part="image_classification", card=smi, images=IMG_PIPE, image_hw=[256, 320], top_k=IMG_TOP_K,
+                batch_s=batch_s, images_per_s=IMG_PIPE / batch_s, latency_ms=latency,
+                latency_ms_p50=float(np.median(latency)), k1_launches=sum(routes.values()),
+                k1_route_launches=routes, top1=[row[0]["label"] for row in top],
+                xla_top1=order[:, 0].tolist(), xla_top2_gaps=gap.tolist(), differing_images=differing,
+                unexcused=unexcused, top_k_each=all(len(row) == IMG_TOP_K for row in top))
+    emit("classifiers", **line)
+    if unexcused or not line["top_k_each"] or routes != {"wide": IMG_WIDE, "tf32x3": IMG_ATTENDS - IMG_WIDE}:
+        raise AssertionError(f"image-classification: images {unexcused} differ from the xla run's top-1 past "
+                             f"a near tie, top-k each {line['top_k_each']}, K1 routes {routes}")
+    return line
+
+
+def img_fit(torch, flash, training, parallel, vision_mod, cfg, root: Path) -> dict:
+    """(d) a bf16 ``Trainer.fit`` of the image classifier through phase 13's
+    ``train_fit``: 8 steps of 8 synthetic 224 x 224 x 3 images in 2
+    microbatches (two seeded batches cycled), K1, K2 and K3 100 launches a
+    step, 4 of them wide (the cross attend and the decoder's query)."""
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    batches = [{"image": rng.standard_normal((8, *IMG_ENCODER["image_shape"])).astype(np.float32),
+                "label": rng.integers(0, IMG_DECODER["num_classes"], 8)} for _ in range(2)]
+    return train_fit(torch, flash, training, parallel, vision_mod.ImageClassifier, cfg, torch.bfloat16, root,
+                     batches, batches, batches[:1], lr=1e-4, warmup_steps=2, phase="classifiers_image_fit",
+                     make_loss=lambda model, cfg: training.image_classifier_loss_fn(model),
+                     attends=2 * IMG_ATTENDS, tokens_per_step=8, wide=2 * IMG_WIDE)
+
+
+def mnist_cli(torch, flash, ragged, training, img_script, root: Path, smi: str) -> dict:
+    """(e) the image CLI at MNIST's shape (fp32, the family's) over the
+    synthetic image data module, JAX's MNIST test's one cross head:
+    ``fit`` (8 steps of 16 in 2 microbatches, AdamW to 1e-3), its cross
+    attend (131, 131) on wide in K1, K2 and K3, then ``validate`` /
+    ``test --ckpt``. Eight steps hardly move this model's loss (a CPU run of
+    the same flags logs the card's curve, 2.30 -> 2.27-2.30), so the gates
+    are finite losses and ``validate`` reproducing the fit's own validation
+    loss from its checkpoint."""
+    import dataclasses
+
+    common = [*MNIST_FLAGS, *CLI_TRAIN, "--optimizer.lr=1e-3"]
+    runs = {}
+    state, runs["fit"] = _cli_stage(torch, flash, ragged, training, img_script.main, ["fit", *common], root / "fit")
+    failures = _fit_failures(runs["fit"], TRAIN_STEPS, 2, {"wide": 2}, {"wide": 2})
+    losses = runs["fit"]["losses"]
+    if not (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)):
+        failures.append(f"losses {losses}")
+    runs["config"] = dataclasses.asdict(state.model.config)
+    del state
+    emit("classifiers", part="mnist_cli_fit", card=smi, steps=TRAIN_STEPS,
+         **{k: v for k, v in runs["fit"].items() if k != "k4_routes"})
+    for sub in ("validate", "test"):
+        metrics, runs[sub] = cli_run(torch, flash, ragged, img_script.main,
+                                     [sub, *common, f"--ckpt={root / 'fit' / 'checkpoints'}",
+                                      f"--trainer.default_root_dir={root / sub}"])
+        emit("classifiers", part=f"mnist_cli_{sub}", card=smi, metrics=metrics, k1_routes=runs[sub]["k1_routes"])
+        if not all(math.isfinite(v) for v in metrics.values()) or runs[sub]["k1_routes"]["wide"] != 1 \
+                or runs[sub]["launches"]["k1"] != 1:
+            failures.append(f"{sub}: {metrics}, K1 routes {runs[sub]['k1_routes']}")
+        runs[sub]["metrics"] = metrics
+    fit_val, val = runs["fit"]["val_loss"][-1], runs["validate"]["metrics"]["loss"]
+    if not math.isclose(val, fit_val, rel_tol=1e-5):
+        failures.append(f"validate's loss {val} is not the fit's validation loss {fit_val}")
+    if failures:
+        raise AssertionError("mnist cli: " + "; ".join(failures))
+    return runs
+
+
+def classifiers_phase(torch, flash, ragged, pipelines_mod, training, parallel, root: Path, smi: str) -> dict:
+    """Phase 18: the text classifier at language-perceiver width ((a) the
+    forward against ``xla``, also at the JAX CLI's defaults, (b)
+    ``sentiment-analysis``, (c) the CLI's two-stage ``fit`` and
+    ``validate`` / ``test``) and the Fourier image classifier at
+    deepmind/vision-perceiver-fourier width ((d) the forward, the
+    ``image-classification`` pipeline and a bf16 fit) and at MNIST's shape
+    ((e) the image CLI)."""
+    import gc
+
+    from perceiver_io_tpu_torch.data import text as data_text
+    from perceiver_io_tpu_torch.data import vision as data_vision
+    from perceiver_io_tpu_torch.data.text.tokenizers import ByteTokenizer
+    from perceiver_io_tpu_torch.models import vision as vision_mod
+    from perceiver_io_tpu_torch.models.core import config as config_mod
+    from perceiver_io_tpu_torch.models.text import classifier as clf_mod
+    from perceiver_io_tpu_torch.models.text import common as common_mod
+    from perceiver_io_tpu_torch.models.text import mlm as mlm_mod
+    from perceiver_io_tpu_torch.scripts.text import classifier as clf_script
+    from perceiver_io_tpu_torch.scripts.vision import image_classifier as img_script
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t_phase - sum(seconds.values())
+
+    cfg = text_classifier_config(config_mod, common_mod)
+    forward = clf_forward(torch, flash, clf_mod, cfg, text_classifier_config(config_mod, common_mod, defaults=True))
+    model = forward.pop("model")
+    sentiment = clf_sentiment(torch, flash, pipelines_mod, data_text.TextPreprocessor, ByteTokenizer, model, smi)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("text_forward_and_pipeline")
+    cli = clf_cli(torch, flash, ragged, training, mlm_mod, clf_script,
+                  language_perceiver_config(config_mod, common_mod, mlm_mod), root / "text_cli", smi)
+    lap("text_cli")
+    img_cfg = image_classifier_config(config_mod, vision_mod)
+    image = img_forward(torch, flash, vision_mod, img_cfg)
+    model = image.pop("model")
+    pipe = img_pipeline(torch, flash, pipelines_mod, data_vision, model, smi)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fit = img_fit(torch, flash, training, parallel, vision_mod, img_cfg, root / "image_fit")
+    lap("image")
+    mnist = mnist_cli(torch, flash, ragged, training, img_script, root / "mnist_cli", smi)
+    lap("mnist_cli")
+    total = time.perf_counter() - t_phase
+    params = {"text_classifier": forward[f"float32_{MLM_SEQ}"]["params"],
+              "text_classifier_cli_defaults": forward["cli_defaults_float32"]["params"],
+              "image_classifier": image["float32"]["params"]}
+    emit("classifiers", part="done", card=smi, seconds=total, seconds_by_part=seconds, params=params,
+         reference_params=CLASSIFIER_PARAMS)
+    if params != CLASSIFIER_PARAMS:
+        raise AssertionError(f"parameter counts {params}, the JAX package's {CLASSIFIER_PARAMS}")
+    return {"forward": forward, "sentiment": sentiment, "cli": cli, "image": image, "image_pipeline": pipe,
+            "image_fit": fit, "mnist_cli": mnist, "params": params, "seconds": total, "seconds_by_part": seconds}
+
+
 K1_SOURCES = {
     "split": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_split.cu",
     "wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wgmma.cu",
     "tf32x3": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_tf32.cu",
+    "wide": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wide.cu",
 }
 K1_LAUNCHES_FROM = {"split": "the bucket serve run (fp32 decode attends)",
                     "tf32x3": "the bucket serve run (fp32 prefill)",
@@ -4208,7 +4818,8 @@ def k4_route_entry(ragged, design: str, main: tuple, cases: list, launches: int,
 
 
 K23_SOURCES = {"wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_wgmma.cu",
-               "tf32x3": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_tf32.cu"}
+               "tf32x3": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_tf32.cu",
+               "wide": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_wide.cu"}
 #: per K23 kernel: (wrapper name, TPU function, counter key, gradients)
 K23_KERNELS = {
     "dq": ("flash_attention_bwd_dq", "perceiver_io_tpu/ops/flash_attention.py:290", "k2", ("dq",)),
@@ -4217,14 +4828,15 @@ K23_KERNELS = {
 
 
 def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic: dict, cli: dict,
-                mlm: dict) -> list:
+                mlm: dict, clf_bwd: dict) -> list:
     """The summary line's entries for K2 (``dq``) or K3 (``dkv``), one per
     route the main path runs (``wgmma`` in bf16, ``tf32x3`` in fp32): the
     cross case (i = 512, j = 768, d = 112) of its type at the top, launches
     from the Trainer.fit run of its type, the train_resilience runs' of that
     type, the cli phase's fits' (bf16: their route's; fp32: none), the mlm
-    phase's fits' (``mlm_launches``, bf16), the (d, dv) pairs its cases ran
-    and every case that took it."""
+    phase's fits' (``mlm_launches``, bf16), the classifiers phase's runs'
+    (``classifiers_launches``, from ``clf_bwd``: each run's launches by
+    route), the (d, dv) pairs its cases ran and every case that took it."""
     from perceiver_io_tpu_torch.ops.flash_attention import HEAD_DIMS
 
     name, replaces, count, grads = K23_KERNELS[kname]
@@ -4233,7 +4845,7 @@ def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic:
         keys = ("ms", "prev_ms", "plain_ms", "bound_ms", "bound_by")
         if design == "tf32x3":
             keys += ("bound_simt_ms", "bound_simt_by")
-        mine = [c for c in cases if c["dtype"] == tname]
+        mine = [c for c in cases if c["dtype"] == tname and c["expected_route"] == design]
         head = next(c for c in mine if c["case"] == "cross" and c["j"] == 768)
         sam = next(c for c in mine if c["case"] == "cross_sam")
         entries.append({
@@ -4258,6 +4870,7 @@ def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic:
             "cli_route_launches": {run: cli[run]["bwd_routes"][count] for run in ("fit", "symbolic_fit")},
             "mlm_launches": {"cli_fit": mlm["cli"]["fit"]["bwd_routes"][count][design],
                              "trainer_fit": mlm["cli"]["direct"]["bwd_route_launches"][count][design]},
+            "classifiers_launches": {run: routes[count][design] for run, routes in clf_bwd.items()},
             "head_dims": sorted({(c["d"], c["dv"]) for c in mine}), "instantiated_head_dims": HEAD_DIMS,
             "cases": [{"case": c["case"], "i": c["i"], "j": c["j"], "d": c["d"], "dv": c["dv"],
                        "causal": c["causal"],
@@ -4266,6 +4879,58 @@ def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic:
                        "prev_rel_err": None if c["prev_rel_err"] is None
                        else {g: c["prev_rel_err"][g] for g in grads}}
                       for c in mine],
+        })
+    return entries
+
+
+def wide_entries(flash, k1_cases: list, k23_cases: list, k1_launches: int, bwd_launches: dict,
+                 clf_k1: dict, clf_bwd: dict) -> list:
+    """The summary line's entries for the wide route of K1, K2 and K3: the
+    image encoder's cross attend in bf16 (d = dv = 261, 512 x 50176) at the
+    top, ``launches`` from the classifiers phase's bf16 image fit, each
+    classifiers run's launches on the route, and every case that took it."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    head_of = lambda mine: next(c for c in mine if (c["case"], c["dtype"]) == ("img_cross", "bfloat16"))  # noqa: E731
+    common = dict(route="cuda", design="wide", shape="the image classifier's encoder cross attend, b=2 h=1 "
+                  "i=512 j=50176 d=dv=261 bf16, non-causal, no pad mask",
+                  launches_from="the classifiers phase's bf16 image fit (8 steps and its validation pass)")
+    mine = [c for c in k1_cases if c["route"] == "wide"]
+    head = head_of(mine)
+    entries = [{
+        "name": "flash_attention_fwd[wide]", **common, "source": K1_SOURCES["wide"],
+        "replaces": "perceiver_io_tpu/ops/flash_attention.py:198", "launches": k1_launches,
+        "kernel_launches": k1_launches * flash.ROUTE_KERNELS["wide"],
+        "max_abs_err": max(c["max_abs_err"] for c in mine if c["dtype"] == "float32"),
+        "max_abs_err_bf16": max(c["max_abs_err"] for c in mine if c["dtype"] == "bfloat16"),
+        **{k: head[k] for k in keys}, "library_backend": head["library_backend"],
+        "classifiers_launches": {run: routes.get("wide", 0) for run, routes in clf_k1.items()},
+        "head_dims": sorted({(c["d"], c["dv"]) for c in mine}),
+        "cases": [{"case": c["case"], "dtype": c["dtype"], "b": c["b"], "h": c["h"], "i": c["i"], "j": c["j"],
+                   "d": c["d"], "dv": c["dv"], "causal": c["causal"], "max_abs_err": c["max_abs_err"],
+                   **{k: c[k] for k in keys + ("bound_simt_ms",) if k in c and not k.endswith("_by")}}
+                  for c in mine],
+    }]
+    for kname in ("dq", "dkv"):
+        name, replaces, count, grads = K23_KERNELS[kname]
+        mine = [c for c in k23_cases if c["expected_route"] == "wide"]
+        head = head_of(mine)
+        entries.append({
+            "name": f"{name}[wide]", **common, "source": K23_SOURCES["wide"], "replaces": replaces,
+            "launches": bwd_launches[count],
+            "max_abs_err": max(c["max_abs_err"][g] for c in mine for g in grads if c["dtype"] == "float32"),
+            "max_abs_err_bf16": max(c["max_abs_err"][g] for c in mine for g in grads if c["dtype"] == "bfloat16"),
+            **{k: head["kernels"][kname][k] for k in keys if k != "library_ms"},
+            "library_ms": head["library_ms"], "library_backend": head["library_backend"],
+            "library_note": "backward of scaled_dot_product_attention (memory-efficient backend), "
+                            "dq, dk and dv together",
+            "classifiers_launches": {run: routes[count]["wide"] for run, routes in clf_bwd.items()},
+            "head_dims": sorted({(c["d"], c["dv"]) for c in mine}),
+            "cases": [{"case": c["case"], "dtype": c["dtype"], "b": c["b"], "h": c["h"], "i": c["i"], "j": c["j"],
+                       "d": c["d"], "dv": c["dv"], "causal": c["causal"],
+                       "rel_err": {g: c["rel_err"][g] for g in grads},
+                       **{k: c["kernels"][kname][k] for k in keys + ("bound_simt_ms",)
+                          if k in c["kernels"][kname] and not k.endswith("_by")},
+                       "library_ms": c["library_ms"]} for c in mine],
         })
     return entries
 
@@ -4394,6 +5059,22 @@ def main() -> int:
     mlm_k1 = {**{f"forward_{k}": v["k1_route_launches"] for k, v in mlm["forward"].items()},
               "fill_mask": mlm["fill"]["k1_route_launches"],
               **{run: mlm["cli"][run]["k1_routes"] for run in ("fit", "validate", "test")}}
+    emit("memory_before_classifiers", **held_memory(torch))
+    clf = classifiers_phase(torch, flash, ragged, pipelines_mod, training, parallel,
+                            ROOT / "build" / "chip_smoke_classifiers", smi)
+    # each classifiers run's K1 launches by route, and K2/K3's in its fits
+    clf_k1 = {**{f"text_forward_{k}": v["k1_route_launches"] for k, v in clf["forward"].items()},
+              "sentiment_analysis": clf["sentiment"]["k1_route_launches"],
+              **{f"text_cli_{run}": clf["cli"][run]["k1_routes"] for run in ("frozen", "unfrozen", "validate", "test")},
+              **{f"image_forward_{k}": v["k1_route_launches"] for k, v in clf["image"].items()},
+              "image_classification": clf["image_pipeline"]["k1_route_launches"],
+              "image_fit": clf["image_fit"]["k1_route_launches"],
+              **{f"mnist_cli_{run}": clf["mnist_cli"][run]["k1_routes"] for run in ("fit", "validate", "test")}}
+    clf_bwd = {"text_cli_frozen": clf["cli"]["frozen"]["bwd_routes"],
+               "text_cli_unfrozen": clf["cli"]["unfrozen"]["bwd_routes"],
+               "image_fit": clf["image_fit"]["bwd_route_launches"], "mnist_cli_fit": clf["mnist_cli"]["fit"]["bwd_routes"]}
+    wide = wide_entries(flash, cases, k23, clf["image_fit"]["k1_route_launches"]["wide"],
+                        {k: v["wide"] for k, v in clf["image_fit"]["bwd_route_launches"].items()}, clf_k1, clf_bwd)
 
     main_case = next(c for c in cases
                      if (c["case"], c["dtype"], c["d"]) == ("cross", "float32", K1_HEAD_DIM))
@@ -4435,15 +5116,18 @@ def main() -> int:
                               **{f"train_{t}": v["launches"]["k1"] for t, v in symbolic["train"].items()}},
         "mlm_launches": {run: sum(routes.values()) for run, routes in mlm_k1.items()},
         "mlm_route_launches": mlm_k1,
+        "classifiers_launches": {run: sum(routes.values()) for run, routes in clf_k1.items()},
+        "classifiers_route_launches": clf_k1,
         "routes": [{**k1_route_entry(flash, design, main, cases, route_launches[design], {
                        "bucket_serve": symbolic["bucket_serve"]["k1_routes"][design],
                        **{f"slot_serve_{layout}": v["k1_routes"][design]
                           for layout, v in symbolic["slot_serve"].items()},
                        **{f"train_{t}": v["k1_route_launches"][design] for t, v in symbolic["train"].items()}}),
                     "cli_launches": {run: r["k1_routes"][design] for run, r in cli.items()},
-                    "mlm_launches": {run: routes[design] for run, routes in mlm_k1.items()}}
+                    "mlm_launches": {run: routes[design] for run, routes in mlm_k1.items()},
+                    "classifiers_launches": {run: routes.get(design, 0) for run, routes in clf_k1.items()}}
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
-                                        ("tf32x3", ("cross", "float32")))],
+                                        ("tf32x3", ("cross", "float32")))] + wide[:1],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -4481,8 +5165,8 @@ def main() -> int:
                                       for layout, v in symbolic["slot_serve"].items()}),
                     "cli_launches": {run: cli[run]["k4_routes"][design] for run in ("serve_bucket", "serve_slots")}}
                    for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
-    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic, cli, mlm)]}),
-          flush=True)
+    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic, cli, mlm, clf_bwd)]
+        + wide[1:]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

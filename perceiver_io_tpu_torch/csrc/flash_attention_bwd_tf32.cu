@@ -60,7 +60,9 @@
 // registers, which K3's dK/dV accumulators need. Tiles are fp32 in shared
 // memory with row stride d + 4; six
 // tiles of 64 x (d + 4) (174 KB at d = 112, 198 KB at d = 128) allow one
-// block per SM, and the double buffer hides the streamed loads.
+// block per SM, and the double buffer hides the streamed loads. At d = dv =
+// 160 six tiles would take 253 KB of the 227 a block can use: the streamed
+// tiles take one stage (STAGES, 169 KB), loaded once the last is read.
 //   K2: one block per (64-row query tile, head, batch), the tiles with the
 //       most keys first. q and do are staged once, lse and delta read into
 //       registers; k and v tiles of 64 keys stream through two cp.async
@@ -120,8 +122,14 @@ namespace {
 // six tiles (K2: q, do, 2 x k, 2 x v; K3: k, v, 2 x q, 2 x do), three of q's
 // and k's width and three of v's and do's, and two stages of 64-entry side
 // vectors (K2: key flags; K3: lse and delta)
+// (STAGES streamed stages: two where they fit, one at d = dv = 160, where
+// two would take 253 KB)
+template <int D, int DV, int ST>
+constexpr int SMEM_OF = ((1 + ST) * (Tile<D>::FLOATS + Tile<DV>::FLOATS) + 4 * 64) * sizeof(float);
 template <int D, int DV>
-constexpr int SMEM = (3 * Tile<D>::FLOATS + 3 * Tile<DV>::FLOATS + 4 * 64) * sizeof(float);
+constexpr int STAGES = SMEM_OF<D, DV, 2> <= SMEM_LIMIT ? 2 : 1;
+template <int D, int DV>
+constexpr int SMEM = SMEM_OF<D, DV, STAGES<D, DV>>;
 
 // the second column half's partial sums added into the first's (warps
 // 4..7 into 0..3) through shared memory `red`, 4 x (D / 2) x 32 floats,
@@ -153,13 +161,13 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict_
                            const float* __restrict__ dout, float* __restrict__ dq, int H, int I,
                            int J) {
   constexpr int S = Tile<D>::S, T = Tile<D>::FLOATS;
-  constexpr int SV = Tile<DV>::S, TV = Tile<DV>::FLOATS;
+  constexpr int SV = Tile<DV>::S, TV = Tile<DV>::FLOATS, ST = STAGES<D, DV>;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
   float* do_s = q_s + T;
-  float* k_s = do_s + TV;      // two stages
-  float* v_s = k_s + 2 * T;    // two stages
-  float* ok_s = v_s + 2 * TV;  // two stages of BN: 1 = key in range, not padded
+  float* k_s = do_s + TV;       // ST stages
+  float* v_s = k_s + ST * T;    // ST stages
+  float* ok_s = v_s + ST * TV;  // two stages of BN: 1 = key in range, not padded
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int group = (tid >> 5) & 3, half = tid >> 7, g = lane >> 2, t = lane & 3;
@@ -192,16 +200,16 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict_
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1, col0 = it * BN;
+    const int cur = ST == 2 ? it & 1 : 0, col0 = it * BN;
     const bool more = it + 1 < n_tiles;
     float next_ok = 0.f;
-    if (more) {  // the next tile into the other stage (read two barriers ago)
+    if (ST == 2 && more) {  // the next tile into the other stage (read two barriers ago)
       stage<D>(k_s + (cur ^ 1) * T, kg, col0 + BN, J);
       stage<DV>(v_s + (cur ^ 1) * TV, vg, col0 + BN, J);
       if (tid < BN) next_ok = key_ok<HAS_PAD>(pad, bb, J, col0 + BN + tid) ? 1.f : 0.f;
     }
     cp_async_commit();
-    cp_async_wait<1>();  // this tile's group (and q, do) have landed
+    cp_async_wait<ST - 1>();  // this tile's group (and q, do) have landed
     __syncthreads();
     const float* kt = k_s + cur * T;
     const float* vt = v_s + cur * TV;
@@ -270,8 +278,13 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict_
       mma3_columns<D>(acc, ah, al, kt, c0 / 8 + kk, g, t);
     }
 
-    if (more && tid < BN) ok_s[(cur ^ 1) * BN + tid] = next_ok;
+    if (ST == 2 && more && tid < BN) ok_s[(cur ^ 1) * BN + tid] = next_ok;
     __syncthreads();  // this stage is read by no one before the next copy into it
+    if (ST == 1 && more) {  // one stage: the next tile once this one is read
+      stage<D>(k_s, kg, col0 + BN, J);
+      stage<DV>(v_s, vg, col0 + BN, J);
+      if (tid < BN) ok_s[tid] = key_ok<HAS_PAD>(pad, bb, J, col0 + BN + tid) ? 1.f : 0.f;
+    }
   }
 
   cp_async_wait<0>();
@@ -287,13 +300,13 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict
                             const float* __restrict__ dout, float* __restrict__ dk,
                             float* __restrict__ dv, int H, int I, int J) {
   constexpr int S = Tile<D>::S, T = Tile<D>::FLOATS;
-  constexpr int SV = Tile<DV>::S, TV = Tile<DV>::FLOATS;
+  constexpr int SV = Tile<DV>::S, TV = Tile<DV>::FLOATS, ST = STAGES<D, DV>;
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;
   float* v_s = k_s + T;
-  float* q_s = v_s + TV;           // two stages
-  float* do_s = q_s + 2 * T;       // two stages
-  float* lse_s = do_s + 2 * TV;    // two stages of BM
+  float* q_s = v_s + TV;           // ST stages
+  float* do_s = q_s + ST * T;      // ST stages
+  float* lse_s = do_s + ST * TV;   // two stages of BM
   float* delta_s = lse_s + 2 * BM;  // two stages of BM
 
   const int tid = threadIdx.x, lane = tid & 31;
@@ -346,10 +359,10 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict
     for (int e = 0; e < 4; ++e) acc_v[n][e] = 0.f;
 
   for (int it = t0; it < n_tiles; ++it) {
-    const int cur = (it - t0) & 1, row0 = it * BM;
-    if (it + 1 < n_tiles) stage_queries(cur ^ 1, row0 + BM);  // read two barriers ago
+    const int cur = ST == 2 ? (it - t0) & 1 : 0, row0 = it * BM;
+    if (ST == 2 && it + 1 < n_tiles) stage_queries(cur ^ 1, row0 + BM);  // read two barriers ago
     cp_async_commit();
-    cp_async_wait<1>();  // this tile's group (and k, v) have landed
+    cp_async_wait<ST - 1>();  // this tile's group (and k, v) have landed
     __syncthreads();
     const float* qt = q_s + cur * T;
     const float* dot = do_s + cur * TV;
@@ -424,6 +437,7 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict
       mma3_columns<D>(acc_k, dh, dl, qt, c0 / 8 + kq, g, t);
     }
     __syncthreads();  // this stage is read by no one before the next copy into it
+    if (ST == 1 && it + 1 < n_tiles) stage_queries(0, row0 + BM);  // one stage: once this one is read
   }
 
   cp_async_wait<0>();

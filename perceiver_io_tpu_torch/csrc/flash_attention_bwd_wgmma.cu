@@ -76,7 +76,11 @@
 // (at dv = 160 m64n128k16 over the first two boxes and m64n64k16 over the
 // third, 96 fp32 registers a thread; with dK's 32 and S^T, dP^T's 64 that is
 // d = 112's 192). At d = 32 the one q/k box holds 32 real columns and TMA
-// zero-fills the rest.
+// zero-fills the rest. At d = dv = 160 dK and dV would hold 96 + 96 fp32
+// registers beside S^T's and dP^T's 64, past the 255 a thread can have: K3
+// runs as two launches over the same grid (kv_split), one accumulating dV
+// alone (S^T, no dP^T) and one dK alone, each computing S^T (five products
+// where one launch has four). K2 keeps its 96-register dQ at 160.
 // Ragged edges (i, j not multiples of 64) are TMA zero-fill plus the select
 // and a store guard.
 #include <cuda_bf16.h>
@@ -138,9 +142,10 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, 
     sm90::tma_load_3d(dst + h * BOX_BYTES, map, bar, h * 64, row, bh);
 }
 
-// s = A0 . B0^T over the D columns and dp = A1 . B1^T over the DV columns:
-// four 64-row tiles in shared memory, all K-major; one wgmma group, waited on
-template <int D, int DV>
+// s = A0 . B0^T over the D columns and (WITH_DP) dp = A1 . B1^T over the DV
+// columns: four 64-row tiles in shared memory, all K-major; one wgmma group,
+// waited on
+template <int D, int DV, bool WITH_DP = true>
 __device__ __forceinline__ void ss_pair(float (&s)[32], float (&dp)[32], const uint8_t* a0,
                                         const uint8_t* b0, const uint8_t* a1, const uint8_t* b1) {
 #pragma unroll
@@ -152,17 +157,26 @@ __device__ __forceinline__ void ss_pair(float (&s)[32], float (&dp)[32], const u
     sm90::wgmma_m64n64k16_ss(s, sm90::desc_sw128(a0 + at, 16, 1024),
                              sm90::desc_sw128(b0 + at, 16, 1024), kk > 0);
   }
+  if constexpr (WITH_DP) {
 #pragma unroll
-  for (int kk = 0; kk < Tile<D, DV>::VSTEPS; ++kk) {
-    const int at = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    sm90::wgmma_m64n64k16_ss(dp, sm90::desc_sw128(a1 + at, 16, 1024),
-                             sm90::desc_sw128(b1 + at, 16, 1024), kk > 0);
+    for (int kk = 0; kk < Tile<D, DV>::VSTEPS; ++kk) {
+      const int at = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      sm90::wgmma_m64n64k16_ss(dp, sm90::desc_sw128(a1 + at, 16, 1024),
+                               sm90::desc_sw128(b1 + at, 16, 1024), kk > 0);
+    }
   }
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
   sm90::fence_regs(s);
   sm90::fence_regs(dp);
 }
+
+// K3's parts: both accumulators in one block, or (where dK's and dV's
+// registers together pass 128 a thread, (160, 160)) dV alone and dK alone,
+// one launch each over the same grid
+constexpr int BOTH = 0, DV_ONLY = 1, DK_ONLY = 2;
+template <int D, int DV>
+constexpr bool kv_split() { return Tile<D, DV>::DP / 2 + Tile<D, DV>::DVP / 2 > 128; }
 
 // a 64 x 64 fp32 accumulator as bf16 A fragments: registers 8c..8c+7 are the
 // 64 x 16 slice of columns 16c..16c+15 (sm90.cuh)
@@ -214,7 +228,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H,
                           int I, int J) {
   using T = Tile<D, DV>;
-  static_assert(D % 16 == 0 && D <= 128, "q/k head dim must be a multiple of 16, at most 128");
+  static_assert(D % 16 == 0 && D <= 192, "q/k head dim must be a multiple of 16, at most 192");
   static_assert(DV % 16 == 0 && DV <= 192, "v head dim must be a multiple of 16, at most 192");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = aligned_smem(smem_raw);        // [box]
@@ -321,7 +335,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   store_rows<D, T::DP>(dq + (size_t)bh * I * D, acc, r_lo, I, lane);
 }
 
-template <int D, int DV, bool CAUSAL, bool HAS_PAD>
+template <int D, int DV, bool CAUSAL, bool HAS_PAD, int PART>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -331,7 +345,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int H, int I, int J) {
   using T = Tile<D, DV>;
-  static_assert(D % 16 == 0 && D <= 128, "q/k head dim must be a multiple of 16, at most 128");
+  static_assert(D % 16 == 0 && D <= 192, "q/k head dim must be a multiple of 16, at most 192");
   static_assert(DV % 16 == 0 && DV <= 192, "v head dim must be a multiple of 16, at most 192");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* k_s = aligned_smem(smem_raw);       // [box]
@@ -418,8 +432,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::mbar_wait(&full[stage], (n / STAGES) & 1);
     const uint8_t* qt = q_s + stage * T::QK_BYTES;
     const uint8_t* dot = do_s + stage * T::V_BYTES;
-    float s[32], dp[32];  // S^T and dP^T: rows keys, columns queries
-    ss_pair<D, DV>(s, dp, k_s, qt, v_s, dot);
+    float s[32], dp[32];  // S^T and dP^T (not for dV alone): rows keys, columns queries
+    ss_pair<D, DV, PART != DV_ONLY>(s, dp, k_s, qt, v_s, dot);
 
     // p^T and ds^T; the select where this thread's keys are masked, the
     // tile straddles the shifted diagonal or runs past the last query
@@ -438,7 +452,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         const float lv = (e % 2) ? l2.y : l2.x;
         const float dl = (e % 2) ? d2.y : d2.x;
         float p = exp2f(fmaf(s[i], LOG2E, -lv));
-        float ds = p * (dp[i] - dl);
+        float ds = PART == DV_ONLY ? 0.f : p * (dp[i] - dl);
         if (masked) {
           const int query = row0 + c + (e % 2);
           const int key = k_lo + 8 * rr;
@@ -452,20 +466,20 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 
     uint32_t pa[4][4], da[4][4];
-    pack_fragments(pa, s);
-    pack_fragments(da, dp);
+    if constexpr (PART != DK_ONLY) pack_fragments(pa, s);
+    if constexpr (PART != DV_ONLY) pack_fragments(da, dp);
     sm90::wgmma_fence();
-    rs_product<T::DVP>(acc_v, pa, dot);  // dV += P^T . dO, dO MN-major
-    rs_product<T::DP>(acc_k, da, qt);   // dK += dS^T . Q, Q MN-major
+    if constexpr (PART != DK_ONLY) rs_product<T::DVP>(acc_v, pa, dot);  // dV += P^T . dO, dO MN-major
+    if constexpr (PART != DV_ONLY) rs_product<T::DP>(acc_k, da, qt);   // dK += dS^T . Q, Q MN-major
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
-    sm90::fence_regs(acc_v);
-    sm90::fence_regs(acc_k);
+    if constexpr (PART != DK_ONLY) sm90::fence_regs(acc_v);
+    if constexpr (PART != DV_ONLY) sm90::fence_regs(acc_k);
     sm90::mbar_arrive(&empty[stage]);
   }
 
-  store_rows<D, T::DP>(dk + (size_t)bh * J * D, acc_k, k_lo, J, lane);
-  store_rows<DV, T::DVP>(dv + (size_t)bh * J * DV, acc_v, k_lo, J, lane);
+  if constexpr (PART != DV_ONLY) store_rows<D, T::DP>(dk + (size_t)bh * J * D, acc_k, k_lo, J, lane);
+  if constexpr (PART != DK_ONLY) store_rows<DV, T::DVP>(dv + (size_t)bh * J * DV, acc_v, k_lo, J, lane);
 }
 
 struct Args {
@@ -483,6 +497,21 @@ struct Args {
   cudaStream_t stream;
 };
 
+// one K3 launch of part PART over the (64-key tile, head, batch) grid
+template <int D, int DV, bool CAUSAL, bool HAS_PAD, int PART>
+cudaError_t launch_dkv(const Args& a, const CUtensorMap& qmap, const CUtensorMap& kmap,
+                       const CUtensorMap& vmap, const CUtensorMap& domap) {
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D, DV, CAUSAL, HAS_PAD, PART>;
+  const int smem = Tile<D, DV>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.J + BN - 1) / BN, a.H, a.B);
+  kernel<<<grid, THREADS, smem, a.stream>>>(qmap, kmap, vmap, domap, a.pad, a.lse, a.delta,
+                                            static_cast<__nv_bfloat16*>(a.dk),
+                                            static_cast<__nv_bfloat16*>(a.dv), a.H, a.I, a.J);
+  return cudaGetLastError();
+}
+
 template <bool DKV, int D, int DV, bool CAUSAL, bool HAS_PAD>
 cudaError_t launch(const Args& a) {
   CUtensorMap qmap, kmap, vmap, domap;
@@ -492,24 +521,24 @@ cudaError_t launch(const Args& a) {
       !sm90_host::bf16_rows_map(&domap, a.dout, DV, a.I, a.B * a.H)) {
     return cudaErrorInvalidValue;
   }
-  const int smem = Tile<D, DV>::SMEM;
   if constexpr (DKV) {
-    auto kernel = flash_bwd_dkv_wgmma_kernel<D, DV, CAUSAL, HAS_PAD>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.J + BN - 1) / BN, a.H, a.B);
-    kernel<<<grid, THREADS, smem, a.stream>>>(qmap, kmap, vmap, domap, a.pad, a.lse, a.delta,
-                                              static_cast<__nv_bfloat16*>(a.dk),
-                                              static_cast<__nv_bfloat16*>(a.dv), a.H, a.I, a.J);
+    if constexpr (kv_split<D, DV>()) {
+      const cudaError_t err = launch_dkv<D, DV, CAUSAL, HAS_PAD, DV_ONLY>(a, qmap, kmap, vmap, domap);
+      if (err != cudaSuccess) return err;
+      return launch_dkv<D, DV, CAUSAL, HAS_PAD, DK_ONLY>(a, qmap, kmap, vmap, domap);
+    } else {
+      return launch_dkv<D, DV, CAUSAL, HAS_PAD, BOTH>(a, qmap, kmap, vmap, domap);
+    }
   } else {
     auto kernel = flash_bwd_dq_wgmma_kernel<D, DV, CAUSAL, HAS_PAD>;
+    const int smem = Tile<D, DV>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((a.I + BM - 1) / BM, a.H, a.B);
     kernel<<<grid, THREADS, smem, a.stream>>>(qmap, kmap, vmap, domap, a.pad, a.lse, a.delta,
                                               static_cast<__nv_bfloat16*>(a.dq), a.H, a.I, a.J);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <bool DKV, int D, int DV>

@@ -63,7 +63,10 @@
 // no -inf - (-inf) is ever taken; the handover goes through the v stages,
 // read no more. Tiles are fp32 with row stride d + 4 (v's dv + 4): q hi
 // and lo, and two stages each of k and v (178 KB at d = 112, 198 KB at
-// d = 128, 118 KB at d = 32 with dv = 160): one block per SM.
+// d = 128, 118 KB at d = 32 with dv = 160): one block per SM. At d = dv =
+// 160 two stages would take 252 KB of the 227 a block can use, so the k/v
+// tiles take one stage (STAGES): the next tile loads once this one is read,
+// and its load is not hidden (168 KB).
 //
 // Ragged edges (i, j not multiples of 64) are cp.async zero-fill plus the
 // select and a store guard. cp.async copies 16 bytes, so q, k and v need
@@ -79,9 +82,15 @@ namespace {
 // The TPU kernel's large-but-finite mask value: a dead row's lse
 constexpr float MASK = -0.7f * 3.4028234663852886e38f;
 
-// q hi and lo, two stages each of k and v, and two stages of 64 key flags
+// q hi and lo, STAGES stages each of k and v, and two stages of 64 key
+// flags; two k/v stages where they fit (one at d = dv = 160, where two
+// would take 252 KB)
+template <int D, int DV, int ST>
+constexpr int SMEM_OF = (2 * Tile<D>::FLOATS + ST * (Tile<D>::FLOATS + Tile<DV>::FLOATS) + 2 * 64) * sizeof(float);
 template <int D, int DV>
-constexpr int SMEM = (4 * Tile<D>::FLOATS + 2 * Tile<DV>::FLOATS + 2 * 64) * sizeof(float);
+constexpr int STAGES = SMEM_OF<D, DV, 2> <= SMEM_LIMIT ? 2 : 1;
+template <int D, int DV>
+constexpr int SMEM = SMEM_OF<D, DV, STAGES<D, DV>>;
 
 // the A fragment of rows r, r + 8 and columns k0 + t, k0 + t + 4 from tiles
 // split already
@@ -109,13 +118,13 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
                         const float* __restrict__ v, const uint8_t* __restrict__ pad,
                         float* __restrict__ o, float* __restrict__ lse, int H, int I, int J) {
   constexpr int S = Tile<D>::S, T = Tile<D>::FLOATS, CH = D / 4;
-  constexpr int TV = Tile<DV>::FLOATS;
+  constexpr int TV = Tile<DV>::FLOATS, ST = STAGES<D, DV>;
   extern __shared__ __align__(16) float smem[];
-  float* qh_s = smem;          // q's hi parts (bits), staged as fp32 first
-  float* ql_s = qh_s + T;      // q's lo parts (bits)
-  float* k_s = ql_s + T;       // two stages
-  float* v_s = k_s + 2 * T;    // two stages of TV
-  float* ok_s = v_s + 2 * TV;  // two stages of BN: 1 = key in range, not padded
+  float* qh_s = smem;           // q's hi parts (bits), staged as fp32 first
+  float* ql_s = qh_s + T;       // q's lo parts (bits)
+  float* k_s = ql_s + T;        // ST stages
+  float* v_s = k_s + ST * T;    // ST stages of TV
+  float* ok_s = v_s + ST * TV;  // two stages of BN: 1 = key in range, not padded
   __shared__ int range_s[2];
 
   const int tid = threadIdx.x, lane = tid & 31;
@@ -188,17 +197,17 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int it = begin; it < end; ++it) {
-    const int cur = (it - begin) & 1, col0 = it * BN;
+    const int cur = ST == 2 ? (it - begin) & 1 : 0, col0 = it * BN;
     const bool more = it + 1 < end;
     float next_ok = 0.f;
-    if (more) {  // the next tile into the other stage (read two barriers ago)
+    if (ST == 2 && more) {  // the next tile into the other stage (read two barriers ago)
       stage<D>(k_s + (cur ^ 1) * T, kg, col0 + BN, J);
       stage<DV>(v_s + (cur ^ 1) * TV, vg, col0 + BN, J);
       if (tid < BN) next_ok = key_ok<HAS_PAD>(pad, bb, J, col0 + BN + tid) ? 1.f : 0.f;
     }
     cp_async_commit();
-    cp_async_wait<1>();  // this tile's group has landed
-    __syncthreads();     // (and, the first time, every thread's q split)
+    cp_async_wait<ST - 1>();  // this tile's group has landed
+    __syncthreads();          // (and, the first time, every thread's q split)
     const float* kt = k_s + cur * T;
     const float* vt = v_s + cur * TV;
     const float* okt = ok_s + cur * BN;
@@ -287,8 +296,13 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
       mma3_columns<DV>(acc, ph, pl, vt, c0 / 8 + kk, g, t);
     }
 
-    if (more && tid < BN) ok_s[(cur ^ 1) * BN + tid] = next_ok;
+    if (ST == 2 && more && tid < BN) ok_s[(cur ^ 1) * BN + tid] = next_ok;
     __syncthreads();  // this stage is read by no one before the next copy into it
+    if (ST == 1 && more) {  // one stage: the next tile once this one is read
+      stage<D>(k_s, kg, col0 + BN, J);
+      stage<DV>(v_s, vg, col0 + BN, J);
+      if (tid < BN) ok_s[tid] = key_ok<HAS_PAD>(pad, bb, J, col0 + BN + tid) ? 1.f : 0.f;
+    }
   }
   cp_async_wait<0>();
 
@@ -302,7 +316,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   // the second half's state into the first's, through the v stages and the
   // q tiles (read no more: the barrier covers a block that ran no kv tile)
   __syncthreads();
-  float* red = v_s + group * (DV / 2) * 32 + lane;     // 4 x (DV / 2) x 32 floats, lane-contiguous
+  float* red = v_s + group * (DV / 2) * 32 + lane;     // 4 x (DV / 2) x 32 floats (< one stage), lane-contiguous
   float* ml = ql_s + (group * 32 + lane) * 4;          // (m0, m1, l0, l1) a thread
   if (half == 1) {
 #pragma unroll

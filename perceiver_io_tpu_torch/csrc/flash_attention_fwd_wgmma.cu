@@ -56,6 +56,11 @@
 // 64 * ceil(dv / 64): at dv = 160 three boxes, O += P.V as m64n128k16 over
 // the first two and m64n64k16 over the third (columns 160-191 stay 0 and are
 // not stored), 96 fp32 registers a thread.
+//
+// d = dv = 160 (the text families at the JAX CLI's defaults): q and k take
+// three boxes as v does, S runs ten k-steps (the last two in the third box,
+// whose columns 160-191 TMA zero-fills); 124 KB of shared memory, one block
+// an SM.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -93,7 +98,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int I,
                        int J) {
   using T = Tile<D, DV>;
-  static_assert(D % 16 == 0 && D <= 128, "q/k head dim must be a multiple of 16, at most 128");
+  static_assert(D % 16 == 0 && D <= 192, "q/k head dim must be a multiple of 16, at most 192");
   static_assert(DV % 16 == 0 && DV <= 192, "v head dim must be a multiple of 16, at most 192");
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid

@@ -20,6 +20,9 @@ constexpr int BN = 64;  // keys per tile
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 
+// the shared memory a block can use on the H100 (dynamic, opted in)
+constexpr int SMEM_LIMIT = 232448;
+
 template <int D>
 struct Tile {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");

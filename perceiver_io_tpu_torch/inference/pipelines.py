@@ -1,16 +1,18 @@
 """Task pipelines. Counterpart of ``perceiver_io_tpu/inference/pipelines.py``,
-of which ``text-generation``, ``fill-mask`` and ``symbolic-audio-generation``
-are ported: :class:`TextGenerationPipeline`, :class:`FillMaskPipeline`,
-:class:`SymbolicAudioPipeline`, the :func:`pipeline` dispatch by task name,
-and :func:`pipeline_from_pretrained` over a ``save_pretrained`` dir (with
-:func:`cast_float_params` for bf16 weight storage). The other tasks come
-with their model families (``ROADMAP.md`` A.3) and raise
-``NotImplementedError``.
+of which ``text-generation``, ``fill-mask``, ``sentiment-analysis`` /
+``text-classification``, ``image-classification`` and
+``symbolic-audio-generation`` are ported: :class:`TextGenerationPipeline`,
+:class:`FillMaskPipeline`, :class:`TextClassificationPipeline`,
+:class:`ImageClassificationPipeline`, :class:`SymbolicAudioPipeline`, the
+:func:`pipeline` dispatch by task name, and :func:`pipeline_from_pretrained`
+over a ``save_pretrained`` dir (with :func:`cast_float_params` for bf16
+weight storage). ``optical-flow`` comes with its model family (``ROADMAP.md``
+A.3) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import warnings
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -176,6 +178,63 @@ class FillMaskPipeline:
         return filled
 
 
+class TextClassificationPipeline:
+    """``pipeline("sentiment-analysis")`` / ``pipeline("text-classification")``:
+    texts -> ``{"label", "score"}`` of the most likely class (softmax of
+    the fp32 logits), through ``preprocessor.preprocess_batch`` (a
+    :class:`~perceiver_io_tpu_torch.data.text.TextPreprocessor`) and the
+    model on its device."""
+
+    def __init__(self, model, preprocessor, labels: Sequence[str] = ("NEGATIVE", "POSITIVE"), *,
+                 device: DeviceLike = "cuda"):
+        self.model = model
+        self.preprocessor = preprocessor
+        self.labels = list(labels)
+        self.device = resolve_device(device)
+
+    def __call__(self, texts: Union[str, Sequence[str]]) -> List[Dict[str, Any]]:
+        batch = [texts] if isinstance(texts, str) else list(texts)
+        ids, pad = self.preprocessor.preprocess_batch(batch)
+        with torch.no_grad():
+            logits = self.model(torch.as_tensor(np.asarray(ids), device=self.device).long(),
+                                pad_mask=torch.as_tensor(np.asarray(pad), device=self.device))
+        probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+        out = []
+        for row in probs:
+            idx = int(row.argmax())
+            out.append({"label": self.labels[idx], "score": float(row[idx])})
+        return out
+
+
+class ImageClassificationPipeline:
+    """``pipeline("image-classification")``: channels-last uint8 images ->
+    the top-k ``{"label", "score"}`` of each (softmax of the fp32 logits,
+    ranked by ``np.argsort(-probs)``), through ``preprocessor`` (default
+    :class:`~perceiver_io_tpu_torch.data.vision.ImagePreprocessor`) and the
+    model on its device. Without ``labels`` a label is the class index."""
+
+    def __init__(self, model, preprocessor=None, labels: Optional[Sequence[str]] = None, *,
+                 device: DeviceLike = "cuda"):
+        from perceiver_io_tpu_torch.data.vision import ImagePreprocessor
+
+        self.model = model
+        self.preprocessor = preprocessor or ImagePreprocessor()
+        self.labels = labels
+        self.device = resolve_device(device)
+
+    def __call__(self, images: np.ndarray, *, top_k: int = 1) -> List[List[Dict[str, Any]]]:
+        x = self.preprocessor(np.asarray(images))
+        with torch.no_grad():
+            logits = self.model(torch.as_tensor(np.asarray(x), device=self.device))
+        probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+        results = []
+        for row in probs:
+            order = np.argsort(-row)[:top_k]
+            results.append([{"label": self.labels[i] if self.labels else int(i), "score": float(row[i])}
+                            for i in order])
+        return results
+
+
 class SymbolicAudioPipeline:
     """``pipeline("symbolic-audio-generation")``: event-id prompts (MIDI
     events, :mod:`perceiver_io_tpu_torch.data.audio.midi`) -> prompt plus
@@ -260,10 +319,12 @@ class SymbolicAudioPipeline:
 
 _TASKS = {"text-generation": TextGenerationPipeline,
           "fill-mask": FillMaskPipeline,
+          "sentiment-analysis": TextClassificationPipeline,
+          "text-classification": TextClassificationPipeline,
+          "image-classification": ImageClassificationPipeline,
           "symbolic-audio-generation": SymbolicAudioPipeline}
 #: the reference's other tasks, each waiting for its model family
-_UNPORTED_TASKS = ("sentiment-analysis", "text-classification",
-                   "image-classification", "optical-flow")
+_UNPORTED_TASKS = ("optical-flow",)
 
 
 def pipeline(task: str, model, *args, **kwargs):

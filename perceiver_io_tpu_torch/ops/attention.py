@@ -11,8 +11,9 @@ Counterpart of ``perceiver_io_tpu/ops/attention.py``. Dispatch
   the kernel too. Where JAX refuses for another reason (a q/k or v head dim
   under 32, types that differ or are not fp32/bf16, causal with fewer keys
   than queries) it takes the plain path, as JAX's ``auto`` takes its einsum
-  path. A ``(q/k, v)`` head-dim pair that JAX's kernel takes and no K1 route
-  instantiates (``flash_attention.HEAD_DIMS``) raises ``ValueError``. On CPU tensors
+  path. Every ``(q/k, v)`` head-dim pair that JAX's kernel takes has a K1
+  route: the tile routes' pairs (``flash_attention.HEAD_DIMS``) and the
+  ``wide`` route for the rest. On CPU tensors
   ``auto`` runs the plain path, as the JAX package runs its einsum path off
   the TPU.
 - ``impl="flash"`` goes through the kernel's wrapper (on the CPU that is the
@@ -71,20 +72,9 @@ def kernel_refusal(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal:
 def kernel_takes(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal: bool) -> bool:
     """Whether ``impl="auto"`` sends a CUDA attend of these shapes to K1:
     True where JAX's kernel takes it (:func:`kernel_refusal`), False where
-    JAX's ``auto`` takes its einsum path. Raises ``ValueError`` for a
-    ``(d, dv)`` pair that JAX's kernel takes and no K1-K3 route instantiates,
-    naming ``ROADMAP.md`` B.1 (q/k head dims) and B.2 (a value head dim
-    unlike q's)."""
-    if kernel_refusal(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal) is not None:
-        return False
-    pair = (q_shape[3], v_shape[3])
-    if pair not in _flash.HEAD_DIMS:
-        raise ValueError(
-            f"head dims (d, dv) = {pair} are taken by the JAX package's flash kernel, but the "
-            f"port's flash kernels instantiate only the pairs {_flash.HEAD_DIMS} "
-            "(ROADMAP.md B.1 for q/k head dims, B.2 for v's own)"
-        )
-    return True
+    JAX's ``auto`` takes its einsum path. K1-K3 take every such ``(d, dv)``
+    pair (the tile routes' and, for the rest, ``wide``)."""
+    return kernel_refusal(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal) is None
 
 
 def _mask_value() -> float:

@@ -4,9 +4,10 @@ that joins them.
 
 Counterpart of the Pallas TPU kernels ``_forward`` (K1), ``_backward_dq``
 (K2) and ``_backward_dkv`` (K3) and of the ``custom_vjp`` around them in
-``perceiver_io_tpu/ops/flash_attention.py``. The forward (K1) has three
+``perceiver_io_tpu/ops/flash_attention.py``. The forward (K1) has four
 Hopper ``sm_90a`` designs behind one wrapper, picked by :func:`_fwd_route`
-from the query length and type alone, and a fourth reached only by name:
+from the query length, the head dims and the type alone, and a fifth
+reached only by name:
 
 - ``split`` (``csrc/flash_attention_fwd_split.cu``), at most 16 query rows
   (decode attends), fp32 or bf16: the keys cut into 64-key splits, one block
@@ -20,6 +21,12 @@ from the query length and type alone, and a fourth reached only by name:
   off), eight warps per 64-row tile, two online-softmax states per row
   merged at the end, tiles staged with ``cp.async``, ``p`` kept in
   registers;
+- ``wide`` (``csrc/flash_attention_fwd_wide.cu``), fp32 or bf16, for every
+  ``(d, dv)`` pair that the three above do not instantiate (the image
+  classifier's 261 and 1024, 131 on MNIST): d and dv at run time, 64 x 64
+  tiles on the CUDA cores in fp32 over head-dim steps of 32 columns, the
+  output in column groups of at most :data:`WIDE_GROUP`, the keys cut into
+  splits (:func:`_wide_splits`) whose fp32 partials a merge launch joins;
 - ``simt`` (``csrc/flash_attention_fwd.cu``), fp32 or bf16: 64 x 64 tiles
   on the CUDA cores, the first design, reached only by name through
   :func:`_fwd_launch` (to time it against the others).
@@ -35,8 +42,9 @@ Every route computes attention over pre-scaled queries with
 - **zero output for a query row that sees no key** (the TPU kernel's dead-row
   semantics; the einsum path instead softmaxes such a row uniformly);
 - ``v`` of a head dim of its own, ``dv`` (the Perceiver IO families set q/k
-  and v channels apart): the routes instantiate the ``(d, dv)`` pairs of
-  :data:`HEAD_DIMS` (``csrc/head_dims.cuh``), the ``simt`` kernels
+  and v channels apart): the split, wgmma and tf32x3 routes instantiate the
+  ``(d, dv)`` pairs of :data:`HEAD_DIMS` (``csrc/head_dims.cuh``), the
+  ``wide`` route takes every other pair, the ``simt`` kernels
   :data:`SIMT_HEAD_DIMS` (``dv == d`` only).
 
 The backward kernels recompute ``p = exp(s - lse)`` under the same masks
@@ -45,8 +53,8 @@ The backward kernels recompute ``p = exp(s - lse)`` under the same masks
 ``dv = p^T . do`` and ``dk = ds^T . q`` (K3), with ``p`` and ``ds`` cast to
 the input type before each product as on the TPU. A dead row gets
 ``dq = 0`` and a key that no row sees ``dk = dv = 0``. K2 and K3 each have
-three Hopper ``sm_90a`` designs; :func:`_bwd_route` picks one of the first
-two from the type alone:
+four Hopper ``sm_90a`` designs; :func:`_bwd_route` picks one of the first
+three from the head dims and the type alone:
 
 - ``wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``), bf16: the five
   products on the tensor cores over TMA-fed tiles, ``p`` and ``ds`` packed
@@ -57,6 +65,10 @@ two from the type alone:
   TF32 hi and lo parts in registers, fp32-accurate; TF32 arithmetic itself
   stays off), eight warps per 64-row tile, tiles staged with ``cp.async``,
   ``p`` and ``ds`` kept in registers;
+- ``wide`` (``csrc/flash_attention_bwd_wide.cu``), fp32 or bf16, for the
+  pairs outside :data:`HEAD_DIMS`: K1 ``wide``'s tiles; K2 over key splits
+  whose fp32 partial ``dq`` a second launch sums, K3 one block per (64-key
+  tile, column group of ``dv`` or ``dk``);
 - ``simt`` (``csrc/flash_attention_bwd.cu``), fp32 or bf16: 64 x 64 tiles
   on the CUDA cores, the first design, reached only by name through
   :func:`_bwd_launch` (to time it against the others).
@@ -74,7 +86,7 @@ drops to another route.
 Launches are counted on ``flash_attention.launches`` (K1's calls, with
 ``flash_attention.route_launches`` per route, and
 ``flash_attention.kernel_launches`` the device kernels they launch: two per
-split-route call, partials and merge, one per other call),
+split- or wide-route call, partials and merge, one per other call),
 ``flash_attention_bwd_dq.launches`` (K2) and
 ``flash_attention_bwd_dkv.launches`` (K3), each with ``route_launches`` per
 backward route.
@@ -90,21 +102,29 @@ import torch
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: K1's designs (:func:`_fwd_route` picks one of the first three)
-ROUTES = ("split", "wgmma", "tf32x3", "simt")
+#: K1's designs (:func:`_fwd_route` picks one of the first four)
+ROUTES = ("split", "wgmma", "tf32x3", "wide", "simt")
 #: the most query rows the split route takes
 SPLIT_MAX_ROWS = 16
 #: device kernels one call of each route launches
-ROUTE_KERNELS = {"split": 2, "wgmma": 1, "tf32x3": 1, "simt": 1}
-#: K2's and K3's designs (:func:`_bwd_route` picks ``wgmma`` or ``tf32x3``)
-BWD_ROUTES = ("wgmma", "tf32x3", "simt")
+ROUTE_KERNELS = {"split": 2, "wgmma": 1, "tf32x3": 1, "wide": 2, "simt": 1}
+#: K2's and K3's designs (:func:`_bwd_route` picks one of the first three)
+BWD_ROUTES = ("wgmma", "tf32x3", "wide", "simt")
 #: the (q/k head dim, v head dim) pairs the ``split``, ``wgmma`` and
 #: ``tf32x3`` kernels of K1-K3 instantiate (``csrc/head_dims.cuh``, which
 #: their dispatch expands): ``(d, d)`` for the Perceiver AR families, d = 32
-#: with v's own width for the masked LM at language-perceiver width
-HEAD_DIMS = ((32, 32), (32, 96), (32, 160), (64, 64), (96, 96), (112, 112), (128, 128))
+#: with v's own width for the masked LM at language-perceiver width, and
+#: (160, 160) for the text families at the JAX CLI's defaults; every other
+#: pair takes the ``wide`` route
+HEAD_DIMS = ((32, 32), (32, 96), (32, 160), (64, 64), (96, 96), (112, 112), (128, 128), (160, 160))
 #: the pairs of the ``simt`` kernels, reached by name only
 SIMT_HEAD_DIMS = ((64, 64), (112, 112), (128, 128))
+#: the most output columns a ``wide`` block accumulates (``csrc/wide.cuh``
+#: GROUP): a wider output is cut into column groups
+WIDE_GROUP = 288
+#: the blocks a ``wide`` launch aims at per batch row: two on each of the
+#: H100's 132 SMs
+WIDE_FILL = 264
 _FWD = {}
 _BWD = {}
 
@@ -241,14 +261,30 @@ def flash_attention_backward_reference(
     return (dq, *flash_attention_bwd_dkv_reference(q, k, v, lse, delta, do, **kw))
 
 
-def _fwd_route(i: int, dtype: torch.dtype) -> str:
-    """K1's design for a query of ``i`` rows in ``dtype``: ``split`` for
-    decode attends (``i <= 16``), else ``wgmma`` for bf16 and ``tf32x3`` for
-    fp32. The choice depends on nothing else (not the batch), so a row's
-    result does not either."""
+def _fwd_route(i: int, dtype: torch.dtype, d: int, dv: int) -> str:
+    """K1's design for a query of ``i`` rows in ``dtype`` at head dims
+    ``(d, dv)``: ``wide`` for a pair outside :data:`HEAD_DIMS`, else
+    ``split`` for decode attends (``i <= 16``), ``wgmma`` for bf16 and
+    ``tf32x3`` for fp32. The choice depends on nothing else (not the batch),
+    so a row's result does not either."""
+    if (d, dv) not in HEAD_DIMS:
+        return "wide"
     if i <= SPLIT_MAX_ROWS:
         return "split"
     return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def _wide_splits(i: int, j: int, h: int, width: int) -> Tuple[int, int]:
+    """``(n_splits, tiles_per_split)`` of a ``wide`` launch whose output is
+    ``width`` wide (``dv`` for K1, ``d`` for K2): the ``ceil(j / 64)`` key
+    tiles cut so that the row tiles x column groups x heads x splits of one
+    batch row reach :data:`WIDE_FILL` blocks, no split empty. The batch
+    does not enter, so a row's result does not depend on it."""
+    key_tiles = -(-j // 64)
+    blocks = -(-i // 64) * -(-width // WIDE_GROUP) * h
+    n = max(1, min(key_tiles, -(-WIDE_FILL // blocks)))
+    per = -(-key_tiles // n)
+    return -(-key_tiles // per), per
 
 
 #: per route: (library source, C entry, pointer args, int args)
@@ -257,6 +293,7 @@ _FWD_ENTRIES = {
     "wgmma": ("flash_attention_fwd_wgmma", "flash_attention_fwd_wgmma", 6, 7),
     "tf32x3": ("flash_attention_fwd_tf32", "flash_attention_fwd_tf32x3", 6, 7),
     "split": ("flash_attention_fwd_split", "flash_attention_fwd_split", 8, 9),
+    "wide": ("flash_attention_fwd_wide", "flash_attention_fwd_wide", 8, 10),
 }
 
 
@@ -266,8 +303,9 @@ def _head_dims_of(route: str):
 
 def _check_head_dims(route: str, d: int, dv: int) -> None:
     """Raise before a route's library loads when it does not instantiate
-    ``(d, dv)``: the ``simt`` kernels take v of q's head dim only."""
-    if (d, dv) not in _head_dims_of(route):
+    ``(d, dv)``: the ``simt`` kernels take v of q's head dim only; the
+    ``wide`` route takes every pair."""
+    if route != "wide" and (d, dv) not in _head_dims_of(route):
         what = "v of q's head dim and " if route == "simt" and dv != d else ""
         raise ValueError(f"head dims (d, dv) = {(d, dv)} are not instantiated by the {route} kernel, "
                          f"which takes {what}the pairs {_head_dims_of(route)}")
@@ -289,9 +327,12 @@ def _fwd_kernel(route: str):
     return _FWD[route]
 
 
-def _bwd_route(dtype: torch.dtype) -> str:
-    """K2's and K3's design for inputs of ``dtype``: ``wgmma`` for bf16,
-    ``tf32x3`` for fp32. The choice depends on nothing else."""
+def _bwd_route(dtype: torch.dtype, d: int, dv: int) -> str:
+    """K2's and K3's design for inputs of ``dtype`` at head dims ``(d, dv)``:
+    ``wide`` for a pair outside :data:`HEAD_DIMS`, else ``wgmma`` for bf16
+    and ``tf32x3`` for fp32. The choice depends on nothing else."""
+    if (d, dv) not in HEAD_DIMS:
+        return "wide"
     return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
@@ -300,15 +341,18 @@ _BWD_ENTRIES = {
     "simt": ("flash_attention_bwd", ""),
     "wgmma": ("flash_attention_bwd_wgmma", "_wgmma"),
     "tf32x3": ("flash_attention_bwd_tf32", "_tf32x3"),
+    "wide": ("flash_attention_bwd_wide", "_wide"),
 }
-#: the type each tensor-core route takes (K1's and K2/K3's alike)
+#: the type each tensor-core route takes (K1's and K2/K3's alike; the
+#: others take fp32 and bf16)
 _ROUTE_DTYPE = {"wgmma": torch.bfloat16, "tf32x3": torch.float32}
 
 
 def _bwd_kernels(route: str):
     """A backward route's K2 and K3 C entries, loaded (and built) on first
-    use. The ``wgmma`` and ``tf32x3`` entries take ``dv`` after ``d``; the
-    ``simt`` ones take ``d`` alone."""
+    use. The ``wgmma``, ``tf32x3`` and ``wide`` entries take ``dv`` after
+    ``d``; the ``simt`` ones take ``d`` alone; ``wide``'s K2 also takes its
+    scratch pointer and its key splits."""
     if route not in _BWD:
         from perceiver_io_tpu_torch import _build
 
@@ -316,7 +360,9 @@ def _bwd_kernels(route: str):
         lib = _build.load(source)
         dq, dkv = getattr(lib, f"flash_attention_bwd_dq{suffix}"), getattr(lib, f"flash_attention_bwd_dkv{suffix}")
         n_int = 7 if route == "simt" else 8
-        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        wide = route == "wide"
+        dq.argtypes = ([ctypes.c_void_p] * (8 + wide) + [ctypes.c_int] * (n_int + 2 * wide)
+                       + [ctypes.c_void_p])
         dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         dq.restype = dkv.restype = ctypes.c_int
         _BWD[route] = (dq, dkv)
@@ -387,7 +433,7 @@ def flash_attention_fwd(
     _check(q, k, v, pad_mask, causal)
     if _on_cpu((q, k, v), pad_mask):
         return flash_attention_reference(q, k, v, pad_mask=pad_mask, causal=causal)
-    route = _fwd_route(q.shape[2], q.dtype)
+    route = _fwd_route(q.shape[2], q.dtype, q.shape[3], v.shape[3])
     out = _fwd_launch(route, q, k, v, pad_mask, causal)
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
@@ -406,7 +452,7 @@ def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, to
         raise TypeError(f"the {route} route takes {_ROUTE_DTYPE[route]}, got {q.dtype}")
     if route == "split" and i > SPLIT_MAX_ROWS:
         raise ValueError(f"the split route takes at most {SPLIT_MAX_ROWS} query rows, got {i}")
-    if route != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if route not in ("simt", "wide") and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"the {route} route needs q, k and v on 16-byte aligned bases")
     _check_head_dims(route, d, dv)
     fn, split = _fwd_kernel(route)
@@ -420,6 +466,12 @@ def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, to
             err = fn(*ptrs, b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream)
         elif route in _ROUTE_DTYPE:
             err = fn(*ptrs, b, h, i, j, d, dv, int(causal), stream)
+        elif route == "wide":
+            n_splits, per = _wide_splits(i, j, h, dv)
+            part_ml = torch.empty((b, h, n_splits, i, 2), dtype=torch.float32, device=q.device)
+            part_acc = torch.empty((b, h, n_splits, i, dv), dtype=torch.float32, device=q.device)
+            err = fn(*ptrs, part_ml.data_ptr(), part_acc.data_ptr(), b, h, i, j, d, dv, n_splits, per,
+                     int(causal), _DTYPES[q.dtype], stream)
         else:
             n_splits = -(-j // split)
             part_ml = torch.empty((b, h, n_splits, i, 2), dtype=torch.float32, device=q.device)
@@ -459,12 +511,16 @@ def _bwd_launch(route: str, q, k, v, lse, delta, do, pad_mask, causal, which: in
     pad = _pad_bytes(pad_mask)
     fn, name = (dq_fn, "flash_attention_bwd_dq") if which == 0 else (dkv_fn, "flash_attention_bwd_dkv")
     dims = (d,) if route == "simt" else (d, dv)
+    scratch, splits = (), ()
+    if route == "wide" and which == 0:
+        splits = _wide_splits(i, j, h, d)
+        scratch = (torch.empty((b, h, splits[0], i, d), dtype=torch.float32, device=q.device),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), lse.data_ptr(), delta.data_ptr(),
-            do.data_ptr(), *(o.data_ptr() for o in outputs),
-            b, h, i, j, *dims, int(causal), _DTYPES[q.dtype], stream,
+            do.data_ptr(), *(o.data_ptr() for o in outputs + scratch),
+            b, h, i, j, *dims, *splits, int(causal), _DTYPES[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} ({route}) kernel launch failed: cudaError_t {err}")
@@ -485,7 +541,7 @@ def flash_attention_bwd_dq(
     if _on_cpu((q, k, v, lse, delta, do), pad_mask):
         return flash_attention_bwd_dq_reference(
             q, k, v, lse, delta, do, pad_mask=pad_mask, causal=causal)
-    route = _bwd_route(q.dtype)
+    route = _bwd_route(q.dtype, q.shape[3], v.shape[3])
     dq = torch.empty_like(q)
     _bwd_launch(route, q, k, v, lse, delta, do, pad_mask, causal, 0, (dq,))
     flash_attention_bwd_dq.launches += 1
@@ -503,7 +559,7 @@ def flash_attention_bwd_dkv(
     if _on_cpu((q, k, v, lse, delta, do), pad_mask):
         return flash_attention_bwd_dkv_reference(
             q, k, v, lse, delta, do, pad_mask=pad_mask, causal=causal)
-    route = _bwd_route(q.dtype)
+    route = _bwd_route(q.dtype, q.shape[3], v.shape[3])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch(route, q, k, v, lse, delta, do, pad_mask, causal, 1, (dk, dv))
     flash_attention_bwd_dkv.launches += 1

@@ -1,13 +1,16 @@
-"""Position encodings: shifted absolute positions and rotary embeddings.
+"""Position encodings: shifted absolute positions, rotary embeddings and
+the N-D Fourier feature encoding of grid-shaped inputs (images).
 
-Counterpart of ``perceiver_io_tpu/ops/position.py``. The N-D Fourier
-encoding belongs to the encoder families and is not ported yet.
+Counterpart of ``perceiver_io_tpu/ops/position.py``.
 """
 from __future__ import annotations
 
+import functools
+import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -80,3 +83,52 @@ class RotaryEmbedding:
         t_rot32 = t_rot.to(torch.float32)
         t_rot32 = t_rot32 * torch.cos(pos_enc) + rotate_half(t_rot32) * torch.sin(pos_enc)
         return torch.cat((t_rot32.to(t.dtype), t_pass), dim=-1)
+
+
+@functools.lru_cache(maxsize=32)
+def _fourier_table(input_shape: Tuple[int, ...], num_frequency_bands: int) -> np.ndarray:
+    """``(prod(input_shape), len(input_shape) * (2 * bands + 1))`` fp32: the
+    raw coordinates, then the sines of every dimension's bands, then their
+    cosines (JAX's table, built the same way in numpy)."""
+    coords = [np.linspace(-1.0, 1.0, num=s, dtype=np.float32) for s in input_shape]
+    pos = np.stack(np.meshgrid(*coords, indexing="ij"), axis=-1)  # (*shape, d)
+    encodings = [pos]
+    grids = []
+    for i, max_freq in enumerate(input_shape):
+        freqs = np.linspace(1.0, max_freq / 2.0, num=num_frequency_bands, dtype=np.float32)
+        grids.append(pos[..., i : i + 1] * freqs)
+    encodings.extend([np.sin(math.pi * g) for g in grids])
+    encodings.extend([np.cos(math.pi * g) for g in grids])
+    enc = np.concatenate(encodings, axis=-1)
+    return enc.reshape(-1, enc.shape[-1])
+
+
+class FourierPositionEncoding:
+    """N-D Fourier feature position encoding for grid-shaped inputs.
+
+    Positions are evenly spaced in ``[-1, 1]`` per spatial dim (``ij``
+    indexed meshgrid); each coordinate is expanded with
+    ``num_frequency_bands`` sin/cos features at frequencies linearly spaced
+    in ``[1, max_freq / 2]``, beside the raw coordinate. The table depends on
+    the shape and bands alone and is built once per pair (an ``lru_cache``,
+    as in JAX); the tensor on each device is cached on the instance.
+    """
+
+    def __init__(self, input_shape: Sequence[int], num_frequency_bands: int):
+        self.input_shape = tuple(input_shape)
+        self.num_frequency_bands = num_frequency_bands
+        self._encoding = _fourier_table(self.input_shape, num_frequency_bands)
+        self._on = {}
+
+    @property
+    def num_channels(self) -> int:
+        return len(self.input_shape) * (2 * self.num_frequency_bands + 1)
+
+    def __call__(self, b: int, device=None) -> torch.Tensor:
+        """``(b, prod(input_shape), num_channels)`` fp32 encodings on
+        ``device`` (a broadcast view: one table for the batch)."""
+        key = torch.device(device) if device is not None else torch.device("cpu")
+        if key not in self._on:
+            self._on[key] = torch.from_numpy(self._encoding).to(key)
+        enc = self._on[key]
+        return enc.expand(b, *enc.shape)

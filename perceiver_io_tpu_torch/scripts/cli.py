@@ -398,10 +398,15 @@ class ModelFamily:
     :param make_loss: ``(model, model_cfg) -> loss_fn`` for the trainer.
     :param link: ``(data_module, values dict) -> None`` — mutate dotted model
         values from data properties before the model config is built.
+    :param initial_params: ``(model, model_cfg, data_module) -> None`` —
+        warm-start part of the fresh model in place (the text classifier's
+        encoder from a masked LM); not run under ``--ckpt``/``--params``,
+        which load the whole model.
+    :param frozen_prefixes: ``model_cfg -> tuple`` of flax parameter-path
+        prefixes left out of the optimizer (``make_optimizer``).
 
     JAX's ``init_args`` is not needed (a module makes its weights without a
-    batch); its ``initial_params`` and ``frozen_prefixes`` hooks come with
-    the family that uses them (the text classifier, ``ROADMAP.md`` A.3).
+    batch).
     """
 
     name: str
@@ -411,6 +416,8 @@ class ModelFamily:
     make_loss: Callable
     nested: Optional[Dict[str, type]] = None
     link: Optional[Callable] = None
+    initial_params: Optional[Callable] = None
+    frozen_prefixes: Optional[Callable] = None
     defaults: Optional[Dict[str, Any]] = None
 
 
@@ -577,6 +584,8 @@ class CLI:
             weight_decay=opt.weight_decay,
             b1=opt.b1,
             b2=opt.b2,
+            frozen_prefixes=(self.family.frozen_prefixes(model_cfg)
+                             if self.family.frozen_prefixes is not None else ()),
         )
         # JAX's model.init(PRNGKey(trainer.seed)): the weights come from the
         # trainer's seed, unless a checkpoint replaces them
@@ -586,6 +595,8 @@ class CLI:
             # checkpoint dir (``--ckpt`` is the evaluation-time spelling)
             initial, _ = load_pretrained(values.get("ckpt") or values["params"])
             model.load_state_dict(initial, strict=True)
+        elif self.family.initial_params is not None:
+            self.family.initial_params(model, model_cfg, dm)
 
         trainer = Trainer(
             trainer_cfg,

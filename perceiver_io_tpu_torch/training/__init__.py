@@ -13,7 +13,14 @@ from perceiver_io_tpu_torch.training.checkpoint import (
 )
 from perceiver_io_tpu_torch.training.lrs import constant_with_warmup, cosine_with_warmup
 from perceiver_io_tpu_torch.training.optim import Lamb, make_optimizer
-from perceiver_io_tpu_torch.training.tasks import IGNORE_INDEX, clm_loss_fn, masked_cross_entropy, mlm_loss_fn
+from perceiver_io_tpu_torch.training.tasks import (
+    IGNORE_INDEX,
+    classifier_loss_fn,
+    clm_loss_fn,
+    image_classifier_loss_fn,
+    masked_cross_entropy,
+    mlm_loss_fn,
+)
 from perceiver_io_tpu_torch.training.trainer import Trainer, TrainerConfig
 
 __all__ = [
@@ -25,7 +32,9 @@ __all__ = [
     "TextSamplingCallback",
     "Trainer",
     "TrainerConfig",
+    "classifier_loss_fn",
     "clm_loss_fn",
+    "image_classifier_loss_fn",
     "mlm_loss_fn",
     "constant_with_warmup",
     "cosine_with_warmup",

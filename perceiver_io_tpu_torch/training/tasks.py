@@ -9,8 +9,8 @@ streams; the port draws every kind of noise from the one generator in
 forward order: the prefix-dropout scores first, then, layer by layer, the
 attention keep-masks (one per head group), the attention branch's and the
 MLP branch's residual masks. Batches are dicts of tensors with the reference's
-collator fields (``input_ids``, ``labels``, optional ``pad_mask``). The
-classifier and image loss functions are not ported yet.
+collator fields (``input_ids``, ``labels``, optional ``pad_mask``; the
+vision data modules' ``image`` and ``label``).
 """
 from __future__ import annotations
 
@@ -68,5 +68,37 @@ def mlm_loss_fn(model: nn.Module) -> LossFn:
         logits = model(batch["input_ids"], pad_mask=batch.get("pad_mask"),
                        deterministic=generator is None, generator=generator)
         return masked_cross_entropy(logits, batch["labels"]), {}
+
+    return loss_fn
+
+
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The share of rows whose argmax is their label, fp32."""
+    return (logits.argmax(dim=-1) == labels).float().mean()
+
+
+def image_classifier_loss_fn(model: nn.Module) -> LossFn:
+    """Image classifier step over ``{"image", "label"}`` batches (the vision
+    data modules' contract): cross entropy and accuracy."""
+
+    def loss_fn(model: nn.Module, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator]):
+        logits = model(batch["image"], deterministic=generator is None, generator=generator)
+        labels = batch["label"]
+        return masked_cross_entropy(logits, labels), {"accuracy": _accuracy(logits, labels)}
+
+    return loss_fn
+
+
+def classifier_loss_fn(model: nn.Module) -> LossFn:
+    """Text classifier step over ``{"input_ids", "labels", "pad_mask"}``
+    batches: cross entropy and accuracy."""
+
+    def loss_fn(model: nn.Module, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator]):
+        logits = model(batch["input_ids"], pad_mask=batch.get("pad_mask"),
+                       deterministic=generator is None, generator=generator)
+        labels = batch["labels"]
+        return masked_cross_entropy(logits, labels), {"accuracy": _accuracy(logits, labels)}
 
     return loss_fn

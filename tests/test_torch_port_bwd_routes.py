@@ -1,9 +1,10 @@
 """K2's and K3's routes behind their wrappers, on the CPU.
 
 ``flash_attention_bwd_dq`` (K2) and ``flash_attention_bwd_dkv`` (K3) pick the
-backward kernel's design by the input type alone (``_bwd_route``): ``wgmma``
-(bf16 tensor-core tiles fed by TMA) for bf16, ``tf32x3`` (each fp32 product
-as three TF32 products on ``mma.sync``) for fp32; ``simt`` (the CUDA-core
+backward kernel's design by the head dims and the input type alone
+(``_bwd_route``): ``wide`` for a ``(d, dv)`` pair outside ``HEAD_DIMS``, else
+``wgmma`` (bf16 tensor-core tiles fed by TMA) for bf16, ``tf32x3`` (each fp32
+product as three TF32 products on ``mma.sync``) for fp32; ``simt`` (the CUDA-core
 kernels) is reached only by name. CPU tensors take the plain version and
 launch no route.
 
@@ -62,7 +63,17 @@ def _counts():
 
 @pytest.mark.parametrize("dtype,route", [(torch.float32, "tf32x3"), (torch.bfloat16, "wgmma")])
 def test_bwd_route_table(dtype, route):
-    assert flash._bwd_route(dtype) == route
+    assert flash._bwd_route(dtype, 112, 112) == route
+    assert route in flash.BWD_ROUTES
+
+
+@pytest.mark.parametrize("dtype,d,dv,route", [
+    (torch.float32, 160, 160, "tf32x3"), (torch.bfloat16, 160, 160, "wgmma"),
+    (torch.float32, 261, 261, "wide"), (torch.bfloat16, 261, 261, "wide"),
+    (torch.bfloat16, 1024, 1024, "wide"), (torch.float32, 131, 131, "wide"),
+])
+def test_bwd_route_table_by_head_dims(dtype, d, dv, route):
+    assert flash._bwd_route(dtype, d, dv) == route
     assert route in flash.BWD_ROUTES
 
 

@@ -1,7 +1,8 @@
 """K1's routes behind one wrapper, on the CPU.
 
 ``flash_attention_fwd`` picks the forward kernel's design by the query
-length and type alone (``_fwd_route``): ``split`` for decode attends (at
+length, the head dims and the type alone (``_fwd_route``): ``wide`` for a
+``(d, dv)`` pair outside ``HEAD_DIMS``, else ``split`` for decode attends (at
 most 16 query rows), ``wgmma`` for bf16 tiles, ``tf32x3`` (3xTF32 on
 ``mma.sync``; its arithmetic is emulated in ``test_torch_port_fwd_tf32.py``)
 for fp32 tiles; ``simt`` (the 64 x 64 CUDA-core kernel) is reached only by
@@ -58,8 +59,23 @@ def _live(i, j, pad, causal):
     (512, torch.float32, "tf32x3"), (512, torch.bfloat16, "wgmma"),
 ])
 def test_fwd_route_table(i, dtype, route):
-    assert flash._fwd_route(i, dtype) == route
+    assert flash._fwd_route(i, dtype, 112, 112) == route
     assert route in flash.ROUTES
+
+
+@pytest.mark.parametrize("i,dtype,d,dv,route", [
+    (512, torch.float32, 160, 160, "tf32x3"), (512, torch.bfloat16, 160, 160, "wgmma"),
+    (1, torch.float32, 160, 160, "split"),
+    # every pair outside HEAD_DIMS, any length and type: the image classifier's
+    # encoder cross attend, its decoder, MNIST's cross attend, and others
+    (512, torch.float32, 261, 261, "wide"), (512, torch.bfloat16, 261, 261, "wide"),
+    (1, torch.float32, 1024, 1024, "wide"), (1, torch.bfloat16, 1024, 1024, "wide"),
+    (32, torch.float32, 131, 131, "wide"), (17, torch.bfloat16, 64, 96, "wide"),
+    (512, torch.float32, 80, 80, "wide"),
+])
+def test_fwd_route_table_by_head_dims(i, dtype, d, dv, route):
+    assert flash._fwd_route(i, dtype, d, dv) == route
+    assert ((d, dv) in flash.HEAD_DIMS) == (route != "wide")
 
 
 def test_cpu_tensors_launch_no_route(rng):

@@ -47,7 +47,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "data.text.tokenizers", "data.text.collators", "data.text.preprocessor",
                  "data.text.datamodule", "data.text.sources", "data.text.streaming", "scripts.cli",
                  "scripts.text.clm", "scripts.audio.symbolic", "models.core.config", "models.core.adapter",
-                 "models.text.common", "models.text.mlm", "inference.mask_filler", "scripts.text.mlm"):
+                 "models.text.common", "models.text.mlm", "inference.mask_filler", "scripts.text.mlm",
+                 "models.text.classifier", "models.vision.image_classifier", "data.vision.image",
+                 "data.vision.imagenet", "scripts.text.classifier", "scripts.vision.image_classifier"):
         assert f"perceiver_io_tpu_torch.{name}" in report["imported"]
     assert report["bad"] == []
     assert report["lazy"] == []
@@ -63,7 +65,8 @@ def test_port_sources_name_no_jax_module():
 
 
 @pytest.mark.parametrize("entry", ["model", "generate", "engine", "trainer", "train_step", "cli", "mlm",
-                                   "fill_mask"])
+                                   "fill_mask", "text_classifier", "image_classifier", "classifier_cli",
+                                   "sentiment", "image_pipeline"])
 def test_default_device_entry_points_refuse_the_cpu(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -96,6 +99,38 @@ def test_default_device_entry_points_refuse_the_cpu(entry, tmp_path):
             else:
                 pipeline("fill-mask", MaskedLanguageModel(mlm_cfg, device="cpu"),
                          TextPreprocessor(ByteTokenizer(), max_seq_len=8))
+        elif entry in ("text_classifier", "sentiment"):
+            from perceiver_io_tpu_torch.data.text import ByteTokenizer, TextPreprocessor
+            from perceiver_io_tpu_torch.inference.pipelines import pipeline
+            from perceiver_io_tpu_torch.models.core.config import ClassificationDecoderConfig, PerceiverIOConfig
+            from perceiver_io_tpu_torch.models.text.classifier import TextClassifier
+            from perceiver_io_tpu_torch.models.text.common import TextEncoderConfig
+
+            clf_cfg = PerceiverIOConfig(TextEncoderConfig(vocab_size=262, max_seq_len=8, num_input_channels=8),
+                                        ClassificationDecoderConfig(num_output_query_channels=8, num_classes=2),
+                                        num_latents=2, num_latent_channels=8)
+            if entry == "text_classifier":
+                TextClassifier(clf_cfg)
+            else:
+                pipeline("sentiment-analysis", TextClassifier(clf_cfg, device="cpu"),
+                         TextPreprocessor(ByteTokenizer(), max_seq_len=8))
+        elif entry in ("image_classifier", "image_pipeline"):
+            from perceiver_io_tpu_torch.inference.pipelines import pipeline
+            from perceiver_io_tpu_torch.models.core.config import ClassificationDecoderConfig, PerceiverIOConfig
+            from perceiver_io_tpu_torch.models.vision import ImageClassifier, ImageEncoderConfig
+
+            img_cfg = PerceiverIOConfig(ImageEncoderConfig(image_shape=(4, 4, 1), num_frequency_bands=2,
+                                                           num_cross_attention_heads=1),
+                                        ClassificationDecoderConfig(num_output_query_channels=8, num_classes=2),
+                                        num_latents=2, num_latent_channels=8)
+            if entry == "image_classifier":
+                ImageClassifier(img_cfg)
+            else:
+                pipeline("image-classification", ImageClassifier(img_cfg, device="cpu"))
+        elif entry == "classifier_cli":
+            from perceiver_io_tpu_torch.scripts.vision import image_classifier
+
+            image_classifier.main(["fit", "--data=synthetic"])
         elif entry == "model":
             CausalLanguageModel(cfg)
         elif entry in ("trainer", "train_step"):

@@ -482,9 +482,10 @@ def test_kernel_takes_the_mlm_attends():
                         ((8, 8, 256, 32), (8, 8, 256, 32), (8, 8, 256, 160)),
                         ((8, 8, 2048, 32), (8, 8, 256, 32), (8, 8, 256, 96))):
             assert attention.kernel_takes(q, k, v, dtype, dtype, dtype, False) is True
-    with pytest.raises(ValueError, match="ROADMAP.md B.1"):  # the JAX CLI defaults' q/k head dim 160
-        attention.kernel_takes((8, 8, 256, 160), (8, 8, 2048, 160), (8, 8, 2048, 160),
-                               torch.float32, torch.float32, torch.float32, False)
+    # the JAX CLI defaults' head dims (160, 160): the tile routes' pair
+    assert attention.kernel_takes((8, 8, 256, 160), (8, 8, 2048, 160), (8, 8, 2048, 160),
+                                  torch.float32, torch.float32, torch.float32, False) is True
+    assert flash._fwd_route(256, torch.float32, 160, 160) == "tf32x3"
 
 
 @pytest.mark.parametrize("route", ["split", "wgmma", "tf32x3", "simt"])

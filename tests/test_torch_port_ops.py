@@ -11,6 +11,7 @@ The CUDA kernel itself runs only on the card: ``test_kernel_matches_plain_on_car
 is marked ``cuda`` and skips where there is none; ``python3 chip_smoke.py``
 holds the kernel against its plain version at the serving path's shapes.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -172,6 +173,14 @@ DISPATCH_CASES = [
     for dims in ((64, 96), (96, 64), (112, 128), (64, 16), (16, 64), (32, 96), (32, 160))
     for types in (("float32",) * 3, ("bfloat16",) * 3)
     for causal, short in ((False, False), (True, False), (True, True))
+] + [
+    # the text classifier at the JAX CLI's defaults (160 on the tile routes);
+    # the image classifier's encoder cross attend at deepmind/vision-perceiver-fourier
+    # width, its decoder, and MNIST's cross attend (the wide route)
+    (d, types, causal, short)
+    for d in (160, 261, 1024, 131)
+    for types in (("float32",) * 3, ("bfloat16",) * 3)
+    for causal, short in ((False, False), (True, False), (True, True))
 ]
 
 
@@ -179,42 +188,34 @@ DISPATCH_CASES = [
 def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
     # lengths JAX's block picker takes (multiples of 128), so only the other
     # reasons decide: where JAX's kernel refuses, auto takes the plain path
-    # and flash raises; where it takes the shape, auto launches K1 if a route
-    # instantiates the (d, dv) pair and raises naming ROADMAP.md B.1/B.2 if
-    # none does
+    # and flash raises; where it takes the shape, auto launches K1: on the
+    # tile routes where they instantiate the (d, dv) pair, else on wide
     i, j = (256, 128) if short else (128, 256)
     d, dv = d if isinstance(d, tuple) else (d, d)
+    tile_route = (d, dv) in flash.HEAD_DIMS
+    wide = [flash._fwd_route(n, getattr(torch, types[0]), d, dv) == "wide" for n in (1, i)]
+    assert wide == [not tile_route] * 2
+    assert (flash._bwd_route(getattr(torch, types[0]), d, dv) == "wide") == (not tile_route)
     shapes = [(1, 2, i, d), (1, 2, j, d), (1, 2, j, dv)]
     jq, jk, jv = (jnp.zeros(shape, getattr(jnp, t)) for shape, t in zip(shapes, types))
     jax_takes = jax_flash.supported(jq, jk, jv, causal=causal)
     args = (*shapes, *(getattr(torch, t) for t in types), causal)
     q, k, v = (torch.zeros(shape, dtype=getattr(torch, t)) for shape, t in zip(shapes, types))
     if dv != d:
-        # v of its own head dim: K1 where a route instantiates the pair (the
-        # masked LM's (32, 96) and (32, 160)), else a raise naming ROADMAP.md
-        # B.1/B.2 where JAX's kernel takes the attend (the (64, 96) rows hold
-        # (1, 2, 128, 64) q/k against a (1, 2, 256, 96) v, which once passed)
+        # v of its own head dim: K1 wherever JAX's kernel takes the attend
+        # (the masked LM's (32, 96) and (32, 160) on the tile routes, the
+        # rest on wide; the (64, 96) rows hold (1, 2, 128, 64) q/k against a
+        # (1, 2, 256, 96) v, which once passed)
         assert jax_takes == (min(d, dv) >= 32 and not (causal and short))
-        if jax_takes and (d, dv) in flash.HEAD_DIMS:
-            assert attention.kernel_takes(*args) is True
-        elif jax_takes:
-            with pytest.raises(ValueError, match=r"ROADMAP.md B.1 for q/k head dims, B.2") as e:
-                attention.kernel_takes(*args)
-            assert str(flash.HEAD_DIMS) in str(e.value)
-        else:
-            assert attention.kernel_takes(*args) is False
+        assert attention.kernel_takes(*args) is jax_takes
         return
     if not jax_takes:
         assert attention.kernel_refusal(*args) is not None
         assert attention.kernel_takes(*args) is False
         with pytest.raises(ValueError, match="unsupported for shapes"):
             dot_product_attention(q, k, v, causal=causal, impl="flash")
-    elif (d, d) in flash.HEAD_DIMS:
-        assert attention.kernel_refusal(*args) is None and attention.kernel_takes(*args) is True
     else:
-        with pytest.raises(ValueError, match=r"ROADMAP.md B.1") as e:
-            attention.kernel_takes(*args)
-        assert str(flash.HEAD_DIMS) in str(e.value)
+        assert attention.kernel_refusal(*args) is None and attention.kernel_takes(*args) is True
     one_type = len(set(types)) == 1 and types[0] != "float16"
     assert jax_takes == (d >= 32 and one_type and not (causal and short))  # the table spans JAX's reasons
     if not jax_takes and one_type:
@@ -229,10 +230,11 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
 
 def test_head_dim_tables_match_the_kernels():
     # HEAD_DIMS and SIMT_HEAD_DIMS are the (d, dv) pairs each K1-K3 route's
-    # dispatch instantiates: the non-simt routes expand the pair list of
-    # csrc/head_dims.cuh there, the simt kernels switch on d alone (v of q's
-    # head dim). K2/K3 share K1's tables. K4's routes keep one head dim
-    # (*_supports_head_dim).
+    # dispatch instantiates: the split, wgmma and tf32x3 routes expand the
+    # pair list of csrc/head_dims.cuh there (it holds (160, 160)), the simt
+    # kernels switch on d alone (v of q's head dim), and the wide kernels
+    # take d and dv at run time (no pair list, no switch). K2/K3 share K1's
+    # tables. K4's routes keep one head dim (*_supports_head_dim).
     import re
     from pathlib import Path
 
@@ -241,7 +243,13 @@ def test_head_dim_tables_match_the_kernels():
     csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
     listed = tuple((int(a), int(b)) for a, b in
                    re.findall(r"X\((\d+), (\d+)\)", (csrc / "head_dims.cuh").read_text()))
-    assert listed == flash.HEAD_DIMS
+    assert listed == flash.HEAD_DIMS and (160, 160) in listed
+    for name in ("flash_attention_fwd_wide", "flash_attention_bwd_wide"):
+        text = (csrc / f"{name}.cu").read_text()
+        assert '#include "wide.cuh"' in text and '#include "head_dims.cuh"' not in text, name
+        assert "FLASH_HEAD_DIM_PAIRS" not in text and not re.search(r"case \d+:", text), name
+    group = re.search(r"constexpr int GROUP = (\d+);", (csrc / "wide.cuh").read_text()).group(1)
+    assert int(group) == flash.WIDE_GROUP
     for name in ("flash_attention_fwd_split", "flash_attention_fwd_wgmma", "flash_attention_fwd_tf32",
                  "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32"):
         text = (csrc / f"{name}.cu").read_text()
@@ -305,7 +313,7 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, i, j, d, causal, 
         pad = torch.arange(j, device=cuda_device)[None, :] >= torch.tensor(pads, device=cuda_device)[:, None]
     else:
         pad = None
-    route = flash._fwd_route(i, dtype)
+    route = flash._fwd_route(i, dtype, d, d)
     before = dict(flash.flash_attention.route_launches), flash.flash_attention.kernel_launches
     o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal)
     o_ref, lse_ref = flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=causal)
@@ -323,3 +331,64 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+# the widths this slice's families put on K1-K3: the text classifier at the
+# JAX CLI's defaults (160, the tile routes' pair) and the image classifier's
+# MNIST cross attend (131), its encoder cross attend at
+# deepmind/vision-perceiver-fourier width (261) and its decoder (1024), all
+# on the wide route but 160
+@pytest.mark.parametrize("d", [160, 131, 261, 1024])
+def test_flash_plain_versions_match_pallas_at_the_classifiers_head_dims(rng, d):
+    i, j = 128, 256
+    q = rng.standard_normal((2, 1, i, d)).astype(np.float32) * d**-0.5
+    k = rng.standard_normal((2, 1, j, d)).astype(np.float32)
+    v = rng.standard_normal((2, 1, j, d)).astype(np.float32)
+    cot = rng.standard_normal((2, 1, i, d)).astype(np.float32)
+    pad = np.zeros((2, j), bool)
+    pad[0, 200:] = True
+    pad[1, :] = True  # every key padded: batch row 1's rows are all dead
+
+    def jax_out(q, k, v):
+        return jax_flash.flash_attention(q, k, v, pad_mask=jnp.asarray(pad), causal=False)
+
+    want = jax.jit(jax_out)(q, k, v)
+    want_grads = jax.jit(jax.grad(lambda q, k, v: jnp.sum(jax_out(q, k, v) * cot), argnums=(0, 1, 2)))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = flash.flash_attention(tq, tk, tv, pad_mask=torch.from_numpy(pad))
+    o.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+    for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want_grads, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
+    assert (o[1] == 0).all() and (tq.grad[1] == 0).all() and (tk.grad[0, :, 200:] == 0).all()
+    assert flash._fwd_route(i, torch.float32, d, d) == ("tf32x3" if d == 160 else "wide")
+
+
+def test_flash_plain_versions_match_pallas_causal_at_an_odd_head_dim(rng):
+    """The wide route's causal case at an odd head dim (131, MNIST's): the
+    plain forward and backward against the Pallas kernels, right-aligned
+    over j > i, with left pads that leave the first query rows of batch row
+    0 dead and batch row 1 all pad."""
+    d, i, j = 131, 128, 256
+    q = rng.standard_normal((2, 2, i, d)).astype(np.float32) * d**-0.5
+    k = rng.standard_normal((2, 2, j, d)).astype(np.float32)
+    v = rng.standard_normal((2, 2, j, d)).astype(np.float32)
+    cot = rng.standard_normal((2, 2, i, d)).astype(np.float32)
+    pad = np.zeros((2, j), bool)
+    pad[0, :150] = True  # query row r sees keys 150..r + 128: rows 0..21 dead
+    pad[1, :] = True
+
+    def jax_out(q, k, v):
+        return jax_flash.flash_attention(q, k, v, pad_mask=jnp.asarray(pad), causal=True)
+
+    want = jax.jit(jax_out)(q, k, v)
+    want_grads = jax.jit(jax.grad(lambda q, k, v: jnp.sum(jax_out(q, k, v) * cot), argnums=(0, 1, 2)))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = flash.flash_attention(tq, tk, tv, pad_mask=torch.from_numpy(pad), causal=True)
+    o.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+    for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want_grads, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
+    assert (o[1] == 0).all() and (o[0, :, :22] == 0).all() and (o[0, :, 22:] != 0).any(-1).all()
+    assert (tq.grad[0, :, :22] == 0).all() and (tk.grad[0, :, :150] == 0).all()
+    assert flash._fwd_route(i, torch.float32, d, d) == "wide"
