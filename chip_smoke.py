@@ -46,9 +46,11 @@ non-zero and never prints the final line):
    is held to the same gates and is timed beside it (``prev_ms``; it does
    not instantiate head dim 96, whose cases carry ``prev_ms`` null), with the plain
    version's time, ``scaled_dot_product_attention``'s with its backend
-   pinned to memory-efficient attention (a yardstick the port never calls)
-   and the card's bound (here and in phase 12 its bytes count k and v only
-   for the keys some query row sees, as K4's count only live keys; for
+   pinned to memory-efficient attention, or to its math backend where that
+   one refuses the head dims (261 and 131; ``library_backend`` names the one
+   timed; a yardstick the port never calls) and the card's bound (here and
+   in phase 12 its bytes count k and v only for the keys some query row
+   sees, as K4's count only live keys; for
    ``tf32x3`` cases ``bound_ms`` at a third of the TF32 tensor-core rate and
    ``bound_simt_ms`` at the CUDA cores' rate, as in phase 12). Then each of
    the split, wgmma and tf32x3 routes must refuse a query on a base off a
@@ -220,31 +222,34 @@ non-zero and never prints the final line):
    non-causal, phase 3's clm-base cross attend over j = 768 with a batch
    row all padded and the masked LM's three attends at (d, dv) = (32, 160)
    and (32, 96); then ``K23_CLASSIFIER_CASES``: the text classifier's
-   encoder cross and self-attend at (160, 160), and on ``wide`` the image
-   classifier's training attends, its encoder cross attend (b = 2, (261,
+   encoder cross and self-attend at (160, 160), and on ``wide_mma`` the
+   image classifier's training attends, its encoder cross attend (b = 2, (261,
    261), 512 x 50176), its decoder's query (b = 8, (1024, 1024), 1 x 512)
    and MNIST's (131, 131) cross attend with a dead batch row, and a causal
    100 x 300 case at (131, 131) with pads and dead rows; the bounds count
    4d + 2dv flops a visible pair for K2 and 4d + 4dv for K3), fp32
    and bf16, through the
-   route the wrappers pick (``wide`` outside ``HEAD_DIMS``, else ``wgmma`` for
-   bf16, ``tf32x3`` for fp32; a wrong route fails), held at
+   route the wrappers pick (``wide_mma`` outside ``HEAD_DIMS``, else ``wgmma``
+   for bf16, ``tf32x3`` for fp32; a wrong route fails), held at
    ``max|d| <= tol * max|plain|`` per output,
    tol 1e-4 in fp32 and 2^-7 (two bf16 ulps) in bf16, where each bf16
    output's error against the fp32 plain backward of the same inputs must
    also stay within 1.5x the plain bf16 version's; dead rows' dq and unseen
    keys' dk/dv must be exactly 0 and every output finite. With each
-   kernel's time, the ``simt`` kernel's on the same inputs (``prev_ms``: the
-   CUDA-core design both types took first; null at head dim 96, which it
-   does not instantiate), the plain version's, the
-   backward alone of ``scaled_dot_product_attention`` (its memory-efficient
-   backend pinned; a yardstick the port never calls) and the card's bound
-   (in fp32 ``bound_ms`` at a third of the TF32 tensor-core rate, the most
-   the ``tf32x3`` route's three products per fp32 product can reach, and
-   ``bound_simt_ms`` at the CUDA cores' rate, as the simt route's rows). The
-   ``simt`` kernels' outputs are held to 1e-4 of each output's largest plain
-   entry in both types (``prev_rel_err``), with the same zeros and finite
-   values, before they are timed;
+   kernel's time, the earlier design's on the same inputs (``prev_ms``: the
+   ``simt`` kernels, the CUDA-core design both types took first, null at
+   head dim 96, which they do not instantiate; at the pairs outside
+   ``HEAD_DIMS`` the first ``wide`` design, reached by name), the plain
+   version's, the backward alone of ``scaled_dot_product_attention`` (its
+   memory-efficient backend pinned, its math backend where that one refuses;
+   a yardstick the port never calls) and the card's bound (in fp32
+   ``bound_ms`` at a third of the TF32 tensor-core rate, the most the
+   ``tf32x3`` and ``wide_mma`` routes' three products per fp32 product can
+   reach, and ``bound_simt_ms`` at the CUDA cores' rate, as the simt
+   route's rows). The ``simt`` kernels' outputs are held to 1e-4 of each
+   output's largest plain entry in both types, ``wide``'s to the gates of
+   the route beside it (``prev_rel_err``, ``prev_oracle_ratio``), with the
+   same zeros and finite values, before they are timed;
 13. train, over the full-width CLM:
    (a) one loss + backward with the kernels against ``attention_impl="xla"``
        (batch 4 x 1024, left pads inside the prefix, one prefix-dropout
@@ -426,11 +431,13 @@ non-zero and never prints the final line):
    ``xla``'s but at an image whose own top-2 ``xla`` logits lie within
    ``NEAR_TIE``, images/s and latency p50; a bf16 ``Trainer.fit`` of 8 steps
    of 8 synthetic images in 2 microbatches through phase 13's ``train_fit``:
-   the loss falls, 100 K1/K2/K3 launches a step, 4 of them on ``wide``. (e)
-   The image CLI at MNIST's shape (28 x 28 x 1, 32 x 128 latents, 32 bands,
-   JAX's MNIST test's one cross head: q/k 131 on ``wide``; the 16-wide heads
-   elsewhere take the plain path), fp32: ``fit`` over the synthetic image
-   data module, 2 K1/K2/K3 launches a step, all ``wide``, finite losses
+   the loss falls, 100 K1/K2/K3 launches a step, 4 of them at the wide
+   pairs (K1 on ``wide``, K2/K3 on ``wide_mma``). (e) The image CLI at
+   MNIST's shape (28 x 28 x 1, 32 x 128 latents, 32 bands, JAX's MNIST
+   test's one cross head: q/k 131 on K1 ``wide`` and K2/K3 ``wide_mma``;
+   the 16-wide heads elsewhere take the plain path), fp32: ``fit`` over the
+   synthetic image data module, 2 K1/K2/K3 launches a step, all at (131,
+   131), finite losses
    (8 steps hardly move this model's); ``validate`` / ``test --ckpt``,
    ``validate`` reproducing the fit's validation loss;
 19. the ``{"kernels": [...]}`` summary line (K1 with the four routes the
@@ -450,8 +457,11 @@ non-zero and never prints the final line):
    entry's ``cli_launches`` and ``cli_route_launches`` its calls in each
    run of phase 16, ``mlm_launches`` in each run of phase 17 and
    ``classifiers_launches`` in each run of phase 18; each route's
-   ``head_dims``, the (d, dv) pairs its cases ran; the ``wide`` entries'
-   ``launches`` from phase 18's bf16 image fit), the card's
+   ``head_dims``, the (d, dv) pairs its cases ran; the entries at the wide
+   pairs (K1 ``wide``, K2/K3 ``wide_mma`` with the first ``wide`` design's
+   times as their ``prev_ms``, and K2/K3 ``wide`` itself, reached by name
+   only, ``launches`` 0) take ``launches`` from phase 18's bf16 image fit),
+   the card's
    ``nvidia-smi`` line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -494,6 +504,11 @@ K23_REL_TOL = {"float32": 1e-4, "bfloat16": 2.0**-7}
 # version's own error against it
 K23_ORACLE_RATIO = 1.5
 K23_ROUTE = {"float32": "tf32x3", "bfloat16": "wgmma"}
+# K2/K3's route for the (d, dv) pairs outside HEAD_DIMS, both types, and
+# the earlier design there, reached by name and timed beside it as prev_ms
+# under the same gates
+K23_WIDE_ROUTE = "wide_mma"
+K23_WIDE_PREV = "wide"
 # the simt K2/K3 kernels, timed beside each route as prev_ms, are held to
 # 1e-4 in both types, the bar they had when they were the routes
 SIMT_REL_TOL = 1e-4
@@ -719,25 +734,32 @@ def case_mask(torch, i: int, j: int, pads, visible, causal: bool, b: int = 4):
 
 
 def library_time(fn, iters: int):
-    """``(ms, note)`` of the library yardstick under the pinned SDPA backend,
-    or ``(None, why)`` when that backend refuses the shapes."""
-    try:
-        with sdpa_backend():
-            return device_ms(fn, iters), None
-    except RuntimeError as e:
-        return None, f"{SDPA_BACKEND} refused: {str(e).splitlines()[0][:160]}"
+    """``(ms, backend, note)`` of the library yardstick under the pinned
+    SDPA backend, or under SDPA's math backend where that one refuses the
+    shapes (head dims 261 and 131; ``note`` says why), or ``(None, None,
+    why)`` where both refuse."""
+    notes = []
+    for backend in (SDPA_BACKEND, SDPA_FALLBACK):
+        try:
+            with sdpa_backend(backend):
+                return device_ms(fn, iters), backend, "; ".join(notes) or None
+        except RuntimeError as e:
+            notes.append(f"{backend} refused: {str(e).splitlines()[0][:160]}")
+    return None, None, "; ".join(notes)
 
 
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
+# the yardstick where the memory-efficient backend refuses the head dims
+SDPA_FALLBACK = "MATH"
 
 
-def sdpa_backend():
+def sdpa_backend(backend: str = SDPA_BACKEND):
     """A context that pins the library yardstick's backend: memory-efficient
     attention, which takes a boolean mask in fp32 and bf16 (a call it
-    refuses raises instead of moving to another backend)."""
+    refuses raises instead of moving to another backend), or ``backend``."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    return sdpa_kernel(getattr(SDPBackend, SDPA_BACKEND))
+    return sdpa_kernel(getattr(SDPBackend, backend))
 
 
 def _k1_errors(flash, o, lse, o_ref, lse_ref, live) -> tuple:
@@ -828,7 +850,7 @@ def kernel_cases(torch, flash):
                 prev_ms = device_ms(prev, iters)
                 del prev
             plain_ms = device_ms(plain, plain_iters)
-            library_ms, library_note = library_time(library, iters)
+            library_ms, library_backend, library_note = library_time(library, iters)
             del kernel, plain, library
             torch.cuda.empty_cache()
             esize = q.element_size()
@@ -842,7 +864,7 @@ def kernel_cases(torch, flash):
                 dead_rows_zero_lse_mask=dead_zero, ms=ms, prev_ms=prev_ms,
                 prev_route="simt" if with_prev else None,
                 prev_max_abs_err=prev_err, prev_lse_max_abs_err=prev_lse_err,
-                plain_ms=plain_ms, library_ms=library_ms, library_backend=SDPA_BACKEND,
+                plain_ms=plain_ms, library_ms=library_ms, library_backend=library_backend,
                 library_note=library_note, input_copies=copies, iters=iters,
             )
             if tname == "float32" and route in ("tf32x3", "wide"):
@@ -899,16 +921,16 @@ def k1_refusals(torch, flash) -> None:
         raise AssertionError(f"K1 simt did not refuse v of head dim 96 against q's {K1_HEAD_DIM}: {simt}")
 
 
-def _grad_rotation(torch, F, q, k, v, do, attn_mask):
+def _grad_rotation(torch, F, q, k, v, do, attn_mask, backend: str = SDPA_BACKEND):
     """``(call, copies)``: ``call()`` runs the backward alone of
-    ``scaled_dot_product_attention`` (its memory-efficient backend, pinned)
-    on the next of enough kept graphs (input copies) to fill the L2 twice:
-    the library yardstick of K2 and K3."""
+    ``scaled_dot_product_attention`` (``backend`` pinned: memory-efficient
+    unless it refuses) on the next of enough kept graphs (input copies) to
+    fill the L2 twice: the library yardstick of K2 and K3."""
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
     graphs = []
     for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes))):
         qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        with sdpa_backend():
+        with sdpa_backend(backend):
             out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask, scale=1.0)
         graphs.append((out, (qq, kk, vv), do.clone()))
     turn = itertools.cycle(graphs)
@@ -923,8 +945,9 @@ def _grad_rotation(torch, F, q, k, v, do, attn_mask):
 def k23_cases(torch, flash):
     """K2 and K3 against their plain versions at the training path's shapes
     (module docstring), through the route the wrappers pick, beside the
-    ``simt`` kernels on the same inputs (``prev_ms``): dead rows' dq and padded
-    keys' dk/dv exactly 0; bf16 also against the fp32 oracle."""
+    earlier design on the same inputs (``prev_ms``: the ``simt`` kernels at
+    their head dims, ``wide`` at the pairs outside ``HEAD_DIMS``): dead rows'
+    dq and padded keys' dk/dv exactly 0; bf16 also against the fp32 oracle."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -957,7 +980,7 @@ def k23_cases(torch, flash):
             for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
                 errs[gname] = (got.float() - want.float()).abs().max().item()
                 rel[gname] = errs[gname] / want.float().abs().max().item()
-            oracle = {}
+            oracle, exact = {}, None
             if dtype == torch.bfloat16:
                 q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
                 o32, lse32 = flash.flash_attention_reference(q32, k32, v32, **kw)
@@ -967,14 +990,14 @@ def k23_cases(torch, flash):
                     plain_err = (plain.float() - want).abs().max().item()
                     oracle[gname] = dict(kernel=kernel_err, plain=plain_err,
                                          ratio=kernel_err / plain_err if plain_err > 0 else math.inf)
-                del q32, k32, v32, do32, o32, lse32, exact
+                del q32, k32, v32, do32, o32, lse32
             dead_zero = bool((dq[~live[:, None, :, None].expand_as(dq)] == 0).all().item())
             unseen = ~seen[:, None, :, None]
             unseen_zero = bool((dk[unseen.expand_as(dk)] == 0).all().item()
                                and (dv[unseen.expand_as(dv)] == 0).all().item())
             finite = all(bool(torch.isfinite(t).all().item()) for t in (dq, dk, dv))
             tol = K23_REL_TOL[tname]
-            expected = K23_ROUTE[tname] if (d, vd) in flash.HEAD_DIMS else "wide"
+            expected = K23_ROUTE[tname] if (d, vd) in flash.HEAD_DIMS else K23_WIDE_ROUTE
             case = dict(case=name, dtype=tname, route=routes, expected_route=expected, b=b, h=h, i=i,
                         j=j, d=d, dv=vd, causal=causal, max_abs_err=errs, rel_err=rel, rel_tol=tol,
                         oracle_err=oracle,
@@ -990,35 +1013,46 @@ def k23_cases(torch, flash):
                                      f"{expected}), rel err {rel} (tol {tol}), oracle {oracle}, "
                                      f"dead dq zero {dead_zero}, unseen dk/dv zero {unseen_zero}, "
                                      f"finite {finite}")
-            # the simt kernels time prev_ms below: they are held first to the
-            # bar they had as the fp32 route (and as the bf16 one before the
-            # wgmma route), 1e-4 of each output's largest plain entry; they
-            # do not instantiate d = 96
+            # the earlier design times prev_ms below, held first to its bar:
+            # the simt kernels to the one they had as the fp32 route (and as
+            # the bf16 one before the wgmma route), 1e-4 of each output's
+            # largest plain entry (they do not instantiate d = 96); wide, at
+            # the pairs outside HEAD_DIMS, to the gates of the route above
             t6 = (q, k, v, lse, delta, do)
-            with_prev = (d, vd) in flash.SIMT_HEAD_DIMS
-            prev_ok, prev_rel = True, None
-            if with_prev:
+            wide_pair = (d, vd) not in flash.HEAD_DIMS
+            prev_route = K23_WIDE_PREV if wide_pair else "simt" if (d, vd) in flash.SIMT_HEAD_DIMS else None
+            prev_tol = tol if wide_pair else SIMT_REL_TOL
+            prev_ok, prev_abs, prev_rel, prev_oracle = True, None, None, {}
+            if prev_route:
                 pdq, pdk, pdv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-                flash._bwd_launch("simt", *t6, pad, causal, 0, (pdq,))
-                flash._bwd_launch("simt", *t6, pad, causal, 1, (pdk, pdv))
+                flash._bwd_launch(prev_route, *t6, pad, causal, 0, (pdq,))
+                flash._bwd_launch(prev_route, *t6, pad, causal, 1, (pdk, pdv))
                 torch.cuda.synchronize()
-                prev_rel = {gname: (got.float() - want.float()).abs().max().item()
-                            / want.float().abs().max().item()
+                prev_abs = {gname: (got.float() - want.float()).abs().max().item()
                             for gname, got, want in zip(("dq", "dk", "dv"), (pdq, pdk, pdv), ref)}
-                prev_ok = (max(prev_rel.values()) <= SIMT_REL_TOL
+                prev_rel = {gname: prev_abs[gname] / want.float().abs().max().item()
+                            for gname, want in zip(("dq", "dk", "dv"), ref)}
+                if wide_pair and exact is not None:
+                    for gname, got, plain, want in zip(("dq", "dk", "dv"), (pdq, pdk, pdv), ref, exact):
+                        prev_err = (got.float() - want).abs().max().item()
+                        plain_err = (plain.float() - want).abs().max().item()
+                        prev_oracle[gname] = prev_err / plain_err if plain_err > 0 else math.inf
+                prev_ok = (max(prev_rel.values()) <= prev_tol
+                           and all(r <= K23_ORACLE_RATIO for r in prev_oracle.values())
                            and all(bool(torch.isfinite(t).all().item()) for t in (pdq, pdk, pdv))
                            and bool((pdq[~live[:, None, :, None].expand_as(pdq)] == 0).all().item())
                            and bool((pdk[unseen.expand_as(pdk)] == 0).all().item()
                                     and (pdv[unseen.expand_as(pdv)] == 0).all().item()))
                 del pdq, pdk, pdv
-            case.update(prev_route="simt" if with_prev else None, prev_rel_err=prev_rel,
-                        prev_rel_tol=SIMT_REL_TOL)
-            del ref
+            with_prev = prev_route is not None
+            case.update(prev_route=prev_route, prev_max_abs_err=prev_abs, prev_rel_err=prev_rel, prev_rel_tol=prev_tol,
+                        prev_oracle_ratio=prev_oracle or None)
+            del ref, exact
             if not prev_ok:
                 emit("k23", **case)
-                raise AssertionError(f"K2/K3 simt {name} i={i} j={j} {tname}: rel err {prev_rel} "
-                                     f"(tol {SIMT_REL_TOL}), or an output not finite, or a dead "
-                                     f"row's dq or an unseen key's dk/dv not 0")
+                raise AssertionError(f"K2/K3 {prev_route} (prev_ms) {name} i={i} j={j} {tname}: rel err "
+                                     f"{prev_rel} (tol {prev_tol}), oracle ratio {prev_oracle}, or an output "
+                                     f"not finite, or a dead row's dq or an unseen key's dk/dv not 0")
             esize = q.element_size()
             pad_bytes = 0 if pad is None else pad.numel()
             kv_read = int(seen.sum().item()) * h * (d + vd) * esize  # k and v of the keys some row sees
@@ -1048,15 +1082,14 @@ def k23_cases(torch, flash):
                 prev_ms = None
                 if with_prev:
                     prev, _ = l2_cold(
-                        lambda *t, w=which, outs=outs: flash._bwd_launch("simt", *t, pad, causal, w, outs(t)),
+                        lambda *t, w=which, outs=outs: flash._bwd_launch(prev_route, *t, pad, causal, w, outs(t)),
                         q, k, v, lse, delta, do)
                     prev_ms = device_ms(prev, iters)
                     del prev
                 plain_ms = device_ms(l2_cold(lambda *t, f=plain: f(*t, **kw), q, k, v, lse, delta, do)[0],
                                      plain_iters)
                 bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
-                times[kname] = dict(route=expected, ms=ms, prev_ms=prev_ms,
-                                    prev_route="simt" if with_prev else None,
+                times[kname] = dict(route=expected, ms=ms, prev_ms=prev_ms, prev_route=prev_route,
                                     plain_ms=plain_ms, bytes=nbytes, flops=flops, input_copies=copies)
                 if tname == "float32":
                     # the card's fp32-accurate rate is the tensor cores' TF32
@@ -1070,16 +1103,18 @@ def k23_cases(torch, flash):
                 del timed
                 torch.cuda.empty_cache()
             attn_mask = allowed[:, None]
-            try:
-                library, graphs = _grad_rotation(torch, F, q, k, v, do, attn_mask)
-                library_ms, library_note = device_ms(library, library_iters), None
-                del library
-            except RuntimeError as e:
-                graphs, library_ms = 0, None
-                library_note = f"{SDPA_BACKEND} refused: {str(e).splitlines()[0][:160]}"
+            graphs, library_ms, library_backend, refused = 0, None, None, []
+            for backend in (SDPA_BACKEND, SDPA_FALLBACK):
+                try:
+                    library, graphs = _grad_rotation(torch, F, q, k, v, do, attn_mask, backend)
+                    library_ms, library_backend = device_ms(library, library_iters), backend
+                    del library
+                    break
+                except RuntimeError as e:
+                    refused.append(f"{backend} refused: {str(e).splitlines()[0][:160]}")
             torch.cuda.empty_cache()
             case.update(kernels=times, library_ms=library_ms, library_graphs=graphs,
-                        library_backend=SDPA_BACKEND, library_refused=library_note,
+                        library_backend=library_backend, library_refused="; ".join(refused) or None,
                         library_note="backward of scaled_dot_product_attention (dq, dk, dv together)")
             emit("k23", **case)
             cases.append(case)
@@ -2836,9 +2871,9 @@ def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Pat
     The Perceiver AR families' defaults, for another family: ``make_loss``
     ``(model, cfg) -> loss_fn`` (default ``clm_loss_fn`` over the latents),
     ``attends`` K1/K2/K3 launches a step, ``wide`` of them at head dims
-    outside ``HEAD_DIMS`` (on the wide route; K1's validation forwards in the
-    same share) and ``tokens_per_step`` loss tokens a step (default 8 rows x
-    ``max_latents``)."""
+    outside ``HEAD_DIMS`` (K1 on ``wide``, its validation forwards in the
+    same share; K2/K3 on ``K23_WIDE_ROUTE``) and ``tokens_per_step`` loss
+    tokens a step (default 8 rows x ``max_latents``)."""
     import numpy as np
 
     tname = str(dtype).split(".")[-1]
@@ -2925,10 +2960,10 @@ def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Pat
                         f"{wide} of {attends} wide")
     expected_bwd = K23_ROUTE[tname]
     for key, by_route in bwd_routes.items():
-        if (by_route[expected_bwd] != (attends - wide) * TRAIN_STEPS or by_route["wide"] != wide * TRAIN_STEPS
-                or sum(by_route.values()) != counts[key]):
+        if (by_route[expected_bwd] != (attends - wide) * TRAIN_STEPS
+                or by_route[K23_WIDE_ROUTE] != wide * TRAIN_STEPS or sum(by_route.values()) != counts[key]):
             failures.append(f"{key.upper()} routes {by_route}: every launch should take {expected_bwd}, "
-                            f"{wide} a step wide")
+                            f"{wide} a step {K23_WIDE_ROUTE}")
     if dtype == torch.float32 and not ckpt_equal:
         failures.append("the best checkpoint does not reload into an equal model")
     if failures:
@@ -4624,7 +4659,8 @@ def img_fit(torch, flash, training, parallel, vision_mod, cfg, root: Path) -> di
     """(d) a bf16 ``Trainer.fit`` of the image classifier through phase 13's
     ``train_fit``: 8 steps of 8 synthetic 224 x 224 x 3 images in 2
     microbatches (two seeded batches cycled), K1, K2 and K3 100 launches a
-    step, 4 of them wide (the cross attend and the decoder's query)."""
+    step, 4 of them at the wide pairs (the cross attend and the decoder's
+    query): K1 on ``wide``, K2/K3 on ``wide_mma``."""
     import numpy as np
 
     rng = np.random.default_rng(29)
@@ -4640,7 +4676,7 @@ def mnist_cli(torch, flash, ragged, training, img_script, root: Path, smi: str) 
     """(e) the image CLI at MNIST's shape (fp32, the family's) over the
     synthetic image data module, JAX's MNIST test's one cross head:
     ``fit`` (8 steps of 16 in 2 microbatches, AdamW to 1e-3), its cross
-    attend (131, 131) on wide in K1, K2 and K3, then ``validate`` /
+    attend (131, 131) on ``wide`` in K1 and ``wide_mma`` in K2/K3, then ``validate`` /
     ``test --ckpt``. Eight steps hardly move this model's loss (a CPU run of
     the same flags logs the card's curve, 2.30 -> 2.27-2.30), so the gates
     are finite losses and ``validate`` reproducing the fit's own validation
@@ -4650,7 +4686,7 @@ def mnist_cli(torch, flash, ragged, training, img_script, root: Path, smi: str) 
     common = [*MNIST_FLAGS, *CLI_TRAIN, "--optimizer.lr=1e-3"]
     runs = {}
     state, runs["fit"] = _cli_stage(torch, flash, ragged, training, img_script.main, ["fit", *common], root / "fit")
-    failures = _fit_failures(runs["fit"], TRAIN_STEPS, 2, {"wide": 2}, {"wide": 2})
+    failures = _fit_failures(runs["fit"], TRAIN_STEPS, 2, {"wide": 2}, {K23_WIDE_ROUTE: 2})
     losses = runs["fit"]["losses"]
     if not (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)):
         failures.append(f"losses {losses}")
@@ -4819,6 +4855,7 @@ def k4_route_entry(ragged, design: str, main: tuple, cases: list, launches: int,
 
 K23_SOURCES = {"wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_wgmma.cu",
                "tf32x3": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_tf32.cu",
+               "wide_mma": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_wide_mma.cu",
                "wide": "perceiver_io_tpu_torch/csrc/flash_attention_bwd_wide.cu"}
 #: per K23 kernel: (wrapper name, TPU function, counter key, gradients)
 K23_KERNELS = {
@@ -4885,19 +4922,22 @@ def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic:
 
 def wide_entries(flash, k1_cases: list, k23_cases: list, k1_launches: int, bwd_launches: dict,
                  clf_k1: dict, clf_bwd: dict) -> list:
-    """The summary line's entries for the wide route of K1, K2 and K3: the
-    image encoder's cross attend in bf16 (d = dv = 261, 512 x 50176) at the
-    top, ``launches`` from the classifiers phase's bf16 image fit, each
+    """The summary line's entries at the pairs outside ``HEAD_DIMS``: K1's
+    ``wide`` route, K2's and K3's ``wide_mma`` and, as the earlier design
+    there, K2's and K3's ``wide`` (reached by name only: its times are the
+    ``wide_mma`` cases' ``prev_ms``, and the main path launches it no time).
+    The image encoder's cross attend in bf16 (d = dv = 261, 512 x 50176) at
+    the top, ``launches`` from the classifiers phase's bf16 image fit, each
     classifiers run's launches on the route, and every case that took it."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     head_of = lambda mine: next(c for c in mine if (c["case"], c["dtype"]) == ("img_cross", "bfloat16"))  # noqa: E731
-    common = dict(route="cuda", design="wide", shape="the image classifier's encoder cross attend, b=2 h=1 "
+    common = dict(route="cuda", shape="the image classifier's encoder cross attend, b=2 h=1 "
                   "i=512 j=50176 d=dv=261 bf16, non-causal, no pad mask",
                   launches_from="the classifiers phase's bf16 image fit (8 steps and its validation pass)")
     mine = [c for c in k1_cases if c["route"] == "wide"]
     head = head_of(mine)
     entries = [{
-        "name": "flash_attention_fwd[wide]", **common, "source": K1_SOURCES["wide"],
+        "name": "flash_attention_fwd[wide]", **common, "design": "wide", "source": K1_SOURCES["wide"],
         "replaces": "perceiver_io_tpu/ops/flash_attention.py:198", "launches": k1_launches,
         "kernel_launches": k1_launches * flash.ROUTE_KERNELS["wide"],
         "max_abs_err": max(c["max_abs_err"] for c in mine if c["dtype"] == "float32"),
@@ -4907,31 +4947,41 @@ def wide_entries(flash, k1_cases: list, k23_cases: list, k1_launches: int, bwd_l
         "head_dims": sorted({(c["d"], c["dv"]) for c in mine}),
         "cases": [{"case": c["case"], "dtype": c["dtype"], "b": c["b"], "h": c["h"], "i": c["i"], "j": c["j"],
                    "d": c["d"], "dv": c["dv"], "causal": c["causal"], "max_abs_err": c["max_abs_err"],
+                   "library_backend": c["library_backend"],
                    **{k: c[k] for k in keys + ("bound_simt_ms",) if k in c and not k.endswith("_by")}}
                   for c in mine],
     }]
-    for kname in ("dq", "dkv"):
-        name, replaces, count, grads = K23_KERNELS[kname]
-        mine = [c for c in k23_cases if c["expected_route"] == "wide"]
-        head = head_of(mine)
-        entries.append({
-            "name": f"{name}[wide]", **common, "source": K23_SOURCES["wide"], "replaces": replaces,
-            "launches": bwd_launches[count],
-            "max_abs_err": max(c["max_abs_err"][g] for c in mine for g in grads if c["dtype"] == "float32"),
-            "max_abs_err_bf16": max(c["max_abs_err"][g] for c in mine for g in grads if c["dtype"] == "bfloat16"),
-            **{k: head["kernels"][kname][k] for k in keys if k != "library_ms"},
-            "library_ms": head["library_ms"], "library_backend": head["library_backend"],
-            "library_note": "backward of scaled_dot_product_attention (memory-efficient backend), "
-                            "dq, dk and dv together",
-            "classifiers_launches": {run: routes[count]["wide"] for run, routes in clf_bwd.items()},
-            "head_dims": sorted({(c["d"], c["dv"]) for c in mine}),
-            "cases": [{"case": c["case"], "dtype": c["dtype"], "b": c["b"], "h": c["h"], "i": c["i"], "j": c["j"],
-                       "d": c["d"], "dv": c["dv"], "causal": c["causal"],
-                       "rel_err": {g: c["rel_err"][g] for g in grads},
-                       **{k: c["kernels"][kname][k] for k in keys + ("bound_simt_ms",)
-                          if k in c["kernels"][kname] and not k.endswith("_by")},
-                       "library_ms": c["library_ms"]} for c in mine],
-        })
+    mine = [c for c in k23_cases if c["expected_route"] == K23_WIDE_ROUTE]
+    head = head_of(mine)
+    for design in (K23_WIDE_ROUTE, K23_WIDE_PREV):
+        now = design == K23_WIDE_ROUTE
+        err_key, ms_key = ("max_abs_err", "ms") if now else ("prev_max_abs_err", "prev_ms")
+        for kname in ("dq", "dkv"):
+            name, replaces, count, grads = K23_KERNELS[kname]
+            entries.append({
+                "name": f"{name}[{design}]", **common, "design": design, "source": K23_SOURCES[design],
+                "replaces": replaces, "launches": bwd_launches[count] if now else 0,
+                **({} if now else {"launches_note": "the earlier design, reached by name only: its times "
+                                                    f"are the {K23_WIDE_ROUTE} cases' prev_ms"}),
+                "max_abs_err": max(c[err_key][g] for c in mine for g in grads if c["dtype"] == "float32"),
+                "max_abs_err_bf16": max(c[err_key][g] for c in mine for g in grads if c["dtype"] == "bfloat16"),
+                "ms": head["kernels"][kname][ms_key],
+                **({"prev_ms": head["kernels"][kname]["prev_ms"], "prev_route": K23_WIDE_PREV} if now else {}),
+                **{k: head["kernels"][kname][k] for k in ("plain_ms", "bound_ms", "bound_by")},
+                "library_ms": head["library_ms"], "library_backend": head["library_backend"],
+                "library_note": f"backward of scaled_dot_product_attention ({head['library_backend']} backend), "
+                                "dq, dk and dv together",
+                "classifiers_launches": {run: routes[count][design] for run, routes in clf_bwd.items()},
+                "head_dims": sorted({(c["d"], c["dv"]) for c in mine}),
+                "cases": [{"case": c["case"], "dtype": c["dtype"], "b": c["b"], "h": c["h"], "i": c["i"],
+                           "j": c["j"], "d": c["d"], "dv": c["dv"], "causal": c["causal"],
+                           "rel_err": {g: c["rel_err" if now else "prev_rel_err"][g] for g in grads},
+                           "ms": c["kernels"][kname][ms_key],
+                           **({"prev_ms": c["kernels"][kname]["prev_ms"]} if now else {}),
+                           **{k: c["kernels"][kname][k] for k in ("plain_ms", "bound_ms", "bound_simt_ms")
+                              if k in c["kernels"][kname]},
+                           "library_ms": c["library_ms"], "library_backend": c["library_backend"]} for c in mine],
+            })
     return entries
 
 
@@ -4939,6 +4989,9 @@ def wide_entries(flash, k1_cases: list, k23_cases: list, k1_launches: int, bwd_l
 PAIR_KERNELS = ("flash_fwd_split_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_tf32x3_kernel",
                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel",
                 "flash_bwd_dkv_tf32x3_kernel")
+#: K2/K3's wide_mma kernels, templated on (type, query rows a tile): keyed
+#: "<type> rows <n>"
+ROWS_KERNELS = ("flash_bwd_dq_wide_mma_kernel", "flash_bwd_dkv_wide_mma_kernel")
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -4946,7 +4999,8 @@ def ptxas_by_kernel(log: str) -> dict:
     max], max spill store bytes, and the same per head dim}}, kernels named
     by their function name, head dims read from the ``int`` template
     arguments of the mangled name: the first (every kernel's first is its
-    head dim), or "DxDV" from the first two for :data:`PAIR_KERNELS`."""
+    head dim), "DxDV" from the first two for :data:`PAIR_KERNELS`, or the
+    type and query rows for :data:`ROWS_KERNELS`."""
     out = {}
     name = dim = None
     for line in log.splitlines():
@@ -4954,8 +5008,11 @@ def ptxas_by_kernel(log: str) -> dict:
         if entry:
             name = entry.group(2)
             ints = re.findall(r"Li(\d+)E", entry.group(1)[entry.group(1).index(name):])
-            dim = (f"{ints[0]}x{ints[1]}" if name in PAIR_KERNELS and len(ints) > 1
-                   else int(ints[0]) if ints else None)
+            if name in ROWS_KERNELS and ints:
+                dim = f"{'bf16' if '__nv_bfloat16' in entry.group(1) else 'fp32'} rows {ints[0]}"
+            else:
+                dim = (f"{ints[0]}x{ints[1]}" if name in PAIR_KERNELS and len(ints) > 1
+                       else int(ints[0]) if ints else None)
             rec = out.setdefault(name, {"instances": 0, "registers": [], "max_spill_store_bytes": 0,
                                         "by_head_dim": {}})
             rec["instances"] += 1
@@ -5074,7 +5131,8 @@ def main() -> int:
                "text_cli_unfrozen": clf["cli"]["unfrozen"]["bwd_routes"],
                "image_fit": clf["image_fit"]["bwd_route_launches"], "mnist_cli_fit": clf["mnist_cli"]["fit"]["bwd_routes"]}
     wide = wide_entries(flash, cases, k23, clf["image_fit"]["k1_route_launches"]["wide"],
-                        {k: v["wide"] for k, v in clf["image_fit"]["bwd_route_launches"].items()}, clf_k1, clf_bwd)
+                        {k: v[K23_WIDE_ROUTE] for k, v in clf["image_fit"]["bwd_route_launches"].items()}, clf_k1,
+                        clf_bwd)
 
     main_case = next(c for c in cases
                      if (c["case"], c["dtype"], c["d"]) == ("cross", "float32", K1_HEAD_DIM))

@@ -53,7 +53,7 @@ The backward kernels recompute ``p = exp(s - lse)`` under the same masks
 ``dv = p^T . do`` and ``dk = ds^T . q`` (K3), with ``p`` and ``ds`` cast to
 the input type before each product as on the TPU. A dead row gets
 ``dq = 0`` and a key that no row sees ``dk = dv = 0``. K2 and K3 each have
-four Hopper ``sm_90a`` designs; :func:`_bwd_route` picks one of the first
+five Hopper ``sm_90a`` designs; :func:`_bwd_route` picks one of the first
 three from the head dims and the type alone:
 
 - ``wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``), bf16: the five
@@ -65,13 +65,21 @@ three from the head dims and the type alone:
   TF32 hi and lo parts in registers, fp32-accurate; TF32 arithmetic itself
   stays off), eight warps per 64-row tile, tiles staged with ``cp.async``,
   ``p`` and ``ds`` kept in registers;
-- ``wide`` (``csrc/flash_attention_bwd_wide.cu``), fp32 or bf16, for the
-  pairs outside :data:`HEAD_DIMS`: K1 ``wide``'s tiles; K2 over key splits
-  whose fp32 partial ``dq`` a second launch sums, K3 one block per (64-key
-  tile, column group of ``dv`` or ``dk``);
+- ``wide_mma`` (``csrc/flash_attention_bwd_wide_mma.cu`` +
+  ``csrc/mma_bf16.cuh``), fp32 or bf16, for the pairs outside
+  :data:`HEAD_DIMS`: d and dv at run time, the products on ``mma.sync``
+  (bf16 m16n8k16; fp32 as ``tf32x3``'s three TF32 products), tiles staged
+  at any alignment, 16-row query tiles where ``i <= 16``; K2 over key
+  splits whose fp32 partial ``dq`` a second launch sums, K3 one block per
+  (64-key tile, column group) computing the scores once for ``dv`` and
+  ``dk``; :func:`_wide_mma_plan` sizes both;
+- ``wide`` (``csrc/flash_attention_bwd_wide.cu``), fp32 or bf16, any pair:
+  K1 ``wide``'s CUDA-core tiles, the first design at those pairs;
 - ``simt`` (``csrc/flash_attention_bwd.cu``), fp32 or bf16: 64 x 64 tiles
-  on the CUDA cores, the first design, reached only by name through
-  :func:`_bwd_launch` (to time it against the others).
+  on the CUDA cores, the first design.
+
+``wide`` and ``simt`` are reached only by name through :func:`_bwd_launch`
+(to time them against the others).
 
 :func:`flash_attention` goes through :class:`FlashAttentionFunction`, so it
 is differentiable. Every wrapper launches its kernel for CUDA tensors and
@@ -94,7 +102,7 @@ backward route.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -109,7 +117,7 @@ SPLIT_MAX_ROWS = 16
 #: device kernels one call of each route launches
 ROUTE_KERNELS = {"split": 2, "wgmma": 1, "tf32x3": 1, "wide": 2, "simt": 1}
 #: K2's and K3's designs (:func:`_bwd_route` picks one of the first three)
-BWD_ROUTES = ("wgmma", "tf32x3", "wide", "simt")
+BWD_ROUTES = ("wgmma", "tf32x3", "wide_mma", "wide", "simt")
 #: the (q/k head dim, v head dim) pairs the ``split``, ``wgmma`` and
 #: ``tf32x3`` kernels of K1-K3 instantiate (``csrc/head_dims.cuh``, which
 #: their dispatch expands): ``(d, d)`` for the Perceiver AR families, d = 32
@@ -125,6 +133,21 @@ WIDE_GROUP = 288
 #: the blocks a ``wide`` launch aims at per batch row: two on each of the
 #: H100's 132 SMs
 WIDE_FILL = 264
+#: the ``wide_mma`` route's tiles (``csrc/flash_attention_bwd_wide_mma.cu``):
+#: the most output columns a warp accumulates (GROUP; a wider output is cut
+#: into column groups), the head-dim columns of a staged score step when
+#: whole rows are not staged (CHUNK), the keys of a K3 tile and of a K2 tile
+#: (KEYS; KEYS_SMALL for K2 in bf16 at 16-row query tiles), the query rows
+#: of a tile where ``i > 16`` by type (ROWS_BF16, ROWS_FP32) and where
+#: ``i <= 16`` (ROWS_SMALL), and the K2 blocks its key splits aim at per
+#: batch row: two waves of the H100's 132 SMs at one block an SM
+WIDE_MMA_GROUP = 272
+WIDE_MMA_CHUNK = 64
+WIDE_MMA_KEYS = 64
+WIDE_MMA_KEYS_SMALL = 128
+WIDE_MMA_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+WIDE_MMA_ROWS_SMALL = 16
+WIDE_MMA_FILL = 264
 _FWD = {}
 _BWD = {}
 
@@ -287,6 +310,52 @@ def _wide_splits(i: int, j: int, h: int, width: int) -> Tuple[int, int]:
     return -(-key_tiles // per), per
 
 
+class WideMmaPlan(NamedTuple):
+    """The ``wide_mma`` launches' shapes for one call (:func:`_wide_mma_plan`)."""
+
+    rows: int                #: query rows of a tile
+    dq_keys: int             #: keys of a K2 tile
+    dq_groups: int           #: column groups of dq (one K2 block each per row tile and split)
+    dq_splits: int           #: K2's key splits, summed in order by its second launch
+    dq_tiles_per_split: int  #: key tiles a split takes (the last may take fewer, none empty)
+    dkv_groups: int          #: K3's column groups, each over its columns of dv and of dk
+    fused: bool              #: whole rows of q, k, v and do staged (else CHUNK-column steps)
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _wide_mma_columns(width: int, groups: int) -> Tuple[Tuple[int, int], ...]:
+    """The ``[start, stop)`` columns of each group of an output ``width``
+    wide cut into ``groups`` (the kernels' ``group_width``): groups of
+    ``round16(ceil(width / groups))`` columns, the last shorter (or empty)."""
+    w = _round16(-(-width // groups))
+    return tuple((min(g * w, width), min((g + 1) * w, width)) for g in range(groups))
+
+
+def _wide_mma_plan(i: int, j: int, h: int, d: int, dv: int, dtype: torch.dtype) -> WideMmaPlan:
+    """The ``wide_mma`` route's shapes for ``i`` queries over ``j`` keys
+    with ``h`` heads at head dims ``(d, dv)`` in ``dtype``, used by both
+    launches and checked by the kernels: 16-row query tiles where
+    ``i <= 16`` (mma's m16), else :data:`WIDE_MMA_ROWS`; column groups of
+    at most :data:`WIDE_MMA_GROUP` (dq over d; dk and dv over the wider of
+    d and dv, a group serving its columns of both); K2's key tiles cut into
+    splits so that the row tiles x groups x heads x splits of one batch row
+    reach :data:`WIDE_MMA_FILL` blocks, no split empty. The batch does not
+    enter, so a row's result does not depend on it."""
+    rows = WIDE_MMA_ROWS_SMALL if i <= WIDE_MMA_ROWS_SMALL else WIDE_MMA_ROWS[dtype]
+    keys = WIDE_MMA_KEYS_SMALL if dtype == torch.bfloat16 and rows == WIDE_MMA_ROWS_SMALL else WIDE_MMA_KEYS
+    dq_groups = -(-d // WIDE_MMA_GROUP)
+    key_tiles = -(-j // keys)
+    blocks = -(-i // rows) * dq_groups * h
+    n = max(1, min(key_tiles, -(-WIDE_MMA_FILL // blocks)))
+    per = -(-key_tiles // n)
+    return WideMmaPlan(rows=rows, dq_keys=keys, dq_groups=dq_groups, dq_splits=-(-key_tiles // per),
+                       dq_tiles_per_split=per, dkv_groups=max(dq_groups, -(-dv // WIDE_MMA_GROUP)),
+                       fused=_round16(d) <= WIDE_MMA_GROUP and _round16(dv) <= WIDE_MMA_GROUP)
+
+
 #: per route: (library source, C entry, pointer args, int args)
 _FWD_ENTRIES = {
     "simt": ("flash_attention_fwd", "flash_attention_fwd", 6, 7),
@@ -304,8 +373,8 @@ def _head_dims_of(route: str):
 def _check_head_dims(route: str, d: int, dv: int) -> None:
     """Raise before a route's library loads when it does not instantiate
     ``(d, dv)``: the ``simt`` kernels take v of q's head dim only; the
-    ``wide`` route takes every pair."""
-    if route != "wide" and (d, dv) not in _head_dims_of(route):
+    ``wide`` and ``wide_mma`` routes take every pair."""
+    if route not in ("wide", "wide_mma") and (d, dv) not in _head_dims_of(route):
         what = "v of q's head dim and " if route == "simt" and dv != d else ""
         raise ValueError(f"head dims (d, dv) = {(d, dv)} are not instantiated by the {route} kernel, "
                          f"which takes {what}the pairs {_head_dims_of(route)}")
@@ -329,10 +398,10 @@ def _fwd_kernel(route: str):
 
 def _bwd_route(dtype: torch.dtype, d: int, dv: int) -> str:
     """K2's and K3's design for inputs of ``dtype`` at head dims ``(d, dv)``:
-    ``wide`` for a pair outside :data:`HEAD_DIMS`, else ``wgmma`` for bf16
-    and ``tf32x3`` for fp32. The choice depends on nothing else."""
+    ``wide_mma`` for a pair outside :data:`HEAD_DIMS`, else ``wgmma`` for
+    bf16 and ``tf32x3`` for fp32. The choice depends on nothing else."""
     if (d, dv) not in HEAD_DIMS:
-        return "wide"
+        return "wide_mma"
     return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
@@ -341,8 +410,12 @@ _BWD_ENTRIES = {
     "simt": ("flash_attention_bwd", ""),
     "wgmma": ("flash_attention_bwd_wgmma", "_wgmma"),
     "tf32x3": ("flash_attention_bwd_tf32", "_tf32x3"),
+    "wide_mma": ("flash_attention_bwd_wide_mma", "_wide_mma"),
     "wide": ("flash_attention_bwd_wide", "_wide"),
 }
+#: per backward route taking any pair: the int arguments its K2 and K3
+#: entries take after ``(d, dv)`` (K2 also takes a scratch pointer)
+_BWD_PLAN_INTS = {"wide": (2, 0), "wide_mma": (4, 2)}
 #: the type each tensor-core route takes (K1's and K2/K3's alike; the
 #: others take fp32 and bf16)
 _ROUTE_DTYPE = {"wgmma": torch.bfloat16, "tf32x3": torch.float32}
@@ -350,9 +423,9 @@ _ROUTE_DTYPE = {"wgmma": torch.bfloat16, "tf32x3": torch.float32}
 
 def _bwd_kernels(route: str):
     """A backward route's K2 and K3 C entries, loaded (and built) on first
-    use. The ``wgmma``, ``tf32x3`` and ``wide`` entries take ``dv`` after
-    ``d``; the ``simt`` ones take ``d`` alone; ``wide``'s K2 also takes its
-    scratch pointer and its key splits."""
+    use. The entries but ``simt``'s take ``dv`` after ``d``; the ``simt``
+    ones take ``d`` alone; ``wide``'s and ``wide_mma``'s also take their
+    plan (:data:`_BWD_PLAN_INTS`), and their K2 a scratch pointer."""
     if route not in _BWD:
         from perceiver_io_tpu_torch import _build
 
@@ -360,10 +433,10 @@ def _bwd_kernels(route: str):
         lib = _build.load(source)
         dq, dkv = getattr(lib, f"flash_attention_bwd_dq{suffix}"), getattr(lib, f"flash_attention_bwd_dkv{suffix}")
         n_int = 7 if route == "simt" else 8
-        wide = route == "wide"
-        dq.argtypes = ([ctypes.c_void_p] * (8 + wide) + [ctypes.c_int] * (n_int + 2 * wide)
+        dq_ints, dkv_ints = _BWD_PLAN_INTS.get(route, (0, 0))
+        dq.argtypes = ([ctypes.c_void_p] * (8 + (route in _BWD_PLAN_INTS)) + [ctypes.c_int] * (n_int + dq_ints)
                        + [ctypes.c_void_p])
-        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * (n_int + dkv_ints) + [ctypes.c_void_p]
         dq.restype = dkv.restype = ctypes.c_int
         _BWD[route] = (dq, dkv)
     return _BWD[route]
@@ -511,16 +584,21 @@ def _bwd_launch(route: str, q, k, v, lse, delta, do, pad_mask, causal, which: in
     pad = _pad_bytes(pad_mask)
     fn, name = (dq_fn, "flash_attention_bwd_dq") if which == 0 else (dkv_fn, "flash_attention_bwd_dkv")
     dims = (d,) if route == "simt" else (d, dv)
-    scratch, splits = (), ()
+    scratch, plan = (), ()
     if route == "wide" and which == 0:
-        splits = _wide_splits(i, j, h, d)
-        scratch = (torch.empty((b, h, splits[0], i, d), dtype=torch.float32, device=q.device),)
+        plan = _wide_splits(i, j, h, d)
+    elif route == "wide_mma":
+        p = _wide_mma_plan(i, j, h, d, dv, q.dtype)
+        plan = ((p.rows, p.dq_groups, p.dq_splits, p.dq_tiles_per_split) if which == 0
+                else (p.rows, p.dkv_groups))
+    if route in _BWD_PLAN_INTS and which == 0:  # one fp32 partial dq per key split (the plan's last int but one)
+        scratch = (torch.empty((b, h, plan[-2], i, d), dtype=torch.float32, device=q.device),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), lse.data_ptr(), delta.data_ptr(),
             do.data_ptr(), *(o.data_ptr() for o in outputs + scratch),
-            b, h, i, j, *dims, *splits, int(causal), _DTYPES[q.dtype], stream,
+            b, h, i, j, *dims, *plan, int(causal), _DTYPES[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} ({route}) kernel launch failed: cudaError_t {err}")

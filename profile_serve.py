@@ -14,6 +14,8 @@
     python3 profile_serve.py --engine train                    # one train step
     python3 profile_serve.py --model sam [--engine slots --kv-layout paged | --engine train]
     python3 profile_serve.py --model mlm --engine train        # the masked LM's fit step
+    python3 profile_serve.py --model image --engine train      # the image classifier's fit step
+    python3 profile_serve.py --model image --engine train --wide-bwd-route wide
 
 ``--engine bucket`` (default) serves the 8-request workload of
 ``chip_smoke.py``'s serve phase through ``ServingEngine``; ``--engine
@@ -52,7 +54,15 @@ takes the optimizer steps of the ``mlm`` phase's CLI fit: the masked LM at
 language-perceiver width (random weights from a seed), 8 rows x 2048 byte
 ids of ``SyntheticTextDataModule`` with word masking, 2 microbatches,
 AdamW to 2e-5, clipping; its tokens are the 8 x 2048 input positions a
-step. For each: one warm-up pass, one timed pass
+step. ``--model image --engine train`` takes the optimizer steps of the
+``classifiers`` phase's image fit: the Fourier image classifier at
+deepmind/vision-perceiver-fourier width (random weights from a seed), 8
+synthetic 224 x 224 x 3 images a step in 2 microbatches, AdamW to 1e-4,
+clipping; its tokens are the 8 images. Its encoder's cross attend (261,
+261) and decoder's query (1024, 1024) are the pairs outside ``HEAD_DIMS``:
+K2 and K3 take ``wide_mma`` there, or with ``--wide-bwd-route wide`` the
+earlier design by name (K1 stays on ``wide``), so two runs in one call
+break down the same step on both. For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
 ``torch.profiler``. ``--engine train`` instead runs optimizer steps of
 ``chip_smoke.py``'s ``Trainer.fit`` run (8 rows x 1024 tokens, 2
@@ -64,12 +74,13 @@ compute type: tokens/s, the device's busy share (kernel device time of the
 profiled pass over the timed pass's wall time, one stream), the shares and
 launches of the flash attention kernels (K1; K2 and K3 when training) and
 the ragged paged-attention kernel (K4), K1's device time and launches by
-route (split, wgmma, tf32x3, and simt, which no traffic takes) and its
-device kernel launches (a split-route call launches two: partials and
-merge), K4's device time, launches and device kernel launches by route
-(split, tc, and simt, which no traffic takes; a split-route call launches
-two), K2's and K3's device time and launches by route (wgmma, tf32x3,
-simt) when training, and the top kernels by device time.
+route (split, wgmma, tf32x3, wide, and simt, which no traffic takes) and
+its device kernel launches (a split- or wide-route call launches two:
+partials and merge), K4's device time, launches and device kernel launches
+by route (split, tc, and simt, which no traffic takes; a split-route call
+launches two), K2's and K3's device time and launches by route (wgmma,
+tf32x3, wide_mma, wide, simt) when training, and the top kernels by device
+time.
 The full profiler tables go to
 ``chiprun_out/profile_serve_<engine>[_<layout>]_<dtype>.txt``.
 """
@@ -195,7 +206,8 @@ def _k1_routes(ms_of) -> dict:
     ``flash_fwd_split_kernel`` and its merge; no pattern is part of another
     route's name)."""
     return {"simt": ms_of("flash_fwd_kernel"), "wgmma": ms_of("flash_fwd_wgmma_"),
-            "tf32x3": ms_of("flash_fwd_tf32x3_"), "split": ms_of("flash_fwd_split_")}
+            "tf32x3": ms_of("flash_fwd_tf32x3_"), "split": ms_of("flash_fwd_split_"),
+            "wide": ms_of("flash_fwd_wide_")}
 
 
 def _k4_routes(ms_of) -> dict:
@@ -209,12 +221,18 @@ def _k4_routes(ms_of) -> dict:
 def _bwd_routes(ms_of, kernel: str) -> dict:
     """K2's (``kernel`` "dq") or K3's ("dkv") device ms by route (kernel
     names: ``flash_bwd_<kernel>_kernel`` simt, ``flash_bwd_<kernel>_wgmma_kernel``,
-    ``flash_bwd_<kernel>_tf32x3_kernel``)."""
+    ``flash_bwd_<kernel>_tf32x3_kernel``, ``flash_bwd_<kernel>_wide_mma_kernel``
+    and ``flash_bwd_dq_wide_mma_sum_kernel``, ``flash_bwd_<kernel>_wide_kernel``
+    and ``flash_bwd_dq_wide_sum_kernel``; no pattern is part of another
+    route's name)."""
     return {"simt": ms_of(f"flash_bwd_{kernel}_kernel"), "wgmma": ms_of(f"flash_bwd_{kernel}_wgmma_kernel"),
-            "tf32x3": ms_of(f"flash_bwd_{kernel}_tf32x3_kernel")}
+            "tf32x3": ms_of(f"flash_bwd_{kernel}_tf32x3_kernel"),
+            "wide_mma": ms_of(f"flash_bwd_{kernel}_wide_mma_kernel") + ms_of(f"flash_bwd_{kernel}_wide_mma_sum_"),
+            "wide": ms_of(f"flash_bwd_{kernel}_wide_kernel") + ms_of(f"flash_bwd_{kernel}_wide_sum_")}
 
 
-def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi, out_dir, model_name):
+def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi, out_dir, model_name,
+                   tag_suffix=""):
     from perceiver_io_tpu_torch import parallel, training
 
     name = str(dtype).split(".")[-1]
@@ -222,6 +240,8 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         run, tokens = _sam_train_workload(torch, chip_smoke, training, parallel, dtype)
     elif model_name == "mlm":
         run, tokens = _mlm_train_workload(torch, chip_smoke, training, parallel, dtype)
+    elif model_name == "image":
+        run, tokens = _image_train_workload(torch, chip_smoke, training, parallel, dtype)
     else:
         run, tokens = _train_workload(torch, chip_smoke, clm, training, parallel, dtype)
     run()
@@ -240,8 +260,9 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         t1 = time.perf_counter()
         run()
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / f"profile_serve_{model_name}_train_{name}.txt"
-                                           if model_name != "clm" else out_dir / f"profile_serve_train_{name}.txt")
+    table = (f"profile_serve_{model_name}_train_{name}{tag_suffix}.txt" if model_name != "clm"
+             else f"profile_serve_train_{name}.txt")
+    kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / table)
     measured = bool(kernels)
     p50 = sorted(step_ms)[1]
     by_kernel = {"k1": ms_of("flash_fwd_"), "k2": sum(_bwd_routes(ms_of, "dq").values()),
@@ -271,6 +292,39 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
         "top_kernels": [{"name": e.key[:90], "ms": _device_us(e) / 1e3, "calls": e.count}
                         for e in kernels[:10]],
     }
+
+
+def _image_train_workload(torch, chip_smoke, training, parallel, dtype):
+    """``(run, tokens)``: ``run()`` takes one optimizer step of the
+    classifiers phase's image fit (the image classifier at
+    deepmind/vision-perceiver-fourier width; its two seeded batches of 8
+    synthetic images cycled, 2 microbatches, AdamW, clipping) on a fresh
+    model; its tokens are the 8 images."""
+    import numpy as np
+
+    from perceiver_io_tpu_torch.models import vision as vision_mod
+    from perceiver_io_tpu_torch.models.core import config as config_mod
+
+    cfg = chip_smoke.image_classifier_config(config_mod, vision_mod)
+    model = vision_mod.ImageClassifier(cfg, dtype=dtype, seed=0)
+    schedule = training.cosine_with_warmup(1e-4, warmup_steps=2, training_steps=chip_smoke.TRAIN_STEPS)
+    state = parallel.TrainState.create(model, training.make_optimizer(schedule, optimizer="adamw"))
+    step = parallel.make_train_step(training.image_classifier_loss_fn(model), grad_clip_norm=1.0,
+                                    grad_accum_steps=2)
+    rng = np.random.default_rng(29)
+    shape = chip_smoke.IMG_ENCODER["image_shape"]
+    batches = [{"image": rng.standard_normal((8, *shape)).astype(np.float32),
+                "label": rng.integers(0, chip_smoke.IMG_DECODER["num_classes"], 8)} for _ in range(2)]
+    turn = [0]
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(turn[0])
+        _, metrics = step(state, batches[turn[0] % 2], gen)
+        turn[0] += 1
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+
+    return run, 8
 
 
 def _train_workload(torch, chip_smoke, clm, training, parallel, dtype):
@@ -364,9 +418,13 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--engine", choices=("bucket", "slots", "train"), default="bucket")
-    parser.add_argument("--model", choices=("clm", "sam", "mlm"), default="clm",
-                        help="clm-base, the symbolic-audio model at GiantMIDI width, or the masked LM "
-                             "at language-perceiver width (--engine train only)")
+    parser.add_argument("--model", choices=("clm", "sam", "mlm", "image"), default="clm",
+                        help="clm-base, the symbolic-audio model at GiantMIDI width, or (--engine train "
+                             "only) the masked LM at language-perceiver width or the Fourier image "
+                             "classifier at vision-perceiver-fourier width")
+    parser.add_argument("--wide-bwd-route", choices=("wide_mma", "wide"), default="wide_mma",
+                        help="K2/K3's route at the (d, dv) pairs outside HEAD_DIMS: wide_mma (the "
+                             "wrappers' pick) or the earlier wide design, by name")
     parser.add_argument("--kv-layout", choices=("dense", "paged", "auto"), default="dense",
                         help="the slot engine's KV layout ('auto': the autotuner's verdict)")
     parser.add_argument("--speculation", choices=strategy_mod.SPECULATION_CHOICES, default="off",
@@ -399,8 +457,8 @@ def main() -> int:
                      "(beam search decodes deterministically)")
     if args.do_sample and args.engine == "train":
         parser.error("--do-sample applies to the serving engines")
-    if args.model == "mlm" and args.engine != "train":
-        parser.error("--model mlm takes --engine train only")
+    if args.model in ("mlm", "image") and args.engine != "train":
+        parser.error(f"--model {args.model} takes --engine train only")
     if args.model == "sam" and (slot_only or args.do_sample or args.num_beams > 1):
         parser.error("--model sam takes --engine and --kv-layout dense|paged only")
 
@@ -422,6 +480,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.wide_bwd_route != "wide_mma":
+        pick = flash._bwd_route
+        flash._bwd_route = lambda dtype, d, dv: (  # noqa: E731
+            args.wide_bwd_route if (d, dv) not in flash.HEAD_DIMS else pick(dtype, d, dv))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     cfg = chip_smoke.clm_base_config(clm.CausalLanguageModelConfig)
@@ -452,8 +514,10 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         if args.engine == "train":
-            print(json.dumps(_profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash,
-                                            dtype, smi, out_dir, args.model)), flush=True)
+            suffix = "" if args.wide_bwd_route == "wide_mma" else f"_{args.wide_bwd_route}"
+            record = _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi,
+                                    out_dir, args.model, suffix)
+            print(json.dumps({**record, "wide_bwd_route": args.wide_bwd_route}), flush=True)
             torch.cuda.empty_cache()
             continue
         if args.model == "sam":

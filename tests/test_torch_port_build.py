@@ -69,11 +69,12 @@ def test_package_sources_and_headers():
     for name in ("flash_attention_fwd", "flash_attention_fwd_wgmma", "flash_attention_fwd_split",
                  "flash_attention_fwd_tf32", "flash_attention_bwd", "flash_attention_bwd_wgmma",
                  "flash_attention_bwd_tf32", "ragged_paged_attention", "ragged_paged_attention_split",
-                 "ragged_paged_attention_tc"):
+                 "ragged_paged_attention_tc", "flash_attention_bwd_wide_mma"):
         assert name in sources
     for header, users in (("sm90.cuh", ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")),
                           ("tf32x3.cuh", ("flash_attention_fwd_tf32", "flash_attention_bwd_tf32",
-                                          "ragged_paged_attention_tc")),
+                                          "ragged_paged_attention_tc", "flash_attention_bwd_wide_mma")),
+                          ("mma_bf16.cuh", ("flash_attention_bwd_wide_mma",)),
                           ("vec16.cuh", ("flash_attention_fwd_split", "ragged_paged_attention_split",
                                          "ragged_paged_attention_tc"))):
         assert (_build.CSRC / header).exists()

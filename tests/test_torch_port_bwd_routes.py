@@ -2,10 +2,10 @@
 
 ``flash_attention_bwd_dq`` (K2) and ``flash_attention_bwd_dkv`` (K3) pick the
 backward kernel's design by the head dims and the input type alone
-(``_bwd_route``): ``wide`` for a ``(d, dv)`` pair outside ``HEAD_DIMS``, else
+(``_bwd_route``): ``wide_mma`` for a ``(d, dv)`` pair outside ``HEAD_DIMS``, else
 ``wgmma`` (bf16 tensor-core tiles fed by TMA) for bf16, ``tf32x3`` (each fp32
-product as three TF32 products on ``mma.sync``) for fp32; ``simt`` (the CUDA-core
-kernels) is reached only by name. CPU tensors take the plain version and
+product as three TF32 products on ``mma.sync``) for fp32; ``wide`` and ``simt`` (the
+first CUDA-core designs) are reached only by name. CPU tensors take the plain version and
 launch no route.
 
 The ``tf32x3`` route's arithmetic is emulated here in plain torch
@@ -69,8 +69,8 @@ def test_bwd_route_table(dtype, route):
 
 @pytest.mark.parametrize("dtype,d,dv,route", [
     (torch.float32, 160, 160, "tf32x3"), (torch.bfloat16, 160, 160, "wgmma"),
-    (torch.float32, 261, 261, "wide"), (torch.bfloat16, 261, 261, "wide"),
-    (torch.bfloat16, 1024, 1024, "wide"), (torch.float32, 131, 131, "wide"),
+    (torch.float32, 261, 261, "wide_mma"), (torch.bfloat16, 261, 261, "wide_mma"),
+    (torch.bfloat16, 1024, 1024, "wide_mma"), (torch.float32, 131, 131, "wide_mma"),
 ])
 def test_bwd_route_table_by_head_dims(dtype, d, dv, route):
     assert flash._bwd_route(dtype, d, dv) == route

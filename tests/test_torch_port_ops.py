@@ -195,7 +195,7 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
     tile_route = (d, dv) in flash.HEAD_DIMS
     wide = [flash._fwd_route(n, getattr(torch, types[0]), d, dv) == "wide" for n in (1, i)]
     assert wide == [not tile_route] * 2
-    assert (flash._bwd_route(getattr(torch, types[0]), d, dv) == "wide") == (not tile_route)
+    assert (flash._bwd_route(getattr(torch, types[0]), d, dv) == "wide_mma") == (not tile_route)
     shapes = [(1, 2, i, d), (1, 2, j, d), (1, 2, j, dv)]
     jq, jk, jv = (jnp.zeros(shape, getattr(jnp, t)) for shape, t in zip(shapes, types))
     jax_takes = jax_flash.supported(jq, jk, jv, causal=causal)
@@ -244,12 +244,20 @@ def test_head_dim_tables_match_the_kernels():
     listed = tuple((int(a), int(b)) for a, b in
                    re.findall(r"X\((\d+), (\d+)\)", (csrc / "head_dims.cuh").read_text()))
     assert listed == flash.HEAD_DIMS and (160, 160) in listed
-    for name in ("flash_attention_fwd_wide", "flash_attention_bwd_wide"):
+    for name in ("flash_attention_fwd_wide", "flash_attention_bwd_wide", "flash_attention_bwd_wide_mma"):
         text = (csrc / f"{name}.cu").read_text()
-        assert '#include "wide.cuh"' in text and '#include "head_dims.cuh"' not in text, name
+        header = '#include "tf32x3.cuh"' if name.endswith("_mma") else '#include "wide.cuh"'
+        assert header in text and '#include "head_dims.cuh"' not in text, name
         assert "FLASH_HEAD_DIM_PAIRS" not in text and not re.search(r"case \d+:", text), name
     group = re.search(r"constexpr int GROUP = (\d+);", (csrc / "wide.cuh").read_text()).group(1)
     assert int(group) == flash.WIDE_GROUP
+    # the wide_mma kernels' tiles are the constants its plan uses
+    text = (csrc / "flash_attention_bwd_wide_mma.cu").read_text()
+    consts = {name: int(n) for name, n in re.findall(r"^constexpr int (\w+) = (\d+);", text, re.M)}
+    assert consts == {"GROUP": flash.WIDE_MMA_GROUP, "CHUNK": flash.WIDE_MMA_CHUNK, "KEYS": flash.WIDE_MMA_KEYS,
+                      "KEYS_SMALL": flash.WIDE_MMA_KEYS_SMALL, "ROWS_BF16": flash.WIDE_MMA_ROWS[torch.bfloat16],
+                      "ROWS_FP32": flash.WIDE_MMA_ROWS[torch.float32], "ROWS_SMALL": flash.WIDE_MMA_ROWS_SMALL}
+    assert f"to {flash.WIDE_MMA_FILL} blocks" in text
     for name in ("flash_attention_fwd_split", "flash_attention_fwd_wgmma", "flash_attention_fwd_tf32",
                  "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32"):
         text = (csrc / f"{name}.cu").read_text()

@@ -12,7 +12,7 @@ through the route the wrappers pick:
 The cases are ``K23_CASES`` and ``K23_NONCAUSAL_CASES`` (b = 4, h = 8), or
 with ``--classifiers`` ``K23_CLASSIFIER_CASES``, each with its own b and h:
 (160, 160) on the tile routes and the pairs outside ``HEAD_DIMS`` on
-``wide``.
+``wide`` (K1) and ``wide_mma`` (K2/K3).
 
 Prints the card (``nvidia-smi`` name and power limit) as a JSON line, then
 one JSON line per case and type: the median over ``--reps`` readings of
