@@ -32,27 +32,34 @@ non-zero and never prints the final line):
    (``K1_CLASSIFIER_CASES``): the text classifier at the JAX CLI's defaults,
    (160, 160) on the tile routes (its encoder cross attend, 256 x 2048 with
    one row all padded, a 256 x 256 self-attend and its decoder's one query
-   over 256 latents on ``split``), and the ``wide`` route at the image
+   over 256 latents on ``split``), and the ``wide_mma`` route at the image
    classifier's widths (its encoder cross attend, b = 2, one head of (261,
    261), 512 latents over 50176 pixels; its decoder's query over 512 latents
    at (1024, 1024); MNIST's 32 x 784 at (131, 131) with pads and a dead
    batch row; a causal 100 x 300 at (131, 131), right-aligned, with pads,
-   dead rows and a dead batch row); fp32 and bf16, through the route
-   the wrapper picks (``wide`` for a pair outside ``HEAD_DIMS``, ``split`` for
-   decode, ``wgmma`` for bf16 tiles, ``tf32x3`` for fp32 tiles; a wrong route
-   fails), held at fp32 1e-4, bf16
-   2e-2 and lse 1e-3 on live rows, dead rows exactly 0 with ``lse`` the
-   mask value. The first CUDA-core kernel (simt) runs on the same inputs,
-   is held to the same gates and is timed beside it (``prev_ms``; it does
-   not instantiate head dim 96, whose cases carry ``prev_ms`` null), with the plain
+   dead rows and a dead batch row) and at its design's edges (i = 16 and 17
+   at (261, 261) around its 16-row tiles; (64, 1024) and (300, 40), where
+   its warps split the output's columns; (261, 261) with q, k and v one
+   element off a 16-byte boundary); fp32 and bf16, through the route the
+   wrapper picks (``wide_mma`` for a pair outside ``HEAD_DIMS``, ``split``
+   for decode, ``wgmma`` for bf16 tiles, ``tf32x3`` for fp32 tiles; a wrong
+   route fails), held at fp32 1e-4, bf16 2e-2 (at the pairs outside
+   ``HEAD_DIMS`` the smaller of that and 8 bf16 ulps of the reference's
+   largest ``|o|``) and lse 1e-3 on live rows, dead rows exactly 0 with
+   ``lse`` the mask value. The earlier design runs on the same inputs, is
+   held to the same gates and is timed beside it (``prev_ms``: the first
+   CUDA-core kernel (simt), which does not instantiate head dims 96, 32 and
+   160, whose cases carry ``prev_ms`` null; at the pairs outside
+   ``HEAD_DIMS`` the first ``wide`` design, reached by name), with the plain
    version's time, ``scaled_dot_product_attention``'s with its backend
    pinned to memory-efficient attention, or to its math backend where that
    one refuses the head dims (261 and 131; ``library_backend`` names the one
    timed; a yardstick the port never calls) and the card's bound (here and
    in phase 12 its bytes count k and v only for the keys some query row
    sees, as K4's count only live keys; for
-   ``tf32x3`` cases ``bound_ms`` at a third of the TF32 tensor-core rate and
-   ``bound_simt_ms`` at the CUDA cores' rate, as in phase 12). Then each of
+   ``tf32x3`` and ``wide_mma`` cases ``bound_ms`` at a third of the TF32
+   tensor-core rate and ``bound_simt_ms`` at the CUDA cores' rate, as in
+   phase 12). Then each of
    the split, wgmma and tf32x3 routes must refuse a query on a base off a
    16-byte boundary (``ValueError``, no launch counted). Every timed loop
    here and in phases 6 and 12 reads the next of enough input copies to fill
@@ -425,16 +432,16 @@ non-zero and never prints the final line):
    attend); then ``validate`` / ``test --ckpt`` (loss and accuracy;
    ``validate`` reproduces stage 2's validation loss). (d) One
    image forward at b = 4, fp32 and bf16, against ``xla``: 50 K1 launches,
-   the encoder's cross attend and the decoder's query on ``wide``, 48 on the
+   the encoder's cross attend and the decoder's query on ``wide_mma``, 48 on the
    tile route; ``pipeline("image-classification")`` top-5 over 8 seeded
    uint8 images of 256 x 320 through ``ImageNetPreprocessor``: top-1 equals
    ``xla``'s but at an image whose own top-2 ``xla`` logits lie within
    ``NEAR_TIE``, images/s and latency p50; a bf16 ``Trainer.fit`` of 8 steps
    of 8 synthetic images in 2 microbatches through phase 13's ``train_fit``:
    the loss falls, 100 K1/K2/K3 launches a step, 4 of them at the wide
-   pairs (K1 on ``wide``, K2/K3 on ``wide_mma``). (e) The image CLI at
+   pairs (K1, K2 and K3 on ``wide_mma``). (e) The image CLI at
    MNIST's shape (28 x 28 x 1, 32 x 128 latents, 32 bands, JAX's MNIST
-   test's one cross head: q/k 131 on K1 ``wide`` and K2/K3 ``wide_mma``;
+   test's one cross head: q/k 131 on K1, K2 and K3 ``wide_mma``;
    the 16-wide heads elsewhere take the plain path), fp32: ``fit`` over the
    synthetic image data module, 2 K1/K2/K3 launches a step, all at (131,
    131), finite losses
@@ -458,9 +465,10 @@ non-zero and never prints the final line):
    run of phase 16, ``mlm_launches`` in each run of phase 17 and
    ``classifiers_launches`` in each run of phase 18; each route's
    ``head_dims``, the (d, dv) pairs its cases ran; the entries at the wide
-   pairs (K1 ``wide``, K2/K3 ``wide_mma`` with the first ``wide`` design's
-   times as their ``prev_ms``, and K2/K3 ``wide`` itself, reached by name
-   only, ``launches`` 0) take ``launches`` from phase 18's bf16 image fit),
+   pairs (K1, K2 and K3 ``wide_mma`` with the first ``wide`` design's
+   times as their ``prev_ms``, and K1-K3 ``wide`` itself, reached by name
+   only, ``launches`` 0; K1's nested in its ``routes``) take ``launches``
+   from phase 18's bf16 image fit),
    the card's
    ``nvidia-smi`` line, and the final
    ``{"ok": true, ...}`` line.
@@ -509,6 +517,11 @@ K23_ROUTE = {"float32": "tf32x3", "bfloat16": "wgmma"}
 # under the same gates
 K23_WIDE_ROUTE = "wide_mma"
 K23_WIDE_PREV = "wide"
+# K1's route at those pairs, both types and any query length, and the
+# earlier design there, reached by name and timed beside it as prev_ms under
+# the same gates
+K1_WIDE_ROUTE = "wide_mma"
+K1_WIDE_PREV = "wide"
 # the simt K2/K3 kernels, timed beside each route as prev_ms, are held to
 # 1e-4 in both types, the bar they had when they were the routes
 SIMT_REL_TOL = 1e-4
@@ -541,10 +554,10 @@ K23_NONCAUSAL_CASES = (
 # K2/K3 at this slice's widths, K1_CLASSIFIER_CASES' shapes with their
 # batch: (name, i, j, left pads, visible keys, d, dv, causal, b, h). The
 # text classifier at the JAX CLI's defaults (160, 160) on the tile routes;
-# the image classifier's training attends on wide: its encoder cross attend
+# the image classifier's training attends on wide_mma: its encoder cross attend
 # (b = 2 of the fit's 8 rows; one head of 261 over 50176 pixels), its
 # decoder's one query over 512 latents (1024) and MNIST's cross attend
-# (131); and wide's causal masking at an odd head dim
+# (131); and wide_mma's causal masking at an odd head dim
 K23_CLASSIFIER_CASES = (
     ("clf_enc_cross", 256, 2048, None, [2048, 1500, 700, 0], 160, 160, False, 4, 8),
     ("clf_self", 256, 256, None, None, 160, 160, False, 4, 8),
@@ -609,13 +622,15 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def l2_cold(fn, *tensors):
+def l2_cold(fn, *tensors, clone=None):
     """``(call, copies)``: ``call()`` runs ``fn`` on the next of enough
     copies of ``tensors`` to fill the L2 twice, so a timed loop of it reads
-    its inputs from HBM, as the bound counts them."""
+    its inputs from HBM, as the bound counts them. ``clone`` makes a copy
+    (default ``Tensor.clone``; ``off_base`` keeps a misaligned base)."""
+    clone = clone or (lambda t: t.clone())
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     copies = [tensors] + [
-        tuple(t.clone() for t in tensors) for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)) - 1)
+        tuple(clone(t) for t in tensors) for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)) - 1)
     ]
     turn = itertools.cycle(copies)
     return (lambda: fn(*next(turn))), len(copies)
@@ -682,13 +697,13 @@ K1_NONCAUSAL_CASES = (
 # heads over 1280 latent channels: (160, 160) on the tile routes): its
 # encoder cross attend of 256 latents over 2048 tokens (row 3 all pad: dead
 # rows), a self-attend, and its decoder's one query over the 256 latents
-# (split). Then the wide route: the Fourier image classifier's encoder cross
+# (split). Then the wide_mma route: the Fourier image classifier's encoder cross
 # attend at deepmind/vision-perceiver-fourier width (one head of 3 + 2 *
 # (2 * 64 + 1) = 261 over 224 * 224 = 50176 pixels, b = 2), its decoder's one
 # query over 512 latents (one head of 1024), and MNIST's cross attend (one
 # head of 1 + 2 * (2 * 32 + 1) = 131 over 784 pixels; pads and a dead batch
 # row, which the image path does not have, to hold the dead-row zeros).
-# Last, wide's causal masking at an odd head dim: 100 rows right-aligned over
+# Then wide_mma's causal masking at an odd head dim: 100 rows right-aligned over
 # 300 keys (ragged row and key tiles), row 2's pads leaving its rows 0..59
 # dead and row 3 all pad
 K1_CLASSIFIER_CASES = (
@@ -699,17 +714,41 @@ K1_CLASSIFIER_CASES = (
     ("img_dec_cross", 1, 512, None, None, 1024, 1024, False, 1, 4),
     ("mnist_cross", 32, 784, None, [784, 784, 500, 0], 131, 131, False, 1, 4),
     ("wide_causal", 100, 300, [0, 30, 260, 300], None, 131, 131, True, 2, 4),
+    # the edges of K1's wide_mma design: i = 16 and 17 around its 16-row
+    # tiles (causal, pads, dead rows); v wider than a warp's 272 columns
+    # beside a narrow q/k, so the block's 8 warps split dv = 1024 (causal
+    # over j > i, a dead batch row); q/k wider than 272 beside a narrow v
+    # (the column split at dv = 40); and the image's d = 261 with q, k and v
+    # one element off a 16-byte boundary (bf16 off the flat spans, staged
+    # through registers; K1_MISALIGNED)
+    ("wide_i16", 16, 300, [0, 30, 290, 300], None, 261, 261, True, 2, 4),
+    ("wide_i17", 17, 300, [0, 30, 290, 300], None, 261, 261, True, 2, 4),
+    ("wide_cols", 70, 130, None, [130, 64, 1, 0], 64, 1024, True, 1, 4),
+    ("wide_deep", 5, 300, [0, 30, 290, 300], None, 300, 40, True, 2, 4),
+    ("wide_misaligned", 100, 300, [0, 30, 260, 300], None, 261, 261, True, 1, 4),
 )
-#: the wide route's timed iterations at the image encoder's 512 x 50176
+#: the K1 cases whose q, k and v lie one element off a 16-byte boundary
+K1_MISALIGNED = ("wide_misaligned",)
+#: the wide routes' timed iterations at the image encoder's 512 x 50176
 #: cross attend: (kernel, plain version)
 WIDE_ITERS = (10, 2)
 
 
+def off_base(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
 def k1_expected_route(i: int, tname: str, d: int, dv: int, head_dims) -> str:
-    """K1's route for the case: ``wide`` for a pair outside ``head_dims``
-    (the tile routes' pairs), else by the query rows and the type."""
+    """K1's route for the case: ``wide_mma`` for a pair outside
+    ``head_dims`` (the tile routes' pairs), else by the query rows and the
+    type."""
     if (d, dv) not in head_dims:
-        return "wide"
+        return K1_WIDE_ROUTE
     return "split" if i <= 16 else ("wgmma" if tname == "bfloat16" else "tf32x3")
 
 
@@ -776,9 +815,11 @@ def _k1_errors(flash, o, lse, o_ref, lse_ref, live) -> tuple:
 
 def kernel_cases(torch, flash):
     """K1 against its plain version at the serving path's shapes, through
-    the route the wrapper picks, beside PR 1's simt kernel on the same
-    inputs (``prev_ms``), itself held to the same gates; at head dim 112 and
-    at the kernels' other head dims."""
+    the route the wrapper picks, beside the earlier design on the same
+    inputs (``prev_ms``: the first CUDA-core kernel, ``simt``, at its head
+    dims, the first ``wide`` design at the pairs outside ``HEAD_DIMS``),
+    itself held to the same gates; at head dim 112 and at the kernels'
+    other head dims."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -796,26 +837,38 @@ def kernel_cases(torch, flash):
         pairs = int(allowed.sum().item()) * h
         main_dim = d == K1_HEAD_DIM and causal
         sam = name.endswith("_sam")
-        with_prev = (d, dv) in flash.SIMT_HEAD_DIMS  # the simt kernel keeps (64, 112, 128) x itself
+        # the simt kernel keeps (64, 112, 128) x itself; wide takes every pair outside HEAD_DIMS
+        prev_route = (K1_WIDE_PREV if (d, dv) not in flash.HEAD_DIMS
+                      else "simt" if (d, dv) in flash.SIMT_HEAD_DIMS else None)
+        with_prev = prev_route is not None
+        clone = off_base if name in K1_MISALIGNED else None
         for dtype in (torch.float32, torch.bfloat16):
             tname = str(dtype).split(".")[-1]
             q = (torch.randn(b, h, i, d, generator=gen, device="cuda") * d**-0.5).to(dtype)
             k = torch.randn(b, h, j, d, generator=gen, device="cuda").to(dtype)
             v = torch.randn(b, h, j, dv, generator=gen, device="cuda").to(dtype)
+            if clone:
+                q, k, v = (clone(t) for t in (q, k, v))
             before = dict(flash.flash_attention.route_launches)
             o, lse = flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal)
             route = next(r for r, n in flash.flash_attention.route_launches.items() if n != before[r])
             o_ref, lse_ref = flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=causal)
             torch.cuda.synchronize()
             err, lse_err, dead_zero = _k1_errors(flash, o, lse, o_ref, lse_ref, live)
+            ref_max = o_ref.float().abs().max().item()
             prev_err = prev_lse_err = None
             prev_dead_zero = True
             if with_prev:
-                o_prev, lse_prev = flash._fwd_launch("simt", q, k, v, pad, causal)
+                o_prev, lse_prev = flash._fwd_launch(prev_route, q, k, v, pad, causal)
                 prev_err, prev_lse_err, prev_dead_zero = _k1_errors(flash, o_prev, lse_prev, o_ref,
                                                                     lse_ref, live)
                 del o_prev, lse_prev
             tol = KERNEL_TOL[tname]
+            if tname == "bfloat16" and (d, dv) not in flash.HEAD_DIMS:
+                # the wide pairs' outputs are small (|o| ~0.03 over 50176
+                # keys): the gate scales with the reference, as a flat 2e-2
+                # would pass a dropped P.V term of that size
+                tol = min(tol, 8 * bf16_ulp(ref_max))
             expected = k1_expected_route(i, tname, d, dv, flash.HEAD_DIMS)
             if not (err <= tol and lse_err <= 1e-3 and dead_zero and route == expected):
                 raise AssertionError(
@@ -824,7 +877,7 @@ def kernel_cases(torch, flash):
                 )
             if with_prev and not (prev_err <= tol and prev_lse_err <= 1e-3 and prev_dead_zero):
                 raise AssertionError(
-                    f"K1 simt (prev_ms) {name} d={d} {tname}: max|d| {prev_err} (tol {tol}), "
+                    f"K1 {prev_route} (prev_ms) {name} d={d} {tname}: max|d| {prev_err} (tol {tol}), "
                     f"lse {prev_lse_err}, dead rows 0 with lse MASK {prev_dead_zero}"
                 )
             del o_ref, lse_ref
@@ -836,7 +889,7 @@ def kernel_cases(torch, flash):
                 iters, plain_iters = WIDE_ITERS
             attn_mask = allowed[:, None]
             kernel, copies = l2_cold(
-                lambda q, k, v: flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal), q, k, v)
+                lambda q, k, v: flash.flash_attention_fwd(q, k, v, pad_mask=pad, causal=causal), q, k, v, clone=clone)
             plain, _ = l2_cold(
                 lambda q, k, v: flash.flash_attention_reference(q, k, v, pad_mask=pad, causal=causal),
                 q, k, v)
@@ -846,7 +899,8 @@ def kernel_cases(torch, flash):
             ms = device_ms(kernel, iters)
             prev_ms = None
             if with_prev:
-                prev, _ = l2_cold(lambda q, k, v: flash._fwd_launch("simt", q, k, v, pad, causal), q, k, v)
+                prev, _ = l2_cold(lambda q, k, v: flash._fwd_launch(prev_route, q, k, v, pad, causal), q, k, v,
+                                  clone=clone)
                 prev_ms = device_ms(prev, iters)
                 del prev
             plain_ms = device_ms(plain, plain_iters)
@@ -860,18 +914,19 @@ def kernel_cases(torch, flash):
             bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]
             case = dict(
                 case=name, dtype=tname, route=route, b=b, h=h, i=i, j=j, d=d, dv=dv, causal=causal,
-                max_abs_err=err, tol=tol, lse_max_abs_err=lse_err, dead_rows=int((~live).sum().item()),
-                dead_rows_zero_lse_mask=dead_zero, ms=ms, prev_ms=prev_ms,
-                prev_route="simt" if with_prev else None,
+                max_abs_err=err, tol=tol, ref_max_abs=ref_max, lse_max_abs_err=lse_err,
+                dead_rows=int((~live).sum().item()), dead_rows_zero_lse_mask=dead_zero, ms=ms,
+                prev_ms=prev_ms, prev_route=prev_route, misaligned=bool(clone),
                 prev_max_abs_err=prev_err, prev_lse_max_abs_err=prev_lse_err,
                 plain_ms=plain_ms, library_ms=library_ms, library_backend=library_backend,
                 library_note=library_note, input_copies=copies, iters=iters,
             )
-            if tname == "float32" and route in ("tf32x3", "wide"):
+            if tname == "float32" and route in ("tf32x3", K1_WIDE_ROUTE):
                 # the card's fp32-accurate rate is the tensor cores' TF32 rate
                 # over three; the CUDA cores' bound stays beside it so rows
-                # compare with those of the simt and wide routes (the wide
-                # route runs on the CUDA cores)
+                # compare with those of the simt and wide routes (the first
+                # wide design, the wide_mma cases' prev_ms, runs on the CUDA
+                # cores)
                 case.update(bound_simt_ms=max(bytes_s, ops_s) * 1e3,
                             bound_simt_by="bytes" if bytes_s >= ops_s else "operations")
                 ops_s = 3 * flops / TF32_FLOPS
@@ -2871,8 +2926,8 @@ def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Pat
     The Perceiver AR families' defaults, for another family: ``make_loss``
     ``(model, cfg) -> loss_fn`` (default ``clm_loss_fn`` over the latents),
     ``attends`` K1/K2/K3 launches a step, ``wide`` of them at head dims
-    outside ``HEAD_DIMS`` (K1 on ``wide``, its validation forwards in the
-    same share; K2/K3 on ``K23_WIDE_ROUTE``) and ``tokens_per_step`` loss
+    outside ``HEAD_DIMS`` (K1 on ``K1_WIDE_ROUTE``, its validation forwards
+    in the same share; K2/K3 on ``K23_WIDE_ROUTE``) and ``tokens_per_step`` loss
     tokens a step (default 8 rows x ``max_latents``)."""
     import numpy as np
 
@@ -2954,10 +3009,10 @@ def train_fit(torch, flash, training, parallel, model_cls, cfg, dtype, root: Pat
     if per_step != {"k1": attends, "k2": attends, "k3": attends} or val_counts["k2"] or val_counts["k3"]:
         failures.append(f"launches per step {per_step}, validation {val_counts}")
     expected_route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"  # i = the latents
-    if (routes[expected_route] + routes["wide"] != counts["k1"]
-            or routes["wide"] * attends != counts["k1"] * wide):
+    if (routes[expected_route] + routes[K1_WIDE_ROUTE] != counts["k1"]
+            or routes[K1_WIDE_ROUTE] * attends != counts["k1"] * wide):
         failures.append(f"K1 routes {routes}: every launch should take {expected_route}, "
-                        f"{wide} of {attends} wide")
+                        f"{wide} of {attends} {K1_WIDE_ROUTE}")
     expected_bwd = K23_ROUTE[tname]
     for key, by_route in bwd_routes.items():
         if (by_route[expected_bwd] != (attends - wide) * TRAIN_STEPS
@@ -4308,12 +4363,12 @@ IMG_DECODER = dict(num_classes=1000, num_output_query_channels=1024, num_cross_a
 # the reference's (SURVEY.md section 4)
 CLASSIFIER_PARAMS = {"text_classifier": 206_098_690, "text_classifier_cli_defaults": 95_801_090,
                      "image_classifier": 48_440_627}
-IMG_ATTENDS = 50  # a forward: the cross attend (wide), 48 self-attends (128, 128), the decoder's query (wide)
+IMG_ATTENDS = 50  # a forward: the cross attend (wide_mma), 48 self-attends (128, 128), the decoder's query (wide_mma)
 IMG_WIDE = 2
 IMG_TOP_K = 5
 IMG_PIPE = 8  # uint8 images of 256 x 320 through ImageNetPreprocessor
 # the image CLI at MNIST's shape (its defaults: 32 latents of 128 channels,
-# 32 bands) with JAX's MNIST test's one cross head: q/k 131 on wide; the
+# 32 bands) with JAX's MNIST test's one cross head: q/k 131 on wide_mma; the
 # self-attends' and the decoder's 8 heads of 16 take the plain path
 MNIST_FLAGS = ["--model.encoder.num_cross_attention_heads=1", "--data=synthetic", "--data.batch_size=16",
                "--data.num_train=128", "--data.num_valid=32", "--data.num_test=32"]
@@ -4588,8 +4643,8 @@ def image_classifier_config(config_mod, vision_mod):
 def img_forward(torch, flash, vision_mod, cfg) -> dict:
     """(d) the image classifier at 224 x 224, one forward at b = 4, fp32 and
     bf16, against ``xla``: K1 50 launches a forward, the encoder's cross
-    attend and the decoder's query on wide, the 48 self-attends on the tile
-    route of the type."""
+    attend and the decoder's query on wide_mma, the 48 self-attends on the
+    tile route of the type."""
     g = torch.Generator(device="cuda").manual_seed(19)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -4597,7 +4652,7 @@ def img_forward(torch, flash, vision_mod, cfg) -> dict:
         model = vision_mod.ImageClassifier(cfg, dtype=dtype, seed=0).eval()
         x = torch.randn(4, *IMG_ENCODER["image_shape"], generator=g, device="cuda")
         line = _forward_check(torch, flash, model, (x,), {},
-                              {"wide": IMG_WIDE, _tile(tname): IMG_ATTENDS - IMG_WIDE}, 1e-3)
+                              {K1_WIDE_ROUTE: IMG_WIDE, _tile(tname): IMG_ATTENDS - IMG_WIDE}, 1e-3)
         line.update(b=4, params=sum(p.numel() for p in model.parameters()))
         emit("classifiers", part="image_forward", **line)
         out[tname] = line
@@ -4649,7 +4704,7 @@ def img_pipeline(torch, flash, pipelines_mod, data_vision, model, smi: str) -> d
                 xla_top1=order[:, 0].tolist(), xla_top2_gaps=gap.tolist(), differing_images=differing,
                 unexcused=unexcused, top_k_each=all(len(row) == IMG_TOP_K for row in top))
     emit("classifiers", **line)
-    if unexcused or not line["top_k_each"] or routes != {"wide": IMG_WIDE, "tf32x3": IMG_ATTENDS - IMG_WIDE}:
+    if unexcused or not line["top_k_each"] or routes != {K1_WIDE_ROUTE: IMG_WIDE, "tf32x3": IMG_ATTENDS - IMG_WIDE}:
         raise AssertionError(f"image-classification: images {unexcused} differ from the xla run's top-1 past "
                              f"a near tie, top-k each {line['top_k_each']}, K1 routes {routes}")
     return line
@@ -4660,7 +4715,7 @@ def img_fit(torch, flash, training, parallel, vision_mod, cfg, root: Path) -> di
     ``train_fit``: 8 steps of 8 synthetic 224 x 224 x 3 images in 2
     microbatches (two seeded batches cycled), K1, K2 and K3 100 launches a
     step, 4 of them at the wide pairs (the cross attend and the decoder's
-    query): K1 on ``wide``, K2/K3 on ``wide_mma``."""
+    query): K1, K2 and K3 on ``wide_mma``."""
     import numpy as np
 
     rng = np.random.default_rng(29)
@@ -4676,7 +4731,7 @@ def mnist_cli(torch, flash, ragged, training, img_script, root: Path, smi: str) 
     """(e) the image CLI at MNIST's shape (fp32, the family's) over the
     synthetic image data module, JAX's MNIST test's one cross head:
     ``fit`` (8 steps of 16 in 2 microbatches, AdamW to 1e-3), its cross
-    attend (131, 131) on ``wide`` in K1 and ``wide_mma`` in K2/K3, then ``validate`` /
+    attend (131, 131) on ``wide_mma`` in K1, K2 and K3, then ``validate`` /
     ``test --ckpt``. Eight steps hardly move this model's loss (a CPU run of
     the same flags logs the card's curve, 2.30 -> 2.27-2.30), so the gates
     are finite losses and ``validate`` reproducing the fit's own validation
@@ -4686,7 +4741,7 @@ def mnist_cli(torch, flash, ragged, training, img_script, root: Path, smi: str) 
     common = [*MNIST_FLAGS, *CLI_TRAIN, "--optimizer.lr=1e-3"]
     runs = {}
     state, runs["fit"] = _cli_stage(torch, flash, ragged, training, img_script.main, ["fit", *common], root / "fit")
-    failures = _fit_failures(runs["fit"], TRAIN_STEPS, 2, {"wide": 2}, {K23_WIDE_ROUTE: 2})
+    failures = _fit_failures(runs["fit"], TRAIN_STEPS, 2, {K1_WIDE_ROUTE: 2}, {K23_WIDE_ROUTE: 2})
     losses = runs["fit"]["losses"]
     if not (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)):
         failures.append(f"losses {losses}")
@@ -4699,7 +4754,7 @@ def mnist_cli(torch, flash, ragged, training, img_script, root: Path, smi: str) 
                                      [sub, *common, f"--ckpt={root / 'fit' / 'checkpoints'}",
                                       f"--trainer.default_root_dir={root / sub}"])
         emit("classifiers", part=f"mnist_cli_{sub}", card=smi, metrics=metrics, k1_routes=runs[sub]["k1_routes"])
-        if not all(math.isfinite(v) for v in metrics.values()) or runs[sub]["k1_routes"]["wide"] != 1 \
+        if not all(math.isfinite(v) for v in metrics.values()) or runs[sub]["k1_routes"][K1_WIDE_ROUTE] != 1 \
                 or runs[sub]["launches"]["k1"] != 1:
             failures.append(f"{sub}: {metrics}, K1 routes {runs[sub]['k1_routes']}")
         runs[sub]["metrics"] = metrics
@@ -4778,6 +4833,7 @@ K1_SOURCES = {
     "split": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_split.cu",
     "wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wgmma.cu",
     "tf32x3": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_tf32.cu",
+    "wide_mma": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wide_mma.cu",
     "wide": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wide.cu",
 }
 K1_LAUNCHES_FROM = {"split": "the bucket serve run (fp32 decode attends)",
@@ -4921,36 +4977,47 @@ def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic:
 
 
 def wide_entries(flash, k1_cases: list, k23_cases: list, k1_launches: int, bwd_launches: dict,
-                 clf_k1: dict, clf_bwd: dict) -> list:
-    """The summary line's entries at the pairs outside ``HEAD_DIMS``: K1's
-    ``wide`` route, K2's and K3's ``wide_mma`` and, as the earlier design
-    there, K2's and K3's ``wide`` (reached by name only: its times are the
-    ``wide_mma`` cases' ``prev_ms``, and the main path launches it no time).
-    The image encoder's cross attend in bf16 (d = dv = 261, 512 x 50176) at
-    the top, ``launches`` from the classifiers phase's bf16 image fit, each
-    classifiers run's launches on the route, and every case that took it."""
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                 clf_k1: dict, clf_bwd: dict) -> tuple:
+    """The summary line's entries at the pairs outside ``HEAD_DIMS``, as
+    ``(K1's, K2's and K3's)``: each kernel's ``wide_mma`` route and, as the
+    earlier design there, its ``wide`` (reached by name only: its times are
+    the ``wide_mma`` cases' ``prev_ms``, and the main path launches it no
+    time). The image encoder's cross attend in bf16 (d = dv = 261, 512 x
+    50176) at the top, ``launches`` from the classifiers phase's bf16 image
+    fit, each classifiers run's launches on the route, and every case that
+    took it."""
+    keys = ("plain_ms", "bound_ms", "bound_by", "library_ms")
     head_of = lambda mine: next(c for c in mine if (c["case"], c["dtype"]) == ("img_cross", "bfloat16"))  # noqa: E731
     common = dict(route="cuda", shape="the image classifier's encoder cross attend, b=2 h=1 "
                   "i=512 j=50176 d=dv=261 bf16, non-causal, no pad mask",
                   launches_from="the classifiers phase's bf16 image fit (8 steps and its validation pass)")
-    mine = [c for c in k1_cases if c["route"] == "wide"]
+    mine = [c for c in k1_cases if c["route"] == K1_WIDE_ROUTE]
     head = head_of(mine)
-    entries = [{
-        "name": "flash_attention_fwd[wide]", **common, "design": "wide", "source": K1_SOURCES["wide"],
-        "replaces": "perceiver_io_tpu/ops/flash_attention.py:198", "launches": k1_launches,
-        "kernel_launches": k1_launches * flash.ROUTE_KERNELS["wide"],
-        "max_abs_err": max(c["max_abs_err"] for c in mine if c["dtype"] == "float32"),
-        "max_abs_err_bf16": max(c["max_abs_err"] for c in mine if c["dtype"] == "bfloat16"),
-        **{k: head[k] for k in keys}, "library_backend": head["library_backend"],
-        "classifiers_launches": {run: routes.get("wide", 0) for run, routes in clf_k1.items()},
-        "head_dims": sorted({(c["d"], c["dv"]) for c in mine}),
-        "cases": [{"case": c["case"], "dtype": c["dtype"], "b": c["b"], "h": c["h"], "i": c["i"], "j": c["j"],
-                   "d": c["d"], "dv": c["dv"], "causal": c["causal"], "max_abs_err": c["max_abs_err"],
-                   "library_backend": c["library_backend"],
-                   **{k: c[k] for k in keys + ("bound_simt_ms",) if k in c and not k.endswith("_by")}}
-                  for c in mine],
-    }]
+    k1 = []
+    for design in (K1_WIDE_ROUTE, K1_WIDE_PREV):
+        now = design == K1_WIDE_ROUTE
+        err_key, ms_key = ("max_abs_err", "ms") if now else ("prev_max_abs_err", "prev_ms")
+        launches = k1_launches if now else 0
+        k1.append({
+            "name": f"flash_attention_fwd[{design}]", **common, "design": design, "source": K1_SOURCES[design],
+            "replaces": "perceiver_io_tpu/ops/flash_attention.py:198", "launches": launches,
+            "kernel_launches": launches * flash.ROUTE_KERNELS[design],
+            **({} if now else {"launches_note": "the earlier design, reached by name only: its times "
+                                                f"are the {K1_WIDE_ROUTE} cases' prev_ms"}),
+            "max_abs_err": max(c[err_key] for c in mine if c["dtype"] == "float32"),
+            "max_abs_err_bf16": max(c[err_key] for c in mine if c["dtype"] == "bfloat16"),
+            "ms": head[ms_key], **({"prev_ms": head["prev_ms"], "prev_route": K1_WIDE_PREV} if now else {}),
+            **{k: head[k] for k in keys}, "library_backend": head["library_backend"],
+            "classifiers_launches": {run: routes.get(design, 0) for run, routes in clf_k1.items()},
+            "head_dims": sorted({(c["d"], c["dv"]) for c in mine}),
+            "cases": [{"case": c["case"], "dtype": c["dtype"], "b": c["b"], "h": c["h"], "i": c["i"], "j": c["j"],
+                       "d": c["d"], "dv": c["dv"], "causal": c["causal"], "misaligned": c["misaligned"],
+                       "max_abs_err": c[err_key], "ms": c[ms_key], **({"prev_ms": c["prev_ms"]} if now else {}),
+                       "library_backend": c["library_backend"],
+                       **{k: c[k] for k in keys + ("bound_simt_ms",) if k in c and not k.endswith("_by")}}
+                      for c in mine],
+        })
+    entries = []
     mine = [c for c in k23_cases if c["expected_route"] == K23_WIDE_ROUTE]
     head = head_of(mine)
     for design in (K23_WIDE_ROUTE, K23_WIDE_PREV):
@@ -4982,16 +5049,18 @@ def wide_entries(flash, k1_cases: list, k23_cases: list, k1_launches: int, bwd_l
                               if k in c["kernels"][kname]},
                            "library_ms": c["library_ms"], "library_backend": c["library_backend"]} for c in mine],
             })
-    return entries
+    return k1, entries
 
 
 #: K1-K3 kernels templated on (D, DV): ptxas_by_kernel keys them "DxDV"
 PAIR_KERNELS = ("flash_fwd_split_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_tf32x3_kernel",
                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_tf32x3_kernel",
                 "flash_bwd_dkv_tf32x3_kernel")
-#: K2/K3's wide_mma kernels, templated on (type, query rows a tile): keyed
-#: "<type> rows <n>"
-ROWS_KERNELS = ("flash_bwd_dq_wide_mma_kernel", "flash_bwd_dkv_wide_mma_kernel")
+#: K1-K3's wide_mma kernels, templated on (type, query rows a tile[, K1's
+#: accumulator column pairs]): keyed "<type> rows <n>[ pairs <p>]"
+ROWS_KERNELS = ("flash_fwd_wide_mma_kernel", "flash_bwd_dq_wide_mma_kernel", "flash_bwd_dkv_wide_mma_kernel")
+#: kernels templated on the type alone: keyed "<type>"
+TYPE_KERNELS = ("flash_fwd_wide_mma_cols_kernel", "flash_fwd_wide_mma_merge_kernel")
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -4999,8 +5068,9 @@ def ptxas_by_kernel(log: str) -> dict:
     max], max spill store bytes, and the same per head dim}}, kernels named
     by their function name, head dims read from the ``int`` template
     arguments of the mangled name: the first (every kernel's first is its
-    head dim), "DxDV" from the first two for :data:`PAIR_KERNELS`, or the
-    type and query rows for :data:`ROWS_KERNELS`."""
+    head dim), "DxDV" from the first two for :data:`PAIR_KERNELS`, the
+    type and query rows for :data:`ROWS_KERNELS`, or the type for
+    :data:`TYPE_KERNELS`."""
     out = {}
     name = dim = None
     for line in log.splitlines():
@@ -5008,8 +5078,11 @@ def ptxas_by_kernel(log: str) -> dict:
         if entry:
             name = entry.group(2)
             ints = re.findall(r"Li(\d+)E", entry.group(1)[entry.group(1).index(name):])
-            if name in ROWS_KERNELS and ints:
-                dim = f"{'bf16' if '__nv_bfloat16' in entry.group(1) else 'fp32'} rows {ints[0]}"
+            tname = "bf16" if "__nv_bfloat16" in entry.group(1) else "fp32"
+            if name in ROWS_KERNELS and ints:  # K1's also takes its accumulator's column pairs
+                dim = f"{tname} rows {ints[0]}" + (f" pairs {ints[1]}" if len(ints) > 1 else "")
+            elif name in TYPE_KERNELS:
+                dim = tname
             else:
                 dim = (f"{ints[0]}x{ints[1]}" if name in PAIR_KERNELS and len(ints) > 1
                        else int(ints[0]) if ints else None)
@@ -5130,7 +5203,7 @@ def main() -> int:
     clf_bwd = {"text_cli_frozen": clf["cli"]["frozen"]["bwd_routes"],
                "text_cli_unfrozen": clf["cli"]["unfrozen"]["bwd_routes"],
                "image_fit": clf["image_fit"]["bwd_route_launches"], "mnist_cli_fit": clf["mnist_cli"]["fit"]["bwd_routes"]}
-    wide = wide_entries(flash, cases, k23, clf["image_fit"]["k1_route_launches"]["wide"],
+    k1_wide, k23_wide = wide_entries(flash, cases, k23, clf["image_fit"]["k1_route_launches"][K1_WIDE_ROUTE],
                         {k: v[K23_WIDE_ROUTE] for k, v in clf["image_fit"]["bwd_route_launches"].items()}, clf_k1,
                         clf_bwd)
 
@@ -5185,7 +5258,7 @@ def main() -> int:
                     "mlm_launches": {run: routes[design] for run, routes in mlm_k1.items()},
                     "classifiers_launches": {run: routes.get(design, 0) for run, routes in clf_k1.items()}}
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
-                                        ("tf32x3", ("cross", "float32")))] + wide[:1],
+                                        ("tf32x3", ("cross", "float32")))] + k1_wide,
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -5224,7 +5297,7 @@ def main() -> int:
                     "cli_launches": {run: cli[run]["k4_routes"][design] for run in ("serve_bucket", "serve_slots")}}
                    for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
     }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic, cli, mlm, clf_bwd)]
-        + wide[1:]}), flush=True)
+        + k23_wide}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -17,6 +17,7 @@ from perceiver_io_tpu_torch.models.core.modules import (
     init_weights,
     layer_norm,
 )
+from perceiver_io_tpu_torch.ops.embedding import Embedding
 from perceiver_io_tpu_torch.ops.position import frequency_position_encoding, positions
 
 
@@ -56,9 +57,9 @@ class SequenceInputAdapter(InputAdapter):
         self.rotated_channels_per_head = rotated_channels_per_head
         self.abs_pos_emb = abs_pos_emb
         self.dtype = dtype
-        self.txt_embedding = nn.Embedding(vocab_size, num_channels)
+        self.txt_embedding = Embedding(vocab_size, num_channels)
         if abs_pos_emb:
-            self.pos_embedding = nn.Embedding(max_seq_len, num_channels)
+            self.pos_embedding = Embedding(max_seq_len, num_channels)
 
     @property
     def num_input_channels(self) -> int:

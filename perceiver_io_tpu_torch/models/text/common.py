@@ -7,11 +7,11 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-from torch import nn
 
 from perceiver_io_tpu_torch.models.core.adapter import InputAdapter
 from perceiver_io_tpu_torch.models.core.config import EncoderConfig, register_config
 from perceiver_io_tpu_torch.models.core.modules import PerceiverEncoder
+from perceiver_io_tpu_torch.ops.embedding import Embedding
 from perceiver_io_tpu_torch.ops.position import positions
 
 
@@ -41,9 +41,9 @@ class TextInputAdapter(InputAdapter):
         self.num_channels = num_channels
         self.abs_pos_emb = abs_pos_emb
         self.dtype = dtype
-        self.txt_embedding = nn.Embedding(vocab_size, num_channels)
+        self.txt_embedding = Embedding(vocab_size, num_channels)
         if abs_pos_emb:
-            self.pos_embedding = nn.Embedding(max_seq_len, num_channels)
+            self.pos_embedding = Embedding(max_seq_len, num_channels)
 
     @property
     def num_input_channels(self) -> int:

@@ -6,7 +6,7 @@ Counterpart of the Pallas TPU kernels ``_forward`` (K1), ``_backward_dq``
 (K2) and ``_backward_dkv`` (K3) and of the ``custom_vjp`` around them in
 ``perceiver_io_tpu/ops/flash_attention.py``. The forward (K1) has four
 Hopper ``sm_90a`` designs behind one wrapper, picked by :func:`_fwd_route`
-from the query length, the head dims and the type alone, and a fifth
+from the query length, the head dims and the type alone, and two more
 reached only by name:
 
 - ``split`` (``csrc/flash_attention_fwd_split.cu``), at most 16 query rows
@@ -21,15 +21,26 @@ reached only by name:
   off), eight warps per 64-row tile, two online-softmax states per row
   merged at the end, tiles staged with ``cp.async``, ``p`` kept in
   registers;
-- ``wide`` (``csrc/flash_attention_fwd_wide.cu``), fp32 or bf16, for every
-  ``(d, dv)`` pair that the three above do not instantiate (the image
-  classifier's 261 and 1024, 131 on MNIST): d and dv at run time, 64 x 64
-  tiles on the CUDA cores in fp32 over head-dim steps of 32 columns, the
-  output in column groups of at most :data:`WIDE_GROUP`, the keys cut into
-  splits (:func:`_wide_splits`) whose fp32 partials a merge launch joins;
+- ``wide_mma`` (``csrc/flash_attention_fwd_wide_mma.cu`` +
+  ``csrc/wide_mma.cuh``), fp32 or bf16, for every ``(d, dv)`` pair that the
+  three above do not instantiate (the image classifier's 261 and 1024, 131
+  on MNIST): d and dv at run time, both products on ``mma.sync`` (bf16
+  m16n8k16; fp32 as ``tf32x3``'s three TF32 products), tiles staged at any
+  alignment; where both widths fit :data:`WIDE_MMA_GROUP` columns a warp
+  holds its whole output row and ``p`` stays in registers (128-row query
+  tiles in bf16, 64 in fp32, 16 where ``i <= 16``), else 16-row tiles
+  whose 8 warps split the output's columns, the scores computed once for
+  all of them; the keys cut into splits whose fp32 partials a merge launch
+  joins (:func:`_wide_mma_fwd_plan`);
+- ``wide`` (``csrc/flash_attention_fwd_wide.cu``), fp32 or bf16, any pair:
+  64 x 64 tiles on the CUDA cores in fp32, the output in column groups of at
+  most :data:`WIDE_GROUP`, the keys cut into splits (:func:`_wide_splits`);
+  the first design at those pairs;
 - ``simt`` (``csrc/flash_attention_fwd.cu``), fp32 or bf16: 64 x 64 tiles
-  on the CUDA cores, the first design, reached only by name through
-  :func:`_fwd_launch` (to time it against the others).
+  on the CUDA cores, the first design.
+
+``wide`` and ``simt`` are reached only by name through :func:`_fwd_launch`
+(to time them against the others).
 
 Every route computes attention over pre-scaled queries with
 
@@ -44,8 +55,8 @@ Every route computes attention over pre-scaled queries with
 - ``v`` of a head dim of its own, ``dv`` (the Perceiver IO families set q/k
   and v channels apart): the split, wgmma and tf32x3 routes instantiate the
   ``(d, dv)`` pairs of :data:`HEAD_DIMS` (``csrc/head_dims.cuh``), the
-  ``wide`` route takes every other pair, the ``simt`` kernels
-  :data:`SIMT_HEAD_DIMS` (``dv == d`` only).
+  ``wide_mma`` and ``wide`` routes take every other pair, the ``simt``
+  kernels :data:`SIMT_HEAD_DIMS` (``dv == d`` only).
 
 The backward kernels recompute ``p = exp(s - lse)`` under the same masks
 (by select), take ``ds = p * (do . v^T - delta)`` with
@@ -74,7 +85,7 @@ three from the head dims and the type alone:
   (64-key tile, column group) computing the scores once for ``dv`` and
   ``dk``; :func:`_wide_mma_plan` sizes both;
 - ``wide`` (``csrc/flash_attention_bwd_wide.cu``), fp32 or bf16, any pair:
-  K1 ``wide``'s CUDA-core tiles, the first design at those pairs;
+  the CUDA-core tiles of K1's ``wide``, the first design at those pairs;
 - ``simt`` (``csrc/flash_attention_bwd.cu``), fp32 or bf16: 64 x 64 tiles
   on the CUDA cores, the first design.
 
@@ -94,7 +105,8 @@ drops to another route.
 Launches are counted on ``flash_attention.launches`` (K1's calls, with
 ``flash_attention.route_launches`` per route, and
 ``flash_attention.kernel_launches`` the device kernels they launch: two per
-split- or wide-route call, partials and merge, one per other call),
+split-, wide_mma- or wide-route call, partials and merge, one per other
+call),
 ``flash_attention_bwd_dq.launches`` (K2) and
 ``flash_attention_bwd_dkv.launches`` (K3), each with ``route_launches`` per
 backward route.
@@ -111,11 +123,11 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: K1's designs (:func:`_fwd_route` picks one of the first four)
-ROUTES = ("split", "wgmma", "tf32x3", "wide", "simt")
+ROUTES = ("split", "wgmma", "tf32x3", "wide_mma", "wide", "simt")
 #: the most query rows the split route takes
 SPLIT_MAX_ROWS = 16
 #: device kernels one call of each route launches
-ROUTE_KERNELS = {"split": 2, "wgmma": 1, "tf32x3": 1, "wide": 2, "simt": 1}
+ROUTE_KERNELS = {"split": 2, "wgmma": 1, "tf32x3": 1, "wide_mma": 2, "wide": 2, "simt": 1}
 #: K2's and K3's designs (:func:`_bwd_route` picks one of the first three)
 BWD_ROUTES = ("wgmma", "tf32x3", "wide_mma", "wide", "simt")
 #: the (q/k head dim, v head dim) pairs the ``split``, ``wgmma`` and
@@ -123,7 +135,7 @@ BWD_ROUTES = ("wgmma", "tf32x3", "wide_mma", "wide", "simt")
 #: their dispatch expands): ``(d, d)`` for the Perceiver AR families, d = 32
 #: with v's own width for the masked LM at language-perceiver width, and
 #: (160, 160) for the text families at the JAX CLI's defaults; every other
-#: pair takes the ``wide`` route
+#: pair takes the ``wide_mma`` routes
 HEAD_DIMS = ((32, 32), (32, 96), (32, 160), (64, 64), (96, 96), (112, 112), (128, 128), (160, 160))
 #: the pairs of the ``simt`` kernels, reached by name only
 SIMT_HEAD_DIMS = ((64, 64), (112, 112), (128, 128))
@@ -148,6 +160,17 @@ WIDE_MMA_KEYS_SMALL = 128
 WIDE_MMA_ROWS = {torch.bfloat16: 64, torch.float32: 32}
 WIDE_MMA_ROWS_SMALL = 16
 WIDE_MMA_FILL = 264
+#: K1's ``wide_mma`` tiles (``csrc/flash_attention_fwd_wide_mma.cu``), beside
+#: the constants above (GROUP, CHUNK, KEYS, KEYS_SMALL and ROWS_SMALL, which
+#: it shares): the query rows of a tile where a warp holds its whole
+#: output row and ``i > 16``, by type (ROWS_BF16: 16 a warp; ROWS_FP32: two
+#: warps on each 16 rows), and the warps of a block, which split a wider
+#: output's columns (so a block holds WARPS x GROUP columns); and the blocks
+#: of a wave (the H100's 132 SMs at one block an SM), of which its key
+#: splits give each batch row whole waves
+WIDE_MMA_FWD_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+WIDE_MMA_WARPS = 8
+WIDE_MMA_FWD_WAVE = 132
 _FWD = {}
 _BWD = {}
 
@@ -286,12 +309,12 @@ def flash_attention_backward_reference(
 
 def _fwd_route(i: int, dtype: torch.dtype, d: int, dv: int) -> str:
     """K1's design for a query of ``i`` rows in ``dtype`` at head dims
-    ``(d, dv)``: ``wide`` for a pair outside :data:`HEAD_DIMS`, else
+    ``(d, dv)``: ``wide_mma`` for a pair outside :data:`HEAD_DIMS`, else
     ``split`` for decode attends (``i <= 16``), ``wgmma`` for bf16 and
     ``tf32x3`` for fp32. The choice depends on nothing else (not the batch),
     so a row's result does not either."""
     if (d, dv) not in HEAD_DIMS:
-        return "wide"
+        return "wide_mma"
     if i <= SPLIT_MAX_ROWS:
         return "split"
     return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
@@ -326,6 +349,17 @@ def _round16(x: int) -> int:
     return -(-x // 16) * 16
 
 
+class WideMmaFwdPlan(NamedTuple):
+    """K1's ``wide_mma`` launch shapes for one call (:func:`_wide_mma_fwd_plan`)."""
+
+    rows: int             #: query rows of a tile
+    keys: int             #: keys of a tile
+    col_blocks: int       #: blocks over the output's columns (1 where a warp holds a whole row)
+    splits: int           #: key splits, merged in split order by the second launch
+    tiles_per_split: int  #: key tiles a split takes (the last may take fewer, none empty)
+    fused: bool           #: whole rows staged and a warp holding its whole output row (else the column split)
+
+
 def _wide_mma_columns(width: int, groups: int) -> Tuple[Tuple[int, int], ...]:
     """The ``[start, stop)`` columns of each group of an output ``width``
     wide cut into ``groups`` (the kernels' ``group_width``): groups of
@@ -356,14 +390,74 @@ def _wide_mma_plan(i: int, j: int, h: int, d: int, dv: int, dtype: torch.dtype) 
                        fused=_round16(d) <= WIDE_MMA_GROUP and _round16(dv) <= WIDE_MMA_GROUP)
 
 
+def _wide_mma_fwd_plan(i: int, j: int, h: int, d: int, dv: int, dtype: torch.dtype) -> WideMmaFwdPlan:
+    """K1's ``wide_mma`` shapes for ``i`` queries over ``j`` keys with ``h``
+    heads at head dims ``(d, dv)`` in ``dtype``. The launch passes the
+    splits, which the kernel checks; the kernel derives the rest (rows,
+    keys, column blocks) from its own constants, which these mirror. Where both widths fit :data:`WIDE_MMA_GROUP`
+    columns ("fused"), a warp holds its whole output row: query tiles of
+    :data:`WIDE_MMA_FWD_ROWS` rows by type, 16 where ``i <= 16`` (mma's m16), and
+    key tiles of :data:`WIDE_MMA_KEYS` (:data:`WIDE_MMA_KEYS_SMALL` in bf16 at
+    16 rows: 16 keys a warp). Else 16-row tiles over 64-key tiles whose
+    :data:`WIDE_MMA_WARPS` warps split the output's columns, in as many
+    column blocks as their accumulators force (``WARPS x GROUP`` columns a
+    block). The key tiles are cut into splits so that the row tiles x
+    column blocks x heads x splits of one batch row fill whole waves of
+    :data:`WIDE_MMA_FWD_WAVE` blocks (one wave, or the fewest whole waves
+    short of two), no split empty (:func:`_wide_mma_fwd_target`). The batch
+    does not enter, so a row's result does not depend on it."""
+    fused = _round16(d) <= WIDE_MMA_GROUP and _round16(dv) <= WIDE_MMA_GROUP
+    rows = WIDE_MMA_FWD_ROWS[dtype] if fused and i > WIDE_MMA_ROWS_SMALL else WIDE_MMA_ROWS_SMALL
+    small_bf16 = fused and rows == WIDE_MMA_ROWS_SMALL and dtype == torch.bfloat16
+    keys = WIDE_MMA_KEYS_SMALL if small_bf16 else WIDE_MMA_KEYS
+    col_blocks = 1 if fused else -(-dv // (WIDE_MMA_WARPS * WIDE_MMA_GROUP))
+    key_tiles = -(-j // keys)
+    n = _wide_mma_fwd_target(-(-i // rows) * col_blocks * h, key_tiles)
+    per = -(-key_tiles // n)
+    return WideMmaFwdPlan(rows=rows, keys=keys, col_blocks=col_blocks, splits=-(-key_tiles // per),
+                          tiles_per_split=per, fused=fused)
+
+
+def _wide_mma_fwd_target(blocks: int, key_tiles: int) -> int:
+    """The key splits K1's ``wide_mma`` plan aims at for a batch row of
+    ``blocks`` blocks before the splits: enough for a wave of
+    :data:`WIDE_MMA_FWD_WAVE` blocks, then more until the row's blocks are a
+    whole number of waves or reach two waves; at most ``key_tiles``."""
+    n = -(-WIDE_MMA_FWD_WAVE // blocks)
+    while blocks * n % WIDE_MMA_FWD_WAVE and blocks * n < 2 * WIDE_MMA_FWD_WAVE:
+        n += 1
+    return max(1, min(key_tiles, n))
+
+
+def flash_attention_wide_mma_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    pad_mask: Optional[torch.Tensor] = None, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``wide_mma`` route's split-and-merge written out in PyTorch (for
+    the tests): :func:`flash_attention_split_reference` over the key ranges
+    of :func:`_wide_mma_fwd_plan`'s splits (``keys x tiles_per_split`` keys
+    each, the last shorter).
+
+    :return: ``(o, lse)`` as :func:`flash_attention_reference`.
+    """
+    plan = _wide_mma_fwd_plan(q.shape[2], k.shape[2], q.shape[1], q.shape[3], v.shape[3], q.dtype)
+    return flash_attention_split_reference(q, k, v, pad_mask=pad_mask, causal=causal,
+                                           split=plan.keys * plan.tiles_per_split)
+
+
 #: per route: (library source, C entry, pointer args, int args)
 _FWD_ENTRIES = {
     "simt": ("flash_attention_fwd", "flash_attention_fwd", 6, 7),
     "wgmma": ("flash_attention_fwd_wgmma", "flash_attention_fwd_wgmma", 6, 7),
     "tf32x3": ("flash_attention_fwd_tf32", "flash_attention_fwd_tf32x3", 6, 7),
     "split": ("flash_attention_fwd_split", "flash_attention_fwd_split", 8, 9),
+    "wide_mma": ("flash_attention_fwd_wide_mma", "flash_attention_fwd_wide_mma", 8, 10),
     "wide": ("flash_attention_fwd_wide", "flash_attention_fwd_wide", 8, 10),
 }
+
+
+#: K1's routes that take q, k and v at any alignment
+_ANY_ALIGNMENT = ("simt", "wide_mma", "wide")
 
 
 def _head_dims_of(route: str):
@@ -525,7 +619,7 @@ def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, to
         raise TypeError(f"the {route} route takes {_ROUTE_DTYPE[route]}, got {q.dtype}")
     if route == "split" and i > SPLIT_MAX_ROWS:
         raise ValueError(f"the split route takes at most {SPLIT_MAX_ROWS} query rows, got {i}")
-    if route not in ("simt", "wide") and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if route not in _ANY_ALIGNMENT and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"the {route} route needs q, k and v on 16-byte aligned bases")
     _check_head_dims(route, d, dv)
     fn, split = _fwd_kernel(route)
@@ -539,6 +633,12 @@ def _fwd_launch(route: str, q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, to
             err = fn(*ptrs, b, h, i, j, d, int(causal), _DTYPES[q.dtype], stream)
         elif route in _ROUTE_DTYPE:
             err = fn(*ptrs, b, h, i, j, d, dv, int(causal), stream)
+        elif route == "wide_mma":
+            p = _wide_mma_fwd_plan(i, j, h, d, dv, q.dtype)
+            part_ml = torch.empty((b, h, p.splits, i, 2), dtype=torch.float32, device=q.device)
+            part_acc = torch.empty((b, h, p.splits, i, dv), dtype=torch.float32, device=q.device)
+            err = fn(*ptrs, part_ml.data_ptr(), part_acc.data_ptr(), b, h, i, j, d, dv, p.splits,
+                     p.tiles_per_split, int(causal), _DTYPES[q.dtype], stream)
         elif route == "wide":
             n_splits, per = _wide_splits(i, j, h, dv)
             part_ml = torch.empty((b, h, n_splits, i, 2), dtype=torch.float32, device=q.device)

@@ -16,6 +16,7 @@
     python3 profile_serve.py --model mlm --engine train        # the masked LM's fit step
     python3 profile_serve.py --model image --engine train      # the image classifier's fit step
     python3 profile_serve.py --model image --engine train --wide-bwd-route wide
+    python3 profile_serve.py --model image --engine train --wide-fwd-route wide
 
 ``--engine bucket`` (default) serves the 8-request workload of
 ``chip_smoke.py``'s serve phase through ``ServingEngine``; ``--engine
@@ -60,9 +61,9 @@ deepmind/vision-perceiver-fourier width (random weights from a seed), 8
 synthetic 224 x 224 x 3 images a step in 2 microbatches, AdamW to 1e-4,
 clipping; its tokens are the 8 images. Its encoder's cross attend (261,
 261) and decoder's query (1024, 1024) are the pairs outside ``HEAD_DIMS``:
-K2 and K3 take ``wide_mma`` there, or with ``--wide-bwd-route wide`` the
-earlier design by name (K1 stays on ``wide``), so two runs in one call
-break down the same step on both. For each: one warm-up pass, one timed pass
+K1, K2 and K3 take ``wide_mma`` there; ``--wide-fwd-route wide`` puts K1
+and ``--wide-bwd-route wide`` K2 and K3 on the earlier design by name, so
+two runs in one call break down the same step on both. For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
 ``torch.profiler``. ``--engine train`` instead runs optimizer steps of
 ``chip_smoke.py``'s ``Trainer.fit`` run (8 rows x 1024 tokens, 2
@@ -74,9 +75,9 @@ compute type: tokens/s, the device's busy share (kernel device time of the
 profiled pass over the timed pass's wall time, one stream), the shares and
 launches of the flash attention kernels (K1; K2 and K3 when training) and
 the ragged paged-attention kernel (K4), K1's device time and launches by
-route (split, wgmma, tf32x3, wide, and simt, which no traffic takes) and
-its device kernel launches (a split- or wide-route call launches two:
-partials and merge), K4's device time, launches and device kernel launches
+route (split, wgmma, tf32x3, wide_mma, wide, and simt, which no traffic
+takes) and its device kernel launches (a split-, wide_mma- or wide-route
+call launches two: partials and merge), K4's device time, launches and device kernel launches
 by route (split, tc, and simt, which no traffic takes; a split-route call
 launches two), K2's and K3's device time and launches by route (wgmma,
 tf32x3, wide_mma, wide, simt) when training, and the top kernels by device
@@ -203,11 +204,13 @@ def _breakdown(torch, prof, table_path: Path):
 def _k1_routes(ms_of) -> dict:
     """K1's device ms by route (kernel names: ``flash_fwd_kernel`` simt,
     ``flash_fwd_wgmma_kernel``, ``flash_fwd_tf32x3_kernel``,
-    ``flash_fwd_split_kernel`` and its merge; no pattern is part of another
-    route's name)."""
+    ``flash_fwd_split_kernel`` and its merge, ``flash_fwd_wide_mma_kernel``,
+    ``flash_fwd_wide_mma_cols_kernel`` and their merge, ``flash_fwd_wide_kernel``
+    and its merge; no pattern is part of another route's name)."""
     return {"simt": ms_of("flash_fwd_kernel"), "wgmma": ms_of("flash_fwd_wgmma_"),
             "tf32x3": ms_of("flash_fwd_tf32x3_"), "split": ms_of("flash_fwd_split_"),
-            "wide": ms_of("flash_fwd_wide_")}
+            "wide_mma": ms_of("flash_fwd_wide_mma_"),
+            "wide": ms_of("flash_fwd_wide_kernel") + ms_of("flash_fwd_wide_merge_")}
 
 
 def _k4_routes(ms_of) -> dict:
@@ -422,6 +425,9 @@ def main() -> int:
                         help="clm-base, the symbolic-audio model at GiantMIDI width, or (--engine train "
                              "only) the masked LM at language-perceiver width or the Fourier image "
                              "classifier at vision-perceiver-fourier width")
+    parser.add_argument("--wide-fwd-route", choices=("wide_mma", "wide"), default="wide_mma",
+                        help="K1's route at the (d, dv) pairs outside HEAD_DIMS: wide_mma (the "
+                             "wrapper's pick) or the earlier wide design, by name")
     parser.add_argument("--wide-bwd-route", choices=("wide_mma", "wide"), default="wide_mma",
                         help="K2/K3's route at the (d, dv) pairs outside HEAD_DIMS: wide_mma (the "
                              "wrappers' pick) or the earlier wide design, by name")
@@ -480,6 +486,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.wide_fwd_route != "wide_mma":
+        pick_fwd = flash._fwd_route
+        flash._fwd_route = lambda i, dtype, d, dv: (  # noqa: E731
+            args.wide_fwd_route if (d, dv) not in flash.HEAD_DIMS else pick_fwd(i, dtype, d, dv))
     if args.wide_bwd_route != "wide_mma":
         pick = flash._bwd_route
         flash._bwd_route = lambda dtype, d, dv: (  # noqa: E731
@@ -514,10 +524,13 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         if args.engine == "train":
-            suffix = "" if args.wide_bwd_route == "wide_mma" else f"_{args.wide_bwd_route}"
+            suffix = "".join(f"_{which}_{route}" for which, route in (("fwd", args.wide_fwd_route),
+                                                                      ("bwd", args.wide_bwd_route))
+                             if route != "wide_mma")
             record = _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dtype, smi,
                                     out_dir, args.model, suffix)
-            print(json.dumps({**record, "wide_bwd_route": args.wide_bwd_route}), flush=True)
+            print(json.dumps({**record, "wide_fwd_route": args.wide_fwd_route,
+                              "wide_bwd_route": args.wide_bwd_route}), flush=True)
             torch.cuda.empty_cache()
             continue
         if args.model == "sam":

@@ -1,12 +1,13 @@
 """K1's routes behind one wrapper, on the CPU.
 
 ``flash_attention_fwd`` picks the forward kernel's design by the query
-length, the head dims and the type alone (``_fwd_route``): ``wide`` for a
-``(d, dv)`` pair outside ``HEAD_DIMS``, else ``split`` for decode attends (at
-most 16 query rows), ``wgmma`` for bf16 tiles, ``tf32x3`` (3xTF32 on
+length, the head dims and the type alone (``_fwd_route``): ``wide_mma`` for
+a ``(d, dv)`` pair outside ``HEAD_DIMS``, else ``split`` for decode attends
+(at most 16 query rows), ``wgmma`` for bf16 tiles, ``tf32x3`` (3xTF32 on
 ``mma.sync``; its arithmetic is emulated in ``test_torch_port_fwd_tf32.py``)
-for fp32 tiles; ``simt`` (the 64 x 64 CUDA-core kernel) is reached only by
-name. Every route computes the function of
+for fp32 tiles; ``wide`` (the first design at the pairs outside
+``HEAD_DIMS``) and ``simt`` (the 64 x 64 CUDA-core kernel) are reached only
+by name. Every route computes the function of
 ``flash_attention_reference``. The split route's arithmetic, partials per
 split of keys and a merge, is written out in ``flash_attention_split_reference``
 and held here against ``flash_attention_reference`` and the JAX package on
@@ -68,14 +69,14 @@ def test_fwd_route_table(i, dtype, route):
     (1, torch.float32, 160, 160, "split"),
     # every pair outside HEAD_DIMS, any length and type: the image classifier's
     # encoder cross attend, its decoder, MNIST's cross attend, and others
-    (512, torch.float32, 261, 261, "wide"), (512, torch.bfloat16, 261, 261, "wide"),
-    (1, torch.float32, 1024, 1024, "wide"), (1, torch.bfloat16, 1024, 1024, "wide"),
-    (32, torch.float32, 131, 131, "wide"), (17, torch.bfloat16, 64, 96, "wide"),
-    (512, torch.float32, 80, 80, "wide"),
+    (512, torch.float32, 261, 261, "wide_mma"), (512, torch.bfloat16, 261, 261, "wide_mma"),
+    (1, torch.float32, 1024, 1024, "wide_mma"), (1, torch.bfloat16, 1024, 1024, "wide_mma"),
+    (32, torch.float32, 131, 131, "wide_mma"), (17, torch.bfloat16, 64, 96, "wide_mma"),
+    (512, torch.float32, 80, 80, "wide_mma"),
 ])
 def test_fwd_route_table_by_head_dims(i, dtype, d, dv, route):
     assert flash._fwd_route(i, dtype, d, dv) == route
-    assert ((d, dv) in flash.HEAD_DIMS) == (route != "wide")
+    assert ((d, dv) in flash.HEAD_DIMS) == (route != "wide_mma")
 
 
 def test_cpu_tensors_launch_no_route(rng):

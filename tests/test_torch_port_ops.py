@@ -176,7 +176,7 @@ DISPATCH_CASES = [
 ] + [
     # the text classifier at the JAX CLI's defaults (160 on the tile routes);
     # the image classifier's encoder cross attend at deepmind/vision-perceiver-fourier
-    # width, its decoder, and MNIST's cross attend (the wide route)
+    # width, its decoder, and MNIST's cross attend (the wide_mma route)
     (d, types, causal, short)
     for d in (160, 261, 1024, 131)
     for types in (("float32",) * 3, ("bfloat16",) * 3)
@@ -189,11 +189,11 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
     # lengths JAX's block picker takes (multiples of 128), so only the other
     # reasons decide: where JAX's kernel refuses, auto takes the plain path
     # and flash raises; where it takes the shape, auto launches K1: on the
-    # tile routes where they instantiate the (d, dv) pair, else on wide
+    # tile routes where they instantiate the (d, dv) pair, else on wide_mma
     i, j = (256, 128) if short else (128, 256)
     d, dv = d if isinstance(d, tuple) else (d, d)
     tile_route = (d, dv) in flash.HEAD_DIMS
-    wide = [flash._fwd_route(n, getattr(torch, types[0]), d, dv) == "wide" for n in (1, i)]
+    wide = [flash._fwd_route(n, getattr(torch, types[0]), d, dv) == "wide_mma" for n in (1, i)]
     assert wide == [not tile_route] * 2
     assert (flash._bwd_route(getattr(torch, types[0]), d, dv) == "wide_mma") == (not tile_route)
     shapes = [(1, 2, i, d), (1, 2, j, d), (1, 2, j, dv)]
@@ -204,7 +204,7 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
     if dv != d:
         # v of its own head dim: K1 wherever JAX's kernel takes the attend
         # (the masked LM's (32, 96) and (32, 160) on the tile routes, the
-        # rest on wide; the (64, 96) rows hold (1, 2, 128, 64) q/k against a
+        # rest on wide_mma; the (64, 96) rows hold (1, 2, 128, 64) q/k against a
         # (1, 2, 256, 96) v, which once passed)
         assert jax_takes == (min(d, dv) >= 32 and not (causal and short))
         assert attention.kernel_takes(*args) is jax_takes
@@ -232,9 +232,10 @@ def test_head_dim_tables_match_the_kernels():
     # HEAD_DIMS and SIMT_HEAD_DIMS are the (d, dv) pairs each K1-K3 route's
     # dispatch instantiates: the split, wgmma and tf32x3 routes expand the
     # pair list of csrc/head_dims.cuh there (it holds (160, 160)), the simt
-    # kernels switch on d alone (v of q's head dim), and the wide kernels
-    # take d and dv at run time (no pair list, no switch). K2/K3 share K1's
-    # tables. K4's routes keep one head dim (*_supports_head_dim).
+    # kernels switch on d alone (v of q's head dim), and the wide and
+    # wide_mma kernels take d and dv at run time (no pair list, no switch).
+    # K2/K3 share K1's tables. K4's routes keep one head dim
+    # (*_supports_head_dim).
     import re
     from pathlib import Path
 
@@ -244,7 +245,8 @@ def test_head_dim_tables_match_the_kernels():
     listed = tuple((int(a), int(b)) for a, b in
                    re.findall(r"X\((\d+), (\d+)\)", (csrc / "head_dims.cuh").read_text()))
     assert listed == flash.HEAD_DIMS and (160, 160) in listed
-    for name in ("flash_attention_fwd_wide", "flash_attention_bwd_wide", "flash_attention_bwd_wide_mma"):
+    for name in ("flash_attention_fwd_wide", "flash_attention_bwd_wide", "flash_attention_fwd_wide_mma",
+                 "flash_attention_bwd_wide_mma"):
         text = (csrc / f"{name}.cu").read_text()
         header = '#include "tf32x3.cuh"' if name.endswith("_mma") else '#include "wide.cuh"'
         assert header in text and '#include "head_dims.cuh"' not in text, name
@@ -258,6 +260,15 @@ def test_head_dim_tables_match_the_kernels():
                       "KEYS_SMALL": flash.WIDE_MMA_KEYS_SMALL, "ROWS_BF16": flash.WIDE_MMA_ROWS[torch.bfloat16],
                       "ROWS_FP32": flash.WIDE_MMA_ROWS[torch.float32], "ROWS_SMALL": flash.WIDE_MMA_ROWS_SMALL}
     assert f"to {flash.WIDE_MMA_FILL} blocks" in text
+    # and K1's: the tiles its plan uses, beside the block's warps (tf32x3.cuh's WARPS)
+    text = (csrc / "flash_attention_fwd_wide_mma.cu").read_text()
+    consts = {name: int(n) for name, n in re.findall(r"^constexpr int (\w+) = (\d+);", text, re.M)}
+    assert consts == {"GROUP": flash.WIDE_MMA_GROUP, "CHUNK": flash.WIDE_MMA_CHUNK, "KEYS": flash.WIDE_MMA_KEYS,
+                      "KEYS_SMALL": flash.WIDE_MMA_KEYS_SMALL, "ROWS_BF16": flash.WIDE_MMA_FWD_ROWS[torch.bfloat16],
+                      "ROWS_FP32": flash.WIDE_MMA_FWD_ROWS[torch.float32], "ROWS_SMALL": flash.WIDE_MMA_ROWS_SMALL}
+    assert f"whole waves of {flash.WIDE_MMA_FWD_WAVE} blocks" in text and '#include "wide_mma.cuh"' in text
+    warps = re.search(r"^constexpr int WARPS = (\d+);", (csrc / "tf32x3.cuh").read_text(), re.M).group(1)
+    assert int(warps) == flash.WIDE_MMA_WARPS
     for name in ("flash_attention_fwd_split", "flash_attention_fwd_wgmma", "flash_attention_fwd_tf32",
                  "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32"):
         text = (csrc / f"{name}.cu").read_text()
@@ -345,7 +356,7 @@ def cuda_device():
 # JAX CLI's defaults (160, the tile routes' pair) and the image classifier's
 # MNIST cross attend (131), its encoder cross attend at
 # deepmind/vision-perceiver-fourier width (261) and its decoder (1024), all
-# on the wide route but 160
+# on the wide_mma route but 160
 @pytest.mark.parametrize("d", [160, 131, 261, 1024])
 def test_flash_plain_versions_match_pallas_at_the_classifiers_head_dims(rng, d):
     i, j = 128, 256
@@ -369,11 +380,11 @@ def test_flash_plain_versions_match_pallas_at_the_classifiers_head_dims(rng, d):
     for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want_grads, "qkv"):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
     assert (o[1] == 0).all() and (tq.grad[1] == 0).all() and (tk.grad[0, :, 200:] == 0).all()
-    assert flash._fwd_route(i, torch.float32, d, d) == ("tf32x3" if d == 160 else "wide")
+    assert flash._fwd_route(i, torch.float32, d, d) == ("tf32x3" if d == 160 else "wide_mma")
 
 
 def test_flash_plain_versions_match_pallas_causal_at_an_odd_head_dim(rng):
-    """The wide route's causal case at an odd head dim (131, MNIST's): the
+    """The wide_mma route's causal case at an odd head dim (131, MNIST's): the
     plain forward and backward against the Pallas kernels, right-aligned
     over j > i, with left pads that leave the first query rows of batch row
     0 dead and batch row 1 all pad."""
@@ -399,4 +410,4 @@ def test_flash_plain_versions_match_pallas_causal_at_an_odd_head_dim(rng):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
     assert (o[1] == 0).all() and (o[0, :, :22] == 0).all() and (o[0, :, 22:] != 0).any(-1).all()
     assert (tq.grad[0, :, :22] == 0).all() and (tk.grad[0, :, :150] == 0).all()
-    assert flash._fwd_route(i, torch.float32, d, d) == "wide"
+    assert flash._fwd_route(i, torch.float32, d, d) == "wide_mma"

@@ -1,4 +1,4 @@
-"""The ``wide_mma`` route of K2 and K3 on the CPU: its plan.
+"""The ``wide_mma`` routes of K1, K2 and K3 on the CPU: their plans.
 
 ``_wide_mma_plan`` sizes both launches of the route that takes every
 ``(d, dv)`` pair outside ``HEAD_DIMS`` (``csrc/flash_attention_bwd_wide_mma.cu``):
@@ -15,8 +15,22 @@ split's keys, is held against ``jax.grad`` of the JAX ``flash_attention``
 (the Pallas kernels in interpret mode) at a small odd head dim, in fp32 at
 1e-5 of dq's largest entry.
 
-The kernels run only on the card: ``python3 chip_smoke.py`` (phase ``k23``
-and the classifiers' fits) holds them against their plain versions.
+K1's ``_wide_mma_fwd_plan`` (``csrc/flash_attention_fwd_wide_mma.cu``)
+sizes its launch: the query rows and keys of a tile, the column blocks
+(one where a warp holds its whole output row, else as many as 8 warps of
+``WIDE_MMA_GROUP`` columns force) and the key splits whose fp32 partials a
+merge launch joins. The tests check that every key tile falls in exactly one
+non-empty split, every output column in exactly one warp's columns, and the
+grid gives a batch row whole waves of ``WIDE_MMA_FWD_WAVE`` blocks where the
+key tiles allow. The plain split-and-merge over the plan's key ranges
+(``flash_attention_wide_mma_reference``) is held against the JAX forward:
+the Pallas ``_forward`` in interpret mode at an odd head dim, causal with
+pads and dead rows, o and lse at 1e-5 in fp32; and, at ``i <= 16`` (where
+the Pallas block gate refuses the shape), JAX's einsum path.
+
+The kernels run only on the card: ``python3 chip_smoke.py`` (phases
+``kernel`` and ``k23`` and the classifiers' fits) holds them against their
+plain versions.
 """
 import jax
 import jax.numpy as jnp
@@ -25,6 +39,7 @@ import pytest
 import torch
 
 from perceiver_io_tpu.ops import flash_attention as jax_flash
+from perceiver_io_tpu.ops.attention import _attention_xla
 from perceiver_io_tpu_torch.ops import flash_attention as flash
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -128,3 +143,129 @@ def test_split_sum_of_dq_matches_pallas(rng, causal):
     got = _split_sum_dq(tq, tk, tv, lse, delta, tdo, tpad, causal, plan).numpy()
     err = np.abs(got - want).max()
     assert err <= 1e-5 * np.abs(want).max(), f"{err} of {np.abs(want).max()}"
+
+
+# K1's plan: the wide pairs above, the 16-row switch around i = 16, outputs
+# wider than one warp's columns (the decoder's 1024, one wider than a
+# block's 8 warps) and q/k wider than one group
+FWD_PLAN_SHAPES = PLAN_SHAPES[:6] + [(i, 300, 2, 261, 261) for i in (1, 15, 16, 17, 64, 65)] + [
+    (1, 512, 4, 1024, 1024), (16, 4096, 1, 64, 2200), (17, 100, 2, 300, 300), (3, 50176, 1, 5000, 20)]
+
+
+def _fwd_warp_columns(dv, plan):
+    """The ``[start, stop)`` output columns each warp of each column block
+    accumulates: the whole row for one warp where ``plan.fused``, else
+    each block's nominal width cut into ``WIDE_MMA_WARPS`` runs."""
+    if plan.fused:
+        return ((0, dv),)
+    warp = flash._wide_mma_columns(flash._round16(-(-dv // plan.col_blocks)), flash.WIDE_MMA_WARPS)
+    return tuple((min(b0 + w0, b1), min(b0 + w1, b1))
+                 for b0, b1 in flash._wide_mma_columns(dv, plan.col_blocks) for w0, w1 in warp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("i,j,h,d,dv", FWD_PLAN_SHAPES)
+def test_fwd_plan_covers_every_key_tile_and_column_once(i, j, h, d, dv, dtype):
+    plan = flash._wide_mma_fwd_plan(i, j, h, d, dv, dtype)
+    fused = d <= flash.WIDE_MMA_GROUP and dv <= flash.WIDE_MMA_GROUP
+    assert plan.fused == fused
+    # 16-row tiles where i <= 16 and wherever the warps split the columns
+    assert plan.rows == (flash.WIDE_MMA_FWD_ROWS[dtype] if fused and i > 16 else flash.WIDE_MMA_ROWS_SMALL)
+    small_bf16 = fused and plan.rows == flash.WIDE_MMA_ROWS_SMALL and dtype == torch.bfloat16
+    assert plan.keys == (flash.WIDE_MMA_KEYS_SMALL if small_bf16 else flash.WIDE_MMA_KEYS)
+    # every key tile in exactly one split, none empty
+    tiles = -(-j // plan.keys)
+    ranges = [(s * plan.tiles_per_split, min((s + 1) * plan.tiles_per_split, tiles)) for s in range(plan.splits)]
+    assert all(b > a for a, b in ranges) and _covered_once(ranges, tiles)
+    # the grid fills a batch row's blocks to the target where the key tiles
+    # allow: n splits, or where n equal splits cannot cover the tiles, the
+    # most splits of one length within n (one tile fewer a split would make
+    # more than n); the target: a wave of WAVE blocks, then whole waves
+    # short of two
+    blocks = -(-i // plan.rows) * plan.col_blocks * h
+    n = flash._wide_mma_fwd_target(blocks, tiles)
+    wave = flash.WIDE_MMA_FWD_WAVE
+    assert n == tiles or blocks * n >= wave
+    assert n == tiles or blocks * n % wave == 0 or blocks * (n - 1) < wave or blocks * n >= 2 * wave
+    per = plan.tiles_per_split
+    assert plan.splits <= n and (per == 1 or -(-tiles // (per - 1)) > n)
+    # every output column in exactly one block's columns, and in one warp's
+    # columns of at most GROUP (the kernel's group_width split of a block's
+    # nominal width over its warps); as few column blocks as 8 warps of
+    # GROUP columns allow
+    assert plan.col_blocks == (1 if fused else -(-dv // (flash.WIDE_MMA_WARPS * flash.WIDE_MMA_GROUP)))
+    blocks = flash._wide_mma_columns(dv, plan.col_blocks)
+    assert _covered_once(blocks, dv)
+    cols = _fwd_warp_columns(dv, plan)
+    assert _covered_once(cols, dv) and all(b - a <= flash.WIDE_MMA_GROUP for a, b in cols)
+
+
+def test_fwd_plan_at_the_image_classifier():
+    # the encoder's cross attend: 128-row tiles in bf16 (64 in fp32), a warp
+    # holding the whole 261-column row; the decoder's one query: one 16-row
+    # tile whose 8 warps hold 128 of the 1024 columns each (the scores once
+    # for all of them), its 8 key tiles one a split
+    enc = flash._wide_mma_fwd_plan(512, 50176, 1, 261, 261, torch.bfloat16)
+    assert (enc.rows, enc.keys, enc.col_blocks, enc.fused) == (128, 64, 1, True)
+    assert enc.splits * 512 // 128 == flash.WIDE_MMA_FWD_WAVE  # a wave of blocks a batch row
+    enc32 = flash._wide_mma_fwd_plan(512, 50176, 1, 261, 261, torch.float32)
+    assert enc32.rows == 64 and enc32.splits * 512 // 64 == 2 * flash.WIDE_MMA_FWD_WAVE  # 8 row tiles: two waves
+    dec = flash._wide_mma_fwd_plan(1, 512, 1, 1024, 1024, torch.bfloat16)
+    assert (dec.rows, dec.keys, dec.col_blocks, dec.splits, dec.fused) == (16, 64, 1, 8, False)
+    assert _fwd_warp_columns(1024, dec) == tuple((128 * w, 128 * (w + 1)) for w in range(8))
+    # the batch is no argument: a row's result does not depend on it
+    assert "b" not in flash._wide_mma_fwd_plan.__code__.co_varnames[:6]
+
+
+def _wide_mma_inputs(rng, b, h, i, j, d):
+    q = rng.standard_normal((b, h, i, d)).astype(np.float32) * d**-0.5
+    k = rng.standard_normal((b, h, j, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, j, d)).astype(np.float32)
+    return q, k, v
+
+
+def test_fwd_split_and_merge_matches_pallas_at_an_odd_head_dim(rng):
+    # causal over j > i at MNIST's head dim, left pads that leave batch row
+    # 0's first rows dead, a padded stretch over several key tiles in row 1
+    b, h, i, j, d = 2, 2, 128, 640, 131
+    q, k, v = _wide_mma_inputs(rng, b, h, i, j, d)
+    pad = np.zeros((b, j), bool)
+    pad[0, :560] = True  # query row r sees keys 560..r + 512: rows 0..47 dead
+    pad[1, 100:300] = True
+    plan = flash._wide_mma_fwd_plan(i, j, h, d, d, torch.float32)
+    assert plan.fused and plan.splits > 1
+    forward = jax.jit(jax_flash._forward, static_argnums=(4,))
+    o_jax, lse_jax = forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pad.astype(np.float32)), True)
+    o_jax, lse_jax = np.asarray(o_jax), np.asarray(lse_jax)[..., 0]
+    tq, tk, tv, tpad = (torch.from_numpy(a) for a in (q, k, v, pad))
+    o, lse = flash.flash_attention_wide_mma_reference(tq, tk, tv, pad_mask=tpad, causal=True)
+    live = flash._allowed(tq, j, tpad, True).any(-1).expand(b, h, i).numpy()
+    assert (~live).sum() > 0 and live[1].all()
+    np.testing.assert_allclose(o.numpy()[live], o_jax[live], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy()[live], lse_jax[live], atol=1e-5, rtol=0)
+    assert (o.numpy()[~live] == 0).all() and (lse.numpy()[~live] == flash.MASK_VALUE).all()
+    assert (o_jax[~live] == 0).all()
+
+
+@pytest.mark.parametrize("i,d,dv", [(1, 261, 261), (16, 131, 131), (5, 300, 40)])
+def test_fwd_split_and_merge_matches_jax_at_16_rows(rng, i, d, dv):
+    # i <= 16 (and a pair whose warps split the columns): the Pallas block
+    # gate refuses these lengths, so JAX's einsum path is the reference on
+    # live rows; lse against the plain version
+    b, h, j = 3, 2, 1300
+    q = rng.standard_normal((b, h, i, d)).astype(np.float32) * d**-0.5
+    k = rng.standard_normal((b, h, j, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, j, dv)).astype(np.float32)
+    pad = np.arange(j)[None, :] >= np.asarray([j, 700, 0])[:, None]  # row 2 all pad: dead rows
+    plan = flash._wide_mma_fwd_plan(i, j, h, d, dv, torch.float32)
+    assert plan.rows == flash.WIDE_MMA_ROWS_SMALL and plan.splits > 1
+    expected = np.asarray(_attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pad),
+                                         True, 0.0, None))
+    tq, tk, tv, tpad = (torch.from_numpy(a) for a in (q, k, v, pad))
+    o, lse = flash.flash_attention_wide_mma_reference(tq, tk, tv, pad_mask=tpad, causal=True)
+    _, lse_ref = flash.flash_attention_reference(tq, tk, tv, pad_mask=tpad, causal=True)
+    live = flash._allowed(tq, j, tpad, True).any(-1).expand(b, h, i).numpy()
+    assert (~live).sum() > 0
+    np.testing.assert_allclose(o.numpy()[live], expected[live], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy()[live], lse_ref.numpy()[live], atol=1e-5, rtol=0)
+    assert (o.numpy()[~live] == 0).all() and (lse.numpy()[~live] == flash.MASK_VALUE).all()

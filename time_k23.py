@@ -12,14 +12,17 @@ through the route the wrappers pick:
 The cases are ``K23_CASES`` and ``K23_NONCAUSAL_CASES`` (b = 4, h = 8), or
 with ``--classifiers`` ``K23_CLASSIFIER_CASES``, each with its own b and h:
 (160, 160) on the tile routes and the pairs outside ``HEAD_DIMS`` on
-``wide`` (K1) and ``wide_mma`` (K2/K3).
+``wide_mma``. At those pairs ``--k1`` also times K1's earlier design,
+``wide``, reached by name (``k1_wide_ms``), on the same inputs.
 
 Prints the card (``nvidia-smi`` name and power limit) as a JSON line, then
 one JSON line per case and type: the median over ``--reps`` readings of
 ``chip_smoke.device_ms`` (``--iters`` launches behind a sleep kernel, over
 input copies that fill the L2 twice; a tenth of them at 50176 keys or more)
 of each kernel, with K1's largest error against its plain version; then
-the ``ptxas`` registers and spill-store bytes of each kernel it built.
+the ``ptxas`` registers and spill-store bytes of each kernel it built
+(with ``--k1`` the ``wide_mma`` forward's by instantiation: type and query
+rows a tile).
 K2/K3's outputs are not checked here: ``chip_smoke.py`` holds them against
 the plain versions.
 
@@ -77,6 +80,8 @@ def run_checkout(args) -> int:
                            k1_max_abs_err=(o.float() - o_ref.float()).abs().max().item())
                 del o_ref
                 kernels = {"k1": lambda q, k, v, *_: flash.flash_attention_fwd(q, k, v, **kw), **kernels}
+                if (d, dv) not in flash.HEAD_DIMS:
+                    kernels["k1_wide"] = lambda q, k, v, *_: flash._fwd_launch("wide", q, k, v, pad, causal)
             for kname, fn in kernels.items():
                 timed, _ = cs.l2_cold(fn, q, k, v, lse, delta, do)
                 readings = [cs.device_ms(timed, iters) for _ in range(args.reps)]
@@ -85,9 +90,15 @@ def run_checkout(args) -> int:
             print(json.dumps(row), flush=True)
             del q, k, v, do, o, lse, delta
             torch.cuda.empty_cache()
+    ptxas = {lib: cs.ptxas_by_kernel(log) for lib, log in _build.BUILD_LOG.items()}
     print(json.dumps({"ptxas": {
-        lib: {kernel: [rec["registers"], rec["max_spill_store_bytes"]] for kernel, rec in cs.ptxas_by_kernel(log).items()}
-        for lib, log in _build.BUILD_LOG.items()}}), flush=True)
+        lib: {kernel: [rec["registers"], rec["max_spill_store_bytes"]] for kernel, rec in kernels.items()}
+        for lib, kernels in ptxas.items()}}), flush=True)
+    fwd = ptxas.get("flash_attention_fwd_wide_mma", {})
+    if fwd:
+        print(json.dumps({"ptxas_wide_mma_fwd": {
+            kernel: {str(inst): [r["registers"], r["max_spill_store_bytes"]] for inst, r in rec["by_head_dim"].items()}
+            for kernel, rec in fwd.items()}}), flush=True)
     return 0
 
 
