@@ -40,7 +40,12 @@ non-zero and never prints the final line):
    dead rows and a dead batch row) and at its design's edges (i = 16 and 17
    at (261, 261) around its 16-row tiles; (64, 1024) and (300, 40), where
    its warps split the output's columns; (261, 261) with q, k and v one
-   element off a 16-byte boundary); fp32 and bf16, through the route the
+   element off a 16-byte boundary), and at optical flow's attends at
+   b = 1 (``K1_FLOW_CASES``: the encoder's cross attend of 2048 latents
+   over 182528 pixels at (322, 322) and the decoder's 182528 per-pixel
+   queries over 2048 latents at (512, 512), both on ``wide_mma``'s column
+   split, and a 16-head 2048 x 2048 self-attend at (32, 32); bf16 gated at
+   the smaller of 2e-2 and 8 ulps, no ``prev_ms``); fp32 and bf16, through the route the
    wrapper picks (``wide_mma`` for a pair outside ``HEAD_DIMS``, ``split``
    for decode, ``wgmma`` for bf16 tiles, ``tf32x3`` for fp32 tiles; a wrong
    route fails), held at fp32 1e-4, bf16 2e-2 (at the pairs outside
@@ -308,7 +313,7 @@ non-zero and never prints the final line):
        with dropout takes the plain path, JAX's dispatch), 17 K1 launches in
        the validation pass; one step's gradients with and without
        checkpointing under one generator within the fp32 gate;
-   (c) resume: an uninterrupted 8-step fit with snapshots every 2 steps; a
+   (c) resume: an uninterrupted 8-step fit with snapshots every 4 steps; a
        fit into a fresh root whose loss function raises SIGTERM at the
        process during step 5 (it finishes the step, snapshots, returns); a
        third trainer with ``resume=`` finishes. The stitched losses equal
@@ -447,7 +452,24 @@ non-zero and never prints the final line):
    131), finite losses
    (8 steps hardly move this model's); ``validate`` / ``test --ckpt``,
    ``validate`` reproducing the fit's validation loss;
-19. the ``{"kernels": [...]}`` summary line (K1 with the four routes the
+19. flow: optical flow at deepmind/optical-flow-perceiver width (its
+   transformers config as ``FLOW_HF``, through the port's
+   ``optical_flow_config_from_hf``: 368 x 496 patches, 64 hidden channels
+   and 64 Fourier bands, d_model 322, 2048 x 512 latents, 24 self-attends
+   of 16 heads of 32, one cross head at (322, 322), the decoder's one head
+   at (512, 512) without a residual; random weights, 41,057,134 parameters,
+   the JAX package's). (a) One forward of 2 seeded synthetic frame pairs
+   (``(2, 2, 27, 368, 496)``), fp32 and bf16, against ``xla`` (fp32 1e-3 of
+   the largest |flow|, bf16 8 ulps of it); (b) 26 K1 launches a forward:
+   both cross attends on ``wide_mma``, the 24 self-attends on the type's
+   tile route; (c) forward ms p50, images/s and peak
+   ``max_memory_allocated``; (d) ``pipeline("optical-flow")`` over 2 seeded
+   uint8 frame pairs of Sintel's 436 x 1024 (6 patches a pair, micro-batches
+   of 2), fp32: the flow equals the same model's run patch by patch (b =
+   1) through ``OpticalFlowProcessor`` within 1e-5, K1 26 launches a
+   micro-batch, pairs/s and the per-pair latency p50; (e) the pipeline once
+   with ``render=True``: uint8 RGB frames of the pairs' shape;
+20. the ``{"kernels": [...]}`` summary line (K1 with the four routes the
    main path runs nested, the simt kernel's times as their ``prev_ms``, an
    entry for each of K2's and K3's routes that the main path runs, K4 with
    its split and tc routes nested and the simt kernel's times as their
@@ -463,7 +485,8 @@ non-zero and never prints the final line):
    ``symbolic_launches`` (its calls in each run of phase 15); every
    entry's ``cli_launches`` and ``cli_route_launches`` its calls in each
    run of phase 16, ``mlm_launches`` in each run of phase 17 and
-   ``classifiers_launches`` in each run of phase 18; each route's
+   ``classifiers_launches`` in each run of phase 18 and ``flow_launches``
+   in each run of phase 19; each route's
    ``head_dims``, the (d, dv) pairs its cases ran; the entries at the wide
    pairs (K1, K2 and K3 ``wide_mma`` with the first ``wide`` design's
    times as their ``prev_ms``, and K1-K3 ``wide`` itself, reached by name
@@ -472,6 +495,10 @@ non-zero and never prints the final line):
    the card's
    ``nvidia-smi`` line, and the final
    ``{"ok": true, ...}`` line.
+
+Every JSON line carries ``at_s``, the wall seconds since the script
+started; each phase ends with a ``phase_seconds`` line of its wall
+seconds, and one before the summary lists them all with the total.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` set False).
@@ -580,8 +607,25 @@ NEAR_TIE = 1e-4
 TRAIN_STEPS = 8
 
 
+T_START = time.perf_counter()
+#: wall seconds of each phase of ``main`` (``timed``), in the order run
+PHASE_SECONDS = {}
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of ``phase``, with ``at_s``, the wall seconds since the
+    script started."""
+    print(json.dumps({"phase": phase, **fields, "at_s": round(time.perf_counter() - T_START, 3)}), flush=True)
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept in ``PHASE_SECONDS``
+    and printed as a ``phase_seconds`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    emit("phase_seconds", name=name, seconds=PHASE_SECONDS[name])
+    return out
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -729,8 +773,21 @@ K1_CLASSIFIER_CASES = (
 )
 #: the K1 cases whose q, k and v lie one element off a 16-byte boundary
 K1_MISALIGNED = ("wide_misaligned",)
+# K1 at optical flow's attends (deepmind/optical-flow-perceiver width, b =
+# 1, non-causal, no pad mask): the encoder's cross attend of 2048 latents
+# over the 368 * 496 = 182528 pixels of a patch at (322, 322) and the
+# decoder's 182528 per-pixel queries over the 2048 latents at (512, 512),
+# both past wide_mma's 272 columns (its column split: 16-row tiles, the
+# warps over the output's columns); and a self-attend, 16 heads of 32 over
+# the 2048 latents. No earlier design runs beside them (prev_ms null): the
+# first wide design's yardstick stays at the image's shapes
+K1_FLOW_CASES = (
+    ("flow_enc_cross", 2048, 182528, None, None, 322, 322, False, 1, 1),
+    ("flow_dec_cross", 182528, 2048, None, None, 512, 512, False, 1, 1),
+    ("flow_self", 2048, 2048, None, None, 32, 32, False, 16, 1),
+)
 #: the wide routes' timed iterations at the image encoder's 512 x 50176
-#: cross attend: (kernel, plain version)
+#: cross attend and at optical flow's attends: (kernel, plain version)
 WIDE_ITERS = (10, 2)
 
 
@@ -827,7 +884,7 @@ def kernel_cases(torch, flash):
         (*c, d, d, True, 8, None) for d in K1_OTHER_HEAD_DIMS + K13_ONLY_HEAD_DIMS for c in K1_CASES
         if c[0] in K1_OTHER_CASES] + [
         (*c, SAM_HEAD_DIM, SAM_HEAD_DIM, True, 8, None) for c in K1_SAM_CASES] + [
-        (*c, False, 8, None) for c in K1_NONCAUSAL_CASES] + list(K1_CLASSIFIER_CASES)
+        (*c, False, 8, None) for c in K1_NONCAUSAL_CASES] + list(K1_CLASSIFIER_CASES) + list(K1_FLOW_CASES)
     cases = []
     for name, i, j, pads, visible, d, dv, causal, h, b in shapes:
         b = len(pads) if pads is not None else len(visible) if visible is not None else b or 4
@@ -838,7 +895,8 @@ def kernel_cases(torch, flash):
         main_dim = d == K1_HEAD_DIM and causal
         sam = name.endswith("_sam")
         # the simt kernel keeps (64, 112, 128) x itself; wide takes every pair outside HEAD_DIMS
-        prev_route = (K1_WIDE_PREV if (d, dv) not in flash.HEAD_DIMS
+        flow_case = name.startswith("flow_")
+        prev_route = (None if flow_case else K1_WIDE_PREV if (d, dv) not in flash.HEAD_DIMS
                       else "simt" if (d, dv) in flash.SIMT_HEAD_DIMS else None)
         with_prev = prev_route is not None
         clone = off_base if name in K1_MISALIGNED else None
@@ -864,10 +922,11 @@ def kernel_cases(torch, flash):
                                                                     lse_ref, live)
                 del o_prev, lse_prev
             tol = KERNEL_TOL[tname]
-            if tname == "bfloat16" and (d, dv) not in flash.HEAD_DIMS:
+            if tname == "bfloat16" and ((d, dv) not in flash.HEAD_DIMS or flow_case):
                 # the wide pairs' outputs are small (|o| ~0.03 over 50176
                 # keys): the gate scales with the reference, as a flat 2e-2
-                # would pass a dropped P.V term of that size
+                # would pass a dropped P.V term of that size (the flow cases
+                # all take this gate)
                 tol = min(tol, 8 * bf16_ulp(ref_max))
             expected = k1_expected_route(i, tname, d, dv, flash.HEAD_DIMS)
             if not (err <= tol and lse_err <= 1e-3 and dead_zero and route == expected):
@@ -885,7 +944,7 @@ def kernel_cases(torch, flash):
             plain_iters = 10 if main_dim else 3
             if sam:
                 iters, plain_iters = SAM_ITERS
-            if j >= 50176:
+            if max(i, j) >= 50176:
                 iters, plain_iters = WIDE_ITERS
             attn_mask = allowed[:, None]
             kernel, copies = l2_cold(
@@ -1115,7 +1174,7 @@ def k23_cases(torch, flash):
             if name.endswith("_sam"):
                 iters, plain_iters = SAM_ITERS
                 library_iters = iters
-            if j >= 50176:
+            if max(i, j) >= 50176:
                 iters, plain_iters = WIDE_ITERS
                 library_iters = iters
             times = {}
@@ -3096,6 +3155,10 @@ def train_phase(torch, clm, flash, ragged, training, parallel, root: Path):
 
 
 RESILIENCE_STEPS = 8
+# the resume drill's periodic snapshots: at steps 4 and 8, beside the
+# SIGTERM snapshot at 5 (each of clm-base with AdamW is 2.32 GB, ~3 s to
+# write; every 2 steps wrote 9 where 5 hold the same path)
+RESUME_SNAPSHOT_EVERY = 4
 #: LAMB's peak rate in phase 14 (f); 1e-2 overshot (loss 11.14 -> 13.21 at step 6)
 LAMB_LR = 5e-3
 #: the gradient gates of phase 13 (a): fp32 within 1e-3 of each parameter's
@@ -3345,11 +3408,12 @@ def resilience_dropout(torch, clm, flash, parallel, training, cfg, root: Path, d
 
 
 def resilience_resume(torch, clm, flash, training, cfg, root: Path, dev) -> dict:
-    """(c) An uninterrupted 8-step fit with a snapshot every 2 steps; a
-    second fit into a fresh root whose loss function raises SIGTERM at the
-    process during step 5 (in the main thread), so the trainer finishes
-    that step, snapshots and returns; a third trainer resumes it to step 8.
-    The stitched losses equal the uninterrupted run's bit for bit."""
+    """(c) An uninterrupted 8-step fit with a snapshot every
+    ``RESUME_SNAPSHOT_EVERY`` steps; a second fit into a fresh root whose
+    loss function raises SIGTERM at the process during step 5 (in the main
+    thread), so the trainer finishes that step, snapshots and returns; a
+    third trainer resumes it to step 8. The stitched losses equal the
+    uninterrupted run's bit for bit."""
     import signal
 
     train = token_batches(cfg.vocab_size, cfg.max_seq_len, 8, 2, seed=31)
@@ -3359,7 +3423,8 @@ def resilience_resume(torch, clm, flash, training, cfg, root: Path, dev) -> dict
     def fit(name, sub: Path, **kw):
         model = clm.CausalLanguageModel(cfg, seed=0, device=dev)
         loss_fn = kw.pop("wrap", lambda f: f)(training.clm_loss_fn(model, cfg.max_latents))
-        trainer = _trainer(training, model, cfg, sub, dev, save_state_every_n_steps=2, loss_fn=loss_fn, **kw)
+        trainer = _trainer(training, model, cfg, sub, dev, save_state_every_n_steps=RESUME_SNAPSHOT_EVERY,
+                           loss_fn=loss_fn, **kw)
         _dev_sync(torch, dev)
         t0 = time.perf_counter()
         state = trainer.fit(model, train)
@@ -4388,10 +4453,12 @@ def text_classifier_config(config_mod, common_mod, defaults: bool = False):
         num_latents=CLF_WIDTH["num_latents"], num_latent_channels=CLF_WIDTH["num_latent_channels"])
 
 
-def _forward_check(torch, flash, model, args, kwargs, want_routes: dict, tol_fp32: float) -> dict:
+def _forward_check(torch, flash, model, args, kwargs, want_routes: dict, tol_fp32: float,
+                   phase: str = "classifiers", relative: bool = False) -> dict:
     """One forward of ``model`` with the kernels against ``attention_impl=
     "xla"`` on the same inputs: the error, K1's launches by route (gated
-    equal to ``want_routes``) and finiteness."""
+    equal to ``want_routes``) and finiteness. ``relative`` scales the fp32
+    gate by the largest ``|output|``."""
     set_attention_impl(model, "auto")
     reset_counts(flash)
     with torch.no_grad():
@@ -4403,14 +4470,14 @@ def _forward_check(torch, flash, model, args, kwargs, want_routes: dict, tol_fp3
     set_attention_impl(model, "auto")
     err = (out.float() - plain.float()).abs().max().item()
     biggest = plain.float().abs().max().item()
-    tol = tol_fp32 if model.dtype == torch.float32 else 8 * bf16_ulp(biggest)
+    tol = tol_fp32 * (biggest if relative else 1.0) if model.dtype == torch.float32 else 8 * bf16_ulp(biggest)
     finite = bool(torch.isfinite(out).all().item())
     line = dict(dtype=str(model.dtype).split(".")[-1], out_shape=list(out.shape), max_abs_err_vs_plain=err,
                 tol=tol, out_max_abs=biggest, finite=finite, k1_launches=sum(routes.values()),
                 k1_route_launches=routes)
     if not (err <= tol and finite) or routes != want_routes:
-        emit("classifiers", **line)
-        raise AssertionError(f"classifier forward: max|d| {err} (tol {tol}), finite {finite}, "
+        emit(phase, **line)
+        raise AssertionError(f"{phase} forward: max|d| {err} (tol {tol}), finite {finite}, "
                              f"K1 routes {routes} (want {want_routes})")
     return line
 
@@ -4829,6 +4896,165 @@ def classifiers_phase(torch, flash, ragged, pipelines_mod, training, parallel, r
             "image_fit": fit, "mnist_cli": mnist, "params": params, "seconds": total, "seconds_by_part": seconds}
 
 
+# deepmind/optical-flow-perceiver as its transformers config holds it (the
+# port's hf_import.optical_flow_config_from_hf reads it): 368 x 496 patches
+# of 27 pixel-patch channels a frame, 64 hidden channels + 64 Fourier bands
+# (d_model 322), 2048 x 512 latents, 24 self-attends of 16 heads (32 each),
+# one cross head at (322, 322), the decoder's one head at (512, 512)
+# without an attention residual, widening 1 / 1
+FLOW_HF = dict(train_size=[368, 496], d_model=322, d_latents=512, num_latents=2048, num_blocks=1,
+               num_self_attends_per_block=24, num_self_attention_heads=16, num_cross_attention_heads=1,
+               qk_channels=None, v_channels=None, cross_attention_widening_factor=1,
+               self_attention_widening_factor=1, attention_probs_dropout_prob=0.0, initializer_range=0.02,
+               hidden_act="gelu")
+FLOW_PARAMS = 41_057_134  # both packages at this width (tests/test_torch_port_flow.py)
+FLOW_ATTENDS = 26  # a forward: the encoder's cross attend, 24 self-attends, the decoder's cross attend
+FLOW_WIDE = 2  # the two cross attends: (322, 322) and (512, 512), outside HEAD_DIMS
+FLOW_BATCH = 2
+FLOW_TIMED = 5  # timed forwards per type
+FLOW_PAIR_HW = (436, 1024)  # Sintel's frames: 6 patches of 368 x 496 a pair
+FLOW_OVERLAP = 20  # the patches' least overlap (the processor's default)
+FLOW_PAIRS = 2
+FLOW_PIPE_BATCH = 2
+
+
+def flow_config():
+    import types
+
+    from perceiver_io_tpu_torch.convert import hf_import
+
+    return hf_import.optical_flow_config_from_hf(types.SimpleNamespace(**FLOW_HF))
+
+
+def flow_forward(torch, flash, flow_mod, cfg) -> dict:
+    """(a)-(c): one forward of ``FLOW_BATCH`` synthetic frame pairs
+    (seeded numpy features, ``(2, 2, 27, 368, 496)``) in fp32 and bf16
+    against ``xla`` (fp32 at 1e-3 as the classifiers but of the largest
+    |flow|, which random weights keep near 1e-3; bf16 at 8 ulps of it), K1
+    26 launches a forward (the two cross attends on
+    ``wide_mma``, the 24 self-attends on the tile route of the type); then
+    ``FLOW_TIMED`` timed forwards: ms, images/s and the peak allocation."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((FLOW_BATCH, 2, 27, *cfg.encoder.image_shape)).astype(np.float32))
+    x = x.to("cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        model = flow_mod.OpticalFlow(cfg, dtype=dtype, seed=0).eval()
+        line = _forward_check(torch, flash, model, (x,), {},
+                              {K1_WIDE_ROUTE: FLOW_WIDE, _tile(tname): FLOW_ATTENDS - FLOW_WIDE}, 1e-3, phase="flow",
+                              relative=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        with torch.no_grad():
+            for _ in range(FLOW_TIMED):
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        p50 = float(np.median(ms))
+        line.update(b=FLOW_BATCH, params=sum(p.numel() for p in model.parameters()), forward_ms=ms,
+                    forward_ms_p50=p50, images_per_s=FLOW_BATCH / (p50 / 1e3),
+                    peak_memory_bytes=torch.cuda.max_memory_allocated())
+        emit("flow", part="forward", **line)
+        out[tname] = line
+        if dtype == torch.float32:
+            out["model"] = model
+        else:
+            del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def flow_pipeline(torch, flash, pipelines_mod, data_vision, model, smi: str) -> dict:
+    """(d)-(e): ``pipeline("optical-flow")`` over ``FLOW_PAIRS`` seeded uint8
+    frame pairs of Sintel's 436 x 1024 on the fp32 model, micro-batches of
+    ``FLOW_PIPE_BATCH`` patches (6 patches a pair): pairs/s, the per-pair
+    latency p50, K1 26 launches a micro-batch; its flow equals the same
+    model's run patch by patch (b = 1) through ``OpticalFlowProcessor`` at
+    fp32 1e-5; then once with ``render=True`` (uint8 RGB of the frames'
+    shape)."""
+    import numpy as np
+
+    rng = np.random.default_rng(37)
+    pairs = [tuple(rng.integers(0, 256, (*FLOW_PAIR_HW, 3), dtype=np.uint8) for _ in range(2))
+             for _ in range(FLOW_PAIRS)]
+    patch = tuple(model.config.encoder.image_shape)
+    kw = dict(patch_size=patch, patch_min_overlap=FLOW_OVERLAP, batch_size=FLOW_PIPE_BATCH)
+    pipe = pipelines_mod.pipeline("optical-flow", model, **kw)
+    pipe(pairs[0])  # warm-up
+    reset_counts(flash)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pipe(pairs)
+    batch_s = time.perf_counter() - t0
+    routes = {r: n for r, n in flash.flash_attention.route_launches.items() if n}
+    latency = []
+    for pair in pairs:
+        t1 = time.perf_counter()
+        pipe(pair)
+        latency.append((time.perf_counter() - t1) * 1e3)
+    proc = data_vision.OpticalFlowProcessor(patch_size=patch, patch_min_overlap=FLOW_OVERLAP)
+    patches = len(proc.grid_indices(FLOW_PAIR_HW))
+    calls = -(-FLOW_PAIRS * patches // FLOW_PIPE_BATCH)
+
+    def one_by_one(x):
+        with torch.no_grad():
+            return np.concatenate([model(torch.as_tensor(p[None], device="cuda")).float().cpu().numpy() for p in x])
+
+    want = proc.process(one_by_one, pairs, batch_size=1)
+    err = float(np.abs(got - want).max())
+    close = bool(np.allclose(got, want, atol=1e-5, rtol=1e-5))
+    rendered = pipelines_mod.pipeline("optical-flow", model, render=True, **kw)(pairs)
+    render_ok = rendered.shape == (FLOW_PAIRS, *FLOW_PAIR_HW, 3) and rendered.dtype == np.uint8
+    want_routes = {K1_WIDE_ROUTE: FLOW_WIDE * calls, "tf32x3": (FLOW_ATTENDS - FLOW_WIDE) * calls}
+    line = dict(part="pipeline", card=smi, pairs=FLOW_PAIRS, frame_hw=list(FLOW_PAIR_HW), patches_per_pair=patches,
+                batch_size=FLOW_PIPE_BATCH, forwards=calls, batch_s=batch_s, pairs_per_s=FLOW_PAIRS / batch_s,
+                latency_ms=latency, latency_ms_p50=float(np.median(latency)), flow_shape=list(got.shape),
+                finite=bool(np.isfinite(got).all()), flow_max_abs=float(np.abs(got).max()),
+                max_abs_err_vs_patch_by_patch=err, within_1e5=close, k1_launches=sum(routes.values()),
+                k1_route_launches=routes, rendered_shape=list(rendered.shape), rendered_dtype=str(rendered.dtype),
+                rendered_equals_flow=bool(np.array_equal(rendered, np.stack(
+                    [data_vision.render_optical_flow(f) for f in got]))))
+    emit("flow", **line)
+    if not (close and line["finite"] and render_ok and routes == want_routes
+            and got.shape == (FLOW_PAIRS, *FLOW_PAIR_HW, 2)):
+        raise AssertionError(f"optical-flow pipeline: max|d| {err} against the patch-by-patch run (1e-5: {close}), "
+                             f"finite {line['finite']}, rendered {rendered.shape} {rendered.dtype}, K1 routes "
+                             f"{routes} (want {want_routes})")
+    return line
+
+
+def flow_phase(torch, flash, pipelines_mod, smi: str) -> dict:
+    """Phase 19: optical flow at deepmind/optical-flow-perceiver width
+    (``FLOW_HF`` through the port's ``optical_flow_config_from_hf``; random
+    weights from a seed): (a)-(c) the forward against ``xla`` with its
+    launches, times and peak memory, (d)-(e) the ``optical-flow``
+    pipeline."""
+    import gc
+
+    from perceiver_io_tpu_torch.data import vision as data_vision
+    from perceiver_io_tpu_torch.models.vision import optical_flow as flow_mod
+
+    t_phase = time.perf_counter()
+    cfg = flow_config()
+    forward = flow_forward(torch, flash, flow_mod, cfg)
+    model = forward.pop("model")
+    pipe = flow_pipeline(torch, flash, pipelines_mod, data_vision, model, smi)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = forward["float32"]["params"]
+    emit("flow", part="done", card=smi, seconds=time.perf_counter() - t_phase, params=params,
+         reference_params=FLOW_PARAMS)
+    if params != FLOW_PARAMS:
+        raise AssertionError(f"optical flow: {params} parameters, the JAX package's {FLOW_PARAMS}")
+    return {"forward": forward, "pipeline": pipe, "params": params}
+
+
 K1_SOURCES = {
     "split": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_split.cu",
     "wgmma": "perceiver_io_tpu_torch/csrc/flash_attention_fwd_wgmma.cu",
@@ -4977,7 +5203,7 @@ def k23_entries(kname: str, fits: dict, cases: list, resilience: dict, symbolic:
 
 
 def wide_entries(flash, k1_cases: list, k23_cases: list, k1_launches: int, bwd_launches: dict,
-                 clf_k1: dict, clf_bwd: dict) -> tuple:
+                 clf_k1: dict, clf_bwd: dict, flow_k1: dict) -> tuple:
     """The summary line's entries at the pairs outside ``HEAD_DIMS``, as
     ``(K1's, K2's and K3's)``: each kernel's ``wide_mma`` route and, as the
     earlier design there, its ``wide`` (reached by name only: its times are
@@ -4985,17 +5211,19 @@ def wide_entries(flash, k1_cases: list, k23_cases: list, k1_launches: int, bwd_l
     time). The image encoder's cross attend in bf16 (d = dv = 261, 512 x
     50176) at the top, ``launches`` from the classifiers phase's bf16 image
     fit, each classifiers run's launches on the route, and every case that
-    took it."""
+    took it (the flow cases, which no earlier design ran, only under
+    ``wide_mma``); ``flow_k1``, each flow run's K1 launches by route."""
     keys = ("plain_ms", "bound_ms", "bound_by", "library_ms")
     head_of = lambda mine: next(c for c in mine if (c["case"], c["dtype"]) == ("img_cross", "bfloat16"))  # noqa: E731
     common = dict(route="cuda", shape="the image classifier's encoder cross attend, b=2 h=1 "
                   "i=512 j=50176 d=dv=261 bf16, non-causal, no pad mask",
                   launches_from="the classifiers phase's bf16 image fit (8 steps and its validation pass)")
-    mine = [c for c in k1_cases if c["route"] == K1_WIDE_ROUTE]
-    head = head_of(mine)
+    took = [c for c in k1_cases if c["route"] == K1_WIDE_ROUTE]
+    head = head_of(took)
     k1 = []
     for design in (K1_WIDE_ROUTE, K1_WIDE_PREV):
         now = design == K1_WIDE_ROUTE
+        mine = took if now else [c for c in took if c["prev_ms"] is not None]
         err_key, ms_key = ("max_abs_err", "ms") if now else ("prev_max_abs_err", "prev_ms")
         launches = k1_launches if now else 0
         k1.append({
@@ -5009,6 +5237,7 @@ def wide_entries(flash, k1_cases: list, k23_cases: list, k1_launches: int, bwd_l
             "ms": head[ms_key], **({"prev_ms": head["prev_ms"], "prev_route": K1_WIDE_PREV} if now else {}),
             **{k: head[k] for k in keys}, "library_backend": head["library_backend"],
             "classifiers_launches": {run: routes.get(design, 0) for run, routes in clf_k1.items()},
+            "flow_launches": {run: routes.get(design, 0) for run, routes in flow_k1.items()},
             "head_dims": sorted({(c["d"], c["dv"]) for c in mine}),
             "cases": [{"case": c["case"], "dtype": c["dtype"], "b": c["b"], "h": c["h"], "i": c["i"], "j": c["j"],
                        "d": c["d"], "dv": c["dv"], "causal": c["causal"], "misaligned": c["misaligned"],
@@ -5142,56 +5371,57 @@ def main() -> int:
          kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    _build.build_all()
+    timed("build", _build.build_all)
     emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(),
          ptxas={name: ptxas_by_kernel(log) for name, log in _build.BUILD_LOG.items()})
-    cases = kernel_cases(torch, flash)
-    k1_refusals(torch, flash)
-    model_phase(torch, clm, flash, gen_mod)
+    cases = timed("kernel", kernel_cases, torch, flash)
+    timed("k1_refusals", k1_refusals, torch, flash)
+    timed("model", model_phase, torch, clm, flash, gen_mod)
     base = clm.CausalLanguageModel(clm_base_config(clm.CausalLanguageModelConfig), dtype=torch.float32,
                                    seed=0).eval()
-    served = serve_phase(torch, flash, gen_mod, engine_mod, base,
-                         *serve_workload(torch, gen_mod, buckets, base.config.vocab_size))
-    k4 = k4_cases(torch, ragged, paged)
-    k4_refusals(torch, ragged)
-    slot_launches, serve = slot_serve_phase(
-        torch, flash, ragged, gen_mod, slots_mod, base,
+    served = timed("serve", serve_phase, torch, flash, gen_mod, engine_mod, base,
+                   *serve_workload(torch, gen_mod, buckets, base.config.vocab_size))
+    k4 = timed("k4", k4_cases, torch, ragged, paged)
+    timed("k4_refusals", k4_refusals, torch, ragged)
+    slot_launches, serve = timed(
+        "slot_serve", slot_serve_phase, torch, flash, ragged, gen_mod, slots_mod, base,
         buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,)),
         slot_serve_workload(torch, gen_mod, base.config.vocab_size))
     del base
-    prefix_launches, shared = slot_prefix_phase(torch, flash, ragged, gen_mod, slots_mod, buckets,
-                                                serve["model"])
-    preempt_launches = slot_preempt_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
-                                          shared, slot_launches["paged"])
+    prefix_launches, shared = timed("slot_prefix", slot_prefix_phase, torch, flash, ragged, gen_mod, slots_mod,
+                                    buckets, serve["model"])
+    preempt_launches = timed("slot_preempt", slot_preempt_phase, torch, flash, ragged, gen_mod, slots_mod, buckets,
+                             serve, shared, slot_launches["paged"])
     spec_root = ROOT / "build" / "chip_smoke_spec"
     spec_root.mkdir(parents=True, exist_ok=True)
-    spec_launches = slot_spec_phase(torch, flash, ragged, gen_mod, spec_mod, strategy_mod, slots_mod,
-                                    buckets, clm, serve, slot_launches, spec_root)
-    sample = sample_phase(torch, clm, flash, ragged, gen_mod, samplers, beam_mod, pipelines_mod,
-                          tokenizers_mod, engine_mod, slots_mod, buckets, serve, slot_launches)
+    spec_launches = timed("slot_spec", slot_spec_phase, torch, flash, ragged, gen_mod, spec_mod, strategy_mod,
+                          slots_mod, buckets, clm, serve, slot_launches, spec_root)
+    sample = timed("sample", sample_phase, torch, clm, flash, ragged, gen_mod, samplers, beam_mod, pipelines_mod,
+                   tokenizers_mod, engine_mod, slots_mod, buckets, serve, slot_launches)
     del serve, shared
     emit("memory_before_training", **held_memory(torch))
-    k23 = k23_cases(torch, flash)
+    k23 = timed("k23", k23_cases, torch, flash)
     train_root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_root, ignore_errors=True)
-    fits = train_phase(torch, clm, flash, ragged, training, parallel, train_root)
+    fits = timed("train", train_phase, torch, clm, flash, ragged, training, parallel, train_root)
     emit("memory_before_train_resilience", **held_memory(torch))
-    resilience = train_resilience_phase(torch, clm, flash, parallel, training, modules, reliability,
-                                        pipelines_mod, ROOT / "build" / "chip_smoke_resilience")
+    resilience = timed("train_resilience", train_resilience_phase, torch, clm, flash, parallel, training, modules,
+                       reliability, pipelines_mod, ROOT / "build" / "chip_smoke_resilience")
     emit("memory_before_symbolic", **held_memory(torch))
-    symbolic = symbolic_phase(torch, sam, flash, ragged, gen_mod, engine_mod, slots_mod, buckets, pipelines_mod,
-                              training, parallel, data_audio, ROOT / "build" / "chip_smoke_symbolic")
+    symbolic = timed("symbolic", symbolic_phase, torch, sam, flash, ragged, gen_mod, engine_mod, slots_mod, buckets,
+                     pipelines_mod, training, parallel, data_audio, ROOT / "build" / "chip_smoke_symbolic")
     emit("memory_before_cli", **held_memory(torch))
-    cli = cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, ROOT / "build" / "chip_smoke_cli",
-                    smi)
+    cli = timed("cli", cli_phase, torch, flash, ragged, gen_mod, engine_mod, training, parallel,
+                ROOT / "build" / "chip_smoke_cli", smi)
     emit("memory_before_mlm", **held_memory(torch))
-    mlm = mlm_phase(torch, flash, ragged, pipelines_mod, training, parallel, ROOT / "build" / "chip_smoke_mlm", smi)
+    mlm = timed("mlm", mlm_phase, torch, flash, ragged, pipelines_mod, training, parallel,
+                ROOT / "build" / "chip_smoke_mlm", smi)
     mlm_k1 = {**{f"forward_{k}": v["k1_route_launches"] for k, v in mlm["forward"].items()},
               "fill_mask": mlm["fill"]["k1_route_launches"],
               **{run: mlm["cli"][run]["k1_routes"] for run in ("fit", "validate", "test")}}
     emit("memory_before_classifiers", **held_memory(torch))
-    clf = classifiers_phase(torch, flash, ragged, pipelines_mod, training, parallel,
-                            ROOT / "build" / "chip_smoke_classifiers", smi)
+    clf = timed("classifiers", classifiers_phase, torch, flash, ragged, pipelines_mod, training, parallel,
+                ROOT / "build" / "chip_smoke_classifiers", smi)
     # each classifiers run's K1 launches by route, and K2/K3's in its fits
     clf_k1 = {**{f"text_forward_{k}": v["k1_route_launches"] for k, v in clf["forward"].items()},
               "sentiment_analysis": clf["sentiment"]["k1_route_launches"],
@@ -5203,9 +5433,15 @@ def main() -> int:
     clf_bwd = {"text_cli_frozen": clf["cli"]["frozen"]["bwd_routes"],
                "text_cli_unfrozen": clf["cli"]["unfrozen"]["bwd_routes"],
                "image_fit": clf["image_fit"]["bwd_route_launches"], "mnist_cli_fit": clf["mnist_cli"]["fit"]["bwd_routes"]}
+    emit("memory_before_flow", **held_memory(torch))
+    flow = timed("flow", flow_phase, torch, flash, pipelines_mod, smi)
+    # the flow runs' K1 launches by route: a forward per type, the pipeline's micro-batches
+    flow_k1 = {**{f"forward_{k}": v["k1_route_launches"] for k, v in flow["forward"].items()},
+               "optical_flow_pipeline": flow["pipeline"]["k1_route_launches"]}
     k1_wide, k23_wide = wide_entries(flash, cases, k23, clf["image_fit"]["k1_route_launches"][K1_WIDE_ROUTE],
                         {k: v[K23_WIDE_ROUTE] for k, v in clf["image_fit"]["bwd_route_launches"].items()}, clf_k1,
-                        clf_bwd)
+                        clf_bwd, flow_k1)
+    emit("phase_seconds", total=time.perf_counter() - T_START, seconds=PHASE_SECONDS)
 
     main_case = next(c for c in cases
                      if (c["case"], c["dtype"], c["d"]) == ("cross", "float32", K1_HEAD_DIM))
@@ -5249,6 +5485,8 @@ def main() -> int:
         "mlm_route_launches": mlm_k1,
         "classifiers_launches": {run: sum(routes.values()) for run, routes in clf_k1.items()},
         "classifiers_route_launches": clf_k1,
+        "flow_launches": {run: sum(routes.values()) for run, routes in flow_k1.items()},
+        "flow_route_launches": flow_k1,
         "routes": [{**k1_route_entry(flash, design, main, cases, route_launches[design], {
                        "bucket_serve": symbolic["bucket_serve"]["k1_routes"][design],
                        **{f"slot_serve_{layout}": v["k1_routes"][design]
@@ -5256,7 +5494,8 @@ def main() -> int:
                        **{f"train_{t}": v["k1_route_launches"][design] for t, v in symbolic["train"].items()}}),
                     "cli_launches": {run: r["k1_routes"][design] for run, r in cli.items()},
                     "mlm_launches": {run: routes[design] for run, routes in mlm_k1.items()},
-                    "classifiers_launches": {run: routes.get(design, 0) for run, routes in clf_k1.items()}}
+                    "classifiers_launches": {run: routes.get(design, 0) for run, routes in clf_k1.items()},
+                    "flow_launches": {run: routes.get(design, 0) for run, routes in flow_k1.items()}}
                    for design, main in (("split", ("decode", "float32")), ("wgmma", ("cross", "bfloat16")),
                                         ("tf32x3", ("cross", "float32")))] + k1_wide,
     }, {

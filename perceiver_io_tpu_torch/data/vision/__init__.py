@@ -1,8 +1,8 @@
 """Vision data of the port: image preprocessing and the MNIST and synthetic
 image data modules (:mod:`.image`), ImageNet preprocessing
-(:mod:`.imagenet`). Counterpart of ``perceiver_io_tpu/data/vision``; the
-optical-flow processor and the video helpers are not ported yet
-(``ROADMAP.md`` A.3)."""
+(:mod:`.imagenet`), the optical-flow processor and renderer
+(:mod:`.optical_flow`) and video frame I/O (:mod:`.video`). Counterpart of
+``perceiver_io_tpu/data/vision``."""
 from perceiver_io_tpu_torch.data.vision.image import (
     ImagePreprocessor,
     MNISTDataModule,
@@ -10,6 +10,7 @@ from perceiver_io_tpu_torch.data.vision.image import (
     random_crop_and_flip,
 )
 from perceiver_io_tpu_torch.data.vision.imagenet import ImageNetPreprocessor, resize_bilinear
+from perceiver_io_tpu_torch.data.vision.optical_flow import OpticalFlowProcessor, render_optical_flow
 
 __all__ = [
     "ImagePreprocessor",
@@ -18,4 +19,6 @@ __all__ = [
     "MNISTDataModule",
     "SyntheticImageDataModule",
     "random_crop_and_flip",
+    "OpticalFlowProcessor",
+    "render_optical_flow",
 ]

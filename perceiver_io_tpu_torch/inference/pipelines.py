@@ -1,13 +1,13 @@
 """Task pipelines. Counterpart of ``perceiver_io_tpu/inference/pipelines.py``,
-of which ``text-generation``, ``fill-mask``, ``sentiment-analysis`` /
-``text-classification``, ``image-classification`` and
-``symbolic-audio-generation`` are ported: :class:`TextGenerationPipeline`,
+every task of it: ``text-generation``, ``fill-mask``,
+``sentiment-analysis`` / ``text-classification``,
+``image-classification``, ``optical-flow`` and
+``symbolic-audio-generation`` (:class:`TextGenerationPipeline`,
 :class:`FillMaskPipeline`, :class:`TextClassificationPipeline`,
-:class:`ImageClassificationPipeline`, :class:`SymbolicAudioPipeline`, the
-:func:`pipeline` dispatch by task name, and :func:`pipeline_from_pretrained`
-over a ``save_pretrained`` dir (with :func:`cast_float_params` for bf16
-weight storage). ``optical-flow`` comes with its model family (``ROADMAP.md``
-A.3) and raises ``NotImplementedError``.
+:class:`ImageClassificationPipeline`, :class:`OpticalFlowPipeline`,
+:class:`SymbolicAudioPipeline`), the :func:`pipeline` dispatch by task
+name, and :func:`pipeline_from_pretrained` over a ``save_pretrained`` dir
+(with :func:`cast_float_params` for bf16 weight storage).
 """
 from __future__ import annotations
 
@@ -235,6 +235,44 @@ class ImageClassificationPipeline:
         return results
 
 
+class OpticalFlowPipeline:
+    """``pipeline("optical-flow")``: frame pairs -> per-pixel flow through
+    :class:`~perceiver_io_tpu_torch.data.vision.OpticalFlowProcessor`: each
+    pair is cut into overlapping patches of ``patch_size``, the patches run
+    through the model on its device in micro-batches of ``batch_size`` (the
+    last zero-padded), and the patches' flow is blended back into the
+    frame; with ``render=True`` the flow comes back as RGB images
+    (:func:`~perceiver_io_tpu_torch.data.vision.render_optical_flow`).
+
+    One pair (two ``(h, w, c)`` or ``(h, w)`` arrays) gives ``(h, w, 2)``
+    flow, a list of pairs ``(n, h, w, 2)``."""
+
+    def __init__(self, model, *, patch_size: Tuple[int, int] = (368, 496), patch_min_overlap: int = 20,
+                 batch_size: int = 1, render: bool = False, device: DeviceLike = "cuda"):
+        from perceiver_io_tpu_torch.data.vision import OpticalFlowProcessor
+
+        self.model = model
+        self.processor = OpticalFlowProcessor(patch_size=patch_size, patch_min_overlap=patch_min_overlap)
+        self.batch_size = batch_size
+        self.render = render
+        self.device = resolve_device(device)
+
+    def _forward(self, x: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            return self.model(torch.as_tensor(x, device=self.device)).float().cpu().numpy()
+
+    def __call__(self, image_pairs: Union[Tuple[np.ndarray, np.ndarray], Sequence[Tuple[np.ndarray, np.ndarray]]]):
+        single = len(image_pairs) == 2 and isinstance(image_pairs[0], np.ndarray) and image_pairs[0].ndim >= 2
+        pairs = [image_pairs] if single else list(image_pairs)
+        flow = self.processor.process(self._forward, pairs, batch_size=self.batch_size)
+        if self.render:
+            from perceiver_io_tpu_torch.data.vision import render_optical_flow
+
+            rendered = np.stack([render_optical_flow(f) for f in flow])
+            return rendered[0] if single else rendered
+        return flow[0] if single else flow
+
+
 class SymbolicAudioPipeline:
     """``pipeline("symbolic-audio-generation")``: event-id prompts (MIDI
     events, :mod:`perceiver_io_tpu_torch.data.audio.midi`) -> prompt plus
@@ -322,18 +360,16 @@ _TASKS = {"text-generation": TextGenerationPipeline,
           "sentiment-analysis": TextClassificationPipeline,
           "text-classification": TextClassificationPipeline,
           "image-classification": ImageClassificationPipeline,
+          "optical-flow": OpticalFlowPipeline,
           "symbolic-audio-generation": SymbolicAudioPipeline}
-#: the reference's other tasks, each waiting for its model family
-_UNPORTED_TASKS = ("optical-flow",)
+#: the JAX package's tasks that the port does not have (none)
+_UNPORTED_TASKS = ()
 
 
 def pipeline(task: str, model, *args, **kwargs):
     """``transformers.pipeline``-shaped dispatch by task name."""
     if task in _UNPORTED_TASKS:
-        raise NotImplementedError(
-            f"the {task!r} pipeline is not ported yet: it comes with its model family "
-            "(ROADMAP.md A.3)"
-        )
+        raise NotImplementedError(f"the {task!r} pipeline is not ported yet")
     if task not in _TASKS:
         raise ValueError(f"unknown task {task!r}; available: {sorted(_TASKS)}")
     return _TASKS[task](model, *args, **kwargs)

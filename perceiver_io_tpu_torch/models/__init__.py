@@ -1,8 +1,8 @@
 """Models of the port and :func:`model_for_config`, the dispatch from a
 config to its model class. Counterpart of ``perceiver_io_tpu/models``; the
 Perceiver AR sequence-model families (the causal LM and the
-symbolic-audio model) and the Perceiver IO masked LM, text classifier and
-image classifier are ported."""
+symbolic-audio model) and the Perceiver IO masked LM, text classifier,
+image classifier and optical-flow model are ported."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -21,6 +21,7 @@ def import_task_modules() -> None:
     import perceiver_io_tpu_torch.models.text.classifier  # noqa: F401
     import perceiver_io_tpu_torch.models.text.mlm  # noqa: F401
     import perceiver_io_tpu_torch.models.vision.image_classifier  # noqa: F401
+    import perceiver_io_tpu_torch.models.vision.optical_flow  # noqa: F401
 
 
 def model_for_config(config: Any, *, dtype: Optional[torch.dtype] = None,
@@ -35,6 +36,7 @@ def model_for_config(config: Any, *, dtype: Optional[torch.dtype] = None,
     from perceiver_io_tpu_torch.models.text.classifier import TextClassifier
     from perceiver_io_tpu_torch.models.text.mlm import MaskedLanguageModel, TextDecoderConfig
     from perceiver_io_tpu_torch.models.vision.image_classifier import ImageClassifier, ImageEncoderConfig
+    from perceiver_io_tpu_torch.models.vision.optical_flow import OpticalFlow, OpticalFlowEncoderConfig
 
     kwargs = dict(dtype=dtype or torch.float32, attention_impl=attention_impl, device=device, seed=seed)
     if isinstance(config, CausalLanguageModelConfig):
@@ -51,6 +53,8 @@ def model_for_config(config: Any, *, dtype: Optional[torch.dtype] = None,
     if (isinstance(config, PerceiverIOConfig) and isinstance(config.encoder, ImageEncoderConfig)
             and isinstance(config.decoder, ClassificationDecoderConfig)):
         return ImageClassifier(config, **kwargs)
+    if isinstance(config, PerceiverIOConfig) and isinstance(config.encoder, OpticalFlowEncoderConfig):
+        return OpticalFlow(config, **kwargs)
     raise ValueError(f"no model of the port for config {type(config).__name__}")
 
 

@@ -16,8 +16,8 @@ site                        keying
                             replays the same step numbers
 ==========================  =============================================
 
-The serving, data and fleet sites come with their modules (``ROADMAP.md``
-A.3). Fault kinds: ``"error"`` (the site raises an exception), ``"nan"``
+The serving and data sites come with observability (``ROADMAP.md`` A.4),
+the fleet's with outer serving (A.5). Fault kinds: ``"error"`` (the site raises an exception), ``"nan"``
 (the trainer replaces the step loss with NaN), ``"hang"`` (a clock advance
 by ``delay_s``; meaningful only with a :class:`FakeClock`).
 """

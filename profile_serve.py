@@ -17,6 +17,7 @@
     python3 profile_serve.py --model image --engine train      # the image classifier's fit step
     python3 profile_serve.py --model image --engine train --wide-bwd-route wide
     python3 profile_serve.py --model image --engine train --wide-fwd-route wide
+    python3 profile_serve.py --model flow --engine forward     # the optical-flow forward
 
 ``--engine bucket`` (default) serves the 8-request workload of
 ``chip_smoke.py``'s serve phase through ``ServingEngine``; ``--engine
@@ -63,7 +64,15 @@ clipping; its tokens are the 8 images. Its encoder's cross attend (261,
 261) and decoder's query (1024, 1024) are the pairs outside ``HEAD_DIMS``:
 K1, K2 and K3 take ``wide_mma`` there; ``--wide-fwd-route wide`` puts K1
 and ``--wide-bwd-route wide`` K2 and K3 on the earlier design by name, so
-two runs in one call break down the same step on both. For each: one warm-up pass, one timed pass
+two runs in one call break down the same step on both. ``--model flow
+--engine forward`` takes the ``flow`` phase's forward: the optical-flow
+Perceiver IO at deepmind/optical-flow-perceiver width (random weights from a
+seed) over 2 synthetic frame pairs of 368 x 496 patch features; its line
+gives the forward ms, images/s, the peak allocation, K1's launches and
+device ms by route (the two cross attends on ``wide_mma``, the 24
+self-attends on the tile route of the type), the dense products' device
+ms and share, and its images are its tokens (one warm-up forward, three
+timed, one profiled). For each: one warm-up pass, one timed pass
 (host clock around work that ends in a synchronise), and one pass under
 ``torch.profiler``. ``--engine train`` instead runs optimizer steps of
 ``chip_smoke.py``'s ``Trainer.fit`` run (8 rows x 1024 tokens, 2
@@ -297,6 +306,66 @@ def _profile_train(torch, profile, ProfilerActivity, chip_smoke, clm, flash, dty
     }
 
 
+def _profile_forward(torch, profile, ProfilerActivity, chip_smoke, flash, dtype, smi, out_dir) -> dict:
+    """The optical-flow forward (``--model flow --engine forward``): the
+    ``flow`` phase's model and ``FLOW_BATCH`` seeded frame pairs; one
+    warm-up forward, three timed (each ending in a synchronise), one
+    profiled."""
+    import numpy as np
+
+    from perceiver_io_tpu_torch.models.vision import optical_flow as flow_mod
+
+    name = str(dtype).split(".")[-1]
+    cfg = chip_smoke.flow_config()
+    model = flow_mod.OpticalFlow(cfg, dtype=dtype, seed=0).eval()
+    b = chip_smoke.FLOW_BATCH
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((b, 2, 27, *cfg.encoder.image_shape)).astype(np.float32)).to("cuda")
+
+    def run():
+        with torch.no_grad():
+            model(x)
+        torch.cuda.synchronize()
+
+    run()  # warm-up
+    chip_smoke.reset_counts(flash)
+    torch.cuda.reset_peak_memory_stats()
+    forward_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        forward_ms.append((time.perf_counter() - t0) * 1e3)
+    k1_routes = {k: v / 3 for k, v in flash.flash_attention.route_launches.items() if v}
+    k1_kernels = flash.flash_attention.kernel_launches / 3
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t1 = time.perf_counter()
+        run()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    kernels, device_ms, ms_of = _breakdown(torch, prof, out_dir / f"profile_serve_flow_forward_{name}.txt")
+    measured = bool(kernels)
+    p50 = sorted(forward_ms)[1]
+    k1_ms = ms_of("flash_fwd_")
+    gemm_ms = sum(_device_us(e) for e in kernels if any(p in e.key.lower() for p in GEMM_PATTERNS)) / 1e3
+    return {
+        "engine": "forward", "model": "flow", "compute_dtype": name, "device": smi, "batch": b,
+        "forward_ms": forward_ms, "forward_ms_p50": p50, "images_per_s": b / (p50 / 1e3),
+        "peak_memory_bytes": peak, "k1_route_launches_per_forward": k1_routes,
+        "k1_kernel_launches_per_forward": k1_kernels,
+        "profiled_wall_ms": prof_wall_ms,
+        "device_kernel_ms": device_ms if measured else "not measured",
+        "device_busy_share": device_ms / p50 if measured else "not measured",
+        "device_busy_share_profiled": device_ms / prof_wall_ms if measured else "not measured",
+        "k1_device_ms": k1_ms if measured else "not measured",
+        "k1_share_of_device": k1_ms / device_ms if measured else "not measured",
+        "k1_route_device_ms": _k1_routes(ms_of) if measured else "not measured",
+        "gemm_device_ms": gemm_ms if measured else "not measured",
+        "gemm_share_of_device": gemm_ms / device_ms if measured else "not measured",
+        "top_kernels": [{"name": e.key[:90], "ms": _device_us(e) / 1e3, "calls": e.count}
+                        for e in kernels[:10]],
+    }
+
+
 def _image_train_workload(torch, chip_smoke, training, parallel, dtype):
     """``(run, tokens)``: ``run()`` takes one optimizer step of the
     classifiers phase's image fit (the image classifier at
@@ -420,11 +489,12 @@ def main() -> int:
     from perceiver_io_tpu_torch.inference import decode_strategy as strategy_mod
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--engine", choices=("bucket", "slots", "train"), default="bucket")
-    parser.add_argument("--model", choices=("clm", "sam", "mlm", "image"), default="clm",
-                        help="clm-base, the symbolic-audio model at GiantMIDI width, or (--engine train "
+    parser.add_argument("--engine", choices=("bucket", "slots", "train", "forward"), default="bucket")
+    parser.add_argument("--model", choices=("clm", "sam", "mlm", "image", "flow"), default="clm",
+                        help="clm-base, the symbolic-audio model at GiantMIDI width, (--engine train "
                              "only) the masked LM at language-perceiver width or the Fourier image "
-                             "classifier at vision-perceiver-fourier width")
+                             "classifier at vision-perceiver-fourier width, or (--engine forward only) "
+                             "optical flow at optical-flow-perceiver width")
     parser.add_argument("--wide-fwd-route", choices=("wide_mma", "wide"), default="wide_mma",
                         help="K1's route at the (d, dv) pairs outside HEAD_DIMS: wide_mma (the "
                              "wrapper's pick) or the earlier wide design, by name")
@@ -463,6 +533,8 @@ def main() -> int:
                      "(beam search decodes deterministically)")
     if args.do_sample and args.engine == "train":
         parser.error("--do-sample applies to the serving engines")
+    if (args.model == "flow") != (args.engine == "forward"):
+        parser.error("--model flow takes --engine forward, and --engine forward --model flow")
     if args.model in ("mlm", "image") and args.engine != "train":
         parser.error(f"--model {args.model} takes --engine train only")
     if args.model == "sam" and (slot_only or args.do_sample or args.num_beams > 1):
@@ -523,6 +595,11 @@ def main() -> int:
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
+        if args.engine == "forward":
+            print(json.dumps(_profile_forward(torch, profile, ProfilerActivity, chip_smoke, flash, dtype, smi,
+                                              out_dir)), flush=True)
+            torch.cuda.empty_cache()
+            continue
         if args.engine == "train":
             suffix = "".join(f"_{which}_{route}" for which, route in (("fwd", args.wide_fwd_route),
                                                                       ("bwd", args.wide_bwd_route))

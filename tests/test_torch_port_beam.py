@@ -32,7 +32,7 @@ from perceiver_io_tpu_torch.data.text import ByteTokenizer
 from perceiver_io_tpu_torch.inference import generate as port_gen
 from perceiver_io_tpu_torch.inference.beam import beam_search
 from perceiver_io_tpu_torch.inference.generate import GenerationConfig, generate
-from perceiver_io_tpu_torch.inference.pipelines import TextGenerationPipeline, pipeline
+from perceiver_io_tpu_torch.inference.pipelines import OpticalFlowPipeline, TextGenerationPipeline, pipeline
 from perceiver_io_tpu_torch.inference.samplers import SamplingConfig
 from perceiver_io_tpu_torch.models.text.clm import CausalLanguageModel, CausalLanguageModelConfig
 from perceiver_io_tpu_torch.serving.buckets import BucketTable
@@ -241,7 +241,6 @@ def test_pipeline_warns_under_beam_and_dispatches(byte_pair):
         pipe("hi there", max_new_tokens=2, num_latents=2, temperature=0.7)
     with pytest.raises(ValueError, match="requires bucketing"):
         pipe.warmup()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        pipeline("optical-flow", t_model)  # the task still unported
+    assert isinstance(pipeline("optical-flow", t_model, device="cpu"), OpticalFlowPipeline)  # every task ported
     with pytest.raises(ValueError, match="unknown task"):
         pipeline("translation", t_model)

@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "scripts.text.clm", "scripts.audio.symbolic", "models.core.config", "models.core.adapter",
                  "models.text.common", "models.text.mlm", "inference.mask_filler", "scripts.text.mlm",
                  "models.text.classifier", "models.vision.image_classifier", "data.vision.image",
-                 "data.vision.imagenet", "scripts.text.classifier", "scripts.vision.image_classifier"):
+                 "data.vision.imagenet", "scripts.text.classifier", "scripts.vision.image_classifier",
+                 "models.vision.optical_flow", "data.vision.optical_flow", "data.vision.video",
+                 "convert.torch_import", "convert.hf_import", "convert.export", "utils.flops"):
         assert f"perceiver_io_tpu_torch.{name}" in report["imported"]
     assert report["bad"] == []
     assert report["lazy"] == []
