@@ -175,10 +175,10 @@ non-zero and never prints the final line):
    but at a near-tie (the verify lane's top logit less the draft's <
    1e-4; the draft runs at b rows and the verify at b·(k+1)), counted;
    then ``SpecConfig(4, 2)``: tokens equal, acceptance printed. (b)
-   ``SlotServingEngine`` with 4 slots over the 12 requests:
-   ``speculation="k4d2"`` dense and paged, ``"k2d1"`` paged with
-   ``preemption="swap"`` over phase 9's 160-block pool and traffic, and
-   one bf16 ``k4d2`` dense run. Gates (fp32 runs): tokens equal phase 7's
+   ``SlotServingEngine`` with 4 slots: ``speculation="k4d2"`` paged over
+   the first 6 requests (a round reads no KV cache: one layout),
+   ``"k2d1"`` paged with ``preemption="swap"`` over phase 9's 160-block
+   pool and all 12 requests, and one bf16 ``k4d2`` paged run over the 6. Gates (fp32 runs): tokens equal phase 7's
    references (near-tie excuse), emitted = served tokens, accepted <=
    proposed, every verify call at 4·(k+1) rows and one a round, K1 at
    k·(1+d) + 17 launches a round, every K1 tile on ``tf32x3`` (bf16:
@@ -206,11 +206,10 @@ non-zero and never prints the final line):
    against a greedy run of it, the slot engine dense and paged against
    phase 7's references (the near-tie excuse of phase 7). (c) Temperature
    0.8, top-k 50, top-p 0.95 through the bucket engine, then the slot
-   engine dense, paged and paged_int8, each run with seed A, seed A again
+   engine dense and paged over phase 7's first 6 requests, each run with seed A, seed A again
    and seed B: every request completes, seed A twice identical, A and B
    differ, 4 requests' tokens inside their step's top-k ∩ nucleus of a
-   teacher-forced ``_decode_forward`` (slack 1e-4 on the logit; the int8
-   run printed, not gated: its pool's logits are lossy), K1's fp32 tiles on
+   teacher-forced ``_decode_forward`` (slack 1e-4 on the logit), K1's fp32 tiles on
    ``tf32x3`` and K4 on ``split``/``tc``, never simt, the pool leak-free;
    printed beside the greedy tokens/s (phase 7's, or this phase's greedy
    bucket run). (d) Beam search: ``beam_search(num_beams=1)`` over 2 of
@@ -222,6 +221,27 @@ non-zero and never prints the final line):
    CPU. (e) ``TextGenerationPipeline`` over clm-base's widths with the
    byte tokenizer's 262-token vocabulary: ``bucketing=True`` gives the
    text ``bucketing=False`` gives, and a beam call returns text;
+11b. obs: telemetry over phase 7's model (fp32): three of its requests
+   (``OBS_REQUESTS``) through the paged slot engine (4 slots,
+   ``OBS_KV_BLOCKS`` blocks, ``recompute`` preemption), first with no
+   attachment, then with every one (a registry, a tracer streaming
+   ``events.jsonl``, a step timeline, a flight recorder, an SLO monitor,
+   a profiler trigger). (a) Tokens equal the unobserved run's and phase
+   7's references (the near-tie excuse); K1's and K4's launches by route
+   equal the unobserved run's; no bundle, every terminal span ``ok``. (b)
+   The trigger armed before decode step ``OBS_ARM_STEP`` runs the next
+   decode step under ``torch.profiler``; its Chrome trace
+   (``build/chip_smoke_obs/observed/profile/regress-step<N>/trace.json``)
+   must exist and name one of K1's and one of K4's kernels, read from
+   ``csrc/``. (c) Two steps later ``hbm_bytes_in_use`` equals
+   ``torch.cuda.memory_allocated()`` read at that point, and
+   ``kv_cache_resident_bytes`` the pool's tensor bytes (mapped blocks'
+   k, v and scales, and the stack caches). (d) A ``kv.exhaust`` fault at
+   decode step ``OBS_EXHAUST_STEP`` preempts a victim whose readmission
+   waits: one ``pool_exhausted`` bundle, which ``obs incident`` renders.
+   (e) The build ledger holds one ``kernel_build`` record per source this
+   process built (``_build.BUILD_LOG``). (f) Decode-step ms p50 with and
+   without the attachments, A B B A (printed, not gated);
 12. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
    against their plain versions at the training path's shapes (b = 4, 8
    heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
@@ -391,7 +411,14 @@ non-zero and never prints the final line):
    ``min_seq_len`` 4096, the family's 2048 latents and 768 channels, 8
    heads of 96, 12 layers), bf16, 4 steps of 8 rows in 2 microbatches
    (AdamW to phase 15's 2e-4, 4 warmup steps): a
-   finite loss, K1, K2 and K3 26 launches a step on ``wgmma``;
+   finite loss, K1, K2 and K3 26 launches a step on ``wgmma``. The fit of
+   (a) runs with ``--obs.events_path``, ``--obs.snapshot_every_s`` and
+   ``--obs.profile_on_regress_factor`` (``CLI_FIT_OBS``): one fenced
+   ``trainer.step`` span a step under one trace, and a snapshot counting
+   8 steps; the slots ``serve`` of (c) with ``--obs.events_path``,
+   ``--obs.timeline.*`` and ``--obs.snapshot_path``: every line carries a
+   ``trace_id``, and ``obs report`` and ``obs timeline`` render over what
+   it wrote;
 17. mlm: the masked LM at language-perceiver width (vocab 262, 2048
    context, d_model 768, 256 latents of 1280 channels, 26 self-attends, 8
    heads over qk 256 with v 1280 in the encoder and 768 in the decoder,
@@ -478,7 +505,8 @@ non-zero and never prints the final line):
    K4's ``slot_prefix_launches`` the paged slot-prefix run's calls and
    ``slot_preempt_launches`` each slot-preempt run's; K1's and K4's
    ``slot_spec_launches`` each slot-spec engine run's and
-   ``sample_launches`` each sampled run's; K1's ``beam_launches`` the
+   ``sample_launches`` each sampled run's and ``obs_launches`` phase 11b's
+   observed run's; K1's ``beam_launches`` the
    counted beam run's; K1's, K2's and K3's ``train_resilience_launches``
    each phase-14 sub-run's, over its three timed steps in (a); each route's
    ``d96`` figures (its GiantMIDI case at head dim 96) and
@@ -2038,13 +2066,16 @@ def slot_preempt_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
 
 #: (run, kv layout, speculation, preemption): phase 7's traffic; the swap
 #: run over phase 9's pool with its tiers and late arrivals
+#: (a round reads no KV cache, so one layout without preemption: paged)
 SLOT_SPEC_RUNS = (
-    ("k4d2_dense", "dense", "k4d2", None),
     ("k4d2_paged", "paged", "k4d2", None),
     ("k2d1_paged_swap", "paged", "k2d1", "swap"),
 )
 #: phase 7's requests that the standalone speculative_generate runs
 SLOT_SPEC_STANDALONE = 4
+#: phase 7's first requests that the engine runs without preemption serve
+#: (the preemption run takes all 12, phase 9's pressure)
+SLOT_SPEC_PLAIN_REQUESTS = 6
 
 
 def spec_standalone(torch, gen_mod, spec_mod, serve) -> list:
@@ -2113,8 +2144,6 @@ def spec_engine_runs(torch, flash, ragged, gen_mod, spec_mod, slots_mod, buckets
     model = serve["model"]
     on_card = model.device.type == "cuda"
     table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
-    prompts, configs, refs = serve["prompts"], serve["configs"], serve["refs"]
-    tokens = sum(c.max_new_tokens for c in configs)
     verify_rows, forward = [], spec_mod._decode_forward
 
     def counting_forward(mdl, window, pad, m):
@@ -2125,10 +2154,13 @@ def spec_engine_runs(torch, flash, ragged, gen_mod, spec_mod, slots_mod, buckets
     runs = [(name, layout, mode, pre, model) for name, layout, mode, pre in SLOT_SPEC_RUNS]
     bf16 = clm.CausalLanguageModel(model.config, dtype=torch.bfloat16, seed=0,
                                    device=model.device).eval()
-    runs.append(("k4d2_dense_bf16", "dense", "k4d2", None, bf16))
+    runs.append(("k4d2_paged_bf16", "paged", "k4d2", None, bf16))
     spec_mod._decode_forward = counting_forward  # only verify_lanes calls it here
     try:
         for name, layout, mode, pre, mdl in runs:
+            n = len(serve["prompts"]) if pre else SLOT_SPEC_PLAIN_REQUESTS
+            prompts, configs, refs = serve["prompts"][:n], serve["configs"][:n], serve["refs"][:n]
+            tokens = sum(c.max_new_tokens for c in configs)
             kw = dict(kv_blocks=kv_blocks, preemption=pre, admit_headroom_blocks=0) if pre else {}
             engine = slots_mod.SlotServingEngine(mdl, serve["gcfg"], table, slots=4,
                                                  kv_layout=layout, speculation=mode,
@@ -2228,7 +2260,7 @@ def spec_engine_runs(torch, flash, ragged, gen_mod, spec_mod, slots_mod, buckets
                 if engine._pool.in_use or engine._pool.leaked():
                     failures.append(f"pool in_use {engine._pool.in_use}, leaked {engine._pool.leaked()}")
             if mdl is bf16:
-                twin = rows_by_run["k4d2_dense"]
+                twin = rows_by_run["k4d2_paged"]
                 line["token_agreement_with_fp32_twin"] = \
                     sum(int((a == b).sum()) for a, b in zip(rows, twin)) / tokens
             else:
@@ -2378,6 +2410,8 @@ def slot_spec_phase(torch, flash, ragged, gen_mod, spec_mod, strategy_mod, slots
 SAMPLE_TOP = dict(temperature=0.8, top_k=50, top_p=0.95)
 SAMPLE_SEEDS = (1234, 4321)
 SAMPLE_CHECKED = 4
+#: phase 7's first requests that the sampled slot runs serve
+SAMPLE_SLOT_REQUESTS = 6
 SAMPLE_SLACK = 1e-4  # on the logit, teacher-forced against the served step
 TOP_P_EDGE = 1e-6    # a top-p keep-set difference is excused this close to p
 SAMPLE_FILTERS = {
@@ -2580,20 +2614,18 @@ def sample_top1(torch, gen_mod, samplers, engine_mod, slots_mod, buckets, serve,
 def sample_runs(torch, flash, ragged, gen_mod, samplers, engine_mod, slots_mod, buckets, serve,
                 unpressured, bucket_work, bucket_greedy) -> dict:
     """(c) The real sampled config (``SAMPLE_TOP``) through the bucket engine
-    over phase 5's workload, then the slot engine over phase 7's under
-    dense, paged and paged_int8: each run three times (seed A, seed A again,
-    seed B). Gates: every request completes; seed A twice gives identical
-    tokens and seeds A and B differ in at least one; the first
-    ``SAMPLE_CHECKED`` requests' tokens lie in their step's top-k ∩ nucleus
-    of a teacher-forced forward (slack ``SAMPLE_SLACK``; the int8 pool's
-    lossy logits are printed, not gated); K1's fp32 tiles on ``tf32x3``, K4
-    on ``split``/``tc``, never ``simt``; the pool leak-free. Returns each
-    run's launches (the first seed's run)."""
+    over phase 5's workload, then the slot engine over phase 7's first
+    ``SAMPLE_SLOT_REQUESTS`` under dense and paged: each run three times (seed A, seed A again, seed B).
+    Gates: every request completes; seed A twice gives identical tokens and
+    seeds A and B differ in at least one; the first ``SAMPLE_CHECKED``
+    requests' tokens lie in their step's top-k ∩ nucleus of a
+    teacher-forced forward (slack ``SAMPLE_SLACK``); K1's fp32 tiles on
+    ``tf32x3``, K4 on ``split``/``tc``, never ``simt``; the pool leak-free.
+    Returns each run's launches (the first seed's run)."""
     model = serve["model"]
     on_card = model.device.type == "cuda"
     table, work = bucket_work
-    runs = [("bucket", None)] + [(f"slots_{layout}", layout) for layout in
-                                 ("dense", "paged", "paged_int8")]
+    runs = [("bucket", None)] + [(f"slots_{layout}", layout) for layout in ("dense", "paged")]
     out = {}
     swork = [(_with_sampling(samplers, c, do_sample=True, **SAMPLE_TOP), p) for c, p in work]
     gcfg = _with_sampling(samplers, serve["gcfg"], do_sample=True, **SAMPLE_TOP)
@@ -2602,9 +2634,9 @@ def sample_runs(torch, flash, ragged, gen_mod, samplers, engine_mod, slots_mod, 
             prompts = [p for _, ps in swork for p in ps]
             configs = [c for c, ps in swork for _ in ps]
         else:
-            prompts = serve["prompts"]
+            prompts = serve["prompts"][:SAMPLE_SLOT_REQUESTS]
             configs = [_with_sampling(samplers, c, do_sample=True, **SAMPLE_TOP)
-                       for c in serve["configs"]]
+                       for c in serve["configs"][:SAMPLE_SLOT_REQUESTS]]
         results = []
         for seed in (SAMPLE_SEEDS[0], SAMPLE_SEEDS[0], SAMPLE_SEEDS[1]):
             gen = torch.Generator(device=model.device).manual_seed(seed)
@@ -2659,7 +2691,7 @@ def sample_runs(torch, flash, ragged, gen_mod, samplers, engine_mod, slots_mod, 
             failures.append(f"completed {[r['stats']['completed'] for r in results]} of {len(prompts)}")
         if not same or differing == 0:
             failures.append(f"seed A twice identical: {same}; seeds A and B differ in {differing} tokens")
-        if outside and layout != "paged_int8":
+        if outside:
             failures.append(f"{len(outside)} tokens outside top-k ∩ nucleus: {outside[:4]}")
         for r in results:
             if r["pool"] is not None and r["pool"] != (0, 0):
@@ -2668,7 +2700,7 @@ def sample_runs(torch, flash, ragged, gen_mod, samplers, engine_mod, slots_mod, 
             k1r, k4r = first["k1_routes"], first["k4_routes"]
             if k1r["simt"] or not k1r["tf32x3"] or k1r["wgmma"]:
                 failures.append(f"K1 routes {k1r}: fp32 tiles on tf32x3, never simt")
-            paged = layout in ("paged", "paged_int8")
+            paged = layout == "paged"
             if k4r["simt"] or (paged and not (k4r["split"] and k4r["tc"])) or (not paged and first["k4"]):
                 failures.append(f"K4 routes {k4r} under {layout}: split/tc only, none unpaged")
         emit("sample", **line)
@@ -3822,6 +3854,226 @@ def symbolic_phase(torch, sam, flash, ragged, gen_mod, engine_mod, slots_mod, bu
     return out
 
 
+# the obs phase: three of phase 7's requests (500, 530 and 600 tokens; 16, 32
+# and 48 new) through the paged slot engine under recompute preemption. Their
+# worst cases take 110 blocks of 16: at 108 this schedule runs without a
+# preemption or a wait, while a kv.exhaust preemption's victim readmits under
+# its worst case and must wait (one pool_exhausted incident)
+OBS_REQUESTS = (0, 1, 2)
+OBS_KV_BLOCKS = 108
+OBS_EXHAUST_STEP = 2
+# the observed run arms the profiler trigger before this step and reads the
+# memory gauges two steps later, residents in flight
+OBS_ARM_STEP = 8
+
+
+def csrc_kernels(prefix: str) -> set:
+    """The ``__global__`` function names of ``csrc/<prefix>*.cu``."""
+    names = set()
+    for path in sorted((ROOT / "perceiver_io_tpu_torch" / "csrc").glob(f"{prefix}*.cu")):
+        names |= set(re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(", path.read_text()))
+    return names
+
+
+def obs_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve, root: Path, smi: str) -> dict:
+    """Phase 11b: the slot engine with every telemetry attachment (a
+    registry, a tracer streaming ``events.jsonl``, a step timeline, a
+    flight recorder, an SLO monitor and a profiler trigger) over three of
+    phase 7's requests, ``OBS_KV_BLOCKS`` pool blocks, ``recompute``
+    preemption, K1 and K4 on the card. Returns the observed run's launches."""
+    import contextlib
+    import io
+
+    from perceiver_io_tpu_torch import _build
+    from perceiver_io_tpu_torch.observability import (
+        FlightRecorder,
+        JsonlSpanSink,
+        MetricsRegistry,
+        ProfilerTrigger,
+        SLOMonitor,
+        SLOPolicy,
+        StepTimeline,
+        Tracer,
+        default_ledger,
+        default_registry,
+    )
+    from perceiver_io_tpu_torch.reliability import ChaosRegistry
+    from perceiver_io_tpu_torch.scripts.text import clm as clm_script
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    model, gcfg = serve["model"], serve["gcfg"]
+    prompts = [serve["prompts"][i] for i in OBS_REQUESTS]
+    configs = [serve["configs"][i] for i in OBS_REQUESTS]
+    refs = [serve["refs"][i] for i in OBS_REQUESTS]
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+
+    def make_kit(name):
+        d = root / name
+        d.mkdir()
+        reg = MetricsRegistry()
+        sink = JsonlSpanSink(str(d / "events.jsonl"))
+        tracer = Tracer(sink=sink)
+        rec = FlightRecorder(str(d / "incidents"), tracer=tracer, registry=reg)
+        return dict(dir=d, registry=reg, sink=sink, tracer=tracer, recorder=rec,
+                    timeline=StepTimeline(cap=4096, registry=reg),
+                    slo=SLOMonitor(SLOPolicy(ttft_p95_ms=60000.0), registry=reg, tracer=tracer,
+                                   flight_recorder=rec),
+                    trigger=ProfilerTrigger(str(d / "profile")))
+
+    def engine(kit=None, chaos=None):
+        obs = {} if kit is None else dict(registry=kit["registry"], tracer=kit["tracer"],
+                                          profiler_trigger=kit["trigger"])
+        eng = slots_mod.SlotServingEngine(model, gcfg, table, slots=4, kv_layout="paged",
+                                          kv_blocks=OBS_KV_BLOCKS, preemption="recompute",
+                                          admit_headroom_blocks=0, chaos=chaos, **obs)
+        if kit is not None:
+            eng.timeline, eng.flight_recorder = kit["timeline"], kit["recorder"]
+            eng.latency_sink = kit["slo"].sink
+            kit["slo"].watch_counters(kit["registry"].counters, prefix="serving")
+            kit["recorder"].add_source("health", eng.health)
+            kit["recorder"].add_source("kv_pool", eng._pool.stats)
+        return eng
+
+    def drive(eng, kit=None, on_step=None):
+        reset_counts(flash)  # count this run's launches only
+        reset_k4_counts(ragged)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, c) for p, c in zip(prompts, configs)]
+        step = 0
+        while eng.pending():
+            if on_step is not None:
+                on_step(eng, step)
+            eng.step()
+            step += 1
+            if kit is not None:
+                kit["slo"].poll()
+                kit["recorder"].maybe_record()
+        torch.cuda.synchronize()
+        if kit is not None:
+            kit["sink"].close()
+        return dict(rows=[r.result for r in reqs], status=[r.status for r in reqs], steps=step,
+                    wall_s=time.perf_counter() - t0,
+                    decode_step_ms_p50=eng.registry.percentile("serving_decode_step_ms", 50.0),
+                    k1=flash.flash_attention.launches, k1_routes=dict(flash.flash_attention.route_launches),
+                    k4=ragged.ragged_paged_attention.launches,
+                    k4_routes=dict(ragged.ragged_paged_attention.route_launches),
+                    preemptions=eng.stats()["preemption"]["preemptions"], pool=(eng._pool.in_use, eng._pool.leaked()))
+
+    readings = {}
+
+    def observe(eng, step):
+        """Arm the trigger before ``OBS_ARM_STEP``; two steps later read the
+        device and KV gauges beside what they count."""
+        if step == OBS_ARM_STEP:
+            readings["armed"] = eng.profiler_trigger.arm()
+        if step == OBS_ARM_STEP + 2:
+            hbm = default_ledger().update_device_gauges()
+            allocated = torch.cuda.memory_allocated()
+            st = eng._state
+            position = sum(st[k][0].numel() * st[k].element_size()
+                           for k in ("pool_k", "pool_v", "scale_k", "scale_v") if k in st)
+            stack = sum(t.numel() * t.element_size() for t in st["stack_k"] + st["stack_v"])
+            readings.update(hbm_bytes_in_use=hbm, memory_allocated=allocated,
+                            hbm_gauge=default_registry().gauge("hbm_bytes_in_use"),
+                            kv_cache_resident_bytes=eng.registry.gauge("kv_cache_resident_bytes"),
+                            pool_tensor_bytes=eng._pool.in_use * eng.kv_block_size * position + stack,
+                            pool_in_use=eng._pool.in_use, residents=len(eng._active()))
+
+    failures = []
+    plain = drive(engine())
+    kit = make_kit("observed")
+    observed = drive(engine(kit), kit, observe)
+
+    # (a) telemetry changes no token and no launch; the tokens are phase 7's
+    if any((a != b).any() for a, b in zip(observed["rows"], plain["rows"])):
+        failures.append("the observed run's tokens differ from the unobserved run's")
+    divergences = _divergences(torch, gen_mod, model, observed["rows"], refs, prompts, configs, failures)
+    for key in ("k1", "k1_routes", "k4", "k4_routes"):
+        if observed[key] != plain[key]:
+            failures.append(f"{key}: observed {observed[key]}, unobserved {plain[key]}")
+    if observed["status"] != ["ok"] * len(prompts) or observed["pool"] != (0, 0) or observed["preemptions"]:
+        failures.append(f"observed run: {observed['status']}, pool {observed['pool']}, "
+                        f"preemptions {observed['preemptions']}")
+    if kit["recorder"].bundles:
+        failures.append(f"the run without a fault bundled {kit['recorder'].bundles}")
+    spans = kit["tracer"].spans()
+    terminal = [s for s in spans if s.name == "serving.request"]
+    if sorted(s.status for s in terminal) != ["ok"] * len(prompts):
+        failures.append(f"terminal spans {[(s.trace_id, s.status) for s in terminal]}")
+
+    # (b) the armed trigger ran one decode step under torch.profiler; its
+    # Chrome trace names K1's and K4's kernels
+    traces = sorted((kit["dir"] / "profile").glob("regress-step*/trace.json"))
+    trace_kernels = set()
+    if len(traces) != 1 or kit["trigger"].captures != 1:
+        failures.append(f"captures {kit['trigger'].captures}, traces {traces}: one armed step, one trace")
+    else:
+        events = json.loads(traces[0].read_text()).get("traceEvents", [])
+        trace_kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    k1_names, k4_names = csrc_kernels("flash_attention_fwd"), csrc_kernels("ragged_paged_attention")
+    k1_seen = sorted(n for n in k1_names if any(n in k for k in trace_kernels))
+    k4_seen = sorted(n for n in k4_names if any(n in k for k in trace_kernels))
+    if traces and (not k1_seen or not k4_seen):
+        failures.append(f"the trace names K1 {k1_seen}, K4 {k4_seen} of {len(trace_kernels)} kernels")
+
+    # (c) the device and KV gauges against what they count
+    if not (readings.get("hbm_bytes_in_use") == readings.get("memory_allocated") == readings.get("hbm_gauge")):
+        failures.append(f"hbm_bytes_in_use {readings}")
+    if readings.get("kv_cache_resident_bytes") != readings.get("pool_tensor_bytes") \
+            or not readings.get("residents"):
+        failures.append(f"kv_cache_resident_bytes {readings}")
+
+    # (d) a kv.exhaust fault: one preemption more, the victim's readmission
+    # waits, one pool_exhausted bundle, which obs incident renders
+    chaos = ChaosRegistry()
+    chaos.exhaust_kv(OBS_EXHAUST_STEP)
+    ekit = make_kit("kv_exhaust")
+    exhausted = drive(engine(ekit, chaos), ekit)
+    bundles = ekit["recorder"].bundles
+    incident = obs_cli(clm_script, ["obs", "incident", f"--bundle={bundles[0]}"]) if len(bundles) == 1 else ""
+    _divergences(torch, gen_mod, model, exhausted["rows"], refs, prompts, configs, failures)
+    if len(bundles) != 1 or not bundles[0].endswith("pool_exhausted") or "pool_exhausted" not in incident \
+            or chaos.fired_count("kv.exhaust") != 1 or exhausted["preemptions"] < 1:
+        failures.append(f"kv.exhaust: bundles {bundles}, fired {chaos.fired_count('kv.exhaust')}, "
+                        f"preemptions {exhausted['preemptions']}, incident text {incident[:200]!r}")
+    if exhausted["status"] != ["ok"] * len(prompts) or exhausted["pool"] != (0, 0):
+        failures.append(f"kv.exhaust run: {exhausted['status']}, pool {exhausted['pool']}")
+
+    # (e) one kernel_build record per source this process built
+    builds = default_ledger().records(site="kernel_build")
+    built = sorted(f"csrc/{name}.cu" for name in _build.BUILD_LOG)
+    if sorted(r["components"]["source"] for r in builds) != built:
+        failures.append(f"kernel_build records {[r['components']['source'] for r in builds]}, built {built}")
+
+    # (f) the telemetry's host cost: decode-step p50 with and without, A B B A
+    observed_again = drive(engine(make_kit("observed_again")))
+    plain_again = drive(engine())
+    p50 = {"unobserved": [plain["decode_step_ms_p50"], plain_again["decode_step_ms_p50"]],
+           "observed": [observed["decode_step_ms_p50"], observed_again["decode_step_ms_p50"]]}
+    overhead = _mean(p50["observed"]) - _mean(p50["unobserved"])
+    emit("obs", card=smi, requests=len(prompts), kv_blocks=OBS_KV_BLOCKS, steps=observed["steps"],
+         divergences_vs_generate=divergences, k1_launches=observed["k1"],
+         k1_route_launches=observed["k1_routes"], k4_launches=observed["k4"],
+         k4_route_launches=observed["k4_routes"], unobserved_launches=[plain["k1"], plain["k4"]],
+         spans=len(spans), span_names=sorted({s.name for s in spans}), timeline_records=len(kit["timeline"]),
+         counters={k: v for k, v in kit["registry"].counters().items() if v},
+         trace=str(traces[0].relative_to(ROOT)) if traces else None,
+         trace_bytes=traces[0].stat().st_size if traces else None, trace_kernel_names=sorted(trace_kernels),
+         k1_kernels_in_trace=k1_seen, k4_kernels_in_trace=k4_seen, gauges=readings,
+         kv_exhaust=dict(bundles=[Path(b).name for b in bundles], preemptions=exhausted["preemptions"],
+                         steps=exhausted["steps"], incident_lines=len(incident.splitlines())),
+         kernel_builds=len(builds), kernel_build_ms_total=round(sum(r["compile_ms"] for r in builds), 3),
+         kernel_build_ms_max=max((r["compile_ms"] for r in builds), default=None),
+         decode_step_ms_p50=p50, telemetry_overhead_ms_per_step=overhead,
+         walls_s={"unobserved": [plain["wall_s"], plain_again["wall_s"]],
+                  "observed": [observed["wall_s"], observed_again["wall_s"]]})
+    if failures:
+        raise AssertionError("obs: " + "; ".join(failures))
+    return {k: observed[k] for k in ("k1", "k1_routes", "k4", "k4_routes")}
+
+
 # the cli phase: the CLM family's CLI at clm-base width (fit, validate,
 # test, serve) and the symbolic family's fit at GiantMIDI width
 CLI_MODEL = ["--model.num_channels=896", "--model.max_latents=512", "--model.num_heads=8",
@@ -3849,6 +4101,10 @@ CLI_ENGINES = {
               "--serve.slots=4", "--serve.kv_layout=paged", "--serve.speculation=off"],
 }
 CLI_SAM_STEPS = 4
+# the CLI fit's --obs.* flags (events and snapshot under its root dir; the
+# trigger fences each step and would arm on a 3x p95 regression)
+CLI_FIT_OBS = ["--obs.events_path=events.jsonl", "--obs.snapshot_every_s=5",
+               "--obs.profile_on_regress_factor=3.0"]
 
 
 def cli_run(torch, flash, ragged, main, argv, training=None) -> tuple:
@@ -3920,9 +4176,11 @@ def _cli_losses(root: Path) -> tuple:
     return [r["train/loss"] for r in rows if "train/loss" in r], [r["val/loss"] for r in rows if "val/loss" in r]
 
 
-def cli_serve(torch, flash, ragged, engine_mod, clm_script, ckpt: Path, prompts_file: Path, engine: str) -> tuple:
-    """``serve --ckpt`` in process: the JSON lines it printed, the requests
-    it submitted (recorded at ``ServingEngine.submit``) and the run's record."""
+def cli_serve(torch, flash, ragged, engine_mod, clm_script, ckpt: Path, prompts_file: Path, engine: str,
+              extra=()) -> tuple:
+    """``serve --ckpt`` in process (``extra``: more flags): the JSON lines it
+    printed, the requests it submitted (recorded at ``ServingEngine.submit``)
+    and the run's record."""
     import contextlib
     import io
 
@@ -3940,7 +4198,7 @@ def cli_serve(torch, flash, ragged, engine_mod, clm_script, ckpt: Path, prompts_
         with contextlib.redirect_stdout(out):
             _, rec = cli_run(torch, flash, ragged, clm_script.main,
                              ["serve", f"--ckpt={ckpt}", f"--serve.prompts={prompts_file}", *CLI_SERVE,
-                              *CLI_ENGINES[engine]])
+                              *CLI_ENGINES[engine], *extra])
     finally:
         engine_mod.ServingEngine.submit = submit
     lines = [json.loads(line) for line in out.getvalue().splitlines()]
@@ -3976,6 +4234,17 @@ def _serve_failures(lines, rows, decode, engine: str, rec: dict) -> list:
     return failures
 
 
+def obs_cli(clm_script, argv) -> str:
+    """One ``obs report|incident|timeline`` call through the CLI; what it printed."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        clm_script.main(argv)
+    return out.getvalue()
+
+
 def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, root: Path, smi: str) -> dict:
     """Phase 16: the port's CLI, driven through ``main(argv)`` as ``python
     -m`` calls it (and once as a real ``python -m`` process). Returns each
@@ -4002,9 +4271,10 @@ def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, roo
             "--data.batch_size=8", "--data.num_train_docs=32", "--data.num_valid_docs=8"]
     common = [*data, *CLI_MODEL, *CLI_TRAIN]
 
-    # (a) fit, then the same fit through Trainer.fit directly
+    # (a) fit with --obs.*, then the same fit through Trainer.fit directly
     state, runs["fit"] = cli_run(torch, flash, ragged, clm_script.main,
-                                 ["fit", *common, f"--trainer.default_root_dir={root / 'fit'}"], training)
+                                 ["fit", *common, f"--trainer.default_root_dir={root / 'fit'}", *CLI_FIT_OBS],
+                                 training)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4017,8 +4287,22 @@ def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, roo
         failures.append(f"losses {losses}")
     if cfg.vocab_size != ByteTokenizer.vocab_size:
         failures.append(f"vocab {cfg.vocab_size}: the link should give the byte tokenizer's 262")
+    # --obs.*: one fenced trainer.step span a step, one trace, a final snapshot
+    from perceiver_io_tpu_torch.observability import read_events_jsonl
+
+    fit_events = read_events_jsonl(str(root / "fit" / "events.jsonl"))
+    step_spans = [r for r in fit_events if r["span"] == "trainer.step"]
+    fit_snapshot = json.loads((root / "fit" / "metrics_snapshot.json").read_text())
+    if [r["attrs"]["step"] for r in step_spans] != list(range(1, TRAIN_STEPS + 1)) \
+            or any(r["attrs"]["measures"] != "fenced" for r in step_spans):
+        failures.append(f"trainer.step spans {[r['attrs'] for r in step_spans]}")
+    if len({r["trace_id"] for r in fit_events}) != 1 \
+            or fit_snapshot["counters"].get("trainer_steps_total") != TRAIN_STEPS:
+        failures.append(f"fit telemetry: {len(fit_events)} spans, snapshot counters {fit_snapshot['counters']}")
     emit("cli", part="fit", card=smi, model=dataclasses.asdict(cfg), steps=TRAIN_STEPS, losses=losses,
-         val_loss=val_loss, wall_s=runs["fit"]["wall_s"],
+         val_loss=val_loss, wall_s=runs["fit"]["wall_s"], obs_flags=CLI_FIT_OBS,
+         trainer_step_spans=len(step_spans), fit_spans=sorted({r["span"] for r in fit_events}),
+         trainer_step_ms=fit_snapshot["histograms"].get("trainer_step_ms"),
          launches_per_step={k: runs["fit"]["launches"][k] / TRAIN_STEPS for k in ("k1", "k2", "k3")},
          **{k: v for k, v in runs["fit"].items() if k != "wall_s"})
     if failures:
@@ -4071,11 +4355,18 @@ def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, roo
         return tok.decode([t for t in np.asarray(row).tolist() if t != tok.pad_token_id])
 
     served = {}
+    obs_paths = {k: root / f"serve_{k}" for k in ("events.jsonl", "timeline.jsonl", "snapshot.json")}
+    serve_obs = [f"--obs.events_path={obs_paths['events.jsonl']}", "--obs.timeline.steps=4096",
+                 f"--obs.timeline.export={obs_paths['timeline.jsonl']}",
+                 f"--obs.snapshot_path={obs_paths['snapshot.json']}"]
     for engine in ("bucket", "slots"):
-        lines, reqs, rec = cli_serve(torch, flash, ragged, engine_mod, clm_script, ckpt, prompts_file, engine)
+        lines, reqs, rec = cli_serve(torch, flash, ragged, engine_mod, clm_script, ckpt, prompts_file, engine,
+                                     serve_obs if engine == "slots" else ())
         runs[f"serve_{engine}"] = rec
         rows = [r.result for r in reqs]
         failures = _serve_failures(lines, rows, decode, engine, rec)
+        if engine == "slots" and not all(line.get("trace_id") for line in lines[:-1]):
+            failures.append(f"trace ids {[line.get('trace_id') for line in lines[:-1]]}: each line carries one")
         if engine == "bucket":
             mismatches = sum(int((row != ref).any()) for row, ref in zip(rows, refs))
             if mismatches:
@@ -4099,6 +4390,20 @@ def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, roo
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+    # obs report and obs timeline over what the observed slots run wrote
+    report = obs_cli(clm_script, ["obs", "report", f"--events={obs_paths['events.jsonl']}",
+                                  f"--snapshot={obs_paths['snapshot.json']}"])
+    timeline = obs_cli(clm_script, ["obs", "timeline", f"--timeline={obs_paths['timeline.jsonl']}",
+                                    f"--events={obs_paths['events.jsonl']}"])
+    emit("cli", part="obs_reports", card=smi, report_lines=len(report.splitlines()),
+         report_sections=[l for l in report.splitlines() if l.startswith("== ")],
+         timeline_lines=len(timeline.splitlines()),
+         timeline_sections=[l for l in timeline.splitlines() if l.startswith("== ")],
+         trace_ids=[line.get("trace_id") for line in served["slots"][:-1]])
+    for name, text, section in (("report", report, "== requests =="), ("timeline", timeline, "== slot gantt ==")):
+        if section not in text:
+            raise AssertionError(f"obs {name} over the serve run lacks {section!r}:\n{text[:2000]}")
 
     # the bucket run once more as a real `python -m ... serve` process
     env = dict(os.environ)
@@ -5398,6 +5703,8 @@ def main() -> int:
                           slots_mod, buckets, clm, serve, slot_launches, spec_root)
     sample = timed("sample", sample_phase, torch, clm, flash, ragged, gen_mod, samplers, beam_mod, pipelines_mod,
                    tokenizers_mod, engine_mod, slots_mod, buckets, serve, slot_launches)
+    obs = timed("obs", obs_phase, torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
+                ROOT / "build" / "chip_smoke_obs", smi)
     del serve, shared
     emit("memory_before_training", **held_memory(torch))
     k23 = timed("k23", k23_cases, torch, flash)
@@ -5474,6 +5781,8 @@ def main() -> int:
         "sample_launches": {run: v["k1"] for run, v in sample["runs"].items()},
         "sample_route_launches": {run: v["k1_routes"] for run, v in sample["runs"].items()},
         "beam_launches": sample["beam"]["k1"],
+        "obs_launches": obs["k1"],
+        "obs_route_launches": obs["k1_routes"],
         "beam_route_launches": sample["beam"]["k1_routes"],
         "train_resilience_launches": {run: v["k1"] for run, v in resilience.items()},
         "cli_launches": {run: r["launches"]["k1"] + r["validation_launches"]["k1"] for run, r in cli.items()},
@@ -5524,6 +5833,8 @@ def main() -> int:
         "slot_spec_launches": {run: v["k4"] for run, v in spec_launches.items()},
         "sample_launches": {run: v["k4"] for run, v in sample["runs"].items()},
         "sample_route_launches": {run: v["k4_routes"] for run, v in sample["runs"].items()},
+        "obs_launches": obs["k4"],
+        "obs_route_launches": obs["k4_routes"],
         "symbolic_launches": {f"slot_serve_{layout}": v["k4"] for layout, v in symbolic["slot_serve"].items()},
         "cli_launches": {run: cli[run]["launches"]["k4"] for run in ("serve_bucket", "serve_slots")},
         "cli_route_launches": {run: cli[run]["k4_routes"] for run in ("serve_bucket", "serve_slots")},

@@ -7,6 +7,12 @@ shared header (``csrc/*.cuh``) and the compile and link flags, so an edited
 source or header rebuilds and an unchanged one loads at once.
 :func:`build_all` starts one ``nvcc`` per source, all together.
 
+Every ``nvcc`` build is recorded in the build ledger
+(:func:`~perceiver_io_tpu_torch.observability.default_ledger`) at site
+``kernel_build``: the source is its identity, the library's 12-hex hash and
+the flags its components, the ``nvcc`` wall time its ``compile_ms``. A
+library loaded from ``build/kernels/`` as it is records nothing.
+
 Nothing here runs at import time: the first call of a kernel's wrapper
 builds its library.
 """
@@ -18,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -28,6 +35,8 @@ LINK_FLAGS = ["-shared", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: monotonic start time of each ``nvcc`` in flight, by source
+_STARTED: Dict[str, float] = {}
 #: ``nvcc`` output (``-Xptxas -v``: registers, shared memory, spills) by source
 BUILD_LOG: Dict[str, str] = {}
 
@@ -58,19 +67,37 @@ def _start(name: str) -> Optional[subprocess.Popen]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *LINK_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    _STARTED[name] = time.monotonic()
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
+def _record(name: str, out: Path, wall_s: float) -> None:
+    """One ``kernel_build`` record in the build ledger."""
+    from perceiver_io_tpu_torch.observability import default_ledger
+
+    default_ledger().record_build(
+        "kernel_build",
+        {"source": f"csrc/{name}.cu", "hash": out.stem.rsplit("-", 1)[1],
+         "flags": " ".join(NVCC_FLAGS + LINK_FLAGS)},
+        wall_s * 1e3,
+    )
+
+
+def _finish(name: str, proc: Optional[subprocess.Popen],
+            done: Optional[tuple] = None) -> None:
+    """Wait for ``nvcc`` (``done``: its output and the instant it ended, when
+    a reader thread already waited), install the library, record the build."""
     if proc is None:
         return
-    log, _ = proc.communicate()
+    log, ended = done if done is not None else (proc.communicate()[0], time.monotonic())
+    wall_s = ended - _STARTED.pop(name)
     BUILD_LOG[name] = log
     out = _target(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
+    _record(name, out, wall_s)
 
 
 def sources() -> List[str]:
@@ -81,8 +108,21 @@ def build_all() -> None:
     """Build every kernel library, one ``nvcc`` process per source in parallel."""
     with _LOCK:
         procs = {name: _start(name) for name in sources()}
+        done: Dict[str, tuple] = {}
+
+        def wait(name: str, proc: subprocess.Popen) -> None:
+            # one reader per build: each build's own wall time, though they
+            # run together (and no pipe fills while another is waited on)
+            done[name] = (proc.communicate()[0], time.monotonic())
+
+        readers = [threading.Thread(target=wait, args=(name, proc))
+                   for name, proc in procs.items() if proc is not None]
+        for t in readers:
+            t.start()
+        for t in readers:
+            t.join()
         for name, proc in procs.items():
-            _finish(name, proc)
+            _finish(name, proc, done.get(name))
 
 
 def load(name: str) -> ctypes.CDLL:

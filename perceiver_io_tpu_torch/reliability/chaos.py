@@ -5,7 +5,7 @@ Every fault is registered up front against a named **site** and a key, and
 fires when the site's hook is consulted with a matching key: no randomness,
 no wall clock and no monkeypatching, so a chaos drill replays bit for bit.
 The registry keeps every site of the JAX package (its helpers and keys are
-the same), but the port consults only one so far:
+the same); the port consults these:
 
 ==========================  =============================================
 site                        keying
@@ -14,12 +14,28 @@ site                        keying
                             step this trainer ran, NOT the step index, so
                             a fault does not fire again when rollback
                             replays the same step numbers
+``data.record``             execution count (1-based): the Nth record
+                            pulled from a chaos-wrapped source
+                            (:meth:`ChaosRegistry.wrap_source`)
+``serving.request``         explicit key: the ``request_id`` the engine
+                            assigned (0-based submission order); both
+                            engines, as the request is packed or admitted
+``serving.batch``           execution count (1-based): the Nth micro-batch
+                            the bucket engine dispatched, or the Nth
+                            decode step the slot engine ran; ``error``
+                            fails that batch's requests, or every resident
+``kv.exhaust``              execution count (1-based): the Nth decode step
+                            the slot engine ran with preemption enabled.
+                            ``error`` forces the first resident's page
+                            mapping down the ``PoolExhausted`` path that
+                            step (:meth:`ChaosRegistry.exhaust_kv`)
 ==========================  =============================================
 
-The serving and data sites come with observability (``ROADMAP.md`` A.4),
-the fleet's with outer serving (A.5). Fault kinds: ``"error"`` (the site raises an exception), ``"nan"``
-(the trainer replaces the step loss with NaN), ``"hang"`` (a clock advance
-by ``delay_s``; meaningful only with a :class:`FakeClock`).
+The fleet's and the gateway's sites (``fleet.*``, ``gateway.disconnect.*``)
+come with outer serving (``ROADMAP.md`` A.5). Fault kinds: ``"error"`` (the
+site raises an exception), ``"nan"`` (the trainer replaces the step loss
+with NaN), ``"hang"`` (a clock advance by ``delay_s``; meaningful only with
+a :class:`FakeClock`).
 """
 from __future__ import annotations
 

@@ -15,22 +15,31 @@ from :class:`~perceiver_io_tpu_torch.training.trainer.TrainerConfig`, plus
 ``--optimizer.*`` / ``--lr_scheduler.*`` / ``--serve.*``). ``--config
 file.yaml`` loads defaults (CLI flags win); ``link`` functions propagate
 data-derived values into the model config (e.g. vocab_size). Subcommands:
-``fit``, ``validate``, ``test``, ``preproc`` and ``serve``; ``validate`` and
+``fit``, ``validate``, ``test``, ``preproc``, ``serve`` and ``obs``; ``validate`` and
 ``test`` take ``--ckpt <dir>`` to evaluate a saved model; ``serve`` takes
 ``--ckpt <dir>`` plus ``--serve.*`` flags and runs text generation through
 the bucket or the slot engine, prompts from a file or stdin, one JSON line
-per completion and the engine's stats at the end. The flags, their parsing,
-the subcommands and every ``SystemExit`` message are the JAX package's.
+per completion and the engine's stats at the end; ``obs report|incident|
+timeline`` render what a run's ``--obs.*`` telemetry wrote. The flags, their
+parsing, the subcommands and every ``SystemExit`` message are the JAX
+package's.
 
 The port's own flag is ``--device`` (default ``cuda``): it places the model,
 the trainer and the engine; the CPU runs only on ``--device=cpu``.
 
+``--obs.*`` (``fit`` and ``serve``) builds the run's telemetry as JAX's CLI
+does: the metrics registry, the span tracer and its ``events.jsonl`` sink
+(with sampling and rotation), the snapshot writer, the profiler trigger
+(``torch.profiler`` Chrome traces under ``<root>/profile_regress``) and,
+for ``serve``, the SLO monitor, the incident flight recorder and the step
+timeline. Serve lines carry the request's ``trace_id``; ``serve_stats``
+carries the registry (``metrics``), the build ledger (``compile_ledger``)
+and the process-wide registry (``process_metrics``).
+
 Flag groups whose modules are not ported yet are known to the parser, and
 using one raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
-``obs report|incident|timeline`` and ``--obs.*`` (A.4); ``--serve.replicas``
-above 1, ``--serve.http.*`` and ``--serve.autoscale.*`` (A.5); ``--mesh.*``
-and ``--serve.mesh.*`` (A.6). Serve lines carry ``trace_id: null`` until
-A.4 brings the tracer.
+``--serve.replicas`` above 1, ``--serve.http.*`` and ``--serve.autoscale.*``
+(A.5); ``--mesh.*`` and ``--serve.mesh.*`` (A.6).
 
 Model-family entry points are declarative :class:`ModelFamily` records; see
 ``perceiver_io_tpu_torch/scripts/text/clm.py`` for the pattern.
@@ -44,6 +53,8 @@ import typing
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
+
+from perceiver_io_tpu_torch.observability import ObservabilityArgs
 
 
 # -- dataclass <-> flags ---------------------------------------------------
@@ -198,55 +209,6 @@ class AutoscaleArgs:
 
 
 @dataclasses.dataclass
-class SLOArgs:
-    """``--obs.slo.*`` (A.4)."""
-
-    ttft_p95_ms: Optional[float] = None
-    inter_token_p95_ms: Optional[float] = None
-    error_rate: Optional[float] = None
-    fast_window_s: float = 60.0
-    slow_window_s: float = 600.0
-    burn_rate: float = 2.0
-    shed_factor: float = 0.5
-
-
-@dataclasses.dataclass
-class IncidentArgs:
-    """``--obs.incident.*`` (A.4)."""
-
-    dir: Optional[str] = None
-    cooldown_s: float = 60.0
-    max_bundles: int = 8
-    keep_spans: int = 512
-
-
-@dataclasses.dataclass
-class TimelineArgs:
-    """``--obs.timeline.*`` (A.4). ``swap_gbps`` is also the slot engine's
-    post-mortem link rate when no swap mode sets one, as in JAX."""
-
-    steps: int = 0
-    export: Optional[str] = None
-    swap_gbps: float = 16.0
-
-
-@dataclasses.dataclass
-class ObservabilityArgs:
-    """``--obs.*``, shared by ``fit`` and ``serve`` (A.4)."""
-
-    events_path: Optional[str] = None
-    snapshot_every_s: Optional[float] = None
-    snapshot_path: Optional[str] = None
-    profile_on_regress_factor: Optional[float] = None
-    trace_sample: Optional[float] = None
-    trace_keep_slow_ms: Optional[float] = None
-    events_max_bytes: Optional[int] = None
-    slo: SLOArgs = dataclasses.field(default_factory=SLOArgs)
-    incident: IncidentArgs = dataclasses.field(default_factory=IncidentArgs)
-    timeline: TimelineArgs = dataclasses.field(default_factory=TimelineArgs)
-
-
-@dataclasses.dataclass
 class MeshConfig:
     """``--mesh.*``: the training mesh's parallelism degrees (A.6)."""
 
@@ -263,9 +225,6 @@ def _unported(flags: str, item: str) -> NotImplementedError:
 def _refuse_unported(values: Dict[str, Any]) -> None:
     """Raise for a flag of a group whose modules are not ported yet."""
     keys = set(values)
-    if any(k.startswith("obs.") for k in keys):
-        raise _unported("--obs.* (observability: tracer, metrics, SLOs, flight recorder, timeline)",
-                        "A.4")
     if any(k.startswith(("mesh.", "serve.mesh.")) for k in keys):
         raise _unported("--mesh.* / --serve.mesh.* (parallelism over a device mesh)", "A.6")
     if any(k.startswith("serve.http.") for k in keys):
@@ -275,6 +234,183 @@ def _refuse_unported(values: Dict[str, Any]) -> None:
     replicas = values.get("serve.replicas", 1)
     if isinstance(replicas, int) and replicas > 1:
         raise _unported("--serve.replicas > 1 (the supervised fleet router)", "A.5")
+
+
+def _obs_kit(obs, root: str, *, passed: Optional[set] = None) -> Dict[str, Any]:
+    """Build the ``--obs.*`` flag group into the run's registry, tracer,
+    events sink, snapshot writer, profiler trigger, SLO monitor, flight
+    recorder and timeline (JAX's ``_obs_kit`` on one process). Every field
+    defaults to off; relative paths land under ``root``. Callers close
+    ``kit["sink"]``."""
+    import os
+    import time
+
+    from perceiver_io_tpu_torch.observability import (
+        FlightRecorder,
+        JsonlSpanSink,
+        MetricsRegistry,
+        ProfilerTrigger,
+        SamplingSpanSink,
+        SLOMonitor,
+        SnapshotWriter,
+        StepTimeline,
+        Tracer,
+        default_ledger,
+        default_registry,
+    )
+
+    def _resolve(path: str) -> str:
+        if not os.path.isabs(path):
+            path = os.path.join(root, path)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        return path
+
+    # the sampling and rotation knobs shape the events stream: asking for
+    # them without a stream must not silently do nothing
+    if obs.events_path is None:
+        for flag, value in (("--obs.trace_sample", obs.trace_sample),
+                            ("--obs.trace_keep_slow_ms", obs.trace_keep_slow_ms),
+                            ("--obs.events_max_bytes", obs.events_max_bytes)):
+            if value is not None:
+                raise SystemExit(f"{flag} shapes the span stream; set --obs.events_path "
+                                 "to enable it (docs/observability.md)")
+    if obs.trace_sample is not None and not 0.0 < obs.trace_sample <= 1.0:
+        raise SystemExit(f"--obs.trace_sample must be in (0, 1], got {obs.trace_sample}")
+    if obs.trace_keep_slow_ms is not None and obs.trace_sample is None:
+        raise SystemExit("--obs.trace_keep_slow_ms is a trace-sampling tail-keep rule; "
+                         "set --obs.trace_sample to enable sampling")
+    registry = MetricsRegistry()
+    sink = None
+    tracer = None
+    if obs.events_path is not None:
+        sink = JsonlSpanSink(_resolve(obs.events_path), max_bytes=obs.events_max_bytes)
+        if obs.trace_sample is not None:
+            # the outer sink, so close() flushes undecided traces first
+            sink = SamplingSpanSink(sink, rate=obs.trace_sample,
+                                    keep_slow_ms=obs.trace_keep_slow_ms, registry=registry)
+        # a per-run id prefix: the sink appends, and a restarted process
+        # would otherwise re-issue t000001... into the same file
+        tracer = Tracer(sink=sink, prefix=f"{os.getpid():x}.{int(time.time()) & 0xFFFFFF:x}.")
+    snapshot_writer = None
+    if obs.snapshot_every_s is not None or obs.snapshot_path is not None:
+        snapshot_writer = SnapshotWriter(
+            registry, _resolve(obs.snapshot_path or "metrics_snapshot.json"),
+            every_s=obs.snapshot_every_s,
+            # the build ledger's table and the process-wide registry (where
+            # the ledger's families and the device gauges live) ride along
+            extra=lambda: {"compile_ledger": default_ledger().snapshot(),
+                           "process_metrics": default_registry().snapshot()},
+        )
+    slo_monitor = None
+    if obs.slo.enabled:
+        slo_monitor = SLOMonitor(
+            obs.slo.policy(), registry=registry,
+            tracer=None,  # run_serve swaps in its tracer
+            fast_window_s=obs.slo.fast_window_s, slow_window_s=obs.slo.slow_window_s,
+            breach_burn_rate=obs.slo.burn_rate,
+        )
+    flight_recorder = None
+    if obs.incident.dir is not None:
+        incident_dir = obs.incident.dir
+        if not os.path.isabs(incident_dir):
+            incident_dir = os.path.join(root, incident_dir)
+        flight_recorder = FlightRecorder(
+            incident_dir, tracer=tracer, registry=registry, cooldown_s=obs.incident.cooldown_s,
+            max_bundles=obs.incident.max_bundles, keep_spans=obs.incident.keep_spans,
+        )
+    elif obs.incident != type(obs.incident)() or any(
+            k.startswith("obs.incident.") for k in (passed or ())):
+        raise SystemExit("--obs.incident.* tunes the incident flight recorder, which is "
+                         "enabled by setting --obs.incident.dir (docs/observability.md)")
+    timeline = None
+    timeline_export = None
+    if obs.timeline.enabled:
+        if obs.timeline.swap_gbps <= 0:
+            raise SystemExit(f"--obs.timeline.swap_gbps must be > 0, got {obs.timeline.swap_gbps}")
+        timeline = StepTimeline(cap=obs.timeline.steps, registry=registry)
+        if obs.timeline.export is not None:
+            timeline_export = _resolve(obs.timeline.export)
+    elif obs.timeline != type(obs.timeline)() or any(
+            k.startswith("obs.timeline.") for k in (passed or ())):
+        raise SystemExit("--obs.timeline.* tunes the scheduler step timeline, which is "
+                         "enabled by setting --obs.timeline.steps (docs/observability.md)")
+    trigger = None
+    if obs.profile_on_regress_factor is not None:
+        trigger = ProfilerTrigger(os.path.join(root, "profile_regress"),
+                                  factor=obs.profile_on_regress_factor)
+    if slo_monitor is not None:
+        # a breach arms the trigger and dumps an incident bundle
+        slo_monitor.profiler_trigger = trigger
+        slo_monitor.flight_recorder = flight_recorder
+    return {
+        "registry": registry, "tracer": tracer, "sink": sink,
+        "snapshot_writer": snapshot_writer, "trigger": trigger, "slo_monitor": slo_monitor,
+        "flight_recorder": flight_recorder, "timeline": timeline,
+        "timeline_export": timeline_export,
+    }
+
+
+def _run_obs(argv: Sequence[str]) -> str:
+    """``obs report|incident|timeline``: the offline analyzers over what a
+    run's telemetry wrote; no checkpoint, no model, no card."""
+    import json as _json
+
+    from perceiver_io_tpu_torch.observability import report as report_mod
+
+    if len(argv) < 1 or argv[0] not in ("report", "incident", "timeline"):
+        raise SystemExit(
+            "usage: obs report --events <events.jsonl> "
+            "[--snapshot <snapshot.json>] [--top N] [--json true]\n"
+            "       obs incident --bundle <incident dir> "
+            "[--top N] [--json true]\n"
+            "       obs timeline --timeline <timeline.jsonl> "
+            "[--events <events.jsonl>] [--snapshot <snapshot.json>] "
+            "[--trace_out <trace.json>] [--top N] [--json true]"
+        )
+    if argv[0] == "incident":
+        vals = _parse_dotted(argv[1:], {"bundle": str, "top": int, "json": bool})
+        if "bundle" not in vals:
+            raise SystemExit("obs incident requires --bundle <incident dir>")
+        try:
+            text = report_mod.run_incident(vals["bundle"], top=int(vals.get("top", 8)),
+                                           as_json=bool(vals.get("json", False)))
+        except _json.JSONDecodeError as e:  # a ValueError: caught first, with the path
+            raise SystemExit(f"obs incident: bundle manifest is not valid JSON "
+                             f"({vals.get('bundle')}: {e})")
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"obs incident: {e}")
+        print(text)
+        return text
+    if argv[0] == "timeline":
+        vals = _parse_dotted(argv[1:], {"timeline": str, "events": str, "snapshot": str,
+                                        "trace_out": str, "top": int, "json": bool})
+        if "timeline" not in vals:
+            raise SystemExit("obs timeline requires --timeline <timeline.jsonl> "
+                             "(a --obs.timeline.export file)")
+        try:
+            text = report_mod.run_timeline(
+                vals["timeline"], vals.get("events"), vals.get("snapshot"),
+                trace_out=vals.get("trace_out"), top=int(vals.get("top", 20)),
+                as_json=bool(vals.get("json", False)))
+        except _json.JSONDecodeError as e:
+            raise SystemExit(f"obs timeline: artifact is not valid JSON "
+                             f"({vals.get('timeline')}: {e})")
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"obs timeline: {e}")
+        print(text)
+        return text
+    vals = _parse_dotted(argv[1:], {"events": str, "snapshot": str, "top": int, "json": bool})
+    if "events" not in vals:
+        raise SystemExit("obs report requires --events <events.jsonl>")
+    try:
+        text = report_mod.run(vals["events"], vals.get("snapshot"), top=int(vals.get("top", 20)),
+                              as_json=bool(vals.get("json", False)))
+    except OSError as e:
+        raise SystemExit(f"obs report: {e}")
+    except _json.JSONDecodeError as e:
+        raise SystemExit(f"obs report: --snapshot is not valid JSON ({vals.get('snapshot')}: {e})")
+    print(text)
+    return text
 
 
 @dataclasses.dataclass
@@ -499,7 +635,7 @@ class CLI:
                 "(fit|validate|test|preproc|serve|obs)"
             )
         if subcommand == "obs":
-            raise _unported("obs report|incident|timeline (the offline analyzers)", "A.4")
+            return _run_obs(argv[1:])
         if subcommand == "serve":
             # serve needs no datamodule: the checkpoint's embedded config
             # picks the model, and prompts come from a file or stdin.
@@ -549,6 +685,18 @@ class CLI:
         from perceiver_io_tpu_torch.training.trainer import Trainer, TrainerConfig
 
         _refuse_unported(values)
+        if any(k.startswith("obs.slo.") for k in values):
+            # SLO targets judge serving token latency; a fit has none
+            raise SystemExit(
+                "--obs.slo.* applies to the serve subcommand (SLO targets "
+                "monitor serving token latency; docs/observability.md)"
+            )
+        if any(k.startswith("obs.timeline.") for k in values):
+            raise SystemExit(
+                "--obs.timeline.* applies to the serve subcommand (the "
+                "step timeline records scheduler passes; "
+                "docs/observability.md)"
+            )
         device = resolve_device(values.get("device", "cuda"))
         data_kwargs = {
             k.split(".", 1)[1]: v for k, v in values.items() if k.startswith("data.")
@@ -598,6 +746,8 @@ class CLI:
         elif self.family.initial_params is not None:
             self.family.initial_params(model, model_cfg, dm)
 
+        obs = build_dataclass(ObservabilityArgs, values, "obs")
+        kit = _obs_kit(obs, trainer_cfg.default_root_dir, passed=set(values))
         trainer = Trainer(
             trainer_cfg,
             self.family.make_loss(model, model_cfg),
@@ -605,15 +755,26 @@ class CLI:
             model_config=model_cfg,
             lr_schedule=schedule,
             device=device,
+            registry=kit["registry"],
+            tracer=kit["tracer"],
+            profiler_trigger=kit["trigger"],
+            snapshot_writer=kit["snapshot_writer"],
         )
-        if subcommand in ("validate", "test"):
-            trainer.setup_state(model)
-            loader = dm.test_dataloader() if subcommand == "test" else dm.val_dataloader()
-            metrics = trainer.test(loader) if subcommand == "test" else trainer.validate(loader)
-            print(json.dumps({k: round(float(v), 6) for k, v in metrics.items()}))
-            return metrics
+        try:
+            if subcommand in ("validate", "test"):
+                trainer.setup_state(model)
+                loader = dm.test_dataloader() if subcommand == "test" else dm.val_dataloader()
+                metrics = trainer.test(loader) if subcommand == "test" else trainer.validate(loader)
+                print(json.dumps({k: round(float(v), 6) for k, v in metrics.items()}))
+                return metrics
 
-        return trainer.fit(model, dm.train_dataloader(), val_data=dm.val_dataloader)
+            return trainer.fit(model, dm.train_dataloader(), val_data=dm.val_dataloader)
+        finally:
+            # validate/test never reach fit's own forced write
+            if kit["snapshot_writer"] is not None:
+                kit["snapshot_writer"].maybe_write(force=True)
+            if kit["sink"] is not None:
+                kit["sink"].close()
 
     # -- serving -----------------------------------------------------------
     def run_serve(self, values: Dict[str, Any]) -> list:
@@ -625,8 +786,11 @@ class CLI:
         a per-line ``{"prompt": ..., "error": ...}`` record instead of
         aborting the run; a bounded queue (``--serve.max_queue``)
         backpressures by draining before resubmitting; timed-out or failed
-        requests surface their status per line.
+        requests surface their status per line. Every line carries its
+        request's ``trace_id``: the engine always gets a tracer (without
+        ``--obs.events_path`` its spans stay in memory).
         """
+        import os
         import time
 
         import torch
@@ -638,6 +802,7 @@ class CLI:
         from perceiver_io_tpu_torch.inference.samplers import SamplingConfig
         from perceiver_io_tpu_torch.models import model_for_config
         from perceiver_io_tpu_torch.models.text.clm import CausalLanguageModel
+        from perceiver_io_tpu_torch.observability import Tracer, default_ledger
         from perceiver_io_tpu_torch.serving.buckets import BucketTable
         from perceiver_io_tpu_torch.serving.engine import ServingEngine
         from perceiver_io_tpu_torch.serving.slots import PREEMPTION_MODES, SlotServingEngine
@@ -649,6 +814,27 @@ class CLI:
             raise SystemExit("serve requires --ckpt <save_pretrained dir>")
         args = build_dataclass(ServeArgs, values, "serve")
         device = resolve_device(values.get("device", "cuda"))
+        obs = build_dataclass(ObservabilityArgs, values, "obs")
+        kit = _obs_kit(obs, os.getcwd(), passed=set(values))
+        tracer = kit["tracer"] or Tracer()
+        if kit["slo_monitor"] is not None:
+            kit["slo_monitor"].tracer = tracer
+        if kit["flight_recorder"] is not None:
+            kit["flight_recorder"].tracer = tracer
+        # the ledger's kernel builds stream into events.jsonl as
+        # ``ledger.compile`` events, so ``obs report`` over the events alone
+        # still carries the build table
+        ledger = default_ledger()
+        detach_ledger = ledger.attach(
+            lambda rec: tracer.event(
+                "ledger.compile", site=rec["site"], compile_ms=rec["compile_ms"],
+                flops=rec["flops"], bytes_accessed=rec["bytes_accessed"],
+                argument_bytes=rec["argument_bytes"], output_bytes=rec["output_bytes"],
+                temp_bytes=rec["temp_bytes"], retrace=rec["retrace"],
+                reasons=",".join(rec["retrace_reasons"]),
+                bucket_shape=rec["components"].get("bucket_shape"),
+            )
+        ) if kit["sink"] is not None else (lambda: None)
         try:
             state, model_cfg = load_pretrained(ckpt)
             if model_cfg is None:
@@ -740,6 +926,11 @@ class CLI:
                 generator=torch.Generator(device=device).manual_seed(args.seed),
                 max_queue=args.max_queue,
                 default_deadline_s=args.deadline_s,
+                registry=kit["registry"],
+                tracer=tracer,
+                # the slot engine feeds each decode step's ms, the bucket
+                # engine each batch's; an armed trigger captures the next
+                profiler_trigger=kit["trigger"],
                 decode_strategy=decode_mode,
                 device=device,
             )
@@ -769,7 +960,7 @@ class CLI:
                 if args.preemption in ("swap", "auto"):
                     link_gbps = args.swap_gbps
                 else:
-                    link_gbps = TimelineArgs().swap_gbps
+                    link_gbps = obs.timeline.swap_gbps
                 engine = SlotServingEngine(
                     model, gen_cfg, table, slots=args.slots,
                     prefill_chunk=args.prefill_chunk,
@@ -819,6 +1010,25 @@ class CLI:
                         "draft ahead of)"
                     )
                 engine = ServingEngine(model, gen_cfg, table, **engine_kwargs)
+            flight_recorder = kit["flight_recorder"]
+            engine.flight_recorder = flight_recorder
+            engine.timeline = kit["timeline"]
+            if kit["slo_monitor"] is not None:
+                # the engine mirrors every TTFT/ITL sample into the monitor;
+                # the error rate diffs the serving_* counters per poll
+                engine.latency_sink = kit["slo_monitor"].sink
+                kit["slo_monitor"].watch_counters(kit["registry"].counters, prefix="serving")
+            if flight_recorder is not None:
+                # the state each incident bundle captures
+                flight_recorder.add_source("health", engine.health)
+                if kit["slo_monitor"] is not None:
+                    flight_recorder.add_source("slo", kit["slo_monitor"].stats)
+                if getattr(engine, "_pool", None) is not None:
+                    flight_recorder.add_source("kv_pool", engine._pool.stats)
+                if kit["timeline"] is not None:
+                    flight_recorder.add_source("timeline", kit["timeline"].summary)
+                if hasattr(engine, "postmortems"):
+                    flight_recorder.add_source("preemption_postmortems", engine.postmortems)
             if args.warmup:
                 t0 = time.monotonic()
                 driven = engine.warmup()
@@ -843,23 +1053,38 @@ class CLI:
             if not prompts:
                 raise SystemExit("serve: no prompts (empty file/stdin)")
 
-            return self._serve_prompts(engine, tok, prompts, args)
+            return self._serve_prompts(engine, tok, prompts, args, kit)
         finally:
             # swap transfers calibrate the per-platform link rate during
             # serving: persist the measured value for the next process
             if args.decode_strategy_file \
                     and args.preemption in ("swap", "auto"):
                 strategy_mod.save_registry(args.decode_strategy_file)
+            # even an exception mid-drain leaves a final snapshot, the
+            # timeline on disk and a closed events file
+            detach_ledger()
+            ledger.update_device_gauges()
+            if kit["snapshot_writer"] is not None:
+                kit["snapshot_writer"].maybe_write(force=True)
+            if kit["timeline_export"] is not None and kit["timeline"] is not None:
+                n = kit["timeline"].write_jsonl(kit["timeline_export"])
+                print(f"[serve] timeline: wrote {n} step records to {kit['timeline_export']}",
+                      file=sys.stderr, flush=True)
+            if kit["sink"] is not None:
+                kit["sink"].close()
 
-    def _serve_prompts(self, engine, tok, prompts, args) -> list:
+    def _serve_prompts(self, engine, tok, prompts, args, kit) -> list:
         import json
         import time
 
+        from perceiver_io_tpu_torch.observability import default_ledger, default_registry
         from perceiver_io_tpu_torch.reliability import QueueFull
 
         t0 = time.monotonic()
         pad_id = tok.pad_token_id or 0
-        # (prompt, ServeRequest | None, error | None, status)
+        writer, recorder, slo_monitor = (kit["snapshot_writer"], kit["flight_recorder"],
+                                         kit["slo_monitor"])
+        # (prompt, ServeRequest | None, error | None, trace_id | None, status)
         handles: list = []
         for p in prompts:
             ids = np.asarray(tok.encode(p), np.int32)
@@ -869,35 +1094,48 @@ class CLI:
                 while not engine.health()["ready"] and engine.pending():
                     engine.step()
                 req = engine.submit(ids)
-                handles.append((p, req, None, None))
+                handles.append((p, req, None, req.trace_id, None))
             except (ValueError, QueueFull) as e:
-                # reject/shed this line, keep serving the rest
+                # reject/shed this line, keep serving the rest; the engine
+                # already wrote its terminal span, whose trace id it carries
                 handles.append(
-                    (p, None, f"{type(e).__name__}: {e}",
+                    (p, None, f"{type(e).__name__}: {e}", getattr(e, "trace_id", None),
                      "shed" if isinstance(e, QueueFull) else "rejected")
                 )
+            if writer is not None:
+                writer.maybe_write()
+            if recorder is not None:
+                recorder.maybe_record()
         # drive off pending(), not step()'s return value: a slot-engine step
-        # advances one token and legitimately disposes of nothing
+        # advances one token and legitimately disposes of nothing; the
+        # snapshot cadence, the SLO polls and the recorder's ring keep up
         while engine.pending():
             engine.step()
+            if slo_monitor is not None:
+                slo_monitor.poll()
+            if writer is not None:
+                writer.maybe_write()
+            if recorder is not None:
+                recorder.maybe_record()
+        if slo_monitor is not None:
+            slo_monitor.poll()  # the last step's dispositions
         engine.drain()  # queue already empty: just stop accepting
         wall_s = time.monotonic() - t0
 
         results = []
-        for p, req, error, status in handles:
-            # trace_id: the tracer's join key, null until A.4 ports it
+        for p, req, error, trace_id, status in handles:
             if req is not None and req.status == "ok":
                 completion = tok.decode([t for t in req.result.tolist() if t != pad_id])
                 results.append({
                     "prompt": p, "completion": completion,
-                    "status": "ok", "trace_id": None,
+                    "status": "ok", "trace_id": trace_id,
                 })
             else:
                 results.append({
                     "prompt": p,
                     "error": error if req is None else (req.error or req.status),
                     "status": status if req is None else req.status,
-                    "trace_id": None,
+                    "trace_id": trace_id,
                 })
         for row in results:
             print(json.dumps(row), flush=True)
@@ -905,11 +1143,22 @@ class CLI:
             stats = engine.stats()
             stats["health"] = engine.health()
             stats["wall_s"] = round(wall_s, 3)
+            stats["metrics"] = engine.registry.snapshot()
+            # the full build table and the process-wide registry (the
+            # ledger's families, the device and KV gauges)
+            stats["compile_ledger"] = default_ledger().snapshot()
+            stats["process_metrics"] = default_registry().snapshot()
+            if slo_monitor is not None:
+                stats["slo"] = slo_monitor.stats()
+            if recorder is not None:
+                stats["incident"] = recorder.stats()
+            if kit["timeline"] is not None and "timeline" not in stats:
+                stats["timeline"] = kit["timeline"].summary()
             print(json.dumps({"serve_stats": stats}), flush=True)
         return results
 
     def _print_help(self) -> None:
-        print(f"usage: {self.family.name} {{fit|validate|test|preproc|serve}} [--flag=value ...]")
+        print(f"usage: {self.family.name} {{fit|validate|test|preproc|serve|obs}} [--flag=value ...]")
         print("flag groups: --model.* --data.* --trainer.* --optimizer.* "
               "--lr_scheduler.* --config=<yaml> --data=<name> --ckpt=<dir> "
               "--params=<dir> --device={cuda|cpu}")
@@ -923,9 +1172,31 @@ class CLI:
               "--serve.preemption={recompute|swap|auto} --serve.admit_headroom_blocks "
               "--serve.swap_gbps --serve.prompt_buckets --serve.batch_buckets "
               "--serve.warmup --serve.seed --serve.max_queue --serve.deadline_s")
-        print("not ported yet (NotImplementedError): the obs subcommand and --obs.* "
-              "(ROADMAP.md A.4); --serve.replicas > 1, --serve.http.*, "
-              "--serve.autoscale.* (A.5); --mesh.*, --serve.mesh.* (A.6)")
+        print("observability: --obs.events_path=<events.jsonl> --obs.snapshot_every_s "
+              "--obs.snapshot_path --obs.profile_on_regress_factor "
+              "--obs.trace_sample=<0..1> --obs.trace_keep_slow_ms "
+              "--obs.events_max_bytes (fit and serve; docs/observability.md)")
+        print("incident flight recorder: --obs.incident.dir=<dir> "
+              "--obs.incident.cooldown_s --obs.incident.max_bundles "
+              "--obs.incident.keep_spans — triggered bounded bundles at the "
+              "serving seams (SLO breach, pool exhaustion, preemption storm); "
+              "analyze with obs incident --bundle=<dir>")
+        print("slo (serve): --obs.slo.ttft_p95_ms --obs.slo.inter_token_p95_ms "
+              "--obs.slo.error_rate --obs.slo.fast_window_s --obs.slo.slow_window_s "
+              "--obs.slo.burn_rate --obs.slo.shed_factor — burn-rate monitor, "
+              "breach events")
+        print("timeline (serve): --obs.timeline.steps=<n> --obs.timeline.export"
+              "=<timeline.jsonl> --obs.timeline.swap_gbps — per-pass scheduler "
+              "ring (admissions, slot occupancy, preemption post-mortems); "
+              "analyze with obs timeline")
+        print("obs report: --events=<events.jsonl> [--snapshot=<snapshot.json>] "
+              "[--top N] [--json true] — offline latency/compile/padding report")
+        print("obs incident: --bundle=<incident dir> [--top N] [--json true]")
+        print("obs timeline: --timeline=<timeline.jsonl> [--events=<events.jsonl>] "
+              "[--snapshot=<snapshot.json>] [--trace_out=<trace.json>] — "
+              "per-slot gantt + per-request decomposition + Chrome-trace export")
+        print("not ported yet (NotImplementedError): --serve.replicas > 1, --serve.http.*, "
+              "--serve.autoscale.* (ROADMAP.md A.5); --mesh.*, --serve.mesh.* (A.6)")
         print(f"data modules: {sorted(self.family.data_registry)}")
 
 

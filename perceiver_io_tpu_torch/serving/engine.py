@@ -19,12 +19,25 @@ most the shortest served prompt. Sampled configs draw from the engine's
 noise at the bucket's padded batch shape, in turn (JAX splits one key per
 micro-batch).
 
-Chaos hooks, span tracing, the metrics registry export and the profiler
-trigger belong to the telemetry layer and are not ported yet; counters and
-latency samples live on the engine.
+Telemetry, as in JAX: every counter lives on a
+:class:`~perceiver_io_tpu_torch.observability.MetricsRegistry` under its
+canonical name (``stats()`` reads it back beside the short keys of
+:data:`STAT_ALIASES`), with queue-wait, batch-assembly, device-execute and
+token-latency histograms; an optional
+:class:`~perceiver_io_tpu_torch.observability.Tracer` threads one trace per
+request, ending in exactly one terminal ``serving.request`` span; an
+optional ``chaos`` registry is consulted at ``serving.request`` (per
+request) and ``serving.batch`` (per micro-batch); an optional
+:class:`~perceiver_io_tpu_torch.observability.ProfilerTrigger` captures the
+next dispatch under ``torch.profiler`` after a p95 regression; and the
+``timeline``, ``flight_recorder`` and ``latency_sink`` attributes attach the
+scheduler step timeline, the incident recorder and an SLO monitor's feed.
+Each is skipped when unset. The raw latency samples also stay on the engine
+(:attr:`ServingEngine.samples`).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
@@ -36,6 +49,7 @@ from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
 from perceiver_io_tpu_torch.inference import decode_strategy as decode_strategy_mod
 from perceiver_io_tpu_torch.inference.generate import GenerationConfig, generate
 from perceiver_io_tpu_torch.inference.samplers import default_generator
+from perceiver_io_tpu_torch.observability import MetricsRegistry, Tracer, default_ledger
 from perceiver_io_tpu_torch.reliability import QueueFull
 from perceiver_io_tpu_torch.serving.buckets import BucketTable
 
@@ -62,12 +76,48 @@ _EXTRA_COUNTERS = (
     "serving_prompt_tokens_padded_total",
     "serving_decode_rows_total",
     "serving_decode_rows_padded_total",
-    "serving_token_sink_errors_total",
 )
+#: the engine's raw sample lists -> the registry histogram each feeds
+SAMPLE_HISTOGRAMS = {
+    "queue_wait_ms": "serving_queue_wait_ms",
+    "ttft_ms": "serving_ttft_ms",
+    "inter_token_ms": "serving_inter_token_ms",
+    "device_execute_ms": "serving_device_execute_ms",
+    "request_latency_ms": "serving_request_latency_ms",
+}
+
+#: shared no-op capture context for unarmed dispatches
+_NULL_CAPTURE = contextlib.nullcontext()
 
 
-def _percentile(samples: List[float], q: float) -> Optional[float]:
-    return None if not samples else round(float(np.percentile(samples, q)), 3)
+class _SafeCapture:
+    """A profiler capture that cannot fail the dispatch it observes: enter
+    and exit errors (a profiler already running, an unwritable directory)
+    degrade to no capture instead of failing the requests in flight."""
+
+    __slots__ = ("_ctx",)
+
+    def __init__(self, ctx):
+        self._ctx = ctx
+
+    def __enter__(self):
+        try:
+            return self._ctx.__enter__()
+        except Exception:
+            self._ctx = None
+            return None
+
+    def __exit__(self, *exc):
+        if self._ctx is None:
+            return False
+        try:
+            return self._ctx.__exit__(*exc)
+        except Exception:
+            return False  # never replace the dispatch's own exception
+
+
+def _round_ms(v: Optional[float]) -> Optional[float]:
+    return None if v is None else round(v, 3)
 
 
 @dataclass
@@ -85,6 +135,11 @@ class ServeRequest:
     result: Optional[np.ndarray] = None  # (max_new_tokens,) ids, pad after EOS
     status: str = "queued"
     error: Optional[str] = None
+    #: the request's trace id (None without a tracer): the join key between
+    #: the serve CLI's lines and ``events.jsonl``
+    trace_id: Optional[str] = None
+    #: TTFT anchor on the engine clock; None is ``submitted_at``
+    ttft_anchor_s: Optional[float] = None
     #: scheduling tier, higher is more important: the slot engine admits
     #: higher tiers first and, under preemption, preempts only lower tiers
     #: to admit one; the bucket engine stores it and ignores it
@@ -100,6 +155,10 @@ class ServeRequest:
     #: restarts at 0), once per token at batch completion on the bucket
     #: engine. A raising sink is counted, never fails the request.
     on_token: Optional[Callable[[int, int], None]] = None
+
+    @property
+    def ttft_from_s(self) -> float:
+        return self.submitted_at if self.ttft_anchor_s is None else self.ttft_anchor_s
 
     @property
     def done(self) -> bool:
@@ -122,6 +181,17 @@ class ServingEngine:
         :mod:`~perceiver_io_tpu_torch.inference.decode_strategy`).
     :param generator: the sampled configs' draws, a ``torch.Generator`` on
         ``device``; None is one seeded 0 (JAX's ``rng=None`` is ``PRNGKey(0)``).
+    :param chaos: optional :class:`~perceiver_io_tpu_torch.reliability.ChaosRegistry`,
+        consulted at ``serving.request`` and ``serving.batch``; None skips it.
+    :param registry: the metrics registry the counters and histograms live
+        on; None is a private one (two engines must not double-count).
+    :param tracer: optional span tracer: one trace per request, one terminal
+        ``serving.request`` span per submission, one ``serving.batch`` span
+        per micro-batch.
+    :param profiler_trigger: optional
+        :class:`~perceiver_io_tpu_torch.observability.ProfilerTrigger`, fed
+        each micro-batch's execute ms (the slot engine: each decode step's);
+        once armed, the next dispatch runs under ``torch.profiler``.
     :param device: ``"cuda"`` by default; the CPU only when asked for.
     """
 
@@ -130,7 +200,9 @@ class ServingEngine:
                  default_deadline_s: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic,
                  decode_strategy: Optional[str] = None,
-                 generator: Optional[torch.Generator] = None, device: DeviceLike = "cuda"):
+                 generator: Optional[torch.Generator] = None, chaos=None,
+                 registry: Optional[MetricsRegistry] = None, tracer: Optional[Tracer] = None,
+                 profiler_trigger=None, device: DeviceLike = "cuda"):
         if decode_strategy is not None and decode_strategy not in decode_strategy_mod.MODES:
             raise ValueError(
                 f"decode_strategy must be one of {decode_strategy_mod.MODES}, got {decode_strategy!r}"
@@ -151,54 +223,151 @@ class ServingEngine:
         self.max_queue = max_queue
         self.default_deadline_s = default_deadline_s
         self._clock = clock
+        self._chaos = chaos
         self._queue: List[ServeRequest] = []
         self._next_id = 0
         self._accepting = True
-        self.counters: Dict[str, int] = dict.fromkeys((*STAT_ALIASES, *_EXTRA_COUNTERS), 0)
-        #: latency samples in ms: queue wait, TTFT, amortised inter-token,
-        #: per-batch device execute, request latency
-        self.samples: Dict[str, List[float]] = {
-            k: [] for k in ("queue_wait_ms", "ttft_ms", "inter_token_ms",
-                            "device_execute_ms", "request_latency_ms")
-        }
+        self.registry = registry if registry is not None else MetricsRegistry(clock=clock)
+        self.registry.declare_counters(*STAT_ALIASES, *_EXTRA_COUNTERS)
+        self.tracer = tracer
+        self.profiler_trigger = profiler_trigger
+        #: optional ``(name, value_ms)`` mirror of the TTFT and inter-token
+        #: observations (an SLOMonitor's ``sink``)
+        self.latency_sink: Optional[Callable[[str, float], None]] = None
+        #: optional FlightRecorder (the slot engine's incident seams)
+        self.flight_recorder = None
+        #: optional StepTimeline: one record per ``step()`` pass
+        self.timeline = None
+        self._tl_draft: Optional[dict] = None  # the pass's events
+        self._tl_marks: Optional[dict] = None  # the pass's phase marks
+        #: raw latency samples in ms (:data:`SAMPLE_HISTOGRAMS`), whole
+        #: lifetime; the registry's histograms keep a window of them
+        self.samples: Dict[str, List[float]] = {k: [] for k in SAMPLE_HISTOGRAMS}
+        self._sample_names: Dict[str, str] = dict(SAMPLE_HISTOGRAMS)
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        """The registry's counters, as ints (one consistent read)."""
+        return {k: int(v) for k, v in self.registry.counters().items()}
 
     def _inc(self, name: str, by: int = 1) -> int:
-        self.counters[name] += by
-        return self.counters[name]
+        return int(self.registry.inc(name, by))
+
+    def _sample(self, key: str, value_ms: float) -> None:
+        """One latency sample: the engine's list and its registry histogram."""
+        self.samples[key].append(value_ms)
+        self.registry.observe(self._sample_names[key], value_ms)
+
+    def _observe_token_latency(self, key: str, value_ms: float) -> None:
+        """One TTFT or inter-token sample, mirrored to ``latency_sink``."""
+        self._sample(key, value_ms)
+        if self.latency_sink is not None:
+            self.latency_sink(self._sample_names[key], value_ms)
+
+    # -- scheduler timeline seams -------------------------------------------
+    def _tl_event(self, kind: str, **fields) -> None:
+        """One timeline event of the pass in flight (or of the next pass,
+        for a call between steps such as ``cancel()``)."""
+        if self.timeline is None:
+            return
+        if self._tl_draft is None:
+            self._tl_draft = {}
+        self._tl_draft.setdefault(kind, []).append(fields)
+
+    def _tl_mark(self, key: str, value) -> None:
+        if self._tl_marks is not None:
+            self._tl_marks[key] = value
+
+    def _tl_mark_clock(self, key: str) -> None:
+        """A phase mark that reads the clock only while a pass is recorded,
+        so an engine without a timeline reads it no more often."""
+        if self._tl_marks is not None:
+            self._tl_marks[key] = self._clock()
+
+    def _run_pass(self, pass_fn):
+        """Run one scheduler pass, appending its timeline record on every
+        exit path."""
+        if self.timeline is None:
+            return pass_fn()
+        t0 = self._clock()
+        self._tl_marks = {}
+        try:
+            return pass_fn()
+        finally:
+            self._tl_record(t0, self._clock())
+
+    def _tl_record(self, t0: float, t1: float) -> None:
+        """The bucket engine's per-pass record; the slot engine has its own."""
+        draft, self._tl_draft = self._tl_draft, None
+        marks, self._tl_marks = self._tl_marks or {}, None
+        phases = {"total": round((t1 - t0) * 1e3, 3)}
+        for key in ("assemble_ms", "execute_ms"):
+            if key in marks:
+                phases[key[: -len("_ms")]] = round(marks[key], 3)
+        rec = {
+            "engine": "bucket",
+            "t_start_s": round(t0, 6),
+            "t_end_s": round(t1, 6),
+            "queue_depth": len(self._queue),
+            "phases_ms": phases,
+        }
+        rec.update(draft or {})
+        self.timeline.append(rec)
+
+    def _device_capture(self, *, step=None):
+        """The context of one device dispatch: a profiler capture when the
+        trigger armed on an earlier observation, else a shared no-op.
+        ``step`` may be a zero-argument callable, read only when a capture
+        runs."""
+        trigger = self.profiler_trigger
+        if trigger is None or not trigger.armed:
+            return _NULL_CAPTURE
+        try:
+            return _SafeCapture(trigger.capture(step=step() if callable(step) else step))
+        except Exception:
+            return _NULL_CAPTURE
 
     # -- queue front --------------------------------------------------------
     def submit(self, prompt, config: Optional[GenerationConfig] = None, *,
-               deadline_s: Optional[float] = None, priority: int = 0,
-               tenant: Optional[str] = None,
+               deadline_s: Optional[float] = None, ttft_anchor_s: Optional[float] = None,
+               priority: int = 0, tenant: Optional[str] = None,
                on_token: Optional[Callable[[int, int], None]] = None) -> ServeRequest:
         """Enqueue one prompt (1-D token ids); returns its request handle.
         Raises ``ValueError`` for an infeasible prompt and :class:`QueueFull`
         when the queue is at ``max_queue``. ``priority`` (higher is more
         important) and ``tenant`` tag the request for the slot engine's
         admission order and victim policy; this engine stores them.
-        ``on_token`` is the request's token sink (:attr:`ServeRequest.on_token`)."""
+        ``on_token`` is the request's token sink (:attr:`ServeRequest.on_token`).
+        ``ttft_anchor_s`` backdates the TTFT measurement to an earlier instant
+        on the engine clock. A shed or rejected submission still ends in a
+        terminal span; the raised exception carries its ``trace_id``."""
         if not self._accepting:
             raise RuntimeError("engine is draining; new submissions rejected")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         cfg = config or self.config
         try:
             self.check_feasible(prompt, cfg)
-        except ValueError:
+        except ValueError as e:
             self._inc("serving_requests_rejected_total")
+            e.trace_id = self._terminal_event("rejected", error=str(e))
             raise
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             self._inc("serving_requests_shed_total")
-            raise QueueFull(
+            exc = QueueFull(
                 f"queue depth {len(self._queue)} is at max_queue={self.max_queue}; "
                 "request shed — drain with step() or retry after backoff"
             )
+            exc.trace_id = self._terminal_event("shed", queue_depth=len(self._queue))
+            raise exc
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         now = self._clock()
         req = ServeRequest(
             self._next_id, prompt, cfg, now,
             deadline_at=None if deadline_s is None else now + deadline_s,
-            priority=int(priority), tenant=tenant, on_token=on_token,
+            trace_id=self.tracer.new_trace_id() if self.tracer else None,
+            ttft_anchor_s=ttft_anchor_s, priority=int(priority), tenant=tenant,
+            on_token=on_token,
         )
         self._next_id += 1
         self._queue.append(req)
@@ -220,6 +389,15 @@ class ServingEngine:
             )
         self._pick_prompt_bucket(int(prompt.size), cfg)
         return cfg
+
+    def _terminal_event(self, status: str, **attrs) -> Optional[str]:
+        """The terminal ``serving.request`` span of a submission that never
+        entered the queue (shed or rejected); returns its trace id."""
+        if self.tracer is None:
+            return None
+        trace_id = self.tracer.new_trace_id()
+        self.tracer.event("serving.request", trace_id=trace_id, status=status, **attrs)
+        return trace_id
 
     def serve(self, prompts: Sequence, config: Optional[GenerationConfig] = None, *,
               generator: Optional[torch.Generator] = None) -> List[Optional[np.ndarray]]:
@@ -264,6 +442,9 @@ class ServingEngine:
         for i, req in enumerate(self._queue):
             if req.request_id == request_id:
                 del self._queue[i]
+                if self.tracer is not None:
+                    self.tracer.event("serving.cancelled", trace_id=req.trace_id,
+                                      stage="queued", tokens_emitted=0)
                 self._finish(req, "cancelled")
                 return True
         return False
@@ -280,10 +461,43 @@ class ServingEngine:
     def _finish(self, req: ServeRequest, status: str, *, error: Optional[str] = None) -> None:
         req.status = status
         req.error = error
+        self._tl_event("finished", request_id=req.request_id, status=status,
+                       tenant=req.tenant, priority=req.priority)
         name = {"ok": "completed", "timed_out": "timed_out",
                 "cancelled": "cancelled", "failed": "failed"}[status]
         self._inc(f"serving_requests_{name}_total")
-        self.samples["request_latency_ms"].append((self._clock() - req.submitted_at) * 1e3)
+        latency_s = self._clock() - req.submitted_at
+        self._sample("request_latency_ms", latency_s * 1e3)
+        if self.tracer is not None:
+            # the request's one terminal span, submit to disposition, backdated
+            # in the tracer's own clock domain
+            span = self.tracer.start_span(
+                "serving.request", trace_id=req.trace_id,
+                start_s=self.tracer.now() - latency_s,
+                request_id=req.request_id, prompt_len=int(req.prompt.size),
+            )
+            self.tracer.end_span(span, status=status, **({"error": error} if error else {}))
+
+    def _apply_request_chaos(self, req: ServeRequest) -> bool:
+        """The per-request chaos hook (``serving.request``): True when the
+        fault disposed of the request (an error fails it; a hang advances an
+        injectable clock and times it out past its deadline)."""
+        if self._chaos is None:
+            return False
+        fault = self._chaos.hit("serving.request", req.request_id)
+        if fault is None:
+            return False
+        if fault.kind == "error":
+            self._finish(req, "failed", error=str(fault.make_error()))
+            return True
+        if fault.kind == "hang":
+            advance = getattr(self._clock, "advance", None)
+            if advance is not None:
+                advance(fault.delay_s)
+            if req.deadline_at is not None and self._clock() >= req.deadline_at:
+                self._finish(req, "timed_out", error=f"hung for {fault.delay_s}s past its deadline")
+                return True
+        return False
 
     def _expire_overdue(self) -> int:
         now = self._clock()
@@ -318,7 +532,12 @@ class ServingEngine:
     def step(self) -> int:
         """Run ONE micro-batch: the queue head and the following requests with
         its config, packed FIFO into a bucket. Returns the number of requests
-        disposed of (0 = queue empty)."""
+        disposed of (0 = queue empty). A chaos fault at ``serving.request``
+        disposes of its request alone; a failing micro-batch (a real or a
+        ``serving.batch`` fault) fails its own requests, the queue survives."""
+        return self._run_pass(self._step_pass)
+
+    def _step_pass(self) -> int:
         disposed = self._expire_overdue()
         if not self._queue:
             return disposed
@@ -328,12 +547,18 @@ class ServingEngine:
         for req in self._queue:
             if len(picked) >= self.table.batch_sizes[-1] or req.config != cfg:
                 rest.append(req)
-            else:
-                picked.append(req)
+                continue
+            if self._apply_request_chaos(req):
+                disposed += 1
+                continue
+            picked.append(req)
         self._queue = rest
+        if not picked:
+            return disposed
 
         b = self.table.batch_bucket(len(picked))
         length = self._pick_prompt_bucket(max(r.prompt.size for r in picked), cfg)
+        assemble_t0 = self._clock()
         ids = np.full((b, length), cfg.pad_token_id, np.int32)
         # Filler rows claim zero pads (a full-width prompt of pad ids), so they
         # never disable the cached prefix-growth phase for the real rows.
@@ -343,22 +568,48 @@ class ServingEngine:
             ids[i, length - req.prompt.size:] = req.prompt
             pad_count[i] = length - req.prompt.size
             req.started_at = now
-            self.samples["queue_wait_ms"].append((now - req.submitted_at) * 1e3)
-        self._inc("serving_batches_total")
+            self._sample("queue_wait_ms", (now - req.submitted_at) * 1e3)
+        batch_index = self._inc("serving_batches_total")
+        assemble_ms = (self._clock() - assemble_t0) * 1e3
+        self.registry.observe("serving_batch_assembly_ms", assemble_ms)
+        self._tl_mark("assemble_ms", assemble_ms)
+        if self.timeline is not None:
+            for req in picked:
+                self._tl_event("admitted", request_id=req.request_id, tenant=req.tenant,
+                               priority=req.priority, bucket=[b, length])
+        batch_span = None
+        if self.tracer is not None:
+            batch_span = self.tracer.start_span(
+                "serving.batch", batch_index=batch_index, size=len(picked),
+                bucket=[b, length], assemble_ms=round(assemble_ms, 3),
+                trace_ids=[r.trace_id for r in picked],
+            )
 
         t0 = self._clock()
         try:
-            out = generate(
-                self.model, ids, cfg, generator=self.generator, prompt_pad_count=pad_count,
-                decode_strategy=self.decode_strategy, device=self.device,
-            ).cpu().numpy()
+            fault = self._chaos.hit("serving.batch") if self._chaos else None
+            if fault is not None and fault.kind == "error":
+                raise fault.make_error()
+            with self._device_capture(step=batch_index):
+                out = generate(
+                    self.model, ids, cfg, generator=self.generator, prompt_pad_count=pad_count,
+                    decode_strategy=self.decode_strategy, device=self.device,
+                ).cpu().numpy()
         except Exception as e:  # the micro-batch fails, the queue survives
+            self._sample("device_execute_ms", (self._clock() - t0) * 1e3)
+            if batch_span is not None:
+                self.tracer.end_span(batch_span, status="failed", error=f"{type(e).__name__}: {e}")
             for req in picked:
                 self._finish(req, "failed", error=f"{type(e).__name__}: {e}")
             return disposed + len(picked)
         # .cpu() waited for the device, so this is device time plus dispatch
         execute_ms = (self._clock() - t0) * 1e3
-        self.samples["device_execute_ms"].append(execute_ms)
+        self._sample("device_execute_ms", execute_ms)
+        self._tl_mark("execute_ms", execute_ms)
+        if self.profiler_trigger is not None:
+            self.profiler_trigger.observe(execute_ms)
+        if batch_span is not None:
+            self.tracer.end_span(batch_span, execute_ms=round(execute_ms, 3))
         done_at = self._clock()
         itl_ms = execute_ms / max(1, cfg.max_new_tokens)
         for i, req in enumerate(picked):
@@ -371,8 +622,17 @@ class ServingEngine:
                     toks = toks[:toks.index(cfg.eos_token_id) + 1]
                 for idx, t in enumerate(toks):
                     self._emit_token(req, idx, int(t))
-            self.samples["ttft_ms"].append((done_at - req.submitted_at) * 1e3)
-            self.samples["inter_token_ms"].append(itl_ms)
+            ttft_ms = (done_at - req.ttft_from_s) * 1e3
+            self._observe_token_latency("ttft_ms", ttft_ms)
+            self._observe_token_latency("inter_token_ms", itl_ms)
+            if self.timeline is not None:
+                self._tl_event("tokens", request_id=req.request_id, first=True,
+                               ttft_ms=round(ttft_ms, 3), itl_ms=round(itl_ms, 3),
+                               batch_granular=True)
+            if self.tracer is not None:
+                self.tracer.event("serving.first_token", trace_id=req.trace_id,
+                                  ttft_ms=round(ttft_ms, 3), inter_token_ms=round(itl_ms, 3),
+                                  batch_granular=True)
             self._finish(req, "ok")
         self._inc("serving_tokens_generated_total", len(picked) * cfg.max_new_tokens)
         self._inc("serving_prompt_tokens_real_total", sum(int(r.prompt.size) for r in picked))
@@ -407,30 +667,40 @@ class ServingEngine:
 
     # -- observability ------------------------------------------------------
     def stats(self) -> dict:
-        """Counters since construction, under canonical names and short keys,
-        with latency percentiles and the padding efficiency."""
-        c = self.counters
-        out = {alias: c[name] for name, alias in STAT_ALIASES.items()}
-        out.update(c)
+        """Counters since construction, read back from the registry under
+        their canonical names and the short keys of :data:`STAT_ALIASES`,
+        with latency percentiles (nearest rank over the registry's window),
+        the padding efficiency and the build ledger's rollup."""
+        reg = self.registry
+        counts = reg.counters()  # one consistent read
+        out = {alias: int(counts.get(name, 0)) for name, alias in STAT_ALIASES.items()}
+        out.update({name: int(v) for name, v in counts.items()})
+
+        def pct(name: str) -> dict:
+            return {"p50": _round_ms(reg.percentile(name, 50.0)),
+                    "p95": _round_ms(reg.percentile(name, 95.0))}
+
+        real = counts.get("serving_prompt_tokens_real_total", 0)
+        padded = counts.get("serving_prompt_tokens_padded_total", 0)
         out.update({
             "queued": len(self._queue),
-            **{key: {"p50": _percentile(v, 50.0), "p95": _percentile(v, 95.0)}
-               for key, v in self.samples.items()},
-            "prompt_padding_efficiency": round(
-                c["serving_prompt_tokens_real_total"]
-                / max(1, c["serving_prompt_tokens_padded_total"]), 4),
+            "compile_ledger": default_ledger().rollup(),
+            **{key: pct(name) for key, name in SAMPLE_HISTOGRAMS.items()},
+            "prompt_padding_efficiency": round(real / max(1, padded), 4),
             "bucket_grid": {
                 "prompt_lens": list(self.table.prompt_lens),
                 "batch_sizes": list(self.table.batch_sizes),
             },
         })
+        if self.timeline is not None:
+            out["timeline"] = self.timeline.summary()
         return out
 
     def health(self) -> dict:
         """Readiness snapshot: ``ready`` means a submission is accepted now."""
         now = self._clock()
         depth = len(self._queue)
-        c = self.counters
+        reg = self.registry
         return {
             "ready": self._accepting and (self.max_queue is None or depth < self.max_queue),
             "accepting": self._accepting,
@@ -438,9 +708,9 @@ class ServingEngine:
             "max_queue": self.max_queue,
             "oldest_wait_ms": round(max(now - r.submitted_at for r in self._queue) * 1e3, 3)
             if self._queue else 0.0,
-            "completed": c["serving_requests_completed_total"],
-            "shed": c["serving_requests_shed_total"],
-            "timed_out": c["serving_requests_timed_out_total"],
-            "failed": c["serving_requests_failed_total"],
-            "cancelled": c["serving_requests_cancelled_total"],
+            "completed": int(reg.counter("serving_requests_completed_total")),
+            "shed": int(reg.counter("serving_requests_shed_total")),
+            "timed_out": int(reg.counter("serving_requests_timed_out_total")),
+            "failed": int(reg.counter("serving_requests_failed_total")),
+            "cancelled": int(reg.counter("serving_requests_cancelled_total")),
         }

@@ -110,9 +110,23 @@ scope restrictions, enforced at ``submit``:
 - ``prompt_len >= min(bucket_len, num_latents)``: left pads must never
   occupy latent slots (the boundary cache's precondition).
 
+**Telemetry** (as in JAX, each skipped when unset): the counters, gauges
+and histograms of the registry (``kv_pool_*``, ``kv_prefix_*``,
+``kv_cache_resident_bytes`` counted from the state's own tensors, per-tenant
+``kv_pool_tenant_blocks_in_use_*`` gauges); the tracer's per-request events
+(``serving.slot_assigned``, ``serving.first_token``, ``serving.prefill_chunk``,
+``serving.prefix_hit``, ``serving.preempted``, ``serving.swapped``,
+``serving.restored``, ``serving.readmitted``, ``serving.slot_retired``,
+``serving.cancelled``); one timeline record per ``step()`` pass; the flight
+recorder's ``pool_exhausted`` (an admission waits on the pool) and
+``preemption_storm`` (two victims in one step) triggers; the chaos sites
+``serving.request``, ``serving.batch`` and, with preemption on,
+``kv.exhaust`` (consulted once per decode step: the first page mapping of
+the step raises :class:`~.kv_pool.PoolExhausted`); the profiler trigger,
+fed each decode step's ms.
+
 Not ported yet (they raise ``NotImplementedError``, see ``ROADMAP.md`` A):
-the serving mesh; nor ``evacuate`` and ``resize_slots``. There
-is no tracer, chaos registry, flight recorder or timeline, and no trace-env
+the serving mesh; nor ``evacuate`` and ``resize_slots``. No trace-env
 fingerprint guards the prefix index or keys the registry (the port has no
 trace-env flags).
 """
@@ -142,9 +156,10 @@ from perceiver_io_tpu_torch.inference.generate import (
     _slot_decode_step_paged,
 )
 from perceiver_io_tpu_torch.inference.samplers import apply_min_new_tokens, sample_logits
+from perceiver_io_tpu_torch.observability import default_ledger
 from perceiver_io_tpu_torch.observability.timeline import tenant_label, tier_label
 from perceiver_io_tpu_torch.ops import paged_attention as paged_ops
-from perceiver_io_tpu_torch.serving.engine import ServeRequest, ServingEngine
+from perceiver_io_tpu_torch.serving.engine import ServeRequest, ServingEngine, _round_ms
 from perceiver_io_tpu_torch.serving.kv_pool import (
     KVPagePool,
     PoolExhausted,
@@ -157,12 +172,13 @@ PREEMPTION_MODES = ("off", "recompute", "swap", "auto")
 #: the host link's rate (decimal GB/s) the swap cost model assumes until a
 #: measured transfer refines it
 SWAP_LINK_GBPS_PRIOR = 16.0
-#: decode-step samples the cost model's p50 reads (the newest ones)
-STEP_MS_WINDOW = 2048
 
+#: the slot engine's counters, declared at 0 (JAX's list; the port adds
+#: ``serving_decode_boundary_steps_total``)
 _SLOT_COUNTERS = (
     "serving_decode_steps_total",
-    "serving_decode_boundary_steps_total",
+    "serving_decode_rows_total",
+    "serving_decode_rows_padded_total",
     "serving_prefills_total",
     "serving_prefill_chunks_total",
     "kv_pool_block_allocs_total",
@@ -175,18 +191,28 @@ _SLOT_COUNTERS = (
     "kv_prefix_cow_copies_total",
     "kv_prefix_evicted_blocks_total",
     "kv_prefix_published_blocks_total",
+    "kv_quant_fallback_total",
     "kv_ragged_kernel_steps_total",
     "kv_preemptions_total",
     "kv_readmissions_total",
     "kv_swaps_total",
     "kv_swap_restores_total",
     "kv_swap_bytes_total",
-    "kv_quant_fallback_total",
     "spec_rounds_total",
     "spec_tokens_proposed_total",
     "spec_tokens_accepted_total",
     "spec_tokens_emitted_total",
+    "serving_decode_boundary_steps_total",
 )
+#: the slot engine's raw sample lists -> their registry histograms (both
+#: swap legs feed JAX's one ``kv_swap_ms``)
+SLOT_SAMPLE_HISTOGRAMS = {
+    "decode_step_ms": "serving_decode_step_ms",
+    "prefill_ms": "serving_prefill_ms",
+    "prefill_chunk_ms": "serving_prefill_chunk_ms",
+    "swap_out_ms": "kv_swap_ms",
+    "swap_in_ms": "kv_swap_ms",
+}
 #: the per-slot row state a swapped victim carries (besides its pages and
 #: stack caches); the counters travel as int32, as the reference's state
 #: holds them, and come back as the port's int64
@@ -414,16 +440,6 @@ def _swap_restore(state: dict, payload: dict, table_row: torch.Tensor, slot: int
             dst[slot] = src.to(device=dst.device, dtype=dst.dtype)
 
 
-def _nearest_rank(samples: List[float], p: float) -> Optional[float]:
-    """Nearest-rank percentile over the newest :data:`STEP_MS_WINDOW`
-    samples (None if empty): the cost model reads the decode step's p50 as
-    the reference's metrics registry computes it."""
-    if not samples:
-        return None
-    ordered = sorted(samples[-STEP_MS_WINDOW:])
-    return ordered[min(len(ordered) - 1, int(round(p / 100.0 * (len(ordered) - 1))))]
-
-
 class SlotServingEngine(ServingEngine):
     """Token-granular scheduler over the persistent-slot decode state. Shares
     the bucket engine's request surface (``submit`` / ``serve`` / ``step`` /
@@ -550,9 +566,11 @@ class SlotServingEngine(ServingEngine):
             swap_link_gbps if swap_link_gbps is not None
             else decode_strategy_mod.lookup_swap_gbps(self.device.type) or SWAP_LINK_GBPS_PRIOR)
         self._pinned_boundary_mode: Optional[str] = None
-        self.counters.update(dict.fromkeys(_SLOT_COUNTERS, 0))
-        self.samples.update(decode_step_ms=[], prefill_ms=[], prefill_chunk_ms=[],
-                            swap_out_ms=[], swap_in_ms=[])
+        self.registry.declare_counters(*_SLOT_COUNTERS)
+        self._sample_names.update(SLOT_SAMPLE_HISTOGRAMS)
+        self.samples.update({key: [] for key in SLOT_SAMPLE_HISTOGRAMS})
+        self._tenant_gauge_keys: set = set()
+        self._preempts_this_step = 0
         #: preemption accounting: victims per tier and per tenant label, the
         #: tokens each tenant label generated, and the per-victim post-mortem
         #: records (a bounded ring; the totals survive it)
@@ -573,6 +591,7 @@ class SlotServingEngine(ServingEngine):
         self._pool: Optional[KVPagePool] = None
         self._state: Optional[dict] = None
         self._init_kv_state(resolved)
+        self._update_slot_gauges()
 
     @property
     def boundary_mode(self) -> str:
@@ -610,14 +629,78 @@ class SlotServingEngine(ServingEngine):
         self._prefix_index: Optional[PrefixBlockIndex] = (
             PrefixBlockIndex(self.kv_block_size) if self.prefix_cache == "on" else None)
         self._state = self._new_state()
+        st = self._state
+        # bytes per cached position (k and v) and the int8 layout's fp32
+        # scales, read off the state's own tensors; the stack caches count
+        # in the footprint gauges but not in the swap cost model
+        ref = st["pool_k"] if self._pool is not None else st["cross_k"][0].transpose(0, 1)
+        h, d = ref.shape[1], ref.shape[2]
+        self._kv_token_bytes = 2 * h * d * ref.element_size()
+        self._kv_scale_token_bytes = 2 * h * 4 if "scale_k" in st else 0
+        self._kv_stack_bytes = sum(t.numel() * t.element_size()
+                                   for t in st["stack_k"] + st["stack_v"])
+        reg = self.registry
         if self._pool is not None:
-            # the cost model's bytes per pooled position (k and v), and the
-            # int8 layout's fp32 scales; the stack caches are not counted,
-            # as the reference does not count them
-            pool_k = self._state["pool_k"]
-            h, d = pool_k.shape[1], pool_k.shape[2]
-            self._kv_token_bytes = 2 * h * d * pool_k.element_size()
-            self._kv_scale_token_bytes = 2 * h * 4 if "scale_k" in self._state else 0
+            # a new pool's allocation counters start at 0
+            self._kv_counter_base = {"allocs": 0, "frees": 0}
+            self._kv_capacity_bytes = (
+                self.kv_blocks * self.kv_block_size
+                * (self._kv_token_bytes + self._kv_scale_token_bytes) + self._kv_stack_bytes)
+            reg.set_gauge("kv_cache_capacity_bytes", self._kv_capacity_bytes)
+            reg.set_gauge("kv_pool_blocks", self._pool.num_blocks)
+            reg.set_gauge("kv_pool_block_bytes", self.kv_block_size * self._kv_token_bytes)
+            reg.set_gauge("kv_pool_block_scale_bytes",
+                          self.kv_block_size * self._kv_scale_token_bytes)
+        else:
+            self._kv_capacity_bytes = (
+                self.slots * self.model.max_seq_len * self._kv_token_bytes + self._kv_stack_bytes)
+            reg.set_gauge("kv_cache_capacity_bytes", self._kv_capacity_bytes)
+        # K4 runs the paged attends on the card; the CPU takes the gather
+        reg.set_gauge("kv_ragged_kernel_enabled",
+                      int(self._pool is not None and self.device.type == "cuda"))
+        self._update_kv_gauges()
+
+    def _update_kv_gauges(self) -> None:
+        """Publish the live KV footprint: under the paged layouts
+        ``kv_cache_resident_bytes`` counts the mapped pages (and the dense
+        stack caches), dense keeps it at capacity; the pool's gauges, the
+        per-tenant page gauges and the pool's allocation counters ride along."""
+        pool, reg = self._pool, self.registry
+        if pool is None:
+            resident = self._kv_capacity_bytes
+        else:
+            resident = (pool.in_use * self.kv_block_size
+                        * (self._kv_token_bytes + self._kv_scale_token_bytes)
+                        + self._kv_stack_bytes)
+            reg.set_gauge("kv_pool_blocks_in_use", pool.in_use)
+            reg.set_gauge("kv_pool_blocks_reserved", pool.reserved)
+            reg.set_gauge("kv_pool_blocks_high_water", pool.high_water)
+            reg.set_gauge("kv_pool_headroom_blocks", pool.headroom_blocks)
+            if self._prefix_index is not None:
+                reg.set_gauge("kv_prefix_cached_blocks", self._prefix_index.cached_blocks)
+            live: Dict[str, int] = {}
+            for tenant, held in self._tenant_pages().items():
+                key = tenant_label(tenant)
+                live[key] = live.get(key, 0) + held
+            for key, held in live.items():
+                reg.set_gauge(f"kv_pool_tenant_blocks_in_use_{key}", held)
+            for key in self._tenant_gauge_keys - set(live):
+                reg.set_gauge(f"kv_pool_tenant_blocks_in_use_{key}", 0)
+            self._tenant_gauge_keys |= set(live)
+            base = self._kv_counter_base
+            if pool.allocs_total > base["allocs"]:
+                reg.inc("kv_pool_block_allocs_total", pool.allocs_total - base["allocs"])
+                base["allocs"] = pool.allocs_total
+            if pool.frees_total > base["frees"]:
+                reg.inc("kv_pool_block_frees_total", pool.frees_total - base["frees"])
+                base["frees"] = pool.frees_total
+        reg.set_gauge("kv_cache_resident_bytes", resident)
+        default_ledger().set_kv_cache_bytes(resident)
+
+    def _update_slot_gauges(self) -> None:
+        active = sum(1 for s in self._slots if s is not None)
+        self.registry.set_gauge("serving_slots_active", active)
+        self.registry.set_gauge("serving_slots_idle", self.slots - active)
 
     def _new_state(self) -> dict:
         pool_tokens = None if self._pool is None else (self.kv_blocks + 1) * self.kv_block_size
@@ -634,6 +717,7 @@ class SlotServingEngine(ServingEngine):
             self._pool.release(slot, cause=cause)
             if had_pages:
                 self._push_table()
+            self._update_kv_gauges()
 
     def _copy_page(self, src: int, dst: int) -> None:
         _copy_page(self._state, src, dst, self.kv_block_size)
@@ -757,6 +841,10 @@ class SlotServingEngine(ServingEngine):
         self._inc("kv_prefix_hits_total")
         self._inc("kv_prefix_shared_blocks_total", len(blocks))
         self._inc("kv_prefix_shared_tokens_total", plan.shared_tokens)
+        if self.tracer is not None:
+            self.tracer.event("serving.prefix_hit", trace_id=req.trace_id, slot=slot,
+                              shared_tokens=plan.shared_tokens, shared_blocks=len(plan.nodes),
+                              cow=plan.partial is not None)
 
     def _publish_prefix(self, req: ServeRequest, slot: int) -> None:
         """Publish the admitted row's full prefix blocks (first donor wins).
@@ -876,14 +964,16 @@ class SlotServingEngine(ServingEngine):
                 best = admit
         return best
 
-    def _preempt_victim(self, victim: Union[_Slot, _ChunkedAdmit]) -> None:
+    def _preempt_victim(self, victim: Union[_Slot, _ChunkedAdmit],
+                        beneficiary: Optional[int] = None) -> None:
         """Preempt one victim and requeue its request (still ``queued``):
         every page it maps returns (shared ones are dereferenced, never
         freed under their other holders). The disposition is priced first,
         so ``auto`` and the post-mortem read the same numbers: ``recompute``
         frees the pages and discards the tokens, ``swap`` copies them to the
         host first (:meth:`_swap_out`). A victim taken mid-admission has no
-        row to save: its staging caches drop and it recomputes."""
+        row to save: its staging caches drop and it recomputes.
+        ``beneficiary`` is the request the pages go to (None: a yield)."""
         req = victim.req
         if isinstance(victim, _ChunkedAdmit):
             generated = 0
@@ -893,7 +983,8 @@ class SlotServingEngine(ServingEngine):
             generated = len(victim.emitted)
             self._slots[victim.slot] = None
         pages = self._pool.mapped_blocks(victim.slot)
-        step_ms = _nearest_rank(self.samples["decode_step_ms"], 50.0) or 0.0
+        # the decode step's p50 over the registry's window, as JAX reads it
+        step_ms = self.registry.percentile("serving_decode_step_ms", 50.0) or 0.0
         victim_bytes = pages * self.kv_block_size * (self._kv_token_bytes
                                                      + self._kv_scale_token_bytes)
         recompute_ms = generated * step_ms
@@ -908,10 +999,10 @@ class SlotServingEngine(ServingEngine):
         req.preemptions += 1
         req.started_at = None
         self._queue.append(req)  # the next admission pass sorts the queue
+        self._preempts_this_step += 1
         self._inc("kv_preemptions_total")
         tier = int(req.priority)
-        name = f"kv_preemptions_tier_{tier_label(tier)}_total"
-        self.counters[name] = self.counters.get(name, 0) + 1
+        self._inc(f"kv_preemptions_tier_{tier_label(tier)}_total")
         self._preempted_by_tier[tier] = self._preempted_by_tier.get(tier, 0) + 1
         tkey = tenant_label(req.tenant)
         self._preempted_by_tenant[tkey] = self._preempted_by_tenant.get(tkey, 0) + 1
@@ -938,6 +1029,25 @@ class SlotServingEngine(ServingEngine):
         totals["swap_est_ms"] += swap_ms
         if swap_out is not None:
             totals["swap_measured_ms"] += swap_out["ms"]
+        self._tl_event("preempted", request_id=req.request_id, slot=victim.slot,
+                       tenant=req.tenant, priority=tier, mode=mode, tokens_discarded=generated,
+                       pages_released=pages, beneficiary=beneficiary)
+        self._update_slot_gauges()
+        if self.tracer is not None:
+            self.tracer.event("serving.preempted", trace_id=req.trace_id, slot=victim.slot,
+                              priority=tier, tenant=req.tenant, mode=mode, pages_released=pages,
+                              tokens_discarded=generated, beneficiary=beneficiary)
+        if self._preempts_this_step == 2 and self.flight_recorder is not None:
+            # two victims in one scheduling instant: the pool is thrashing
+            pool = self._pool.stats()
+            self.flight_recorder.trigger(
+                "preemption_storm",
+                f"{self._preempts_this_step} residents preempted in one step: pool "
+                f"{pool['in_use']}/{pool['blocks']} blocks in use — sustained memory "
+                "pressure, not a long tail",
+                trace_ids=[req.trace_id] if req.trace_id else [],
+                blocks=pool["blocks"], blocks_in_use=pool["in_use"],
+            )
 
     def _swap_out(self, victim: _Slot) -> dict:
         """Copy the victim's pages and row state to the host, then release
@@ -954,6 +1064,7 @@ class SlotServingEngine(ServingEngine):
         wall = self._clock() - t0
         shared, private = pool.extract(slot, cause="swapped")
         self._push_table()
+        self._update_kv_gauges()
         bytes_moved = _payload_bytes(payload)
         self._swap_bundles[req.request_id] = SwapBundle(
             request_id=req.request_id, payload=payload, shared=shared, n_private=len(private),
@@ -963,8 +1074,15 @@ class SlotServingEngine(ServingEngine):
         ms = wall * 1e3
         self._inc("kv_swaps_total")
         self._inc("kv_swap_bytes_total", bytes_moved)
-        self.samples["swap_out_ms"].append(ms)
+        self._sample("swap_out_ms", ms)
         self._calibrate_swap(bytes_moved, wall)
+        self._tl_event("swapped", request_id=req.request_id, slot=slot, tenant=req.tenant,
+                       pages=len(shared) + len(private), shared_blocks=len(shared),
+                       bytes=bytes_moved, ms=_round_ms(ms))
+        if self.tracer is not None:
+            self.tracer.event("serving.swapped", trace_id=req.trace_id, slot=slot,
+                              pages=len(shared) + len(private), bytes=bytes_moved,
+                              ms=_round_ms(ms))
         return {"bytes": bytes_moved, "ms": ms}
 
     def _restore_admit(self, req: ServeRequest, slot: int, bundle: SwapBundle) -> None:
@@ -975,7 +1093,7 @@ class SlotServingEngine(ServingEngine):
         time come back, so its next step samples the logits it was preempted
         with)."""
         pool = self._pool
-        self._start_admit(req)
+        self._start_admit(req, slot)
         try:
             pool.restore(slot, bundle.shared, int(req.prompt.size) + req.config.max_new_tokens,
                          bundle.tokens)
@@ -988,6 +1106,7 @@ class SlotServingEngine(ServingEngine):
         for block in bundle.shared:  # the slot holds its own references now
             pool.deref(block, cause="swapped")
         self._push_table()
+        self._update_kv_gauges()
         t1 = self._clock()
         with torch.no_grad():
             _swap_restore(self._state, bundle.payload, self._table_dev[slot], slot,
@@ -997,11 +1116,18 @@ class SlotServingEngine(ServingEngine):
         ms = wall * 1e3
         self._inc("kv_swap_restores_total")
         self._inc("kv_swap_bytes_total", bundle.bytes_moved)
-        self.samples["swap_in_ms"].append(ms)
+        self._sample("swap_in_ms", ms)
         self._calibrate_swap(bundle.bytes_moved, wall)
         self._slots[slot] = _Slot(req=req, slot=slot, max_new=req.config.max_new_tokens,
                                   m=int(bundle.m), emitted=list(bundle.emitted),
                                   last_token_at=bundle.last_token_at)
+        self._tl_event("restored", request_id=req.request_id, slot=slot, tenant=req.tenant,
+                       pages=pool.mapped_blocks(slot), shared_blocks=len(bundle.shared),
+                       tokens_resident=bundle.tokens, bytes=bundle.bytes_moved, ms=_round_ms(ms))
+        if self.tracer is not None:
+            self.tracer.event("serving.restored", trace_id=req.trace_id, slot=slot,
+                              pages=pool.mapped_blocks(slot), tokens=bundle.tokens,
+                              bytes=bundle.bytes_moved, ms=_round_ms(ms))
 
     def _calibrate_swap(self, bytes_moved: int, seconds: float) -> None:
         """Move the link-rate model halfway to one measured transfer's rate
@@ -1021,6 +1147,8 @@ class SlotServingEngine(ServingEngine):
         hold the last one of a block the prefix index evicted meanwhile)."""
         for block in bundle.shared:
             self._pool.deref(block, cause=cause)
+        if bundle.shared:
+            self._update_kv_gauges()
 
     def _drop_bundle(self, request_id: int, cause: str) -> None:
         """Drop the parked bundle of a request that left the queue other
@@ -1054,7 +1182,7 @@ class SlotServingEngine(ServingEngine):
         victim = self._pick_victim(head.priority, strict=True)
         if victim is None:
             return False
-        self._preempt_victim(victim)
+        self._preempt_victim(victim, beneficiary=head.request_id)
         return True
 
     def _reclaim_decode_page(self, entry: _Slot) -> str:
@@ -1075,10 +1203,10 @@ class SlotServingEngine(ServingEngine):
                 return "reclaimed"
         victim = self._pick_victim(entry.req.priority, strict=False, exclude_slot=entry.slot)
         if victim is not None:
-            self._preempt_victim(victim)
+            self._preempt_victim(victim, beneficiary=entry.req.request_id)
             return "reclaimed"
         if self._admitting is not None or len(self._active()) > 1:
-            self._preempt_victim(entry)
+            self._preempt_victim(entry, beneficiary=None)
             return "yielded"
         return "stuck"
 
@@ -1118,26 +1246,40 @@ class SlotServingEngine(ServingEngine):
         pad = torch.full((1,), n - prompt_len, dtype=torch.long)
         return window.to(self.device), pad.to(self.device)
 
-    def _start_admit(self, req: ServeRequest) -> float:
+    def _start_admit(self, req: ServeRequest, slot: int) -> float:
         """Queue wait ends when the prefill (or a swapped victim's restore)
         starts; returns that instant. A preempted request counts a
-        readmission."""
+        readmission into ``slot``."""
         t0 = self._clock()
         req.started_at = t0
-        self.samples["queue_wait_ms"].append((t0 - req.submitted_at) * 1e3)
+        self._sample("queue_wait_ms", (t0 - req.submitted_at) * 1e3)
         if req.preemptions:
             self._inc("kv_readmissions_total")
+            self._tl_event("readmitted", request_id=req.request_id, slot=slot,
+                           tenant=req.tenant, preemptions=req.preemptions)
+            if self.tracer is not None:
+                self.tracer.event("serving.readmitted", trace_id=req.trace_id, slot=slot,
+                                  preemptions=req.preemptions)
         return t0
 
     def _finish_admit(self, req: ServeRequest, slot: int, bucket_len: int, m0: int,
-                      prefill_ms: float, hit: bool) -> None:
+                      prefill_ms: float, hit: bool, chunks: Optional[int] = None) -> None:
         """The row is in the state: count the prefill, make the slot
-        resident, and publish its prefix (a hit publishes its extension)."""
-        self.samples["prefill_ms"].append(prefill_ms)
+        resident, and publish its prefix (a hit publishes its extension).
+        ``chunks`` is a chunked admission's call count (None: one prefill)."""
+        self._sample("prefill_ms", prefill_ms)
+        if chunks is not None:
+            self.registry.observe("serving_prefill_chunks", chunks)
         self._inc("serving_prefills_total")
         self._inc("serving_prompt_tokens_real_total", int(req.prompt.size))
         self._inc("serving_prompt_tokens_padded_total", bucket_len)
         self._slots[slot] = _Slot(req=req, slot=slot, max_new=req.config.max_new_tokens, m=m0)
+        self._tl_event("admitted", request_id=req.request_id, slot=slot, tenant=req.tenant,
+                       priority=req.priority, chunks=chunks or 0)
+        if self.tracer is not None:
+            extra = {} if chunks is None else {"chunks": chunks}
+            self.tracer.event("serving.slot_assigned", trace_id=req.trace_id, slot=slot,
+                              bucket=bucket_len, prefill_ms=round(prefill_ms, 3), **extra)
         if self._prefix_index is not None:
             if not hit:
                 self._inc("kv_prefix_misses_total")
@@ -1161,7 +1303,7 @@ class SlotServingEngine(ServingEngine):
         prompt_len = int(req.prompt.size)
         bucket_len, m0, _ = self._geometry(req)
         window, pad = self._row_window(req)
-        t0 = self._start_admit(req)
+        t0 = self._start_admit(req, slot)
         table_row = None
         if self._pool is not None:
             # the gate checked capacity: reserve (the worst case, or lazily
@@ -1201,7 +1343,7 @@ class SlotServingEngine(ServingEngine):
         start = plan.shared_tokens if plan is not None else 0
         offsets = [min(o, n - chunk) for o in range(start, max(prefix_len, 1), chunk)]
         window, pad = self._row_window(req)
-        self._start_admit(req)
+        self._start_admit(req, slot)
         stage_k = stage_v = None
         if self._pool is not None:
             self._pool.set_owner(slot, tenant_label(req.tenant))
@@ -1268,14 +1410,20 @@ class SlotServingEngine(ServingEngine):
         call_ms = (self._clock() - t0) * 1e3
         admit.prefill_ms += call_ms
         admit.next_chunk += 1
-        self.samples["prefill_chunk_ms"].append(call_ms)
+        self._sample("prefill_chunk_ms", call_ms)
         if not final:
             self._inc("serving_prefill_chunks_total")
+        self._tl_event("chunks", request_id=req.request_id, slot=slot, chunk=i, final=final,
+                       ms=round(call_ms, 3))
+        if self.tracer is not None:
+            self.tracer.event("serving.prefill_chunk", trace_id=req.trace_id, slot=slot, chunk=i,
+                              offset=off, final=final, ms=round(call_ms, 3))
+        if not final:
             return
         self._admitting = None
         admit.stage_k = admit.stage_v = None
         self._finish_admit(req, slot, admit.bucket_len, admit.m0, admit.prefill_ms,
-                           hit=admit.plan is not None)
+                           hit=admit.plan is not None, chunks=len(admit.offsets))
 
     def _retire(self, entry: _Slot, status: str, *, error: Optional[str] = None) -> None:
         if status == "ok":
@@ -1286,6 +1434,9 @@ class SlotServingEngine(ServingEngine):
         self._slots[entry.slot] = None
         cause = {"cancelled": "cancelled", "failed": "failover"}.get(status, "retire")
         self._kv_release(entry.slot, cause=cause)
+        if self.tracer is not None:
+            self.tracer.event("serving.slot_retired", trace_id=entry.req.trace_id,
+                              slot=entry.slot, status=status, decode_steps=len(entry.emitted))
 
     def _fail_admitting(self, error: str) -> None:
         """The in-flight admission fails: its slot's pages return."""
@@ -1315,7 +1466,9 @@ class SlotServingEngine(ServingEngine):
                 # describe zeroed pages
                 self._prefix_index.flush(self._pool)
             self._push_table()
+            self._update_kv_gauges()
         self._state = self._new_state()
+        self._update_slot_gauges()
         return failed
 
     def cancel(self, request_id: int) -> bool:
@@ -1328,11 +1481,19 @@ class SlotServingEngine(ServingEngine):
         if admit is not None and admit.req.request_id == request_id:
             self._admitting = None
             self._kv_release(admit.slot, cause="cancelled")
+            if self.tracer is not None:
+                self.tracer.event("serving.cancelled", trace_id=admit.req.trace_id,
+                                  stage="admitting", slot=admit.slot, tokens_emitted=0)
             self._finish(admit.req, "cancelled")
             return True
         for entry in self._active():
             if entry.req.request_id == request_id:
+                if self.tracer is not None:
+                    self.tracer.event("serving.cancelled", trace_id=entry.req.trace_id,
+                                      stage="resident", slot=entry.slot,
+                                      tokens_emitted=len(entry.emitted))
                 self._retire(entry, "cancelled")
+                self._update_slot_gauges()
                 return True
         if super().cancel(request_id):
             self._drop_bundle(request_id, cause="cancelled")  # a queued swapped victim
@@ -1422,6 +1583,7 @@ class SlotServingEngine(ServingEngine):
         is restored. Returns the requests disposed of; a prefill or restore
         fault fails the residents too."""
         disposed = 0
+        self._preempts_this_step = 0
         if self._queue and (self.preemption != "off" or any(r.priority for r in self._queue)):
             # stable: FIFO within a tier, and a replay returns to its place
             self._queue.sort(key=lambda r: (-r.priority, r.request_id))
@@ -1464,12 +1626,28 @@ class SlotServingEngine(ServingEngine):
                     if self._kv_waiting_id != head.request_id:
                         self._kv_waiting_id = head.request_id
                         self._inc("kv_pool_admit_waits_total")
+                        if self.flight_recorder is not None:
+                            # incident-worthy once per waiting request
+                            pool = self._pool.stats()
+                            self.flight_recorder.trigger(
+                                "pool_exhausted",
+                                f"admission stalled: request {head.request_id} needs "
+                                f"{int(need)} pool blocks, {pool['blocks'] - pool['reserved']} "
+                                f"of {pool['blocks']} unreserved",
+                                trace_ids=[head.trace_id] if head.trace_id else [],
+                                request_id=head.request_id, blocks_needed=int(need),
+                                blocks=pool["blocks"], blocks_reserved=pool["reserved"],
+                            )
                     break
                 blocked, chunked = (False, False) if bundle is not None else \
                     self._lane_blocked(head, plan, ran_chunk_call)
                 if blocked:
                     break
             req = self._queue.pop(0)
+            if self._apply_request_chaos(req):
+                self._drop_bundle(req.request_id, cause="failover")
+                disposed += 1
+                continue
             if bundle is not None:
                 del self._swap_bundles[req.request_id]
                 try:
@@ -1498,7 +1676,7 @@ class SlotServingEngine(ServingEngine):
                     f"prefill fault poisoned the slot state: {error}")
         return disposed
 
-    def _map_decode_pages(self, active: List[_Slot]) -> bool:
+    def _map_decode_pages(self, active: List[_Slot], forced=None) -> bool:
         """Map the page each resident's next write lands on, and copy on
         write any still-shared page it would write through. A speculative
         round maps its worst-case burst, ``min(k+1, max_new - emitted)``
@@ -1507,7 +1685,9 @@ class SlotServingEngine(ServingEngine):
         admission reserved the worst case, so this cannot run dry; under
         lazy admission a dry pool raises :class:`PoolExhausted`, and the
         resident reclaims a page (:meth:`_reclaim_decode_page`), preempting a
-        victim or yielding. Returns True when the table changed."""
+        victim or yielding. ``forced``, a ``kv.exhaust`` chaos fault, makes
+        the step's first mapping raise :class:`PoolExhausted`. Returns True
+        when the table changed."""
         changed = False
         for entry in active:
             if self._slots[entry.slot] is not entry:
@@ -1517,6 +1697,9 @@ class SlotServingEngine(ServingEngine):
             next_len = int(entry.req.prompt.size) + len(entry.emitted) + burst
             while True:
                 try:
+                    if forced is not None and forced.kind == "error":
+                        forced = None
+                        raise PoolExhausted("chaos: kv.exhaust scripted pool pressure")
                     if burst > 1:
                         changed |= self._pool.ensure_many(entry.slot, next_len)
                     else:
@@ -1543,6 +1726,50 @@ class SlotServingEngine(ServingEngine):
         slots, retire rows that finished (EOS / ``max_new_tokens``). Returns
         the number of requests disposed of; ``pending()`` says whether work
         remains (a mid-generation step disposes of 0)."""
+        return self._run_pass(self._step_pass)
+
+    def _tl_record(self, t0: float, t1: float) -> None:
+        """The slot engine's per-pass record: the bucket engine's, plus the
+        slot occupancy, real and padded decode rows, the pool's occupancy
+        and the pages each tenant holds."""
+        draft, self._tl_draft = self._tl_draft, None
+        marks, self._tl_marks = self._tl_marks or {}, None
+        phases = {"total": round((t1 - t0) * 1e3, 3)}
+        if "admit_done_s" in marks:
+            phases["admit"] = round((marks["admit_done_s"] - t0) * 1e3, 3)
+        if "decode_ms" in marks:
+            phases["decode"] = round(marks["decode_ms"], 3)
+        if "token_at_s" in marks:
+            phases["account"] = round((t1 - marks["token_at_s"]) * 1e3, 3)
+        rec = {
+            "engine": "slots",
+            "t_start_s": round(t0, 6),
+            "t_end_s": round(t1, 6),
+            "queue_depth": len(self._queue),
+            "slots": [None if s is None else s.req.request_id for s in self._slots],
+            "phases_ms": phases,
+        }
+        if "rows_active" in marks:
+            active = int(marks["rows_active"])
+            rec["rows"] = {"total": self.slots, "real": active, "padded": self.slots - active}
+        if self._pool is not None:
+            rec["pool"] = {"in_use": self._pool.in_use, "reserved": self._pool.reserved,
+                           "headroom": self._pool.headroom_blocks}
+            tenants: Dict[str, int] = {}
+            for tenant, held in self._tenant_pages().items():
+                key = tenant_label(tenant)
+                tenants[key] = tenants.get(key, 0) + held
+            if tenants:
+                rec["tenants"] = dict(sorted(tenants.items()))
+        rec.update(draft or {})
+        self.timeline.append(rec)
+
+    def _step_pass(self) -> int:
+        disposed = self._step_body()
+        self._update_kv_gauges()
+        return disposed
+
+    def _step_body(self) -> int:
         disposed = self._expire_overdue()
         # a swapped victim whose request left the queue by its deadline
         for rid in [r for r in self._swap_bundles if r not in {q.request_id for q in self._queue}]:
@@ -1580,6 +1807,8 @@ class SlotServingEngine(ServingEngine):
                         return disposed + self._fail_resident(
                             f"chunked-prefill fault poisoned the slot state: {error}")
         disposed += self._admit_from_queue(ran_chunk_call)
+        self._update_slot_gauges()
+        self._tl_mark_clock("admit_done_s")
         active = self._active()
         if not active:
             return disposed
@@ -1587,8 +1816,14 @@ class SlotServingEngine(ServingEngine):
         num_latents = self.model.max_latents
         t0 = self._clock()
         try:
+            fault = self._chaos.hit("serving.batch") if self._chaos else None
+            if fault is not None and fault.kind == "error":
+                raise fault.make_error()
             if self._pool is not None:
-                if self._map_decode_pages(active):
+                # kv.exhaust: scripted pool pressure, once per decode step
+                forced = (self._chaos.hit("kv.exhaust")
+                          if self._chaos is not None and self.preemption != "off" else None)
+                if self._map_decode_pages(active, forced):
                     self._push_table()
                 active = self._active()
                 if not active:
@@ -1596,7 +1831,8 @@ class SlotServingEngine(ServingEngine):
             # a speculative round's lanes cover latent growth and the boundary
             # per row, so it has no boundary variant
             boundary = self._spec is None and any(s.m >= num_latents for s in active)
-            with torch.no_grad():
+            with torch.no_grad(), self._device_capture(
+                    step=lambda: int(self.registry.counter("serving_decode_steps_total"))):
                 if self._spec is None:
                     tokens = self._decode(boundary).cpu().numpy()  # host sync: the scheduling point
                     bursts = {e.slot: [int(tokens[e.slot])] for e in active}
@@ -1607,7 +1843,12 @@ class SlotServingEngine(ServingEngine):
         except Exception as e:
             return disposed + self._fail_resident(f"{type(e).__name__}: {e}")
         token_at = self._clock()
-        self.samples["decode_step_ms"].append((token_at - t0) * 1e3)
+        decode_ms = (token_at - t0) * 1e3
+        self._sample("decode_step_ms", decode_ms)
+        self._tl_mark("decode_ms", decode_ms)
+        self._tl_mark("rows_active", len(active))
+        if self.profiler_trigger is not None:
+            self.profiler_trigger.observe(decode_ms)
         self._inc("serving_decode_steps_total")
         self._inc("serving_decode_boundary_steps_total", int(boundary))
         # a plain paged step on the card attends through K4 (on the CPU
@@ -1616,23 +1857,39 @@ class SlotServingEngine(ServingEngine):
             self._pool is not None and self.device.type == "cuda" and self._spec is None))
         self._inc("serving_decode_rows_total", self.slots)
         self._inc("serving_decode_rows_padded_total", self.slots - len(active))
+        self._tl_mark("token_at_s", token_at)
         eos = self.config.eos_token_id
         emitted = 0
+        tier_tokens: Dict[str, int] = {}
         for entry in active:
             # a burst is truncated here at EOS and max_new_tokens, where
             # that many plain steps would have stopped; its first token
             # carries the round's latency, the rest 0 ms of ITL
             for token in bursts[entry.slot]:
-                if entry.emitted:
-                    self.samples["inter_token_ms"].append((token_at - entry.last_token_at) * 1e3)
-                else:
-                    self.samples["ttft_ms"].append((token_at - entry.req.submitted_at) * 1e3)
+                first = not entry.emitted
                 entry.emitted.append(token)
                 emitted += 1
                 if entry.req.on_token is not None:
                     self._emit_token(entry.req, len(entry.emitted) - 1, token)
-                entry.last_token_at = token_at
                 entry.m = min(entry.m + 1, num_latents)
+                if first:
+                    ttft_ms = (token_at - entry.req.ttft_from_s) * 1e3
+                    self._observe_token_latency("ttft_ms", ttft_ms)
+                    if self.timeline is not None:
+                        self._tl_event("tokens", request_id=entry.req.request_id, slot=entry.slot,
+                                       first=True, ttft_ms=round(ttft_ms, 3))
+                    if self.tracer is not None:
+                        self.tracer.event("serving.first_token", trace_id=entry.req.trace_id,
+                                          slot=entry.slot, ttft_ms=round(ttft_ms, 3))
+                else:
+                    itl_ms = (token_at - entry.last_token_at) * 1e3
+                    self._observe_token_latency("inter_token_ms", itl_ms)
+                    if self.timeline is not None:
+                        self._tl_event("tokens", request_id=entry.req.request_id, slot=entry.slot,
+                                       first=False, itl_ms=round(itl_ms, 3))
+                entry.last_token_at = token_at
+                tkey = tier_label(entry.req.priority)
+                tier_tokens[tkey] = tier_tokens.get(tkey, 0) + 1
                 nkey = tenant_label(entry.req.tenant)
                 self._tokens_by_tenant[nkey] = self._tokens_by_tenant.get(nkey, 0) + 1
                 if (eos is not None and token == eos) or len(entry.emitted) >= entry.max_new:
@@ -1641,10 +1898,17 @@ class SlotServingEngine(ServingEngine):
                     break
         self._inc("serving_tokens_generated_total", emitted)
         if self._spec is not None:
+            accepted = int(sum(int(n_e[e.slot]) - 1 for e in active))
             self._inc("spec_rounds_total")
             self._inc("spec_tokens_proposed_total", self._spec.k * len(active))
-            self._inc("spec_tokens_accepted_total", int(sum(int(n_e[e.slot]) - 1 for e in active)))
+            self._inc("spec_tokens_accepted_total", accepted)
             self._inc("spec_tokens_emitted_total", emitted)
+            if self.timeline is not None:
+                self._tl_event("spec_round", rows=len(active), proposed=self._spec.k * len(active),
+                               accepted=accepted, emitted=emitted)
+        for tkey, n in tier_tokens.items():
+            self._inc(f"serving_tokens_tier_{tkey}_total", n)
+        self._update_slot_gauges()
         return disposed
 
     def _spec_round(self) -> tuple:
@@ -1803,11 +2067,15 @@ class SlotServingEngine(ServingEngine):
 
     # -- observability ------------------------------------------------------
     def stats(self) -> dict:
+        self._update_kv_gauges()
         c = self.counters
-        if self._pool is not None:
-            c["kv_pool_block_allocs_total"] = self._pool.allocs_total
-            c["kv_pool_block_frees_total"] = self._pool.frees_total
         out = super().stats()
+        reg = self.registry
+
+        def pct(name: str) -> dict:
+            return {"p50": _round_ms(reg.percentile(name, 50.0)),
+                    "p95": _round_ms(reg.percentile(name, 95.0))}
+
         rows = c["serving_decode_rows_total"]
         padded = c["serving_decode_rows_padded_total"]
         out.update({
@@ -1819,8 +2087,10 @@ class SlotServingEngine(ServingEngine):
             "prefills": c["serving_prefills_total"],
             "slot_occupancy": round((rows - padded) / max(1, rows), 4),
             "decode_rows_padding_waste": round(padded / max(1, rows), 4),
+            "decode_step_ms": pct("serving_decode_step_ms"),
             "prefill_chunk": self.prefill_chunk,
             "prefill_chunks": c["serving_prefill_chunks_total"],
+            "prefill_chunk_ms": pct("serving_prefill_chunk_ms"),
             "decode_strategy_boundary": self.boundary_mode,
             "kv_layout": self.kv_layout,
             "speculation": {"mode": self.speculation},
@@ -1842,6 +2112,11 @@ class SlotServingEngine(ServingEngine):
                 "dtype": str(self._state["pool_k"].dtype).split(".")[-1],
                 "admit_waits": c["kv_pool_admit_waits_total"],
                 "ragged_kernel_steps": c["kv_ragged_kernel_steps_total"],
+                "resident_bytes": int(reg.gauge("kv_cache_resident_bytes") or 0),
+                "capacity_bytes": self._kv_capacity_bytes,
+                "block_bytes": self.kv_block_size * self._kv_token_bytes,
+                "block_scale_bytes": self.kv_block_size * self._kv_scale_token_bytes,
+                "quant_fallbacks": c["kv_quant_fallback_total"],
             }
             out["prefix_cache"] = {"enabled": self._prefix_index is not None}
             if self._prefix_index is not None:

@@ -29,13 +29,24 @@ What makes a long run survivable is the JAX loop's, on one device:
   ``<root>/profile``; the ``chaos=`` registry is consulted once a step at
   ``trainer.step``.
 
+Telemetry, as in JAX: the counters and histograms live on a
+:class:`~perceiver_io_tpu_torch.observability.MetricsRegistry`
+(``trainer_steps_total``, ``trainer_step_dispatch_ms`` or, with a profiler
+trigger, the fenced ``trainer_step_ms``; the fault counters mirror
+``fault_stats``); a ``tracer`` gets one trace per ``fit`` with
+``trainer.data_wait`` / ``trainer.step`` / ``trainer.log_flush`` /
+``trainer.checkpoint`` spans; a ``snapshot_writer`` is checked at every log
+flush and forced once when ``fit`` ends; a ``profiler_trigger`` is fed each
+single step's fenced ms and, once armed, runs the next step under
+``torch.profiler``. None of them changes a loss.
+
 :class:`TrainerConfig` keeps the JAX field names and defaults. Not ported
 yet, and raising ``NotImplementedError`` when asked for (``ROADMAP.md`` A):
-``shard_seq`` and the tracer and snapshot-writer hooks; the profiler
-trigger is not an argument until it is ported.
+``shard_seq``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,6 +62,7 @@ import torch
 from torch import nn
 
 from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
+from perceiver_io_tpu_torch.observability import MetricsRegistry
 from perceiver_io_tpu_torch.parallel.train_step import (
     TrainState,
     make_eval_step,
@@ -245,6 +257,18 @@ class Trainer:
         consulted once per optimizer step at ``trainer.step``: a ``nan``
         fault replaces the step's reported loss with NaN, an ``error`` fault
         raises at the step boundary.
+    :param registry: the metrics registry of the trainer's counters and
+        histograms; None is a private one.
+    :param tracer: optional :class:`~perceiver_io_tpu_torch.observability.Tracer`:
+        one trace per ``fit``, spans per step.
+    :param profiler_trigger: optional
+        :class:`~perceiver_io_tpu_torch.observability.ProfilerTrigger`, fed
+        each single step's ms (fenced: the card is synchronised after each
+        step while a trigger is set); once armed, the next step runs under
+        ``torch.profiler``.
+    :param snapshot_writer: optional
+        :class:`~perceiver_io_tpu_torch.observability.SnapshotWriter`, checked
+        at every log flush and forced once when ``fit`` ends.
     """
 
     def __init__(
@@ -258,12 +282,11 @@ class Trainer:
         callbacks: Sequence[Callable] = (),
         device: DeviceLike = "cuda",
         chaos: Any = None,
+        registry: Optional[MetricsRegistry] = None,
         tracer: Any = None,
+        profiler_trigger: Any = None,
         snapshot_writer: Any = None,
     ):
-        for what, hook in (("tracer", tracer), ("snapshot_writer", snapshot_writer)):
-            if hook is not None:
-                raise _unported(f"the trainer's {what} hook")
         self._policy = _check_config(config)
         self.config = config
         self.device = resolve_device(device)
@@ -275,6 +298,13 @@ class Trainer:
         self.state: Optional[TrainState] = None
         #: fault-recovery counters over this trainer's lifetime
         self.fault_stats = {"skipped_steps": 0, "rollbacks": 0, "callback_errors": 0}
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.registry.declare_counters("trainer_steps_total", "trainer_skipped_steps_total",
+                                       "trainer_rollbacks_total", "trainer_callback_errors_total")
+        self._tracer = tracer
+        self._fit_trace: Optional[str] = None
+        self._profiler_trigger = profiler_trigger
+        self._snapshot_writer = snapshot_writer
         self._chaos = chaos
         self._preempted = False
         self._eval_step = make_eval_step(loss_fn, device=self.device)
@@ -364,6 +394,8 @@ class Trainer:
         try:
             return self._fit_inner(model, train_data, val_data)
         finally:
+            if self._snapshot_writer is not None:
+                self._snapshot_writer.maybe_write(force=True)  # never raises
             self._close_writers()
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
@@ -429,6 +461,8 @@ class Trainer:
             return False
         if self._policy in ("skip", "rollback"):
             return False
+        if self._profiler_trigger is not None and self._profiler_trigger.armed:
+            return False  # an armed capture traces one single step
         for idx in range(start, start + k - 1):
             if resume_mgr is not None and idx % cfg.save_state_every_n_steps == 0:
                 return False
@@ -440,7 +474,28 @@ class Trainer:
         return True
 
     def _count_fault(self, key: str) -> None:
+        """One ``fault_stats`` count and its registry mirror."""
         self.fault_stats[key] += 1
+        self.registry.inc(f"trainer_{key}_total")
+
+    def _span(self, name: str, **attrs):
+        """A span under this fit's trace, or a no-op without a tracer."""
+        if self._tracer is None:
+            return contextlib.nullcontext()
+        return self._tracer.span(name, trace_id=self._fit_trace, **attrs)
+
+    def _fence(self) -> None:
+        """Wait for the card (a trigger needs real step time, not dispatch)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _record_step_time(self, step_ms: float, trigger) -> None:
+        """Fenced ``trainer_step_ms`` with a trigger (which it feeds), else
+        the unfenced ``trainer_step_dispatch_ms``."""
+        self.registry.observe("trainer_step_ms" if trigger is not None
+                              else "trainer_step_dispatch_ms", step_ms)
+        if trigger is not None:
+            trigger.observe(step_ms)
 
     def _chaos_step_metrics(self, metrics: dict) -> dict:
         """Consult the chaos registry once for this step: a ``nan`` fault
@@ -503,17 +558,27 @@ class Trainer:
         window: list = []
         t0 = time.time()
         profiler = None
+        if self._tracer is not None:
+            self._fit_trace = self._tracer.new_trace_id()
+        trigger = self._profiler_trigger
+        measures = "fenced" if trigger is not None else "dispatch"
         self._bad_streak = 0
         self._rollbacks_this_fit = 0
         snap_after_recovery = False
 
         def flush(step_idx: int) -> None:
             nonlocal window, t0
-            mean = {k: float(np.mean([float(m[k]) for m in window])) for k in window[0]}
-            if self.lr_schedule is not None:
-                mean["lr"] = float(self.lr_schedule(step_idx))
-            mean["steps_per_sec"] = len(window) / (time.time() - t0)
-            self.log_metrics(step_idx, mean, prefix="train/")
+            with self._span("trainer.log_flush", step=step_idx):
+                mean = {k: float(np.mean([float(m[k]) for m in window])) for k in window[0]}
+                if self.lr_schedule is not None:
+                    mean["lr"] = float(self.lr_schedule(step_idx))
+                mean["steps_per_sec"] = len(window) / (time.time() - t0)
+                self.registry.set_gauge("trainer_steps_per_sec", mean["steps_per_sec"])
+                if "loss" in mean and np.isfinite(mean["loss"]):
+                    self.registry.set_gauge("trainer_loss", mean["loss"])
+                self.log_metrics(step_idx, mean, prefix="train/")
+            if self._snapshot_writer is not None:
+                self._snapshot_writer.maybe_write()
             window, t0 = [], time.time()
             if self._policy == "halt" and not np.isfinite(mean.get("loss", 0.0)):
                 raise FloatingPointError(
@@ -525,21 +590,41 @@ class Trainer:
         step_idx = start_step
         while step_idx <= cfg.max_steps:
             if k_exec > 1 and self._block_ok(step_idx, k_exec, val_data, resume_mgr):
-                block = [stream.next() for _ in range(k_exec)]
+                with self._span("trainer.data_wait", step=step_idx, batches=k_exec):
+                    block = [stream.next() for _ in range(k_exec)]
                 _check_uniform_block(block, k_exec)
                 per_step = []
-                for i, batch in enumerate(block):  # metrics stay on the device
-                    per_step.append(grads(self.state, batch, step_generator(cfg.seed, step_idx + i, self.device)))
-                    self.state.apply_gradients()
+                block_t0 = time.perf_counter()
+                with self._span("trainer.step", step=step_idx, fused=k_exec, measures=measures):
+                    for i, batch in enumerate(block):  # metrics stay on the device
+                        per_step.append(grads(self.state, batch,
+                                              step_generator(cfg.seed, step_idx + i, self.device)))
+                        self.state.apply_gradients()
+                    if trigger is not None:
+                        self._fence()
+                self.registry.inc("trainer_steps_total", k_exec)
+                self._record_step_time((time.perf_counter() - block_t0) * 1e3 / k_exec, trigger)
                 n_ran = k_exec
             else:
-                batch = stream.next()
+                with self._span("trainer.data_wait", step=step_idx):
+                    batch = stream.next()
                 generator = step_generator(cfg.seed, step_idx, self.device)
                 if cfg.profile_start is not None and step_idx == cfg.profile_start:
                     profiler = self._start_profile()
-                metrics = grads(self.state, batch, generator)
-                if not checking:
-                    self.state.apply_gradients()
+                # an armed p95-regression capture traces this step, unless
+                # the profile_start window holds the profiler already
+                capture = (trigger.capture(step=step_idx)
+                           if trigger is not None and trigger.armed and profiler is None
+                           else contextlib.nullcontext())
+                step_t0 = time.perf_counter()
+                with capture, self._span("trainer.step", step=step_idx, measures=measures):
+                    metrics = grads(self.state, batch, generator)
+                    if not checking:
+                        self.state.apply_gradients()
+                    if trigger is not None:
+                        self._fence()
+                self.registry.inc("trainer_steps_total")
+                self._record_step_time((time.perf_counter() - step_t0) * 1e3, trigger)
                 per_step = [metrics]
                 n_ran = 1
                 if profiler is not None and step_idx >= cfg.profile_start + _PROFILE_WINDOW - 1:
@@ -596,7 +681,8 @@ class Trainer:
                 # the loss was taken before the update, which may have
                 # overflowed: check the state itself before keeping it
                 if self._policy == "off" or _params_finite(self.state.model):
-                    resume_mgr.save(step_idx, self.state)
+                    with self._span("trainer.checkpoint", step=step_idx, kind="resume"):
+                        resume_mgr.save(step_idx, self.state)
                     snap_after_recovery = False
                 elif self._policy == "rollback":
                     self.log_metrics(step_idx, {"snapshot_refused_non_finite": step_idx})
@@ -615,7 +701,9 @@ class Trainer:
                 val_metrics = self.validate(val_data())
                 self.log_metrics(step_idx, val_metrics, prefix="val/")
                 if self._ckpt is not None and "loss" in val_metrics:
-                    self._ckpt.save(step_idx, self.state.model, self.model_config, val_metrics["loss"])
+                    with self._span("trainer.checkpoint", step=step_idx, kind="best"):
+                        self._ckpt.save(step_idx, self.state.model, self.model_config,
+                                        val_metrics["loss"])
                 self._run_callbacks(step_idx, val_metrics)
                 t0 = time.time()
             step_idx += 1

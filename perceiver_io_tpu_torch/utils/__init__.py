@@ -1,7 +1,6 @@
 """Cross-cutting utilities: analytic FLOP and parameter counts
-(:mod:`.flops`). Counterpart of ``perceiver_io_tpu/utils``; its profiling
-helpers (``utils/profiling.py``) come with observability (``ROADMAP.md``
-A.4)."""
+(:mod:`.flops`) and ``torch.profiler`` tracing and step timing
+(:mod:`.profiling`). Counterpart of ``perceiver_io_tpu/utils``."""
 from perceiver_io_tpu_torch.utils.flops import (
     ComputeEstimator,
     count_params,
@@ -11,6 +10,7 @@ from perceiver_io_tpu_torch.utils.flops import (
     training_flops,
     training_flops_per_step,
 )
+from perceiver_io_tpu_torch.utils.profiling import StepTimer, trace
 
 __all__ = [
     "ComputeEstimator",
@@ -20,4 +20,6 @@ __all__ = [
     "num_training_steps",
     "training_flops",
     "training_flops_per_step",
+    "StepTimer",
+    "trace",
 ]

@@ -290,13 +290,6 @@ def test_unported_trainer_options_raise(tmp_path, name, make_cfg):
         Trainer(cfg, lambda *a: None, make_optimizer(1e-3), device="cpu")
 
 
-@pytest.mark.parametrize("hook", ["tracer", "snapshot_writer"])
-def test_unported_trainer_hooks_raise(tmp_path, hook):
-    cfg = TrainerConfig(max_steps=1, default_root_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, lambda *a: None, make_optimizer(1e-3), device="cpu", **{hook: object()})
-
-
 @pytest.mark.parametrize("case", ["mesh"])
 def test_unported_training_features_raise(case):
     with pytest.raises(NotImplementedError):
