@@ -242,6 +242,30 @@ non-zero and never prints the final line):
    (e) The build ledger holds one ``kernel_build`` record per source this
    process built (``_build.BUILD_LOG``). (f) Decode-step ms p50 with and
    without the attachments, A B B A (printed, not gated);
+11c. fleet: outer serving over phase 7's model (fp32, clm-base): 8 of its
+   requests (``FLEET_REQUESTS``: prompts 500-960, 496 latents, 16/32/48
+   new tokens) through ``FleetRouter`` over two paged slot replicas of 4
+   slots. (a) No fault: tokens equal phase 7's ``generate()`` references
+   (the near-tie excuse), beside one engine of 8 slots (tokens/s of both
+   printed). (b) ``crash_replica(0, FLEET_CRASH_STEP)`` mid-decode: every
+   request ``ok``, tokens equal (a)'s under the same rule,
+   ``fleet_failover_total`` >= 1, one restart, no pool holds a page, and
+   ``torch.cuda.memory_allocated()`` after ``gc.collect()`` within 1 % of
+   its value just before the crash (the crashed engine's pool and state are
+   freed). (c) ``remove_replica`` mid-flight: its pages return tagged
+   ``scale_down``, tokens equal (a)'s, memory falls at the removal and
+   returns within 1 % after ``add_replica``, and again after a
+   ``restart``. (d) A replica evacuated mid-flight by ``remove_replica``
+   is resized 4 -> 6 -> 4 (``resize_slots``) and serves the 4 requests it
+   lost, tokens equal (a)'s. (e) ``StreamingGateway`` over a fleet on
+   ``127.0.0.1:0``: 4 concurrent SSE streams through ``GatewayHttpClient``
+   with tokens equal (a)'s, a fifth cut by ``disconnect_stream`` before
+   its third token (the fleet request ``cancelled``, its pages freed, no
+   slot left active), ``/healthz`` 200 and ``/metrics`` naming every
+   ``gateway_*`` counter family; the p50 of ``gateway_socket_ttft_ms`` and
+   ``serving_ttft_ms`` printed. K1 on ``split`` / ``tf32x3`` and K4 on
+   ``split`` / ``tc`` in every run, ``simt`` never, the gateway's runs
+   launching from its event loop's thread;
 12. k23: the flash-attention backward kernels, K2 (dq) and K3 (dk, dv),
    against their plain versions at the training path's shapes (b = 4, 8
    heads, head dim 112; the cross attends over j = 768, 256 kept prefix +
@@ -333,6 +357,9 @@ non-zero and never prints the final line):
        with dropout takes the plain path, JAX's dispatch), 17 K1 launches in
        the validation pass; one step's gradients with and without
        checkpointing under one generator within the fp32 gate;
+   (c) and (d) over clm-base's widths at ``RESILIENCE_SNAPSHOT_LAYERS`` of
+   its 16 layers (a cut of depth: their snapshots' writes were the phase's
+   longest part);
    (c) resume: an uninterrupted 8-step fit with snapshots every 4 steps; a
        fit into a fresh root whose loss function raises SIGTERM at the
        process during step 5 (it finishes the step, snapshots, returns); a
@@ -404,7 +431,10 @@ non-zero and never prints the final line):
    under phase 7's near-tie excuse), completions equal the decoded
    references, K1 on ``split`` and ``tf32x3`` in both runs, K4 on
    ``split`` and ``tc`` in the slots run, ``simt`` never, and the
-   ``serve_stats`` line parses; then the bucket run once more as a real
+   ``serve_stats`` line parses; the slots run again with
+   ``--serve.replicas=2 --serve.autoscale.max=3`` (the fleet and its
+   autoscaler), whose lines must equal the single engine's; then the bucket
+   run once more as a real
    ``python -m perceiver_io_tpu_torch.scripts.text.clm serve`` process,
    whose JSON lines must equal the in-process run's. (d) The symbolic
    family's ``fit --data=synthetic`` at GiantMIDI width (6144 context,
@@ -506,7 +536,8 @@ non-zero and never prints the final line):
    ``slot_preempt_launches`` each slot-preempt run's; K1's and K4's
    ``slot_spec_launches`` each slot-spec engine run's and
    ``sample_launches`` each sampled run's and ``obs_launches`` phase 11b's
-   observed run's; K1's ``beam_launches`` the
+   observed run's and ``fleet_launches`` each of phase 11c's runs; K1's
+   ``beam_launches`` the
    counted beam run's; K1's, K2's and K3's ``train_resilience_launches``
    each phase-14 sub-run's, over its three timed steps in (a); each route's
    ``d96`` figures (its GiantMIDI case at head dim 96) and
@@ -3191,6 +3222,9 @@ RESILIENCE_STEPS = 8
 # SIGTERM snapshot at 5 (each of clm-base with AdamW is 2.32 GB, ~3 s to
 # write; every 2 steps wrote 9 where 5 hold the same path)
 RESUME_SNAPSHOT_EVERY = 4
+#: the depth of the resume (c) and recovery (d) drills' model: clm-base's
+#: widths over 4 of its 16 layers, so each AdamW snapshot is ~0.8 GB, not 2.32
+RESILIENCE_SNAPSHOT_LAYERS = 4
 #: LAMB's peak rate in phase 14 (f); 1e-2 overshot (loss 11.14 -> 13.21 at step 6)
 LAMB_LR = 5e-3
 #: the gradient gates of phase 13 (a): fp32 within 1e-3 of each parameter's
@@ -3644,6 +3678,8 @@ def resilience_pretrained(torch, clm, flash, training, pipelines_mod, model, cfg
 def train_resilience_phase(torch, clm, flash, parallel, training, modules, reliability, pipelines_mod,
                            root: Path, cfg=None, dev=None) -> dict:
     """Phase 14 (module docstring). Returns each sub-run's launches."""
+    import dataclasses
+
     cfg = cfg or clm_base_config(clm.CausalLanguageModelConfig)
     dev = dev or torch.device("cuda")
     shutil.rmtree(root, ignore_errors=True)
@@ -3657,9 +3693,14 @@ def train_resilience_phase(torch, clm, flash, parallel, training, modules, relia
             torch.cuda.empty_cache()
     launches["dropout"] = resilience_dropout(torch, clm, flash, parallel, training, cfg, root / "dropout",
                                              dev)["launches"]
-    launches["resume"] = resilience_resume(torch, clm, flash, training, cfg, root / "resume", dev)["launches"]
-    launches["recovery"] = resilience_recovery(torch, clm, flash, training, reliability, cfg, root / "recovery",
-                                               dev)["launches"]
+    # the snapshot drills at clm-base's widths over fewer layers: their
+    # snapshots' writes were the phase's longest part
+    shallow = dataclasses.replace(cfg, num_self_attention_layers=min(RESILIENCE_SNAPSHOT_LAYERS,
+                                                                     cfg.num_self_attention_layers))
+    launches["resume"] = resilience_resume(torch, clm, flash, training, shallow, root / "resume",
+                                           dev)["launches"]
+    launches["recovery"] = resilience_recovery(torch, clm, flash, training, reliability, shallow,
+                                               root / "recovery", dev)["launches"]
     launches["steps_per_execution_4"] = resilience_steps_per_execution(
         torch, clm, flash, training, cfg, root / "spe", dev)["launches"]
     model, launches["lamb"] = resilience_lamb(torch, clm, flash, training, cfg, root, dev)
@@ -4074,6 +4115,315 @@ def obs_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve, root: Pa
     return {k: observed[k] for k in ("k1", "k1_routes", "k4", "k4_routes")}
 
 
+# the fleet phase: 8 of phase 7's 12 requests (prompts 500-960, 496 latents,
+# 16/32/48 new tokens) through a fleet of two paged slot replicas of 4 slots
+FLEET_REQUESTS = (0, 2, 4, 6, 8, 9, 10, 11)
+FLEET_SLOTS = 4
+#: replica 0's supervised step that crashes in (b): its 4 residents are
+#: admitted by its 4th step and decode 16-48 tokens, so the 12th is mid-decode
+FLEET_CRASH_STEP = 12
+#: fleet steps before (c) retires replica 0, and before (d) evacuates one
+FLEET_REMOVE_AFTER = 12
+FLEET_RESIZE = (6, 4)
+#: (e): concurrent SSE streams, then one more cut before its third token
+FLEET_STREAMS = 4
+FLEET_CUT_AFTER = 3
+#: (b) and (c): memory_allocated() after gc within this share of its value
+#: before the crash or the removal
+FLEET_MEMORY_TOL = 0.01
+FLEET_GATEWAY_TIMEOUT_S = 120.0
+
+
+def fleet_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve, smi: str) -> dict:
+    """Phase 11c: outer serving. ``FLEET_REQUESTS`` of phase 7's requests
+    through ``FleetRouter`` over two paged ``SlotServingEngine`` replicas of
+    ``FLEET_SLOTS`` slots (fp32, clm-base): (a) no fault, beside one engine
+    of twice the slots; (b) ``crash_replica(0, FLEET_CRASH_STEP)``; (c)
+    ``remove_replica`` mid-flight, then ``add_replica`` and a ``restart``;
+    (d) ``resize_slots`` 4 -> 6 -> 4 on a replica evacuated mid-flight,
+    which then serves the requests it lost; (e) ``StreamingGateway`` over a
+    fleet on ``127.0.0.1:0``, streams through ``GatewayHttpClient``, one cut
+    by ``disconnect_stream``. Tokens are held to phase 7's ``generate()``
+    references in (a) and to (a)'s rows after, a divergence excused only at a
+    near tie (``_divergences``); K1 on split/tf32x3 and K4 on split/tc in
+    every run. Returns each run's launches."""
+    import gc
+    import http.client
+    import itertools
+
+    import numpy as np
+
+    from perceiver_io_tpu_torch.observability import GatewayHttpClient, MetricsRegistry, Tracer
+    from perceiver_io_tpu_torch.reliability import ChaosRegistry
+    from perceiver_io_tpu_torch.serving.fleet import FleetRouter
+    from perceiver_io_tpu_torch.serving.gateway import GATEWAY_COUNTERS, StreamingGateway
+
+    model, gcfg = serve["model"], serve["gcfg"]
+    prompts = [serve["prompts"][i] for i in FLEET_REQUESTS]
+    configs = [serve["configs"][i] for i in FLEET_REQUESTS]
+    refs = [serve["refs"][i] for i in FLEET_REQUESTS]
+    tokens = sum(c.max_new_tokens for c in configs)
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+    failures, launches = [], {}
+
+    def factory(slots: int = FLEET_SLOTS):
+        return slots_mod.SlotServingEngine(model, gcfg, table, slots=slots, kv_layout="paged")
+
+    def memory() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def start() -> float:
+        reset_counts(flash)
+        reset_k4_counts(ragged)
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def stop(run: str, t0: float) -> float:
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1r = dict(flash.flash_attention.route_launches)
+        k4r = dict(ragged.ragged_paged_attention.route_launches)
+        c = launches[run] = dict(k1=flash.flash_attention.launches, k1_routes=k1r,
+                                 k4=ragged.ragged_paged_attention.launches, k4_routes=k4r)
+        if not (k1r["split"] > 0 and k1r["tf32x3"] > 0 and k1r["split"] + k1r["tf32x3"] == c["k1"]):
+            failures.append(f"{run}: K1 routes {k1r}, fp32 serving takes split and tf32x3 only")
+        if not (k4r["split"] > 0 and k4r["tc"] > 0 and k4r["split"] + k4r["tc"] == c["k4"]):
+            failures.append(f"{run}: K4 routes {k4r}, decode rows take split, window rows tc, never simt")
+        return wall
+
+    def leak_free(run: str, engines) -> list:
+        out = []
+        for eng in engines:
+            st = eng._pool.stats()
+            out.append({k: st[k] for k in ("in_use", "reserved", "leaked", "frees_by_cause")})
+            if st["in_use"] or st["reserved"] or st["leaked"]:
+                failures.append(f"{run}: pool in_use {st['in_use']}, reserved {st['reserved']}, "
+                                f"leaked {st['leaked']}")
+        return out
+
+    def held(run: str, reqs, base, idx=None) -> list:
+        """Each request ok, its row held to ``base`` (near ties excused)."""
+        idx = list(range(len(reqs))) if idx is None else idx
+        if [r.status for r in reqs] != ["ok"] * len(reqs):
+            failures.append(f"{run}: statuses {[r.status for r in reqs]}")
+            return []
+        return _divergences(torch, gen_mod, model, [np.asarray(r.result) for r in reqs], [base[i] for i in idx],
+                            [prompts[i] for i in idx], [configs[i] for i in idx], failures)
+
+    def check_memory(run: str, before: int, after: int) -> None:
+        if abs(after - before) > FLEET_MEMORY_TOL * before:
+            failures.append(f"{run}: memory_allocated {after} after against {before} before")
+
+    # (a) no fault, and one engine with the fleet's 8 slots in total
+    fleet = FleetRouter([factory] * 2, tracer=Tracer())
+    t0 = start()
+    reqs = [fleet.submit(p, c) for p, c in zip(prompts, configs)]
+    fleet.run_until_idle()
+    wall_a = stop("no_fault", t0)
+    rows_a = [np.asarray(r.result) for r in reqs]
+    div_a = held("no_fault", reqs, refs)
+    stats_a = fleet.stats()
+    pools_a = leak_free("no_fault", [r.engine for r in fleet.replicas])
+    del fleet, reqs
+    one = factory(2 * FLEET_SLOTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_reqs = [one.submit(p, c) for p, c in zip(prompts, configs)]
+    one.run_until_idle()
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    div_one = held("one_engine", one_reqs, refs)
+    del one, one_reqs
+    emit("fleet", part="no_fault", card=smi, replicas=2, slots=FLEET_SLOTS, requests=len(prompts), tokens=tokens,
+         wall_s=wall_a, tokens_per_s=tokens / wall_a, one_engine_slots=2 * FLEET_SLOTS, one_engine_wall_s=wall_one,
+         one_engine_tokens_per_s=tokens / wall_one, fleet_over_one_engine=wall_one / wall_a,
+         ttft_ms_p50=stats_a["ttft_ms"]["p50"], completed_by_replica=stats_a["completed_by_replica"],
+         divergences_vs_generate=div_a, one_engine_divergences=div_one, pools=pools_a, **launches["no_fault"])
+
+    # (b) replica 0 crashes mid-decode: its work replays on replica 1
+    chaos = ChaosRegistry()
+    chaos.crash_replica(0, FLEET_CRASH_STEP)
+    fleet = FleetRouter([factory] * 2, chaos=chaos, tracer=Tracer())
+    t0 = start()
+    reqs = [fleet.submit(p, c) for p, c in zip(prompts, configs)]
+    mem_before = None
+    for step in itertools.count(1):
+        if step == FLEET_CRASH_STEP:
+            mem_before = memory()
+        fleet.step()
+        if step == FLEET_CRASH_STEP and chaos.fired_count("fleet.replica_step.0") != 1:
+            failures.append(f"crash: the fault had not fired by fleet step {step}")
+        if not fleet.pending():
+            break
+    wall_b = stop("crash", t0)
+    div_b = held("crash", reqs, rows_a)
+    stats_b = fleet.stats()
+    pools_b = leak_free("crash", [r.engine for r in fleet.replicas])
+    del reqs
+    mem_after = memory()
+    check_memory("crash", mem_before, mem_after)
+    if stats_b["fleet_failover_total"] < 1 or stats_b["replica_restarts"] != 1:
+        failures.append(f"crash: failovers {stats_b['fleet_failover_total']}, "
+                        f"restarts {stats_b['replica_restarts']}")
+    emit("fleet", part="crash", card=smi, crash_step=FLEET_CRASH_STEP, wall_s=wall_b,
+         replay_cost_ms=(wall_b - wall_a) * 1e3, failovers=stats_b["fleet_failover_total"],
+         redispatches=stats_b["redispatches"], replica_restarts=stats_b["replica_restarts"],
+         completed_by_replica=stats_b["completed_by_replica"], divergences_vs_no_fault=div_b,
+         memory_before=mem_before, memory_after=mem_after, pools=pools_b, **launches["crash"])
+    del fleet
+
+    # (c) replica 0 retires mid-flight; a replica is added back and restarted
+    fleet = FleetRouter([factory] * 2, tracer=Tracer())
+    t0 = start()
+    reqs = [fleet.submit(p, c) for p, c in zip(prompts, configs)]
+    for _ in range(FLEET_REMOVE_AFTER):
+        fleet.step()
+    in_flight = len(fleet.replicas[0].handles)
+    mem_before = memory()
+    t_remove = time.perf_counter()
+    removed = fleet.remove_replica(fleet.replicas[0].replica_id)
+    torch.cuda.synchronize()
+    remove_ms = (time.perf_counter() - t_remove) * 1e3
+    pool_removed = leak_free("remove", [removed.engine])[0]
+    if not pool_removed["frees_by_cause"].get("scale_down") or in_flight == 0:
+        failures.append(f"remove: {in_flight} in flight, frees {pool_removed['frees_by_cause']}")
+    del removed
+    fleet.run_until_idle()
+    wall_c = stop("remove", t0)
+    div_c = held("remove", reqs, rows_a)
+    stats_c = fleet.stats()
+    del reqs
+    mem_removed = memory()
+    t_add = time.perf_counter()
+    fleet.add_replica()
+    torch.cuda.synchronize()
+    add_ms = (time.perf_counter() - t_add) * 1e3
+    mem_added = memory()
+    check_memory("remove", mem_before, mem_added)
+    if mem_removed >= mem_before:
+        failures.append(f"remove: memory_allocated {mem_removed} after the removal, {mem_before} before")
+    t_restart = time.perf_counter()
+    fleet.replicas[0].restart()
+    torch.cuda.synchronize()
+    restart_ms = (time.perf_counter() - t_restart) * 1e3
+    mem_restarted = memory()
+    check_memory("restart", mem_before, mem_restarted)
+    emit("fleet", part="remove", card=smi, after_steps=FLEET_REMOVE_AFTER, in_flight=in_flight,
+         wall_s=wall_c, remove_ms=remove_ms, add_replica_ms=add_ms, restart_ms=restart_ms,
+         failovers=stats_c["fleet_failover_total"], scale_downs=stats_c["scale_downs"],
+         divergences_vs_no_fault=div_c, removed_pool=pool_removed, memory_before=mem_before,
+         memory_after_removal=mem_removed, memory_after_add=mem_added, memory_after_restart=mem_restarted,
+         **launches["remove"])
+
+    # (d) a replica evacuated mid-flight, resized 4 -> 6 -> 4, serves what it lost
+    lost = list(range(FLEET_SLOTS))
+    t0 = start()
+    reqs = [fleet.submit(prompts[i], configs[i]) for i in lost]
+    for _ in range(FLEET_REMOVE_AFTER):
+        fleet.step()
+    victim = max(fleet.replicas, key=lambda r: len(r.handles))
+    in_flight_d = len(victim.handles)
+    evacuated = fleet.remove_replica(victim.replica_id).engine
+    del victim
+    evacuated_frees = dict(evacuated._pool.frees_by_cause)
+    if in_flight_d == 0 or not evacuated_frees.get("scale_down"):
+        failures.append(f"resize: the evacuated replica held {in_flight_d} requests, freed {evacuated_frees}")
+    fleet.run_until_idle()
+    resize_ms = []
+    for n in FLEET_RESIZE:
+        t_resize = time.perf_counter()
+        evacuated.resize_slots(n)
+        torch.cuda.synchronize()
+        resize_ms.append((time.perf_counter() - t_resize) * 1e3)
+    again = [evacuated.submit(prompts[i], configs[i]) for i in lost]
+    evacuated.run_until_idle()
+    wall_d = stop("resize", t0)
+    div_d = held("resize", again, rows_a, lost) + held("resize_fleet", reqs, rows_a, lost)
+    pools_d = leak_free("resize", [evacuated] + [r.engine for r in fleet.replicas])
+    if evacuated.slots != FLEET_RESIZE[-1] or evacuated._pool.slots != FLEET_RESIZE[-1]:
+        failures.append(f"resize: {evacuated.slots} slots, pool of {evacuated._pool.slots}")
+    emit("fleet", part="resize", card=smi, slots=[FLEET_SLOTS, *FLEET_RESIZE], resize_ms=resize_ms,
+         requests=len(lost), evacuated_in_flight=in_flight_d, evacuated_frees=evacuated_frees, wall_s=wall_d, divergences_vs_no_fault=div_d, pools=pools_d, **launches["resize"])
+    del fleet, evacuated, reqs, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the streaming gateway over a fleet: concurrent SSE streams, one cut
+    chaos = ChaosRegistry()
+    chaos.disconnect_stream(FLEET_STREAMS + 1, after_tokens=FLEET_CUT_AFTER)
+    tracer = Tracer()
+    fleet = FleetRouter([factory] * 2, registry=MetricsRegistry(), tracer=tracer)
+    gateway = StreamingGateway(fleet, registry=fleet.registry, tracer=tracer, chaos=chaos).run_in_thread()
+    try:
+        client = GatewayHttpClient(gateway.host, gateway.port, mode="sse")
+        t0 = start()
+        handles = [client.submit(prompts[i], configs[i]) for i in range(FLEET_STREAMS + 1)]
+        deadline = time.monotonic() + FLEET_GATEWAY_TIMEOUT_S
+        while client.pending() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        while time.monotonic() < deadline and (
+                gateway.stats()["streams_completed"] + gateway.stats()["streams_cancelled"] < len(handles)):
+            time.sleep(0.01)
+        while fleet.pending() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        wall_e = stop("gateway", t0)
+        conn = http.client.HTTPConnection(gateway.host, gateway.port, timeout=30)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        healthz = (resp.status, json.loads(resp.read()))
+        conn.close()
+        conn = http.client.HTTPConnection(gateway.host, gateway.port, timeout=30)
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        metrics = (resp.status, resp.read().decode())
+        conn.close()
+        gw_stats = gateway.stats()
+    finally:
+        gateway.close()
+    if gateway._thread.is_alive() or gateway.driver_errors:
+        failures.append(f"gateway: thread alive {gateway._thread.is_alive()}, errors {gateway.driver_errors}")
+    streams = handles[:FLEET_STREAMS]
+    div_e = held("gateway", streams, rows_a, list(range(FLEET_STREAMS)))
+    cut = handles[FLEET_STREAMS]
+    events = sorted((sp.attrs["stream_id"], sp.status) for sp in tracer.spans("gateway.request"))
+    freed = [r.engine._pool.frees_by_cause.get("cancelled", 0) for r in fleet.replicas]
+    pools_e = leak_free("gateway", [r.engine for r in fleet.replicas])
+    reg = fleet.registry
+    socket_p50, engine_p50 = (reg.percentile("gateway_socket_ttft_ms", 50.0),
+                              reg.percentile("serving_ttft_ms", 50.0))
+    families = sorted({line.split()[2] for line in metrics[1].splitlines()
+                       if line.startswith("# HELP gateway_")})
+    if (cut.done and cut.status == "ok") or len(cut.tokens) != FLEET_CUT_AFTER - 1 \
+            or events[-1] != (FLEET_STREAMS + 1, "cancelled") \
+            or reg.counter("fleet_requests_cancelled_total") != 1 or not any(freed) \
+            or any(h["slots_active"] for h in healthz[1]["replica_detail"]):
+        failures.append(f"gateway: cut stream {cut.status} with {len(cut.tokens)} tokens, events {events}, "
+                        f"cancelled {reg.counter('fleet_requests_cancelled_total')}, freed {freed}")
+    if gw_stats["streams"] != FLEET_STREAMS + 1 or gw_stats["streams_completed"] != FLEET_STREAMS \
+            or gw_stats["streams_cancelled"] != 1:
+        failures.append(f"gateway: streams {gw_stats}")
+    if healthz[0] != 200 or metrics[0] != 200 or not set(GATEWAY_COUNTERS) <= set(families):
+        failures.append(f"gateway: /healthz {healthz[0]}, /metrics {metrics[0]} naming {families}")
+    if socket_p50 is None or engine_p50 is None:
+        failures.append(f"gateway: TTFT p50 socket {socket_p50}, engine {engine_p50}")
+    emit("fleet", part="gateway", card=smi, streams=FLEET_STREAMS, cut_stream=FLEET_STREAMS + 1,
+         cut_after_tokens=FLEET_CUT_AFTER, cut_client_status=cut.status, cut_tokens=len(cut.tokens),
+         wall_s=wall_e, gateway_socket_ttft_ms_p50=socket_p50, serving_ttft_ms_p50=engine_p50,
+         socket_minus_engine_ttft_ms=None if None in (socket_p50, engine_p50) else socket_p50 - engine_p50,
+         gateway_stats={k: gw_stats[k] for k in ("streams", "streams_completed", "streams_cancelled",
+                                                  "bytes_sent", "driver_errors")},
+         healthz_status=healthz[0], metrics_gateway_families=families, events=events, cancelled_pages=freed,
+         divergences_vs_no_fault=div_e, pools=pools_e, **launches["gateway"])
+    del fleet, gateway, handles, streams, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("fleet: " + "; ".join(failures))
+    return launches
+
+
 # the cli phase: the CLM family's CLI at clm-base width (fit, validate,
 # test, serve) and the symbolic family's fit at GiantMIDI width
 CLI_MODEL = ["--model.num_channels=896", "--model.max_latents=512", "--model.num_heads=8",
@@ -4100,6 +4450,10 @@ CLI_ENGINES = {
     "slots": ["--serve.engine=slots", "--serve.prompt_buckets=" + ",".join(map(str, SLOT_BUCKETS)),
               "--serve.slots=4", "--serve.kv_layout=paged", "--serve.speculation=off"],
 }
+#: the serve runs of the cli phase: each engine, then the slot engine's
+#: flags again behind the fleet router and its autoscaler
+CLI_SERVE_RUNS = ("serve_bucket", "serve_slots", "serve_fleet")
+CLI_FLEET = ["--serve.replicas=2", "--serve.autoscale.max=3", "--serve.autoscale.min=2"]
 CLI_SAM_STEPS = 4
 # the CLI fit's --obs.* flags (events and snapshot under its root dir; the
 # trigger fences each step and would arm on a 3x p95 regression)
@@ -4387,6 +4741,29 @@ def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, roo
                                               for line, ref in zip(lines, refs)))
         if failures:
             raise AssertionError(f"cli serve {engine}: " + "; ".join(failures))
+    # the slots run behind the fleet router and its autoscaler: the same lines
+    lines, reqs, rec = cli_serve(torch, flash, ragged, engine_mod, clm_script, ckpt, prompts_file, "slots",
+                                 CLI_FLEET)
+    runs["serve_fleet"] = rec
+    failures = _serve_failures(lines, [r.result for r in reqs], decode, "slots", rec)
+
+    def clean(ls):
+        return [{k: v for k, v in line.items() if k != "trace_id"} for line in ls[:-1]]
+
+    stats = lines[-1].get("serve_stats", {})
+    if clean(lines) != clean(served["slots"]):
+        failures.append("the fleet's lines differ from the single slot engine's")
+    if stats.get("engine") != "fleet" or stats.get("autoscaler") is None or stats.get("replicas", 0) < 2:
+        failures.append(f"serve_stats engine {stats.get('engine')}, replicas {stats.get('replicas')}, "
+                        f"autoscaler {stats.get('autoscaler')}")
+    emit("cli", part="serve_fleet", card=smi, flags=CLI_FLEET, requests=stats.get("completed"),
+         rejected=stats.get("rejected"), wall_s=rec["wall_s"], replicas=stats.get("replicas"),
+         completed_by_replica=stats.get("completed_by_replica"), autoscaler=stats.get("autoscaler"),
+         ttft_ms_p50=stats.get("ttft_ms", {}).get("p50"), lines_equal_single_engine=clean(lines) == clean(
+             served["slots"]), k1_launches=rec["launches"]["k1"], k1_route_launches=rec["k1_routes"],
+         k4_launches=rec["launches"]["k4"], k4_route_launches=rec["k4_routes"])
+    if failures:
+        raise AssertionError("cli serve fleet: " + "; ".join(failures))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5705,6 +6082,7 @@ def main() -> int:
                    tokenizers_mod, engine_mod, slots_mod, buckets, serve, slot_launches)
     obs = timed("obs", obs_phase, torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
                 ROOT / "build" / "chip_smoke_obs", smi)
+    fleet = timed("fleet", fleet_phase, torch, flash, ragged, gen_mod, slots_mod, buckets, serve, smi)
     del serve, shared
     emit("memory_before_training", **held_memory(torch))
     k23 = timed("k23", k23_cases, torch, flash)
@@ -5783,6 +6161,8 @@ def main() -> int:
         "beam_launches": sample["beam"]["k1"],
         "obs_launches": obs["k1"],
         "obs_route_launches": obs["k1_routes"],
+        "fleet_launches": {run: v["k1"] for run, v in fleet.items()},
+        "fleet_route_launches": {run: v["k1_routes"] for run, v in fleet.items()},
         "beam_route_launches": sample["beam"]["k1_routes"],
         "train_resilience_launches": {run: v["k1"] for run, v in resilience.items()},
         "cli_launches": {run: r["launches"]["k1"] + r["validation_launches"]["k1"] for run, r in cli.items()},
@@ -5835,16 +6215,18 @@ def main() -> int:
         "sample_route_launches": {run: v["k4_routes"] for run, v in sample["runs"].items()},
         "obs_launches": obs["k4"],
         "obs_route_launches": obs["k4_routes"],
+        "fleet_launches": {run: v["k4"] for run, v in fleet.items()},
+        "fleet_route_launches": {run: v["k4_routes"] for run, v in fleet.items()},
         "symbolic_launches": {f"slot_serve_{layout}": v["k4"] for layout, v in symbolic["slot_serve"].items()},
-        "cli_launches": {run: cli[run]["launches"]["k4"] for run in ("serve_bucket", "serve_slots")},
-        "cli_route_launches": {run: cli[run]["k4_routes"] for run in ("serve_bucket", "serve_slots")},
+        "cli_launches": {run: cli[run]["launches"]["k4"] for run in CLI_SERVE_RUNS},
+        "cli_route_launches": {run: cli[run]["k4_routes"] for run in CLI_SERVE_RUNS},
         "routes": [{**k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design],
                                      prefix_launches["paged"]["k4_routes"][design],
                                      {run: launches["k4_routes"][design]
                                       for run, launches in preempt_launches.items()},
                                      {f"slot_serve_{layout}": v["k4_routes"][design]
                                       for layout, v in symbolic["slot_serve"].items()}),
-                    "cli_launches": {run: cli[run]["k4_routes"][design] for run in ("serve_bucket", "serve_slots")}}
+                    "cli_launches": {run: cli[run]["k4_routes"][design] for run in CLI_SERVE_RUNS}}
                    for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
     }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic, cli, mlm, clf_bwd)]
         + k23_wide}), flush=True)

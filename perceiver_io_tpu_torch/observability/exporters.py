@@ -49,6 +49,8 @@ HELP_TEXT = {
     "serving_decode_rows_total": "Decode-step rows executed (real + filler).",
     "serving_decode_rows_padded_total": "Decode-step rows that were padding filler.",
     "serving_decode_steps_total": "Fixed-shape slot decode steps executed.",
+    # the port's own family: the slot engine's boundary-variant decode steps
+    "serving_decode_boundary_steps_total": "Slot decode steps that ran the boundary-phase variant (decode_strategy cached or recompute).",
     "serving_prefills_total": "Slot admissions prefilled (single-call or chunked).",
     "serving_prefill_chunks_total": "Chunked-prefill staging calls executed.",
     "serving_queue_wait_ms": "Queue wait per request: submit to batch/prefill start.",

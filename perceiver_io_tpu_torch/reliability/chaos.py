@@ -5,7 +5,7 @@ Every fault is registered up front against a named **site** and a key, and
 fires when the site's hook is consulted with a matching key: no randomness,
 no wall clock and no monkeypatching, so a chaos drill replays bit for bit.
 The registry keeps every site of the JAX package (its helpers and keys are
-the same); the port consults these:
+the same), and the port consults each of them:
 
 ==========================  =============================================
 site                        keying
@@ -29,10 +29,34 @@ site                        keying
                             ``error`` forces the first resident's page
                             mapping down the ``PoolExhausted`` path that
                             step (:meth:`ChaosRegistry.exhaust_kv`)
+``fleet.dispatch``          execution count (1-based): the Nth dispatch
+                            attempt of the fleet router, across replicas;
+                            ``error`` fails that attempt, charges the
+                            chosen replica and re-queues the request
+                            (:meth:`ChaosRegistry.fail_dispatch`)
+``fleet.replica_step.<r>``  per-replica execution count (1-based): the Nth
+                            supervised step of replica ``r``; ``error`` is
+                            a crash (the router rebuilds the replica and
+                            replays its work), ``hang`` advances the clock
+                            by ``delay_s`` past ``step_timeout_s``
+                            (:meth:`ChaosRegistry.crash_replica`,
+                            :meth:`ChaosRegistry.hang_replica`)
+``fleet.scale_up``          execution count (1-based): the Nth replica
+                            spawn (``FleetRouter.add_replica``); ``error``
+                            is a spawn failure
+                            (:meth:`ChaosRegistry.fail_scale_up`)
+``fleet.scale_down``        execution count (1-based): the Nth replica
+                            retirement, after its work failed over;
+                            ``error`` is a crash mid-drain: the evacuation
+                            never runs (:meth:`ChaosRegistry.crash_scale_down`)
+``gateway.disconnect.<s>``  per-stream execution count (1-based): the Nth
+                            token about to go onto stream ``s``'s socket
+                            (streams numbered in accept order); ``error``
+                            is the client vanishing: the gateway cancels
+                            the request (:meth:`ChaosRegistry.disconnect_stream`)
 ==========================  =============================================
 
-The fleet's and the gateway's sites (``fleet.*``, ``gateway.disconnect.*``)
-come with outer serving (``ROADMAP.md`` A.5). Fault kinds: ``"error"`` (the
+Fault kinds: ``"error"`` (the
 site raises an exception), ``"nan"`` (the trainer replaces the step loss
 with NaN), ``"hang"`` (a clock advance by ``delay_s``; meaningful only with
 a :class:`FakeClock`).

@@ -36,10 +36,14 @@ timeline. Serve lines carry the request's ``trace_id``; ``serve_stats``
 carries the registry (``metrics``), the build ledger (``compile_ledger``)
 and the process-wide registry (``process_metrics``).
 
-Flag groups whose modules are not ported yet are known to the parser, and
-using one raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
-``--serve.replicas`` above 1, ``--serve.http.*`` and ``--serve.autoscale.*``
-(A.5); ``--mesh.*`` and ``--serve.mesh.*`` (A.6).
+``serve`` also runs a supervised fleet (``--serve.replicas`` above 1,
+``--serve.failover``, ``--serve.step_timeout_s``), its autoscaler
+(``--serve.autoscale.*``, which builds the fleet even at one replica) and
+the HTTP/SSE streaming gateway (``--serve.http.*``: prompts arrive over
+``POST /v1/generate`` instead of a file), with JAX's checks. Flag groups
+whose modules are not ported yet are known to the parser, and using one
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: ``--mesh.*``
+and ``--serve.mesh.*`` (A.6).
 
 Model-family entry points are declarative :class:`ModelFamily` records; see
 ``perceiver_io_tpu_torch/scripts/text/clm.py`` for the pattern.
@@ -171,12 +175,14 @@ class LRSchedulerArgs:
     training_steps: Optional[int] = None  # linked to trainer.max_steps
 
 
-# -- flag groups of modules not ported yet ---------------------------------
-# The parser knows these flags (the JAX CLI's surface); using one raises
-# NotImplementedError naming its ROADMAP.md item (_refuse_unported).
+# -- the serve subcommand's nested flag groups -----------------------------
+# The mesh groups' modules are not ported yet: the parser knows their flags
+# (the JAX CLI's surface), and using one raises NotImplementedError naming
+# its ROADMAP.md item (_refuse_unported).
 @dataclasses.dataclass
 class HttpArgs:
-    """``--serve.http.*``: the HTTP/SSE streaming gateway (A.5)."""
+    """``--serve.http.*``: the HTTP/SSE streaming gateway; ``port`` set
+    (0 picks a free one) serves over sockets instead of the prompts loop."""
 
     port: Optional[int] = None
     host: str = "127.0.0.1"
@@ -195,7 +201,8 @@ class MeshServeArgs:
 
 @dataclasses.dataclass
 class AutoscaleArgs:
-    """``--serve.autoscale.*``: SLO-driven fleet elasticity (A.5)."""
+    """``--serve.autoscale.*``: SLO-driven fleet elasticity, enabled by
+    ``max``."""
 
     max: Optional[int] = None
     min: int = 1
@@ -224,16 +231,8 @@ def _unported(flags: str, item: str) -> NotImplementedError:
 
 def _refuse_unported(values: Dict[str, Any]) -> None:
     """Raise for a flag of a group whose modules are not ported yet."""
-    keys = set(values)
-    if any(k.startswith(("mesh.", "serve.mesh.")) for k in keys):
+    if any(k.startswith(("mesh.", "serve.mesh.")) for k in values):
         raise _unported("--mesh.* / --serve.mesh.* (parallelism over a device mesh)", "A.6")
-    if any(k.startswith("serve.http.") for k in keys):
-        raise _unported("--serve.http.* (the HTTP/SSE streaming gateway)", "A.5")
-    if any(k.startswith("serve.autoscale.") for k in keys):
-        raise _unported("--serve.autoscale.* (the fleet autoscaler)", "A.5")
-    replicas = values.get("serve.replicas", 1)
-    if isinstance(replicas, int) and replicas > 1:
-        raise _unported("--serve.replicas > 1 (the supervised fleet router)", "A.5")
 
 
 def _obs_kit(obs, root: str, *, passed: Optional[set] = None) -> Dict[str, Any]:
@@ -465,7 +464,7 @@ class ServeArgs:
     max_queue: Optional[int] = None
     #: per-request deadline in seconds
     deadline_s: Optional[float] = None
-    #: engine replicas behind a fleet router (> 1: A.5)
+    #: engine replicas behind a supervised fleet router
     replicas: int = 1
     failover: bool = True
     step_timeout_s: Optional[float] = None
@@ -907,26 +906,55 @@ class CLI:
                         f"--serve.swap_gbps must be > 0, got "
                         f"{args.swap_gbps}"
                     )
-            # one engine, driven directly: the fleet layer (replicas > 1,
-            # autoscaling) is refused above
-            if args.step_timeout_s is not None:
+            autoscale = args.autoscale
+            if autoscale.max is None and any(k.startswith("serve.autoscale.") for k in values):
+                # tuning an autoscaler that was never enabled must not
+                # silently do nothing
                 raise SystemExit(
-                    "--serve.step_timeout_s applies to --serve.replicas > 1 "
-                    "(hang detection is fleet supervision; a single engine "
-                    "is driven directly)"
+                    "--serve.autoscale.* tunes the fleet autoscaler, which "
+                    "is enabled by setting --serve.autoscale.max"
                 )
-            if not args.failover:
-                print(
-                    "[serve] --serve.failover=false is a no-op with "
-                    "--serve.replicas=1 (no fleet layer, so there is no "
-                    "failover to disable)",
-                    file=sys.stderr, flush=True,
-                )
+            if autoscale.max is not None:
+                if autoscale.max < max(autoscale.min, args.replicas):
+                    raise SystemExit(
+                        f"--serve.autoscale.max ({autoscale.max}) must be >= "
+                        f"max(--serve.autoscale.min ({autoscale.min}), "
+                        f"--serve.replicas ({args.replicas}))"
+                    )
+                if autoscale.scale_up_slots is not None and args.engine != "slots":
+                    raise SystemExit(
+                        "--serve.autoscale.scale_up_slots applies to "
+                        "--serve.engine=slots (the bucket engine has no "
+                        "persistent decode slots to resize)"
+                    )
+            # the autoscaler drives add/remove_replica, so enabling it builds
+            # the fleet layer even at one replica
+            fleet_mode = args.replicas > 1 or autoscale.max is not None
+            if not fleet_mode:
+                if args.step_timeout_s is not None:
+                    raise SystemExit(
+                        "--serve.step_timeout_s applies to --serve.replicas > 1 "
+                        "(hang detection is fleet supervision; a single engine "
+                        "is driven directly)"
+                    )
+                if not args.failover:
+                    print(
+                        "[serve] --serve.failover=false is a no-op with "
+                        "--serve.replicas=1 (no fleet layer, so there is no "
+                        "failover to disable)",
+                        file=sys.stderr, flush=True,
+                    )
+            flight_recorder = kit["flight_recorder"]
             engine_kwargs = dict(
-                generator=torch.Generator(device=device).manual_seed(args.seed),
-                max_queue=args.max_queue,
-                default_deadline_s=args.deadline_s,
-                registry=kit["registry"],
+                # with a fleet, admission (bounded queue, deadlines) is the
+                # router's; each engine enforces the remaining deadline it is
+                # handed at dispatch
+                max_queue=None if fleet_mode else args.max_queue,
+                default_deadline_s=None if fleet_mode else args.deadline_s,
+                # fleet replicas keep private registries, so serve_stats'
+                # per-replica engine stats are each one replica's; the kit's
+                # registry carries the fleet_* families
+                registry=None if fleet_mode else kit["registry"],
                 tracer=tracer,
                 # the slot engine feeds each decode step's ms, the bucket
                 # engine each batch's; an armed trigger captures the next
@@ -961,17 +989,22 @@ class CLI:
                     link_gbps = args.swap_gbps
                 else:
                     link_gbps = obs.timeline.swap_gbps
-                engine = SlotServingEngine(
-                    model, gen_cfg, table, slots=args.slots,
-                    prefill_chunk=args.prefill_chunk,
-                    kv_layout=kv_mode, kv_block_size=args.kv_block_size,
-                    kv_blocks=args.kv_blocks, prefix_cache=prefix_mode,
-                    preemption=args.preemption,
-                    admit_headroom_blocks=args.admit_headroom_blocks,
-                    speculation=spec_mode,
-                    swap_link_gbps=link_gbps,
-                    **engine_kwargs,
-                )
+
+                def build():
+                    return SlotServingEngine(
+                        model, gen_cfg, table, slots=args.slots,
+                        prefill_chunk=args.prefill_chunk,
+                        kv_layout=kv_mode, kv_block_size=args.kv_block_size,
+                        kv_blocks=args.kv_blocks, prefix_cache=prefix_mode,
+                        preemption=args.preemption,
+                        admit_headroom_blocks=args.admit_headroom_blocks,
+                        speculation=spec_mode,
+                        swap_link_gbps=link_gbps,
+                        # each engine (a fleet rebuild or spawn too) gets a
+                        # generator seeded alike, as JAX's PRNGKey(seed)
+                        generator=torch.Generator(device=device).manual_seed(args.seed),
+                        **engine_kwargs,
+                    )
             else:
                 if args.prefill_chunk is not None:
                     raise SystemExit(
@@ -1009,25 +1042,87 @@ class CLI:
                         "(the bucket engine has no resident decode loop to "
                         "draft ahead of)"
                     )
-                engine = ServingEngine(model, gen_cfg, table, **engine_kwargs)
-            flight_recorder = kit["flight_recorder"]
-            engine.flight_recorder = flight_recorder
-            engine.timeline = kit["timeline"]
-            if kit["slo_monitor"] is not None:
-                # the engine mirrors every TTFT/ITL sample into the monitor;
-                # the error rate diffs the serving_* counters per poll
-                engine.latency_sink = kit["slo_monitor"].sink
-                kit["slo_monitor"].watch_counters(kit["registry"].counters, prefix="serving")
+
+                def build():
+                    return ServingEngine(
+                        model, gen_cfg, table,
+                        generator=torch.Generator(device=device).manual_seed(args.seed),
+                        **engine_kwargs)
+
+            def make_engine():
+                # inside the factory: a fleet's rebuilds and spawns keep the
+                # pool-exhaustion seam and the one shared timeline ring
+                eng = build()
+                eng.flight_recorder = flight_recorder
+                eng.timeline = kit["timeline"]
+                return eng
+
+            if fleet_mode:
+                from perceiver_io_tpu_torch.serving.autoscaler import FleetAutoscaler
+                from perceiver_io_tpu_torch.serving.fleet import FleetRouter
+
+                # the fleet mirrors the engine request surface, so the prompt
+                # loop and the gateway drive it unchanged
+                engine = FleetRouter(
+                    [make_engine] * args.replicas,
+                    max_pending=args.max_queue,
+                    default_deadline_s=args.deadline_s,
+                    failover=args.failover,
+                    step_timeout_s=args.step_timeout_s,
+                    registry=kit["registry"],
+                    tracer=tracer,
+                    # a sustained burn tightens the fleet's admission
+                    slo_monitor=kit["slo_monitor"],
+                    slo_shed_factor=obs.slo.shed_factor,
+                    # replica failures and breaker opens dump bundles
+                    flight_recorder=flight_recorder,
+                )
+                if autoscale.max is not None:
+                    # installs itself on the router; every fleet step polls it
+                    FleetAutoscaler(
+                        engine,
+                        max_replicas=autoscale.max,
+                        min_replicas=autoscale.min,
+                        up_cooldown_s=autoscale.up_cooldown_s,
+                        down_cooldown_s=autoscale.down_cooldown_s,
+                        up_evidence=autoscale.up_evidence,
+                        down_evidence=autoscale.down_evidence,
+                        queue_high=autoscale.queue_high,
+                        queue_low=autoscale.queue_low,
+                        scale_up_slots=autoscale.scale_up_slots,
+                        tracer=tracer,
+                    )
+            else:
+                engine = make_engine()
+                if kit["slo_monitor"] is not None:
+                    # the engine mirrors every TTFT/ITL sample into the
+                    # monitor; the error rate diffs the serving_* counters
+                    engine.latency_sink = kit["slo_monitor"].sink
+                    kit["slo_monitor"].watch_counters(kit["registry"].counters, prefix="serving")
             if flight_recorder is not None:
-                # the state each incident bundle captures
+                # the state each incident bundle captures (the fleet's health
+                # embeds every replica's)
                 flight_recorder.add_source("health", engine.health)
                 if kit["slo_monitor"] is not None:
                     flight_recorder.add_source("slo", kit["slo_monitor"].stats)
-                if getattr(engine, "_pool", None) is not None:
+                autoscaler = getattr(engine, "autoscaler", None)
+                if autoscaler is not None:
+                    flight_recorder.add_source("autoscaler", autoscaler.stats)
+                if fleet_mode:
+                    # read through the router at dump time: a closure over one
+                    # engine would keep a retired replica's pool alive
+                    flight_recorder.add_source("kv_pool", lambda: {
+                        str(r.replica_id): r.engine._pool.stats() for r in engine.replicas
+                        if getattr(r.engine, "_pool", None) is not None})
+                elif getattr(engine, "_pool", None) is not None:
                     flight_recorder.add_source("kv_pool", engine._pool.stats)
                 if kit["timeline"] is not None:
                     flight_recorder.add_source("timeline", kit["timeline"].summary)
-                if hasattr(engine, "postmortems"):
+                if fleet_mode:
+                    flight_recorder.add_source("preemption_postmortems", lambda: {
+                        str(r.replica_id): r.engine.postmortems() for r in engine.replicas
+                        if hasattr(r.engine, "postmortems")})
+                elif hasattr(engine, "postmortems"):
                     flight_recorder.add_source("preemption_postmortems", engine.postmortems)
             if args.warmup:
                 t0 = time.monotonic()
@@ -1044,6 +1139,17 @@ class CLI:
                     ))
                 ):
                     strategy_mod.save_registry(args.decode_strategy_file)
+
+            if args.http.port is not None:
+                # gateway mode: requests arrive on sockets and tokens stream
+                # back as they decode
+                if args.prompts:
+                    raise SystemExit(
+                        "--serve.prompts applies to the batch loop; with "
+                        "--serve.http.port set, prompts arrive over "
+                        "POST /v1/generate"
+                    )
+                return self._serve_http(engine, tok, args, kit)
 
             if args.prompts:
                 with open(args.prompts) as fh:
@@ -1073,6 +1179,76 @@ class CLI:
             if kit["sink"] is not None:
                 kit["sink"].close()
 
+    def _serve_http(self, engine, tok, args, kit) -> list:
+        """``serve --serve.http.port=N``: run the streaming gateway over the
+        built engine or fleet until ``--serve.http.max_streams`` streams
+        ended (or Ctrl-C), then drain and print the ``serve_stats`` line,
+        the gateway's wire counters included. The gateway's thread is the
+        engine's only driver meanwhile: this thread waits."""
+        import json
+        import time
+
+        from perceiver_io_tpu_torch.observability import default_ledger, default_registry
+        from perceiver_io_tpu_torch.serving.gateway import STREAM_MODES, StreamingGateway
+
+        if args.http.stream not in STREAM_MODES:
+            raise SystemExit(
+                "--serve.http.stream must be one of "
+                f"{'|'.join(STREAM_MODES)}, got {args.http.stream!r}"
+            )
+        t0 = time.monotonic()
+        gateway = StreamingGateway(
+            engine,
+            host=args.http.host,
+            port=args.http.port,
+            stream=args.http.stream,
+            encode=lambda text: tok.encode(text),
+            decode=lambda ids: tok.decode(ids),
+            registry=kit["registry"],
+            tracer=engine.tracer if hasattr(engine, "tracer") else None,
+            slo_monitor=kit["slo_monitor"],
+            snapshot_writer=kit["snapshot_writer"],
+            flight_recorder=kit["flight_recorder"],
+            max_streams=args.http.max_streams,
+        )
+        gateway.run_in_thread()
+        print(
+            f"[serve] http gateway listening on {gateway.host}:{gateway.port} "
+            f"(stream={args.http.stream}"
+            + (f", max_streams={args.http.max_streams}"
+               if args.http.max_streams is not None else "")
+            + ")",
+            file=sys.stderr, flush=True,
+        )
+        try:
+            gateway.wait()
+        except KeyboardInterrupt:
+            print("[serve] interrupt: shutting the gateway down", file=sys.stderr, flush=True)
+        finally:
+            gateway.close()
+        engine.drain()
+        if kit["slo_monitor"] is not None:
+            # the last drain step's dispositions (a fleet polls at the
+            # start of a step)
+            kit["slo_monitor"].poll()
+        wall_s = time.monotonic() - t0
+        if args.stats:
+            stats = engine.stats()
+            stats["health"] = engine.health()
+            stats["wall_s"] = round(wall_s, 3)
+            stats["gateway"] = gateway.stats()
+            stats["metrics"] = engine.registry.snapshot()
+            stats["compile_ledger"] = default_ledger().snapshot()
+            stats["process_metrics"] = default_registry().snapshot()
+            if kit["slo_monitor"] is not None and "slo" not in stats:
+                stats["slo"] = kit["slo_monitor"].stats()
+            if kit["flight_recorder"] is not None:
+                stats["incident"] = kit["flight_recorder"].stats()
+            if kit["timeline"] is not None and "timeline" not in stats:
+                stats["timeline"] = kit["timeline"].summary()
+            print(json.dumps({"serve_stats": stats}), flush=True)
+        return []
+
     def _serve_prompts(self, engine, tok, prompts, args, kit) -> list:
         import json
         import time
@@ -1084,6 +1260,14 @@ class CLI:
         pad_id = tok.pad_token_id or 0
         writer, recorder, slo_monitor = (kit["snapshot_writer"], kit["flight_recorder"],
                                          kit["slo_monitor"])
+
+        def step() -> None:
+            # a fleet whose every breaker is open makes no progress until a
+            # cooldown elapses: yield instead of spinning (an engine always
+            # progresses while pending)
+            if engine.step() == 0 and not getattr(engine, "last_step_made_progress", True):
+                time.sleep(0.005)
+
         # (prompt, ServeRequest | None, error | None, trace_id | None, status)
         handles: list = []
         for p in prompts:
@@ -1092,7 +1276,7 @@ class CLI:
                 # backpressure: make room BEFORE submitting so a full queue
                 # drains work instead of tripping the shed counter
                 while not engine.health()["ready"] and engine.pending():
-                    engine.step()
+                    step()
                 req = engine.submit(ids)
                 handles.append((p, req, None, req.trace_id, None))
             except (ValueError, QueueFull) as e:
@@ -1108,17 +1292,21 @@ class CLI:
                 recorder.maybe_record()
         # drive off pending(), not step()'s return value: a slot-engine step
         # advances one token and legitimately disposes of nothing; the
-        # snapshot cadence, the SLO polls and the recorder's ring keep up
+        # snapshot cadence, the SLO polls and the recorder's ring keep up (a
+        # fleet polls its own monitor inside step())
+        fleet_polls = hasattr(engine, "slo_monitor")
         while engine.pending():
-            engine.step()
-            if slo_monitor is not None:
+            step()
+            if slo_monitor is not None and not fleet_polls:
                 slo_monitor.poll()
             if writer is not None:
                 writer.maybe_write()
             if recorder is not None:
                 recorder.maybe_record()
         if slo_monitor is not None:
-            slo_monitor.poll()  # the last step's dispositions
+            # the last step's dispositions (a fleet polls at the start of a
+            # step); a second poll is an idempotent counter diff
+            slo_monitor.poll()
         engine.drain()  # queue already empty: just stop accepting
         wall_s = time.monotonic() - t0
 
@@ -1148,8 +1336,8 @@ class CLI:
             # ledger's families, the device and KV gauges)
             stats["compile_ledger"] = default_ledger().snapshot()
             stats["process_metrics"] = default_registry().snapshot()
-            if slo_monitor is not None:
-                stats["slo"] = slo_monitor.stats()
+            if slo_monitor is not None and "slo" not in stats:
+                stats["slo"] = slo_monitor.stats()  # a fleet's stats() embeds it
             if recorder is not None:
                 stats["incident"] = recorder.stats()
             if kit["timeline"] is not None and "timeline" not in stats:
@@ -1171,7 +1359,20 @@ class CLI:
               "--serve.speculation={auto|off|k<K>d<D>} "
               "--serve.preemption={recompute|swap|auto} --serve.admit_headroom_blocks "
               "--serve.swap_gbps --serve.prompt_buckets --serve.batch_buckets "
-              "--serve.warmup --serve.seed --serve.max_queue --serve.deadline_s")
+              "--serve.warmup --serve.seed --serve.max_queue --serve.deadline_s "
+              "--serve.replicas=<n> --serve.failover={true|false} "
+              "--serve.step_timeout_s=<s>")
+        print("serve autoscale: --serve.autoscale.max=<n> --serve.autoscale.min "
+              "--serve.autoscale.up_cooldown_s --serve.autoscale.down_cooldown_s "
+              "--serve.autoscale.up_evidence --serve.autoscale.down_evidence "
+              "--serve.autoscale.queue_high --serve.autoscale.queue_low "
+              "--serve.autoscale.scale_up_slots — SLO-driven fleet elasticity: "
+              "burn/queue pressure scales replicas up to max, cooldown-gated "
+              "zero-downtime scale-down")
+        print("serve http gateway: --serve.http.port=<n|0> --serve.http.host "
+              "--serve.http.stream={sse|jsonl} --serve.http.max_streams — "
+              "POST /v1/generate streams tokens as they decode; GET /healthz, "
+              "GET /metrics; client disconnects cancel mid-generation")
         print("observability: --obs.events_path=<events.jsonl> --obs.snapshot_every_s "
               "--obs.snapshot_path --obs.profile_on_regress_factor "
               "--obs.trace_sample=<0..1> --obs.trace_keep_slow_ms "
@@ -1179,12 +1380,13 @@ class CLI:
         print("incident flight recorder: --obs.incident.dir=<dir> "
               "--obs.incident.cooldown_s --obs.incident.max_bundles "
               "--obs.incident.keep_spans — triggered bounded bundles at the "
-              "serving seams (SLO breach, pool exhaustion, preemption storm); "
+              "serving seams (SLO breach, replica failure, pool exhaustion, "
+              "preemption storm, autoscaler escalation, gateway mass-disconnect); "
               "analyze with obs incident --bundle=<dir>")
         print("slo (serve): --obs.slo.ttft_p95_ms --obs.slo.inter_token_p95_ms "
               "--obs.slo.error_rate --obs.slo.fast_window_s --obs.slo.slow_window_s "
               "--obs.slo.burn_rate --obs.slo.shed_factor — burn-rate monitor, "
-              "breach events")
+              "breach events, fleet admission tightening")
         print("timeline (serve): --obs.timeline.steps=<n> --obs.timeline.export"
               "=<timeline.jsonl> --obs.timeline.swap_gbps — per-pass scheduler "
               "ring (admissions, slot occupancy, preemption post-mortems); "
@@ -1195,8 +1397,7 @@ class CLI:
         print("obs timeline: --timeline=<timeline.jsonl> [--events=<events.jsonl>] "
               "[--snapshot=<snapshot.json>] [--trace_out=<trace.json>] — "
               "per-slot gantt + per-request decomposition + Chrome-trace export")
-        print("not ported yet (NotImplementedError): --serve.replicas > 1, --serve.http.*, "
-              "--serve.autoscale.* (ROADMAP.md A.5); --mesh.*, --serve.mesh.* (A.6)")
+        print("not ported yet (NotImplementedError): --mesh.*, --serve.mesh.* (ROADMAP.md A.6)")
         print(f"data modules: {sorted(self.family.data_registry)}")
 
 

@@ -9,8 +9,8 @@ Counterpart of ``perceiver_io_tpu/serving/engine.py``'s ``ServingEngine``:
   micro-batch; unfilled rows are dummy rows whose outputs are dropped;
 - the queue is bounded (``max_queue`` -> :class:`QueueFull`), requests carry
   deadlines on an injectable clock, a failing micro-batch fails only its own
-  requests, ``drain()`` is the graceful shutdown and ``health()`` the
-  readiness snapshot.
+  requests, ``drain()`` is the graceful shutdown, ``evacuate()`` the fleet's
+  scale-down and ``health()`` the readiness snapshot.
 
 Greedy generation is left-pad invariant, so the bucketed output is
 token-identical to per-request calls as long as ``config.num_latents`` is at
@@ -448,6 +448,23 @@ class ServingEngine:
                 self._finish(req, "cancelled")
                 return True
         return False
+
+    def evacuate(self, cause: str = "scale_down") -> int:
+        """Withdraw every live request at once, the fleet's scale-down path:
+        the router has already replayed this engine's work elsewhere. Each
+        queued request finishes ``cancelled`` with a ``serving.cancelled``
+        event carrying ``cause`` (the bucket engine holds only queued work
+        between steps; the slot engine also retires its residents). Returns
+        the number evacuated."""
+        evacuated = 0
+        queued, self._queue = list(self._queue), []
+        for req in queued:
+            if self.tracer is not None:
+                self.tracer.event("serving.cancelled", trace_id=req.trace_id,
+                                  stage="queued", tokens_emitted=0, cause=cause)
+            self._finish(req, "cancelled", error=f"evacuated ({cause})")
+            evacuated += 1
+        return evacuated
 
     # -- scheduler ----------------------------------------------------------
     def _emit_token(self, req: ServeRequest, index: int, token: int) -> None:

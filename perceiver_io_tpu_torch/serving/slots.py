@@ -125,10 +125,12 @@ recorder's ``pool_exhausted`` (an admission waits on the pool) and
 the step raises :class:`~.kv_pool.PoolExhausted`); the profiler trigger,
 fed each decode step's ms.
 
-Not ported yet (they raise ``NotImplementedError``, see ``ROADMAP.md`` A):
-the serving mesh; nor ``evacuate`` and ``resize_slots``. No trace-env
-fingerprint guards the prefix index or keys the registry (the port has no
-trace-env flags).
+For the fleet (:mod:`.fleet`, :mod:`.autoscaler`): ``evacuate`` retires
+every live request at once with its pages tagged by the cause, and
+``resize_slots`` rebuilds an idle engine's state at another slot count.
+Not ported yet (it raises ``NotImplementedError``, see ``ROADMAP.md`` A.6):
+the serving mesh. No trace-env fingerprint guards the prefix index or keys
+the registry (the port has no trace-env flags).
 """
 from __future__ import annotations
 
@@ -222,9 +224,7 @@ _ROW_HOST_DTYPES = {"window": torch.int32, "pad": torch.int32, "length": torch.i
 
 
 def _deferred(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md A, 'Next' (the slot engine's later sub-slices)"
-    )
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A.6)")
 
 
 @dataclasses.dataclass
@@ -1425,14 +1425,16 @@ class SlotServingEngine(ServingEngine):
         self._finish_admit(req, slot, admit.bucket_len, admit.m0, admit.prefill_ms,
                            hit=admit.plan is not None, chunks=len(admit.offsets))
 
-    def _retire(self, entry: _Slot, status: str, *, error: Optional[str] = None) -> None:
+    def _retire(self, entry: _Slot, status: str, *, error: Optional[str] = None,
+                kv_cause: Optional[str] = None) -> None:
         if status == "ok":
             out = np.full((entry.max_new,), entry.req.config.pad_token_id, np.int32)
             out[:len(entry.emitted)] = entry.emitted
             entry.req.result = out
         self._finish(entry.req, status, error=error)
         self._slots[entry.slot] = None
-        cause = {"cancelled": "cancelled", "failed": "failover"}.get(status, "retire")
+        # the pool's free causes: ``kv_cause`` (an evacuation) overrides
+        cause = kv_cause or {"cancelled": "cancelled", "failed": "failover"}.get(status, "retire")
         self._kv_release(entry.slot, cause=cause)
         if self.tracer is not None:
             self.tracer.event("serving.slot_retired", trace_id=entry.req.trace_id,
@@ -1499,6 +1501,63 @@ class SlotServingEngine(ServingEngine):
             self._drop_bundle(request_id, cause="cancelled")  # a queued swapped victim
             return True
         return False
+
+    def evacuate(self, cause: str = "scale_down") -> int:
+        """Withdraw every live request at once, the fleet's scale-down path:
+        the admission in flight drops, every resident retires ``cancelled``
+        with its pages (mapped and reserved) returned tagged ``cause`` in the
+        pool's ``frees_by_cause``, parked swap bundles drop their retains
+        under the same cause, and queued requests leave through the base
+        path. Each gets a ``serving.cancelled`` event carrying ``cause``.
+        Returns the number evacuated."""
+        evacuated = 0
+        admit = self._admitting
+        if admit is not None:
+            self._admitting = None
+            self._kv_release(admit.slot, cause=cause)
+            if self.tracer is not None:
+                self.tracer.event("serving.cancelled", trace_id=admit.req.trace_id,
+                                  stage="admitting", slot=admit.slot, tokens_emitted=0,
+                                  cause=cause)
+            self._finish(admit.req, "cancelled", error=f"evacuated ({cause})")
+            evacuated += 1
+        for entry in self._active():
+            if self.tracer is not None:
+                self.tracer.event("serving.cancelled", trace_id=entry.req.trace_id,
+                                  stage="resident", slot=entry.slot,
+                                  tokens_emitted=len(entry.emitted), cause=cause)
+            self._retire(entry, "cancelled", error=f"evacuated ({cause})", kv_cause=cause)
+            evacuated += 1
+        for rid in list(self._swap_bundles):
+            self._drop_bundle(rid, cause=cause)
+        self._update_slot_gauges()
+        return evacuated + super().evacuate(cause)
+
+    def resize_slots(self, new_slots: int) -> int:
+        """Rebuild the idle engine's decode state at ``new_slots`` slots (the
+        autoscaler's ``scale_up_slots``), through the same ``_init_kv_state``
+        rebuild a warmup layout switch uses: the old state and pool are
+        dropped before the new ones are allocated. A pool the operator did
+        not size scales with the slot count; a sized one keeps its blocks.
+        Refused while a request is resident or an admission is in flight
+        (drain or evacuate first); queued requests survive. Returns the
+        previous slot count."""
+        if new_slots < 1:
+            raise ValueError(f"slots must be >= 1, got {new_slots}")
+        if any(s is not None for s in self._slots) or self._admitting is not None:
+            raise RuntimeError(
+                "resize_slots() with requests resident in slots would corrupt their decode "
+                "state; drain() or evacuate() first")
+        old = self.slots
+        if new_slots == old:
+            return old
+        self.slots = int(new_slots)
+        self._slots = [None] * self.slots
+        if not self._kv_sized:
+            self.kv_blocks = self.slots * -(-self.model.max_seq_len // self.kv_block_size)
+        self._init_kv_state(self.kv_layout)
+        self._update_slot_gauges()
+        return old
 
     # -- the token-level scheduler ------------------------------------------
     def _decode(self, boundary: bool) -> torch.Tensor:

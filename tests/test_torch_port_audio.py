@@ -44,6 +44,18 @@ def _objs(mod, notes, controls):
     return [mod.Note(*n) for n in notes], [mod.ControlChange(*c) for c in controls]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_codec_matches_jax(seed):
     notes, controls = _random_piece(seed)

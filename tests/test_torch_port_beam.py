@@ -61,6 +61,18 @@ def _pair(kw):
     return j_model, params, load_jax_params(t_model, params).eval()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def pair():
     return _pair(KW)

@@ -61,6 +61,18 @@ def _counts():
             for name, w in (("dq", flash.flash_attention_bwd_dq), ("dkv", flash.flash_attention_bwd_dkv))}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("dtype,route", [(torch.float32, "tf32x3"), (torch.bfloat16, "wgmma")])
 def test_bwd_route_table(dtype, route):
     assert flash._bwd_route(dtype, 112, 112) == route

@@ -13,8 +13,13 @@
   engines give equal JSON lines (``prompt``, ``completion``, ``status`` and
   the error record of an infeasible prompt); each line carries its own
   ``trace_id`` (a per-run prefix, so the ids differ between the runs).
-- **Refusals**: each flag group whose modules are not ported raises
-  ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+- **Outer serving**: ``serve --serve.replicas=2`` (the fleet router) and
+  ``--serve.autoscale.max=3`` (the autoscaler over a one-replica fleet) give
+  JAX's lines; ``--serve.http.port=0 --serve.http.max_streams=2`` serves two
+  streams over a socket with JAX's frames (less ``trace_id``); the fleet,
+  autoscale and gateway flags' ``SystemExit`` messages are JAX's.
+- **Refusals**: each flag group whose modules are not ported (the mesh,
+  A.6) raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 
 A tiny CLM (262-byte vocab, 64 context, 16 latents, 32 channels, 2 heads,
 1 layer) over ``--data=synthetic`` (4 + 2 + 2 documents of 512 characters).
@@ -106,6 +111,17 @@ def _serve(main, family, ckpt, prompts, engine, extra=()):
     if engine == "slots":
         argv += ["--serve.kv_layout=paged", "--serve.slots=2", "--serve.speculation=off"]
     return main(family, argv)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: one intra-op thread is many times faster on a busy host
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -360,6 +376,11 @@ BAD_SERVE = {
     "swap_gbps without swap": ["--serve.engine=slots", "--serve.swap_gbps=2"],
     "step_timeout_s": ["--serve.step_timeout_s=1"],
     "replicas < 1": ["--serve.replicas=0"],
+    "autoscale tuned without max": ["--serve.autoscale.min=2"],
+    "autoscale max below replicas": ["--serve.replicas=3", "--serve.autoscale.max=2"],
+    "scale_up_slots on bucket": ["--serve.autoscale.max=2", "--serve.autoscale.scale_up_slots=4"],
+    "http with prompts": ["--serve.http.port=0"],
+    "http stream": ["--serve.http.port=0", "--serve.http.stream=grpc", "--serve.prompts="],
 }
 
 
@@ -374,13 +395,99 @@ def test_bad_serve_flags_exit_with_jax_messages(runs, name):
     assert str(port.value) == str(ref.value)
 
 
+# -- outer serving: the fleet, the autoscaler and the gateway --------------
+def _http_serve(main, family, ckpt, prompts, extra, monkeypatch, gateway_cls):
+    """``serve --serve.http.port=0 --serve.http.max_streams=N`` in a thread:
+    each prompt POSTed in turn, its frames read (``trace_id`` dropped), then
+    the CLI's return once the gateway stopped."""
+    import http.client
+    import threading
+
+    started, out = [], {}
+    run_in_thread = gateway_cls.run_in_thread
+
+    def spy(self):
+        started.append(run_in_thread(self))
+        return started[-1]
+
+    monkeypatch.setattr(gateway_cls, "run_in_thread", spy)
+    argv = ["serve", f"--ckpt={ckpt}", "--serve.max_new_tokens=6", "--serve.num_latents=2",
+            "--serve.warmup=false", "--serve.engine=slots", "--serve.kv_layout=paged", "--serve.slots=2",
+            "--serve.speculation=off", "--serve.http.port=0", f"--serve.http.max_streams={len(prompts)}",
+            *extra]
+    thread = threading.Thread(target=lambda: out.update(ret=main(family, argv)))
+    thread.start()
+    for _ in range(2400):  # up to 2 minutes to load the checkpoint and bind
+        if started or not thread.is_alive():
+            break
+        thread.join(0.05)
+    assert started, "the serve CLI stopped before its gateway started"
+    frames = []
+    for p in prompts:
+        conn = http.client.HTTPConnection(started[0].host, started[0].port, timeout=60)
+        conn.request("POST", "/v1/generate", body=json.dumps({"prompt": p, "stream": "jsonl"}))
+        resp = conn.getresponse()
+        rows = [json.loads(line) for line in resp.read().decode().splitlines() if line.strip()]
+        frames.append((resp.status, [{k: v for k, v in r.items() if k != "trace_id"} for r in rows]))
+        conn.close()
+    thread.join(120)
+    return frames, out.get("ret")
+
+
+OUTER = {
+    "replicas": ["--serve.replicas=2"],
+    "replicas failover off": ["--serve.replicas=2", "--serve.failover=false", "--serve.step_timeout_s=60"],
+    "autoscale": ["--serve.autoscale.max=3"],
+    "http": None,
+}
+
+
+@pytest.mark.parametrize("name", sorted(OUTER))
+def test_outer_serving_flag_groups_run(runs, name, monkeypatch, capsys):
+    if name == "http":
+        from perceiver_io_tpu.serving import gateway as jax_gateway
+        from perceiver_io_tpu_torch.serving import gateway as port_gateway
+
+        prompts = PROMPTS[:2]
+        ref, ref_ret = _http_serve(_jax_main, JAX_CLM, runs["jax_dir"], prompts, [], monkeypatch,
+                                   jax_gateway.StreamingGateway)
+        port, port_ret = _http_serve(_port_main, PORT_CLM, runs["port_dir"], prompts, ["--device=cpu"],
+                                     monkeypatch, port_gateway.StreamingGateway)
+        assert port == ref and port_ret == ref_ret == []
+        assert [status for status, _ in port] == [200, 200]
+        assert all(rows[-1]["done"] and rows[-1]["status"] == "ok" and len(rows) > 1 for _, rows in port)
+        stats = json.loads(capsys.readouterr().out.splitlines()[-1])["serve_stats"]
+        assert stats["gateway"]["streams_completed"] == 2 and stats["completed"] == 2
+        return
+    capsys.readouterr()
+    ref = _serve(_jax_main, JAX_CLM, runs["jax_dir"], runs["prompts"], "slots", OUTER[name])
+    ref_stats = json.loads(capsys.readouterr().out.splitlines()[-1])["serve_stats"]
+    port = _serve(_port_main, PORT_CLM, runs["port_dir"], runs["prompts"], "slots", ["--device=cpu", *OUTER[name]])
+    stats = json.loads(capsys.readouterr().out.splitlines()[-1])["serve_stats"]
+    strip = [{k: v for k, v in row.items() if k != "trace_id"} for row in ref]
+    assert [{k: v for k, v in row.items() if k != "trace_id"} for row in port] == strip
+    # the fleet's lines are the single engine's
+    assert port == [dict(row, trace_id=p["trace_id"]) for row, p in zip(runs["port_serve_slots"], port)]
+    assert stats["engine"] == "fleet" and stats["completed"] == 4 and stats["rejected"] == 2
+    # wall-clock cooldowns aside, the fleet and its autoscaler went as JAX's
+    keys = [k for k in ref_stats if k.startswith("fleet_")] + ["replicas", "completed_by_replica", "failover"]
+    assert {k: stats[k] for k in keys} == {k: ref_stats[k] for k in keys}
+    assert (stats["autoscaler"] is None) == (name != "autoscale")
+    if name == "autoscale":
+        clockless = lambda a: {k: v for k, v in a.items() if not k.endswith("_remaining_s")}  # noqa: E731
+        assert clockless(stats["autoscaler"]) == clockless(ref_stats["autoscaler"])
+        # built at one replica; the queue of six over two slots scaled it up
+        assert stats["autoscaler"]["max_replicas"] == 3 and stats["fleet_scale_up_total"] >= 1
+        assert stats["replicas"] == 1 + stats["fleet_scale_up_total"] - stats["fleet_scale_down_total"]
+    else:
+        assert stats["replicas"] == 2 and stats["fleet_scale_up_total"] == 0
+
+
 # -- refusals of what is not ported ----------------------------------------
 REFUSED = {
-    "replicas": (["serve", "--ckpt=c", "--serve.replicas=2"], "A.5"),
-    "http": (["serve", "--ckpt=c", "--serve.http.port=0"], "A.5"),
-    "autoscale": (["serve", "--ckpt=c", "--serve.autoscale.max=3"], "A.5"),
     "mesh": (["fit", "--mesh.data=1"], "A.6"),
     "serve mesh": (["serve", "--ckpt=c", "--serve.mesh.model=2"], "A.6"),
+    "serve mesh with replicas": (["serve", "--ckpt=c", "--serve.replicas=2", "--serve.mesh.data=2"], "A.6"),
 }
 
 
@@ -394,7 +501,9 @@ def test_unported_flag_groups_raise_naming_the_item(name):
 def test_help_lists_the_unported_groups(capsys):
     assert _port_main(port_clm_script.FAMILY, ["fit", "--help"]) is None
     out = capsys.readouterr().out
-    assert "--device" in out and "A.5" in out and "A.6" in out
+    assert "--device" in out and "A.5" not in out and "A.6" in out
+    # outer serving is ported: its flags are listed, not refused
+    assert "--serve.replicas=<n>" in out and "--serve.autoscale.max=<n>" in out and "--serve.http.port" in out
     # observability is ported: its flags and the obs subcommand are listed, not refused
     assert "A.4" not in out and "--obs.events_path" in out and "obs report" in out
     assert "data modules: ['bookcorpus', 'c4', 'enwik8', 'list', 'synthetic', 'wikipedia', 'wikitext']" in out

@@ -34,6 +34,18 @@ def _qkv(rng, b=2, h=4, i=5, j=9, d=8):
     return [rng.standard_normal(s).astype(np.float32) for s in ((b, h, i, d), (b, h, j, d), (b, h, j, d))]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("max_heads_parallel", [None, 3])
 def test_attention_dropout_matches_jax(monkeypatch, rng, max_heads_parallel):
     q, k, v = _qkv(rng)

@@ -28,6 +28,18 @@ def _case(rng, vocab, shape, channels):
     return ids, weight, grad
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("id_type", [np.int64, np.int32])  # the collators' ids are int32
 @pytest.mark.parametrize("vocab,shape,channels", [(262, (4, 300), 16), (40, (2, 3, 50), 8), (7, (1,), 4)])
 def test_embedding_matches_nn_embedding_and_jax(rng, vocab, shape, channels, id_type):

@@ -164,6 +164,18 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, i, j, with_pad
             assert (got.float() - want).abs().max() <= 1.5 * (plain.float() - want).abs().max()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

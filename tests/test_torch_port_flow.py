@@ -96,6 +96,18 @@ def _frames(rng, cfg, b=2):
     return rng.standard_normal((b, 2, 27, *cfg.encoder.image_shape)).astype(np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def models():
     """Per config: the JAX model, its seeded params (``eval_shape`` gives the

@@ -121,6 +121,18 @@ def test_tf32x3_forward_matches_plain(rng, i, j, d, causal):
     assert (o_ref[~live] == 0).all() and (lse_ref[~live] == flash.MASK_VALUE).all()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def no_library(monkeypatch):
     """Loading a route's library fails the test: a refusal must come first."""

@@ -251,6 +251,18 @@ def test_cpu_tensors_launch_no_route(rng):
         q, pool_k, pool_v, table, lengths, block_size=BS, scale_k=sk, scale_v=sv).numpy())
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def no_library(monkeypatch):
     """Loading a route's library fails the test: a refusal must come first."""

@@ -345,6 +345,18 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, i, j, d, causal, 
     assert (o[~live] == 0).all() and (lse[~live] == flash.MASK_VALUE).all()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

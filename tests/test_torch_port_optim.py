@@ -43,6 +43,18 @@ def _jax_state(tx):
     return mesh, state, shardings
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_lamb_trajectory_matches_optax():
     j_model, params, t_model = pair()
     data = batches(5, pads=[0, 1, 4, 0, 2, 7, 0, 3])

@@ -45,6 +45,18 @@ PROMPTS = ["Perceiver AR", "a longer prompt here", "short one"]
 CALL = dict(max_new_tokens=8, num_latents=8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def byte_pair():
     n = BYTE_KW["max_seq_len"]

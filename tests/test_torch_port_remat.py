@@ -89,6 +89,18 @@ def test_checkpointing_off_without_grad_and_offload_alone_is_plain():
     assert modules.offload_counts == {"tensors": 0, "bytes": 0}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def jax_remat_run():
     """JAX's remat model under dropout: its loss and gradients, and the masks

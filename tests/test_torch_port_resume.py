@@ -78,6 +78,18 @@ def _assert_states_equal(a: TrainState, b: TrainState):
             assert torch.equal(torch.as_tensor(sa[i][key]), torch.as_tensor(sb[i][key])), (i, key)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def straight_9(tmp_path_factory):
     root = tmp_path_factory.mktemp("straight")

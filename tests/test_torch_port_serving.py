@@ -31,6 +31,18 @@ KW = dict(vocab_size=64, max_seq_len=12, max_latents=6, num_channels=16, num_hea
           num_self_attention_layers=2, init_scale=0.5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def pair():
     j_model = JaxCLM(config=JaxConfig(**KW))

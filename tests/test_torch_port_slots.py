@@ -44,6 +44,18 @@ LENS = [3, 11, 8, 3, 11]
 NEWS = [10, 4, 10, 7, 10]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def pair():
     j_model = JaxCLM(JaxConfig(**TINY))

@@ -42,6 +42,18 @@ ENV_VARS = (strategy.ENV_VAR, strategy.ENV_KV_LAYOUT, strategy.ENV_PREFIX_CACHE,
             strategy.ENV_SPECULATION, strategy.ENV_FILE, strategy.ENV_KV_QUANT_BUDGET)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def pair():
     j_model = JaxCLM(JaxConfig(**TINY))

@@ -70,6 +70,18 @@ def _pair(kw, key=3):
     return j_model, params, config, load_jax_params(SymbolicAudioModel(config, device="cpu"), params).eval()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def pair():
     return _pair(KW)

@@ -53,6 +53,18 @@ def _assert_batches_equal(port, ref):
 
 
 # -- tokenizers ------------------------------------------------------------
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_byte_tokenizer_and_load_tokenizer_match_jax():
     for side in ("left", "right"):
         tok = tokenizers.load_tokenizer("byte", side)

@@ -107,6 +107,18 @@ def _assert_params(t_model, j_params, **tol):
         np.testing.assert_allclose(p.detach().numpy(), expected[name].numpy(), err_msg=name, **tol)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_masked_cross_entropy_matches_jax(rng):
     logits = rng.standard_normal((3, 5, VOCAB)).astype(np.float32)
     labels = rng.integers(0, VOCAB, (3, 5))

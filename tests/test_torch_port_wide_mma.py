@@ -65,6 +65,18 @@ def _covered_once(ranges, n):
     return bool((hits == 1).all())
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # tiny shapes: with the suite's workers sharing the cores, one intra-op
+    # thread a worker is several times faster than the default
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("i,j,h,d,dv", PLAN_SHAPES)
 def test_plan_covers_every_key_tile_and_column_once(i, j, h, d, dv, dtype):
