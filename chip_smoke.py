@@ -122,8 +122,11 @@ non-zero and never prints the final line):
    window rows on ``tc``, never on simt, and not under dense, K1's fp32 tiles on
    ``tf32x3`` and never on ``simt``; the pool must end empty and leak-free. The int8 run's agreement with the paged run is
    printed, not gated;
-8. slot prefix: ``SlotServingEngine`` over the same model with chunked
-   prefill (``prefill_chunk=128``), 4 slots, 12 requests with 496 latents:
+8. slot prefix: ``SlotServingEngine`` with chunked
+   prefill (``prefill_chunk=128``), 4 slots, 12 requests with 496 latents,
+   over clm-base's widths at ``SHALLOW_SERVE_LAYERS`` (4) of its 16 layers
+   since PR 24 (phases 8-11 share that model, a cut of depth; their gates
+   hold the same at any depth):
    one shared 384-token system prompt (24 pages of 16) then each request's
    own suffix, to the slot-serve phase's prompt lengths (longest first,
    ``max_new_tokens`` cycling 16/32/48), once per KV layout: dense
@@ -143,7 +146,7 @@ non-zero and never prints the final line):
    run and with an int8 run without sharing, and, from a second run of each
    layout without ``prefill_chunk``, the residents' largest inter-token ms
    during the 960-token admission with and without chunking;
-9. slot preempt: ``SlotServingEngine`` over the same model (fp32) with a
+9. slot preempt: ``SlotServingEngine`` over phase 8's model (fp32) with a
    pool of 160 blocks, five eighths of the dense 4 x 64, lazy admission on
    prompt pages alone (``admit_headroom_blocks=0``), and phase 7's 12
    requests: every third interactive (``priority=1``), the rest batch (0),
@@ -166,11 +169,16 @@ non-zero and never prints the final line):
    ``swap_measured_ms``) and the victims ``auto`` swapped, each swapped
    victim's payload bytes against the pool bytes the cost model prices,
    TTFT p50 per tier, tokens/s and the peak residents against phase 7's
-   paged run, and the int8 run's agreement with phase 7's int8 run;
+   paged run, and the int8 run's agreement with the fp32 ``generate()``
+   references;
 10. slot spec: speculative decoding and the measured ``auto`` axes over
-   phase 7's model (fp32), requests and references. (a)
+   phase 7's requests at clm-base's widths over ``SHALLOW_SERVE_LAYERS``
+   (4) of its 16 layers (fp32, random weights from the same seed; a cut
+   of depth since PR 24, with their ``generate()`` references computed
+   first; every gate below follows the depth, the tokens/s of phase 7
+   printed beside are its full depth's). (a)
    ``speculative_generate`` on phase 7's first 4 requests with a
-   full-depth draft, ``SpecConfig(4, 16)``: tokens equal ``generate()``
+   full-depth draft, ``SpecConfig(4, 4)``: tokens equal ``generate()``
    (the near-tie excuse as in phase 7) and every drafted token accepted
    but at a near-tie (the verify lane's top logit less the draft's <
    1e-4; the draft runs at b rows and the verify at b·(k+1)), counted;
@@ -181,7 +189,7 @@ non-zero and never prints the final line):
    pool and all 12 requests, and one bf16 ``k4d2`` paged run over the 6. Gates (fp32 runs): tokens equal phase 7's
    references (near-tie excuse), emitted = served tokens, accepted <=
    proposed, every verify call at 4·(k+1) rows and one a round, K1 at
-   k·(1+d) + 17 launches a round, every K1 tile on ``tf32x3`` (bf16:
+   k·(1+d) + 1 + layers launches a round, every K1 tile on ``tf32x3`` (bf16:
    ``wgmma``) and none on simt, K4 on split/tc only and never inside a
    round, every swap restored, the pool leak-free. Printed: tokens/s
    beside phase 7's, rounds, acceptance, K1 launches and device ms a round
@@ -194,8 +202,9 @@ non-zero and never prints the final line):
    three runs, the probe's figure within 2x of it); a second engine over
    the file measures
    nothing (no probe engine built, no ``generate`` call);
-11. sample: sampled decoding and beam search over phase 7's model (fp32),
-   requests and references and phase 5's workload. (a) The sampler on the
+11. sample: sampled decoding and beam search over phase 10's shallow
+   model (fp32; since PR 24), phase 7's requests and that model's
+   references and phase 5's workload. (a) The sampler on the
    card against its plain CPU path: ``(4, 32000)`` logits of 4 of phase 7's
    prompts and a seeded numpy Gumbel table fed through
    ``samplers.gumbel_noise``; temperature 0.7, top-k 50, top-p 0.9,
@@ -215,7 +224,7 @@ non-zero and never prints the final line):
    bucket run). (d) Beam search: ``beam_search(num_beams=1)`` over 2 of
    phase 5's prompts equals ``generate()`` (near-tie excuse); ``generate(
    num_beams=4, max_new_tokens=16, min_new_tokens=16)`` on 2 prompts runs
-   exactly 17 K1 calls a step (1 cross + 16 stack attends), all
+   exactly 1 + layers K1 calls a step (1 cross + the stack's attends), all
    ``tf32x3``, with its ms a step and a bf16 twin's agreement (printed);
    a small model's beam tokens on the card equal the same weights' on the
    CPU. (e) ``TextGenerationPipeline`` over clm-base's widths with the
@@ -357,9 +366,10 @@ non-zero and never prints the final line):
        with dropout takes the plain path, JAX's dispatch), 17 K1 launches in
        the validation pass; one step's gradients with and without
        checkpointing under one generator within the fp32 gate;
-   (c) and (d) over clm-base's widths at ``RESILIENCE_SNAPSHOT_LAYERS`` of
-   its 16 layers (a cut of depth: their snapshots' writes were the phase's
-   longest part);
+   (b)-(g) over clm-base's widths at ``RESILIENCE_SNAPSHOT_LAYERS`` of
+   its 16 layers (a cut of depth: (c) and (d)'s snapshots' writes were
+   the phase's longest part; since PR 24 (b), (e), (f) and (g) too, the
+   launch gates following the depth);
    (c) resume: an uninterrupted 8-step fit with snapshots every 4 steps; a
        fit into a fresh root whose loss function raises SIGTERM at the
        process during step 5 (it finishes the step, snapshots, returns); a
@@ -380,11 +390,35 @@ non-zero and never prints the final line):
        on the card over a token-id tokenizer: the text equals the direct
        pipeline's; with bf16 compute and ``params_dtype=torch.bfloat16`` it
        equals a direct bf16 model's, and K1 takes ``wgmma`` (no ``tf32x3``);
+14b. mesh: training parallelism over ``torch.distributed`` at clm-base
+   (fp32, AdamW, the train phase's 8 x 1024 batch in 2 microbatches,
+   prefix dropout 0.5 from the step generators, ``MESH_STEPS`` steps a
+   mesh). (a) One spawned rank (``python3 chip_smoke.py --mesh-rank``),
+   NCCL on ``cuda:0``: the no-mesh step (the single-rank trajectory, 34
+   K1/K2/K3 launches a step on ``tf32x3``), then the mesh ``data=1``,
+   whose losses and parameters equal it to the bit. (b) Two spawned ranks share
+   ``cuda:0`` over gloo (NCCL refuses two ranks on one device; the backend
+   is an argument, never a caught failure) with the compute on the card:
+   ``data=2``, ``fsdp=2``, ``model=2`` (4 heads of 112 a rank through
+   K1-K3) and ``data=1, seq=2`` with ``shard_seq`` and
+   ``attention_impl="ring"``; rank 0's losses within 2e-4 of the
+   single-rank trajectory (both ranks report the global loss), every rank's
+   K1/K2/K3 launches a step 34 each on ``tf32x3`` (0 under ``seq``: every
+   attend takes the ring), each mesh's collectives present (``data``: one
+   all-reduce of every gradient byte; ``fsdp``: all-gathers and as many
+   reduce-scatters; ``model``: all-reduces; ``seq``: ring exchanges, staged
+   through host memory on gloo). Printed per mesh and rank: launches by
+   route a step, collective calls and bytes by kind a step, step ms p50
+   and peak ``max_memory_allocated``, beside the card's ``nvidia-smi``
+   line. The ranks load the kernels phase 2 built and refuse to build
+   one; a rank that fails fails the phase;
 15. symbolic: the symbolic-audio model at GiantMIDI width (6144 context,
    2048 latents, 768 channels over 8 heads: head dim 96, 12 layers, the
    389-event vocabulary; random weights from a seed; its parameter count
    printed). (a) One forward at b = 2 over 6144 event ids, fp32 and bf16,
-   the kernels against ``attention_impl="xla"`` at phase 4's gates. (b)
+   the kernels against ``attention_impl="xla"`` at phase 4's gates. (b)-(e)
+   run at ``SYMBOLIC_LAYERS`` (4) of the 12 layers since PR 24 (a cut of
+   depth; their launch gates follow it: 2 x 5 a step in (e)). (b)
    Phase 5's two configs scaled to this context through the bucket engine
    (buckets 3072 and 6120, batch 4): 4 prompts of 384-2880 ids with 64
    latents and 4 of 3120-5400 with 2032 (16 latent-growth, 8 boundary and
@@ -404,8 +438,8 @@ non-zero and never prints the final line):
    beams over one prompt. (e) ``Trainer.fit``: 8 optimizer steps of 8 rows
    x 6144 ids in 2 microbatches from ``SyntheticSymbolicAudioDataModule``
    (``min_seq_len`` 4096, as ``examples/training/sam.sh``), AdamW to 2e-4
-   (cosine, 4 warmup steps), prefix dropout 0.5, in bf16 and fp32: the loss falls, K1, K2 and K3 26
-   launches a step each (2 microbatches x 13 attends), all on ``wgmma`` in
+   (cosine, 4 warmup steps), prefix dropout 0.5, in bf16 and fp32: the loss falls, K1, K2 and K3 10
+   launches a step each (2 microbatches x 5 attends), all on ``wgmma`` in
    bf16 and ``tf32x3`` in fp32; step ms p50 and peak
    ``max_memory_allocated`` printed;
 16. cli: the port's CLI through the functions ``python -m`` calls
@@ -434,14 +468,14 @@ non-zero and never prints the final line):
    ``serve_stats`` line parses; the slots run again with
    ``--serve.replicas=2 --serve.autoscale.max=3`` (the fleet and its
    autoscaler), whose lines must equal the single engine's; then the bucket
-   run once more as a real
+   run's first batch (its first 4 prompts) once more as a real
    ``python -m perceiver_io_tpu_torch.scripts.text.clm serve`` process,
-   whose JSON lines must equal the in-process run's. (d) The symbolic
+   whose JSON lines must equal the in-process run's for them. (d) The symbolic
    family's ``fit --data=synthetic`` at GiantMIDI width (6144 context,
    ``min_seq_len`` 4096, the family's 2048 latents and 768 channels, 8
-   heads of 96, 12 layers), bf16, 4 steps of 8 rows in 2 microbatches
-   (AdamW to phase 15's 2e-4, 4 warmup steps): a
-   finite loss, K1, K2 and K3 26 launches a step on ``wgmma``. The fit of
+   heads of 96) over ``SYMBOLIC_LAYERS`` (4) layers, bf16, 4 steps of 8
+   rows in 2 microbatches (AdamW to phase 15's 2e-4, 4 warmup steps): a
+   finite loss, K1, K2 and K3 10 launches a step on ``wgmma``. The fit of
    (a) runs with ``--obs.events_path``, ``--obs.snapshot_every_s`` and
    ``--obs.profile_on_regress_factor`` (``CLI_FIT_OBS``): one fenced
    ``trainer.step`` span a step under one trace, and a snapshot counting
@@ -564,9 +598,11 @@ and ``torch.backends.cudnn.allow_tf32`` set False).
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -2079,8 +2115,8 @@ def slot_preempt_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
             failures.append(f"pool in_use {engine._pool.in_use}, leaked {engine._pool.leaked()}")
         rows = [r.result for r in reqs]
         if layout == "paged_int8":
-            same = sum(int((a == b).sum()) for a, b in zip(rows, serve["rows"]["paged_int8"]))
-            line["token_agreement_with_phase7_int8"] = same / tokens
+            same = sum(int((a == b).sum()) for a, b in zip(rows, refs))
+            line["token_agreement_with_fp32_refs"] = same / tokens
         else:
             line["divergences_vs_generate"] = _divergences(torch, gen_mod, model, rows, refs,
                                                                prompts, configs, failures)
@@ -2422,6 +2458,23 @@ def spec_autotune(torch, gen_mod, strategy_mod, slots_mod, buckets, serve, root:
     return line
 
 
+#: the depth of phases 8-11's model (slot prefix, preempt, spec, sample):
+#: clm-base's widths over 4 of its 16 layers
+SHALLOW_SERVE_LAYERS = 4
+
+
+def shallow_serve(torch, clm, gen_mod, serve) -> dict:
+    """Phase 7's requests over clm-base's widths at ``SHALLOW_SERVE_LAYERS``
+    layers (fp32, random weights from phase 7's seed) with their
+    ``generate()`` references: what phases 8-11 run over."""
+    cfg = dataclasses.replace(serve["model"].config, num_self_attention_layers=SHALLOW_SERVE_LAYERS)
+    model = clm.CausalLanguageModel(cfg, dtype=torch.float32, seed=0).eval()
+    refs = [gen_mod.generate(model, p[None], c)[0].cpu().numpy()
+            for p, c in zip(serve["prompts"], serve["configs"])]
+    emit("shallow_serve", layers=SHALLOW_SERVE_LAYERS, requests=len(refs))
+    return dict(serve, model=model, refs=refs, rows=None)
+
+
 def slot_spec_phase(torch, flash, ragged, gen_mod, spec_mod, strategy_mod, slots_mod, buckets, clm,
                     serve, unpressured, root: Path, kv_blocks: int = SLOT_PREEMPT_BLOCKS) -> dict:
     """Speculative decoding and the measured ``auto`` axes (module
@@ -2748,8 +2801,8 @@ def sample_beam(torch, clm, flash, gen_mod, beam_mod, serve, bucket_work) -> dic
     """(d) Beam search. ``beam_search(num_beams=1)`` over 2 of phase 5's
     prompts equals per-request greedy ``generate()`` (near-tie excuse);
     ``generate(num_beams=BEAM_WIDTH, max_new_tokens=BEAM_STEPS,
-    min_new_tokens=BEAM_STEPS)`` on 2 prompts runs exactly 17 K1 calls a
-    step (1 cross + 16 stack attends), all ``tf32x3`` on the card, timed a
+    min_new_tokens=BEAM_STEPS)`` on 2 prompts runs exactly 1 + layers K1
+    calls a step (1 cross + the stack's attends), all ``tf32x3`` on the card, timed a
     step; a bf16 twin's agreement is printed; a small model's beam tokens on
     the card equal the same weights' on the CPU. Returns K1's launches."""
     import dataclasses
@@ -3222,8 +3275,8 @@ RESILIENCE_STEPS = 8
 # SIGTERM snapshot at 5 (each of clm-base with AdamW is 2.32 GB, ~3 s to
 # write; every 2 steps wrote 9 where 5 hold the same path)
 RESUME_SNAPSHOT_EVERY = 4
-#: the depth of the resume (c) and recovery (d) drills' model: clm-base's
-#: widths over 4 of its 16 layers, so each AdamW snapshot is ~0.8 GB, not 2.32
+#: the depth of phase 14's (b)-(g) model: clm-base's widths over 4 of its 16
+#: layers (each AdamW snapshot ~0.8 GB, not 2.32)
 RESILIENCE_SNAPSHOT_LAYERS = 4
 #: LAMB's peak rate in phase 14 (f); 1e-2 overshot (loss 11.14 -> 13.21 at step 6)
 LAMB_LR = 5e-3
@@ -3691,20 +3744,21 @@ def train_resilience_phase(torch, clm, flash, parallel, training, modules, relia
             launches[f"checkpointing_{str(dtype).split('.')[-1]}_{mode}"] = counts
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    launches["dropout"] = resilience_dropout(torch, clm, flash, parallel, training, cfg, root / "dropout",
-                                             dev)["launches"]
-    # the snapshot drills at clm-base's widths over fewer layers: their
-    # snapshots' writes were the phase's longest part
+    # (b)-(g) at clm-base's widths over fewer layers: the snapshots'
+    # writes were the phase's longest part, and (b), (e)-(g) hold the same
+    # gates over 4 layers as over 16 (their launch counts follow the depth)
     shallow = dataclasses.replace(cfg, num_self_attention_layers=min(RESILIENCE_SNAPSHOT_LAYERS,
                                                                      cfg.num_self_attention_layers))
+    launches["dropout"] = resilience_dropout(torch, clm, flash, parallel, training, shallow, root / "dropout",
+                                             dev)["launches"]
     launches["resume"] = resilience_resume(torch, clm, flash, training, shallow, root / "resume",
                                            dev)["launches"]
     launches["recovery"] = resilience_recovery(torch, clm, flash, training, reliability, shallow,
                                                root / "recovery", dev)["launches"]
     launches["steps_per_execution_4"] = resilience_steps_per_execution(
-        torch, clm, flash, training, cfg, root / "spe", dev)["launches"]
-    model, launches["lamb"] = resilience_lamb(torch, clm, flash, training, cfg, root, dev)
-    resilience_pretrained(torch, clm, flash, training, pipelines_mod, model, cfg, root, dev)
+        torch, clm, flash, training, shallow, root / "spe", dev)["launches"]
+    model, launches["lamb"] = resilience_lamb(torch, clm, flash, training, shallow, root, dev)
+    resilience_pretrained(torch, clm, flash, training, pipelines_mod, model, shallow, root, dev)
     del model
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -3716,6 +3770,8 @@ def train_resilience_phase(torch, clm, flash, parallel, training, modules, relia
 # examples/training/sam.sh): 6144 context, 2048 latents, 768 channels over 8
 # heads (d = 96), 12 layers, the 389-event vocabulary
 SAM_LATENTS = 2032  # 16 latent-growth steps before the boundary, as phases 5 and 7
+#: the depth of phase 15's (b)-(e) and of the cli phase's symbolic fit
+SYMBOLIC_LAYERS = 4
 SAM_BUCKETS = (3072, 6120)  # 6120 - 2032 = 4088 prefix slots (<= 4096); +24 tokens reach the window
 SAM_SLOT_BUCKETS = (3072, 4608, 6048)  # 6048 <= max_prefix_len + latents = 4096 + 2032
 SAM_LR = 2e-4  # examples/training/sam.sh's peak, reached after the warmup
@@ -3725,6 +3781,252 @@ SAM_LR = 2e-4  # examples/training/sam.sh's peak, reached after the warmup
 # half its steps
 SAM_WARMUP = 4
 SAM_SAMPLE = dict(do_sample=True, temperature=1.0, top_k=15)
+
+
+#: phase 14b's meshes over two ranks sharing one card, in order:
+#: (name, axis sizes, attention_impl, shard_seq)
+MESH_CASES = (("data2", {"data": 2}, "auto", False), ("fsdp2", {"data": 1, "fsdp": 2}, "auto", False),
+              ("model2", {"data": 1, "model": 2}, "auto", False), ("seq2", {"data": 1, "seq": 2}, "ring", True))
+MESH_STEPS = 3
+#: two microbatches a step: 34 K1/K2/K3 launches a step, as phase 13's fits
+MESH_ACCUM = 2
+MESH_DROPOUT = 0.5
+#: rank 0's losses against the single-rank trajectory (JAX's bar)
+MESH_RTOL = 2e-4
+MESH_RANK_TIMEOUT_S = 600
+#: the device every rank computes on, and the backends of (a) and (b)
+MESH_DEVICE = "cuda:0"
+MESH_BACKENDS = {"world1": "nccl", "world2": "gloo"}
+
+
+def mesh_config(clm):
+    return dataclasses.replace(clm_base_config(clm.CausalLanguageModelConfig), cross_attention_dropout=MESH_DROPOUT)
+
+
+def mesh_trajectory(torch, clm, flash, parallel, training, mesh, cfg, dev, impl: str = "auto",
+                    shard_seq: bool = False, keep_params: bool = False) -> dict:
+    """``MESH_STEPS`` AdamW steps of ``cfg`` (prefix dropout 0.5, each
+    step's generator from ``(0, step)``) on ``mesh`` (None: the single-rank
+    step on ``dev``): losses, K1/K2/K3 launches by route and collective
+    calls and bytes by kind a step, step ms (a host clock around a step
+    ending in a synchronise), peak ``max_memory_allocated``."""
+    from perceiver_io_tpu_torch.parallel import collectives
+    from perceiver_io_tpu_torch.training.trainer import step_generator
+
+    model = clm.CausalLanguageModel(cfg, seed=0, device=dev, attention_impl=impl)
+    n_params = sum(p.numel() for p in model.parameters())
+    tx = training.make_optimizer(1e-4)
+    if mesh is None:
+        state = parallel.TrainState.create(model, tx)
+    else:
+        state, _ = parallel.create_train_state(model, tx, mesh)
+    step = parallel.make_train_step(training.clm_loss_fn(model, cfg.max_latents), grad_clip_norm=1.0,
+                                    grad_accum_steps=MESH_ACCUM, mesh=mesh, shard_seq=shard_seq, device=dev)
+    out = {"losses": [], "launches": [], "collectives": [], "step_ms": [], "n_params": n_params}
+    _reset_peak(torch, dev)
+    for i, batch in enumerate(token_batches(cfg.vocab_size, cfg.max_seq_len, 8, MESH_STEPS, seed=61)):
+        if mesh is not None:
+            batch = parallel.shard_batch(batch, mesh, shard_seq=shard_seq)
+        reset_counts(flash)
+        collectives.reset_counts()
+        _dev_sync(torch, dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, step_generator(0, i, dev))
+        out["losses"].append(metrics["loss"].item())
+        _dev_sync(torch, dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(_route_counts(flash))
+        out["collectives"].append(collectives.read_counts())
+    out["peak_bytes"] = _peak(torch, dev)
+    if keep_params:  # on the device (a world of one holds whole parameters)
+        out["params"] = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    del state, model, step
+    _reset_peak(torch, dev)
+    return out
+
+
+def mesh_rank_main(argv) -> int:
+    """A rank of phase 14b (``python3 chip_smoke.py --mesh-rank rank world
+    job_dir``): joins the world ``job_dir/job.json`` names (over a
+    ``file://`` store there), runs its cases and writes
+    ``rank<r>.json``."""
+    import torch
+
+    rank, world, job_dir = int(argv[0]), int(argv[1]), Path(argv[2])
+    sys.path.insert(0, str(ROOT))
+    from perceiver_io_tpu_torch import _build, parallel, training
+    from perceiver_io_tpu_torch.models.text import clm
+    from perceiver_io_tpu_torch.ops import flash_attention as flash
+    from perceiver_io_tpu_torch.parallel import multihost
+
+    job = json.loads((job_dir / "job.json").read_text())
+    dev = torch.device(job["device"])
+    missing = [n for n in _build.sources() if not _build._target(n).exists()]
+    if dev.type == "cuda" and missing:  # a rank loads what phase 2 built; two ranks must not build at once
+        raise RuntimeError(f"mesh rank {rank}: kernels not built: {missing}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = clm.CausalLanguageModelConfig(**job["config"])
+    if dev.type == "cuda":
+        torch.cuda.init()  # the context comes up while an earlier world still runs
+    while not (job_dir / "go").exists():  # the parent's signal that the card is free
+        time.sleep(0.05)
+    multihost.initialize(f"file://{job_dir / 'store'}", world, rank, backend=job["backend"], device=dev)
+    results = {}
+    for name, sizes, impl, shard_seq in job["cases"]:
+        mesh = parallel.make_mesh(parallel.MeshConfig(**sizes), device=dev)
+        if name == "world1":  # (a): the no-mesh step and the world-of-one mesh, in this process
+            plain = mesh_trajectory(torch, clm, flash, parallel, training, None, cfg, dev, keep_params=True)
+            meshed = mesh_trajectory(torch, clm, flash, parallel, training, mesh, cfg, dev, keep_params=True)
+            same = [n for n, v in plain.pop("params").items() if torch.equal(v, meshed["params"][n])]
+            n_params = len(meshed.pop("params"))
+            _reset_peak(torch, dev)
+            results[name] = {**meshed, "plain": plain, "params_bit_equal": len(same), "params": n_params}
+        else:
+            results[name] = mesh_trajectory(torch, clm, flash, parallel, training, mesh, cfg, dev, impl, shard_seq)
+    (job_dir / f"rank{rank}.json").write_text(json.dumps(results))
+    multihost.shutdown()
+    return 0
+
+
+def start_mesh_ranks(world: int, backend: str, cases, cfg, job_dir: Path) -> tuple:
+    """Spawn ``world`` ranks of :func:`mesh_rank_main` over ``cases``; they
+    start (imports, CUDA context) and wait for :func:`finish_mesh_ranks`."""
+    shutil.rmtree(job_dir, ignore_errors=True)
+    job_dir.mkdir(parents=True)
+    (job_dir / "job.json").write_text(json.dumps({"backend": backend, "cases": cases, "device": MESH_DEVICE,
+                                                  "config": dataclasses.asdict(cfg)}))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs = [open(job_dir / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r), str(world),
+                               str(job_dir)], cwd=str(ROOT), env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    return procs, logs, job_dir, backend
+
+
+def finish_mesh_ranks(started: tuple) -> list:
+    """Let the ranks of :func:`start_mesh_ranks` run and return each rank's
+    results; a rank that fails (or outlives ``MESH_RANK_TIMEOUT_S``) stops
+    every rank and raises."""
+    procs, logs, job_dir, backend = started
+    world = len(procs)
+    (job_dir / "go").touch()
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = "\n".join(f"--- rank {r} (exit {procs[r].returncode}):\n"
+                          + (job_dir / f"rank{r}.log").read_text()[-4000:] for r in failed)
+        raise AssertionError(f"mesh phase: ranks {failed} of a {backend} world of {world} failed:\n{tails}")
+    return [json.loads((job_dir / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def finish_mesh_ranks_abort(started: tuple) -> None:
+    """Stop ranks that were started but will not be let run."""
+    procs, logs = started[0], started[1]
+    for p in procs:
+        p.kill()
+        p.wait()
+    for f in logs:
+        f.close()
+
+
+def _per_step(launches: list) -> dict:
+    """K1/K2/K3 launches by route, per step (every step the same, or a list)."""
+    first = launches[0]
+    return first if all(x == first for x in launches) else {"per_step": launches}
+
+
+def mesh_launches(mesh: dict, kernel: str) -> dict:
+    """Phase 14b's launches a step of ``kernel`` (``k1``, ``k2``, ``k3``) by
+    route per mesh and rank."""
+    return {name: [_per_step([step[kernel] for step in rank["launches"]]) for rank in ranks]
+            for name, ranks in mesh["ranks"].items()}
+
+
+def mesh_phase(torch, clm, flash, parallel, training, root: Path, smi: str) -> dict:
+    """Phase 14b (module docstring)."""
+    failures = []
+    cfg = mesh_config(clm)
+    want = {"tf32x3": MESH_ACCUM * (1 + cfg.num_self_attention_layers)}
+    # (a) in one NCCL rank: the single-rank trajectory (every mesh's
+    # reference) and the world-of-one mesh; (b)'s ranks start meanwhile and
+    # wait for the card
+    first = start_mesh_ranks(1, MESH_BACKENDS["world1"], [["world1", {"data": 1}, "auto", False]], cfg,
+                             root / "world1")
+    second = start_mesh_ranks(2, MESH_BACKENDS["world2"], [list(c) for c in MESH_CASES], cfg, root / "world2")
+    try:
+        (one,) = finish_mesh_ranks(first)
+    except BaseException:
+        finish_mesh_ranks_abort(second)
+        raise
+    w1 = one["world1"]
+    ref = w1["plain"]
+    ranks = {"single_rank": [ref], "world1": [w1]}
+    emit("mesh", case="single_rank", losses=ref["losses"], step_ms=ref["step_ms"],
+         step_ms_p50=_p50(ref["step_ms"]), peak_bytes=ref["peak_bytes"], nvidia_smi=smi,
+         launches_per_step=_per_step([{k: s[k] for k in ("k1", "k2", "k3")} for s in ref["launches"]]))
+    for run in (ref, w1):
+        for s in run["launches"]:
+            for k in ("k1", "k2", "k3"):
+                if {r: n for r, n in s[k].items() if n} != want:
+                    failures.append(f"single-rank {k} launches {s[k]}, want {want}")
+    if w1["losses"] != ref["losses"] or w1["params_bit_equal"] != w1["params"]:
+        failures.append(f"world of one: losses {w1['losses']} vs no-mesh {ref['losses']}, "
+                        f"{w1['params_bit_equal']} of {w1['params']} parameters bit-equal")
+    two = finish_mesh_ranks(second)
+    n_params = ref["n_params"]
+    for name, sizes, impl, _ in MESH_CASES:
+        ranks[name] = [r[name] for r in two]
+        r0 = ranks[name][0]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"]))
+        if rel > MESH_RTOL:
+            failures.append(f"{name}: losses {r0['losses']} vs single-rank {ref['losses']} (rel {rel:.3g})")
+        for rank, res in enumerate(ranks[name]):
+            if res["losses"] != r0["losses"]:
+                failures.append(f"{name}: rank {rank}'s losses {res['losses']} vs rank 0's {r0['losses']}")
+            for s in res["launches"]:
+                for k in ("k1", "k2", "k3"):
+                    got = {r: n for r, n in s[k].items() if n}
+                    if got != ({} if impl == "ring" else want):
+                        failures.append(f"{name} rank {rank}: {k} launches {s[k]}")
+            comm = res["collectives"][-1]
+            present = {"data2": comm["all_reduce"]["bytes"] >= 4 * n_params,
+                       # an all-gather a sharded parameter a microbatch (and the
+                       # microbatches' regrouping of the batch), a reduce-scatter each
+                       "fsdp2": 0 < comm["reduce_scatter"]["calls"] <= comm["all_gather"]["calls"],
+                       "model2": comm["all_reduce"]["calls"] > 0,
+                       "seq2": comm["send_recv"]["calls"] > 0
+                       and comm["send_recv"]["host_staged"] == comm["send_recv"]["calls"]}[name]
+            if not present:
+                failures.append(f"{name} rank {rank}: collectives {comm}")
+            emit("mesh", case=name, rank=rank, mesh=sizes, backend=MESH_BACKENDS["world2"], device=MESH_DEVICE,
+                 transport="gloo on one card: all_reduce / all_gather / reduce_scatter / broadcast take the "
+                           "CUDA tensors; ring send_recv staged through host memory",
+                 losses=res["losses"], single_rank_losses=ref["losses"], max_rel=rel,
+                 launches_per_step=_per_step([{k: s[k] for k in ("k1", "k2", "k3")} for s in res["launches"]]),
+                 collectives_per_step=res["collectives"][-1], step_ms=res["step_ms"],
+                 step_ms_p50=_p50(res["step_ms"]), peak_bytes=res["peak_bytes"], nvidia_smi=smi)
+    emit("mesh", case="world1", backend=MESH_BACKENDS["world1"], device=MESH_DEVICE, losses=w1["losses"],
+         plain_losses=ref["losses"], params_bit_equal=w1["params_bit_equal"], params=w1["params"],
+         step_ms_p50=_p50(w1["step_ms"]), peak_bytes=w1["peak_bytes"],
+         launches_per_step=_per_step([{k: s[k] for k in ("k1", "k2", "k3")} for s in w1["launches"]]),
+         nvidia_smi=smi)
+    if failures:
+        raise AssertionError("mesh phase: " + "; ".join(failures[:12]))
+    return {"ranks": ranks, "single_rank": ref}
 
 
 def giantmidi_config(sam):
@@ -3862,9 +4164,12 @@ def symbolic_phase(torch, sam, flash, ragged, gen_mod, engine_mod, slots_mod, bu
 
     from perceiver_io_tpu_torch.data.audio import midi
 
-    cfg = giantmidi_config(sam)
+    full = giantmidi_config(sam)
     t0 = time.perf_counter()
-    out = {"forward": symbolic_forward(torch, sam, flash, cfg)}
+    out = {"forward": symbolic_forward(torch, sam, flash, full)}
+    # (b)-(e) at GiantMIDI's widths over SYMBOLIC_LAYERS of its 12 layers (a
+    # cut of depth; every gate of theirs follows the depth)
+    cfg = dataclasses.replace(full, num_self_attention_layers=SYMBOLIC_LAYERS)
     model = sam.SymbolicAudioModel(cfg, dtype=torch.float32, seed=0).eval()
     emit("symbolic", part="model", params=sum(p.numel() for p in model.parameters()),
          config=dataclasses.asdict(cfg))
@@ -4455,6 +4760,8 @@ CLI_ENGINES = {
 CLI_SERVE_RUNS = ("serve_bucket", "serve_slots", "serve_fleet")
 CLI_FLEET = ["--serve.replicas=2", "--serve.autoscale.max=3", "--serve.autoscale.min=2"]
 CLI_SAM_STEPS = 4
+#: the `python -m ... serve` process serves the bucket run's first batch
+CLI_SUBPROCESS_PROMPTS = 4
 # the CLI fit's --obs.* flags (events and snapshot under its root dir; the
 # trigger fences each step and would arm on a 3x p95 regression)
 CLI_FIT_OBS = ["--obs.events_path=events.jsonl", "--obs.snapshot_every_s=5",
@@ -4782,19 +5089,23 @@ def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, roo
         if section not in text:
             raise AssertionError(f"obs {name} over the serve run lacks {section!r}:\n{text[:2000]}")
 
-    # the bucket run once more as a real `python -m ... serve` process
+    # the bucket run's first batch once more as a real `python -m ... serve`
+    # process (the same 4 prompts in one batch of the same bucket: the same
+    # arithmetic)
+    first = root / "prompts_first_batch.txt"
+    first.write_text("\n".join(texts[:CLI_SUBPROCESS_PROMPTS]) + "\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "perceiver_io_tpu_torch.scripts.text.clm", "serve",
-                           f"--ckpt={ckpt}", f"--serve.prompts={prompts_file}", *CLI_SERVE,
+                           f"--ckpt={ckpt}", f"--serve.prompts={first}", *CLI_SERVE,
                            *CLI_ENGINES["bucket"]],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     wall_s = time.perf_counter() - t0
     lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
-    same = lines[:-1] == served["bucket"][:-1]
+    same = lines[:-1] == served["bucket"][:CLI_SUBPROCESS_PROMPTS]
     emit("cli", part="serve_subprocess", card=smi, returncode=proc.returncode, wall_s=wall_s,
-         lines=len(lines), lines_equal_in_process=same,
+         lines=len(lines), lines_equal_in_process=same, stderr_tail=proc.stderr.splitlines()[-8:],
          serve_stats_parses=bool(lines) and "serve_stats" in lines[-1])
     if proc.returncode != 0 or not same or not lines or "serve_stats" not in lines[-1]:
         raise AssertionError(f"python -m ... serve: rc {proc.returncode}, equal {same}; "
@@ -4805,7 +5116,7 @@ def cli_phase(torch, flash, ragged, gen_mod, engine_mod, training, parallel, roo
                 "--data.min_seq_len=4096", "--data.batch_size=8", "--data.num_train_pieces=8",
                 "--data.num_valid_pieces=4", "--data.num_test_pieces=0", "--data.mean_piece_len=16384",
                 "--data.shard_index=0", "--data.shard_count=1", "--model.num_heads=8",
-                "--model.num_self_attention_layers=12", f"--trainer.max_steps={CLI_SAM_STEPS}",
+                f"--model.num_self_attention_layers={SYMBOLIC_LAYERS}", f"--trainer.max_steps={CLI_SAM_STEPS}",
                 "--trainer.grad_accum_steps=2", "--trainer.grad_clip_norm=1.0", "--trainer.log_every_n_steps=1",
                 f"--trainer.val_check_interval={CLI_SAM_STEPS}", "--trainer.limit_val_batches=1",
                 "--trainer.enable_checkpointing=false", "--trainer.enable_tensorboard=false",
@@ -6070,16 +6381,18 @@ def main() -> int:
         buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,)),
         slot_serve_workload(torch, gen_mod, base.config.vocab_size))
     del base
+    shallow = timed("shallow_serve", shallow_serve, torch, clm, gen_mod, serve)
     prefix_launches, shared = timed("slot_prefix", slot_prefix_phase, torch, flash, ragged, gen_mod, slots_mod,
-                                    buckets, serve["model"])
+                                    buckets, shallow["model"])
     preempt_launches = timed("slot_preempt", slot_preempt_phase, torch, flash, ragged, gen_mod, slots_mod, buckets,
-                             serve, shared, slot_launches["paged"])
+                             shallow, shared, slot_launches["paged"])
     spec_root = ROOT / "build" / "chip_smoke_spec"
     spec_root.mkdir(parents=True, exist_ok=True)
     spec_launches = timed("slot_spec", slot_spec_phase, torch, flash, ragged, gen_mod, spec_mod, strategy_mod,
-                          slots_mod, buckets, clm, serve, slot_launches, spec_root)
+                          slots_mod, buckets, clm, shallow, slot_launches, spec_root)
     sample = timed("sample", sample_phase, torch, clm, flash, ragged, gen_mod, samplers, beam_mod, pipelines_mod,
-                   tokenizers_mod, engine_mod, slots_mod, buckets, serve, slot_launches)
+                   tokenizers_mod, engine_mod, slots_mod, buckets, shallow, slot_launches)
+    del shallow
     obs = timed("obs", obs_phase, torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
                 ROOT / "build" / "chip_smoke_obs", smi)
     fleet = timed("fleet", fleet_phase, torch, flash, ragged, gen_mod, slots_mod, buckets, serve, smi)
@@ -6092,6 +6405,8 @@ def main() -> int:
     emit("memory_before_train_resilience", **held_memory(torch))
     resilience = timed("train_resilience", train_resilience_phase, torch, clm, flash, parallel, training, modules,
                        reliability, pipelines_mod, ROOT / "build" / "chip_smoke_resilience")
+    emit("memory_before_mesh", **held_memory(torch))
+    mesh = timed("mesh", mesh_phase, torch, clm, flash, parallel, training, ROOT / "build" / "chip_smoke_mesh", smi)
     emit("memory_before_symbolic", **held_memory(torch))
     symbolic = timed("symbolic", symbolic_phase, torch, sam, flash, ragged, gen_mod, engine_mod, slots_mod, buckets,
                      pipelines_mod, training, parallel, data_audio, ROOT / "build" / "chip_smoke_symbolic")
@@ -6176,6 +6491,7 @@ def main() -> int:
         "classifiers_route_launches": clf_k1,
         "flow_launches": {run: sum(routes.values()) for run, routes in flow_k1.items()},
         "flow_route_launches": flow_k1,
+        "mesh_route_launches": mesh_launches(mesh, "k1"),
         "routes": [{**k1_route_entry(flash, design, main, cases, route_launches[design], {
                        "bucket_serve": symbolic["bucket_serve"]["k1_routes"][design],
                        **{f"slot_serve_{layout}": v["k1_routes"][design]
@@ -6228,7 +6544,8 @@ def main() -> int:
                                       for layout, v in symbolic["slot_serve"].items()}),
                     "cli_launches": {run: cli[run]["k4_routes"][design] for run in CLI_SERVE_RUNS}}
                    for design, main in (("split", ("decode", "float32")), ("tc", ("window", "float32")))],
-    }] + [e for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic, cli, mlm, clf_bwd)]
+    }] + [{**e, "mesh_route_launches": mesh_launches(mesh, K23_KERNELS[kname][2])}
+          for kname in ("dq", "dkv") for e in k23_entries(kname, fits, k23, resilience, symbolic, cli, mlm, clf_bwd)]
         + k23_wide}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6238,4 +6555,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--mesh-rank"] else main())

@@ -27,6 +27,14 @@ parameter set appears once in the ``state_dict``. Their attention layers
 take q/k and v channels apart (``num_qk_channels``, ``num_v_channels``),
 and the decoder's cross-attention may drop its attention residual (the
 masked LM's ``cross_attention_residual=False``).
+
+Tensor parallelism: the parallel runtime gives a layer that runs
+tensor-parallel a ``tp`` (:class:`~perceiver_io_tpu_torch.parallel.collectives.TensorParallel`)
+and hands it its shard of the weights (``parallel/partition.py``). An
+attention then holds ``num_heads / tp.size`` heads: q/k/v column-parallel
+into them, o row-parallel out of them with the all-reduce before its bias;
+an MLP holds ``1 / tp.size`` of its hidden width the same way. Without
+``tp`` (the default) nothing changes.
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from perceiver_io_tpu_torch.models.core.adapter import TrainableQueryProvider
-from perceiver_io_tpu_torch.ops.attention import dot_product_attention, dropout
+from perceiver_io_tpu_torch.ops.attention import dot_product_attention, draw_shape, draw_view, dropout
 from perceiver_io_tpu_torch.ops.position import RotaryEmbedding, positions
 
 # torch defaults, required for numerical parity with the reference.
@@ -50,6 +58,13 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     """``layer(x)`` computed in ``dtype`` (flax ``Dense(dtype=...)``)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp) -> torch.Tensor:
+    """A row-parallel ``dense``: this rank's share of the product, summed
+    over the tensor-parallel group, then the (replicated) bias."""
+    y = tp.reduce(F.linear(x.to(dtype), layer.weight.to(dtype)))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -135,7 +150,8 @@ def remat(layer: nn.Module, args: tuple, *, deterministic: bool,
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with optional rotary embeddings and right-aligned
     causal attention. ``project_q`` / ``project_kv`` / ``project_out`` /
-    ``attend`` are the seams the KV-cache decode phases call.
+    ``attend`` are the seams the KV-cache decode phases call. With ``tp``
+    set it runs on its share of the heads (module docstring).
 
     q/k channels default to the query width and v channels to the q/k ones
     (JAX ``MultiHeadAttention._channels``); the output has the query width.
@@ -165,10 +181,13 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = nn.Linear(num_kv_input_channels, qk, bias=qkv_bias)
         self.v_proj = nn.Linear(num_kv_input_channels, v, bias=qkv_bias)
         self.o_proj = nn.Linear(v, out, bias=out_bias)
+        #: the tensor-parallel group when this layer runs on a share of its heads
+        self.tp = None
 
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
-        return x.reshape(b, n, self.num_heads, -1).transpose(1, 2)
+        heads = self.num_heads if self.tp is None else self.tp.local(self.num_heads)
+        return x.reshape(b, n, heads, -1).transpose(1, 2)
 
     def _merge_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, h, n, c = x.shape
@@ -176,6 +195,8 @@ class MultiHeadAttention(nn.Module):
 
     def project_q(self, x_q: torch.Tensor, rot_pos_emb: Optional[RotaryEmbedding] = None) -> torch.Tensor:
         """``(b, n, Dq)`` -> scaled, then rotated ``(b, h, n, ck)``."""
+        if self.tp is not None:
+            x_q = self.tp.enter(x_q)
         q = self._split_heads(dense(self.q_proj, x_q, self.dtype))
         q = q * ((self.num_qk_channels // self.num_heads) ** -0.5)
         if rot_pos_emb is not None:
@@ -185,6 +206,8 @@ class MultiHeadAttention(nn.Module):
     def project_kv(self, x_kv: torch.Tensor, rot_pos_emb: Optional[RotaryEmbedding] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(b, n, Dkv)`` -> rotated keys ``(b, h, n, ck)``, values ``(b, h, n, cv)``."""
+        if self.tp is not None:
+            x_kv = self.tp.enter(x_kv)
         k = self._split_heads(dense(self.k_proj, x_kv, self.dtype))
         if rot_pos_emb is not None:
             k = rot_pos_emb.rotate(k)
@@ -193,18 +216,26 @@ class MultiHeadAttention(nn.Module):
 
     def project_out(self, o: torch.Tensor) -> torch.Tensor:
         """``(b, h, n, cv)`` -> merged and output-projected ``(b, n, out)``."""
-        return dense(self.o_proj, self._merge_heads(o), self.dtype)
+        if self.tp is None:
+            return dense(self.o_proj, self._merge_heads(o), self.dtype)
+        return row_parallel(self.o_proj, self._merge_heads(o), self.dtype, self.tp)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                pad_mask: Optional[torch.Tensor] = None, deterministic: bool = True,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Attention and output projection over projected heads; in train
-        mode with ``dropout > 0`` the plain path with attention dropout."""
-        o = dot_product_attention(
-            q, k, v, pad_mask=pad_mask, causal=self.causal_attention,
-            dropout_rate=0.0 if deterministic else self.dropout, generator=generator,
-            max_heads_parallel=self.max_heads_parallel, impl=self.attention_impl,
-        )
+        mode with ``dropout > 0`` the plain path with attention dropout
+        (under ``tp`` drawn over every head, this rank's kept)."""
+        heads = contextlib.nullcontext()
+        if self.tp is not None:
+            local = self.tp.local(self.num_heads)
+            heads = draw_view(1, self.tp.rank * local, self.num_heads)
+        with heads:
+            o = dot_product_attention(
+                q, k, v, pad_mask=pad_mask, causal=self.causal_attention,
+                dropout_rate=0.0 if deterministic else self.dropout, generator=generator,
+                max_heads_parallel=self.max_heads_parallel, impl=self.attention_impl,
+            )
         return self.project_out(o)
 
     def forward(self, x_q, x_kv, pad_mask=None, rot_pos_emb_q=None, rot_pos_emb_k=None,
@@ -262,7 +293,9 @@ class SelfAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    """LayerNorm -> Linear(widening * ch) -> GELU (exact) -> Linear(ch)."""
+    """LayerNorm -> Linear(widening * ch) -> GELU (exact) -> Linear(ch).
+    With ``tp`` set it holds a share of the hidden width (module
+    docstring)."""
 
     def __init__(self, num_channels: int, widening_factor: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -271,10 +304,16 @@ class MLP(nn.Module):
         self.norm = _layer_norm(num_channels)
         self.hidden = nn.Linear(num_channels, widening_factor * num_channels, bias=bias)
         self.out = nn.Linear(widening_factor * num_channels, num_channels, bias=bias)
+        #: the tensor-parallel group when this layer runs on a share of its width
+        self.tp = None
 
     def forward(self, x):
         x = layer_norm(self.norm, x, self.dtype)
+        if self.tp is not None:
+            x = self.tp.enter(x)
         x = F.gelu(dense(self.hidden, x, self.dtype), approximate="none")
+        if self.tp is not None:
+            return row_parallel(self.out, x, self.dtype, self.tp)
         return dense(self.out, x, self.dtype)
 
 
@@ -445,7 +484,8 @@ class PerceiverAR(nn.Module):
         pad_prefix = None if pad_mask is None else pad_mask[:, :prefix_len]
         if not deterministic and prefix_len > 0 and self.cross_attention_dropout > 0.0:
             keep = prefix_len - int(prefix_len * self.cross_attention_dropout)
-            idx = prefix_keep_indices(prefix_noise(b, prefix_len, generator, x.device), keep)
+            full, index = draw_shape((b, prefix_len))  # a rank's rows of the global draw
+            idx = prefix_keep_indices(prefix_noise(*full, generator, x.device)[index], keep)
             x_prefix = torch.gather(x_prefix, 1, idx[..., None].expand(-1, -1, x_prefix.shape[-1]))
             frq_prefix = torch.gather(frq_prefix, 1, idx[..., None].expand(-1, -1, frq_prefix.shape[-1]))
             if pad_prefix is not None:

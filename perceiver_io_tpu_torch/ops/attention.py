@@ -39,11 +39,26 @@ path on the card too, since the flash kernel has no dropout, and
 entries of the fp32 softmax, each kept with probability ``1 - p`` and scaled
 by ``1 / (1 - p)``, before the cast to ``v``'s type; every keep-mask comes
 from :func:`dropout_keep`, one draw per head group under
-``max_heads_parallel``. Ring attention is not ported yet and raises.
+``max_heads_parallel``.
+
+Under a mesh a rank draws its noise as the single-device run would draw
+the global tensor and keeps its part of it (:func:`draw_view`: its batch
+rows under data parallelism, its heads in a tensor-parallel attention), so
+a sharded run's dropout equals the unsharded one's.
+
+- ``impl="ring"`` runs ring attention
+  (:func:`perceiver_io_tpu_torch.parallel.ring.ring_attention_sharded`)
+  over the ambient mesh's ``seq`` axis (``with mesh:``), as the JAX
+  package does. Without a mesh whose ``seq`` axis is larger than 1 it
+  warns and takes the plain path (JAX's own behaviour: ring is the same
+  function); with attention dropout it raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+import warnings
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -81,6 +96,33 @@ def _mask_value() -> float:
     return float(torch.finfo(torch.float32).min)
 
 
+_VIEW: contextvars.ContextVar = contextvars.ContextVar("perceiver_draw_view", default={})
+
+
+@contextlib.contextmanager
+def draw_view(dim: int, offset: int, total: int):
+    """Within the block, a draw of a tensor whose dim ``dim`` is this
+    rank's part ``[offset, offset + n)`` of ``total`` draws the whole
+    ``total`` and keeps the part (:func:`draw_shape`)."""
+    token = _VIEW.set({**_VIEW.get(), dim: (offset, total)})
+    try:
+        yield
+    finally:
+        _VIEW.reset(token)
+
+
+def draw_shape(shape) -> Tuple[tuple, tuple]:
+    """``(shape to draw, index of this rank's part)`` for a draw of
+    ``shape`` under the enclosing :func:`draw_view` blocks."""
+    full, index = list(shape), [slice(None)] * len(shape)
+    view: Dict[int, tuple] = _VIEW.get()
+    for dim, (offset, total) in view.items():
+        if dim < len(shape):
+            full[dim] = total
+            index[dim] = slice(offset, offset + shape[dim])
+    return tuple(full), tuple(index)
+
+
 def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],
                  device: torch.device) -> torch.Tensor:
     """Bool keep-mask of dropout at ``rate``: each entry True with
@@ -98,7 +140,8 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = dropout_keep(x.shape, rate, generator, x.device)
+    full, index = draw_shape(x.shape)
+    keep = dropout_keep(full, rate, generator, x.device)[index]
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -124,12 +167,25 @@ def dot_product_attention(
     :param dropout_rate: attention dropout (train mode); above 0 the plain
         path runs, drawing its masks from ``generator``.
     :param max_heads_parallel: plain path only: at most this many heads at once.
-    :param impl: ``"auto" | "xla" | "flash"``.
+    :param impl: ``"auto" | "xla" | "flash" | "ring"``.
     :return: ``(b, h, i, cv)``.
     """
     if impl == "ring":
-        raise NotImplementedError("ring attention is not ported yet")
-    if impl not in _IMPLS:
+        if dropout_rate > 0.0:
+            raise ValueError("ring attention does not support attention dropout")
+        from perceiver_io_tpu_torch.parallel.mesh import current_mesh
+
+        mesh = current_mesh()
+        if mesh is not None and mesh.shape["seq"] > 1:
+            from perceiver_io_tpu_torch.parallel.ring import ring_attention_sharded
+
+            return ring_attention_sharded(q, k, v, mesh, axis_name="seq", pad_mask=pad_mask,
+                                          causal=causal)
+        warnings.warn(
+            "impl='ring' without an active Mesh with a 'seq' axis of size > 1 — falling back "
+            "to the plain einsum path; wrap the call in `with make_mesh(MeshConfig(seq=...)):` "
+            "for sequence-parallel execution", UserWarning, stacklevel=2)
+    elif impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
     if impl == "flash" and dropout_rate > 0.0:
         raise ValueError("flash attention does not support attention dropout")

@@ -40,10 +40,16 @@ and the process-wide registry (``process_metrics``).
 ``--serve.failover``, ``--serve.step_timeout_s``), its autoscaler
 (``--serve.autoscale.*``, which builds the fleet even at one replica) and
 the HTTP/SSE streaming gateway (``--serve.http.*``: prompts arrive over
-``POST /v1/generate`` instead of a file), with JAX's checks. Flag groups
-whose modules are not ported yet are known to the parser, and using one
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: ``--mesh.*``
-and ``--serve.mesh.*`` (A.6).
+``POST /v1/generate`` instead of a file), with JAX's checks.
+
+``fit``, ``validate`` and ``test`` take ``--mesh.*`` (JAX's training mesh):
+under ``torchrun`` each process is one rank, ``--device=cuda`` puts it on
+``cuda:LOCAL_RANK`` (NCCL) and ``--device=cpu`` on the CPU (gloo); a lone
+process without ``--mesh.*`` trains as before, and with it resolves the
+mesh over a world of one. Rank 0 alone writes the run directory. Flag
+groups whose modules are not ported yet are known to the parser, and using
+one raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
+``--serve.mesh.*`` (A.6b).
 
 Model-family entry points are declarative :class:`ModelFamily` records; see
 ``perceiver_io_tpu_torch/scripts/text/clm.py`` for the pattern.
@@ -52,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import sys
 import typing
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -176,7 +183,7 @@ class LRSchedulerArgs:
 
 
 # -- the serve subcommand's nested flag groups -----------------------------
-# The mesh groups' modules are not ported yet: the parser knows their flags
+# The serving mesh's modules are not ported yet: the parser knows its flags
 # (the JAX CLI's surface), and using one raises NotImplementedError naming
 # its ROADMAP.md item (_refuse_unported).
 @dataclasses.dataclass
@@ -192,7 +199,7 @@ class HttpArgs:
 
 @dataclasses.dataclass
 class MeshServeArgs:
-    """``--serve.mesh.*``: the sharded serving runtime (A.6)."""
+    """``--serve.mesh.*``: the sharded serving runtime (A.6b)."""
 
     data: int = 1
     model: int = 1
@@ -217,7 +224,7 @@ class AutoscaleArgs:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """``--mesh.*``: the training mesh's parallelism degrees (A.6)."""
+    """``--mesh.*``: the training mesh's parallelism degrees."""
 
     data: int = -1
     fsdp: int = 1
@@ -231,8 +238,22 @@ def _unported(flags: str, item: str) -> NotImplementedError:
 
 def _refuse_unported(values: Dict[str, Any]) -> None:
     """Raise for a flag of a group whose modules are not ported yet."""
-    if any(k.startswith(("mesh.", "serve.mesh.")) for k in values):
-        raise _unported("--mesh.* / --serve.mesh.* (parallelism over a device mesh)", "A.6")
+    if any(k.startswith("serve.mesh.") for k in values):
+        raise _unported("--serve.mesh.* (sharded serving over a device mesh)", "A.6b")
+
+
+def _training_mesh(values: Dict[str, Any], device):
+    """The ``--mesh.*`` mesh of a fit/validate/test, or None: built when a
+    ``--mesh.*`` flag is given or the process is one of several
+    (``torchrun``), over the process group (brought up here)."""
+    from perceiver_io_tpu_torch.parallel import make_mesh, multihost
+    from perceiver_io_tpu_torch.parallel.mesh import MeshConfig as ParallelMeshConfig
+
+    if not any(k.startswith("mesh.") for k in values) and int(os.environ.get("WORLD_SIZE", "1")) == 1:
+        return None
+    cfg = build_dataclass(MeshConfig, values, "mesh")
+    multihost.initialize(device=device)
+    return make_mesh(ParallelMeshConfig(**dataclasses.asdict(cfg)), device=device)
 
 
 def _obs_kit(obs, root: str, *, passed: Optional[set] = None) -> Dict[str, Any]:
@@ -678,6 +699,7 @@ class CLI:
         import json
 
         from perceiver_io_tpu_torch._device import resolve_device
+        from perceiver_io_tpu_torch.parallel import collectives
         from perceiver_io_tpu_torch.training.checkpoint import load_pretrained
         from perceiver_io_tpu_torch.training.lrs import constant_with_warmup, cosine_with_warmup
         from perceiver_io_tpu_torch.training.optim import make_optimizer
@@ -697,11 +719,20 @@ class CLI:
                 "docs/observability.md)"
             )
         device = resolve_device(values.get("device", "cuda"))
+        mesh = None if subcommand == "preproc" else _training_mesh(values, device)
+        if mesh is not None:
+            device = mesh.device
         data_kwargs = {
             k.split(".", 1)[1]: v for k, v in values.items() if k.startswith("data.")
         }
         dm = data_cls(**data_kwargs)
+        # under a mesh rank 0 writes the data cache first, the others read it
+        world = None if mesh is None else mesh.group(*mesh.axis_names)
+        if mesh is not None and mesh.rank != 0:
+            collectives.barrier(world)
         dm.prepare_data()
+        if mesh is not None and mesh.rank == 0:
+            collectives.barrier(world)
         if subcommand == "preproc":
             return None
         dm.setup()
@@ -746,7 +777,10 @@ class CLI:
             self.family.initial_params(model, model_cfg, dm)
 
         obs = build_dataclass(ObservabilityArgs, values, "obs")
-        kit = _obs_kit(obs, trainer_cfg.default_root_dir, passed=set(values))
+        if mesh is None or mesh.rank == 0:
+            kit = _obs_kit(obs, trainer_cfg.default_root_dir, passed=set(values))
+        else:  # rank 0 alone writes the run directory
+            kit = dict.fromkeys(("registry", "tracer", "trigger", "snapshot_writer", "sink"))
         trainer = Trainer(
             trainer_cfg,
             self.family.make_loss(model, model_cfg),
@@ -758,13 +792,15 @@ class CLI:
             tracer=kit["tracer"],
             profiler_trigger=kit["trigger"],
             snapshot_writer=kit["snapshot_writer"],
+            mesh=mesh,
         )
         try:
             if subcommand in ("validate", "test"):
                 trainer.setup_state(model)
                 loader = dm.test_dataloader() if subcommand == "test" else dm.val_dataloader()
                 metrics = trainer.test(loader) if subcommand == "test" else trainer.validate(loader)
-                print(json.dumps({k: round(float(v), 6) for k, v in metrics.items()}))
+                if trainer.is_main_process:
+                    print(json.dumps({k: round(float(v), 6) for k, v in metrics.items()}))
                 return metrics
 
             return trainer.fit(model, dm.train_dataloader(), val_data=dm.val_dataloader)
@@ -1397,7 +1433,10 @@ class CLI:
         print("obs timeline: --timeline=<timeline.jsonl> [--events=<events.jsonl>] "
               "[--snapshot=<snapshot.json>] [--trace_out=<trace.json>] — "
               "per-slot gantt + per-request decomposition + Chrome-trace export")
-        print("not ported yet (NotImplementedError): --mesh.*, --serve.mesh.* (ROADMAP.md A.6)")
+        print("mesh (fit/validate/test): --mesh.data --mesh.fsdp --mesh.model --mesh.seq — "
+              "one process per rank under torchrun (--device=cuda: cuda:LOCAL_RANK over NCCL; "
+              "--device=cpu: gloo); --trainer.shard_seq shards the batches' sequence over seq")
+        print("not ported yet (NotImplementedError): --serve.mesh.* (ROADMAP.md A.6b)")
         print(f"data modules: {sorted(self.family.data_registry)}")
 
 

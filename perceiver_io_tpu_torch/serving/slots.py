@@ -224,7 +224,7 @@ _ROW_HOST_DTYPES = {"window": torch.int32, "pad": torch.int32, "length": torch.i
 
 
 def _deferred(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A.6)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A.6b)")
 
 
 @dataclasses.dataclass

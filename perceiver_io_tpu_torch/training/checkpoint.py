@@ -17,6 +17,12 @@ with ``weights_only=True``) and JSON configs (``{"class": <config class>,
 JAX checkpoints reach the port through ``convert/from_jax.py``. A snapshot
 is written to a temporary directory and renamed into place, so a crash
 mid-write never leaves a partial latest snapshot.
+
+Under a mesh a snapshot is the whole state, gathered
+(``TrainState.snapshot``: every rank takes part, the first writes), so it
+is the file a run on one device writes, and it restores onto any mesh or
+none (``TrainState.restore`` keeps each rank's shards), as JAX's orbax
+restore reshards.
 """
 from __future__ import annotations
 
@@ -170,19 +176,24 @@ class ResumeCheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
+    def _behind(self, step: int) -> bool:
+        latest = self.latest_step
+        return latest is not None and latest >= step
+
     def save(self, step: int, state) -> bool:
         """Snapshot ``state`` as step ``step``; False when skipped (not after
         the latest snapshot)."""
         self._check_open()
-        latest = self.latest_step
-        if latest is not None and latest >= step:
+        if self._behind(step):
             return False
-        payload = {
-            "step": int(state.step),
-            "model": _to_cpu(state.model.state_dict()),
-            "optimizer": _to_cpu(state.optimizer.state_dict()),
-            "scheduler": None if state.scheduler is None else state.scheduler.state_dict(),
-        }
+        return self.save_payload(step, state.snapshot())
+
+    def save_payload(self, step: int, payload: dict) -> bool:
+        """Write a ``TrainState.snapshot()`` taken already (under a mesh
+        every rank gathers, the first writes); False when skipped."""
+        self._check_open()
+        if self._behind(step):
+            return False
         _write_dir(os.path.join(self.directory, str(step)), STATE_FILE, payload)
         for old in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
@@ -198,14 +209,10 @@ class ResumeCheckpointManager:
             raise FileNotFoundError(f"no resume snapshots in {self.directory}")
         snap = torch.load(os.path.join(self.directory, str(step), STATE_FILE), map_location="cpu",
                           weights_only=True)
-        state.model.load_state_dict(snap["model"], strict=True)
-        state.optimizer.load_state_dict(snap["optimizer"])
-        if state.scheduler is not None:
-            if snap["scheduler"] is None:
-                raise ValueError(f"snapshot {step} holds no scheduler state, the live state has one")
-            state.scheduler.load_state_dict(snap["scheduler"])
-        state.step = snap["step"]
-        return state
+        try:
+            return state.restore(snap)
+        except ValueError as e:
+            raise ValueError(f"snapshot {step}: {e}") from None
 
     def close(self) -> None:
         """Idempotent: a crash path may close after a normal close."""
@@ -233,12 +240,15 @@ class BestCheckpointManager:
                     kept[int(name)] = json.load(f)["val_loss"]
         return kept
 
-    def save(self, step: int, model: nn.Module, config: Any, val_loss: float) -> None:
+    def save(self, step: int, model, config: Any, val_loss: float) -> None:
+        """``model``: the model, or its whole ``state_dict`` (a sharded
+        state's ``model_state_dict()``)."""
         with open(os.path.join(self.directory, CONFIG_FILE), "w") as f:
             json.dump({"model_config": config_to_dict(config)}, f, indent=2, default=str)
         path = os.path.join(self.directory, str(step))
         os.makedirs(path, exist_ok=True)
-        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        sd = model if isinstance(model, dict) else model.state_dict()
+        state = {k: v.detach().cpu() for k, v in sd.items()}
         torch.save(state, os.path.join(path, MODEL_FILE))
         with open(os.path.join(path, METRICS_FILE), "w") as f:
             json.dump({"step": step, "val_loss": float(val_loss)}, f)

@@ -19,6 +19,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from perceiver_io_tpu_torch.parallel.collectives import batch_mean, reducing
+
 IGNORE_INDEX = -100  # torch cross_entropy's ignore_index, used throughout the reference
 
 LossFn = Callable[[nn.Module, Dict[str, torch.Tensor], Optional[torch.Generator]],
@@ -28,13 +30,14 @@ LossFn = Callable[[nn.Module, Dict[str, torch.Tensor], Optional[torch.Generator]
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Token-mean cross entropy over the labels that are not
     ``IGNORE_INDEX``: fp32 log-softmax, the sum over valid labels divided by
-    ``max(1, count)``."""
+    ``max(1, count)``; under a mesh the count is the global batch's
+    (:func:`~perceiver_io_tpu_torch.parallel.collectives.batch_mean`)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return batch_mean(nll.sum(), valid.sum())
 
 
 def clm_loss_fn(model: nn.Module, max_latents: int) -> LossFn:
@@ -73,8 +76,10 @@ def mlm_loss_fn(model: nn.Module) -> LossFn:
 
 
 def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """The share of rows whose argmax is their label, fp32."""
-    return (logits.argmax(dim=-1) == labels).float().mean()
+    """The share of rows whose argmax is their label, fp32 (over the global
+    batch under a mesh)."""
+    correct = (logits.argmax(dim=-1) == labels).float()
+    return batch_mean(correct.sum(), correct.numel()) if reducing() else correct.mean()
 
 
 def image_classifier_loss_fn(model: nn.Module) -> LossFn:

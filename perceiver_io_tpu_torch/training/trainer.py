@@ -1,7 +1,8 @@
 """The training loop: step-based training with periodic validation,
 best-``val_loss`` checkpoints, and loss / learning-rate logging (a
 ``metrics.jsonl`` always, TensorBoard when it can be imported). Counterpart
-of ``perceiver_io_tpu/training/trainer.py`` on one device.
+of ``perceiver_io_tpu/training/trainer.py``, on one device or over a
+mesh (``mesh=``).
 
 Each step's ``torch.Generator`` (prefix, attention and residual dropout) is
 seeded from ``(seed, step)``, the role of JAX's ``fold_in``, so a step's
@@ -29,6 +30,22 @@ What makes a long run survivable is the JAX loop's, on one device:
   ``<root>/profile``; the ``chaos=`` registry is consulted once a step at
   ``trainer.step``.
 
+Over a mesh (``mesh=`` a :class:`~perceiver_io_tpu_torch.parallel.Mesh`,
+one process per rank, each running ``fit`` with its own loader shard):
+the state is placed by ``create_train_state`` (rank 0's weights broadcast,
+each rank keeps its shards), every batch by ``shard_or_assemble``, and the
+step is the sharded one (``parallel/train_step.py``), so the losses are the
+single-device run's. ``shard_seq`` shards the batches' sequence dim over
+``seq``: each rank takes its chunk and the chunks are gathered at the
+model's input, so activations are whole on every ``seq`` rank and only the
+attends of a model built with ``attention_impl="ring"`` split their keys
+and values (the ring over ``seq``). Rank 0 alone writes: logs, metrics,
+checkpoints and snapshots (which every rank helps gather), and only it
+carries the tracer and the snapshot writer and runs the callbacks and
+``profile_start``; the profiler trigger is single-process only, as JAX's
+CLI rule (an armed trigger changes one rank's step schedule). A snapshot
+is the whole state and restores onto any mesh or none.
+
 Telemetry, as in JAX: the counters and histograms live on a
 :class:`~perceiver_io_tpu_torch.observability.MetricsRegistry`
 (``trainer_steps_total``, ``trainer_step_dispatch_ms`` or, with a profiler
@@ -40,9 +57,7 @@ flush and forced once when ``fit`` ends; a ``profiler_trigger`` is fed each
 single step's fenced ms and, once armed, runs the next step under
 ``torch.profiler``. None of them changes a loss.
 
-:class:`TrainerConfig` keeps the JAX field names and defaults. Not ported
-yet, and raising ``NotImplementedError`` when asked for (``ROADMAP.md`` A):
-``shard_seq``.
+:class:`TrainerConfig` keeps the JAX field names and defaults.
 """
 from __future__ import annotations
 
@@ -63,8 +78,10 @@ from torch import nn
 
 from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
 from perceiver_io_tpu_torch.observability import MetricsRegistry
+from perceiver_io_tpu_torch.parallel import collectives, multihost
 from perceiver_io_tpu_torch.parallel.train_step import (
     TrainState,
+    create_train_state,
     make_eval_step,
     make_gradient_step,
 )
@@ -97,6 +114,7 @@ class TrainerConfig:
     seed: int = 0
     enable_checkpointing: bool = True
     enable_tensorboard: bool = True
+    #: shard the sequence dim of batches over the mesh's ``seq`` axis
     shard_seq: bool = False
     #: record torch.profiler over the steps [profile_start, profile_start + 3)
     #: into <default_root_dir>/profile (None: off)
@@ -122,18 +140,11 @@ class TrainerConfig:
 _PROFILE_WINDOW = 3
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A)")
-
-
 def _check_config(cfg: TrainerConfig) -> str:
     """The effective non-finite policy: ``halt``, ``skip``, ``rollback`` or
-    ``off`` (``terminate_on_non_finite=False`` under ``halt``); raises on
-    what is not ported."""
+    ``off`` (``terminate_on_non_finite=False`` under ``halt``)."""
     if cfg.non_finite_policy not in ("halt", "skip", "rollback"):
         raise ValueError(f"non_finite_policy must be halt|skip|rollback, got {cfg.non_finite_policy!r}")
-    if cfg.shard_seq:
-        raise _unported("shard_seq")
     if cfg.non_finite_policy != "halt":
         return cfg.non_finite_policy
     return "halt" if cfg.terminate_on_non_finite else "off"
@@ -162,12 +173,6 @@ def _check_uniform_block(block: list, k_exec: int) -> None:
                 "use a loader that drops or pads the last partial batch (built-in loaders use "
                 "drop_last=True)"
             )
-
-
-def _params_finite(model: nn.Module) -> bool:
-    """Whether every floating parameter is finite (one host sync)."""
-    flags = [torch.isfinite(p).all() for p in model.parameters() if p.is_floating_point()]
-    return bool(torch.stack(flags).all()) if flags else True
 
 
 class _BatchStream:
@@ -241,7 +246,7 @@ class _BatchStream:
 
 
 class Trainer:
-    """Step-based fit and validation loop on one device.
+    """Step-based fit and validation loop, on one device or over a mesh.
 
     :param loss_fn: ``(model, batch, generator) -> (loss, metrics)`` (one of
         :mod:`perceiver_io_tpu_torch.training.tasks`).
@@ -253,6 +258,9 @@ class Trainer:
         after each validation pass; one that raises is logged and counted in
         ``fault_stats["callback_errors"]``, never fatal.
     :param device: ``"cuda"`` by default; the CPU only when asked for.
+        Under a mesh the mesh's device.
+    :param mesh: train over this :class:`~perceiver_io_tpu_torch.parallel.Mesh`
+        (module docstring); None: one device.
     :param chaos: a :class:`~perceiver_io_tpu_torch.reliability.ChaosRegistry`
         consulted once per optimizer step at ``trainer.step``: a ``nan``
         fault replaces the step's reported loss with NaN, an ``error`` fault
@@ -286,10 +294,25 @@ class Trainer:
         tracer: Any = None,
         profiler_trigger: Any = None,
         snapshot_writer: Any = None,
+        mesh: Any = None,
     ):
         self._policy = _check_config(config)
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.check_member()
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        #: rank 0 writes logs, metrics, checkpoints and snapshots (JAX
+        #: ``process_index() == 0``)
+        self.is_main_process = multihost.process_index() == 0
+        if not self.is_main_process:
+            tracer = snapshot_writer = profiler_trigger = None
+        elif profiler_trigger is not None and multihost.is_multihost():
+            # an armed trigger moves one rank to single steps while the
+            # others run blocks: their collectives would no longer pair up
+            print("[obs] profile_on_regress_factor is single-process only; disabled for this "
+                  "multi-process run", file=sys.stderr, flush=True)
+            profiler_trigger = None
         self.loss_fn = loss_fn
         self.tx = tx
         self.model_config = model_config
@@ -307,9 +330,10 @@ class Trainer:
         self._snapshot_writer = snapshot_writer
         self._chaos = chaos
         self._preempted = False
-        self._eval_step = make_eval_step(loss_fn, device=self.device)
+        self._eval_step = make_eval_step(loss_fn, device=self.device, mesh=mesh,
+                                         shard_seq=config.shard_seq)
         self._ckpt: Optional[BestCheckpointManager] = None
-        if config.enable_checkpointing:
+        if config.enable_checkpointing and self.is_main_process:
             self._ckpt = BestCheckpointManager(
                 os.path.join(config.default_root_dir, "checkpoints"),
                 max_to_keep=config.max_checkpoints,
@@ -319,6 +343,8 @@ class Trainer:
 
     def _open_writers(self) -> None:
         cfg = self.config
+        if not self.is_main_process:
+            return
         os.makedirs(cfg.default_root_dir, exist_ok=True)
         if self._metrics_file is None:
             self._metrics_file = open(os.path.join(cfg.default_root_dir, "metrics.jsonl"), "a")
@@ -358,13 +384,49 @@ class Trainer:
             self._tb.add_text(tag, text, step)
 
     def setup_state(self, model: nn.Module) -> TrainState:
-        """The train state of ``model`` (on the trainer's device) without
-        fitting: the ``validate``-only entry."""
+        """The train state of ``model`` (on the trainer's device; placed on
+        the mesh under one) without fitting: the ``validate``-only entry."""
+        if self.mesh is not None:
+            self.state, _ = create_train_state(model, self.tx, self.mesh)
+            return self.state
         devices = {p.device.type for p in model.parameters()}
         if devices != {self.device.type}:
             raise ValueError(f"the model lies on {sorted(devices)}, the trainer on {self.device}")
         self.state = TrainState.create(model, self.tx)
         return self.state
+
+    def _place(self, batch):
+        """This rank's part of a batch under a mesh (JAX ``shard_or_assemble``)."""
+        if self.mesh is None:
+            return batch
+        return multihost.shard_or_assemble(batch, self.mesh, shard_seq=self.config.shard_seq)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            collectives.barrier(self.mesh.group(*self.mesh.axis_names))
+
+    def _snapshot(self, resume_mgr, step: int) -> None:
+        """A resume snapshot: under a mesh every rank gathers, rank 0 writes."""
+        if self.mesh is None:
+            resume_mgr.save(step, self.state)
+            return
+        payload = self.state.snapshot()
+        if self.is_main_process:
+            resume_mgr.save_payload(step, payload)
+        self._barrier()
+
+    def _every_rank(self, flag: bool, op: str = "min") -> bool:
+        """``flag`` on every rank (``min``) or on any (``max``) of the mesh."""
+        if self.mesh is None or not multihost.is_multihost():
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        return bool(collectives.all_reduce(t, self.mesh.group(*self.mesh.axis_names), op=op))
+
+    def _sync_preempted(self) -> bool:
+        """Whether a SIGTERM reached any rank (it reaches one process at a
+        time: under a mesh every rank reads it at the same points)."""
+        self._preempted = self._every_rank(self._signalled, op="max")
+        return self._preempted
 
     def fit(self, model: nn.Module, train_data: Iterable,
             val_data: Optional[Callable[[], Iterable]] = None) -> TrainState:
@@ -381,11 +443,11 @@ class Trainer:
         # flight, snapshot, return. Signal handlers exist only in the main
         # thread; elsewhere the fit runs without one, as in JAX.
         prev_handler = None
-        self._preempted = False
+        self._preempted = self._signalled = False
         self._open_writers()
         if cfg.save_state_every_n_steps is not None:
             def on_sigterm(signum, frame):
-                self._preempted = True
+                self._signalled = True
 
             try:
                 prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
@@ -424,7 +486,13 @@ class Trainer:
 
         resume_mgr: Optional[ResumeCheckpointManager] = None
         if cfg.save_state_every_n_steps is not None:
-            resume_mgr = ResumeCheckpointManager(os.path.join(cfg.default_root_dir, "resume"))
+            # rank 0 makes the directory; the others read it
+            resume_dir = os.path.join(cfg.default_root_dir, "resume")
+            if self.is_main_process:
+                resume_mgr = ResumeCheckpointManager(resume_dir)
+            self._barrier()
+            if not self.is_main_process:
+                resume_mgr = ResumeCheckpointManager(resume_dir, create=False)
         if self._policy == "rollback":
             stale = resume_mgr.latest_step
             if stale is not None and stale > start_step - 1:
@@ -437,7 +505,7 @@ class Trainer:
                     "continue that run, or point default_root_dir at a fresh directory"
                 )
             if stale is None:  # a restore point before the first periodic save
-                resume_mgr.save(start_step - 1, self.state)
+                self._snapshot(resume_mgr, start_step - 1)
 
         replay = 0
         if self._policy == "rollback":  # one save window, the bad streak and a block
@@ -552,7 +620,8 @@ class Trainer:
     def _fit_loop(self, stream: _BatchStream, val_data, resume_mgr, start_step: int) -> None:
         cfg = self.config
         grads = make_gradient_step(self.loss_fn, grad_clip_norm=cfg.grad_clip_norm,
-                                   grad_accum_steps=cfg.grad_accum_steps, device=self.device)
+                                   grad_accum_steps=cfg.grad_accum_steps, device=self.device,
+                                   mesh=self.mesh, shard_seq=cfg.shard_seq)
         k_exec = cfg.steps_per_execution
         checking = self._policy in ("skip", "rollback")
         window: list = []
@@ -589,6 +658,8 @@ class Trainer:
 
         step_idx = start_step
         while step_idx <= cfg.max_steps:
+            if resume_mgr is not None:
+                self._sync_preempted()
             if k_exec > 1 and self._block_ok(step_idx, k_exec, val_data, resume_mgr):
                 with self._span("trainer.data_wait", step=step_idx, batches=k_exec):
                     block = [stream.next() for _ in range(k_exec)]
@@ -597,7 +668,7 @@ class Trainer:
                 block_t0 = time.perf_counter()
                 with self._span("trainer.step", step=step_idx, fused=k_exec, measures=measures):
                     for i, batch in enumerate(block):  # metrics stay on the device
-                        per_step.append(grads(self.state, batch,
+                        per_step.append(grads(self.state, self._place(batch),
                                               step_generator(cfg.seed, step_idx + i, self.device)))
                         self.state.apply_gradients()
                     if trigger is not None:
@@ -608,8 +679,9 @@ class Trainer:
             else:
                 with self._span("trainer.data_wait", step=step_idx):
                     batch = stream.next()
+                batch = self._place(batch)
                 generator = step_generator(cfg.seed, step_idx, self.device)
-                if cfg.profile_start is not None and step_idx == cfg.profile_start:
+                if cfg.profile_start is not None and step_idx == cfg.profile_start and self.is_main_process:
                     profiler = self._start_profile()
                 # an armed p95-regression capture traces this step, unless
                 # the profile_start window holds the profiler already
@@ -661,9 +733,9 @@ class Trainer:
                     self._count_fault("skipped_steps")
                     snap_after_recovery = True
                     self.log_metrics(step_idx, {"non_finite_skipped": self.fault_stats["skipped_steps"]})
-                    if resume_mgr is not None and self._preempted:
-                        if _params_finite(self.state.model):
-                            resume_mgr.save(step_idx, self.state)
+                    if resume_mgr is not None and self._sync_preempted():
+                        if self.state.params_finite():
+                            self._snapshot(resume_mgr, step_idx)
                         self.log_metrics(step_idx, {"preempted_at": step_idx})
                         break
                     step_idx += 1
@@ -676,13 +748,15 @@ class Trainer:
             if window and step_idx % cfg.log_every_n_steps < n_ran and step_idx >= cfg.log_every_n_steps:
                 flush(step_idx)
 
+            if resume_mgr is not None:
+                self._sync_preempted()
             if resume_mgr is not None and (step_idx % cfg.save_state_every_n_steps == 0
                                            or self._preempted or snap_after_recovery):
                 # the loss was taken before the update, which may have
                 # overflowed: check the state itself before keeping it
-                if self._policy == "off" or _params_finite(self.state.model):
+                if self._policy == "off" or self.state.params_finite():
                     with self._span("trainer.checkpoint", step=step_idx, kind="resume"):
-                        resume_mgr.save(step_idx, self.state)
+                        self._snapshot(resume_mgr, step_idx)
                     snap_after_recovery = False
                 elif self._policy == "rollback":
                     self.log_metrics(step_idx, {"snapshot_refused_non_finite": step_idx})
@@ -700,11 +774,14 @@ class Trainer:
                     flush(step_idx)
                 val_metrics = self.validate(val_data())
                 self.log_metrics(step_idx, val_metrics, prefix="val/")
-                if self._ckpt is not None and "loss" in val_metrics:
-                    with self._span("trainer.checkpoint", step=step_idx, kind="best"):
-                        self._ckpt.save(step_idx, self.state.model, self.model_config,
-                                        val_metrics["loss"])
-                self._run_callbacks(step_idx, val_metrics)
+                if self.config.enable_checkpointing and "loss" in val_metrics:
+                    # under a mesh every rank gathers the weights, rank 0 writes
+                    weights = self.state.model if self.mesh is None else self.state.model_state_dict()
+                    if self._ckpt is not None:
+                        with self._span("trainer.checkpoint", step=step_idx, kind="best"):
+                            self._ckpt.save(step_idx, weights, self.model_config, val_metrics["loss"])
+                if self.is_main_process:
+                    self._run_callbacks(step_idx, val_metrics)
                 t0 = time.time()
             step_idx += 1
         if profiler is not None:  # max_steps ended inside the window
@@ -733,12 +810,17 @@ class Trainer:
         return {f"test_{k}": v for k, v in metrics.items()}
 
     def _evaluate(self, data: Iterable, limit: Optional[int]) -> dict:
+        """Mean metrics over the batches; over several processes the ranks
+        step together and the pass ends where the shortest loader shard
+        does (a rank's split may hold one example fewer)."""
         totals: dict = {}
         count = 0
-        for i, batch in enumerate(data):
-            if limit is not None and i >= limit:
+        batches = iter(data)
+        while limit is None or count < limit:
+            batch = next(batches, None)
+            if not self._every_rank(batch is not None):
                 break
-            for k, v in self._eval_step(self.state, batch).items():
+            for k, v in self._eval_step(self.state, self._place(batch)).items():
                 totals[k] = totals.get(k, 0.0) + float(v)
             count += 1
         return {k: v / max(1, count) for k, v in totals.items()}

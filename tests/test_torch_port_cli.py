@@ -18,8 +18,9 @@
   JAX's lines; ``--serve.http.port=0 --serve.http.max_streams=2`` serves two
   streams over a socket with JAX's frames (less ``trace_id``); the fleet,
   autoscale and gateway flags' ``SystemExit`` messages are JAX's.
-- **Refusals**: each flag group whose modules are not ported (the mesh,
-  A.6) raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+- **Refusals**: each flag group whose modules are not ported (the serving
+  mesh, A.6b) raises ``NotImplementedError`` naming its ``ROADMAP.md`` item;
+  ``--mesh.*`` runs (``test_torch_port_parallel_train.py``).
 
 A tiny CLM (262-byte vocab, 64 context, 16 latents, 32 channels, 2 heads,
 1 layer) over ``--data=synthetic`` (4 + 2 + 2 documents of 512 characters).
@@ -485,7 +486,6 @@ def test_outer_serving_flag_groups_run(runs, name, monkeypatch, capsys):
 
 # -- refusals of what is not ported ----------------------------------------
 REFUSED = {
-    "mesh": (["fit", "--mesh.data=1"], "A.6"),
     "serve mesh": (["serve", "--ckpt=c", "--serve.mesh.model=2"], "A.6"),
     "serve mesh with replicas": (["serve", "--ckpt=c", "--serve.replicas=2", "--serve.mesh.data=2"], "A.6"),
 }

@@ -293,8 +293,10 @@ def test_head_dim_tables_match_the_kernels():
 
 def test_dispatch_rejects_unported_modes(rng):
     q, k, v = _t(*_qkv(rng, 1, 1, 2, 2, 8))
-    with pytest.raises(NotImplementedError):
-        dot_product_attention(q, k, v, impl="ring")
+    # ring is ported: without a seq mesh it warns and takes the plain path, as JAX's
+    with pytest.warns(UserWarning, match="seq"):
+        out = dot_product_attention(q, k, v, impl="ring")
+    torch.testing.assert_close(out, dot_product_attention(q, k, v, impl="xla"), rtol=0, atol=0)
     with pytest.raises(ValueError, match="dropout"):  # JAX's refusal: the kernel has no dropout
         dot_product_attention(q, k, v, dropout_rate=0.1, impl="flash")
     with pytest.raises(ValueError):

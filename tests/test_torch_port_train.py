@@ -289,6 +289,7 @@ def test_best_checkpoints_keep_the_lowest(tmp_path):
 
 
 def _unported_cases():
+    # shard_seq is ported (the training mesh); the case is kept as its no-mesh form
     return [
         ("shard_seq", lambda: TrainerConfig(max_steps=1, shard_seq=True)),
     ]
@@ -296,13 +297,32 @@ def _unported_cases():
 
 @pytest.mark.parametrize("name,make_cfg", _unported_cases(), ids=[c[0] for c in _unported_cases()])
 def test_unported_trainer_options_raise(tmp_path, name, make_cfg):
-    cfg = make_cfg()
-    cfg.default_root_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, lambda *a: None, make_optimizer(1e-3), device="cpu")
+    """Ported since: without a mesh ``shard_seq`` shards nothing (JAX's over
+    a one-device mesh), so the fit equals the one without it."""
+    params = []
+    for on in (True, False):
+        cfg = make_cfg()
+        cfg.shard_seq, cfg.enable_tensorboard = on, False
+        cfg.default_root_dir = str(tmp_path / str(on))
+        _, _, t_model = _pair()
+        Trainer(cfg, clm_loss_fn(t_model, LATENTS), make_optimizer(1e-3), device="cpu").fit(t_model, _batches(1))
+        params.append(t_model.state_dict())
+    for name_, value in params[0].items():
+        assert torch.equal(value, params[1][name_]), name_
 
 
 @pytest.mark.parametrize("case", ["mesh"])
-def test_unported_training_features_raise(case):
-    with pytest.raises(NotImplementedError):
-        make_train_step(lambda *a: None, mesh=object(), device="cpu")
+def test_unported_training_features_raise(case, tmp_path):
+    """Ported since: a step over a mesh (a world of one here) refuses a
+    train state that ``create_train_state`` did not place."""
+    from perceiver_io_tpu_torch.parallel import MeshConfig, make_mesh, multihost
+
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0, device="cpu")
+    try:
+        mesh = make_mesh(MeshConfig(data=1), device="cpu")
+        _, _, t_model = _pair()
+        step = make_train_step(clm_loss_fn(t_model, LATENTS), mesh=mesh, device="cpu")
+        with pytest.raises(ValueError, match="create_train_state"):
+            step(TrainState.create(t_model, make_optimizer(1e-3)), _batches(1)[0], None)
+    finally:
+        multihost.shutdown()
