@@ -95,7 +95,10 @@ non-zero and never prints the final line):
    q_len 512, length 1000); the decode and window cases again at head dims
    64, 96 and 128, timed over fewer iterations; and at the GiantMIDI shapes
    at head dim 96 over 384-page tables: decode rows (b = 4, lengths up to
-   6143) and window rows of 2048 latents (lengths 2100..6144). Each in
+   6143) and window rows of 2048 latents (lengths 2100..6144); and K4 per
+   shard (phase 14c): a rank's 2 slot rows at 4 heads of 112 (clm-base over
+   ``model=2``), decode (lengths 1023, 700) and window (q_len 512,
+   lengths 1024, 777). Each in
    fp32, bf16 and int8 with scales, through
    the route the wrapper picks (``split`` for decode rows, ``tc`` for
    window rows; a wrong route fails), held at 4e-3 in bf16 and 1e-4
@@ -230,7 +233,8 @@ non-zero and never prints the final line):
    CPU. (e) ``TextGenerationPipeline`` over clm-base's widths with the
    byte tokenizer's 262-token vocabulary: ``bucketing=True`` gives the
    text ``bucketing=False`` gives, and a beam call returns text;
-11b. obs: telemetry over phase 7's model (fp32): three of its requests
+11b. obs: telemetry over phase 7's requests at ``SHALLOW_SERVE_LAYERS``
+   (4) of the 16 layers (fp32): three of its requests
    (``OBS_REQUESTS``) through the paged slot engine (4 slots,
    ``OBS_KV_BLOCKS`` blocks, ``recompute`` preemption), first with no
    attachment, then with every one (a registry, a tracer streaming
@@ -251,7 +255,8 @@ non-zero and never prints the final line):
    (e) The build ledger holds one ``kernel_build`` record per source this
    process built (``_build.BUILD_LOG``). (f) Decode-step ms p50 with and
    without the attachments, A B B A (printed, not gated);
-11c. fleet: outer serving over phase 7's model (fp32, clm-base): 8 of its
+11c. fleet: outer serving over phase 7's requests at clm-base's widths and
+   ``SHALLOW_SERVE_LAYERS`` (4) of its layers (fp32): 8 of its
    requests (``FLEET_REQUESTS``: prompts 500-960, 496 latents, 16/32/48
    new tokens) through ``FleetRouter`` over two paged slot replicas of 4
    slots. (a) No fault: tokens equal phase 7's ``generate()`` references
@@ -412,6 +417,34 @@ non-zero and never prints the final line):
    and peak ``max_memory_allocated``, beside the card's ``nvidia-smi``
    line. The ranks load the kernels phase 2 built and refuse to build
    one; a rank that fails fails the phase;
+14c. shard: sharded serving (``serving/sharding.py``) at clm-base, fp32:
+   6 prompts of 520-990 tokens over 4 slots (two admit mid-flight), 504
+   latents, 16 new tokens (8 latent-growth, then boundary steps: K4's
+   window rows). (a) In 14b's NCCL world of one, before its training
+   cases: per layout (dense, paged) the unsharded engine and
+   ``ServingMeshSpec(1, 1)``'s: tokens equal, the final state equal byte
+   for byte (the pool's null block apart: scratch that no read uses,
+   written by scatters whose duplicate indices may race on the card; a
+   second run of the unsharded engine prints its own null-block and leaf
+   differences beside the mesh's), K1/K4 launches by route equal. (b) Four ranks
+   (``python3 chip_smoke.py --shard-rank``, started beside 14b's worlds)
+   share ``cuda:0`` over gloo, a 2x2 mesh at full depth, rank 0 driving:
+   per layout tokens equal (a)'s single-rank tokens (the near-tie excuse),
+   boundary steps ran, every rank's K1 on split/tf32x3 only and K4
+   (paged) on split and tc, none on simt (dense: no K4); every data
+   replica of the pool byte-equal (``shard_digests``); after the paged run
+   3 requests, 3 steps, a cancel and an evacuation leave the pool with
+   nothing in use, reserved or leaked. Printed per rank: K1/K4 launches
+   by route, decode steps, step ms p50 (each decode op between two
+   synchronises), collective calls and bytes a decode step by kind, peak
+   memory, plans. (c) In the same world two 1x2 paged replicas
+   (``MeshGroupAllocator``; the driver outside the second group) serve 4
+   prompts, 8 new tokens, at ``SHALLOW_SERVE_LAYERS`` layers, replica 0
+   crashing on its ``SHARD_CRASH_STEP``-th step: every request ``ok``,
+   tokens equal the driver's single-rank engine's (the near-tie excuse),
+   one restart, the rebuild on the crashed group, the groups disjoint, no
+   pool leaked; K1 and K4 split on every rank. The K4 phase's
+   ``K4_SHARD_CASES`` hold K4 at h = 4 (clm-base over ``model=2``);
 15. symbolic: the symbolic-audio model at GiantMIDI width (6144 context,
    2048 latents, 768 channels over 8 heads: head dim 96, 12 layers, the
    389-event vocabulary; random weights from a seed; its parameter count
@@ -1488,6 +1521,13 @@ K4_SAM_CASES = (
     ("window_sam", 2048, [2100, 4000, 5000, 6144]),
 )
 K4_SAM_PAGES = 384
+#: K4 per shard: clm-base over ``model=2`` (4 heads a rank), the two slot
+#: rows of a data rank of phase 14c's 2x2 mesh
+K4_SHARD_CASES = (
+    ("decode_shard", 1, [1023, 700]),
+    ("window_shard", 512, [1024, 777]),
+)
+K4_SHARD_HEADS = 4
 
 
 def k4_expected_route(q_len: int) -> str:
@@ -1501,12 +1541,13 @@ def k4_cases(torch, ragged, paged):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    h, bs = 8, 16
-    shapes = [(*c, K1_HEAD_DIM) for c in K4_CASES] + [
-        (*c, d) for d in K1_OTHER_HEAD_DIMS for c in K4_CASES if c[0] in K4_OTHER_CASES] + [
-        (*c, SAM_HEAD_DIM) for c in K4_SAM_CASES]
+    bs = 16
+    shapes = [(*c, K1_HEAD_DIM, 8) for c in K4_CASES] + [
+        (*c, d, 8) for d in K1_OTHER_HEAD_DIMS for c in K4_CASES if c[0] in K4_OTHER_CASES] + [
+        (*c, SAM_HEAD_DIM, 8) for c in K4_SAM_CASES] + [
+        (*c, K1_HEAD_DIM, K4_SHARD_HEADS) for c in K4_SHARD_CASES]
     cases = []
-    for name, q_len, lengths, d in shapes:
+    for name, q_len, lengths, d, h in shapes:
         main_dim = d == K1_HEAD_DIM
         sam = name.endswith("_sam")
         pages = K4_SAM_PAGES if sam else 64
@@ -3873,6 +3914,16 @@ def mesh_rank_main(argv) -> int:
         time.sleep(0.05)
     multihost.initialize(f"file://{job_dir / 'store'}", world, rank, backend=job["backend"], device=dev)
     results = {}
+    if job.get("shard_prompts"):  # phase 14c's (a), before the training cases
+        from perceiver_io_tpu_torch.inference import generate as gen_mod
+        from perceiver_io_tpu_torch.ops import ragged_attention as ragged
+        from perceiver_io_tpu_torch.serving import buckets
+        from perceiver_io_tpu_torch.serving import sharding as sharding_mod
+        from perceiver_io_tpu_torch.serving import slots as slots_mod
+
+        results["shard_a"] = shard_world_one(torch, clm, flash, ragged, gen_mod, slots_mod, buckets, sharding_mod,
+                                             clm_base_config(clm.CausalLanguageModelConfig),
+                                             job["shard_prompts"], dev)
     for name, sizes, impl, shard_seq in job["cases"]:
         mesh = parallel.make_mesh(parallel.MeshConfig(**sizes), device=dev)
         if name == "world1":  # (a): the no-mesh step and the world-of-one mesh, in this process
@@ -3889,13 +3940,15 @@ def mesh_rank_main(argv) -> int:
     return 0
 
 
-def start_mesh_ranks(world: int, backend: str, cases, cfg, job_dir: Path) -> tuple:
-    """Spawn ``world`` ranks of :func:`mesh_rank_main` over ``cases``; they
-    start (imports, CUDA context) and wait for :func:`finish_mesh_ranks`."""
+def start_mesh_ranks(world: int, backend: str, cases, cfg, job_dir: Path, shard_prompts=None) -> tuple:
+    """Spawn ``world`` ranks of :func:`mesh_rank_main` over ``cases`` (and
+    phase 14c's (a) over ``shard_prompts``); they start (imports, CUDA
+    context) and wait for :func:`finish_mesh_ranks`."""
     shutil.rmtree(job_dir, ignore_errors=True)
     job_dir.mkdir(parents=True)
     (job_dir / "job.json").write_text(json.dumps({"backend": backend, "cases": cases, "device": MESH_DEVICE,
-                                                  "config": dataclasses.asdict(cfg)}))
+                                                  "config": dataclasses.asdict(cfg),
+                                                  "shard_prompts": shard_prompts}))
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     logs = [open(job_dir / f"rank{r}.log", "w") for r in range(world)]
@@ -3965,7 +4018,7 @@ def mesh_phase(torch, clm, flash, parallel, training, root: Path, smi: str) -> d
     # reference) and the world-of-one mesh; (b)'s ranks start meanwhile and
     # wait for the card
     first = start_mesh_ranks(1, MESH_BACKENDS["world1"], [["world1", {"data": 1}, "auto", False]], cfg,
-                             root / "world1")
+                             root / "world1", shard_prompts=shard_workload())
     second = start_mesh_ranks(2, MESH_BACKENDS["world2"], [list(c) for c in MESH_CASES], cfg, root / "world2")
     try:
         (one,) = finish_mesh_ranks(first)
@@ -4026,7 +4079,412 @@ def mesh_phase(torch, clm, flash, parallel, training, root: Path, smi: str) -> d
          nvidia_smi=smi)
     if failures:
         raise AssertionError("mesh phase: " + "; ".join(failures[:12]))
-    return {"ranks": ranks, "single_rank": ref}
+    return {"ranks": ranks, "single_rank": ref, "shard_a": one["shard_a"]}
+
+
+# -- phase 14c: the sharded slot engine ----------------------------------------
+#: (b)'s serving mesh and (c)'s fleet groups over the four ranks of one card
+SHARD_MESH = {"data": 2, "model": 2}
+SHARD_FLEET = {"data": 1, "model": 2}
+SHARD_WORLD = 4
+SHARD_SLOTS = 4
+SHARD_NEW = 16
+#: 6 ragged prompts over 4 slots: the last two admit mid-flight
+SHARD_LENS = (520, 610, 760, 850, 930, 990)
+#: 504 latents of 512: 8 latent-growth steps, then boundary steps (K4's
+#: window rows under the paged layout)
+SHARD_LATENTS = 504
+SHARD_LAYOUTS = ("dense", "paged")
+#: replica 0 of (c) crashes on its third supervised step; (c) serves the
+#: first prompts at ``SHALLOW_SERVE_LAYERS`` of the 16 layers (an earlier
+#: path's depth; (b) keeps the full depth)
+SHARD_CRASH_STEP = 3
+SHARD_FLEET_REQUESTS = 4
+SHARD_FLEET_NEW = 8
+#: the drill after (b)'s paged run: requests, steps before the cancel
+SHARD_DRILL = (3, 3)
+
+
+def shard_workload() -> list:
+    """(b)'s prompts: token ids below clm-base's vocab, from one seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(73)
+    return [rng.integers(1, 32000, size=n).tolist() for n in SHARD_LENS]
+
+
+def shard_instrument(torch, slots_mod, collectives) -> list:
+    """Time each decode op of this rank's shard (``_SlotDevice.decode``,
+    a host clock between two synchronises: the step as this rank sees it,
+    its collectives included) and count its collectives; returns the list
+    the records go to."""
+    records = []
+    real = slots_mod._SlotDevice.decode
+
+    def decode(self, *args, **kwargs):
+        before = collectives.read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        after = collectives.read_counts()
+        records.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "comm": {k: {"calls": after[k]["calls"] - before[k]["calls"],
+                                     "bytes": after[k]["bytes"] - before[k]["bytes"]}
+                                 for k in collectives.KINDS if after[k]["calls"] > before[k]["calls"]}})
+        return out
+
+    slots_mod._SlotDevice.decode = decode
+    return records
+
+
+def shard_counts(flash, ragged, records: list, torch, dev) -> dict:
+    """This rank's K1/K4 launches by route, decode-step ms and collectives a
+    step since the last reset, and its peak memory."""
+    plain = [r for r in records if r["comm"]]  # mesh steps (the reference's have none)
+    return {"k1": dict(flash.flash_attention.route_launches),
+            "k4": dict(ragged.ragged_paged_attention.route_launches),
+            "decode_steps": len(records), "step_ms": [round(r["ms"], 4) for r in records],
+            "step_ms_p50": _p50([r["ms"] for r in records]) if records else None,
+            "collectives_per_step": plain[len(plain) // 2]["comm"] if plain else {},
+            "peak_bytes": _peak(torch, dev)}
+
+
+def shard_reset(flash, ragged, records: list, torch, dev) -> None:
+    reset_counts(flash)
+    reset_k4_counts(ragged)
+    records.clear()
+    _reset_peak(torch, dev)
+
+
+def shard_engine(slots_mod, buckets, gen_mod, model, layout: str, dev, mesh=None):
+    gcfg = gen_mod.GenerationConfig(num_latents=SHARD_LATENTS, max_new_tokens=SHARD_NEW)
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+    return slots_mod.SlotServingEngine(model, gcfg, table, slots=SHARD_SLOTS, kv_layout=layout, device=dev,
+                                       mesh=mesh)
+
+
+def shard_state_bytes(torch, state: dict, block_size: int) -> dict:
+    """Each state leaf's bytes as a host array (the byte-equality pin); a
+    pool leaf's null block (its first ``block_size`` rows: scratch that no
+    read uses, written by scatters whose duplicate indices may race on the
+    card) apart, as ``<leaf>:null``."""
+    out = {}
+    for k, v in state.items():
+        for i, t in enumerate(v if isinstance(v, list) else [v]):
+            if k in ("pool_k", "pool_v", "scale_k", "scale_v"):
+                out[f"{k}/{i}:null"] = t[:block_size].contiguous().view(torch.uint8).cpu()
+                t = t[block_size:]
+            out[f"{k}/{i}"] = t.contiguous().view(torch.uint8).cpu()
+    return out
+
+
+def shard_world_one(torch, clm, flash, ragged, gen_mod, slots_mod, buckets, sharding_mod, cfg, prompts, dev):
+    """(a), in the mesh phase's NCCL world of one: per layout the unsharded
+    engine and the 1x1 mesh's over (b)'s traffic: tokens, the final state
+    byte for byte, K1/K4 launches by route. A paged layout runs the
+    unsharded engine a second time: its null blocks against the first run's
+    show what the scatters' race leaves there without a mesh."""
+    import numpy as np
+
+    model = clm.CausalLanguageModel(cfg, seed=0, device=dev).eval()
+    sh = sharding_mod.ServingMeshSpec(1, 1).resolve(device=dev)
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+    out = {}
+    for layout in SHARD_LAYOUTS:
+        runs = {}
+        again = (("plain_again", None),) if layout != "dense" else ()
+        for name, mesh in (("plain", None), *again, ("mesh", sh)):
+            reset_counts(flash)
+            reset_k4_counts(ragged)
+            engine = shard_engine(slots_mod, buckets, gen_mod, model, layout, dev, mesh)
+            with torch.no_grad():
+                rows = [np.asarray(r).tolist() for r in engine.serve(prompts)]
+            runs[name] = dict(tokens=rows, k1=dict(flash.flash_attention.route_launches),
+                              k4=dict(ragged.ragged_paged_attention.route_launches),
+                              state=shard_state_bytes(torch, engine._state, engine.kv_block_size),
+                              stats=engine.stats())
+            del engine
+        a, b = runs["plain"]["state"], runs["mesh"]["state"]
+        differ = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+        rerun = runs.get("plain_again", runs["plain"])["state"]
+        own = [k for k in a if not torch.equal(a[k], rerun[k])]
+        out[layout] = dict(
+            tokens_equal=runs["plain"]["tokens"] == runs["mesh"]["tokens"], tokens=runs["plain"]["tokens"],
+            leaves=len([k for k in a if not k.endswith(":null")]),
+            mismatched=[k for k in differ if not k.endswith(":null")],
+            null_blocks_differing=[k for k in differ if k.endswith(":null")],
+            rerun_null_blocks_differing=[k for k in own if k.endswith(":null")],
+            rerun_leaves_differing=[k for k in own if not k.endswith(":null")],
+            launches={n: {"k1": runs[n]["k1"], "k4": runs[n]["k4"]} for n in ("plain", "mesh")},
+            mesh=runs["mesh"]["stats"]["mesh"])
+    del model
+    _reset_peak(torch, dev)
+    return out
+
+
+def shard_rank_main(argv) -> int:
+    """A rank of phase 14c (``python3 chip_smoke.py --shard-rank rank world
+    job_dir``): joins the gloo world on the card, then (b) the 2x2 mesh and
+    (c) the fleet of two 1x2 groups, rank 0 driving and the others
+    following; writes ``rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    rank, world, job_dir = int(argv[0]), int(argv[1]), Path(argv[2])
+    sys.path.insert(0, str(ROOT))
+    from perceiver_io_tpu_torch import _build
+    from perceiver_io_tpu_torch.inference import generate as gen_mod
+    from perceiver_io_tpu_torch.models.text import clm
+    from perceiver_io_tpu_torch.ops import flash_attention as flash
+    from perceiver_io_tpu_torch.ops import ragged_attention as ragged
+    from perceiver_io_tpu_torch.parallel import collectives, multihost
+    from perceiver_io_tpu_torch.serving import buckets
+    from perceiver_io_tpu_torch.serving import sharding as sharding_mod
+    from perceiver_io_tpu_torch.serving import slots as slots_mod
+
+    job = json.loads((job_dir / "job.json").read_text())
+    dev = torch.device(job["device"])
+    missing = [n for n in _build.sources() if not _build._target(n).exists()]
+    if missing:  # a rank loads what phase 2 built
+        raise RuntimeError(f"shard rank {rank}: kernels not built: {missing}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.init()
+    cfg = clm.CausalLanguageModelConfig(**job["config"])
+    prompts = [np.asarray(p, np.int32) for p in job["prompts"]]
+    records = shard_instrument(torch, slots_mod, collectives)
+    # both models (seeded alike in every rank) come up while earlier phases run
+    model = clm.CausalLanguageModel(cfg, seed=0, device=dev).eval()
+    shallow = clm.CausalLanguageModel(dataclasses.replace(cfg, num_self_attention_layers=SHALLOW_SERVE_LAYERS),
+                                      seed=0, device=dev).eval()
+    while not (job_dir / "go").exists():  # the parent's signal that the card is free
+        time.sleep(0.05)
+    # (a)'s single-rank tokens, written by the parent before its signal
+    refs = json.loads((job_dir / "ref.json").read_text())
+    multihost.initialize(f"file://{job_dir / 'store'}", world, rank, backend="gloo", device=dev)
+    out = {"b": {}, "c": None}
+    sh = sharding_mod.ServingMeshSpec(**SHARD_MESH).resolve(device=dev)
+    for layout in SHARD_LAYOUTS:
+        if rank != 0:
+            shard_reset(flash, ragged, records, torch, dev)
+            plans = sharding_mod.follow(sh, model)
+            out["b"][layout] = dict(shard_counts(flash, ragged, records, torch, dev), plans=plans)
+            continue
+        try:
+            out["b"][layout] = shard_drive_b(torch, flash, ragged, gen_mod, slots_mod, buckets, collectives,
+                                             model, prompts, refs[layout], layout, sh, dev, records)
+        finally:
+            sh.stop()
+    del model
+    alloc = sharding_mod.MeshGroupAllocator(sharding_mod.ServingMeshSpec(**SHARD_FLEET), device=dev)
+    if rank != 0:
+        shard_reset(flash, ragged, records, torch, dev)
+        plans = alloc.follow(shallow)
+        out["c"] = dict(shard_counts(flash, ragged, records, torch, dev), plans=plans)
+    else:
+        try:
+            out["c"] = shard_drive_c(torch, flash, ragged, gen_mod, slots_mod, buckets, shallow,
+                                     prompts[:SHARD_FLEET_REQUESTS], alloc, dev, records)
+        finally:
+            alloc.stop()
+    (job_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    multihost.shutdown()
+    return 0
+
+
+def shard_drive_b(torch, flash, ragged, gen_mod, slots_mod, buckets, collectives, model, prompts, ref, layout,
+                  sh, dev, records) -> dict:
+    """(b) on the driver: the traffic on the 2x2 mesh: tokens against the
+    single-rank engine's (``ref``, (a)'s; the near-tie excuse on this rank's
+    whole model), every data replica's pool, then a cancel and an
+    evacuation (paged)."""
+    import numpy as np
+
+    failures = []
+    shard_reset(flash, ragged, records, torch, dev)
+    collectives.reset_counts()
+    t_build = time.perf_counter()
+    engine = shard_engine(slots_mod, buckets, gen_mod, model, layout, dev, sh)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rows = [np.asarray(r).tolist() for r in engine.serve(prompts)]
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    cfg = gen_mod.GenerationConfig(num_latents=SHARD_LATENTS, max_new_tokens=SHARD_NEW)
+    divergences = _divergences(torch, gen_mod, model, rows, ref, prompts, [cfg] * len(prompts), failures)
+    out = dict(shard_counts(flash, ragged, records, torch, dev), tokens=rows,
+               divergences=divergences, failures=failures, wall_s=wall,
+               tokens_per_s=stats["tokens_generated"] / wall, decode_step_ms=stats["decode_step_ms"],
+               engine_build_s=t0 - t_build,
+               boundary_steps=stats["boundary_steps"], mesh=stats["mesh"], plans=sh.plans,
+               collectives_total=collectives.read_counts(),
+               gauges={g: engine.registry.gauge(g) for g in ("serving_mesh_devices", "kv_cache_resident_bytes",
+                                                             "kv_cache_resident_bytes_per_shard")})
+    if engine._pool is not None:
+        digests = engine.shard_digests()
+        by_model = {}
+        for _, m, d in digests:
+            by_model.setdefault(m, set()).add(d)
+        out["replicas_equal"] = all(len(v) == 1 for v in by_model.values())
+        out["digests"] = digests
+        n, steps = SHARD_DRILL
+        reqs = [engine.submit(p) for p in prompts[:n]]
+        for _ in range(steps):
+            engine.step()
+        resident = [e.req.request_id for e in engine._active()]
+        cancelled = bool(resident) and engine.cancel(resident[0])
+        evacuated = engine.evacuate(cause="scale_down")
+        pool = engine._pool
+        out["drill"] = dict(resident=len(resident), cancelled=cancelled, evacuated=evacuated,
+                            statuses=sorted({r.status for r in reqs}), in_use=pool.in_use,
+                            reserved=pool.reserved, leaked=pool.leaked())
+    del engine
+    return out
+
+
+def shard_drive_c(torch, flash, ragged, gen_mod, slots_mod, buckets, model, prompts, alloc, dev, records) -> dict:
+    """(c) on the driver: two 1x2 paged replicas through one allocator,
+    replica 0 crashing on its ``SHARD_CRASH_STEP``-th step; tokens against
+    this rank's single-rank engine on the same (shallow) model."""
+    import numpy as np
+
+    from perceiver_io_tpu_torch.reliability import ChaosRegistry
+    from perceiver_io_tpu_torch.serving.fleet import FleetRouter
+
+    gcfg = gen_mod.GenerationConfig(num_latents=SHARD_LATENTS, max_new_tokens=SHARD_FLEET_NEW)
+    table = buckets.BucketTable(prompt_lens=SLOT_BUCKETS, batch_sizes=(1,))
+
+    def engine(mesh=None):
+        return slots_mod.SlotServingEngine(model, gcfg, table, slots=SHARD_SLOTS, kv_layout="paged", device=dev,
+                                           mesh=mesh)
+
+    def factory():
+        return engine(alloc.acquire())
+
+    with torch.no_grad():
+        ref = [np.asarray(r).tolist() for r in engine().serve(prompts)]
+    shard_reset(flash, ragged, records, torch, dev)
+    chaos = ChaosRegistry()
+    chaos.crash_replica(0, SHARD_CRASH_STEP)
+    fleet = FleetRouter([factory, factory], chaos=chaos)
+    before = [r.engine.sharding.ranks for r in fleet.replicas]
+    t0 = time.perf_counter()
+    reqs = [fleet.submit(p) for p in prompts]
+    with torch.no_grad():
+        fleet.run_until_idle()
+    wall = time.perf_counter() - t0
+    after = [r.engine.sharding.ranks for r in fleet.replicas]
+    failures = []
+    rows = [np.asarray(r.result).tolist() if r.result is not None else None for r in reqs]
+    done = [i for i, r in enumerate(rows) if r is not None]
+    divergences = _divergences(torch, gen_mod, model, [rows[i] for i in done], [ref[i] for i in done],
+                               [prompts[i] for i in done], [gcfg] * len(done), failures)
+    stats = fleet.stats()
+    return dict(shard_counts(flash, ragged, records, torch, dev), statuses=[r.status for r in reqs],
+                restarts=stats["replica_restarts"], before=before, after=after,
+                disjoint=set(after[0]).isdisjoint(after[1]), divergences=divergences, failures=failures,
+                wall_s=wall, leaked=[r.engine._pool.leaked() for r in fleet.replicas],
+                plans=[r.engine.sharding.plans for r in fleet.replicas])
+
+
+def start_shard_ranks(cfg, job_dir: Path) -> tuple:
+    """Spawn (b)/(c)'s ``SHARD_WORLD`` ranks; they start (imports, CUDA
+    context) and wait for :func:`finish_mesh_ranks`'s signal."""
+    shutil.rmtree(job_dir, ignore_errors=True)
+    job_dir.mkdir(parents=True)
+    (job_dir / "job.json").write_text(json.dumps({"device": MESH_DEVICE, "config": dataclasses.asdict(cfg),
+                                                  "prompts": shard_workload()}))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs = [open(job_dir / f"rank{r}.log", "w") for r in range(SHARD_WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank", str(r),
+                               str(SHARD_WORLD), str(job_dir)], cwd=str(ROOT), env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(SHARD_WORLD)]
+    return procs, logs, job_dir, "gloo"
+
+
+def shard_launches(shard: dict, kernel: str) -> dict:
+    """Phase 14c's launches of ``kernel`` (``k1``, ``k4``) by route: (a)'s
+    1x1 runs, and per rank (b)'s runs and (c)'s fleet."""
+    out = {f"world1_{layout}": a["launches"]["mesh"][kernel] for layout, a in shard["one"].items()}
+    for layout in SHARD_LAYOUTS:
+        out[f"mesh2x2_{layout}"] = [r["b"][layout][kernel] for r in shard["ranks"]]
+    out["fleet"] = [r["c"][kernel] for r in shard["ranks"]]
+    return out
+
+
+def shard_phase(torch, started: tuple, one: dict, smi: str) -> dict:
+    """Phase 14c (module docstring): (a) from the mesh phase's world of one,
+    (b) and (c) from the world of four started beside it."""
+    failures = []
+    for layout, a in one.items():
+        same = a["launches"]["plain"] == a["launches"]["mesh"]
+        if not (a["tokens_equal"] and not a["mismatched"] and same):
+            failures.append(f"(a) {layout}: tokens equal {a['tokens_equal']}, leaves differing "
+                            f"{a['mismatched'][:6]}, launches {a['launches']}")
+        k4 = a["launches"]["mesh"]["k4"]
+        if layout == "paged" and (k4["simt"] or not (k4["split"] and k4["tc"])):
+            failures.append(f"(a) paged: K4 launches {k4}")
+        emit("shard", case="world1", layout=layout, backend="nccl", device=MESH_DEVICE, mesh=a["mesh"],
+             tokens_equal=a["tokens_equal"], state_leaves=a["leaves"], leaves_differing=a["mismatched"],
+             null_blocks_differing=a["null_blocks_differing"],
+             unsharded_rerun=dict(null_blocks_differing=a["rerun_null_blocks_differing"],
+                                  leaves_differing=a["rerun_leaves_differing"]),
+             launches=a["launches"], nvidia_smi=smi)
+    (started[2] / "ref.json").write_text(json.dumps({layout: a["tokens"] for layout, a in one.items()}))
+    ranks = finish_mesh_ranks(started)
+    r0 = ranks[0]
+    for layout in SHARD_LAYOUTS:
+        b = r0["b"][layout]
+        failures += [f"(b) {layout}: {f}" for f in b["failures"]]
+        if layout == "paged":
+            d = b["drill"]
+            if not b["replicas_equal"]:
+                failures.append(f"(b) paged: data replicas differ {b['digests']}")
+            if not (d["cancelled"] and d["in_use"] == 0 and d["leaked"] == 0 and d["reserved"] == 0):
+                failures.append(f"(b) paged drill: {d}")
+        for rank, res in enumerate(ranks):
+            rb = res["b"][layout]
+            k1, k4 = rb["k1"], rb["k4"]
+            if not (k1["split"] and k1["tf32x3"]) or any(n for r, n in k1.items() if r not in ("split", "tf32x3")):
+                failures.append(f"(b) {layout} rank {rank}: K1 launches {k1}")
+            if layout == "paged" and (k4["simt"] or not (k4["split"] and k4["tc"])):
+                failures.append(f"(b) paged rank {rank}: K4 launches {k4}")
+            if layout == "dense" and any(k4.values()):
+                failures.append(f"(b) dense rank {rank}: K4 launches {k4}")
+            if not rb["decode_steps"]:
+                failures.append(f"(b) {layout} rank {rank}: no decode step ran")
+            if not b["boundary_steps"]:
+                failures.append(f"(b) {layout}: no boundary step ran")
+            emit("shard", case="mesh2x2", layout=layout, rank=rank, backend="gloo", device=MESH_DEVICE,
+                 mesh=SHARD_MESH, k1_route_launches=k1, k4_route_launches=k4, decode_steps=rb["decode_steps"],
+                 step_ms_p50=rb["step_ms_p50"], collectives_per_step=rb["collectives_per_step"],
+                 peak_bytes=rb["peak_bytes"], plans=rb["plans"], nvidia_smi=smi,
+                 **({} if rank else {k: b[k] for k in ("divergences", "tokens_per_s", "decode_step_ms",
+                                                        "boundary_steps", "wall_s", "gauges", "engine_build_s")}),
+                 **({"replicas_equal": b["replicas_equal"], "drill": b["drill"]}
+                    if rank == 0 and layout == "paged" else {}))
+    c = r0["c"]
+    failures += [f"(c): {f}" for f in c["failures"]]
+    if not (c["statuses"] == ["ok"] * SHARD_FLEET_REQUESTS and c["restarts"] == 1 and c["before"] == c["after"]
+            and c["disjoint"] and not any(c["leaked"])):
+        failures.append(f"(c): statuses {c['statuses']}, restarts {c['restarts']}, groups {c['before']} -> "
+                        f"{c['after']}, leaked {c['leaked']}")
+    for rank, res in enumerate(ranks):
+        rc = res["c"]
+        if not (rc["k1"]["split"] and rc["k4"]["split"]) or rc["k4"]["simt"]:
+            failures.append(f"(c) rank {rank}: K1 {rc['k1']}, K4 {rc['k4']}")
+        emit("shard", case="fleet", rank=rank, backend="gloo", device=MESH_DEVICE, mesh=SHARD_FLEET,
+             k1_route_launches=rc["k1"], k4_route_launches=rc["k4"], decode_steps=rc["decode_steps"],
+             step_ms_p50=rc["step_ms_p50"], collectives_per_step=rc["collectives_per_step"],
+             peak_bytes=rc["peak_bytes"], plans=rc["plans"], nvidia_smi=smi,
+             **({} if rank else {k: c[k] for k in ("statuses", "restarts", "before", "after", "disjoint",
+                                                    "divergences", "wall_s")}))
+    if failures:
+        raise AssertionError("shard phase: " + "; ".join(failures[:12]))
+    return {"ranks": ranks, "one": one}
 
 
 def giantmidi_config(sam):
@@ -6122,7 +6580,7 @@ def k4_route_entry(ragged, design: str, main: tuple, cases: list, launches: int,
         "case": f"{main[0]} {main[1]} d={K1_HEAD_DIM}", **{k: head[k] for k in keys},
         "library_ms": None, "prev_route": "simt",
         "d96": sam_figures(sam, keys + ("max_abs_err",)), "symbolic_launches": symbolic_launches,
-        "cases": [{"case": c["case"], "layout": c["layout"], "d": c["d"],
+        "cases": [{"case": c["case"], "layout": c["layout"], "d": c["d"], "h": c["h"],
                    **{k: c[k] for k in keys if not k.endswith("_by")}, "max_abs_err": c["max_abs_err"]}
                   for c in mine],
     }
@@ -6392,11 +6850,12 @@ def main() -> int:
                           slots_mod, buckets, clm, shallow, slot_launches, spec_root)
     sample = timed("sample", sample_phase, torch, clm, flash, ragged, gen_mod, samplers, beam_mod, pipelines_mod,
                    tokenizers_mod, engine_mod, slots_mod, buckets, shallow, slot_launches)
-    del shallow
-    obs = timed("obs", obs_phase, torch, flash, ragged, gen_mod, slots_mod, buckets, serve,
+    # obs and fleet run over the shallow model too (cuts of depth that
+    # pay for phase 14c)
+    obs = timed("obs", obs_phase, torch, flash, ragged, gen_mod, slots_mod, buckets, shallow,
                 ROOT / "build" / "chip_smoke_obs", smi)
-    fleet = timed("fleet", fleet_phase, torch, flash, ragged, gen_mod, slots_mod, buckets, serve, smi)
-    del serve, shared
+    fleet = timed("fleet", fleet_phase, torch, flash, ragged, gen_mod, slots_mod, buckets, shallow, smi)
+    del serve, shared, shallow
     emit("memory_before_training", **held_memory(torch))
     k23 = timed("k23", k23_cases, torch, flash)
     train_root = ROOT / "build" / "chip_smoke_train"
@@ -6406,7 +6865,16 @@ def main() -> int:
     resilience = timed("train_resilience", train_resilience_phase, torch, clm, flash, parallel, training, modules,
                        reliability, pipelines_mod, ROOT / "build" / "chip_smoke_resilience")
     emit("memory_before_mesh", **held_memory(torch))
-    mesh = timed("mesh", mesh_phase, torch, clm, flash, parallel, training, ROOT / "build" / "chip_smoke_mesh", smi)
+    # phase 14c's world of four starts now and waits for the card
+    shard_started = start_shard_ranks(clm_base_config(clm.CausalLanguageModelConfig),
+                                      ROOT / "build" / "chip_smoke_shard")
+    try:
+        mesh = timed("mesh", mesh_phase, torch, clm, flash, parallel, training, ROOT / "build" / "chip_smoke_mesh",
+                     smi)
+    except BaseException:
+        finish_mesh_ranks_abort(shard_started)
+        raise
+    shard = timed("shard", shard_phase, torch, shard_started, mesh["shard_a"], smi)
     emit("memory_before_symbolic", **held_memory(torch))
     symbolic = timed("symbolic", symbolic_phase, torch, sam, flash, ragged, gen_mod, engine_mod, slots_mod, buckets,
                      pipelines_mod, training, parallel, data_audio, ROOT / "build" / "chip_smoke_symbolic")
@@ -6492,6 +6960,7 @@ def main() -> int:
         "flow_launches": {run: sum(routes.values()) for run, routes in flow_k1.items()},
         "flow_route_launches": flow_k1,
         "mesh_route_launches": mesh_launches(mesh, "k1"),
+        "shard_route_launches": shard_launches(shard, "k1"),
         "routes": [{**k1_route_entry(flash, design, main, cases, route_launches[design], {
                        "bucket_serve": symbolic["bucket_serve"]["k1_routes"][design],
                        **{f"slot_serve_{layout}": v["k1_routes"][design]
@@ -6536,6 +7005,7 @@ def main() -> int:
         "symbolic_launches": {f"slot_serve_{layout}": v["k4"] for layout, v in symbolic["slot_serve"].items()},
         "cli_launches": {run: cli[run]["launches"]["k4"] for run in CLI_SERVE_RUNS},
         "cli_route_launches": {run: cli[run]["k4_routes"] for run in CLI_SERVE_RUNS},
+        "shard_route_launches": shard_launches(shard, "k4"),
         "routes": [{**k4_route_entry(ragged, design, main, k4, k4_paged["k4_routes"][design],
                                      prefix_launches["paged"]["k4_routes"][design],
                                      {run: launches["k4_routes"][design]
@@ -6555,4 +7025,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(mesh_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--mesh-rank"] else main())
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2:]))
+    sys.exit(shard_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--shard-rank"] else main())

@@ -5,7 +5,8 @@ a shared library under ``build/kernels/`` at the repository root (git
 ignores ``build/``). A library is named after a hash of its source, every
 shared header (``csrc/*.cuh``) and the compile and link flags, so an edited
 source or header rebuilds and an unchanged one loads at once.
-:func:`build_all` starts one ``nvcc`` per source, all together.
+:func:`build_all` starts one ``nvcc`` per source, all together; the
+longest (``SPLIT_COMPILE``) also optimises its parts in parallel threads.
 
 Every ``nvcc`` build is recorded in the build ledger
 (:func:`~perceiver_io_tpu_torch.observability.default_ledger`) at site
@@ -32,6 +33,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-Xptxas", "-v"]
 LINK_FLAGS = ["-shared", "-Xcompiler", "-fPIC"]
+#: sources ``nvcc`` compiles with its split compile (the translation unit
+#: cut into parts optimised in parallel threads, as many as there are
+#: cores): the longest build, whose kernels' machine code is the same
+#: either way (``time_build.py``)
+SPLIT_COMPILE = ("flash_attention_bwd_tf32",)
+SPLIT_FLAGS = ["-split-compile=0"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -51,11 +58,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+def _flags(name: str) -> List[str]:
+    """The compile and link flags of ``csrc/<name>.cu``."""
+    return [*NVCC_FLAGS, *(SPLIT_FLAGS if name in SPLIT_COMPILE else []), *LINK_FLAGS]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -66,7 +78,7 @@ def _start(name: str) -> Optional[subprocess.Popen]:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *LINK_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     _STARTED[name] = time.monotonic()
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
@@ -78,7 +90,7 @@ def _record(name: str, out: Path, wall_s: float) -> None:
     default_ledger().record_build(
         "kernel_build",
         {"source": f"csrc/{name}.cu", "hash": out.stem.rsplit("-", 1)[1],
-         "flags": " ".join(NVCC_FLAGS + LINK_FLAGS)},
+         "flags": " ".join(_flags(name))},
         wall_s * 1e3,
     )
 

@@ -32,7 +32,12 @@ per row, the port's in-place steps take ``write_ok`` and write only the rows
 each step owns. It admits long prompts in pieces: :func:`_prefill_chunk_kv`
 projects a chunk of prefix positions, and :func:`_prefill_finalize` (staged
 dense caches) or :func:`_prefill_finalize_paged` (the pool, where shared
-prefix pages already sit) completes the row.
+prefix pages already sit) completes the row. On a serving mesh
+(:mod:`perceiver_io_tpu_torch.serving.sharding`) each of these helpers runs
+on one rank's shard: its slot rows and, through the model's tensor-parallel
+``tp`` (``project_q`` / ``project_kv`` / ``project_out`` / ``attend`` /
+``mlp``), its share of the heads; every head count is read off the
+projections' outputs or the caches, and the LM head is replicated.
 
 The boundary phase's step is a measured choice
 (:mod:`~perceiver_io_tpu_torch.inference.decode_strategy`): ``"auto"`` reads

@@ -11,7 +11,7 @@ JAX's threefry; :func:`gumbel_noise` is the one place a draw happens.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -127,7 +127,8 @@ def default_generator(device: torch.device) -> torch.Generator:
 def sample_logits(logits: torch.Tensor, config: SamplingConfig,
                   context_ids: Optional[torch.Tensor] = None,
                   context_mask: Optional[torch.Tensor] = None, *,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """``(b, vocab)`` logits -> ``(b,)`` token ids. Greedy: ``argmax`` of
     the processed logits (the first index on ties, as ``jnp.argmax``).
     Sampling: ``argmax(filtered + g)`` with ``g`` one :func:`gumbel_noise`
@@ -135,10 +136,18 @@ def sample_logits(logits: torch.Tensor, config: SamplingConfig,
 
     :param context_ids: ``(b, n)`` token history for the repetition penalty.
     :param context_mask: ``(b, n)``, True = ignore this history position.
+    :param rows: ``(lo, hi, total)``: the logits are rows ``[lo, hi)`` of a
+        ``total``-row batch sharded over ranks; the draw is the whole
+        batch's, of which these rows are kept, so each rank samples what one
+        process would.
     """
     logits = filter_logits(logits, config, context_ids, context_mask)
     if config.do_sample:
         if generator is None:
             raise ValueError("do_sample=True needs a generator")
-        logits = logits + gumbel_noise(logits.shape, generator, logits.device)
+        if rows is None:
+            noise = gumbel_noise(logits.shape, generator, logits.device)
+        else:
+            noise = gumbel_noise((rows[2], logits.shape[-1]), generator, logits.device)[rows[0]:rows[1]]
+        logits = logits + noise
     return torch.argmax(logits, dim=-1)

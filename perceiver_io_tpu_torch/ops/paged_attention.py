@@ -24,8 +24,13 @@ Int8 pools (``kv_layout="paged_int8"``) carry per-(position, head) fp32
 scales ``(pool_tokens, heads, 1)`` addressed by the same flat indices; a
 never-written row has scale 0 and dequantizes to exactly 0.
 
-The mesh-only pieces of the JAX module (``gather_constraint``,
-``_constrain_gather``) are not ported: serving on a mesh is a later slice.
+On a serving mesh (:mod:`perceiver_io_tpu_torch.serving.sharding`) each
+rank runs these dispatchers on its own shard: its slot rows' queries at its
+share of the heads over its own pool allocated at that share, so K4 runs
+per shard on contiguous local tensors and the output projection's
+all-reduce (``project_out`` under ``tp``) joins the heads. That is what
+JAX's ``gather_constraint`` and the ``shard_map`` around its kernel express
+for one controller; there is no whole pool to constrain or slice here.
 """
 from __future__ import annotations
 

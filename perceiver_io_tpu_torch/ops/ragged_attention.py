@@ -43,6 +43,12 @@ tensor to the plain version or to another route.
 ``ragged_paged_attention.route_launches`` splits them by route and
 ``ragged_paged_attention.kernel_launches`` counts the device kernels (two per
 split-route call: partials and merge).
+
+Under a serving mesh (JAX's ``shard_map`` over the kernel) each rank calls
+this wrapper on its shard: ``(rows_local, h_local, q_len, d)`` queries over
+its own ``(pool_tokens, h_local, d)`` pools and scales, allocated at
+``h_local`` heads (never a head slice of a whole pool: the kernel takes
+contiguous tensors).
 """
 from __future__ import annotations
 

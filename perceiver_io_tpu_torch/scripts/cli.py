@@ -46,10 +46,14 @@ the HTTP/SSE streaming gateway (``--serve.http.*``: prompts arrive over
 under ``torchrun`` each process is one rank, ``--device=cuda`` puts it on
 ``cuda:LOCAL_RANK`` (NCCL) and ``--device=cpu`` on the CPU (gloo); a lone
 process without ``--mesh.*`` trains as before, and with it resolves the
-mesh over a world of one. Rank 0 alone writes the run directory. Flag
-groups whose modules are not ported yet are known to the parser, and using
-one raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
-``--serve.mesh.*`` (A.6b).
+mesh over a world of one. Rank 0 alone writes the run directory.
+
+``serve`` takes ``--serve.mesh.{data,model,device_offset}`` (the sharded
+slot engine, :mod:`perceiver_io_tpu_torch.serving.sharding`): under
+``torchrun`` every rank loads the checkpoint and builds one
+``MeshGroupAllocator``, which hands each engine spawn (replica, crash
+rebuild, scale-up) its disjoint rank group; rank 0 serves and prints, the
+other ranks follow their group's plans and print nothing.
 
 Model-family entry points are declarative :class:`ModelFamily` records; see
 ``perceiver_io_tpu_torch/scripts/text/clm.py`` for the pattern.
@@ -183,9 +187,6 @@ class LRSchedulerArgs:
 
 
 # -- the serve subcommand's nested flag groups -----------------------------
-# The serving mesh's modules are not ported yet: the parser knows its flags
-# (the JAX CLI's surface), and using one raises NotImplementedError naming
-# its ROADMAP.md item (_refuse_unported).
 @dataclasses.dataclass
 class HttpArgs:
     """``--serve.http.*``: the HTTP/SSE streaming gateway; ``port`` set
@@ -199,7 +200,8 @@ class HttpArgs:
 
 @dataclasses.dataclass
 class MeshServeArgs:
-    """``--serve.mesh.*``: the sharded serving runtime (A.6b)."""
+    """``--serve.mesh.*``: the sharded serving runtime (data x model ranks
+    a replica, at ``device_offset`` into the world)."""
 
     data: int = 1
     model: int = 1
@@ -232,14 +234,33 @@ class MeshConfig:
     seq: int = 1
 
 
-def _unported(flags: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{flags} is not ported yet (ROADMAP.md {item})")
+def _serve_mesh(values: Dict[str, Any], args) -> Optional[Any]:
+    """The ``--serve.mesh.*`` base spec, or None without the flags (any
+    flag opts in, an explicit 1x1 mesh too), with JAX's checks: the slot
+    engine only, and the initial fleet must fit the world (the ranks
+    ``torchrun`` starts)."""
+    if not any(k.startswith("serve.mesh.") for k in values):
+        return None
+    if args.engine != "slots":
+        raise SystemExit(
+            "--serve.mesh.* applies to --serve.engine=slots "
+            "(the sharded runtime runs the slot engine's device ops "
+            "over the mesh; the bucket engine is single-device)"
+        )
+    import torch.distributed as dist
 
+    from perceiver_io_tpu_torch.serving.sharding import ServingMeshSpec, fleet_mesh_specs
 
-def _refuse_unported(values: Dict[str, Any]) -> None:
-    """Raise for a flag of a group whose modules are not ported yet."""
-    if any(k.startswith("serve.mesh.") for k in values):
-        raise _unported("--serve.mesh.* (sharded serving over a device mesh)", "A.6b")
+    world = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", "1"))
+    try:
+        spec = ServingMeshSpec(data=args.mesh.data, model=args.mesh.model,
+                               device_offset=args.mesh.device_offset)
+        # the INITIAL fleet must fit the world outright (autoscaler spawns
+        # past it wrap around the allocator)
+        fleet_mesh_specs(spec, max(1, args.replicas), ranks=list(range(world)))
+    except ValueError as e:
+        raise SystemExit(f"--serve.mesh.*: {e}")
+    return spec
 
 
 def _training_mesh(values: Dict[str, Any], device):
@@ -705,7 +726,6 @@ class CLI:
         from perceiver_io_tpu_torch.training.optim import make_optimizer
         from perceiver_io_tpu_torch.training.trainer import Trainer, TrainerConfig
 
-        _refuse_unported(values)
         if any(k.startswith("obs.slo.") for k in values):
             # SLO targets judge serving token latency; a fit has none
             raise SystemExit(
@@ -843,12 +863,21 @@ class CLI:
         from perceiver_io_tpu_torch.serving.slots import PREEMPTION_MODES, SlotServingEngine
         from perceiver_io_tpu_torch.training.checkpoint import load_pretrained
 
-        _refuse_unported(values)
         ckpt = values.get("ckpt") or values.get("params")
         if not ckpt:
             raise SystemExit("serve requires --ckpt <save_pretrained dir>")
         args = build_dataclass(ServeArgs, values, "serve")
+        mesh_spec = _serve_mesh(values, args)
         device = resolve_device(values.get("device", "cuda"))
+        if mesh_spec is not None:
+            from perceiver_io_tpu_torch.parallel import multihost
+            from perceiver_io_tpu_torch.serving.sharding import DRIVER_RANK
+
+            multihost.initialize(device=values.get("device", "cuda"))
+            device = multihost.rank_device(values.get("device", "cuda"))
+            if multihost.process_index() != DRIVER_RANK:
+                # a follower: its shard of each engine, no scheduler, no output
+                return self._serve_follow(ckpt, mesh_spec, device)
         obs = build_dataclass(ObservabilityArgs, values, "obs")
         kit = _obs_kit(obs, os.getcwd(), passed=set(values))
         tracer = kit["tracer"] or Tracer()
@@ -870,6 +899,7 @@ class CLI:
                 bucket_shape=rec["components"].get("bucket_shape"),
             )
         ) if kit["sink"] is not None else (lambda: None)
+        mesh_alloc = None
         try:
             state, model_cfg = load_pretrained(ckpt)
             if model_cfg is None:
@@ -886,6 +916,13 @@ class CLI:
             model.load_state_dict(state, strict=True)
             model.eval()
             del state
+            if mesh_spec is not None:
+                from perceiver_io_tpu_torch.serving.sharding import MeshGroupAllocator
+
+                # one allocator hands each spawn the first FREE disjoint
+                # rank group: initial replicas, crash rebuilds (the crashed
+                # group frees for its rebuild), scale-ups
+                mesh_alloc = MeshGroupAllocator(mesh_spec, device=device)
 
             table = BucketTable.for_model(model)
             if args.prompt_buckets or tuple(args.batch_buckets) != (1, 2, 4, 8):
@@ -1036,6 +1073,7 @@ class CLI:
                         admit_headroom_blocks=args.admit_headroom_blocks,
                         speculation=spec_mode,
                         swap_link_gbps=link_gbps,
+                        mesh=None if mesh_alloc is None else mesh_alloc.acquire(),
                         # each engine (a fleet rebuild or spawn too) gets a
                         # generator seeded alike, as JAX's PRNGKey(seed)
                         generator=torch.Generator(device=device).manual_seed(args.seed),
@@ -1197,6 +1235,8 @@ class CLI:
 
             return self._serve_prompts(engine, tok, prompts, args, kit)
         finally:
+            if mesh_alloc is not None:
+                mesh_alloc.stop()  # the followers' loops end
             # swap transfers calibrate the per-platform link rate during
             # serving: persist the measured value for the next process
             if args.decode_strategy_file \
@@ -1214,6 +1254,21 @@ class CLI:
                       file=sys.stderr, flush=True)
             if kit["sink"] is not None:
                 kit["sink"].close()
+
+    def _serve_follow(self, ckpt: str, spec, device) -> list:
+        """``serve --serve.mesh.*`` on a rank other than the driver: load the
+        checkpoint, build the allocator with the driver and run this rank's
+        group until the driver stops it. Prints nothing; returns []."""
+        from perceiver_io_tpu_torch.models import model_for_config
+        from perceiver_io_tpu_torch.serving.sharding import MeshGroupAllocator
+        from perceiver_io_tpu_torch.training.checkpoint import load_pretrained
+
+        state, model_cfg = load_pretrained(ckpt)
+        model = model_for_config(model_cfg, device=device)
+        model.load_state_dict(state, strict=True)
+        model.eval()
+        MeshGroupAllocator(spec, device=device).follow(model)
+        return []
 
     def _serve_http(self, engine, tok, args, kit) -> list:
         """``serve --serve.http.port=N``: run the streaming gateway over the
@@ -1436,7 +1491,9 @@ class CLI:
         print("mesh (fit/validate/test): --mesh.data --mesh.fsdp --mesh.model --mesh.seq — "
               "one process per rank under torchrun (--device=cuda: cuda:LOCAL_RANK over NCCL; "
               "--device=cpu: gloo); --trainer.shard_seq shards the batches' sequence over seq")
-        print("not ported yet (NotImplementedError): --serve.mesh.* (ROADMAP.md A.6b)")
+        print("serve mesh: --serve.mesh.data --serve.mesh.model --serve.mesh.device_offset — "
+              "the sharded slot engine under torchrun (one rank per device; rank 0 serves, "
+              "the others follow), one disjoint rank group a replica")
         print(f"data modules: {sorted(self.family.data_registry)}")
 
 

@@ -11,10 +11,10 @@
   fleet, with zero-downtime scale-down.
 - :class:`StreamingGateway`: the stdlib asyncio HTTP/1.1 front end with
   per-token SSE / JSON-lines streaming and disconnect cancellation.
-
-The serving mesh (JAX's ``ServingMeshSpec``, ``ServingSharding``,
-``MeshGroupAllocator``, ``fleet_mesh_specs``) is not ported yet
-(``ROADMAP.md`` A.6).
+- :class:`ServingMeshSpec`: the sharded serving runtime: the slot engine
+  over a ``data`` x ``model`` mesh of ranks (``mesh=``), driven by one
+  scheduler rank (:mod:`.sharding`); :class:`MeshGroupAllocator` and
+  :func:`fleet_mesh_specs` hand fleet replicas disjoint rank groups.
 """
 from perceiver_io_tpu_torch.reliability import QueueFull
 from perceiver_io_tpu_torch.serving.autoscaler import LADDER, FleetAutoscaler
@@ -28,6 +28,12 @@ from perceiver_io_tpu_torch.serving.fleet import (
 )
 from perceiver_io_tpu_torch.serving.gateway import StreamingGateway
 from perceiver_io_tpu_torch.serving.kv_pool import KVPagePool, PoolExhausted, PrefixBlockIndex
+from perceiver_io_tpu_torch.serving.sharding import (
+    MeshGroupAllocator,
+    ServingMeshSpec,
+    ServingSharding,
+    fleet_mesh_specs,
+)
 from perceiver_io_tpu_torch.serving.slots import SlotServingEngine
 
 __all__ = [
@@ -39,12 +45,16 @@ __all__ = [
     "LADDER",
     "HEALTH_KEYS",
     "KVPagePool",
+    "MeshGroupAllocator",
     "PrefixBlockIndex",
     "PoolExhausted",
     "QueueFull",
     "Replica",
     "ServeRequest",
     "ServingEngine",
+    "ServingMeshSpec",
+    "ServingSharding",
     "SlotServingEngine",
     "StreamingGateway",
+    "fleet_mesh_specs",
 ]

@@ -52,9 +52,9 @@ replica, one terminal ``fleet.request`` span per submission, and the
 flight recorder's ``replica_failure`` and ``breaker_open`` triggers.
 
 The router, every breaker and every replica engine share one clock (the
-factories close over it). Where JAX's ``Replica.restart`` releases a
-sharded replica's mesh group first, the port has no serving mesh
-(``ROADMAP.md`` A.6).
+factories close over it). A sharded replica (a slot engine on a
+:class:`~.sharding.MeshGroupAllocator` group) releases its group before
+its rebuild, as JAX's ``Replica.restart`` does.
 """
 from __future__ import annotations
 
@@ -266,9 +266,17 @@ class Replica:
         """Rebuild the engine from the factory — the crashed-process model:
         queued and resident engine work is lost (the router already failed
         it over), and the old engine, its KV pool and device state go with
-        it (nothing else holds the engine). The crashed engine stays
+        it (nothing else holds the engine). A sharded replica's mesh-group
+        claim is released BEFORE the factory runs, so the rebuild reclaims
+        the CRASHED group instead of aliasing a live replica's ranks
+        (``serving/sharding.py`` ``MeshGroupAllocator``; the rebuilt engine's
+        ``init`` plan rebuilds the group's shards). The crashed engine stays
         installed until the factory returns, so a spawn failure leaves the
         replica degraded-but-present, never holding ``engine=None``."""
+        sharding = getattr(self.engine, "sharding", None)
+        release = getattr(sharding, "release", None)
+        if release is not None:
+            release()
         self.engine = self.factory()
         self._install_latency_mirror()
         self.handles.clear()

@@ -4,7 +4,8 @@ paged KV layouts (``kv_layout="paged"`` and ``"paged_int8"``).
 A copy of ``perceiver_io_tpu/serving/kv_pool.py`` (``SwapBundle``,
 ``PoolExhausted``, ``KVPagePool``, ``PrefixBlockIndex``), which is pure host
 code; the port keeps its own copy so that it imports nothing of the JAX
-package.
+package. Its ``SwapBundle`` holds no payload: the slot engine keeps that
+with its device state.
 
 ONE fixed device pool of KV blocks (``block_size`` token positions each) is
 shared by every slot, with a per-slot **block table** mapping token-index
@@ -50,19 +51,21 @@ class SwapBundle:
     """Self-contained host-side image of one swapped-out victim
     (docs/serving.md "Host-swap preemption").
 
-    ``payload`` holds host numpy copies of the victim's pool pages
-    (``pool_k``/``pool_v`` gathered through its padded block-table row,
-    plus int8 per-block scales under ``kv_layout="paged_int8"``) and a
-    ``row`` dict of its per-slot state leaves. ``shared`` lists the
-    leading prefix-shared block ids that were deref'd rather than copied —
-    the bundle holds ONE retain on each (:meth:`KVPagePool.extract`), so
-    their device content survives until restore re-references them or the
-    bundle is dropped. Restore re-maps into whatever free blocks exist at
-    readmission; nothing in the bundle names the original private ids.
+    The payload (host copies of the victim's pool pages, ``pool_k`` /
+    ``pool_v`` gathered through its padded block-table row, plus int8
+    per-block scales under ``kv_layout="paged_int8"``, and a ``row`` dict
+    of its per-slot state leaves) is not in the bundle: it stays with the
+    device state (``serving/slots.py`` ``_SlotDevice.payloads``, under the
+    request id), each rank of a serving mesh keeping its shard's.
+    ``shared`` lists the leading prefix-shared block ids that were deref'd
+    rather than copied — the bundle holds ONE retain on each
+    (:meth:`KVPagePool.extract`), so their device content survives until
+    restore re-references them or the bundle is dropped. Restore re-maps
+    into whatever free blocks exist at readmission; nothing in the bundle
+    names the original private ids.
     """
 
     request_id: int
-    payload: dict
     shared: List[int]
     n_private: int
     #: resident token positions (prompt + generated) restore must re-map

@@ -128,20 +128,30 @@ fed each decode step's ms.
 For the fleet (:mod:`.fleet`, :mod:`.autoscaler`): ``evacuate`` retires
 every live request at once with its pages tagged by the cause, and
 ``resize_slots`` rebuilds an idle engine's state at another slot count.
-Not ported yet (it raises ``NotImplementedError``, see ``ROADMAP.md`` A.6):
-the serving mesh. No trace-env fingerprint guards the prefix index or keys
-the registry (the port has no trace-env flags).
+
+**Serving mesh** (``mesh=``, :mod:`.sharding`): the engine runs on rank 0
+of a ``data`` x ``model`` mesh of processes, one a device, and every device
+op goes through :class:`_SlotDevice`, whose ops each rank of the mesh runs
+on its shard (slots over ``data``, heads over ``model``; the driver sends
+each op's plan to the others). Slots must divide the data axis and heads the
+model axis. Greedy output equals the unsharded engine's (the row-parallel
+partial sums are the only float difference), and a 1x1 mesh runs the
+unsharded engine's arithmetic, state byte for byte. No trace-env
+fingerprint guards the prefix index or keys the registry (the port has no
+trace-env flags).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import deque
 from typing import Deque, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from perceiver_io_tpu_torch._device import DeviceLike
+from perceiver_io_tpu_torch._device import DeviceLike, resolve_device
 from perceiver_io_tpu_torch.inference import decode_strategy as decode_strategy_mod
 from perceiver_io_tpu_torch.inference import speculative as spec_mod
 from perceiver_io_tpu_torch.inference.generate import (
@@ -157,11 +167,13 @@ from perceiver_io_tpu_torch.inference.generate import (
     _slot_decode_step,
     _slot_decode_step_paged,
 )
-from perceiver_io_tpu_torch.inference.samplers import apply_min_new_tokens, sample_logits
+from perceiver_io_tpu_torch.inference.samplers import apply_min_new_tokens, default_generator, sample_logits
 from perceiver_io_tpu_torch.observability import default_ledger
 from perceiver_io_tpu_torch.observability.timeline import tenant_label, tier_label
 from perceiver_io_tpu_torch.ops import paged_attention as paged_ops
+from perceiver_io_tpu_torch.parallel import collectives
 from perceiver_io_tpu_torch.serving.engine import ServeRequest, ServingEngine, _round_ms
+from perceiver_io_tpu_torch.serving.sharding import RESULT_OPS, as_serving_sharding
 from perceiver_io_tpu_torch.serving.kv_pool import (
     KVPagePool,
     PoolExhausted,
@@ -223,10 +235,6 @@ _ROW_HOST_DTYPES = {"window": torch.int32, "pad": torch.int32, "length": torch.i
                     "m": torch.int32, "steps": torch.int32}
 
 
-def _deferred(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A.6b)")
-
-
 @dataclasses.dataclass
 class _Slot:
     """Host record of one resident request: emitted tokens and the mirrored
@@ -253,23 +261,19 @@ class _PrefixPlan:
 
 @dataclasses.dataclass
 class _ChunkedAdmit:
-    """One in-flight chunked admission: its reserved slot, the row's window
-    and pad (on the device), the chunk schedule, and the batch-1 staging
-    caches the chunk calls fill (None for a shared admission, which stages
-    straight into its private pool pages within ``[lo, hi)``)."""
+    """One in-flight chunked admission: its reserved slot and the chunk
+    schedule. Its window, pad and batch-1 staging caches (none for a shared
+    admission, which stages straight into its private pool pages within
+    ``[lo, hi)``) live on the device (:class:`_SlotDevice`)."""
 
     req: ServeRequest
     slot: int
     bucket_len: int
     m0: int
-    window: torch.Tensor  # (1, n) right-aligned ids
-    pad: torch.Tensor  # (1,) left-pad count
     by_index: np.ndarray  # (n,) ids by token index (prompt, then pad ids)
     offsets: List[int]  # chunk starts; one finalize call follows the last
     chunk: int
     next_chunk: int = 0
-    stage_k: Optional[torch.Tensor] = None
-    stage_v: Optional[torch.Tensor] = None
     prefill_ms: float = 0.0  # summed over the admission's calls
     plan: Optional[_PrefixPlan] = None
     lo: int = 0
@@ -281,11 +285,12 @@ def _blank_state(model, slots: int, pad_token_id: int, device: torch.device,
     """Zeroed persistent decode state of ``slots`` rows. ``pool_tokens``
     selects the paged layout (one flat ``(pool_tokens, h, d)`` pool instead of
     per-slot ``(h, N, d)`` cross caches); ``quantized`` stores it int8 with
-    fp32 scales, whose zeros dequantize to exactly 0."""
+    fp32 scales, whose zeros dequantize to exactly 0. A tensor-parallel
+    model's state holds its share of the heads."""
     n, num_latents = model.max_seq_len, model.max_latents
     mha = model.perceiver_ar.cross_attention.cross_attn.attention
-    h = mha.num_heads
-    d = mha.num_qk_channels // h
+    d = mha.num_qk_channels // mha.num_heads
+    h = mha.num_heads if mha.tp is None else mha.tp.local(mha.num_heads)
     layers = len(model.perceiver_ar.self_attention.layers)
 
     def zeros(*shape, dtype=model.dtype):
@@ -317,16 +322,20 @@ def _blank_state(model, slots: int, pad_token_id: int, device: torch.device,
     return state
 
 
-def _insert_row(state: dict, slot: int, *, window, pad, logits, cache, length, m: int,
+def _insert_row(state: dict, slot: Optional[int], *, window, pad, logits, cache, length, m: int,
                 table_row=None, block_size: Optional[int] = None) -> None:
     """Write one prefilled row (batch-1 caches and row state) into slot
     ``slot`` of the state, **in place**. Under the paged layouts the row's
     dense cross k/v scatter into the pool through the slot's block table:
     mapped positions land on its blocks, the rest on the null block. A cache
-    without cross k/v (a shared admission's) leaves the pool alone."""
+    without cross k/v (a shared admission's) leaves the pool alone. ``slot``
+    None writes the pool alone (a data rank whose rows do not hold the slot
+    keeps its pool replica in step)."""
     if "cross_k" not in cache:
         pass  # the row's cross k/v already sit in its pool pages
     elif table_row is None:
+        if slot is None:
+            return
         state["cross_k"][slot] = cache["cross_k"][0]
         state["cross_v"][slot] = cache["cross_v"][0]
     else:
@@ -336,6 +345,8 @@ def _insert_row(state: dict, slot: int, *, window, pad, logits, cache, length, m
                              cache["cross_k"][0].transpose(0, 1))
         paged_ops.scatter_kv(state["pool_v"], state.get("scale_v"), flat,
                              cache["cross_v"][0].transpose(0, 1))
+    if slot is None:
+        return
     for dst, src in zip(state["stack_k"] + state["stack_v"], cache["stack_k"] + cache["stack_v"]):
         dst[slot] = src[0]
     state["window"][slot] = window[0]
@@ -346,13 +357,14 @@ def _insert_row(state: dict, slot: int, *, window, pad, logits, cache, length, m
     state["logits"][slot] = logits[0]
 
 
-def _stage_chunk(model, admit: _ChunkedAdmit, tokens: torch.Tensor, offset: int) -> None:
+def _stage_chunk(model, stage_k: torch.Tensor, stage_v: torch.Tensor, tokens: torch.Tensor,
+                 offset: int) -> None:
     """An unshared chunk call: project ``C`` prefix positions into the
     admission's batch-1 staging caches, **in place**."""
     k, v = _prefill_chunk_kv(model, tokens, offset)
     c = tokens.shape[1]
-    admit.stage_k[:, :, offset:offset + c] = k.to(admit.stage_k.dtype)
-    admit.stage_v[:, :, offset:offset + c] = v.to(admit.stage_v.dtype)
+    stage_k[:, :, offset:offset + c] = k.to(stage_k.dtype)
+    stage_v[:, :, offset:offset + c] = v.to(stage_v.dtype)
 
 
 def _stage_shared_chunk(model, state: dict, table_row: torch.Tensor, tokens: torch.Tensor,
@@ -391,12 +403,13 @@ def _page_positions(table_row: torch.Tensor, block_size: int) -> torch.Tensor:
                                            table_row.shape[-1] * block_size).long()
 
 
-def _swap_extract(state: dict, table_row: torch.Tensor, slot: int, block_size: int) -> dict:
+def _swap_extract(state: dict, table_row: torch.Tensor, slot: Optional[int], block_size: int) -> dict:
     """The device half of swap-out: copy one slot's pool pages, through its
     **full padded** table row (int8 pages with their scales), and its row
     state and stack caches into host tensors. The copies are synchronous,
     so the gather has finished when this returns: the caller may release
-    the pages, and the next admission may overwrite them."""
+    the pages, and the next admission may overwrite them. ``slot`` None
+    copies the pages alone (a data rank that does not hold the row)."""
     flat = _page_positions(table_row, block_size)
 
     def host(x, dtype=None):
@@ -404,6 +417,9 @@ def _swap_extract(state: dict, table_row: torch.Tensor, slot: int, block_size: i
 
     out = {key: host(state[key][flat]) for key in ("pool_k", "pool_v", "scale_k", "scale_v")
            if key in state}
+    out["row"] = None
+    if slot is None:
+        return out
     row = {key: host(state[key][slot], _ROW_HOST_DTYPES.get(key)) for key in _ROW_KEYS}
     row["stack_k"] = [host(layer[slot]) for layer in state["stack_k"]]
     row["stack_v"] = [host(layer[slot]) for layer in state["stack_v"]]
@@ -411,15 +427,17 @@ def _swap_extract(state: dict, table_row: torch.Tensor, slot: int, block_size: i
     return out
 
 
-def _payload_bytes(payload: dict) -> int:
-    """Bytes of a swap payload's host tensors (the transfer one way)."""
-    leaves = [v for k, v in payload.items() if k != "row"]
-    for key, value in payload["row"].items():
-        leaves.extend(value if isinstance(value, list) else [value])
+def _payload_bytes(payload: dict, pages: bool = True, row: bool = True) -> int:
+    """Bytes of a swap payload's host tensors (the transfer one way): its
+    stack caches, and its pages and its other row state when asked for."""
+    leaves = [v for k, v in payload.items() if k != "row"] if pages else []
+    for key, value in (payload["row"] or {}).items():
+        if row or key.startswith("stack_"):
+            leaves.extend(value if isinstance(value, list) else [value])
     return int(sum(t.numel() * t.element_size() for t in leaves))
 
 
-def _swap_restore(state: dict, payload: dict, table_row: torch.Tensor, slot: int,
+def _swap_restore(state: dict, payload: dict, table_row: torch.Tensor, slot: Optional[int],
                   lo_blocks: int, block_size: int) -> None:
     """The device half of swap-in, **in place**: scatter the payload's pages
     through the slot's new table row and write its row state back. Pages
@@ -432,12 +450,407 @@ def _swap_restore(state: dict, payload: dict, table_row: torch.Tensor, slot: int
     for key in ("pool_k", "pool_v", "scale_k", "scale_v"):
         if key in state:
             state[key][idx] = payload[key].to(device=state[key].device, dtype=state[key].dtype)
+    if slot is None:
+        return
     row = payload["row"]
     for key in _ROW_KEYS:
         state[key][slot] = row[key].to(device=state[key].device, dtype=state[key].dtype)
     for name in ("stack_k", "stack_v"):
         for dst, src in zip(state[name], row[name]):
             dst[slot] = src.to(device=dst.device, dtype=dst.dtype)
+
+
+class _SlotDevice:
+    """One rank's share of the slot engine's device state and every op that
+    touches it: the engine runs its own, and under a serving mesh each
+    follower rank builds one from the driver's ``init`` plan and runs the
+    same ops (:func:`~.sharding.follow`). An op's arguments are host values
+    (slots are global indices); its result, where it has one, is the
+    driver's.
+
+    Without a mesh the shard is the whole state. On a mesh it holds its data
+    rank's slot rows ``[row0, row0 + slots_local)`` and its model rank's
+    heads; a batch-1 admission runs on every data rank (each writes its pool
+    replica; the rank holding the slot writes the row), and the decode step
+    all-gathers its tokens and the pool rows its data ranks wrote over the
+    ``data`` group (:meth:`_sync_pool`)."""
+
+    def __init__(self, model, config: GenerationConfig, block_size: int, device: torch.device,
+                 sharding=None):
+        self.model = model
+        self.config = config
+        self.block_size = block_size
+        self.device = device
+        self.sharding = sharding
+        self.data_group = None if sharding is None else sharding.data_group
+        self.generator = default_generator(device)
+        self.state: Optional[dict] = None
+        self.table: Optional[torch.Tensor] = None  # this rank's rows, on the device
+        self.host_table: Optional[np.ndarray] = None  # every row, on the host
+        #: the in-flight admission's window, pad and staging caches
+        self.admit: Optional[dict] = None
+        #: request id -> this rank's share of a swapped victim, and the slot
+        #: it left
+        self.payloads: Dict[int, dict] = {}
+        self._swapped_from: Dict[int, int] = {}
+        self.slots = self.row0 = self.slots_local = 0
+
+    @classmethod
+    def from_plan(cls, model, sharding, args: dict) -> "_SlotDevice":
+        """A follower's shard from the driver's ``init`` plan."""
+        return cls(sharding.put_params(model), args["config"], args["block_size"], sharding.device,
+                   sharding)
+
+    # -- geometry -------------------------------------------------------------
+    def _local(self, slot: int) -> Optional[int]:
+        """The local row of global ``slot``, or None when another data rank
+        holds it."""
+        row = slot - self.row0
+        return row if 0 <= row < self.slots_local else None
+
+    def _table_row(self, slot: int) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(self.host_table[slot])).to(self.device)
+
+    def _sync(self) -> None:
+        self.state["length"][0].item()  # host sync: the op has run
+
+    def rebuild(self, slots: int, pool_tokens: Optional[int], quantized: bool) -> None:
+        """Drop the state (and the card's cache) before allocating a blank
+        one of ``slots`` rows (this rank's share)."""
+        self.state = self.table = self.admit = None
+        self.payloads.clear()
+        self._swapped_from.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.slots = slots
+        if self.sharding is None:
+            self.row0, self.slots_local = 0, slots
+        else:
+            self.row0, self.slots_local = self.sharding.local_rows(slots)
+        self._geometry = (pool_tokens, quantized)
+        self.reset()
+
+    def reset(self) -> None:
+        """A blank state of the current geometry (the old one dropped first)."""
+        self.state = None
+        pool_tokens, quantized = self._geometry
+        self.state = _blank_state(self.model, self.slots_local, self.config.pad_token_id, self.device,
+                                  pool_tokens=pool_tokens, quantized=quantized)
+
+    def set_table(self, table: np.ndarray) -> None:
+        """The allocator's block table (after it changed): every row on the
+        host, this rank's rows on the device."""
+        self.host_table = table
+        local = table if self.sharding is None else self.sharding.put_leaf("table", table)
+        self.table = torch.from_numpy(np.ascontiguousarray(local)).to(self.device)
+
+    def _row_window(self, prompt: np.ndarray):
+        """The prompt's right-aligned ``(1, n)`` window and ``(1,)`` pad
+        count, on the device."""
+        n = self.model.max_seq_len
+        window = torch.full((1, n), self.config.pad_token_id, dtype=torch.long)
+        window[0, n - prompt.size:] = torch.from_numpy(prompt.astype(np.int64))
+        pad = torch.full((1,), n - prompt.size, dtype=torch.long)
+        return window.to(self.device), pad.to(self.device)
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``t``, in slot order."""
+        return t if self.data_group is None else collectives.all_gather(t, self.data_group)
+
+    # -- admissions -----------------------------------------------------------
+    def copy_page(self, src: int, dst: int) -> None:
+        _copy_page(self.state, src, dst, self.block_size)
+
+    def prefill(self, slot: int, prompt: np.ndarray, m0: int) -> None:
+        """One-call admission: the batch-1 prefill, inserted into ``slot``."""
+        window, pad = self._row_window(prompt)
+        table_row = None if self.host_table is None else self._table_row(slot)
+        with torch.no_grad():
+            logits, cache, length, _ = _decode_prefill(self.model, window, pad, m0)
+            _insert_row(self.state, self._local(slot), window=window, pad=pad, logits=logits,
+                        cache=cache, length=length, m=m0, table_row=table_row,
+                        block_size=self.block_size)
+        self._sync()
+
+    def admit_begin(self, prompt: np.ndarray, staged: bool) -> None:
+        """A chunked admission's window, pad and (unshared) staging caches."""
+        window, pad = self._row_window(prompt)
+        self.admit = {"window": window, "pad": pad}
+        if staged:
+            ref = self.state["stack_k"][0]
+            n = self.model.max_seq_len
+            self.admit["stage_k"] = torch.zeros((1, ref.shape[1], n, ref.shape[3]), dtype=ref.dtype,
+                                                device=self.device)
+            self.admit["stage_v"] = torch.zeros_like(self.admit["stage_k"])
+
+    def admit_chunk(self, slot: int, offset: int, tokens: np.ndarray, lo: int, hi: int) -> None:
+        """One staging chunk: into the staging caches, or (a shared
+        admission, no staging) into the slot's private pool pages."""
+        ids = torch.from_numpy(tokens[None]).to(self.device)
+        with torch.no_grad():
+            if "stage_k" in self.admit:
+                _stage_chunk(self.model, self.admit["stage_k"], self.admit["stage_v"], ids, offset)
+            else:
+                _stage_shared_chunk(self.model, self.state, self._table_row(slot), ids, offset, lo, hi,
+                                    self.block_size)
+        self._sync()
+
+    def admit_finalize(self, slot: int, m0: int) -> None:
+        """The admission's last call: the finalize inserts the row."""
+        a, st, local = self.admit, self.state, self._local(slot)
+        with torch.no_grad():
+            if "stage_k" not in a:
+                logits, cache, length, _ = _prefill_finalize_paged(
+                    self.model, a["window"], a["pad"], m0, st["pool_k"], st["pool_v"],
+                    self._table_row(slot), self.block_size, scale_k=st.get("scale_k"),
+                    scale_v=st.get("scale_v"))
+                _insert_row(st, local, window=a["window"], pad=a["pad"], logits=logits, cache=cache,
+                            length=length, m=m0)
+            else:
+                logits, cache, length, _ = _prefill_finalize(
+                    self.model, a["window"], a["pad"], m0, a["stage_k"], a["stage_v"])
+                _insert_row(st, local, window=a["window"], pad=a["pad"], logits=logits, cache=cache,
+                            length=length, m=m0,
+                            table_row=None if self.host_table is None else self._table_row(slot),
+                            block_size=self.block_size)
+        self.admit = None
+        self._sync()
+
+    def admit_drop(self) -> None:
+        self.admit = None
+
+    # -- swap -----------------------------------------------------------------
+    def swap_extract(self, request_id: int, slot: int, table_row: np.ndarray) -> int:
+        """Copy the victim's pages and (where this rank holds it) its row to
+        host tensors, kept under its request id; returns the payload's bytes
+        over the whole mesh (each page and row counted once)."""
+        row_t = torch.from_numpy(np.ascontiguousarray(table_row)).to(self.device)
+        payload = _swap_extract(self.state, row_t, self._local(slot), self.block_size)
+        self.payloads[request_id] = payload
+        self._swapped_from[request_id] = slot
+        sh = self.sharding
+        if sh is None or sh.num_devices == 1:
+            return _payload_bytes(payload)
+        # pages and the stack split over model, row state replicated over it
+        mine = _payload_bytes(payload, pages=sh.data_index == 0, row=sh.model_index == 0)
+        return int(collectives.all_reduce(torch.tensor([mine], dtype=torch.long), sh.group)[0])
+
+    def swap_restore(self, request_id: int, slot: int, lo_blocks: int) -> None:
+        """Scatter the payload's pages through ``slot``'s table (every data
+        rank, into its replica) and its row into ``slot``. A victim restored
+        into another data rank's slot than the one it left takes its row
+        from the rank that saved it (one broadcast over ``data``)."""
+        payload = self.payloads.pop(request_id)
+        left = self._swapped_from.pop(request_id)
+        if self.data_group is not None and left // self.slots_local != slot // self.slots_local:
+            box = [payload["row"]]
+            dist.broadcast_object_list(
+                box, src=dist.get_global_rank(self.data_group, left // self.slots_local), group=self.data_group)
+            payload["row"] = box[0]
+        with torch.no_grad():
+            _swap_restore(self.state, payload, self._table_row(slot), self._local(slot), lo_blocks,
+                          self.block_size)
+        self._sync()  # the host-to-device leg ends here
+
+    def drop_payload(self, request_id: int) -> None:
+        self.payloads.pop(request_id, None)
+        self._swapped_from.pop(request_id, None)
+
+    # -- decode ---------------------------------------------------------------
+    def _draws(self, gen_state, generator):
+        """The sampled step's generator: the driver's own, or this rank's set
+        to the driver's state; and the global rows this rank keeps of the
+        ``(S, V)`` draw."""
+        gen = generator if generator is not None else self.generator
+        if gen_state is not None and generator is None:
+            gen.set_state(gen_state)
+        rows = None
+        if self.data_group is not None:
+            rows = (self.row0, self.row0 + self.slots_local, self.slots)
+        return gen, rows
+
+    def _sync_pool(self, table: torch.Tensor, length: torch.Tensor, pad: torch.Tensor,
+                   migrate: Optional[torch.Tensor]) -> None:
+        """Write the pool rows every data rank's rows wrote this step into
+        each replica: the append at ``min(length, N - 1)`` and, for the rows
+        ``migrate`` marks (cached boundary rows), the migration slot. One
+        all-gather of the flat indices and one of each pool array over the
+        ``data`` group; then the null block (scratch no read uses) is
+        cleared, so the replicas stay byte-equal."""
+        st, bs = self.state, self.block_size
+        n, num_latents = self.model.max_seq_len, self.model.max_latents
+        pos = [length.clamp(max=n - 1)]
+        if migrate is not None:
+            mig = ((n - num_latents - 1) - pad).clamp(min=0)
+            pos.append(torch.where(migrate, mig, torch.zeros_like(mig)))
+        flat = paged_ops.flat_write_indices(table, torch.stack(pos, dim=1), bs).long()
+        if migrate is not None:
+            flat[:, 1] = torch.where(migrate, flat[:, 1], torch.zeros_like(flat[:, 1]))
+        idx = flat.reshape(-1)
+        every = collectives.all_gather(idx, self.data_group)
+        live = every >= bs
+        for key in ("pool_k", "pool_v", "scale_k", "scale_v"):
+            if key in st:
+                rows = collectives.all_gather(st[key][idx].contiguous(), self.data_group)
+                st[key][every[live]] = rows[live]
+                st[key][:bs] = 0
+
+    def decode(self, boundary: bool, cached: bool, admitting: Optional[int] = None,
+               gen_state=None, generator: Optional[torch.Generator] = None):
+        """One fixed-shape token step over this rank's slots (the engine's
+        ``_decode``); returns ``(every slot's token (S,), the generator's
+        state after a sampled step or None)``."""
+        st = self.state
+        model = self.model
+        n, num_latents = model.max_seq_len, model.max_latents
+        cfg = self.config
+        min_new = cfg.min_new_tokens if cfg.eos_token_id is not None else 0
+        logits = apply_min_new_tokens(st["logits"].float(), st["steps"][:, None], min_new,
+                                      cfg.eos_token_id or 0)
+        pad_positions = torch.arange(n, device=self.device)[None, :] < st["pad"][:, None]
+        gen, rows = self._draws(gen_state, generator)
+        token = sample_logits(logits, cfg.sampling, st["window"], pad_positions, generator=gen,
+                              rows=rows)
+        window = torch.cat([st["window"][:, 1:], token[:, None]], dim=1)
+        pad = (st["pad"] - 1).clamp(min=0)
+        length, m = st["length"], st["m"]
+        is_b = m >= num_latents
+        cached_b = boundary and cached
+        # each row's writes come from the step that owns it
+        write_ok = ~is_b if cached_b else None
+        pooled = "pool_k" in st
+        if not pooled:
+            logits_a = _slot_decode_step(model, token, st, length, m, write_ok)
+            if cached_b:
+                logits_b = _decode_step_boundary(model, window, pad, st["cross_k"], st["cross_v"],
+                                                 length, write_ok=is_b)[0]
+        else:
+            table = self.table
+            local = None if admitting is None else self._local(admitting)
+            if local is not None:
+                # the slot an admission fills already maps the new request's
+                # staged and shared pages, but its row still holds its last
+                # occupant's counters: the step sees it map nothing, so that
+                # row's appends and migrations land in the null block
+                table = table.clone()
+                table[local] = 0
+            scales = {"scale_k": st.get("scale_k"), "scale_v": st.get("scale_v")}
+            logits_a = _slot_decode_step_paged(
+                model, token, st["pool_k"], st["pool_v"], table, st, length, m,
+                self.block_size, write_ok, **scales,
+            )
+            if cached_b:
+                logits_b = _decode_step_boundary_paged(
+                    model, window, pad, st["pool_k"], st["pool_v"], table, length,
+                    self.block_size, is_b, **scales,
+                )
+            if self.data_group is not None:
+                self._sync_pool(table, length, pad, is_b if cached_b else None)
+        if boundary and not cached_b:
+            # recompute: the windowed forward; boundary rows' cross caches go
+            # stale, which is safe (a row never leaves the boundary phase)
+            logits_b = _decode_forward(model, window, pad, num_latents)
+        new_logits = torch.where(is_b[:, None], logits_b, logits_a) if boundary else logits_a
+        st.update(
+            window=window, pad=pad, length=(length + 1).clamp(max=n),  # idle slots saturate
+            m=(m + 1).clamp(max=num_latents), steps=st["steps"] + 1,
+            logits=new_logits.to(st["logits"].dtype),
+        )
+        post = gen.get_state() if gen_state is not None else None
+        return self._gather(token), post
+
+    def spec_round(self, k: int, draft_layers: int) -> tuple:
+        """One speculative round over this rank's slots (the engine's
+        ``_spec_round``); returns every slot's ``(cand, n_e)`` on the host."""
+        st, cfg = self.state, self.config
+        min_new = cfg.min_new_tokens if cfg.eos_token_id is not None else 0
+        eos = cfg.eos_token_id or 0
+        with torch.no_grad():
+            cand = spec_mod.propose_tokens(self.model, st["window"], st["pad"], st["m"], st["steps"],
+                                           st["logits"], k, draft_layers, min_new, eos)
+            lane_logits = spec_mod.verify_lanes(self.model, st["window"], st["pad"], st["m"], cand)
+            n_e, next_logits = spec_mod.accept_prefix(lane_logits, cand, st["steps"], min_new, eos)
+            window, pad, m = spec_mod.advance_window(st["window"], st["pad"], st["m"], cand, n_e,
+                                                     self.model.max_latents)
+            st.update(window=window, pad=pad, m=m,
+                      length=(st["length"] + n_e).clamp(max=self.model.max_seq_len),  # idle slots saturate
+                      steps=st["steps"] + n_e, logits=next_logits.to(st["logits"].dtype))
+        # host sync: the scheduling point
+        return self._gather(cand).cpu().numpy(), self._gather(n_e).cpu().numpy()
+
+    def digests(self) -> list:
+        """``[data index, model index, digest]`` of every rank of the mesh:
+        the digest is a 56-bit prefix of the SHA-256 of this rank's pool
+        arrays (0 without a pool)."""
+        digest = 0
+        if "pool_k" in self.state:
+            h = hashlib.sha256()
+            for key in ("pool_k", "pool_v", "scale_k", "scale_v"):
+                if key in self.state:
+                    h.update(self.state[key].cpu().numpy().tobytes())
+            digest = int.from_bytes(h.digest()[:7], "little")
+        sh = self.sharding
+        mine = torch.tensor([[0 if sh is None else sh.data_index, 0 if sh is None else sh.model_index,
+                              digest]], dtype=torch.long)
+        if sh is not None and sh.group is not None:
+            mine = collectives.all_gather(mine, sh.group)
+        return mine.tolist()
+
+    def warmup_steps(self, prompt_lens, prefill_chunk: Optional[int], shared: bool, spec,
+                     swap: bool, cached: bool, gen_state=None,
+                     generator: Optional[torch.Generator] = None):
+        """Each step warmup drives, once, over the live state with an
+        all-zero block table (every pool write lands in the null block);
+        returns ``(count, the generator's state after or None)``."""
+        model, cfg, st = self.model, self.config, self.state
+        n, bs = model.max_seq_len, self.block_size
+        row0 = None if self.table is None else torch.zeros_like(self.table[0])
+        pad_id = cfg.pad_token_id
+        m0 = min(cfg.num_latents, model.max_latents)
+        first = self._local(0)
+
+        def window_of(length: int):
+            window = torch.full((1, n), pad_id, dtype=torch.long, device=self.device)
+            return window, torch.full((1,), n - length, dtype=torch.long, device=self.device)
+
+        steps = 0
+        with torch.no_grad():
+            for bucket_len in prompt_lens:
+                if bucket_len - min(bucket_len, cfg.num_latents) > model.max_prefix_len:
+                    continue
+                window, pad = window_of(bucket_len)
+                m = min(bucket_len, cfg.num_latents)
+                logits, cache, length, _ = _decode_prefill(model, window, pad, m)
+                _insert_row(st, first, window=window, pad=pad, logits=logits, cache=cache,
+                            length=length, m=m, table_row=row0, block_size=bs)
+                steps += 1
+            window, pad = window_of(n)
+            if prefill_chunk is not None:
+                ref = st["stack_k"][0]
+                stage_k = torch.zeros((1, ref.shape[1], n, ref.shape[3]), dtype=ref.dtype,
+                                      device=self.device)
+                stage_v = torch.zeros_like(stage_k)
+                tokens = torch.full((1, prefill_chunk), pad_id, dtype=torch.long, device=self.device)
+                _stage_chunk(model, stage_k, stage_v, tokens, 0)
+                _prefill_finalize(model, window, pad, m0, stage_k, stage_v)
+                steps += 2
+            if shared:
+                _prefill_finalize_paged(model, window, pad, m0, st["pool_k"], st["pool_v"], row0, bs,
+                                        scale_k=st.get("scale_k"), scale_v=st.get("scale_v"))
+                _copy_page(st, 0, 0, bs)
+                steps += 2
+            for boundary in (False, True):
+                gen_state = self.decode(boundary, cached, gen_state=gen_state, generator=generator)[1]
+                steps += 1
+            if spec is not None:
+                self.spec_round(*spec)
+                steps += 1
+            if swap:
+                payload = _swap_extract(st, row0, first, bs)
+                _swap_restore(st, payload, row0, first, 0, bs)
+                steps += 2
+        self._sync()
+        return steps, gen_state
 
 
 class SlotServingEngine(ServingEngine):
@@ -480,6 +893,11 @@ class SlotServingEngine(ServingEngine):
     :param speculation: ``"off"``, ``"k<K>d<D>"`` (K in {2, 4, 8}, D in
         {1, 2}) or ``"auto"`` (the registry verdict, else off; measured by
         :meth:`warmup`); None reads ``PERCEIVER_SPECULATION``. Greedy only.
+    :param mesh: the serving mesh (module docstring): None (unsharded), a
+        :class:`~.sharding.ServingMeshSpec`, a resolved
+        :class:`~.sharding.ServingSharding`, or a
+        :class:`~perceiver_io_tpu_torch.parallel.mesh.Mesh` with fsdp/seq at
+        1. The engine runs on the driver rank; the device is the mesh's.
     """
 
     def __init__(self, model, config: Optional[GenerationConfig] = None, table=None, *,
@@ -490,8 +908,21 @@ class SlotServingEngine(ServingEngine):
                  admit_headroom_blocks: int = 0, swap_link_gbps: Optional[float] = None,
                  speculation: Optional[str] = None, mesh=None, device: DeviceLike = "cuda",
                  **kwargs):
-        if mesh is not None:
-            raise _deferred("mesh (sharded serving)")
+        sharding = as_serving_sharding(mesh)
+        if sharding is not None:
+            if sharding.data_size > 1 and slots % sharding.data_size:
+                raise ValueError(
+                    f"slots ({slots}) must divide evenly over the mesh data axis "
+                    f"({sharding.data_size}): the decode step shards slots along it")
+            heads = model.perceiver_ar.cross_attention.cross_attn.attention.num_heads
+            if sharding.model_size > 1 and heads % sharding.model_size:
+                raise ValueError(
+                    f"attention heads ({heads}) must divide evenly over the mesh model axis "
+                    f"({sharding.model_size}): the KV caches shard heads along it")
+            if resolve_device(device).type != sharding.device.type:
+                raise ValueError(f"the engine was asked for {device}, its mesh computes on "
+                                 f"{sharding.device}")
+            device = sharding.device
         if kv_layout is not None and kv_layout not in decode_strategy_mod.KV_LAYOUTS:
             raise ValueError(
                 f"kv_layout must be one of {decode_strategy_mod.KV_LAYOUTS}, got {kv_layout!r}")
@@ -519,6 +950,7 @@ class SlotServingEngine(ServingEngine):
                          **kwargs)
         if not _on_device(model, self.device):
             raise ValueError(f"model lies on {model.device}, the engine was asked for {self.device}")
+        self.sharding = sharding
         n = model.max_seq_len
         self.slots = int(slots)
         self.prefill_chunk = None if prefill_chunk is None else int(min(prefill_chunk, n))
@@ -589,9 +1021,45 @@ class SlotServingEngine(ServingEngine):
         self._admitting: Optional[_ChunkedAdmit] = None
         self._kv_waiting_id: Optional[int] = None
         self._pool: Optional[KVPagePool] = None
-        self._state: Optional[dict] = None
+        #: this rank's shard of the device state (None: a driver outside
+        #: its mesh's group, whose ops run on the followers alone)
+        self._dev: Optional[_SlotDevice] = None
+        if sharding is None:
+            self._dev = _SlotDevice(model, self.config, self.kv_block_size, self.device)
+        else:
+            self._op("init", config=self.config, block_size=self.kv_block_size)
+            if sharding.is_member:
+                self._dev = _SlotDevice(sharding.put_params(model), self.config, self.kv_block_size,
+                                        self.device, sharding)
+            reg = self.registry
+            # mesh geometry gauges: their presence is how `obs report` knows a mesh ran
+            reg.set_gauge("serving_mesh_devices", sharding.num_devices)
+            reg.set_gauge("serving_mesh_data", sharding.data_size)
+            reg.set_gauge("serving_mesh_model", sharding.model_size)
         self._init_kv_state(resolved)
         self._update_slot_gauges()
+
+    @property
+    def _state(self) -> Optional[dict]:
+        """This rank's slot state (the whole state without a mesh)."""
+        return None if self._dev is None else self._dev.state
+
+    def _op(self, name: str, local: Optional[dict] = None, **args):
+        """Run one device op: on a mesh its plan goes to the followers
+        first; this rank runs it on its shard (with ``local``, arguments
+        that stay on this rank). A driver outside the group reads the
+        result from the group's first rank."""
+        sh = self.sharding
+        reply = sh is not None and not sh.is_member and name in RESULT_OPS
+        if sh is not None:
+            sh.send(name, {**args, "_reply": True} if reply else args)
+        if name == "init":
+            return None
+        if reply:
+            return sh.reply()
+        if self._dev is None:
+            return None
+        return getattr(self._dev, name)(**args, **(local or {}))
 
     @property
     def boundary_mode(self) -> str:
@@ -615,11 +1083,13 @@ class SlotServingEngine(ServingEngine):
         if self._pool is not None:
             for rid in list(self._swap_bundles):
                 self._drop_bundle(rid, cause="swapped")
-        self._state = self._pool = self._table_dev = None
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
+        self._pool = None
         self.kv_layout = layout
-        if layout in PAGED_KV_LAYOUTS:
+        paged = layout in PAGED_KV_LAYOUTS
+        self._op("rebuild", slots=self.slots,
+                 pool_tokens=(self.kv_blocks + 1) * self.kv_block_size if paged else None,
+                 quantized=layout == "paged_int8")
+        if paged:
             self._pool = KVPagePool(self.kv_blocks, self.kv_block_size, self.slots,
                                     self.model.max_seq_len)
             self._push_table()
@@ -628,17 +1098,19 @@ class SlotServingEngine(ServingEngine):
             self.prefix_cache = "off"
         self._prefix_index: Optional[PrefixBlockIndex] = (
             PrefixBlockIndex(self.kv_block_size) if self.prefix_cache == "on" else None)
-        self._state = self._new_state()
-        st = self._state
         # bytes per cached position (k and v) and the int8 layout's fp32
-        # scales, read off the state's own tensors; the stack caches count
-        # in the footprint gauges but not in the swap cost model
-        ref = st["pool_k"] if self._pool is not None else st["cross_k"][0].transpose(0, 1)
-        h, d = ref.shape[1], ref.shape[2]
-        self._kv_token_bytes = 2 * h * d * ref.element_size()
-        self._kv_scale_token_bytes = 2 * h * 4 if "scale_k" in st else 0
-        self._kv_stack_bytes = sum(t.numel() * t.element_size()
-                                   for t in st["stack_k"] + st["stack_v"])
+        # scales, at the whole state's shapes (a mesh's shards add up to
+        # them); the stack caches count in the footprint gauges but not in
+        # the swap cost model
+        model = self.model
+        mha = model.perceiver_ar.cross_attention.cross_attn.attention
+        h = mha.num_heads
+        d = mha.num_qk_channels // h
+        self._pool_dtype = torch.int8 if layout == "paged_int8" else model.dtype
+        self._kv_token_bytes = 2 * h * d * (self._pool_dtype.itemsize if paged else model.dtype.itemsize)
+        self._kv_scale_token_bytes = 2 * h * 4 if layout == "paged_int8" else 0
+        self._kv_stack_bytes = (2 * len(model.perceiver_ar.self_attention.layers) * self.slots * h
+                                * model.max_latents * d * model.dtype.itemsize)
         reg = self.registry
         if self._pool is not None:
             # a new pool's allocation counters start at 0
@@ -695,6 +1167,10 @@ class SlotServingEngine(ServingEngine):
                 reg.inc("kv_pool_block_frees_total", pool.frees_total - base["frees"])
                 base["frees"] = pool.frees_total
         reg.set_gauge("kv_cache_resident_bytes", resident)
+        if self.sharding is not None:
+            # the model-axis shard of the live KV bytes (pages and stack
+            # split over heads)
+            reg.set_gauge("kv_cache_resident_bytes_per_shard", resident // self.sharding.model_size)
         default_ledger().set_kv_cache_bytes(resident)
 
     def _update_slot_gauges(self) -> None:
@@ -702,14 +1178,10 @@ class SlotServingEngine(ServingEngine):
         self.registry.set_gauge("serving_slots_active", active)
         self.registry.set_gauge("serving_slots_idle", self.slots - active)
 
-    def _new_state(self) -> dict:
-        pool_tokens = None if self._pool is None else (self.kv_blocks + 1) * self.kv_block_size
-        return _blank_state(self.model, self.slots, self.config.pad_token_id, self.device,
-                            pool_tokens=pool_tokens, quantized=self.kv_layout == "paged_int8")
-
     def _push_table(self) -> None:
-        """Copy the allocator's block table to the device (after it changed)."""
-        self._table_dev = torch.from_numpy(self._pool.table().copy()).to(self.device)
+        """Copy the allocator's block table to the device (after it changed):
+        each data rank of a mesh its rows."""
+        self._op("set_table", table=self._pool.table().copy())
 
     def _kv_release(self, slot: int, cause: str = "retire") -> None:
         if self._pool is not None:
@@ -720,7 +1192,7 @@ class SlotServingEngine(ServingEngine):
             self._update_kv_gauges()
 
     def _copy_page(self, src: int, dst: int) -> None:
-        _copy_page(self._state, src, dst, self.kv_block_size)
+        self._op("copy_page", src=int(src), dst=int(dst))
         self._inc("kv_prefix_cow_copies_total")
 
     # -- feasibility --------------------------------------------------------
@@ -978,7 +1450,7 @@ class SlotServingEngine(ServingEngine):
         if isinstance(victim, _ChunkedAdmit):
             generated = 0
             self._admitting = None
-            victim.stage_k = victim.stage_v = None
+            self._op("admit_drop")
         else:
             generated = len(victim.emitted)
             self._slots[victim.slot] = None
@@ -1057,17 +1529,17 @@ class SlotServingEngine(ServingEngine):
         before the release: once freed, the pages may be reused by the next
         admission. Returns ``{"bytes", "ms"}`` of the measured transfer."""
         req, slot, pool = victim.req, victim.slot, self._pool
-        # the host table: this step's ensure loop may not have pushed it yet
-        row = torch.from_numpy(np.array(pool.table_row(slot))).to(self.device)
         t0 = self._clock()
-        payload = _swap_extract(self._state, row, slot, self.kv_block_size)
+        # the host table's row: this step's ensure loop may not have pushed it yet
+        bytes_moved = int(self._op("swap_extract", request_id=req.request_id, slot=slot,
+                                   table_row=np.array(pool.table_row(slot))))
         wall = self._clock() - t0
         shared, private = pool.extract(slot, cause="swapped")
         self._push_table()
         self._update_kv_gauges()
-        bytes_moved = _payload_bytes(payload)
+        # the payload stays with each rank's shard (_SlotDevice.payloads)
         self._swap_bundles[req.request_id] = SwapBundle(
-            request_id=req.request_id, payload=payload, shared=shared, n_private=len(private),
+            request_id=req.request_id, shared=shared, n_private=len(private),
             tokens=int(req.prompt.size) + len(victim.emitted), emitted=list(victim.emitted),
             m=int(victim.m), last_token_at=victim.last_token_at, bytes_moved=bytes_moved,
         )
@@ -1108,10 +1580,7 @@ class SlotServingEngine(ServingEngine):
         self._push_table()
         self._update_kv_gauges()
         t1 = self._clock()
-        with torch.no_grad():
-            _swap_restore(self._state, bundle.payload, self._table_dev[slot], slot,
-                          len(bundle.shared), self.kv_block_size)
-        self._state["length"][slot].item()  # host sync: the host-to-device leg ends here
+        self._op("swap_restore", request_id=req.request_id, slot=slot, lo_blocks=len(bundle.shared))
         wall = self._clock() - t1
         ms = wall * 1e3
         self._inc("kv_swap_restores_total")
@@ -1155,7 +1624,14 @@ class SlotServingEngine(ServingEngine):
         than by its restore."""
         bundle = self._swap_bundles.pop(request_id, None)
         if bundle is not None:
+            self._op("drop_payload", request_id=request_id)
             self._release_bundle(bundle, cause=cause)
+
+    def shard_digests(self) -> list:
+        """``[data index, model index, digest]`` of every rank's shard: the
+        digest of its pool replica (:meth:`_SlotDevice.digests`). Data
+        replicas of one model index hold byte-equal pools."""
+        return self._op("digests")
 
     def postmortems(self) -> dict:
         """The preemption post-mortems: lifetime recompute-against-swap
@@ -1236,16 +1712,6 @@ class SlotServingEngine(ServingEngine):
             prefix_len -= plan.shared_tokens
         return prefix_len > self.prefill_chunk
 
-    def _row_window(self, req: ServeRequest):
-        """The request's right-aligned ``(1, n)`` window and ``(1,)`` pad
-        count, on the device."""
-        n = self.model.max_seq_len
-        prompt_len = int(req.prompt.size)
-        window = torch.full((1, n), req.config.pad_token_id, dtype=torch.long)
-        window[0, n - prompt_len:] = torch.from_numpy(req.prompt.astype(np.int64))
-        pad = torch.full((1,), n - prompt_len, dtype=torch.long)
-        return window.to(self.device), pad.to(self.device)
-
     def _start_admit(self, req: ServeRequest, slot: int) -> float:
         """Queue wait ends when the prefill (or a swapped victim's restore)
         starts; returns that instant. A preempted request counts a
@@ -1302,9 +1768,7 @@ class SlotServingEngine(ServingEngine):
         cfg = req.config
         prompt_len = int(req.prompt.size)
         bucket_len, m0, _ = self._geometry(req)
-        window, pad = self._row_window(req)
         t0 = self._start_admit(req, slot)
-        table_row = None
         if self._pool is not None:
             # the gate checked capacity: reserve (the worst case, or lazily
             # the prompt's pages) and map the prompt's pages; decode steps
@@ -1314,12 +1778,8 @@ class SlotServingEngine(ServingEngine):
             self._pool.set_owner(slot, tenant_label(req.tenant))
             self._pool.ensure(slot, prompt_len)
             self._push_table()
-            table_row = self._table_dev[slot]
-        with torch.no_grad():
-            logits, cache, length, _ = _decode_prefill(self.model, window, pad, m0)
-            _insert_row(self._state, slot, window=window, pad=pad, logits=logits, cache=cache,
-                        length=length, m=m0, table_row=table_row, block_size=self.kv_block_size)
-        self._state["length"][slot].item()  # host sync: the prefill's time ends here
+        # ends in a host sync: the prefill's time ends there
+        self._op("prefill", slot=slot, prompt=req.prompt, m0=m0)
         self._finish_admit(req, slot, bucket_len, m0, (self._clock() - t0) * 1e3, hit=False)
 
     def _start_chunked_admit(self, req: ServeRequest, slot: int,
@@ -1342,26 +1802,21 @@ class SlotServingEngine(ServingEngine):
         # positions it grazes are rewritten by the finalize or masked
         start = plan.shared_tokens if plan is not None else 0
         offsets = [min(o, n - chunk) for o in range(start, max(prefix_len, 1), chunk)]
-        window, pad = self._row_window(req)
         self._start_admit(req, slot)
-        stage_k = stage_v = None
         if self._pool is not None:
             self._pool.set_owner(slot, tenant_label(req.tenant))
         if plan is not None:
             self._map_shared_prefix(req, slot, plan)
-        else:
-            if self._pool is not None:
-                # reserved now (the worst case, or lazily the prompt's
-                # pages); pages map chunk by chunk
-                self._reserve_admit(slot, prompt_len, req.config.max_new_tokens,
-                                    pessimistic=bool(req.preemptions))
-            ref = self._state["stack_k"][0]
-            h, d = ref.shape[1], ref.shape[3]
-            stage_k = torch.zeros((1, h, n, d), dtype=ref.dtype, device=self.device)
-            stage_v = torch.zeros_like(stage_k)
+        elif self._pool is not None:
+            # reserved now (the worst case, or lazily the prompt's pages);
+            # pages map chunk by chunk
+            self._reserve_admit(slot, prompt_len, req.config.max_new_tokens,
+                                pessimistic=bool(req.preemptions))
+        # the row's window and pad, and (unshared) fresh staging caches
+        self._op("admit_begin", prompt=req.prompt, staged=plan is None)
         self._admitting = _ChunkedAdmit(
-            req=req, slot=slot, bucket_len=bucket_len, m0=m0, window=window, pad=pad,
-            by_index=by_index, offsets=offsets, chunk=chunk, stage_k=stage_k, stage_v=stage_v,
+            req=req, slot=slot, bucket_len=bucket_len, m0=m0,
+            by_index=by_index, offsets=offsets, chunk=chunk,
             plan=plan, lo=start, hi=prefix_len if plan is not None else 0,
         )
         self._advance_chunked_admit()
@@ -1383,30 +1838,12 @@ class SlotServingEngine(ServingEngine):
             if self._pool.ensure(slot, prompt_len if final else min(off + admit.chunk, prompt_len)):
                 self._push_table()
         t0 = self._clock()
-        with torch.no_grad():
-            if not final:
-                tokens = torch.from_numpy(admit.by_index[off:off + admit.chunk][None]).to(self.device)
-                if admit.plan is not None:
-                    _stage_shared_chunk(self.model, self._state, self._table_dev[slot], tokens, off,
-                                        admit.lo, admit.hi, self.kv_block_size)
-                else:
-                    _stage_chunk(self.model, admit, tokens, off)
-            elif admit.plan is not None:
-                st = self._state
-                logits, cache, length, _ = _prefill_finalize_paged(
-                    self.model, admit.window, admit.pad, admit.m0, st["pool_k"], st["pool_v"],
-                    self._table_dev[slot], self.kv_block_size, scale_k=st.get("scale_k"),
-                    scale_v=st.get("scale_v"))
-                _insert_row(st, slot, window=admit.window, pad=admit.pad, logits=logits,
-                            cache=cache, length=length, m=admit.m0)
-            else:
-                logits, cache, length, _ = _prefill_finalize(
-                    self.model, admit.window, admit.pad, admit.m0, admit.stage_k, admit.stage_v)
-                _insert_row(self._state, slot, window=admit.window, pad=admit.pad, logits=logits,
-                            cache=cache, length=length, m=admit.m0,
-                            table_row=None if self._pool is None else self._table_dev[slot],
-                            block_size=self.kv_block_size)
-        self._state["length"][0].item()  # host sync: this call's time ends here
+        # each call ends in a host sync: its time ends there
+        if not final:
+            self._op("admit_chunk", slot=slot, offset=off, tokens=admit.by_index[off:off + admit.chunk],
+                     lo=admit.lo, hi=admit.hi)
+        else:
+            self._op("admit_finalize", slot=slot, m0=admit.m0)
         call_ms = (self._clock() - t0) * 1e3
         admit.prefill_ms += call_ms
         admit.next_chunk += 1
@@ -1421,7 +1858,6 @@ class SlotServingEngine(ServingEngine):
         if not final:
             return
         self._admitting = None
-        admit.stage_k = admit.stage_v = None
         self._finish_admit(req, slot, admit.bucket_len, admit.m0, admit.prefill_ms,
                            hit=admit.plan is not None, chunks=len(admit.offsets))
 
@@ -1469,7 +1905,7 @@ class SlotServingEngine(ServingEngine):
                 self._prefix_index.flush(self._pool)
             self._push_table()
             self._update_kv_gauges()
-        self._state = self._new_state()
+        self._op("reset")
         self._update_slot_gauges()
         return failed
 
@@ -1544,6 +1980,10 @@ class SlotServingEngine(ServingEngine):
         previous slot count."""
         if new_slots < 1:
             raise ValueError(f"slots must be >= 1, got {new_slots}")
+        if self.sharding is not None and new_slots % self.sharding.data_size:
+            raise ValueError(
+                f"slots ({new_slots}) must divide evenly over the mesh data axis "
+                f"({self.sharding.data_size})")
         if any(s is not None for s in self._slots) or self._admitting is not None:
             raise RuntimeError(
                 "resize_slots() with requests resident in slots would corrupt their decode "
@@ -1564,60 +2004,17 @@ class SlotServingEngine(ServingEngine):
         """One fixed-shape token step over all slots: choose each row's token
         from the resident logits (sampled: one ``(S, V)`` draw over all
         slots), append it, advance every cache by one token. ``boundary``
-        adds the prefix-growth step for rows with ``m == max_latents``.
+        adds the prefix-growth step for rows with ``m == max_latents``
+        (:meth:`_SlotDevice.decode`).
         :return: ``(S,)`` chosen tokens."""
-        st = self._state
-        model = self.model
-        n, num_latents = model.max_seq_len, model.max_latents
-        cfg = self.config
-        min_new = cfg.min_new_tokens if cfg.eos_token_id is not None else 0
-        logits = apply_min_new_tokens(st["logits"].float(), st["steps"][:, None], min_new,
-                                      cfg.eos_token_id or 0)
-        pad_positions = torch.arange(n, device=self.device)[None, :] < st["pad"][:, None]
-        token = sample_logits(logits, cfg.sampling, st["window"], pad_positions,
-                              generator=self.generator)
-        window = torch.cat([st["window"][:, 1:], token[:, None]], dim=1)
-        pad = (st["pad"] - 1).clamp(min=0)
-        length, m = st["length"], st["m"]
-        is_b = m >= num_latents
-        cached_b = boundary and self.boundary_mode == "cached"
-        # each row's writes come from the step that owns it
-        write_ok = ~is_b if cached_b else None
-        if self._pool is None:
-            logits_a = _slot_decode_step(model, token, st, length, m, write_ok)
-            if cached_b:
-                logits_b = _decode_step_boundary(model, window, pad, st["cross_k"], st["cross_v"],
-                                                 length, write_ok=is_b)[0]
-        else:
-            table = self._table_dev
-            if self._admitting is not None:
-                # the slot an admission fills already maps the new request's
-                # staged and shared pages, but its row still holds its last
-                # occupant's counters: the step sees it map nothing, so that
-                # row's appends and migrations land in the null block
-                table = table.clone()
-                table[self._admitting.slot] = 0
-            scales = {"scale_k": st.get("scale_k"), "scale_v": st.get("scale_v")}
-            logits_a = _slot_decode_step_paged(
-                model, token, st["pool_k"], st["pool_v"], table, st, length, m,
-                self.kv_block_size, write_ok, **scales,
-            )
-            if cached_b:
-                logits_b = _decode_step_boundary_paged(
-                    model, window, pad, st["pool_k"], st["pool_v"], table, length,
-                    self.kv_block_size, is_b, **scales,
-                )
-        if boundary and not cached_b:
-            # recompute: the windowed forward; boundary rows' cross caches go
-            # stale, which is safe (a row never leaves the boundary phase)
-            logits_b = _decode_forward(model, window, pad, num_latents)
-        new_logits = torch.where(is_b[:, None], logits_b, logits_a) if boundary else logits_a
-        st.update(
-            window=window, pad=pad, length=(length + 1).clamp(max=n),  # idle slots saturate
-            m=(m + 1).clamp(max=num_latents), steps=st["steps"] + 1,
-            logits=new_logits.to(st["logits"].dtype),
-        )
-        return token
+        admitting = None if self._admitting is None else self._admitting.slot
+        sampled = self.config.sampling.do_sample and self.sharding is not None
+        token, post = self._op("decode", local={"generator": self.generator}, boundary=boundary,
+                               cached=self.boundary_mode == "cached", admitting=admitting,
+                               gen_state=self.generator.get_state() if sampled else None)
+        if post is not None and self._dev is None:
+            self.generator.set_state(post)  # the draws ran on the followers
+        return torch.as_tensor(token)
 
     def _lane_blocked(self, head: ServeRequest, plan: Optional[_PrefixPlan],
                       ran_chunk_call: bool) -> tuple:
@@ -1980,19 +2377,7 @@ class SlotServingEngine(ServingEngine):
         recompute boundary step's contract). So an idle or admitting slot's
         round writes only row state, which the admission's insert
         overwrites. :return: ``(cand (S, k+1), n_e (S,))`` on the host."""
-        st, spec, cfg = self._state, self._spec, self.config
-        min_new = cfg.min_new_tokens if cfg.eos_token_id is not None else 0
-        eos = cfg.eos_token_id or 0
-        cand = spec_mod.propose_tokens(self.model, st["window"], st["pad"], st["m"], st["steps"],
-                                       st["logits"], spec.k, spec.draft_layers, min_new, eos)
-        lane_logits = spec_mod.verify_lanes(self.model, st["window"], st["pad"], st["m"], cand)
-        n_e, next_logits = spec_mod.accept_prefix(lane_logits, cand, st["steps"], min_new, eos)
-        window, pad, m = spec_mod.advance_window(st["window"], st["pad"], st["m"], cand, n_e,
-                                                 self.model.max_latents)
-        st.update(window=window, pad=pad, m=m,
-                  length=(st["length"] + n_e).clamp(max=self.model.max_seq_len),  # idle slots saturate
-                  steps=st["steps"] + n_e, logits=next_logits.to(st["logits"].dtype))
-        return cand.cpu().numpy(), n_e.cpu().numpy()  # host sync: the scheduling point
+        return self._op("spec_round", k=self._spec.k, draft_layers=self._spec.draft_layers)
 
     def run_until_idle(self) -> int:
         """Step until no request is queued, admitting or resident; returns
@@ -2059,69 +2444,28 @@ class SlotServingEngine(ServingEngine):
             if self._spec is not None:
                 spec_mod.validate_spec(self._spec, model, self.config)
         self._pinned_boundary_mode = None  # no residents: take the freshest verdict
-        with torch.no_grad():
-            steps = self._drive_warmup_steps()
+        steps = self._drive_warmup_steps()
         if self._prefix_index is not None:
             self._prefix_index.flush(self._pool)  # the blank below zeroes its pages
         for rid in list(self._swap_bundles):  # parked bundles describe pages about to be zeroed
             self._drop_bundle(rid, cause="retire")
-        self._state = None
-        self._state = self._new_state()
+        self._op("reset")
         return steps
 
     def _drive_warmup_steps(self) -> int:
         """Each step :meth:`warmup` drives, once, over the live state with an
         all-zero block table (every pool write lands in the null block);
-        returns the count."""
-        model, cfg, st = self.model, self.config, self._state
-        n, bs = model.max_seq_len, self.kv_block_size
-        row0 = None if self._pool is None else torch.zeros_like(self._table_dev[0])
-        pad_id = cfg.pad_token_id
-        m0 = min(cfg.num_latents, model.max_latents)
-
-        def window_of(length: int):
-            window = torch.full((1, n), pad_id, dtype=torch.long, device=self.device)
-            return window, torch.full((1,), n - length, dtype=torch.long, device=self.device)
-
-        steps = 0
-        for bucket_len in self.table.prompt_lens:
-            if bucket_len - min(bucket_len, cfg.num_latents) > model.max_prefix_len:
-                continue
-            window, pad = window_of(bucket_len)
-            m = min(bucket_len, cfg.num_latents)
-            logits, cache, length, _ = _decode_prefill(model, window, pad, m)
-            _insert_row(st, 0, window=window, pad=pad, logits=logits, cache=cache, length=length,
-                        m=m, table_row=row0, block_size=bs)
-            steps += 1
-        window, pad = window_of(n)
-        if self.prefill_chunk is not None:
-            ref = st["stack_k"][0]
-            stage_k = torch.zeros((1, ref.shape[1], n, ref.shape[3]), dtype=ref.dtype,
-                                  device=self.device)
-            stage_v = torch.zeros_like(stage_k)
-            tokens = torch.full((1, self.prefill_chunk), pad_id, dtype=torch.long,
-                                device=self.device)
-            k, v = _prefill_chunk_kv(model, tokens, 0)
-            stage_k[:, :, :self.prefill_chunk] = k.to(stage_k.dtype)
-            stage_v[:, :, :self.prefill_chunk] = v.to(stage_v.dtype)
-            _prefill_finalize(model, window, pad, m0, stage_k, stage_v)
-            steps += 2
-        if self._prefix_index is not None:
-            _prefill_finalize_paged(model, window, pad, m0, st["pool_k"], st["pool_v"], row0, bs,
-                                    scale_k=st.get("scale_k"), scale_v=st.get("scale_v"))
-            _copy_page(st, 0, 0, bs)
-            steps += 2
-        for boundary in (False, True):
-            self._decode(boundary)
-            steps += 1
-        if self._spec is not None:
-            self._spec_round()
-            steps += 1
-        if self._pool is not None and self.preemption in ("swap", "auto"):
-            payload = _swap_extract(st, row0, 0, bs)
-            _swap_restore(st, payload, row0, 0, 0, bs)
-            steps += 2
-        self._state["length"][0].item()  # host sync: the steps have run
+        returns the count (:meth:`_SlotDevice.warmup_steps`)."""
+        sampled = self.config.sampling.do_sample and self.sharding is not None
+        spec = None if self._spec is None else (self._spec.k, self._spec.draft_layers)
+        steps, post = self._op(
+            "warmup_steps", local={"generator": self.generator}, prompt_lens=tuple(self.table.prompt_lens),
+            prefill_chunk=self.prefill_chunk, shared=self._prefix_index is not None, spec=spec,
+            swap=self._pool is not None and self.preemption in ("swap", "auto"),
+            cached=self.boundary_mode == "cached",
+            gen_state=self.generator.get_state() if sampled else None)
+        if post is not None and self._dev is None:
+            self.generator.set_state(post)
         return steps
 
     # -- observability ------------------------------------------------------
@@ -2168,7 +2512,7 @@ class SlotServingEngine(ServingEngine):
             out["kv_pool"] = {
                 **self._pool.stats(),
                 "layout": self.kv_layout,
-                "dtype": str(self._state["pool_k"].dtype).split(".")[-1],
+                "dtype": str(self._pool_dtype).split(".")[-1],
                 "admit_waits": c["kv_pool_admit_waits_total"],
                 "ragged_kernel_steps": c["kv_ragged_kernel_steps_total"],
                 "resident_bytes": int(reg.gauge("kv_cache_resident_bytes") or 0),
@@ -2218,6 +2562,13 @@ class SlotServingEngine(ServingEngine):
                                     "tokens": self._tokens_by_tenant.get(key, 0),
                                     "preemptions": self._preempted_by_tenant.get(key, 0)}
                               for key in sorted(keys)}
+        if self.sharding is not None:
+            out["mesh"] = {
+                "data": self.sharding.data_size,
+                "model": self.sharding.model_size,
+                "devices": self.sharding.num_devices,
+                "spec": self.sharding.describe(),
+            }
         return out
 
     def health(self) -> dict:
@@ -2232,4 +2583,5 @@ class SlotServingEngine(ServingEngine):
         if self._pool is not None:
             out["kv_pool_in_use"] = self._pool.in_use
             out["kv_pool_leaked"] = self._pool.leaked()
+        out["mesh"] = None if self.sharding is None else self.sharding.describe()
         return out

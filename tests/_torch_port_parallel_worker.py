@@ -1,5 +1,6 @@
 """One rank of the port's multi-process tests (``test_torch_port_parallel.py``,
-``test_torch_port_parallel_train.py``, ``test_torch_port_ring.py``).
+``test_torch_port_parallel_train.py``, ``test_torch_port_ring.py``,
+``test_torch_port_sharding.py``).
 
 Argv: ``rank world job_dir``. The rank pins torch to one intra-op thread,
 brings up a gloo world over a ``file://`` store under ``job_dir`` (no
@@ -235,8 +236,15 @@ def outside_mesh():
         return dict(ranks=mesh.ranks, error=str(e))
 
 
+def serving(**kwargs):
+    """The sharded slot engine's scenarios (``tests/_torch_port_sharding_cases.py``)."""
+    from tests import _torch_port_sharding_cases
+
+    return _torch_port_sharding_cases.serving(**kwargs)
+
+
 CASES = {f.__name__: f for f in (trajectory, ring, ring_refusals, ring_model, trainer_fit, multihost,
-                                  outside_mesh)}
+                                  outside_mesh, serving)}
 
 
 def main() -> None:

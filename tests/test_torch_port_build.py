@@ -64,6 +64,23 @@ def test_build_command_compiles_and_links(csrc, monkeypatch):
     assert _build._start("k") is None and len(started) == 1
 
 
+def test_split_compile_sources(csrc, monkeypatch):
+    started = []
+
+    class FakePopen:
+        def __init__(self, cmd, **kwargs):
+            started.append(cmd)
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakePopen)
+    whole = _build._target("k")
+    _build._start("k")
+    monkeypatch.setattr(_build, "SPLIT_COMPILE", ("k",))
+    assert _build._target("k") != whole
+    _build._start("k")
+    assert "-split-compile=0" not in started[0] and "-split-compile=0" in started[1]
+
+
 def test_package_sources_and_headers():
     sources = _build.sources()
     for name in ("flash_attention_fwd", "flash_attention_fwd_wgmma", "flash_attention_fwd_split",
@@ -71,6 +88,7 @@ def test_package_sources_and_headers():
                  "flash_attention_bwd_tf32", "ragged_paged_attention", "ragged_paged_attention_split",
                  "ragged_paged_attention_tc", "flash_attention_bwd_wide_mma", "flash_attention_fwd_wide_mma"):
         assert name in sources
+    assert set(_build.SPLIT_COMPILE) <= set(sources)
     for header, users in (("sm90.cuh", ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")),
                           ("tf32x3.cuh", ("flash_attention_fwd_tf32", "flash_attention_bwd_tf32",
                                           "ragged_paged_attention_tc", "flash_attention_bwd_wide_mma",

@@ -18,9 +18,10 @@
   JAX's lines; ``--serve.http.port=0 --serve.http.max_streams=2`` serves two
   streams over a socket with JAX's frames (less ``trace_id``); the fleet,
   autoscale and gateway flags' ``SystemExit`` messages are JAX's.
-- **Refusals**: each flag group whose modules are not ported (the serving
-  mesh, A.6b) raises ``NotImplementedError`` naming its ``ROADMAP.md`` item;
-  ``--mesh.*`` runs (``test_torch_port_parallel_train.py``).
+- **The serving mesh's checks**: ``--serve.mesh.*`` raises JAX's
+  ``SystemExit`` for the bucket engine and for a fleet the world cannot hold
+  (its sharded runs: ``test_torch_port_sharding.py``); ``--mesh.*`` runs
+  (``test_torch_port_parallel_train.py``).
 
 A tiny CLM (262-byte vocab, 64 context, 16 latents, 32 channels, 2 heads,
 1 layer) over ``--data=synthetic`` (4 + 2 + 2 documents of 512 characters).
@@ -484,24 +485,29 @@ def test_outer_serving_flag_groups_run(runs, name, monkeypatch, capsys):
         assert stats["replicas"] == 2 and stats["fleet_scale_up_total"] == 0
 
 
-# -- refusals of what is not ported ----------------------------------------
+# -- the serving mesh's flag checks (the sharded runs: test_torch_port_sharding.py)
 REFUSED = {
-    "serve mesh": (["serve", "--ckpt=c", "--serve.mesh.model=2"], "A.6"),
-    "serve mesh with replicas": (["serve", "--ckpt=c", "--serve.replicas=2", "--serve.mesh.data=2"], "A.6"),
+    # JAX's two SystemExit checks of --serve.mesh.*, made before the
+    # checkpoint loads: the bucket engine, and a fleet the world cannot hold
+    "serve mesh": (["serve", "--ckpt=c", "--serve.mesh.model=2"], "applies to --serve.engine=slots"),
+    "serve mesh with replicas": (["serve", "--ckpt=c", "--serve.engine=slots", "--serve.replicas=2",
+                                  "--serve.mesh.data=2"], "overruns"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_flag_groups_raise_naming_the_item(name):
-    argv, item = REFUSED[name]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}"):
+    argv, words = REFUSED[name]
+    with pytest.raises(SystemExit, match=words):
         _port_main(port_clm_script.FAMILY, argv)
 
 
 def test_help_lists_the_unported_groups(capsys):
     assert _port_main(port_clm_script.FAMILY, ["fit", "--help"]) is None
     out = capsys.readouterr().out
-    assert "--device" in out and "A.5" not in out and "A.6" in out
+    assert "--device" in out and "A.5" not in out and "A.6" not in out
+    # the serving mesh is ported: its flags are listed, not refused
+    assert "--serve.mesh.data" in out and "--serve.mesh.model" in out and "--serve.mesh.device_offset" in out
     # outer serving is ported: its flags are listed, not refused
     assert "--serve.replicas=<n>" in out and "--serve.autoscale.max=<n>" in out and "--serve.http.port" in out
     # observability is ported: its flags and the obs subcommand are listed, not refused

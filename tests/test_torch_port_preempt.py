@@ -555,7 +555,7 @@ def test_preemption_ported_and_the_rest_still_deferred(pair):
         eng = SlotServingEngine(t_model, BASE, slots=2, kv_layout="paged_int8", preemption=mode,
                                 device="cpu")
         assert eng.health()["preemption"] == mode and eng.stats()["preemption"]["mode"] == mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="mesh must be"):
         SlotServingEngine(t_model, BASE, slots=2, preemption="swap", device="cpu", mesh=object())
     # speculation and kv_layout="auto" are ported: preemption composes with
     # speculation over a paged pool, and an "auto" layout defers the pool check

@@ -273,7 +273,9 @@ def test_deferred_arguments_raise(pair, kwargs):
             SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
         return
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # ported (tests/test_torch_port_sharding.py): a mesh that is not one
+        # raises JAX's TypeError
+        with pytest.raises(TypeError, match="mesh must be"):
             SlotServingEngine(t_model, config, slots=2, device="cpu", **kwargs)
         return
     if config.sampling.do_sample:
