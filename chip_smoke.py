@@ -74,8 +74,14 @@ non-zero and never prints the final line):
 4. model: the full-width C4 CLM ("clm-base": vocab 32000, 1024 context, 512
    latents, 896 channels, 8 heads, 16 layers; random weights from a seed),
    one forward with the kernel against ``attention_impl="xla"``, fp32 and
-   bf16 compute; and a small model's greedy tokens on the card against the
-   same model on the CPU;
+   bf16 compute; the same forward with ``PERCEIVER_FUSED_QKV=1`` (q/k/v in
+   one product a self-attention layer, k/v in one at the cross-attention)
+   against the unfused one, within the same gates, with equal K1 launches
+   and 103 -> 70 GEMM calls (aten ``mm``/``addmm``/``bmm``), both forwards'
+   ms; a bf16 greedy ``generate()`` (4 prompts of 480 tokens, 64 latents,
+   32 new tokens) fused and unfused, run unfused, fused, fused, unfused,
+   tokens equal under the near-tie rule, ms a step of each run; and a small
+   model's greedy tokens on the card against the same model on the CPU;
 5. serve: ``ServingEngine.serve()`` over the full-width model (fp32): 8
    ragged requests in two configs that together run prefill, latent growth,
    prefix growth and the sliding window; served tokens must equal
@@ -400,19 +406,23 @@ non-zero and never prints the final line):
    prefix dropout 0.5 from the step generators, ``MESH_STEPS`` steps a
    mesh). (a) One spawned rank (``python3 chip_smoke.py --mesh-rank``),
    NCCL on ``cuda:0``: the no-mesh step (the single-rank trajectory, 34
-   K1/K2/K3 launches a step on ``tf32x3``), then the mesh ``data=1``,
-   whose losses and parameters equal it to the bit. (b) Two spawned ranks share
+   K1/K2/K3 launches a step on ``tf32x3``) with AdamW and with LAMB, then
+   the mesh ``data=1``, whose losses and parameters equal the AdamW
+   trajectory to the bit. (b) Two spawned ranks share
    ``cuda:0`` over gloo (NCCL refuses two ranks on one device; the backend
    is an argument, never a caught failure) with the compute on the card:
    ``data=2``, ``fsdp=2``, ``model=2`` (4 heads of 112 a rank through
-   K1-K3) and ``data=1, seq=2`` with ``shard_seq`` and
-   ``attention_impl="ring"``; rank 0's losses within 2e-4 of the
-   single-rank trajectory (both ranks report the global loss), every rank's
+   K1-K3), ``data=1, seq=2`` with ``shard_seq`` and
+   ``attention_impl="ring"``, and LAMB under ``fsdp=2`` and ``model=2``
+   (its trust ratios' whole norms: one all-reduce a step of the shards'
+   squared norms); rank 0's losses within 2e-4 of the single-rank
+   trajectory of its optimizer (both ranks report the global loss), every rank's
    K1/K2/K3 launches a step 34 each on ``tf32x3`` (0 under ``seq``: every
    attend takes the ring), each mesh's collectives present (``data``: one
    all-reduce of every gradient byte; ``fsdp``: all-gathers and as many
    reduce-scatters; ``model``: all-reduces; ``seq``: ring exchanges, staged
-   through host memory on gloo). Printed per mesh and rank: launches by
+   through host memory on gloo; LAMB: one all-reduce a step more than the
+   AdamW case of its mesh, ``norm_all_reduces_per_step``). Printed per mesh and rank: launches by
    route a step, collective calls and bytes by kind a step, step ms p50
    and peak ``max_memory_allocated``, beside the card's ``nvidia-smi``
    line. The ranks load the kernels phase 2 built and refuse to build
@@ -479,12 +489,13 @@ non-zero and never prints the final line):
    (``perceiver_io_tpu_torch.scripts.text.clm.main`` and
    ``...audio.symbolic.main``), each line with the card's ``nvidia-smi``
    line. (a) ``fit --data=synthetic`` at clm-base width (1024 context, 512
-   latents, 896 channels, 8 heads, 16 layers; the byte tokenizer's 262-id
+   latents, 896 channels, 8 heads) over ``SHALLOW_SERVE_LAYERS`` (4) of its
+   16 layers (the byte tokenizer's 262-id
    vocabulary through the family's link), the family's bf16, 8 steps of 8
    x 1024 in 2 microbatches, AdamW to 2e-5 (cosine, 2 warmup steps; 1e-4
    overshot on this corpus),
    clipping at 1, one validation batch, the best checkpoint written: the
-   loss is finite and falls, K1, K2 and K3 launch 34 times a step on
+   loss is finite and falls, K1, K2 and K3 launch 10 times a step on
    ``wgmma`` (validation's K1 counted apart), and phase 13's ``train_fit``
    driving ``Trainer.fit`` directly with the same arguments logs the same
    losses within 1e-6 relative. (b) ``validate --ckpt`` and ``test --ckpt``
@@ -631,6 +642,7 @@ and ``torch.backends.cudnn.allow_tf32`` set False).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -1380,7 +1392,106 @@ def set_attention_impl(model, impl: str) -> None:
             m.attention_impl = impl
 
 
-def model_phase(torch, clm, flash, gen_mod):
+FUSED_ENV = "PERCEIVER_FUSED_QKV"
+#: phase 4's fused generate(): prompts, their length, latents, new tokens
+FUSED_PROMPTS, FUSED_PROMPT_LEN, FUSED_LATENTS, FUSED_NEW = 4, 480, 64, 32
+
+
+@contextlib.contextmanager
+def fused_qkv(on: bool):
+    """``PERCEIVER_FUSED_QKV`` set to ``1`` (or unset) within the block."""
+    before = os.environ.pop(FUSED_ENV, None)
+    if on:
+        os.environ[FUSED_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(FUSED_ENV, None)
+        if before is not None:
+            os.environ[FUSED_ENV] = before
+
+
+def count_gemms(torch, fn) -> int:
+    """The GEMM calls (aten ``mm``, ``addmm``, ``bmm``) ``fn()`` makes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    gemms = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default}
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.calls += func in gemms
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.calls
+
+
+def fused_forward(torch, flash, model, x, prefix_len: int, logits, tol: float, smi: str) -> None:
+    """Phase 4's fused forward: ``PERCEIVER_FUSED_QKV=1`` against the
+    unfused kernel forward ``logits``, within the phase's gate ``tol``, with
+    equal K1 launches; GEMM calls and forward ms of both."""
+    runs = {}
+    for on in (False, True):
+        with fused_qkv(on), torch.no_grad():
+            reset_counts(flash)
+            out = model(x, prefix_len=prefix_len)
+            torch.cuda.synchronize()
+            runs[on] = dict(out=out, k1=flash.flash_attention.launches,
+                            k1_routes={r: n for r, n in flash.flash_attention.route_launches.items() if n},
+                            gemms=count_gemms(torch, lambda: model(x, prefix_len=prefix_len)),
+                            ms=cuda_ms(lambda: model(x, prefix_len=prefix_len), 3))
+    err = (runs[True]["out"].float() - logits.float()).abs().max().item()
+    emit("model_fused", dtype=str(model.dtype).split(".")[-1], max_abs_err_vs_unfused=err, tol=tol,
+         k1_launches={"unfused": runs[False]["k1"], "fused": runs[True]["k1"]},
+         k1_route_launches=runs[True]["k1_routes"],
+         gemm_calls={"unfused": runs[False]["gemms"], "fused": runs[True]["gemms"]},
+         forward_ms={"unfused": runs[False]["ms"], "fused": runs[True]["ms"]}, nvidia_smi=smi)
+    if not (err <= tol and runs[True]["k1"] == runs[False]["k1"] > 0
+            and runs[True]["gemms"] < runs[False]["gemms"]):
+        raise AssertionError(f"fused forward {model.dtype}: max|d| {err} (tol {tol}), K1 "
+                             f"{runs[False]['k1']} -> {runs[True]['k1']}, GEMMs {runs[False]['gemms']} -> "
+                             f"{runs[True]['gemms']}")
+
+
+def fused_generate(torch, flash, gen_mod, model, smi: str) -> None:
+    """Phase 4's fused ``generate()`` at bf16 (the decode steps' k/v in one
+    product, 17 a step): unfused, fused, fused, unfused; tokens equal under
+    the near-tie rule, ms a step of each run."""
+    g = torch.Generator().manual_seed(12)
+    prompts = torch.randint(1, model.config.vocab_size, (FUSED_PROMPTS, FUSED_PROMPT_LEN), generator=g)
+    cfg = gen_mod.GenerationConfig(max_new_tokens=FUSED_NEW, num_latents=FUSED_LATENTS)
+    ids = prompts.cuda()
+    rows, ms, k1 = {}, {False: [], True: []}, {}
+    for on in (False, True, True, False):
+        with fused_qkv(on):
+            reset_counts(flash)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gen_mod.generate(model, ids, cfg).cpu()  # ends in a host read
+            ms[on].append((time.perf_counter() - t0) * 1e3 / FUSED_NEW)
+            k1[on] = flash.flash_attention.launches
+        if on in rows and not torch.equal(rows[on], out):
+            raise AssertionError(f"fused generate: two runs with the switch {'on' if on else 'off'} differ")
+        rows[on] = out
+    failures = []
+    ref = rows[False].numpy()
+    divergences = _divergences(torch, gen_mod, model, rows[True].numpy(), ref, prompts.numpy(),
+                               [cfg] * FUSED_PROMPTS, failures)
+    emit("model_fused_generate", dtype="bfloat16", prompts=FUSED_PROMPTS, prompt_len=FUSED_PROMPT_LEN,
+         num_latents=FUSED_LATENTS, new_tokens=FUSED_NEW,
+         tokens_equal=bool(torch.equal(rows[True], rows[False])), divergences=divergences,
+         k1_launches={"unfused": k1[False], "fused": k1[True]},
+         ms_per_step={"unfused": ms[False], "fused": ms[True]},
+         tokens_per_s={"unfused": [FUSED_PROMPTS * 1e3 / t for t in ms[False]],
+                       "fused": [FUSED_PROMPTS * 1e3 / t for t in ms[True]]}, nvidia_smi=smi)
+    if failures or k1[True] != k1[False]:
+        raise AssertionError(f"fused generate: {failures}, K1 {k1[False]} -> {k1[True]}")
+
+
+def model_phase(torch, clm, flash, gen_mod, smi: str):
     cfg = clm_base_config(clm.CausalLanguageModelConfig)
     g = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randint(1, cfg.vocab_size, (2, cfg.max_seq_len), generator=g, device="cuda")
@@ -1411,6 +1522,9 @@ def model_phase(torch, clm, flash, gen_mod):
              finite=finite, forward_ms=kernel_fwd_ms, plain_forward_ms=plain_fwd_ms)
         if not (err <= tol and finite and shape_ok):
             raise AssertionError(f"full-width forward {dtype}: max|d| {err} (tol {tol})")
+        fused_forward(torch, flash, model, x, cfg.max_prefix_len, logits, tol, smi)
+        if dtype == torch.bfloat16:
+            fused_generate(torch, flash, gen_mod, model, smi)
         del model, logits, plain
         torch.cuda.empty_cache()
 
@@ -3825,9 +3939,13 @@ SAM_SAMPLE = dict(do_sample=True, temperature=1.0, top_k=15)
 
 
 #: phase 14b's meshes over two ranks sharing one card, in order:
-#: (name, axis sizes, attention_impl, shard_seq)
-MESH_CASES = (("data2", {"data": 2}, "auto", False), ("fsdp2", {"data": 1, "fsdp": 2}, "auto", False),
-              ("model2", {"data": 1, "model": 2}, "auto", False), ("seq2", {"data": 1, "seq": 2}, "ring", True))
+#: (name, axis sizes, attention_impl, shard_seq, optimizer)
+MESH_CASES = (("data2", {"data": 2}, "auto", False, "adamw"),
+              ("fsdp2", {"data": 1, "fsdp": 2}, "auto", False, "adamw"),
+              ("model2", {"data": 1, "model": 2}, "auto", False, "adamw"),
+              ("seq2", {"data": 1, "seq": 2}, "ring", True, "adamw"),
+              ("fsdp2_lamb", {"data": 1, "fsdp": 2}, "auto", False, "lamb"),
+              ("model2_lamb", {"data": 1, "model": 2}, "auto", False, "lamb"))
 MESH_STEPS = 3
 #: two microbatches a step: 34 K1/K2/K3 launches a step, as phase 13's fits
 MESH_ACCUM = 2
@@ -3845,8 +3963,8 @@ def mesh_config(clm):
 
 
 def mesh_trajectory(torch, clm, flash, parallel, training, mesh, cfg, dev, impl: str = "auto",
-                    shard_seq: bool = False, keep_params: bool = False) -> dict:
-    """``MESH_STEPS`` AdamW steps of ``cfg`` (prefix dropout 0.5, each
+                    shard_seq: bool = False, keep_params: bool = False, optimizer: str = "adamw") -> dict:
+    """``MESH_STEPS`` steps of ``optimizer`` (lr 1e-4) over ``cfg`` (prefix dropout 0.5, each
     step's generator from ``(0, step)``) on ``mesh`` (None: the single-rank
     step on ``dev``): losses, K1/K2/K3 launches by route and collective
     calls and bytes by kind a step, step ms (a host clock around a step
@@ -3856,7 +3974,7 @@ def mesh_trajectory(torch, clm, flash, parallel, training, mesh, cfg, dev, impl:
 
     model = clm.CausalLanguageModel(cfg, seed=0, device=dev, attention_impl=impl)
     n_params = sum(p.numel() for p in model.parameters())
-    tx = training.make_optimizer(1e-4)
+    tx = training.make_optimizer(1e-4, optimizer=optimizer)
     if mesh is None:
         state = parallel.TrainState.create(model, tx)
     else:
@@ -3924,17 +4042,20 @@ def mesh_rank_main(argv) -> int:
         results["shard_a"] = shard_world_one(torch, clm, flash, ragged, gen_mod, slots_mod, buckets, sharding_mod,
                                              clm_base_config(clm.CausalLanguageModelConfig),
                                              job["shard_prompts"], dev)
-    for name, sizes, impl, shard_seq in job["cases"]:
+    for name, sizes, impl, shard_seq, optimizer in job["cases"]:
         mesh = parallel.make_mesh(parallel.MeshConfig(**sizes), device=dev)
-        if name == "world1":  # (a): the no-mesh step and the world-of-one mesh, in this process
+        if name == "world1":  # (a): the no-mesh steps and the world-of-one mesh, in this process
             plain = mesh_trajectory(torch, clm, flash, parallel, training, None, cfg, dev, keep_params=True)
             meshed = mesh_trajectory(torch, clm, flash, parallel, training, mesh, cfg, dev, keep_params=True)
             same = [n for n, v in plain.pop("params").items() if torch.equal(v, meshed["params"][n])]
             n_params = len(meshed.pop("params"))
             _reset_peak(torch, dev)
-            results[name] = {**meshed, "plain": plain, "params_bit_equal": len(same), "params": n_params}
+            lamb = mesh_trajectory(torch, clm, flash, parallel, training, None, cfg, dev, optimizer="lamb")
+            results[name] = {**meshed, "plain": plain, "plain_lamb": lamb, "params_bit_equal": len(same),
+                             "params": n_params}
         else:
-            results[name] = mesh_trajectory(torch, clm, flash, parallel, training, mesh, cfg, dev, impl, shard_seq)
+            results[name] = mesh_trajectory(torch, clm, flash, parallel, training, mesh, cfg, dev, impl, shard_seq,
+                                            optimizer=optimizer)
     (job_dir / f"rank{rank}.json").write_text(json.dumps(results))
     multihost.shutdown()
     return 0
@@ -4017,7 +4138,7 @@ def mesh_phase(torch, clm, flash, parallel, training, root: Path, smi: str) -> d
     # (a) in one NCCL rank: the single-rank trajectory (every mesh's
     # reference) and the world-of-one mesh; (b)'s ranks start meanwhile and
     # wait for the card
-    first = start_mesh_ranks(1, MESH_BACKENDS["world1"], [["world1", {"data": 1}, "auto", False]], cfg,
+    first = start_mesh_ranks(1, MESH_BACKENDS["world1"], [["world1", {"data": 1}, "auto", False, "adamw"]], cfg,
                              root / "world1", shard_prompts=shard_workload())
     second = start_mesh_ranks(2, MESH_BACKENDS["world2"], [list(c) for c in MESH_CASES], cfg, root / "world2")
     try:
@@ -4027,11 +4148,13 @@ def mesh_phase(torch, clm, flash, parallel, training, root: Path, smi: str) -> d
         raise
     w1 = one["world1"]
     ref = w1["plain"]
-    ranks = {"single_rank": [ref], "world1": [w1]}
-    emit("mesh", case="single_rank", losses=ref["losses"], step_ms=ref["step_ms"],
-         step_ms_p50=_p50(ref["step_ms"]), peak_bytes=ref["peak_bytes"], nvidia_smi=smi,
-         launches_per_step=_per_step([{k: s[k] for k in ("k1", "k2", "k3")} for s in ref["launches"]]))
-    for run in (ref, w1):
+    refs = {"adamw": ref, "lamb": w1["plain_lamb"]}
+    ranks = {"single_rank": [ref], "single_rank_lamb": [refs["lamb"]], "world1": [w1]}
+    for case, run in (("single_rank", ref), ("single_rank_lamb", refs["lamb"])):
+        emit("mesh", case=case, losses=run["losses"], step_ms=run["step_ms"],
+             step_ms_p50=_p50(run["step_ms"]), peak_bytes=run["peak_bytes"], nvidia_smi=smi,
+             launches_per_step=_per_step([{k: s[k] for k in ("k1", "k2", "k3")} for s in run["launches"]]))
+    for run in (ref, refs["lamb"], w1):
         for s in run["launches"]:
             for k in ("k1", "k2", "k3"):
                 if {r: n for r, n in s[k].items() if n} != want:
@@ -4041,12 +4164,13 @@ def mesh_phase(torch, clm, flash, parallel, training, root: Path, smi: str) -> d
                         f"{w1['params_bit_equal']} of {w1['params']} parameters bit-equal")
     two = finish_mesh_ranks(second)
     n_params = ref["n_params"]
-    for name, sizes, impl, _ in MESH_CASES:
+    for name, sizes, impl, _, optimizer in MESH_CASES:
         ranks[name] = [r[name] for r in two]
         r0 = ranks[name][0]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"]))
+        single = refs[optimizer]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], single["losses"]))
         if rel > MESH_RTOL:
-            failures.append(f"{name}: losses {r0['losses']} vs single-rank {ref['losses']} (rel {rel:.3g})")
+            failures.append(f"{name}: losses {r0['losses']} vs single-rank {single['losses']} (rel {rel:.3g})")
         for rank, res in enumerate(ranks[name]):
             if res["losses"] != r0["losses"]:
                 failures.append(f"{name}: rank {rank}'s losses {res['losses']} vs rank 0's {r0['losses']}")
@@ -4056,19 +4180,32 @@ def mesh_phase(torch, clm, flash, parallel, training, root: Path, smi: str) -> d
                     if got != ({} if impl == "ring" else want):
                         failures.append(f"{name} rank {rank}: {k} launches {s[k]}")
             comm = res["collectives"][-1]
+            base = name.removesuffix("_lamb")
             present = {"data2": comm["all_reduce"]["bytes"] >= 4 * n_params,
                        # an all-gather a sharded parameter a microbatch (and the
                        # microbatches' regrouping of the batch), a reduce-scatter each
                        "fsdp2": 0 < comm["reduce_scatter"]["calls"] <= comm["all_gather"]["calls"],
                        "model2": comm["all_reduce"]["calls"] > 0,
                        "seq2": comm["send_recv"]["calls"] > 0
-                       and comm["send_recv"]["host_staged"] == comm["send_recv"]["calls"]}[name]
+                       and comm["send_recv"]["host_staged"] == comm["send_recv"]["calls"]}[base]
             if not present:
                 failures.append(f"{name} rank {rank}: collectives {comm}")
-            emit("mesh", case=name, rank=rank, mesh=sizes, backend=MESH_BACKENDS["world2"], device=MESH_DEVICE,
+            lamb = {}
+            if optimizer == "lamb":
+                # the trust ratios' whole norms: one all-reduce of the shards'
+                # squared norms (every sharded parameter's over one axis) a step
+                adamw = ranks[base][rank]["collectives"][-1]["all_reduce"]
+                lamb = dict(norm_all_reduces_per_step=comm["all_reduce"]["calls"] - adamw["calls"],
+                            norm_all_reduce_bytes_per_step=comm["all_reduce"]["bytes"] - adamw["bytes"],
+                            adamw_step_ms_p50=_p50(ranks[base][rank]["step_ms"]))
+                if lamb["norm_all_reduces_per_step"] != 1:
+                    failures.append(f"{name} rank {rank}: {lamb['norm_all_reduces_per_step']} norm all-reduces "
+                                    f"a step, want 1")
+            emit("mesh", case=name, rank=rank, mesh=sizes, optimizer=optimizer, **lamb,
+                 backend=MESH_BACKENDS["world2"], device=MESH_DEVICE,
                  transport="gloo on one card: all_reduce / all_gather / reduce_scatter / broadcast take the "
                            "CUDA tensors; ring send_recv staged through host memory",
-                 losses=res["losses"], single_rank_losses=ref["losses"], max_rel=rel,
+                 losses=res["losses"], single_rank_losses=single["losses"], max_rel=rel,
                  launches_per_step=_per_step([{k: s[k] for k in ("k1", "k2", "k3")} for s in res["launches"]]),
                  collectives_per_step=res["collectives"][-1], step_ms=res["step_ms"],
                  step_ms_p50=_p50(res["step_ms"]), peak_bytes=res["peak_bytes"], nvidia_smi=smi)
@@ -4079,7 +4216,7 @@ def mesh_phase(torch, clm, flash, parallel, training, root: Path, smi: str) -> d
          nvidia_smi=smi)
     if failures:
         raise AssertionError("mesh phase: " + "; ".join(failures[:12]))
-    return {"ranks": ranks, "single_rank": ref, "shard_a": one["shard_a"]}
+    return {"ranks": ranks, "single_rank": ref, "single_rank_lamb": refs["lamb"], "shard_a": one["shard_a"]}
 
 
 # -- phase 14c: the sharded slot engine ----------------------------------------
@@ -5187,10 +5324,11 @@ def fleet_phase(torch, flash, ragged, gen_mod, slots_mod, buckets, serve, smi: s
     return launches
 
 
-# the cli phase: the CLM family's CLI at clm-base width (fit, validate,
-# test, serve) and the symbolic family's fit at GiantMIDI width
+# the cli phase: the CLM family's CLI at clm-base width over
+# SHALLOW_SERVE_LAYERS of its 16 layers (fit, validate, test, serve) and the
+# symbolic family's fit at GiantMIDI width
 CLI_MODEL = ["--model.num_channels=896", "--model.max_latents=512", "--model.num_heads=8",
-             "--model.num_self_attention_layers=16"]
+             f"--model.num_self_attention_layers={SHALLOW_SERVE_LAYERS}"]
 # the synthetic corpus's 27 characters take 27 of the 262 byte ids: AdamW at
 # phase 13's 1e-4 overshot after its second update (6.39 -> 5.83 -> 9.34 by
 # step 6 on an NVIDIA H100), so the CLI's fit peaks at 2e-5
@@ -6827,7 +6965,7 @@ def main() -> int:
          ptxas={name: ptxas_by_kernel(log) for name, log in _build.BUILD_LOG.items()})
     cases = timed("kernel", kernel_cases, torch, flash)
     timed("k1_refusals", k1_refusals, torch, flash)
-    timed("model", model_phase, torch, clm, flash, gen_mod)
+    timed("model", model_phase, torch, clm, flash, gen_mod, smi)
     base = clm.CausalLanguageModel(clm_base_config(clm.CausalLanguageModelConfig), dtype=torch.float32,
                                    seed=0).eval()
     served = timed("serve", serve_phase, torch, flash, gen_mod, engine_mod, base,

@@ -22,10 +22,16 @@ model (:func:`record_swap_gbps`, :func:`lookup_swap_gbps`).
 ``version: 1``, JAX's), :func:`load_registry` merges one in, and
 ``PERCEIVER_DECODE_STRATEGY_FILE`` names a file every lookup merges first.
 
-Registry keys are ``(shape_key, platform, ())``, where ``platform`` is the
-torch device type (``"cuda"`` or ``"cpu"``). The port has no trace-env
-fingerprint, so the third part is empty; a file written by the JAX package
-loads its entries under JAX's own keys, which the port never looks up.
+Registry keys are ``(shape_key, platform, env)``, where ``platform`` is the
+torch device type (``"cuda"`` or ``"cpu"``) and ``env`` the port's
+fingerprint of its environment switches, ``(PERCEIVER_FUSED_QKV,
+PERCEIVER_FLASH_MIN_KV)`` normalised
+(:func:`~perceiver_io_tpu_torch.models.core.modules.trace_env_fingerprint`),
+so a verdict measured under one setting is not served under another. A file
+whose keys end in ``()`` (written before the port read either switch, so
+with both at their defaults) loads under ``(False, 0)``; a file written by
+the JAX package loads its entries under JAX's own keys, which the port
+never looks up.
 
 Each probe reads the clock only after a host read of its last token (a
 fence on the card), so a probe times the device's work, not its dispatch.
@@ -45,6 +51,8 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+
+from perceiver_io_tpu_torch.models.core.modules import trace_env_fingerprint
 
 MODES = ("auto", "cached", "recompute")
 PHASE_CHOICES = ("cached", "recompute")
@@ -153,9 +161,9 @@ def _platform(platform: Optional[str]) -> str:
 
 
 def registry_key(model, platform: Optional[str] = None) -> tuple:
-    """``(shape_key, platform, ())``; ``platform`` defaults to the device
-    type the model lies on."""
-    return (shape_key(model), str(platform or model.device.type), ())
+    """``(shape_key, platform, env fingerprint)``; ``platform`` defaults to
+    the device type the model lies on."""
+    return (shape_key(model), str(platform or model.device.type), trace_env_fingerprint())
 
 
 def _maybe_load_env_file() -> None:
@@ -279,8 +287,13 @@ def _key_to_json(key: tuple) -> dict:
     return {"shape": list(shape), "platform": platform, "env": repr(env)}
 
 
+#: the fingerprint of a key written before the port read its switches
+_DEFAULT_ENV = (False, 0)
+
+
 def _key_from_json(obj: dict) -> tuple:
-    return (tuple(obj["shape"]), obj["platform"], ast.literal_eval(obj["env"]))
+    env = ast.literal_eval(obj["env"])
+    return (tuple(obj["shape"]), obj["platform"], _DEFAULT_ENV if env == () else env)
 
 
 #: (file field, registry, verdict field, choices) of the shape-keyed axes

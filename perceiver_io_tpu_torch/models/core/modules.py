@@ -17,7 +17,14 @@ forward order: the prefix scores first, then per layer the attention
 keep-masks, the attention branch's and the MLP branch's. Activation
 checkpointing recomputes each layer in the backward
 (``torch.utils.checkpoint``) and, with offloading, keeps only the layers'
-inputs, in pinned host memory. The fused-QKV switch is not ported.
+inputs, in pinned host memory.
+
+``PERCEIVER_FUSED_QKV=1`` (:func:`fused_qkv_enabled`, read at every call)
+projects a self-attention's q, k and v in one product over the
+concatenated weights, and every attention's k and v (``project_kv``, the
+seam the decode phases call) in one; the ``state_dict`` is unchanged and
+the switch is off by default. :func:`trace_env_fingerprint` gives it with
+``PERCEIVER_FLASH_MIN_KV`` as the key of the measured strategies.
 
 The Perceiver IO encoder and decoder (:class:`PerceiverEncoder`,
 :class:`PerceiverDecoder`, :class:`PerceiverIO`) keep JAX's weight sharing:
@@ -39,6 +46,7 @@ an MLP holds ``1 / tp.size`` of its hidden width the same way. Without
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -47,17 +55,41 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from perceiver_io_tpu_torch.models.core.adapter import TrainableQueryProvider
-from perceiver_io_tpu_torch.ops.attention import dot_product_attention, draw_shape, draw_view, dropout
+from perceiver_io_tpu_torch.ops.attention import dot_product_attention, draw_shape, draw_view, dropout, flash_min_kv
 from perceiver_io_tpu_torch.ops.position import RotaryEmbedding, positions
 
 # torch defaults, required for numerical parity with the reference.
 LAYER_NORM_EPS = 1e-5
 
 
+def fused_qkv_enabled() -> bool:
+    """``PERCEIVER_FUSED_QKV=1``: same-input projections in one product
+    (module docstring). Read at every call, as JAX's un-jitted ``apply``
+    reads it."""
+    return os.environ.get("PERCEIVER_FUSED_QKV", "0") == "1"
+
+
+def trace_env_fingerprint() -> Tuple[bool, int]:
+    """``(fused_qkv, flash_min_kv)``: the environment switches that change
+    what the port computes, normalised as JAX normalises them (an unset or
+    unparseable floor is 0), so a measured verdict is kept per setting.
+    JAX's fingerprint also carries ``PERCEIVER_FLASH_BLOCKS`` and
+    ``PERCEIVER_RAGGED_KERNEL``, which have nothing to set in the port."""
+    return (fused_qkv_enabled(), flash_min_kv())
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype`` (flax ``Dense(dtype=...)``)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def fused_dense(layers, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``torch.cat([dense(l, x, dtype) for l in layers], -1)`` as one
+    product over the output-concatenated weights (JAX's ``_fused_dense``)."""
+    weight = torch.cat([layer.weight for layer in layers]).to(dtype)
+    bias = None if layers[0].bias is None else torch.cat([layer.bias for layer in layers]).to(dtype)
+    return F.linear(x.to(dtype), weight, bias)
 
 
 def row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp) -> torch.Tensor:
@@ -197,22 +229,29 @@ class MultiHeadAttention(nn.Module):
         """``(b, n, Dq)`` -> scaled, then rotated ``(b, h, n, ck)``."""
         if self.tp is not None:
             x_q = self.tp.enter(x_q)
-        q = self._split_heads(dense(self.q_proj, x_q, self.dtype))
-        q = q * ((self.num_qk_channels // self.num_heads) ** -0.5)
-        if rot_pos_emb is not None:
-            q = rot_pos_emb.rotate(q)
-        return q
+        return self._finish_q(dense(self.q_proj, x_q, self.dtype), rot_pos_emb)
+
+    def _finish_q(self, q: torch.Tensor, rot_pos_emb: Optional[RotaryEmbedding]) -> torch.Tensor:
+        q = self._split_heads(q) * ((self.num_qk_channels // self.num_heads) ** -0.5)
+        return q if rot_pos_emb is None else rot_pos_emb.rotate(q)
+
+    def _finish_k(self, k: torch.Tensor, rot_pos_emb: Optional[RotaryEmbedding]) -> torch.Tensor:
+        k = self._split_heads(k)
+        return k if rot_pos_emb is None else rot_pos_emb.rotate(k)
 
     def project_kv(self, x_kv: torch.Tensor, rot_pos_emb: Optional[RotaryEmbedding] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(b, n, Dkv)`` -> rotated keys ``(b, h, n, ck)``, values ``(b, h, n, cv)``."""
+        """``(b, n, Dkv)`` -> rotated keys ``(b, h, n, ck)``, values ``(b, h, n, cv)``;
+        one product under ``PERCEIVER_FUSED_QKV=1``."""
         if self.tp is not None:
             x_kv = self.tp.enter(x_kv)
-        k = self._split_heads(dense(self.k_proj, x_kv, self.dtype))
-        if rot_pos_emb is not None:
-            k = rot_pos_emb.rotate(k)
-        v = self._split_heads(dense(self.v_proj, x_kv, self.dtype))
-        return k, v
+        if fused_qkv_enabled():
+            # the local widths: under tp the weights are this rank's column shards
+            kv = fused_dense((self.k_proj, self.v_proj), x_kv, self.dtype)
+            k, v = kv.split([self.k_proj.weight.shape[0], self.v_proj.weight.shape[0]], dim=-1)
+        else:
+            k, v = dense(self.k_proj, x_kv, self.dtype), dense(self.v_proj, x_kv, self.dtype)
+        return self._finish_k(k, rot_pos_emb), self._split_heads(v)
 
     def project_out(self, o: torch.Tensor) -> torch.Tensor:
         """``(b, h, n, cv)`` -> merged and output-projected ``(b, n, out)``."""
@@ -240,8 +279,14 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x_q, x_kv, pad_mask=None, rot_pos_emb_q=None, rot_pos_emb_k=None,
                 deterministic: bool = True, generator: Optional[torch.Generator] = None):
-        q = self.project_q(x_q, rot_pos_emb_q)
-        k, v = self.project_kv(x_kv, rot_pos_emb_k)
+        if x_q is x_kv and fused_qkv_enabled():  # self-attention: q, k and v in one product
+            x = x_q if self.tp is None else self.tp.enter(x_q)
+            projs = (self.q_proj, self.k_proj, self.v_proj)
+            q, k, v = fused_dense(projs, x, self.dtype).split([p.weight.shape[0] for p in projs], dim=-1)
+            q, k, v = self._finish_q(q, rot_pos_emb_q), self._finish_k(k, rot_pos_emb_k), self._split_heads(v)
+        else:
+            q = self.project_q(x_q, rot_pos_emb_q)
+            k, v = self.project_kv(x_kv, rot_pos_emb_k)
         return self.attend(q, k, v, pad_mask=pad_mask, deterministic=deterministic,
                            generator=generator)
 

@@ -2,7 +2,7 @@
 Perceiver attention module.
 
 Counterpart of ``perceiver_io_tpu/ops/attention.py``. Dispatch
-(:func:`kernel_takes`, a pure function of shapes, dtypes and ``causal``):
+(:func:`kernel_takes`, a pure function of shapes, dtypes, ``causal`` and the key floor):
 
 - ``impl="auto"`` on CUDA tensors launches the flash kernel
   (:mod:`perceiver_io_tpu_torch.ops.flash_attention`) wherever the JAX
@@ -13,12 +13,15 @@ Counterpart of ``perceiver_io_tpu/ops/attention.py``. Dispatch
   than queries) it takes the plain path, as JAX's ``auto`` takes its einsum
   path. Every ``(q/k, v)`` head-dim pair that JAX's kernel takes has a K1
   route: the tile routes' pairs (``flash_attention.HEAD_DIMS``) and the
-  ``wide`` route for the rest. On CPU tensors
+  ``wide`` route for the rest. Below the key floor ``PERCEIVER_FLASH_MIN_KV``
+  (:func:`flash_min_kv`, read at every call; unset or unparseable is 0) it
+  takes the plain path, as JAX's ``_flash_eligible`` does. On CPU tensors
   ``auto`` runs the plain path, as the JAX package runs its einsum path off
   the TPU.
 - ``impl="flash"`` goes through the kernel's wrapper (on the CPU that is the
-  kernel's plain version); on a shape that JAX's kernel refuses for one of
-  the reasons above it raises ``ValueError``, as JAX's does.
+  kernel's plain version), whatever the key floor; on a shape that JAX's
+  kernel refuses for one of the reasons above it raises ``ValueError``, as
+  JAX's does.
 
 The flash branch is differentiable (``FlashAttentionFunction``: the
 backward kernels K2/K3 on the card, their plain version on the CPU); the
@@ -57,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import os
 import warnings
 from typing import Dict, Optional, Tuple
 
@@ -84,12 +88,23 @@ def kernel_refusal(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal:
     return None
 
 
-def kernel_takes(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal: bool) -> bool:
+def flash_min_kv() -> int:
+    """``PERCEIVER_FLASH_MIN_KV``: ``auto`` takes the plain path for fewer
+    keys than this; unset or unparseable is 0 (JAX's ``_flash_eligible``)."""
+    try:
+        return int(os.environ.get("PERCEIVER_FLASH_MIN_KV", "0"))
+    except ValueError:
+        return 0
+
+
+def kernel_takes(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal: bool, min_kv: int = 0) -> bool:
     """Whether ``impl="auto"`` sends a CUDA attend of these shapes to K1:
-    True where JAX's kernel takes it (:func:`kernel_refusal`), False where
-    JAX's ``auto`` takes its einsum path. K1-K3 take every such ``(d, dv)``
-    pair (the tile routes' and, for the rest, ``wide``)."""
-    return kernel_refusal(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal) is None
+    True where JAX's kernel takes it (:func:`kernel_refusal`) and the keys
+    reach ``min_kv``, False where JAX's ``auto`` takes its einsum path. K1-K3
+    take every such ``(d, dv)`` pair (the tile routes' and, for the rest,
+    ``wide``)."""
+    return (k_shape[2] >= min_kv
+            and kernel_refusal(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, causal) is None)
 
 
 def _mask_value() -> float:
@@ -196,7 +211,8 @@ def dot_product_attention(
             f"flash attention requested but unsupported for shapes q={tuple(q.shape)} "
             f"k={tuple(k.shape)}: {refusal}"
         )
-    if impl == "flash" or (impl == "auto" and q.is_cuda and dropout_rate == 0.0 and kernel_takes(*shapes)):
+    if impl == "flash" or (impl == "auto" and q.is_cuda and dropout_rate == 0.0
+                           and kernel_takes(*shapes, min_kv=flash_min_kv())):
         return _flash.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), pad_mask=pad_mask, causal=causal
         )

@@ -32,6 +32,8 @@ device) the step gives the single-device trajectory:
   run the ring over ``seq`` (every other computation is repeated on the
   ``seq`` ranks: only attention's k/v are split);
 - gradients are clipped by the global norm after the reduction;
+- LAMB's trust ratios take each parameter's whole norm: a shard's squared
+  norms are summed over the axes it is sharded on (:func:`_whole_norms`);
 - microbatch ``i`` of ``grad_accum_steps`` is global rows
   ``[i·n/A, (i+1)·n/A)``, sharded over the batch axes, as JAX's;
 - a rank's dropout and prefix noise are its rows (and, in a
@@ -191,7 +193,9 @@ def create_train_state(model: nn.Module, tx: OptimizerFactory, mesh, *, min_fsdp
     reach every rank by a broadcast; each rank then keeps its shard of each
     parameter by the specs (:func:`~.partition.infer_param_specs`), the
     tensor-parallel layers get their group, and the optimizer is built
-    over the shards, so its moments take their parameter's placement.
+    over the shards, so its moments take their parameter's placement. A
+    :class:`~perceiver_io_tpu_torch.training.optim.Lamb` over sharded
+    parameters gets the reducer of whole norms (:func:`_whole_norms`).
 
     :return: ``(state, shardings)``, the second :func:`state_shardings`.
     """
@@ -208,9 +212,8 @@ def create_train_state(model: nn.Module, tx: OptimizerFactory, mesh, *, min_fsdp
     placement.attach(model)
     state = TrainState.create(model, tx)
     state.placement = placement
-    if isinstance(state.optimizer, Lamb) and any(any(e is not None for e in s) for s in placement.specs.values()):
-        raise NotImplementedError("LAMB over sharded parameters (fsdp or model > 1) is not ported: its "
-                                  "trust ratio needs each parameter's whole norm (ROADMAP.md A.6)")
+    if isinstance(state.optimizer, Lamb) and any(placement.sharded_axes(n) for n in placement.specs):
+        state.optimizer.norm_reducer = _whole_norms(placement, model)
     return state, state_shardings(state, mesh)
 
 
@@ -463,6 +466,29 @@ def _clip(state: TrainState, clip: float) -> torch.Tensor:
     scale = torch.clamp(clip / (norm + 1e-6), max=1.0)
     torch._foreach_mul_([g for _, g in named], scale)
     return norm
+
+
+def _whole_norms(placement: ParamPlacement, model: nn.Module):
+    """LAMB's norm reducer over ``placement``: the squared norms of the
+    parameters sharded on one tuple of axes, stacked, in one all-reduce over
+    those axes a step (as :func:`_clip` sums a sharded gradient's squares);
+    a replicated parameter keeps its local norm."""
+    axes_of = {id(p): placement.sharded_axes(n) for n, p in model.named_parameters()}
+    mesh = placement.mesh
+
+    def reduce(params: List[torch.Tensor], sq: torch.Tensor) -> torch.Tensor:
+        rows: Dict[Tuple[str, ...], List[int]] = {}
+        for i, p in enumerate(params):
+            if axes_of[id(p)]:
+                rows.setdefault(axes_of[id(p)], []).append(i)
+        if not rows:
+            return sq
+        sq = sq.clone()
+        for axes, index in rows.items():
+            sq[index] = collectives.all_reduce(sq[index], mesh.group(*axes))
+        return sq
+
+    return reduce
 
 
 def _sharded_gradient_step(loss_fn: LossFn, mesh, *, grad_clip_norm: Optional[float],

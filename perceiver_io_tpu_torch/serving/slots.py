@@ -136,9 +136,12 @@ on its shard (slots over ``data``, heads over ``model``; the driver sends
 each op's plan to the others). Slots must divide the data axis and heads the
 model axis. Greedy output equals the unsharded engine's (the row-parallel
 partial sums are the only float difference), and a 1x1 mesh runs the
-unsharded engine's arithmetic, state byte for byte. No trace-env
-fingerprint guards the prefix index or keys the registry (the port has no
-trace-env flags).
+unsharded engine's arithmetic, state byte for byte.
+
+The prefix index is flushed when the environment switches that change the
+projections or the attends (``models/core/modules.py``
+``trace_env_fingerprint``) change between lookups, as JAX's is: cached
+pages from one setting do not cross to the other.
 """
 from __future__ import annotations
 
@@ -168,6 +171,7 @@ from perceiver_io_tpu_torch.inference.generate import (
     _slot_decode_step_paged,
 )
 from perceiver_io_tpu_torch.inference.samplers import apply_min_new_tokens, default_generator, sample_logits
+from perceiver_io_tpu_torch.models.core.modules import trace_env_fingerprint
 from perceiver_io_tpu_torch.observability import default_ledger
 from perceiver_io_tpu_torch.observability.timeline import tenant_label, tier_label
 from perceiver_io_tpu_torch.ops import paged_attention as paged_ops
@@ -1098,6 +1102,7 @@ class SlotServingEngine(ServingEngine):
             self.prefix_cache = "off"
         self._prefix_index: Optional[PrefixBlockIndex] = (
             PrefixBlockIndex(self.kv_block_size) if self.prefix_cache == "on" else None)
+        self._prefix_env = trace_env_fingerprint()
         # bytes per cached position (k and v) and the int8 layout's fp32
         # scales, at the whole state's shapes (a mesh's shards add up to
         # them); the stack caches count in the footprint gauges but not in
@@ -1262,6 +1267,12 @@ class SlotServingEngine(ServingEngine):
         index = self._prefix_index
         if index is None:
             return None
+        env = trace_env_fingerprint()
+        if env != self._prefix_env:
+            # the other setting projects the pages in another order of sums
+            index.flush(self._pool)
+            self._prefix_env = env
+            self._update_kv_gauges()
         prompt = req.prompt
         prefix_len = self._geometry(req)[2]
         bs = self.kv_block_size

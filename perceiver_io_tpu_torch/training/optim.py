@@ -12,10 +12,15 @@ trainable parameter, as ``optax.adamw`` with no mask); ``lamb`` is
 the weight bridge) are left out of the optimizer: they get no update and no
 moments, as under ``optax.set_to_zero``. Their gradients are still computed,
 so they count in the clipping norm as in JAX.
+
+Under a mesh a parameter may be a shard, and LAMB's trust ratio wants the
+whole tensor's norm: :func:`~perceiver_io_tpu_torch.parallel.train_step.create_train_state`
+gives :class:`Lamb` a norm reducer, which sums the shards' squared norms over
+the axes each parameter is sharded on (GSPMD's whole norms in JAX).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,16 +34,28 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
+#: ``reducer(params, sq) -> sq``: ``sq`` is the ``(n, 2)`` fp32 squared norms
+#: of each parameter (as held on this rank) and of its update; the reducer
+#: returns the whole tensors' squared norms
+NormReducer = Callable[[List[torch.Tensor], torch.Tensor], torch.Tensor]
+
+
 class Lamb(torch.optim.Optimizer):
     """LAMB as ``optax.lamb(lr, b1, b2, eps=1e-6, weight_decay=wd)``: per
     parameter tensor, the bias-corrected Adam direction ``m_hat / (sqrt(v_hat)
     + eps)`` plus ``wd * p``, scaled by the trust ratio ``|p| / |u|`` (1 where
     either norm is 0), times the group's learning rate. Plain tensor code
-    over all of a group's parameters at once (``torch._foreach_*``)."""
+    over all of a group's parameters at once (``torch._foreach_*``).
+
+    ``norm_reducer`` (set under a mesh whose specs shard a parameter) turns
+    each norm of a shard into the whole tensor's: the squared norms go
+    through it before the square root. Without it the norms are the local
+    tensors'."""
 
     def __init__(self, params, lr: float = 1e-3, betas: Tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-6, weight_decay: float = 0.0):
+                 eps: float = 1e-6, weight_decay: float = 0.0, norm_reducer: Optional[NormReducer] = None):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.norm_reducer = norm_reducer
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -76,6 +93,11 @@ class Lamb(torch.optim.Optimizer):
                 torch._foreach_add_(update, params, alpha=group["weight_decay"])
             p_norm = torch.stack(torch._foreach_norm(params))
             u_norm = torch.stack(torch._foreach_norm(update))
+            if self.norm_reducer is not None:
+                # sqrt(x * x) == x in IEEE arithmetic: a row the reducer
+                # leaves alone keeps its local norm to the bit
+                sq = self.norm_reducer(params, torch.stack([p_norm, u_norm], dim=1).float().square())
+                p_norm, u_norm = (n.to(p_norm.dtype) for n in sq.sqrt().unbind(1))
             ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
             torch._foreach_mul_(update, list((ratio * -group["lr"]).unbind()))
             torch._foreach_add_(params, update)

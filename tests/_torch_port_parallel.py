@@ -79,16 +79,19 @@ def clm_batches(n: int = 4, seed: int = 0):
     return out
 
 
-def jax_trajectory(j_model, params, loss_fn, batches, accum: int = 1):
-    """JAX's single-device losses (a one-device mesh, Adam 1e-2, clip 1.0):
-    the baseline every sharded trajectory is held to."""
+def jax_trajectory(j_model, params, loss_fn, batches, accum: int = 1, optimizer: str = "adam"):
+    """JAX's single-device losses (a one-device mesh, ``optimizer`` at 1e-2
+    from JAX's ``make_optimizer``, clip 1.0): the baseline every sharded
+    trajectory is held to."""
     import jax
-    import optax
+
+    from perceiver_io_tpu.training.optim import make_optimizer
 
     from perceiver_io_tpu.parallel import MeshConfig, create_train_state, make_mesh, make_train_step, shard_batch
 
     mesh = make_mesh(MeshConfig(data=1))
-    state, shardings = create_train_state(lambda: params, optax.adam(1e-2), mesh, initial_params=params)
+    state, shardings = create_train_state(lambda: params, make_optimizer(1e-2, optimizer=optimizer), mesh,
+                                          initial_params=params)
     step = make_train_step(loss_fn, mesh, shardings, grad_clip_norm=1.0, grad_accum_steps=accum)
     losses = []
     with mesh:

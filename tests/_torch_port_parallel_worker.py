@@ -14,6 +14,7 @@ import pickle
 import sys
 import time
 import traceback
+from unittest import mock
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,11 +58,19 @@ def _patch_prefix_noise(noise):
 
 
 def trajectory(build, state_dict, loss, batches, mesh=None, lr=1e-2, clip=1.0, accum=1, multi=1,
-               shard_seq=False, min_fsdp=0, generators=False, layout=()):
-    """Losses of ``len(batches)`` Adam steps on ``mesh`` (None: no mesh, the
-    whole batch on this rank), the collective counts of each step and, for
-    the parameters named in ``layout``, the local shapes of the parameter
-    and of its Adam moments after the last step."""
+               shard_seq=False, min_fsdp=0, generators=False, layout=(), optimizer="adam", env=None):
+    """Losses of ``len(batches)`` steps of ``optimizer`` (``make_optimizer``'s
+    name) on ``mesh`` (None: no mesh, the whole batch on this rank), the
+    collective counts of each step and, for the parameters named in
+    ``layout``, the local shapes of the parameter and of its moments after
+    the last step. ``env`` holds environment variables set for the case."""
+    with mock.patch.dict(os.environ, env or {}):
+        return _trajectory(build, state_dict, loss, batches, mesh, lr, clip, accum, multi, shard_seq, min_fsdp,
+                           generators, layout, optimizer)
+
+
+def _trajectory(build, state_dict, loss, batches, mesh, lr, clip, accum, multi, shard_seq, min_fsdp, generators,
+                layout, optimizer):
     import numpy as np
     import torch
 
@@ -71,7 +80,7 @@ def trajectory(build, state_dict, loss, batches, mesh=None, lr=1e-2, clip=1.0, a
     from perceiver_io_tpu_torch.training.trainer import step_generator
 
     model = _model(build, state_dict)
-    tx = make_optimizer(lr, optimizer="adam")
+    tx = make_optimizer(lr, optimizer=optimizer)
     m = _mesh(mesh)
     if m is None:
         state = TrainState.create(model, tx)
@@ -162,12 +171,12 @@ def ring_model(build, state_dict, ids, prefix_len, seq):
 
 
 def trainer_fit(build, state_dict, loss, batches, mesh, root, trainer, noise=None, val=None,
-                resume=None, lr=1e-2, per_rank_root=False):
-    """``Trainer.fit`` over ``mesh`` with this rank's rows of each batch (its
-    loader shard: rank ``r`` of ``n`` holds rows ``[r·b/n, (r+1)·b/n)``);
-    returns rank 0's ``metrics.jsonl`` rows, the names under ``root`` (a
-    root per rank with ``per_rank_root``; None where nothing was written)
-    and the final parameters."""
+                resume=None, lr=1e-2, per_rank_root=False, optimizer="adam"):
+    """``Trainer.fit`` with ``optimizer`` over ``mesh`` with this rank's rows
+    of each batch (its loader shard: rank ``r`` of ``n`` holds rows ``[r·b/n,
+    (r+1)·b/n)``); returns rank 0's ``metrics.jsonl`` rows, the names under
+    ``root`` (a root per rank with ``per_rank_root``; None where nothing was
+    written) and the final parameters."""
     import json
 
     import torch.distributed as dist
@@ -187,7 +196,7 @@ def trainer_fit(build, state_dict, loss, batches, mesh, root, trainer, noise=Non
 
     model = _model(build, state_dict)
     cfg = TrainerConfig(**trainer, default_root_dir=root, resume=resume)
-    t = Trainer(cfg, _loss(model, loss), make_optimizer(lr, optimizer="adam"), model_config=build[2],
+    t = Trainer(cfg, _loss(model, loss), make_optimizer(lr, optimizer=optimizer), model_config=build[2],
                 device="cpu", mesh=m)
     val_data = None if val is None else (lambda: iter([shard(b) for b in val]))
     state = t.fit(model, [shard(b) for b in batches], val_data=val_data)

@@ -228,6 +228,52 @@ def test_auto_dispatch_follows_jax_supported(rng, d, types, causal, short):
                                    **(TOL if types[0] == "float32" else dict(atol=2e-2, rtol=2e-2)))
 
 
+# PERCEIVER_FLASH_MIN_KV against 256 keys: (the variable's value, unset as
+# None; the floor it parses to)
+MIN_KV_CASES = [(None, 0), ("512", 512), ("257", 257), ("256", 256), ("128", 128), ("abc", 0), ("", 0),
+                ("-4", -4)]
+
+
+@pytest.fixture
+def min_kv_env(monkeypatch):
+    monkeypatch.delenv("PERCEIVER_FLASH_MIN_KV", raising=False)
+    return monkeypatch
+
+
+@pytest.mark.parametrize("raw,floor", MIN_KV_CASES)
+def test_auto_key_floor_follows_jax_flash_eligible(min_kv_env, raw, floor):
+    # JAX's _flash_eligible with its platform test passed (a TPU backend):
+    # only the floor decides; the port's auto takes K1 exactly where it does
+    from perceiver_io_tpu.ops import attention as jax_attention
+
+    if raw is not None:
+        min_kv_env.setenv("PERCEIVER_FLASH_MIN_KV", raw)
+    min_kv_env.setattr(jax, "default_backend", lambda: "tpu")
+    shapes = [(1, 2, 128, 64), (1, 2, 256, 64), (1, 2, 256, 64)]
+    jax_takes = jax_attention._flash_eligible(*(np.zeros(shape, np.float32) for shape in shapes), 0.0)
+    assert attention.flash_min_kv() == floor
+    takes = attention.kernel_takes(*shapes, torch.float32, torch.float32, torch.float32, False,
+                                   min_kv=attention.flash_min_kv())
+    assert takes is jax_takes is (256 >= floor)
+    assert attention.kernel_takes(*shapes, torch.float32, torch.float32, torch.float32, False) is True
+
+
+def test_flash_by_name_ignores_the_key_floor(min_kv_env, rng):
+    # impl="flash" is a route asked for by name: the kernel's wrapper runs
+    # below the floor too (on the CPU its plain version)
+    min_kv_env.setenv("PERCEIVER_FLASH_MIN_KV", "4096")
+    calls = []
+    wrapper = attention._flash.flash_attention
+    min_kv_env.setattr(attention._flash, "flash_attention", lambda *a, **k: calls.append(1) or wrapper(*a, **k))
+    q, k, v = _t(*_qkv(rng, 1, 2, 64, 128, 64))
+    out = dot_product_attention(q, k, v, causal=True, impl="flash")
+    want = _attention_xla(*(jnp.asarray(t.numpy()) for t in (q, k, v)), None, True, 0.0, None)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **FLASH_TOL)
+    assert calls == [1]
+    dot_product_attention(q, k, v, causal=True)  # auto on the CPU: the plain path
+    assert calls == [1]
+
+
 def test_head_dim_tables_match_the_kernels():
     # HEAD_DIMS and SIMT_HEAD_DIMS are the (d, dv) pairs each K1-K3 route's
     # dispatch instantiates: the split, wgmma and tf32x3 routes expand the

@@ -13,6 +13,13 @@
   the image classifier at ``data=2`` and ``model=2``; a world of one equals
   the no-mesh step to the bit; a ``data=2`` fit with prefix dropout equals
   the port's own unsharded one (each rank keeps its rows of the draw).
+- **LAMB** over sharded parameters (``fsdp=2``, ``model=2``, ``fsdp=2,
+  model=2``: whole norms from one all-reduce a tuple of sharded axes)
+  against JAX's single-device ``optax.lamb`` at rtol 2e-4; a world of one
+  with LAMB equals the no-mesh LAMB step to the bit.
+- **Fused q/k/v** (``PERCEIVER_FUSED_QKV=1``) at ``model=2``: each rank's
+  one product over its column shards, against JAX's single-device
+  trajectory at rtol 2e-4.
 - **Layout**: after an ``fsdp=2`` step a sharded parameter's shard and its
   Adam moments hold half its rows or columns; the MLM's tied embedding
   shards.
@@ -280,6 +287,7 @@ def jax_baselines():
         "clm_accum4": jax_trajectory(j_model, params, loss, batches, accum=4),
         "mlm": jax_trajectory(mj, mparams, jax_tasks.mlm_loss_fn(mj), _mlm_batches()),
         "img": jax_trajectory(ij, iparams, jax_tasks.image_classifier_loss_fn(ij), _img_batches()),
+        "clm_lamb": jax_trajectory(j_model, params, loss, batches, optimizer="lamb"),
     }
 
 
@@ -320,6 +328,9 @@ def world2(tmp_path_factory):
         ("img_model2", "trajectory", _family_case(_img_pair, "image_classifier_loss_fn", _img_batches(),
                                                   dict(data=1, model=2))),
         ("outside", "outside_mesh", {}),
+        ("lamb_fsdp2", "trajectory", _clm_case(dict(data=1, fsdp=2), optimizer="lamb", layout=CLM_LAYOUT)),
+        ("lamb_model2", "trajectory", _clm_case(dict(data=1, model=2), optimizer="lamb")),
+        ("fused_model2", "trajectory", _clm_case(dict(data=1, model=2), env={"PERCEIVER_FUSED_QKV": "1"})),
     ]
     return run_world(tmp_path_factory.mktemp("parallel"), 2, cases)
 
@@ -329,6 +340,7 @@ def world4(tmp_path_factory):
     cases = [
         ("data2_model2", "trajectory", _clm_case(dict(data=2, model=2))),
         ("fsdp2_model2", "trajectory", _clm_case(dict(data=1, fsdp=2, model=2))),
+        ("lamb_fsdp2_model2", "trajectory", _clm_case(dict(data=1, fsdp=2, model=2), optimizer="lamb")),
     ]
     return run_world(tmp_path_factory.mktemp("parallel"), 4, cases)
 
@@ -343,6 +355,34 @@ def test_clm_sharded_matches_jax_single_device(world2, jax_baselines, case):
 def test_clm_composed_meshes_match_jax(world4, jax_baselines, case):
     for rank in world4:
         np.testing.assert_allclose(rank[case]["losses"], jax_baselines["clm"], rtol=TRAJ_RTOL)
+
+
+@pytest.mark.parametrize("world,case", [("world2", "lamb_fsdp2"), ("world2", "lamb_model2"),
+                                        ("world4", "lamb_fsdp2_model2")])
+def test_lamb_sharded_matches_jax_single_device(request, jax_baselines, world, case):
+    """The trust ratio's norms are the whole tensors' (summed over the
+    shards), so every rank's losses follow JAX's single-device LAMB."""
+    ranks = request.getfixturevalue(world)
+    for rank in ranks:
+        np.testing.assert_allclose(rank[case]["losses"], jax_baselines["clm_lamb"], rtol=TRAJ_RTOL)
+        assert rank[case]["losses"] == ranks[0][case]["losses"]
+    # the norms take one all-reduce per tuple of sharded axes a step, not one per parameter
+    lamb = ranks[0][case]["counts"][1]["all_reduce"]
+    adam = ranks[0][case.replace("lamb_", "")]["counts"][1]["all_reduce"]
+    assert lamb["calls"] - adam["calls"] == (2 if world == "world4" else 1), (lamb, adam)
+
+
+def test_lamb_fsdp_shards_its_moments(world2):
+    for rank in world2:
+        for name, lay in rank["lamb_fsdp2"]["layout"].items():
+            assert lay["param"] == lay["exp_avg"] == lay["exp_avg_sq"] != lay["full"], name
+
+
+def test_fused_qkv_model2_matches_jax_single_device(world2, jax_baselines):
+    """Each tensor-parallel rank projects its heads' q, k and v in one
+    product over its column shards (split at the local widths)."""
+    for rank in world2:
+        np.testing.assert_allclose(rank["fused_model2"]["losses"], jax_baselines["clm"], rtol=TRAJ_RTOL)
 
 
 @pytest.mark.parametrize("case,baseline", [("accum4_data2", "clm_accum4"), ("multi2_data2", "clm")])
@@ -411,6 +451,16 @@ def test_rank_outside_a_smaller_mesh_raises(world2):
 def test_world_of_one_equals_the_unsharded_step_bitwise(tmp_path):
     """In this process: a gloo world of one, the mesh ``data=1``; losses and
     parameters after 3 steps equal the no-mesh step's to the bit."""
+    _world_of_one_bitwise(tmp_path, "adam")
+
+
+def test_world_of_one_with_lamb_equals_the_unsharded_lamb_bitwise(tmp_path):
+    """As above with LAMB: nothing is sharded, so no norm reducer is
+    attached and the trust ratios are the local norms'."""
+    _world_of_one_bitwise(tmp_path, "lamb")
+
+
+def _world_of_one_bitwise(tmp_path, optimizer):
     j_model, params = _clm_pair()
     sd = state_dict_from_jax(params)
 
@@ -419,8 +469,9 @@ def test_world_of_one_equals_the_unsharded_step_bitwise(tmp_path):
 
         model = CausalLanguageModel(CausalLanguageModelConfig(**CLM_KW), device="cpu")
         model.load_state_dict(sd)
-        tx = make_optimizer(1e-2, optimizer="adam")
+        tx = make_optimizer(1e-2, optimizer=optimizer)
         state = TrainState.create(model, tx) if mesh is None else create_train_state(model, tx, mesh)[0]
+        assert getattr(state.optimizer, "norm_reducer", None) is None
         step = make_train_step(clm_loss_fn(model, LATENTS), grad_clip_norm=1.0, mesh=mesh, device="cpu")
         losses = []
         for b in clm_batches():

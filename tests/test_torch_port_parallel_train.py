@@ -8,7 +8,8 @@ mesh, against the JAX package's, on the CPU.
   writes nothing.
 - A snapshot written under ``fsdp=2`` resumes under ``data=2`` and under no
   mesh (this process), continuing the uninterrupted run's losses at rtol
-  2e-4; resumed on ``fsdp=2`` it continues it bit for bit.
+  2e-4; resumed on ``fsdp=2`` it continues it bit for bit. So does a LAMB
+  run's under ``fsdp=2`` (whole moments and the integer step in the file).
 - Two ranks through ``initialize``, ``host_shard_info``, the
   ``DataLoader``'s rank sharding and ``shard_or_assemble`` give the loss of
   one process's step over the whole batch (JAX's ``_multihost_worker.py``).
@@ -104,6 +105,13 @@ def world2(tmp_path_factory):
         ("resume_fsdp2", "trainer_fit", dict(common, build=_build(**CLM_KW), mesh=dict(data=1, fsdp=2),
                                              root=str(root / "resume_fsdp2"), trainer=TRAINER,
                                              resume=str(root / "half"))),
+        ("lamb_straight", "trainer_fit", dict(common, build=_build(**CLM_KW), mesh=dict(data=1, fsdp=2),
+                                              root=str(root / "lamb_straight"), trainer=snap, optimizer="lamb")),
+        ("lamb_first_half", "trainer_fit", dict(common, build=_build(**CLM_KW), mesh=dict(data=1, fsdp=2),
+                                                root=str(root / "lamb_half"), trainer=half, optimizer="lamb")),
+        ("lamb_resume_fsdp2", "trainer_fit", dict(common, build=_build(**CLM_KW), mesh=dict(data=1, fsdp=2),
+                                                  root=str(root / "lamb_resume"), trainer=TRAINER,
+                                                  resume=str(root / "lamb_half"), optimizer="lamb")),
         ("multihost", "multihost", dict(build=_build(**CLM_KW), state_dict=sd, loss=("clm_loss_fn", (LATENTS,)),
                                         dataset=_dataset(), batch_size=2)),
     ]
@@ -161,6 +169,27 @@ def test_snapshot_resumes_on_another_mesh_or_none(world2, tmp_path):
     snap = torch.load(world2["root"] / "half" / "resume" / "2" / port_checkpoint.STATE_FILE, weights_only=True)
     assert {k: tuple(v.shape) for k, v in snap["model"].items()} == {
         k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def test_lamb_snapshot_under_fsdp_resumes_bitwise(world2):
+    """LAMB under ``fsdp=2`` (its norm reducer attached): the step-2
+    snapshot holds whole moments and the integer step, and the run resumed
+    from it on ``fsdp=2`` continues the uninterrupted one bit for bit."""
+    r0 = world2["ranks"][0]
+    straight = _rows(r0["lamb_straight"]["rows"])
+    assert [s for s, _ in straight] == [1, 2, 3, 4]
+    assert _rows(r0["lamb_first_half"]["rows"]) == straight[:2]
+    assert _rows(r0["lamb_resume_fsdp2"]["rows"]) == straight[2:]
+    for name, value in r0["lamb_straight"]["params"].items():
+        assert np.array_equal(r0["lamb_resume_fsdp2"]["params"][name], value), name
+    snap = torch.load(world2["root"] / "lamb_half" / "resume" / "2" / port_checkpoint.STATE_FILE, weights_only=True)
+    shapes = {k: tuple(v.shape) for k, v in snap["model"].items()}
+    # the optimizer's state follows the parameters' order (none is frozen)
+    names = [n for n, _ in CausalLanguageModel(CausalLanguageModelConfig(**CLM_KW), device="cpu").named_parameters()]
+    assert sorted(snap["optimizer"]["state"]) == list(range(len(names)))
+    for i, st in snap["optimizer"]["state"].items():
+        assert st["step"] == 2 and isinstance(st["step"], int)
+        assert tuple(st["exp_avg"].shape) == tuple(st["exp_avg_sq"].shape) == shapes[names[i]], names[i]
 
 
 def test_two_processes_give_one_process_step_over_the_whole_batch(world2):

@@ -39,7 +39,8 @@ N = 32
 CFG = GenerationConfig(max_new_tokens=6, num_latents=2)
 TABLE = BucketTable(prompt_lens=(8, 16), batch_sizes=(1,))
 ENV_VARS = (strategy.ENV_VAR, strategy.ENV_KV_LAYOUT, strategy.ENV_PREFIX_CACHE,
-            strategy.ENV_SPECULATION, strategy.ENV_FILE, strategy.ENV_KV_QUANT_BUDGET)
+            strategy.ENV_SPECULATION, strategy.ENV_FILE, strategy.ENV_KV_QUANT_BUDGET,
+            "PERCEIVER_FUSED_QKV", "PERCEIVER_FLASH_MIN_KV")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -134,8 +135,8 @@ def test_resolution_order_matches_jax(pair, axis, monkeypatch):
             getattr(mod, resolver)("sometimes", model)
         with pytest.raises(ValueError):
             getattr(mod, recorder)(model, "auto")
-    # the port's key: the model's shape, its device type, no fingerprint
-    assert strategy.registry_key(t_model) == (strategy.shape_key(t_model), "cpu", ())
+    # the port's key: the model's shape, its device type, its two switches
+    assert strategy.registry_key(t_model) == (strategy.shape_key(t_model), "cpu", (False, 0))
     assert strategy.shape_key(t_model) == jax_strategy.shape_key(j_model)
 
 
@@ -183,7 +184,7 @@ def test_registry_roundtrip_corrupt_and_jax_files(pair, tmp_path):
                 {k: v for k, v in theirs.items() if k != "key"}
             if field != "swap_entries":
                 assert mine["key"]["shape"] == theirs["key"]["shape"]
-                assert mine["key"]["env"] == "()"
+                assert mine["key"]["env"] == "(False, 0)"
     strategy.reset_registry()
     assert strategy.load_registry(files[strategy]) == 5
     assert (strategy.lookup(t_model), strategy.lookup_kv_layout(t_model),
@@ -192,6 +193,13 @@ def test_registry_roundtrip_corrupt_and_jax_files(pair, tmp_path):
     assert strategy.kv_entry(t_model)["quant_gate"] == {"passed": True}
     assert strategy.spec_entry(t_model)["acceptance"] == {"k2d1": 0.75}
     assert strategy.swap_entry("cpu") == {"swap_gbps": 4.5, "bytes_moved": 10}
+    # a file written before the port read its switches (keys ending in
+    # ()) loads under the defaults' fingerprint
+    old = dict(port_file, entries=[{**e, "key": {**e["key"], "env": "()"}} for e in port_file["entries"]])
+    (tmp_path / "old.json").write_text(json.dumps(old))
+    strategy.reset_registry()
+    assert strategy.load_registry(str(tmp_path / "old.json")) == 5
+    assert strategy.lookup(t_model) == "recompute"
     # JAX's file loads under JAX's keys (its trace-env fingerprint), which
     # the port never looks up; the platform-keyed swap rate is shared
     strategy.reset_registry()
@@ -208,6 +216,25 @@ def test_registry_roundtrip_corrupt_and_jax_files(pair, tmp_path):
         path.write_text(bad)
         assert strategy.load_registry(str(path)) == jax_strategy.load_registry(str(path)) == 0
     assert strategy.load_registry(str(tmp_path / "missing.json")) == 0
+
+
+def test_registry_key_carries_both_switches(pair, monkeypatch):
+    """A verdict recorded with the switches at their defaults is not looked
+    up under another setting; the key's third part is JAX's fingerprint's
+    first two entries, normalised alike (an unparseable floor is 0)."""
+    from perceiver_io_tpu.models.core.modules import trace_env_fingerprint as jax_fingerprint
+
+    _, _, t_model = pair
+    strategy.record(t_model, "recompute")
+    for fused, min_kv, found in ((None, None, True), ("1", None, False), ("0", "512", False),
+                                 (None, "abc", True), ("true", "0", True), ("1", "512", False)):
+        for var, value in (("PERCEIVER_FUSED_QKV", fused), ("PERCEIVER_FLASH_MIN_KV", min_kv)):
+            if value is None:
+                monkeypatch.delenv(var, raising=False)
+            else:
+                monkeypatch.setenv(var, value)
+        assert strategy.registry_key(t_model)[2] == jax_fingerprint()[:2]
+        assert (strategy.lookup(t_model) == "recompute") is found, (fused, min_kv)
 
 
 # -- the autotuners under a scripted clock ------------------------------------
